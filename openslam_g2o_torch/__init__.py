@@ -1,0 +1,19 @@
+"""openslam_g2o_torch: the PyTorch/CUDA port of openslam_g2o_tpu.
+
+This package imports torch and numpy and never jax. The ported slice is
+the SE2 pose-graph Levenberg-Marquardt with block-Jacobi-scaled PCG on the
+block-sparse Hessian, from a .g2o file or the synthetic generator to a
+converged chi2; its hot loops run as hand-written CUDA kernels on an
+NVIDIA GPU (openslam_g2o_torch/kernels) and as their plain PyTorch versions
+on the CPU.
+
+    from openslam_g2o_torch import Graph, loads_g2o
+    from openslam_g2o_torch.core.algorithms import LevenbergMarquardtPCG, optimize
+    prob = loads_g2o(text).compile(dtype=torch.float32, device="cuda")
+    result, stats = optimize(prob, LevenbergMarquardtPCG(), iterations=10)
+"""
+from openslam_g2o_torch.models import slam2d as _slam2d  # registers SE2 types
+from openslam_g2o_torch.core.graph import Graph
+from openslam_g2o_torch.io.g2o_format import load_g2o, loads_g2o, save_g2o
+
+__all__ = ["Graph", "load_g2o", "loads_g2o", "save_g2o"]

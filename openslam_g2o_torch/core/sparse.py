@@ -1,0 +1,198 @@
+"""Block-ELL sparse Hessian of the SE2 pose graph, on one layout.
+
+Counterpart of openslam_g2o_tpu/core/sparse.py (:61-70, :243-617,
+:620-728, :871-908, :1143-1247) with ONE layout in place of the TPU's
+variants (DIA band split, two-tier overflow, stream-shift assembly and the
+scatter fallback were chosen for TPU gather costs; CHANGES.md lists what
+each replaced):
+
+    nb      [K, N] int32   column of neighbour slot k of block row n; slot 0
+                           is always the row's own (diagonal) block, the
+                           other slots follow in ascending column order, and
+                           padding slots point at column 0 with zero values
+    values  [K, 9, N]      entry 3s+t of the 3x3 block in slot k of row n
+    xT, bT  [3, N]         lane-major vectors, as in the JAX package
+
+Every row has a diagonal slot, so LM damping always lands on it, also for a
+vertex without edges. Per linearization: kernel B (kernels/edge_se2.py)
+writes the per-edge blocks into contribution streams, kernel C
+(kernels/assemble.py) gathers them into `values` and b through the
+destination-major tables built here once per topology, and kernel A
+(kernels/spmv.py) is the CG matvec. Damping, the 3x3 Cholesky inverse and
+the Jacobi scaling are plain PyTorch in this module.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from openslam_g2o_torch import kernels
+
+__all__ = ["EllPattern", "build_ell_pattern", "edge_blocks", "assemble_ell",
+           "diag_blocks", "add_diag", "scale_jacobi", "lane_block_mv",
+           "ell_matvec_lane"]
+
+
+@dataclass
+class EllPattern:
+    """Static-topology block-ELL pattern and contributor tables.
+
+    group: the vertex group (the only one: the slice is SE2 pose graphs).
+    nb: [K, N] int32 neighbour table (layout in the module docstring).
+    hidx: [mh, K*N] int32 destination-major contributor table: column ids
+        into kernel B's block stream hblk [9, 4E] of the contributions to
+        slot (k, n) at column k*N + n, packed from row 0 in stream order,
+        -1 after the last (the -1 is the mask).
+    bidx: [mb, N] int32, the same for b into bblk [3, 2E].
+    col0: edge group key -> first edge column of that group in the streams.
+    """
+    group: str
+    n: int
+    k: int
+    e_total: int
+    nb: torch.Tensor
+    hidx: torch.Tensor
+    bidx: torch.Tensor
+    col0: dict
+
+
+def _contrib_table(dest, n_dest, src):
+    """[M, n_dest] int32 table: column d lists src[i] of every i with
+    dest[i] == d, in the order of i, then -1 (sparse.py:202-240)."""
+    counts = np.bincount(dest, minlength=n_dest)
+    M = max(int(counts.max()) if len(dest) else 0, 1)
+    order = np.argsort(dest, kind="stable")
+    starts = np.zeros(n_dest + 1, dtype=np.int64)
+    np.cumsum(counts, out=starts[1:])
+    col = np.arange(len(dest), dtype=np.int64) - starts[dest[order]]
+    tbl = np.full((M, n_dest), -1, dtype=np.int32)
+    tbl[col, dest[order]] = src[order]
+    return tbl
+
+
+def build_ell_pattern(problem) -> EllPattern:
+    """Host-side symbolic phase (sparse.py:243-617 without the TPU layout
+    variants), vectorized numpy: neighbour slots of every block row and
+    the destination-major contributor tables of kernel C. Repeated (i, j)
+    pairs across edges share a slot, as the reference's shared mapped
+    Hessian blocks do (block_solver.hpp:143-295)."""
+    vgroups = problem.static.vgroups
+    if len(vgroups) != 1 or vgroups[0].tangent_dim != 3:
+        raise NotImplementedError(
+            "the block-ELL pattern of the port covers one SE2 vertex group")
+    g = vgroups[0]
+    N = g.count
+    col0, off = {}, 0
+    ii_parts, jj_parts = [], []
+    for eg in problem.static.egroups:
+        col0[eg.key] = off
+        off += eg.count
+        ea = problem.edges[eg.key]
+        ii_parts.append(ea.indices[0].cpu().numpy().astype(np.int64))
+        jj_parts.append(ea.indices[1].cpu().numpy().astype(np.int64))
+    E = off
+    ii = np.concatenate(ii_parts) if ii_parts else np.zeros(0, np.int64)
+    jj = np.concatenate(jj_parts) if jj_parts else np.zeros(0, np.int64)
+
+    # contributions in stream column order: block q = 2s+t of edge e sits
+    # in column q*E + e and lands at (row of slot s, column of slot t)
+    ends = (ii, jj)
+    rows = np.concatenate([ends[q // 2] for q in range(4)])
+    cols = np.concatenate([ends[q % 2] for q in range(4)])
+    # sort key per row: the diagonal first, then ascending columns; every
+    # row gets its diagonal slot even without edges
+    key = np.concatenate([
+        np.arange(N, dtype=np.int64) * (N + 1),
+        rows * (N + 1) + np.where(cols == rows, 0, cols + 1)])
+    uniq, inverse = np.unique(key, return_inverse=True)
+    u_rows = uniq // (N + 1)
+    u_ck = uniq % (N + 1)
+    u_cols = np.where(u_ck == 0, u_rows, u_ck - 1)
+    slot = np.arange(len(uniq)) - np.searchsorted(u_rows, np.arange(N))[u_rows]
+    K = int(np.bincount(u_rows, minlength=N).max()) if N else 1
+    nb = np.zeros((K, N), dtype=np.int32)
+    nb[slot, u_rows] = u_cols
+    inv_c = inverse[N:]
+    dest = slot[inv_c] * N + u_rows[inv_c]
+    hidx = _contrib_table(dest, K * N, np.arange(4 * E, dtype=np.int64))
+    bidx = _contrib_table(np.concatenate([ii, jj]), N,
+                          np.arange(2 * E, dtype=np.int64))
+    dev = problem.device
+    return EllPattern(g.name, N, K, E,
+                      torch.as_tensor(nb, device=dev),
+                      torch.as_tensor(hidx, device=dev),
+                      torch.as_tensor(bidx, device=dev), col0)
+
+
+def edge_blocks(problem, pattern: EllPattern):
+    """Kernel B over every edge group: the contribution streams
+    (hblk [9, 4E], bblk [3, 2E]) at the problem's current params."""
+    dt, dev = problem.dtype, problem.device
+    E = pattern.e_total
+    hblk = torch.empty((9, 4 * E), dtype=dt, device=dev)
+    bblk = torch.empty((3, 2 * E), dtype=dt, device=dev)
+    params = problem.params[pattern.group]
+    free = problem.free[pattern.group]
+    for eg in problem.static.egroups:
+        ea = problem.edges[eg.key]
+        kernels.edge_se2.edge_se2_blocks(
+            params, free, ea.indices[0], ea.indices[1], ea.measurement,
+            ea.information, ea.delta, eg.kernel_id, hblk, bblk,
+            pattern.col0[eg.key])
+    return hblk, bblk
+
+
+def assemble_ell(problem, pattern: EllPattern):
+    """Linearize and assemble: (values [K, 9, N], bT {group: [3, N]}) with
+    b = -J^T W r (kernels B then C; sparse.py:681-693)."""
+    hblk, bblk = edge_blocks(problem, pattern)
+    values, b = kernels.assemble.assemble_gather(
+        hblk, bblk, pattern.hidx, pattern.bidx, pattern.k, pattern.n)
+    return values, {pattern.group: b}
+
+
+def diag_blocks(pattern: EllPattern, values):
+    """{group: [N, 3, 3]} diagonal blocks: slot 0 of every row."""
+    return {pattern.group: values[0].reshape(3, 3, pattern.n).permute(2, 0, 1)}
+
+
+def add_diag(pattern: EllPattern, values, extra):
+    """Fold a per-vertex scalar into the diagonal of every row's diagonal
+    block (sparse.py:1173-1201): LM damping lam*free + (1 - free)."""
+    out = values.clone()
+    out[0, 0::4] += extra[None]          # entries (0,0), (1,1), (2,2)
+    return out
+
+
+def scale_jacobi(pattern: EllPattern, values, linv):
+    """Symmetric block-Jacobi scaling block(i, j) -> Linv_i B Linv_j^T
+    (sparse.py:1204-1247): the scaled system has unit diagonal blocks.
+    linv: [N, 3, 3] lower-triangular inverse Cholesky factors."""
+    K, N = pattern.k, pattern.n
+    B = values.view(K, 3, 3, N)
+    Li = linv.permute(1, 2, 0)                            # [3, 3, N]
+    # C[k, a, c, n] = sum_b Li[a, b, n] B[k, b, c, n]
+    C = (Li[None, :, :, None, :] * B[:, None]).sum(dim=2)
+    Lj = Li.reshape(9, N)[:, pattern.nb.long()]           # [9, K, N]
+    Lj = Lj.view(3, 3, K, N).permute(2, 0, 1, 3)          # [K, d, c, N]
+    # S[k, a, d, n] = sum_c C[k, a, c, n] Lj[k, d, c, n]
+    S = (C[:, :, None] * Lj[:, None]).sum(dim=3)
+    return S.reshape(K, 9, N)
+
+
+def lane_block_mv(mats_lane: dict, xT: dict, transpose: bool = False):
+    """y[a, n] = sum_b M[a, b, n] x[b, n] per group (transpose: M^T x) —
+    the [D, D, N] lane-major batched block application (sparse.py:871-880)."""
+    if transpose:
+        return {k: (M * xT[k][:, None, :]).sum(dim=0)
+                for k, M in mats_lane.items()}
+    return {k: (M * xT[k][None]).sum(dim=1) for k, M in mats_lane.items()}
+
+
+def ell_matvec_lane(pattern: EllPattern, values, xT: dict):
+    """y = H x on lane-major dicts (kernel A; sparse.py:883-908)."""
+    g = pattern.group
+    return {g: kernels.spmv.block_ell_spmv(pattern.nb, values,
+                                           xT[g].contiguous())}

@@ -1,0 +1,40 @@
+"""The port imports no JAX: in a fresh interpreter, import openslam_g2o_torch
+and run one small CPU optimization through the public API, then check that
+no jax module (nor the JAX package, which pulls jax in) was loaded."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent.parent
+
+SCRIPT = r"""
+import sys
+import torch
+torch.set_num_threads(1)
+import openslam_g2o_torch
+from openslam_g2o_torch import loads_g2o
+from openslam_g2o_torch.apps.simulator import synthetic_pose_graph_2d
+from openslam_g2o_torch.core.algorithms import LevenbergMarquardtPCG, optimize
+import openslam_g2o_torch.kernels.build
+import openslam_g2o_torch.interop
+
+prob, _ = synthetic_pose_graph_2d(n_poses=200, grid=10)
+_, stats = optimize(prob, LevenbergMarquardtPCG(pcg_iters=30, pcg_tol=1e-4),
+                    iterations=3)
+assert stats[-1]["chi2"] < stats[0]["chi2"] or stats[0]["ok"], stats
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib",
+                                            "openslam_g2o_tpu")))
+assert not bad, bad
+print("NO_JAX_OK")
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NO_JAX_OK" in proc.stdout
