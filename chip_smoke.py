@@ -1,26 +1,43 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Phases (one line each; any failure raises and the script exits non-zero):
+Phases (any failure raises and the script exits non-zero):
  1. the card: torch's device name and `nvidia-smi --query-gpu=name,
     power.limit --format=csv,noheader`; TF32 off for matmul and cuDNN;
- 2. build the CUDA kernels from openslam_g2o_torch/kernels/csrc with nvcc;
- 3. each kernel against its plain PyTorch version on the card, float32 and
-    float64, with the time per call of both (CUDA events, median):
-    kernel A at the slice shape and at the TPU probe's N=3500, K=10,
-    kernels B and C on the 100k-pose graph;
- 4. the slice: the 100,000-pose serpentine (noise 0.03 / 0.002, float32)
+ 2. build the CUDA kernels from openslam_g2o_torch/kernels/csrc with nvcc
+    (one process per source);
+ 3. every kernel against its plain PyTorch version on the card, float32 and
+    float64, with the time per call of both (CUDA events around 20 calls,
+    median of 15), its
+    bound (the larger of bytes / 3.35 TB/s and operations / 67 TFLOP/s)
+    and, where one PyTorch call computes the same function, that call's
+    time: kernels A-C and the trial-solve kernels on the 100k-pose graph,
+    kernel A and the lane gather at the TPU probe's shape, and the
+    NaN cases of the factor and scaling kernels: NaN in the same places,
+    exact zeros in the upper factor entries and in every padding slot.
+    The CG kernels' scalar buffer is held slot by slot, each scalar
+    relative to its own plain value and the pd/continue flags exactly,
+    also where they must be 0 (negative and NaN curvature, sticky pd,
+    r2 <= thresh);
+ 4. the main path: the 100,000-pose serpentine (noise 0.03 / 0.002, float32)
     through LevenbergMarquardtPCG's lambda init and lm_pcg_optimize_fused
     windows (pcg 100, tol 0.15) until chi2 <= 1.05 x the noise floor, then
     warm polish windows (pcg 600, tol 1e-6) until <= 1.02 x; the first 3
     iterations are held against the same run with every kernel replaced by
     its plain version, to rtol 2e-4 (float32 sums in another order);
- 5. a small .g2o string through loads_g2o -> compile(device="cuda") ->
-    optimize(LevenbergMarquardtPCG()), chi2 decreasing and equal to the CPU
-    run of the same graph;
- 6. every kernel's launch count in phase 4's main-path run, each > 0.
+ 4b. the Chebyshev path: the same graph with pcg_cheby=4, three windows of
+    10; finite, never increasing, below chi2_0, and the first 3 chi2 equal
+    to the plain route to rtol 2e-4;
+ 4c. the probe path: a block-ELL SpMV composed of the lane gather and a
+    multiply-sum on the TPU probe's data, against kernel A;
+ 5. a small .g2o string through loads_g2o -> compile() (the default
+    device) -> optimize(LevenbergMarquardtPCG()), chi2 decreasing and equal
+    to the CPU run of the same graph;
+ 6. every kernel's launch count in the paths of phases 4-4c, each > 0. A
+    count is one per wrapper call that launched; cg_finish launches two
+    kernels per vector and gershgorin_bound two per call.
 The last two lines are the per-kernel JSON and {"ok": true, "device": ...}.
 Exits non-zero without printing a result when no GPU is visible.
 """
@@ -31,18 +48,61 @@ import subprocess
 import sys
 import time
 
-# relative tolerances against the plain version, per kernel and dtype:
-# A and C sum a few products in another order with FMA contraction; B's pose
+# Relative tolerances against the plain version (largest |difference| over
+# the largest |plain| entry), per dtype. The default covers kernels that sum
+# a few products in another order with FMA contraction. Kernel B's pose
 # differences cancel (coordinates ~100 against residuals ~0.03), so a last
-# ulp of a coordinate shows in the residual
-TOL = {"A": {"float32": 2e-5, "float64": 1e-12},
-       "B": {"float32": 1e-4, "float64": 1e-11},
-       "C": {"float32": 2e-5, "float64": 1e-12}}
+# ulp of a coordinate shows in the residual. damp_chol subtracts squares
+# (a22 - l31^2 - l32^2) and divides by the result, so an FMA's last ulp is
+# amplified by the condition number of the block (the noise-free rotation
+# rows make it ~1e2); jacobi_scale and lane_block_mv multiply by those
+# factors. The lane gather copies values: it must agree exactly.
+TOL_DEFAULT = {"float32": 2e-5, "float64": 1e-12}
+TOL = {"edge_se2_blocks": {"float32": 1e-4, "float64": 1e-11},
+       "damp_chol": {"float32": 1e-4, "float64": 1e-11},
+       "lane_gather": {"float32": 0.0, "float64": 0.0}}
 PLAIN_ROUTE_RTOL = 2e-4
 N_POSES, GRID = 100000, 100
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+FP32_FLOPS = 67e12               # float32 outside the tensor cores
+
+# wrapper name -> (source under kernels/csrc, the JAX or Pallas code it
+# replaces)
+KERNELS = {
+    "block_ell_spmv": ("block_ell_spmv.cu",
+                       "scripts/probe_pallas_gather.py:90"),
+    "edge_se2_blocks": ("edge_se2_blocks.cu",
+                        "openslam_g2o_tpu/core/sparse.py:620"),
+    "assemble_gather": ("assemble_gather.cu",
+                        "openslam_g2o_tpu/core/sparse.py:1045"),
+    "damp_chol": ("damp_chol.cu", "openslam_g2o_tpu/core/solvers.py:63"),
+    "jacobi_scale": ("jacobi_scale.cu",
+                     "openslam_g2o_tpu/core/sparse.py:1204"),
+    "lane_block_mv": ("jacobi_scale.cu",
+                      "openslam_g2o_tpu/core/sparse.py:871"),
+    "spmv_dot": ("cg_step.cu", "openslam_g2o_tpu/core/solvers.py:263"),
+    "dot_partials": ("cg_step.cu", "openslam_g2o_tpu/core/solvers.py:157"),
+    "cg_residual": ("cg_step.cu", "openslam_g2o_tpu/core/solvers.py:245"),
+    "cg_start": ("cg_step.cu", "openslam_g2o_tpu/core/solvers.py:248"),
+    "cg_update_xr": ("cg_step.cu", "openslam_g2o_tpu/core/solvers.py:270"),
+    "cg_update_p": ("cg_step.cu", "openslam_g2o_tpu/core/solvers.py:275"),
+    "cg_finish": ("cg_step.cu", "openslam_g2o_tpu/core/solvers.py:288"),
+    "gershgorin_bound": ("chebyshev.cu",
+                         "openslam_g2o_tpu/core/sparse.py:1270"),
+    "chebyshev_coeffs": ("chebyshev.cu",
+                         "openslam_g2o_tpu/core/solvers.py:192"),
+    "chebyshev_init": ("chebyshev.cu",
+                       "openslam_g2o_tpu/core/solvers.py:198"),
+    "chebyshev_update": ("chebyshev.cu",
+                         "openslam_g2o_tpu/core/solvers.py:203"),
+    "lane_gather": ("lane_gather.cu", "scripts/probe_pallas_gather.py:53"),
+}
 
 
-def _median_ms(torch, fn, repeats=25, warmup=3):
+def _median_ms(torch, fn, repeats=15, inner=20, warmup=3):
+    """Median over `repeats` of the time per call in a run of `inner`
+    back-to-back calls between two CUDA events: what a call costs in a
+    loop, the wrapper's host work included."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -51,18 +111,45 @@ def _median_ms(torch, fn, repeats=25, warmup=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     times.sort()
     return times[len(times) // 2]
 
 
-def _errors(a, b):
-    a, b = a.double(), b.double()
-    abs_err = float((a - b).abs().max())
-    return abs_err, abs_err / max(float(b.abs().max()), 1e-300)
+def _errors(torch, got, want, same_nan=False):
+    """(max abs error, max error relative to the largest finite |entry| of
+    its output) over the tensors a kernel and its plain version returned.
+    With same_nan the two must be NaN in exactly the same places, and the
+    errors are taken over the other entries."""
+    as_tuple = lambda o: o if isinstance(o, (tuple, list)) else (o,)
+    abs_err = rel_err = 0.0
+    for g, w in zip(as_tuple(got), as_tuple(want), strict=True):
+        g, w = g.detach().double().reshape(-1), w.detach().double().reshape(-1)
+        if same_nan:
+            differ = int((torch.isnan(g) != torch.isnan(w)).sum())
+            if differ:
+                raise AssertionError(f"{differ} entries are NaN in only one "
+                                     "of kernel and plain version")
+            keep = ~torch.isnan(w)
+            g, w = g[keep], w[keep]
+        if w.numel() == 0:
+            continue
+        err = float((g - w).abs().max())
+        abs_err = max(abs_err, err)
+        rel_err = max(rel_err, err / max(float(w.abs().max()), 1e-300))
+    return abs_err, rel_err
+
+
+def _bound(nbytes, flops):
+    """(bound in ms, what bounds it) from the bytes a call must move and
+    the operations it does."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                        else "operations")
 
 
 def main() -> int:
@@ -80,7 +167,9 @@ def main() -> int:
         optimize)
     from openslam_g2o_torch.core.graph import Graph
     from openslam_g2o_torch.core.problem import robust_chi2
-    from openslam_g2o_torch.kernels import assemble, build, edge_se2, spmv
+    from openslam_g2o_torch.kernels import (
+        assemble, build, cg_step, chebyshev, damp_chol, edge_se2, gather,
+        jacobi_scale, spmv)
     from openslam_g2o_torch.utils import np_lie
 
     # -- 1. device --------------------------------------------------------
@@ -94,173 +183,592 @@ def main() -> int:
     card = smi.splitlines()[0]
     print(f"phase 1 device: torch={name!r} count="
           f"{torch.cuda.device_count()} torch {torch.__version__} cuda "
-          f"{torch.version.cuda}")
-    print(smi)
+          f"{torch.version.cuda}; nvidia-smi: {card}")
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.monotonic()
     build.load()
     built = build.last_build()
-    regs = [ln.strip() for ln in built["log"].splitlines()
-            if "registers" in ln]
+    regs = [int(ln.split("Used ")[1].split()[0])
+            for ln in built["log"].splitlines() if "Used " in ln]
+    spills = [ln for ln in built["log"].splitlines()
+              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads"
+              not in ln]
     print(f"phase 2 build: {time.monotonic() - t0:.2f} s "
-          f"(nvcc {built['seconds']:.2f} s) -> {built['path']}; ptxas: "
-          + " | ".join(regs))
+          f"(nvcc {built['seconds']:.2f} s, "
+          f"{len(list(build.CSRC.glob('*.cu')))} sources in parallel) -> "
+          f"{built['path']}; ptxas: {len(regs)} kernels, registers "
+          f"{min(regs, default=0)}-{max(regs, default=0)}, "
+          f"{len(spills)} with spills")
 
     # -- 3. kernels against their plain versions ---------------------------
     results = {}
+
+    def case(kname, tag, shape, run, plain, nbytes, flops, library=None,
+             same_nan=False, label=None, timed=True, post=None):
+        """Compare one kernel with its plain version (`run` and `plain`
+        return the tensors to compare; `post` first reduces partial sums
+        and splits a scalar buffer, on both sides), time both, and record
+        the row under (label or kname, tag)."""
+        post = post or (lambda out: out)
+        abs_e, rel_e = _errors(torch, post(run()), post(plain()), same_nan)
+        row = dict(abs=abs_e, rel=rel_e, shape=shape, kname=kname)
+        if timed:
+            row.update(ms=_median_ms(torch, run),
+                       plain_ms=_median_ms(torch, plain),
+                       library_ms=(None if library is None
+                                   else _median_ms(torch, library)))
+            row["bound_ms"], row["bound_by"] = _bound(nbytes, flops)
+        results[(label or kname, tag)] = row
+
     probs = {}
     for dt in (torch.float32, torch.float64):
         tag = str(dt).split(".")[-1]
+        s = torch.empty((), dtype=dt).element_size()
         prob, info = synthetic_pose_graph_2d(
             n_poses=N_POSES, grid=GRID, trans_noise=0.03, rot_noise=0.002,
-            dtype=dt, device=dev)
+            dtype=dt)
+        if prob.device.type != "cuda":
+            raise AssertionError("the default device is not the card")
         floor = info["noise_floor_chi2"]
         probs[tag] = prob
         pattern = sparse.build_ell_pattern(prob)
+        N, K, E = pattern.n, pattern.k, pattern.e_total
         ea = prob.edges["edge_se2"]
-        E = pattern.e_total
+        gen = torch.Generator(device=dev).manual_seed(0)
+        randn = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                           dtype=dt)
+
+        # B and C
         hk = torch.empty((9, 4 * E), dtype=dt, device=dev)
         bk = torch.empty((3, 2 * E), dtype=dt, device=dev)
-        hp, bp = torch.empty_like(hk), torch.empty_like(bk)
+        hp_, bp_ = torch.empty_like(hk), torch.empty_like(bk)
         args = (prob.params["se2"], prob.free["se2"], ea.indices[0],
                 ea.indices[1], ea.measurement, ea.information, ea.delta, 0)
-        run_b = lambda: edge_se2.edge_se2_blocks(*args, hk, bk, 0)
-        run_bp = lambda: edge_se2.edge_se2_blocks_plain(*args, hp, bp, 0)
-        run_b()
-        run_bp()
-        errs = [_errors(hk, hp), _errors(bk, bp)]
-        results[("B", tag)] = dict(
-            abs=max(e[0] for e in errs), rel=max(e[1] for e in errs),
-            ms=_median_ms(torch, run_b), plain_ms=_median_ms(torch, run_bp),
-            shape=f"E={E}")
-        cargs = (hk, bk, pattern.hidx, pattern.bidx, pattern.k, pattern.n)
-        vk, bvk = assemble.assemble_gather(*cargs)
-        vp, bvp = assemble.assemble_gather_plain(*cargs)
-        errs = [_errors(vk, vp), _errors(bvk, bvp)]
-        results[("C", tag)] = dict(
-            abs=max(e[0] for e in errs), rel=max(e[1] for e in errs),
-            ms=_median_ms(torch, lambda: assemble.assemble_gather(*cargs)),
-            plain_ms=_median_ms(
-                torch, lambda: assemble.assemble_gather_plain(*cargs)),
-            shape=f"N={pattern.n} K={pattern.k} mh={pattern.hidx.shape[0]}")
-        gen = torch.Generator(device=dev).manual_seed(0)
-        r = np.random.default_rng(0)      # the probe's random block-ELL
+
+        def run_b():
+            edge_se2.edge_se2_blocks(*args, hk, bk, 0)
+            return hk, bk
+
+        def plain_b():
+            edge_se2.edge_se2_blocks_plain(*args, hp_, bp_, 0)
+            return hp_, bp_
+
+        case("edge_se2_blocks", tag, f"E={E}", run_b, plain_b,
+             nbytes=s * (4 * N + 13 * E + 42 * E) + 8 * E, flops=400 * E)
+        cargs = (hk, bk, pattern.hidx, pattern.bidx, K, N)
+        hdest = torch.empty(4 * E, dtype=torch.long, device=dev)
+        bdest = torch.empty(2 * E, dtype=torch.long, device=dev)
+        for tbl, dest in ((pattern.hidx, hdest), (pattern.bidx, bdest)):
+            cols = torch.arange(tbl.shape[1], device=dev).expand_as(tbl)
+            dest[tbl[tbl >= 0].long()] = cols[tbl >= 0]
+        lib_v = torch.zeros((9, K * N), dtype=dt, device=dev)
+        lib_b = torch.zeros((3, N), dtype=dt, device=dev)
+
+        def lib_c():                         # accumulates; timed only
+            lib_v.index_add_(1, hdest, hk)
+            lib_b.index_add_(1, bdest, bk)
+
+        case("assemble_gather", tag,
+             f"N={N} K={K} mh={pattern.hidx.shape[0]}",
+             lambda: assemble.assemble_gather(*cargs),
+             lambda: assemble.assemble_gather_plain(*cargs),
+             nbytes=s * (42 * E + 9 * K * N + 3 * N)
+             + 4 * (pattern.hidx.numel() + pattern.bidx.numel()),
+             flops=36 * E, library=lib_c)
+        values, b = assemble.assemble_gather(*cargs)
+        del hk, bk, hp_, bp_, lib_v, lib_b
+
+        # A at the slice shape (library: a BSR product) and the probe's
+        r = np.random.default_rng(0)
         probe_nb = torch.as_tensor(
             r.integers(0, 3500, (10, 3500)).astype(np.int32), device=dev)
         probe_vals = torch.as_tensor(r.normal(size=(10, 9, 3500)), dtype=dt,
                                      device=dev)
-        for label, nb, vals in (("slice", pattern.nb, vk),
-                                ("probe", probe_nb, probe_vals)):
-            x = torch.randn((3, nb.shape[1]), generator=gen, device=dev,
-                            dtype=dt)
-            abs_e, rel_e = _errors(spmv.block_ell_spmv(nb, vals, x),
-                                   spmv.block_ell_spmv_plain(nb, vals, x))
-            results[("A" if label == "slice" else "A-probe", tag)] = dict(
-                abs=abs_e, rel=rel_e,
-                ms=_median_ms(torch, lambda: spmv.block_ell_spmv(nb, vals, x)),
-                plain_ms=_median_ms(
-                    torch, lambda: spmv.block_ell_spmv_plain(nb, vals, x)),
-                shape=f"N={nb.shape[1]} K={nb.shape[0]}")
-        del hk, bk, hp, bp, vk, vp
+        x = randn(3, N)
+        rows_ = torch.arange(N, device=dev).expand(K, N)
+        real = (values != 0).any(dim=1)       # every slot but the padding
+        real[0] = True
+        order = torch.argsort(rows_[real] * N + pattern.nb[real].long())
+        bsr = torch.sparse_bsr_tensor(
+            torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                       torch.cumsum(real.sum(dim=0), 0)]),
+            pattern.nb[real].long()[order],
+            values.permute(0, 2, 1)[real][order].reshape(-1, 3, 3),
+            size=(3 * N, 3 * N))
+        x_col = x.t().reshape(3 * N, 1).contiguous()
+        lib_y = (bsr @ x_col).reshape(N, 3).t()
+        _, lib_rel = _errors(torch, lib_y,
+                             spmv.block_ell_spmv_plain(pattern.nb, values, x))
+        if lib_rel > TOL_DEFAULT[tag] * 10:
+            raise AssertionError(f"the BSR yardstick disagrees: {lib_rel}")
+        case("block_ell_spmv", tag, f"N={N} K={K}",
+             lambda: spmv.block_ell_spmv(pattern.nb, values, x),
+             lambda: spmv.block_ell_spmv_plain(pattern.nb, values, x),
+             nbytes=s * (9 * K * N + 6 * N) + 4 * K * N, flops=18 * K * N,
+             library=lambda: bsr @ x_col)
+        xp = randn(3, 3500)
+        case("block_ell_spmv", tag, "N=3500 K=10",
+             lambda: spmv.block_ell_spmv(probe_nb, probe_vals, xp),
+             lambda: spmv.block_ell_spmv_plain(probe_nb, probe_vals, xp),
+             nbytes=s * (90 * 3500 + 6 * 3500) + 40 * 3500,
+             flops=180 * 3500, label="block_ell_spmv@probe")
+        del bsr
+
+        # K3 and K4 at lambda0, and their NaN cases
+        free = prob.free["se2"]
+        lam = _lambda_init_pcg(prob, pattern, prob.params,
+                               torch.tensor(1e-5, dtype=dt, device=dev))
+        case("damp_chol", tag, f"N={N}",
+             lambda: damp_chol.damp_chol(values, free, b, lam),
+             lambda: damp_chol.damp_chol_plain(values, free, b, lam),
+             nbytes=s * (9 + 1 + 3 + 9 + 9 + 3 + 1) * N, flops=60 * N)
+        bad_values = values.clone()
+        bad_values[0, 0, 7] = -1.0e6          # block 7 is not SPD
+        case("damp_chol", tag, f"N={N}, block 7 not SPD",
+             lambda: damp_chol.damp_chol(bad_values, free, b, lam),
+             lambda: damp_chol.damp_chol_plain(bad_values, free, b, lam),
+             0, 0, same_nan=True, label="damp_chol@nan", timed=False)
+        for fn in (damp_chol.damp_chol, damp_chol.damp_chol_plain):
+            f_inv, f_chol = fn(bad_values, free, b, lam)[:2]
+            if not (torch.isnan(f_inv[:, 7]).any()
+                    and torch.isnan(f_chol[:, 7]).any()):
+                raise AssertionError("a non-SPD block did not give NaN "
+                                     "factors")
+            if (f_inv[[1, 2, 5]] != 0).any() or (f_chol[[1, 2, 5]] != 0).any():
+                raise AssertionError("an upper entry of a factor is not 0")
+        del bad_values
+        linv, lchol, bhat, extra = damp_chol.damp_chol(values, free, b, lam)
+        case("jacobi_scale", tag, f"N={N} K={K}",
+             lambda: jacobi_scale.jacobi_scale(pattern.nb, values, linv,
+                                               extra),
+             lambda: jacobi_scale.jacobi_scale_plain(pattern.nb, values,
+                                                     linv, extra),
+             nbytes=s * (18 * K * N + 10 * N) + 4 * K * N,
+             flops=108 * K * N)
+        bad_linv = linv.clone()
+        bad_linv[:, 0] = float("nan")         # row 0's factor
+        pad = (values == 0).all(dim=1)          # [K, N] empty slots
+        pad[0] = False
+        n_pad = int(pad.sum())
+        case("jacobi_scale", tag,
+             f"N={N} K={K}, NaN factor in row 0, {n_pad} padding slots",
+             lambda: jacobi_scale.jacobi_scale(pattern.nb, values, bad_linv,
+                                               extra),
+             lambda: jacobi_scale.jacobi_scale_plain(pattern.nb, values,
+                                                     bad_linv, extra),
+             0, 0, same_nan=True, label="jacobi_scale@nan", timed=False)
+        if n_pad == 0:
+            raise AssertionError("the NaN case has no padding slot")
+        for fn in (jacobi_scale.jacobi_scale, jacobi_scale.jacobi_scale_plain):
+            scaled = fn(pattern.nb, values, bad_linv, extra)
+            if (scaled.permute(0, 2, 1)[pad] != 0).any():
+                raise AssertionError("a padding slot is not exactly zero")
+            if not torch.isnan(scaled[0, :, 0]).all():
+                raise AssertionError("row 0's NaN factor did not show")
+        del bad_linv
+        lchol3 = lchol.view(3, 3, N)
+        case("lane_block_mv", tag, f"N={N} (and its transpose)",
+             lambda: (jacobi_scale.lane_block_mv(lchol, x, True),
+                      jacobi_scale.lane_block_mv(linv, x, False)),
+             lambda: (jacobi_scale.lane_block_mv_plain(lchol, x, True),
+                      jacobi_scale.lane_block_mv_plain(linv, x, False)),
+             nbytes=2 * s * 15 * N, flops=2 * 18 * N,
+             library=lambda: (torch.einsum("ban,bn->an", lchol3, x),
+                              torch.einsum("abn,bn->an", linv.view(3, 3, N),
+                                           x)))
+        svals = jacobi_scale.jacobi_scale(pattern.nb, values, linv, extra)
+
+        # K6 on the scaled system
+        n = 3 * N
+        p = randn(3, N)
+        spmv_bytes = s * (9 * K * N + 6 * N) + 4 * K * N
+        def sums(*which, scal=False):
+            """Reduce the partial-sum outputs at the given positions. With
+            `scal` the last output is the scalar buffer and is split into
+            its slots, one tensor each, so that every scalar is held
+            relative to its own plain value and not to the largest of the
+            ten (rz, r2 and b2 are ~|b|^2; alpha, beta and the flags ~1)."""
+            def post(out):
+                out = [o.sum() if i in which else o
+                       for i, o in enumerate(out)]
+                return (*out[:-1], *out[-1].unbind()) if scal else tuple(out)
+            return post
+
+        flags = [cg_step.PD, cg_step.CONT, cg_step.PD_NEXT]
+
+        def check_flags(what, scal_kernel, scal_plain, **expect):
+            """The 0/1 slots agree exactly, and hold the expected values
+            (slot name -> 0.0 or 1.0) in kernel and plain version alike."""
+            if not torch.equal(scal_kernel[flags], scal_plain[flags]):
+                raise AssertionError(
+                    f"{what}: the pd/continue flags differ: kernel "
+                    f"{scal_kernel[flags].tolist()} plain "
+                    f"{scal_plain[flags].tolist()}")
+            for slot, value in expect.items():
+                for route, sc in (("kernel", scal_kernel),
+                                  ("plain", scal_plain)):
+                    if float(sc[getattr(cg_step, slot)]) != value:
+                        raise AssertionError(
+                            f"{what}: {route} {slot} is not {value}: "
+                            f"{sc.tolist()}")
+
+        case("spmv_dot", tag, f"N={N} K={K}",
+             lambda: cg_step.spmv_dot(pattern.nb, svals, p),
+             lambda: cg_step.spmv_dot_plain(pattern.nb, svals, p),
+             nbytes=spmv_bytes, flops=18 * K * N + 6 * N, post=sums(1))
+        a_vec = randn(3, N)
+        b_vec = a_vec + 0.1 * randn(3, N)
+        case("dot_partials", tag, f"n={n}",
+             lambda: cg_step.dot_partials(a_vec, b_vec),
+             lambda: cg_step.dot_partials_plain(a_vec, b_vec),
+             nbytes=2 * s * n, flops=2 * n, post=torch.sum,
+             library=lambda: torch.dot(a_vec.view(-1), b_vec.view(-1)))
+        hx = spmv.block_ell_spmv(pattern.nb, svals, x)
+        case("cg_residual", tag, f"n={n}",
+             lambda: cg_step.cg_residual(bhat, hx),
+             lambda: cg_step.cg_residual_plain(bhat, hx),
+             nbytes=4 * s * n, flops=5 * n, post=sums(2, 3))
+        r0, p0, part_rr, part_bb = cg_step.cg_residual(bhat, hx)
+        scal_k, scal_p = cg_step.new_scalars(r0), cg_step.new_scalars(r0)
+
+        def run_start(fn, scal, part_rz=part_rr, tol=0.15):
+            fn(scal, part_rz, part_rr, part_bb, tol, True)
+            return (scal,)
+
+        case("cg_start", tag, f"{part_rr.numel()} partials",
+             lambda: run_start(cg_step.cg_start, scal_k),
+             lambda: run_start(cg_step.cg_start_plain, scal_p),
+             nbytes=s * (3 * part_rr.numel() + cg_step.N_SCALARS),
+             flops=3 * part_rr.numel(), post=sums(scal=True))
+        check_flags("cg_start", scal_k, scal_p, PD=1.0, CONT=1.0,
+                    PD_NEXT=1.0, ALPHA=0.0, BETA=0.0)
+        # r2 = b2 <= thresh = 4 b2: the solve must not start
+        stop_k, stop_p = cg_step.new_scalars(r0), cg_step.new_scalars(r0)
+        case("cg_start", tag, "r2 <= thresh",
+             lambda: run_start(cg_step.cg_start, stop_k, part_bb, 2.0),
+             lambda: run_start(cg_step.cg_start_plain, stop_p, part_bb, 2.0),
+             0, 0, post=sums(scal=True), label="cg_start@stop", timed=False)
+        check_flags("cg_start, r2 <= thresh", stop_k, stop_p, PD=1.0,
+                    CONT=0.0)
+        hp0, part_pap = cg_step.spmv_dot(pattern.nb, svals, p0)
+
+        def cg_state():
+            """Two equal copies of a CG state after cg_start, for the
+            kernel and the plain version to step in place."""
+            return {route: dict(x=x.clone(), r=r0.clone(), p=p0.clone(),
+                                scal=scal_k.clone()) for route in ("k", "p")}
+
+        def run_xr(fn, st, part=part_pap):
+            out = fn(st["scal"], part, st["x"], st["r"], st["p"], hp0)
+            return st["x"], st["r"], out, st["scal"]
+
+        z0 = r0.clone()
+        part_rz = cg_step.dot_partials(z0, z0)
+
+        def run_p(fn, st):
+            fn(st["scal"], part_rz, part_rz, z0, st["p"], True)
+            return st["p"], st["scal"]
+
+        state = cg_state()
+        case("cg_update_xr", tag, f"n={n}",
+             lambda: run_xr(cg_step.cg_update_xr, state["k"]),
+             lambda: run_xr(cg_step.cg_update_xr_plain, state["p"]),
+             nbytes=6 * s * n, flops=6 * n, post=sums(2, scal=True))
+        check_flags("cg_update_xr", state["k"]["scal"], state["p"]["scal"],
+                    PD=1.0, PD_NEXT=1.0)
+        for st in state.values():             # the timing runs moved r
+            st["r"].copy_(r0)
+        case("cg_update_p", tag, f"n={n}",
+             lambda: run_p(cg_step.cg_update_p, state["k"]),
+             lambda: run_p(cg_step.cg_update_p_plain, state["p"]),
+             nbytes=3 * s * n, flops=2 * n, post=sums(scal=True))
+        check_flags("cg_update_p", state["k"]["scal"], state["p"]["scal"],
+                    PD=1.0, PD_NEXT=1.0, CONT=1.0)
+        # a direction of negative curvature (p . hp < 0) and one with a
+        # NaN: pd goes off and stays off, alpha is 0, x and r stay, and
+        # the next cg_update_p clears the continue flag
+        nan_pap = part_pap.clone()
+        nan_pap[0] = float("nan")
+        for what, part in (("p.Hp < 0", -part_pap), ("p.Hp NaN", nan_pap)):
+            state = cg_state()
+            case("cg_update_xr", tag, f"n={n}, {what}",
+                 lambda: run_xr(cg_step.cg_update_xr, state["k"], part),
+                 lambda: run_xr(cg_step.cg_update_xr_plain, state["p"],
+                                part),
+                 0, 0, post=sums(2, scal=True),
+                 label=f"cg_update_xr@{what}", timed=False)
+            check_flags(f"cg_update_xr, {what}", state["k"]["scal"],
+                        state["p"]["scal"], PD=1.0, PD_NEXT=0.0, ALPHA=0.0)
+            for st in state.values():
+                if not (torch.equal(st["x"], x) and torch.equal(st["r"], r0)):
+                    raise AssertionError(f"cg_update_xr, {what}: alpha 0 "
+                                         "moved x or r")
+            case("cg_update_p", tag, f"n={n}, after {what}",
+                 lambda: run_p(cg_step.cg_update_p, state["k"]),
+                 lambda: run_p(cg_step.cg_update_p_plain, state["p"]),
+                 0, 0, post=sums(scal=True),
+                 label=f"cg_update_p@{what}", timed=False)
+            check_flags(f"cg_update_p after {what}", state["k"]["scal"],
+                        state["p"]["scal"], PD=0.0, PD_NEXT=0.0, CONT=0.0)
+            # once off, pd stays off whatever the next curvature is
+            for fn, st in ((cg_step.cg_update_xr, state["k"]),
+                           (cg_step.cg_update_xr_plain, state["p"])):
+                run_xr(fn, st)
+            check_flags(f"cg_update_xr, sticky pd after {what}",
+                        state["k"]["scal"], state["p"]["scal"], PD=0.0,
+                        PD_NEXT=0.0, ALPHA=0.0)
+        # converged (r2 <= thresh) with pd on: the continue flag goes off
+        state = cg_state()
+        for st in state.values():
+            st["scal"][cg_step.THRESH] = 1e30
+        case("cg_update_p", tag, f"n={n}, r2 <= thresh",
+             lambda: run_p(cg_step.cg_update_p, state["k"]),
+             lambda: run_p(cg_step.cg_update_p_plain, state["p"]),
+             0, 0, post=sums(scal=True), label="cg_update_p@stop",
+             timed=False)
+        check_flags("cg_update_p, r2 <= thresh", state["k"]["scal"],
+                    state["p"]["scal"], PD=1.0, CONT=0.0)
+        for bad in (False, True):
+            xs = {r_: x.clone() for r_ in ("k", "p")}
+            if bad:
+                for v in xs.values():
+                    v[1, 5] = float("nan")
+            if bool(cg_step.cg_finish(scal_k, [xs["k"].clone()])) == bad:
+                raise AssertionError("cg_finish: wrong ok flag")
+            case("cg_finish", tag, f"n={n}" + (", one NaN in x" if bad
+                                               else ""),
+                 lambda: (cg_step.cg_finish(scal_k, [xs["k"]]), xs["k"]),
+                 lambda: (cg_step.cg_finish_plain(scal_k, [xs["p"]]),
+                          xs["p"]),
+                 nbytes=s * n, flops=n, same_nan=bad,
+                 label="cg_finish@nan" if bad else None, timed=not bad)
+
+        # K8
+        case("gershgorin_bound", tag, f"N={N} K={K}",
+             lambda: chebyshev.gershgorin_bound(svals),
+             lambda: chebyshev.gershgorin_bound_plain(svals),
+             nbytes=9 * s * K * N, flops=18 * K * N)
+        hi = chebyshev.gershgorin_bound(svals)
+        lo = hi * 0.02
+        case("chebyshev_coeffs", tag, "degree 4",
+             lambda: chebyshev.chebyshev_coeffs(lo, hi, 4),
+             lambda: chebyshev.chebyshev_coeffs_plain(lo, hi, 4),
+             nbytes=9 * s, flops=30)
+        coef = chebyshev.chebyshev_coeffs(lo, hi, 4)
+        case("chebyshev_init", tag, f"n={n}",
+             lambda: chebyshev.chebyshev_init(coef, r0),
+             lambda: chebyshev.chebyshev_init_plain(coef, r0),
+             nbytes=3 * s * n, flops=n)
+        d0, zc0 = chebyshev.chebyshev_init(coef, r0)
+        sz = spmv.block_ell_spmv(pattern.nb, svals, zc0)
+        dz = {r_: (d0.clone(), zc0.clone()) for r_ in ("k", "p")}
+
+        def run_cu(fn, pair):
+            fn(coef, 1, r0, sz, *pair)
+            return pair
+
+        case("chebyshev_update", tag, f"n={n}",
+             lambda: run_cu(chebyshev.chebyshev_update, dz["k"]),
+             lambda: run_cu(chebyshev.chebyshev_update_plain, dz["p"]),
+             nbytes=6 * s * n, flops=5 * n)
+
+        # the lane gather at the probe's shape
+        gx = torch.as_tensor(r.normal(size=(8, 3500)), dtype=dt, device=dev)
+        gidx = torch.as_tensor(
+            r.integers(0, 3500, (8, 35000)).astype(np.int32), device=dev)
+        gidx_long = gidx.long()
+        case("lane_gather", tag, "R=8 N=3500 M=35000",
+             lambda: gather.lane_gather(gx, gidx),
+             lambda: gather.lane_gather_plain(gx, gidx),
+             nbytes=s * 8 * (3500 + 35000) + 4 * 8 * 35000, flops=0,
+             library=lambda: torch.gather(gx, 1, gidx_long))
+        del values, svals, state, dz, linv, lchol
     torch.cuda.synchronize()
-    for (kname, tag), r in sorted(results.items()):
-        tol = TOL[kname[0]][tag]
-        ok = r["rel"] <= tol
-        print(f"phase 3 kernel {kname} {tag} {r['shape']}: max_abs_err "
-              f"{r['abs']:.3e} max_rel_err {r['rel']:.3e} (tol {tol:g}) "
-              f"kernel {r['ms']:.4f} ms plain {r['plain_ms']:.4f} ms "
-              f"[{card}] {'OK' if ok else 'FAIL'}")
+    for (label, tag), row in sorted(results.items()):
+        tol = TOL.get(row["kname"], TOL_DEFAULT)[tag]
+        ok = row["rel"] <= tol
+        timing = ""
+        if "ms" in row:
+            lib = ("none" if row["library_ms"] is None
+                   else f"{row['library_ms']:.4f} ms")
+            timing = (f" kernel {row['ms']:.4f} ms plain "
+                      f"{row['plain_ms']:.4f} ms bound "
+                      f"{row['bound_ms']:.5f} ms ({row['bound_by']}) "
+                      f"library {lib}")
+        print(f"phase 3 kernel {label} {tag} {row['shape']}: max_abs_err "
+              f"{row['abs']:.3e} max_rel_err {row['rel']:.3e} (tol {tol:g})"
+              f"{timing} [{card}] {'OK' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError(f"kernel {kname} {tag} disagrees with its "
-                                 f"plain version: {r['rel']:.3e} > {tol:g}")
+            raise AssertionError(f"kernel {label} {tag} disagrees with its "
+                                 f"plain version: {row['rel']:.3e} > {tol:g}")
     del probs["float64"]
 
-    # -- 4. the slice on the card -------------------------------------------
+    # -- 4. the paths on the card -------------------------------------------
     prob = probs["float32"]
-    pcg = dict(pcg_iters=100, pcg_tol=0.15)
-    alg = LevenbergMarquardtPCG(**pcg)
-    torch.cuda.synchronize()
-    kernels.reset_launch_counts()
-    t_start = time.monotonic()
-    state = alg.init(prob)
-    pattern = alg.pattern(prob)
-    st = (state["params"], state["lam"], state["ni"], state["chi2"])
-    torch.cuda.synchronize()
-    init_s = time.monotonic() - t_start
-    lam0, chi0 = float(st[1]), float(st[3])
+    # every wrapper and its plain version, for the plain-route runs
+    swaps = [(spmv, "block_ell_spmv"), (edge_se2, "edge_se2_blocks"),
+             (assemble, "assemble_gather"), (damp_chol, "damp_chol"),
+             (jacobi_scale, "jacobi_scale"), (jacobi_scale, "lane_block_mv"),
+             (cg_step, "spmv_dot"), (cg_step, "dot_partials"),
+             (cg_step, "cg_residual"), (cg_step, "cg_start"),
+             (cg_step, "cg_update_xr"), (cg_step, "cg_update_p"),
+             (cg_step, "cg_finish"), (chebyshev, "gershgorin_bound"),
+             (chebyshev, "chebyshev_coeffs"), (chebyshev, "chebyshev_init"),
+             (chebyshev, "chebyshev_update"), (gather, "lane_gather")]
 
-    def window(s, n, **kw):
+    def plain_route(alg, pattern, ni, **pcg):
+        """The first 3 iterations with every wrapper swapped for its plain
+        version (CUDA tensors, plain PyTorch ops): (lambda0, chi2 list)."""
+        before = kernels.launch_counts()
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr in swaps]
+        try:
+            for mod, attr in swaps:
+                setattr(mod, attr, getattr(mod, attr + "_plain"))
+            lam_p = _lambda_init_pcg(
+                prob, pattern, prob.params,
+                torch.tensor(alg.tau, dtype=prob.dtype, device=dev))
+            out_p = lm_pcg_optimize_fused(
+                prob, pattern, prob.params, lam_p, ni, robust_chi2(prob),
+                n_iters=3, **pcg)
+        finally:
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
+        if kernels.launch_counts() != before:
+            raise AssertionError("the plain-route run launched a kernel")
+        return float(lam_p), out_p[4].tolist()
+
+    def start(alg):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
         t = time.monotonic()
-        out = lm_pcg_optimize_fused(prob, pattern, *s, n_iters=n, **kw)
+        state = alg.init(prob)
+        pattern = alg.pattern(prob)
+        torch.cuda.synchronize()
+        return state, pattern, time.monotonic() - t, t
+
+    def window(pattern, st, n, **kw):
+        t = time.monotonic()
+        out = lm_pcg_optimize_fused(prob, pattern, *st, n_iters=n, **kw)
         torch.cuda.synchronize()
         return out[:4], out[4].tolist(), time.monotonic() - t
 
-    st, first_traj, dt_first = window(st, 10, **pcg)
+    # 4. main path
+    pcg = dict(pcg_iters=100, pcg_tol=0.15)
+    alg = LevenbergMarquardtPCG(**pcg)
+    state, pattern, init_s, t_start = start(alg)
+    st = (state["params"], state["lam"], state["ni"], state["chi2"])
+    lam0, chi0 = float(st[1]), float(st[3])
+    st, first_traj, dt_first = window(pattern, st, 10, **pcg)
     traj = list(first_traj)
     windows = [(10, dt_first)]
     for _ in range(8):
         if float(st[3]) <= 1.05 * floor:
             break
-        st, t_, dt_w = window(st, 10, **pcg)
+        st, t_, dt_w = window(pattern, st, 10, **pcg)
         traj += t_
         windows.append((10, dt_w))
+    window_counts = kernels.launch_counts()
     n_polish = 0
     for _ in range(10):
         if float(st[3]) <= 1.02 * floor:
             break
-        st, t_, dt_w = window(st, 5, pcg_iters=600, pcg_tol=1e-6, warm=True)
+        st, t_, dt_w = window(pattern, st, 5, pcg_iters=600, pcg_tol=1e-6,
+                              warm=True)
         traj += t_
         n_polish += 1
     main_s = time.monotonic() - t_start
-    counts = kernels.launch_counts()            # the main path's launches
+    counts_main = kernels.launch_counts()       # the main path's launches
     final = float(st[3])
     steady = [dt / n for n, dt in windows[1:]] or [windows[0][1] / 10]
     ms_first = dt_first / 10 * 1e3
     ms_steady = sorted(steady)[len(steady) // 2] * 1e3
-    print(f"phase 4 slice: {N_POSES} poses {prob.static.egroups[0].count} "
-          f"edges K={pattern.k} float32; init+lambda0 {init_s:.3f} s "
-          f"lambda0 {lam0:.6g} chi2_0 {chi0:.1f}; first 10-iteration window "
-          f"{ms_first:.2f} ms/LM iteration, later windows median "
-          f"{ms_steady:.2f} ms/LM iteration ({len(windows)} windows of 10, "
-          f"pcg 100 tol 0.15; {n_polish} polish windows of 5, pcg 600 tol "
-          f"1e-6); total {main_s:.2f} s [{card}]")
+    cg_iters = window_counts["cg_update_xr"]
+    per_cg = sum(v for k, v in window_counts.items()
+                 if k in ("spmv_dot", "cg_update_xr", "cg_update_p",
+                          "dot_partials")) / max(cg_iters, 1)
+    print(f"phase 4 main path: {N_POSES} poses "
+          f"{prob.static.egroups[0].count} edges K={pattern.k} float32; "
+          f"init+lambda0 {init_s:.3f} s lambda0 {lam0:.6g} chi2_0 "
+          f"{chi0:.1f}; first 10-iteration window {ms_first:.2f} ms/LM "
+          f"iteration, later windows median {ms_steady:.2f} ms/LM iteration "
+          f"({len(windows)} windows of 10, pcg 100 tol 0.15: {cg_iters} CG "
+          f"iterations, {per_cg:.2f} launches per CG iteration; {n_polish} "
+          f"polish windows of 5, pcg 600 tol 1e-6); total {main_s:.2f} s "
+          f"[{card}]")
     print("phase 4 chi2 trajectory: "
           + " ".join(f"{c:.1f}" for c in traj))
     print(f"phase 4 final chi2 {final:.1f} noise floor {floor:.1f} ratio "
           f"{final / floor:.5f} (gate 1.02)")
     if not np.isfinite(final) or final > 1.02 * floor:
         raise AssertionError(f"chi2 {final} above 1.02 x floor {floor}")
-
-    # the same first 3 iterations with every kernel swapped for its plain
-    # version (CUDA tensors, plain PyTorch ops)
-    swaps = [(spmv, "block_ell_spmv", spmv.block_ell_spmv_plain),
-             (edge_se2, "edge_se2_blocks", edge_se2.edge_se2_blocks_plain),
-             (assemble, "assemble_gather", assemble.assemble_gather_plain)]
-    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in swaps]
-    try:
-        for mod, attr, plain in swaps:
-            setattr(mod, attr, plain)
-        lam_p = _lambda_init_pcg(prob, pattern, prob.params,
-                                 torch.tensor(alg.tau, dtype=prob.dtype,
-                                              device=dev))
-        out_p = lm_pcg_optimize_fused(
-            prob, pattern, prob.params, lam_p, state["ni"],
-            robust_chi2(prob), n_iters=3, **pcg)
-        plain_traj = out_p[4].tolist()
-    finally:
-        for mod, attr, fn in saved:
-            setattr(mod, attr, fn)
-    if kernels.launch_counts() != counts:
-        raise AssertionError("the plain-route run launched a kernel")
+    lam_p, plain_traj = plain_route(alg, pattern, state["ni"], **pcg)
     np.testing.assert_allclose(first_traj[:3], plain_traj,
                                rtol=PLAIN_ROUTE_RTOL)
-    np.testing.assert_allclose(float(lam_p), lam0, rtol=PLAIN_ROUTE_RTOL)
+    np.testing.assert_allclose(lam_p, lam0, rtol=PLAIN_ROUTE_RTOL)
     print("phase 4 plain route: first 3 chi2 "
           + " ".join(f"{c:.2f}" for c in plain_traj) + " vs kernel route "
           + " ".join(f"{c:.2f}" for c in first_traj[:3])
           + f" (rtol {PLAIN_ROUTE_RTOL:g}) OK")
-    del probs, prob, st, state, out_p
+
+    # 4b. the Chebyshev-preconditioned configuration
+    cheb_pcg = dict(pcg_iters=100, pcg_tol=0.15, pcg_cheby=4)
+    alg_c = LevenbergMarquardtPCG(**cheb_pcg)
+    state_c, pattern_c, init_c, t_start = start(alg_c)
+    st = (state_c["params"], state_c["lam"], state_c["ni"], state_c["chi2"])
+    traj_c, win_c = [], []
+    for _ in range(3):
+        st, t_, dt_w = window(pattern_c, st, 10, **cheb_pcg)
+        traj_c += t_
+        win_c.append(dt_w / 10 * 1e3)
+    counts_cheb = kernels.launch_counts()
+    print(f"phase 4b Chebyshev path (pcg_cheby 4, pcg 100, tol 0.15): "
+          f"3 windows of 10: {' '.join(f'{w:.2f}' for w in win_c)} ms/LM "
+          f"iteration; {counts_cheb['cg_update_xr']} outer CG iterations, "
+          f"{counts_cheb['block_ell_spmv'] + counts_cheb['spmv_dot']} "
+          f"matvecs [{card}]")
+    print("phase 4b chi2 trajectory: "
+          + " ".join(f"{c:.1f}" for c in traj_c))
+    print(f"phase 4b final chi2 {traj_c[-1]:.1f} noise floor {floor:.1f} "
+          f"ratio {traj_c[-1] / floor:.5f} (no gate)")
+    steps = np.diff(np.array([chi0] + traj_c))
+    if not (np.all(np.isfinite(traj_c)) and np.all(steps <= 0)
+            and traj_c[-1] < chi0):
+        raise AssertionError(f"Chebyshev path: chi2 not finite, increasing "
+                             f"or not below chi2_0 {chi0}: {traj_c}")
+    _, plain_c = plain_route(alg_c, pattern_c, state_c["ni"], **cheb_pcg)
+    np.testing.assert_allclose(traj_c[:3], plain_c, rtol=PLAIN_ROUTE_RTOL)
+    print("phase 4b plain route: first 3 chi2 "
+          + " ".join(f"{c:.2f}" for c in plain_c) + " vs kernel route "
+          + " ".join(f"{c:.2f}" for c in traj_c[:3])
+          + f" (rtol {PLAIN_ROUTE_RTOL:g}) OK")
+    del probs, prob, st, state, state_c
+
+    # 4c. the probe's comparison on the probe's data: an SpMV composed of
+    # the lane gather and a multiply-sum equals the fused kernel A
+    r = np.random.default_rng(0)
+    Np, Kp = 3500, 10
+    nb_np = r.integers(0, Np, size=(Np, Kp)).astype(np.int32)
+    xT = torch.as_tensor(r.normal(size=(8, Np)).astype(np.float32),
+                         device=dev)
+    idx = torch.as_tensor(np.broadcast_to(nb_np.reshape(1, -1),
+                                          (8, Np * Kp)).copy(), device=dev)
+    V = torch.as_tensor(r.normal(size=(9, Np, Kp)).astype(np.float32),
+                        device=dev)
+    kernels.reset_launch_counts()
+    xg = gather.lane_gather(xT, idx)[:3].view(3, Np, Kp)
+    y_gather = (V.view(3, 3, Np, Kp) * xg[None]).sum(dim=(1, 3))
+    y_fused = spmv.block_ell_spmv(
+        torch.as_tensor(nb_np.T.copy(), device=dev),
+        V.permute(2, 0, 1).contiguous(), xT[:3].contiguous())
+    counts_probe = kernels.launch_counts()
+    abs_e, rel_e = _errors(torch, y_gather, y_fused)
+    print(f"phase 4c probe path: lane_gather + multiply-sum vs kernel A at "
+          f"N={Np} K={Kp} float32: max_abs_err {abs_e:.3e} max_rel_err "
+          f"{rel_e:.3e} (tol {TOL_DEFAULT['float32']:g})")
+    if rel_e > TOL_DEFAULT["float32"]:
+        raise AssertionError("the gather-composed SpMV disagrees with "
+                             "kernel A")
 
     # -- 5. a .g2o string through the public API ---------------------------
     rng = np.random.default_rng(5)
@@ -279,11 +787,11 @@ def main() -> int:
                    np.diag([100.0, 100.0, 400.0]))
     text = save_g2o(g)
     runs = {}
-    for device in ("cuda", "cpu"):
+    for device in (None, "cpu"):               # None: the default, the card
         sprob = loads_g2o(text).compile(dtype=torch.float64, device=device)
         c0 = float(robust_chi2(sprob))
         _, stats = optimize(sprob, LevenbergMarquardtPCG(), iterations=5)
-        runs[device] = (c0, [s["chi2"] for s in stats])
+        runs[sprob.device.type] = (c0, [s["chi2"] for s in stats])
     c0, chis = runs["cuda"]
     if not (chis[-1] < c0 and all(np.isfinite(chis))):
         raise AssertionError(f".g2o run did not decrease chi2: {c0} {chis}")
@@ -292,26 +800,40 @@ def main() -> int:
           f"chi2 {c0:.4f} -> " + " -> ".join(f"{c:.6f}" for c in chis)
           + " (equal to the CPU run, rtol 1e-6) OK")
 
-    # -- 6. launch counts of the main path ----------------------------------
-    print("phase 6 launches in the phase-4 main path: "
-          + " ".join(f"{k}={v}" for k, v in counts.items()))
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {counts}")
+    # -- 6. launch counts of the driven paths --------------------------------
+    launches = {k: counts_main[k] + counts_cheb[k] + counts_probe[k]
+                for k in counts_main}
+    for label, counts in (("4 main path", counts_main),
+                          ("4b Chebyshev path", counts_cheb),
+                          ("4c probe path", counts_probe)):
+        print(f"phase 6 launches in the phase-{label}: "
+              + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+    main_kernels = ("block_ell_spmv", "edge_se2_blocks", "assemble_gather",
+                    "damp_chol", "jacobi_scale", "lane_block_mv", "spmv_dot",
+                    "cg_residual", "cg_start", "cg_update_xr", "cg_update_p",
+                    "cg_finish")
+    cheb_kernels = main_kernels + ("dot_partials", "gershgorin_bound",
+                                   "chebyshev_coeffs", "chebyshev_init",
+                                   "chebyshev_update")
+    never = ([k for k in main_kernels if counts_main[k] <= 0]
+             + [k for k in cheb_kernels if counts_cheb[k] <= 0]
+             + [k for k in ("lane_gather",) if counts_probe[k] <= 0]
+             + [k for k in KERNELS if launches[k] <= 0])
+    if never or set(KERNELS) != set(launches):
+        raise AssertionError(f"a kernel of a path never launched: {never}")
 
-    rows = [("block_ell_spmv", "A", "block_ell_spmv.cu",
-             "scripts/probe_pallas_gather.py:90"),
-            ("edge_se2_blocks", "B", "edge_se2_blocks.cu",
-             "openslam_g2o_tpu/core/sparse.py:620"),
-            ("assemble_gather", "C", "assemble_gather.cu",
-             "openslam_g2o_tpu/core/sparse.py:1045")]
+    print(smi)
     report = {"kernels": [
         {"name": wname, "route": "cuda",
          "source": f"openslam_g2o_torch/kernels/csrc/{src}",
-         "replaces": replaces, "launches": counts[wname],
-         "max_abs_err": results[(kname, "float32")]["abs"],
-         "ms": results[(kname, "float32")]["ms"],
-         "plain_ms": results[(kname, "float32")]["plain_ms"]}
-        for wname, kname, src, replaces in rows]}
+         "replaces": replaces, "launches": launches[wname],
+         "max_abs_err": results[(wname, "float32")]["abs"],
+         "ms": results[(wname, "float32")]["ms"],
+         "plain_ms": results[(wname, "float32")]["plain_ms"],
+         "bound_ms": results[(wname, "float32")]["bound_ms"],
+         "bound_by": results[(wname, "float32")]["bound_by"],
+         "library_ms": results[(wname, "float32")]["library_ms"]}
+        for wname, (src, replaces) in KERNELS.items()]}
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -9,8 +9,12 @@ on the CPU.
 
     from openslam_g2o_torch import Graph, loads_g2o
     from openslam_g2o_torch.core.algorithms import LevenbergMarquardtPCG, optimize
-    prob = loads_g2o(text).compile(dtype=torch.float32, device="cuda")
+    prob = loads_g2o(text).compile(dtype=torch.float32)
     result, stats = optimize(prob, LevenbergMarquardtPCG(), iterations=10)
+
+`compile()`, `build_problem()` and the synthetic generator build on the card
+by default (device=None means "cuda") and raise where there is no GPU; pass
+device="cpu" to run the plain versions on the CPU.
 """
 from openslam_g2o_torch.models import slam2d as _slam2d  # registers SE2 types
 from openslam_g2o_torch.core.graph import Graph

@@ -1,0 +1,171 @@
+"""Profile one 10-iteration LM-PCG window on the card: where the time goes.
+
+    python3 -m openslam_g2o_torch.apps.profile_window [--cheby DEGREE]
+
+Builds the synthetic serpentine (100,000 poses, noise 0.03 / 0.002,
+float32), runs lambda init and one warm-up window of 10 iterations (pcg
+100, tol 0.15), then measures the next window three ways:
+
+* host clock around the window, ending in torch.cuda.synchronize();
+* counters: kernel launches by wrapper (kernels.launch_counts), CG
+  iterations (cg_update_xr launches), matvecs, and host reads of the device
+  (torch.Tensor.item wrapped for the window);
+* torch.profiler (CPU + CUDA) over a repeat of the same window from the
+  same state: device time by kernel, its sum (device busy) and the idle
+  share 1 - busy / wall, against the profiled window's wall time and
+  against the unprofiled one's (the profiler slows the host).
+
+Per-phase times of one trial (linearize + assemble, trial solve, retract +
+chi2) come from CUDA events, median of 5. Prints one line per result and
+the card's name and power limit; needs an NVIDIA GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+
+N_POSES, GRID = 100000, 100
+
+
+def main(argv=None) -> int:
+    import torch
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--cheby", type=int, default=0,
+                    help="pcg_cheby degree (0: plain Jacobi-scaled CG)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_window: needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+    from openslam_g2o_torch import kernels
+    from openslam_g2o_torch.apps.simulator import synthetic_pose_graph_2d
+    from openslam_g2o_torch.core import algorithms as alg_mod
+    from openslam_g2o_torch.core.problem import (
+        apply_update_parts, robust_chi2)
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    pcg = dict(pcg_iters=100, pcg_tol=0.15, pcg_cheby=args.cheby)
+    prob, _ = synthetic_pose_graph_2d(
+        n_poses=N_POSES, grid=GRID, trans_noise=0.03,
+        rot_noise=0.002, dtype=torch.float32)
+    alg = alg_mod.LevenbergMarquardtPCG(**pcg)
+    state = alg.init(prob)
+    pattern = alg.pattern(prob)
+    st = (state["params"], state["lam"], state["ni"], state["chi2"])
+
+    def window(s):
+        out = alg_mod.lm_pcg_optimize_fused(prob, pattern, *s, n_iters=10,
+                                            **pcg)
+        torch.cuda.synchronize()
+        return out[:4]
+
+    st = window(st)                           # warm-up window
+
+    # host clock, counters and host reads of the measured window
+    reads = [0]
+    real_item = torch.Tensor.item
+
+    def counting_item(self):
+        reads[0] += 1
+        return real_item(self)
+
+    kernels.reset_launch_counts()
+    torch.Tensor.item = counting_item
+    try:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        window(st)
+        wall_ms = (time.monotonic() - t0) * 1e3
+    finally:
+        torch.Tensor.item = real_item
+    counts = kernels.launch_counts()
+    cg_iters = counts["cg_update_xr"]
+    matvecs = counts["spmv_dot"] + counts["block_ell_spmv"]
+    launches = sum(counts.values())
+    # two kernels per call: cg_finish (non-finite count, then the flag and
+    # the zeroing; one vector here) and gershgorin_bound (rows, then max)
+    kernel_launches = (launches + counts["cg_finish"]
+                       + counts["gershgorin_bound"])
+    in_loop = sum(counts[k] for k in (
+        "spmv_dot", "block_ell_spmv", "cg_update_xr", "cg_update_p",
+        "dot_partials", "chebyshev_init", "chebyshev_update"))
+    print(f"card: {card}")
+    print(f"window: 10 LM iterations, pcg_cheby {args.cheby}, "
+          f"{N_POSES} poses float32: wall {wall_ms:.2f} ms "
+          f"({wall_ms / 10:.3f} ms per LM iteration); {counts['damp_chol']} "
+          f"trials, {cg_iters} CG iterations, {matvecs} matvecs; "
+          f"{launches} wrapper calls that launched = {kernel_launches} "
+          f"hand-written kernel launches, "
+          f"{in_loop / max(cg_iters, 1):.2f} per CG iteration by the CG and "
+          f"preconditioner kernels; {reads[0]} host reads (.item), "
+          f"{reads[0] / max(cg_iters, 1):.3f} per CG iteration")
+    print("launches by wrapper: "
+          + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+
+    # torch.profiler over a repeat of the same window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        window(st)
+        prof_wall_ms = (time.monotonic() - t0) * 1e3
+    # the device-typed rows (kernels and copies); the CPU-typed rows repeat
+    # their children's device time
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy_ms = sum(r[1] for r in rows)
+    if busy_ms <= 0:
+        print("torch.profiler reported no device time", file=sys.stderr)
+        return 1
+    print(f"profiled window: wall {prof_wall_ms:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms, idle share "
+          f"{100 * (1 - busy_ms / prof_wall_ms):.1f}% of it and "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}% of the unprofiled window's "
+          f"{wall_ms:.2f} ms; device time per CG "
+          f"iteration {busy_ms / max(cg_iters, 1) * 1e3:.1f} us, wall per "
+          f"CG iteration {wall_ms / max(cg_iters, 1) * 1e3:.1f} us")
+    for key, ms, count in rows[:16]:
+        print(f"  device {ms:8.3f} ms {count:6d} calls "
+              f"{ms / count * 1e3:7.2f} us/call  {key[:90]}")
+
+    # per-phase times of one trial at the window's state
+    def events_ms(fn, repeats=5):
+        times = []
+        for _ in range(repeats):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return sorted(times)[len(times) // 2], out
+
+    work = prob.with_params(st[0])
+    t_pre, pre = events_ms(lambda: alg_mod._pcg_precomp(work, pattern))
+    kernels.reset_launch_counts()
+    t_trial, (dxT, _) = events_ms(lambda: alg_mod._pcg_trial(
+        work, pattern, pre, st[1], None, pcg["pcg_iters"], pcg["pcg_tol"],
+        args.cheby))
+    trial_cg = kernels.launch_counts()["cg_update_xr"] // 5
+    t_setup, _ = events_ms(lambda: alg_mod._pcg_trial(
+        work, pattern, pre, st[1], None, 0, pcg["pcg_tol"], 0))
+    t_out, _ = events_ms(lambda: robust_chi2(work, apply_update_parts(
+        work, {k: v.T for k, v in dxT.items()})))
+    print(f"one trial (CUDA events, median of 5): linearize + assemble "
+          f"{t_pre:.3f} ms; trial solve {t_trial:.3f} ms with {trial_cg} CG "
+          f"iterations, of which setup and unscale without CG iterations "
+          f"{t_setup:.3f} ms; retract + chi2 {t_out:.3f} ms")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

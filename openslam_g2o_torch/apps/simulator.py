@@ -21,11 +21,14 @@ def synthetic_pose_graph_2d(n_poses: int = 100000, grid: int = 100,
                             rot_noise: float = 0.01,
                             closure_prob: float = 0.5, seed: int = 0,
                             dtype: torch.dtype = torch.float64,
-                            device="cpu"):
+                            device=None):
     """Serpentine sweeps over a grid x grid lattice, repeated until n_poses,
     with loop closures to the pose one sweep earlier in the same cell.
     Noise is drawn with the sigmas the information matrix encodes, so the
     converged chi2 has the computable noise floor 3E - 3(N-1).
+
+    The Problem is built on `device`; None means "cuda" and raises where
+    there is no GPU (pass device="cpu" for the CPU).
 
     Returns (Problem, {"gt", "n_edges", "noise_floor_chi2"})."""
     device = P.resolve_device(device)

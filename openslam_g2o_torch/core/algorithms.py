@@ -22,55 +22,64 @@ from typing import Optional
 
 import torch
 
+from openslam_g2o_torch import kernels
 from openslam_g2o_torch.core.problem import (
     Problem, apply_update_parts, robust_chi2)
 from openslam_g2o_torch.core.solvers import (
-    _tree_dot, batched_chol_inv_lower, batched_chol_lower, pcg_solve)
+    _tree_dot, make_chebyshev_precond, pcg_solve)
 from openslam_g2o_torch.core.sparse import (
-    EllPattern, add_diag, assemble_ell, build_ell_pattern, diag_blocks,
-    ell_matvec_lane, lane_block_mv, scale_jacobi)
+    EllOperator, EllPattern, assemble_ell, build_ell_pattern, diag_blocks,
+    lane_block_mv)
 
 __all__ = ["LevenbergMarquardtPCG", "lm_pcg_optimize_fused", "optimize",
            "TerminateCriterion"]
 
+# Lower edge of the Chebyshev spectral bracket, as a fraction of the
+# Gershgorin upper bound of the Jacobi-scaled system (algorithms.py:35-43).
+# The scaled system has unit diagonal blocks, so its spectrum clusters near
+# 1; lambda_min can sit far below lo, which only weakens the preconditioner
+# (it stays SPD for any lo > 0).
+_CHEBY_LO_FRAC = 0.02
+
 
 def _pcg_precomp(work: Problem, pattern: EllPattern):
-    """Per-linearization quantities of the LM-PCG trial: assembled values,
-    diagonal blocks and the lane-major rhs (algorithms.py:184-204)."""
+    """Per-linearization quantities of the LM-PCG trial: assembled values
+    and the lane-major rhs (algorithms.py:184-204)."""
     values, bT = assemble_ell(work, pattern)
-    return {"values": values, "bT": bT,
-            "diag_blocks": diag_blocks(pattern, values)}
+    return {"values": values, "bT": bT}
 
 
 def _pcg_trial(work: Problem, pattern: EllPattern, pre, lam, dx0T,
                pcg_iters, pcg_tol, pcg_cheby):
     """One damped, Jacobi-scaled CG solve on the precomputed system
     (algorithms.py:207-253). Returns (dxT lane-major, ok)."""
-    if pcg_cheby > 1:
-        raise NotImplementedError(
-            "pcg_cheby > 1 (Chebyshev preconditioner, ROADMAP K8) is not "
-            "ported yet")
     g = pattern.group
-    free = work.free[g]
-    extra = lam * free + (1.0 - free)
-    damped = add_diag(pattern, pre["values"], extra)
-    eye = torch.eye(3, dtype=work.dtype, device=work.device)
-    dblocks = pre["diag_blocks"][g] + extra[:, None, None] * eye[None]
-    # a non-SPD damped diagonal block gives NaN factors -> ok False -> retry
-    linv = batched_chol_inv_lower(dblocks)
-    svals = scale_jacobi(pattern, damped, linv)
-    linv_lane = {g: linv.permute(1, 2, 0)}                 # [3, 3, N]
-    bhatT = lane_block_mv(linv_lane, pre["bT"])            # Linv b
-    mv = lambda xT: ell_matvec_lane(pattern, svals, xT)
+    # damping lam*free + (1 - free), L and L^-1 of the damped diagonal
+    # blocks and Linv b; a non-SPD block gives NaN factors -> ok False ->
+    # retry
+    linv, lchol, bhat, extra = kernels.damp_chol.damp_chol(
+        pre["values"], work.free[g], pre["bT"][g], lam)
+    svals = kernels.jacobi_scale.jacobi_scale(pattern.nb, pre["values"],
+                                              linv, extra)
+    op = EllOperator(pattern, svals)
     x0hat = None
     if dx0T is not None:
-        lchol = {g: batched_chol_lower(dblocks).permute(1, 2, 0)}
-        x0hat = lane_block_mv(lchol, dx0T, transpose=True)  # L^T dx0
-    # the system is already Jacobi-scaled: no preconditioner, the
-    # preconditioned-norm stop test, checked every 2 iterations
-    xhat, ok = pcg_solve(mv, bhatT, max_iter=pcg_iters, tol=pcg_tol,
-                         unroll=2, norm="precond", x0=x0hat)
-    return lane_block_mv(linv_lane, xhat, transpose=True), ok
+        x0hat = lane_block_mv({g: lchol}, dx0T, transpose=True)  # L^T dx0
+    # the system is already Jacobi-scaled, hence the preconditioned-norm
+    # stop test
+    if pcg_cheby > 1:
+        # the Gershgorin row bound never underestimates lambda_max, so the
+        # polynomial bracketed by it stays positive on the spectrum
+        hi = kernels.chebyshev.gershgorin_bound(svals)
+        pre_c = make_chebyshev_precond(op, hi * _CHEBY_LO_FRAC, hi, pcg_cheby)
+        xhat, ok = pcg_solve(op, {g: bhat}, precond=pre_c,
+                             max_iter=max(pcg_iters // pcg_cheby, 1),
+                             tol=pcg_tol, unroll=1, norm="precond", x0=x0hat)
+    else:
+        # no preconditioner; the stop test is read every 2 iterations
+        xhat, ok = pcg_solve(op, {g: bhat}, max_iter=pcg_iters, tol=pcg_tol,
+                             unroll=2, norm="precond", x0=x0hat)
+    return lane_block_mv({g: linv}, xhat, transpose=True), ok
 
 
 def _trial_outcome(work: Problem, bT: dict, dxT: dict, ok, lam, ni,
@@ -151,8 +160,10 @@ class LevenbergMarquardtPCG:
                  pcg_iters: int = 150, pcg_tol: float = 1e-8,
                  pcg_cheby: int = 0):
         """pcg_tol is the inexact-Newton forcing tolerance (relative
-        residual in the preconditioned norm); pcg_cheby > 1 (Chebyshev)
-        is not ported yet and raises on the first solve."""
+        residual in the preconditioned norm). pcg_cheby > 1 preconditions
+        CG with a Chebyshev polynomial of that degree: each outer iteration
+        then runs pcg_cheby matvecs and the outer budget is pcg_iters //
+        pcg_cheby."""
         self.initial_lambda = initial_lambda
         self.max_trials = max_trials_after_failure
         self.tau = tau

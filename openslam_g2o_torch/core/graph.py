@@ -119,9 +119,11 @@ class Graph:
         return best
 
     def compile(self, dtype: torch.dtype = torch.float64,
-                device="cpu", level: int = 0):
+                device=None, level: int = 0):
         """Lower to the struct-of-arrays Problem on `device` in `dtype`
-        (SparseOptimizer::initializeOptimization analogue). device="cuda"
-        without a GPU raises; there is no fallback to the CPU."""
+        (SparseOptimizer::initializeOptimization analogue). device=None
+        means "cuda"; pass device="cpu" to run on the CPU. Without a GPU
+        the default raises RuntimeError: there is no fallback to the
+        CPU."""
         from openslam_g2o_torch.core.problem import build_problem
         return build_problem(self, dtype=dtype, device=device, level=level)

@@ -107,10 +107,11 @@ class Problem:
         return dataclasses.replace(self, params=params)
 
 
-def resolve_device(device) -> torch.device:
-    """torch.device(device), refusing "cuda" where there is no GPU: the
-    port never falls back to the CPU."""
-    device = torch.device(device)
+def resolve_device(device=None) -> torch.device:
+    """torch.device(device), with None meaning "cuda": the port runs on the
+    card unless the caller asks for the CPU. It refuses "cuda" where there
+    is no GPU and never falls back to the CPU."""
+    device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but "
                            "torch.cuda.is_available() is False")
@@ -129,10 +130,10 @@ def check_supported(vtype_names, etype_names):
                 "still to port', item 'Other 2D types' and the SE3 item)")
 
 
-def build_problem(graph, dtype: torch.dtype = torch.float64, device="cpu",
+def build_problem(graph, dtype: torch.dtype = torch.float64, device=None,
                   level: int = 0) -> Problem:
-    """Lower the host graph to a Problem on `device` in `dtype`
-    (openslam_g2o_tpu/core/problem.py:149-246 without pad_counts, which
+    """Lower the host graph to a Problem on `device` (None: "cuda") in
+    `dtype` (openslam_g2o_tpu/core/problem.py:149-246 without pad_counts, which
     only the online engine uses)."""
     device = resolve_device(device)
     order: dict[str, list] = {}

@@ -1,83 +1,23 @@
 """Linear solvers for the normal equations: counterpart of
-openslam_g2o_tpu/core/solvers.py:63-139, 157-164 and 213-297.
+openslam_g2o_tpu/core/solvers.py:63-139 and 157-297.
 
-The closed-form small-block Cholesky factors feed the split-form
-block-Jacobi scaling of the LM-PCG trial, and `pcg_solve` is the CG loop
-of that trial. Operands of `pcg_solve` are dicts of per-group parts, as
-the JAX pytrees are.
+The closed-form small-block Cholesky factors (kernels/damp_chol.py) feed
+the split-form block-Jacobi scaling of the LM-PCG trial, `pcg_solve` is
+the CG loop of that trial and `make_chebyshev_precond` its optional
+polynomial preconditioner. Operands of `pcg_solve` are dicts of per-group
+parts, as the JAX pytrees are.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["batched_chol_lower", "batched_chol_inv_lower", "pcg_solve"]
+from openslam_g2o_torch.kernels import cg_step as cg
+from openslam_g2o_torch.kernels import chebyshev as cheb
+from openslam_g2o_torch.kernels.damp_chol import (
+    batched_chol_inv_lower, batched_chol_lower)
 
-
-def batched_chol_inv_lower(A):
-    """L^-1 for a batch of small SPD matrices A = L L^T ([..., D, D]).
-
-    D <= 3 uses the closed-form scalar Cholesky and forward solve of
-    solvers.py:63-104: a non-SPD block takes the square root of a negative
-    number and yields NaN, which fails the PCG solve and triggers the LM
-    lambda retry. Larger D uses torch.linalg (which raises instead)."""
-    D = A.shape[-1]
-    if D == 1:
-        return 1.0 / torch.sqrt(A)
-    if D == 2:
-        l11 = torch.sqrt(A[..., 0, 0])
-        l21 = A[..., 1, 0] / l11
-        l22 = torch.sqrt(A[..., 1, 1] - l21 * l21)
-        m11 = 1.0 / l11
-        m22 = 1.0 / l22
-        m21 = -(l21 * m11) * m22
-        z = torch.zeros_like(l11)
-        return _rows((m11, z), (m21, m22))
-    if D == 3:
-        l11 = torch.sqrt(A[..., 0, 0])
-        l21 = A[..., 1, 0] / l11
-        l31 = A[..., 2, 0] / l11
-        l22 = torch.sqrt(A[..., 1, 1] - l21 * l21)
-        l32 = (A[..., 2, 1] - l31 * l21) / l22
-        l33 = torch.sqrt(A[..., 2, 2] - l31 * l31 - l32 * l32)
-        m11 = 1.0 / l11
-        m22 = 1.0 / l22
-        m33 = 1.0 / l33
-        m21 = -(l21 * m11) * m22
-        m31 = -(l31 * m11 + l32 * m21) * m33
-        m32 = -(l32 * m22) * m33
-        z = torch.zeros_like(l11)
-        return _rows((m11, z, z), (m21, m22, z), (m31, m32, m33))
-    L = torch.linalg.cholesky(A)
-    eye = torch.eye(D, dtype=A.dtype, device=A.device).expand(A.shape)
-    return torch.linalg.solve_triangular(L, eye, upper=False)
-
-
-def batched_chol_lower(A):
-    """L for a batch of small SPD matrices A = L L^T (closed form for
-    D <= 3, solvers.py:111-139; torch.linalg.cholesky beyond)."""
-    D = A.shape[-1]
-    if D == 1:
-        return torch.sqrt(A)
-    if D == 2:
-        l11 = torch.sqrt(A[..., 0, 0])
-        l21 = A[..., 1, 0] / l11
-        l22 = torch.sqrt(A[..., 1, 1] - l21 * l21)
-        z = torch.zeros_like(l11)
-        return _rows((l11, z), (l21, l22))
-    if D == 3:
-        l11 = torch.sqrt(A[..., 0, 0])
-        l21 = A[..., 1, 0] / l11
-        l31 = A[..., 2, 0] / l11
-        l22 = torch.sqrt(A[..., 1, 1] - l21 * l21)
-        l32 = (A[..., 2, 1] - l31 * l21) / l22
-        l33 = torch.sqrt(A[..., 2, 2] - l31 * l31 - l32 * l32)
-        z = torch.zeros_like(l11)
-        return _rows((l11, z, z), (l21, l22, z), (l31, l32, l33))
-    return torch.linalg.cholesky(A)
-
-
-def _rows(*rows):
-    return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+__all__ = ["batched_chol_lower", "batched_chol_inv_lower",
+           "make_chebyshev_precond", "pcg_solve"]
 
 
 def _tree_dot(a: dict, b: dict):
@@ -85,8 +25,61 @@ def _tree_dot(a: dict, b: dict):
     return sum(torch.dot(a[k].reshape(-1), b[k].reshape(-1)) for k in a)
 
 
-def _tree_axpy(alpha, x: dict, y: dict):
-    return {k: alpha * x[k] + y[k] for k in x}
+def make_chebyshev_precond(matvec, lo, hi, degree: int):
+    """Chebyshev polynomial preconditioner z = p(S) r, p the degree-1
+    Chebyshev approximation of S^-1 on [lo, hi] (solvers.py:167-210; Saad,
+    Iterative Methods for Sparse Linear Systems, Alg. 12.1).
+
+    It spends degree-1 extra matvecs per outer CG iteration to cut the
+    number of outer iterations, each of which carries the fixed cost of
+    its launches and of the stop test. For an SPD S with spectrum in
+    (0, hi] the polynomial is positive on the spectrum for any lo > 0, so
+    the preconditioner stays SPD when lo overestimates lambda_min; pair it
+    with a Gershgorin hi, which never underestimates.
+
+    lo and hi may be 0-dim device tensors: the recurrence coefficients are
+    computed on the device once (kernels/chebyshev.py), at the first
+    application, and no host read is made. Returns apply(r: dict) -> dict.
+    """
+    coef = []
+
+    def coefficients(like):
+        if not coef:
+            as_t = lambda v: torch.as_tensor(v, dtype=like.dtype,
+                                             device=like.device)
+            coef.append(cheb.chebyshev_coeffs(as_t(lo), as_t(hi), degree))
+        return coef[0]
+
+    def apply(r: dict) -> dict:
+        c = coefficients(next(iter(r.values())))
+        d, z = {}, {}
+        for k, rk in r.items():
+            d[k], z[k] = cheb.chebyshev_init(c, rk)
+        for pair in range(degree - 1):
+            sz = _contiguous(matvec(z))
+            for k, rk in r.items():
+                cheb.chebyshev_update(c, pair, rk, sz[k], d[k], z[k])
+        return z
+
+    return apply
+
+
+def _cat(parts):
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _contiguous(parts: dict) -> dict:
+    return {k: v.contiguous() for k, v in parts.items()}
+
+
+def _matvec_dot(matvec, p: dict):
+    """(H p, partial sums of p . H p): the operator's fused form where it
+    has one, else the matvec and a dot kernel per group."""
+    fused = getattr(matvec, "matvec_dot", None)
+    if fused is not None:
+        return fused(p)
+    hp = _contiguous(matvec(p))
+    return hp, _cat([cg.dot_partials(p[k], hp[k]) for k in p])
 
 
 def pcg_solve(matvec, b: dict, precond=None, max_iter: int = 100,
@@ -101,47 +94,61 @@ def pcg_solve(matvec, b: dict, precond=None, max_iter: int = 100,
       per `unroll` iterations (the LM-PCG trial uses unroll=2, so CG may run
       one iteration past the tolerance);
     * a non-positive curvature p^T H p gates alpha to 0 and stays gated
-      (pd is sticky);
+      (pd is sticky); a zero denominator or rz is replaced by 1 before
+      dividing;
+    * b2 = max(b . M^-1 b, 1e-30) under norm="precond", max(b . b, 1e-30)
+      under norm="true";
     * ok = finite(x) and (pd or converged); x is zeroed when not ok.
 
-    Each stop test is one host read (`.item()`): one device sync per
-    `unroll` CG iterations. Returns (x, ok) with ok a 0-dim bool tensor.
+    The loop is written on the wrappers of kernels/cg_step.py: on the card
+    one iteration is three launches (`matvec.matvec_dot` where the operator
+    has it, `cg_update_xr`, `cg_update_p`; a preconditioner adds its own
+    and one dot), every CG scalar stays in a device buffer, and the only
+    host read is the continue flag, once per `unroll` iterations. On CPU
+    tensors the same calls run the plain versions. `matvec` and `precond`
+    map a dict of groups to a dict of groups; x0 and b are not modified. Returns (x, ok) with ok a 0-dim bool tensor.
     """
-    if precond is None:
-        precond = lambda r: r
-    use_precond_norm = norm == "precond"
-    x = {k: torch.zeros_like(v) for k, v in b.items()} if x0 is None else x0
-    hx = matvec(x)
-    r = {k: b[k] - hx[k] for k in b}
-    z = precond(r)
-    p = z
-    rz = _tree_dot(r, z)
-    if use_precond_norm:
-        r2 = rz
-        b2 = torch.clamp_min(_tree_dot(b, precond(b)), 1e-30)
+    keys = list(b)
+    precond_norm = norm == "precond"
+    if x0 is None:
+        x = {k: torch.zeros_like(b[k]) for k in keys}
     else:
-        r2 = _tree_dot(r, r)
-        b2 = torch.clamp_min(_tree_dot(b, b), 1e-30)
-    thresh = tol * tol * b2
-    pd = torch.ones((), dtype=torch.bool, device=rz.device)
+        x = {k: x0[k].clone(memory_format=torch.contiguous_format)
+             for k in keys}
+    hx = _contiguous(matvec(x))
+    r, p, rr, bb = {}, {}, [], []
+    for k in keys:
+        r[k], p[k], part_rr, part_bb = cg.cg_residual(b[k].contiguous(),
+                                                      hx[k])
+        rr.append(part_rr)
+        bb.append(part_bb)
+    part_rr, part_b2 = _cat(rr), _cat(bb)
+    if precond is None:
+        z, part_rz = r, part_rr
+    else:
+        z = _contiguous(precond(r))
+        p = {k: z[k].clone() for k in keys}     # p is updated in place
+        part_rz = _cat([cg.dot_partials(r[k], z[k]) for k in keys])
+        if precond_norm:
+            zb = _contiguous(precond(b))
+            part_b2 = _cat([cg.dot_partials(b[k].contiguous(), zb[k])
+                            for k in keys])
+    scal = cg.new_scalars(part_rz)
+    cg.cg_start(scal, part_rz, part_rr, part_b2, tol, precond_norm)
     i = 0
-    while i < max_iter and bool((pd & (r2 > thresh)).item()):
+    while i < max_iter and bool(scal[cg.CONT].item()):
         for _ in range(unroll):
-            hp = matvec(p)
-            denom = _tree_dot(p, hp)
-            pd = pd & (denom > 0)
-            safe = torch.where(denom == 0, torch.ones_like(denom), denom)
-            alpha = torch.where(pd, rz / safe, torch.zeros_like(rz))
-            x = _tree_axpy(alpha, p, x)
-            r = _tree_axpy(-alpha, hp, r)
-            z = precond(r)
-            rz_new = _tree_dot(r, z)
-            r2 = rz_new if use_precond_norm else _tree_dot(r, r)
-            beta = rz_new / torch.where(rz == 0, torch.ones_like(rz), rz)
-            p = _tree_axpy(beta, p, z)
-            rz = rz_new
+            hp, part_pap = _matvec_dot(matvec, p)
+            part_rr = _cat([cg.cg_update_xr(scal, part_pap, x[k], r[k], p[k],
+                                            hp[k]) for k in keys])
+            if precond is None:
+                part_rz = part_rr
+            else:
+                z = _contiguous(precond(r))
+                part_rz = _cat([cg.dot_partials(r[k], z[k]) for k in keys])
+            for k in keys:
+                cg.cg_update_p(scal, part_rz, part_rr, z[k], p[k],
+                               precond_norm)
             i += 1
-    finite = torch.stack([torch.isfinite(v).all() for v in x.values()]).all()
-    ok = finite & (pd | (r2 <= thresh))
-    x = {k: torch.where(ok, v, torch.zeros_like(v)) for k, v in x.items()}
+    ok = cg.cg_finish(scal, [x[k] for k in keys])
     return x, ok

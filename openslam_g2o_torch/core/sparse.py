@@ -18,8 +18,9 @@ vertex without edges. Per linearization: kernel B (kernels/edge_se2.py)
 writes the per-edge blocks into contribution streams, kernel C
 (kernels/assemble.py) gathers them into `values` and b through the
 destination-major tables built here once per topology, and kernel A
-(kernels/spmv.py) is the CG matvec. Damping, the 3x3 Cholesky inverse and
-the Jacobi scaling are plain PyTorch in this module.
+(kernels/spmv.py) is the CG matvec. Per trial, kernels/damp_chol.py damps
+and factors the diagonal blocks, kernels/jacobi_scale.py scales the system,
+and `EllOperator` hands the scaled system to the CG loop.
 """
 from __future__ import annotations
 
@@ -31,8 +32,7 @@ import torch
 from openslam_g2o_torch import kernels
 
 __all__ = ["EllPattern", "build_ell_pattern", "edge_blocks", "assemble_ell",
-           "diag_blocks", "add_diag", "scale_jacobi", "lane_block_mv",
-           "ell_matvec_lane"]
+           "diag_blocks", "lane_block_mv", "ell_matvec_lane", "EllOperator"]
 
 
 @dataclass
@@ -158,37 +158,13 @@ def diag_blocks(pattern: EllPattern, values):
     return {pattern.group: values[0].reshape(3, 3, pattern.n).permute(2, 0, 1)}
 
 
-def add_diag(pattern: EllPattern, values, extra):
-    """Fold a per-vertex scalar into the diagonal of every row's diagonal
-    block (sparse.py:1173-1201): LM damping lam*free + (1 - free)."""
-    out = values.clone()
-    out[0, 0::4] += extra[None]          # entries (0,0), (1,1), (2,2)
-    return out
-
-
-def scale_jacobi(pattern: EllPattern, values, linv):
-    """Symmetric block-Jacobi scaling block(i, j) -> Linv_i B Linv_j^T
-    (sparse.py:1204-1247): the scaled system has unit diagonal blocks.
-    linv: [N, 3, 3] lower-triangular inverse Cholesky factors."""
-    K, N = pattern.k, pattern.n
-    B = values.view(K, 3, 3, N)
-    Li = linv.permute(1, 2, 0)                            # [3, 3, N]
-    # C[k, a, c, n] = sum_b Li[a, b, n] B[k, b, c, n]
-    C = (Li[None, :, :, None, :] * B[:, None]).sum(dim=2)
-    Lj = Li.reshape(9, N)[:, pattern.nb.long()]           # [9, K, N]
-    Lj = Lj.view(3, 3, K, N).permute(2, 0, 1, 3)          # [K, d, c, N]
-    # S[k, a, d, n] = sum_c C[k, a, c, n] Lj[k, d, c, n]
-    S = (C[:, :, None] * Lj[:, None]).sum(dim=3)
-    return S.reshape(K, 9, N)
-
-
 def lane_block_mv(mats_lane: dict, xT: dict, transpose: bool = False):
-    """y[a, n] = sum_b M[a, b, n] x[b, n] per group (transpose: M^T x) —
-    the [D, D, N] lane-major batched block application (sparse.py:871-880)."""
-    if transpose:
-        return {k: (M * xT[k][:, None, :]).sum(dim=0)
-                for k, M in mats_lane.items()}
-    return {k: (M * xT[k][None]).sum(dim=1) for k, M in mats_lane.items()}
+    """y[a, n] = sum_b M[a, b, n] x[b, n] per group (transpose: M^T x), the
+    lane-major batched block application (sparse.py:871-880); mats_lane
+    holds the [9, N] tables of kernels/damp_chol.py."""
+    return {k: kernels.jacobi_scale.lane_block_mv(M, xT[k].contiguous(),
+                                                  transpose)
+            for k, M in mats_lane.items()}
 
 
 def ell_matvec_lane(pattern: EllPattern, values, xT: dict):
@@ -196,3 +172,23 @@ def ell_matvec_lane(pattern: EllPattern, values, xT: dict):
     g = pattern.group
     return {g: kernels.spmv.block_ell_spmv(pattern.nb, values,
                                            xT[g].contiguous())}
+
+
+class EllOperator:
+    """The block-ELL matrix `values` on `pattern` as the operator of
+    `pcg_solve`: calling it is the matvec, and `matvec_dot` is the fused
+    form the CG step uses (kernels/cg_step.py `spmv_dot`)."""
+
+    def __init__(self, pattern: EllPattern, values):
+        self.pattern = pattern
+        self.values = values
+
+    def __call__(self, xT: dict) -> dict:
+        return ell_matvec_lane(self.pattern, self.values, xT)
+
+    def matvec_dot(self, pT: dict):
+        """({group: H p}, partial sums of p . H p)."""
+        g = self.pattern.group
+        hp, partials = kernels.cg_step.spmv_dot(
+            self.pattern.nb, self.values, pT[g].contiguous())
+        return {g: hp}, partials

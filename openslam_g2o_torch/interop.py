@@ -35,8 +35,8 @@ def problem_arrays(problem) -> dict:
 
 def problem_from_numpy(params: dict, free: dict, edges: dict,
                        dtype: torch.dtype = torch.float64,
-                       device="cpu") -> P.Problem:
-    """Build a Problem from numpy arrays.
+                       device=None) -> P.Problem:
+    """Build a Problem from numpy arrays on `device` (None: "cuda").
 
     params: {vertex group name: [N, P]} (the group name is the vertex type
         name, e.g. "se2"); free: {group name: [N]} with 1.0 = free.

@@ -4,24 +4,41 @@ Each wrapper takes torch tensors. On CPU tensors it runs the kernel's plain
 PyTorch version, which sits beside it in the same module; on CUDA tensors it
 launches the kernel (built from kernels/csrc on first use, kernels/build.py)
 or raises. There is no fallback between the two and no switch: the device
-of the arguments decides. Every wrapper counts its kernel launches in a
-plain integer attribute, `wrapper.launches`.
+of the arguments decides. Every wrapper counts the calls in which it
+launched its kernel in a plain integer attribute, `wrapper.launches`
+(`cg_finish` and `gershgorin_bound` are two-pass reductions: one counted
+call launches two kernels per vector, respectively two).
 
     A  spmv.block_ell_spmv       block-ELL SpMV            (ROADMAP K5)
     B  edge_se2.edge_se2_blocks  fused SE2 linearizer      (ROADMAP K1)
     C  assemble.assemble_gather  contributor-gather H, b   (ROADMAP K2)
+    damp_chol.damp_chol          damping, 3x3 Cholesky, b  (ROADMAP K3)
+    jacobi_scale.jacobi_scale    block-Jacobi scaling      (ROADMAP K4)
+    jacobi_scale.lane_block_mv   per-row 3x3 block apply   (ROADMAP K4)
+    cg_step.*                    the CG step               (ROADMAP K6)
+    chebyshev.*                  Gershgorin + Chebyshev    (ROADMAP K8)
+    gather.lane_gather           the probe's lane gather
 """
 from __future__ import annotations
 
-from openslam_g2o_torch.kernels.assemble import assemble_gather
-from openslam_g2o_torch.kernels.edge_se2 import edge_se2_blocks
-from openslam_g2o_torch.kernels.spmv import block_ell_spmv
+from openslam_g2o_torch.kernels import (
+    assemble, cg_step, chebyshev, damp_chol, edge_se2, gather, jacobi_scale,
+    spmv)
 
-WRAPPERS = (block_ell_spmv, edge_se2_blocks, assemble_gather)
+# the wrapper functions, which own the launch counts (several share their
+# module's name, so the modules are what this package exports)
+WRAPPERS = (
+    spmv.block_ell_spmv, edge_se2.edge_se2_blocks, assemble.assemble_gather,
+    damp_chol.damp_chol, jacobi_scale.jacobi_scale,
+    jacobi_scale.lane_block_mv, cg_step.spmv_dot, cg_step.dot_partials,
+    cg_step.cg_residual, cg_step.cg_start, cg_step.cg_update_xr,
+    cg_step.cg_update_p, cg_step.cg_finish, chebyshev.gershgorin_bound,
+    chebyshev.chebyshev_coeffs, chebyshev.chebyshev_init,
+    chebyshev.chebyshev_update, gather.lane_gather)
 
 
 def launch_counts() -> dict:
-    """{wrapper name: launches so far}."""
+    """{wrapper name: calls that launched its kernel so far}."""
     return {w.__name__: w.launches for w in WRAPPERS}
 
 

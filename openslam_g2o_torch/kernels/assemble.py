@@ -51,12 +51,9 @@ def assemble_gather(hblk, bblk, hidx, bidx, k, n):
     b = torch.empty((3, n), dtype=hblk.dtype, device=hblk.device)
     if n == 0:
         return values, b
-    with torch.cuda.device(hblk.device):
-        err = build.entry("g2o_assemble_gather", hblk.dtype)(
-            hblk.data_ptr(), bblk.data_ptr(), hidx.data_ptr(),
-            bidx.data_ptr(), values.data_ptr(), b.data_ptr(), n, k,
-            hidx.shape[0], bidx.shape[0], e_total, build.stream_of(hblk))
-    build.check(err, "assemble_gather")
+    build.launch("g2o_assemble_gather", hblk, hblk.data_ptr(), bblk.data_ptr(),
+                 hidx.data_ptr(), bidx.data_ptr(), values.data_ptr(),
+                 b.data_ptr(), n, k, hidx.shape[0], bidx.shape[0], e_total)
     assemble_gather.launches += 1
     return values, b
 

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
-The `.cu` sources under kernels/csrc/ are compiled with nvcc into one shared
-library with a plain C interface and loaded with ctypes. The library lands
+The `.cu` sources under kernels/csrc/ are compiled with nvcc (one process
+per source, all started together) and linked into one shared library with a
+plain C interface, loaded with ctypes. The library lands
 in kernels/_build/ (listed in .gitignore) under a name keyed by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one is
 reused. Nothing here runs at import time: the first kernel launch builds.
@@ -22,16 +23,33 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # No -use_fast_math: the closed-form Cholesky must turn a non-SPD block into
 # NaN, and the angle wrap must match the floor formula bit for bit.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# exported C symbol -> argtypes (pointers, ints, then the stream)
+_D = ctypes.c_double
+# exported C symbol -> argtypes (the stream comes last)
 _SIGNATURES = {
     "g2o_block_ell_spmv": (_P, _P, _P, _P, _I, _I, _P),
     "g2o_edge_se2_blocks": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                             _I, _I, _I, _P),
     "g2o_assemble_gather": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "g2o_damp_chol": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "g2o_jacobi_scale": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "g2o_lane_block_mv": (_P, _P, _P, _I, _I, _P),
+    "g2o_spmv_dot": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "g2o_dot_partials": (_P, _P, _P, _I, _P),
+    "g2o_cg_residual": (_P, _P, _P, _P, _P, _P, _I, _P),
+    "g2o_cg_start": (_P, _P, _I, _P, _I, _P, _I, _D, _I, _P),
+    "g2o_cg_update_xr": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _P),
+    "g2o_cg_update_p": (_P, _P, _I, _P, _I, _P, _P, _I, _I, _P),
+    "g2o_nonfinite_partials": (_P, _P, _I, _P),
+    "g2o_cg_finish": (_P, _P, _I, _P, _P, _I, _P),
+    "g2o_gershgorin": (_P, _P, _P, _I, _I, _P),
+    "g2o_chebyshev_coeffs": (_P, _P, _I, _P, _P),
+    "g2o_chebyshev_init": (_P, _P, _P, _P, _I, _P),
+    "g2o_chebyshev_update": (_P, _I, _P, _P, _P, _P, _I, _P),
+    "g2o_lane_gather": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib = None
@@ -70,25 +88,37 @@ def build() -> Path:
         _last_build.update(path=str(lib_path), seconds=0.0, log="(cached)")
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    nvcc = _nvcc()
     t0 = time.monotonic()
-    # build to a private name, then rename: a concurrent build never sees
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    # compile and link under private names, then rename: a concurrent build
+    # never sees a half-written library
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            jobs.append((src.name, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for name, _, proc in jobs:            # wait for all of them
+            out, _ = proc.communicate()
+            logs.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        linked = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", linked, *(obj for _, obj, _ in jobs)],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        os.replace(linked, lib_path)
     _last_build.update(path=str(lib_path),
                        seconds=time.monotonic() - t0,
-                       log=proc.stdout + proc.stderr)
+                       log=log)
     return lib_path
 
 
@@ -120,14 +150,37 @@ def check(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA launch failed: {msg} ({err})")
 
 
+_entries = {}
+
+
 def entry(name: str, dtype):
     """The C entry point `name` for torch dtype float32/float64."""
-    import torch
-    suffix = {torch.float32: "_f32", torch.float64: "_f64"}[dtype]
-    return getattr(load(), name + suffix)
+    fn = _entries.get((name, dtype))
+    if fn is None:
+        import torch
+        suffix = {torch.float32: "_f32", torch.float64: "_f64"}[dtype]
+        fn = _entries[(name, dtype)] = getattr(load(), name + suffix)
+    return fn
 
 
-def stream_of(tensor):
-    """The raw cudaStream_t of PyTorch's current stream on tensor's device."""
+def launch(name: str, like, *args):
+    """Call the entry point `name` for `like.dtype` with `args` and, last,
+    PyTorch's current stream on `like`'s device, with that device current;
+    raise on a CUDA error. This runs once per kernel launch, in the CG loop
+    too, so it takes the raw stream handle directly and enters a device
+    guard only when another device is current. The handle comes from
+    `torch._C._cuda_getCurrentRawStream`, a private binding (what
+    `torch.cuda.current_stream(index).cuda_stream` returns, without building
+    the Stream object); present in torch 2.11, the version this was run
+    with."""
     import torch
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    fn = entry(name, like.dtype)
+    index = like.device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
+    if err:
+        check(err, name)

@@ -17,7 +17,7 @@
 // 2*9K flops. Adjacent threads read adjacent values and indices (N is the
 // minor axis of every table), so those loads coalesce; the x gather is
 // irregular but x (3N values) stays in L2 at pose-graph sizes.
-#include "common.cuh"
+#include "block_ell.cuh"
 
 namespace g2o_torch {
 
@@ -30,17 +30,8 @@ __global__ void block_ell_spmv_kernel(const int* __restrict__ nb,
                         + threadIdx.x;
   if (row >= n) return;
   const long long N = n;
-  T y0 = T(0), y1 = T(0), y2 = T(0);
-  for (int k = 0; k < k_width; ++k) {
-    const long long col = nb[k * N + row];
-    const T* v = vals + k * 9 * N + row;
-    const T x0 = x[col];
-    const T x1 = x[N + col];
-    const T x2 = x[2 * N + col];
-    y0 += v[0] * x0 + v[N] * x1 + v[2 * N] * x2;
-    y1 += v[3 * N] * x0 + v[4 * N] * x1 + v[5 * N] * x2;
-    y2 += v[6 * N] * x0 + v[7 * N] * x1 + v[8 * N] * x2;
-  }
+  T y0, y1, y2;
+  block_ell_row(nb, vals, x, row, N, k_width, y0, y1, y2);
   y[row] = y0;
   y[N + row] = y1;
   y[2 * N + row] = y2;

@@ -96,13 +96,11 @@ def edge_se2_blocks(params, free, ii, jj, meas, info, delta, kernel_id,
         return
     if E == 0:
         return
-    with torch.cuda.device(params.device):
-        err = build.entry("g2o_edge_se2_blocks", params.dtype)(
-            params.data_ptr(), free.data_ptr(), ii.data_ptr(), jj.data_ptr(),
-            meas.data_ptr(), info.data_ptr(), delta.data_ptr(),
-            int(kernel_id), hblk.data_ptr(), bblk.data_ptr(), E, e_total,
-            int(col0), build.stream_of(params))
-    build.check(err, "edge_se2_blocks")
+    build.launch("g2o_edge_se2_blocks", params, params.data_ptr(),
+                 free.data_ptr(), ii.data_ptr(), jj.data_ptr(),
+                 meas.data_ptr(), info.data_ptr(), delta.data_ptr(),
+                 int(kernel_id), hblk.data_ptr(), bblk.data_ptr(), E, e_total,
+                 int(col0))
     edge_se2_blocks.launches += 1
 
 

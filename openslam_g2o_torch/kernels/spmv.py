@@ -12,7 +12,7 @@ import torch
 
 from openslam_g2o_torch.kernels import build
 from openslam_g2o_torch.kernels._checks import (
-    check_tensors, launch_device, require)
+    check_tensors, launch_device)
 
 
 def block_ell_spmv_plain(nb, values, x):
@@ -27,10 +27,12 @@ def block_ell_spmv(nb, values, x):
     """y = H x on the block-ELL layout; kernel A on CUDA tensors, the plain
     version on CPU tensors."""
     K, N = nb.shape
-    require(values.shape == (K, 9, N),
-            f"block_ell_spmv: values shape {tuple(values.shape)} != {(K, 9, N)}")
-    require(x.shape == (3, N),
-            f"block_ell_spmv: x shape {tuple(x.shape)} != {(3, N)}")
+    if values.shape != (K, 9, N):      # per CG matvec: no eager messages
+        raise ValueError(f"block_ell_spmv: values shape "
+                         f"{tuple(values.shape)} != {(K, 9, N)}")
+    if x.shape != (3, N):
+        raise ValueError(f"block_ell_spmv: x shape {tuple(x.shape)} != "
+                         f"{(3, N)}")
     check_tensors("block_ell_spmv", x.device, x.dtype,
                   {"values": values, "x": x}, {"nb": nb})
     if not launch_device("block_ell_spmv", x.device):
@@ -38,11 +40,8 @@ def block_ell_spmv(nb, values, x):
     y = torch.empty_like(x)
     if N == 0:
         return y
-    with torch.cuda.device(x.device):
-        err = build.entry("g2o_block_ell_spmv", x.dtype)(
-            nb.data_ptr(), values.data_ptr(), x.data_ptr(), y.data_ptr(),
-            N, K, build.stream_of(x))
-    build.check(err, "block_ell_spmv")
+    build.launch("g2o_block_ell_spmv", x, nb.data_ptr(), values.data_ptr(),
+                 x.data_ptr(), y.data_ptr(), N, K)
     block_ell_spmv.launches += 1
     return y
 

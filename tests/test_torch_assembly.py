@@ -65,7 +65,7 @@ def make_jax_graph():
 @pytest.fixture(scope="module")
 def problems():
     jprob = make_jax_graph().compile(dtype=jnp.float64)
-    tprob = problem_from_numpy(**problem_arrays(jprob))
+    tprob = problem_from_numpy(**problem_arrays(jprob), device="cpu")
     return jprob, tprob
 
 
@@ -89,7 +89,7 @@ def ell_to_dense(nb, values):
 
 def test_port_graph_compiles_to_jax_arrays():
     jprob = make_jax_graph().compile(dtype=jnp.float64)
-    tprob = build_graph(TGraph).compile(dtype=torch.float64)
+    tprob = build_graph(TGraph).compile(dtype=torch.float64, device="cpu")
     ja, ta = problem_arrays(jprob), problem_arrays(tprob)
     assert [g.name for g in tprob.static.vgroups] == ["se2"]
     assert list(ta["edges"]) == list(ja["edges"]) == ["edge_se2",
@@ -211,17 +211,18 @@ def test_damped_scaled_system(problems):
     symmetric block-Jacobi scaling: the result equals
     Linv (H + diag(extra)) Linv^T computed densely, with unit diagonal
     blocks."""
-    from openslam_g2o_torch.core.solvers import batched_chol_inv_lower
+    from openslam_g2o_torch.kernels.damp_chol import damp_chol
+    from openslam_g2o_torch.kernels.jacobi_scale import jacobi_scale
     _, tprob = problems
     pattern = tsparse.build_ell_pattern(tprob)
-    values, _ = tsparse.assemble_ell(tprob, pattern)
+    values, bT = tsparse.assemble_ell(tprob, pattern)
     free = tprob.free["se2"]
-    extra = 0.3 * free + (1.0 - free)
-    damped = tsparse.add_diag(pattern, values, extra)
-    dblocks = (tsparse.diag_blocks(pattern, values)["se2"]
-               + extra[:, None, None] * torch.eye(3, dtype=torch.float64))
-    linv = batched_chol_inv_lower(dblocks)
-    S = ell_to_dense(pattern.nb, tsparse.scale_jacobi(pattern, damped, linv))
+    linv9, _, _, extra = damp_chol(values, free, bT["se2"],
+                                   torch.tensor(0.3, dtype=torch.float64))
+    assert torch.equal(extra, 0.3 * free + (1.0 - free))
+    linv = linv9.view(3, 3, -1).permute(2, 0, 1)
+    S = ell_to_dense(pattern.nb, jacobi_scale(pattern.nb, values, linv9,
+                                              extra))
     N = pattern.n
     Hd = ell_to_dense(pattern.nb, values) + np.diag(
         np.repeat(extra.numpy(), 3))

@@ -89,7 +89,7 @@ def test_jax_saved_graph_loads_in_port():
     assert tg.num_edges() == jg.num_edges()
     assert [v for v in tg.vertices if tg.vertices[v].fixed] == [0, 17]
     ja = problem_arrays(j_loads_g2o(text).compile(dtype=jnp.float64))
-    ta = problem_arrays(tg.compile(dtype=torch.float64))
+    ta = problem_arrays(tg.compile(dtype=torch.float64, device="cpu"))
     np.testing.assert_array_equal(ta["params"]["se2"], ja["params"]["se2"])
     np.testing.assert_array_equal(ta["free"]["se2"], ja["free"]["se2"])
     assert list(ta["edges"]) == list(ja["edges"])
@@ -102,7 +102,7 @@ def test_jax_saved_graph_loads_in_port():
 
 def test_synthetic_pose_graph_matches_jax():
     jprob, jinfo = j_synthetic(n_poses=2000, grid=20)
-    tprob, tinfo = t_synthetic(n_poses=2000, grid=20)
+    tprob, tinfo = t_synthetic(n_poses=2000, grid=20, device="cpu")
     assert tinfo["n_edges"] == jinfo["n_edges"]
     assert tinfo["noise_floor_chi2"] == jinfo["noise_floor_chi2"]
     np.testing.assert_array_equal(tinfo["gt"], jinfo["gt"])
@@ -128,7 +128,7 @@ def test_gauge_and_compile_dtype():
     assert g.find_gauge() == 1
     g.set_fixed(g.find_gauge(), True)
     assert not g.gauge_freedom()
-    prob = g.compile(dtype=torch.float32)
+    prob = g.compile(dtype=torch.float32, device="cpu")
     assert prob.params["se2"].dtype == torch.float32
     assert prob.free["se2"].tolist() == [1.0, 0.0, 1.0]
 
@@ -143,6 +143,27 @@ def test_cuda_without_gpu_raises():
         t_synthetic(n_poses=10, grid=3, device="cuda")
 
 
+def test_default_device_is_the_card_and_never_falls_back():
+    """compile(), build_problem() and the generator default to "cuda": with
+    no GPU they raise RuntimeError instead of building on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from openslam_g2o_torch.core.problem import build_problem, resolve_device
+    g = loads_g2o("VERTEX_SE2 0 0 0 0\n")
+    with pytest.raises(RuntimeError, match="cuda"):
+        g.compile()
+    with pytest.raises(RuntimeError, match="cuda"):
+        g.compile(dtype=torch.float32, device=None)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_problem(g)
+    with pytest.raises(RuntimeError, match="cuda"):
+        t_synthetic(n_poses=10, grid=3)
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert g.compile(device="cpu").device == torch.device("cpu")
+
+
 def test_unported_type_raises_not_implemented():
     name = "point_xy_not_ported"
     if name not in registry.registered_vertex_types():
@@ -153,4 +174,4 @@ def test_unported_type_raises_not_implemented():
     g = Graph()
     g.add_vertex(0, name, [0.0, 0.0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        g.compile()
+        g.compile(device="cpu")

@@ -2,12 +2,14 @@
 each CUDA kernel against its plain version on the card (skipped without a
 GPU; run them there with `python -m pytest tests/test_torch_kernels.py`).
 
-On the card, relative to the largest |plain| entry: kernels A and C to
-1e-12 (float64) and 2e-5 (float32), since they sum a few products in
-another order and contract multiply-adds to FMA; kernel B to 1e-11 and
-1e-4, since its pose differences cancel (coordinates of ~10-100 against
-residuals of ~0.03), so an FMA or a last-ulp sin/cos difference moves the
-residual by an ulp of the coordinate.
+On the card, relative to the largest |plain| entry: kernels A and C and
+the trial-solve kernels to 1e-12 (float64) and 2e-5 (float32), since they
+sum a few products in another order and contract multiply-adds to FMA;
+kernel B to 1e-11 and 1e-4, since its pose differences cancel (coordinates
+of ~10-100 against residuals of ~0.03), so an FMA or a last-ulp sin/cos
+difference moves the residual by an ulp of the coordinate; the closed-form
+Cholesky of K3 to the same 1e-11 and 1e-4, since it subtracts squares and
+divides by the result. The lane gather copies values and must be exact.
 """
 import numpy as np
 import pytest
@@ -15,7 +17,10 @@ import torch
 
 from openslam_g2o_torch import kernels
 from openslam_g2o_torch.apps.simulator import synthetic_pose_graph_2d
-from openslam_g2o_torch.core import sparse
+from openslam_g2o_torch.core import algorithms, sparse
+from openslam_g2o_torch.core import solvers
+from openslam_g2o_torch.kernels import (
+    cg_step, chebyshev, damp_chol, gather, jacobi_scale)
 from openslam_g2o_torch.kernels.assemble import (
     assemble_gather, assemble_gather_plain)
 from openslam_g2o_torch.kernels.edge_se2 import (
@@ -42,9 +47,14 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     y = sparse.ell_matvec_lane(pattern, values, bT)["se2"]
     torch.testing.assert_close(
         y, block_ell_spmv_plain(pattern.nb, values, bT["se2"]))
-    assert kernels.launch_counts() == {"block_ell_spmv": 0,
-                                       "edge_se2_blocks": 0,
-                                       "assemble_gather": 0}
+    algorithms.optimize(prob, algorithms.LevenbergMarquardtPCG(
+        pcg_iters=10, pcg_cheby=2), iterations=1)
+    counts = kernels.launch_counts()
+    assert {"block_ell_spmv", "edge_se2_blocks", "assemble_gather",
+            "damp_chol", "jacobi_scale", "spmv_dot", "cg_update_xr",
+            "cg_update_p", "gershgorin_bound", "chebyshev_update",
+            "lane_gather"} <= set(counts)
+    assert set(counts.values()) == {0}
 
 
 def test_wrappers_reject_bad_arguments():
@@ -84,6 +94,15 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
 
 
+def _scal_rel(sk, sp):
+    """The CG scalar buffers slot by slot: the pd/continue flags must be
+    equal, and the result is the largest error of a scalar relative to its
+    own plain value (rz, r2 and b2 dwarf alpha, beta and the flags)."""
+    flags = [cg_step.PD, cg_step.CONT, cg_step.PD_NEXT]
+    assert torch.equal(sk[flags], sp[flags]), (sk.tolist(), sp.tolist())
+    return max(_rel(a, b) for a, b in zip(sk.unbind(), sp.unbind()))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernels_match_plain_on_gpu(cuda, dtype):
     prob, pattern = _small_system(dtype, cuda, n=5000)
@@ -105,9 +124,9 @@ def test_kernels_match_plain_on_gpu(cuda, dtype):
     y = block_ell_spmv(pattern.nb, values, x)
     assert _rel(y, block_ell_spmv_plain(pattern.nb, values, x)) < TOL[dtype]
     torch.cuda.synchronize()
-    assert kernels.launch_counts() == {"block_ell_spmv": 1,
-                                       "edge_se2_blocks": 1,
-                                       "assemble_gather": 1}
+    launched = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert launched == {"block_ell_spmv": 1, "edge_se2_blocks": 1,
+                        "assemble_gather": 1}
 
 
 def test_robust_kernel_ids_match_plain_on_gpu(cuda):
@@ -140,3 +159,206 @@ def test_spmv_probe_shape_on_gpu(cuda):
     x = torch.as_tensor(rng.normal(size=(3, N)), device=cuda)
     assert _rel(block_ell_spmv(nb, values, x),
                 block_ell_spmv_plain(nb, values, x)) < 1e-12
+
+
+def _scaled(cuda, dtype, n=5000):
+    prob, pattern = _small_system(dtype, cuda, n=n)
+    values, bT = sparse.assemble_ell(prob, pattern)
+    lam = torch.tensor(0.7, dtype=dtype, device=cuda)
+    return prob, pattern, values, bT["se2"], lam
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_trial_kernels_match_plain_on_gpu(cuda, dtype):
+    """K3 and K4 (and the block application) on a 5000-pose system."""
+    prob, pattern, values, b, lam = _scaled(cuda, dtype)
+    free = prob.free["se2"]
+    kernels.reset_launch_counts()
+    got = damp_chol.damp_chol(values, free, b, lam)
+    want = damp_chol.damp_chol_plain(values, free, b, lam)
+    for g, w in zip(got, want):
+        assert _rel(g, w) < TOL_B[dtype]
+    linv, lchol, _, extra = got
+    assert not linv[[1, 2, 5]].any() and not lchol[[1, 2, 5]].any()
+    S = jacobi_scale.jacobi_scale(pattern.nb, values, linv, extra)
+    assert _rel(S, jacobi_scale.jacobi_scale_plain(pattern.nb, values, linv,
+                                                   extra)) < TOL[dtype]
+    x = torch.randn((3, pattern.n), dtype=dtype, device=cuda)
+    for transpose in (False, True):
+        assert _rel(jacobi_scale.lane_block_mv(lchol, x, transpose),
+                    jacobi_scale.lane_block_mv_plain(lchol, x, transpose)
+                    ) < TOL[dtype]
+    hi = chebyshev.gershgorin_bound(S)
+    assert _rel(hi, chebyshev.gershgorin_bound_plain(S)) < TOL[dtype]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert (counts["damp_chol"], counts["jacobi_scale"],
+            counts["lane_block_mv"], counts["gershgorin_bound"]) == (1, 1, 2,
+                                                                     1)
+
+
+def test_trial_kernels_nan_cases_on_gpu(cuda):
+    """A non-SPD block gives NaN factors in that row only; a NaN factor in
+    row 0 leaves every padding slot exactly zero."""
+    prob, pattern, values, b, lam = _scaled(cuda, torch.float64, n=2000)
+    free = prob.free["se2"]
+    bad = values.clone()
+    bad[0, 0, 7] = -1.0e6
+    got = damp_chol.damp_chol(bad, free, b, lam)
+    want = damp_chol.damp_chol_plain(bad, free, b, lam)
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+    nan_rows = torch.isnan(got[0]).any(dim=0).nonzero().flatten().tolist()
+    assert nan_rows == [7]
+    linv, _, _, extra = damp_chol.damp_chol(values, free, b, lam)
+    linv[:, 0] = float("nan")
+    S = jacobi_scale.jacobi_scale(pattern.nb, values, linv, extra)
+    Sp = jacobi_scale.jacobi_scale_plain(pattern.nb, values, linv, extra)
+    assert torch.equal(torch.isnan(S), torch.isnan(Sp))
+    pad = (values == 0).all(dim=1)
+    pad[0] = False
+    assert int(pad.sum()) > 0 and not S.permute(0, 2, 1)[pad].any()
+    assert torch.isnan(S[0, :, 0]).all()
+    assert torch.isnan(chebyshev.gershgorin_bound(S))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cg_step_kernels_match_plain_on_gpu(cuda, dtype):
+    """One hand-driven CG iteration, kernel route and plain route side by
+    side from the same state, then the vector kernels of the Chebyshev
+    preconditioner."""
+    prob, pattern, values, b, lam = _scaled(cuda, dtype)
+    linv, _, bhat, extra = damp_chol.damp_chol(values, prob.free["se2"], b,
+                                               lam)
+    S = jacobi_scale.jacobi_scale(pattern.nb, values, linv, extra)
+    tol = TOL[dtype]
+    x0 = 0.1 * torch.randn_like(bhat)
+    hx = block_ell_spmv(pattern.nb, S, x0)
+    rk, pk, rr_k, bb_k = cg_step.cg_residual(bhat, hx)
+    rp, pp, rr_p, bb_p = cg_step.cg_residual_plain(bhat, hx)
+    assert _rel(rk, rp) < tol and torch.equal(rk, pk)
+    assert _rel(rr_k.sum(), rr_p) < tol and _rel(bb_k.sum(), bb_p) < tol
+    sk, sp = cg_step.new_scalars(rk), cg_step.new_scalars(rk)
+    cg_step.cg_start(sk, rr_k, rr_k, bb_k, 0.15, True)
+    cg_step.cg_start_plain(sp, rr_p, rr_p, bb_p, 0.15, True)
+    assert _scal_rel(sk, sp) < tol
+    hp_k, pap_k = cg_step.spmv_dot(pattern.nb, S, pk)
+    hp_p, pap_p = cg_step.spmv_dot_plain(pattern.nb, S, pp)
+    assert _rel(hp_k, hp_p) < tol and _rel(pap_k.sum(), pap_p) < tol
+    xk, xp = x0.clone(), x0.clone()
+    rr_k = cg_step.cg_update_xr(sk, pap_k, xk, rk, pk, hp_k)
+    rr_p = cg_step.cg_update_xr_plain(sp, pap_p, xp, rp, pp, hp_p)
+    assert _rel(xk, xp) < tol and _rel(rk, rp) < tol
+    assert _rel(rr_k.sum(), rr_p) < tol and _scal_rel(sk, sp) < tol
+    cg_step.cg_update_p(sk, rr_k, rr_k, rk, pk, True)
+    cg_step.cg_update_p_plain(sp, rr_p, rr_p, rp, pp, True)
+    assert _rel(pk, pp) < tol and _scal_rel(sk, sp) < tol
+    assert float(sk[cg_step.PD]) == 1.0 and float(sk[cg_step.CONT]) == 1.0
+    assert _rel(cg_step.dot_partials(rk, pk).sum(),
+                cg_step.dot_partials_plain(rk, pk)) < tol
+    ok = cg_step.cg_finish(sk, [xk])
+    assert ok.dtype == torch.bool and bool(ok) and xk.any()
+    xk[2, 11] = float("nan")
+    assert not bool(cg_step.cg_finish(sk, [xk])) and not xk.any()
+
+    # converged with pd on: the next cg_update_p clears the continue flag
+    for fn, sc, r_, p_ in ((cg_step.cg_update_p, sk, rk, pk),
+                           (cg_step.cg_update_p_plain, sp, rp, pp)):
+        sc[cg_step.THRESH] = 1e30
+        rr = cg_step.dot_partials(r_, r_)
+        fn(sc, rr, rr, r_, p_, True)
+        assert float(sc[cg_step.PD]) == 1.0 and float(sc[cg_step.CONT]) == 0.0
+    assert _scal_rel(sk, sp) < tol
+
+    hi = chebyshev.gershgorin_bound(S)
+    ck = chebyshev.chebyshev_coeffs(hi * 0.02, hi, 4)
+    assert _rel(ck, chebyshev.chebyshev_coeffs_plain(hi * 0.02, hi, 4)) < tol
+    dk, zk = chebyshev.chebyshev_init(ck, rk)
+    dp, zp = chebyshev.chebyshev_init_plain(ck, rk)
+    assert _rel(dk, dp) < tol and torch.equal(dk, zk)
+    sz = block_ell_spmv(pattern.nb, S, zk)
+    chebyshev.chebyshev_update(ck, 0, rk, sz, dk, zk)
+    chebyshev.chebyshev_update_plain(ck, 0, rk, sz, dp, zp)
+    assert _rel(dk, dp) < tol and _rel(zk, zp) < tol
+
+
+@pytest.mark.parametrize("curvature", ["negative", "nan"])
+def test_cg_step_kernels_sticky_pd_on_gpu(cuda, curvature):
+    """p . hp <= 0 or NaN turns pd off for good: alpha 0, x and r stay, the
+    continue flag clears, and a later positive curvature does not bring pd
+    back; r2 <= thresh at the start clears the continue flag alone."""
+    n = 3 * 5000
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    vec = lambda: torch.randn(n, generator=gen, device=cuda,
+                              dtype=torch.float64)
+    x0, r0, p0, hp = vec(), vec(), vec(), vec()
+    rr, bb = cg_step.dot_partials(r0, r0), cg_step.dot_partials(x0, x0)
+    pap = cg_step.dot_partials(p0, p0)                  # positive
+    bad_pap = -pap if curvature == "negative" else pap.clone()
+    if curvature == "nan":
+        bad_pap[-1] = float("nan")
+    out = {}
+    for route, start, xr, up in (
+            ("kernel", cg_step.cg_start, cg_step.cg_update_xr,
+             cg_step.cg_update_p),
+            ("plain", cg_step.cg_start_plain, cg_step.cg_update_xr_plain,
+             cg_step.cg_update_p_plain)):
+        sc = cg_step.new_scalars(r0)
+        start(sc, rr, rr, rr, 2.0, True)            # r2 = b2 <= 4 b2
+        assert float(sc[cg_step.PD]) == 1.0 and float(sc[cg_step.CONT]) == 0.0
+        start(sc, rr, rr, bb, 1e-6, True)
+        assert float(sc[cg_step.CONT]) == 1.0
+        x, r, p = x0.clone(), r0.clone(), p0.clone()
+        xr(sc, bad_pap, x, r, p, hp)
+        assert torch.equal(x, x0) and torch.equal(r, r0)
+        assert float(sc[cg_step.PD_NEXT]) == 0.0
+        assert float(sc[cg_step.ALPHA]) == 0.0
+        up(sc, rr, rr, r, p, True)
+        assert float(sc[cg_step.PD]) == 0.0 and float(sc[cg_step.CONT]) == 0.0
+        xr(sc, pap, x, r, p, hp)                        # pd stays off
+        assert float(sc[cg_step.PD_NEXT]) == 0.0 and torch.equal(x, x0)
+        out[route] = (sc, p)
+    assert _scal_rel(out["kernel"][0], out["plain"][0]) < 1e-12
+    assert _rel(out["kernel"][1], out["plain"][1]) < 1e-12
+
+
+@pytest.mark.parametrize("cheby", [0, 4])
+def test_pcg_solve_on_gpu_matches_cpu(cuda, cheby):
+    """The whole solve through the kernels against the same solve on the
+    CPU (plain versions), float64: equal CG iteration counts, x to 1e-9."""
+    prob, pattern, values, b, lam = _scaled(cuda, torch.float64, n=2000)
+    linv, _, bhat, extra = damp_chol.damp_chol(values, prob.free["se2"], b,
+                                               lam)
+    S = jacobi_scale.jacobi_scale(pattern.nb, values, linv, extra)
+
+    def solve(device):
+        import dataclasses
+        pat = dataclasses.replace(pattern, nb=pattern.nb.to(device))
+        op = sparse.EllOperator(pat, S.to(device))
+        pre = None
+        if cheby:
+            hi = chebyshev.gershgorin_bound(S.to(device))
+            pre = solvers.make_chebyshev_precond(op, hi * 0.02, hi, cheby)
+        kernels.reset_launch_counts()
+        x, ok = solvers.pcg_solve(op, {"se2": bhat.to(device)}, precond=pre,
+                                  max_iter=40, tol=1e-8,
+                                  unroll=1 if cheby else 2, norm="precond")
+        return x["se2"].cpu(), bool(ok), kernels.launch_counts()
+
+    xg, okg, cg_counts = solve(cuda)
+    xc, okc, cpu_counts = solve("cpu")
+    assert okg and okc
+    assert set(cpu_counts.values()) == {0}
+    assert cg_counts["cg_update_xr"] == cg_counts["cg_update_p"] > 2
+    assert cg_counts["spmv_dot"] == cg_counts["cg_update_xr"]
+    assert _rel(xg, xc) < 1e-9
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lane_gather_probe_shape_on_gpu(cuda, dtype):
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=(8, 3500)), dtype=dtype, device=cuda)
+    idx = torch.as_tensor(rng.integers(0, 3500, (8, 35000)).astype(np.int32),
+                          device=cuda)
+    out = gather.lane_gather(x, idx)
+    assert torch.equal(out, gather.lane_gather_plain(x, idx))

@@ -34,6 +34,8 @@ from openslam_g2o_torch.core import solvers as tsolvers
 from openslam_g2o_torch.core import sparse as tsparse
 from openslam_g2o_torch.core.graph import Graph as TGraph
 from openslam_g2o_torch.interop import problem_arrays
+from openslam_g2o_torch.kernels.damp_chol import damp_chol
+from openslam_g2o_torch.kernels.jacobi_scale import jacobi_scale
 from openslam_g2o_torch.utils import np_lie
 
 torch.set_num_threads(1)
@@ -67,10 +69,10 @@ def make_ring_graph(n_poses=64, seed=0):
 def _problems(kind):
     if kind == "ring64":
         jprob = __graft_entry__._make_ring_graph(64).compile(dtype=jnp.float64)
-        tprob = make_ring_graph(64).compile(dtype=torch.float64)
+        tprob = make_ring_graph(64).compile(dtype=torch.float64, device="cpu")
     else:
         jprob, _ = j_synthetic(n_poses=2000, grid=20)
-        tprob, _ = t_synthetic(n_poses=2000, grid=20)
+        tprob, _ = t_synthetic(n_poses=2000, grid=20, device="cpu")
     return jprob, tprob
 
 
@@ -122,20 +124,15 @@ def test_non_spd_block_gives_nan():
 def _scaled_system():
     """Dense Jacobi-scaled damped system of the 64-ring at lambda0."""
     from tests.test_torch_assembly import ell_to_dense
-    tprob = make_ring_graph(64).compile(dtype=torch.float64)
+    tprob = make_ring_graph(64).compile(dtype=torch.float64, device="cpu")
     alg = talg.LevenbergMarquardtPCG()
     state = alg.init(tprob)
     pattern = alg.pattern(tprob)
     pre = talg._pcg_precomp(tprob, pattern)
-    free = tprob.free["se2"]
-    extra = state["lam"] * free + (1.0 - free)
-    dblocks = (pre["diag_blocks"]["se2"]
-               + extra[:, None, None] * torch.eye(3, dtype=torch.float64))
-    linv = tsolvers.batched_chol_inv_lower(dblocks)
-    S = tsparse.scale_jacobi(pattern, tsparse.add_diag(pattern, pre["values"],
-                                                       extra), linv)
-    bhat = tsparse.lane_block_mv({"se2": linv.permute(1, 2, 0)}, pre["bT"])
-    return ell_to_dense(pattern.nb, S), bhat["se2"].numpy()
+    linv, _, bhat, extra = damp_chol(pre["values"], tprob.free["se2"],
+                                     pre["bT"]["se2"], state["lam"])
+    S = jacobi_scale(pattern.nb, pre["values"], linv, extra)
+    return ell_to_dense(pattern.nb, S), bhat.numpy()
 
 
 def _run_both_pcg(S, b, **kw):
@@ -240,10 +237,15 @@ def test_optimize_matches_jax_on_ring():
 
 
 def test_chebyshev_not_ported_raises():
-    tprob, _ = t_synthetic(n_poses=50, grid=5)
-    with pytest.raises(NotImplementedError, match="K8"):
-        talg.optimize(tprob, talg.LevenbergMarquardtPCG(pcg_cheby=3),
-                      iterations=1)
+    """pcg_cheby=3 once raised NotImplementedError; it now runs the
+    Chebyshev-preconditioned solve and decreases chi2 (the trajectories are
+    held against JAX in test_torch_chebyshev.py)."""
+    tprob, _ = t_synthetic(n_poses=50, grid=5, device="cpu")
+    chi0 = float(talg.robust_chi2(tprob))
+    _, stats = talg.optimize(tprob, talg.LevenbergMarquardtPCG(pcg_cheby=3),
+                             iterations=1)
+    assert stats[0]["ok"] and np.isfinite(stats[0]["chi2"])
+    assert stats[0]["chi2"] < chi0
 
 
 # ---------------------------------------------------------------------------
@@ -260,7 +262,7 @@ def test_nonfinite_trial_chi2_is_retried(monkeypatch):
     g.add_vertex(0, "se2", [0.0, 0.0, 0.0], fixed=True)
     g.add_vertex(1, "se2", [0.0, 0.0, 0.0])
     g.add_edge("edge_se2", (0, 1), [2.0, 0.0, 0.0], np.eye(3))
-    prob = g.compile()
+    prob = g.compile(device="cpu")
     real = talg.robust_chi2
 
     def domain_chi2(problem, params=None):

@@ -1,7 +1,10 @@
 """The port imports no JAX: in a fresh interpreter, import openslam_g2o_torch
 and run one small CPU optimization through the public API, then check that
-no jax module (nor the JAX package, which pulls jax in) was loaded."""
+no jax module (nor the JAX package, which pulls jax in) was loaded. Every
+module of the port and chip_smoke.py are imported, and no source file of
+either names jax or the JAX package in an import statement."""
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -16,19 +19,40 @@ import openslam_g2o_torch
 from openslam_g2o_torch import loads_g2o
 from openslam_g2o_torch.apps.simulator import synthetic_pose_graph_2d
 from openslam_g2o_torch.core.algorithms import LevenbergMarquardtPCG, optimize
-import openslam_g2o_torch.kernels.build
-import openslam_g2o_torch.interop
+import importlib, pkgutil
+for mod in pkgutil.walk_packages(openslam_g2o_torch.__path__,
+                                 "openslam_g2o_torch."):
+    importlib.import_module(mod.name)         # every module of the port
+for name in ("kernels.damp_chol", "kernels.jacobi_scale", "kernels.cg_step",
+             "kernels.chebyshev", "kernels.gather", "kernels.build",
+             "apps.profile_window", "interop"):
+    assert "openslam_g2o_torch." + name in sys.modules, name
+import chip_smoke                             # imports nothing at top level
 
-prob, _ = synthetic_pose_graph_2d(n_poses=200, grid=10)
+prob, _ = synthetic_pose_graph_2d(n_poses=200, grid=10, device="cpu")
 _, stats = optimize(prob, LevenbergMarquardtPCG(pcg_iters=30, pcg_tol=1e-4),
                     iterations=3)
 assert stats[-1]["chi2"] < stats[0]["chi2"] or stats[0]["ok"], stats
+_, stats = optimize(prob, LevenbergMarquardtPCG(pcg_iters=30, pcg_tol=1e-4,
+                                                pcg_cheby=3), iterations=2)
+assert stats[-1]["ok"], stats
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
                                             "openslam_g2o_tpu")))
 assert not bad, bad
 print("NO_JAX_OK")
 """
+
+
+def test_port_sources_name_no_jax_import():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|openslam_g2o_tpu)\b",
+                         re.M)
+    files = sorted((REPO / "openslam_g2o_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 20
+    bad = [str(f.relative_to(REPO)) for f in files
+           if pattern.search(f.read_text())]
+    assert not bad, bad
 
 
 def test_port_imports_no_jax():

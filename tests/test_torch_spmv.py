@@ -32,7 +32,7 @@ def _rel_err(got, ref):
 @pytest.fixture(scope="module")
 def system():
     jprob = make_jax_graph().compile(dtype=jnp.float64)
-    tprob = problem_from_numpy(**problem_arrays(jprob))
+    tprob = problem_from_numpy(**problem_arrays(jprob), device="cpu")
     pattern = tsparse.build_ell_pattern(tprob)
     values, _ = tsparse.assemble_ell(tprob, pattern)
     x = np.random.default_rng(7).normal(size=(3, pattern.n))
