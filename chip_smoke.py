@@ -17,6 +17,10 @@ Phases (any failure raises and the script exits non-zero):
     kernel A and the lane gather at the TPU probe's shape, and the
     NaN cases of the factor and scaling kernels: NaN in the same places,
     exact zeros in the upper factor entries and in every padding slot.
+    K7 (retract_chi2, lm_outcome) on the same graph, with its NaN cases (a
+    NaN dx and ok False both give chi2 inf, rho -1, no accept, lambda * nu,
+    retry; flags compared exactly), and K15 (dense_assemble) on the
+    landmark world of phase 4d, twice for the same bits;
     The CG kernels' scalar buffer is held slot by slot, each scalar
     relative to its own plain value and the pd/continue flags exactly,
     also where they must be 0 (negative and NaN curvature, sticky pd,
@@ -27,15 +31,28 @@ Phases (any failure raises and the script exits non-zero):
     warm polish windows (pcg 600, tol 1e-6) until <= 1.02 x; the first 3
     iterations are held against the same run with every kernel replaced by
     its plain version, to rtol 2e-4 (float32 sums in another order);
+    and the time and launches of one trial's retract + chi2 + outcome (K7);
  4b. the Chebyshev path: the same graph with pcg_cheby=4, three windows of
     10; finite, never increasing, below chi2_0, and the first 3 chi2 equal
     to the plain route to rtol 2e-4;
  4c. the probe path: a block-ELL SpMV composed of the lane gather and a
     multiply-sum on the TPU probe's data, against kernel A;
+ 4d. the dense path at full size: a Simulator2D landmark world (3000 poses,
+    1500 landmarks, tangent dimension T >= 8000, float64) through compile()
+    -> optimize(prob), the default dense LevenbergMarquardt, for 10
+    iterations and GaussNewton() for 5: chi2 never increases, every step
+    that still gains is accepted, GN and LM end within 1e-6 of each other,
+    the trajectory equals the same run with the dense-path kernels
+    replaced by their plain versions to rtol 1e-9, and a second run gives
+    the same bits; ms per iteration split into linearize / assemble /
+    factor + solve / retract + chi2, and the device's busy time by kernel
+    over 3 iterations (torch.profiler);
  5. a small .g2o string through loads_g2o -> compile() (the default
     device) -> optimize(LevenbergMarquardtPCG()), chi2 decreasing and equal
-    to the CPU run of the same graph;
- 6. every kernel's launch count in the paths of phases 4-4c, each > 0. A
+    to the CPU run of the same graph; and one with VERTEX_XY, EDGE_SE2_XY
+    and a PARAMS_SE2OFFSET / EDGE_SE2_OFFSET pair through optimize(), the
+    default algorithm, against its CPU run;
+ 6. every kernel's launch count in the paths of phases 4-4d, each > 0. A
     count is one per wrapper call that launched; cg_finish launches two
     kernels per vector and gershgorin_bound two per call.
 The last two lines are the per-kernel JSON and {"ok": true, "device": ...}.
@@ -60,7 +77,16 @@ import time
 TOL_DEFAULT = {"float32": 2e-5, "float64": 1e-12}
 TOL = {"edge_se2_blocks": {"float32": 1e-4, "float64": 1e-11},
        "damp_chol": {"float32": 1e-4, "float64": 1e-11},
-       "lane_gather": {"float32": 0.0, "float64": 0.0}}
+       "lane_gather": {"float32": 0.0, "float64": 0.0},
+       # the trial chi2 cancels coordinates as kernel B's residual does
+       "retract_chi2": {"float32": 1e-4, "float64": 1e-11}}
+DENSE_ROUTE_RTOL = 1e-9
+# The dense path's world: odometry noise below Simulator2D's default, so that
+# 10 LM and 5 GN iterations reach the same minimum (at the default noise LM's
+# lambda, which falls by at most 3x per iteration, leaves it 2e-3 above GN's)
+DENSE_WORLD = dict(world_size=60, n_landmarks=1500, trans_noise=(0.02, 0.01),
+                   rot_noise=0.002, seed=0)
+DENSE_POSES = 3000
 PLAIN_ROUTE_RTOL = 2e-4
 N_POSES, GRID = 100000, 100
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -96,6 +122,12 @@ KERNELS = {
     "chebyshev_update": ("chebyshev.cu",
                          "openslam_g2o_tpu/core/solvers.py:203"),
     "lane_gather": ("lane_gather.cu", "scripts/probe_pallas_gather.py:53"),
+    "retract_chi2": ("retract_chi2.cu",
+                     "openslam_g2o_tpu/core/problem.py:557"),
+    "lm_outcome": ("retract_chi2.cu",
+                   "openslam_g2o_tpu/core/algorithms.py:306"),
+    "dense_assemble": ("dense_assemble.cu",
+                       "openslam_g2o_tpu/core/problem.py:415"),
 }
 
 
@@ -136,6 +168,8 @@ def _errors(torch, got, want, same_nan=False):
                                      "of kernel and plain version")
             keep = ~torch.isnan(w)
             g, w = g[keep], w[keep]
+        same_inf = torch.isinf(w) & (g == w)     # inf - inf would be NaN
+        g, w = g[~same_inf], w[~same_inf]
         if w.numel() == 0:
             continue
         err = float((g - w).abs().max())
@@ -160,16 +194,20 @@ def main() -> int:
         return 1
     import numpy as np
     from openslam_g2o_torch import kernels, loads_g2o, save_g2o
-    from openslam_g2o_torch.apps.simulator import synthetic_pose_graph_2d
+    from openslam_g2o_torch.apps.simulator import (
+        Simulator2D, synthetic_pose_graph_2d)
+    from openslam_g2o_torch.core import problem as problem_mod
     from openslam_g2o_torch.core import sparse
     from openslam_g2o_torch.core.algorithms import (
-        LevenbergMarquardtPCG, _lambda_init_pcg, lm_pcg_optimize_fused,
-        optimize)
+        GaussNewton, LevenbergMarquardt, LevenbergMarquardtPCG,
+        _lambda_init_pcg, _pcg_precomp, _pcg_trial, _trial_outcome,
+        lm_pcg_optimize_fused, optimize)
     from openslam_g2o_torch.core.graph import Graph
     from openslam_g2o_torch.core.problem import robust_chi2
+    from openslam_g2o_torch.core.solvers import solve_dense_cholesky
     from openslam_g2o_torch.kernels import (
-        assemble, build, cg_step, chebyshev, damp_chol, edge_se2, gather,
-        jacobi_scale, spmv)
+        assemble, build, cg_step, chebyshev, damp_chol, dense_assemble,
+        edge_se2, gather, jacobi_scale, retract_chi2, spmv)
     from openslam_g2o_torch.utils import np_lie
 
     # -- 1. device --------------------------------------------------------
@@ -308,12 +346,30 @@ def main() -> int:
              nbytes=s * (9 * K * N + 6 * N) + 4 * K * N, flops=18 * K * N,
              library=lambda: bsr @ x_col)
         xp = randn(3, 3500)
+        # the probe's random columns repeat within a row: summed into a
+        # dense matrix first, then cut into 3x3 blocks for the BSR product
+        nine = torch.arange(9, device=dev)[None, :, None]
+        dense_p = torch.zeros((3 * 3500, 3 * 3500), dtype=dt, device=dev)
+        dense_p.index_put_(
+            ((3 * torch.arange(3500, device=dev)[None, None, :]
+              + nine // 3).expand(10, 9, 3500),
+             3 * probe_nb[:, None, :].long() + nine % 3),
+            probe_vals, accumulate=True)
+        bsr_p = dense_p.to_sparse_bsr(blocksize=(3, 3))
+        xp_col = xp.t().reshape(3 * 3500, 1).contiguous()
+        _, lib_rel = _errors(
+            torch, (bsr_p @ xp_col).reshape(3500, 3).t(),
+            spmv.block_ell_spmv_plain(probe_nb, probe_vals, xp))
+        if lib_rel > TOL_DEFAULT[tag] * 10:
+            raise AssertionError(f"the probe's BSR yardstick disagrees: "
+                                 f"{lib_rel}")
         case("block_ell_spmv", tag, "N=3500 K=10",
              lambda: spmv.block_ell_spmv(probe_nb, probe_vals, xp),
              lambda: spmv.block_ell_spmv_plain(probe_nb, probe_vals, xp),
              nbytes=s * (90 * 3500 + 6 * 3500) + 40 * 3500,
-             flops=180 * 3500, label="block_ell_spmv@probe")
-        del bsr
+             flops=180 * 3500, label="block_ell_spmv@probe",
+             library=lambda: bsr_p @ xp_col)
+        del bsr, bsr_p, dense_p
 
         # K3 and K4 at lambda0, and their NaN cases
         free = prob.free["se2"]
@@ -583,7 +639,133 @@ def main() -> int:
              lambda: gather.lane_gather_plain(gx, gidx),
              nbytes=s * 8 * (3500 + 35000) + 4 * 8 * 35000, flops=0,
              library=lambda: torch.gather(gx, 1, gidx_long))
+
+        # K7 on the same graph: a step of the size LM takes here, the
+        # gradient b, lambda0
+        dxT = 0.01 * randn(3, N)
+        groups7 = [(ea.indices[0], ea.indices[1], ea.measurement,
+                    ea.information, ea.delta, 0)]
+        k7 = (prob.params["se2"], dxT, free, b, lam, groups7)
+        case("retract_chi2", tag, f"N={N} E={E}",
+             lambda: retract_chi2.retract_chi2(*k7),
+             lambda: retract_chi2.retract_chi2_plain(*k7),
+             nbytes=s * (13 * N + 13 * E) + 8 * E, flops=12 * N + 120 * E,
+             post=sums(1, 2))
+        first = retract_chi2.retract_chi2(*k7)
+        if not all(torch.equal(a_, b_) for a_, b_ in
+                   zip(first, retract_chi2.retract_chi2(*k7))):
+            raise AssertionError("retract_chi2 does not repeat its bits")
+        _, part_dot, part_chi = first
+        on = torch.tensor(True, device=dev)
+        two = torch.tensor(2.0, dtype=dt, device=dev)
+        chi_cur = robust_chi2(prob)
+        nan_dx = dxT.clone()
+        nan_dx[2, 11] = float("nan")
+        _, nan_dot, nan_chi = retract_chi2.retract_chi2(
+            prob.params["se2"], nan_dx, free, b, lam, groups7)
+        if bool(torch.isfinite(nan_chi.sum())):
+            raise AssertionError("a NaN step gave a finite chi2")
+        split = lambda out: tuple(o.to(dt) for o in out)
+        outcome_cases = {
+            None: (part_chi, part_dot, on, lam, two, chi_cur),
+            "lm_outcome@ok_false": (part_chi, part_dot, ~on, lam, two,
+                                    chi_cur),
+            "lm_outcome@nan_dx": (nan_chi, nan_dot, on, lam, two, chi_cur),
+            "lm_outcome@uphill": (part_chi, part_dot, on, lam, two,
+                                  chi_cur * 0.5)}
+        for label, oc in outcome_cases.items():
+            case("lm_outcome", tag,
+                 f"{part_chi.numel()}+{part_dot.numel()} partials"
+                 + (f", {label.split('@')[1]}" if label else ""),
+                 lambda: split(retract_chi2.lm_outcome(*oc)),
+                 lambda: split(retract_chi2.lm_outcome_plain(*oc)),
+                 nbytes=s * (part_chi.numel() + part_dot.numel() + 7) + 3,
+                 flops=part_chi.numel() + part_dot.numel() + 20,
+                 label=label, timed=label is None)
+            got = retract_chi2.lm_outcome(*oc)
+            want = retract_chi2.lm_outcome_plain(*oc)
+            for i in (2, 5):                  # accept, retry: exactly
+                if bool(got[i]) != bool(want[i]):
+                    raise AssertionError(f"lm_outcome {label}: flag {i} "
+                                         "differs from the plain version")
+            if label in ("lm_outcome@ok_false", "lm_outcome@nan_dx"):
+                if not (float(got[0]) == float("inf")
+                        and float(got[1]) == -1.0 and not bool(got[2])
+                        and bool(got[5])
+                        and float(got[3]) == float(lam * two)
+                        and float(got[4]) == 4.0):
+                    raise AssertionError(
+                        f"{label}: expected chi2 inf, rho -1, no accept, "
+                        f"lambda * nu, retry; got {[float(g) for g in got]}")
         del values, svals, state, dz, linv, lchol
+    # K15 on the landmark world of phase 4d
+    t_sim = time.monotonic()
+    world, _ = Simulator2D(**DENSE_WORLD).simulate(n_poses=DENSE_POSES)
+    t_sim = time.monotonic() - t_sim
+    for dt in (torch.float32, torch.float64):
+        tag = str(dt).split(".")[-1]
+        s = torch.empty((), dtype=dt).element_size()
+        dprob = world.compile(dtype=dt)
+        T = dprob.static.total_dim
+        dpattern = dense_assemble.build_dense_pattern(dprob)
+        lin = problem_mod.linearize(dprob)
+        dgroups = [dense_assemble.EdgeBlocks(
+            lin[eg.key][0].contiguous(),
+            tuple(j.contiguous() for j in lin[eg.key][1]), lin[eg.key][2],
+            dprob.edges[eg.key].information, dpattern.offsets[i])
+            for i, eg in enumerate(dprob.static.egroups)]
+        fixed_t = problem_mod.tangent_masks(dprob)[1]
+        # the library yardstick: one index_put_ per slot pair on the
+        # precomputed blocks (H only; the products are not timed)
+        lib_H = torch.zeros((T, T), dtype=dt, device=dev)
+        lib_ops = []
+        nbytes, flops = s * (T * T + 3 * T), 0
+        for gi, gblk in enumerate(dgroups):
+            w_om = gblk.rho1[:, None, None] * gblk.info
+            E_g, D_g = gblk.resid.shape
+            widths = [j.shape[2] for j in gblk.jacs]
+            nbytes += s * E_g * (D_g + D_g * sum(widths) + 1 + D_g * D_g)
+            nbytes += 4 * sum(tb.ptr.numel() + 2 * tb.n_dest
+                              + 2 * tb.edge.numel()
+                              for tb in dpattern.pairs[gi])
+            idx = [o.long()[:, None] + torch.arange(w_, device=dev)[None, :]
+                   for o, w_ in zip(gblk.offsets, widths)]
+            for s_ in range(len(widths)):
+                jw = edge_se2.bmm_small(gblk.jacs[s_].transpose(1, 2), w_om)
+                for t_ in range(s_, len(widths)):
+                    blk = edge_se2.bmm_small(jw, gblk.jacs[t_])
+                    flops += 2 * E_g * widths[s_] * D_g * (D_g + widths[t_])
+                    lib_ops.append((idx[s_][:, :, None], idx[t_][:, None, :],
+                                    blk))
+                    if t_ != s_:
+                        lib_ops.append((idx[t_][:, :, None],
+                                        idx[s_][:, None, :],
+                                        blk.transpose(1, 2).contiguous()))
+
+        def lib_dense():                     # accumulates; timed only
+            for rows_i, cols_i, blk in lib_ops:
+                lib_H.index_put_((rows_i, cols_i), blk, accumulate=True)
+
+        dargs = (dgroups, T, fixed_t, dpattern, True)
+        case("dense_assemble", tag,
+             f"T={T} E=" + "+".join(str(g_.resid.shape[0]) for g_ in dgroups)
+             + f" ({nbytes / 1e6:.1f} MB)",
+             lambda: dense_assemble.dense_assemble(*dargs),
+             lambda: dense_assemble.dense_assemble_plain(*dargs),
+             nbytes=nbytes, flops=flops, library=lib_dense)
+        once = dense_assemble.dense_assemble(*dargs)
+        if not all(torch.equal(a_, b_) for a_, b_ in
+                   zip(once, dense_assemble.dense_assemble(*dargs))):
+            raise AssertionError("dense_assemble does not repeat its bits")
+        # the mirrored writes make H symmetric to the bit outside the
+        # diagonal blocks, which are at most 3 wide
+        skew = (once[0] - once[0].T).abs_()
+        if float(skew.max()) > TOL_DEFAULT[tag] * float(once[0].abs().max()) \
+                or bool(skew.triu(3).any()):
+            raise AssertionError("dense_assemble: H is not symmetric")
+        del skew
+        del lib_H, lib_ops, lin, dgroups, once, dprob, dpattern
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for (label, tag), row in sorted(results.items()):
         tol = TOL.get(row["kname"], TOL_DEFAULT)[tag]
@@ -615,27 +797,37 @@ def main() -> int:
              (cg_step, "cg_update_xr"), (cg_step, "cg_update_p"),
              (cg_step, "cg_finish"), (chebyshev, "gershgorin_bound"),
              (chebyshev, "chebyshev_coeffs"), (chebyshev, "chebyshev_init"),
-             (chebyshev, "chebyshev_update"), (gather, "lane_gather")]
+             (chebyshev, "chebyshev_update"), (gather, "lane_gather"),
+             (retract_chi2, "retract_chi2"), (retract_chi2, "lm_outcome"),
+             (dense_assemble, "dense_assemble")]
 
-    def plain_route(alg, pattern, ni, **pcg):
-        """The first 3 iterations with every wrapper swapped for its plain
-        version (CUDA tensors, plain PyTorch ops): (lambda0, chi2 list)."""
-        before = kernels.launch_counts()
-        saved = [(mod, attr, getattr(mod, attr)) for mod, attr in swaps]
-        try:
+    class plain_versions:
+        """Every wrapper swapped for its plain version (CUDA tensors, plain
+        PyTorch ops) inside the block; fails if a kernel launched in it."""
+
+        def __enter__(self):
+            self.before = kernels.launch_counts()
+            self.saved = [(mod, attr, getattr(mod, attr))
+                          for mod, attr in swaps]
             for mod, attr in swaps:
                 setattr(mod, attr, getattr(mod, attr + "_plain"))
+
+        def __exit__(self, *exc):
+            for mod, attr, fn in self.saved:
+                setattr(mod, attr, fn)
+            if exc[0] is None and kernels.launch_counts() != self.before:
+                raise AssertionError("the plain-route run launched a kernel")
+
+    def plain_route(alg, pattern, ni, **pcg):
+        """The first 3 iterations on the plain versions: (lambda0, chi2
+        list)."""
+        with plain_versions():
             lam_p = _lambda_init_pcg(
                 prob, pattern, prob.params,
                 torch.tensor(alg.tau, dtype=prob.dtype, device=dev))
             out_p = lm_pcg_optimize_fused(
                 prob, pattern, prob.params, lam_p, ni, robust_chi2(prob),
                 n_iters=3, **pcg)
-        finally:
-            for mod, attr, fn in saved:
-                setattr(mod, attr, fn)
-        if kernels.launch_counts() != before:
-            raise AssertionError("the plain-route run launched a kernel")
         return float(lam_p), out_p[4].tolist()
 
     def start(alg):
@@ -711,6 +903,27 @@ def main() -> int:
           + " ".join(f"{c:.2f}" for c in first_traj[:3])
           + f" (rtol {PLAIN_ROUTE_RTOL:g}) OK")
 
+    # one trial's retract + chi2 + outcome (K7) at the final state, outside
+    # the counted path: CUDA events around _trial_outcome, median of 9
+    work = prob.with_params(st[0])
+    pre = _pcg_precomp(work, pattern)
+    dxT_t, ok_t = _pcg_trial(work, pattern, pre, st[1], None, 100, 0.15, 0)
+    before = kernels.launch_counts()
+    k7_ms = _median_ms(torch, lambda: _trial_outcome(
+        work, pattern, pre["bT"], dxT_t, ok_t, st[1], st[2], st[3]),
+        repeats=9, inner=1)
+    k7_calls = {k: (v - before[k]) // 12 for k, v in
+                kernels.launch_counts().items() if v != before[k]}
+    n_groups = len(prob.static.egroups)
+    print(f"phase 4 K7: retract + chi2 + outcome {k7_ms:.4f} ms per trial "
+          f"(CUDA events, one call per event pair, median of 9); wrapper "
+          f"calls per trial {k7_calls}; kernel launches per trial "
+          f"{2 + n_groups} (retract_se2, {n_groups} se2_edge_chi2, "
+          f"lm_outcome) [{card}]")
+    if k7_calls != {"retract_chi2": 1, "lm_outcome": 1}:
+        raise AssertionError(f"a trial's outcome launched {k7_calls}")
+    del work, pre, dxT_t
+
     # 4b. the Chebyshev-preconditioned configuration
     cheb_pcg = dict(pcg_iters=100, pcg_tol=0.15, pcg_cheby=4)
     alg_c = LevenbergMarquardtPCG(**cheb_pcg)
@@ -770,6 +983,133 @@ def main() -> int:
         raise AssertionError("the gather-composed SpMV disagrees with "
                              "kernel A")
 
+    # 4d. the dense path at full size: the default algorithm and GN
+    dprob = world.compile()                   # default device, float64
+    T = dprob.static.total_dim
+    if dprob.device.type != "cuda" or dprob.dtype != torch.float64 \
+            or T < 8000:
+        raise AssertionError(f"dense path: {dprob.device} {dprob.dtype} T={T}")
+    by_type = " ".join(f"{eg.key}={eg.count}" for eg in dprob.static.egroups)
+    chi0_d = float(robust_chi2(dprob))
+    optimize(dprob, iterations=1)             # cuSOLVER's first call
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_lm = time.monotonic()
+    lm_out, lm_stats = optimize(dprob)        # LevenbergMarquardt, 10 its
+    t_lm = time.monotonic() - t_lm
+    t_gn = time.monotonic()
+    _, gn_stats = optimize(dprob, GaussNewton(), iterations=5)
+    t_gn = time.monotonic() - t_gn
+    counts_dense = kernels.launch_counts()    # the dense path's launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    lm_chi = [st_["chi2"] for st_ in lm_stats]
+    gn_chi = [st_["chi2"] for st_ in gn_stats]
+    trials = sum(st_["levenberg_iters"] for st_ in lm_stats)
+    print(f"phase 4d dense path: Simulator2D({DENSE_WORLD}).simulate("
+          f"{DENSE_POSES}) in {t_sim:.2f} s on the host; T={T} "
+          f"({dprob.static.vgroups[0].count} poses, "
+          f"{dprob.static.vgroups[1].count} landmarks) {by_type} float64; "
+          f"chi2_0 {chi0_d:.1f}; LM 10 iterations {t_lm * 100:.2f} ms/"
+          f"iteration ({trials} trials), GN 5 iterations "
+          f"{t_gn * 200:.2f} ms/iteration; peak memory {peak_gb:.2f} GB "
+          f"[{card}]")
+    print("phase 4d LM chi2: " + " ".join(f"{c:.4f}" for c in lm_chi))
+    print("phase 4d GN chi2: " + " ".join(f"{c:.4f}" for c in gn_chi))
+    steps_d = np.diff(np.array([chi0_d] + lm_chi))
+    # a step at the converged plateau (gain below 1e-10 of chi2) may be
+    # rejected on rounding noise; every other step must be accepted
+    gaining = -steps_d > 1e-10 * np.array(lm_chi)
+    bad_ok = [i for i, st_ in enumerate(lm_stats)
+              if not st_["ok"] and (i == 0 or gaining[i - 1])]
+    if not (np.all(np.isfinite(lm_chi)) and np.all(steps_d <= 0)) or bad_ok \
+            or not all(st_["ok"] for st_ in gn_stats):
+        raise AssertionError(f"dense path: chi2 increased or a step failed: "
+                             f"{lm_stats} {gn_stats}")
+    gap = abs(lm_chi[-1] - gn_chi[-1]) / gn_chi[-1]
+    if not gap <= 1e-6:
+        raise AssertionError(f"dense path: LM {lm_chi[-1]} and GN "
+                             f"{gn_chi[-1]} differ by {gap:.3e}")
+    with plain_versions():
+        _, plain_stats = optimize(dprob)
+    np.testing.assert_allclose(lm_chi, [st_["chi2"] for st_ in plain_stats],
+                               rtol=DENSE_ROUTE_RTOL)
+    live = int(np.argmin(gaining)) if not gaining.all() else len(gaining)
+    if ([st_["levenberg_iters"] for st_ in plain_stats[:live]]
+            != [st_["levenberg_iters"] for st_ in lm_stats[:live]]):
+        raise AssertionError("dense path: the plain route took other trials")
+    lm_again, again_stats = optimize(dprob)
+    if [st_["chi2"] for st_ in again_stats] != lm_chi or not all(
+            torch.equal(lm_again.params[k], lm_out.params[k])
+            for k in lm_out.params):
+        raise AssertionError("dense path: a second run gave other bits")
+    print(f"phase 4d checks: LM chi2 never increases, every gaining step "
+          f"accepted; |LM - GN| / GN = {gap:.3e} (<= 1e-6); plain route "
+          f"equal to rtol {DENSE_ROUTE_RTOL:g} with the same trials while "
+          f"gaining; second run bit-identical OK")
+    del lm_again, plain_stats
+
+    # the split of one LM iteration at the start (CUDA events, median of 5)
+    dpat = dense_assemble.build_dense_pattern(dprob)
+    lam_d = LevenbergMarquardt().init(dprob)["lam"]
+    free_d = problem_mod.tangent_masks(dprob)[0]
+    holder = {}
+
+    def t_linearize():
+        holder["lin"] = problem_mod.linearize(dprob)
+
+    def t_assemble():
+        holder["H"], holder["b"], _ = problem_mod.build_dense_system(
+            dprob, lin=holder["lin"], pattern=dpat)
+
+    def t_solve():
+        damped = holder["H"].clone()
+        damped.diagonal().add_(lam_d * free_d)
+        holder["dx"], _ = solve_dense_cholesky(damped, holder["b"])
+
+    def t_clone():
+        holder["H"].clone()
+
+    def t_retract():
+        robust_chi2(dprob, problem_mod.apply_update(dprob, holder["dx"]))
+
+    split_ms = {}
+    for label, fn in (("linearize", t_linearize), ("assemble", t_assemble),
+                      ("factor+solve", t_solve), ("of which clone", t_clone),
+                      ("retract+chi2", t_retract)):
+        split_ms[label] = _median_ms(torch, fn, repeats=5, inner=1, warmup=1)
+    print("phase 4d split of one LM iteration (CUDA events, median of 5): "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in split_ms.items())
+          + f" [{card}]")
+    del holder, lm_out, dpat
+
+    # where the device's time goes in 3 LM iterations (torch.profiler; the
+    # device-typed rows are the kernels and copies)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_prof = time.monotonic()
+        optimize(dprob, iterations=3)
+        torch.cuda.synchronize()
+        t_prof = (time.monotonic() - t_prof) * 1e3
+    dev_rows = sorted(
+        ((e.self_device_time_total / 1e3, e.count, e.key)
+         for e in prof.key_averages()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and e.self_device_time_total > 0), reverse=True)
+    busy = sum(r[0] for r in dev_rows)
+    if busy <= 0:
+        raise AssertionError("torch.profiler reported no device time")
+    print(f"phase 4d profile of 3 LM iterations with lambda init: wall "
+          f"{t_prof:.2f} ms, device busy {busy:.2f} ms in "
+          f"{sum(r[1] for r in dev_rows)} kernels and copies, idle share "
+          f"{100 * (1 - busy / t_prof):.1f}% [{card}]")
+    for ms, count, key in dev_rows[:12]:
+        print(f"  device {ms:8.3f} ms {count:5d} calls "
+              f"{ms / count * 1e3:9.2f} us/call  {key[:80]}")
+    del dprob, prof
+
     # -- 5. a .g2o string through the public API ---------------------------
     rng = np.random.default_rng(5)
     g = Graph()
@@ -799,25 +1139,77 @@ def main() -> int:
     print(f"phase 5 .g2o ({len(text.splitlines())} lines) on cuda float64: "
           f"chi2 {c0:.4f} -> " + " -> ".join(f"{c:.6f}" for c in chis)
           + " (equal to the CPU run, rtol 1e-6) OK")
+    # landmarks and an offset-sensor pair, through the default algorithm
+    lines = ["PARAMS_SE2OFFSET 1 0.2 0.0 0.1", "PARAMS_SE2OFFSET 2 -0.1 0.1 0.0"]
+    off = [np.array([0.2, 0.0, 0.1]), np.array([-0.1, 0.1, 0.0])]
+    lms = rng.uniform(-6, 6, size=(8, 2))
+    nums = lambda vals: " ".join(repr(float(x)) for x in vals)
+    for i, p in enumerate(gt):
+        lines.append(f"VERTEX_SE2 {i} "
+                     + nums(p + (rng.normal(0, 0.1, 3) if i else 0.0)))
+    for k, l in enumerate(lms):
+        lines.append(f"VERTEX_XY {100 + k} "
+                     + nums(l + rng.normal(0, 0.2, 2)))
+    lines.append("FIX 0")
+    for i in range(30):
+        j = (i + 1) % 30
+        z = np_lie.se2_compose(
+            np_lie.se2_inverse(np_lie.se2_compose(gt[i], off[0])),
+            np_lie.se2_compose(gt[j], off[1])) + rng.normal(0, 0.02, 3)
+        lines.append(f"EDGE_SE2_OFFSET {i} {j} 1 2 {nums(z)} "
+                     "100 0 0 100 0 400")
+        for k in (i % 8, (i + 3) % 8):
+            z = np_lie.se2_apply(np_lie.se2_inverse(gt[i]), lms[k]) \
+                + rng.normal(0, 0.03, 2)
+            lines.append(f"EDGE_SE2_XY {i} {100 + k} {nums(z)} 400 0 400")
+    text2 = "\n".join(lines) + "\n"
+    runs2 = {}
+    for device in (None, "cpu"):
+        g2 = loads_g2o(text2)
+        if (g2.num_vertices(), g2.num_edges(), len(g2.parameters)) \
+                != (38, 90, 2):
+            raise AssertionError("the 2D tags did not load")
+        sprob = g2.compile(dtype=torch.float64, device=device)
+        c0 = float(robust_chi2(sprob))
+        if device is None:
+            kernels.reset_launch_counts()
+        _, stats = optimize(sprob, iterations=6)
+        if device is None:
+            counts_g2o = kernels.launch_counts()
+        runs2[sprob.device.type] = (c0, [st_["chi2"] for st_ in stats])
+    c0, chis = runs2["cuda"]
+    if not (chis[-1] < 0.1 * c0 and all(np.isfinite(chis))):
+        raise AssertionError(f"2D .g2o run did not converge: {c0} {chis}")
+    np.testing.assert_allclose(chis, runs2["cpu"][1], rtol=1e-6)
+    if min(counts_g2o["dense_assemble"], counts_g2o["lm_outcome"]) < 6:
+        raise AssertionError(f"2D .g2o run missed the kernels: {counts_g2o}")
+    print(f"phase 5 .g2o with VERTEX_XY, EDGE_SE2_XY, PARAMS_SE2OFFSET and "
+          f"EDGE_SE2_OFFSET ({len(lines)} lines) through optimize() on cuda "
+          f"float64: chi2 {c0:.4f} -> "
+          + " -> ".join(f"{c:.6f}" for c in chis)
+          + " (equal to the CPU run, rtol 1e-6) OK")
 
     # -- 6. launch counts of the driven paths --------------------------------
     launches = {k: counts_main[k] + counts_cheb[k] + counts_probe[k]
-                for k in counts_main}
+                + counts_dense[k] for k in counts_main}
     for label, counts in (("4 main path", counts_main),
                           ("4b Chebyshev path", counts_cheb),
-                          ("4c probe path", counts_probe)):
+                          ("4c probe path", counts_probe),
+                          ("4d dense path", counts_dense)):
         print(f"phase 6 launches in the phase-{label}: "
               + " ".join(f"{k}={v}" for k, v in counts.items() if v))
     main_kernels = ("block_ell_spmv", "edge_se2_blocks", "assemble_gather",
                     "damp_chol", "jacobi_scale", "lane_block_mv", "spmv_dot",
                     "cg_residual", "cg_start", "cg_update_xr", "cg_update_p",
-                    "cg_finish")
+                    "cg_finish", "retract_chi2", "lm_outcome")
     cheb_kernels = main_kernels + ("dot_partials", "gershgorin_bound",
                                    "chebyshev_coeffs", "chebyshev_init",
                                    "chebyshev_update")
     never = ([k for k in main_kernels if counts_main[k] <= 0]
              + [k for k in cheb_kernels if counts_cheb[k] <= 0]
              + [k for k in ("lane_gather",) if counts_probe[k] <= 0]
+             + [k for k in ("dense_assemble", "lm_outcome")
+                if counts_dense[k] <= 0]
              + [k for k in KERNELS if launches[k] <= 0])
     if never or set(KERNELS) != set(launches):
         raise AssertionError(f"a kernel of a path never launched: {never}")

@@ -16,8 +16,8 @@ float32), runs lambda init and one warm-up window of 10 iterations (pcg
   against the unprofiled one's (the profiler slows the host).
 
 Per-phase times of one trial (linearize + assemble, trial solve, retract +
-chi2) come from CUDA events, median of 5. Prints one line per result and
-the card's name and power limit; needs an NVIDIA GPU.
+chi2 + outcome) come from CUDA events, median of 5. Prints one line per
+result and the card's name and power limit; needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
@@ -42,8 +42,6 @@ def main(argv=None) -> int:
     from openslam_g2o_torch import kernels
     from openslam_g2o_torch.apps.simulator import synthetic_pose_graph_2d
     from openslam_g2o_torch.core import algorithms as alg_mod
-    from openslam_g2o_torch.core.problem import (
-        apply_update_parts, robust_chi2)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -132,7 +130,7 @@ def main(argv=None) -> int:
           f"{wall_ms:.2f} ms; device time per CG "
           f"iteration {busy_ms / max(cg_iters, 1) * 1e3:.1f} us, wall per "
           f"CG iteration {wall_ms / max(cg_iters, 1) * 1e3:.1f} us")
-    for key, ms, count in rows[:16]:
+    for key, ms, count in rows[:40]:
         print(f"  device {ms:8.3f} ms {count:6d} calls "
               f"{ms / count * 1e3:7.2f} us/call  {key[:90]}")
 
@@ -158,12 +156,13 @@ def main(argv=None) -> int:
     trial_cg = kernels.launch_counts()["cg_update_xr"] // 5
     t_setup, _ = events_ms(lambda: alg_mod._pcg_trial(
         work, pattern, pre, st[1], None, 0, pcg["pcg_tol"], 0))
-    t_out, _ = events_ms(lambda: robust_chi2(work, apply_update_parts(
-        work, {k: v.T for k, v in dxT.items()})))
+    ok = torch.tensor(True, device=dxT[pattern.group].device)
+    t_out, _ = events_ms(lambda: alg_mod._trial_outcome(
+        work, pattern, pre["bT"], dxT, ok, st[1], st[2], st[3]))
     print(f"one trial (CUDA events, median of 5): linearize + assemble "
           f"{t_pre:.3f} ms; trial solve {t_trial:.3f} ms with {trial_cg} CG "
           f"iterations, of which setup and unscale without CG iterations "
-          f"{t_setup:.3f} ms; retract + chi2 {t_out:.3f} ms")
+          f"{t_setup:.3f} ms; retract + chi2 + outcome (K7) {t_out:.3f} ms")
     return 0
 
 

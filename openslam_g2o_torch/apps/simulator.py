@@ -1,19 +1,134 @@
-"""Synthetic SE2 pose graph at 100k-pose scale: counterpart of
-`synthetic_pose_graph_2d` in openslam_g2o_tpu/apps/simulator.py:274-392.
+"""Synthetic dataset generators: counterpart of `Simulator2D`
+(openslam_g2o_tpu/apps/simulator.py:31-126, the g2o_simulator2d equivalent:
+a robot on a Manhattan walk among XY landmarks, emitting a Graph) and of
+`synthetic_pose_graph_2d` (:274-392, the SE2 pose graph at 100k-pose
+scale, built directly into a Problem).
 
-The graph is drawn with numpy's `default_rng(seed)` in exactly the JAX
-package's order, so both packages build identical arrays from one seed; it
-is built directly into the Problem (vertex 0 fixed, one information matrix
-tiled over the edges), bypassing Graph as the JAX generator does.
+Both draw from numpy's `default_rng(seed)` in exactly the JAX package's
+order, so the two packages build identical graphs from one seed.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from openslam_g2o_torch.core import registry, robust
 from openslam_g2o_torch.core import problem as P
+from openslam_g2o_torch.core.graph import Graph
 from openslam_g2o_torch.utils import np_lie
+
+__all__ = ["Simulator2D", "synthetic_pose_graph_2d"]
+
+
+def _info_from_sigmas(sigmas):
+    return np.diag(1.0 / np.asarray(sigmas) ** 2)
+
+
+class Simulator2D:
+    """2D robot in a planar world with landmarks (test_simulator2d.cpp).
+    Sensors: odometry and pose loop closures (EDGE_SE2), landmark position
+    (EDGE_SE2_XY) or bearing (EDGE_BEARING_SE2_XY). Noise is Gaussian on the
+    measurement in its own space; information = inverse covariance."""
+
+    def __init__(self, world_size: float = 25.0, n_landmarks: int = 100,
+                 trans_noise=(0.05, 0.01), rot_noise=0.02,
+                 landmark_noise=(0.05, 0.05), sensor_range: float = 3.0,
+                 seed: int = 0):
+        self.rng = np.random.default_rng(seed)
+        self.world_size = world_size
+        self.landmarks = self.rng.uniform(0, world_size, size=(n_landmarks, 2))
+        self.trans_noise = trans_noise
+        self.rot_noise = rot_noise
+        self.landmark_noise = landmark_noise
+        self.sensor_range = sensor_range
+
+    def _motion(self, step: int):
+        """Manhattan-style grid walk: mostly straight, occasional +-90
+        degree turns."""
+        if self.rng.random() < 0.25:
+            turn = self.rng.choice([-1.0, 1.0]) * math.pi / 2
+        else:
+            turn = 0.0
+        return np.array([1.0, 0.0, turn])
+
+    def simulate(self, n_poses: int = 300, landmark_obs: bool = True,
+                 bearing_only: bool = False, loop_closures: bool = True):
+        """Returns (Graph, ground-truth poses [n_poses, 3]); vertex 0 is
+        fixed, landmark ids start at 10000."""
+        g = Graph()
+        odo_sigmas = [*self.trans_noise, self.rot_noise]
+        odo_info = _info_from_sigmas(odo_sigmas)
+        lm_info = _info_from_sigmas(self.landmark_noise)
+        bearing_info = _info_from_sigmas([self.rot_noise])
+
+        gt = np.zeros((n_poses, 3))
+        pose = np.array([self.world_size / 2, self.world_size / 2, 0.0])
+        for i in range(n_poses):
+            gt[i] = pose
+            if i + 1 < n_poses:
+                motion = self._motion(i)
+                nxt = np_lie.se2_compose(pose, motion)
+                # keep the robot in the world: turn around at the border
+                if not (0 <= nxt[0] <= self.world_size
+                        and 0 <= nxt[1] <= self.world_size):
+                    motion = np.array([0.0, 0.0, math.pi / 2])
+                    nxt = np_lie.se2_compose(pose, motion)
+                pose = nxt
+
+        def noisy_relative(i, j):
+            z = np_lie.se2_compose(np_lie.se2_inverse(gt[i]), gt[j])
+            zn = z + self.rng.normal(0, odo_sigmas)
+            zn[2] = np_lie.normalize_angle(zn[2])
+            return zn
+
+        noisy = gt.copy()
+        g.add_vertex(0, "se2", gt[0], fixed=True)
+        for i in range(1, n_poses):
+            zn = noisy_relative(i - 1, i)
+            noisy[i] = np_lie.se2_compose(noisy[i - 1], zn)
+            noisy[i][2] = np_lie.normalize_angle(noisy[i][2])
+            g.add_vertex(i, "se2", noisy[i])
+            g.add_edge("edge_se2", (i - 1, i), zn, odo_info)
+
+        if loop_closures:
+            # pose sensor: relative constraints to revisited poses. The
+            # reference tests every pair (i, j >= i + 5) in a Python loop;
+            # here numpy narrows each row to the pairs near the 1.0
+            # threshold, and those are decided by the reference's own scalar
+            # expression, so the random stream (one draw per close pair, in
+            # (i, j) order) stays the same.
+            for i in range(n_poses - 5):
+                d = np.linalg.norm(gt[i + 5:, :2] - gt[i, :2], axis=1)
+                for j in np.nonzero(d < 1.0 + 1e-6)[0] + i + 5:
+                    if np.linalg.norm(gt[i][:2] - gt[j][:2]) < 1.0 \
+                            and self.rng.random() < 0.3:
+                        g.add_edge("edge_se2", (i, int(j)),
+                                   noisy_relative(i, j), odo_info)
+
+        lm_seen = set()
+        if landmark_obs:
+            for i in range(n_poses):
+                d = np.linalg.norm(self.landmarks - gt[i][:2], axis=1)
+                for li in np.nonzero(d < self.sensor_range)[0]:
+                    vid = 10000 + int(li)
+                    obs = np_lie.se2_apply(np_lie.se2_inverse(gt[i]),
+                                           self.landmarks[li])
+                    if vid not in lm_seen:
+                        lm_seen.add(vid)
+                        g.add_vertex(vid, "point_xy",
+                                     np_lie.se2_apply(noisy[i], obs))
+                    if bearing_only:
+                        z = np.array([math.atan2(obs[1], obs[0])
+                                      + self.rng.normal(0, self.rot_noise)])
+                        g.add_edge("edge_se2_xy_bearing", (i, vid), z,
+                                   bearing_info)
+                    else:
+                        zn = obs + self.rng.normal(0, self.landmark_noise)
+                        g.add_edge("edge_se2_xy", (i, vid), zn, lm_info)
+
+        return g, gt
 
 
 def synthetic_pose_graph_2d(n_poses: int = 100000, grid: int = 100,

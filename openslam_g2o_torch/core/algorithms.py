@@ -1,12 +1,15 @@
-"""Levenberg-Marquardt with matrix-free, block-Jacobi-scaled PCG.
+"""Outer iteration strategies: Gauss-Newton and Levenberg-Marquardt on the
+dense normal equations, and Levenberg-Marquardt with matrix-free,
+block-Jacobi-scaled PCG.
 
-Counterpart of openslam_g2o_tpu/core/algorithms.py:184-510 and :817-876.
-The JAX package jits the trial loop into one device program; here the
-loops are Python loops over eagerly launched device work, and every LM
-quantity (lambda, nu, chi2, rho, the accept flag) stays a 0-dim tensor on
-the device, updated with torch.where exactly as the JAX code does. The host
-reads the device once per two CG iterations (the CG stop test) and, in the
-while-loop step, once per LM trial (the retry test).
+Counterpart of openslam_g2o_tpu/core/algorithms.py:50-177, :184-510 and
+:817-876. The JAX package jits the trial loop into one device program
+(lax.while_loop); here the loops are Python loops over eagerly launched
+device work, and every LM quantity (lambda, nu, chi2, rho, the accept flag)
+stays a 0-dim tensor on the device: one kernel computes a trial's
+bookkeeping (kernels/retract_chi2.py `lm_outcome`). The host reads the
+device once per LM trial (the retry flag) and, in the PCG solve, once per
+two CG iterations (the CG stop test).
 
 Semantics follow optimization_algorithm_levenberg.cpp:57-163: damping
 adds lambda to the free diagonal and 1 to fixed slots; the gain ratio is
@@ -15,7 +18,6 @@ a failed solve or a non-finite trial chi2 pins rho to -1 and retries.
 """
 from __future__ import annotations
 
-import math
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -24,15 +26,16 @@ import torch
 
 from openslam_g2o_torch import kernels
 from openslam_g2o_torch.core.problem import (
-    Problem, apply_update_parts, robust_chi2)
+    Problem, apply_update, build_dense_system, linearize, robust_chi2,
+    tangent_masks)
 from openslam_g2o_torch.core.solvers import (
-    _tree_dot, make_chebyshev_precond, pcg_solve)
+    make_chebyshev_precond, pcg_solve, solve_dense_cholesky)
 from openslam_g2o_torch.core.sparse import (
     EllOperator, EllPattern, assemble_ell, build_ell_pattern, diag_blocks,
     lane_block_mv)
 
-__all__ = ["LevenbergMarquardtPCG", "lm_pcg_optimize_fused", "optimize",
-           "TerminateCriterion"]
+__all__ = ["GaussNewton", "LevenbergMarquardt", "LevenbergMarquardtPCG",
+           "lm_pcg_optimize_fused", "optimize", "TerminateCriterion"]
 
 # Lower edge of the Chebyshev spectral bracket, as a fraction of the
 # Gershgorin upper bound of the Jacobi-scaled system (algorithms.py:35-43).
@@ -41,6 +44,134 @@ __all__ = ["LevenbergMarquardtPCG", "lm_pcg_optimize_fused", "optimize",
 # (it stays SPD for any lo > 0).
 _CHEBY_LO_FRAC = 0.02
 
+
+class _DensePatternCache:
+    """The dense assembly's destination tables, built on the host once per
+    graph topology and only where the kernel runs (on the card)."""
+
+    _pattern = None
+    _pattern_for = None
+
+    def dense_pattern(self, prob: Problem):
+        if prob.device.type != "cuda":
+            return None
+        if self._pattern_for is not prob.static:
+            self._pattern = kernels.dense_assemble.build_dense_pattern(prob)
+            self._pattern_for = prob.static
+        return self._pattern
+
+
+# ---------------------------------------------------------------------------
+# Gauss-Newton
+# ---------------------------------------------------------------------------
+
+def _gn_step(prob: Problem, params: dict, pattern=None):
+    """One GN iteration (optimization_algorithm_gauss_newton.cpp:50-90):
+    linearize, solve H dx = b, retract."""
+    work = prob.with_params(params)
+    H, b, _ = build_dense_system(work, pattern=pattern)
+    dx, ok = solve_dense_cholesky(H, b)
+    new_params = apply_update(work, dx)
+    return new_params, robust_chi2(work, new_params), ok
+
+
+class GaussNewton(_DensePatternCache):
+    """Stateless Gauss-Newton algorithm (init and step)."""
+
+    name = "gn"
+
+    def init(self, prob: Problem):
+        return {"params": prob.params}
+
+    def step(self, prob: Problem, state: dict):
+        params, chi, ok = _gn_step(prob, state["params"],
+                                   self.dense_pattern(prob))
+        return {"params": params}, {"chi2": float(chi), "ok": bool(ok)}
+
+
+# ---------------------------------------------------------------------------
+# Levenberg-Marquardt on the dense system
+# ---------------------------------------------------------------------------
+
+def _select(accept, new: dict, old: dict) -> dict:
+    return {k: torch.where(accept, new[k], old[k]) for k in new}
+
+
+def _lm_step(prob: Problem, params: dict, lam, ni, chi_cur,
+             max_trials: int = 10, pattern=None):
+    """One LM outer iteration with its trial loop (algorithms.py:79-129;
+    optimization_algorithm_levenberg.cpp:57-147). The first trial always
+    runs; later ones only while the last was rejected with rho < 0 (a
+    failed solve or a non-finite trial chi2 pins rho to -1) and fewer than
+    max_trials ran. Damping adds lambda to the free slots' diagonal of a
+    copy of H (the reference builds a dense lambda * diag(free) for it).
+    Returns (params, lam, ni, chi, trials, accepted, raw_diag)."""
+    work = prob.with_params(params)
+    H, b, raw_diag = build_dense_system(work, lin=linearize(work),
+                                        pattern=pattern)
+    free_t, _ = tangent_masks(work)
+    best_params, best_chi = params, chi_cur
+    trials = 0
+    while True:
+        damped = H.clone()
+        damped.diagonal().add_(lam * free_t)
+        dx, ok = solve_dense_cholesky(damped, b)
+        del damped
+        cand = apply_update(work, dx)
+        chi_new, _, accept, lam, ni, retry = kernels.retract_chi2.lm_outcome(
+            robust_chi2(work, cand).reshape(1),
+            torch.dot(dx, lam * dx + b).reshape(1), ok, lam, ni, chi_cur)
+        best_params = _select(accept, cand, best_params)
+        best_chi = torch.where(accept, chi_new, best_chi)
+        trials += 1
+        if trials >= max_trials or not bool(retry.item()):
+            break
+    return best_params, lam, ni, best_chi, trials, accept, raw_diag
+
+
+def _lambda_init(prob: Problem, params: dict, tau, pattern=None):
+    """tau * max |diag(H)| (optimization_algorithm_levenberg.cpp:149-163)."""
+    _, _, raw_diag = build_dense_system(prob.with_params(params),
+                                        pattern=pattern)
+    return tau * raw_diag.abs().max()
+
+
+class LevenbergMarquardt(_DensePatternCache):
+    """Levenberg-Marquardt on the dense system. Properties mirror the
+    reference's (initialLambda, maxTrialsAfterFailure,
+    optimization_algorithm_levenberg.cpp:47-48)."""
+
+    name = "lm"
+
+    def __init__(self, initial_lambda: float = 0.0,
+                 max_trials_after_failure: int = 10, tau: float = 1e-5):
+        self.initial_lambda = initial_lambda
+        self.max_trials = max_trials_after_failure
+        self.tau = tau
+
+    def init(self, prob: Problem):
+        scalar = lambda v: torch.tensor(v, dtype=prob.dtype, device=prob.device)
+        if self.initial_lambda > 0:
+            lam = scalar(self.initial_lambda)
+        else:
+            lam = _lambda_init(prob, prob.params, scalar(self.tau),
+                               self.dense_pattern(prob))
+        return {"params": prob.params, "lam": lam, "ni": scalar(2.0),
+                "chi2": robust_chi2(prob)}
+
+    def step(self, prob: Problem, state: dict):
+        params, lam, ni, chi, trials, accepted, _ = _lm_step(
+            prob, state["params"], state["lam"], state["ni"], state["chi2"],
+            max_trials=self.max_trials, pattern=self.dense_pattern(prob))
+        new_state = {"params": params, "lam": lam, "ni": ni, "chi2": chi}
+        info = {"chi2": float(chi), "lambda": float(lam),
+                "levenberg_iters": int(trials), "ok": bool(accepted)}
+        return new_state, info
+
+
+# ---------------------------------------------------------------------------
+# Levenberg-Marquardt with matrix-free PCG
+# ---------------------------------------------------------------------------
 
 def _pcg_precomp(work: Problem, pattern: EllPattern):
     """Per-linearization quantities of the LM-PCG trial: assembled values
@@ -82,31 +213,29 @@ def _pcg_trial(work: Problem, pattern: EllPattern, pre, lam, dx0T,
     return lane_block_mv({g: linv}, xhat, transpose=True), ok
 
 
-def _trial_outcome(work: Problem, bT: dict, dxT: dict, ok, lam, ni,
-                   chi_cur):
+def _trial_outcome(work: Problem, pattern: EllPattern, bT: dict, dxT: dict,
+                   ok, lam, ni, chi_cur):
     """Candidate and LM bookkeeping of one trial (the body shared by
-    algorithms.py:306-332 and :472-497): (cand, chi_new, rho, accept,
-    lam_new, ni_new), all on the device."""
-    cand = apply_update_parts(work, {k: v.T for k, v in dxT.items()})
-    chi_new = robust_chi2(work, cand)
-    # a non-finite trial chi2 behaves like a failed solve: rho is pinned
-    # negative so the trial loop retries (a NaN rho would end it)
-    solved = ok & torch.isfinite(chi_new)
-    chi_new = torch.where(solved, chi_new, torch.full_like(chi_new, math.inf))
-    scale = _tree_dot(dxT, {k: lam * d + bT[k] for k, d in dxT.items()}) + 1e-3
-    rho = torch.where(solved, (chi_cur - chi_new) / scale,
-                      torch.full_like(chi_new, -1.0))
-    accept = (rho > 0) & torch.isfinite(chi_new)
-    t = 2.0 * rho - 1.0
-    alpha = 1.0 - t * t * t
-    good = torch.clamp_min(torch.clamp_max(alpha, 2.0 / 3.0), 1.0 / 3.0)
-    lam_new = torch.where(accept, lam * good, lam * ni)
-    ni_new = torch.where(accept, torch.full_like(ni, 2.0), ni * 2.0)
-    return cand, chi_new, rho, accept, lam_new, ni_new
-
-
-def _select(accept, new: dict, old: dict) -> dict:
-    return {k: torch.where(accept, new[k], old[k]) for k in new}
+    algorithms.py:306-332 and :472-497) on kernels/retract_chi2.py: (cand,
+    chi_new, accept, lam_new, ni_new, retry), all on the device. The
+    pattern vouches for the shape K7 serves: one SE2 vertex group, every
+    edge group an EDGE_SE2."""
+    g = pattern.group
+    groups = []
+    for eg in work.static.egroups:
+        if eg.etype.name != "edge_se2":
+            raise NotImplementedError(
+                "the LM-PCG trial of the port covers EDGE_SE2 edges, not "
+                f"{eg.etype.name!r}")
+        ea = work.edges[eg.key]
+        groups.append((ea.indices[0], ea.indices[1], ea.measurement,
+                       ea.information, ea.delta, eg.kernel_id))
+    cand, part_dot, part_chi = kernels.retract_chi2.retract_chi2(
+        work.params[g], dxT[g], work.free[g], bT[g], lam, groups)
+    chi_new, _, accept, lam_new, ni_new, retry = (
+        kernels.retract_chi2.lm_outcome(part_chi, part_dot, ok, lam, ni,
+                                        chi_cur))
+    return {g: cand}, chi_new, accept, lam_new, ni_new, retry
 
 
 def _lm_pcg_step(prob: Problem, pattern: EllPattern, params: dict, lam, ni,
@@ -127,13 +256,13 @@ def _lm_pcg_step(prob: Problem, pattern: EllPattern, params: dict, lam, ni,
     while True:
         dxT, ok = _pcg_trial(work, pattern, pre, lam, dx0T, pcg_iters,
                              pcg_tol, pcg_cheby)
-        cand, chi_new, rho, accept, lam, ni = _trial_outcome(
-            work, pre["bT"], dxT, ok, lam, ni, chi_cur)
+        cand, chi_new, accept, lam, ni, retry = _trial_outcome(
+            work, pattern, pre["bT"], dxT, ok, lam, ni, chi_cur)
         best_params = _select(accept, cand, best_params)
         best_dxT = _select(accept, dxT, best_dxT)
         best_chi = torch.where(accept, chi_new, best_chi)
         trials += 1
-        if trials >= max_trials or not bool(((~accept) & (rho < 0)).item()):
+        if trials >= max_trials or not bool(retry.item()):
             break
     return best_params, lam, ni, best_chi, trials, accept, best_dxT
 
@@ -229,8 +358,8 @@ def lm_pcg_optimize_fused(prob: Problem, pattern: EllPattern, params: dict,
             dxT_new, ok = _pcg_trial(work, pattern, pre, lam,
                                      dxT if warm else None, pcg_iters,
                                      pcg_tol, pcg_cheby)
-            cand, chi_new, _, accept, lam, ni = _trial_outcome(
-                work, pre["bT"], dxT_new, ok, lam, ni, chi)
+            cand, chi_new, accept, lam, ni, _ = _trial_outcome(
+                work, pattern, pre["bT"], dxT_new, ok, lam, ni, chi)
             params = _select(accept, cand, params)
             dxT = _select(accept, dxT_new, dxT)
             chi = torch.where(accept, chi_new, chi)
@@ -273,9 +402,9 @@ def optimize(prob: Problem, algorithm=None, iterations: int = 10,
              pre_iteration=None, post_iteration=None):
     """Run the outer iteration loop (SparseOptimizer::optimize,
     sparse_optimizer.cpp:354-419; algorithms.py:836-876). The default
-    algorithm is LevenbergMarquardtPCG, the only one ported so far.
+    algorithm is the dense LevenbergMarquardt, as in the JAX package.
     Returns (optimized Problem, one stats dict per iteration)."""
-    algorithm = algorithm or LevenbergMarquardtPCG()
+    algorithm = algorithm or LevenbergMarquardt()
     state = algorithm.init(prob)
     stats = []
     prev_chi = None

@@ -1,14 +1,15 @@
 """The compiled, device-resident optimization problem.
 
-Counterpart of openslam_g2o_tpu/core/problem.py:50-329, 350-407 and
-557-565. Vertices are grouped by type into ``[N, P]`` parameter tables,
-edges by (type, robust kernel) into index/measurement/information tables;
-fixed vertices keep their slots and are masked (their Jacobian columns are
-zeroed, the damped diagonal gets a 1). The JAX pytree becomes plain dicts
-keyed by group name, holding torch tensors on one device in one dtype.
+Counterpart of openslam_g2o_tpu/core/problem.py:50-458 and 557-585.
+Vertices are grouped by type into ``[N, P]`` parameter tables (poses first,
+marginalizable landmarks last), edges by (type, robust kernel) into
+index/measurement/information/parameter tables; fixed vertices keep their
+slots and are masked (their Jacobian columns are zeroed, the diagonal gets
+a 1). The JAX pytree becomes plain dicts keyed by group name, holding torch
+tensors on one device in one dtype.
 
-Only VERTEX_SE2 / EDGE_SE2 are ported; build_problem raises
-NotImplementedError for any other type.
+Every 2D type of models/slam2d.py is supported. An edge type without an
+analytic Jacobian is differentiated in forward mode (`linearize`).
 """
 from __future__ import annotations
 
@@ -24,12 +25,15 @@ from openslam_g2o_torch.core import registry, robust
 __all__ = [
     "Problem", "EdgeArrays", "VGroup", "EGroup", "ProblemStatic",
     "build_problem", "compute_errors", "edge_chi2", "chi2", "robust_chi2",
-    "linearize", "apply_update_parts", "tangent_masks", "write_back",
-    "resolve_device", "check_supported",
+    "linearize", "build_dense_system", "apply_update", "apply_update_parts",
+    "tangent_masks", "write_back", "resolve_device", "check_supported",
 ]
 
-SUPPORTED_VERTEX_TYPES = ("se2",)
-SUPPORTED_EDGE_TYPES = ("edge_se2",)
+SUPPORTED_VERTEX_TYPES = ("se2", "point_xy")
+SUPPORTED_EDGE_TYPES = (
+    "edge_se2", "edge_se2_xy", "edge_se2_xy_bearing", "edge_se2_prior",
+    "edge_se2_prior_xy", "edge_se2_xy_calib", "edge_se2_offset",
+    "edge_se2_xy_offset")
 
 
 @dataclass(frozen=True)
@@ -74,6 +78,12 @@ class ProblemStatic:
         if self.pose_dim < 0:
             object.__setattr__(self, "pose_dim", self.total_dim)
 
+    def vgroup(self, name: str) -> VGroup:
+        for g in self.vgroups:
+            if g.name == name:
+                return g
+        raise KeyError(name)
+
 
 @dataclass
 class EdgeArrays:
@@ -81,7 +91,7 @@ class EdgeArrays:
     measurement: torch.Tensor  # [E, M]
     information: torch.Tensor  # [E, D, D]
     delta: torch.Tensor        # [E] robust kernel width
-    pdata: tuple = ()          # per parameter slot (none for EDGE_SE2)
+    pdata: tuple = ()          # per parameter slot: [E, dim] values
 
 
 @dataclass
@@ -119,15 +129,20 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_supported(vtype_names, etype_names):
-    """Raise NotImplementedError for types outside the ported slice."""
-    for kind, names, ok in (("vertex", vtype_names, SUPPORTED_VERTEX_TYPES),
-                            ("edge", etype_names, SUPPORTED_EDGE_TYPES)):
-        bad = sorted(set(names) - set(ok))
-        if bad:
-            raise NotImplementedError(
-                f"{kind} type(s) {bad} are not ported to openslam_g2o_torch "
-                "yet: only VERTEX_SE2/EDGE_SE2 are (ROADMAP.md, 'Modules "
-                "still to port', item 'Other 2D types' and the SE3 item)")
+    """Raise NotImplementedError for types outside the ported slice: the 2D
+    vertex types, the 2D edge types of models/slam2d.py and any other
+    registered edge type between 2D vertices (the forward-mode linearizer
+    serves it)."""
+    bad = sorted(set(vtype_names) - set(SUPPORTED_VERTEX_TYPES))
+    bad += sorted(
+        n for n in set(etype_names) - set(SUPPORTED_EDGE_TYPES)
+        if set(registry.edge_type(n).vertex_types)
+        - set(SUPPORTED_VERTEX_TYPES))
+    if bad:
+        raise NotImplementedError(
+            f"type(s) {bad} are not ported to openslam_g2o_torch yet: the 2D "
+            "SLAM types are (ROADMAP.md, 'Modules still to port', the SE3 "
+            "item)")
 
 
 def build_problem(graph, dtype: torch.dtype = torch.float64, device=None,
@@ -176,11 +191,15 @@ def build_problem(graph, dtype: torch.dtype = torch.float64, device=None,
             for s in range(et.num_vertices))
         as_t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64),
                                          dtype=dtype, device=device)
+        pdata = tuple(
+            as_t(np.stack([graph.parameters[r.param_ids[ps]][1]
+                           for r in recs]))
+            for ps in range(len(et.param_types)))
         edges[key] = EdgeArrays(
             idx,
             as_t(np.stack([r.measurement for r in recs])),
             as_t(np.stack([r.information for r in recs])),
-            as_t([r.kernel_delta for r in recs]))
+            as_t([r.kernel_delta for r in recs]), pdata)
         egroups.append(EGroup(key, et, kid, len(recs)))
     static = ProblemStatic(tuple(vgroups), tuple(egroups), offset, pose_dim)
     return Problem(params, free, edges, static)
@@ -252,19 +271,57 @@ def robust_chi2(problem: Problem, params: Optional[dict] = None):
 # Linearization
 # ---------------------------------------------------------------------------
 
+def forward_jacobians(eg: EGroup, vparams, meas, pdata):
+    """Per-slot Jacobians [E, D, Ds] of the residual with respect to the
+    tangent increment at zero, in forward mode: the counterpart of
+    vmap(jacfwd(fn)) over the tangent-residual function
+    (openslam_g2o_tpu/core/problem.py:336-347, :373-379). The error
+    functions are batched on the last axis, so all C = sum(Ds) columns come
+    from ONE jvp: the inputs are repeated along a leading axis of length C
+    and column c carries the one-hot tangent of its own dimension."""
+    vtypes = tuple(registry.vertex_type(n) for n in eg.slots)
+    dims = [vt.tangent_dim for vt in vtypes]
+    C, E = sum(dims), meas.shape[0]
+    rep = lambda a: a.unsqueeze(0).expand(C, *a.shape)
+    vp_c, meas_c = tuple(rep(p) for p in vparams), rep(meas)
+    pdata_c = tuple(rep(p) for p in pdata)
+    zeros, tangents, c0 = [], [], 0
+    for d in dims:
+        zeros.append(meas.new_zeros((C, E, d)))
+        t = meas.new_zeros((C, E, d))
+        t[range(c0, c0 + d), :, range(d)] = 1.0
+        tangents.append(t)
+        c0 += d
+
+    def fn(*deltas):
+        vp = tuple(vt.retract(p, dl)
+                   for vt, p, dl in zip(vtypes, vp_c, deltas))
+        return eg.etype.error(vp, meas_c, pdata_c)
+
+    _, cols = torch.func.jvp(fn, tuple(zeros), tuple(tangents))   # [C, E, D]
+    starts = np.cumsum([0] + dims)
+    return tuple(cols[starts[s]:starts[s + 1]].permute(1, 2, 0)
+                 for s in range(len(dims)))
+
+
 def linearize(problem: Problem, params: Optional[dict] = None) -> dict:
-    """Per edge group: residual [E, D], per-slot analytic Jacobians
-    [E, D, Ds] with the columns of fixed vertices zeroed, and robust
-    weights rho' [E] (openslam_g2o_tpu/core/problem.py:350-392). The LM-PCG
-    path runs the fused CUDA kernel B instead on the card
-    (kernels/edge_se2.py), whose plain version calls this math."""
+    """Per edge group: residual [E, D], per-slot Jacobians [E, D, Ds] with
+    respect to the tangent increment, the columns of fixed vertices
+    zeroed, and robust weights rho' [E]
+    (openslam_g2o_tpu/core/problem.py:350-392). The type's analytic
+    Jacobian where it has one, else `forward_jacobians`. The LM-PCG path
+    runs the fused CUDA kernel B instead on the card (kernels/edge_se2.py),
+    whose plain version calls this math."""
     params = problem.params if params is None else params
     out = {}
     for eg in problem.static.egroups:
         ea = problem.edges[eg.key]
         vp = _gather_vertex_params(eg, ea, params)
         resid = eg.etype.error(vp, ea.measurement, ea.pdata)
-        jacs = eg.etype.jacobian(vp, ea.measurement, ea.pdata)
+        if eg.etype.jacobian is not None:
+            jacs = eg.etype.jacobian(vp, ea.measurement, ea.pdata)
+        else:
+            jacs = forward_jacobians(eg, vp, ea.measurement, ea.pdata)
         _, rho1, _ = robust.robustify(
             eg.kernel_id, _mahalanobis(resid, ea.information), ea.delta)
         masked = tuple(
@@ -281,6 +338,47 @@ def tangent_masks(problem: Problem):
     return free_t, 1.0 - free_t
 
 
+def _slot_tangent_indices(g: VGroup, idx):
+    """Global tangent indices of each edge's slot: [E, D]."""
+    base = g.offset + idx.to(torch.int32) * g.tangent_dim
+    return base[:, None] + torch.arange(g.tangent_dim, dtype=torch.int32,
+                                        device=idx.device)[None, :]
+
+
+def build_dense_system(problem: Problem, params: Optional[dict] = None,
+                       lin: Optional[dict] = None,
+                       add_fixed_diag: bool = True, pattern=None):
+    """Assemble the full dense H = J^T W J [T, T] and b = -J^T W r [T] over
+    the global tangent vector (openslam_g2o_tpu/core/problem.py:415-458;
+    BlockSolver::buildSystem, block_solver.hpp:502-560). Returns (H, b,
+    raw_diag): raw_diag is the diagonal before the unit entries of fixed
+    slots are added, which is what LM's lambda init scans.
+
+    The per-edge products and their sum into H are the CUDA kernel of
+    kernels/dense_assemble.py on the card and its plain version on the
+    CPU. `pattern` is that kernel's destination-major table
+    (`kernels.dense_assemble.build_dense_pattern`); it depends on the
+    topology alone, so a caller that assembles repeatedly builds it once
+    and passes it. Without it, it is built here on every call on the card
+    (the CPU path does not need it)."""
+    from openslam_g2o_torch.kernels import dense_assemble as K
+    if lin is None:
+        lin = linearize(problem, params)
+    if pattern is None and problem.device.type == "cuda":
+        pattern = K.build_dense_pattern(problem)
+    groups = []
+    for i, eg in enumerate(problem.static.egroups):
+        ea = problem.edges[eg.key]
+        resid, jacs, w = lin[eg.key]
+        offsets = (pattern.offsets[i] if pattern is not None
+                   else K.slot_offsets(problem.static, eg, ea))
+        groups.append(K.EdgeBlocks(resid.contiguous(), tuple(jacs),
+                                   w.contiguous(), ea.information, offsets))
+    _, fixed_t = tangent_masks(problem)
+    return K.dense_assemble(groups, problem.static.total_dim, fixed_t,
+                            pattern, add_fixed_diag)
+
+
 def apply_update_parts(problem: Problem, dx_parts: dict,
                        params: Optional[dict] = None) -> dict:
     """params <- retract(params, dx * free) per group, dx as [N, D] parts
@@ -289,3 +387,14 @@ def apply_update_parts(problem: Problem, dx_parts: dict,
     return {g.name: g.vtype.retract(
                 params[g.name], dx_parts[g.name] * problem.free[g.name][:, None])
             for g in problem.static.vgroups}
+
+
+def apply_update(problem: Problem, dx, params: Optional[dict] = None) -> dict:
+    """params <- retract(params, dx), dx the global tangent vector [T],
+    masked on fixed vertices (openslam_g2o_tpu/core/problem.py:572-585)."""
+    params = problem.params if params is None else params
+    return apply_update_parts(
+        problem,
+        {g.name: dx[g.offset:g.offset + g.tangent_size].reshape(
+            g.count, g.tangent_dim) for g in problem.static.vgroups},
+        params)

@@ -1,11 +1,12 @@
 """Linear solvers for the normal equations: counterpart of
-openslam_g2o_tpu/core/solvers.py:63-139 and 157-297.
+openslam_g2o_tpu/core/solvers.py:25-297.
 
-The closed-form small-block Cholesky factors (kernels/damp_chol.py) feed
-the split-form block-Jacobi scaling of the LM-PCG trial, `pcg_solve` is
-the CG loop of that trial and `make_chebyshev_precond` its optional
-polynomial preconditioner. Operands of `pcg_solve` are dicts of per-group
-parts, as the JAX pytrees are.
+`solve_dense_cholesky` is the dense route's solve (one large factorization,
+left to torch.linalg as the JAX package leaves it to XLA). The closed-form
+small-block Cholesky factors (kernels/damp_chol.py) feed the split-form
+block-Jacobi scaling of the LM-PCG trial, `pcg_solve` is the CG loop of that
+trial and `make_chebyshev_precond` its optional polynomial preconditioner.
+Operands of `pcg_solve` are dicts of per-group parts, as the JAX pytrees are.
 """
 from __future__ import annotations
 
@@ -16,13 +17,52 @@ from openslam_g2o_torch.kernels import chebyshev as cheb
 from openslam_g2o_torch.kernels.damp_chol import (
     batched_chol_inv_lower, batched_chol_lower)
 
-__all__ = ["batched_chol_lower", "batched_chol_inv_lower",
-           "make_chebyshev_precond", "pcg_solve"]
+__all__ = ["solve_dense_cholesky", "batched_small_inv", "batched_chol_lower",
+           "batched_chol_inv_lower", "make_chebyshev_precond", "pcg_solve"]
 
 
-def _tree_dot(a: dict, b: dict):
-    """Sum over groups of the flattened dot product (jnp.vdot per leaf)."""
-    return sum(torch.dot(a[k].reshape(-1), b[k].reshape(-1)) for k in a)
+def solve_dense_cholesky(H, b):
+    """Solve H x = b by dense Cholesky. Returns (x, ok), ok a 0-dim bool
+    tensor; nothing is read by the host.
+
+    On failure ok is False and x is zeros, which the LM trial loop treats
+    as the reference treats a failed factorization: chi2 = inf, retry with
+    a larger lambda (optimization_algorithm_levenberg.cpp:119-120).
+    jnp.linalg.cholesky marks a non-SPD matrix with NaN
+    (openslam_g2o_tpu/core/solvers.py:142-154); LAPACK and cuSOLVER report
+    it in `info` and leave the factor undefined, so `info != 0` is folded
+    into ok beside the finiteness test."""
+    L, info = torch.linalg.cholesky_ex(H, check_errors=False)
+    y = torch.linalg.solve_triangular(L, b[:, None], upper=False)
+    x = torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
+    ok = (info == 0) & torch.isfinite(x).all()
+    return torch.where(ok, x, torch.zeros_like(x)), ok
+
+
+def batched_small_inv(A):
+    """Inverse of a batch of small SPD matrices [..., D, D]: the closed-form
+    adjugate for D in {1, 2, 3}, torch.linalg.inv beyond
+    (openslam_g2o_tpu/core/solvers.py:25-60)."""
+    D = A.shape[-1]
+    if D == 1:
+        return 1.0 / A
+    rows = lambda *r: torch.stack([torch.stack(x, dim=-1) for x in r], dim=-2)
+    if D == 2:
+        a, b = A[..., 0, 0], A[..., 0, 1]
+        c, d = A[..., 1, 0], A[..., 1, 1]
+        inv_det = 1.0 / (a * d - b * c)
+        return rows((d, -b), (-c, a)) * inv_det[..., None, None]
+    if D == 3:
+        a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+        d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+        g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+        A11, A12, A13 = e * i - f * h, c * h - b * i, b * f - c * e
+        A21, A22, A23 = f * g - d * i, a * i - c * g, c * d - a * f
+        A31, A32, A33 = d * h - e * g, b * g - a * h, a * e - b * d
+        inv_det = 1.0 / (a * A11 + b * A21 + c * A31)
+        return rows((A11, A12, A13), (A21, A22, A23),
+                    (A31, A32, A33)) * inv_det[..., None, None]
+    return torch.linalg.inv(A)
 
 
 def make_chebyshev_precond(matvec, lo, hi, degree: int):

@@ -27,7 +27,8 @@ def problem_arrays(problem) -> dict:
         edges[eg.key] = {"indices": tuple(arr(i) for i in ea.indices),
                          "measurement": arr(ea.measurement),
                          "information": arr(ea.information),
-                         "delta": arr(ea.delta), "kernel_id": eg.kernel_id}
+                         "delta": arr(ea.delta), "kernel_id": eg.kernel_id,
+                         "pdata": tuple(arr(p) for p in ea.pdata)}
     return {"params": {k: arr(v) for k, v in problem.params.items()},
             "free": {k: arr(v) for k, v in problem.free.items()},
             "edges": edges}
@@ -39,12 +40,16 @@ def problem_from_numpy(params: dict, free: dict, edges: dict,
     """Build a Problem from numpy arrays on `device` (None: "cuda").
 
     params: {vertex group name: [N, P]} (the group name is the vertex type
-        name, e.g. "se2"); free: {group name: [N]} with 1.0 = free.
-    edges: {edge group key: {"indices": (i [E], j [E]), "measurement":
-        [E, M], "information": [E, D, D], "delta": [E], "kernel_id": int}};
-        the key is "<edge type name>" or "<edge type name>#<kernel name>",
-        as build_problem names the groups.
-    Vertex groups keep the order of `params`, edge groups that of `edges`.
+        name, e.g. "se2", "point_xy"); free: {group name: [N]} with 1.0 =
+        free.
+    edges: {edge group key: {"indices": one [E] array per slot,
+        "measurement": [E, M], "information": [E, D, D], "delta": [E],
+        "kernel_id": int, "pdata": one [E, dim] array per parameter slot
+        (may be left out for a type without parameters)}}; the key is
+        "<edge type name>" or "<edge type name>#<kernel name>", as
+        build_problem names the groups.
+    Vertex groups keep the order of `params` (build_problem lays poses
+    before marginalizable landmarks), edge groups that of `edges`.
     """
     device = P.resolve_device(device)
     as_t = lambda a: torch.tensor(np.asarray(a, dtype=np.float64),
@@ -62,7 +67,9 @@ def problem_from_numpy(params: dict, free: dict, edges: dict,
                                  device=device) for ix in e["indices"])
         edge_arrays[key] = P.EdgeArrays(idx, as_t(e["measurement"]),
                                         as_t(e["information"]),
-                                        as_t(e["delta"]))
+                                        as_t(e["delta"]),
+                                        tuple(as_t(p)
+                                              for p in e.get("pdata", ())))
         egroups.append(P.EGroup(key, et, int(e["kernel_id"]), len(idx[0])))
     P.check_supported([g.name for g in vgroups],
                       [eg.etype.name for eg in egroups])

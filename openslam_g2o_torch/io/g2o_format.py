@@ -6,7 +6,8 @@ openslam_g2o_tpu/io/g2o_format.py:34-225 on its Python tokenizer path
 * vertex lines ``TAG id <estimate...>``; edge lines ``TAG id1 ... idk
   [param ids...] <measurement...> <upper-triangular information...>``;
 * ``FIX id...`` lines; ``#`` comments;
-* unknown tags (every type not registered in the port, data payload lines
+* the 2D tags of models/slam2d.py load, PARAMS_SE2OFFSET included;
+  unknown tags (every type not registered in the port, data payload lines
   included) are counted, reported on stderr and skipped, not fatal;
 * missing endpoints of edges are auto-created at the origin
   (optimizable_graph.cpp:460-478).

@@ -1,4 +1,5 @@
-"""Hand-written CUDA kernels of the LM-PCG main path, with their wrappers.
+"""Hand-written CUDA kernels of the LM-PCG main path and of the dense GN/LM
+path, with their wrappers.
 
 Each wrapper takes torch tensors. On CPU tensors it runs the kernel's plain
 PyTorch version, which sits beside it in the same module; on CUDA tensors it
@@ -17,13 +18,16 @@ call launches two kernels per vector, respectively two).
     jacobi_scale.lane_block_mv   per-row 3x3 block apply   (ROADMAP K4)
     cg_step.*                    the CG step               (ROADMAP K6)
     chebyshev.*                  Gershgorin + Chebyshev    (ROADMAP K8)
+    retract_chi2.retract_chi2    trial candidate and chi2  (ROADMAP K7)
+    retract_chi2.lm_outcome      LM trial bookkeeping      (ROADMAP K7)
+    dense_assemble.dense_assemble  dense H, b, raw_diag    (ROADMAP K15)
     gather.lane_gather           the probe's lane gather
 """
 from __future__ import annotations
 
 from openslam_g2o_torch.kernels import (
-    assemble, cg_step, chebyshev, damp_chol, edge_se2, gather, jacobi_scale,
-    spmv)
+    assemble, cg_step, chebyshev, damp_chol, dense_assemble, edge_se2, gather,
+    jacobi_scale, retract_chi2, spmv)
 
 # the wrapper functions, which own the launch counts (several share their
 # module's name, so the modules are what this package exports)
@@ -34,7 +38,9 @@ WRAPPERS = (
     cg_step.cg_residual, cg_step.cg_start, cg_step.cg_update_xr,
     cg_step.cg_update_p, cg_step.cg_finish, chebyshev.gershgorin_bound,
     chebyshev.chebyshev_coeffs, chebyshev.chebyshev_init,
-    chebyshev.chebyshev_update, gather.lane_gather)
+    chebyshev.chebyshev_update, gather.lane_gather,
+    retract_chi2.retract_chi2, retract_chi2.lm_outcome,
+    dense_assemble.dense_assemble)
 
 
 def launch_counts() -> dict:

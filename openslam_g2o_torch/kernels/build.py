@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 # exported C symbol -> argtypes (the stream comes last)
 _SIGNATURES = {
     "g2o_block_ell_spmv": (_P, _P, _P, _P, _I, _I, _P),
@@ -50,6 +51,13 @@ _SIGNATURES = {
     "g2o_chebyshev_init": (_P, _P, _P, _P, _I, _P),
     "g2o_chebyshev_update": (_P, _I, _P, _P, _P, _P, _I, _P),
     "g2o_lane_gather": (_P, _P, _P, _I, _I, _I, _P),
+    "g2o_dense_zero": (_P, _L, _P),
+    "g2o_dense_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _P),
+    "g2o_dense_finalize": (_P, _P, _P, _I, _I, _P),
+    "g2o_retract_se2": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "g2o_se2_edge_chi2": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P),
+    "g2o_lm_outcome": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P),
 }
 
 _lib = None

@@ -1,0 +1,218 @@
+// K15: deterministic assembly of the dense normal equations.
+//
+// Replaces `build_dense_system` (openslam_g2o_tpu/core/problem.py:415-458):
+// per edge group and slot pair (s, t >= s) the batched products
+//   W    = rho' Omega                      [D, D]
+//   H_st = J_s^T W J_t                     [Ds, Dt]
+//   b_s  = -J_s^T W e                      [Ds]
+// scatter-added into the dense H [T, T] (the block and, off the diagonal,
+// its transpose) and b [T], then raw_diag = diag(H) and the unit diagonal of
+// fixed slots. XLA's scatter-add sums in one order; atomics on this card
+// would not, so nothing here is atomic:
+//
+//   zero_fill       H and b, 16-byte stores (T^2 values: the largest traffic)
+//   dense_pair      one launch per edge group and slot pair. One thread owns
+//                   one destination block (p, q): it reads the block as the
+//                   earlier launches left it, forms the products of its
+//                   contributing edges in table order (a CSR list built on
+//                   the host once per topology, kernels/dense_assemble.py),
+//                   and writes the block and its mirror at (q, p). The
+//                   (s, s) launch also owns b_s: the contributors of the
+//                   diagonal block of a vertex are the contributors of its
+//                   gradient
+//   dense_finalize  raw_diag[t] = H[t, t]; H[t, t] += fixed[t]
+//
+// Launches run in stream order and a destination has one owner per launch,
+// so every entry of H is summed in a fixed order and a run repeats bit for
+// bit. A contribution's flag says how its block meets the destination:
+// 0 as it is, 1 transposed (the edge runs the other way round than the
+// destination's first contributor; only between slots of one width),
+// 2 block plus transpose (both slots on the same vertex).
+//
+// Block widths are runtime arguments up to kMaxD = 3 (D, Ds, Dt in {1, 2, 3}
+// for the 2D types); the loops are unrolled to kMaxD with the tail
+// predicated off, so the operands stay in registers. A hub landmark is a
+// long list walked by one thread: correct first, a warp per destination is
+// the later step.
+//
+// Bound: memory, by the zero fill. T = 12,000 in float64 is 1.15 GB of
+// zeros against some 10 MB of Jacobians and tables.
+#include "common.cuh"
+
+namespace g2o_torch {
+
+constexpr int kMaxD = 3;
+
+template <typename T>
+__global__ void zero_fill_kernel(T* __restrict__ out, long long n) {
+  constexpr int kPer = 16 / sizeof(T);
+  const long long nvec = n / kPer;
+  const long long stride = gridDim.x * static_cast<long long>(blockDim.x);
+  const long long first = blockIdx.x * static_cast<long long>(blockDim.x)
+                          + threadIdx.x;
+  float4* out4 = reinterpret_cast<float4*>(out);       // all-zero bits are 0.0
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (long long i = first; i < nvec; i += stride) out4[i] = zero;
+  for (long long i = nvec * kPer + first; i < n; i += stride) out[i] = T(0);
+}
+
+template <typename T>
+__global__ void dense_pair_kernel(
+    const T* __restrict__ jac_s, const T* __restrict__ jac_t,
+    const T* __restrict__ rho1, const T* __restrict__ info,
+    const T* __restrict__ resid, const int* __restrict__ ptr,
+    const int* __restrict__ dest_p, const int* __restrict__ dest_q,
+    const int* __restrict__ edge, const int* __restrict__ flag,
+    T* __restrict__ H, T* __restrict__ b, long long ld, int n_dest, int D,
+    int DS, int DT, int with_b) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d >= n_dest) return;
+  const long long p = dest_p[d], q = dest_q[d];
+  T acc[kMaxD][kMaxD], bacc[kMaxD];
+#pragma unroll
+  for (int a = 0; a < kMaxD; ++a) {
+    bacc[a] = (with_b && a < DS) ? b[p + a] : T(0);
+#pragma unroll
+    for (int c = 0; c < kMaxD; ++c)
+      acc[a][c] = (a < DS && c < DT) ? H[(p + a) * ld + q + c] : T(0);
+  }
+  const int m_end = ptr[d + 1];
+  for (int m = ptr[d]; m < m_end; ++m) {
+    const long long e = edge[m];
+    const int f = flag[m];
+    const T w = rho1[e];
+    T js[kMaxD][kMaxD], jt[kMaxD][kMaxD], om[kMaxD][kMaxD], r[kMaxD];
+#pragma unroll
+    for (int a = 0; a < kMaxD; ++a) {
+      r[a] = (with_b && a < D) ? resid[e * D + a] : T(0);
+#pragma unroll
+      for (int c = 0; c < kMaxD; ++c) {
+        js[a][c] = (a < D && c < DS) ? jac_s[(e * D + a) * DS + c] : T(0);
+        jt[a][c] = (a < D && c < DT) ? jac_t[(e * D + a) * DT + c] : T(0);
+        om[a][c] = (a < D && c < D) ? w * info[(e * D + a) * D + c] : T(0);
+      }
+    }
+    T jw[kMaxD][kMaxD];                       // J_s^T (rho' Omega)
+#pragma unroll
+    for (int s = 0; s < kMaxD; ++s)
+#pragma unroll
+      for (int c = 0; c < kMaxD; ++c) {
+        T sum = T(0);
+#pragma unroll
+        for (int a = 0; a < kMaxD; ++a) sum += js[a][s] * om[a][c];
+        jw[s][c] = sum;
+      }
+    T blk[kMaxD][kMaxD];                      // J_s^T W J_t
+#pragma unroll
+    for (int s = 0; s < kMaxD; ++s) {
+      T g = T(0);
+#pragma unroll
+      for (int c = 0; c < kMaxD; ++c) g += jw[s][c] * r[c];
+      bacc[s] += -g;
+#pragma unroll
+      for (int t = 0; t < kMaxD; ++t) {
+        T sum = T(0);
+#pragma unroll
+        for (int c = 0; c < kMaxD; ++c) sum += jw[s][c] * jt[c][t];
+        blk[s][t] = sum;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < kMaxD; ++s)
+#pragma unroll
+      for (int t = 0; t < kMaxD; ++t)
+        acc[s][t] += f == 0 ? blk[s][t]
+                     : f == 1 ? blk[t][s] : blk[s][t] + blk[t][s];
+  }
+#pragma unroll
+  for (int a = 0; a < kMaxD; ++a) {
+    if (with_b && a < DS) b[p + a] = bacc[a];
+#pragma unroll
+    for (int c = 0; c < kMaxD; ++c)
+      if (a < DS && c < DT) {
+        H[(p + a) * ld + q + c] = acc[a][c];
+        if (p != q) H[(q + c) * ld + p + a] = acc[a][c];
+      }
+  }
+}
+
+template <typename T>
+__global__ void dense_finalize_kernel(T* __restrict__ H,
+                                      const T* __restrict__ fixed_t,
+                                      T* __restrict__ raw_diag, int n,
+                                      int add_fixed) {
+  const long long t = blockIdx.x * static_cast<long long>(blockDim.x)
+                      + threadIdx.x;
+  if (t >= n) return;
+  const long long at = t * (static_cast<long long>(n) + 1);
+  const T raw = H[at];
+  raw_diag[t] = raw;
+  if (add_fixed) H[at] = raw + fixed_t[t];
+}
+
+template <typename T>
+int launch_zero_fill(T* out, long long n, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const long long want = (n + kThreads - 1) / kThreads;
+  const int blocks = static_cast<int>(want < 132 * 8 ? want : 132 * 8);
+  zero_fill_kernel<T><<<blocks, kThreads, 0, stream>>>(out, n);
+  return launch_status();
+}
+
+template <typename T>
+int launch_dense_pair(const T* jac_s, const T* jac_t, const T* rho1,
+                      const T* info, const T* resid, const int* ptr,
+                      const int* dest_p, const int* dest_q, const int* edge,
+                      const int* flag, T* H, T* b, int total_dim, int n_dest,
+                      int D, int DS, int DT, int with_b,
+                      cudaStream_t stream) {
+  if (n_dest <= 0) return 0;
+  if (D < 1 || D > kMaxD || DS < 1 || DS > kMaxD || DT < 1 || DT > kMaxD)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dense_pair_kernel<T><<<grid_for(n_dest), kThreads, 0, stream>>>(
+      jac_s, jac_t, rho1, info, resid, ptr, dest_p, dest_q, edge, flag, H, b,
+      total_dim, n_dest, D, DS, DT, with_b);
+  return launch_status();
+}
+
+template <typename T>
+int launch_dense_finalize(T* H, const T* fixed_t, T* raw_diag, int n,
+                          int add_fixed, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  dense_finalize_kernel<T><<<grid_for(n), kThreads, 0, stream>>>(
+      H, fixed_t, raw_diag, n, add_fixed);
+  return launch_status();
+}
+
+}  // namespace g2o_torch
+
+extern "C" {
+
+#define G2O_DENSE_ENTRY(SUFFIX, T)                                             \
+  int g2o_dense_zero_##SUFFIX(T* out, long long n, void* stream) {             \
+    return g2o_torch::launch_zero_fill<T>(                                     \
+        out, n, static_cast<cudaStream_t>(stream));                            \
+  }                                                                            \
+  int g2o_dense_pair_##SUFFIX(                                                 \
+      const T* jac_s, const T* jac_t, const T* rho1, const T* info,            \
+      const T* resid, const int* ptr, const int* dest_p, const int* dest_q,    \
+      const int* edge, const int* flag, T* H, T* b, int total_dim,             \
+      int n_dest, int D, int DS, int DT, int with_b, void* stream) {           \
+    return g2o_torch::launch_dense_pair<T>(                                    \
+        jac_s, jac_t, rho1, info, resid, ptr, dest_p, dest_q, edge, flag, H,   \
+        b, total_dim, n_dest, D, DS, DT, with_b,                               \
+        static_cast<cudaStream_t>(stream));                                    \
+  }                                                                            \
+  int g2o_dense_finalize_##SUFFIX(T* H, const T* fixed_t, T* raw_diag, int n,  \
+                                  int add_fixed, void* stream) {               \
+    return g2o_torch::launch_dense_finalize<T>(                                \
+        H, fixed_t, raw_diag, n, add_fixed,                                    \
+        static_cast<cudaStream_t>(stream));                                    \
+  }
+
+G2O_DENSE_ENTRY(f32, float)
+G2O_DENSE_ENTRY(f64, double)
+
+#undef G2O_DENSE_ENTRY
+
+}  // extern "C"

@@ -26,44 +26,9 @@
 // 9 info + 1 delta values and writes 42; about 200 flops and 6
 // sin/cos. Edge-minor output columns make every store coalesce; the two
 // vertex gathers are the only irregular loads.
-#include "common.cuh"
+#include "se2_edge.cuh"
 
 namespace g2o_torch {
-
-// rho'(e2) of every kernel in openslam_g2o_tpu/core/robust.py:83-99, by id.
-template <typename T>
-__device__ __forceinline__ T robust_rho1(int kernel_id, T e2, T delta) {
-  const bool scaled = kernel_id >= 6;     // ScaleDelta:<inner>
-  const int inner = scaled ? kernel_id - 5 : kernel_id;
-  if (scaled) {
-    e2 = e2 / (delta * delta);
-    delta = T(1);
-  }
-  const T dsqr = delta * delta;
-  switch (inner) {
-    case 1: {  // Huber
-      const T sqrte = dsqrt(e2 < T(1e-30) ? T(1e-30) : e2);  // NaN stays NaN
-      return e2 <= dsqr ? T(1) : delta / sqrte;
-    }
-    case 2: {  // PseudoHuber
-      const T aux1 = (T(1) / dsqr) * e2 + T(1);
-      return T(1) / dsqrt(aux1);
-    }
-    case 3: {  // Cauchy
-      const T aux = (T(1) / dsqr) * e2 + T(1);
-      return T(1) / aux;
-    }
-    case 4:    // Saturated
-      return e2 <= dsqr ? T(1) : T(0);
-    case 5: {  // DCS
-      T scale = (T(2) * delta) / (delta + e2);
-      scale = scale > T(1) ? T(1) : scale;  // NaN stays NaN
-      return scale * scale;
-    }
-    default:   // None
-      return T(1);
-  }
-}
 
 template <typename T>
 __global__ void edge_se2_blocks_kernel(
@@ -83,23 +48,9 @@ __global__ void edge_se2_blocks_kernel(
   const T z0 = meas[3 * e], z1 = meas[3 * e + 1], z2 = meas[3 * e + 2];
 
   // error, in the operation order of lie.se2_error(se2_inverse(Z), Xi, Xj)
-  const T cz = dcos(z2), sz = dsin(z2);
-  const T m0 = -(cz * z0 + sz * z1);
-  const T m1 = -(-sz * z0 + cz * z1);
-  const T m2 = wrap_angle(-z2);
-  const T ci = dcos(xi2), si = dsin(xi2);
-  const T a0 = -(ci * xi0 + si * xi1);
-  const T a1 = -(-si * xi0 + ci * xi1);
-  const T a2 = wrap_angle(-xi2);
-  const T ca = dcos(a2), sa = dsin(a2);
-  const T d0 = a0 + ca * xj0 - sa * xj1;
-  const T d1 = a1 + sa * xj0 + ca * xj1;
-  const T d2 = wrap_angle(a2 + xj2);
-  const T cm = dcos(m2), sm = dsin(m2);
-  T err[3];
-  err[0] = m0 + cm * d0 - sm * d1;
-  err[1] = m1 + sm * d0 + cm * d1;
-  err[2] = wrap_angle(m2 + d2);
+  T err[3], cz, sz, ci, si;
+  se2_edge_error(xi0, xi1, xi2, xj0, xj1, xj2, z0, z1, z2, err, cz, sz, ci,
+                 si);
 
   // analytic Jacobians (slam2d.py:76-112), fixed columns zeroed
   const T dx = xj0 - xi0, dy = xj1 - xi1;

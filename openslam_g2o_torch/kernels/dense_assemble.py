@@ -1,0 +1,221 @@
+"""K15: deterministic assembly of the dense normal equations
+(csrc/dense_assemble.cu).
+
+Replaces `build_dense_system` (openslam_g2o_tpu/core/problem.py:415-458):
+per edge group and slot pair (s, t >= s) the products J_s^T (rho' Omega) J_t
+and -J_s^T (rho' Omega) e, summed into the dense H [T, T] (the block and, off
+the diagonal, its transpose) and b [T], then raw_diag = diag(H) and the unit
+diagonal of fixed slots. The kernel sums through a destination-major table
+built here on the host once per topology (`build_dense_pattern`), one thread
+per destination block in a fixed order, so a run repeats bit for bit.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from openslam_g2o_torch.kernels import build
+from openslam_g2o_torch.kernels._checks import (
+    check_tensors, launch_device, require)
+from openslam_g2o_torch.kernels.edge_se2 import bmm_small, bmv_small
+
+MAX_DIM = 3          # kMaxD of csrc/dense_assemble.cu
+
+
+@dataclass
+class EdgeBlocks:
+    """One edge group's inputs: residual [E, D], masked Jacobians per slot
+    [E, D, Ds], rho' [E], Omega [E, D, D] and, per slot, the global tangent
+    offset [E] int32 of the vertex in that slot."""
+    resid: torch.Tensor
+    jacs: tuple
+    rho1: torch.Tensor
+    info: torch.Tensor
+    offsets: tuple
+
+
+@dataclass
+class PairTable:
+    """Destinations of one (edge group, slot pair): destination d is the
+    block at rows dest_p[d] (slot s's width) and columns dest_q[d] (slot
+    t's width); its contributors are edge[ptr[d]:ptr[d+1]] in edge order,
+    each with a flag: 0 add the block, 1 add its transpose, 2 add both."""
+    s: int
+    t: int
+    n_dest: int
+    ptr: torch.Tensor
+    dest_p: torch.Tensor
+    dest_q: torch.Tensor
+    edge: torch.Tensor
+    flag: torch.Tensor
+
+
+@dataclass
+class DensePattern:
+    """Static-topology tables of the dense assembly: per edge group (in
+    the order of static.egroups) the slot offsets and one PairTable per
+    slot pair (s, t >= s), in the order the reference scatters them."""
+    total_dim: int
+    offsets: list
+    pairs: list
+
+
+def slot_offsets(static, eg, ea):
+    """Per slot, the global tangent offset [E] int32 of each edge's vertex
+    (the first column of `_slot_tangent_indices`)."""
+    out = []
+    for s, name in enumerate(eg.slots):
+        g = static.vgroup(name)
+        out.append((g.offset + ea.indices[s].to(torch.int32)
+                    * g.tangent_dim).to(torch.int32))
+    return tuple(out)
+
+
+def _pair_table(a, b, diag, total_dim):
+    """CSR destination table of one slot pair from the slots' offsets a, b
+    (numpy int64 [E]). A destination is an unordered pair of vertices; it
+    takes the orientation (p, q) = (a, b) of its first contributor."""
+    if diag:
+        key = a
+    else:
+        key = np.minimum(a, b) * (total_dim + 1) + np.maximum(a, b)
+    _, first, inverse, counts = np.unique(key, return_index=True,
+                                          return_inverse=True,
+                                          return_counts=True)
+    p, q = a[first], b[first]
+    flag = np.where(a == b, 0 if diag else 2,
+                    np.where(a == p[inverse], 0, 1))
+    order = np.argsort(inverse, kind="stable")
+    ptr = np.zeros(len(counts) + 1, dtype=np.int64)
+    np.cumsum(counts, out=ptr[1:])
+    return p, q, ptr, order, flag[order]
+
+
+def build_dense_pattern(problem) -> DensePattern:
+    """Host-side symbolic phase of the dense assembly (the analogue of
+    BlockSolver::buildStructure for the dense Hessian), vectorized numpy;
+    depends on the topology alone."""
+    static, dev = problem.static, problem.device
+    i32 = lambda x: torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32),
+                                    device=dev)
+    offsets, pairs = [], []
+    for eg in static.egroups:
+        offs = slot_offsets(static, eg, problem.edges[eg.key])
+        offsets.append(offs)
+        host = [o.cpu().numpy().astype(np.int64) for o in offs]
+        tables = []
+        for s in range(len(host)):
+            for t in range(s, len(host)):
+                p, q, ptr, edge, flag = _pair_table(
+                    host[s], host[t], s == t, static.total_dim)
+                tables.append(PairTable(s, t, len(p), i32(ptr), i32(p),
+                                        i32(q), i32(edge), i32(flag)))
+        pairs.append(tables)
+    return DensePattern(static.total_dim, offsets, pairs)
+
+
+def dense_assemble_plain(groups, total_dim, fixed_t, pattern=None,
+                         add_fixed_diag=True):
+    """Plain PyTorch version of K15, in the reference's order of
+    operations: (H [T, T], b [T], raw_diag [T]). It scatters through the
+    groups' slot offsets and does not read `pattern`."""
+    like = fixed_t
+    H = torch.zeros((total_dim, total_dim), dtype=like.dtype,
+                    device=like.device)
+    b = torch.zeros((total_dim,), dtype=like.dtype, device=like.device)
+    for g in groups:
+        w_omega = g.rho1[:, None, None] * g.info                # [E, D, D]
+        idx = [off.long()[:, None]
+               + torch.arange(j.shape[2], device=off.device)[None, :]
+               for off, j in zip(g.offsets, g.jacs)]
+        k = len(g.jacs)
+        for s in range(k):
+            js_w = bmm_small(g.jacs[s].transpose(1, 2), w_omega)  # [E, Ds, D]
+            b.index_put_((idx[s],), -bmv_small(js_w, g.resid),
+                         accumulate=True)
+            for t in range(s, k):
+                blk = bmm_small(js_w, g.jacs[t])                # [E, Ds, Dt]
+                H.index_put_((idx[s][:, :, None], idx[t][:, None, :]), blk,
+                             accumulate=True)
+                if t != s:
+                    H.index_put_((idx[t][:, :, None], idx[s][:, None, :]),
+                                 blk.transpose(1, 2), accumulate=True)
+    raw_diag = H.diagonal().clone()
+    if add_fixed_diag:
+        H.diagonal().add_(fixed_t)
+    return H, b, raw_diag
+
+
+def _check_group(i, g, device, dtype):
+    E, D = g.resid.shape
+    k = len(g.jacs)
+    require(len(g.offsets) == k and 1 <= k,
+            f"dense_assemble: group {i} needs one offset table per slot")
+    require(g.rho1.shape == (E,) and g.info.shape == (E, D, D),
+            f"dense_assemble: group {i}: rho1 must be [E] and info [E, D, D]")
+    for s, j in enumerate(g.jacs):
+        require(j.dim() == 3 and j.shape[:2] == (E, D)
+                and g.offsets[s].shape == (E,),
+                f"dense_assemble: group {i} slot {s}: Jacobian must be "
+                "[E, D, Ds] and offsets [E]")
+        require(j.dtype == dtype and j.device == device,
+                f"dense_assemble: group {i} slot {s}: Jacobian must be "
+                f"{dtype} on {device}")
+        require(max(D, j.shape[2]) <= MAX_DIM,
+                f"dense_assemble: block widths above {MAX_DIM} are not "
+                "supported")
+    check_tensors("dense_assemble", device, dtype,
+                  {"resid": g.resid, "rho1": g.rho1, "info": g.info},
+                  {f"offsets[{s}]": o for s, o in enumerate(g.offsets)})
+
+
+def dense_assemble(groups, total_dim, fixed_t, pattern=None,
+                   add_fixed_diag=True):
+    """(H [T, T], b [T], raw_diag [T]) from the edge groups' linearization
+    (a list of EdgeBlocks in the order of static.egroups); K15 on CUDA
+    tensors, where `pattern` (build_dense_pattern) is required, the plain
+    version on CPU tensors. One counted call launches the zero fill of H
+    and of b, one kernel per edge group and slot pair, and the finalize
+    kernel."""
+    require(fixed_t.shape == (total_dim,),
+            "dense_assemble: fixed_t must be [total_dim]")
+    dev, dt = fixed_t.device, fixed_t.dtype
+    check_tensors("dense_assemble", dev, dt, {"fixed_t": fixed_t}, {})
+    for i, g in enumerate(groups):
+        _check_group(i, g, dev, dt)
+    if not launch_device("dense_assemble", dev):
+        return dense_assemble_plain(groups, total_dim, fixed_t, pattern,
+                                    add_fixed_diag)
+    require(pattern is not None and pattern.total_dim == total_dim
+            and len(pattern.pairs) == len(groups),
+            "dense_assemble: on the card a DensePattern of this problem is "
+            "required (build_dense_pattern)")
+    H = torch.empty((total_dim, total_dim), dtype=dt, device=dev)
+    b = torch.empty((total_dim,), dtype=dt, device=dev)
+    raw_diag = torch.empty((total_dim,), dtype=dt, device=dev)
+    if total_dim == 0:
+        return H, b, raw_diag
+    build.launch("g2o_dense_zero", H, H.data_ptr(), H.numel())
+    build.launch("g2o_dense_zero", b, b.data_ptr(), b.numel())
+    for g, tables in zip(groups, pattern.pairs):
+        jacs = [j.contiguous() for j in g.jacs]
+        D = g.resid.shape[1]
+        for tb in tables:
+            if tb.n_dest == 0:
+                continue
+            build.launch(
+                "g2o_dense_pair", H, jacs[tb.s].data_ptr(),
+                jacs[tb.t].data_ptr(), g.rho1.data_ptr(), g.info.data_ptr(),
+                g.resid.data_ptr(), tb.ptr.data_ptr(), tb.dest_p.data_ptr(),
+                tb.dest_q.data_ptr(), tb.edge.data_ptr(), tb.flag.data_ptr(),
+                H.data_ptr(), b.data_ptr(), total_dim, tb.n_dest, D,
+                jacs[tb.s].shape[2], jacs[tb.t].shape[2], int(tb.s == tb.t))
+    build.launch("g2o_dense_finalize", H, H.data_ptr(), fixed_t.data_ptr(),
+                 raw_diag.data_ptr(), total_dim, int(add_fixed_diag))
+    dense_assemble.launches += 1
+    return H, b, raw_diag
+
+
+dense_assemble.launches = 0

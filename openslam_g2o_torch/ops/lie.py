@@ -14,7 +14,7 @@ import math
 import torch
 
 __all__ = ["normalize_angle", "se2_compose", "se2_inverse", "se2_apply",
-           "se2_retract", "se2_error"]
+           "se2_retract", "se2_to_vector", "se2_error"]
 
 _TWO_PI = 2.0 * math.pi
 
@@ -54,6 +54,10 @@ def se2_retract(params, delta):
     (vertex_se2.h:41)."""
     out = params + delta
     return torch.cat([out[..., :2], normalize_angle(out[..., 2:3])], dim=-1)
+
+
+def se2_to_vector(p):
+    return p
 
 
 def se2_error(meas_inv, xi, xj):

@@ -1,5 +1,5 @@
 """Host graph, .g2o I/O and the synthetic generator of the port, against
-the JAX package: parse semantics on the SE2 lines of tests/test_io.py, a
+the JAX package: parse semantics on the 2D lines of tests/test_io.py, a
 save/load round trip, a graph saved by the JAX writer and loaded by the
 port, and identical synthetic arrays from one seed (exact equality: both
 run the same numpy code)."""
@@ -32,14 +32,23 @@ VERTEX_XY 5 2.5 -1.5
 FIX 0
 EDGE_SE2 0 1 0.9 0.05 -0.1 500 0 0 500 0 5000
 EDGE_SE2_XY 1 5 1.5 -1.5 1000 0 1000
+VERTEX_TRACKXYZ 9 1.0 2.0 3.0
 """
 
 
 def test_parse_basic_and_unknown_tags_skipped(capsys):
     g = loads_g2o(SAMPLE)
-    # VERTEX_XY / EDGE_SE2_XY are not ported: skipped like unknown tags
-    assert g.num_vertices() == 2 and g.num_edges() == 1
-    assert "skipped unknown tags" in capsys.readouterr().err
+    # the 2D tags load; VERTEX_TRACKXYZ (a 3D type) is not ported and is
+    # skipped like any unknown tag
+    assert g.num_vertices() == 3 and g.num_edges() == 2
+    err = capsys.readouterr().err
+    assert "skipped unknown tags" in err and "VERTEX_TRACKXYZ" in err
+    assert "VERTEX_XY" not in err and "EDGE_SE2_XY" not in err
+    assert g.vertices[5].vtype.name == "point_xy"
+    np.testing.assert_allclose(g.vertices[5].params, [2.5, -1.5])
+    assert g.edges[1].etype.name == "edge_se2_xy"
+    np.testing.assert_allclose(g.edges[1].information,
+                               [[1000, 0], [0, 1000]])
     assert g.vertices[0].fixed and not g.vertices[1].fixed
     np.testing.assert_allclose(g.vertices[0].params, [0.1, 0.2, 0.3])
     e = g.edges[0]
@@ -75,7 +84,7 @@ def test_roundtrip():
     np.testing.assert_array_equal(g2.edges[0].information,
                                   g.edges[0].information)
     buf = io.StringIO(save_g2o(g))
-    assert load_g2o(buf).num_edges() == 1
+    assert load_g2o(buf).num_edges() == 2
 
 
 def test_jax_saved_graph_loads_in_port():

@@ -19,8 +19,11 @@ from openslam_g2o_torch import kernels
 from openslam_g2o_torch.apps.simulator import synthetic_pose_graph_2d
 from openslam_g2o_torch.core import algorithms, sparse
 from openslam_g2o_torch.core import solvers
+from openslam_g2o_torch.apps.simulator import Simulator2D
+from openslam_g2o_torch.core import problem as problem_mod
 from openslam_g2o_torch.kernels import (
-    cg_step, chebyshev, damp_chol, gather, jacobi_scale)
+    cg_step, chebyshev, damp_chol, dense_assemble, gather, jacobi_scale,
+    retract_chi2)
 from openslam_g2o_torch.kernels.assemble import (
     assemble_gather, assemble_gather_plain)
 from openslam_g2o_torch.kernels.edge_se2 import (
@@ -53,7 +56,8 @@ def test_cpu_wrappers_run_plain_versions_and_count_nothing():
     assert {"block_ell_spmv", "edge_se2_blocks", "assemble_gather",
             "damp_chol", "jacobi_scale", "spmv_dot", "cg_update_xr",
             "cg_update_p", "gershgorin_bound", "chebyshev_update",
-            "lane_gather"} <= set(counts)
+            "lane_gather", "retract_chi2", "lm_outcome",
+            "dense_assemble"} <= set(counts)
     assert set(counts.values()) == {0}
 
 
@@ -362,3 +366,159 @@ def test_lane_gather_probe_shape_on_gpu(cuda, dtype):
                           device=cuda)
     out = gather.lane_gather(x, idx)
     assert torch.equal(out, gather.lane_gather_plain(x, idx))
+
+
+# ---------------------------------------------------------------------------
+# K7 (retract + chi2 + outcome) and K15 (dense assembly)
+# ---------------------------------------------------------------------------
+
+def _k7_inputs(cuda, dtype, n=5000, kernel_id=0):
+    prob, pattern, values, b, lam = _scaled(cuda, dtype, n=n)
+    ea = prob.edges["edge_se2"]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    dxT = 0.05 * torch.randn((3, n), generator=gen, device=cuda, dtype=dtype)
+    delta = torch.rand(ea.delta.shape, generator=gen, device=cuda,
+                       dtype=dtype) * 2.0 + 0.05
+    groups = [(ea.indices[0], ea.indices[1], ea.measurement, ea.information,
+               delta, kernel_id)]
+    return prob, (prob.params["se2"], dxT, prob.free["se2"], b, lam, groups)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_retract_chi2_matches_plain_on_gpu(cuda, dtype):
+    """Candidate, dot and chi2 sums for every robust kernel id; the residual
+    cancels coordinates as kernel B's does, hence its tolerance."""
+    for kid in range(11):
+        prob, args = _k7_inputs(cuda, dtype, kernel_id=kid)
+        kernels.reset_launch_counts()
+        cand, part_dot, part_chi = retract_chi2.retract_chi2(*args)
+        pc, pd, pchi = retract_chi2.retract_chi2_plain(*args)
+        assert kernels.launch_counts()["retract_chi2"] == 1
+        assert _rel(cand, pc) < TOL[dtype], kid
+        assert _rel(part_dot.sum(), pd.sum()) < TOL[dtype], kid
+        assert _rel(part_chi.sum(), pchi.sum()) < TOL_B[dtype], kid
+        again = retract_chi2.retract_chi2(*args)
+        assert all(torch.equal(a, b) for a, b in
+                   zip(again, (cand, part_dot, part_chi)))
+
+
+def _outcome_equal(got, want, tol):
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype == torch.bool:
+            assert bool(g) == bool(w), i
+        elif torch.isfinite(w):
+            assert _rel(g, w) < tol, i
+        else:
+            assert float(g) == float(w) or (torch.isnan(g) and torch.isnan(w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lm_outcome_matches_plain_on_gpu(cuda, dtype):
+    prob, args = _k7_inputs(cuda, dtype)
+    _, part_dot, part_chi = retract_chi2.retract_chi2(*args)
+    t = lambda v: torch.tensor(v, dtype=dtype, device=cuda)
+    true, false = (torch.tensor(v, device=cuda) for v in (True, False))
+    chi = float(part_chi.sum())
+    nan_chi = part_chi.clone()
+    nan_chi[-1] = float("nan")
+    cases = [(part_chi, part_dot, true, t(0.3), t(2.0), t(chi * 1.5)),
+             (part_chi, part_dot, true, t(0.3), t(4.0), t(chi * 0.5)),
+             (part_chi, part_dot, false, t(0.3), t(2.0), t(chi * 1.5)),
+             (nan_chi, part_dot, true, t(0.3), t(8.0), t(chi * 1.5)),
+             (part_chi, -part_dot, true, t(0.3), t(2.0), t(chi * 1.5))]
+    kernels.reset_launch_counts()
+    for i, case in enumerate(cases):
+        got = retract_chi2.lm_outcome(*case)
+        want = retract_chi2.lm_outcome_plain(*case)
+        _outcome_equal(got, want, TOL[dtype])
+        if i in (2, 3):
+            assert float(got[0]) == float("inf") and float(got[1]) == -1.0
+            assert not bool(got[2]) and bool(got[5])
+    assert kernels.launch_counts()["lm_outcome"] == len(cases)
+    # the same chi2 drop over the two signs of the model's decrease: one of
+    # the two trials is accepted
+    assert (bool(retract_chi2.lm_outcome(*cases[0])[2])
+            != bool(retract_chi2.lm_outcome(*cases[4])[2]))
+
+
+def test_nan_step_on_gpu_is_a_retry(cuda):
+    prob, (x, dxT, free, b, lam, groups) = _k7_inputs(cuda, torch.float64)
+    dxT = dxT.clone()
+    dxT[2, 11] = float("nan")
+    _, part_dot, part_chi = retract_chi2.retract_chi2(x, dxT, free, b, lam,
+                                                      groups)
+    assert not torch.isfinite(part_chi.sum())
+    two = torch.tensor(2.0, dtype=torch.float64, device=cuda)
+    got = retract_chi2.lm_outcome(part_chi, part_dot,
+                                  torch.tensor(True, device=cuda), lam, two,
+                                  two)
+    assert float(got[0]) == float("inf") and float(got[1]) == -1.0
+    assert not bool(got[2]) and bool(got[5])
+    assert float(got[3]) == float(lam) * 2.0 and float(got[4]) == 4.0
+
+
+def _dense_inputs(prob):
+    pattern = dense_assemble.build_dense_pattern(prob)
+    lin = problem_mod.linearize(prob)
+    groups = [dense_assemble.EdgeBlocks(
+        lin[eg.key][0].contiguous(), lin[eg.key][1], lin[eg.key][2],
+        prob.edges[eg.key].information, pattern.offsets[i])
+        for i, eg in enumerate(prob.static.egroups)]
+    return groups, pattern, problem_mod.tangent_masks(prob)[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bearing", [False, True])
+def test_dense_assemble_matches_plain_on_gpu(cuda, dtype, bearing):
+    """K15 on a landmark world (3x3, 3x2 and 2x2 blocks; 1-wide residuals
+    with bearing_only) against the plain scatter, and twice for the same
+    bits."""
+    g, _ = Simulator2D(n_landmarks=60, seed=2, world_size=15.0).simulate(
+        200, bearing_only=bearing)
+    g.add_edge("edge_se2_prior", (5,), g.vertices[5].params, np.eye(3) * 50)
+    g.add_edge("edge_se2", (9, 3), [0.1, 0.2, 0.3], np.eye(3) * 20)
+    g.add_edge("edge_se2", (3, 9), [-0.1, -0.2, -0.3], np.eye(3) * 30)
+    g.vertices[17].fixed = True
+    prob = g.compile(dtype=dtype, device=cuda)
+    groups, pattern, fixed_t = _dense_inputs(prob)
+    T = prob.static.total_dim
+    kernels.reset_launch_counts()
+    for add_fixed in (True, False):
+        H, b, raw = dense_assemble.dense_assemble(groups, T, fixed_t, pattern,
+                                                  add_fixed)
+        pH, pb, praw = dense_assemble.dense_assemble_plain(
+            groups, T, fixed_t, None, add_fixed)
+        assert _rel(H, pH) < TOL[dtype] and _rel(b, pb) < TOL[dtype]
+        assert _rel(raw, praw) < TOL[dtype]
+        H2, b2, raw2 = dense_assemble.dense_assemble(groups, T, fixed_t,
+                                                     pattern, add_fixed)
+        assert torch.equal(H, H2) and torch.equal(b, b2)
+        assert torch.equal(raw, raw2)
+        fixed = fixed_t.bool()
+        assert (H.diagonal()[fixed] == (1.0 if add_fixed else 0.0)).all()
+    assert kernels.launch_counts()["dense_assemble"] == 4
+    with pytest.raises(ValueError, match="DensePattern"):
+        dense_assemble.dense_assemble(groups, T, fixed_t, None)
+
+
+@pytest.mark.parametrize("algorithm", ["lm", "gn"])
+def test_dense_route_on_gpu_matches_cpu(cuda, algorithm):
+    """The dense GN/LM route through K15 and the outcome kernel against the
+    same run on the CPU (plain versions), float64: chi2 to 1e-9."""
+    g, _ = Simulator2D(n_landmarks=40, seed=4, world_size=12.0).simulate(120)
+    make = {"lm": algorithms.LevenbergMarquardt,
+            "gn": algorithms.GaussNewton}[algorithm]
+    runs = {}
+    for device in (cuda, "cpu"):
+        prob = g.compile(device=device)
+        kernels.reset_launch_counts()
+        _, stats = algorithms.optimize(prob, make(), iterations=4)
+        runs[str(device)] = ([s["chi2"] for s in stats],
+                             kernels.launch_counts())
+    chi_g, counts_g = runs["cuda"]
+    chi_c, counts_c = runs["cpu"]
+    np.testing.assert_allclose(chi_g, chi_c, rtol=1e-9)
+    assert set(counts_c.values()) == {0}
+    assert counts_g["dense_assemble"] >= 4
+    if algorithm == "lm":
+        assert counts_g["lm_outcome"] >= 4

@@ -263,14 +263,16 @@ def test_nonfinite_trial_chi2_is_retried(monkeypatch):
     g.add_vertex(1, "se2", [0.0, 0.0, 0.0])
     g.add_edge("edge_se2", (0, 1), [2.0, 0.0, 0.0], np.eye(3))
     prob = g.compile(device="cpu")
-    real = talg.robust_chi2
+    K7 = talg.kernels.retract_chi2
+    real = K7.retract_chi2
 
-    def domain_chi2(problem, params=None):
-        chi = real(problem, params)
-        x = (problem.params if params is None else params)["se2"][1, 0]
-        return torch.where(x < 1.0, chi, torch.full_like(chi, float("nan")))
+    def domain_chi2(*args):
+        cand, part_dot, part_chi = real(*args)
+        return cand, part_dot, torch.where(
+            cand[1, 0] < 1.0, part_chi,
+            torch.full_like(part_chi, float("nan")))
 
-    monkeypatch.setattr(talg, "robust_chi2", domain_chi2)
+    monkeypatch.setattr(K7, "retract_chi2", domain_chi2)
     out, stats = talg.optimize(prob, talg.LevenbergMarquardtPCG(
         pcg_iters=50, pcg_tol=1e-10), iterations=1)
     assert stats[-1]["ok"], stats

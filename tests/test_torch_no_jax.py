@@ -1,5 +1,6 @@
 """The port imports no JAX: in a fresh interpreter, import openslam_g2o_torch
-and run one small CPU optimization through the public API, then check that
+and run small CPU optimizations through the public API (LM-PCG on a pose
+graph, the default dense LM and GN on a landmark world), then check that
 no jax module (nor the JAX package, which pulls jax in) was loaded. Every
 module of the port and chip_smoke.py are imported, and no source file of
 either names jax or the JAX package in an import statement."""
@@ -17,15 +18,18 @@ import torch
 torch.set_num_threads(1)
 import openslam_g2o_torch
 from openslam_g2o_torch import loads_g2o
-from openslam_g2o_torch.apps.simulator import synthetic_pose_graph_2d
-from openslam_g2o_torch.core.algorithms import LevenbergMarquardtPCG, optimize
+from openslam_g2o_torch.apps.simulator import (
+    Simulator2D, synthetic_pose_graph_2d)
+from openslam_g2o_torch.core.algorithms import (
+    GaussNewton, LevenbergMarquardtPCG, optimize)
 import importlib, pkgutil
 for mod in pkgutil.walk_packages(openslam_g2o_torch.__path__,
                                  "openslam_g2o_torch."):
     importlib.import_module(mod.name)         # every module of the port
 for name in ("kernels.damp_chol", "kernels.jacobi_scale", "kernels.cg_step",
              "kernels.chebyshev", "kernels.gather", "kernels.build",
-             "apps.profile_window", "interop"):
+             "kernels.dense_assemble", "kernels.retract_chi2",
+             "apps.profile_window", "apps.simulator", "interop"):
     assert "openslam_g2o_torch." + name in sys.modules, name
 import chip_smoke                             # imports nothing at top level
 
@@ -35,6 +39,13 @@ _, stats = optimize(prob, LevenbergMarquardtPCG(pcg_iters=30, pcg_tol=1e-4),
 assert stats[-1]["chi2"] < stats[0]["chi2"] or stats[0]["ok"], stats
 _, stats = optimize(prob, LevenbergMarquardtPCG(pcg_iters=30, pcg_tol=1e-4,
                                                 pcg_cheby=3), iterations=2)
+assert stats[-1]["ok"], stats
+graph, _ = Simulator2D(n_landmarks=15, seed=0).simulate(30)
+world = graph.compile(device="cpu")
+_, stats = optimize(world, iterations=4)          # the dense LM default
+assert stats[-1]["ok"] and "lambda" in stats[-1], stats
+assert stats[-1]["chi2"] < stats[0]["chi2"], stats
+_, stats = optimize(world, GaussNewton(), iterations=3)
 assert stats[-1]["ok"], stats
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
