@@ -20,7 +20,15 @@ Phases (any failure raises and the script exits non-zero):
     K7 (retract_chi2, lm_outcome) on the same graph, with its NaN cases (a
     NaN dx and ok False both give chi2 inf, rho -1, no accept, lambda * nu,
     retry; flags compared exactly), and K15 (dense_assemble) on the
-    landmark world of phase 4d, twice for the same bits;
+    landmark worlds of phases 4d and 4f, twice for the same bits, and on
+    the 2D world once more with its width-3 instantiation switched off (a
+    second build of dense_assemble.cu), for what that instantiation saves.
+    On the sphere of phase 4e: K16 (edge_se3_blocks, without and with a robust
+    kernel), K7 for SE3 (retract_se3, se3_edge_chi2, a NaN dx) and the 6x6
+    instantiations of kernels A and C, damp_chol (a non-SPD 6x6 block),
+    jacobi_scale (a NaN factor), lane_block_mv, spmv_dot and
+    gershgorin_bound, with torch.linalg.cholesky + solve_triangular, a BSR
+    product of block size 6 and torch.bmm as the library yardsticks.
     The CG kernels' scalar buffer is held slot by slot, each scalar
     relative to its own plain value and the pd/continue flags exactly,
     also where they must be 0 (negative and NaN curvature, sticky pd,
@@ -36,7 +44,8 @@ Phases (any failure raises and the script exits non-zero):
     10; finite, never increasing, below chi2_0, and the first 3 chi2 equal
     to the plain route to rtol 2e-4;
  4c. the probe path: a block-ELL SpMV composed of the lane gather and a
-    multiply-sum on the TPU probe's data, against kernel A;
+    multiply-sum on the TPU probe's data, against kernel A, and the device
+    time of both kernels at that shape (torch.profiler);
  4d. the dense path at full size: a Simulator2D landmark world (3000 poses,
     1500 landmarks, tangent dimension T >= 8000, float64) through compile()
     -> optimize(prob), the default dense LevenbergMarquardt, for 10
@@ -47,20 +56,43 @@ Phases (any failure raises and the script exits non-zero):
     the same bits; ms per iteration split into linearize / assemble /
     factor + solve / retract + chi2, and the device's busy time by kernel
     over 3 iterations (torch.profiler);
+ 4e. the SE3 main path at full width: create_sphere at 200 laps of 500 =
+    100,000 poses (noise 0.03 / 0.002, float32, 6x6 blocks) through lambda
+    init and lm_pcg_optimize_fused on the sphere benchmark's schedule (6
+    windows of 10 at pcg 200 / tol 0.05, then 15 warm polish windows of 5
+    at pcg 600 / tol 1e-6), after which chi2 <= 1.05 x its expectation
+    6E - 6(N - 1); chi2 never increases; CG iterations and trials per
+    window, and from the third window on every trial's CG ends at its cap;
+    the first 3 iterations against the plain route (rtol 2e-4); ms per
+    linearization (K16 + C) and per trial outcome (K7); one pcg_cheby=4
+    window on the same graph; the same schedule in float64; and the
+    benchmark's own shape (50 laps of 50, default noise) on the same
+    schedule with 6 polish windows;
+ 4f. the dense route on 3D: a Simulator3D world (1500 poses, XYZ landmarks
+    seen through an offset parameter, T >= 8000, float64) through
+    optimize(prob) for 10 iterations and GaussNewton() for 5, with the
+    checks of 4d (K15 at block width 6) and its profile of 3 iterations;
  5. a small .g2o string through loads_g2o -> compile() (the default
     device) -> optimize(LevenbergMarquardtPCG()), chi2 decreasing and equal
-    to the CPU run of the same graph; and one with VERTEX_XY, EDGE_SE2_XY
+    to the CPU run of the same graph; one with VERTEX_XY, EDGE_SE2_XY
     and a PARAMS_SE2OFFSET / EDGE_SE2_OFFSET pair through optimize(), the
-    default algorithm, against its CPU run;
- 6. every kernel's launch count in the paths of phases 4-4d, each > 0. A
+    default algorithm, against its CPU run; and two with the 3D tags: a
+    sphere (VERTEX_SE3:QUAT, EDGE_SE3:QUAT) through LM-PCG and a landmark
+    world (PARAMS_SE3OFFSET, VERTEX_TRACKXYZ, EDGE_SE3_TRACKXYZ) through
+    the dense LM;
+ 6. every kernel's launch count in the paths of phases 4-4f, each > 0. A
     count is one per wrapper call that launched; cg_finish launches two
-    kernels per vector and gershgorin_bound two per call.
+    kernels per vector and gershgorin_bound two per call. The 6x6
+    instantiations are listed apart, with the launches of the SE3 and
+    dense 3D paths, which their 3x3 rows then leave out.
 The last two lines are the per-kernel JSON and {"ok": true, "device": ...}.
 Exits non-zero without printing a result when no GPU is visible.
 """
 from __future__ import annotations
 
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -79,7 +111,14 @@ TOL = {"edge_se2_blocks": {"float32": 1e-4, "float64": 1e-11},
        "damp_chol": {"float32": 1e-4, "float64": 1e-11},
        "lane_gather": {"float32": 0.0, "float64": 0.0},
        # the trial chi2 cancels coordinates as kernel B's residual does
-       "retract_chi2": {"float32": 1e-4, "float64": 1e-11}}
+       "retract_chi2": {"float32": 1e-4, "float64": 1e-11},
+       # the SE3 residual cancels coordinates ~100 m against ~0.03 m, and
+       # the kernel and torch.func.jvp order the derivative's sums otherwise
+       "edge_se3_blocks": {"float32": 2e-4, "float64": 1e-10},
+       # with Huber, rho' = delta / sqrt(e^T Omega e) carries the float32
+       # residual's cancellation error into every block
+       "edge_se3_blocks@huber": {"float32": 2e-3, "float64": 1e-10},
+       "se3_edge_chi2": {"float32": 1e-4, "float64": 1e-11}}
 DENSE_ROUTE_RTOL = 1e-9
 # The dense path's world: odometry noise below Simulator2D's default, so that
 # 10 LM and 5 GN iterations reach the same minimum (at the default noise LM's
@@ -89,6 +128,29 @@ DENSE_WORLD = dict(world_size=60, n_landmarks=1500, trans_noise=(0.02, 0.01),
 DENSE_POSES = 3000
 PLAIN_ROUTE_RTOL = 2e-4
 N_POSES, GRID = 100000, 100
+# The SE3 main path's graph: the sphere generator at 200 laps of 500 poses
+# (100,000 poses), with the noise lowered from the benchmark's (0.1, 0.02) so
+# that 100,000 steps of integrated odometry stay in LM's basin; the converged
+# chi2 is held against 6E - 6(N - 1), its expectation under that noise.
+SPHERE = dict(n_laps=200, n_per_lap=500, radius=100.0,
+              trans_noise=(0.03, 0.03, 0.03), rot_noise=0.002, seed=0)
+# CG runs into its cap in every trial on this 200 x 500 mesh from the third
+# window on (200 iterations in the windows, 600 in the polish; phase 4e
+# checks it from the launch counts), so each LM step is a truncated solve and
+# the tail is slow, in float32 and float64 alike (phase 4e runs both). The
+# schedule is fixed: six windows, then SPHERE_POLISH_WINDOWS polish windows,
+# and chi2 is held against SPHERE_GATE x its expectation after the last.
+SPHERE_GATE = 1.05
+SPHERE_POLISH_WINDOWS = 15
+# the benchmark's own shape (2500 poses, default noise), same schedule
+SPHERE_BENCH = dict(n_laps=50, n_per_lap=50, radius=100.0, seed=0)
+# The dense 3D world: poses, XYZ landmarks seen through offset parameter 0;
+# noise below Simulator3D's default so that 10 LM and 5 GN iterations reach
+# the same minimum
+DENSE3_WORLD = dict(world_size=40.0, n_landmarks=1200,
+                    trans_noise=(0.02, 0.02, 0.02), rot_noise=0.002,
+                    landmark_noise=(0.02, 0.02, 0.02), seed=0)
+DENSE3_POSES = 1500
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOPS = 67e12               # float32 outside the tensor cores
 
@@ -128,6 +190,32 @@ KERNELS = {
                    "openslam_g2o_tpu/core/algorithms.py:306"),
     "dense_assemble": ("dense_assemble.cu",
                        "openslam_g2o_tpu/core/problem.py:415"),
+    "edge_se3_blocks": ("edge_se3_blocks.cu",
+                        "openslam_g2o_tpu/models/slam3d.py:70"),
+    "retract_se3": ("retract_chi2_se3.cu",
+                    "openslam_g2o_tpu/ops/lie.py:256"),
+    "se3_edge_chi2": ("retract_chi2_se3.cu",
+                      "openslam_g2o_tpu/core/problem.py:302"),
+}
+# the 6x6 instantiations: report name -> (wrapper, source, replaces); their
+# launches are the wrapper's counts in the SE3 paths (phases 4e and 4f)
+KERNELS_D6 = {
+    "block_ell_spmv@d6": ("block_ell_spmv", "block_ell_spmv.cu",
+                          "openslam_g2o_tpu/core/sparse.py:883"),
+    "assemble_gather@d6": ("assemble_gather", "assemble_gather.cu",
+                           "openslam_g2o_tpu/core/sparse.py:646"),
+    "damp_chol@d6": ("damp_chol", "damp_chol.cu",
+                     "openslam_g2o_tpu/core/solvers.py:105"),
+    "jacobi_scale@d6": ("jacobi_scale", "jacobi_scale.cu",
+                        "openslam_g2o_tpu/core/sparse.py:1204"),
+    "lane_block_mv@d6": ("lane_block_mv", "jacobi_scale.cu",
+                         "openslam_g2o_tpu/core/sparse.py:871"),
+    "spmv_dot@d6": ("spmv_dot", "cg_step.cu",
+                    "openslam_g2o_tpu/core/sparse.py:1309"),
+    "gershgorin_bound@d6": ("gershgorin_bound", "chebyshev.cu",
+                            "openslam_g2o_tpu/core/sparse.py:1270"),
+    "dense_assemble@d6": ("dense_assemble", "dense_assemble.cu",
+                          "openslam_g2o_tpu/core/problem.py:415"),
 }
 
 
@@ -195,7 +283,7 @@ def main() -> int:
     import numpy as np
     from openslam_g2o_torch import kernels, loads_g2o, save_g2o
     from openslam_g2o_torch.apps.simulator import (
-        Simulator2D, synthetic_pose_graph_2d)
+        Simulator2D, Simulator3D, create_sphere, synthetic_pose_graph_2d)
     from openslam_g2o_torch.core import problem as problem_mod
     from openslam_g2o_torch.core import sparse
     from openslam_g2o_torch.core.algorithms import (
@@ -207,7 +295,7 @@ def main() -> int:
     from openslam_g2o_torch.core.solvers import solve_dense_cholesky
     from openslam_g2o_torch.kernels import (
         assemble, build, cg_step, chebyshev, damp_chol, dense_assemble,
-        edge_se2, gather, jacobi_scale, retract_chi2, spmv)
+        edge_se2, edge_se3, gather, jacobi_scale, retract_chi2, spmv)
     from openslam_g2o_torch.utils import np_lie
 
     # -- 1. device --------------------------------------------------------
@@ -227,33 +315,56 @@ def main() -> int:
     t0 = time.monotonic()
     build.load()
     built = build.last_build()
-    regs = [int(ln.split("Used ")[1].split()[0])
-            for ln in built["log"].splitlines() if "Used " in ln]
-    spills = [ln for ln in built["log"].splitlines()
-              if "spill" in ln and "0 bytes spill stores, 0 bytes spill loads"
-              not in ln]
+    # ptxas -v: registers of every kernel, and the kernels that spill
+    regs, spilling, entry_name, by_kernel = [], [], "?", []
+    for ln in built["log"].splitlines():
+        if "Compiling entry function" in ln:
+            entry_name = ln.split("'")[1]
+        elif "bytes spill stores" in ln and \
+                "0 bytes spill stores, 0 bytes spill loads" not in ln:
+            spilling.append([entry_name, ln.strip()])
+        elif "Used " in ln:
+            regs.append(int(ln.split("Used ")[1].split()[0]))
+            # _ZN9g2o_torch<len><name>I<f|d>[Li<D>E]E... -> name<f|d[,D]>
+            m = re.match(r"_ZN9g2o_torch(\d+)", entry_name)
+            short = entry_name
+            if m:
+                rest = entry_name[m.end():]
+                short, rest = rest[:int(m.group(1))], rest[int(m.group(1)):]
+                t = re.match(r"I([fd])(?:Li(\d+)E)?", rest)
+                if t:
+                    short += "<" + ",".join(x for x in t.groups() if x) + ">"
+            by_kernel.append(f"{short}={regs[-1]}")
+            if spilling and spilling[-1][0] == entry_name:
+                spilling[-1].append(f"{regs[-1]} registers")
     print(f"phase 2 build: {time.monotonic() - t0:.2f} s "
           f"(nvcc {built['seconds']:.2f} s, "
           f"{len(list(build.CSRC.glob('*.cu')))} sources in parallel) -> "
           f"{built['path']}; ptxas: {len(regs)} kernels, registers "
           f"{min(regs, default=0)}-{max(regs, default=0)}, "
-          f"{len(spills)} with spills")
+          f"{len(spilling)} with spills")
+    print("phase 2 registers: " + " ".join(by_kernel))
+    for entry in spilling:
+        print("phase 2 spills: " + "; ".join(entry))
 
     # -- 3. kernels against their plain versions ---------------------------
     results = {}
 
     def case(kname, tag, shape, run, plain, nbytes, flops, library=None,
-             same_nan=False, label=None, timed=True, post=None):
+             same_nan=False, label=None, timed=True, post=None,
+             slow_plain=False):
         """Compare one kernel with its plain version (`run` and `plain`
         return the tensors to compare; `post` first reduces partial sums
-        and splits a scalar buffer, on both sides), time both, and record
-        the row under (label or kname, tag)."""
+        and splits a scalar buffer, on both sides), time both (a plain
+        version of tens of ms: median of 5 single calls), and record the
+        row under (label or kname, tag)."""
         post = post or (lambda out: out)
         abs_e, rel_e = _errors(torch, post(run()), post(plain()), same_nan)
         row = dict(abs=abs_e, rel=rel_e, shape=shape, kname=kname)
         if timed:
             row.update(ms=_median_ms(torch, run),
-                       plain_ms=_median_ms(torch, plain),
+                       plain_ms=(_median_ms(torch, plain, 5, 1, 1)
+                                 if slow_plain else _median_ms(torch, plain)),
                        library_ms=(None if library is None
                                    else _median_ms(torch, library)))
             row["bound_ms"], row["bound_by"] = _bound(nbytes, flops)
@@ -698,77 +809,354 @@ def main() -> int:
                         f"{label}: expected chi2 inf, rho -1, no accept, "
                         f"lambda * nu, retry; got {[float(g) for g in got]}")
         del values, svals, state, dz, linv, lchol
-    # K15 on the landmark world of phase 4d
-    t_sim = time.monotonic()
-    world, _ = Simulator2D(**DENSE_WORLD).simulate(n_poses=DENSE_POSES)
-    t_sim = time.monotonic() - t_sim
+    # the SE3 kernels and the 6x6 instantiations on the sphere of phase 4e
+    t_sphere = time.monotonic()
+    sphere, _ = create_sphere(**SPHERE)
+    t_sphere = time.monotonic() - t_sphere
     for dt in (torch.float32, torch.float64):
         tag = str(dt).split(".")[-1]
         s = torch.empty((), dtype=dt).element_size()
-        dprob = world.compile(dtype=dt)
-        T = dprob.static.total_dim
-        dpattern = dense_assemble.build_dense_pattern(dprob)
-        lin = problem_mod.linearize(dprob)
-        dgroups = [dense_assemble.EdgeBlocks(
-            lin[eg.key][0].contiguous(),
-            tuple(j.contiguous() for j in lin[eg.key][1]), lin[eg.key][2],
-            dprob.edges[eg.key].information, dpattern.offsets[i])
-            for i, eg in enumerate(dprob.static.egroups)]
-        fixed_t = problem_mod.tangent_masks(dprob)[1]
-        # the library yardstick: one index_put_ per slot pair on the
-        # precomputed blocks (H only; the products are not timed)
-        lib_H = torch.zeros((T, T), dtype=dt, device=dev)
-        lib_ops = []
-        nbytes, flops = s * (T * T + 3 * T), 0
-        for gi, gblk in enumerate(dgroups):
-            w_om = gblk.rho1[:, None, None] * gblk.info
-            E_g, D_g = gblk.resid.shape
-            widths = [j.shape[2] for j in gblk.jacs]
-            nbytes += s * E_g * (D_g + D_g * sum(widths) + 1 + D_g * D_g)
-            nbytes += 4 * sum(tb.ptr.numel() + 2 * tb.n_dest
-                              + 2 * tb.edge.numel()
-                              for tb in dpattern.pairs[gi])
-            idx = [o.long()[:, None] + torch.arange(w_, device=dev)[None, :]
-                   for o, w_ in zip(gblk.offsets, widths)]
-            for s_ in range(len(widths)):
-                jw = edge_se2.bmm_small(gblk.jacs[s_].transpose(1, 2), w_om)
-                for t_ in range(s_, len(widths)):
-                    blk = edge_se2.bmm_small(jw, gblk.jacs[t_])
-                    flops += 2 * E_g * widths[s_] * D_g * (D_g + widths[t_])
-                    lib_ops.append((idx[s_][:, :, None], idx[t_][:, None, :],
-                                    blk))
-                    if t_ != s_:
-                        lib_ops.append((idx[t_][:, :, None],
-                                        idx[s_][:, None, :],
-                                        blk.transpose(1, 2).contiguous()))
+        prob = sphere.compile(dtype=dt)
+        if prob.device.type != "cuda":
+            raise AssertionError("the default device is not the card")
+        probs["se3_" + tag] = prob
+        pattern = sparse.build_ell_pattern(prob)
+        N, K, E = pattern.n, pattern.k, pattern.e_total
+        if pattern.d != 6:
+            raise AssertionError(f"the sphere's block width is {pattern.d}")
+        ea = prob.edges["edge_se3"]
+        x7, free = prob.params["se3"], prob.free["se3"]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        randn = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                           dtype=dt)
+        sum_at = lambda *which: (lambda out: tuple(
+            o.sum() if i in which else o for i, o in enumerate(out)))
 
-        def lib_dense():                     # accumulates; timed only
-            for rows_i, cols_i, blk in lib_ops:
-                lib_H.index_put_((rows_i, cols_i), blk, accumulate=True)
+        # K16, for the plain (None) and one robust kernel (Huber)
+        hk = torch.empty((36, 4 * E), dtype=dt, device=dev)
+        bk = torch.empty((6, 2 * E), dtype=dt, device=dev)
+        hp_, bp_ = torch.empty_like(hk), torch.empty_like(bk)
+        for kid, klabel in ((1, "edge_se3_blocks@huber"), (0, None)):
+            args = (x7, free, ea.indices[0], ea.indices[1], ea.measurement,
+                    ea.information, ea.delta, kid)
 
-        dargs = (dgroups, T, fixed_t, dpattern, True)
-        case("dense_assemble", tag,
-             f"T={T} E=" + "+".join(str(g_.resid.shape[0]) for g_ in dgroups)
-             + f" ({nbytes / 1e6:.1f} MB)",
-             lambda: dense_assemble.dense_assemble(*dargs),
-             lambda: dense_assemble.dense_assemble_plain(*dargs),
-             nbytes=nbytes, flops=flops, library=lib_dense)
-        once = dense_assemble.dense_assemble(*dargs)
+            def run_16():
+                edge_se3.edge_se3_blocks(*args, hk, bk, 0)
+                return hk, bk
+
+            def plain_16():
+                edge_se3.edge_se3_blocks_plain(*args, hp_, bp_, 0)
+                return hp_, bp_
+
+            case("edge_se3_blocks", tag, f"E={E}", run_16, plain_16,
+                 nbytes=s * (14 * E + 2 * E + 44 * E + 156 * E) + 8 * E,
+                 flops=6000 * E, label=klabel, timed=kid == 0,
+                 slow_plain=True)
+            if kid == 1 and dt == torch.float32:
+                # whose error the float32 Huber row shows: the kernel and the
+                # float32 plain version, each against the plain version in
+                # float64 on the same (float32) inputs
+                args64 = tuple(a.double() if torch.is_tensor(a)
+                               and a.is_floating_point() else a for a in args)
+                h64, b64 = hk.double(), bk.double()
+                edge_se3.edge_se3_blocks_plain(*args64, h64, b64, 0)
+                _, rel_k64 = _errors(torch, run_16(), (h64, b64))
+                _, rel_p64 = _errors(torch, plain_16(), (h64, b64))
+                print(f"phase 3 kernel edge_se3_blocks@huber float32 "
+                      f"against the float64 plain version: kernel "
+                      f"max_rel_err {rel_k64:.3e}, float32 plain version "
+                      f"{rel_p64:.3e}")
+                del args64, h64, b64
+        cargs = (hk, bk, pattern.hidx, pattern.bidx, K, N)
+        hdest = torch.empty(4 * E, dtype=torch.long, device=dev)
+        bdest = torch.empty(2 * E, dtype=torch.long, device=dev)
+        for tbl, dest in ((pattern.hidx, hdest), (pattern.bidx, bdest)):
+            cols = torch.arange(tbl.shape[1], device=dev).expand_as(tbl)
+            dest[tbl[tbl >= 0].long()] = cols[tbl >= 0]
+        lib_v = torch.zeros((36, K * N), dtype=dt, device=dev)
+        lib_b = torch.zeros((6, N), dtype=dt, device=dev)
+
+        def lib_c6():                        # accumulates; timed only
+            lib_v.index_add_(1, hdest, hk)
+            lib_b.index_add_(1, bdest, bk)
+
+        case("assemble_gather", tag,
+             f"D=6 N={N} K={K} mh={pattern.hidx.shape[0]}",
+             lambda: assemble.assemble_gather(*cargs),
+             lambda: assemble.assemble_gather_plain(*cargs),
+             nbytes=s * (156 * E + 36 * K * N + 6 * N)
+             + 4 * (pattern.hidx.numel() + pattern.bidx.numel()),
+             flops=144 * E, library=lib_c6, label="assemble_gather@d6")
+        values, b = assemble.assemble_gather(*cargs)
+        del hk, bk, hp_, bp_, lib_v, lib_b, hdest, bdest
+
+        # A and spmv_dot at D = 6 (library: a BSR product, block size 6)
+        x = randn(6, N)
+        rows_ = torch.arange(N, device=dev).expand(K, N)
+        real = (values != 0).any(dim=1)
+        real[0] = True
+        order = torch.argsort(rows_[real] * N + pattern.nb[real].long())
+        bsr = torch.sparse_bsr_tensor(
+            torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
+                       torch.cumsum(real.sum(dim=0), 0)]),
+            pattern.nb[real].long()[order],
+            values.permute(0, 2, 1)[real][order].reshape(-1, 6, 6),
+            size=(6 * N, 6 * N))
+        x_col = x.t().reshape(6 * N, 1).contiguous()
+        _, lib_rel = _errors(torch, (bsr @ x_col).reshape(N, 6).t(),
+                             spmv.block_ell_spmv_plain(pattern.nb, values, x))
+        if lib_rel > TOL_DEFAULT[tag] * 10:
+            raise AssertionError(f"the 6x6 BSR yardstick disagrees: {lib_rel}")
+        spmv_bytes = s * (36 * K * N + 12 * N) + 4 * K * N
+        case("block_ell_spmv", tag, f"D=6 N={N} K={K}",
+             lambda: spmv.block_ell_spmv(pattern.nb, values, x),
+             lambda: spmv.block_ell_spmv_plain(pattern.nb, values, x),
+             nbytes=spmv_bytes, flops=72 * K * N,
+             library=lambda: bsr @ x_col, label="block_ell_spmv@d6")
+        del bsr
+
+        # K3 and K4 at lambda0, and the non-SPD 6x6 block
+        lam = _lambda_init_pcg(prob, pattern, prob.params,
+                               torch.tensor(1e-5, dtype=dt, device=dev))
+        eye6 = torch.eye(6, dtype=dt, device=dev)
+
+        def lib_chol():
+            blocks = (values[0].view(6, 6, N).permute(2, 0, 1)
+                      + (lam * free + (1 - free))[:, None, None] * eye6)
+            L = torch.linalg.cholesky(blocks)
+            return torch.linalg.solve_triangular(L, eye6.expand(N, 6, 6),
+                                                 upper=False)
+
+        case("damp_chol", tag, f"D=6 N={N}",
+             lambda: damp_chol.damp_chol(values, free, b, lam),
+             lambda: damp_chol.damp_chol_plain(values, free, b, lam),
+             nbytes=s * (36 + 1 + 6 + 36 + 36 + 6 + 1) * N, flops=400 * N,
+             library=lib_chol, label="damp_chol@d6", slow_plain=True)
+        bad_values = values.clone()
+        bad_values[0, 14, 7] = -1.0e9         # entry (2, 2) of block 7
+        case("damp_chol", tag, f"D=6 N={N}, block 7 not SPD",
+             lambda: damp_chol.damp_chol(bad_values, free, b, lam),
+             lambda: damp_chol.damp_chol_plain(bad_values, free, b, lam),
+             0, 0, same_nan=True, label="damp_chol@d6 nan", timed=False)
+        upper = [6 * a_ + c_ for a_ in range(6) for c_ in range(a_ + 1, 6)]
+        for fn in (damp_chol.damp_chol, damp_chol.damp_chol_plain):
+            f_inv, f_chol = fn(bad_values, free, b, lam)[:2]
+            if not (torch.isnan(f_inv[:, 7]).any()
+                    and torch.isnan(f_chol[:, 7]).any()):
+                raise AssertionError("a non-SPD 6x6 block did not give NaN "
+                                     "factors")
+            if bool(torch.isnan(f_inv[:, :7]).any()) \
+                    or bool(torch.isnan(f_inv[:, 8:]).any()):
+                raise AssertionError("the NaN left its block")
+            if (f_inv[upper] != 0).any() or (f_chol[upper] != 0).any():
+                raise AssertionError("an upper entry of a 6x6 factor is not 0")
+        del bad_values
+        linv, lchol, bhat, extra = damp_chol.damp_chol(values, free, b, lam)
+        case("jacobi_scale", tag, f"D=6 N={N} K={K}",
+             lambda: jacobi_scale.jacobi_scale(pattern.nb, values, linv,
+                                               extra),
+             lambda: jacobi_scale.jacobi_scale_plain(pattern.nb, values,
+                                                     linv, extra),
+             nbytes=s * (72 * K * N + 37 * N) + 4 * K * N,
+             flops=864 * K * N, label="jacobi_scale@d6", slow_plain=True)
+        bad_linv = linv.clone()
+        bad_linv[:, 0] = float("nan")
+        pad = (values == 0).all(dim=1)
+        pad[0] = False
+        if int(pad.sum()) == 0:
+            raise AssertionError("the 6x6 NaN case has no padding slot")
+        case("jacobi_scale", tag,
+             f"D=6 N={N} K={K}, NaN factor in row 0, {int(pad.sum())} "
+             "padding slots",
+             lambda: jacobi_scale.jacobi_scale(pattern.nb, values, bad_linv,
+                                               extra),
+             lambda: jacobi_scale.jacobi_scale_plain(pattern.nb, values,
+                                                     bad_linv, extra),
+             0, 0, same_nan=True, label="jacobi_scale@d6 nan", timed=False)
+        scaled = jacobi_scale.jacobi_scale(pattern.nb, values, bad_linv, extra)
+        if (scaled.permute(0, 2, 1)[pad] != 0).any() \
+                or not torch.isnan(scaled[0, :, 0]).all():
+            raise AssertionError("6x6 scaling: padding not exactly zero or "
+                                 "row 0's NaN factor did not show")
+        del bad_linv, scaled
+        l_blocks = lchol.view(6, 6, N).permute(2, 0, 1).contiguous()
+        m_blocks = linv.view(6, 6, N).permute(2, 0, 1).contiguous()
+        x_rows = x.t().contiguous()[:, :, None]
+        case("lane_block_mv", tag, f"D=6 N={N} (and its transpose)",
+             lambda: (jacobi_scale.lane_block_mv(lchol, x, True),
+                      jacobi_scale.lane_block_mv(linv, x, False)),
+             lambda: (jacobi_scale.lane_block_mv_plain(lchol, x, True),
+                      jacobi_scale.lane_block_mv_plain(linv, x, False)),
+             nbytes=2 * s * 48 * N, flops=2 * 72 * N,
+             library=lambda: (torch.bmm(l_blocks.transpose(1, 2), x_rows),
+                              torch.bmm(m_blocks, x_rows)),
+             label="lane_block_mv@d6")
+        del l_blocks, m_blocks
+        svals = jacobi_scale.jacobi_scale(pattern.nb, values, linv, extra)
+        p = randn(6, N)
+        case("spmv_dot", tag, f"D=6 N={N} K={K}",
+             lambda: cg_step.spmv_dot(pattern.nb, svals, p),
+             lambda: cg_step.spmv_dot_plain(pattern.nb, svals, p),
+             nbytes=spmv_bytes, flops=72 * K * N + 12 * N, post=sum_at(1),
+             label="spmv_dot@d6")
+        case("gershgorin_bound", tag, f"D=6 N={N} K={K}",
+             lambda: chebyshev.gershgorin_bound(svals),
+             lambda: chebyshev.gershgorin_bound_plain(svals),
+             nbytes=36 * s * K * N, flops=72 * K * N,
+             label="gershgorin_bound@d6")
+
+        # K7 for SE3: a step of the size LM takes, the gradient b, lambda0
+        dxT = 0.01 * randn(6, N)
+        r7 = (x7, dxT, free, b, lam)
+        case("retract_se3", tag, f"N={N}",
+             lambda: retract_chi2.retract_se3(*r7),
+             lambda: retract_chi2.retract_se3_plain(*r7),
+             nbytes=s * 27 * N, flops=150 * N, post=sum_at(1))
+        cand, _ = retract_chi2.retract_se3(*r7)
+        c7 = (cand, ea.indices[0], ea.indices[1], ea.measurement,
+              ea.information, ea.delta, 0)
+        case("se3_edge_chi2", tag, f"E={E}",
+             lambda: (retract_chi2.se3_edge_chi2(*c7),),
+             lambda: (retract_chi2.se3_edge_chi2_plain(*c7),),
+             nbytes=s * (44 * E + 14 * E) + 8 * E, flops=400 * E,
+             post=sum_at(0))
         if not all(torch.equal(a_, b_) for a_, b_ in
-                   zip(once, dense_assemble.dense_assemble(*dargs))):
-            raise AssertionError("dense_assemble does not repeat its bits")
-        # the mirrored writes make H symmetric to the bit outside the
-        # diagonal blocks, which are at most 3 wide
-        skew = (once[0] - once[0].T).abs_()
-        if float(skew.max()) > TOL_DEFAULT[tag] * float(once[0].abs().max()) \
-                or bool(skew.triu(3).any()):
-            raise AssertionError("dense_assemble: H is not symmetric")
-        del skew
-        del lib_H, lib_ops, lin, dgroups, once, dprob, dpattern
+                   zip(retract_chi2.retract_se3(*r7),
+                       retract_chi2.retract_se3(*r7))):
+            raise AssertionError("retract_se3 does not repeat its bits")
+        nan_dx = dxT.clone()
+        nan_dx[4, 11] = float("nan")
+        nan_cand, nan_dot = retract_chi2.retract_se3(x7, nan_dx, free, b, lam)
+        nan_chi = retract_chi2.se3_edge_chi2(nan_cand, *c7[1:])
+        got = retract_chi2.lm_outcome(
+            nan_chi, nan_dot, torch.tensor(True, device=dev), lam,
+            torch.tensor(2.0, dtype=dt, device=dev), robust_chi2(prob))
+        if bool(torch.isfinite(nan_chi.sum())) or not (
+                float(got[0]) == float("inf") and float(got[1]) == -1.0
+                and not bool(got[2]) and bool(got[5])):
+            raise AssertionError("a NaN SE3 step did not give chi2 inf, rho "
+                                 "-1, no accept, retry")
+        del values, svals, linv, lchol, cand, nan_cand
+    del probs["se3_float64"]
+    torch.cuda.empty_cache()
+
+    # K15 on the landmark worlds of phases 4d and 4f
+    t_sim = time.monotonic()
+    world, _ = Simulator2D(**DENSE_WORLD).simulate(n_poses=DENSE_POSES)
+    t_sim = time.monotonic() - t_sim
+    t_sim3 = time.monotonic()
+    world3, _ = Simulator3D(**DENSE3_WORLD).simulate(n_poses=DENSE3_POSES)
+    t_sim3 = time.monotonic() - t_sim3
+    # dense_assemble.cu built a second time with its width-3 instantiation
+    # switched off, for the comparison below
+    wide_path = build.BUILD_DIR / "dense_assemble_wide_only.so"
+    wide_build = subprocess.run(
+        [build._nvcc(), *build.NVCC_FLAGS, "-DG2O_DENSE_NARROW_WIDTH=0",
+         "-shared", str(build.CSRC / "dense_assemble.cu"), "-o",
+         str(wide_path)], capture_output=True, text=True)
+    if wide_build.returncode != 0:
+        raise AssertionError("nvcc failed on the wide-only dense_assemble:\n"
+                             + wide_build.stdout + wide_build.stderr)
+    wide_only = ctypes.CDLL(str(wide_path))
+    # (graph, label of the row, widest diagonal block)
+    for world_g, k15_label, k15_width in ((world, None, 3),
+                                          (world3, "dense_assemble@d6", 6)):
+        for dt in (torch.float32, torch.float64):
+            tag = str(dt).split(".")[-1]
+            s = torch.empty((), dtype=dt).element_size()
+            dprob = world_g.compile(dtype=dt)
+            T = dprob.static.total_dim
+            dpattern = dense_assemble.build_dense_pattern(dprob)
+            lin = problem_mod.linearize(dprob)
+            dgroups = [dense_assemble.EdgeBlocks(
+                lin[eg.key][0].contiguous(),
+                tuple(j.contiguous() for j in lin[eg.key][1]), lin[eg.key][2],
+                dprob.edges[eg.key].information, dpattern.offsets[i])
+                for i, eg in enumerate(dprob.static.egroups)]
+            fixed_t = problem_mod.tangent_masks(dprob)[1]
+            # the library yardstick: one index_put_ per slot pair on the
+            # precomputed blocks (H only; the products are not timed)
+            lib_H = torch.zeros((T, T), dtype=dt, device=dev)
+            lib_ops = []
+            nbytes, flops = s * (T * T + 3 * T), 0
+            for gi, gblk in enumerate(dgroups):
+                w_om = gblk.rho1[:, None, None] * gblk.info
+                E_g, D_g = gblk.resid.shape
+                widths = [j.shape[2] for j in gblk.jacs]
+                nbytes += s * E_g * (D_g + D_g * sum(widths) + 1 + D_g * D_g)
+                nbytes += 4 * sum(tb.ptr.numel() + 2 * tb.n_dest
+                                  + 2 * tb.edge.numel()
+                                  for tb in dpattern.pairs[gi])
+                idx = [o.long()[:, None]
+                       + torch.arange(w_, device=dev)[None, :]
+                       for o, w_ in zip(gblk.offsets, widths)]
+                for s_ in range(len(widths)):
+                    jw = edge_se2.bmm_small(gblk.jacs[s_].transpose(1, 2),
+                                            w_om)
+                    for t_ in range(s_, len(widths)):
+                        blk = edge_se2.bmm_small(jw, gblk.jacs[t_])
+                        flops += (2 * E_g * widths[s_] * D_g
+                                  * (D_g + widths[t_]))
+                        lib_ops.append((idx[s_][:, :, None],
+                                        idx[t_][:, None, :], blk))
+                        if t_ != s_:
+                            lib_ops.append((idx[t_][:, :, None],
+                                            idx[s_][:, None, :],
+                                            blk.transpose(1, 2).contiguous()))
+
+            def lib_dense():                     # accumulates; timed only
+                for rows_i, cols_i, blk in lib_ops:
+                    lib_H.index_put_((rows_i, cols_i), blk, accumulate=True)
+
+            dargs = (dgroups, T, fixed_t, dpattern, True)
+            case("dense_assemble", tag,
+                 f"T={T} E="
+                 + "+".join(str(g_.resid.shape[0]) for g_ in dgroups)
+                 + f" ({nbytes / 1e6:.1f} MB)",
+                 lambda: dense_assemble.dense_assemble(*dargs),
+                 lambda: dense_assemble.dense_assemble_plain(*dargs),
+                 nbytes=nbytes, flops=flops, library=lib_dense,
+                 label=k15_label, slow_plain=k15_label is not None)
+            once = dense_assemble.dense_assemble(*dargs)
+            if not all(torch.equal(a_, b_) for a_, b_ in
+                       zip(once, dense_assemble.dense_assemble(*dargs))):
+                raise AssertionError("dense_assemble does not repeat its bits")
+            if k15_width == 3:
+                # what the width-3 instantiation saves the 2D types: the
+                # same call with every pair launch on dense_pair<T, 6>
+                saved = build.entry("g2o_dense_pair", dt)
+                wide = getattr(wide_only, "g2o_dense_pair_"
+                               + {"float32": "f32", "float64": "f64"}[tag])
+                wide.argtypes, wide.restype = saved.argtypes, saved.restype
+                build._entries[("g2o_dense_pair", dt)] = wide
+                try:
+                    once_wide = dense_assemble.dense_assemble(*dargs)
+                    wide_ms = _median_ms(
+                        torch, lambda: dense_assemble.dense_assemble(*dargs))
+                finally:
+                    build._entries[("g2o_dense_pair", dt)] = saved
+                narrow_ms = _median_ms(
+                    torch, lambda: dense_assemble.dense_assemble(*dargs))
+                same = all(torch.equal(a_, b_)
+                           for a_, b_ in zip(once, once_wide))
+                print(f"phase 3 dense_assemble {tag} T={T} (2D types) with "
+                      f"every pair launch forced to dense_pair<T, 6>: "
+                      f"{wide_ms:.4f} ms per call against {narrow_ms:.4f} ms "
+                      f"with dense_pair<T, 3>; same bits: {same} [{card}]")
+                del once_wide
+            # the mirrored writes make H symmetric to the bit outside the
+            # diagonal blocks, which are at most k15_width wide
+            skew = (once[0] - once[0].T).abs_()
+            scale = float(once[0].abs().max())
+            if float(skew.max()) > TOL_DEFAULT[tag] * scale \
+                    or bool(skew.triu(k15_width).any()):
+                raise AssertionError("dense_assemble: H is not symmetric")
+            del skew
+            del lib_H, lib_ops, lin, dgroups, once, dprob, dpattern
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for (label, tag), row in sorted(results.items()):
-        tol = TOL.get(row["kname"], TOL_DEFAULT)[tag]
+        tol = TOL.get(label, TOL.get(row["kname"], TOL_DEFAULT))[tag]
         ok = row["rel"] <= tol
         timing = ""
         if "ms" in row:
@@ -790,6 +1178,8 @@ def main() -> int:
     prob = probs["float32"]
     # every wrapper and its plain version, for the plain-route runs
     swaps = [(spmv, "block_ell_spmv"), (edge_se2, "edge_se2_blocks"),
+             (edge_se3, "edge_se3_blocks"), (retract_chi2, "retract_se3"),
+             (retract_chi2, "se3_edge_chi2"),
              (assemble, "assemble_gather"), (damp_chol, "damp_chol"),
              (jacobi_scale, "jacobi_scale"), (jacobi_scale, "lane_block_mv"),
              (cg_step, "spmv_dot"), (cg_step, "dot_partials"),
@@ -818,7 +1208,7 @@ def main() -> int:
             if exc[0] is None and kernels.launch_counts() != self.before:
                 raise AssertionError("the plain-route run launched a kernel")
 
-    def plain_route(alg, pattern, ni, **pcg):
+    def plain_route(alg, pattern, ni, prob=prob, **pcg):
         """The first 3 iterations on the plain versions: (lambda0, chi2
         list)."""
         with plain_versions():
@@ -830,7 +1220,7 @@ def main() -> int:
                 n_iters=3, **pcg)
         return float(lam_p), out_p[4].tolist()
 
-    def start(alg):
+    def start(alg, prob=prob):
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         t = time.monotonic()
@@ -839,7 +1229,7 @@ def main() -> int:
         torch.cuda.synchronize()
         return state, pattern, time.monotonic() - t, t
 
-    def window(pattern, st, n, **kw):
+    def window(pattern, st, n, prob=prob, **kw):
         t = time.monotonic()
         out = lm_pcg_optimize_fused(prob, pattern, *st, n_iters=n, **kw)
         torch.cuda.synchronize()
@@ -955,6 +1345,7 @@ def main() -> int:
           + " ".join(f"{c:.2f}" for c in plain_c) + " vs kernel route "
           + " ".join(f"{c:.2f}" for c in traj_c[:3])
           + f" (rtol {PLAIN_ROUTE_RTOL:g}) OK")
+    prob3 = probs["se3_float32"]
     del probs, prob, st, state, state_c
 
     # 4c. the probe's comparison on the probe's data: an SpMV composed of
@@ -982,6 +1373,31 @@ def main() -> int:
     if rel_e > TOL_DEFAULT["float32"]:
         raise AssertionError("the gather-composed SpMV disagrees with "
                              "kernel A")
+    # device time of the two probe kernels at the probe's shape (20 launches
+    # each under torch.profiler, after the path's counts were read)
+    from torch.profiler import ProfilerActivity, profile
+    nb_probe = torch.as_tensor(nb_np.T.copy(), device=dev)
+    V_probe = V.permute(2, 0, 1).contiguous()
+    x_probe = xT[:3].contiguous()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_probe:
+        for _ in range(20):
+            gather.lane_gather(xT, idx)
+            spmv.block_ell_spmv(nb_probe, V_probe, x_probe)
+        torch.cuda.synchronize()
+    probe_us = {e.key.split("(")[0].split("::")[-1].split("<")[0]:
+                e.self_device_time_total / e.count
+                for e in prof_probe.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.count == 20 and "g2o_torch" in e.key}
+    if set(probe_us) != {"lane_gather_kernel", "block_ell_spmv_kernel"}:
+        raise AssertionError(f"the probe profile saw {probe_us}")
+    print("phase 4c device time per launch at the probe's shape "
+          "(torch.profiler, 20 launches each): "
+          + ", ".join(f"{k} {v:.2f} us" for k, v in sorted(probe_us.items()))
+          + f" [{card}]")
+    del prof_probe, nb_probe, V_probe
 
     # 4d. the dense path at full size: the default algorithm and GN
     dprob = world.compile()                   # default device, float64
@@ -1083,32 +1499,281 @@ def main() -> int:
           + f" [{card}]")
     del holder, lm_out, dpat
 
-    # where the device's time goes in 3 LM iterations (torch.profiler; the
-    # device-typed rows are the kernels and copies)
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t_prof = time.monotonic()
-        optimize(dprob, iterations=3)
+    def dense_profile(dprob_, phase, also=()):
+        """Where the device's time goes in 3 LM iterations of the dense
+        route (torch.profiler; the device-typed rows are the kernels and
+        copies): prints the busy time, the idle share, the 12 largest rows
+        and every row whose name holds one of `also`."""
         torch.cuda.synchronize()
-        t_prof = (time.monotonic() - t_prof) * 1e3
-    dev_rows = sorted(
-        ((e.self_device_time_total / 1e3, e.count, e.key)
-         for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA
-         and e.self_device_time_total > 0), reverse=True)
-    busy = sum(r[0] for r in dev_rows)
-    if busy <= 0:
-        raise AssertionError("torch.profiler reported no device time")
-    print(f"phase 4d profile of 3 LM iterations with lambda init: wall "
-          f"{t_prof:.2f} ms, device busy {busy:.2f} ms in "
-          f"{sum(r[1] for r in dev_rows)} kernels and copies, idle share "
-          f"{100 * (1 - busy / t_prof):.1f}% [{card}]")
-    for ms, count, key in dev_rows[:12]:
-        print(f"  device {ms:8.3f} ms {count:5d} calls "
-              f"{ms / count * 1e3:9.2f} us/call  {key[:80]}")
-    del dprob, prof
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t_prof = time.monotonic()
+            optimize(dprob_, iterations=3)
+            torch.cuda.synchronize()
+            t_prof = (time.monotonic() - t_prof) * 1e3
+        dev_rows = sorted(
+            ((e.self_device_time_total / 1e3, e.count, e.key)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.self_device_time_total > 0), reverse=True)
+        busy = sum(r[0] for r in dev_rows)
+        if busy <= 0:
+            raise AssertionError("torch.profiler reported no device time")
+        print(f"phase {phase} profile of 3 LM iterations with lambda init: "
+              f"wall {t_prof:.2f} ms, device busy {busy:.2f} ms in "
+              f"{sum(r[1] for r in dev_rows)} kernels and copies, idle share "
+              f"{100 * (1 - busy / t_prof):.1f}% [{card}]")
+        for i, (ms, count, key) in enumerate(dev_rows):
+            if i < 12 or any(word in key for word in also):
+                print(f"  device {ms:8.3f} ms {count:5d} calls "
+                      f"{ms / count * 1e3:9.2f} us/call  {key[:80]}")
+
+    dense_profile(dprob, "4d")
+    del dprob
+
+    # 4e. the SE3 main path at full width: the sphere through the same entry
+    # points, on the schedule of the JAX package's sphere benchmark (lambda
+    # init, 6 windows of 10 at pcg 200 / tol 0.05, then warm polish windows
+    # of 5 at pcg 600 / tol 1e-6)
+    def sphere_path(prob_s, what, n_polish):
+        """Run the schedule on one sphere problem and check that chi2 is
+        finite, never increases and ends below chi2_0. Returns a dict:
+        traj (chi2 per iteration), win_ms (ms per LM iteration per window),
+        per_window ((CG iterations, trials, CG cap) per window, from the
+        launch counts), counts (launches), st (final params, lambda, nu,
+        chi2), state (at init), pattern, alg, init_s, seconds."""
+        pcg_s = dict(pcg_iters=200, pcg_tol=0.05)
+        alg_s = LevenbergMarquardtPCG(**pcg_s)
+        state_s, pattern_s, init_t, t0_s = start(alg_s, prob_s)
+        st_s = (state_s["params"], state_s["lam"], state_s["ni"],
+                state_s["chi2"])
+        traj_s, win_ms, per_window = [], [], []
+        schedule = [(10, pcg_s)] * 6 + [
+            (5, dict(pcg_iters=600, pcg_tol=1e-6, warm=True))] * n_polish
+        for n_it, kw in schedule:
+            seen = kernels.launch_counts()
+            st_s, t_, dt_w = window(pattern_s, st_s, n_it, prob_s, **kw)
+            now = kernels.launch_counts()
+            traj_s += t_
+            win_ms.append(dt_w / n_it * 1e3)
+            per_window.append((now["cg_update_xr"] - seen["cg_update_xr"],
+                               now["damp_chol"] - seen["damp_chol"],
+                               kw["pcg_iters"]))
+        seconds = time.monotonic() - t0_s
+        counts_s = kernels.launch_counts()
+        chi0_s = float(state_s["chi2"])
+        steps_s = np.diff(np.array([chi0_s] + traj_s))
+        if not (np.all(np.isfinite(traj_s)) and np.all(steps_s <= 0)
+                and traj_s[-1] < chi0_s):
+            raise AssertionError(f"{what}: chi2 not finite, increasing or "
+                                 f"not below chi2_0 {chi0_s}: {traj_s}")
+        return dict(traj=traj_s, win_ms=win_ms, per_window=per_window,
+                    counts=counts_s, st=st_s, state=state_s,
+                    pattern=pattern_s, alg=alg_s, init_s=init_t,
+                    seconds=seconds)
+
+    E3 = prob3.static.egroups[0].count
+    N3 = prob3.static.vgroups[0].count
+    floor3 = 6.0 * E3 - 6.0 * (N3 - 1)
+    run3 = sphere_path(prob3, "sphere path", SPHERE_POLISH_WINDOWS)
+    traj3, win3, counts_sphere = run3["traj"], run3["win_ms"], run3["counts"]
+    st3, state3, pattern3 = run3["st"], run3["state"], run3["pattern"]
+    alg3, init3, secs3 = run3["alg"], run3["init_s"], run3["seconds"]
+    final3 = float(st3[3])
+    cg3 = counts_sphere["cg_update_xr"]
+    print(f"phase 4e SE3 main path: create_sphere({SPHERE}) in "
+          f"{t_sphere:.2f} s on the host; {N3} poses {E3} edges "
+          f"K={pattern3.k} 6x6 blocks float32, values "
+          f"{pattern3.k * 36 * N3 * 4 / 1e6:.1f} MB; init+lambda0 "
+          f"{init3:.3f} s lambda0 {float(state3['lam']):.6g} chi2_0 "
+          f"{float(state3['chi2']):.1f}; 6 windows of 10 (pcg 200, tol "
+          f"0.05): {' '.join(f'{w:.2f}' for w in win3[:6])} ms/LM iteration; "
+          f"{SPHERE_POLISH_WINDOWS} polish windows of 5 (pcg 600, tol 1e-6, "
+          f"warm): {' '.join(f'{w:.2f}' for w in win3[6:])} ms/LM iteration; "
+          f"{cg3} CG iterations; total {secs3:.2f} s [{card}]")
+    print("phase 4e chi2 trajectory: "
+          + " ".join(f"{c:.1f}" for c in traj3))
+    print("phase 4e CG iterations / trials (cap per trial) per window: "
+          + " ".join(f"{c}/{t_}({cap})" for c, t_, cap in run3["per_window"]))
+    # the cause of the slow tail, held in the run: from the third window on
+    # every trial's CG ends at its cap, not at its tolerance
+    uncapped = [i for i, (c, t_, cap) in enumerate(run3["per_window"])
+                if i >= 2 and c != t_ * cap]
+    if uncapped:
+        raise AssertionError(f"sphere path: CG ended below its cap in "
+                             f"windows {uncapped}: {run3['per_window']}")
+    print(f"phase 4e final chi2 {final3:.1f} expected 6E - 6(N - 1) = "
+          f"{floor3:.1f} ratio {final3 / floor3:.5f} after the fixed "
+          f"schedule (gate {SPHERE_GATE}); after the six windows "
+          f"{traj3[59] / floor3:.5f}")
+    if final3 > SPHERE_GATE * floor3:
+        raise AssertionError(f"sphere chi2 {final3} above {SPHERE_GATE} x "
+                             f"{floor3}")
+    lam_p3, plain3 = plain_route(alg3, pattern3, state3["ni"], prob3,
+                                 pcg_iters=200, pcg_tol=0.05)
+    np.testing.assert_allclose(traj3[:3], plain3, rtol=PLAIN_ROUTE_RTOL)
+    np.testing.assert_allclose(lam_p3, float(state3["lam"]),
+                               rtol=PLAIN_ROUTE_RTOL)
+    print("phase 4e plain route: first 3 chi2 "
+          + " ".join(f"{c:.2f}" for c in plain3) + " vs kernel route "
+          + " ".join(f"{c:.2f}" for c in traj3[:3])
+          + f" (rtol {PLAIN_ROUTE_RTOL:g}) OK")
+    # K16 + C per linearization and K7 per trial at the final state (CUDA
+    # events, one call per event pair, median of 9), outside the counted path
+    work3 = prob3.with_params(st3[0])
+    k16_ms = _median_ms(torch, lambda: _pcg_precomp(work3, pattern3),
+                        repeats=9, inner=1)
+    pre3 = _pcg_precomp(work3, pattern3)
+    dx3, ok3 = _pcg_trial(work3, pattern3, pre3, st3[1], None, 200, 0.05, 0)
+    before = kernels.launch_counts()
+    k7_ms3 = _median_ms(torch, lambda: _trial_outcome(
+        work3, pattern3, pre3["bT"], dx3, ok3, st3[1], st3[2], st3[3]),
+        repeats=9, inner=1)
+    k7_calls3 = {k: (v - before[k]) // 12 for k, v in
+                 kernels.launch_counts().items() if v != before[k]}
+    print(f"phase 4e K16 + C: linearize + assemble {k16_ms:.4f} ms per "
+          f"linearization; K7: retract + chi2 + outcome {k7_ms3:.4f} ms per "
+          f"trial, wrapper calls per trial {k7_calls3} (CUDA events, median "
+          f"of 9) [{card}]")
+    if k7_calls3 != {"retract_se3": 1, "se3_edge_chi2": 1, "lm_outcome": 1}:
+        raise AssertionError(f"an SE3 trial's outcome launched {k7_calls3}")
+    # the same sphere with pcg_cheby=4: one window of 10 from the start
+    cheb3 = dict(pcg_iters=200, pcg_tol=0.05, pcg_cheby=4)
+    alg_c3 = LevenbergMarquardtPCG(**cheb3)
+    state_c3, pattern_c3, _, _ = start(alg_c3, prob3)
+    st_c3 = (state_c3["params"], state_c3["lam"], state_c3["ni"],
+             state_c3["chi2"])
+    st_c3, traj_c3, dt_c3 = window(pattern_c3, st_c3, 10, prob3, **cheb3)
+    counts_sphere_cheb = kernels.launch_counts()
+    steps_c3 = np.diff(np.array([float(state_c3["chi2"])] + traj_c3))
+    if not (np.all(np.isfinite(traj_c3)) and np.all(steps_c3 <= 0)):
+        raise AssertionError(f"sphere Chebyshev path: chi2 not finite or "
+                             f"increasing: {traj_c3}")
+    _, plain_c3 = plain_route(alg_c3, pattern_c3, state_c3["ni"], prob3,
+                              **cheb3)
+    np.testing.assert_allclose(traj_c3[:3], plain_c3, rtol=PLAIN_ROUTE_RTOL)
+    matvecs_c3 = (counts_sphere_cheb["block_ell_spmv"]
+                  + counts_sphere_cheb["spmv_dot"])
+    print(f"phase 4e Chebyshev (pcg_cheby 4, pcg 200, tol 0.05): one window "
+          f"of 10: {dt_c3 * 100:.2f} ms/LM iteration, "
+          f"{counts_sphere_cheb['cg_update_xr']} outer CG iterations, "
+          f"{matvecs_c3} matvecs; chi2 "
+          + " ".join(f"{c:.1f}" for c in traj_c3)
+          + f"; first 3 equal to the plain route (rtol {PLAIN_ROUTE_RTOL:g}) "
+          f"[{card}] OK")
+    del work3, pre3, dx3, prob3, run3, st3, state3, pattern3, st_c3, state_c3
+
+    # the same schedule in float64: the slow tail is the truncated solves',
+    # not float32's
+    run64 = sphere_path(sphere.compile(dtype=torch.float64),
+                        "sphere path in float64", SPHERE_POLISH_WINDOWS)
+    traj64 = run64["traj"]
+    print(f"phase 4e in float64, same schedule: chi2 / expected "
+          f"{traj64[59] / floor3:.5f} after the six windows, "
+          f"{traj64[-1] / floor3:.5f} after {SPHERE_POLISH_WINDOWS} polish "
+          f"windows (float32: {traj3[59] / floor3:.5f}, "
+          f"{final3 / floor3:.5f}); CG iterations / trials per window "
+          + " ".join(f"{c}/{t_}" for c, t_, _ in run64["per_window"])
+          + f"; total {run64['seconds']:.2f} s [{card}]")
+    if traj64[-1] > SPHERE_GATE * floor3:
+        raise AssertionError(f"sphere chi2 in float64 {traj64[-1]} above "
+                             f"{SPHERE_GATE} x {floor3}")
+    del run64, sphere
+
+    bench_prob = create_sphere(**SPHERE_BENCH)[0].compile(dtype=torch.float32)
+    run_b = sphere_path(bench_prob, "benchmark-shaped sphere", 6)
+    traj_b, win_b = run_b["traj"], run_b["win_ms"]
+    counts_bench = run_b["counts"]
+    state_b, secs_b = run_b["state"], run_b["seconds"]
+    print(f"phase 4e benchmark shape: create_sphere({SPHERE_BENCH}), default "
+          f"noise, {bench_prob.static.vgroups[0].count} poses "
+          f"{bench_prob.static.egroups[0].count} edges float32: chi2_0 "
+          f"{float(state_b['chi2']):.1f}; 6 windows of 10: "
+          f"{' '.join(f'{w:.2f}' for w in win_b[:6])} ms/LM iteration; 6 "
+          f"polish windows of 5: {' '.join(f'{w:.2f}' for w in win_b[6:])} "
+          f"ms/LM iteration; total {secs_b:.2f} s [{card}]")
+    print("phase 4e benchmark shape chi2 trajectory: "
+          + " ".join(f"{c:.1f}" for c in traj_b))
+    del bench_prob, run_b, state_b
+
+    # 4f. the dense route on 3D: poses, XYZ landmarks and the offset
+    # parameter through the default algorithm and GN, K15 at width 6
+    dprob3 = world3.compile()                 # default device, float64
+    T3 = dprob3.static.total_dim
+    if dprob3.device.type != "cuda" or dprob3.dtype != torch.float64 \
+            or T3 < 8000:
+        raise AssertionError(f"dense 3D path: {dprob3.device} {dprob3.dtype} "
+                             f"T={T3}")
+    by_type3 = " ".join(f"{eg.key}={eg.count}"
+                        for eg in dprob3.static.egroups)
+    chi0_3 = float(robust_chi2(dprob3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t_lm3 = time.monotonic()
+    lm_out3, lm_stats3 = optimize(dprob3)     # LevenbergMarquardt, 10 its
+    t_lm3 = time.monotonic() - t_lm3
+    t_gn3 = time.monotonic()
+    _, gn_stats3 = optimize(dprob3, GaussNewton(), iterations=5)
+    t_gn3 = time.monotonic() - t_gn3
+    counts_dense3 = kernels.launch_counts()
+    peak3 = torch.cuda.max_memory_allocated() / 1e9
+    lm_chi3 = [st_["chi2"] for st_ in lm_stats3]
+    gn_chi3 = [st_["chi2"] for st_ in gn_stats3]
+    print(f"phase 4f dense 3D path: Simulator3D({DENSE3_WORLD}).simulate("
+          f"{DENSE3_POSES}) in {t_sim3:.2f} s on the host; T={T3} "
+          f"({dprob3.static.vgroups[0].count} poses, "
+          f"{dprob3.static.vgroups[1].count} landmarks) {by_type3} float64; "
+          f"chi2_0 {chi0_3:.1f}; LM 10 iterations {t_lm3 * 100:.2f} ms/"
+          f"iteration ({sum(st_['levenberg_iters'] for st_ in lm_stats3)} "
+          f"trials), GN 5 iterations {t_gn3 * 200:.2f} ms/iteration; peak "
+          f"memory {peak3:.2f} GB [{card}]")
+    print("phase 4f LM chi2: " + " ".join(f"{c:.4f}" for c in lm_chi3))
+    print("phase 4f GN chi2: " + " ".join(f"{c:.4f}" for c in gn_chi3))
+    steps_3 = np.diff(np.array([chi0_3] + lm_chi3))
+    gaining3 = -steps_3 > 1e-10 * np.array(lm_chi3)
+    bad_ok3 = [i for i, st_ in enumerate(lm_stats3)
+               if not st_["ok"] and (i == 0 or gaining3[i - 1])]
+    if not (np.all(np.isfinite(lm_chi3)) and np.all(steps_3 <= 0)) \
+            or bad_ok3 or not all(st_["ok"] for st_ in gn_stats3):
+        raise AssertionError(f"dense 3D path: chi2 increased or a step "
+                             f"failed: {lm_stats3} {gn_stats3}")
+    gap3 = abs(lm_chi3[-1] - gn_chi3[-1]) / gn_chi3[-1]
+    if not gap3 <= 1e-6:
+        raise AssertionError(f"dense 3D path: LM {lm_chi3[-1]} and GN "
+                             f"{gn_chi3[-1]} differ by {gap3:.3e}")
+    with plain_versions():
+        _, plain_stats3 = optimize(dprob3)
+    np.testing.assert_allclose(lm_chi3,
+                               [st_["chi2"] for st_ in plain_stats3],
+                               rtol=DENSE_ROUTE_RTOL)
+    lm_again3, again_stats3 = optimize(dprob3)
+    if [st_["chi2"] for st_ in again_stats3] != lm_chi3 or not all(
+            torch.equal(lm_again3.params[k], lm_out3.params[k])
+            for k in lm_out3.params):
+        raise AssertionError("dense 3D path: a second run gave other bits")
+    holder3 = {}
+    dpat3 = dense_assemble.build_dense_pattern(dprob3)
+
+    def t_linearize3():
+        holder3["lin"] = problem_mod.linearize(dprob3)
+
+    def t_assemble3():
+        problem_mod.build_dense_system(dprob3, lin=holder3["lin"],
+                                       pattern=dpat3)
+
+    split3 = {label: _median_ms(torch, fn, repeats=5, inner=1, warmup=1)
+              for label, fn in (("linearize", t_linearize3),
+                                ("assemble", t_assemble3))}
+    print(f"phase 4f checks: LM chi2 never increases, every gaining step "
+          f"accepted; |LM - GN| / GN = {gap3:.3e} (<= 1e-6); plain route "
+          f"equal to rtol {DENSE_ROUTE_RTOL:g}; second run bit-identical; "
+          "split (CUDA events, median of 5): "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in split3.items())
+          + f" [{card}] OK")
+    del lm_out3, lm_again3, holder3, dpat3, plain_stats3
+    dense_profile(dprob3, "4f", also=("dense_pair",))
+    del dprob3
 
     # -- 5. a .g2o string through the public API ---------------------------
     rng = np.random.default_rng(5)
@@ -1189,13 +1854,65 @@ def main() -> int:
           + " -> ".join(f"{c:.6f}" for c in chis)
           + " (equal to the CPU run, rtol 1e-6) OK")
 
+    # the 3D tags: a small sphere (VERTEX_SE3:QUAT, EDGE_SE3:QUAT) through
+    # LM-PCG, and a landmark world with PARAMS_SE3OFFSET, VERTEX_TRACKXYZ
+    # and EDGE_SE3_TRACKXYZ through optimize(), each against its CPU run
+    text3 = save_g2o(create_sphere(n_laps=4, n_per_lap=15, radius=10.0,
+                                   seed=2)[0])
+    text4 = save_g2o(Simulator3D(n_landmarks=60, seed=1).simulate(40)[0])
+    for text_, algo, tags in (
+            (text3, LevenbergMarquardtPCG, ("VERTEX_SE3:QUAT",
+                                            "EDGE_SE3:QUAT")),
+            (text4, LevenbergMarquardt, ("PARAMS_SE3OFFSET",
+                                         "VERTEX_TRACKXYZ",
+                                         "EDGE_SE3_TRACKXYZ"))):
+        if not all(any(ln.startswith(t_ + " ") for ln in text_.splitlines())
+                   for t_ in tags):
+            raise AssertionError(f"the 3D .g2o text lacks one of {tags}")
+        runs3 = {}
+        for device in (None, "cpu"):
+            g3 = loads_g2o(text_)
+            sprob = g3.compile(dtype=torch.float64, device=device)
+            c0 = float(robust_chi2(sprob))
+            if device is None:
+                kernels.reset_launch_counts()
+            _, stats = optimize(sprob, algo(), iterations=6)
+            if device is None:
+                counts_g2o3 = kernels.launch_counts()
+            runs3[sprob.device.type] = (c0, [st_["chi2"] for st_ in stats])
+        c0, chis = runs3["cuda"]
+        if not (chis[-1] < 0.5 * c0 and all(np.isfinite(chis))):
+            raise AssertionError(f"3D .g2o run did not converge: {c0} {chis}")
+        np.testing.assert_allclose(chis, runs3["cpu"][1], rtol=1e-6)
+        need = (("edge_se3_blocks", "retract_se3", "se3_edge_chi2")
+                if algo is LevenbergMarquardtPCG else ("dense_assemble",))
+        if min(counts_g2o3[k] for k in need) < 6:
+            raise AssertionError(f"3D .g2o run missed the kernels: "
+                                 f"{counts_g2o3}")
+        print(f"phase 5 .g2o with {', '.join(tags)} "
+              f"({len(text_.splitlines())} lines) through optimize("
+              f"{algo.__name__}) on cuda float64: chi2 {c0:.4f} -> "
+              + " -> ".join(f"{c:.6f}" for c in chis)
+              + " (equal to the CPU run, rtol 1e-6) OK")
+
     # -- 6. launch counts of the driven paths --------------------------------
+    # a wrapper with a 6x6 row of its own counts the SE2, probe and dense 2D
+    # paths in its 3x3 row and the SE3 and dense 3D paths in its 6x6 row;
+    # every other wrapper counts all of them
+    launches_d6 = {k: counts_sphere[k] + counts_sphere_cheb[k]
+                   + counts_dense3[k] for k in counts_main}
+    two_rows = {wname for wname, _, _ in KERNELS_D6.values()}
     launches = {k: counts_main[k] + counts_cheb[k] + counts_probe[k]
-                + counts_dense[k] for k in counts_main}
+                + counts_dense[k] + (0 if k in two_rows else launches_d6[k])
+                for k in counts_main}
     for label, counts in (("4 main path", counts_main),
                           ("4b Chebyshev path", counts_cheb),
                           ("4c probe path", counts_probe),
-                          ("4d dense path", counts_dense)):
+                          ("4d dense path", counts_dense),
+                          ("4e SE3 main path", counts_sphere),
+                          ("4e SE3 Chebyshev window", counts_sphere_cheb),
+                          ("4e benchmark-shaped sphere", counts_bench),
+                          ("4f dense 3D path", counts_dense3)):
         print(f"phase 6 launches in the phase-{label}: "
               + " ".join(f"{k}={v}" for k, v in counts.items() if v))
     main_kernels = ("block_ell_spmv", "edge_se2_blocks", "assemble_gather",
@@ -1205,7 +1922,17 @@ def main() -> int:
     cheb_kernels = main_kernels + ("dot_partials", "gershgorin_bound",
                                    "chebyshev_coeffs", "chebyshev_init",
                                    "chebyshev_update")
+    sphere_kernels = tuple(
+        {"edge_se2_blocks": "edge_se3_blocks", "retract_chi2": "retract_se3"}
+        .get(k, k) for k in main_kernels) + ("se3_edge_chi2",)
     never = ([k for k in main_kernels if counts_main[k] <= 0]
+             + [k for k in sphere_kernels if counts_sphere[k] <= 0]
+             + [k for k in ("dense_assemble", "lm_outcome")
+                if counts_dense3[k] <= 0]
+             + [k for k in ("gershgorin_bound", "chebyshev_update")
+                if counts_sphere_cheb[k] <= 0]
+             + [k for k, (w, _, _) in KERNELS_D6.items()
+                if launches_d6[w] <= 0]
              + [k for k in cheb_kernels if counts_cheb[k] <= 0]
              + [k for k in ("lane_gather",) if counts_probe[k] <= 0]
              + [k for k in ("dense_assemble", "lm_outcome")
@@ -1226,6 +1953,18 @@ def main() -> int:
          "bound_by": results[(wname, "float32")]["bound_by"],
          "library_ms": results[(wname, "float32")]["library_ms"]}
         for wname, (src, replaces) in KERNELS.items()]}
+    # the 6x6 instantiations, with the launches of the SE3 paths
+    report["kernels"] += [
+        {"name": label, "route": "cuda",
+         "source": f"openslam_g2o_torch/kernels/csrc/{src}",
+         "replaces": replaces, "launches": launches_d6[wname],
+         "max_abs_err": results[(label, "float32")]["abs"],
+         "ms": results[(label, "float32")]["ms"],
+         "plain_ms": results[(label, "float32")]["plain_ms"],
+         "bound_ms": results[(label, "float32")]["bound_ms"],
+         "bound_by": results[(label, "float32")]["bound_by"],
+         "library_ms": results[(label, "float32")]["library_ms"]}
+        for label, (wname, src, replaces) in KERNELS_D6.items()]
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,11 +1,13 @@
 """openslam_g2o_torch: the PyTorch/CUDA port of openslam_g2o_tpu.
 
-This package imports torch and numpy and never jax. The ported slice is
-the SE2 pose-graph Levenberg-Marquardt with block-Jacobi-scaled PCG on the
-block-sparse Hessian, from a .g2o file or the synthetic generator to a
-converged chi2; its hot loops run as hand-written CUDA kernels on an
-NVIDIA GPU (openslam_g2o_torch/kernels) and as their plain PyTorch versions
-on the CPU.
+This package imports torch and numpy and never jax. Ported are the SE2 and
+SE3 pose-graph Levenberg-Marquardt with block-Jacobi-scaled PCG on the
+block-sparse Hessian (3x3 and 6x6 blocks) and the dense Gauss-Newton /
+Levenberg-Marquardt route over every type of models/slam2d.py and
+models/slam3d.py, from a .g2o file or a generator (apps/simulator.py) to a
+converged chi2; the hot loops run as hand-written CUDA kernels on an NVIDIA
+GPU (openslam_g2o_torch/kernels) and as their plain PyTorch versions on the
+CPU.
 
     from openslam_g2o_torch import Graph, loads_g2o
     from openslam_g2o_torch.core.algorithms import LevenbergMarquardtPCG, optimize
@@ -16,7 +18,8 @@ on the CPU.
 by default (device=None means "cuda") and raise where there is no GPU; pass
 device="cpu" to run the plain versions on the CPU.
 """
-from openslam_g2o_torch.models import slam2d as _slam2d  # registers SE2 types
+from openslam_g2o_torch.models import slam2d as _slam2d  # registers 2D types
+from openslam_g2o_torch.models import slam3d as _slam3d  # registers 3D types
 from openslam_g2o_torch.core.graph import Graph
 from openslam_g2o_torch.io.g2o_format import load_g2o, loads_g2o, save_g2o
 

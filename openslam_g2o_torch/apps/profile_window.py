@@ -1,10 +1,13 @@
 """Profile one 10-iteration LM-PCG window on the card: where the time goes.
 
     python3 -m openslam_g2o_torch.apps.profile_window [--cheby DEGREE]
+                                                      [--graph sphere]
 
-Builds the synthetic serpentine (100,000 poses, noise 0.03 / 0.002,
-float32), runs lambda init and one warm-up window of 10 iterations (pcg
-100, tol 0.15), then measures the next window three ways:
+Builds the synthetic serpentine (100,000 SE2 poses, noise 0.03 / 0.002,
+float32; pcg 100, tol 0.15) or, with --graph sphere, the sphere generator's
+pose spiral (200 laps of 500 = 100,000 SE3 poses, 6x6 blocks, noise 0.03 /
+0.002, float32; pcg 200, tol 0.05), runs lambda init and one warm-up window
+of 10 iterations, then measures the next window three ways:
 
 * host clock around the window, ending in torch.cuda.synchronize();
 * counters: kernel launches by wrapper (kernels.launch_counts), CG
@@ -27,6 +30,8 @@ import sys
 import time
 
 N_POSES, GRID = 100000, 100
+SPHERE = dict(n_laps=200, n_per_lap=500, radius=100.0,
+              trans_noise=(0.03, 0.03, 0.03), rot_noise=0.002, seed=0)
 
 
 def main(argv=None) -> int:
@@ -34,23 +39,34 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cheby", type=int, default=0,
                     help="pcg_cheby degree (0: plain Jacobi-scaled CG)")
+    ap.add_argument("--graph", choices=("serpentine", "sphere"),
+                    default="serpentine",
+                    help="the SE2 serpentine (3x3 blocks) or the SE3 sphere "
+                         "(6x6 blocks)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_window: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from torch.profiler import ProfilerActivity, profile
     from openslam_g2o_torch import kernels
-    from openslam_g2o_torch.apps.simulator import synthetic_pose_graph_2d
+    from openslam_g2o_torch.apps.simulator import (
+        create_sphere, synthetic_pose_graph_2d)
     from openslam_g2o_torch.core import algorithms as alg_mod
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
-    pcg = dict(pcg_iters=100, pcg_tol=0.15, pcg_cheby=args.cheby)
-    prob, _ = synthetic_pose_graph_2d(
-        n_poses=N_POSES, grid=GRID, trans_noise=0.03,
-        rot_noise=0.002, dtype=torch.float32)
+    if args.graph == "sphere":
+        pcg = dict(pcg_iters=200, pcg_tol=0.05, pcg_cheby=args.cheby)
+        prob = create_sphere(**SPHERE)[0].compile(dtype=torch.float32)
+        what = f"{prob.static.vgroups[0].count} SE3 poses (sphere)"
+    else:
+        pcg = dict(pcg_iters=100, pcg_tol=0.15, pcg_cheby=args.cheby)
+        prob, _ = synthetic_pose_graph_2d(
+            n_poses=N_POSES, grid=GRID, trans_noise=0.03,
+            rot_noise=0.002, dtype=torch.float32)
+        what = f"{N_POSES} SE2 poses (serpentine)"
     alg = alg_mod.LevenbergMarquardtPCG(**pcg)
     state = alg.init(prob)
     pattern = alg.pattern(prob)
@@ -94,7 +110,8 @@ def main(argv=None) -> int:
         "dot_partials", "chebyshev_init", "chebyshev_update"))
     print(f"card: {card}")
     print(f"window: 10 LM iterations, pcg_cheby {args.cheby}, "
-          f"{N_POSES} poses float32: wall {wall_ms:.2f} ms "
+          f"{what} float32, pcg {pcg['pcg_iters']} tol {pcg['pcg_tol']}: "
+          f"wall {wall_ms:.2f} ms "
           f"({wall_ms / 10:.3f} ms per LM iteration); {counts['damp_chol']} "
           f"trials, {cg_iters} CG iterations, {matvecs} matvecs; "
           f"{launches} wrapper calls that launched = {kernel_launches} "

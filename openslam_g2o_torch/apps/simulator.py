@@ -1,10 +1,12 @@
 """Synthetic dataset generators: counterpart of `Simulator2D`
 (openslam_g2o_tpu/apps/simulator.py:31-126, the g2o_simulator2d equivalent:
-a robot on a Manhattan walk among XY landmarks, emitting a Graph) and of
-`synthetic_pose_graph_2d` (:274-392, the SE2 pose graph at 100k-pose
-scale, built directly into a Problem).
+a robot on a Manhattan walk among XY landmarks, emitting a Graph), of
+`Simulator3D` (:129-207, a 3D random walk among XYZ landmarks seen through
+an offset sensor), of `create_sphere` (:210-271, the sphere benchmark's pose
+spiral) and of `synthetic_pose_graph_2d` (:274-392, the SE2 pose graph at
+100k-pose scale, built directly into a Problem).
 
-Both draw from numpy's `default_rng(seed)` in exactly the JAX package's
+All draw from numpy's `default_rng(seed)` in exactly the JAX package's
 order, so the two packages build identical graphs from one seed.
 """
 from __future__ import annotations
@@ -19,7 +21,8 @@ from openslam_g2o_torch.core import problem as P
 from openslam_g2o_torch.core.graph import Graph
 from openslam_g2o_torch.utils import np_lie
 
-__all__ = ["Simulator2D", "synthetic_pose_graph_2d"]
+__all__ = ["Simulator2D", "Simulator3D", "create_sphere",
+           "synthetic_pose_graph_2d"]
 
 
 def _info_from_sigmas(sigmas):
@@ -129,6 +132,165 @@ class Simulator2D:
                         g.add_edge("edge_se2_xy", (i, vid), zn, lm_info)
 
         return g, gt
+
+
+class Simulator3D:
+    """3D robot on a random walk with XYZ landmarks (test_simulator3d.cpp):
+    odometry and pose closures (EDGE_SE3) and landmark observations through
+    the offset parameter 0 (EDGE_SE3_TRACKXYZ)."""
+
+    def __init__(self, world_size: float = 20.0, n_landmarks: int = 200,
+                 trans_noise=(0.05, 0.05, 0.05), rot_noise=0.01,
+                 landmark_noise=(0.05, 0.05, 0.05), sensor_range: float = 4.0,
+                 seed: int = 0):
+        self.rng = np.random.default_rng(seed)
+        self.world_size = world_size
+        self.landmarks = self.rng.uniform(0, world_size, size=(n_landmarks, 3))
+        self.trans_noise = np.asarray(trans_noise)
+        self.rot_noise = rot_noise
+        self.landmark_noise = np.asarray(landmark_noise)
+        self.sensor_range = sensor_range
+
+    def _rand_quat(self, scale):
+        v = self.rng.normal(0, scale, 3)
+        w = math.sqrt(max(0.0, 1 - np.dot(v, v)))
+        q = np.array([*v, w])
+        return q / np.linalg.norm(q)
+
+    def simulate(self, n_poses: int = 200, landmark_obs: bool = True,
+                 loop_closures: bool = True):
+        """Returns (Graph, ground-truth poses [n_poses, 7]); vertex 0 is
+        fixed, landmark ids start at 10000."""
+        g = Graph()
+        g.add_parameter(0, "se3_offset", [0, 0, 0, 0, 0, 0, 1])
+        odo_info = _info_from_sigmas([*self.trans_noise] + [self.rot_noise] * 3)
+        lm_info = _info_from_sigmas(self.landmark_noise)
+
+        gt = np.zeros((n_poses, 7))
+        pose = np.array([self.world_size / 2, self.world_size / 2,
+                         self.world_size / 2, 0, 0, 0, 1.0])
+        for i in range(n_poses):
+            gt[i] = pose
+            if i + 1 < n_poses:
+                motion = np.concatenate([[1.0, 0, 0], self._rand_quat(0.15)])
+                nxt = np_lie.se3_compose(pose, motion)
+                if not np.all((0 <= nxt[:3]) & (nxt[:3] <= self.world_size)):
+                    # bounce: turn ~90 degrees about z
+                    motion = np.concatenate(
+                        [[0, 0, 0], [0, 0, math.sin(0.8), math.cos(0.8)]])
+                    nxt = np_lie.se3_compose(pose, motion)
+                pose = nxt
+
+        noisy = gt.copy()
+        g.add_vertex(0, "se3", gt[0], fixed=True)
+        for i in range(1, n_poses):
+            z = np_lie.se3_compose(np_lie.se3_inverse(gt[i - 1]), gt[i])
+            dq = self._rand_quat(self.rot_noise)
+            zn = np_lie.se3_compose(
+                np.concatenate([self.rng.normal(0, self.trans_noise),
+                                dq]), z)
+            noisy[i] = np_lie.se3_compose(noisy[i - 1], zn)
+            g.add_vertex(i, "se3", noisy[i])
+            g.add_edge("edge_se3", (i - 1, i), zn, odo_info)
+
+        if loop_closures:
+            # every pair (i, j >= i + 5) in the reference's order; numpy
+            # narrows each row to the pairs near the 1.5 threshold and the
+            # reference's own scalar expression decides those, so the random
+            # stream (one draw per close pair) stays the same
+            for i in range(n_poses - 5):
+                d = np.linalg.norm(gt[i + 5:, :3] - gt[i, :3], axis=1)
+                for j in np.nonzero(d < 1.5 + 1e-6)[0] + i + 5:
+                    if np.linalg.norm(gt[i][:3] - gt[j][:3]) < 1.5 \
+                            and self.rng.random() < 0.3:
+                        z = np_lie.se3_compose(np_lie.se3_inverse(gt[i]),
+                                               gt[j])
+                        g.add_edge("edge_se3", (i, int(j)), z, odo_info)
+
+        if landmark_obs:
+            seen = set()
+            for i in range(n_poses):
+                d = np.linalg.norm(self.landmarks - gt[i][:3], axis=1)
+                for li in np.nonzero(d < self.sensor_range)[0]:
+                    vid = 10000 + int(li)
+                    obs = np_lie.se3_apply(np_lie.se3_inverse(gt[i]),
+                                           self.landmarks[li])
+                    if vid not in seen:
+                        seen.add(vid)
+                        g.add_vertex(vid, "point_xyz",
+                                     np_lie.se3_apply(noisy[i], obs))
+                    zn = obs + self.rng.normal(0, self.landmark_noise)
+                    g.add_edge("edge_se3_xyz", (i, vid), zn, lm_info,
+                               param_ids=[0])
+        return g, gt
+
+
+def create_sphere(n_laps: int = 50, n_per_lap: int = 50, radius: float = 100.0,
+                  trans_noise=(0.1, 0.1, 0.1), rot_noise: float = 0.02,
+                  seed: int = 0):
+    """The sphere benchmark generator (examples/sphere/create_sphere.cpp):
+    a pose spiral over a sphere with odometry and inter-lap closures.
+    Returns (Graph, ground-truth poses [n_laps * n_per_lap, 7]); vertex 0 is
+    fixed. The noise is drawn with the sigmas the information matrix
+    encodes."""
+    rng = np.random.default_rng(seed)
+    g = Graph()
+    info = _info_from_sigmas([*trans_noise] + [rot_noise] * 3)
+
+    gt = []
+    for i in range(n_laps * n_per_lap):
+        phi = 2 * math.pi * (i % n_per_lap) / n_per_lap
+        theta = math.pi * (i / (n_laps * n_per_lap))
+        p = radius * np.array([math.sin(theta) * math.cos(phi),
+                               math.sin(theta) * math.sin(phi),
+                               math.cos(theta)])
+        # orientation: z along -radial, x along direction of travel
+        zax = -p / max(np.linalg.norm(p), 1e-9)
+        xax = np.array([-math.sin(phi), math.cos(phi), 0.0])
+        yax = np_lie.cross3(zax, xax)
+        R = np.stack([xax, yax, zax], axis=1)
+        # rotation matrix -> quaternion (Shepperd)
+        t = np.trace(R)
+        if t > 0:
+            s = math.sqrt(t + 1.0) * 2
+            q = np.array([(R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s,
+                          (R[1, 0] - R[0, 1]) / s, 0.25 * s])
+        else:
+            k = int(np.argmax(np.diag(R)))
+            i1, i2 = (k + 1) % 3, (k + 2) % 3
+            s = math.sqrt(R[k, k] - R[i1, i1] - R[i2, i2] + 1.0) * 2
+            q = np.zeros(4)
+            q[k] = 0.25 * s
+            q[i1] = (R[i1, k] + R[k, i1]) / s
+            q[i2] = (R[i2, k] + R[k, i2]) / s
+            q[3] = (R[i2, i1] - R[i1, i2]) / s
+        q /= np.linalg.norm(q)
+        gt.append(np.concatenate([p, q]))
+    gt = np.stack(gt)
+
+    def noisy_rel(a, b):
+        z = np_lie.se3_compose(np_lie.se3_inverse(a), b)
+        v = rng.normal(0, rot_noise, 3)
+        w = math.sqrt(max(0.0, 1 - np.dot(v, v)))
+        dq = np.array([*v, w])
+        return np_lie.se3_compose(
+            np.concatenate([rng.normal(0, trans_noise),
+                            dq / np.linalg.norm(dq)]), z)
+
+    n = len(gt)
+    noisy = gt.copy()
+    g.add_vertex(0, "se3", gt[0], fixed=True)
+    for i in range(1, n):
+        zn = noisy_rel(gt[i - 1], gt[i])
+        noisy[i] = np_lie.se3_compose(noisy[i - 1], zn)
+        g.add_vertex(i, "se3", noisy[i])
+        g.add_edge("edge_se3", (i - 1, i), zn, info)
+    # inter-lap closures: connect to the pose one lap earlier
+    for i in range(n_per_lap, n):
+        j = i - n_per_lap
+        if rng.random() < 0.5:
+            g.add_edge("edge_se3", (j, i), noisy_rel(gt[j], gt[i]), info)
+    return g, gt
 
 
 def synthetic_pose_graph_2d(n_poses: int = 100000, grid: int = 100,

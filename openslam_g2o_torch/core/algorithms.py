@@ -218,20 +218,24 @@ def _trial_outcome(work: Problem, pattern: EllPattern, bT: dict, dxT: dict,
     """Candidate and LM bookkeeping of one trial (the body shared by
     algorithms.py:306-332 and :472-497) on kernels/retract_chi2.py: (cand,
     chi_new, accept, lam_new, ni_new, retry), all on the device. The
-    pattern vouches for the shape K7 serves: one SE2 vertex group, every
-    edge group an EDGE_SE2."""
+    pattern vouches for the shape K7 serves (build_ell_pattern refuses any
+    other): one vertex group of SE2 poses with EDGE_SE2 groups, or of SE3
+    poses with EDGE_SE3 groups; the group's type picks the kernels."""
     g = pattern.group
     groups = []
     for eg in work.static.egroups:
-        if eg.etype.name != "edge_se2":
-            raise NotImplementedError(
-                "the LM-PCG trial of the port covers EDGE_SE2 edges, not "
-                f"{eg.etype.name!r}")
         ea = work.edges[eg.key]
         groups.append((ea.indices[0], ea.indices[1], ea.measurement,
                        ea.information, ea.delta, eg.kernel_id))
-    cand, part_dot, part_chi = kernels.retract_chi2.retract_chi2(
-        work.params[g], dxT[g], work.free[g], bT[g], lam, groups)
+    if g == "se3":
+        cand, part_dot = kernels.retract_chi2.retract_se3(
+            work.params[g], dxT[g], work.free[g], bT[g], lam)
+        parts = [kernels.retract_chi2.se3_edge_chi2(cand, *grp)
+                 for grp in groups] or [cand.new_zeros(1)]
+        part_chi = parts[0] if len(parts) == 1 else torch.cat(parts)
+    else:
+        cand, part_dot, part_chi = kernels.retract_chi2.retract_chi2(
+            work.params[g], dxT[g], work.free[g], bT[g], lam, groups)
     chi_new, _, accept, lam_new, ni_new, retry = (
         kernels.retract_chi2.lm_outcome(part_chi, part_dot, ok, lam, ni,
                                         chi_cur))

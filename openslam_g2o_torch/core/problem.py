@@ -8,8 +8,9 @@ slots and are masked (their Jacobian columns are zeroed, the diagonal gets
 a 1). The JAX pytree becomes plain dicts keyed by group name, holding torch
 tensors on one device in one dtype.
 
-Every 2D type of models/slam2d.py is supported. An edge type without an
-analytic Jacobian is differentiated in forward mode (`linearize`).
+Every type of models/slam2d.py and models/slam3d.py is supported. An edge
+type without an analytic Jacobian is differentiated in forward mode
+(`linearize`).
 """
 from __future__ import annotations
 
@@ -29,11 +30,13 @@ __all__ = [
     "tangent_masks", "write_back", "resolve_device", "check_supported",
 ]
 
-SUPPORTED_VERTEX_TYPES = ("se2", "point_xy")
+SUPPORTED_VERTEX_TYPES = ("se2", "point_xy", "se3", "point_xyz")
 SUPPORTED_EDGE_TYPES = (
     "edge_se2", "edge_se2_xy", "edge_se2_xy_bearing", "edge_se2_prior",
     "edge_se2_prior_xy", "edge_se2_xy_calib", "edge_se2_offset",
-    "edge_se2_xy_offset")
+    "edge_se2_xy_offset",
+    "edge_se3", "edge_se3_xyz", "edge_se3_depth", "edge_se3_disparity",
+    "edge_se3_prior", "edge_se3_offset")
 
 
 @dataclass(frozen=True)
@@ -129,10 +132,10 @@ def resolve_device(device=None) -> torch.device:
 
 
 def check_supported(vtype_names, etype_names):
-    """Raise NotImplementedError for types outside the ported slice: the 2D
-    vertex types, the 2D edge types of models/slam2d.py and any other
-    registered edge type between 2D vertices (the forward-mode linearizer
-    serves it)."""
+    """Raise NotImplementedError for types that are not ported: all but the
+    2D and 3D SLAM vertex types, the edge types of models/slam2d.py and
+    models/slam3d.py and any other registered edge type between those
+    vertices (the forward-mode linearizer serves it)."""
     bad = sorted(set(vtype_names) - set(SUPPORTED_VERTEX_TYPES))
     bad += sorted(
         n for n in set(etype_names) - set(SUPPORTED_EDGE_TYPES)
@@ -141,8 +144,7 @@ def check_supported(vtype_names, etype_names):
     if bad:
         raise NotImplementedError(
             f"type(s) {bad} are not ported to openslam_g2o_torch yet: the 2D "
-            "SLAM types are (ROADMAP.md, 'Modules still to port', the SE3 "
-            "item)")
+            "and 3D SLAM types are (ROADMAP.md, 'Modules still to port')")
 
 
 def build_problem(graph, dtype: torch.dtype = torch.float64, device=None,

@@ -1,4 +1,5 @@
-"""Block-ELL sparse Hessian of the SE2 pose graph, on one layout.
+"""Block-ELL sparse Hessian of a pose graph (one vertex group: SE2 poses
+with 3x3 blocks or SE3 poses with 6x6 blocks), on one layout.
 
 Counterpart of openslam_g2o_tpu/core/sparse.py (:61-70, :243-617,
 :620-728, :871-908, :1143-1247) with ONE layout in place of the TPU's
@@ -10,11 +11,13 @@ each replaced):
                            is always the row's own (diagonal) block, the
                            other slots follow in ascending column order, and
                            padding slots point at column 0 with zero values
-    values  [K, 9, N]      entry 3s+t of the 3x3 block in slot k of row n
-    xT, bT  [3, N]         lane-major vectors, as in the JAX package
+    values  [K, D*D, N]    entry D s + t of the DxD block in slot k of row n
+    xT, bT  [D, N]         lane-major vectors, as in the JAX package
 
-Every row has a diagonal slot, so LM damping always lands on it, also for a
-vertex without edges. Per linearization: kernel B (kernels/edge_se2.py)
+D is the group's tangent width (3 or 6). Every row has a diagonal slot, so
+LM damping always lands on it, also for a vertex without edges. Per
+linearization: the edge type's linearizer kernel (kernel B,
+kernels/edge_se2.py, for EDGE_SE2; K16, kernels/edge_se3.py, for EDGE_SE3)
 writes the per-edge blocks into contribution streams, kernel C
 (kernels/assemble.py) gathers them into `values` and b through the
 destination-major tables built here once per topology, and kernel A
@@ -39,16 +42,18 @@ __all__ = ["EllPattern", "build_ell_pattern", "edge_blocks", "assemble_ell",
 class EllPattern:
     """Static-topology block-ELL pattern and contributor tables.
 
-    group: the vertex group (the only one: the slice is SE2 pose graphs).
+    group: the vertex group (the only one: pose graphs).
+    d: the group's tangent width, the block width D (3 or 6).
     nb: [K, N] int32 neighbour table (layout in the module docstring).
     hidx: [mh, K*N] int32 destination-major contributor table: column ids
-        into kernel B's block stream hblk [9, 4E] of the contributions to
-        slot (k, n) at column k*N + n, packed from row 0 in stream order,
-        -1 after the last (the -1 is the mask).
-    bidx: [mb, N] int32, the same for b into bblk [3, 2E].
+        into the linearizer's block stream hblk [D*D, 4E] of the
+        contributions to slot (k, n) at column k*N + n, packed from row 0
+        in stream order, -1 after the last (the -1 is the mask).
+    bidx: [mb, N] int32, the same for b into bblk [D, 2E].
     col0: edge group key -> first edge column of that group in the streams.
     """
     group: str
+    d: int
     n: int
     k: int
     e_total: int
@@ -56,6 +61,18 @@ class EllPattern:
     hidx: torch.Tensor
     bidx: torch.Tensor
     col0: dict
+
+
+# pose vertex group -> the edge type its linearizer kernel serves
+_POSE_EDGE = {"se2": "edge_se2", "se3": "edge_se3"}
+
+
+def _linearizer(group: str):
+    """The wrapper of the group's linearizer kernel (kernel B for SE2 poses,
+    K16 for SE3 poses), looked up at call time."""
+    if group == "se3":
+        return kernels.edge_se3.edge_se3_blocks
+    return kernels.edge_se2.edge_se2_blocks
 
 
 def _contrib_table(dest, n_dest, src):
@@ -79,10 +96,18 @@ def build_ell_pattern(problem) -> EllPattern:
     pairs across edges share a slot, as the reference's shared mapped
     Hessian blocks do (block_solver.hpp:143-295)."""
     vgroups = problem.static.vgroups
-    if len(vgroups) != 1 or vgroups[0].tangent_dim != 3:
+    if len(vgroups) != 1 or vgroups[0].name not in _POSE_EDGE:
         raise NotImplementedError(
-            "the block-ELL pattern of the port covers one SE2 vertex group")
+            "the block-ELL pattern of the port covers one vertex group of "
+            f"{sorted(_POSE_EDGE)} poses; LM-PCG over several vertex groups "
+            "is not ported (ROADMAP.md, 'Modules still to port')")
     g = vgroups[0]
+    for eg in problem.static.egroups:
+        if eg.etype.name != _POSE_EDGE[g.name]:
+            raise NotImplementedError(
+                f"the LM-PCG path of the port linearizes "
+                f"{_POSE_EDGE[g.name]!r} edges between {g.name!r} poses, "
+                f"not {eg.etype.name!r}")
     N = g.count
     col0, off = {}, 0
     ii_parts, jj_parts = [], []
@@ -120,24 +145,26 @@ def build_ell_pattern(problem) -> EllPattern:
     bidx = _contrib_table(np.concatenate([ii, jj]), N,
                           np.arange(2 * E, dtype=np.int64))
     dev = problem.device
-    return EllPattern(g.name, N, K, E,
+    return EllPattern(g.name, g.tangent_dim, N, K, E,
                       torch.as_tensor(nb, device=dev),
                       torch.as_tensor(hidx, device=dev),
                       torch.as_tensor(bidx, device=dev), col0)
 
 
 def edge_blocks(problem, pattern: EllPattern):
-    """Kernel B over every edge group: the contribution streams
-    (hblk [9, 4E], bblk [3, 2E]) at the problem's current params."""
+    """The edge type's linearizer kernel over every edge group: the
+    contribution streams (hblk [D*D, 4E], bblk [D, 2E]) at the problem's
+    current params."""
     dt, dev = problem.dtype, problem.device
-    E = pattern.e_total
-    hblk = torch.empty((9, 4 * E), dtype=dt, device=dev)
-    bblk = torch.empty((3, 2 * E), dtype=dt, device=dev)
+    E, D = pattern.e_total, pattern.d
+    hblk = torch.empty((D * D, 4 * E), dtype=dt, device=dev)
+    bblk = torch.empty((D, 2 * E), dtype=dt, device=dev)
     params = problem.params[pattern.group]
     free = problem.free[pattern.group]
+    linearize_group = _linearizer(pattern.group)
     for eg in problem.static.egroups:
         ea = problem.edges[eg.key]
-        kernels.edge_se2.edge_se2_blocks(
+        linearize_group(
             params, free, ea.indices[0], ea.indices[1], ea.measurement,
             ea.information, ea.delta, eg.kernel_id, hblk, bblk,
             pattern.col0[eg.key])
@@ -145,8 +172,8 @@ def edge_blocks(problem, pattern: EllPattern):
 
 
 def assemble_ell(problem, pattern: EllPattern):
-    """Linearize and assemble: (values [K, 9, N], bT {group: [3, N]}) with
-    b = -J^T W r (kernels B then C; sparse.py:681-693)."""
+    """Linearize and assemble: (values [K, D*D, N], bT {group: [D, N]}) with
+    b = -J^T W r (the linearizer, then kernel C; sparse.py:681-693)."""
     hblk, bblk = edge_blocks(problem, pattern)
     values, b = kernels.assemble.assemble_gather(
         hblk, bblk, pattern.hidx, pattern.bidx, pattern.k, pattern.n)
@@ -154,14 +181,15 @@ def assemble_ell(problem, pattern: EllPattern):
 
 
 def diag_blocks(pattern: EllPattern, values):
-    """{group: [N, 3, 3]} diagonal blocks: slot 0 of every row."""
-    return {pattern.group: values[0].reshape(3, 3, pattern.n).permute(2, 0, 1)}
+    """{group: [N, D, D]} diagonal blocks: slot 0 of every row."""
+    D = pattern.d
+    return {pattern.group: values[0].reshape(D, D, pattern.n).permute(2, 0, 1)}
 
 
 def lane_block_mv(mats_lane: dict, xT: dict, transpose: bool = False):
     """y[a, n] = sum_b M[a, b, n] x[b, n] per group (transpose: M^T x), the
     lane-major batched block application (sparse.py:871-880); mats_lane
-    holds the [9, N] tables of kernels/damp_chol.py."""
+    holds the [D*D, N] tables of kernels/damp_chol.py."""
     return {k: kernels.jacobi_scale.lane_block_mv(M, xT[k].contiguous(),
                                                   transpose)
             for k, M in mats_lane.items()}

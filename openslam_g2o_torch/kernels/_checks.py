@@ -51,3 +51,17 @@ def launch_device(name: str, device: torch.device):
     require(device.type in ("cpu", "cuda"),
             f"{name}: unsupported device {device}")
     return device.type == "cuda"
+
+
+BLOCK_WIDTHS = (3, 6)        # the instantiations of the block-ELL kernels
+
+
+def block_width(name: str, rows: int) -> int:
+    """The block width D of a lane-major table with D or D*D rows; raises
+    unless a kernel is instantiated for it (3: SE2 poses, 6: SE3 poses)."""
+    for d in BLOCK_WIDTHS:
+        if rows in (d, d * d):
+            return d
+    raise ValueError(f"{name}: shape not served: a table of {rows} rows fits "
+                     f"no block width in {BLOCK_WIDTHS} ([D, N] or "
+                     "[D*D, N])")

@@ -3,8 +3,10 @@
 
 Replaces `_assemble_pair` / `_assemble_b` (openslam_g2o_tpu/core/sparse.py
 :646-678, :696-728), the gather form of `assemble_hot` (:1045-1140). It
-sums the per-edge streams of kernel B into the block-ELL values [K, 9, N]
-and the gradient b [3, N] through the host-built destination-major tables
+sums the per-edge streams of the linearizer (kernel B for SE2, K16 for SE3)
+into the block-ELL values [K, D*D, N] and the gradient b [D, N] (D = 3 or 6,
+read from the streams' row counts) through the host-built destination-major
+tables
 hidx [mh, K*N] and bidx [mb, N] (column ids, -1 after the last
 contribution; core/sparse.py build_ell_pattern).
 """
@@ -14,7 +16,7 @@ import torch
 
 from openslam_g2o_torch.kernels import build
 from openslam_g2o_torch.kernels._checks import (
-    check_tensors, launch_device, require)
+    block_width, check_tensors, launch_device, require)
 
 
 def _gather_sum(stream, idx):
@@ -27,18 +29,20 @@ def _gather_sum(stream, idx):
 
 
 def assemble_gather_plain(hblk, bblk, hidx, bidx, k, n):
-    """Plain PyTorch version of kernel C: (values [k, 9, n], b [3, n])."""
-    values = _gather_sum(hblk, hidx).view(9, k, n).permute(1, 0, 2)
+    """Plain PyTorch version of kernel C: (values [k, D*D, n], b [D, n])."""
+    values = _gather_sum(hblk, hidx).view(hblk.shape[0], k, n).permute(1, 0, 2)
     return values.contiguous(), _gather_sum(bblk, bidx)
 
 
 def assemble_gather(hblk, bblk, hidx, bidx, k, n):
-    """Assemble H (block-ELL values [k, 9, n]) and b [3, n] from the
-    per-edge streams; kernel C on CUDA tensors, the plain version on CPU
-    tensors."""
+    """Assemble H (block-ELL values [k, D*D, n]) and b [D, n] from the
+    per-edge streams hblk [D*D, 4 T] and bblk [D, 2 T]; kernel C on CUDA
+    tensors, the plain version on CPU tensors."""
     e_total = hblk.shape[1] // 4
-    require(hblk.shape == (9, 4 * e_total) and bblk.shape == (3, 2 * e_total),
-            "assemble_gather: hblk must be [9, 4 T] and bblk [3, 2 T]")
+    D = block_width("assemble_gather", bblk.shape[0])
+    require(hblk.shape == (D * D, 4 * e_total)
+            and bblk.shape == (D, 2 * e_total),
+            "assemble_gather: hblk must be [D*D, 4 T] and bblk [D, 2 T]")
     require(hidx.dim() == 2 and hidx.shape[1] == k * n,
             f"assemble_gather: hidx must be [mh, {k * n}]")
     require(bidx.dim() == 2 and bidx.shape[1] == n,
@@ -47,13 +51,13 @@ def assemble_gather(hblk, bblk, hidx, bidx, k, n):
                   {"hblk": hblk, "bblk": bblk}, {"hidx": hidx, "bidx": bidx})
     if not launch_device("assemble_gather", hblk.device):
         return assemble_gather_plain(hblk, bblk, hidx, bidx, k, n)
-    values = torch.empty((k, 9, n), dtype=hblk.dtype, device=hblk.device)
-    b = torch.empty((3, n), dtype=hblk.dtype, device=hblk.device)
+    values = torch.empty((k, D * D, n), dtype=hblk.dtype, device=hblk.device)
+    b = torch.empty((D, n), dtype=hblk.dtype, device=hblk.device)
     if n == 0:
         return values, b
     build.launch("g2o_assemble_gather", hblk, hblk.data_ptr(), bblk.data_ptr(),
                  hidx.data_ptr(), bidx.data_ptr(), values.data_ptr(),
-                 b.data_ptr(), n, k, hidx.shape[0], bidx.shape[0], e_total)
+                 b.data_ptr(), n, k, hidx.shape[0], bidx.shape[0], e_total, D)
     assemble_gather.launches += 1
     return values, b
 

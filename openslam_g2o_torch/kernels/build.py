@@ -20,8 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-# No -use_fast_math: the closed-form Cholesky must turn a non-SPD block into
-# NaN, and the angle wrap must match the floor formula bit for bit.
+# No -use_fast_math: the block Cholesky must turn a non-SPD block into NaN,
+# and the angle wrap must match the floor formula bit for bit.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -31,14 +31,17 @@ _D = ctypes.c_double
 _L = ctypes.c_longlong
 # exported C symbol -> argtypes (the stream comes last)
 _SIGNATURES = {
-    "g2o_block_ell_spmv": (_P, _P, _P, _P, _I, _I, _P),
+    "g2o_block_ell_spmv": (_P, _P, _P, _P, _I, _I, _I, _P),
     "g2o_edge_se2_blocks": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
                             _I, _I, _I, _P),
-    "g2o_assemble_gather": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "g2o_damp_chol": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
-    "g2o_jacobi_scale": (_P, _P, _P, _P, _P, _I, _I, _P),
-    "g2o_lane_block_mv": (_P, _P, _P, _I, _I, _P),
-    "g2o_spmv_dot": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "g2o_edge_se3_blocks": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _P,
+                            _I, _I, _I, _P),
+    "g2o_assemble_gather": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _P),
+    "g2o_damp_chol": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "g2o_jacobi_scale": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "g2o_lane_block_mv": (_P, _P, _P, _I, _I, _I, _P),
+    "g2o_spmv_dot": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "g2o_dot_partials": (_P, _P, _P, _I, _P),
     "g2o_cg_residual": (_P, _P, _P, _P, _P, _P, _I, _P),
     "g2o_cg_start": (_P, _P, _I, _P, _I, _P, _I, _D, _I, _P),
@@ -46,7 +49,7 @@ _SIGNATURES = {
     "g2o_cg_update_p": (_P, _P, _I, _P, _I, _P, _P, _I, _I, _P),
     "g2o_nonfinite_partials": (_P, _P, _I, _P),
     "g2o_cg_finish": (_P, _P, _I, _P, _P, _I, _P),
-    "g2o_gershgorin": (_P, _P, _P, _I, _I, _P),
+    "g2o_gershgorin": (_P, _P, _P, _I, _I, _I, _P),
     "g2o_chebyshev_coeffs": (_P, _P, _I, _P, _P),
     "g2o_chebyshev_init": (_P, _P, _P, _P, _I, _P),
     "g2o_chebyshev_update": (_P, _I, _P, _P, _P, _P, _I, _P),
@@ -57,6 +60,8 @@ _SIGNATURES = {
     "g2o_dense_finalize": (_P, _P, _P, _I, _I, _P),
     "g2o_retract_se2": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
     "g2o_se2_edge_chi2": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P),
+    "g2o_retract_se3": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "g2o_se3_edge_chi2": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P),
     "g2o_lm_outcome": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P),
 }
 

@@ -7,8 +7,10 @@ core/solvers.py drives these wrappers on both devices; one CG iteration is
 tensor `scal` (dtype of the vectors) whose slots are named below; a dot
 product is passed on as a tensor of per-block partial sums, which the next
 kernel re-reduces in a fixed order (on the CPU the plain versions hand on
-one partial: the torch.dot). The vector arguments are flat or [3, N]
-contiguous tensors; x, r and p are updated in place.
+one partial: the torch.dot). The vector arguments are flat or [D, N]
+contiguous tensors (D = 3 or 6: the vector kernels are flat over the D N
+values, `spmv_dot` is instantiated per block width); x, r and p are updated
+in place.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import torch
 
 from openslam_g2o_torch.kernels import build
 from openslam_g2o_torch.kernels._checks import (
-    check_tensors, check_vectors, launch_device)
+    BLOCK_WIDTHS, check_tensors, check_vectors, launch_device)
 from openslam_g2o_torch.kernels.spmv import block_ell_spmv_plain
 
 # slots of `scal` (mirrored in csrc/cg_step.cu)
@@ -63,9 +65,12 @@ def spmv_dot(nb, values, p):
     """(hp, partials): hp = H p on the block-ELL layout of kernel A and
     partial sums of p . hp."""
     K, N = nb.shape
-    if values.shape != (K, 9, N) or p.shape != (3, N):
+    D = p.shape[0]
+    if (D not in BLOCK_WIDTHS or values.shape != (K, D * D, N)
+            or p.shape != (D, N)):
         raise ValueError(f"spmv_dot: values {tuple(values.shape)} and p "
-                         f"{tuple(p.shape)} do not fit nb {(K, N)}")
+                         f"{tuple(p.shape)} do not fit nb {(K, N)} for a "
+                         f"block width in {BLOCK_WIDTHS}")
     check_tensors("spmv_dot", p.device, p.dtype,
                   {"values": values, "p": p}, {"nb": nb})
     if not launch_device("spmv_dot", p.device):
@@ -77,7 +82,7 @@ def spmv_dot(nb, values, p):
     if N == 0:
         return hp, partials
     build.launch("g2o_spmv_dot", p, nb.data_ptr(), values.data_ptr(),
-                 p.data_ptr(), hp.data_ptr(), partials.data_ptr(), N, K)
+                 p.data_ptr(), hp.data_ptr(), partials.data_ptr(), N, K, D)
     spmv_dot.launches += 1
     return hp, partials
 

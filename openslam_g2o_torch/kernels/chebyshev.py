@@ -19,29 +19,31 @@ import torch
 
 from openslam_g2o_torch.kernels import build
 from openslam_g2o_torch.kernels._checks import (
-    check_tensors, check_vectors, launch_device, require)
+    block_width, check_tensors, check_vectors, launch_device, require)
 from openslam_g2o_torch.kernels.cg_step import ROW_BLOCK
 
 
 # -- gershgorin_bound ---------------------------------------------------------
 
 def gershgorin_bound_plain(values):
-    K, _, N = values.shape
-    rowsum = values.abs().view(K, 3, 3, N).sum(dim=(0, 2))        # [3, N]
+    K, DD, N = values.shape
+    D = block_width("gershgorin_bound", DD)
+    rowsum = values.abs().view(K, D, D, N).sum(dim=(0, 2))        # [D, N]
     hi = torch.maximum(torch.zeros((), dtype=values.dtype,
                                    device=values.device), rowsum.max())
     return torch.clamp_min(hi, 1e-3)
 
 
 def gershgorin_bound(values):
-    """max(max_{a, n} sum_{k, c} |values[k, 3a+c, n]|, 1e-3): an upper bound
-    of lambda_max of the block-ELL matrix, as a 0-dim tensor that stays on
-    the device. A NaN entry gives NaN. Two launches (row sums and one
-    maximum per block, then the maximum of those), counted as one call."""
-    require(values.dim() == 3 and values.shape[1] == 9
-            and values.shape[2] > 0,
-            f"gershgorin_bound: values must be [K, 9, N > 0], got "
+    """max(max_{a, n} sum_{k, c} |values[k, D a + c, n]|, 1e-3): an upper
+    bound of lambda_max of the block-ELL matrix (values [K, D*D, N], D = 3
+    or 6), as a 0-dim tensor that stays on the device. A NaN entry gives
+    NaN. Two launches (row sums and one maximum per block, then the maximum
+    of those), counted as one call."""
+    require(values.dim() == 3 and values.shape[2] > 0,
+            f"gershgorin_bound: values must be [K, D*D, N > 0], got "
             f"{tuple(values.shape)}")
+    D = block_width("gershgorin_bound", values.shape[1])
     check_tensors("gershgorin_bound", values.device, values.dtype,
                   {"values": values}, {})
     if not launch_device("gershgorin_bound", values.device):
@@ -51,7 +53,7 @@ def gershgorin_bound(values):
                            dtype=values.dtype, device=values.device)
     hi = torch.empty((), dtype=values.dtype, device=values.device)
     build.launch("g2o_gershgorin", values, values.data_ptr(),
-                 partials.data_ptr(), hi.data_ptr(), N, K)
+                 partials.data_ptr(), hi.data_ptr(), N, K, D)
     gershgorin_bound.launches += 1
     return hi
 

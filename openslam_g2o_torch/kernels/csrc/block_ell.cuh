@@ -1,33 +1,53 @@
-// One block row of the 3x3 block-ELL product, shared by kernel A
+// One block row of the DxD block-ELL product, shared by kernel A
 // (block_ell_spmv.cu) and the fused product-with-dot of the CG step
-// (cg_step.cu): y[s] = sum_k sum_t V[k, 3 s + t, row] * x[t, nb[k, row]],
-// the K slots summed in slot order.
+// (cg_step.cu): y[s] = sum_k sum_t V[k, D s + t, row] * x[t, nb[k, row]],
+// the K slots summed in slot order and the D products of a block row in
+// index order. D is a template parameter (3: SE2 poses, 6: SE3 poses), so
+// the loops unroll and y stays in registers; the D = 3 instantiation is the
+// arithmetic the 3x3 kernel always had.
 #pragma once
 
 #include "common.cuh"
 
 namespace g2o_torch {
 
-template <typename T>
+template <typename T, int D>
 __device__ __forceinline__ void block_ell_row(const int* __restrict__ nb,
                                               const T* __restrict__ vals,
                                               const T* __restrict__ x,
                                               long long row, long long N,
-                                              int k_width, T& y0, T& y1,
-                                              T& y2) {
-  y0 = T(0);
-  y1 = T(0);
-  y2 = T(0);
+                                              int k_width, T (&y)[D]) {
+#pragma unroll
+  for (int s = 0; s < D; ++s) y[s] = T(0);
   for (int k = 0; k < k_width; ++k) {
     const long long col = nb[k * N + row];
-    const T* v = vals + k * 9 * N + row;
-    const T x0 = x[col];
-    const T x1 = x[N + col];
-    const T x2 = x[2 * N + col];
-    y0 += v[0] * x0 + v[N] * x1 + v[2 * N] * x2;
-    y1 += v[3 * N] * x0 + v[4 * N] * x1 + v[5 * N] * x2;
-    y2 += v[6 * N] * x0 + v[7 * N] * x1 + v[8 * N] * x2;
+    const T* v = vals + static_cast<long long>(k) * (D * D) * N + row;
+    T xg[D];
+#pragma unroll
+    for (int t = 0; t < D; ++t) xg[t] = x[t * N + col];
+#pragma unroll
+    for (int s = 0; s < D; ++s) {
+      T acc = v[(D * s) * N] * xg[0];
+#pragma unroll
+      for (int t = 1; t < D; ++t) acc += v[(D * s + t) * N] * xg[t];
+      y[s] += acc;
+    }
   }
 }
+
+// p . y of one block row, the products summed in index order.
+template <typename T, int D>
+__device__ __forceinline__ T block_row_dot(const T* __restrict__ p,
+                                           long long row, long long N,
+                                           const T (&y)[D]) {
+  T acc = p[row] * y[0];
+#pragma unroll
+  for (int s = 1; s < D; ++s) acc += p[s * N + row] * y[s];
+  return acc;
+}
+
+// Entry points take the block width at run time; a launcher switches over
+// the instantiations and answers any other width with this.
+inline int bad_block_width() { return static_cast<int>(cudaErrorInvalidValue); }
 
 }  // namespace g2o_torch

@@ -31,10 +31,14 @@
 // another block of the same launch reads: cg_update_xr reads RZ and PD and
 // writes RZ_OLD and PD_NEXT, cg_update_p reads those and writes RZ and PD.
 //
+// The vector kernels are flat over the n = D N values of a CG vector and
+// serve every block width; spmv_dot is instantiated for D = 3 and D = 6.
+//
 // Bound: memory. At 3 N = 300,000 float32 values a CG vector is 1.2 MB:
 // cg_update_xr moves six vectors, cg_update_p three, spmv_dot what kernel A
-// moves. All of it fits the 50 MB L2, so in the loop launch latency, not
-// bandwidth, is what remains.
+// moves. At D = 3 all of it fits the 50 MB L2, so in the loop launch
+// latency, not bandwidth, is what remains; at D = 6 and N = 100,000 the
+// values alone are 58 MB and the product streams them from HBM.
 #include "block_ell.cuh"
 
 namespace g2o_torch {
@@ -44,7 +48,7 @@ enum Slot {
   RZ_OLD = 6, PD_NEXT = 7, ALPHA = 8, BETA = 9, kSlots = 10
 };
 
-template <typename T>
+template <typename T, int D>
 __global__ void spmv_dot_kernel(const int* __restrict__ nb,
                                 const T* __restrict__ vals,
                                 const T* __restrict__ p, T* __restrict__ hp,
@@ -56,12 +60,11 @@ __global__ void spmv_dot_kernel(const int* __restrict__ nb,
   const long long N = n;
   T local = T(0);
   if (row < n) {
-    T y0, y1, y2;
-    block_ell_row(nb, vals, p, row, N, k_width, y0, y1, y2);
-    hp[row] = y0;
-    hp[N + row] = y1;
-    hp[2 * N + row] = y2;
-    local = p[row] * y0 + p[N + row] * y1 + p[2 * N + row] * y2;
+    T y[D];
+    block_ell_row<T, D>(nb, vals, p, row, N, k_width, y);
+#pragma unroll
+    for (int s = 0; s < D; ++s) hp[s * N + row] = y[s];
+    local = block_row_dot<T, D>(p, row, N, y);
   }
   const T total = block_sum(local, smem);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
@@ -244,13 +247,27 @@ __global__ void cg_finish_kernel(const T* __restrict__ scal,
   if (blockIdx.x == 0 && threadIdx.x == 0) ok_out[0] = ok ? 1 : 0;
 }
 
-template <typename T>
-int launch_spmv_dot(const int* nb, const T* vals, const T* p, T* hp,
-                    T* partials, int n, int k_width, cudaStream_t stream) {
-  if (n <= 0) return 0;
-  spmv_dot_kernel<T><<<grid_for(n), kThreads, 0, stream>>>(
+template <typename T, int D>
+int run_spmv_dot(const int* nb, const T* vals, const T* p, T* hp, T* partials,
+                 int n, int k_width, cudaStream_t stream) {
+  spmv_dot_kernel<T, D><<<grid_for(n), kThreads, 0, stream>>>(
       nb, vals, p, hp, partials, n, k_width);
   return launch_status();
+}
+
+template <typename T>
+int launch_spmv_dot(const int* nb, const T* vals, const T* p, T* hp,
+                    T* partials, int n, int k_width, int d,
+                    cudaStream_t stream) {
+  if (n <= 0) return 0;
+  switch (d) {
+    case 3:
+      return run_spmv_dot<T, 3>(nb, vals, p, hp, partials, n, k_width, stream);
+    case 6:
+      return run_spmv_dot<T, 6>(nb, vals, p, hp, partials, n, k_width, stream);
+    default:
+      return bad_block_width();
+  }
 }
 
 template <typename T>
@@ -321,16 +338,16 @@ int launch_cg_finish(const T* scal, const int* part_bad, int n_bad, T* x,
 extern "C" {
 
 int g2o_spmv_dot_f32(const int* nb, const float* vals, const float* p,
-                     float* hp, float* partials, int n, int k_width,
+                     float* hp, float* partials, int n, int k_width, int d,
                      void* stream) {
   return g2o_torch::launch_spmv_dot<float>(nb, vals, p, hp, partials, n,
-                                           k_width, G2O_STREAM);
+                                           k_width, d, G2O_STREAM);
 }
 int g2o_spmv_dot_f64(const int* nb, const double* vals, const double* p,
-                     double* hp, double* partials, int n, int k_width,
+                     double* hp, double* partials, int n, int k_width, int d,
                      void* stream) {
   return g2o_torch::launch_spmv_dot<double>(nb, vals, p, hp, partials, n,
-                                            k_width, G2O_STREAM);
+                                            k_width, d, G2O_STREAM);
 }
 
 int g2o_dot_partials_f32(const float* a, const float* b, float* partials,

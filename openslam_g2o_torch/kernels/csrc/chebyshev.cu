@@ -6,7 +6,7 @@
 // vector work of `make_chebyshev_precond` (core/solvers.py:167-210; Saad,
 // Iterative Methods for Sparse Linear Systems, Alg. 12.1):
 //
-//   hi    = max(max_{a, n} sum_{k, c} |S[k, 3 a + c, n]|, 1e-3)
+//   hi    = max(max_{a, n} sum_{k, c} |S[k, D a + c, n]|, 1e-3), D in {3, 6}
 //   theta = (hi + lo) / 2, delta = max((hi - lo) / 2, 1e-12),
 //   sigma1 = theta / delta, rho_0 = 1 / sigma1,
 //   rho_j = 1 / (2 sigma1 - rho_{j-1});  pair j: (rho_j rho_{j-1},
@@ -19,7 +19,7 @@
 // computed by one thread into a small array that the vector kernels read.
 // A NaN in S gives a NaN bound, as jnp.max does.
 //
-// Bound: memory. The Gershgorin pass reads the values once (9 K N); the
+// Bound: memory. The Gershgorin pass reads the values once (D*D K N); the
 // vector kernels move three (init) and six (update) CG vectors.
 #include "common.cuh"
 
@@ -28,7 +28,7 @@ namespace g2o_torch {
 template <typename T>
 __device__ __forceinline__ T dabs(T v) { return v < T(0) ? -v : v; }
 
-template <typename T>
+template <typename T, int D>
 __global__ void gershgorin_rows_kernel(const T* __restrict__ vals,
                                        T* __restrict__ partials, int n,
                                        int k_width) {
@@ -38,12 +38,17 @@ __global__ void gershgorin_rows_kernel(const T* __restrict__ vals,
   const long long N = n;
   T m = T(0);
   if (row < n) {
-    T s[3] = {T(0), T(0), T(0)};
+    T s[D];
+#pragma unroll
+    for (int a = 0; a < D; ++a) s[a] = T(0);
     for (int k = 0; k < k_width; ++k) {
-      const T* v = vals + k * 9 * N + row;
-      for (int q = 0; q < 9; ++q) s[q / 3] += dabs(v[q * N]);
+      const T* v = vals + static_cast<long long>(k) * (D * D) * N + row;
+#pragma unroll
+      for (int q = 0; q < D * D; ++q) s[q / D] += dabs(v[q * N]);
     }
-    m = nan_max(nan_max(s[0], s[1]), s[2]);
+    m = s[0];
+#pragma unroll
+    for (int a = 1; a < D; ++a) m = nan_max(m, s[a]);
   }
   const T total = block_max(m, smem);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
@@ -122,10 +127,16 @@ __global__ void chebyshev_update_kernel(const T* __restrict__ coef, int pair,
 
 template <typename T>
 int launch_gershgorin(const T* vals, T* partials, T* hi, int n, int k_width,
-                      cudaStream_t stream) {
+                      int d, cudaStream_t stream) {
   const int blocks = n <= 0 ? 1 : grid_for(n);
-  gershgorin_rows_kernel<T><<<blocks, kThreads, 0, stream>>>(
-      vals, partials, n, k_width);
+  if (d == 3)
+    gershgorin_rows_kernel<T, 3><<<blocks, kThreads, 0, stream>>>(
+        vals, partials, n, k_width);
+  else if (d == 6)
+    gershgorin_rows_kernel<T, 6><<<blocks, kThreads, 0, stream>>>(
+        vals, partials, n, k_width);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   gershgorin_final_kernel<T><<<1, kThreads, 0, stream>>>(partials, blocks,
                                                          hi);
   return launch_status();
@@ -161,14 +172,14 @@ int launch_chebyshev_update(const T* coef, int pair, const T* r, const T* sz,
 extern "C" {
 
 int g2o_gershgorin_f32(const float* vals, float* partials, float* hi, int n,
-                       int k_width, void* stream) {
+                       int k_width, int d, void* stream) {
   return g2o_torch::launch_gershgorin<float>(vals, partials, hi, n, k_width,
-                                             G2O_STREAM);
+                                             d, G2O_STREAM);
 }
 int g2o_gershgorin_f64(const double* vals, double* partials, double* hi,
-                       int n, int k_width, void* stream) {
+                       int n, int k_width, int d, void* stream) {
   return g2o_torch::launch_gershgorin<double>(vals, partials, hi, n, k_width,
-                                              G2O_STREAM);
+                                              d, G2O_STREAM);
 }
 
 int g2o_chebyshev_coeffs_f32(const float* lo, const float* hi, int degree,

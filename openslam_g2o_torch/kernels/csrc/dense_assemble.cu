@@ -29,19 +29,26 @@
 // destination's first contributor; only between slots of one width),
 // 2 block plus transpose (both slots on the same vertex).
 //
-// Block widths are runtime arguments up to kMaxD = 3 (D, Ds, Dt in {1, 2, 3}
-// for the 2D types); the loops are unrolled to kMaxD with the tail
-// predicated off, so the operands stay in registers. A hub landmark is a
-// long list walked by one thread: correct first, a warp per destination is
-// the later step.
+// Block widths are runtime arguments; the loops are unrolled to the template
+// parameter kMaxD with the tail predicated off. The launcher picks kMaxD = 3
+// when D, Ds and Dt are all at most G2O_DENSE_NARROW_WIDTH = 3 (every 2D
+// type: the operands stay in registers) and kMaxD = 6 otherwise (the 6-wide
+// SE3 blocks; six 36-value operands do not fit the register file in float64,
+// so that instantiation spills to local memory: correct first). Compiled with
+// -DG2O_DENSE_NARROW_WIDTH=0 every launch takes the kMaxD = 6 kernel, which
+// is how chip_smoke.py measures what the narrow instantiation saves the 2D
+// types. A hub landmark is a long list walked by one thread: a warp per
+// destination is the later step.
 //
 // Bound: memory, by the zero fill. T = 12,000 in float64 is 1.15 GB of
 // zeros against some 10 MB of Jacobians and tables.
 #include "common.cuh"
 
-namespace g2o_torch {
+#ifndef G2O_DENSE_NARROW_WIDTH
+#define G2O_DENSE_NARROW_WIDTH 3
+#endif
 
-constexpr int kMaxD = 3;
+namespace g2o_torch {
 
 template <typename T>
 __global__ void zero_fill_kernel(T* __restrict__ out, long long n) {
@@ -56,7 +63,7 @@ __global__ void zero_fill_kernel(T* __restrict__ out, long long n) {
   for (long long i = nvec * kPer + first; i < n; i += stride) out[i] = T(0);
 }
 
-template <typename T>
+template <typename T, int kMaxD>
 __global__ void dense_pair_kernel(
     const T* __restrict__ jac_s, const T* __restrict__ jac_t,
     const T* __restrict__ rho1, const T* __restrict__ info,
@@ -167,11 +174,17 @@ int launch_dense_pair(const T* jac_s, const T* jac_t, const T* rho1,
                       int D, int DS, int DT, int with_b,
                       cudaStream_t stream) {
   if (n_dest <= 0) return 0;
-  if (D < 1 || D > kMaxD || DS < 1 || DS > kMaxD || DT < 1 || DT > kMaxD)
+  const int widest = D > DS ? (D > DT ? D : DT) : (DS > DT ? DS : DT);
+  if (D < 1 || DS < 1 || DT < 1 || widest > 6)
     return static_cast<int>(cudaErrorInvalidValue);
-  dense_pair_kernel<T><<<grid_for(n_dest), kThreads, 0, stream>>>(
-      jac_s, jac_t, rho1, info, resid, ptr, dest_p, dest_q, edge, flag, H, b,
-      total_dim, n_dest, D, DS, DT, with_b);
+  if (widest <= G2O_DENSE_NARROW_WIDTH)
+    dense_pair_kernel<T, 3><<<grid_for(n_dest), kThreads, 0, stream>>>(
+        jac_s, jac_t, rho1, info, resid, ptr, dest_p, dest_q, edge, flag, H,
+        b, total_dim, n_dest, D, DS, DT, with_b);
+  else
+    dense_pair_kernel<T, 6><<<grid_for(n_dest), kThreads, 0, stream>>>(
+        jac_s, jac_t, rho1, info, resid, ptr, dest_p, dest_q, edge, flag, H,
+        b, total_dim, n_dest, D, DS, DT, with_b);
   return launch_status();
 }
 

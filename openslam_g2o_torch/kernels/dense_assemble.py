@@ -21,7 +21,7 @@ from openslam_g2o_torch.kernels._checks import (
     check_tensors, launch_device, require)
 from openslam_g2o_torch.kernels.edge_se2 import bmm_small, bmv_small
 
-MAX_DIM = 3          # kMaxD of csrc/dense_assemble.cu
+MAX_DIM = 6          # the widest instantiation of csrc/dense_assemble.cu
 
 
 @dataclass

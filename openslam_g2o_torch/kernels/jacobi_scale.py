@@ -1,5 +1,5 @@
 """K4: symmetric block-Jacobi scaling of the damped block-ELL Hessian, and
-the per-row 3x3 block application around the CG solve
+the per-row DxD block application around the CG solve, for D = 3 and D = 6
 (csrc/jacobi_scale.cu).
 
 `jacobi_scale` replaces `hot_add_diag` + `hot_scale_jacobi`
@@ -7,9 +7,9 @@ the per-row 3x3 block application around the CG solve
 [k = 0] extra[n] I) M_{nb[k, n]}^T with M = L^-1 of the damped diagonal
 blocks, so the scaled system has unit diagonal blocks. `lane_block_mv`
 replaces `lane_block_mv` (core/sparse.py:871-880). Factor tables are
-lane-major [9, N] (entry 3a+b of row n), as K3 writes them.
+lane-major [D*D, N] (entry D a + b of row n), as K3 writes them.
 
-An off-diagonal slot whose nine entries are all zero (every padding slot)
+An off-diagonal slot whose D*D entries are all zero (every padding slot)
 is exactly zero in the output whatever the factors hold. The JAX code
 multiplies it out, so a NaN factor of row 0 turns the padding of every row
 into NaN there; both ways the solve fails and LM retries, but here a NaN
@@ -21,28 +21,30 @@ import torch
 
 from openslam_g2o_torch.kernels import build
 from openslam_g2o_torch.kernels._checks import (
-    check_tensors, launch_device, require)
+    block_width, check_tensors, launch_device, require)
 
 
 def add_diag_plain(values, extra):
     """values with `extra` [N] folded into the diagonal of every row's
     diagonal block (slot 0; sparse.py:1173-1201), as a damped copy."""
+    D = block_width("add_diag", values.shape[1])
     out = values.clone()
-    out[0, 0::4] += extra[None]          # entries (0,0), (1,1), (2,2)
+    out[0, 0::D + 1] += extra[None]      # entries (0,0), (1,1), ...
     return out
 
 
 def jacobi_scale_plain(nb, values, linv, extra):
     """Plain PyTorch version of K4 (sparse.py:1204-1247 on one layout)."""
     K, N = nb.shape
-    B = add_diag_plain(values, extra).view(K, 3, 3, N)
-    Li = linv.view(3, 3, N)
+    D = block_width("jacobi_scale", linv.shape[0])
+    B = add_diag_plain(values, extra).view(K, D, D, N)
+    Li = linv.view(D, D, N)
     # C[k, a, c, n] = sum_b Li[a, b, n] B[k, b, c, n]
     C = (Li[None, :, :, None, :] * B[:, None]).sum(dim=2)
-    Lj = linv[:, nb.long()]                               # [9, K, N]
-    Lj = Lj.view(3, 3, K, N).permute(2, 0, 1, 3)          # [K, d, c, N]
+    Lj = linv[:, nb.long()]                               # [D*D, K, N]
+    Lj = Lj.view(D, D, K, N).permute(2, 0, 1, 3)          # [K, d, c, N]
     # S[k, a, d, n] = sum_c C[k, a, c, n] Lj[k, d, c, n]
-    S = (C[:, :, None] * Lj[:, None]).sum(dim=3).reshape(K, 9, N)
+    S = (C[:, :, None] * Lj[:, None]).sum(dim=3).reshape(K, D * D, N)
     empty = (values == 0).all(dim=1, keepdim=True)        # [K, 1, N]
     empty[0] = False
     return torch.where(empty, torch.zeros((), dtype=S.dtype, device=S.device),
@@ -50,14 +52,17 @@ def jacobi_scale_plain(nb, values, linv, extra):
 
 
 def jacobi_scale(nb, values, linv, extra):
-    """The Jacobi-scaled, damped values [K, 9, N] from the undamped
-    `values`, the inverse factors `linv` [9, N] and the damping `extra`
-    [N]. K4 on CUDA tensors, the plain version on CPU tensors."""
+    """The Jacobi-scaled, damped values [K, D*D, N] from the undamped
+    `values`, the inverse factors `linv` [D*D, N] (D = 3 or 6) and the
+    damping `extra` [N]. K4 on CUDA tensors, the plain version on CPU
+    tensors."""
     K, N = nb.shape
-    require(values.shape == (K, 9, N),
-            f"jacobi_scale: values shape {tuple(values.shape)} != {(K, 9, N)}")
-    require(linv.shape == (9, N) and extra.shape == (N,),
-            f"jacobi_scale: linv must be [9, {N}] and extra [{N}]")
+    require(linv.dim() == 2 and linv.shape[1] == N and extra.shape == (N,),
+            f"jacobi_scale: linv must be [D*D, {N}] and extra [{N}]")
+    D = block_width("jacobi_scale", linv.shape[0])
+    require(linv.shape[0] == D * D and values.shape == (K, D * D, N),
+            f"jacobi_scale: values shape {tuple(values.shape)} != "
+            f"{(K, D * D, N)}")
     check_tensors("jacobi_scale", values.device, values.dtype,
                   {"values": values, "linv": linv, "extra": extra},
                   {"nb": nb})
@@ -67,7 +72,7 @@ def jacobi_scale(nb, values, linv, extra):
     if N == 0:
         return out
     build.launch("g2o_jacobi_scale", values, nb.data_ptr(), values.data_ptr(),
-                 linv.data_ptr(), extra.data_ptr(), out.data_ptr(), N, K)
+                 linv.data_ptr(), extra.data_ptr(), out.data_ptr(), N, K, D)
     jacobi_scale.launches += 1
     return out
 
@@ -77,20 +82,22 @@ jacobi_scale.launches = 0
 
 def lane_block_mv_plain(mats, x, transpose=False):
     """y[a, n] = sum_b M[a, b, n] x[b, n] (transpose: M^T x), M as the
-    lane-major [9, N] table."""
-    M = mats.view(3, 3, -1)
+    lane-major [D*D, N] table."""
+    D = x.shape[0]
+    M = mats.view(D, D, -1)
     if transpose:
         return (M * x[:, None, :]).sum(dim=0)
     return (M * x[None]).sum(dim=1)
 
 
 def lane_block_mv(mats, x, transpose=False):
-    """Apply every row's 3x3 block to its 3-vector: mats [9, N], x [3, N]
-    -> [3, N]. The kernel on CUDA tensors, the plain version on CPU
-    tensors."""
-    N = x.shape[1] if x.dim() == 2 else -1
-    require(x.shape == (3, N) and mats.shape == (9, N),
-            f"lane_block_mv: mats must be [9, N] and x [3, N], got "
+    """Apply every row's DxD block to its D-vector: mats [D*D, N], x [D, N]
+    -> [D, N], D = 3 or 6. The kernel on CUDA tensors, the plain version on
+    CPU tensors."""
+    require(x.dim() == 2, "lane_block_mv: x must be [D, N]")
+    D, N = x.shape
+    require(D == block_width("lane_block_mv", D) and mats.shape == (D * D, N),
+            f"lane_block_mv: mats must be [D*D, N] and x [D, N], got "
             f"{tuple(mats.shape)} and {tuple(x.shape)}")
     check_tensors("lane_block_mv", x.device, x.dtype,
                   {"mats": mats, "x": x}, {})
@@ -100,7 +107,7 @@ def lane_block_mv(mats, x, transpose=False):
     if N == 0:
         return y
     build.launch("g2o_lane_block_mv", x, mats.data_ptr(), x.data_ptr(),
-                 y.data_ptr(), N, int(bool(transpose)))
+                 y.data_ptr(), N, int(bool(transpose)), D)
     lane_block_mv.launches += 1
     return y
 

@@ -1,14 +1,19 @@
 """K7: the candidate, its chi2 and the LM bookkeeping of one trial
-(csrc/retract_chi2.cu).
+(csrc/retract_chi2.cu for SE2 poses, csrc/retract_chi2_se3.cu for SE3).
 
-Replaces, on the SE2 pose-graph LM-PCG path, `apply_update_parts`
-(openslam_g2o_tpu/core/problem.py:557-565) with `se2_retract`
-(ops/lie.py:96), `robust_chi2` (core/problem.py:302-329) and the trial body
-of `_lm_pcg_step` (core/algorithms.py:306-332):
+Replaces, on the pose-graph LM-PCG path, `apply_update_parts`
+(openslam_g2o_tpu/core/problem.py:557-565) with `se2_retract` /
+`se3_retract_mqt` (ops/lie.py:96, :256), `robust_chi2`
+(core/problem.py:302-329) and the trial body of `_lm_pcg_step`
+(core/algorithms.py:306-332):
 
-    retract_chi2  cand = retract(x, dx * free); partial sums of
+    retract_chi2  SE2: cand = retract(x, dx * free); partial sums of
                   dx . (lambda dx + b); per edge group, partial sums of
                   rho(e^T Omega e) at cand
+    retract_se3   SE3: cand = x * fromVectorMQT(dx * free) and the partial
+                  sums of dx . (lambda dx + b)
+    se3_edge_chi2 SE3: one EDGE_SE3 group's partial sums of rho(e^T Omega e)
+                  at cand
     lm_outcome    chi2_new, rho, accept, lambda, nu and the retry flag from
                   those sums, ok, lambda, nu and chi2_cur, all on the device
 
@@ -109,6 +114,84 @@ def retract_chi2(x, dxT, free, bT, lam, edge_groups):
 
 
 retract_chi2.launches = 0
+
+
+# -- retract_se3 / se3_edge_chi2 ---------------------------------------------
+
+def retract_se3_plain(x, dxT, free, bT, lam):
+    """Plain PyTorch version: (cand [N, 7], the dot product as one
+    partial)."""
+    cand = lie.se3_retract_mqt(x, dxT.T * free[:, None])
+    part_dot = torch.dot(dxT.reshape(-1),
+                         (lam * dxT + bT).reshape(-1)).reshape(1)
+    return cand, part_dot
+
+
+def retract_se3(x, dxT, free, bT, lam):
+    """One trial's candidate on an SE3 pose graph: x [N, 7] params, dxT and
+    bT [6, N] lane-major step and gradient, free [N], lam a 0-dim tensor.
+    Returns (cand [N, 7] = x * fromVectorMQT(dx * free) with the quaternion
+    renormalized, partial sums of dx . (lam dx + b)). The kernel on CUDA
+    tensors, the plain version on CPU tensors."""
+    N = x.shape[0]
+    require(x.shape == (N, 7) and free.shape == (N,),
+            "retract_se3: x must be [N, 7] and free [N]")
+    require(dxT.shape == (6, N) and bT.shape == (6, N),
+            "retract_se3: dxT and bT must be [6, N]")
+    require(lam.dim() == 0, "retract_se3: lam must be a 0-dim tensor")
+    check_tensors("retract_se3", x.device, x.dtype,
+                  {"x": x, "dxT": dxT, "free": free, "bT": bT, "lam": lam},
+                  {})
+    if not launch_device("retract_se3", x.device):
+        return retract_se3_plain(x, dxT, free, bT, lam)
+    cand = torch.empty_like(x)
+    part_dot = torch.empty(_blocks(N), dtype=x.dtype, device=x.device)
+    build.launch("g2o_retract_se3", x, x.data_ptr(), dxT.data_ptr(),
+                 free.data_ptr(), bT.data_ptr(), lam.data_ptr(),
+                 cand.data_ptr(), part_dot.data_ptr(), N)
+    retract_se3.launches += 1
+    return cand, part_dot
+
+
+retract_se3.launches = 0
+
+
+def se3_edge_chi2_plain(cand, ii, jj, meas, info, delta, kernel_id):
+    """Plain PyTorch version: the group's robust chi2 as one partial."""
+    r = lie.se3_error_mqt(lie.se3_inverse(meas), cand[ii.long()],
+                          cand[jj.long()])
+    e2 = (r[:, :, None] * info * r[:, None, :]).sum(dim=(1, 2))
+    rho0, _, _ = robust.robustify(kernel_id, e2, delta)
+    return rho0.sum().reshape(1)
+
+
+def se3_edge_chi2(cand, ii, jj, meas, info, delta, kernel_id):
+    """Partial sums of sum_e rho(e^T Omega e) of one EDGE_SE3 group at the
+    poses cand [N, 7]: ii/jj [E] int32, meas [E, 7], info [E, 6, 6],
+    delta [E]. The kernel on CUDA tensors, the plain version on CPU
+    tensors."""
+    E = ii.shape[0]
+    require(cand.dim() == 2 and cand.shape[1] == 7,
+            "se3_edge_chi2: cand must be [N, 7]")
+    require(jj.shape == (E,) and meas.shape == (E, 7)
+            and info.shape == (E, 6, 6) and delta.shape == (E,),
+            "se3_edge_chi2: edge arrays must be [E], [E, 7], [E, 6, 6], [E]")
+    require(0 <= kernel_id < len(robust.kernel_names()),
+            f"se3_edge_chi2: unknown robust kernel id {kernel_id}")
+    check_tensors("se3_edge_chi2", cand.device, cand.dtype,
+                  {"cand": cand, "meas": meas, "info": info, "delta": delta},
+                  {"ii": ii, "jj": jj})
+    if not launch_device("se3_edge_chi2", cand.device):
+        return se3_edge_chi2_plain(cand, ii, jj, meas, info, delta, kernel_id)
+    partials = torch.empty(_blocks(E), dtype=cand.dtype, device=cand.device)
+    build.launch("g2o_se3_edge_chi2", cand, cand.data_ptr(), ii.data_ptr(),
+                 jj.data_ptr(), meas.data_ptr(), info.data_ptr(),
+                 delta.data_ptr(), int(kernel_id), partials.data_ptr(), E)
+    se3_edge_chi2.launches += 1
+    return partials
+
+
+se3_edge_chi2.launches = 0
 
 
 # -- lm_outcome -------------------------------------------------------------

@@ -3,8 +3,8 @@
 
 The device path uses openslam_g2o_torch.ops.lie (torch); these run
 per-element in Python loops where a device round-trip per edge would
-dominate. A copy of openslam_g2o_tpu/utils/np_lie.py, so that the port
-imports nothing of the JAX package.
+dominate. A copy of openslam_g2o_tpu/utils/np_lie.py (with the cross
+product written out), so that the port imports nothing of the JAX package.
 """
 from __future__ import annotations
 
@@ -54,10 +54,19 @@ def quat_conj(q):
     return np.array([-q[0], -q[1], -q[2], q[3]])
 
 
+def cross3(a, b):
+    """np.cross for two 3-vectors, written out: the same products and
+    differences, so the same bits, without np.cross's per-call overhead
+    (the generators call this a few times per pose)."""
+    return np.array([a[1] * b[2] - a[2] * b[1],
+                     a[2] * b[0] - a[0] * b[2],
+                     a[0] * b[1] - a[1] * b[0]])
+
+
 def quat_rotate(q, v):
     u, w = q[:3], q[3]
-    uv = np.cross(u, v)
-    return v + 2.0 * (w * uv + np.cross(u, uv))
+    uv = cross3(u, v)
+    return v + 2.0 * (w * uv + cross3(u, uv))
 
 
 # -- SE3: (t, q) ------------------------------------------------------------

@@ -33,17 +33,21 @@ FIX 0
 EDGE_SE2 0 1 0.9 0.05 -0.1 500 0 0 500 0 5000
 EDGE_SE2_XY 1 5 1.5 -1.5 1000 0 1000
 VERTEX_TRACKXYZ 9 1.0 2.0 3.0
+VERTEX_SIM3:EXPMAP 12 0 0 0 0 0 0 1 1
 """
 
 
 def test_parse_basic_and_unknown_tags_skipped(capsys):
     g = loads_g2o(SAMPLE)
-    # the 2D tags load; VERTEX_TRACKXYZ (a 3D type) is not ported and is
-    # skipped like any unknown tag
-    assert g.num_vertices() == 3 and g.num_edges() == 2
+    # the 2D tags and VERTEX_TRACKXYZ (a 3D type) load; VERTEX_SIM3:EXPMAP
+    # is not ported and is skipped like any unknown tag
+    assert g.num_vertices() == 4 and g.num_edges() == 2
     err = capsys.readouterr().err
-    assert "skipped unknown tags" in err and "VERTEX_TRACKXYZ" in err
+    assert "skipped unknown tags" in err and "VERTEX_SIM3:EXPMAP" in err
     assert "VERTEX_XY" not in err and "EDGE_SE2_XY" not in err
+    assert "VERTEX_TRACKXYZ" not in err
+    assert g.vertices[9].vtype.name == "point_xyz"
+    np.testing.assert_allclose(g.vertices[9].params, [1.0, 2.0, 3.0])
     assert g.vertices[5].vtype.name == "point_xy"
     np.testing.assert_allclose(g.vertices[5].params, [2.5, -1.5])
     assert g.edges[1].etype.name == "edge_se2_xy"

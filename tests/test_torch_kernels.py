@@ -522,3 +522,199 @@ def test_dense_route_on_gpu_matches_cpu(cuda, algorithm):
     assert counts_g["dense_assemble"] >= 4
     if algorithm == "lm":
         assert counts_g["lm_outcome"] >= 4
+
+
+# ---------------------------------------------------------------------------
+# SE3: K16, K7 for SE3 and the 6x6 instantiations
+# ---------------------------------------------------------------------------
+
+def _sphere(dtype, device, kernel="None"):
+    from openslam_g2o_torch.apps.simulator import create_sphere
+    g, _ = create_sphere(n_laps=20, n_per_lap=60, radius=12.0,
+                         trans_noise=(0.03, 0.03, 0.03), rot_noise=0.002,
+                         seed=2)
+    for e in g.edges[::3]:
+        e.kernel, e.kernel_delta = kernel, 0.5
+    g.vertices[40].fixed = True
+    prob = g.compile(dtype=dtype, device=device)
+    p = prob.params["se3"].clone()
+    p[5:300:7, 3:] *= -1.0                      # stored with q_w < 0
+    p[9:300:11, 3:] *= 1.0005                   # unit only to "rounding"
+    return prob.with_params({"se3": p}), sparse.build_ell_pattern(prob)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel", ["None", "Huber", "Cauchy",
+                                    "ScaleDelta:DCS"])
+def test_edge_se3_blocks_match_plain_on_gpu(cuda, dtype, kernel):
+    """K16 against its plain version (a torch.func.jvp over the model's
+    error). float32 with a robust kernel: rho' carries the residual's
+    cancellation error into every block, hence 2e-3."""
+    from openslam_g2o_torch.kernels import edge_se3
+    prob, pattern = _sphere(dtype, cuda, kernel)
+    E = pattern.e_total
+    streams = [(torch.empty((36, 4 * E), dtype=dtype, device=cuda),
+                torch.empty((6, 2 * E), dtype=dtype, device=cuda))
+               for _ in range(2)]
+    kernels.reset_launch_counts()
+    for eg in prob.static.egroups:
+        ea = prob.edges[eg.key]
+        args = (prob.params["se3"], prob.free["se3"], ea.indices[0],
+                ea.indices[1], ea.measurement, ea.information, ea.delta,
+                eg.kernel_id)
+        edge_se3.edge_se3_blocks(*args, *streams[0], pattern.col0[eg.key])
+        edge_se3.edge_se3_blocks_plain(*args, *streams[1],
+                                       pattern.col0[eg.key])
+    assert (kernels.launch_counts()["edge_se3_blocks"]
+            == len(prob.static.egroups))
+    tol = {torch.float64: 1e-10,
+           torch.float32: 2e-4 if kernel == "None" else 2e-3}[dtype]
+    assert _rel(streams[0][0], streams[1][0]) < tol
+    assert _rel(streams[0][1], streams[1][1]) < tol
+    again = (torch.empty_like(streams[0][0]), torch.empty_like(streams[0][1]))
+    for eg in prob.static.egroups:
+        ea = prob.edges[eg.key]
+        edge_se3.edge_se3_blocks(
+            prob.params["se3"], prob.free["se3"], ea.indices[0],
+            ea.indices[1], ea.measurement, ea.information, ea.delta,
+            eg.kernel_id, *again, pattern.col0[eg.key])
+    assert torch.equal(again[0], streams[0][0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_6x6_chain_matches_plain_on_gpu(cuda, dtype):
+    """Kernels C, K3, K4, A, spmv_dot and the Gershgorin bound at D = 6 on
+    one sphere, each against its plain version on the same CUDA tensors."""
+    prob, pattern = _sphere(dtype, cuda)
+    hblk, bblk = sparse.edge_blocks(prob, pattern)
+    cargs = (hblk, bblk, pattern.hidx, pattern.bidx, pattern.k, pattern.n)
+    values, b = assemble_gather(*cargs)
+    pv, pb = assemble_gather_plain(*cargs)
+    assert values.shape == (pattern.k, 36, pattern.n)
+    assert torch.equal(values, pv) and torch.equal(b, pb)
+    free = prob.free["se3"]
+    lam = torch.tensor(0.3, dtype=dtype, device=cuda)
+    out = damp_chol.damp_chol(values, free, b, lam)
+    want = damp_chol.damp_chol_plain(values, free, b, lam)
+    for got, ref in zip(out, want):
+        assert _rel(got, ref) < TOL_B[dtype]
+    linv, lchol, bhat, extra = out
+    upper = [6 * a + c for a in range(6) for c in range(a + 1, 6)]
+    assert not linv[upper].any() and not lchol[upper].any()
+    scaled = jacobi_scale.jacobi_scale(pattern.nb, values, linv, extra)
+    assert _rel(scaled, jacobi_scale.jacobi_scale_plain(
+        pattern.nb, values, linv, extra)) < TOL_B[dtype]
+    x = torch.randn((6, pattern.n), dtype=dtype, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(0))
+    assert _rel(block_ell_spmv(pattern.nb, scaled, x),
+                block_ell_spmv_plain(pattern.nb, scaled, x)) < TOL[dtype]
+    hp, partials = cg_step.spmv_dot(pattern.nb, scaled, x)
+    php, pdot = cg_step.spmv_dot_plain(pattern.nb, scaled, x)
+    assert _rel(hp, php) < TOL[dtype]
+    assert _rel(partials.sum(), pdot.sum()) < TOL[dtype]
+    for transpose in (False, True):
+        assert _rel(jacobi_scale.lane_block_mv(lchol, x, transpose),
+                    jacobi_scale.lane_block_mv_plain(lchol, x, transpose)) \
+            < TOL_B[dtype]
+    assert _rel(chebyshev.gershgorin_bound(scaled),
+                chebyshev.gershgorin_bound_plain(scaled)) < TOL[dtype]
+    # NaN cases: a non-SPD 6x6 block, and a NaN factor of row 0 that must
+    # not reach the padding
+    bad = values.clone()
+    bad[0, 14, 7] = -1e9
+    nan_k = damp_chol.damp_chol(bad, free, b, lam)
+    nan_p = damp_chol.damp_chol_plain(bad, free, b, lam)
+    for got, ref in zip(nan_k, nan_p):
+        assert torch.equal(torch.isnan(got), torch.isnan(ref))
+    assert torch.isnan(nan_k[0][:, 7]).any()
+    assert not torch.isnan(nan_k[0][:, :7]).any()
+    bad_linv = linv.clone()
+    bad_linv[:, 0] = float("nan")
+    s_nan = jacobi_scale.jacobi_scale(pattern.nb, values, bad_linv, extra)
+    pad = (values == 0).all(dim=1)
+    pad[0] = False
+    assert int(pad.sum()) > 0 and not s_nan.permute(0, 2, 1)[pad].any()
+    assert torch.equal(torch.isnan(s_nan), torch.isnan(
+        jacobi_scale.jacobi_scale_plain(pattern.nb, values, bad_linv, extra)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_se3_retract_and_chi2_match_plain_on_gpu(cuda, dtype):
+    prob, pattern = _sphere(dtype, cuda, "Huber")
+    _, bT = sparse.assemble_ell(prob, pattern)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    dxT = 0.01 * torch.randn((6, pattern.n), dtype=dtype, device=cuda,
+                             generator=gen)
+    lam = torch.tensor(0.2, dtype=dtype, device=cuda)
+    args = (prob.params["se3"], dxT, prob.free["se3"], bT["se3"], lam)
+    kernels.reset_launch_counts()
+    cand, part_dot = retract_chi2.retract_se3(*args)
+    pcand, pdot = retract_chi2.retract_se3_plain(*args)
+    assert _rel(cand, pcand) < TOL[dtype]
+    assert _rel(part_dot.sum(), pdot.sum()) < TOL[dtype]
+    for eg in prob.static.egroups:
+        ea = prob.edges[eg.key]
+        e_args = (cand, ea.indices[0], ea.indices[1], ea.measurement,
+                  ea.information, ea.delta, eg.kernel_id)
+        assert _rel(retract_chi2.se3_edge_chi2(*e_args).sum(),
+                    retract_chi2.se3_edge_chi2_plain(*e_args).sum()) \
+            < TOL_B[dtype]
+    counts = kernels.launch_counts()
+    assert counts["retract_se3"] == 1
+    assert counts["se3_edge_chi2"] == len(prob.static.egroups) == 2
+    assert torch.equal(retract_chi2.retract_se3(*args)[0], cand)
+    dxT[3, 9] = float("nan")
+    nan_cand, nan_dot = retract_chi2.retract_se3(*args)
+    assert torch.isnan(nan_cand[9]).any() and torch.isnan(nan_dot.sum())
+
+
+@pytest.mark.parametrize("cheby", [0, 4])
+def test_sphere_lm_pcg_on_gpu_matches_cpu(cuda, cheby):
+    """The SE3 LM-PCG path through every 6x6 kernel against the same run
+    on the CPU (plain versions), float64: chi2 to 1e-8."""
+    runs = {}
+    for device in (cuda, "cpu"):
+        prob, _ = _sphere(torch.float64, device)
+        kernels.reset_launch_counts()
+        _, stats = algorithms.optimize(
+            prob, algorithms.LevenbergMarquardtPCG(pcg_iters=60,
+                                                   pcg_tol=1e-6,
+                                                   pcg_cheby=cheby),
+            iterations=4)
+        runs[str(device)] = ([s["chi2"] for s in stats],
+                             kernels.launch_counts())
+    chi_g, counts_g = runs["cuda"]
+    chi_c, counts_c = runs["cpu"]
+    np.testing.assert_allclose(chi_g, chi_c, rtol=1e-8)
+    assert set(counts_c.values()) == {0}
+    for name in ("edge_se3_blocks", "assemble_gather", "damp_chol",
+                 "jacobi_scale", "lane_block_mv", "spmv_dot", "retract_se3",
+                 "se3_edge_chi2", "lm_outcome"):
+        assert counts_g[name] >= 4, name
+    assert counts_g["edge_se2_blocks"] == counts_g["retract_chi2"] == 0
+    assert (counts_g["gershgorin_bound"] > 0) == (cheby > 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_dense_assemble_6_wide_matches_plain_on_gpu(cuda, dtype):
+    """K15 at block width 6 on a 3D landmark world (6x6, 6x3 and 3x3
+    blocks, 6- and 3-wide residuals) against the plain scatter, twice for
+    the same bits; and the dense LM route on it against the CPU."""
+    from openslam_g2o_torch.apps.simulator import Simulator3D
+    g, _ = Simulator3D(n_landmarks=80, seed=2).simulate(150)
+    g.vertices[17].fixed = True
+    prob = g.compile(dtype=dtype, device=cuda)
+    groups, pattern, fixed_t = _dense_inputs(prob)
+    T = prob.static.total_dim
+    H, b, raw = dense_assemble.dense_assemble(groups, T, fixed_t, pattern)
+    pH, pb, praw = dense_assemble.dense_assemble_plain(groups, T, fixed_t)
+    assert _rel(H, pH) < TOL[dtype] and _rel(b, pb) < TOL[dtype]
+    assert _rel(raw, praw) < TOL[dtype]
+    H2, b2, _ = dense_assemble.dense_assemble(groups, T, fixed_t, pattern)
+    assert torch.equal(H, H2) and torch.equal(b, b2)
+    if dtype == torch.float64:
+        _, gpu_stats = algorithms.optimize(prob, iterations=4)
+        _, cpu_stats = algorithms.optimize(g.compile(device="cpu"),
+                                           iterations=4)
+        np.testing.assert_allclose([s["chi2"] for s in gpu_stats],
+                                   [s["chi2"] for s in cpu_stats], rtol=1e-9)

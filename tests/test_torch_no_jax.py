@@ -1,6 +1,7 @@
 """The port imports no JAX: in a fresh interpreter, import openslam_g2o_torch
-and run small CPU optimizations through the public API (LM-PCG on a pose
-graph, the default dense LM and GN on a landmark world), then check that
+and run small CPU optimizations through the public API (LM-PCG on an SE2
+and on an SE3 pose graph, the default dense LM and GN on a 2D and a 3D
+landmark world), then check that
 no jax module (nor the JAX package, which pulls jax in) was loaded. Every
 module of the port and chip_smoke.py are imported, and no source file of
 either names jax or the JAX package in an import statement."""
@@ -19,7 +20,7 @@ torch.set_num_threads(1)
 import openslam_g2o_torch
 from openslam_g2o_torch import loads_g2o
 from openslam_g2o_torch.apps.simulator import (
-    Simulator2D, synthetic_pose_graph_2d)
+    Simulator2D, Simulator3D, create_sphere, synthetic_pose_graph_2d)
 from openslam_g2o_torch.core.algorithms import (
     GaussNewton, LevenbergMarquardtPCG, optimize)
 import importlib, pkgutil
@@ -29,7 +30,9 @@ for mod in pkgutil.walk_packages(openslam_g2o_torch.__path__,
 for name in ("kernels.damp_chol", "kernels.jacobi_scale", "kernels.cg_step",
              "kernels.chebyshev", "kernels.gather", "kernels.build",
              "kernels.dense_assemble", "kernels.retract_chi2",
-             "apps.profile_window", "apps.simulator", "interop"):
+             "kernels.edge_se3", "models.slam3d", "ops.lie", "utils.np_lie",
+             "apps.profile_window", "apps.simulator",
+             "interop"):
     assert "openslam_g2o_torch." + name in sys.modules, name
 import chip_smoke                             # imports nothing at top level
 
@@ -46,6 +49,15 @@ _, stats = optimize(world, iterations=4)          # the dense LM default
 assert stats[-1]["ok"] and "lambda" in stats[-1], stats
 assert stats[-1]["chi2"] < stats[0]["chi2"], stats
 _, stats = optimize(world, GaussNewton(), iterations=3)
+assert stats[-1]["ok"], stats
+sphere = create_sphere(n_laps=4, n_per_lap=12, radius=8.0,
+                       seed=0)[0].compile(device="cpu")
+_, stats = optimize(sphere, LevenbergMarquardtPCG(pcg_iters=30, pcg_tol=1e-4),
+                    iterations=3)                 # SE3 poses, 6x6 blocks
+assert stats[-1]["ok"] and stats[-1]["chi2"] < stats[0]["chi2"], stats
+world3 = Simulator3D(n_landmarks=15, seed=0).simulate(15)[0].compile(
+    device="cpu")
+_, stats = optimize(world3, iterations=3)         # the dense route on 3D
 assert stats[-1]["ok"], stats
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
