@@ -151,8 +151,14 @@ TOL = {"edge_se2_blocks": {"float32": 1e-4, "float64": 1e-11},
        "ba_block_inv": {"float32": 1e-4, "float64": 1e-10},
        "ba_schur_dense": {"float32": 1e-4, "float64": 1e-10},
        "ba_wtx": {"float32": 1e-4, "float64": 1e-10},
-       "ba_wv": {"float32": 1e-4, "float64": 1e-10},
-       "ba_sandwich": {"float32": 1e-4, "float64": 1e-10}}
+       "ba_sandwich": {"float32": 1e-4, "float64": 1e-10},
+       # W v, per element: |kernel - plain| <= 64 u (|base| + |Hcc_d| |x|
+       # + |extra| + |W| |v|), u the unit roundoff, and the dot likewise
+       # with sum |x| (those magnitudes): a row of W v sums up to 80,000
+       # products of both signs (the shared intrinsics vertex), so a bound
+       # relative to the largest result would be loose on the short rows
+       # and tight on the long one (wv_error_scale)
+       "ba_wv": {"float32": 64 * 2.0 ** -23, "float64": 64 * 2.0 ** -52}}
 DENSE_ROUTE_RTOL = 1e-9
 # The dense path's world: odometry noise below Simulator2D's default, so that
 # 10 LM and 5 GN iterations reach the same minimum (at the default noise LM's
@@ -260,7 +266,21 @@ KERNELS = {
     "ba_wtx": ("ba_coupling.cu", "openslam_g2o_tpu/core/ba_ell.py:482"),
     "ba_wv": ("ba_coupling.cu", "openslam_g2o_tpu/core/ba_ell.py:774"),
     "ba_sandwich": ("ba_coupling.cu", "openslam_g2o_tpu/core/ba_ell.py:513"),
+    "schur_edge_blocks": ("schur_general.cu",
+                          "openslam_g2o_tpu/core/ba.py:147"),
 }
+# the general Schur path's rows at the instantiations it adds: suffix -> its
+# phase, and what each kernel replaces there (openslam_g2o_tpu/core/ba.py)
+GENERAL_SUFFIXES = {"@psi2uv": "4k", "@intrinsics": "4l", "@d4": "4l"}
+GENERAL_REPLACES = {
+    "ba_lm_sums": "openslam_g2o_tpu/core/ba.py:148",
+    "ba_wtx": "openslam_g2o_tpu/core/ba.py:233",
+    "ba_block_inv": "openslam_g2o_tpu/core/ba.py:262",
+    "lane_block_mv": "openslam_g2o_tpu/core/ba.py:264",
+    "dense_assemble": "openslam_g2o_tpu/core/ba.py:118",
+    "schur_edge_blocks": "openslam_g2o_tpu/core/ba.py:147",
+    "ba_wv": "openslam_g2o_tpu/core/ba.py:229",
+    "ba_sandwich": "openslam_g2o_tpu/core/ba.py:246"}
 # the BA kernels' rows at the other shapes and instantiations of their
 # paths: suffix -> the phase whose launches the row reports (@400k: the
 # implicit route's shape; @2d: the 4d world, (Dp, dl) = (3, 2); @3d: the 4f
@@ -288,6 +308,227 @@ KERNELS_D6 = {
 }
 
 
+# -- the general Schur path's scenes -------------------------------------
+# Three edge families on the geometry of synthetic_bal_problem(100, 10000,
+# 8), the JAX bench's ba_80k: its cameras, points, observations and noisy
+# initial values. Each scene function takes the Graph class, so that the tests
+# build the same graph in both packages (tests/test_torch_schur_general.py
+# and tests/test_torch_kernels.py import them from here).
+# the JAX package's float64 CPU trajectories of LevenbergMarquardtSchur()
+# on the 80k scenes (chi2 / expected per iteration after lambda init)
+JAX_SCHUR_TRAJ = {
+    "bal": (5.06546, 1.43313, 1.06291, 1.00768, 1.00456, 1.00446, 1.00446,
+            1.00446, 1.00446, 1.00446),
+    "psi2uv": (1.22959, 1.00472, 1.00449, 1.00447, 1.00447, 1.00446,
+               1.00446, 1.00446, 1.00446, 1.00446),
+    "p2mc_intrinsics": (17.08854, 3.70802, 1.54350, 1.11637, 1.01977,
+                        1.00753, 1.00572, 1.00517, 1.00492, 1.00471),
+}
+# LevenbergMarquardtSchur(), 30 iterations, on the scene of
+# examples/ba_anchored_inverse_depth_demo.py: the JAX package's final chi2,
+# float64 on the CPU (its make_scene, pixel noise 1.0, rng 11)
+JAX_DEMO_CHI2 = 17886464.67048266
+SBA_CAMERA = (800.0, 0.0, 0.0, 0.1)   # focal, cx, cy, baseline of the BAL
+INTRINSICS_START = (808.0, 808.0, 0.0, 0.0, 0.1)   # 1% off
+
+
+def bal_geometry(n_cams, n_points):
+    """The geometry of the port's synthetic_bal_problem(n_cams, n_points,
+    8) as float64 numpy arrays: initial world-to-camera poses
+    cams_w2c [C, 7] (camera 0 is exact), initial points [P, 3], and per
+    observation (point-major, the generator's order) pt [E], cam [E] and
+    obs [E, 2]."""
+    import numpy as np
+    import torch
+    from openslam_g2o_torch.apps.simulator import synthetic_bal_problem
+    prob, _ = synthetic_bal_problem(n_cams, n_points, 8,
+                                    dtype=torch.float64, device="cpu")
+    ea = prob.edges["edge_project_xyz2uv"]
+    arr = lambda t: t.numpy().astype(np.float64)
+    return {"cams_w2c": arr(prob.params["se3_expmap"]),
+            "points": arr(prob.params["sba_point_xyz"]),
+            "pt": ea.indices[0].numpy().astype(np.int64),
+            "cam": ea.indices[1].numpy().astype(np.int64),
+            "obs": arr(ea.measurement)}
+
+
+def _se3_inverse(w2c):
+    """Batched inverse of (t, q) rows, the formula of utils/np_lie.py."""
+    import numpy as np
+    from openslam_g2o_torch.utils import np_lie
+    return np.stack([np_lie.se3_inverse(p) for p in w2c])
+
+
+def psi2uv_graph(Graph, geo):
+    """The observations as ternary EDGE_PROJECT_PSI2UV:EXPMAP (psi,
+    observing camera, anchor): the anchor is the point's first observing
+    camera in edge order, psi the initial point in the anchor's initial
+    frame, (u, v, 1) / z; camera parameters SBA_CAMERA; only camera 0 (the
+    generator's gauge) fixed. Vertex ids: cameras 0..C-1, points C + j."""
+    import numpy as np
+    from openslam_g2o_torch.utils import np_lie
+    C, P = len(geo["cams_w2c"]), len(geo["points"])
+    g = Graph()
+    g.add_parameter(0, "camera_parameters", list(SBA_CAMERA))
+    for i in range(C):
+        g.add_vertex(i, "se3_expmap", geo["cams_w2c"][i], fixed=(i == 0))
+    first = np.full(P, -1, dtype=np.int64)
+    for e in range(len(geo["pt"]) - 1, -1, -1):
+        first[geo["pt"][e]] = geo["cam"][e]
+    for j in range(P):
+        if first[j] < 0:
+            continue
+        pa = np_lie.se3_apply(geo["cams_w2c"][first[j]], geo["points"][j])
+        g.add_vertex(C + j, "sba_point_xyz",
+                     np.array([pa[0], pa[1], 1.0]) / pa[2], marginalized=True)
+    eye = np.eye(2)
+    for e in range(len(geo["pt"])):
+        j = geo["pt"][e]
+        g.add_edge("edge_project_psi2uv", (C + j, geo["cam"][e], first[j]),
+                   geo["obs"][e], eye, param_ids=[0])
+    return g
+
+
+def p2mc_intrinsics_graph(Graph, geo):
+    """The observations as ternary EDGE_PROJECT_P2MC_INTRINSICS (point,
+    VERTEX_CAM, one VERTEX_INTRINSICS): each VERTEX_CAM carries the
+    camera-to-world inverse of the initial pose and (800, 800, 0, 0, 0.1);
+    the shared intrinsics start at INTRINSICS_START and are added first, so
+    they sit at tangent offset 0 (Tp = 4 + 6C); only camera 0 fixed.
+    Vertex ids: intrinsics C + P, cameras 0..C-1, points C + j."""
+    import numpy as np
+    C, P = len(geo["cams_w2c"]), len(geo["points"])
+    k = np.array([SBA_CAMERA[0], SBA_CAMERA[0], SBA_CAMERA[1], SBA_CAMERA[2],
+                  SBA_CAMERA[3]])
+    g = Graph()
+    g.add_vertex(C + P, "intrinsics", np.array(INTRINSICS_START))
+    c2w = _se3_inverse(geo["cams_w2c"])
+    for i in range(C):
+        g.add_vertex(i, "cam", np.concatenate([c2w[i], k]), fixed=(i == 0))
+    for j in range(P):
+        g.add_vertex(C + j, "sba_point_xyz", geo["points"][j],
+                     marginalized=True)
+    eye = np.eye(2)
+    for e in range(len(geo["pt"])):
+        g.add_edge("edge_project_p2mc_intrinsics",
+                   (C + geo["pt"][e], geo["cam"][e], C + P), geo["obs"][e],
+                   eye)
+    return g
+
+
+def two_pose_group_graph(Graph, geo):
+    """A binary graph with two pose groups: the cameras alternate between
+    VERTEX_SE3:EXPMAP seen through EDGE_PROJECT_XYZ2UV:EXPMAP and
+    VERTEX_CAM (camera-to-world, SBA_CAMERA's focal) seen through
+    EDGE_PROJECT_P2MC; camera 0 fixed. The port's dual-ELL pattern refuses
+    it (one pose group), the JAX package's takes it."""
+    import numpy as np
+    C, P = len(geo["cams_w2c"]), len(geo["points"])
+    f, cx, cy, b = SBA_CAMERA
+    c2w = _se3_inverse(geo["cams_w2c"])
+    g = Graph()
+    g.add_parameter(0, "camera_parameters", list(SBA_CAMERA))
+    for i in range(C):
+        if i % 2 == 0:
+            g.add_vertex(i, "se3_expmap", geo["cams_w2c"][i], fixed=(i == 0))
+        else:
+            g.add_vertex(i, "cam", np.concatenate([c2w[i], [f, f, cx, cy, b]]))
+    for j in range(P):
+        g.add_vertex(C + j, "sba_point_xyz", geo["points"][j],
+                     marginalized=True)
+    eye = np.eye(2)
+    for e in range(len(geo["pt"])):
+        c = geo["cam"][e]
+        if c % 2 == 0:
+            g.add_edge("edge_project_xyz2uv", (C + geo["pt"][e], c),
+                       geo["obs"][e], eye, param_ids=[0])
+        else:
+            g.add_edge("edge_project_p2mc", (C + geo["pt"][e], c),
+                       geo["obs"][e], eye)
+    return g
+
+
+def stereo_sba_graph(Graph):
+    """examples/sba_demo.py `make_scene` with --stereo (rng 17, 8 cameras,
+    300 points, pixel noise 0.5): VERTEX_CAM cameras with intrinsics (500,
+    500, 320, 240, 0.075) on a line, the first two fixed,
+    EDGE_PROJECT_P2SC observations."""
+    import numpy as np
+    fx, fy, cx, cy, base = 500.0, 500.0, 320.0, 240.0, 0.075
+    n_cams, n_points, pixel_noise = 8, 300, 0.5
+    rng = np.random.default_rng(17)
+    g = Graph()
+    pts = rng.uniform(-2, 2, (n_points, 3)) + np.array([0, 0, 10.0])
+    cam_ts = []
+    for i in range(n_cams):
+        t = np.array([i * 0.25 - n_cams * 0.125, 0, 0])
+        cam_ts.append(t)
+        g.add_vertex(i, "cam", np.concatenate([t, [0, 0, 0, 1],
+                                               [fx, fy, cx, cy, base]]),
+                     fixed=(i < 2))
+    for j, pt in enumerate(pts):
+        obs = []
+        for i, t in enumerate(cam_ts):
+            pc = pt - t
+            u, v = fx * pc[0] / pc[2] + cx, fy * pc[1] / pc[2] + cy
+            ur = fx * (pc[0] - base) / pc[2] + cx
+            if pc[2] <= 0.1 or not (0 <= u < 640 and 0 <= v < 480):
+                continue
+            obs.append((i, np.array([u, v, ur])))
+        if len(obs) < 2:
+            continue
+        g.add_vertex(1000 + j, "sba_point_xyz", pt + rng.normal(0, 0.5, 3),
+                     marginalized=True)
+        for i, uvu in obs:
+            g.add_edge("edge_project_p2sc", (1000 + j, i),
+                       uvu + rng.normal(0, pixel_noise, 3), np.eye(3))
+    return g
+
+
+def anchored_demo_graph(Graph):
+    """examples/ba_anchored_inverse_depth_demo.py `make_scene` (rng 11,
+    pixel noise 1.0): 500 points in a shallow box, 15 cameras translating
+    along x (the first two fixed), anchored inverse-depth initialization,
+    ternary EDGE_PROJECT_PSI2UV observations, camera (1000, 320, 240,
+    0.1)."""
+    import numpy as np
+    from openslam_g2o_torch.utils import np_lie
+    focal, cx, cy, pixel_noise = 1000.0, 320.0, 240.0, 1.0
+    rng = np.random.default_rng(11)
+    g = Graph()
+    g.add_parameter(0, "camera_parameters", [focal, cx, cy, 0.1])
+    true_points = np.stack([(rng.uniform(size=500) - 0.5) * 3,
+                            rng.uniform(size=500) - 0.5,
+                            rng.uniform(size=500) + 3], axis=1)
+    poses = []
+    for i in range(15):
+        w2c = np_lie.se3_inverse(np.array([i * 0.04 - 1.0, 0, 0, 0, 0, 0,
+                                           1.0]))
+        poses.append(w2c)
+        g.add_vertex(i, "se3_expmap", w2c, fixed=(i < 2))
+    for j, pt in enumerate(true_points):
+        vid = 1000 + j
+        obs = []
+        for i, w2c in enumerate(poses):
+            pc = np_lie.se3_apply(w2c, pt)
+            if pc[2] < 0.1:
+                continue
+            uv = pc[:2] / pc[2] * focal + np.array([cx, cy])
+            if not (0 <= uv[0] < 640 and 0 <= uv[1] < 480):
+                continue
+            obs.append((i, uv + rng.normal(0, pixel_noise, 2)))
+        if len(obs) < 2:
+            continue
+        anchor = obs[0][0]
+        pa = np_lie.se3_apply(poses[anchor], pt + rng.normal(0, 1.0, 3))
+        g.add_vertex(vid, "sba_point_xyz",
+                     np.array([pa[0], pa[1], 1.0]) / pa[2], marginalized=True)
+        for i, z in obs:
+            g.add_edge("edge_project_psi2uv", (vid, i, anchor), z,
+                       np.eye(2), param_ids=[0])
+    return g
+
+
 def _median_ms(torch, fn, repeats=15, inner=20, warmup=3):
     """Median over `repeats` of the time per call in a run of `inner`
     back-to-back calls between two CUDA events: what a call costs in a
@@ -309,13 +550,22 @@ def _median_ms(torch, fn, repeats=15, inner=20, warmup=3):
     return times[len(times) // 2]
 
 
-def _errors(torch, got, want, same_nan=False):
+def _errors(torch, got, want, same_nan=False, scale=None):
     """(max abs error, max error relative to the largest finite |entry| of
     its output) over the tensors a kernel and its plain version returned.
     With same_nan the two must be NaN in exactly the same places, and the
-    errors are taken over the other entries."""
+    errors are taken over the other entries. With scale (tensors shaped
+    as the outputs) the second is max |got - want| / scale per element."""
     as_tuple = lambda o: o if isinstance(o, (tuple, list)) else (o,)
     abs_err = rel_err = 0.0
+    if scale is not None:
+        for g, w, m in zip(as_tuple(got), as_tuple(want), as_tuple(scale),
+                           strict=True):
+            d = (g.detach().double() - w.detach().double()).abs()
+            abs_err = max(abs_err, float(d.max()))
+            rel_err = max(rel_err, float(
+                (d / m.double().clamp_min(1e-300)).max()))
+        return abs_err, rel_err
     for g, w in zip(as_tuple(got), as_tuple(want), strict=True):
         g, w = g.detach().double().reshape(-1), w.detach().double().reshape(-1)
         if same_nan:
@@ -353,6 +603,32 @@ def block_inv_tol(tag, cond):
     return max(TOL["ba_block_inv"][tag], cond * UNIT_ROUNDOFF[tag])
 
 
+def wv_error_scale(ba_coupling, w, rows, v, x, base=None, hcc_d=None,
+                   extra=None):
+    """The magnitudes the W v check takes its error relative to: per
+    element of y = base + Hcc_d x + extra - W v, the sum of its terms'
+    magnitudes |base| + |Hcc_d| |x| + |extra| + |W| |v|, and for the dot
+    x . y, sum |x| times those: (magnitudes of y [Dp, N], of the dot)."""
+    neg = lambda t: None if t is None else -t.abs()
+    mag, part = ba_coupling.ba_wv_plain(
+        w.abs(), rows, v.abs(), base=neg(base), hcc_d=neg(hcc_d),
+        x=x.abs(), extra=neg(extra), want_dot=True)
+    return mag.abs(), part.abs().sum()
+
+
+def wrong_row_reading(y, mag, rows):
+    """What the W v check reads for a kernel whose row n is 1% off (y[:, n]
+    times 1.01): max_s 0.01 |y[s, n]| / mag[s, n], for the row with the most
+    entries and for the row where the reading is smallest, as ((n, entries,
+    reading), (n, entries, reading))."""
+    reading = (0.01 * y.double().abs() / mag.double().clamp_min(1e-300)) \
+        .max(dim=0).values
+    deg = (rows.ptr[1:] - rows.ptr[:-1]).long()
+    hub, low = int(deg.argmax()), int(reading.argmin())
+    return ((hub, int(deg[hub]), float(reading[hub])),
+            (low, int(deg[low]), float(reading[low])))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -364,7 +640,8 @@ def main() -> int:
     from openslam_g2o_torch.apps.simulator import (
         Simulator2D, Simulator3D, create_sphere, synthetic_bal_problem,
         synthetic_pose_graph_2d)
-    from openslam_g2o_torch.core import ba_ell
+    from openslam_g2o_torch.core import ba as ba_general
+    from openslam_g2o_torch.core import ba_ell, factory
     from openslam_g2o_torch.core import problem as problem_mod
     from openslam_g2o_torch.core import sparse
     from openslam_g2o_torch.core.algorithms import (
@@ -377,7 +654,7 @@ def main() -> int:
     from openslam_g2o_torch.kernels import (
         assemble, ba_coupling, ba_edge, ba_inv, ba_schur, build, cg_step,
         chebyshev, damp_chol, dense_assemble, edge_se2, edge_se3, gather,
-        jacobi_scale, retract_chi2, spmv)
+        jacobi_scale, retract_chi2, schur_general, spmv)
     from openslam_g2o_torch.utils import np_lie
 
     # -- 1. device --------------------------------------------------------
@@ -434,14 +711,17 @@ def main() -> int:
 
     def case(kname, tag, shape, run, plain, nbytes, flops, library=None,
              same_nan=False, label=None, timed=True, post=None,
-             slow_plain=False, tol=None):
+             slow_plain=False, tol=None, scale=None):
         """Compare one kernel with its plain version (`run` and `plain`
         return the tensors to compare; `post` first reduces partial sums
         and splits a scalar buffer, on both sides), time both (a plain
         version of tens of ms: median of 5 single calls), and record the
-        row under (label or kname, tag); `tol` overrides the TOL table."""
+        row under (label or kname, tag); `tol` overrides the TOL table;
+        `scale` returns per-element magnitudes that the error is taken
+        relative to (_errors)."""
         post = post or (lambda out: out)
-        abs_e, rel_e = _errors(torch, post(run()), post(plain()), same_nan)
+        abs_e, rel_e = _errors(torch, post(run()), post(plain()), same_nan,
+                               None if scale is None else scale())
         row = dict(abs=abs_e, rel=rel_e, shape=shape, kname=kname)
         if tol is not None:
             row["tol"] = tol
@@ -1180,7 +1460,8 @@ def main() -> int:
                 E_g, D_g = gblk.resid.shape
                 widths = [j.shape[2] for j in gblk.jacs]
                 nbytes += s * E_g * (D_g + D_g * sum(widths) + 1 + D_g * D_g)
-                nbytes += 4 * sum(tb.ptr.numel() + 2 * tb.n_dest
+                nbytes += 4 * sum(tb.chunk_ptr.numel()
+                                  + tb.dest_chunk.numel() + 2 * tb.n_dest
                                   + 2 * tb.edge.numel()
                                   for tb in dpattern.pairs[gi])
                 idx = [o.long()[:, None]
@@ -1390,27 +1671,30 @@ def main() -> int:
              slow_plain=True)
         v = ba_coupling.ba_wtx(W_lm, bpat.lm_cam, x, hinv=Hinv)
         v_col = v.reshape(-1, 1).contiguous()
-        case("ba_wv", tag, f"C={C} E={E}, S x with the dot",
-             lambda: ba_coupling.ba_wv(W_cam, bpat.cam_ptr, bpat.cam_lm, v,
-                                       hcc_d=Hcc_d, x=x, want_dot=True),
-             lambda: ba_coupling.ba_wv_plain(W_cam, bpat.cam_ptr,
-                                             bpat.cam_lm, v, hcc_d=Hcc_d,
+        rows_c = bpat.cam_rows
+        case("ba_wv", tag, f"C={C} E={E} chunks={rows_c.n_chunks}, S x with "
+             "the dot (error per element over the sum of its terms' "
+             "magnitudes)",
+             lambda: ba_coupling.ba_wv(W_cam, rows_c, v, hcc_d=Hcc_d, x=x,
+                                       want_dot=True),
+             lambda: ba_coupling.ba_wv_plain(W_cam, rows_c, v, hcc_d=Hcc_d,
                                              x=x, want_dot=True),
              nbytes=s * (dp * dl * E + dl * L + dp * dp * C + 2 * dp * C + C)
-             + 4 * (E + C + 1), flops=2 * dp * dl * E + 2 * dp * dp * C,
+             + 4 * (E + rows_c.n_chunks + C + 2),
+             flops=2 * dp * dl * E + 2 * dp * dp * C,
              label="ba_wv" + sfx, library=lambda: W_csr @ v_col,
-             post=lambda out: (out[0], out[1].sum()), slow_plain=True)
-        case("ba_sandwich", tag, f"C={C} E={E}",
-             lambda: ba_coupling.ba_sandwich(W_cam, bpat.cam_ptr,
-                                             bpat.cam_lm, Hinv, Hcc_d),
-             lambda: ba_coupling.ba_sandwich_plain(W_cam, bpat.cam_ptr,
-                                                   bpat.cam_lm, Hinv, Hcc_d),
+             post=lambda out: (out[0], out[1].sum()), slow_plain=True,
+             scale=lambda: wv_error_scale(ba_coupling, W_cam, rows_c, v, x,
+                                          hcc_d=Hcc_d))
+        case("ba_sandwich", tag, f"C={C} E={E} chunks={rows_c.n_chunks}",
+             lambda: ba_coupling.ba_sandwich(W_cam, rows_c, Hinv, Hcc_d),
+             lambda: ba_coupling.ba_sandwich_plain(W_cam, rows_c, Hinv,
+                                                   Hcc_d),
              nbytes=s * (dp * dl * E + dl * dl * L + 2 * dp * dp * C)
-             + 4 * (E + C + 1),
+             + 4 * (E + rows_c.n_chunks + C + 1),
              flops=2 * (dp * dl * dl + dp * dp * dl) * E,
              label="ba_sandwich" + sfx, slow_plain=True)
-        s_blocks = ba_coupling.ba_sandwich(W_cam, bpat.cam_ptr, bpat.cam_lm,
-                                           Hinv, Hcc_d)
+        s_blocks = ba_coupling.ba_sandwich(W_cam, rows_c, Hinv, Hcc_d)
         cond = float(torch.linalg.cond(
             s_blocks.view(dp, dp, C).permute(2, 0, 1).double()).max())
         case("ba_block_inv", tag, f"D={dp} N={C}, the preconditioner blocks, "
@@ -1464,6 +1748,273 @@ def main() -> int:
             ("ba_edge_blocks@3d", tag))
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
+
+    # K14 and what the general Schur path runs of K10, K11, K13, K4 and K15,
+    # on the anchored (k) and shared-intrinsics (l) scenes at ba_80k, in the
+    # order schur_build and _solve run them. The K14 rows of (k) carry the
+    # kernel's own name, every other row a suffix naming its scene. The
+    # library yardsticks: index_add_ for the landmark sums, CSR products
+    # for W^T x and W v (as in the K13 rows), torch.linalg.inv and
+    # torch.einsum for the 4x4 blocks.
+    geo80 = bal_geometry(*BA_80K)
+    general_graphs = {"@psi2uv": psi2uv_graph(Graph, geo80),
+                      "@intrinsics": p2mc_intrinsics_graph(Graph, geo80)}
+
+    def general_rows(gprob, sfx, tag, s):
+        dt = gprob.dtype
+        pat = ba_general.build_schur_pattern(gprob)
+        lin = problem_mod.linearize(gprob)
+        dl, L, Tp = pat.dl, pat.n_lm, pat.pose_dim
+        name = lambda k: k if (sfx == "@psi2uv" and k.startswith("schur_")) \
+            else k + sfx
+        new_w = lambda: (
+            ba_edge.LandmarkStreams(
+                torch.zeros((dl * dl, pat.n_lm_edges), dtype=dt, device=dev),
+                torch.zeros((dl, pat.n_lm_edges), dtype=dt, device=dev)),
+            {pg.name: torch.zeros((pg.dim * dl,) + tuple(pg.lm_pose.shape),
+                                  dtype=dt, device=dev)
+             for pg in pat.pose_groups},
+            {pg.name: torch.zeros((pg.dim * dl, pg.n_entries), dtype=dt,
+                                  device=dev) for pg in pat.pose_groups})
+        got_w, want_w = new_w(), new_w()
+
+        def edge_run(fn, out):
+            st, wl, wp = out
+            for le in pat.lm_edges:
+                resid, jacs, rho1 = lin[le.egkey]
+                first = True
+                for ce in (c for c in pat.cross if c.egkey == le.egkey):
+                    fn(resid.contiguous(), jacs[le.lm_slot].contiguous(),
+                       jacs[ce.slot].contiguous(), rho1.contiguous(),
+                       gprob.edges[le.egkey].information,
+                       st.hll if first else None, st.bl if first else None,
+                       le.offset, wl[ce.group], ce.lm_pos, wp[ce.group],
+                       ce.pose_pos)
+                    first = False
+            return (st.hll, st.bl, *wl.values(), *wp.values())
+
+        E = pat.n_lm_edges
+        R = gprob.edges[pat.lm_edges[0].egkey].measurement.shape[1]
+        slot_dims = [next(pg.dim for pg in pat.pose_groups
+                          if pg.name == ce.group) for ce in pat.cross]
+        # each input read once, each output written once: residual, the
+        # Jacobians, rho', Omega, two positions per W entry; Hll_e, b_l,e
+        # and each W block in both layouts
+        case("schur_edge_blocks", tag,
+             f"E={E} R={R} pose slots of widths {slot_dims}, dl={dl}",
+             lambda: edge_run(schur_general.schur_edge_blocks, got_w),
+             lambda: edge_run(schur_general.schur_edge_blocks_plain, want_w),
+             nbytes=s * E * (R + R * dl + 1 + R * R + dl * dl + dl
+                             + sum(R * d + 2 * d * dl for d in slot_dims))
+             + 8 * E * len(slot_dims),
+             flops=E * (2 * dl * R * R + 2 * dl * dl * R + 2 * dl * R
+                        + sum(2 * d * R * R + 2 * d * dl * R
+                              for d in slot_dims)),
+             label=name("schur_edge_blocks"), slow_plain=True)
+        st = got_w[0]
+        K = pat.lm_edge.shape[0]
+        owner_l = torch.full((E,), -1, dtype=torch.long, device=dev)
+        valid = pat.lm_edge >= 0
+        owner_l[pat.lm_edge[valid].long()] = torch.arange(
+            L, device=dev)[None].expand(K, L)[valid]
+        lm_stack = torch.cat([st.hll, st.bl])
+        case("ba_lm_sums", tag, f"L={L} K={K} E={E}, without W",
+             lambda: ba_edge.ba_lm_sums(st, pat.lm_edge, with_w=False)[:2],
+             lambda: ba_edge.ba_lm_sums_plain(st, pat.lm_edge, False)[:2],
+             nbytes=s * (dl * dl + dl) * (E + L) + 4 * K * L,
+             flops=(dl * dl + dl) * E, label=name("ba_lm_sums"),
+             library=lambda: torch.zeros(
+                 (dl * dl + dl, L), dtype=dt, device=dev).index_add_(
+                 1, owner_l, lm_stack), slow_plain=True)
+        sys_ = ba_general.schur_build(gprob, lin=lin, pattern=pat)
+        fl = gprob.free[pat.lm_name]
+        lam = 1e-4 * sys_["Hll"][0].abs().max()
+        _, hinv, hib = ba_inv.ba_block_inv(sys_["Hll"], ba_inv.LANDMARK, fl,
+                                           lam, b=sys_["b_l"])
+        free_p = torch.cat([gprob.free[pg.name][None].expand(
+            pg.dim, pg.count).reshape(-1) for pg in pat.pose_groups])
+        hpp_d = sys_["Hpp"][pat.perm[:, None], pat.perm[None, :]]
+        hpp_d.diagonal().add_(lam * free_p + (1.0 - free_p))
+        gen = torch.Generator(device=dev).manual_seed(9)
+        xs = {pg.name: torch.randn((pg.dim, pg.count), generator=gen,
+                                   dtype=dt, device=dev)
+              for pg in pat.pose_groups}
+        # W as one sparse [Tp, dl L] matrix over every pose group, rows in
+        # the lane order: the yardstick of W v and W^T x
+        rows_l, cols_l, vals_l = [], [], []
+        for pg in pat.pose_groups:
+            M = pg.n_entries
+            own = torch.repeat_interleave(
+                torch.arange(pg.count, device=dev),
+                (pg.rows.ptr[1:] - pg.rows.ptr[:-1]).long())
+            r_ = (pg.offset + torch.arange(pg.dim, device=dev)[:, None, None]
+                  * pg.count + own[None, None, :]).expand(pg.dim, dl, M)
+            c_ = (torch.arange(dl, device=dev)[None, :, None] * L
+                  + pg.rows.lm.long()[None, None, :]).expand(pg.dim, dl, M)
+            rows_l.append(r_.reshape(-1))
+            cols_l.append(c_.reshape(-1))
+            vals_l.append(sys_["W_pose"][pg.name].reshape(-1))
+        coo = torch.sparse_coo_tensor(
+            torch.stack([torch.cat(rows_l), torch.cat(cols_l)]),
+            torch.cat(vals_l), (Tp, dl * L)).coalesce()
+        W_csr, WT_csr = coo.to_sparse_csr(), coo.t().coalesce().to_sparse_csr()
+        del coo, rows_l, cols_l, vals_l
+        x_col = torch.cat([xs[pg.name].reshape(-1)
+                           for pg in pat.pose_groups])[:, None].contiguous()
+        n_w = sum(pg.dim * dl * pg.n_entries for pg in pat.pose_groups)
+        n_slots = sum(pg.lm_pose.numel() for pg in pat.pose_groups)
+
+        def wtx(fn):
+            u = None
+            for i, pg in enumerate(pat.pose_groups):
+                kw = (dict(hinv=hinv) if i == len(pat.pose_groups) - 1
+                      else {})
+                u = fn(sys_["W_lm"][pg.name], pg.lm_pose, xs[pg.name],
+                       acc=u, **kw)
+            return u
+
+        case("ba_wtx", tag, f"L={L}, pose groups "
+             f"{[(pg.dim, pg.lm_pose.shape[0]) for pg in pat.pose_groups]} "
+             "(Dp, K), chained, Hinv applied",
+             lambda: wtx(ba_coupling.ba_wtx),
+             lambda: wtx(ba_coupling.ba_wtx_plain),
+             nbytes=s * (sum(pg.dim * dl * pg.lm_pose.numel()
+                             for pg in pat.pose_groups) + Tp
+                         + dl * dl * L + dl * L) + 4 * n_slots,
+             flops=2 * n_w + 2 * dl * dl * L, label=name("ba_wtx"),
+             library=lambda: WT_csr @ x_col, slow_plain=True)
+        v = wtx(ba_coupling.ba_wtx)
+        v_col = v.reshape(-1, 1).contiguous()
+        hx = hpp_d @ x_col[:, 0]
+
+        extra = {pg.name: hx[pg.offset:pg.offset + pg.size].view(
+            pg.dim, pg.count) for pg in pat.pose_groups}
+
+        def wv(fn):
+            return [fn(sys_["W_pose"][pg.name], pg.rows, v, x=xs[pg.name],
+                        extra=extra[pg.name], want_dot=True)
+                    for pg in pat.pose_groups]
+
+        def y_and_dot(out):
+            return tuple(o[0] for o in out) + (sum(o[1].sum() for o in out),)
+
+        mags = [wv_error_scale(ba_coupling, sys_["W_pose"][pg.name], pg.rows,
+                               v, xs[pg.name], extra=extra[pg.name])
+                for pg in pat.pose_groups]
+        n_chunks = sum(pg.rows.n_chunks for pg in pat.pose_groups)
+        case("ba_wv", tag, f"pose groups "
+             f"{[(pg.dim, pg.count, pg.n_entries, pg.rows.n_chunks) for pg in pat.pose_groups]}"
+             " (Dp, N, entries, chunks), S x with the dot (error per "
+             "element over the sum of its terms' magnitudes)",
+             lambda: wv(ba_coupling.ba_wv),
+             lambda: wv(ba_coupling.ba_wv_plain),
+             nbytes=s * (n_w + dl * L + 3 * Tp
+                         + sum(pg.count for pg in pat.pose_groups))
+             + 4 * (sum(pg.n_entries for pg in pat.pose_groups) + n_chunks
+                    + 2 * len(pat.pose_groups)
+                    + sum(pg.count for pg in pat.pose_groups)),
+             flops=2 * n_w + 2 * Tp, label=name("ba_wv"),
+             library=lambda: W_csr @ v_col, post=y_and_dot, slow_plain=True,
+             scale=lambda: tuple(m[0] for m in mags)
+             + (sum(m[1] for m in mags),))
+        # what the check reads for a kernel whose row is 1% off: the row of
+        # most entries and the row where 1% shows least
+        got_wv = wv(ba_coupling.ba_wv)
+        lim = TOL["ba_wv"][tag]
+        for pg, (y_, _), (m_, _) in zip(pat.pose_groups, got_wv, mags):
+            (hub, deg, r_hub), (low, deg_l, r_low) = wrong_row_reading(
+                y_, m_, pg.rows)
+            print(f"phase 3 kernel ba_wv{sfx} {tag}: a row 1% off reads "
+                  f"{r_hub:.3e} at {pg.name} {hub} ({deg} entries) and "
+                  f"{r_low:.3e} at {pg.name} {low} ({deg_l} entries), "
+                  f"against the limit {lim:.3e} [{card}]")
+        again = wv(ba_coupling.ba_wv)
+        if not all(torch.equal(a_, b_) for o1, o2 in zip(got_wv, again)
+                   for a_, b_ in zip(o1, o2)):
+            raise AssertionError("ba_wv does not repeat its bits")
+        del got_wv, again, mags
+        hcc = {pg.name: ba_general.diag_blocks(hpp_d, pg)
+               for pg in pat.pose_groups}
+
+        def sandwich(fn):
+            return [fn(sys_["W_pose"][pg.name], pg.rows, hinv, hcc[pg.name])
+                    for pg in pat.pose_groups]
+
+        case("ba_sandwich", tag, f"pose groups "
+             f"{[(pg.dim, pg.count, pg.n_entries) for pg in pat.pose_groups]}",
+             lambda: sandwich(ba_coupling.ba_sandwich),
+             lambda: sandwich(ba_coupling.ba_sandwich_plain),
+             nbytes=s * (n_w + dl * dl * L + 2 * sum(
+                 pg.dim * pg.dim * pg.count for pg in pat.pose_groups))
+             + 4 * (sum(pg.n_entries for pg in pat.pose_groups) + n_chunks),
+             flops=sum(2 * (pg.dim * dl * dl + pg.dim * pg.dim * dl)
+                       * pg.n_entries for pg in pat.pose_groups),
+             label=name("ba_sandwich"), slow_plain=True)
+        s1 = sandwich(ba_coupling.ba_sandwich)
+        if not all(torch.equal(a_, b_) for a_, b_ in
+                   zip(s1, sandwich(ba_coupling.ba_sandwich))):
+            raise AssertionError("ba_sandwich does not repeat its bits")
+        for pg, blk in zip(pat.pose_groups, s1):
+            if pg.dim != 4:
+                continue
+            D, N = pg.dim, pg.count
+            mats = blk.view(D, D, N).permute(2, 0, 1)
+            cond = float(torch.linalg.cond(mats.double()).max())
+            case("ba_block_inv", tag, f"D=4 N={N}, the intrinsics "
+                 f"preconditioner block, condition number {cond:.2e}",
+                 lambda b_=blk: ba_inv.ba_block_inv(b_)[1],
+                 lambda b_=blk: ba_inv.ba_block_inv_plain(b_)[1],
+                 nbytes=s * 2 * D * D * N, flops=150 * N,
+                 label="ba_block_inv@d4", library=lambda m_=mats:
+                 torch.linalg.inv(m_), tol=block_inv_tol(tag, cond))
+            binv = ba_inv.ba_block_inv(blk)[1]
+            xd = xs[pg.name]
+            case("lane_block_mv", tag, f"D=4 N={N}",
+                 lambda: jacobi_scale.lane_block_mv(binv, xd),
+                 lambda: jacobi_scale.lane_block_mv_plain(binv, xd),
+                 nbytes=s * (D * D + 2 * D) * N, flops=2 * D * D * N,
+                 label="lane_block_mv@d4", library=lambda: torch.einsum(
+                     "abn,bn->an", binv.view(D, D, N), xd))
+        if sfx == "@psi2uv":
+            # K15 on the pose slots of the ternary edges: both cameras'
+            # blocks and their coupling, block + transpose where the two
+            # slots name one camera
+            hp = pat.hpp_pattern or dense_assemble.build_dense_pattern(
+                gprob, egroups=[next(e for e in gprob.static.egroups
+                                     if e.key == k_) for k_, _ in pat.hpp_keys],
+                total_dim=Tp, slots=[ps for _, ps in pat.hpp_keys])
+            groups = []
+            for i, (key, ps) in enumerate(pat.hpp_keys):
+                resid, jacs, rho1 = lin[key]
+                groups.append(dense_assemble.EdgeBlocks(
+                    resid.contiguous(),
+                    tuple(jacs[s_].contiguous() for s_ in ps),
+                    rho1.contiguous(), gprob.edges[key].information,
+                    hp.offsets[i]))
+            zeros = torch.zeros(Tp, dtype=dt, device=dev)
+            n_pairs = sum(tb.n_dest for tb_list in hp.pairs for tb in tb_list)
+            n_contrib = sum(tb.edge.numel() for tb_list in hp.pairs
+                            for tb in tb_list)
+            Dp = pat.pose_groups[0].dim
+            case("dense_assemble", tag, f"Tp={Tp}, E={E} ternary edges, "
+                 f"pose slot pairs (1,1) (1,2) (2,2): {n_pairs} "
+                 f"destinations, {n_contrib} contributions",
+                 lambda: dense_assemble.dense_assemble(
+                     groups, Tp, zeros, hp, add_fixed_diag=False)[:2],
+                 lambda: dense_assemble.dense_assemble_plain(
+                     groups, Tp, zeros, hp, add_fixed_diag=False)[:2],
+                 nbytes=s * (Tp * Tp + Tp + E * (R + 2 * R * Dp + 1 + R * R))
+                 + 4 * (2 * E + 4 * n_pairs + 2 * n_contrib),
+                 flops=3 * E * (2 * Dp * R * R + 2 * Dp * Dp * R),
+                 label="dense_assemble@psi2uv", slow_plain=True)
+        del W_csr, WT_csr, sys_, lin, hpp_d, got_w, want_w
+
+    for dt in (torch.float32, torch.float64):
+        tag = str(dt).split(".")[-1]
+        s = torch.empty((), dtype=dt).element_size()
+        for sfx, g_ in general_graphs.items():
+            general_rows(g_.compile(dtype=dt), sfx, tag, s)
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for (label, tag), row in sorted(results.items()):
         tol = row.get("tol", TOL.get(label, TOL.get(row["kname"],
@@ -1505,7 +2056,8 @@ def main() -> int:
              (ba_edge, "ba_lm_sums"), (ba_edge, "ba_cam_sums"),
              (ba_inv, "ba_block_inv"), (ba_schur, "ba_schur_dense"),
              (ba_coupling, "ba_wtx"), (ba_coupling, "ba_wv"),
-             (ba_coupling, "ba_sandwich")]
+             (ba_coupling, "ba_sandwich"),
+             (schur_general, "schur_edge_blocks")]
 
     class plain_versions:
         """Every wrapper swapped for its plain version (CUDA tensors, plain
@@ -2095,6 +2647,8 @@ def main() -> int:
     # lambda init, one warm-up trial, 10 iterations through
     # ba_ell_optimize_fused (one trial per iteration), then the same 10
     # iterations from the same start through ba_ell_step
+    ell_traj = {}
+
     def ba_path(phase, shape, dense):
         n_cams, n_points = shape
         t_gen = time.monotonic()
@@ -2131,6 +2685,7 @@ def main() -> int:
         fused_ms = (time.monotonic() - t1) * 100
         counts_f = kernels.launch_counts()
         traj = out[4].tolist()
+        ell_traj[phase] = (traj, expected)
         st, step_traj, n_trials = st0, [], 0
         t2 = time.monotonic()
         for _ in range(10):
@@ -2260,6 +2815,223 @@ def main() -> int:
             raise AssertionError(f"phase 4i {label}: the generic entry or "
                                  f"K15 did not launch: {counts_4i[label]}")
         del wprob, pat_w
+    torch.cuda.empty_cache()
+
+    # 4j-4n. the general Schur path (core/ba.py, LevenbergMarquardtSchur
+    # with its defaults: pcg 250, tol 1e-8, 10 trials) on the ba_80k
+    # geometry as binary XYZ2UV (j), ternary PSI2UV (k) and ternary
+    # P2MC_INTRINSICS with two pose groups (l), float32, lambda init + 10
+    # iterations each; the routing of _SchurAuto and the anchored demo scene
+    # against the JAX package's float64 end (m); the 400k BAL shape (n)
+    def general_path(phase, what, gprob, expected, jax_key=None):
+        """Lambda init + 10 iterations of LevenbergMarquardtSchur() on
+        gprob: chi2 finite, never increasing, at most BA_GATE x expected;
+        ms per LM iteration, CG iterations; one trial's solve timed on the
+        host clock and profiled for its device time per CG iteration; the
+        first 3 chi2 against the plain route. Returns (trajectory,
+        launches of the run, with K11's and lane_block_mv's at D = 4 also
+        under "<wrapper>@d4")."""
+        alg = ba_general.LevenbergMarquardtSchur()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.monotonic()
+        state = alg.init(gprob)
+        torch.cuda.synchronize()
+        init_s = time.monotonic() - t0
+        pat = alg.pattern(gprob)
+        chi0, lam0 = float(state["chi2"]), float(state["lam"])
+        traj, n_trials, lams = [], 0, []
+        t1 = time.monotonic()
+        for _ in range(10):
+            state, info = alg.step(gprob, state)
+            traj.append(info["chi2"])
+            lams.append(state["lam"])
+            n_trials += info["levenberg_iters"]
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t1) * 100
+        counts = kernels.launch_counts()
+        # the D = 4 launches (the intrinsics group's blocks) apart
+        for w_ in (ba_inv.ba_block_inv, jacobi_scale.lane_block_mv):
+            counts[f"{w_.__name__}@d4"] = w_.launches_by_width[4]
+        n_groups = len(pat.pose_groups)
+        cg_iters = counts["cg_update_xr"] // n_groups
+        steps = np.diff(np.array([chi0] + traj))
+        if not (np.all(np.isfinite(traj)) and np.all(steps <= 0)):
+            raise AssertionError(f"phase {phase}: chi2 not finite or "
+                                 f"increasing: {traj}")
+        print(f"phase {phase} general Schur path, {what}: Tp={pat.pose_dim} "
+              f"pose groups {[(pg.name, pg.dim, pg.count, pg.n_entries) for pg in pat.pose_groups]} "
+              f"L={pat.n_lm} landmark edges {pat.n_lm_edges} {gprob.dtype}; "
+              f"LevenbergMarquardtSchur() (pcg 250, tol 1e-8): init+lambda0 "
+              f"{init_s:.3f} s lambda0 {lam0:.6g} chi2_0 {chi0:.1f}; "
+              f"{ms:.2f} ms/LM iteration ({n_trials} trials, {cg_iters} CG "
+              f"iterations) [{card}]")
+        print(f"phase {phase} chi2 / expected ({expected:.1f}): "
+              + " ".join(f"{c / expected:.5f}" for c in traj))
+        if jax_key is not None:
+            print(f"phase {phase} the JAX package, float64 on the CPU: "
+                  + " ".join(f"{c:.5f}" for c in JAX_SCHUR_TRAJ[jax_key]))
+        if traj[-1] > BA_GATE * expected:
+            raise AssertionError(f"phase {phase}: chi2 {traj[-1]} above "
+                                 f"{BA_GATE} x {expected}")
+        # one trial's solve at the end state with the lambda of the third
+        # iteration (while chi2 still gains: a float32 run past convergence
+        # can end at lambda inf): host clock, then device time
+        work = gprob.with_params(state["params"])
+        sys_ = ba_general.schur_build(work, pattern=pat)
+        lam_t = lams[2]
+        ba_general._solve(work, sys_, lam_t, 250, 1e-8)
+        torch.cuda.synchronize()
+        before = kernels.launch_counts()["cg_update_xr"]
+        t2 = time.monotonic()
+        ba_general._solve(work, sys_, lam_t, 250, 1e-8)
+        torch.cuda.synchronize()
+        wall = (time.monotonic() - t2) * 1e6
+        n_cg = max((kernels.launch_counts()["cg_update_xr"] - before)
+                   // n_groups, 1)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_g:
+            ba_general._solve(work, sys_, lam_t, 250, 1e-8)
+            torch.cuda.synchronize()
+        rows_g = sorted(((e.self_device_time_total, e.count, e.key)
+                         for e in prof_g.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and e.self_device_time_total > 0), reverse=True)
+        busy = sum(r[0] for r in rows_g)
+        if busy <= 0:
+            raise AssertionError(f"phase {phase}: the profiler saw no "
+                                 "device time")
+        # and one linearization + build (schur_build), for its kernels
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_b:
+            ba_general.schur_build(work, pattern=pat)
+            torch.cuda.synchronize()
+        rows_b = sorted(((e.self_device_time_total, e.count, e.key)
+                         for e in prof_b.key_averages()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and e.self_device_time_total > 0), reverse=True)
+        for what_p, rows_p in (
+                ("the solve", rows_g[:8] + [r for r in rows_g[8:]
+                                            if "sandwich" in r[2]]),
+                ("schur_build", rows_b[:6])):
+            print(f"phase {phase} device time by kernel in {what_p}: "
+                  + "; ".join(f"{k_[:48]} {us / n_:.1f} us x {n_}"
+                              for us, n_, k_ in rows_p))
+        print(f"phase {phase} one trial's solve at the end, lambda of "
+              f"iteration 3 ({n_cg} CG "
+              f"iterations, lambda {float(lam_t):.4g}): wall "
+              f"{wall / 1e3:.3f} ms, device busy "
+              f"{busy / 1e3:.3f} ms: {wall / n_cg:.1f} us of wall and "
+              f"{busy / n_cg:.1f} us of device time per CG iteration, idle "
+              f"share {100 * (1 - busy / wall):.1f}% [{card}]")
+        del sys_, work
+        with plain_versions():
+            alg_p = ba_general.LevenbergMarquardtSchur()
+            st_p = alg_p.init(gprob)
+            lam_p = float(st_p["lam"])
+            plain_traj = []
+            for _ in range(3):
+                st_p, info_p = alg_p.step(gprob, st_p)
+                plain_traj.append(info_p["chi2"])
+        np.testing.assert_allclose(traj[:3], plain_traj, rtol=PLAIN_ROUTE_RTOL)
+        np.testing.assert_allclose(lam_p, lam0, rtol=PLAIN_ROUTE_RTOL)
+        print(f"phase {phase} plain route: first 3 chi2 "
+              + " ".join(f"{c:.2f}" for c in plain_traj) + " vs kernel route "
+              + " ".join(f"{c:.2f}" for c in traj[:3])
+              + f" (rtol {PLAIN_ROUTE_RTOL:g}) OK")
+        del state, st_p
+        return traj, counts
+
+    counts_gen = {}
+    bal80, bal80_info = synthetic_bal_problem(*BA_80K, BA_OBS,
+                                              dtype=torch.float32)
+    E80 = bal80_info["n_obs"]
+    expected80 = 2.0 * E80 - 6.0 * (BA_80K[0] - 1) - 3.0 * BA_80K[1]
+    traj_j, counts_gen["4j"] = general_path(
+        "4j", f"synthetic_bal_problem{BA_80K + (BA_OBS,)}, binary "
+        "EDGE_PROJECT_XYZ2UV", bal80, expected80, "bal")
+    ell80, ell_expected = ell_traj["4g"]
+    print("phase 4j beside phase 4g's dual-ELL route (pcg 30, tol 0.05): "
+          + " ".join(f"{c / ell_expected:.5f}" for c in ell80))
+    kprob = general_graphs["@psi2uv"].compile(dtype=torch.float32)
+    traj_k, counts_gen["4k"] = general_path(
+        "4k", "the same observations as ternary EDGE_PROJECT_PSI2UV "
+        "(anchor: the point's first camera; camera 0 fixed)", kprob,
+        expected80, "psi2uv")
+    lprob = general_graphs["@intrinsics"].compile(dtype=torch.float32)
+    expected_l = expected80 - 4.0
+    traj_l, counts_gen["4l"] = general_path(
+        "4l", "the same observations as EDGE_PROJECT_P2MC_INTRINSICS (one "
+        "VERTEX_INTRINSICS starting at " + str(INTRINSICS_START) + ")",
+        lprob, expected_l, "p2mc_intrinsics")
+    for ph, want in (("4k", ("schur_edge_blocks", "ba_wv",
+                             "ba_sandwich", "ba_wtx", "ba_lm_sums",
+                             "dense_assemble", "lane_block_mv")),
+                     ("4l", ("ba_block_inv@d4", "lane_block_mv@d4"))):
+        if min(counts_gen[ph].get(k, 0) for k in want) <= 0:
+            raise AssertionError(f"phase {ph}: a kernel did not launch: "
+                                 f"{counts_gen[ph]}")
+
+    # 4m. _SchurAuto's routes, and the anchored demo scene's end
+    from openslam_g2o_torch.core.ba import LevenbergMarquardtSchur
+    two = two_pose_group_graph(Graph, bal_geometry(12, 400)).compile()
+    stereo = stereo_sba_graph(Graph).compile()
+    routes = []
+    for label, p_, want in (
+            ("BAL 80k", bal80, "LevenbergMarquardtSchurELL"),
+            ("P2SC stereo, examples/sba_demo.py", stereo,
+             "LevenbergMarquardtSchurELL"),
+            ("PSI2UV (4k)", kprob, "LevenbergMarquardtSchur"),
+            ("P2MC_INTRINSICS (4l)", lprob, "LevenbergMarquardtSchur"),
+            ("binary, two pose groups", two, "LevenbergMarquardtSchur")):
+        auto = factory._SchurAuto()
+        auto.init(p_)
+        got = type(auto.impl).__name__
+        routes.append(f"{label} -> {got}")
+        if got != want:
+            raise AssertionError(f"phase 4m: _SchurAuto routes {label} to "
+                                 f"{got}, not {want}")
+    print("phase 4m _SchurAuto: " + "; ".join(routes) + " (the JAX package "
+          "routes the two-pose-group graph to its dual-ELL solver)")
+    demo = anchored_demo_graph(Graph).compile()          # card, float64
+    kernels.reset_launch_counts()
+    t_demo = time.monotonic()
+    _, demo_stats = optimize(demo, LevenbergMarquardtSchur(), iterations=30)
+    t_demo = time.monotonic() - t_demo
+    counts_gen["4m"] = kernels.launch_counts()
+    demo_end = demo_stats[-1]["chi2"]
+    print(f"phase 4m examples/ba_anchored_inverse_depth_demo.py scene "
+          f"({demo.static.egroups[0].count} observations, float64): 30 "
+          f"iterations in {t_demo:.2f} s ("
+          f"{sum(s_['levenberg_iters'] for s_ in demo_stats)} trials), "
+          f"chi2 {demo_end:.6f} vs the JAX package's {JAX_DEMO_CHI2:.6f} "
+          f"(rel {abs(demo_end - JAX_DEMO_CHI2) / JAX_DEMO_CHI2:.2e}, rtol "
+          f"1e-6) [{card}]")
+    np.testing.assert_allclose(demo_end, JAX_DEMO_CHI2, rtol=1e-6)
+    with plain_versions():
+        _, demo_plain = optimize(demo, LevenbergMarquardtSchur(), iterations=3)
+    np.testing.assert_allclose([s_["chi2"] for s_ in demo_stats[:3]],
+                               [s_["chi2"] for s_ in demo_plain],
+                               rtol=PLAIN_ROUTE_RTOL)
+    print("phase 4m plain route on the demo scene: first 3 chi2 "
+          + " ".join(f"{s_['chi2']:.4f}" for s_ in demo_plain)
+          + f" (rtol {PLAIN_ROUTE_RTOL:g}) OK")
+    del two, stereo, demo, kprob, lprob, bal80
+    torch.cuda.empty_cache()
+
+    # 4n. the 400k BAL shape through the general path: the dense [Tp, Tp]
+    # product at Tp = 5400 in every CG iteration
+    bal400, bal400_info = synthetic_bal_problem(*BA_400K, BA_OBS,
+                                                dtype=torch.float32)
+    expected400 = (2.0 * bal400_info["n_obs"] - 6.0 * (BA_400K[0] - 1)
+                   - 3.0 * BA_400K[1])
+    traj_n, counts_gen["4n"] = general_path(
+        "4n", f"synthetic_bal_problem{BA_400K + (BA_OBS,)}, binary "
+        "EDGE_PROJECT_XYZ2UV", bal400, expected400)
+    ell400, ell400_expected = ell_traj["4h"]
+    print("phase 4n beside phase 4h's dual-ELL route (pcg 30, tol 0.05): "
+          + " ".join(f"{c / ell400_expected:.5f}" for c in ell400))
+    del bal400
     torch.cuda.empty_cache()
 
     # -- 5. a .g2o string through the public API ---------------------------
@@ -2446,10 +3218,13 @@ def main() -> int:
     # rows at other shapes and instantiations count their own phase
     by_phase = {"4g": counts_ba80, "4h": counts_ba400,
                 "4i 2D": counts_4i["2D"], "4i 3D": counts_4i["3D"]}
+    # ... and, with K14's wrapper, every general Schur phase (4j-4n)
     launches = {k: counts_main[k] + counts_cheb[k] + counts_probe[k]
                 + counts_dense[k] + (0 if k in two_rows else launches_d6[k])
                 + (sum(c[k] for c in by_phase.values())
                    if k.startswith("ba_") else 0)
+                + (sum(c[k] for c in counts_gen.values())
+                   if k.startswith(("ba_", "schur_")) else 0)
                 for k in counts_main}
     for label, counts in (("4 main path", counts_main),
                           ("4b Chebyshev path", counts_cheb),
@@ -2462,7 +3237,9 @@ def main() -> int:
                           ("4g BA dense-Schur route", counts_ba80),
                           ("4h BA implicit route", counts_ba400),
                           ("4i 2D world Schur runs", counts_4i["2D"]),
-                          ("4i 3D world Schur runs", counts_4i["3D"])):
+                          ("4i 3D world Schur runs", counts_4i["3D"]),
+                          *((f"{ph} general Schur path", c_)
+                            for ph, c_ in counts_gen.items())):
         print(f"phase 6 launches in the phase-{label}: "
               + " ".join(f"{k}={v}" for k, v in counts.items() if v))
     main_kernels = ("block_ell_spmv", "edge_se2_blocks", "assemble_gather",
@@ -2498,6 +3275,11 @@ def main() -> int:
                 for k in ("ba_edge_blocks", "ba_lm_sums", "ba_cam_sums",
                           "ba_block_inv", "ba_sandwich", "ba_wtx", "ba_wv",
                           "dense_assemble") if counts_4i[w_][k] <= 0]
+             + [f"{k} ({ph})" for ph in ("4j", "4k", "4l", "4n")
+                for k in ("schur_edge_blocks", "ba_wv", "ba_sandwich",
+                          "ba_lm_sums", "ba_wtx", "ba_block_inv",
+                          "lane_block_mv", "dense_assemble", "cg_update_xr",
+                          "lm_outcome") if counts_gen[ph][k] <= 0]
              + [k for k in KERNELS if launches[k] <= 0])
     if never or set(KERNELS) != set(launches):
         raise AssertionError(f"a kernel of a path never launched: {never}")
@@ -2527,9 +3309,11 @@ def main() -> int:
          "library_ms": results[(label, "float32")]["library_ms"]}
         for label, (wname, src, replaces) in KERNELS_D6.items()]
     # the BA kernels' rows at the other shapes and instantiations
+    general = lambda lbl: lbl.endswith(tuple(GENERAL_SUFFIXES))
     for label in sorted(lbl for (lbl, tg), row in results.items()
                         if tg == "float32" and "@" in lbl
-                        and row["kname"].startswith("ba_")):
+                        and row["kname"].startswith("ba_")
+                        and not general(lbl)):
         row = results[(label, "float32")]
         phase = next((ph for sfx, ph in BA_SUFFIXES.items()
                       if label.endswith(sfx)), "4g")
@@ -2539,6 +3323,23 @@ def main() -> int:
              "source": f"openslam_g2o_torch/kernels/csrc/{src}",
              "replaces": replaces,
              "launches": by_phase[phase][row["kname"]],
+             "max_abs_err": row["abs"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # the general Schur path's instantiations, with the launches of their
+    # phase (the @d4 rows: the launches at D = 4 only)
+    for label in sorted(lbl for (lbl, tg) in results
+                        if tg == "float32" and general(lbl)):
+        row = results[(label, "float32")]
+        phase = next(ph for sfx, ph in GENERAL_SUFFIXES.items()
+                     if label.endswith(sfx))
+        src, _ = KERNELS[row["kname"]]
+        key = row["kname"] + ("@d4" if label.endswith("@d4") else "")
+        report["kernels"].append(
+            {"name": label, "route": "cuda",
+             "source": f"openslam_g2o_torch/kernels/csrc/{src}",
+             "replaces": GENERAL_REPLACES[row["kname"]],
+             "launches": counts_gen[phase][key],
              "max_abs_err": row["abs"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

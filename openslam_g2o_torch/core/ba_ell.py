@@ -86,7 +86,8 @@ class BAEllPattern:
 
     lm_edge [K, L]: observation id of slot k of landmark l (-1 on padding),
     slots in observation order; lm_cam [K, L]: its camera (-1 on padding);
-    cam_ptr [C + 1], cam_edge [E], cam_lm [E]: the observations of camera c
+    cam_rows (K13's `PoseRows`: cam_ptr [C + 1], cam_lm [E] and the chunks
+    of the two-pass products), cam_edge [E]: the observations of camera c
     are cam_edge[cam_ptr[c]:cam_ptr[c+1]] in observation order, cam_lm their
     landmarks. extra_pattern: K15's tables of the pose-pose edges on the
     pose block (on the card only)."""
@@ -101,12 +102,19 @@ class BAEllPattern:
     pose_only_keys: tuple
     lm_edge: torch.Tensor
     lm_cam: torch.Tensor
-    cam_ptr: torch.Tensor
+    cam_rows: ba_coupling.PoseRows
     cam_edge: torch.Tensor
-    cam_lm: torch.Tensor
     extra_pattern: Optional[object] = None
     lm_cam_host: Optional[np.ndarray] = None
     _pairs: Optional[object] = field(default=None, repr=False)
+
+    @property
+    def cam_ptr(self):
+        return self.cam_rows.ptr
+
+    @property
+    def cam_lm(self):
+        return self.cam_rows.lm
 
     @property
     def n_obs(self):
@@ -211,8 +219,6 @@ def build_ba_ell_pattern(problem: Problem) -> BAEllPattern:
     lm_cam = np.where(lm_edge >= 0, ci_all[np.maximum(lm_edge, 0)]
                       if len(ci_all) else -1, -1)
     cam_order = np.argsort(ci_all, kind="stable")
-    cam_ptr = np.concatenate([[0], np.cumsum(np.bincount(
-        ci_all, minlength=cg.count))])
     dev = problem.device
     i32 = lambda x: torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32),
                                     device=dev)
@@ -223,7 +229,9 @@ def build_ba_ell_pattern(problem: Problem) -> BAEllPattern:
     pattern = BAEllPattern(
         lg.name, cg.name, lg.count, dl, cg.count, dp, static.pose_dim,
         tuple(proj), tuple(eg.key for eg in pose_only), i32(lm_edge),
-        i32(lm_cam), i32(cam_ptr), i32(cam_order), i32(li_all[cam_order]),
+        i32(lm_cam), ba_coupling.build_pose_rows(
+            np.bincount(ci_all, minlength=cg.count), li_all[cam_order], dev),
+        i32(cam_order),
         extra_pattern, lm_cam)
     if dense_schur_ok(problem, pattern):
         pattern.schur_pairs()            # the dense route's table, up front
@@ -306,8 +314,8 @@ def _solve(problem: Problem, pattern: BAEllPattern, sys, lam,
     if sys["b_extra"] is not None:
         b_p = b_p + sys["b_extra"].view(C, dp).T
     # reduced right-hand side (b_p - W Hinv b_l) free
-    b_red = ba_coupling.ba_wv(sys["W_cam"], pattern.cam_ptr, pattern.cam_lm,
-                              hib, base=b_p, free=free_c)
+    b_red = ba_coupling.ba_wv(sys["W_cam"], pattern.cam_rows, hib, base=b_p,
+                              free=free_c)
     if dense_schur_ok(problem, pattern):
         S = ba_schur.ba_schur_dense(pattern.schur_pairs(), sys["W_lm"], Hinv,
                                     Hcc_d, base=sys["Hpp_extra"])
@@ -316,10 +324,10 @@ def _solve(problem: Problem, pattern: BAEllPattern, sys, lam,
         dx_p = (dx_flat.view(C, dp).T * free_c[None]).contiguous()
     else:
         op = ba_coupling.SchurOperator(
-            cam, sys["W_lm"], pattern.lm_cam, sys["W_cam"], pattern.cam_ptr,
-            pattern.cam_lm, Hinv, Hcc_d, sys["Hpp_extra"])
+            cam, sys["W_lm"], pattern.lm_cam, sys["W_cam"], pattern.cam_rows,
+            Hinv, Hcc_d, sys["Hpp_extra"])
         s_blocks = ba_coupling.ba_sandwich(
-            sys["W_cam"], pattern.cam_ptr, pattern.cam_lm, Hinv, Hcc_d)
+            sys["W_cam"], pattern.cam_rows, Hinv, Hcc_d)
         _, s_binv, _ = ba_inv.ba_block_inv(s_blocks)
 
         def precond(r):

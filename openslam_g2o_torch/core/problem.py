@@ -8,8 +8,8 @@ slots and are masked (their Jacobian columns are zeroed, the diagonal gets
 a 1). The JAX pytree becomes plain dicts keyed by group name, holding torch
 tensors on one device in one dtype.
 
-Every type of models/slam2d.py and models/slam3d.py and the expmap family
-of models/sba.py are supported. An edge type without an analytic Jacobian
+Every type of models/slam2d.py, models/slam3d.py and models/sba.py is
+supported. An edge type without an analytic Jacobian
 is differentiated in forward mode (`linearize`).
 """
 from __future__ import annotations
@@ -32,14 +32,17 @@ __all__ = [
 ]
 
 SUPPORTED_VERTEX_TYPES = ("se2", "point_xy", "se3", "point_xyz",
-                          "se3_expmap", "sba_point_xyz")
+                          "se3_expmap", "sba_point_xyz", "cam", "intrinsics")
 SUPPORTED_EDGE_TYPES = (
     "edge_se2", "edge_se2_xy", "edge_se2_xy_bearing", "edge_se2_prior",
     "edge_se2_prior_xy", "edge_se2_xy_calib", "edge_se2_offset",
     "edge_se2_xy_offset",
     "edge_se3", "edge_se3_xyz", "edge_se3_depth", "edge_se3_disparity",
     "edge_se3_prior", "edge_se3_offset",
-    "edge_se3_expmap", "edge_project_xyz2uv", "edge_project_xyz2uvu")
+    "edge_se3_expmap", "edge_project_xyz2uv", "edge_project_xyz2uvu",
+    "edge_project_psi2uv", "edge_project_p2mc",
+    "edge_project_p2mc_intrinsics", "edge_project_p2sc", "edge_sba_cam",
+    "edge_sba_scale")
 
 
 @dataclass(frozen=True)
@@ -143,8 +146,7 @@ def resolve_device(device=None) -> torch.device:
 
 def check_supported(vtype_names, etype_names):
     """Raise NotImplementedError for types that are not ported: all but the
-    2D and 3D SLAM vertex types and the expmap BA vertices, the edge types
-    of models/slam2d.py, models/slam3d.py and the expmap family of
+    vertex and edge types of models/slam2d.py, models/slam3d.py and
     models/sba.py, and any other registered edge type between those
     vertices (the forward-mode linearizer serves it)."""
     bad = sorted(set(vtype_names) - set(SUPPORTED_VERTEX_TYPES))
@@ -155,7 +157,7 @@ def check_supported(vtype_names, etype_names):
     if bad:
         raise NotImplementedError(
             f"type(s) {bad} are not ported to openslam_g2o_torch yet: the 2D "
-            "and 3D SLAM types and the expmap BA types are (ROADMAP.md, "
+            "and 3D SLAM types and the BA types are (ROADMAP.md, "
             "'Modules still to port')")
 
 

@@ -9,7 +9,11 @@ of the arguments decides. Every wrapper counts the calls in which it
 launched its kernel in a plain integer attribute, `wrapper.launches`
 (`cg_finish` and `gershgorin_bound` are two-pass reductions: one counted
 call launches two kernels per vector, respectively two; `ba_schur_dense`
-launches the zero fill of S and its pair kernel).
+launches the zero fill of S and its pair kernel; `ba_wv` and
+`ba_sandwich` launch their chunk pass and their vertex pass).
+`ba_block_inv` and `lane_block_mv`, which serve several block widths on
+one path, also count their launches per width D in
+`wrapper.launches_by_width` (a Counter).
 
 The block-ELL kernels (A, C, K3, K4, `spmv_dot`, `gershgorin_bound`) are
 instantiated for 3x3 blocks (SE2 poses) and 6x6 blocks (SE3 poses); the
@@ -39,13 +43,19 @@ shapes of the arguments pick the instantiation.
     ba_coupling.ba_wtx           W^T x, landmark solve     (ROADMAP K13)
     ba_coupling.ba_wv            W v, S x, reduced rhs     (ROADMAP K13)
     ba_coupling.ba_sandwich      preconditioner blocks     (ROADMAP K13)
+    schur_general.schur_edge_blocks  general Schur edge blocks (ROADMAP K14)
+
+The general Schur path (core/ba.py) also runs K10's `ba_lm_sums` without
+its W layout, K13's three products once per pose group (`ba_wtx`
+accumulating, all three at (Dp, dl) = (4, 3) too), K11 and K4's
+`lane_block_mv` at D = 4, and K15 on the pose slots of its edges.
 """
 from __future__ import annotations
 
 from openslam_g2o_torch.kernels import (
     assemble, ba_coupling, ba_edge, ba_inv, ba_schur, cg_step, chebyshev,
     damp_chol, dense_assemble, edge_se2, edge_se3, gather, jacobi_scale,
-    retract_chi2, spmv)
+    retract_chi2, schur_general, spmv)
 
 # the wrapper functions, which own the launch counts (several share their
 # module's name, so the modules are what this package exports)
@@ -63,7 +73,8 @@ WRAPPERS = (
     dense_assemble.dense_assemble, ba_edge.ba_xyz2uv_blocks,
     ba_edge.ba_edge_blocks, ba_edge.ba_lm_sums, ba_edge.ba_cam_sums,
     ba_inv.ba_block_inv, ba_schur.ba_schur_dense, ba_coupling.ba_wtx,
-    ba_coupling.ba_wv, ba_coupling.ba_sandwich)
+    ba_coupling.ba_wv, ba_coupling.ba_sandwich,
+    schur_general.schur_edge_blocks)
 
 
 def launch_counts() -> dict:
@@ -74,3 +85,5 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     for w in WRAPPERS:
         w.launches = 0
+        if hasattr(w, "launches_by_width"):
+            w.launches_by_width.clear()

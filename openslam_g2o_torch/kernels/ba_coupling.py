@@ -2,21 +2,26 @@
 
 Replaces `_apply_w_lane` (openslam_g2o_tpu/core/ba_ell.py:482-510),
 `_sandwich_lane` (:513-534) and the implicit `s_matvec` (:774-797) with
-the block applications around them. Vectors are lane-major: camera vectors
-[Dp, C], landmark vectors [dl, L]. W is held landmark-major (W_lm
-[Dp*dl, K, L] with the slot table lm_cam [K, L] of camera ids, -1 on
-padding) for W^T x, and camera-major (W_cam [Dp*dl, E] in the CSR order of
-cam_ptr [C + 1] with the landmark of each entry, cam_lm [E]) for W v, as
-kernels/ba_edge.py lays them out.
+the block applications around them, and the W products of the general
+Schur path's `schur_solve` (openslam_g2o_tpu/core/ba.py:199-287). Vectors
+are lane-major: pose vectors [Dp, N], landmark vectors [dl, L]. W is held
+twice: landmark-major (W_lm [Dp*dl, K, L] with the slot table lm_cam
+[K, L] of pose ids, -1 on padding) for W^T x, and pose-major (W_cam
+[Dp*dl, M] in the CSR order of `PoseRows`) for W v and the preconditioner
+blocks, as kernels/ba_edge.py and kernels/schur_general.py lay them out.
 
-`SchurOperator` is the implicit reduced camera system
-S = Hcc_d (+ Hpp_extra) - W Hinv W^T with a fused `matvec_dot`, so that
-core/solvers.py `pcg_solve` drives it as it drives the pose-graph
+`SchurOperator` is the implicit reduced camera system of the dual-ELL
+route, S = Hcc_d (+ Hpp_extra) - W Hinv W^T with a fused `matvec_dot`, so
+that core/solvers.py `pcg_solve` drives it as it drives the pose-graph
 operator: one S x is `ba_wtx` (W^T x, then Hinv) and `ba_wv` (Hcc_d x -
-W v and the per-camera partial dots).
+W v and the per-camera partial dots). core/ba.py builds the general path's
+operator from the same three products.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from openslam_g2o_torch.kernels import build
@@ -25,12 +30,64 @@ from openslam_g2o_torch.kernels._checks import (
 from openslam_g2o_torch.kernels.ba_edge import BLOCK_DIMS
 
 
+# the (Dp, dl) instantiations: the BA widths and the intrinsics group of
+# the general Schur path
+DIMS = BLOCK_DIMS + ((4, 3),)
+CHUNK = 256                        # W entries per block of the first pass
+
+
+@dataclass
+class PoseRows:
+    """The W entries of one pose group in pose-major CSR order: the entries
+    of vertex n are positions ptr[n]:ptr[n+1]; lm [M] is the landmark of
+    each position. The positions are cut into chunks of at most CHUNK
+    consecutive entries of one vertex: chunk c is positions
+    chunk_ptr[c]:chunk_ptr[c+1], and vertex n owns chunks
+    row_chunk[n]:row_chunk[n+1]. All int32 on the device."""
+    ptr: torch.Tensor
+    lm: torch.Tensor
+    chunk_ptr: torch.Tensor
+    row_chunk: torch.Tensor
+
+    @property
+    def n_rows(self):
+        return self.ptr.shape[0] - 1
+
+    @property
+    def n_chunks(self):
+        return self.chunk_ptr.shape[0] - 1
+
+    @property
+    def n_entries(self):
+        return self.lm.shape[0]
+
+
+def build_pose_rows(counts, lm_sorted, device) -> PoseRows:
+    """PoseRows from the number of entries of every vertex (numpy [N]) and
+    the landmark of every position in CSR order (numpy [M])."""
+    counts = np.asarray(counts, dtype=np.int64)
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    n_chunk = (counts + CHUNK - 1) // CHUNK
+    row_chunk = np.concatenate([[0], np.cumsum(n_chunk)])
+    row_of = np.repeat(np.arange(len(counts)), n_chunk)
+    starts = ptr[row_of] + (np.arange(len(row_of)) - row_chunk[row_of]) * CHUNK
+    chunk_ptr = np.concatenate([starts, [ptr[-1]]])
+    i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
+                                    device=device)
+    return PoseRows(i32(ptr), i32(lm_sorted), i32(chunk_ptr), i32(row_chunk))
+
+
+def _row_ints(rows: PoseRows):
+    return {"lm": rows.lm, "chunk_ptr": rows.chunk_ptr,
+            "row_chunk": rows.row_chunk}
+
+
 def _dims(w, dx_rows, name):
-    for dp, dl in BLOCK_DIMS:
+    for dp, dl in DIMS:
         if w.shape[0] == dp * dl and dx_rows in (dp, dl):
             return dp, dl
     raise ValueError(f"{name}: W of {w.shape[0]} rows fits no (Dp, dl) in "
-                     f"{BLOCK_DIMS}")
+                     f"{DIMS}")
 
 
 def _lane_mv(A, x):
@@ -39,7 +96,7 @@ def _lane_mv(A, x):
     return (A.view(D, D, -1) * x[None]).sum(dim=1)
 
 
-def ba_wtx_plain(w_lm, lm_cam, x, hinv=None, b=None, free=None):
+def ba_wtx_plain(w_lm, lm_cam, x, hinv=None, b=None, free=None, acc=None):
     dp = x.shape[0]
     dl = w_lm.shape[0] // dp
     K, L = lm_cam.shape
@@ -49,16 +106,19 @@ def ba_wtx_plain(w_lm, lm_cam, x, hinv=None, b=None, free=None):
                                             device=x.device))
     W4 = w_lm.view(dp, dl, K, L)
     u = (W4 * xg[:, None]).sum(dim=(0, 2))                      # [dl, L]
+    if acc is not None:
+        u = acc + u
     r = u if b is None else b - u
     y = r if hinv is None else _lane_mv(hinv, r)
     return y if free is None else y * free[None]
 
 
-def ba_wtx(w_lm, lm_cam, x, hinv=None, b=None, free=None):
-    """out [dl, L] = ((b - W^T x) or W^T x, then Hinv applied if given)
-    times free if given: u[t, l] = sum_k sum_s W[s, t, k, l]
-    x[s, cam(k, l)]. x [Dp, C]; hinv [dl*dl, L]; b [dl, L]; free [L]. K13 on
-    CUDA tensors, the plain version on CPU tensors."""
+def ba_wtx(w_lm, lm_cam, x, hinv=None, b=None, free=None, acc=None):
+    """out [dl, L] = ((b - u) or u, then Hinv applied if given) times free
+    if given, u = acc + W^T x (acc optional): (W^T x)[t, l] = sum_k sum_s
+    W[s, t, k, l] x[s, cam(k, l)]. x [Dp, C]; hinv [dl*dl, L]; b, acc
+    [dl, L]; free [L]. (Dp, dl) in DIMS. K13 on CUDA tensors, the plain
+    version on CPU tensors."""
     # S x runs this once per CG iteration: the messages are only built on
     # failure
     if not (x.dim() == 2 and w_lm.dim() == 3 and lm_cam.dim() == 2
@@ -69,7 +129,7 @@ def ba_wtx(w_lm, lm_cam, x, hinv=None, b=None, free=None):
     K, L = lm_cam.shape
     floats = {"w_lm": w_lm, "x": x}
     for name, t, shape in (("hinv", hinv, (dl * dl, L)), ("b", b, (dl, L)),
-                           ("free", free, (L,))):
+                           ("free", free, (L,)), ("acc", acc, (dl, L))):
         if t is not None:
             if t.shape != shape:
                 raise ValueError(f"ba_wtx: {name} must be {shape}")
@@ -78,14 +138,14 @@ def ba_wtx(w_lm, lm_cam, x, hinv=None, b=None, free=None):
         raise ValueError(f"ba_wtx: x must have {dp} rows")
     check_tensors("ba_wtx", x.device, x.dtype, floats, {"lm_cam": lm_cam})
     if not launch_device("ba_wtx", x.device):
-        return ba_wtx_plain(w_lm, lm_cam, x, hinv, b, free)
+        return ba_wtx_plain(w_lm, lm_cam, x, hinv, b, free, acc)
     out = torch.empty((dl, L), dtype=x.dtype, device=x.device)
     if L == 0:
         return out
     ptr = lambda t: None if t is None else t.data_ptr()
     build.launch("g2o_ba_wtx", x, w_lm.data_ptr(), lm_cam.data_ptr(),
                  x.data_ptr(), L, K, x.shape[1], ptr(hinv), ptr(b), ptr(free),
-                 dp, dl, out.data_ptr())
+                 ptr(acc), dp, dl, out.data_ptr())
     ba_wtx.launches += 1
     return out
 
@@ -93,22 +153,20 @@ def ba_wtx(w_lm, lm_cam, x, hinv=None, b=None, free=None):
 ba_wtx.launches = 0
 
 
-def _cam_owner(cam_ptr):
-    C = cam_ptr.shape[0] - 1
-    counts = (cam_ptr[1:] - cam_ptr[:-1]).long()
-    return torch.repeat_interleave(torch.arange(C, device=cam_ptr.device),
-                                   counts)
+def _owner(rows):
+    counts = (rows.ptr[1:] - rows.ptr[:-1]).long()
+    return torch.repeat_interleave(
+        torch.arange(rows.n_rows, device=rows.ptr.device), counts)
 
 
-def ba_wv_plain(w_cam, cam_ptr, cam_lm, v, base=None, hcc_d=None, x=None,
-                extra=None, free=None, want_dot=False):
+def ba_wv_plain(w_cam, rows, v, base=None, hcc_d=None, x=None, extra=None,
+                free=None, want_dot=False):
     dl = v.shape[0]
     dp = w_cam.shape[0] // dl
-    C = cam_ptr.shape[0] - 1
-    vg = v[:, cam_lm.long()]                                    # [dl, E]
-    per = (w_cam.view(dp, dl, -1) * vg[None]).sum(dim=1)        # [Dp, E]
-    wv = torch.zeros((dp, C), dtype=v.dtype, device=v.device).index_add_(
-        1, _cam_owner(cam_ptr), per)
+    vg = v[:, rows.lm.long()]                                   # [dl, M]
+    per = (w_cam.view(dp, dl, -1) * vg[None]).sum(dim=1)        # [Dp, M]
+    wv = torch.zeros((dp, rows.n_rows), dtype=v.dtype,
+                     device=v.device).index_add_(1, _owner(rows), per)
     head = torch.zeros_like(wv) if base is None else base
     if hcc_d is not None:
         hx = _lane_mv(hcc_d, x)
@@ -119,54 +177,56 @@ def ba_wv_plain(w_cam, cam_ptr, cam_lm, v, base=None, hcc_d=None, x=None,
     if free is not None:
         y = y * free[None]
     if want_dot:
-        return y, (x * y).sum().reshape(1)
+        return y, (x * y).sum(dim=0)
     return y
 
 
-def ba_wv(w_cam, cam_ptr, cam_lm, v, base=None, hcc_d=None, x=None,
+def ba_wv(w_cam, rows: PoseRows, v, base=None, hcc_d=None, x=None,
           extra=None, free=None, want_dot=False):
-    """y [Dp, C] = (base + Hcc_d x + extra - W v) times free, every term
-    but W v optional: (W v)[s, c] = sum over camera c's observations j of
-    sum_t W_cam[s, t, j] v[t, cam_lm[j]]. With want_dot also the partial
-    sums of x . y (one per camera on the card), as (y, partials). v [dl, L];
-    base, x, extra [Dp, C]; hcc_d [Dp*Dp, C]; free [C]. K13 on CUDA tensors,
-    the plain version on CPU tensors."""
-    if not (v.dim() == 2 and w_cam.dim() == 2 and cam_ptr.dim() == 1
-            and cam_lm.shape == (w_cam.shape[1],)):
-        raise ValueError("ba_wv: w_cam must be [Dp*dl, E], cam_lm [E], "
-                         "v [dl, L]")
+    """y [Dp, N] = (base + Hcc_d x + extra - W v) times free, every term
+    but W v optional: (W v)[s, n] = sum over vertex n's entries j of
+    sum_t W_cam[s, t, j] v[t, rows.lm[j]]. With want_dot also the partial
+    sums of x . y, one per vertex, as (y, partials [N]). v [dl, L]; base,
+    x, extra [Dp, N]; hcc_d [Dp*Dp, N]; free [N]. K13 on CUDA tensors (two
+    passes: the chunks, then the vertices), the plain version on CPU
+    tensors."""
+    if not (v.dim() == 2 and w_cam.dim() == 2
+            and rows.lm.shape == (w_cam.shape[1],)):
+        raise ValueError("ba_wv: w_cam must be [Dp*dl, M] with one landmark "
+                         "per position of rows, v [dl, L]")
     dp, dl = _dims(w_cam, v.shape[0], "ba_wv")
     if v.shape[0] != dl:
         raise ValueError(f"ba_wv: v must have {dl} rows")
-    if (hcc_d is None) != (x is None) or (want_dot and x is None):
-        raise ValueError("ba_wv: hcc_d and x go together, and the dot "
-                         "needs x")
-    C = cam_ptr.shape[0] - 1
+    if (hcc_d is not None or want_dot) and x is None:
+        raise ValueError("ba_wv: hcc_d and the dot need x")
+    N = rows.n_rows
     floats = {"w_cam": w_cam, "v": v}
-    for name, t, shape in (("base", base, (dp, C)),
-                           ("hcc_d", hcc_d, (dp * dp, C)), ("x", x, (dp, C)),
-                           ("extra", extra, (dp, C)), ("free", free, (C,))):
+    for name, t, shape in (("base", base, (dp, N)),
+                           ("hcc_d", hcc_d, (dp * dp, N)), ("x", x, (dp, N)),
+                           ("extra", extra, (dp, N)), ("free", free, (N,))):
         if t is not None:
             if t.shape != shape:
                 raise ValueError(f"ba_wv: {name} must be {shape}")
             floats[name] = t
-    check_tensors("ba_wv", v.device, v.dtype, floats,
-                  {"cam_ptr": cam_ptr, "cam_lm": cam_lm})
+    check_tensors("ba_wv", v.device, v.dtype, floats, _row_ints(rows))
     if not launch_device("ba_wv", v.device):
-        return ba_wv_plain(w_cam, cam_ptr, cam_lm, v, base, hcc_d, x, extra,
-                           free, want_dot)
-    y = torch.empty((dp, C), dtype=v.dtype, device=v.device)
-    partials = (torch.empty(max(C, 1), dtype=v.dtype, device=v.device)
+        return ba_wv_plain(w_cam, rows, v, base, hcc_d, x, extra, free,
+                           want_dot)
+    y = torch.empty((dp, N), dtype=v.dtype, device=v.device)
+    partials = (torch.empty(max(N, 1), dtype=v.dtype, device=v.device)
                 if want_dot else None)
-    if C == 0:
+    if N == 0:
         if partials is not None:
             partials.zero_()
         return (y, partials) if want_dot else y
+    part = torch.empty((dp, max(rows.n_chunks, 1)), dtype=v.dtype,
+                       device=v.device)
     ptr = lambda t: None if t is None else t.data_ptr()
-    build.launch("g2o_ba_wv", v, w_cam.data_ptr(), cam_ptr.data_ptr(),
-                 cam_lm.data_ptr(), v.data_ptr(), C, v.shape[1],
-                 w_cam.shape[1], ptr(base), ptr(hcc_d), ptr(x), ptr(extra),
-                 ptr(free), dp, dl, y.data_ptr(), ptr(partials))
+    build.launch("g2o_ba_wv", v, w_cam.data_ptr(), rows.lm.data_ptr(),
+                 rows.chunk_ptr.data_ptr(), rows.row_chunk.data_ptr(),
+                 v.data_ptr(), v.shape[1], w_cam.shape[1], rows.n_chunks, N,
+                 ptr(base), ptr(hcc_d), ptr(x), ptr(extra), ptr(free), dp, dl,
+                 part.data_ptr(), y.data_ptr(), ptr(partials))
     ba_wv.launches += 1
     return (y, partials) if want_dot else y
 
@@ -174,45 +234,47 @@ def ba_wv(w_cam, cam_ptr, cam_lm, v, base=None, hcc_d=None, x=None,
 ba_wv.launches = 0
 
 
-def ba_sandwich_plain(w_cam, cam_ptr, cam_lm, hinv, hcc_d):
+def ba_sandwich_plain(w_cam, rows, hinv, hcc_d):
     dl = int(round(hinv.shape[0] ** 0.5))
     dp = w_cam.shape[0] // dl
-    C = cam_ptr.shape[0] - 1
     W4 = w_cam.view(dp, dl, -1)
-    Mg = hinv.view(dl, dl, -1)[:, :, cam_lm.long()]             # [dl, dl, E]
-    tmp = (W4[:, :, None] * Mg[None]).sum(dim=1)                # [Dp, dl, E]
-    per = (tmp[:, None] * W4[None]).sum(dim=2)                  # [Dp, Dp, E]
-    corr = torch.zeros((dp * dp, C), dtype=hinv.dtype,
+    Mg = hinv.view(dl, dl, -1)[:, :, rows.lm.long()]            # [dl, dl, M]
+    tmp = (W4[:, :, None] * Mg[None]).sum(dim=1)                # [Dp, dl, M]
+    per = (tmp[:, None] * W4[None]).sum(dim=2)                  # [Dp, Dp, M]
+    corr = torch.zeros((dp * dp, rows.n_rows), dtype=hinv.dtype,
                        device=hinv.device).index_add_(
-        1, _cam_owner(cam_ptr), per.reshape(dp * dp, -1))
+        1, _owner(rows), per.reshape(dp * dp, -1))
     return hcc_d - corr
 
 
-def ba_sandwich(w_cam, cam_ptr, cam_lm, hinv, hcc_d):
+def ba_sandwich(w_cam, rows: PoseRows, hinv, hcc_d):
     """The block-Jacobi blocks of S: Hcc_d - sum_j W_j Hinv_lm(j) W_j^T per
-    camera, [Dp*Dp, C] (hinv [dl*dl, L], hcc_d [Dp*Dp, C]). K13 on CUDA
-    tensors, the plain version on CPU tensors."""
-    require(hinv.dim() == 2 and w_cam.dim() == 2 and cam_ptr.dim() == 1
-            and cam_lm.shape == (w_cam.shape[1],),
-            "ba_sandwich: w_cam must be [Dp*dl, E], cam_lm [E], hinv "
-            "[dl*dl, L]")
+    pose vertex, [Dp*Dp, N] (hinv [dl*dl, L], hcc_d [Dp*Dp, N]). K13 on CUDA
+    tensors (two passes), the plain version on CPU tensors."""
+    require(hinv.dim() == 2 and w_cam.dim() == 2
+            and rows.lm.shape == (w_cam.shape[1],),
+            "ba_sandwich: w_cam must be [Dp*dl, M] with one landmark per "
+            "position of rows, hinv [dl*dl, L]")
     dl = int(round(hinv.shape[0] ** 0.5))
     dp, _ = _dims(w_cam, dl, "ba_sandwich")
-    C = cam_ptr.shape[0] - 1
-    require(hcc_d.shape == (dp * dp, C) and hinv.shape[0] == dl * dl,
-            f"ba_sandwich: hcc_d must be {(dp * dp, C)}")
+    N = rows.n_rows
+    require(hcc_d.shape == (dp * dp, N) and hinv.shape[0] == dl * dl,
+            f"ba_sandwich: hcc_d must be {(dp * dp, N)}")
     check_tensors("ba_sandwich", hinv.device, hinv.dtype,
                   {"w_cam": w_cam, "hinv": hinv, "hcc_d": hcc_d},
-                  {"cam_ptr": cam_ptr, "cam_lm": cam_lm})
+                  _row_ints(rows))
     if not launch_device("ba_sandwich", hinv.device):
-        return ba_sandwich_plain(w_cam, cam_ptr, cam_lm, hinv, hcc_d)
+        return ba_sandwich_plain(w_cam, rows, hinv, hcc_d)
     out = torch.empty_like(hcc_d)
-    if C == 0:
+    if N == 0:
         return out
+    part = torch.empty((dp * dp, max(rows.n_chunks, 1)), dtype=hinv.dtype,
+                       device=hinv.device)
     build.launch("g2o_ba_sandwich", hinv, w_cam.data_ptr(),
-                 cam_ptr.data_ptr(), cam_lm.data_ptr(), hinv.data_ptr(), C,
-                 hinv.shape[1], w_cam.shape[1], hcc_d.data_ptr(), dp, dl,
-                 out.data_ptr())
+                 rows.lm.data_ptr(), rows.chunk_ptr.data_ptr(),
+                 rows.row_chunk.data_ptr(), hinv.data_ptr(), hinv.shape[1],
+                 w_cam.shape[1], rows.n_chunks, N, hcc_d.data_ptr(), dp, dl,
+                 part.data_ptr(), out.data_ptr())
     ba_sandwich.launches += 1
     return out
 
@@ -228,11 +290,11 @@ class SchurOperator:
     with torch.matmul on the flat [C, Dp] ordering, as the JAX code
     applies it with XLA."""
 
-    def __init__(self, name, w_lm, lm_cam, w_cam, cam_ptr, cam_lm, hinv,
-                 hcc_d, hpp_extra=None):
+    def __init__(self, name, w_lm, lm_cam, w_cam, cam_rows, hinv, hcc_d,
+                 hpp_extra=None):
         self.name = name
         self.w_lm, self.lm_cam = w_lm, lm_cam
-        self.w_cam, self.cam_ptr, self.cam_lm = w_cam, cam_ptr, cam_lm
+        self.w_cam, self.cam_rows = w_cam, cam_rows
         self.hinv, self.hcc_d, self.hpp_extra = hinv, hcc_d, hpp_extra
 
     def _apply(self, x, want_dot):
@@ -242,8 +304,8 @@ class SchurOperator:
             dp, C = x.shape
             extra = (self.hpp_extra @ x.T.reshape(-1)).view(C, dp).T \
                 .contiguous()
-        return ba_wv(self.w_cam, self.cam_ptr, self.cam_lm, v,
-                     hcc_d=self.hcc_d, x=x, extra=extra, want_dot=want_dot)
+        return ba_wv(self.w_cam, self.cam_rows, v, hcc_d=self.hcc_d, x=x,
+                     extra=extra, want_dot=want_dot)
 
     def __call__(self, p: dict) -> dict:
         return {self.name: self._apply(p[self.name], False)}

@@ -193,37 +193,60 @@ def ba_xyz2uv_blocks(points, cams, li, ci, meas, info, delta, camp, free_l,
 ba_xyz2uv_blocks.launches = 0
 
 
-def ba_lm_sums_plain(streams, lm_edge):
+@dataclass
+class LandmarkStreams:
+    """The landmark half of the per-edge blocks, lane-major: hll
+    [dl*dl, E], bl [dl, E] (the general Schur path, core/ba.py, whose edge
+    kernel writes W in place)."""
+    hll: torch.Tensor
+    bl: torch.Tensor
+
+
+def ba_lm_sums_plain(streams, lm_edge, with_w=True):
     valid = lm_edge >= 0
     idx = lm_edge.clamp_min(0).long()
     zero = torch.zeros((), dtype=streams.bl.dtype, device=streams.bl.device)
     take = lambda s: torch.where(valid, s[:, idx], zero)     # [rows, K, L]
     return (take(streams.hll).sum(dim=1), take(streams.bl).sum(dim=1),
-            take(streams.w))
+            take(streams.w) if with_w else None)
 
 
-def ba_lm_sums(streams: EdgeStreams, lm_edge):
+def ba_lm_sums(streams, lm_edge, with_w=True):
     """(Hll [dl*dl, L], b_l [dl, L], W_lm [Dp*dl, K, L]) from the streams
     and the landmark slot table lm_edge [K, L] (observation id, -1 on
-    padding; W_lm is zero there). K10 on CUDA tensors, the plain version on
-    CPU tensors."""
-    dp, dl = streams.dims
+    padding; W_lm is zero there). with_w=False sums Hll and b_l alone and
+    returns None for W_lm; `streams` then only needs hll and bl (a
+    LandmarkStreams). K10 on CUDA tensors, the plain version on CPU
+    tensors."""
     require(lm_edge.dim() == 2, "ba_lm_sums: lm_edge must be [K, L]")
     K, L = lm_edge.shape
     dev, dt = streams.bl.device, streams.bl.dtype
-    _check_streams("ba_lm_sums", streams, dev, dt)
+    dl = streams.bl.shape[0]
+    if with_w:
+        dp, dl = streams.dims
+        _check_streams("ba_lm_sums", streams, dev, dt)
+    else:
+        require(dl in (2, 3), f"ba_lm_sums: dl = {dl} not in (2, 3)")
+        dp = 6 if dl == 3 else 3          # the instantiation; W untouched
+        require(streams.hll.shape == (dl * dl, streams.bl.shape[1]),
+                "ba_lm_sums: hll must be [dl*dl, E] beside bl [dl, E]")
+        check_tensors("ba_lm_sums", dev, dt,
+                      {"hll": streams.hll, "bl": streams.bl}, {})
     check_tensors("ba_lm_sums", dev, dt, {}, {"lm_edge": lm_edge})
     if not launch_device("ba_lm_sums", dev):
-        return ba_lm_sums_plain(streams, lm_edge)
+        return ba_lm_sums_plain(streams, lm_edge, with_w)
     hll = torch.empty((dl * dl, L), dtype=dt, device=dev)
     bl = torch.empty((dl, L), dtype=dt, device=dev)
-    w_lm = torch.empty((dp * dl, K, L), dtype=dt, device=dev)
+    w_lm = (torch.empty((dp * dl, K, L), dtype=dt, device=dev) if with_w
+            else None)
     if L == 0:
         return hll, bl, w_lm
     build.launch("g2o_ba_lm_sums", bl, streams.hll.data_ptr(),
-                 streams.bl.data_ptr(), streams.w.data_ptr(),
+                 streams.bl.data_ptr(),
+                 streams.w.data_ptr() if with_w else None,
                  lm_edge.data_ptr(), L, K, streams.bl.shape[1], dp, dl,
-                 hll.data_ptr(), bl.data_ptr(), w_lm.data_ptr())
+                 hll.data_ptr(), bl.data_ptr(),
+                 None if w_lm is None else w_lm.data_ptr())
     ba_lm_sums.launches += 1
     return hll, bl, w_lm
 

@@ -3,13 +3,21 @@
 
 Replaces `_inv_lane` (openslam_g2o_tpu/core/ba_ell.py:376-417) with the
 damping of `_solve` folded in (:686-688, :694-702). Blocks are lane-major
-[D*D, N] tables (entry D a + b of block n), D in {2, 3, 6}. The inverse is
-the JAX formula: the closed-form adjugate for D <= 3, the 2x2-block Schur
-inversion with 3x3 quadrants for D = 6; no Cholesky, so an indefinite block
-gives the same values on both packages and the dense factorization of S or
-PCG decides whether the solve is usable, as in the JAX code.
+[D*D, N] tables (entry D a + b of block n), D in {2, 3, 4, 6}. The inverse
+is the JAX formula: the closed-form adjugate for D <= 3, the 2x2-block
+Schur inversion with 3x3 quadrants for D = 6 and with 2x2 quadrants for
+D = 4 (the intrinsics blocks of the general Schur path, core/ba.py, where
+the JAX package calls jnp.linalg.inv: equal to rounding). No Cholesky, so
+an indefinite block gives the same values on both packages and the dense
+factorization of S or PCG decides whether the solve is usable, as in the
+JAX code. A block whose products overflow gives NaN where the plain
+version does: the kernel rounds every product on its own (ba_inv.cu is
+built without FMA contraction, kernels/build.py), so inf - inf stays NaN
+and is not contracted into a finite value.
 """
 from __future__ import annotations
+
+import collections
 
 import torch
 
@@ -17,7 +25,7 @@ from openslam_g2o_torch.kernels import build
 from openslam_g2o_torch.kernels._checks import (
     check_tensors, launch_device, require)
 
-WIDTHS = (2, 3, 6)
+WIDTHS = (2, 3, 4, 6)
 PLAIN, LANDMARK, CAMERA = 0, 1, 2          # the damping modes
 
 
@@ -124,7 +132,9 @@ def ba_block_inv(A, mode: int = PLAIN, free=None, lam=None, b=None,
     build.launch("g2o_ba_inv", A, A.data_ptr(), ptr(free), ptr(lam), ptr(b),
                  N, D, mode, ptr(damped), ptr(inv), ptr(hib))
     ba_block_inv.launches += 1
+    ba_block_inv.launches_by_width[D] += 1
     return damped, inv, hib
 
 
 ba_block_inv.launches = 0
+ba_block_inv.launches_by_width = collections.Counter()

@@ -24,6 +24,11 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 # and the angle wrap must match the floor formula bit for bit.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Per source, added to NVCC_FLAGS. The block inverses round every product
+# on its own, as their plain version does: a contracted a*d - b*c is finite
+# where the separate products overflow to inf - inf = NaN, and the NaN is
+# what tells PCG and LM that the block is unusable.
+SOURCE_FLAGS = {"ba_inv.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -55,8 +60,8 @@ _SIGNATURES = {
     "g2o_chebyshev_update": (_P, _I, _P, _P, _P, _P, _I, _P),
     "g2o_lane_gather": (_P, _P, _P, _I, _I, _I, _P),
     "g2o_dense_zero": (_P, _L, _P),
-    "g2o_dense_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _P),
+    "g2o_dense_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "g2o_dense_finalize": (_P, _P, _P, _I, _I, _P),
     "g2o_retract_se2": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
     "g2o_se2_edge_chi2": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P),
@@ -70,12 +75,15 @@ _SIGNATURES = {
     "g2o_ba_lm_sums": (_P, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P),
     "g2o_ba_cam_sums": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P),
     "g2o_ba_inv": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
-    "g2o_ba_wtx": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _P, _P),
-    "g2o_ba_wv": (_P, _P, _P, _P, _I, _I, _L, _P, _P, _P, _P, _P, _I, _I,
-                  _P, _P, _P),
-    "g2o_ba_sandwich": (_P, _P, _P, _P, _I, _I, _L, _P, _I, _I, _P, _P),
+    "g2o_ba_wtx": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P),
+    "g2o_ba_wv": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P, _P,
+                  _I, _I, _P, _P, _P, _P),
+    "g2o_ba_sandwich": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _I, _I, _P,
+                        _P, _P),
     "g2o_ba_schur": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I,
                      _I, _I, _P, _P),
+    "g2o_schur_edge": (_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _P, _P,
+                       _P, _L, _P, _P, _L, _P, _P),
 }
 
 _lib = None
@@ -88,6 +96,7 @@ def sources():
 
 def _digest():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for path in sources():
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -123,7 +132,8 @@ def build() -> Path:
         for src in sorted(CSRC.glob("*.cu")):
             obj = os.path.join(tmp, src.stem + ".o")
             jobs.append((src.name, obj, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", obj],
+                [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src.name, ()), "-c",
+                 str(src), "-o", obj],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         logs, failed = [], []
         for name, _, proc in jobs:            # wait for all of them

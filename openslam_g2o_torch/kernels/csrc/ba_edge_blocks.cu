@@ -15,7 +15,9 @@
 //                edge type: R in {1, 2, 3}, (Dp, dl) in {(6, 3), (3, 2)}.
 //   ba_lm_sums   one thread per landmark: Hll and b_l over its slots of the
 //                landmark table in slot order, and W copied into the
-//                landmark-major [Dp*dl, K, L] layout (zeros on padding).
+//                landmark-major [Dp*dl, K, L] layout (zeros on padding);
+//                without W (null w_e and w_lm) for the general Schur path,
+//                whose edge kernel writes W itself (schur_general.cu).
 //   ba_cam_sums  one block per camera: Hcc and b_p over its CSR list, each
 //                thread a strided share, then block_reduce_values (a fixed
 //                tree: no atomics, the same bits every run); and W copied
@@ -147,16 +149,20 @@ __global__ void ba_lm_sums_kernel(
     const long long o = lm_edge[k * L + l];
     const long long pos = k * L + l;
     if (o < 0) {
+      if (w_lm != nullptr) {
 #pragma unroll
-      for (int q = 0; q < DW; ++q) w_lm[q * KL + pos] = T(0);
+        for (int q = 0; q < DW; ++q) w_lm[q * KL + pos] = T(0);
+      }
       continue;
     }
 #pragma unroll
     for (int q = 0; q < DD; ++q) h[q] += hll_e[q * ld + o];
 #pragma unroll
     for (int q = 0; q < DL; ++q) b[q] += bl_e[q * ld + o];
+    if (w_lm != nullptr) {
 #pragma unroll
-    for (int q = 0; q < DW; ++q) w_lm[q * KL + pos] = w_e[q * ld + o];
+      for (int q = 0; q < DW; ++q) w_lm[q * KL + pos] = w_e[q * ld + o];
+    }
   }
 #pragma unroll
   for (int q = 0; q < DD; ++q) hll[q * L + l] = h[q];

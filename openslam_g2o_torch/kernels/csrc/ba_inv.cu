@@ -2,7 +2,8 @@
 //
 // Replaces `_inv_lane` (openslam_g2o_tpu/core/ba_ell.py:376-417) with the
 // damping of `_solve` folded in (:686-688, :694-702). One thread per block
-// of a lane-major [D*D, N] table, D in {2, 3, 6}:
+// of a lane-major [D*D, N] table, D in {2, 3, 4, 6} (4: the intrinsics
+// blocks of the general Schur path's preconditioner, core/ba.py):
 //
 //   mode 0  inv = A^-1                         (the preconditioner blocks)
 //   mode 1  A + I (lam free + (1 - free)), inverted (landmarks: a fixed
@@ -12,11 +13,16 @@
 //           asked for
 //
 // The inverse keeps the JAX formula, operation by operation: the
-// closed-form adjugate for D <= 3 and, for D = 6, the 2x2-block Schur
-// inversion with 3x3 quadrants. No Cholesky: an indefinite block gives the
-// same finite (or non-finite) values as the JAX code, and whether the solve
-// is usable is decided where the JAX package decides it, by the dense
-// factorization of S or by PCG.
+// closed-form adjugate for D <= 3 and, for D = 6 and 4, the 2x2-block Schur
+// inversion with 3x3 or 2x2 quadrants. (The general Schur path of the JAX
+// package, core/ba.py:262, inverts its D > 3 preconditioner blocks with
+// jnp.linalg.inv, an LU: the values agree to rounding.) No Cholesky: an
+// indefinite block gives the same finite (or non-finite) values as the JAX
+// code, and whether the solve is usable is decided where the JAX package
+// decides it, by the dense factorization of S or by PCG. This file is
+// built with -fmad=false (kernels/build.py): a product that overflows
+// stays inf, so a*d - b*c of two overflowing products is NaN as in the
+// plain version, not the finite value an FMA would round it to.
 //
 // Bound: memory. A D = 6 thread reads 36 values and writes 36 (72 in mode 2
 // with the inverse) after ~500 operations.
@@ -61,6 +67,56 @@ __device__ __forceinline__ void mm3(const T (&A)[3][3], const T (&B)[3][3],
 #pragma unroll
       for (int b = 0; b < 3; ++b) acc += A[a][b] * B[b][c];
       C[a][c] = acc;
+    }
+}
+
+template <typename T>
+__device__ __forceinline__ void mm2(const T (&A)[2][2], const T (&B)[2][2],
+                                    T (&C)[2][2]) {
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) C[a][c] = A[a][0] * B[0][c] + A[a][1] * B[1][c];
+}
+
+// D = 4 (the intrinsics blocks of the general Schur path's preconditioner):
+// the formula below with 2x2 quadrants, each inverted by its adjugate, in
+// the order of ba_inv.py `inv_lane_plain`
+template <typename T>
+__device__ __forceinline__ void block_inverse(const T (&A)[4][4],
+                                              T (&X)[4][4]) {
+  T P[2][2], Q[2][2], R[2][2], S[2][2];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      P[a][b] = A[a][b];
+      Q[a][b] = A[a][2 + b];
+      R[a][b] = A[2 + a][b];
+      S[a][b] = A[2 + a][2 + b];
+    }
+  T Pi[2][2], PiQ[2][2], RPiQ[2][2];
+  block_inverse(P, Pi);
+  mm2(Pi, Q, PiQ);
+  mm2(R, PiQ, RPiQ);
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) S[a][b] = S[a][b] - RPiQ[a][b];
+  T Ti[2][2], RPi[2][2], TiRPi[2][2], PQT[2][2];
+  block_inverse(S, Ti);
+  mm2(R, Pi, RPi);
+  mm2(Ti, RPi, TiRPi);
+  mm2(PiQ, TiRPi, P);           // P reused: PiQ TiRPi
+  mm2(PiQ, Ti, PQT);
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      X[a][b] = Pi[a][b] + P[a][b];
+      X[a][2 + b] = -PQT[a][b];
+      X[2 + a][b] = -TiRPi[a][b];
+      X[2 + a][2 + b] = Ti[a][b];
     }
 }
 
@@ -172,6 +228,10 @@ int launch_ba_inv(const T* A, const T* free, const T* lam, const T* b, int n,
       break;
     case 3:
       ba_inv_kernel<T, 3><<<grid, kThreads, 0, stream>>>(
+          A, free, lam, b, n, mode, damped, inv, hib);
+      break;
+    case 4:
+      ba_inv_kernel<T, 4><<<grid, kThreads, 0, stream>>>(
           A, free, lam, b, n, mode, damped, inv, hib);
       break;
     case 6:

@@ -11,18 +11,25 @@
 // would not, so nothing here is atomic:
 //
 //   zero_fill       H and b, 16-byte stores (T^2 values: the largest traffic)
-//   dense_pair      one launch per edge group and slot pair. One thread owns
-//                   one destination block (p, q): it reads the block as the
-//                   earlier launches left it, forms the products of its
-//                   contributing edges in table order (a CSR list built on
-//                   the host once per topology, kernels/dense_assemble.py),
-//                   and writes the block and its mirror at (q, p). The
-//                   (s, s) launch also owns b_s: the contributors of the
+//   dense_pair      two launches per edge group and slot pair. The
+//                   contributors of every destination block (p, q) form a
+//                   CSR list built on the host once per topology
+//                   (kernels/dense_assemble.py), cut into chunks of at most
+//                   DENSE_CHUNK = 64 consecutive contributions. Pass 1: one
+//                   thread per chunk forms the products of its contributions
+//                   in table order and writes their sum to a scratch table.
+//                   Pass 2: one thread per destination reads the block as
+//                   the earlier launches left it, adds its chunks' sums in
+//                   order, and writes the block and its mirror at (q, p).
+//                   The (s, s) launch also owns b_s: the contributors of the
 //                   diagonal block of a vertex are the contributors of its
-//                   gradient
+//                   gradient. (One thread per whole list left the card idle
+//                   on a hub: the intrinsics vertex that every observation
+//                   of the general Schur path's P2MC_INTRINSICS scene sees
+//                   took 53 ms in one thread.)
 //   dense_finalize  raw_diag[t] = H[t, t]; H[t, t] += fixed[t]
 //
-// Launches run in stream order and a destination has one owner per launch,
+// Launches run in stream order and a destination has one owner per pass,
 // so every entry of H is summed in a fixed order and a run repeats bit for
 // bit. A contribution's flag says how its block meets the destination:
 // 0 as it is, 1 transposed (the edge runs the other way round than the
@@ -35,10 +42,9 @@
 // type: the operands stay in registers) and kMaxD = 6 otherwise (the 6-wide
 // SE3 blocks; six 36-value operands do not fit the register file in float64,
 // so that instantiation spills to local memory: correct first). Compiled with
-// -DG2O_DENSE_NARROW_WIDTH=0 every launch takes the kMaxD = 6 kernel, which
+// -DG2O_DENSE_NARROW_WIDTH=0 every launch takes the kMaxD = 6 kernels, which
 // is how chip_smoke.py measures what the narrow instantiation saves the 2D
-// types. A hub landmark is a long list walked by one thread: a warp per
-// destination is the later step.
+// types.
 //
 // Bound: memory, by the zero fill. T = 12,000 in float64 is 1.15 GB of
 // zeros against some 10 MB of Jacobians and tables.
@@ -63,28 +69,27 @@ __global__ void zero_fill_kernel(T* __restrict__ out, long long n) {
   for (long long i = nvec * kPer + first; i < n; i += stride) out[i] = T(0);
 }
 
+// pass 1: one thread per chunk of at most DENSE_CHUNK consecutive
+// contributions of one destination, summed in table order into the scratch
+// `part` ([kMaxD * kMaxD + kMaxD, n_chunks]: the block, then b_s)
 template <typename T, int kMaxD>
-__global__ void dense_pair_kernel(
+__global__ void dense_pair_part_kernel(
     const T* __restrict__ jac_s, const T* __restrict__ jac_t,
     const T* __restrict__ rho1, const T* __restrict__ info,
-    const T* __restrict__ resid, const int* __restrict__ ptr,
-    const int* __restrict__ dest_p, const int* __restrict__ dest_q,
-    const int* __restrict__ edge, const int* __restrict__ flag,
-    T* __restrict__ H, T* __restrict__ b, long long ld, int n_dest, int D,
-    int DS, int DT, int with_b) {
-  const int d = blockIdx.x * blockDim.x + threadIdx.x;
-  if (d >= n_dest) return;
-  const long long p = dest_p[d], q = dest_q[d];
+    const T* __restrict__ resid, const int* __restrict__ chunk_ptr,
+    const int* __restrict__ edge, const int* __restrict__ flag, int n_chunks,
+    int D, int DS, int DT, int with_b, T* __restrict__ part) {
+  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
+  if (ch >= n_chunks) return;
   T acc[kMaxD][kMaxD], bacc[kMaxD];
 #pragma unroll
   for (int a = 0; a < kMaxD; ++a) {
-    bacc[a] = (with_b && a < DS) ? b[p + a] : T(0);
+    bacc[a] = T(0);
 #pragma unroll
-    for (int c = 0; c < kMaxD; ++c)
-      acc[a][c] = (a < DS && c < DT) ? H[(p + a) * ld + q + c] : T(0);
+    for (int c = 0; c < kMaxD; ++c) acc[a][c] = T(0);
   }
-  const int m_end = ptr[d + 1];
-  for (int m = ptr[d]; m < m_end; ++m) {
+  const int m_end = chunk_ptr[ch + 1];
+  for (int m = chunk_ptr[ch]; m < m_end; ++m) {
     const long long e = edge[m];
     const int f = flag[m];
     const T w = rho1[e];
@@ -131,14 +136,44 @@ __global__ void dense_pair_kernel(
         acc[s][t] += f == 0 ? blk[s][t]
                      : f == 1 ? blk[t][s] : blk[s][t] + blk[t][s];
   }
+  const long long NC = n_chunks;
 #pragma unroll
   for (int a = 0; a < kMaxD; ++a) {
-    if (with_b && a < DS) b[p + a] = bacc[a];
+    if (with_b && a < DS) part[(kMaxD * kMaxD + a) * NC + ch] = bacc[a];
+#pragma unroll
+    for (int c = 0; c < kMaxD; ++c)
+      if (a < DS && c < DT) part[(a * kMaxD + c) * NC + ch] = acc[a][c];
+  }
+}
+
+// pass 2: one thread per destination block (p, q): the block as the earlier
+// launches left it, plus its chunks' sums in order; the block and its mirror
+// at (q, p) written back (the (s, s) launch also owns b_s)
+template <typename T, int kMaxD>
+__global__ void dense_pair_finish_kernel(
+    const T* __restrict__ part, const int* __restrict__ dest_chunk,
+    const int* __restrict__ dest_p, const int* __restrict__ dest_q,
+    T* __restrict__ H, T* __restrict__ b, long long ld, int n_dest,
+    int n_chunks, int DS, int DT, int with_b) {
+  const int d = blockIdx.x * blockDim.x + threadIdx.x;
+  if (d >= n_dest) return;
+  const long long p = dest_p[d], q = dest_q[d], NC = n_chunks;
+  const int c0 = dest_chunk[d], c1 = dest_chunk[d + 1];
+#pragma unroll
+  for (int a = 0; a < kMaxD; ++a) {
+    if (with_b && a < DS) {
+      T acc = b[p + a];
+      for (int ch = c0; ch < c1; ++ch)
+        acc += part[(kMaxD * kMaxD + a) * NC + ch];
+      b[p + a] = acc;
+    }
 #pragma unroll
     for (int c = 0; c < kMaxD; ++c)
       if (a < DS && c < DT) {
-        H[(p + a) * ld + q + c] = acc[a][c];
-        if (p != q) H[(q + c) * ld + p + a] = acc[a][c];
+        T acc = H[(p + a) * ld + q + c];
+        for (int ch = c0; ch < c1; ++ch) acc += part[(a * kMaxD + c) * NC + ch];
+        H[(p + a) * ld + q + c] = acc;
+        if (p != q) H[(q + c) * ld + p + a] = acc;
       }
   }
 }
@@ -166,25 +201,47 @@ int launch_zero_fill(T* out, long long n, cudaStream_t stream) {
   return launch_status();
 }
 
+template <typename T, int kMaxD>
+void dense_pair_passes(const T* jac_s, const T* jac_t, const T* rho1,
+                       const T* info, const T* resid, const int* chunk_ptr,
+                       const int* dest_chunk, const int* dest_p,
+                       const int* dest_q, const int* edge, const int* flag,
+                       T* part, T* H, T* b, int total_dim, int n_dest,
+                       int n_chunks, int D, int DS, int DT, int with_b,
+                       cudaStream_t stream) {
+  if (n_chunks > 0)
+    dense_pair_part_kernel<T, kMaxD>
+        <<<grid_for(n_chunks), kThreads, 0, stream>>>(
+            jac_s, jac_t, rho1, info, resid, chunk_ptr, edge, flag, n_chunks,
+            D, DS, DT, with_b, part);
+  dense_pair_finish_kernel<T, kMaxD><<<grid_for(n_dest), kThreads, 0,
+                                       stream>>>(
+      part, dest_chunk, dest_p, dest_q, H, b, total_dim, n_dest, n_chunks, DS,
+      DT, with_b);
+}
+
 template <typename T>
 int launch_dense_pair(const T* jac_s, const T* jac_t, const T* rho1,
-                      const T* info, const T* resid, const int* ptr,
-                      const int* dest_p, const int* dest_q, const int* edge,
-                      const int* flag, T* H, T* b, int total_dim, int n_dest,
-                      int D, int DS, int DT, int with_b,
+                      const T* info, const T* resid, const int* chunk_ptr,
+                      const int* dest_chunk, const int* dest_p,
+                      const int* dest_q, const int* edge, const int* flag,
+                      T* part, T* H, T* b, int total_dim, int n_dest,
+                      int n_chunks, int D, int DS, int DT, int with_b,
                       cudaStream_t stream) {
   if (n_dest <= 0) return 0;
   const int widest = D > DS ? (D > DT ? D : DT) : (DS > DT ? DS : DT);
   if (D < 1 || DS < 1 || DT < 1 || widest > 6)
     return static_cast<int>(cudaErrorInvalidValue);
   if (widest <= G2O_DENSE_NARROW_WIDTH)
-    dense_pair_kernel<T, 3><<<grid_for(n_dest), kThreads, 0, stream>>>(
-        jac_s, jac_t, rho1, info, resid, ptr, dest_p, dest_q, edge, flag, H,
-        b, total_dim, n_dest, D, DS, DT, with_b);
+    dense_pair_passes<T, 3>(jac_s, jac_t, rho1, info, resid, chunk_ptr,
+                            dest_chunk, dest_p, dest_q, edge, flag, part, H, b,
+                            total_dim, n_dest, n_chunks, D, DS, DT, with_b,
+                            stream);
   else
-    dense_pair_kernel<T, 6><<<grid_for(n_dest), kThreads, 0, stream>>>(
-        jac_s, jac_t, rho1, info, resid, ptr, dest_p, dest_q, edge, flag, H,
-        b, total_dim, n_dest, D, DS, DT, with_b);
+    dense_pair_passes<T, 6>(jac_s, jac_t, rho1, info, resid, chunk_ptr,
+                            dest_chunk, dest_p, dest_q, edge, flag, part, H, b,
+                            total_dim, n_dest, n_chunks, D, DS, DT, with_b,
+                            stream);
   return launch_status();
 }
 
@@ -208,13 +265,14 @@ extern "C" {
   }                                                                            \
   int g2o_dense_pair_##SUFFIX(                                                 \
       const T* jac_s, const T* jac_t, const T* rho1, const T* info,            \
-      const T* resid, const int* ptr, const int* dest_p, const int* dest_q,    \
-      const int* edge, const int* flag, T* H, T* b, int total_dim,             \
-      int n_dest, int D, int DS, int DT, int with_b, void* stream) {           \
+      const T* resid, const int* chunk_ptr, const int* dest_chunk,             \
+      const int* dest_p, const int* dest_q, const int* edge, const int* flag,  \
+      T* part, T* H, T* b, int total_dim, int n_dest, int n_chunks, int D,     \
+      int DS, int DT, int with_b, void* stream) {                              \
     return g2o_torch::launch_dense_pair<T>(                                    \
-        jac_s, jac_t, rho1, info, resid, ptr, dest_p, dest_q, edge, flag, H,   \
-        b, total_dim, n_dest, D, DS, DT, with_b,                               \
-        static_cast<cudaStream_t>(stream));                                    \
+        jac_s, jac_t, rho1, info, resid, chunk_ptr, dest_chunk, dest_p,        \
+        dest_q, edge, flag, part, H, b, total_dim, n_dest, n_chunks, D, DS,    \
+        DT, with_b, static_cast<cudaStream_t>(stream));                        \
   }                                                                            \
   int g2o_dense_finalize_##SUFFIX(T* H, const T* fixed_t, T* raw_diag, int n,  \
                                   int add_fixed, void* stream) {               \

@@ -20,7 +20,9 @@
 // into the padding: 0 * NaN would turn every padded row into NaN.
 //
 // `lane_block_mv` replaces `lane_block_mv` (core/sparse.py:871-880) for
-// the unscale dx = M^T xhat and the warm start xhat0 = L^T dx0.
+// the unscale dx = M^T xhat and the warm start xhat0 = L^T dx0, and applies
+// the block-Jacobi preconditioners of both Schur paths; it is also built at
+// D = 4, the intrinsics group of the general Schur path (core/ba.py).
 //
 // Registers: the thread holds M_i for all its slots and, per slot, B and
 // M_j; the product is staged row by row (one row of C = M_i B, then that
@@ -156,6 +158,7 @@ int launch_lane_block_mv(const T* mats, const T* x, T* y, int n,
   if (n <= 0) return 0;
   switch (d) {
     case 3: return run_lane_block_mv<T, 3>(mats, x, y, n, transpose, stream);
+    case 4: return run_lane_block_mv<T, 4>(mats, x, y, n, transpose, stream);
     case 6: return run_lane_block_mv<T, 6>(mats, x, y, n, transpose, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

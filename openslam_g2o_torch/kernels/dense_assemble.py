@@ -6,8 +6,10 @@ per edge group and slot pair (s, t >= s) the products J_s^T (rho' Omega) J_t
 and -J_s^T (rho' Omega) e, summed into the dense H [T, T] (the block and, off
 the diagonal, its transpose) and b [T], then raw_diag = diag(H) and the unit
 diagonal of fixed slots. The kernel sums through a destination-major table
-built here on the host once per topology (`build_dense_pattern`), one thread
-per destination block in a fixed order, so a run repeats bit for bit.
+built here on the host once per topology (`build_dense_pattern`): a thread
+per chunk of at most DENSE_CHUNK contributions, then a thread per
+destination block summing its chunks in order, so a run repeats bit for
+bit and a hub (one vertex seen by every edge) is spread over the card.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from openslam_g2o_torch.kernels._checks import (
 from openslam_g2o_torch.kernels.edge_se2 import bmm_small, bmv_small
 
 MAX_DIM = 6          # the widest instantiation of csrc/dense_assemble.cu
+DENSE_CHUNK = 64     # contributions per thread of the first pass
 
 
 @dataclass
@@ -41,7 +44,10 @@ class PairTable:
     """Destinations of one (edge group, slot pair): destination d is the
     block at rows dest_p[d] (slot s's width) and columns dest_q[d] (slot
     t's width); its contributors are edge[ptr[d]:ptr[d+1]] in edge order,
-    each with a flag: 0 add the block, 1 add its transpose, 2 add both."""
+    each with a flag: 0 add the block, 1 add its transpose, 2 add both.
+    The lists are cut into chunks of at most DENSE_CHUNK contributions:
+    chunk c is contributions chunk_ptr[c]:chunk_ptr[c+1], destination d
+    owns chunks dest_chunk[d]:dest_chunk[d+1]."""
     s: int
     t: int
     n_dest: int
@@ -50,6 +56,12 @@ class PairTable:
     dest_q: torch.Tensor
     edge: torch.Tensor
     flag: torch.Tensor
+    chunk_ptr: torch.Tensor
+    dest_chunk: torch.Tensor
+
+    @property
+    def n_chunks(self):
+        return self.chunk_ptr.shape[0] - 1
 
 
 @dataclass
@@ -90,33 +102,47 @@ def _pair_table(a, b, diag, total_dim):
     order = np.argsort(inverse, kind="stable")
     ptr = np.zeros(len(counts) + 1, dtype=np.int64)
     np.cumsum(counts, out=ptr[1:])
-    return p, q, ptr, order, flag[order]
+    n_chunk = (counts + DENSE_CHUNK - 1) // DENSE_CHUNK
+    dest_chunk = np.concatenate([[0], np.cumsum(n_chunk)])
+    dest_of = np.repeat(np.arange(len(counts)), n_chunk)
+    chunk_ptr = np.concatenate([
+        ptr[dest_of] + (np.arange(len(dest_of)) - dest_chunk[dest_of])
+        * DENSE_CHUNK, [ptr[-1]]])
+    return p, q, ptr, order, flag[order], chunk_ptr, dest_chunk
 
 
-def build_dense_pattern(problem, egroups=None,
-                        total_dim=None) -> DensePattern:
+def build_dense_pattern(problem, egroups=None, total_dim=None,
+                        slots=None) -> DensePattern:
     """Host-side symbolic phase of the dense assembly (the analogue of
     BlockSolver::buildStructure for the dense Hessian), vectorized numpy;
     depends on the topology alone. `egroups` (default: all) and
     `total_dim` (default: the tangent dimension) restrict it to some edge
-    groups on a leading block of the tangent vector, as the Schur solver
-    assembles its pose-pose edges on the pose block."""
+    groups on a leading block of the tangent vector, as the Schur solvers
+    assemble Hpp on the pose block; `slots` (one tuple of slot indices per
+    edge group) restricts each group to some of its slots, the pose slots
+    of a landmark edge for the general Schur path (core/ba.py), whose
+    EdgeBlocks then carry those slots' Jacobians and offsets in that
+    order."""
     static, dev = problem.static, problem.device
     total_dim = static.total_dim if total_dim is None else total_dim
     i32 = lambda x: torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32),
                                     device=dev)
     offsets, pairs = [], []
-    for eg in static.egroups if egroups is None else egroups:
+    egs = static.egroups if egroups is None else egroups
+    for i, eg in enumerate(egs):
         offs = slot_offsets(static, eg, problem.edges[eg.key])
+        if slots is not None:
+            offs = tuple(offs[s] for s in slots[i])
         offsets.append(offs)
         host = [o.cpu().numpy().astype(np.int64) for o in offs]
         tables = []
         for s in range(len(host)):
             for t in range(s, len(host)):
-                p, q, ptr, edge, flag = _pair_table(
+                p, q, ptr, edge, flag, chunk_ptr, dest_chunk = _pair_table(
                     host[s], host[t], s == t, total_dim)
                 tables.append(PairTable(s, t, len(p), i32(ptr), i32(p),
-                                        i32(q), i32(edge), i32(flag)))
+                                        i32(q), i32(edge), i32(flag),
+                                        i32(chunk_ptr), i32(dest_chunk)))
         pairs.append(tables)
     return DensePattern(total_dim, offsets, pairs)
 
@@ -182,8 +208,9 @@ def dense_assemble(groups, total_dim, fixed_t, pattern=None,
     (a list of EdgeBlocks in the order of static.egroups); K15 on CUDA
     tensors, where `pattern` (build_dense_pattern) is required, the plain
     version on CPU tensors. One counted call launches the zero fill of H
-    and of b, one kernel per edge group and slot pair, and the finalize
-    kernel."""
+    and of b, two kernels per edge group and slot pair (chunks, then
+    destinations; the slot pairs run in order and share one scratch
+    table), and the finalize kernel."""
     require(fixed_t.shape == (total_dim,),
             "dense_assemble: fixed_t must be [total_dim]")
     dev, dt = fixed_t.device, fixed_t.dtype
@@ -204,6 +231,9 @@ def dense_assemble(groups, total_dim, fixed_t, pattern=None,
         return H, b, raw_diag
     build.launch("g2o_dense_zero", H, H.data_ptr(), H.numel())
     build.launch("g2o_dense_zero", b, b.data_ptr(), b.numel())
+    n_part = (MAX_DIM * MAX_DIM + MAX_DIM) * max(
+        [tb.n_chunks for tables in pattern.pairs for tb in tables] + [1])
+    part = torch.empty(n_part, dtype=dt, device=dev)
     for g, tables in zip(groups, pattern.pairs):
         jacs = [j.contiguous() for j in g.jacs]
         D = g.resid.shape[1]
@@ -213,10 +243,12 @@ def dense_assemble(groups, total_dim, fixed_t, pattern=None,
             build.launch(
                 "g2o_dense_pair", H, jacs[tb.s].data_ptr(),
                 jacs[tb.t].data_ptr(), g.rho1.data_ptr(), g.info.data_ptr(),
-                g.resid.data_ptr(), tb.ptr.data_ptr(), tb.dest_p.data_ptr(),
+                g.resid.data_ptr(), tb.chunk_ptr.data_ptr(),
+                tb.dest_chunk.data_ptr(), tb.dest_p.data_ptr(),
                 tb.dest_q.data_ptr(), tb.edge.data_ptr(), tb.flag.data_ptr(),
-                H.data_ptr(), b.data_ptr(), total_dim, tb.n_dest, D,
-                jacs[tb.s].shape[2], jacs[tb.t].shape[2], int(tb.s == tb.t))
+                part.data_ptr(), H.data_ptr(), b.data_ptr(), total_dim,
+                tb.n_dest, tb.n_chunks, D, jacs[tb.s].shape[2],
+                jacs[tb.t].shape[2], int(tb.s == tb.t))
     build.launch("g2o_dense_finalize", H, H.data_ptr(), fixed_t.data_ptr(),
                  raw_diag.data_ptr(), total_dim, int(add_fixed_diag))
     dense_assemble.launches += 1

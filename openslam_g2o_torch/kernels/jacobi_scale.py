@@ -17,6 +17,8 @@ stays where it arose.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from openslam_g2o_torch.kernels import build
@@ -92,11 +94,13 @@ def lane_block_mv_plain(mats, x, transpose=False):
 
 def lane_block_mv(mats, x, transpose=False):
     """Apply every row's DxD block to its D-vector: mats [D*D, N], x [D, N]
-    -> [D, N], D = 3 or 6. The kernel on CUDA tensors, the plain version on
+    -> [D, N], D = 3, 4 (the intrinsics group of the general Schur path's
+    preconditioner) or 6. The kernel on CUDA tensors, the plain version on
     CPU tensors."""
     require(x.dim() == 2, "lane_block_mv: x must be [D, N]")
     D, N = x.shape
-    require(D == block_width("lane_block_mv", D) and mats.shape == (D * D, N),
+    require((D == 4 or D == block_width("lane_block_mv", D))
+            and mats.shape == (D * D, N),
             f"lane_block_mv: mats must be [D*D, N] and x [D, N], got "
             f"{tuple(mats.shape)} and {tuple(x.shape)}")
     check_tensors("lane_block_mv", x.device, x.dtype,
@@ -109,7 +113,9 @@ def lane_block_mv(mats, x, transpose=False):
     build.launch("g2o_lane_block_mv", x, mats.data_ptr(), x.data_ptr(),
                  y.data_ptr(), N, int(bool(transpose)), D)
     lane_block_mv.launches += 1
+    lane_block_mv.launches_by_width[D] += 1
     return y
 
 
 lane_block_mv.launches = 0
+lane_block_mv.launches_by_width = collections.Counter()

@@ -15,8 +15,21 @@ is [..., M] and `pdata` one [..., 4] tensor (focal, cx, cy, baseline).
   (types_six_dof_expmap.h:143-150). Both projection edges have analytic
   Jacobians; EDGE_SE3:EXPMAP is differentiated in forward mode.
 
-The SBACam family (VERTEX_CAM, VERTEX_INTRINSICS, EDGE_PROJECT_P2MC,
-P2SC, EDGE_CAM, EDGE_SCALE) and EDGE_PROJECT_PSI2UV are not ported yet.
+The rest of the JAX module (:71-106, :249-402) follows: the SBACam
+family and the anchored inverse-depth edge, every one of them
+differentiated in forward mode (core/problem.py `forward_jacobians`), as
+the JAX package differentiates them with jacfwd.
+
+* VERTEX_CAM (SBACam) stores the camera-to-world pose (t, q) and the
+  intrinsics (fx, fy, cx, cy, baseline), as the file does; projection is
+  K [R^T | -R^T t] (sbacam.h:120-159). oplus adds the translation and
+  post-multiplies the compact quaternion update (sbacam.h:101-117).
+* VERTEX_INTRINSICS optimizes (fx, fy, cx, cy) additively; the baseline
+  stays (types_sba.h:106-120).
+* EDGE_PROJECT_PSI2UV:EXPMAP is the ternary anchored inverse-depth edge
+  (psi, observing camera, anchor camera; types_six_dof_expmap.cpp:
+  173-183). The reference registers no file tag for it; the JAX package
+  assigns this one, and so does the port.
 """
 from __future__ import annotations
 
@@ -195,4 +208,196 @@ EDGE_PROJECT_XYZ2UVU = register_edge_type(EdgeType(
     error=_edge_xyz2uvu_error,
     jacobian=_edge_xyz2uvu_jacobian,
     param_types=("camera_parameters",),
+))
+
+
+# ---------------------------------------------------------------------------
+# Anchored inverse depth
+# ---------------------------------------------------------------------------
+
+def invert_depth(psi):
+    """psi = (u, v, rho) -> the 3D point (u, v, 1) / rho in the anchor frame
+    (types_six_dof_expmap.cpp:166-171)."""
+    return torch.stack([psi[..., 0], psi[..., 1],
+                        torch.ones_like(psi[..., 2])], dim=-1) / psi[..., 2:3]
+
+
+def depth_to_psi(point_anchor):
+    """Inverse of invert_depth: an anchor-frame point -> (u, v, rho)."""
+    return torch.stack([point_anchor[..., 0], point_anchor[..., 1],
+                        torch.ones_like(point_anchor[..., 2])],
+                       dim=-1) / point_anchor[..., 2:3]
+
+
+def _edge_psi2uv_error(vparams, meas, pdata):
+    """EdgeProjectPSI2UV: obs - cam_map(T_p_w T_anchor_w^-1
+    invert_depth(psi)) (types_six_dof_expmap.cpp:173-183). Slots: psi
+    (marginalizable), observing camera, anchor camera."""
+    psi, t_w2c, t_anchor = vparams
+    (cam,) = pdata
+    pw = lie.se3_apply(lie.se3_inverse(t_anchor), invert_depth(psi))
+    pc = lie.se3_apply(t_w2c, pw)
+    return meas - cam_map(pc, cam[..., 0], cam[..., 1], cam[..., 2])
+
+
+EDGE_PROJECT_PSI2UV = register_edge_type(EdgeType(
+    name="edge_project_psi2uv",
+    tag="EDGE_PROJECT_PSI2UV:EXPMAP",
+    vertex_types=("sba_point_xyz", "se3_expmap", "se3_expmap"),
+    error_dim=2,
+    measurement_dim=2,
+    error=_edge_psi2uv_error,
+    param_types=("camera_parameters",),
+))
+
+
+# ---------------------------------------------------------------------------
+# The SBACam family
+# ---------------------------------------------------------------------------
+
+def _cam_retract(params, delta):
+    """SBACam::update (sbacam.h:101-117): t += dt, q <- normalize(q dq)
+    with dq from the compact update; the intrinsics (last 5) stay."""
+    t = params[..., :3] + delta[..., :3]
+    dq = lie.quat_from_compact(delta[..., 3:6])
+    q = lie.quat_normalize(lie.quat_mul(params[..., 3:7], dq))
+    return torch.cat([t, q, params[..., 7:12]], dim=-1)
+
+
+VERTEX_CAM = register_vertex_type(VertexType(
+    name="cam",
+    tag="VERTEX_CAM",
+    ambient_dim=12,                   # t(3), q(4), fx, fy, cx, cy, baseline
+    tangent_dim=6,
+    retract=_cam_retract,
+    origin=lambda dtype: torch.tensor(
+        [0, 0, 0, 0, 0, 0, 1, 1, 1, 0, 0, 0], dtype=dtype),
+    file_dim=12,
+))
+
+
+def _intrinsics_retract(params, delta):
+    """VertexIntrinsics (types_sba.h:106-120): (fx, fy, cx, cy) additive,
+    the baseline fixed."""
+    return torch.cat([params[..., :4] + delta, params[..., 4:]], dim=-1)
+
+
+VERTEX_INTRINSICS = register_vertex_type(VertexType(
+    name="intrinsics",
+    tag="VERTEX_INTRINSICS",
+    ambient_dim=5,                    # fx, fy, cx, cy, baseline
+    tangent_dim=4,
+    retract=_intrinsics_retract,
+    origin=lambda dtype: torch.tensor([1, 1, 0.5, 0.5, 0.1], dtype=dtype),
+))
+
+
+def _cam_w2i_project(cam_params, point):
+    """A world point through an SBACam, K [R^T | -R^T t] (sbacam.h:120-159,
+    types_sba.h:176-181): ((u, v) [..., 2], pc [..., 3])."""
+    t, q = cam_params[..., :3], cam_params[..., 3:7]
+    fx, fy = cam_params[..., 7], cam_params[..., 8]
+    cx, cy = cam_params[..., 9], cam_params[..., 10]
+    pc = lie.quat_rotate(lie.quat_conj(q), point - t)   # R^T (p - t)
+    u = fx * pc[..., 0] + cx * pc[..., 2]
+    v = fy * pc[..., 1] + cy * pc[..., 2]
+    return torch.stack([u / pc[..., 2], v / pc[..., 2]], dim=-1), pc
+
+
+def _edge_p2mc_error(vparams, meas, pdata):
+    """EdgeProjectP2MC: (w2i p).xy / z - obs (types_sba.h:170-192)."""
+    point, cam = vparams
+    uv, _ = _cam_w2i_project(cam, point)
+    return uv - meas
+
+
+EDGE_PROJECT_P2MC = register_edge_type(EdgeType(
+    name="edge_project_p2mc",
+    tag="EDGE_PROJECT_P2MC",
+    vertex_types=("sba_point_xyz", "cam"),
+    error_dim=2,
+    measurement_dim=2,
+    error=_edge_p2mc_error,
+))
+
+
+def _edge_p2mc_intrinsics_error(vparams, meas, pdata):
+    """EdgeProjectP2MC_Intrinsics (types_sba.h:256-281): the monocular
+    projection through the shared intrinsics vertex (fx, fy, cx, cy), so
+    that the forward-mode Jacobian has the reference's dfx/dfy/dcx/dcy
+    columns (types_sba.cpp:418-500)."""
+    point, cam, intr = vparams
+    t, q = cam[..., :3], cam[..., 3:7]
+    pc = lie.quat_rotate(lie.quat_conj(q), point - t)   # R^T (p - t)
+    u = (intr[..., 0] * pc[..., 0] + intr[..., 2] * pc[..., 2]) / pc[..., 2]
+    v = (intr[..., 1] * pc[..., 1] + intr[..., 3] * pc[..., 2]) / pc[..., 2]
+    return torch.stack([u, v], dim=-1) - meas
+
+
+EDGE_PROJECT_P2MC_INTRINSICS = register_edge_type(EdgeType(
+    name="edge_project_p2mc_intrinsics",
+    tag="EDGE_PROJECT_P2MC_INTRINSICS",
+    vertex_types=("sba_point_xyz", "cam", "intrinsics"),
+    error_dim=2,
+    measurement_dim=2,
+    error=_edge_p2mc_intrinsics_error,
+))
+
+
+def _edge_p2sc_error(vparams, meas, pdata):
+    """EdgeProjectP2SC (stereo): left (u, v) and the right u shifted by the
+    baseline (types_sba.h:209-240)."""
+    point, cam = vparams
+    uv, pc = _cam_w2i_project(cam, point)
+    fx, cx, baseline = cam[..., 7], cam[..., 9], cam[..., 11]
+    u_right = (fx * (pc[..., 0] - baseline) + cx * pc[..., 2]) / pc[..., 2]
+    return torch.cat([uv, u_right[..., None]], dim=-1) - meas
+
+
+EDGE_PROJECT_P2SC = register_edge_type(EdgeType(
+    name="edge_project_p2sc",
+    tag="EDGE_PROJECT_P2SC",
+    vertex_types=("sba_point_xyz", "cam"),
+    error_dim=3,
+    measurement_dim=3,
+    error=_edge_p2sc_error,
+))
+
+
+def _edge_sba_cam_error(vparams, meas, pdata):
+    """EdgeSBACam: the relative pose of two SBA cams against the
+    measurement (t, q), as (t, compact q) of Z^-1 C1^-1 C2
+    (types_sba.cpp:133-180)."""
+    c1, c2 = vparams
+    d = lie.se3_compose(lie.se3_inverse(meas),
+                        lie.se3_compose(lie.se3_inverse(c1[..., :7]),
+                                        c2[..., :7]))
+    return torch.cat([d[..., :3], lie.quat_to_compact(d[..., 3:7])], dim=-1)
+
+
+EDGE_SBA_CAM = register_edge_type(EdgeType(
+    name="edge_sba_cam",
+    tag="EDGE_CAM",
+    vertex_types=("cam", "cam"),
+    error_dim=6,
+    measurement_dim=7,
+    error=_edge_sba_cam_error,
+))
+
+
+def _edge_sba_scale_error(vparams, meas, pdata):
+    """EdgeSBAScale: the distance of two camera centers against the
+    measured scale (types_sba.h:244-280)."""
+    c1, c2 = vparams
+    d = c1[..., :3] - c2[..., :3]
+    return (torch.sqrt((d * d).sum(dim=-1)) - meas[..., 0])[..., None]
+
+
+EDGE_SBA_SCALE = register_edge_type(EdgeType(
+    name="edge_sba_scale",
+    tag="EDGE_SCALE",
+    vertex_types=("cam", "cam"),
+    error_dim=1,
+    measurement_dim=1,
+    error=_edge_sba_scale_error,
 ))

@@ -730,6 +730,48 @@ def test_dense_assemble_6_wide_matches_plain_on_gpu(cuda, dtype):
 TOL_BA = {torch.float64: 1e-10, torch.float32: 1e-4}
 
 
+def _inv_tol(blocks, dtype):
+    """TOL_BA, or cond x eps of the worst-conditioned finite block where
+    that is larger (the first-order bound of a block inverse)."""
+    D = int(round(blocks.shape[0] ** 0.5))
+    mats = blocks.double().view(D, D, -1).permute(2, 0, 1)
+    mats = mats[torch.isfinite(mats).all(dim=2).all(dim=1)]
+    cond = float(torch.linalg.cond(mats).max()) if len(mats) else 0.0
+    return max(TOL_BA[dtype], cond * torch.finfo(dtype).eps)
+
+
+def _assert_same_nonfinite(got, want, tol):
+    """NaN and +-inf in the same places, the finite entries to tol of the
+    largest finite |entry|."""
+    got, want = got.double().cpu(), want.double().cpu()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(torch.isinf(got), inf) and torch.equal(got[inf],
+                                                                want[inf])
+    fin = torch.isfinite(want)
+    if fin.any():
+        err = float((got[fin] - want[fin]).abs().max())
+        assert err <= tol * max(float(want[fin].abs().max()), 1e-300)
+
+
+@pytest.mark.parametrize("D", [2, 3, 4, 6])
+def test_block_inverse_of_overflowing_blocks_on_gpu(cuda, D):
+    """K11 in float32 on blocks whose products overflow (entries 1e20
+    beside unit blocks): inf and NaN in the places where the plain version
+    has them (an FMA would turn inf - inf into a finite value), the finite
+    entries to TOL_BA or cond x eps."""
+    from openslam_g2o_torch.kernels import ba_inv
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    N = 4096
+    A = torch.randn((D * D, N), generator=gen, device=cuda)
+    scale = torch.where(torch.arange(N, device=cuda) % 2 == 0, 1e20, 1.0)
+    A = (A * scale[None]).contiguous()
+    got = ba_inv.ba_block_inv(A)[1]
+    want = ba_inv.ba_block_inv_plain(A)[1]
+    assert int(torch.isnan(want).sum()) > 0
+    _assert_same_nonfinite(got, want, _inv_tol(A[:, 1::2], torch.float32))
+
+
 def _ba_problem(device, dtype, n_cams=40, n_points=1500, huber=True):
     from openslam_g2o_torch.apps.simulator import synthetic_bal_problem
     from openslam_g2o_torch.core import robust
@@ -800,7 +842,7 @@ def test_ba_edge_kernels_match_plain_on_gpu(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("D", [2, 3, 6])
+@pytest.mark.parametrize("D", [2, 3, 4, 6])
 def test_ba_block_inv_matches_plain_on_gpu(cuda, dtype, D):
     """K11 in its three modes, with an indefinite block (finite values in
     the same places) and a fixed block."""
@@ -847,7 +889,7 @@ def test_ba_coupling_and_schur_kernels_match_plain_on_gpu(cuda, dtype):
         assert _rel(ba_coupling.ba_wtx(sys["W_lm"], pattern.lm_cam, x, **kw),
                     ba_coupling.ba_wtx_plain(sys["W_lm"], pattern.lm_cam, x,
                                              **kw)) < TOL_BA[dtype]
-    wv_args = (sys["W_cam"], pattern.cam_ptr, pattern.cam_lm, hib)
+    wv_args = (sys["W_cam"], pattern.cam_rows, hib)
     for kw in (dict(base=sys["b_p"], free=fc),
                dict(hcc_d=hcc_d, x=x, extra=x.flip(0).contiguous(),
                     want_dot=True)):
@@ -857,11 +899,10 @@ def test_ba_coupling_and_schur_kernels_match_plain_on_gpu(cuda, dtype):
             assert _rel(got[1].sum(), want[1].sum()) < TOL_BA[dtype]
             got, want = got[0], want[0]
         assert _rel(got, want) < TOL_BA[dtype]
-    sw = ba_coupling.ba_sandwich(sys["W_cam"], pattern.cam_ptr,
-                                 pattern.cam_lm, hinv, hcc_d)
+    sw = ba_coupling.ba_sandwich(sys["W_cam"], pattern.cam_rows, hinv,
+                                 hcc_d)
     assert _rel(sw, ba_coupling.ba_sandwich_plain(
-        sys["W_cam"], pattern.cam_ptr, pattern.cam_lm, hinv, hcc_d)) \
-        < TOL_BA[dtype]
+        sys["W_cam"], pattern.cam_rows, hinv, hcc_d)) < TOL_BA[dtype]
     pairs = pattern.schur_pairs()
     base = torch.randn((6 * pattern.n_cam,) * 2, generator=gen, dtype=dtype,
                        device=cuda)
@@ -904,4 +945,182 @@ def test_ba_schur_lm_on_gpu_matches_cpu(cuda, dense, monkeypatch):
                                   else ("ba_sandwich", "lane_block_mv"))
     assert all(counts[k] > 0 for k in used), counts
     assert (counts["ba_schur_dense"] > 0) == dense
+    assert not any(runs["cpu"][1].values())
+
+
+def _general_scene(device, dtype, kind):
+    """chip_smoke.py's anchored (PSI2UV, every point's first edge on one
+    camera twice) or shared-intrinsics (two pose groups, the intrinsics
+    vertex seeing every edge) scene on a small BAL geometry."""
+    import chip_smoke
+    from openslam_g2o_torch.core.graph import Graph
+    geo = chip_smoke.bal_geometry(12, 400)
+    build = {"psi2uv": chip_smoke.psi2uv_graph,
+             "intrinsics": chip_smoke.p2mc_intrinsics_graph}[kind]
+    return build(Graph, geo).compile(dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["psi2uv", "intrinsics"])
+def test_schur_general_kernels_match_plain_on_gpu(cuda, dtype, kind):
+    """K14 (the edge blocks into both W layouts) and what the general path
+    runs of K10, K11, K13 and K4 (landmark sums without W, ba_wtx chained
+    over the pose groups at (6, 3) and (4, 3), W v with the dot and the
+    reduced right-hand side and the preconditioner blocks over the pose
+    CSR lists, the 6x6 and 4x4 block inverses on raw blocks that overflow
+    float32 and on well-scaled ones, lane_block_mv at D = 4), each against
+    its plain version on the same inputs; the two-pass products twice for
+    the same bits."""
+    from openslam_g2o_torch.core import ba
+    from openslam_g2o_torch.kernels import (
+        ba_coupling, ba_edge, ba_inv, jacobi_scale, schur_general)
+    prob = _general_scene(cuda, dtype, kind)
+    pat = ba.build_schur_pattern(prob)
+    lin = problem_mod.linearize(prob)
+    dl, L = pat.dl, pat.n_lm
+    W_k, W_p = {}, {}
+    for out, fn in ((W_k, schur_general.schur_edge_blocks),
+                    (W_p, schur_general.schur_edge_blocks_plain)):
+        st = ba_edge.LandmarkStreams(
+            torch.zeros((dl * dl, pat.n_lm_edges), dtype=dtype, device=cuda),
+            torch.zeros((dl, pat.n_lm_edges), dtype=dtype, device=cuda))
+        wl = {pg.name: torch.zeros((pg.dim * dl,) + tuple(pg.lm_pose.shape),
+                                   dtype=dtype, device=cuda)
+              for pg in pat.pose_groups}
+        wp = {pg.name: torch.zeros((pg.dim * dl, pg.n_entries), dtype=dtype,
+                                   device=cuda) for pg in pat.pose_groups}
+        for le in pat.lm_edges:
+            resid, jacs, rho1 = lin[le.egkey]
+            ea = prob.edges[le.egkey]
+            first = True
+            for ce in (c for c in pat.cross if c.egkey == le.egkey):
+                fn(resid.contiguous(), jacs[le.lm_slot].contiguous(),
+                   jacs[ce.slot].contiguous(), rho1.contiguous(),
+                   ea.information, st.hll if first else None,
+                   st.bl if first else None, le.offset, wl[ce.group],
+                   ce.lm_pos, wp[ce.group], ce.pose_pos)
+                first = False
+        out.update(st=st, wl=wl, wp=wp)
+    for a, b in zip((W_k["st"].hll, W_k["st"].bl, *W_k["wl"].values(),
+                     *W_k["wp"].values()),
+                    (W_p["st"].hll, W_p["st"].bl, *W_p["wl"].values(),
+                     *W_p["wp"].values())):
+        assert _rel(a, b) < TOL_BA[dtype]
+    Hll, b_l, none = ba_edge.ba_lm_sums(W_k["st"], pat.lm_edge, with_w=False)
+    assert none is None
+    want = ba_edge.ba_lm_sums_plain(W_k["st"], pat.lm_edge, with_w=False)
+    assert _rel(Hll, want[0]) < TOL_BA[dtype]
+    assert _rel(b_l, want[1]) < TOL_BA[dtype]
+    sys = ba.schur_build(prob, lin=lin, pattern=pat)
+    lam = torch.tensor(1e-2, dtype=dtype, device=cuda)
+    fl = prob.free[pat.lm_name]
+    _, hinv, hib = ba_inv.ba_block_inv(sys["Hll"], ba_inv.LANDMARK, fl, lam,
+                                       b=sys["b_l"])
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    xs = {pg.name: torch.randn((pg.dim, pg.count), generator=gen,
+                               dtype=dtype, device=cuda)
+          for pg in pat.pose_groups}
+    u_k = u_p = None
+    for i, pg in enumerate(pat.pose_groups):
+        kw = (dict(hinv=hinv, b=sys["b_l"], free=fl)
+              if i == len(pat.pose_groups) - 1 else {})
+        args = (sys["W_lm"][pg.name], pg.lm_pose, xs[pg.name])
+        u_k = ba_coupling.ba_wtx(*args, acc=u_k, **kw)
+        u_p = ba_coupling.ba_wtx_plain(*args, acc=u_p, **kw)
+        assert _rel(u_k, u_p) < TOL_BA[dtype]
+    Tp = pat.pose_dim
+    hpp = torch.randn((Tp, Tp), generator=gen, dtype=dtype, device=cuda)
+    for pg in pat.pose_groups:
+        wargs = (sys["W_pose"][pg.name], pg.rows, hib)
+        for kw in (dict(base=xs[pg.name].flip(0).contiguous()),
+                   dict(extra=xs[pg.name].flip(1).contiguous(),
+                        x=xs[pg.name], free=prob.free[pg.name],
+                        want_dot=True)):
+            got = ba_coupling.ba_wv(*wargs, **kw)
+            again = ba_coupling.ba_wv(*wargs, **kw)
+            want = ba_coupling.ba_wv_plain(*wargs, **kw)
+            if kw.get("want_dot"):
+                assert _rel(got[1].sum(), want[1].sum()) < TOL_BA[dtype]
+                assert torch.equal(got[1], again[1])
+                got, again, want = got[0], again[0], want[0]
+            assert _rel(got, want) < TOL_BA[dtype]
+            assert torch.equal(got, again)
+        sargs = (sys["W_pose"][pg.name], pg.rows, hinv,
+                 ba.diag_blocks(hpp, pg))
+        blocks = ba_coupling.ba_sandwich(*sargs)
+        assert _rel(blocks, ba_coupling.ba_sandwich_plain(*sargs)) \
+            < TOL_BA[dtype]
+        assert torch.equal(blocks, ba_coupling.ba_sandwich(*sargs))
+        # the raw blocks span 1e-1 to 1e8, and in float32 the products of
+        # their inverse overflow: the kernel must give inf and NaN where
+        # the plain version does
+        _assert_same_nonfinite(ba_inv.ba_block_inv(blocks)[1],
+                               ba_inv.ba_block_inv_plain(blocks)[1],
+                               _inv_tol(blocks, dtype))
+        # well-scaled SPD blocks from them
+        spd = blocks.view(pg.dim, pg.dim, -1).permute(2, 0, 1)
+        spd = spd / spd.abs().amax(dim=(1, 2), keepdim=True)
+        spd = spd @ spd.transpose(1, 2) \
+            + torch.eye(pg.dim, dtype=dtype, device=cuda)
+        spd = spd.permute(1, 2, 0).reshape(pg.dim * pg.dim, -1).contiguous()
+        binv = ba_inv.ba_block_inv(spd)[1]
+        assert _rel(binv, ba_inv.ba_block_inv_plain(spd)[1]) < TOL_BA[dtype]
+        assert _rel(jacobi_scale.lane_block_mv(binv, xs[pg.name]),
+                    jacobi_scale.lane_block_mv_plain(binv, xs[pg.name])) \
+            < TOL_BA[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_schur_products_on_a_pose_row_of_degree_80000_on_gpu(cuda, dtype):
+    """One pose vertex with 80,000 W entries beside short rows (the shared
+    intrinsics vertex of the chip's scene): W v and the preconditioner
+    blocks against their plain versions, and the same bits twice."""
+    from openslam_g2o_torch.kernels import ba_coupling
+    rng = np.random.default_rng(1)
+    counts = [3, 80000, 0, 700]
+    L, dp, dl = 10000, 4, 3
+    M = sum(counts)
+    rows = ba_coupling.build_pose_rows(counts, rng.integers(0, L, M), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.randn((dp * dl, M), generator=gen, dtype=dtype, device=cuda)
+    v = torch.randn((dl, L), generator=gen, dtype=dtype, device=cuda)
+    x = torch.randn((dp, len(counts)), generator=gen, dtype=dtype,
+                    device=cuda)
+    B = torch.randn((L, dl, dl), generator=gen, dtype=dtype, device=cuda)
+    hinv = (B @ B.transpose(1, 2)).permute(1, 2, 0).reshape(dl * dl, L) \
+        .contiguous()
+    hcc = torch.randn((dp * dp, len(counts)), generator=gen, dtype=dtype,
+                      device=cuda)
+    got = ba_coupling.ba_wv(w, rows, v, extra=x, x=x, want_dot=True)
+    want = ba_coupling.ba_wv_plain(w, rows, v, extra=x, x=x, want_dot=True)
+    assert _rel(got[0], want[0]) < TOL_BA[dtype]
+    assert _rel(got[1], want[1]) < TOL_BA[dtype]
+    again = ba_coupling.ba_wv(w, rows, v, extra=x, x=x, want_dot=True)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    s_k = ba_coupling.ba_sandwich(w, rows, hinv, hcc)
+    assert _rel(s_k, ba_coupling.ba_sandwich_plain(w, rows, hinv, hcc)) \
+        < TOL_BA[dtype]
+    assert torch.equal(s_k, ba_coupling.ba_sandwich(w, rows, hinv, hcc))
+
+
+@pytest.mark.parametrize("kind", ["psi2uv", "intrinsics"])
+def test_general_schur_lm_on_gpu_matches_cpu(cuda, kind):
+    """LevenbergMarquardtSchur on the card against the same run on the CPU
+    (plain versions), float64: chi2 to 1e-9, and every kernel of the path
+    launched."""
+    from openslam_g2o_torch.core import ba
+    runs = {}
+    for device in (cuda, "cpu"):
+        prob = _general_scene(device, torch.float64, kind)
+        kernels.reset_launch_counts()
+        _, stats = algorithms.optimize(prob, ba.LevenbergMarquardtSchur(
+            pcg_iters=60), iterations=5)
+        runs[str(device)] = ([s["chi2"] for s in stats],
+                             kernels.launch_counts())
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-9)
+    counts = runs["cuda"][1]
+    used = ("schur_edge_blocks", "ba_wv", "ba_sandwich", "ba_lm_sums",
+            "ba_block_inv", "ba_wtx", "lane_block_mv", "dense_assemble",
+            "cg_update_xr", "lm_outcome")
+    assert all(counts[k] > 0 for k in used), counts
     assert not any(runs["cpu"][1].values())

@@ -2,7 +2,8 @@
 and run small CPU optimizations through the public API (LM-PCG on an SE2
 and on an SE3 pose graph, the default dense LM and GN on a 2D and a 3D
 landmark world, the Schur BA solver on a synthetic BAL problem on both of
-its routes), then check that
+its routes, the general Schur path on an anchored inverse-depth scene,
+directly and through `_SchurAuto`), then check that
 no jax module (nor the JAX package, which pulls jax in) was loaded. Every
 module of the port and chip_smoke.py are imported, and no source file of
 either names jax or the JAX package in an import statement."""
@@ -34,6 +35,7 @@ for name in ("kernels.damp_chol", "kernels.jacobi_scale", "kernels.cg_step",
              "kernels.edge_se3", "models.slam3d", "ops.lie", "utils.np_lie",
              "kernels.ba_edge", "kernels.ba_inv", "kernels.ba_schur",
              "kernels.ba_coupling", "core.ba_ell", "models.sba",
+             "core.ba", "core.factory", "kernels.schur_general",
              "apps.profile_window", "apps.simulator",
              "interop"):
     assert "openslam_g2o_torch." + name in sys.modules, name
@@ -69,6 +71,29 @@ for max_tp in (1536, -1):                        # dense-Schur, implicit
     ba_ell._DENSE_SCHUR_MAX_TP = max_tp
     _, stats = optimize(bal, ba_ell.LevenbergMarquardtSchurELL(
         pcg_iters=20, pcg_tol=1e-4), iterations=3)
+    assert stats[-1]["ok"] and stats[-1]["chi2"] < stats[0]["chi2"], stats
+from openslam_g2o_torch.core.ba import LevenbergMarquardtSchur
+from openslam_g2o_torch.core.factory import _SchurAuto
+from openslam_g2o_torch.core.graph import Graph
+import numpy as np
+g = Graph()                               # the general Schur path: PSI2UV
+g.add_parameter(0, "camera_parameters", [500.0, 0.0, 0.0, 0.1])
+rng = np.random.default_rng(0)
+for i in range(4):
+    g.add_vertex(i, "se3_expmap", [-0.3 * i, 0, 0, 0, 0, 0, 1.0],
+                 fixed=(i == 0))
+for j in range(30):
+    p = rng.uniform(-1, 1, 3) + [0.5, 0, 5.0]
+    g.add_vertex(10 + j, "sba_point_xyz", [p[0] / p[2], p[1] / p[2],
+                                          1.1 / p[2]], marginalized=True)
+    for i in range(4):
+        pc = p + [-0.3 * i, 0, 0]
+        g.add_edge("edge_project_psi2uv", (10 + j, i, 0),
+                   500 * pc[:2] / pc[2] + rng.normal(0, 0.5, 2), np.eye(2),
+                   param_ids=[0])
+anchored = g.compile(device="cpu")
+for alg in (LevenbergMarquardtSchur(pcg_iters=40), _SchurAuto()):
+    _, stats = optimize(anchored, alg, iterations=3)
     assert stats[-1]["ok"] and stats[-1]["chi2"] < stats[0]["chi2"], stats
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
