@@ -37,8 +37,12 @@ Phases (any failure raises and the script exits non-zero):
     phases 4g and 4h and on the landmark worlds of 4i (rows @400k, @2d,
     @3d: every instantiation a path runs), in the order the solver runs
     them, with index_add_, torch.linalg.inv, a CSR product and the JAX
-    route's torch.matmul(B2, M2) as the library yardsticks; the camera sums
-    and S twice for the same bits;
+    route's torch.matmul(B2, M2) as the library yardsticks; the camera and
+    landmark sums, W v and S twice for the same bits. ba_lm_sums and ba_wv
+    (here and on the general path's scenes) also by device time: CUDA
+    events around 200 calls queued behind a spin kernel, beside the same
+    time of index_add_ (Hll and b_l only), of index_add_ with the masked W
+    gather (ba_lm_sums's whole function) and of the CSR product (W v only);
  4. the main path: the 100,000-pose serpentine (noise 0.03 / 0.002, float32)
     through LevenbergMarquardtPCG's lambda init and lm_pcg_optimize_fused
     windows (pcg 100, tol 0.15) until chi2 <= 1.05 x the noise floor, then
@@ -92,6 +96,11 @@ Phases (any failure raises and the script exits non-zero):
     on the dense-Schur route (routing constants raised): chi2 never
     increases, and the dense-Schur run ends within 1% of that phase's dense
     LM end (both margins printed);
+ 4j-4n. the general Schur path (LevenbergMarquardtSchur) on the ba_80k
+    geometry as XYZ2UV, PSI2UV and P2MC_INTRINSICS, _SchurAuto's routes and
+    the anchored demo scene, and ba_400k: the gates and the JAX package's
+    trajectories, and in one profiled trial solve the device time per CG
+    iteration and the kernels per ba_wv call (one);
  5. a small .g2o string through loads_g2o -> compile() (the default
     device) -> optimize(LevenbergMarquardtPCG()), chi2 decreasing and equal
     to the CPU run of the same graph; one with VERTEX_XY, EDGE_SE2_XY
@@ -550,6 +559,61 @@ def _median_ms(torch, fn, repeats=15, inner=20, warmup=3):
     return times[len(times) // 2]
 
 
+_SPIN = {}
+
+
+def _device_ms(torch, fn, calls=200, repeats=5):
+    """Device time per call: CUDA events around back-to-back calls that the
+    host queues while the stream is held by a spin kernel
+    (torch.cuda._sleep), so that the events time the device's work and not
+    the host's enqueue. `calls` calls, or half as many while the spin ends
+    before the last call is queued (a call of several launches can fill
+    the launch queue), down to 25. Returns (median of `repeats` in ms, the
+    calls timed, whether every repeat was held: False means a host-bound
+    time)."""
+    if "hz" not in _SPIN:                  # spin cycles per second
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10 ** 7)
+        end.record()
+        end.synchronize()
+        _SPIN["hz"] = 1e7 / (start.elapsed_time(end) / 1e3)
+
+    def window(n, spin_s):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(_SPIN["hz"] * spin_s))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        return start.elapsed_time(end) / n, held
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin_s = 2 * host_s + 2e-3
+    while True:
+        ms, held = window(calls, spin_s)
+        if held or calls <= 25:
+            break
+        calls //= 2
+    times, all_held = [ms], held
+    for _ in range(repeats - 1):
+        ms, held = window(calls, spin_s)
+        times.append(ms)
+        all_held &= held
+    times.sort()
+    return times[len(times) // 2], calls, all_held
+
+
 def _errors(torch, got, want, same_nan=False, scale=None):
     """(max abs error, max error relative to the largest finite |entry| of
     its output) over the tensors a kernel and its plain version returned.
@@ -711,18 +775,20 @@ def main() -> int:
 
     def case(kname, tag, shape, run, plain, nbytes, flops, library=None,
              same_nan=False, label=None, timed=True, post=None,
-             slow_plain=False, tol=None, scale=None):
+             slow_plain=False, tol=None, scale=None, library_what=None):
         """Compare one kernel with its plain version (`run` and `plain`
         return the tensors to compare; `post` first reduces partial sums
         and splits a scalar buffer, on both sides), time both (a plain
         version of tens of ms: median of 5 single calls), and record the
         row under (label or kname, tag); `tol` overrides the TOL table;
         `scale` returns per-element magnitudes that the error is taken
-        relative to (_errors)."""
+        relative to (_errors); `library_what` says what the library call
+        leaves out of the kernel's function."""
         post = post or (lambda out: out)
         abs_e, rel_e = _errors(torch, post(run()), post(plain()), same_nan,
                                None if scale is None else scale())
-        row = dict(abs=abs_e, rel=rel_e, shape=shape, kname=kname)
+        row = dict(abs=abs_e, rel=rel_e, shape=shape, kname=kname,
+                   library_what=library_what)
         if tol is not None:
             row["tol"] = tol
         if timed:
@@ -733,6 +799,23 @@ def main() -> int:
                                    else _median_ms(torch, library)))
             row["bound_ms"], row["bound_by"] = _bound(nbytes, flops)
         results[(label or kname, tag)] = row
+
+    def device_rows(label, tag, fns):
+        """Device time per call (_device_ms: CUDA events over 200 calls) of
+        the kernel's wrapper and of its yardsticks (`fns`: description ->
+        call, the kernel's first), printed beside the row's bound."""
+        row = results[(label, tag)]
+        timed = {k: _device_ms(torch, f) for k, f in fns.items()}
+        kernel_ms = next(iter(timed.values()))[0]
+        print(f"phase 3 device {label} {tag}: "
+              + "; ".join(f"{k} {1e3 * ms:.2f} us"
+                          + ("" if n == 200 else f" ({n} calls)")
+                          + ("" if held else " (host-bound: the stream ran "
+                             "dry)") for k, (ms, n, held) in timed.items())
+              + f"; bound {1e3 * row['bound_ms']:.2f} us ({row['bound_by']}"
+              f"), the kernel at {100 * row['bound_ms'] / kernel_ms:.0f}% of "
+              f"it (CUDA events around 200 calls back to back, median of 5) "
+              f"[{card}]")
 
     probs = {}
     for dt in (torch.float32, torch.float64):
@@ -1625,6 +1708,34 @@ def main() -> int:
         if not all(torch.equal(a_, b_) for a_, b_ in zip(again,
                                                          (Hcc, b_p, W_cam))):
             raise AssertionError("ba_cam_sums does not repeat its bits")
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(
+                ba_edge.ba_lm_sums(got, bpat.lm_edge), (Hll, b_l, W_lm))):
+            raise AssertionError("ba_lm_sums does not repeat its bits")
+        # the yardstick that computes the same function: Hll and b_l by
+        # index_add_, W_lm by a masked gather
+        valid_l = bpat.lm_edge >= 0
+        idx_l = bpat.lm_edge.clamp_min(0).long()
+        zero = torch.zeros((), dtype=dt, device=dev)
+
+        def lm_same_function():
+            new_ = lambda r: torch.zeros((r, L), dtype=dt, device=dev)
+            return (new_(dl * dl).index_add_(1, owner_l, got.hll),
+                    new_(dl).index_add_(1, owner_l, got.bl),
+                    torch.where(valid_l, got.w[:, idx_l], zero))
+
+        same = lm_same_function()
+        if not torch.equal(same[2], W_lm) or _errors(
+                torch, same[:2], (Hll, b_l))[1] > TOL_DEFAULT[tag]:
+            raise AssertionError("the ba_lm_sums yardstick computes another "
+                                 "function")
+        del same
+        device_rows("ba_lm_sums" + sfx, tag, {
+            "kernel": lambda: ba_edge.ba_lm_sums(got, bpat.lm_edge),
+            "index_add_ (Hll, b_l only)": lambda: torch.zeros(
+                (dl * dl + dl, L), dtype=dt, device=dev).index_add_(
+                1, owner_l, lm_stack),
+            "index_add_ + masked W gather (the same function)":
+                lm_same_function})
         lam = 1e-4 * Hll[0].abs().max()
         iargs = (Hll, ba_inv.LANDMARK, fl, lam, b_l)
         eye_l = torch.eye(dl, dtype=dt, device=dev)
@@ -1685,7 +1796,17 @@ def main() -> int:
              label="ba_wv" + sfx, library=lambda: W_csr @ v_col,
              post=lambda out: (out[0], out[1].sum()), slow_plain=True,
              scale=lambda: wv_error_scale(ba_coupling, W_cam, rows_c, v, x,
-                                          hcc_d=Hcc_d))
+                                          hcc_d=Hcc_d),
+             library_what="W·v only")
+        wv_call = lambda: ba_coupling.ba_wv(W_cam, rows_c, v, hcc_d=Hcc_d,
+                                            x=x, want_dot=True)
+        wv1, wv2 = wv_call(), wv_call()
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(wv1, wv2)):
+            raise AssertionError("ba_wv does not repeat its bits")
+        del wv1, wv2
+        device_rows("ba_wv" + sfx, tag, {
+            "kernel": wv_call,
+            "CSR product, W·v only": lambda: W_csr @ v_col})
         case("ba_sandwich", tag, f"C={C} E={E} chunks={rows_c.n_chunks}",
              lambda: ba_coupling.ba_sandwich(W_cam, rows_c, Hinv, Hcc_d),
              lambda: ba_coupling.ba_sandwich_plain(W_cam, rows_c, Hinv,
@@ -1826,6 +1947,16 @@ def main() -> int:
              library=lambda: torch.zeros(
                  (dl * dl + dl, L), dtype=dt, device=dev).index_add_(
                  1, owner_l, lm_stack), slow_plain=True)
+        lm_call = lambda: ba_edge.ba_lm_sums(st, pat.lm_edge, with_w=False)
+        if not all(torch.equal(a_, b_) for a_, b_ in
+                   zip(lm_call()[:2], lm_call()[:2])):
+            raise AssertionError("ba_lm_sums does not repeat its bits")
+        # without W, one index_add_ computes the same function
+        device_rows(name("ba_lm_sums"), tag, {
+            "kernel": lm_call,
+            "index_add_ (the same function)": lambda: torch.zeros(
+                (dl * dl + dl, L), dtype=dt, device=dev).index_add_(
+                1, owner_l, lm_stack)})
         sys_ = ba_general.schur_build(gprob, lin=lin, pattern=pat)
         fl = gprob.free[pat.lm_name]
         lam = 1e-4 * sys_["Hll"][0].abs().max()
@@ -1916,7 +2047,10 @@ def main() -> int:
              flops=2 * n_w + 2 * Tp, label=name("ba_wv"),
              library=lambda: W_csr @ v_col, post=y_and_dot, slow_plain=True,
              scale=lambda: tuple(m[0] for m in mags)
-             + (sum(m[1] for m in mags),))
+             + (sum(m[1] for m in mags),), library_what="W·v only")
+        device_rows(name("ba_wv"), tag, {
+            "kernel (every pose group)": lambda: wv(ba_coupling.ba_wv),
+            "CSR product, W·v only": lambda: W_csr @ v_col})
         # what the check reads for a kernel whose row is 1% off: the row of
         # most entries and the row where 1% shows least
         got_wv = wv(ba_coupling.ba_wv)
@@ -2024,6 +2158,8 @@ def main() -> int:
         if "ms" in row:
             lib = ("none" if row["library_ms"] is None
                    else f"{row['library_ms']:.4f} ms")
+            if row["library_what"]:
+                lib = f"({row['library_what']}) {lib}"
             timing = (f" kernel {row['ms']:.4f} ms plain "
                       f"{row['plain_ms']:.4f} ms bound "
                       f"{row['bound_ms']:.5f} ms ({row['bound_by']}) "
@@ -2889,14 +3025,26 @@ def main() -> int:
         wall = (time.monotonic() - t2) * 1e6
         n_cg = max((kernels.launch_counts()["cg_update_xr"] - before)
                    // n_groups, 1)
+        wv_calls = ba_coupling.ba_wv.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof_g:
             ba_general._solve(work, sys_, lam_t, 250, 1e-8)
             torch.cuda.synchronize()
+        wv_calls = ba_coupling.ba_wv.launches - wv_calls
         rows_g = sorted(((e.self_device_time_total, e.count, e.key)
                          for e in prof_g.key_averages()
                          if e.device_type == torch.autograd.DeviceType.CUDA
                          and e.self_device_time_total > 0), reverse=True)
+        # kernels per ba_wv call, to the nearest integer (a profile can
+        # miss a record)
+        wv_kernels = sum(n_ for _, n_, k_ in rows_g if "ba_wv" in k_)
+        per_call = round(wv_kernels / max(wv_calls, 1))
+        print(f"phase {phase} ba_wv in that solve: {per_call} launch per "
+              f"call ({wv_kernels} kernels seen by the profiler in "
+              f"{wv_calls} calls)")
+        if wv_calls <= 0 or per_call != 1:
+            raise AssertionError(f"phase {phase}: ba_wv launched "
+                                 f"{wv_kernels} kernels in {wv_calls} calls")
         busy = sum(r[0] for r in rows_g)
         if busy <= 0:
             raise AssertionError(f"phase {phase}: the profiler saw no "

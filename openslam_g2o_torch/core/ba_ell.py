@@ -87,7 +87,7 @@ class BAEllPattern:
     lm_edge [K, L]: observation id of slot k of landmark l (-1 on padding),
     slots in observation order; lm_cam [K, L]: its camera (-1 on padding);
     cam_rows (K13's `PoseRows`: cam_ptr [C + 1], cam_lm [E] and the chunks
-    of the two-pass products), cam_edge [E]: the observations of camera c
+    of its W products), cam_edge [E]: the observations of camera c
     are cam_edge[cam_ptr[c]:cam_ptr[c+1]] in observation order, cam_lm their
     landmarks. extra_pattern: K15's tables of the pose-pose edges on the
     pose block (on the card only)."""

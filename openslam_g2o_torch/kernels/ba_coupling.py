@@ -41,13 +41,19 @@ class PoseRows:
     """The W entries of one pose group in pose-major CSR order: the entries
     of vertex n are positions ptr[n]:ptr[n+1]; lm [M] is the landmark of
     each position. The positions are cut into chunks of at most CHUNK
-    consecutive entries of one vertex: chunk c is positions
-    chunk_ptr[c]:chunk_ptr[c+1], and vertex n owns chunks
-    row_chunk[n]:row_chunk[n+1]. All int32 on the device."""
+    consecutive entries of one vertex, at least one per vertex (an empty
+    one where the vertex has no entry): chunk c is positions
+    chunk_ptr[c]:chunk_ptr[c+1] of vertex chunk_row[c], and vertex n owns
+    chunks row_chunk[n]:row_chunk[n+1]. `arrivals` [N] is `ba_wv`'s
+    counter of the chunks that have reached each vertex in a launch; the
+    kernel leaves it at zero, so one PoseRows serves one launch at a time.
+    All int32 on the device."""
     ptr: torch.Tensor
     lm: torch.Tensor
     chunk_ptr: torch.Tensor
     row_chunk: torch.Tensor
+    chunk_row: torch.Tensor
+    arrivals: torch.Tensor
 
     @property
     def n_rows(self):
@@ -67,19 +73,22 @@ def build_pose_rows(counts, lm_sorted, device) -> PoseRows:
     the landmark of every position in CSR order (numpy [M])."""
     counts = np.asarray(counts, dtype=np.int64)
     ptr = np.concatenate([[0], np.cumsum(counts)])
-    n_chunk = (counts + CHUNK - 1) // CHUNK
+    n_chunk = np.maximum((counts + CHUNK - 1) // CHUNK, 1)
     row_chunk = np.concatenate([[0], np.cumsum(n_chunk)])
     row_of = np.repeat(np.arange(len(counts)), n_chunk)
     starts = ptr[row_of] + (np.arange(len(row_of)) - row_chunk[row_of]) * CHUNK
     chunk_ptr = np.concatenate([starts, [ptr[-1]]])
     i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
                                     device=device)
-    return PoseRows(i32(ptr), i32(lm_sorted), i32(chunk_ptr), i32(row_chunk))
+    return PoseRows(i32(ptr), i32(lm_sorted), i32(chunk_ptr), i32(row_chunk),
+                    i32(row_of), torch.zeros(len(counts), dtype=torch.int32,
+                                             device=device))
 
 
 def _row_ints(rows: PoseRows):
     return {"lm": rows.lm, "chunk_ptr": rows.chunk_ptr,
-            "row_chunk": rows.row_chunk}
+            "row_chunk": rows.row_chunk, "chunk_row": rows.chunk_row,
+            "arrivals": rows.arrivals}
 
 
 def _dims(w, dx_rows, name):
@@ -187,9 +196,9 @@ def ba_wv(w_cam, rows: PoseRows, v, base=None, hcc_d=None, x=None,
     but W v optional: (W v)[s, n] = sum over vertex n's entries j of
     sum_t W_cam[s, t, j] v[t, rows.lm[j]]. With want_dot also the partial
     sums of x . y, one per vertex, as (y, partials [N]). v [dl, L]; base,
-    x, extra [Dp, N]; hcc_d [Dp*Dp, N]; free [N]. K13 on CUDA tensors (two
-    passes: the chunks, then the vertices), the plain version on CPU
-    tensors."""
+    x, extra [Dp, N]; hcc_d [Dp*Dp, N]; free [N]. K13 on CUDA tensors (one
+    launch: a block per chunk, the last block of each vertex finishes its
+    row; `rows.arrivals` orders them), the plain version on CPU tensors."""
     if not (v.dim() == 2 and w_cam.dim() == 2
             and rows.lm.shape == (w_cam.shape[1],)):
         raise ValueError("ba_wv: w_cam must be [Dp*dl, M] with one landmark "
@@ -223,7 +232,8 @@ def ba_wv(w_cam, rows: PoseRows, v, base=None, hcc_d=None, x=None,
                        device=v.device)
     ptr = lambda t: None if t is None else t.data_ptr()
     build.launch("g2o_ba_wv", v, w_cam.data_ptr(), rows.lm.data_ptr(),
-                 rows.chunk_ptr.data_ptr(), rows.row_chunk.data_ptr(),
+                 rows.chunk_ptr.data_ptr(), rows.chunk_row.data_ptr(),
+                 rows.row_chunk.data_ptr(), rows.arrivals.data_ptr(),
                  v.data_ptr(), v.shape[1], w_cam.shape[1], rows.n_chunks, N,
                  ptr(base), ptr(hcc_d), ptr(x), ptr(extra), ptr(free), dp, dl,
                  part.data_ptr(), y.data_ptr(), ptr(partials))

@@ -22,14 +22,18 @@
 //   ba_sandwich  Hcc_d - sum_j W_j Hinv_lm(j) W_j^T per pose vertex, the
 //                block-Jacobi blocks of S (K11 inverts them)
 //
-// Both walk the CSR lists in two passes: a block per chunk of at most 256
+// Both walk the CSR lists by chunks: a block per chunk of at most 256
 // consecutive entries of one vertex (a strided loop, then
-// block_reduce_values), then a thread per vertex summing its chunks in
-// order and finishing the row. A camera with 1768 observations and one with
-// 55 cost what they hold, and the one intrinsics vertex that every
-// observation of the general path's shared-intrinsics scene sees (degree
-// 80,000) is 313 blocks, not one. Every sum runs in a fixed order, without
-// atomics: a run repeats bit for bit. (Dp, dl) in {(6, 3), (4, 3), (3, 2)}.
+// block_reduce_values; every vertex owns at least one chunk, an empty one
+// where it has no entry). ba_wv finishes each vertex in the same launch:
+// the last of its chunks' blocks to arrive sums their partials with all its
+// threads (an arrival counter per vertex orders the blocks). ba_sandwich
+// runs a second pass, a thread per vertex summing its chunks in order. A
+// camera with 1768 observations and one with 55 cost what they hold, and
+// the one intrinsics vertex that every observation of the general path's
+// shared-intrinsics scene sees (degree 80,000) is 313 blocks, not one.
+// Every sum runs in a fixed order, without atomics on values: a run repeats
+// bit for bit. (Dp, dl) in {(6, 3), (4, 3), (3, 2)}.
 //
 // The TPU code gathered from degree-bucketed, K-chunked tables
 // (`_bucketize`, `_place`, `_bucket_scan`); here the landmark side walks the
@@ -91,18 +95,31 @@ __global__ void ba_wtx_kernel(const T* __restrict__ w_lm,
     out[t * L + l] = free != nullptr ? y[t] * f : y[t];
 }
 
-// pass 1 of ba_wv: part[s, c] = sum over chunk c's entries j of
-// sum_t W_j[s, t] v[t, lm(j)]
+// ba_wv, one launch: a block per chunk computes the chunk's share
+// sum over its entries j of sum_t W_j[s, t] v[t, lm(j)] (a strided loop,
+// then block_reduce_values). A vertex of one chunk is finished by that
+// block. Of a vertex with several chunks, each block writes its partial to
+// part[s, c], fences it and counts its arrival on the vertex's counter;
+// the block that arrives last sums the vertex's partials with all its
+// threads (lanes stride over the chunks in chunk order, then the same
+// fixed tree), finishes the row and sets the counter back to 0 for the
+// next call. The atomic orders the blocks only: no value is summed
+// atomically, so a run repeats bit for bit.
 template <typename T, int DP, int DL>
-__global__ void ba_wv_part_kernel(const T* __restrict__ w_cam,
-                                  const int* __restrict__ pose_lm,
-                                  const int* __restrict__ chunk_ptr,
-                                  const T* __restrict__ v, int n_lm,
-                                  long long ld, int n_chunks,
-                                  T* __restrict__ part) {
+__global__ void __launch_bounds__(kCoupleThreads) ba_wv_kernel(
+    const T* __restrict__ w_cam, const int* __restrict__ pose_lm,
+    const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_row,
+    const int* __restrict__ row_chunk, int* __restrict__ arrivals,
+    const T* __restrict__ v, int n_lm, long long ld, int n_chunks,
+    int n_rows, const T* __restrict__ base, const T* __restrict__ hcc_d,
+    const T* __restrict__ x, const T* __restrict__ extra,
+    const T* __restrict__ free, T* __restrict__ part, T* __restrict__ y,
+    T* __restrict__ partials) {
   __shared__ T smem[kMaxWarps][DP];
+  __shared__ T vals[DP];
+  __shared__ int last;
   const int c = blockIdx.x;
-  const long long L = n_lm;
+  const long long L = n_lm, NC = n_chunks;
   const int j0 = chunk_ptr[c], j1 = chunk_ptr[c + 1];
   T acc[DP];
 #pragma unroll
@@ -118,29 +135,29 @@ __global__ void ba_wv_part_kernel(const T* __restrict__ w_cam,
       for (int t = 0; t < DL; ++t)
         acc[s] += w_cam[(s * DL + t) * ld + j] * vl[t];
   }
-  const T total = block_reduce_values<T, DP>(acc, smem);
-  if (threadIdx.x < DP)
-    part[threadIdx.x * static_cast<long long>(n_chunks) + c] = total;
-}
-
-// pass 2 of ba_wv: one thread per pose vertex n
-template <typename T, int DP>
-__global__ void ba_wv_finish_kernel(
-    const T* __restrict__ part, const int* __restrict__ row_chunk,
-    int n_rows, int n_chunks, const T* __restrict__ base,
-    const T* __restrict__ hcc_d, const T* __restrict__ x,
-    const T* __restrict__ extra, const T* __restrict__ free,
-    T* __restrict__ y, T* __restrict__ partials) {
-  const long long n = blockIdx.x * static_cast<long long>(blockDim.x)
-                      + threadIdx.x;
-  if (n >= n_rows) return;
-  const long long N = n_rows, NC = n_chunks;
+  T wv = block_reduce_values<T, DP>(acc, smem);   // in thread s < DP
+  const long long n = chunk_row[c];
   const int c0 = row_chunk[n], c1 = row_chunk[n + 1];
-  T dot = T(0);
+  if (c1 - c0 > 1) {
+    if (threadIdx.x < DP) part[threadIdx.x * NC + c] = wv;
+    __threadfence();                 // the partial, before the arrival
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(arrivals + n, 1) == c1 - c0 - 1;
+    __syncthreads();
+    if (!last) return;
+    // every other chunk of the vertex has written and fenced its partial;
+    // read them from L2 (__ldcg), past this SM's L1
 #pragma unroll
-  for (int s = 0; s < DP; ++s) {
-    T wv = T(0);
-    for (int c = c0; c < c1; ++c) wv += part[s * NC + c];
+    for (int s = 0; s < DP; ++s) acc[s] = T(0);
+    for (int cc = c0 + threadIdx.x; cc < c1; cc += blockDim.x)
+#pragma unroll
+      for (int s = 0; s < DP; ++s) acc[s] += __ldcg(part + s * NC + cc);
+    wv = block_reduce_values<T, DP>(acc, smem);
+    if (threadIdx.x == 0) arrivals[n] = 0;
+  }
+  const long long N = n_rows;
+  if (threadIdx.x < DP) {
+    const int s = threadIdx.x;
     T head = base != nullptr ? base[s * N + n] : T(0);
     if (hcc_d != nullptr) {
       T hx = T(0);
@@ -153,9 +170,16 @@ __global__ void ba_wv_finish_kernel(
     T val = head - wv;
     if (free != nullptr) val = val * free[n];
     y[s * N + n] = val;
-    if (partials != nullptr) dot += x[s * N + n] * val;
+    vals[s] = val;
   }
-  if (partials != nullptr) partials[n] = dot;
+  if (partials == nullptr) return;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    T dot = T(0);
+#pragma unroll
+    for (int s = 0; s < DP; ++s) dot += x[s * N + n] * vals[s];
+    partials[n] = dot;
+  }
 }
 
 // pass 1 of ba_sandwich: part[(a, b), c] = sum over chunk c's entries j of
@@ -262,37 +286,39 @@ int launch_wtx(const T* w_lm, const int* lm_cam, const T* x, int n_lm,
 
 template <typename T, int DP, int DL>
 void wv_dims(const T* w_cam, const int* pose_lm, const int* chunk_ptr,
-             const int* row_chunk, const T* v, int n_lm, long long ld,
-             int n_chunks, int n_rows, const T* base, const T* hcc_d,
-             const T* x, const T* extra, const T* free, T* part, T* y,
-             T* partials, cudaStream_t stream) {
-  if (n_chunks > 0)
-    ba_wv_part_kernel<T, DP, DL><<<n_chunks, kCoupleThreads, 0, stream>>>(
-        w_cam, pose_lm, chunk_ptr, v, n_lm, ld, n_chunks, part);
-  ba_wv_finish_kernel<T, DP><<<grid_for(n_rows), kThreads, 0, stream>>>(
-      part, row_chunk, n_rows, n_chunks, base, hcc_d, x, extra, free, y,
-      partials);
+             const int* chunk_row, const int* row_chunk, int* arrivals,
+             const T* v, int n_lm, long long ld, int n_chunks, int n_rows,
+             const T* base, const T* hcc_d, const T* x, const T* extra,
+             const T* free, T* part, T* y, T* partials,
+             cudaStream_t stream) {
+  ba_wv_kernel<T, DP, DL><<<n_chunks, kCoupleThreads, 0, stream>>>(
+      w_cam, pose_lm, chunk_ptr, chunk_row, row_chunk, arrivals, v, n_lm, ld,
+      n_chunks, n_rows, base, hcc_d, x, extra, free, part, y, partials);
 }
 
 template <typename T>
 int launch_wv(const T* w_cam, const int* pose_lm, const int* chunk_ptr,
-              const int* row_chunk, const T* v, int n_lm, long long ld,
-              int n_chunks, int n_rows, const T* base, const T* hcc_d,
-              const T* x, const T* extra, const T* free, int DP, int DL,
-              T* part, T* y, T* partials, cudaStream_t stream) {
+              const int* chunk_row, const int* row_chunk, int* arrivals,
+              const T* v, int n_lm, long long ld, int n_chunks, int n_rows,
+              const T* base, const T* hcc_d, const T* x, const T* extra,
+              const T* free, int DP, int DL, T* part, T* y, T* partials,
+              cudaStream_t stream) {
+  // every vertex owns at least one chunk (kernels/ba_coupling.py
+  // build_pose_rows), so every row has a finishing block
   if (n_rows <= 0) return 0;
+  if (n_chunks < n_rows) return static_cast<int>(cudaErrorInvalidValue);
   if (DP == 6 && DL == 3)
-    wv_dims<T, 6, 3>(w_cam, pose_lm, chunk_ptr, row_chunk, v, n_lm, ld,
-                     n_chunks, n_rows, base, hcc_d, x, extra, free, part, y,
-                     partials, stream);
+    wv_dims<T, 6, 3>(w_cam, pose_lm, chunk_ptr, chunk_row, row_chunk,
+                     arrivals, v, n_lm, ld, n_chunks, n_rows, base, hcc_d, x,
+                     extra, free, part, y, partials, stream);
   else if (DP == 4 && DL == 3)
-    wv_dims<T, 4, 3>(w_cam, pose_lm, chunk_ptr, row_chunk, v, n_lm, ld,
-                     n_chunks, n_rows, base, hcc_d, x, extra, free, part, y,
-                     partials, stream);
+    wv_dims<T, 4, 3>(w_cam, pose_lm, chunk_ptr, chunk_row, row_chunk,
+                     arrivals, v, n_lm, ld, n_chunks, n_rows, base, hcc_d, x,
+                     extra, free, part, y, partials, stream);
   else if (DP == 3 && DL == 2)
-    wv_dims<T, 3, 2>(w_cam, pose_lm, chunk_ptr, row_chunk, v, n_lm, ld,
-                     n_chunks, n_rows, base, hcc_d, x, extra, free, part, y,
-                     partials, stream);
+    wv_dims<T, 3, 2>(w_cam, pose_lm, chunk_ptr, chunk_row, row_chunk,
+                     arrivals, v, n_lm, ld, n_chunks, n_rows, base, hcc_d, x,
+                     extra, free, part, y, partials, stream);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_status();
@@ -348,14 +374,14 @@ extern "C" {
   }                                                                            \
   int g2o_ba_wv_##SUFFIX(                                                      \
       const T* w_cam, const int* pose_lm, const int* chunk_ptr,                \
-      const int* row_chunk, const T* v, int n_lm, long long ld, int n_chunks,  \
-      int n_rows, const T* base, const T* hcc_d, const T* x, const T* extra,   \
-      const T* free, int DP, int DL, T* part, T* y, T* partials,               \
-      void* stream) {                                                          \
+      const int* chunk_row, const int* row_chunk, int* arrivals, const T* v,   \
+      int n_lm, long long ld, int n_chunks, int n_rows, const T* base,         \
+      const T* hcc_d, const T* x, const T* extra, const T* free, int DP,       \
+      int DL, T* part, T* y, T* partials, void* stream) {                      \
     return g2o_torch::launch_wv<T>(                                            \
-        w_cam, pose_lm, chunk_ptr, row_chunk, v, n_lm, ld, n_chunks, n_rows,   \
-        base, hcc_d, x, extra, free, DP, DL, part, y, partials,                \
-        static_cast<cudaStream_t>(stream));                                    \
+        w_cam, pose_lm, chunk_ptr, chunk_row, row_chunk, arrivals, v, n_lm,    \
+        ld, n_chunks, n_rows, base, hcc_d, x, extra, free, DP, DL, part, y,    \
+        partials, static_cast<cudaStream_t>(stream));                          \
   }                                                                            \
   int g2o_ba_sandwich_##SUFFIX(                                                \
       const T* w_cam, const int* pose_lm, const int* chunk_ptr,                \

@@ -13,11 +13,14 @@
 //   ba_generic   the same products from the residual and masked Jacobians
 //                `linearize` computed, for any other binary (landmark, pose)
 //                edge type: R in {1, 2, 3}, (Dp, dl) in {(6, 3), (3, 2)}.
-//   ba_lm_sums   one thread per landmark: Hll and b_l over its slots of the
-//                landmark table in slot order, and W copied into the
-//                landmark-major [Dp*dl, K, L] layout (zeros on padding);
-//                without W (null w_e and w_lm) for the general Schur path,
-//                whose edge kernel writes W itself (schur_general.cu).
+//   ba_lm_sums   a block per tile of 16 landmarks (4 where K > 8): the
+//                tile's slots are staged in shared memory, then one thread
+//                per (landmark, row) sums Hll and b_l over the slots in
+//                slot order, and W is copied out into the landmark-major
+//                [Dp*dl, K, L] layout (zeros on padding), coalesced along
+//                k L + l; without W
+//                (null w_e and w_lm) for the general Schur path, whose edge
+//                kernel writes W itself (schur_general.cu).
 //   ba_cam_sums  one block per camera: Hcc and b_p over its CSR list, each
 //                thread a strided share, then block_reduce_values (a fixed
 //                tree: no atomics, the same bits every run); and W copied
@@ -86,7 +89,7 @@ __global__ void ba_xyz2uv_kernel(
     Rm[1][k] = v1 + T(2) * (qw * a1 + (qz * a0 - qx * a2));
     Rm[2][k] = v2 + T(2) * (qw * a2 + (qx * a1 - qy * a0));
   }
-  const T sk[3][3] = {{T(0), -z, y}, {z, T(0), -x}, {-y, x, T(0)}};
+  const T gk[3][3] = {{T(0), -z, y}, {z, T(0), -x}, {-y, x, T(0)}};
   const T fl = free_l[l], fc = free_c[c];
   T jl[2][3], jc[2][6];
 #pragma unroll
@@ -97,7 +100,7 @@ __global__ void ba_xyz2uv_kernel(
 #pragma unroll
       for (int m = 0; m < 3; ++m) {
         sp += de[a][m] * Rm[m][k];
-        so += de[a][m] * sk[m][k];
+        so += de[a][m] * gk[m][k];
       }
       jl[a][k] = sp * fl;
       jc[a][k] = -so * fc;
@@ -129,45 +132,96 @@ __global__ void ba_generic_kernel(
                                  off + e, ld, hll, bl, wblk, hcc, bp);
 }
 
-template <typename T, int DP, int DL>
-__global__ void ba_lm_sums_kernel(
+// ba_lm_sums: a block per tile of TL landmarks, their slots in chunks of
+// KC = kLmSlots / TL (TL = 16 and KC = 8 at K <= 8, the BAL shapes; 4 and
+// 32 for wider slot tables). Per chunk, every thread owns one
+// slot (slots fastest within a landmark, so observations numbered
+// point-major are read in order whatever the tile) and half or less of the
+// rows: it reads the slot's observation id, then issues all its rows'
+// loads at once, and parks the values in shared memory. Then one thread
+// per (row, landmark) of Hll and b_l adds the chunk's values in slot order
+// (padding slots add an exact +0, so the sum has the bits of a loop over
+// the valid slots), and W leaves the stage landmark-major along
+// pos = k L + l, a thread per (row, slot) with l fastest: shared memory
+// transposes observation order into slot-major order. A chunk with no
+// valid slot in the tile only writes W's zeros. Correct for any
+// observation order and any K.
+constexpr int kLmSlots = 128;      // slots of a tile per chunk
+constexpr int kLmThreads = 256;
+constexpr int kLmBlocksPerSM = 4;  // at most 64 registers a thread
+
+template <typename T, int DP, int DL, bool WITH_W, int TL>
+__global__ void __launch_bounds__(kLmThreads, kLmBlocksPerSM)
+ba_lm_sums_kernel(
     const T* __restrict__ hll_e, const T* __restrict__ bl_e,
     const T* __restrict__ w_e, const int* __restrict__ lm_edge, int n_lm,
     int k_width, long long ld, T* __restrict__ hll, T* __restrict__ bl,
     T* __restrict__ w_lm) {
-  constexpr int DD = DL * DL, DW = DP * DL;
-  const long long l = blockIdx.x * static_cast<long long>(blockDim.x)
-                      + threadIdx.x;
-  if (l >= n_lm) return;
+  constexpr int DD = DL * DL, NS = DD + DL, DW = DP * DL;
+  constexpr int NR = WITH_W ? NS + DW : NS;       // rows staged
+  constexpr int KC = kLmSlots / TL, PITCH = KC + 1;
+  constexpr int ROW = TL * PITCH;                 // one row of the stage
+  constexpr int LANES = kLmThreads / kLmSlots;    // threads per slot
+  constexpr int PER = (NR + LANES - 1) / LANES;   // rows per thread
+  static_assert(NS * TL <= kLmThreads, "a summing thread per value");
+  __shared__ T stage[NR * ROW];                   // [row][l][k], k padded
   const long long L = n_lm, KL = static_cast<long long>(k_width) * L;
-  T h[DD], b[DL];
+  const long long l0 = static_cast<long long>(blockIdx.x) * TL;
+  // this thread's slot of the chunk, and its first row
+  const int s = threadIdx.x % kLmSlots, q0 = threadIdx.x / kLmSlots;
+  const int gl = s / KC, gk = s % KC;
+  // and its (row, landmark) of the sums
+  const int sq = threadIdx.x / TL, sl = threadIdx.x % TL;
+  T acc = T(0);
+  for (int k0 = 0; k0 < k_width; k0 += KC) {
+    const long long o = (k0 + gk < k_width && l0 + gl < L)
+        ? lm_edge[(k0 + gk) * L + l0 + gl] : -1;
+    if (__syncthreads_or(o >= 0)) {
+      T val[PER];
 #pragma unroll
-  for (int q = 0; q < DD; ++q) h[q] = T(0);
-#pragma unroll
-  for (int q = 0; q < DL; ++q) b[q] = T(0);
-  for (int k = 0; k < k_width; ++k) {
-    const long long o = lm_edge[k * L + l];
-    const long long pos = k * L + l;
-    if (o < 0) {
-      if (w_lm != nullptr) {
-#pragma unroll
-        for (int q = 0; q < DW; ++q) w_lm[q * KL + pos] = T(0);
+      for (int j = 0; j < PER; ++j) {
+        const int q = q0 + LANES * j;
+        const T* src = q < DD ? hll_e + q * ld
+                     : q < NS ? bl_e + (q - DD) * ld : w_e + (q - NS) * ld;
+        val[j] = (q < NR && o >= 0) ? src[o] : T(0);
       }
-      continue;
-    }
 #pragma unroll
-    for (int q = 0; q < DD; ++q) h[q] += hll_e[q * ld + o];
+      for (int j = 0; j < PER; ++j) {
+        const int q = q0 + LANES * j;
+        if (q < NR) stage[q * ROW + gl * PITCH + gk] = val[j];
+      }
+      __syncthreads();
+      if (sq < NS) {
+        const T* row = stage + sq * ROW + sl * PITCH;
 #pragma unroll
-    for (int q = 0; q < DL; ++q) b[q] += bl_e[q * ld + o];
-    if (w_lm != nullptr) {
-#pragma unroll
-      for (int q = 0; q < DW; ++q) w_lm[q * KL + pos] = w_e[q * ld + o];
+        for (int k = 0; k < KC; ++k) acc += row[k];
+      }
+      if (WITH_W) {
+#pragma unroll 3
+        for (int i = threadIdx.x; i < DW * kLmSlots; i += kLmThreads) {
+          const int q = i / kLmSlots, t = i % kLmSlots;   // t = k TL + l
+          const int k = t / TL, l = t % TL;
+          if (k0 + k < k_width && l0 + l < L)
+            w_lm[q * KL + (k0 + k) * L + l0 + l] =
+                stage[(NS + q) * ROW + l * PITCH + k];
+        }
+      }
+      __syncthreads();                            // the stage is reused
+    } else if (WITH_W) {                          // padding only: zeros
+      for (int i = threadIdx.x; i < DW * kLmSlots; i += kLmThreads) {
+        const int q = i / kLmSlots, t = i % kLmSlots;
+        const int k = t / TL, l = t % TL;
+        if (k0 + k < k_width && l0 + l < L)
+          w_lm[q * KL + (k0 + k) * L + l0 + l] = T(0);
+      }
     }
   }
-#pragma unroll
-  for (int q = 0; q < DD; ++q) hll[q * L + l] = h[q];
-#pragma unroll
-  for (int q = 0; q < DL; ++q) bl[q * L + l] = b[q];
+  if (sq < NS && l0 + sl < L) {
+    if (sq < DD)
+      hll[sq * L + l0 + sl] = acc;
+    else
+      bl[(sq - DD) * L + l0 + sl] = acc;
+  }
 }
 
 template <typename T, int DP, int DL>
@@ -258,6 +312,34 @@ int launch_generic(const T* resid, const T* jl, const T* jc, const T* rho1,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename T, int DP, int DL, int TL>
+void lm_sums_tile(const T* hll_e, const T* bl_e, const T* w_e,
+                  const int* lm_edge, int n_lm, int k_width, long long ld,
+                  T* hll, T* bl, T* w_lm, cudaStream_t stream) {
+  const int grid = static_cast<int>((n_lm + TL - 1) / TL);
+  if (w_lm != nullptr)
+    ba_lm_sums_kernel<T, DP, DL, true, TL><<<grid, kLmThreads, 0, stream>>>(
+        hll_e, bl_e, w_e, lm_edge, n_lm, k_width, ld, hll, bl, w_lm);
+  else
+    ba_lm_sums_kernel<T, DP, DL, false, TL><<<grid, kLmThreads, 0, stream>>>(
+        hll_e, bl_e, w_e, lm_edge, n_lm, k_width, ld, hll, bl, w_lm);
+}
+
+// the tile: 16 landmarks of 8 slots up to K = 8 (the BAL shapes), else 4
+// of 32 (the landmark worlds: K = 51 and 98, most slots padding), so that
+// a few thousand landmarks still fill the card
+template <typename T, int DP, int DL>
+void lm_sums_dims(const T* hll_e, const T* bl_e, const T* w_e,
+                  const int* lm_edge, int n_lm, int k_width, long long ld,
+                  T* hll, T* bl, T* w_lm, cudaStream_t stream) {
+  if (k_width <= kLmSlots / 16)
+    lm_sums_tile<T, DP, DL, 16>(hll_e, bl_e, w_e, lm_edge, n_lm, k_width, ld,
+                                hll, bl, w_lm, stream);
+  else
+    lm_sums_tile<T, DP, DL, 4>(hll_e, bl_e, w_e, lm_edge, n_lm, k_width, ld,
+                               hll, bl, w_lm, stream);
+}
+
 template <typename T>
 int launch_lm_sums(const T* hll_e, const T* bl_e, const T* w_e,
                    const int* lm_edge, int n_lm, int k_width, long long ld,
@@ -265,11 +347,11 @@ int launch_lm_sums(const T* hll_e, const T* bl_e, const T* w_e,
                    cudaStream_t stream) {
   if (n_lm <= 0) return 0;
   if (DP == 6 && DL == 3)
-    ba_lm_sums_kernel<T, 6, 3><<<grid_for(n_lm), kThreads, 0, stream>>>(
-        hll_e, bl_e, w_e, lm_edge, n_lm, k_width, ld, hll, bl, w_lm);
+    lm_sums_dims<T, 6, 3>(hll_e, bl_e, w_e, lm_edge, n_lm, k_width, ld, hll,
+                          bl, w_lm, stream);
   else if (DP == 3 && DL == 2)
-    ba_lm_sums_kernel<T, 3, 2><<<grid_for(n_lm), kThreads, 0, stream>>>(
-        hll_e, bl_e, w_e, lm_edge, n_lm, k_width, ld, hll, bl, w_lm);
+    lm_sums_dims<T, 3, 2>(hll_e, bl_e, w_e, lm_edge, n_lm, k_width, ld, hll,
+                          bl, w_lm, stream);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_status();

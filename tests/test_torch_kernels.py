@@ -1103,6 +1103,124 @@ def test_schur_products_on_a_pose_row_of_degree_80000_on_gpu(cuda, dtype):
     assert torch.equal(s_k, ba_coupling.ba_sandwich(w, rows, hinv, hcc))
 
 
+def _lm_slot_table(trap, L, rng, device):
+    """[K, L] int32 observation ids (-1 on padding) for one trap of the
+    tiled landmark sums, and the number of observations: a shuffled
+    observation order, padding slots with a landmark that has none valid,
+    K = 1, and K = 12 (more than one chunk of 8 slots)."""
+    K = {"k1": 1, "k12": 12}.get(trap, 8)
+    deg = np.full(L, K)
+    if trap in ("padding", "k12"):
+        deg = rng.integers(0, K + 1, L)
+        deg[[0, 5]] = (K, 0)
+    n = int(deg.sum())
+    obs = np.arange(n) if trap == "padding" else rng.permutation(n)
+    table = -np.ones((K, L), np.int32)
+    start = np.concatenate([[0], np.cumsum(deg)])
+    for l in range(L):
+        table[:deg[l], l] = obs[start[l]:start[l + 1]]
+    return torch.as_tensor(table, device=device), n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("trap", ["shuffled", "padding", "k1", "k12"])
+def test_ba_lm_sums_on_traps_on_gpu(cuda, dtype, trap):
+    """K10's tiled landmark sums on the traps of a tile and a chunk of
+    slots, at both instantiations, with and without W: Hll and b_l equal
+    to the bit to a loop over the valid slots in slot order (the order of
+    the kernel they replace) and close to the plain version, W_lm a copy
+    of the plain version's (zeros on padding, exact), the same bits twice,
+    one launch per call."""
+    from openslam_g2o_torch.kernels import ba_edge
+    rng = np.random.default_rng(len(trap))
+    L = 1000 + 7                   # a ragged last tile
+    lm_edge, E = _lm_slot_table(trap, L, rng, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for dp, dl in ba_edge.BLOCK_DIMS:
+        st = ba_edge.EdgeStreams.empty(E, dp, dl, dtype, cuda)
+        for t in st.tensors():
+            t.copy_(torch.randn(t.shape, generator=gen, dtype=dtype,
+                                device=cuda))
+        for with_w in (True, False):
+            arg = st if with_w else ba_edge.LandmarkStreams(st.hll, st.bl)
+            before = ba_edge.ba_lm_sums.launches
+            got = ba_edge.ba_lm_sums(arg, lm_edge, with_w=with_w)
+            again = ba_edge.ba_lm_sums(arg, lm_edge, with_w=with_w)
+            assert ba_edge.ba_lm_sums.launches == before + 2
+            want = ba_edge.ba_lm_sums_plain(arg, lm_edge, with_w)
+            seq = [torch.zeros((r, L), dtype=dtype, device=cuda)
+                   for r in (dl * dl, dl)]
+            for k in range(lm_edge.shape[0]):
+                ok = lm_edge[k] >= 0
+                idx = lm_edge[k].clamp_min(0).long()
+                for acc, src in zip(seq, (st.hll, st.bl)):
+                    acc[:, ok] = acc[:, ok] + src[:, idx][:, ok]
+            for a, b, c in zip(got[:2], seq, again[:2]):
+                assert torch.equal(a, b) and torch.equal(a, c)
+            for a, b in zip(got[:2], want[:2]):
+                assert _rel(a, b) < TOL[dtype]
+            if with_w:
+                assert torch.equal(got[2], want[2])
+                assert torch.equal(got[2], again[2])
+            else:
+                assert got[2] is None
+            if trap in ("padding", "k12"):
+                assert not got[0][:, 5].any() and not got[1][:, 5].any()
+
+
+def _device_launches(fn, name, calls=10):
+    """Kernels whose name holds `name` per call of fn on the card, to the
+    nearest integer: torch.profiler over `calls` calls, after a fill kernel
+    that takes the first record of the session (a record can go missing)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return round(sum(e.count for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and name in e.key) / calls)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dims", [(6, 3), (4, 3), (3, 2)])
+def test_ba_wv_one_launch_on_chunk_traps_on_gpu(cuda, dtype, dims):
+    """K13's W v in one launch at vertex degrees 0, 1, 255, 256, 257 and
+    80,000 (the chunk edges and the hub vertex), landmark ids in a random
+    order: against the plain version (S x with the dot, and the reduced
+    right-hand side with free), the same bits over two successive calls on
+    one PoseRows (the arrival counters are back at zero after each), and
+    one kernel launch per call."""
+    from openslam_g2o_torch.kernels import ba_coupling
+    dp, dl = dims
+    rng = np.random.default_rng(dp)
+    counts = [0, 1, 255, 256, 257, 3, 80000, 0, 40]
+    L, M, N = 20000, sum(counts), len(counts)
+    rows = ba_coupling.build_pose_rows(counts, rng.integers(0, L, M), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(dp)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=dtype, device=cuda)
+    w, v, x = rnd(dp * dl, M), rnd(dl, L), rnd(dp, N)
+    free = (torch.rand(N, generator=gen, device=cuda) > 0.3).to(dtype)
+    for kw in (dict(hcc_d=rnd(dp * dp, N), x=x, extra=rnd(dp, N),
+                    want_dot=True),
+               dict(base=rnd(dp, N), free=free)):
+        got = ba_coupling.ba_wv(w, rows, v, **kw)
+        assert not rows.arrivals.any()
+        again = ba_coupling.ba_wv(w, rows, v, **kw)
+        assert not rows.arrivals.any()
+        want = ba_coupling.ba_wv_plain(w, rows, v, **kw)
+        if not kw.get("want_dot"):
+            got, again, want = (got,), (again,), (want,)
+        for a, b, c in zip(got, want, again):
+            assert _rel(a, b) < TOL_BA[dtype] and torch.equal(a, c)
+        assert _device_launches(lambda: ba_coupling.ba_wv(w, rows, v, **kw),
+                                "ba_wv") == 1
+    assert not rows.arrivals.any()
+
+
 @pytest.mark.parametrize("kind", ["psi2uv", "intrinsics"])
 def test_general_schur_lm_on_gpu_matches_cpu(cuda, kind):
     """LevenbergMarquardtSchur on the card against the same run on the CPU

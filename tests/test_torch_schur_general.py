@@ -314,9 +314,10 @@ def test_pattern_refuses_what_jax_refuses():
                                     [80000], [0], []])
 def test_pose_rows_cut_long_lists_into_chunks(counts):
     """Each chunk holds 1..CHUNK consecutive entries of one vertex, the
-    chunks of a vertex tile its CSR list in order, and a vertex of degree
-    80,000 (the shared intrinsics vertex of the chip's scene) becomes
-    ceil(80000 / CHUNK) chunks."""
+    chunks of a vertex tile its CSR list in order, a vertex without entries
+    owns one empty chunk (so that `ba_wv` finishes its row), and a vertex of
+    degree 80,000 (the shared intrinsics vertex of chip_smoke.py's scene)
+    becomes ceil(80000 / CHUNK) chunks."""
     rng = np.random.default_rng(0)
     M = int(np.sum(counts))
     rows = ba_coupling.build_pose_rows(counts, rng.integers(0, 9, M),
@@ -327,11 +328,10 @@ def test_pose_rows_cut_long_lists_into_chunks(counts):
     assert cp[0] == 0 and cp[-1] == M
     for n, c in enumerate(counts):
         sizes = np.diff(cp[rc[n]:rc[n + 1] + 1])
-        assert len(sizes) == -(-c // ba_coupling.CHUNK)
-        assert sizes.sum() == c and (sizes >= 1).all() \
-            and (sizes <= ba_coupling.CHUNK).all()
-        if c:
-            assert cp[rc[n]] == ptr[n] and cp[rc[n + 1]] == ptr[n + 1]
+        assert len(sizes) == max(-(-c // ba_coupling.CHUNK), 1)
+        assert sizes.sum() == c and (sizes <= ba_coupling.CHUNK).all()
+        assert (sizes >= 1).all() if c else sizes.tolist() == [0]
+        assert cp[rc[n]] == ptr[n] and cp[rc[n + 1]] == ptr[n + 1]
 
 
 def test_dense_pair_tables_cut_hub_lists_into_chunks():
