@@ -33,7 +33,10 @@ Phases (any failure raises and the script exits non-zero):
     The CG kernels' scalar buffer is held slot by slot, each scalar
     relative to its own plain value and the pd/continue flags exactly,
     also where they must be 0 (negative and NaN curvature, sticky pd,
-    r2 <= thresh). The Schur BA kernels K10-K13 on the BAL problems of
+    r2 <= thresh). The two-launch step (cg_update_xr with its finish,
+    spmv_dot_p) equals the three-launch step bit for bit at D = 3 and 6,
+    timed on the device beside spmv_dot, spmv_dot + cg_update_p and
+    spmv_dot + torch.addcmul. The Schur BA kernels K10-K13 on the BAL problems of
     phases 4g and 4h and on the landmark worlds of 4i (rows @400k, @2d,
     @3d: every instantiation a path runs), in the order the solver runs
     them, with index_add_, torch.linalg.inv, a CSR product and the JAX
@@ -43,12 +46,18 @@ Phases (any failure raises and the script exits non-zero):
     events around 200 calls queued behind a spin kernel, beside the same
     time of index_add_ (Hll and b_l only), of index_add_ with the masked W
     gather (ba_lm_sums's whole function) and of the CSR product (W v only);
+    the fused XYZ2UV entry and the chunked camera sums over the records
+    likewise (beside index_add_ on the records, with W's copy, and from
+    observation order with index_select), and the three K10 kernels with W
+    in the records only and with W lane-major as well;
  4. the main path: the 100,000-pose serpentine (noise 0.03 / 0.002, float32)
     through LevenbergMarquardtPCG's lambda init and lm_pcg_optimize_fused
     windows (pcg 100, tol 0.15) until chi2 <= 1.05 x the noise floor, then
     warm polish windows (pcg 600, tol 1e-6) until <= 1.02 x; the first 3
     iterations are held against the same run with every kernel replaced by
     its plain version, to rtol 2e-4 (float32 sums in another order);
+    two launches per CG iteration and no cg_update_p (also in 4e's
+    windows without Chebyshev);
     and the time and launches of one trial's retract + chi2 + outcome (K7);
  4b. the Chebyshev path: the same graph with pcg_cheby=4, three windows of
     10; finite, never increasing, below chi2_0, and the first 3 chi2 equal
@@ -117,6 +126,8 @@ Phases (any failure raises and the script exits non-zero):
     instantiations are listed apart, with the launches of the SE3 and
     dense 3D paths, which their 3x3 rows then leave out. The BA kernels'
     rows count phases 4g-4i, their @-rows the phase of their shape.
+    spmv_dot_p runs on the unpreconditioned paths only, cg_update_p on the
+    preconditioned ones (4b, 4e's Chebyshev window, 4h, 4i, 4j-4n).
 The last two lines are the per-kernel JSON and {"ok": true, "device": ...}.
 Exits non-zero without printing a result when no GPU is visible.
 """
@@ -236,6 +247,7 @@ KERNELS = {
     "lane_block_mv": ("jacobi_scale.cu",
                       "openslam_g2o_tpu/core/sparse.py:871"),
     "spmv_dot": ("cg_step.cu", "openslam_g2o_tpu/core/solvers.py:263"),
+    "spmv_dot_p": ("cg_step.cu", "openslam_g2o_tpu/core/solvers.py:275"),
     "dot_partials": ("cg_step.cu", "openslam_g2o_tpu/core/solvers.py:157"),
     "cg_residual": ("cg_step.cu", "openslam_g2o_tpu/core/solvers.py:245"),
     "cg_start": ("cg_step.cu", "openslam_g2o_tpu/core/solvers.py:248"),
@@ -310,6 +322,8 @@ KERNELS_D6 = {
                          "openslam_g2o_tpu/core/sparse.py:871"),
     "spmv_dot@d6": ("spmv_dot", "cg_step.cu",
                     "openslam_g2o_tpu/core/sparse.py:1309"),
+    "spmv_dot_p@d6": ("spmv_dot_p", "cg_step.cu",
+                      "openslam_g2o_tpu/core/solvers.py:275"),
     "gershgorin_bound@d6": ("gershgorin_bound", "chebyshev.cu",
                             "openslam_g2o_tpu/core/sparse.py:1270"),
     "dense_assemble@d6": ("dense_assemble", "dense_assemble.cu",
@@ -817,6 +831,132 @@ def main() -> int:
               f"it (CUDA events around 200 calls back to back, median of 5) "
               f"[{card}]")
 
+    def two_launch_rows(pattern, svals, p0, r0, scal0, hp0, part_pap, x0,
+                        tag, s, sfx, spmv_bytes, spmv_flops):
+        """The two-launch CG step from the state after cg_start and one
+        spmv_dot: cg_update_xr with an arrival counter (its last block
+        stores cg_update_p's scalars) against the three-launch pair, then
+        spmv_dot_p against cg_update_p + spmv_dot from the same state: the
+        same scalars, x, r, p, H p and partials bit for bit; both against
+        their plain versions; device times beside the three-launch
+        kernels' and spmv_dot + torch.addcmul."""
+        n = p0.numel()
+        arrivals = torch.zeros(1, dtype=torch.int32, device=dev)
+        st = {}
+        for route in ("two", "three"):
+            xx, rr_, pp, sc = x0.clone(), r0.clone(), p0.clone(), scal0.clone()
+            part = cg_step.cg_update_xr(sc, part_pap, xx, rr_, pp, hp0,
+                                        arrivals if route == "two" else None)
+            if route == "three":
+                cg_step.cg_update_p(sc, part, part, rr_, pp, True)
+            st[route] = (xx, rr_, pp, sc)
+        if int(arrivals.item()) != 0:
+            raise AssertionError("cg_update_xr left its arrival counter set")
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(
+                (st["two"][0], st["two"][1], st["two"][3]),
+                (st["three"][0], st["three"][1], st["three"][3]))):
+            raise AssertionError("cg_update_xr with the finish differs from "
+                                 "cg_update_xr + cg_update_p")
+        xs = {r_: (x0.clone(), r0.clone(), scal0.clone())
+              for r_ in ("k", "p")}
+
+        def run_fin(fn, st_, route):
+            out = fn(st_[2], part_pap, st_[0], st_[1], p0, hp0,
+                     arrivals if route == "k" else
+                     torch.zeros(1, dtype=torch.int32, device=dev))
+            return st_[0], st_[1], out, st_[2]
+
+        case("cg_update_xr", tag, f"n={n}, with the step's scalars",
+             lambda: run_fin(cg_step.cg_update_xr, xs["k"], "k"),
+             lambda: run_fin(cg_step.cg_update_xr_plain, xs["p"], "p"),
+             nbytes=6 * s * n, flops=6 * n, post=sums(2, scal=True),
+             label="cg_update_xr@finish" + sfx)
+        xk, rk, pk, sck = st["two"]
+        p_new = torch.full_like(pk, float("nan"))
+        hp_f, part_f = cg_step.spmv_dot_p(pattern.nb, svals, sck, pk, rk,
+                                          p_new)
+        hp_t, part_t = cg_step.spmv_dot(pattern.nb, svals, st["three"][2])
+        if not (torch.equal(p_new, st["three"][2]) and torch.equal(hp_f, hp_t)
+                and torch.equal(part_f, part_t)):
+            raise AssertionError("spmv_dot_p differs from cg_update_p + "
+                                 "spmv_dot")
+        again = torch.empty_like(pk)
+        if not (all(torch.equal(a_, b_) for a_, b_ in zip(
+                cg_step.spmv_dot_p(pattern.nb, svals, sck, pk, rk, again),
+                (hp_f, part_f))) and torch.equal(again, p_new)):
+            raise AssertionError("spmv_dot_p does not repeat its bits")
+        pn_k, pn_p = torch.empty_like(pk), torch.empty_like(pk)
+        D = pk.shape[0]
+        case("spmv_dot_p", tag, f"D={D} N={pk.shape[1]}",
+             lambda: (pn_k, *cg_step.spmv_dot_p(pattern.nb, svals, sck, pk,
+                                                rk, pn_k)),
+             lambda: (pn_p, *cg_step.spmv_dot_p_plain(pattern.nb, svals, sck,
+                                                      pk, rk, pn_p)),
+             nbytes=spmv_bytes + 2 * s * n, flops=spmv_flops + 4 * n,
+             post=lambda out: (out[0], out[1], out[2].sum()),
+             label="spmv_dot_p" + sfx)
+        z_ = rk.clone()
+        part_z = cg_step.dot_partials(z_, z_)
+        p_, sc_ = pk.clone(), sck.clone()
+        beta_ = sck[cg_step.BETA].clone()
+        device_rows("spmv_dot_p" + sfx, tag, {
+            "kernel": lambda: cg_step.spmv_dot_p(pattern.nb, svals, sck, pk,
+                                                 rk, pn_k),
+            "spmv_dot": lambda: cg_step.spmv_dot(pattern.nb, svals, pk),
+            "block_ell_spmv (kernel A: H p alone)": lambda: (
+                spmv.block_ell_spmv(pattern.nb, svals, pk)),
+            "spmv_dot + cg_update_p (the three-launch step's pair)":
+                lambda: (cg_step.cg_update_p(sc_, part_z, part_z, z_, p_,
+                                             True),
+                         cg_step.spmv_dot(pattern.nb, svals, p_)),
+            "spmv_dot + torch.addcmul (one PyTorch call for p = z + beta p)":
+                lambda: (torch.addcmul(z_, pk, beta_),
+                         cg_step.spmv_dot(pattern.nb, svals, pk))})
+        device_rows("cg_update_xr@finish" + sfx, tag, {
+            "kernel": lambda: cg_step.cg_update_xr(
+                xs["k"][2], part_pap, xs["k"][0], xs["k"][1], p0, hp0,
+                arrivals),
+            "cg_update_xr (three-launch step)": lambda: cg_step.cg_update_xr(
+                xs["k"][2], part_pap, xs["k"][0], xs["k"][1], p0, hp0),
+            "cg_update_p": lambda: cg_step.cg_update_p(
+                sc_, part_z, part_z, z_, p_, True)})
+        # one whole CG iteration each way, from copies of the same state: what
+        # the fold buys on the device, the launch bounds being the same
+        three = [x0.clone(), r0.clone(), p0.clone(), scal0.clone()]
+        two = [x0.clone(), r0.clone(), p0.clone(), p0.clone(), sck.clone()]
+
+        def step_three():
+            x_, r_, p_, s_ = three
+            hp_, pap_ = cg_step.spmv_dot(pattern.nb, svals, p_)
+            rr_ = cg_step.cg_update_xr(s_, pap_, x_, r_, p_, hp_)
+            cg_step.cg_update_p(s_, rr_, rr_, r_, p_, False)
+
+        def step_two():
+            x_, r_, p_, q_, s_ = two
+            hp_, pap_ = cg_step.spmv_dot_p(pattern.nb, svals, s_, p_, r_, q_)
+            cg_step.cg_update_xr(s_, pap_, x_, r_, q_, hp_, arrivals)
+            two[2], two[3] = q_, p_
+
+        t3, t2 = _device_ms(torch, step_three), _device_ms(torch, step_two)
+        print(f"phase 3 device CG iteration{sfx} {tag}: three launches "
+              f"(spmv_dot + cg_update_xr + cg_update_p) {1e3 * t3[0]:.2f} us"
+              f" ({t3[1]} iterations); two launches (spmv_dot_p + "
+              f"cg_update_xr with its finish) {1e3 * t2[0]:.2f} us "
+              f"({t2[1]} iterations); the fold saves "
+              f"{1e3 * (t3[0] - t2[0]):.2f} us (CUDA events, median of 5) "
+              f"[{card}]")
+
+    def sums(*which, scal=False):
+        """Reduce the partial-sum outputs at the given positions. With
+        `scal` the last output is the scalar buffer and is split into its
+        slots, one tensor each, so that every scalar is held relative to its
+        own plain value and not to the largest of the ten (rz, r2 and b2
+        are ~|b|^2; alpha, beta and the flags ~1)."""
+        def post(out):
+            out = [o.sum() if i in which else o for i, o in enumerate(out)]
+            return (*out[:-1], *out[-1].unbind()) if scal else tuple(out)
+        return post
+
     probs = {}
     for dt in (torch.float32, torch.float64):
         tag = str(dt).split(".")[-1]
@@ -1009,17 +1149,6 @@ def main() -> int:
         n = 3 * N
         p = randn(3, N)
         spmv_bytes = s * (9 * K * N + 6 * N) + 4 * K * N
-        def sums(*which, scal=False):
-            """Reduce the partial-sum outputs at the given positions. With
-            `scal` the last output is the scalar buffer and is split into
-            its slots, one tensor each, so that every scalar is held
-            relative to its own plain value and not to the largest of the
-            ten (rz, r2 and b2 are ~|b|^2; alpha, beta and the flags ~1)."""
-            def post(out):
-                out = [o.sum() if i in which else o
-                       for i, o in enumerate(out)]
-                return (*out[:-1], *out[-1].unbind()) if scal else tuple(out)
-            return post
 
         flags = [cg_step.PD, cg_step.CONT, cg_step.PD_NEXT]
 
@@ -1105,10 +1234,13 @@ def main() -> int:
                     PD=1.0, PD_NEXT=1.0)
         for st in state.values():             # the timing runs moved r
             st["r"].copy_(r0)
+        beta_t = state["k"]["scal"][cg_step.BETA].clone()
         case("cg_update_p", tag, f"n={n}",
              lambda: run_p(cg_step.cg_update_p, state["k"]),
              lambda: run_p(cg_step.cg_update_p_plain, state["p"]),
-             nbytes=3 * s * n, flops=2 * n, post=sums(scal=True))
+             nbytes=3 * s * n, flops=2 * n, post=sums(scal=True),
+             library=lambda: torch.addcmul(z0, state["k"]["p"], beta_t),
+             library_what="p = z + beta p only")
         check_flags("cg_update_p", state["k"]["scal"], state["p"]["scal"],
                     PD=1.0, PD_NEXT=1.0, CONT=1.0)
         # a direction of negative curvature (p . hp < 0) and one with a
@@ -1155,6 +1287,8 @@ def main() -> int:
              timed=False)
         check_flags("cg_update_p, r2 <= thresh", state["k"]["scal"],
                     state["p"]["scal"], PD=1.0, CONT=0.0)
+        two_launch_rows(pattern, svals, p0, r0, scal_k, hp0, part_pap, x,
+                        tag, s, "", spmv_bytes, 18 * K * N)
         for bad in (False, True):
             xs = {r_: x.clone() for r_ in ("k", "p")}
             if bad:
@@ -1458,6 +1592,16 @@ def main() -> int:
              lambda: cg_step.spmv_dot_plain(pattern.nb, svals, p),
              nbytes=spmv_bytes, flops=72 * K * N + 12 * N, post=sum_at(1),
              label="spmv_dot@d6")
+        # the two-launch CG step at D = 6, from a fresh solve's first
+        # product
+        r6, p6, rr6, bb6 = cg_step.cg_residual(bhat, torch.zeros_like(bhat))
+        scal6 = cg_step.new_scalars(r6)
+        cg_step.cg_start(scal6, rr6, rr6, bb6, 0.05, True)
+        hp6, pap6 = cg_step.spmv_dot(pattern.nb, svals, p6)
+        two_launch_rows(pattern, svals, p6, r6, scal6, hp6, pap6,
+                        torch.zeros_like(bhat), tag, s, "@d6", spmv_bytes,
+                        72 * K * N)
+        del r6, p6, hp6
         case("gershgorin_bound", tag, f"D=6 N={N} K={K}",
              lambda: chebyshev.gershgorin_bound(svals),
              lambda: chebyshev.gershgorin_bound_plain(svals),
@@ -1628,9 +1772,14 @@ def main() -> int:
         K, dp, dl = bpat.lm_edge.shape[0], bpat.dp, bpat.dl
         Tp = C * dp
         fl, fc = bprob.free[bpat.lm_name], bprob.free[bpat.cam_name]
-        got = ba_edge.EdgeStreams.empty(E, dp, dl, dt, dev)
-        want = ba_edge.EdgeStreams.empty(E, dp, dl, dt, dev)
-        n_out = dl * dl + dl + dp * dl + dp * dp + dp
+        streams = lambda: ba_edge.EdgeStreams.empty(E, dp, dl, dt, dev,
+                                                    bpat.cam_pos)
+        got, want = streams(), streams()
+        rs = ba_edge.record_size(dp, dl)
+        # values written per edge: the landmark half and W lane-major, the
+        # padded record
+        n_out = dl * dl + dl + dp * dl + rs
+        edge_runs = []                         # (label, launch)
         for pg in bpat.proj:
             eg = next(e_ for e_ in bprob.static.egroups if e_.key == pg.egkey)
             ea = bprob.edges[pg.egkey]
@@ -1653,9 +1802,13 @@ def main() -> int:
                          ba_edge.ba_xyz2uv_blocks_plain(*a, want, o),
                          want.tensors())[1],
                      nbytes=s * ((2 + 4 + 1 + 4 + n_out) * Eg
-                                 + 4 * n_points + 8 * n_cams) + 8 * Eg,
+                                 + 4 * n_points + 8 * n_cams) + 12 * Eg,
                      flops=500 * Eg, label="ba_xyz2uv_blocks" + sfx,
                      slow_plain=True)
+                edge_runs.append((
+                    "ba_xyz2uv_blocks" + sfx,
+                    lambda a=fargs, o=pg.offset: ba_edge.ba_xyz2uv_blocks(
+                        *a, got, o)))
             else:
                 resid, jacs, rho1 = problem_mod.linearize_group(bprob, eg)
                 gargs = (resid.contiguous(), jacs[pg.lm_slot].contiguous(),
@@ -1670,18 +1823,25 @@ def main() -> int:
                      lambda a=gargs, o=pg.offset: (
                          ba_edge.ba_edge_blocks_plain(*a, want, o),
                          want.tensors())[1],
-                     nbytes=s * (R + R * (dl + dp) + 1 + R * R + n_out) * Eg,
+                     nbytes=s * (R + R * (dl + dp) + 1 + R * R + n_out) * Eg
+                     + 4 * Eg,
                      flops=2 * R * (dl + dp) * (R + dl + dp + 1) * Eg,
                      label="ba_edge_blocks" + sfx, slow_plain=True)
+                edge_runs.append((
+                    "ba_edge_blocks" + sfx,
+                    lambda a=gargs, o=pg.offset: ba_edge.ba_edge_blocks(
+                        *a, got, o)))
         # the owner of every observation, for the index_add_ yardsticks
         owner_l = torch.empty(E, dtype=torch.long, device=dev)
         owner_l[bpat.cam_edge.long()] = bpat.cam_lm.long()
         counts_c = (bpat.cam_ptr[1:] - bpat.cam_ptr[:-1]).long()
+        owner_pos = torch.repeat_interleave(torch.arange(C, device=dev),
+                                            counts_c)   # of each record
         owner_c = torch.empty(E, dtype=torch.long, device=dev)
-        owner_c[bpat.cam_edge.long()] = torch.repeat_interleave(
-            torch.arange(C, device=dev), counts_c)
+        owner_c[bpat.cam_edge.long()] = owner_pos
         lm_stack = torch.cat([got.hll, got.bl])
-        cam_stack = torch.cat([got.hcc, got.bp])
+        nb_ = dp * dp + dp                     # the values summed per camera
+        rows_c = bpat.cam_rows
         case("ba_lm_sums", tag, f"L={L} K={K}",
              lambda: ba_edge.ba_lm_sums(got, bpat.lm_edge),
              lambda: ba_edge.ba_lm_sums_plain(got, bpat.lm_edge),
@@ -1691,28 +1851,72 @@ def main() -> int:
              library=lambda: torch.zeros(
                  (dl * dl + dl, L), dtype=dt, device=dev).index_add_(
                  1, owner_l, lm_stack), slow_plain=True)
-        case("ba_cam_sums", tag, f"C={C} E={E}",
-             lambda: ba_edge.ba_cam_sums(got, bpat.cam_ptr, bpat.cam_edge),
-             lambda: ba_edge.ba_cam_sums_plain(got, bpat.cam_ptr,
-                                               bpat.cam_edge),
-             nbytes=s * ((dp * dp + dp + 2 * dp * dl) * E
-                         + (dp * dp + dp) * C) + 4 * (E + C + 1),
-             flops=(dp * dp + dp) * E, label="ba_cam_sums" + sfx,
+        case("ba_cam_sums", tag, f"C={C} E={E} chunks={rows_c.n_chunks}, "
+             f"records of {rs} values",
+             lambda: ba_edge.ba_cam_sums(got, rows_c),
+             lambda: ba_edge.ba_cam_sums_plain(got, rows_c),
+             nbytes=s * (rs * E + nb_ * C + dp * dl * E)
+             + 4 * (2 * rows_c.n_chunks + C + 2),
+             flops=nb_ * E, label="ba_cam_sums" + sfx,
              library=lambda: torch.zeros(
-                 (dp * dp + dp, C), dtype=dt, device=dev).index_add_(
-                 1, owner_c, cam_stack), slow_plain=True)
-        again = ba_edge.ba_cam_sums(got, bpat.cam_ptr, bpat.cam_edge)
+                 (C, nb_), dtype=dt, device=dev).index_add_(
+                 0, owner_pos, got.rec[:, :nb_]),
+             slow_plain=True, library_what="Hcc and b_p only")
+        again = ba_edge.ba_cam_sums(got, rows_c)
         Hll, b_l, W_lm = ba_edge.ba_lm_sums(got, bpat.lm_edge)
-        Hcc, b_p, W_cam = ba_edge.ba_cam_sums(got, bpat.cam_ptr,
-                                              bpat.cam_edge)
+        Hcc, b_p, W_cam = ba_edge.ba_cam_sums(got, rows_c)
         if not all(torch.equal(a_, b_) for a_, b_ in zip(again,
                                                          (Hcc, b_p, W_cam))):
             raise AssertionError("ba_cam_sums does not repeat its bits")
         if not all(torch.equal(a_, b_) for a_, b_ in zip(
                 ba_edge.ba_lm_sums(got, bpat.lm_edge), (Hll, b_l, W_lm))):
             raise AssertionError("ba_lm_sums does not repeat its bits")
+        if bool(rows_c.arrivals.any()):
+            raise AssertionError("ba_cam_sums left an arrival counter set")
+        # the same function by PyTorch calls: on the records, index_add_
+        # for Hcc and b_p and W_cam as a transposed copy; and, from the
+        # per-observation streams in observation order (the layout before
+        # the records), index_add_ and index_select of W in CSR order
+        lanes = [t.contiguous() for t in got.lane_major()]
+        cam_stack = torch.cat([lanes[3], lanes[4]])
+        cam_edge_l = bpat.cam_edge.long()
+
+        def cam_same_function():
+            sums_ = torch.zeros((C, nb_), dtype=dt, device=dev).index_add_(
+                0, owner_pos, got.rec[:, :nb_])
+            return sums_, got.rec[:, nb_:nb_ + dp * dl].T.contiguous()
+
+        def cam_same_function_lanes():
+            sums_ = torch.zeros((nb_, C), dtype=dt, device=dev).index_add_(
+                1, owner_c, cam_stack)
+            return sums_, torch.index_select(lanes[2], 1, cam_edge_l)
+
+        for what, fn, sums_of in (
+                ("records", cam_same_function, lambda t: t.T),
+                ("observation order", cam_same_function_lanes, lambda t: t)):
+            sums_, w_ = fn()
+            sums_ = sums_of(sums_)
+            if not torch.equal(w_, W_cam) or _errors(
+                    torch, (sums_[:dp * dp], sums_[dp * dp:]),
+                    (Hcc, b_p))[1] > TOL_DEFAULT[tag]:
+                raise AssertionError(f"the ba_cam_sums yardstick ({what}) "
+                                     "computes another function")
+        del sums_, w_
+        device_rows("ba_cam_sums" + sfx, tag, {
+            "kernel": lambda: ba_edge.ba_cam_sums(got, rows_c),
+            "index_add_ on the records (Hcc, b_p only)": lambda: torch.zeros(
+                (C, nb_), dtype=dt, device=dev).index_add_(
+                0, owner_pos, got.rec[:, :nb_]),
+            "index_add_ + W's transposed copy (the same function)":
+                cam_same_function,
+            "index_add_ + index_select from observation order":
+                cam_same_function_lanes})
+        del lanes, cam_stack
+        for label_, run_ in edge_runs:
+            if label_ in ("ba_xyz2uv_blocks", "ba_xyz2uv_blocks@400k"):
+                device_rows(label_, tag, {"kernel": run_})
         # the yardstick that computes the same function: Hll and b_l by
-        # index_add_, W_lm by a masked gather
+        # index_add_, W_lm by a masked gather of the lane-major W
         valid_l = bpat.lm_edge >= 0
         idx_l = bpat.lm_edge.clamp_min(0).long()
         zero = torch.zeros((), dtype=dt, device=dev)
@@ -2180,7 +2384,8 @@ def main() -> int:
              (retract_chi2, "se3_edge_chi2"),
              (assemble, "assemble_gather"), (damp_chol, "damp_chol"),
              (jacobi_scale, "jacobi_scale"), (jacobi_scale, "lane_block_mv"),
-             (cg_step, "spmv_dot"), (cg_step, "dot_partials"),
+             (cg_step, "spmv_dot"), (cg_step, "spmv_dot_p"),
+             (cg_step, "dot_partials"),
              (cg_step, "cg_residual"), (cg_step, "cg_start"),
              (cg_step, "cg_update_xr"), (cg_step, "cg_update_p"),
              (cg_step, "cg_finish"), (chebyshev, "gershgorin_bound"),
@@ -2239,6 +2444,23 @@ def main() -> int:
         torch.cuda.synchronize()
         return out[:4], out[4].tolist(), time.monotonic() - t
 
+    def cg_launches(counts):
+        """Launches of the CG iterations' own kernels."""
+        return sum(counts[k] for k in ("spmv_dot", "spmv_dot_p",
+                                       "cg_update_xr", "cg_update_p",
+                                       "dot_partials"))
+
+    def two_launch_step(what, counts):
+        """Unpreconditioned solves: 2 launches per CG iteration, no
+        cg_update_p, spmv_dot only in each solve's first iteration."""
+        iters, solves = counts["cg_update_xr"], counts["cg_finish"]
+        if not (counts["cg_update_p"] == 0 and counts["dot_partials"] == 0
+                and 0 < counts["spmv_dot"] <= solves
+                and counts["spmv_dot"] + counts["spmv_dot_p"] == iters
+                and cg_launches(counts) == 2 * iters):
+            raise AssertionError(f"{what}: not two launches per CG "
+                                 f"iteration: {counts}")
+
     # 4. main path
     pcg = dict(pcg_iters=100, pcg_tol=0.15)
     alg = LevenbergMarquardtPCG(**pcg)
@@ -2270,9 +2492,8 @@ def main() -> int:
     ms_first = dt_first / 10 * 1e3
     ms_steady = sorted(steady)[len(steady) // 2] * 1e3
     cg_iters = window_counts["cg_update_xr"]
-    per_cg = sum(v for k, v in window_counts.items()
-                 if k in ("spmv_dot", "cg_update_xr", "cg_update_p",
-                          "dot_partials")) / max(cg_iters, 1)
+    per_cg = cg_launches(window_counts) / max(cg_iters, 1)
+    two_launch_step("phase 4 main path", counts_main)
     print(f"phase 4 main path: {N_POSES} poses "
           f"{prob.static.egroups[0].count} edges K={pattern.k} float32; "
           f"init+lambda0 {init_s:.3f} s lambda0 {lam0:.6g} chi2_0 "
@@ -2585,6 +2806,7 @@ def main() -> int:
     alg3, init3, secs3 = run3["alg"], run3["init_s"], run3["seconds"]
     final3 = float(st3[3])
     cg3 = counts_sphere["cg_update_xr"]
+    two_launch_step("phase 4e sphere path", counts_sphere)
     print(f"phase 4e SE3 main path: create_sphere({SPHERE}) in "
           f"{t_sphere:.2f} s on the host; {N3} poses {E3} edges "
           f"K={pattern3.k} 6x6 blocks float32, values "
@@ -2672,6 +2894,7 @@ def main() -> int:
     run64 = sphere_path(sphere.compile(dtype=torch.float64),
                         "sphere path in float64", SPHERE_POLISH_WINDOWS)
     traj64 = run64["traj"]
+    two_launch_step("phase 4e sphere path in float64", run64["counts"])
     print(f"phase 4e in float64, same schedule: chi2 / expected "
           f"{traj64[59] / floor3:.5f} after the six windows, "
           f"{traj64[-1] / floor3:.5f} after {SPHERE_POLISH_WINDOWS} polish "
@@ -2688,6 +2911,7 @@ def main() -> int:
     run_b = sphere_path(bench_prob, "benchmark-shaped sphere", 6)
     traj_b, win_b = run_b["traj"], run_b["win_ms"]
     counts_bench = run_b["counts"]
+    two_launch_step("phase 4e benchmark-shaped sphere", counts_bench)
     state_b, secs_b = run_b["state"], run_b["seconds"]
     print(f"phase 4e benchmark shape: create_sphere({SPHERE_BENCH}), default "
           f"noise, {bench_prob.static.vgroups[0].count} poses "
@@ -3390,13 +3614,15 @@ def main() -> int:
                             for ph, c_ in counts_gen.items())):
         print(f"phase 6 launches in the phase-{label}: "
               + " ".join(f"{k}={v}" for k, v in counts.items() if v))
+    # the unpreconditioned solves run the two-launch step (spmv_dot_p),
+    # the preconditioned ones cg_update_p
     main_kernels = ("block_ell_spmv", "edge_se2_blocks", "assemble_gather",
                     "damp_chol", "jacobi_scale", "lane_block_mv", "spmv_dot",
-                    "cg_residual", "cg_start", "cg_update_xr", "cg_update_p",
+                    "spmv_dot_p", "cg_residual", "cg_start", "cg_update_xr",
                     "cg_finish", "retract_chi2", "lm_outcome")
-    cheb_kernels = main_kernels + ("dot_partials", "gershgorin_bound",
-                                   "chebyshev_coeffs", "chebyshev_init",
-                                   "chebyshev_update")
+    cheb_kernels = tuple(k for k in main_kernels if k != "spmv_dot_p") + (
+        "cg_update_p", "dot_partials", "gershgorin_bound",
+        "chebyshev_coeffs", "chebyshev_init", "chebyshev_update")
     sphere_kernels = tuple(
         {"edge_se2_blocks": "edge_se3_blocks", "retract_chi2": "retract_se3"}
         .get(k, k) for k in main_kernels) + ("se3_edge_chi2",)
@@ -3404,8 +3630,8 @@ def main() -> int:
              + [k for k in sphere_kernels if counts_sphere[k] <= 0]
              + [k for k in ("dense_assemble", "lm_outcome")
                 if counts_dense3[k] <= 0]
-             + [k for k in ("gershgorin_bound", "chebyshev_update")
-                if counts_sphere_cheb[k] <= 0]
+             + [k for k in ("gershgorin_bound", "chebyshev_update",
+                            "cg_update_p") if counts_sphere_cheb[k] <= 0]
              + [k for k, (w, _, _) in KERNELS_D6.items()
                 if launches_d6[w] <= 0]
              + [k for k in cheb_kernels if counts_cheb[k] <= 0]
@@ -3417,20 +3643,31 @@ def main() -> int:
                             "ba_wv", "lm_outcome") if counts_ba80[k] <= 0]
              + [k for k in ("ba_xyz2uv_blocks", "ba_lm_sums", "ba_cam_sums",
                             "ba_block_inv", "ba_sandwich", "ba_wtx", "ba_wv",
-                            "lane_block_mv", "cg_update_xr", "lm_outcome")
+                            "lane_block_mv", "cg_update_xr", "cg_update_p",
+                            "lm_outcome")
                 if counts_ba400[k] <= 0]
              + [f"{k} ({w_})" for w_ in ("2D", "3D")
                 for k in ("ba_edge_blocks", "ba_lm_sums", "ba_cam_sums",
                           "ba_block_inv", "ba_sandwich", "ba_wtx", "ba_wv",
-                          "dense_assemble") if counts_4i[w_][k] <= 0]
+                          "dense_assemble", "cg_update_p")
+                if counts_4i[w_][k] <= 0]
              + [f"{k} ({ph})" for ph in ("4j", "4k", "4l", "4n")
                 for k in ("schur_edge_blocks", "ba_wv", "ba_sandwich",
                           "ba_lm_sums", "ba_wtx", "ba_block_inv",
                           "lane_block_mv", "dense_assemble", "cg_update_xr",
-                          "lm_outcome") if counts_gen[ph][k] <= 0]
+                          "cg_update_p", "lm_outcome")
+                if counts_gen[ph][k] <= 0]
+             + [f"spmv_dot_p ({ph})" for ph, c_ in (
+                 ("4b", counts_cheb), ("4e Chebyshev", counts_sphere_cheb),
+                 ("4h", counts_ba400), ("4i 2D", counts_4i["2D"]),
+                 ("4i 3D", counts_4i["3D"]),
+                 *((ph_, c2) for ph_, c2 in counts_gen.items()))
+                if c_.get("spmv_dot_p", 0) > 0]
              + [k for k in KERNELS if launches[k] <= 0])
     if never or set(KERNELS) != set(launches):
-        raise AssertionError(f"a kernel of a path never launched: {never}")
+        raise AssertionError(f"a kernel of a path never launched (or the "
+                             f"two-launch step on a preconditioned path): "
+                             f"{never}")
 
     print(smi)
     report = {"kernels": [

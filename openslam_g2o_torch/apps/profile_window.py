@@ -116,7 +116,8 @@ def main(argv=None) -> int:
     counts = kernels.launch_counts()
     cg_iters = counts["cg_update_xr"]
     matvecs = (counts["ba_wv"] if ba
-               else counts["spmv_dot"] + counts["block_ell_spmv"])
+               else counts["spmv_dot"] + counts["spmv_dot_p"]
+               + counts["block_ell_spmv"])
     trials = counts["lm_outcome"] if ba else counts["damp_chol"]
     launches = sum(counts.values())
     # two kernels per call: cg_finish (non-finite count, then the flag and
@@ -124,7 +125,8 @@ def main(argv=None) -> int:
     kernel_launches = (launches + counts["cg_finish"]
                        + counts["gershgorin_bound"])
     in_loop = sum(counts[k] for k in (
-        "spmv_dot", "block_ell_spmv", "cg_update_xr", "cg_update_p",
+        "spmv_dot", "spmv_dot_p", "block_ell_spmv", "cg_update_xr",
+        "cg_update_p",
         "dot_partials", "chebyshev_init", "chebyshev_update", "ba_wtx",
         "ba_wv", "lane_block_mv"))
     print(f"card: {card}")

@@ -87,10 +87,12 @@ class BAEllPattern:
     lm_edge [K, L]: observation id of slot k of landmark l (-1 on padding),
     slots in observation order; lm_cam [K, L]: its camera (-1 on padding);
     cam_rows (K13's `PoseRows`: cam_ptr [C + 1], cam_lm [E] and the chunks
-    of its W products), cam_edge [E]: the observations of camera c
-    are cam_edge[cam_ptr[c]:cam_ptr[c+1]] in observation order, cam_lm their
-    landmarks. extra_pattern: K15's tables of the pose-pose edges on the
-    pose block (on the card only)."""
+    of its W products and of K10's camera sums), cam_edge [E]: the
+    observations of camera c are cam_edge[cam_ptr[c]:cam_ptr[c+1]] in
+    observation order, cam_lm their landmarks; cam_pos [E], its inverse
+    permutation: observation e's place in its camera's list, where the
+    edge kernels write its camera record. extra_pattern: K15's tables of
+    the pose-pose edges on the pose block (on the card only)."""
     lm_name: str
     cam_name: str
     n_lm: int
@@ -104,6 +106,7 @@ class BAEllPattern:
     lm_cam: torch.Tensor
     cam_rows: ba_coupling.PoseRows
     cam_edge: torch.Tensor
+    cam_pos: torch.Tensor
     extra_pattern: Optional[object] = None
     lm_cam_host: Optional[np.ndarray] = None
     _pairs: Optional[object] = field(default=None, repr=False)
@@ -219,6 +222,8 @@ def build_ba_ell_pattern(problem: Problem) -> BAEllPattern:
     lm_cam = np.where(lm_edge >= 0, ci_all[np.maximum(lm_edge, 0)]
                       if len(ci_all) else -1, -1)
     cam_order = np.argsort(ci_all, kind="stable")
+    cam_pos = np.empty_like(cam_order)
+    cam_pos[cam_order] = np.arange(len(cam_order))
     dev = problem.device
     i32 = lambda x: torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32),
                                     device=dev)
@@ -231,8 +236,7 @@ def build_ba_ell_pattern(problem: Problem) -> BAEllPattern:
         tuple(proj), tuple(eg.key for eg in pose_only), i32(lm_edge),
         i32(lm_cam), ba_coupling.build_pose_rows(
             np.bincount(ci_all, minlength=cg.count), li_all[cam_order], dev),
-        i32(cam_order),
-        extra_pattern, lm_cam)
+        i32(cam_order), i32(cam_pos), extra_pattern, lm_cam)
     if dense_schur_ok(problem, pattern):
         pattern.schur_pairs()            # the dense route's table, up front
     return pattern
@@ -258,7 +262,7 @@ def _build(problem: Problem, pattern: BAEllPattern):
     lm, cam = pattern.lm_name, pattern.cam_name
     streams = ba_edge.EdgeStreams.empty(pattern.n_obs, pattern.dp,
                                         pattern.dl, problem.dtype,
-                                        problem.device)
+                                        problem.device, pattern.cam_pos)
     for pg in pattern.proj:
         eg = _egroup(problem, pg.egkey)
         ea = problem.edges[pg.egkey]
@@ -275,8 +279,7 @@ def _build(problem: Problem, pattern: BAEllPattern):
                 jacs[pg.cam_slot].contiguous(), rho1.contiguous(),
                 ea.information, streams, pg.offset)
     Hll, b_l, W_lm = ba_edge.ba_lm_sums(streams, pattern.lm_edge)
-    Hcc, b_p, W_cam = ba_edge.ba_cam_sums(streams, pattern.cam_ptr,
-                                          pattern.cam_edge)
+    Hcc, b_p, W_cam = ba_edge.ba_cam_sums(streams, pattern.cam_rows)
     del streams
     Hpp_extra = b_extra = None
     if pattern.pose_only_keys:

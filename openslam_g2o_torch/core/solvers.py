@@ -144,12 +144,21 @@ def pcg_solve(matvec, b: dict, precond=None, max_iter: int = 100,
     one iteration is three launches (`matvec.matvec_dot` where the operator
     has it, `cg_update_xr`, `cg_update_p`; a preconditioner adds its own
     and one dot), every CG scalar stays in a device buffer, and the only
-    host read is the continue flag, once per `unroll` iterations. On CPU
-    tensors the same calls run the plain versions. `matvec` and `precond`
-    map a dict of groups to a dict of groups; x0 and b are not modified. Returns (x, ok) with ok a 0-dim bool tensor.
+    host read is the continue flag, once per `unroll` iterations. Without
+    a preconditioner, on a one-group operator that offers
+    `matvec_dot_p`, it is two: `cg_update_xr` stores the step's scalars
+    (its last block, through an arrival counter) and `matvec_dot_p` forms
+    the next direction p = beta p + r as it multiplies, into the other of
+    two p buffers; the first iteration (p = r) multiplies with
+    `matvec_dot`. The arithmetic is the three-launch step's, bit for bit.
+    On CPU tensors the same calls run the plain versions. `matvec` and
+    `precond` map a dict of groups to a dict of groups; x0 and b are not
+    modified. Returns (x, ok) with ok a 0-dim bool tensor.
     """
     keys = list(b)
     precond_norm = norm == "precond"
+    fold_p = (precond is None and len(keys) == 1
+              and hasattr(matvec, "matvec_dot_p"))
     if x0 is None:
         x = {k: torch.zeros_like(b[k]) for k in keys}
     else:
@@ -175,20 +184,40 @@ def pcg_solve(matvec, b: dict, precond=None, max_iter: int = 100,
                             for k in keys])
     scal = cg.new_scalars(part_rz)
     cg.cg_start(scal, part_rz, part_rr, part_b2, tol, precond_norm)
+    if fold_p:
+        (k,) = keys
+        arrivals = torch.zeros(1, dtype=torch.int32, device=scal.device)
+        spare = {k: _spare(p[k])}
     i = 0
     while i < max_iter and bool(scal[cg.CONT].item()):
         for _ in range(unroll):
-            hp, part_pap = _matvec_dot(matvec, p)
-            part_rr = _cat([cg.cg_update_xr(scal, part_pap, x[k], r[k], p[k],
-                                            hp[k]) for k in keys])
-            if precond is None:
-                part_rz = part_rr
+            if fold_p:
+                if i == 0:
+                    hp, part_pap = _matvec_dot(matvec, p)
+                else:
+                    hp, part_pap = matvec.matvec_dot_p(scal, p, r, spare)
+                    p, spare = spare, p
+                cg.cg_update_xr(scal, part_pap, x[k], r[k], p[k], hp[k],
+                                arrivals)
             else:
-                z = _contiguous(precond(r))
-                part_rz = _cat([cg.dot_partials(r[k], z[k]) for k in keys])
-            for k in keys:
-                cg.cg_update_p(scal, part_rz, part_rr, z[k], p[k],
-                               precond_norm)
+                hp, part_pap = _matvec_dot(matvec, p)
+                part_rr = _cat([cg.cg_update_xr(scal, part_pap, x[k], r[k],
+                                                p[k], hp[k]) for k in keys])
+                if precond is None:
+                    part_rz = part_rr
+                else:
+                    z = _contiguous(precond(r))
+                    part_rz = _cat([cg.dot_partials(r[k], z[k])
+                                    for k in keys])
+                for k in keys:
+                    cg.cg_update_p(scal, part_rz, part_rr, z[k], p[k],
+                                   precond_norm)
             i += 1
     ok = cg.cg_finish(scal, [x[k] for k in keys])
     return x, ok
+
+
+def _spare(like):
+    """The second p buffer of the two-launch step: written before it is
+    read, so it starts uninitialized."""
+    return torch.empty_like(like)

@@ -204,8 +204,10 @@ def ell_matvec_lane(pattern: EllPattern, values, xT: dict):
 
 class EllOperator:
     """The block-ELL matrix `values` on `pattern` as the operator of
-    `pcg_solve`: calling it is the matvec, and `matvec_dot` is the fused
-    form the CG step uses (kernels/cg_step.py `spmv_dot`)."""
+    `pcg_solve`: calling it is the matvec, `matvec_dot` is the fused form
+    the CG step uses (kernels/cg_step.py `spmv_dot`), and `matvec_dot_p`
+    the form with the next direction folded in (`spmv_dot_p`), which the
+    CG step takes when it has no preconditioner."""
 
     def __init__(self, pattern: EllPattern, values):
         self.pattern = pattern
@@ -219,4 +221,12 @@ class EllOperator:
         g = self.pattern.group
         hp, partials = kernels.cg_step.spmv_dot(
             self.pattern.nb, self.values, pT[g].contiguous())
+        return {g: hp}, partials
+
+    def matvec_dot_p(self, scal, pT: dict, rT: dict, p_newT: dict):
+        """({group: H p_new}, partial sums of p_new . H p_new) with p_new =
+        beta p + r written into p_newT (beta in `scal`)."""
+        g = self.pattern.group
+        hp, partials = kernels.cg_step.spmv_dot_p(
+            self.pattern.nb, self.values, scal, pT[g], rT[g], p_newT[g])
         return {g: hp}, partials

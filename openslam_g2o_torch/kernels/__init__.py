@@ -15,9 +15,9 @@ its chunk pass and its vertex pass; `ba_wv` is one launch).
 one path, also count their launches per width D in
 `wrapper.launches_by_width` (a Counter).
 
-The block-ELL kernels (A, C, K3, K4, `spmv_dot`, `gershgorin_bound`) are
-instantiated for 3x3 blocks (SE2 poses) and 6x6 blocks (SE3 poses); the
-shapes of the arguments pick the instantiation.
+The block-ELL kernels (A, C, K3, K4, `spmv_dot`, `spmv_dot_p`,
+`gershgorin_bound`) are instantiated for 3x3 blocks (SE2 poses) and 6x6
+blocks (SE3 poses); the shapes of the arguments pick the instantiation.
 
     A  spmv.block_ell_spmv       block-ELL SpMV            (ROADMAP K5)
     B  edge_se2.edge_se2_blocks  fused SE2 linearizer      (ROADMAP K1)
@@ -63,7 +63,8 @@ WRAPPERS = (
     spmv.block_ell_spmv, edge_se2.edge_se2_blocks, edge_se3.edge_se3_blocks,
     assemble.assemble_gather,
     damp_chol.damp_chol, jacobi_scale.jacobi_scale,
-    jacobi_scale.lane_block_mv, cg_step.spmv_dot, cg_step.dot_partials,
+    jacobi_scale.lane_block_mv, cg_step.spmv_dot, cg_step.spmv_dot_p,
+    cg_step.dot_partials,
     cg_step.cg_residual, cg_step.cg_start, cg_step.cg_update_xr,
     cg_step.cg_update_p, cg_step.cg_finish, chebyshev.gershgorin_bound,
     chebyshev.chebyshev_coeffs, chebyshev.chebyshev_init,

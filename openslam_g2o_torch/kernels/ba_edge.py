@@ -12,11 +12,14 @@ Jacobians Jl [r, dl] and Jc [r, Dp], robust weight w, information Omega):
     Hll_e = Jl^T w Omega Jl    b_l,e = -Jl^T w Omega r    W_e = Jc^T w Omega Jl
     Hcc_e = Jc^T w Omega Jc    b_p,e = -Jc^T w Omega r
 
-written into lane-major streams [rows, E] (`EdgeStreams`, one column per
-observation of every projection group, group after group). `ba_lm_sums`
-sums Hll and b_l per landmark over the slot table [K, L] and lays W out
-landmark-major [Dp*dl, K, L]; `ba_cam_sums` sums Hcc and b_p per camera over
-its CSR list and lays W out camera-major [Dp*dl, E] in CSR order.
+written into `EdgeStreams` (one column or record per observation of every
+projection group, group after group): the landmark half and W lane-major in
+observation order, the camera half (W too) as one record per observation at
+its place in its camera's CSR list (`cam_pos`), so that each camera's
+records lie in order. `ba_lm_sums` sums Hll and b_l per landmark over the slot
+table [K, L] and lays W out landmark-major [Dp*dl, K, L]; `ba_cam_sums`
+sums Hcc and b_p per camera over the records, chunk by chunk (K13's
+`PoseRows`), and lays W out camera-major [Dp*dl, E] in CSR order.
 (Dp, dl) is (6, 3) or (3, 2), the residual width 1 to 3.
 """
 from __future__ import annotations
@@ -34,41 +37,81 @@ BLOCK_DIMS = ((6, 3), (3, 2))      # the (Dp, dl) instantiations
 MAX_RESIDUAL = 3
 
 
+def record_size(dp, dl):
+    """Values per camera record: Hcc_e, b_p,e and W_e, padded with zeros
+    to a multiple of 8 (CamRecord of csrc/ba_blocks.cuh)."""
+    return (dp * dp + dp + dp * dl + 7) // 8 * 8
+
+
+def _records(hcc, bp, w, rs):
+    """[n, rs] records from lane-major [rows, n] blocks."""
+    n = hcc.shape[1]
+    pad = hcc.new_zeros((n, rs - hcc.shape[0] - bp.shape[0] - w.shape[0]))
+    return torch.cat([hcc.T, bp.T, w.T, pad], dim=1)
+
+
 @dataclass
 class EdgeStreams:
-    """Per-observation blocks, lane-major: hll [dl*dl, E], bl [dl, E],
-    w [Dp*dl, E], hcc [Dp*Dp, E], bp [Dp, E]."""
+    """The per-observation blocks of one linearization. Lane-major in
+    observation order, for the landmark sums: hll [dl*dl, E], bl [dl, E],
+    w [Dp*dl, E]. Camera half: rec [E, RS], whose row cam_pos[e] ([E]
+    int32: the observation's place in its camera's CSR list) holds
+    observation e's record Hcc_e (Dp*Dp, row-major), b_p,e (Dp), W_e
+    (Dp*dl, row-major) and zeros up to RS = record_size(Dp, dl)."""
     hll: torch.Tensor
     bl: torch.Tensor
     w: torch.Tensor
-    hcc: torch.Tensor
-    bp: torch.Tensor
+    rec: torch.Tensor
+    cam_pos: torch.Tensor
 
     @classmethod
-    def empty(cls, n_obs, dp, dl, dtype, device):
-        new = lambda rows: torch.empty((rows, n_obs), dtype=dtype,
-                                       device=device)
-        return cls(new(dl * dl), new(dl), new(dp * dl), new(dp * dp), new(dp))
+    def empty(cls, n_obs, dp, dl, dtype, device, cam_pos):
+        new = lambda *shape: torch.empty(shape, dtype=dtype, device=device)
+        return cls(new(dl * dl, n_obs), new(dl, n_obs), new(dp * dl, n_obs),
+                   new(n_obs, record_size(dp, dl)), cam_pos)
+
+    @classmethod
+    def from_lane_major(cls, hll, bl, w, hcc, bp, cam_pos):
+        """The streams of lane-major [rows, E] blocks in observation
+        order."""
+        dp, dl = bp.shape[0], bl.shape[0]
+        rec = hcc.new_empty((hcc.shape[1], record_size(dp, dl)))
+        rec[cam_pos.long()] = _records(hcc, bp, w, rec.shape[1])
+        return cls(hll, bl, w, rec, cam_pos)
 
     @property
     def dims(self):
-        return self.bp.shape[0], self.bl.shape[0]
+        dl = self.bl.shape[0]
+        return self.w.shape[0] // dl, dl
+
+    @property
+    def n_obs(self):
+        return self.bl.shape[1]
+
+    def lane_major(self):
+        """(hll, bl, w, hcc, bp), each [rows, E] in observation order."""
+        dp, dl = self.dims
+        r = self.rec[self.cam_pos.long()].T
+        nh, nb = dp * dp, dp * dp + dp
+        return (self.hll, self.bl, r[nb:nb + dp * dl], r[:nh], r[nh:nb])
 
     def tensors(self):
-        return (self.hll, self.bl, self.w, self.hcc, self.bp)
+        return (self.hll, self.bl, self.w, self.rec)
 
 
 def _check_streams(name, out, device, dtype):
     dp, dl = out.dims
     require((dp, dl) in BLOCK_DIMS,
             f"{name}: (Dp, dl) = {(dp, dl)} not in {BLOCK_DIMS}")
-    n = out.bp.shape[1]
-    for t, rows in zip(out.tensors(), (dl * dl, dl, dp * dl, dp * dp, dp)):
-        require(t.shape == (rows, n), f"{name}: stream shape "
-                f"{tuple(t.shape)} != {(rows, n)}")
-    check_tensors(name, device, dtype,
-                  dict(zip(("hll", "bl", "w", "hcc", "bp"), out.tensors())),
-                  {})
+    n = out.n_obs
+    shapes = {"hll": (dl * dl, n), "bl": (dl, n), "w": (dp * dl, n),
+              "rec": (n, record_size(dp, dl))}
+    floats = {k: getattr(out, k) for k in shapes}
+    for k, t in floats.items():
+        require(t.shape == shapes[k], f"{name}: stream {k} shape "
+                f"{tuple(t.shape)} != {shapes[k]}")
+    require(out.cam_pos.shape == (n,), f"{name}: cam_pos must be [{n}]")
+    check_tensors(name, device, dtype, floats, {"cam_pos": out.cam_pos})
 
 
 def edge_products_plain(resid, jl, jc, rho1, info):
@@ -88,9 +131,22 @@ def edge_products_plain(resid, jl, jc, rho1, info):
 
 
 def _write(out, offset, blocks):
-    n = blocks[0].shape[1]
-    for dst, src in zip(out.tensors(), blocks):
-        dst[:, offset:offset + n] = src
+    """Lane-major blocks of observations offset .. offset + n into the
+    streams: the landmark half and W at their columns, the records at
+    cam_pos."""
+    hll, bl, w, hcc, bp = blocks
+    cols = slice(offset, offset + hll.shape[1])
+    out.hll[:, cols] = hll
+    out.bl[:, cols] = bl
+    out.w[:, cols] = w
+    out.rec[out.cam_pos[cols].long()] = _records(hcc, bp, w,
+                                                 out.rec.shape[1])
+
+
+def _outputs(out):
+    """The edge kernels' output pointers: hll, bl, rec, w."""
+    return (out.hll.data_ptr(), out.bl.data_ptr(), out.rec.data_ptr(),
+            out.w.data_ptr())
 
 
 def ba_edge_blocks_plain(resid, jl, jc, rho1, info, out, offset):
@@ -101,8 +157,8 @@ def ba_edge_blocks(resid, jl, jc, rho1, info, out: EdgeStreams, offset: int):
     """The generic entry: write the products of one edge group's
     observations (residual [E, R], masked Jacobians jl [E, R, dl] and
     jc [E, R, Dp], rho' [E], Omega [E, R, R], as `linearize` returns them)
-    into columns offset .. offset + E of `out`. K10 on CUDA tensors, the
-    plain version on CPU tensors."""
+    into observations offset .. offset + E of `out`. K10 on CUDA tensors,
+    the plain version on CPU tensors."""
     E, R = resid.shape
     dp, dl = out.dims
     require(1 <= R <= MAX_RESIDUAL, f"ba_edge_blocks: residual width {R} "
@@ -112,7 +168,7 @@ def ba_edge_blocks(resid, jl, jc, rho1, info, out: EdgeStreams, offset: int):
             f"ba_edge_blocks: jl {tuple(jl.shape)}, jc {tuple(jc.shape)}, "
             f"rho1 {tuple(rho1.shape)}, info {tuple(info.shape)} do not fit "
             f"E={E}, R={R}, (Dp, dl)={(dp, dl)}")
-    require(0 <= offset and offset + E <= out.bp.shape[1],
+    require(0 <= offset and offset + E <= out.n_obs,
             "ba_edge_blocks: offset out of range")
     _check_streams("ba_edge_blocks", out, resid.device, resid.dtype)
     check_tensors("ba_edge_blocks", resid.device, resid.dtype,
@@ -123,9 +179,9 @@ def ba_edge_blocks(resid, jl, jc, rho1, info, out: EdgeStreams, offset: int):
     if E == 0:
         return None
     build.launch("g2o_ba_generic", resid, resid.data_ptr(), jl.data_ptr(),
-                 jc.data_ptr(), rho1.data_ptr(), info.data_ptr(), E, offset,
-                 out.bp.shape[1], R, dp, dl,
-                 *(t.data_ptr() for t in out.tensors()))
+                 jc.data_ptr(), rho1.data_ptr(), info.data_ptr(),
+                 out.cam_pos.data_ptr(), E, offset, out.n_obs, R, dp, dl,
+                 *_outputs(out))
     ba_edge_blocks.launches += 1
     return None
 
@@ -152,8 +208,8 @@ def ba_xyz2uv_blocks(points, cams, li, ci, meas, info, delta, camp, free_l,
     Jacobians, fixed-vertex masks and rho' of every edge (points [L, 3],
     world-to-camera cams [C, 7], li/ci [E] int32, meas [E, 2], info
     [E, 2, 2], delta [E], camera parameters camp [E, 4], free_l [L],
-    free_c [C]) and their products into columns offset .. offset + E of
-    `out` (Dp, dl = 6, 3). K10 on CUDA tensors, the plain version on CPU
+    free_c [C]) and their products into observations offset .. offset + E
+    of `out` (Dp, dl = 6, 3). K10 on CUDA tensors, the plain version on CPU
     tensors."""
     E = li.shape[0]
     require(out.dims == (6, 3), "ba_xyz2uv_blocks: the streams must be "
@@ -165,7 +221,7 @@ def ba_xyz2uv_blocks(points, cams, li, ci, meas, info, delta, camp, free_l,
             and camp.shape == (E, 4) and free_l.shape == (points.shape[0],)
             and free_c.shape == (cams.shape[0],),
             "ba_xyz2uv_blocks: argument shapes do not fit")
-    require(0 <= offset and offset + E <= out.bp.shape[1],
+    require(0 <= offset and offset + E <= out.n_obs,
             "ba_xyz2uv_blocks: offset out of range")
     require(0 <= kernel_id < len(robust.kernel_names()),
             f"ba_xyz2uv_blocks: robust kernel id {kernel_id} unknown")
@@ -184,8 +240,8 @@ def ba_xyz2uv_blocks(points, cams, li, ci, meas, info, delta, camp, free_l,
     build.launch("g2o_ba_xyz2uv", points, points.data_ptr(), cams.data_ptr(),
                  li.data_ptr(), ci.data_ptr(), meas.data_ptr(),
                  info.data_ptr(), delta.data_ptr(), camp.data_ptr(),
-                 free_l.data_ptr(), free_c.data_ptr(), kernel_id, E, offset,
-                 out.bp.shape[1], *(t.data_ptr() for t in out.tensors()))
+                 free_l.data_ptr(), free_c.data_ptr(), out.cam_pos.data_ptr(),
+                 kernel_id, E, offset, out.n_obs, *_outputs(out))
     ba_xyz2uv_blocks.launches += 1
     return None
 
@@ -254,46 +310,50 @@ def ba_lm_sums(streams, lm_edge, with_w=True):
 ba_lm_sums.launches = 0
 
 
-def ba_cam_sums_plain(streams, cam_ptr, cam_edge, with_w=True):
-    C = cam_ptr.shape[0] - 1
-    counts = (cam_ptr[1:] - cam_ptr[:-1]).long()
-    owner = torch.repeat_interleave(
-        torch.arange(C, device=cam_ptr.device), counts)
-    idx = cam_edge.long()
-    dt, dev = streams.bp.dtype, streams.bp.device
-    sums = lambda s: torch.zeros((s.shape[0], C), dtype=dt,
-                                 device=dev).index_add_(1, owner, s[:, idx])
-    return (sums(streams.hcc), sums(streams.bp),
-            streams.w[:, idx] if with_w else None)
-
-
-def ba_cam_sums(streams: EdgeStreams, cam_ptr, cam_edge, with_w=True):
-    """(Hcc [Dp*Dp, C], b_p [Dp, C], W_cam [Dp*dl, E] or None) from the
-    streams and the camera lists: observations cam_edge[cam_ptr[c]:
-    cam_ptr[c+1]] belong to camera c (CSR; W_cam follows that order). K10
-    on CUDA tensors, the plain version on CPU tensors."""
+def ba_cam_sums_plain(streams, rows):
     dp, dl = streams.dims
-    E = streams.bp.shape[1]
-    require(cam_ptr.dim() == 1 and cam_edge.shape == (E,),
-            "ba_cam_sums: cam_ptr must be [C + 1] and cam_edge [E]")
-    C = cam_ptr.shape[0] - 1
-    dev, dt = streams.bp.device, streams.bp.dtype
+    nh, nb = dp * dp, dp * dp + dp
+    counts = (rows.ptr[1:] - rows.ptr[:-1]).long()
+    owner = torch.repeat_interleave(
+        torch.arange(rows.n_rows, device=counts.device), counts)
+    rec = streams.rec
+    sums = torch.zeros((rows.n_rows, nb), dtype=rec.dtype,
+                       device=rec.device).index_add_(0, owner, rec[:, :nb])
+    return (sums[:, :nh].T.contiguous(), sums[:, nh:].T.contiguous(),
+            rec[:, nb:nb + dp * dl].T.contiguous())
+
+
+def ba_cam_sums(streams: EdgeStreams, rows):
+    """(Hcc [Dp*Dp, C], b_p [Dp, C], W_cam [Dp*dl, E]) from the records and
+    the camera lists `rows` (K13's PoseRows: the records of camera c are
+    rows.ptr[c]:rows.ptr[c+1], cut into chunks; W_cam follows that CSR
+    order). The kernel counts its chunks' arrivals in rows.arrivals and
+    leaves them at zero (as `ba_wv` does: one PoseRows serves one launch
+    at a time). K10 on CUDA tensors, the plain version on CPU tensors."""
+    dp, dl = streams.dims
+    E = streams.n_obs
+    require(rows.n_entries == E, "ba_cam_sums: the camera lists must hold "
+            f"the {E} observations")
+    dev, dt = streams.bl.device, streams.bl.dtype
     _check_streams("ba_cam_sums", streams, dev, dt)
     check_tensors("ba_cam_sums", dev, dt, {},
-                  {"cam_ptr": cam_ptr, "cam_edge": cam_edge})
+                  {"ptr": rows.ptr, "chunk_ptr": rows.chunk_ptr,
+                   "chunk_row": rows.chunk_row, "row_chunk": rows.row_chunk,
+                   "arrivals": rows.arrivals})
     if not launch_device("ba_cam_sums", dev):
-        return ba_cam_sums_plain(streams, cam_ptr, cam_edge, with_w)
+        return ba_cam_sums_plain(streams, rows)
+    C, n_chunks = rows.n_rows, rows.n_chunks
     hcc = torch.empty((dp * dp, C), dtype=dt, device=dev)
     bp = torch.empty((dp, C), dtype=dt, device=dev)
-    w_cam = (torch.empty((dp * dl, E), dtype=dt, device=dev) if with_w
-             else None)
+    w_cam = torch.empty((dp * dl, E), dtype=dt, device=dev)
     if C == 0:
         return hcc, bp, w_cam
-    build.launch("g2o_ba_cam_sums", bp, streams.hcc.data_ptr(),
-                 streams.bp.data_ptr(), streams.w.data_ptr(),
-                 cam_ptr.data_ptr(), cam_edge.data_ptr(), C, E, dp, dl,
-                 hcc.data_ptr(), bp.data_ptr(),
-                 None if w_cam is None else w_cam.data_ptr())
+    part = torch.empty((dp * dp + dp, n_chunks), dtype=dt, device=dev)
+    build.launch("g2o_ba_cam_sums", bp, streams.rec.data_ptr(),
+                 rows.chunk_ptr.data_ptr(), rows.chunk_row.data_ptr(),
+                 rows.row_chunk.data_ptr(), rows.arrivals.data_ptr(),
+                 n_chunks, C, E, dp, dl, part.data_ptr(), hcc.data_ptr(),
+                 bp.data_ptr(), w_cam.data_ptr())
     ba_cam_sums.launches += 1
     return hcc, bp, w_cam
 

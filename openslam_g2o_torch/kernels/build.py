@@ -47,10 +47,11 @@ _SIGNATURES = {
     "g2o_jacobi_scale": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "g2o_lane_block_mv": (_P, _P, _P, _I, _I, _I, _P),
     "g2o_spmv_dot": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "g2o_spmv_dot_p": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "g2o_dot_partials": (_P, _P, _P, _I, _P),
     "g2o_cg_residual": (_P, _P, _P, _P, _P, _P, _I, _P),
     "g2o_cg_start": (_P, _P, _I, _P, _I, _P, _I, _D, _I, _P),
-    "g2o_cg_update_xr": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _P),
+    "g2o_cg_update_xr": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P),
     "g2o_cg_update_p": (_P, _P, _I, _P, _I, _P, _P, _I, _I, _P),
     "g2o_nonfinite_partials": (_P, _P, _I, _P),
     "g2o_cg_finish": (_P, _P, _I, _P, _P, _I, _P),
@@ -68,12 +69,13 @@ _SIGNATURES = {
     "g2o_retract_se3": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
     "g2o_se3_edge_chi2": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P),
     "g2o_lm_outcome": (_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P),
-    "g2o_ba_xyz2uv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L,
-                      _P, _P, _P, _P, _P, _P),
-    "g2o_ba_generic": (_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I,
-                       _P, _P, _P, _P, _P, _P),
+    "g2o_ba_xyz2uv": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                      _L, _L, _P, _P, _P, _P, _P),
+    "g2o_ba_generic": (_P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I,
+                       _P, _P, _P, _P, _P),
     "g2o_ba_lm_sums": (_P, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P, _P),
-    "g2o_ba_cam_sums": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P, _P),
+    "g2o_ba_cam_sums": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P,
+                        _P, _P),
     "g2o_ba_inv": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     "g2o_ba_wtx": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P),
     "g2o_ba_wv": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P,

@@ -3,14 +3,17 @@ kernels with every CG scalar on the device (csrc/cg_step.cu).
 
 Replaces the loop of `pcg_solve` (openslam_g2o_tpu/core/solvers.py:213-297).
 core/solvers.py drives these wrappers on both devices; one CG iteration is
-`spmv_dot`, `cg_update_xr`, `cg_update_p`. The scalars live in one small
-tensor `scal` (dtype of the vectors) whose slots are named below; a dot
-product is passed on as a tensor of per-block partial sums, which the next
-kernel re-reduces in a fixed order (on the CPU the plain versions hand on
-one partial: the torch.dot). The vector arguments are flat or [D, N]
-contiguous tensors (D = 3 or 6: the vector kernels are flat over the D N
-values, `spmv_dot` is instantiated per block width); x, r and p are updated
-in place.
+`spmv_dot`, `cg_update_xr`, `cg_update_p`, or without a preconditioner
+`spmv_dot_p` (p's update folded into the product that reads p next) and
+`cg_update_xr` with an arrival counter (its last block stores the scalars
+`cg_update_p` stored), after a first iteration on `spmv_dot`. The scalars
+live in one small tensor `scal` (dtype of the vectors) whose slots are
+named below; a dot product is passed on as a tensor of per-block partial
+sums, which the next kernel re-reduces in a fixed order (on the CPU the
+plain versions hand on one partial: the torch.dot). The vector arguments
+are flat or [D, N] contiguous tensors (D = 3 or 6: the vector kernels are
+flat over the D N values, `spmv_dot` and `spmv_dot_p` are instantiated per
+block width); x, r and p are updated in place.
 """
 from __future__ import annotations
 
@@ -88,6 +91,51 @@ def spmv_dot(nb, values, p):
 
 
 spmv_dot.launches = 0
+
+
+# -- spmv_dot_p -------------------------------------------------------------
+
+def spmv_dot_p_plain(nb, values, scal, p, r, p_new):
+    p_new.copy_(scal[BETA] * p + r)
+    return spmv_dot_plain(nb, values, p_new)
+
+
+def spmv_dot_p(nb, values, scal, p, r, p_new):
+    """(hp, partials) for the next direction p_new = beta p + r (beta from
+    `scal`, stored by the last `cg_update_xr` with an arrival counter),
+    written into `p_new` (another buffer than p: the product gathers p at
+    the neighbour columns): hp = H p_new on the block-ELL layout and partial
+    sums of p_new . hp. The bits of `cg_update_p` (z = r) followed by
+    `spmv_dot`."""
+    K, N = nb.shape
+    D = p.shape[0]
+    if (D not in BLOCK_WIDTHS or values.shape != (K, D * D, N)
+            or p.shape != (D, N)):
+        raise ValueError(f"spmv_dot_p: values {tuple(values.shape)} and p "
+                         f"{tuple(p.shape)} do not fit nb {(K, N)} for a "
+                         f"block width in {BLOCK_WIDTHS}")
+    check_vectors("spmv_dot_p", p, r=r, p_new=p_new)
+    _check_scal("spmv_dot_p", scal, p, values=values)
+    check_tensors("spmv_dot_p", p.device, p.dtype, {}, {"nb": nb})
+    if p_new.data_ptr() == p.data_ptr():
+        raise ValueError("spmv_dot_p: p_new must be another buffer than p")
+    if not launch_device("spmv_dot_p", p.device):
+        return spmv_dot_p_plain(nb, values, scal, p, r, p_new)
+    hp = torch.empty_like(p)
+    blocks = max((N + ROW_BLOCK - 1) // ROW_BLOCK, 1)
+    partials = (_partials(p, blocks) if N
+                else torch.zeros(1, dtype=p.dtype, device=p.device))
+    if N == 0:
+        return hp, partials
+    build.launch("g2o_spmv_dot_p", p, nb.data_ptr(), values.data_ptr(),
+                 scal.data_ptr(), p.data_ptr(), r.data_ptr(),
+                 p_new.data_ptr(), hp.data_ptr(), partials.data_ptr(), N, K,
+                 D)
+    spmv_dot_p.launches += 1
+    return hp, partials
+
+
+spmv_dot_p.launches = 0
 
 
 # -- dot_partials -----------------------------------------------------------
@@ -174,7 +222,20 @@ cg_start.launches = 0
 
 # -- cg_update_xr -----------------------------------------------------------
 
-def cg_update_xr_plain(scal, part_pap, x, r, p, hp):
+def _store_step(scal, rz_new, r2, beta):
+    """The scalars that close a CG step: rz, r2, pd (from pd_next), beta
+    and the continue flag pd and r2 > thresh."""
+    pd = scal[PD_NEXT].clone()
+    scal[RZ], scal[R2], scal[PD], scal[BETA] = rz_new, r2, pd, beta
+    scal[CONT] = ((pd != 0) & (r2 > scal[THRESH])).to(scal.dtype)
+
+
+def _beta(scal, rz_new):
+    rz_old = scal[RZ_OLD]
+    return rz_new / torch.where(rz_old == 0, torch.ones_like(rz_old), rz_old)
+
+
+def cg_update_xr_plain(scal, part_pap, x, r, p, hp, arrivals=None):
     denom = part_pap.sum()
     rz = scal[RZ].clone()
     pd = (scal[PD] != 0) & (denom > 0)
@@ -185,22 +246,35 @@ def cg_update_xr_plain(scal, part_pap, x, r, p, hp):
     scal[RZ_OLD] = rz
     scal[PD_NEXT] = pd.to(scal.dtype)
     scal[ALPHA] = alpha
-    return _dot(r, r)
+    part_rr = _dot(r, r)
+    if arrivals is not None:
+        rz_new = part_rr.sum()
+        _store_step(scal, rz_new, rz_new, _beta(scal, rz_new))
+    return part_rr
 
 
-def cg_update_xr(scal, part_pap, x, r, p, hp):
+def cg_update_xr(scal, part_pap, x, r, p, hp, arrivals=None):
     """denom = sum part_pap; pd &= denom > 0; alpha = pd ? rz / safe(denom)
     : 0; x += alpha p; r -= alpha hp (both in place). Returns the partial
-    sums of r . r."""
+    sums of r . r. With `arrivals` (one int32 counter at zero, left at
+    zero) it also closes the step for z = r: it stores what `cg_update_p`
+    stores, rz = r2 = r . r, beta, pd and the continue flag, and leaves p
+    to `spmv_dot_p`."""
     check_vectors("cg_update_xr", x, x=x, r=r, p=p, hp=hp)
     _check_scal("cg_update_xr", scal, x, part_pap=part_pap)
+    if arrivals is not None:
+        check_tensors("cg_update_xr", x.device, x.dtype, {},
+                      {"arrivals": arrivals})
+        if arrivals.numel() != 1:
+            raise ValueError("cg_update_xr: arrivals must hold one counter")
     if not launch_device("cg_update_xr", x.device):
-        return cg_update_xr_plain(scal, part_pap, x, r, p, hp)
+        return cg_update_xr_plain(scal, part_pap, x, r, p, hp, arrivals)
     n = x.numel()
     part_rr = _partials(x, _chunks(n))
     build.launch("g2o_cg_update_xr", x, scal.data_ptr(), part_pap.data_ptr(),
                  part_pap.numel(), x.data_ptr(), r.data_ptr(), p.data_ptr(),
-                 hp.data_ptr(), part_rr.data_ptr(), n)
+                 hp.data_ptr(), part_rr.data_ptr(), n,
+                 None if arrivals is None else arrivals.data_ptr())
     cg_update_xr.launches += 1
     return part_rr
 
@@ -213,12 +287,9 @@ cg_update_xr.launches = 0
 def cg_update_p_plain(scal, part_rz, part_rr, z, p, precond_norm):
     rz_new = part_rz.sum()
     r2 = rz_new if precond_norm or part_rr is part_rz else part_rr.sum()
-    rz_old = scal[RZ_OLD]
-    beta = rz_new / torch.where(rz_old == 0, torch.ones_like(rz_old), rz_old)
+    beta = _beta(scal, rz_new)
     p.copy_(beta * p + z)
-    pd = scal[PD_NEXT].clone()
-    scal[RZ], scal[R2], scal[PD], scal[BETA] = rz_new, r2, pd, beta
-    scal[CONT] = ((pd != 0) & (r2 > scal[THRESH])).to(scal.dtype)
+    _store_step(scal, rz_new, r2, beta)
 
 
 def cg_update_p(scal, part_rz, part_rr, z, p, precond_norm):

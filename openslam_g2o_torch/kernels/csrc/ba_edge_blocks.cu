@@ -9,7 +9,11 @@
 //                obs - f pc.xy / pc.z - c, the analytic Jacobians (point:
 //                de/dpc R(T); camera: [de/dpc (-[pc]x) | de/dpc]), the
 //                fixed-vertex column masks, rho' by robust kernel id, then
-//                the products of ba_blocks.cuh. Edge-major streams out.
+//                the products of ba_blocks.cuh: Hll_e, b_l,e and W_e
+//                lane-major at the edge's column, the camera record (Hcc_e,
+//                b_p,e, W_e) staged per warp in shared memory and stored
+//                whole at the edge's place in its camera's CSR list
+//                (cam_pos).
 //   ba_generic   the same products from the residual and masked Jacobians
 //                `linearize` computed, for any other binary (landmark, pose)
 //                edge type: R in {1, 2, 3}, (Dp, dl) in {(6, 3), (3, 2)}.
@@ -18,39 +22,55 @@
 //                per (landmark, row) sums Hll and b_l over the slots in
 //                slot order, and W is copied out into the landmark-major
 //                [Dp*dl, K, L] layout (zeros on padding), coalesced along
-//                k L + l; without W
-//                (null w_e and w_lm) for the general Schur path, whose edge
-//                kernel writes W itself (schur_general.cu).
-//   ba_cam_sums  one block per camera: Hcc and b_p over its CSR list, each
-//                thread a strided share, then block_reduce_values (a fixed
-//                tree: no atomics, the same bits every run); and W copied
-//                into the camera-major CSR layout.
+//                k L + l (W read lane-major at the slot's observation);
+//                without W (null w_e and w_lm) for the general Schur path,
+//                whose edge kernel writes W itself (schur_general.cu).
+//   ba_cam_sums  one block per chunk of at most 256 consecutive records of
+//                one camera (K13's PoseRows): the chunk's records are read
+//                as contiguous runs into shared memory, Hcc and b_p summed
+//                in the order of the one-block-per-camera kernel it
+//                replaces (so a camera of one chunk keeps its bits), W_cam
+//                written coalesced along the CSR position; a camera of one
+//                chunk is finished by its block, else the last of its
+//                chunks' blocks to arrive (an arrival counter after
+//                __threadfence) sums the chunks' partials in chunk order.
+//                No atomics on values: the same bits every run.
 //
 // The TPU code reduced the camera side with a [E, C] one-hot matmul on the
-// MXU (ba_ell.py:582-601) or with K-chunked lane gathers; the camera degree
-// is skewed (55-1768 observations per camera at 400k observations), so a
-// block per camera with a strided loop keeps the long lists parallel.
+// MXU (ba_ell.py:582-601) or with K-chunked lane gathers. Here the
+// observations are numbered point-major (as BAL numbers them), so the
+// camera side of one camera lies ~E / degree apart in observation order:
+// read per observation, each 4-byte value costs a 32-byte sector. The edge
+// kernels therefore write the camera half where the sums read it in order,
+// as whole records (a warp stores one record with all its lanes: full
+// sectors in a scattered order, never a 240-byte stride), and the skewed
+// degree (55-1768 observations per camera at 400k observations) is cut
+// into chunks, so the hub camera does not set the tail.
 //
-// Bound: memory. The edge pass reads ~20 values and writes
-// dl^2 + dl + 2 Dp dl + Dp^2 + Dp per edge (72 at Dp = 6), the sums read
-// them back once and write W twice.
+// Bound: memory. The edge pass reads ~20 values and writes dl^2 + dl
+// lane-major and one record (64 values at (6, 3)) per edge; the landmark
+// sums read the landmark half and W, the camera sums the records, and they
+// write W once each.
 #include "ba_blocks.cuh"
 
 namespace g2o_torch {
 
-constexpr int kCamThreads = 128;
-
+// Warps per block of the edge kernels: each stages 32 records of
+// RS + 1 values (33 KB a block at (6, 3) in either type).
 template <typename T>
-__global__ void ba_xyz2uv_kernel(
+constexpr int kEdgeWarps = sizeof(T) == 4 ? 4 : 2;
+
+// The fused XYZ2UV products of edge e into the lane-major streams and the
+// record `mine`.
+template <typename T>
+__device__ __forceinline__ void xyz2uv_edge(
     const T* __restrict__ pts, const T* __restrict__ cams,
     const int* __restrict__ li, const int* __restrict__ ci,
     const T* __restrict__ meas, const T* __restrict__ info,
     const T* __restrict__ delta, const T* __restrict__ camp,
     const T* __restrict__ free_l, const T* __restrict__ free_c,
-    int kernel_id, int n_edges, long long off, long long ld, T* hll, T* bl,
-    T* wblk, T* hcc, T* bp) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n_edges) return;
+    int kernel_id, int e, long long off, long long ld, T* hll, T* bl,
+    T* mine, T* w_lane) {
   const long long l = li[e], c = ci[e];
   const T p0 = pts[3 * l], p1 = pts[3 * l + 1], p2 = pts[3 * l + 2];
   const T* cam = cams + 7 * c;
@@ -106,30 +126,67 @@ __global__ void ba_xyz2uv_kernel(
       jc[a][k] = -so * fc;
       jc[a][3 + k] = de[a][k] * fc;
     }
-  ba_edge_products<T, 2, 6, 3>(r, jl, jc, w, om, off + e, ld, hll, bl, wblk,
-                               hcc, bp);
+  ba_edge_products<T, 2, 6, 3>(r, jl, jc, w, om, off + e, ld, hll, bl, mine,
+                               w_lane);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kEdgeWarps<T>) ba_xyz2uv_kernel(
+    const T* __restrict__ pts, const T* __restrict__ cams,
+    const int* __restrict__ li, const int* __restrict__ ci,
+    const T* __restrict__ meas, const T* __restrict__ info,
+    const T* __restrict__ delta, const T* __restrict__ camp,
+    const T* __restrict__ free_l, const T* __restrict__ free_c,
+    const int* __restrict__ cam_pos, int kernel_id, int n_edges,
+    long long off, long long ld, T* hll, T* bl, T* rec, T* w_lane) {
+  constexpr int RS = CamRecord<6, 3>::kSize;
+  __shared__ T stage[kEdgeWarps<T>][32 * (RS + 1)];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long e0 = blockIdx.x * static_cast<long long>(blockDim.x)
+                       + 32 * warp;
+  if (e0 + lane < n_edges)
+    xyz2uv_edge<T>(pts, cams, li, ci, meas, info, delta, camp, free_l,
+                   free_c, kernel_id, static_cast<int>(e0 + lane), off, ld,
+                   hll, bl, stage[warp] + lane * (RS + 1), w_lane);
+  __syncwarp();
+  const long long live = n_edges - e0;
+  warp_store_records<T, RS>(stage[warp], e0,
+                            live >= 32 ? 32 : static_cast<int>(live), off,
+                            cam_pos, rec);
 }
 
 template <typename T, int R, int DP, int DL>
-__global__ void ba_generic_kernel(
+__global__ void __launch_bounds__(32 * kEdgeWarps<T>) ba_generic_kernel(
     const T* __restrict__ resid, const T* __restrict__ jl_in,
     const T* __restrict__ jc_in, const T* __restrict__ rho1,
-    const T* __restrict__ info, int n_edges, long long off, long long ld,
-    T* hll, T* bl, T* wblk, T* hcc, T* bp) {
-  const long long e = blockIdx.x * static_cast<long long>(blockDim.x)
-                      + threadIdx.x;
-  if (e >= n_edges) return;
-  T r[R], jl[R][DL], jc[R][DP];
+    const T* __restrict__ info, const int* __restrict__ cam_pos,
+    int n_edges, long long off, long long ld, T* hll, T* bl, T* rec,
+    T* w_lane) {
+  constexpr int RS = CamRecord<DP, DL>::kSize;
+  __shared__ T stage[kEdgeWarps<T>][32 * (RS + 1)];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long e0 = blockIdx.x * static_cast<long long>(blockDim.x)
+                       + 32 * warp;
+  const long long e = e0 + lane;
+  if (e < n_edges) {
+    T r[R], jl[R][DL], jc[R][DP];
 #pragma unroll
-  for (int a = 0; a < R; ++a) {
-    r[a] = resid[e * R + a];
+    for (int a = 0; a < R; ++a) {
+      r[a] = resid[e * R + a];
 #pragma unroll
-    for (int s = 0; s < DL; ++s) jl[a][s] = jl_in[(e * R + a) * DL + s];
+      for (int s = 0; s < DL; ++s) jl[a][s] = jl_in[(e * R + a) * DL + s];
 #pragma unroll
-    for (int s = 0; s < DP; ++s) jc[a][s] = jc_in[(e * R + a) * DP + s];
+      for (int s = 0; s < DP; ++s) jc[a][s] = jc_in[(e * R + a) * DP + s];
+    }
+    ba_edge_products<T, R, DP, DL>(r, jl, jc, rho1[e], info + e * R * R,
+                                   off + e, ld, hll, bl,
+                                   stage[warp] + lane * (RS + 1), w_lane);
   }
-  ba_edge_products<T, R, DP, DL>(r, jl, jc, rho1[e], info + e * R * R,
-                                 off + e, ld, hll, bl, wblk, hcc, bp);
+  __syncwarp();
+  const long long live = n_edges - e0;
+  warp_store_records<T, RS>(stage[warp], e0,
+                            live >= 32 ? 32 : static_cast<int>(live), off,
+                            cam_pos, rec);
 }
 
 // ba_lm_sums: a block per tile of TL landmarks, their slots in chunks of
@@ -224,70 +281,161 @@ ba_lm_sums_kernel(
   }
 }
 
+// ba_cam_sums: a block of 256 threads per chunk c (positions
+// chunk_ptr[c]:chunk_ptr[c+1], at most 256, of camera chunk_row[c]). Its
+// sums have the arithmetic of one 128-thread block per camera with a
+// strided loop and a shuffle-tree reduction (the kernel this one
+// replaces), so a camera of one chunk keeps those bits: thread t of that
+// block adds records t and t + 128 to 0, each warp sums its threads by the
+// tree of __shfl_down_sync, and the four warp totals are added in warp
+// order. Here the two halves of the block split the NV = Dp^2 + Dp values
+// (fewer accumulators a thread, more blocks an SM): thread t of half h
+// keeps values h H .. h H + H - 1 of t's sum. The chunk's records are
+// copied in spans of kCamSpan, as contiguous runs of 16-byte loads, into
+// shared memory (pitch RS + 1: a thread reading its own record hits no
+// bank twice), and W leaves the stage along the CSR position (a thread per
+// (row, record), records fastest). A camera of one chunk (an empty one
+// where it has no observation: zeros) is finished by that block; of a
+// camera with several chunks, each block writes its partial to part[v, c],
+// fences it and counts its arrival on the camera's counter, and the last
+// to arrive adds the camera's partials in chunk order (read with __ldcg,
+// past this SM's L1) and sets the counter back to 0.
+constexpr int kCamThreads = 256;
+constexpr int kCamSumThreads = 128;  // one half: t = 0 .. 127
+constexpr int kCamSpan = 64;         // records staged at a time
+
 template <typename T, int DP, int DL>
-__global__ void ba_cam_sums_kernel(
-    const T* __restrict__ hcc_e, const T* __restrict__ bp_e,
-    const T* __restrict__ w_e, const int* __restrict__ cam_ptr,
-    const int* __restrict__ cam_edge, int n_cam, long long ld,
-    T* __restrict__ hcc, T* __restrict__ bp, T* __restrict__ w_cam) {
-  constexpr int DD = DP * DP, NV = DD + DP, DW = DP * DL;
-  __shared__ T smem[kMaxWarps][NV];
+__global__ void __launch_bounds__(kCamThreads) ba_cam_sums_kernel(
+    const T* __restrict__ rec, const int* __restrict__ chunk_ptr,
+    const int* __restrict__ chunk_row, const int* __restrict__ row_chunk,
+    int* __restrict__ arrivals, int n_chunks, int n_cam, long long n_obs,
+    T* __restrict__ part, T* __restrict__ hcc, T* __restrict__ bp,
+    T* __restrict__ w_cam) {
+  using Rec = CamRecord<DP, DL>;
+  constexpr int RS = Rec::kSize, NV = Rec::kSum, DW = DP * DL;
+  constexpr int PITCH = RS + 1, H = (NV + 1) / 2;
+  constexpr int VEC = 16 / sizeof(T);              // values per 16 bytes
+  static_assert(RS % VEC == 0, "a 16-byte load stays in one record");
+  __shared__ T stage[kCamSpan * PITCH];
+  __shared__ T warp_sum[kCamThreads / 32][H];
+  __shared__ int last;
   const int c = blockIdx.x;
-  const int j0 = cam_ptr[c], j1 = cam_ptr[c + 1];
-  T acc[NV];
+  const int j0 = chunk_ptr[c], j1 = chunk_ptr[c + 1];
+  const int half = threadIdx.x / kCamSumThreads;
+  const int t = threadIdx.x % kCamSumThreads, q0 = half * H;
+  T acc[H];
 #pragma unroll
-  for (int q = 0; q < NV; ++q) acc[q] = T(0);
-  for (int j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
-    const long long o = cam_edge[j];
+  for (int q = 0; q < H; ++q) acc[q] = T(0);
+  for (int s0 = j0; s0 < j1; s0 += kCamSpan) {
+    const int m = j1 - s0 < kCamSpan ? j1 - s0 : kCamSpan;
+    const uint4* src = reinterpret_cast<const uint4*>(
+        rec + static_cast<long long>(s0) * RS);
+    for (int i = threadIdx.x; i < m * RS / VEC; i += kCamThreads) {
+      union { uint4 u; T v[VEC]; } load;
+      load.u = src[i];
+      T* dst = stage + (i * VEC / RS) * PITCH + i * VEC % RS;
 #pragma unroll
-    for (int q = 0; q < DD; ++q) acc[q] += hcc_e[q * ld + o];
-#pragma unroll
-    for (int q = 0; q < DP; ++q) acc[DD + q] += bp_e[q * ld + o];
-    if (w_cam != nullptr) {
-#pragma unroll
-      for (int q = 0; q < DW; ++q) w_cam[q * ld + j] = w_e[q * ld + o];
+      for (int j = 0; j < VEC; ++j) dst[j] = load.v[j];
     }
+    __syncthreads();
+    // t adds chunk record t + 128 r in round r; in this span that is
+    // record k of the stage
+    const int k = t - (s0 - j0) % kCamSumThreads;
+    if (k >= 0 && k < m) {
+      const T* mine = stage + k * PITCH + q0;
+#pragma unroll
+      for (int q = 0; q < H; ++q)
+        if (q0 + q < NV) acc[q] += mine[q];
+    }
+    for (int i = threadIdx.x; i < DW * kCamSpan; i += kCamThreads) {
+      const int q = i / kCamSpan, kk = i % kCamSpan;
+      if (kk < m)
+        w_cam[q * n_obs + s0 + kk] = stage[kk * PITCH + Rec::kW + q];
+    }
+    __syncthreads();                              // the stage is reused
   }
-  const T total = block_reduce_values<T, NV>(acc, smem);
-  if (threadIdx.x < DD)
-    hcc[threadIdx.x * static_cast<long long>(n_cam) + c] = total;
+  warp_reduce_values<T, H>(acc);                  // lane 0: the warp's sums
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int q = 0; q < H; ++q) warp_sum[threadIdx.x >> 5][q] = acc[q];
+  }
+  __syncthreads();
+  // in thread v < NV: its half's four warps, in order
+  T total = T(0);
+  if (threadIdx.x < NV) {
+    const int w0 = (threadIdx.x / H) * (kCamSumThreads / 32);
+    const int q = threadIdx.x % H;
+    total = warp_sum[w0][q];
+#pragma unroll
+    for (int w = 1; w < kCamSumThreads / 32; ++w) total += warp_sum[w0 + w][q];
+  }
+  const int n = chunk_row[c];
+  const int c0 = row_chunk[n], c1 = row_chunk[n + 1];
+  if (c1 - c0 > 1) {
+    const long long NC = n_chunks;
+    if (threadIdx.x < NV) part[threadIdx.x * NC + c] = total;
+    __threadfence();                 // the partial, before the arrival
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(arrivals + n, 1) == c1 - c0 - 1;
+    __syncthreads();
+    if (!last) return;
+    if (threadIdx.x < NV) {
+      total = __ldcg(part + threadIdx.x * NC + c0);
+      for (int cc = c0 + 1; cc < c1; ++cc)
+        total += __ldcg(part + threadIdx.x * NC + cc);
+    }
+    if (threadIdx.x == 0) arrivals[n] = 0;
+  }
+  const long long C = n_cam;
+  if (threadIdx.x < DP * DP)
+    hcc[threadIdx.x * C + n] = total;
   else if (threadIdx.x < NV)
-    bp[(threadIdx.x - DD) * static_cast<long long>(n_cam) + c] = total;
+    bp[(threadIdx.x - DP * DP) * C + n] = total;
 }
 
 // -- launchers ---------------------------------------------------------------
 
 template <typename T>
+int edge_grid(long long n_edges) {
+  const int threads = 32 * kEdgeWarps<T>;
+  return static_cast<int>((n_edges + threads - 1) / threads);
+}
+
+template <typename T>
 int launch_xyz2uv(const T* pts, const T* cams, const int* li, const int* ci,
                   const T* meas, const T* info, const T* delta, const T* camp,
-                  const T* free_l, const T* free_c, int kernel_id, int n_edges,
-                  long long off, long long ld, T* hll, T* bl, T* wblk, T* hcc,
-                  T* bp, cudaStream_t stream) {
+                  const T* free_l, const T* free_c, const int* cam_pos,
+                  int kernel_id, int n_edges, long long off, long long ld,
+                  T* hll, T* bl, T* rec, T* w_lane, cudaStream_t stream) {
   if (n_edges <= 0) return 0;
-  ba_xyz2uv_kernel<T><<<grid_for(n_edges), kThreads, 0, stream>>>(
-      pts, cams, li, ci, meas, info, delta, camp, free_l, free_c, kernel_id,
-      n_edges, off, ld, hll, bl, wblk, hcc, bp);
+  ba_xyz2uv_kernel<T><<<edge_grid<T>(n_edges), 32 * kEdgeWarps<T>, 0,
+                        stream>>>(
+      pts, cams, li, ci, meas, info, delta, camp, free_l, free_c, cam_pos,
+      kernel_id, n_edges, off, ld, hll, bl, rec, w_lane);
   return launch_status();
 }
 
 template <typename T, int DP, int DL>
 int launch_generic_dims(int R, const T* resid, const T* jl, const T* jc,
-                        const T* rho1, const T* info, int n_edges,
-                        long long off, long long ld, T* hll, T* bl, T* wblk,
-                        T* hcc, T* bp, cudaStream_t stream) {
-  const int grid = grid_for(n_edges);
+                        const T* rho1, const T* info, const int* cam_pos,
+                        int n_edges, long long off, long long ld, T* hll,
+                        T* bl, T* rec, T* w_lane, cudaStream_t stream) {
+  const int grid = edge_grid<T>(n_edges), threads = 32 * kEdgeWarps<T>;
   switch (R) {
     case 1:
-      ba_generic_kernel<T, 1, DP, DL><<<grid, kThreads, 0, stream>>>(
-          resid, jl, jc, rho1, info, n_edges, off, ld, hll, bl, wblk, hcc, bp);
+      ba_generic_kernel<T, 1, DP, DL><<<grid, threads, 0, stream>>>(
+          resid, jl, jc, rho1, info, cam_pos, n_edges, off, ld, hll, bl, rec,
+          w_lane);
       break;
     case 2:
-      ba_generic_kernel<T, 2, DP, DL><<<grid, kThreads, 0, stream>>>(
-          resid, jl, jc, rho1, info, n_edges, off, ld, hll, bl, wblk, hcc, bp);
+      ba_generic_kernel<T, 2, DP, DL><<<grid, threads, 0, stream>>>(
+          resid, jl, jc, rho1, info, cam_pos, n_edges, off, ld, hll, bl, rec,
+          w_lane);
       break;
     case 3:
-      ba_generic_kernel<T, 3, DP, DL><<<grid, kThreads, 0, stream>>>(
-          resid, jl, jc, rho1, info, n_edges, off, ld, hll, bl, wblk, hcc, bp);
+      ba_generic_kernel<T, 3, DP, DL><<<grid, threads, 0, stream>>>(
+          resid, jl, jc, rho1, info, cam_pos, n_edges, off, ld, hll, bl, rec,
+          w_lane);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -297,18 +445,18 @@ int launch_generic_dims(int R, const T* resid, const T* jl, const T* jc,
 
 template <typename T>
 int launch_generic(const T* resid, const T* jl, const T* jc, const T* rho1,
-                   const T* info, int n_edges, long long off, long long ld,
-                   int R, int DP, int DL, T* hll, T* bl, T* wblk, T* hcc,
-                   T* bp, cudaStream_t stream) {
+                   const T* info, const int* cam_pos, int n_edges,
+                   long long off, long long ld, int R, int DP, int DL, T* hll,
+                   T* bl, T* rec, T* w_lane, cudaStream_t stream) {
   if (n_edges <= 0) return 0;
   if (DP == 6 && DL == 3)
-    return launch_generic_dims<T, 6, 3>(R, resid, jl, jc, rho1, info, n_edges,
-                                        off, ld, hll, bl, wblk, hcc, bp,
-                                        stream);
+    return launch_generic_dims<T, 6, 3>(R, resid, jl, jc, rho1, info,
+                                        cam_pos, n_edges, off, ld, hll, bl,
+                                        rec, w_lane, stream);
   if (DP == 3 && DL == 2)
-    return launch_generic_dims<T, 3, 2>(R, resid, jl, jc, rho1, info, n_edges,
-                                        off, ld, hll, bl, wblk, hcc, bp,
-                                        stream);
+    return launch_generic_dims<T, 3, 2>(R, resid, jl, jc, rho1, info,
+                                        cam_pos, n_edges, off, ld, hll, bl,
+                                        rec, w_lane, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -357,18 +505,30 @@ int launch_lm_sums(const T* hll_e, const T* bl_e, const T* w_e,
   return launch_status();
 }
 
+template <typename T, int DP, int DL>
+void cam_sums_dims(const T* rec, const int* chunk_ptr, const int* chunk_row,
+                   const int* row_chunk, int* arrivals, int n_chunks,
+                   int n_cam, long long n_obs, T* part, T* hcc, T* bp,
+                   T* w_cam, cudaStream_t stream) {
+  ba_cam_sums_kernel<T, DP, DL><<<n_chunks, kCamThreads, 0, stream>>>(
+      rec, chunk_ptr, chunk_row, row_chunk, arrivals, n_chunks, n_cam, n_obs,
+      part, hcc, bp, w_cam);
+}
+
 template <typename T>
-int launch_cam_sums(const T* hcc_e, const T* bp_e, const T* w_e,
-                    const int* cam_ptr, const int* cam_edge, int n_cam,
-                    long long ld, int DP, int DL, T* hcc, T* bp, T* w_cam,
-                    cudaStream_t stream) {
-  if (n_cam <= 0) return 0;
+int launch_cam_sums(const T* rec, const int* chunk_ptr, const int* chunk_row,
+                    const int* row_chunk, int* arrivals, int n_chunks,
+                    int n_cam, long long n_obs, int DP, int DL, T* part,
+                    T* hcc, T* bp, T* w_cam, cudaStream_t stream) {
+  if (n_chunks <= 0) return 0;
   if (DP == 6 && DL == 3)
-    ba_cam_sums_kernel<T, 6, 3><<<n_cam, kCamThreads, 0, stream>>>(
-        hcc_e, bp_e, w_e, cam_ptr, cam_edge, n_cam, ld, hcc, bp, w_cam);
+    cam_sums_dims<T, 6, 3>(rec, chunk_ptr, chunk_row, row_chunk, arrivals,
+                           n_chunks, n_cam, n_obs, part, hcc, bp, w_cam,
+                           stream);
   else if (DP == 3 && DL == 2)
-    ba_cam_sums_kernel<T, 3, 2><<<n_cam, kCamThreads, 0, stream>>>(
-        hcc_e, bp_e, w_e, cam_ptr, cam_edge, n_cam, ld, hcc, bp, w_cam);
+    cam_sums_dims<T, 3, 2>(rec, chunk_ptr, chunk_row, row_chunk, arrivals,
+                           n_chunks, n_cam, n_obs, part, hcc, bp, w_cam,
+                           stream);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_status();
@@ -382,21 +542,21 @@ extern "C" {
   int g2o_ba_xyz2uv_##SUFFIX(                                                  \
       const T* pts, const T* cams, const int* li, const int* ci,               \
       const T* meas, const T* info, const T* delta, const T* camp,             \
-      const T* free_l, const T* free_c, int kernel_id, int n_edges,            \
-      long long off, long long ld, T* hll, T* bl, T* wblk, T* hcc, T* bp,      \
-      void* stream) {                                                          \
+      const T* free_l, const T* free_c, const int* cam_pos, int kernel_id,     \
+      int n_edges, long long off, long long ld, T* hll, T* bl, T* rec,         \
+      T* w_lane, void* stream) {                                               \
     return g2o_torch::launch_xyz2uv<T>(                                        \
-        pts, cams, li, ci, meas, info, delta, camp, free_l, free_c,            \
-        kernel_id, n_edges, off, ld, hll, bl, wblk, hcc, bp,                   \
+        pts, cams, li, ci, meas, info, delta, camp, free_l, free_c, cam_pos,   \
+        kernel_id, n_edges, off, ld, hll, bl, rec, w_lane,                     \
         static_cast<cudaStream_t>(stream));                                    \
   }                                                                            \
   int g2o_ba_generic_##SUFFIX(                                                 \
       const T* resid, const T* jl, const T* jc, const T* rho1, const T* info,  \
-      int n_edges, long long off, long long ld, int R, int DP, int DL, T* hll, \
-      T* bl, T* wblk, T* hcc, T* bp, void* stream) {                           \
+      const int* cam_pos, int n_edges, long long off, long long ld, int R,     \
+      int DP, int DL, T* hll, T* bl, T* rec, T* w_lane, void* stream) {        \
     return g2o_torch::launch_generic<T>(                                       \
-        resid, jl, jc, rho1, info, n_edges, off, ld, R, DP, DL, hll, bl,       \
-        wblk, hcc, bp, static_cast<cudaStream_t>(stream));                     \
+        resid, jl, jc, rho1, info, cam_pos, n_edges, off, ld, R, DP, DL, hll,  \
+        bl, rec, w_lane, static_cast<cudaStream_t>(stream));                   \
   }                                                                            \
   int g2o_ba_lm_sums_##SUFFIX(const T* hll_e, const T* bl_e, const T* w_e,     \
                               const int* lm_edge, int n_lm, int k_width,       \
@@ -406,13 +566,15 @@ extern "C" {
                                         k_width, ld, DP, DL, hll, bl, w_lm,    \
                                         static_cast<cudaStream_t>(stream));    \
   }                                                                            \
-  int g2o_ba_cam_sums_##SUFFIX(const T* hcc_e, const T* bp_e, const T* w_e,    \
-                               const int* cam_ptr, const int* cam_edge,        \
-                               int n_cam, long long ld, int DP, int DL,        \
-                               T* hcc, T* bp, T* w_cam, void* stream) {        \
-    return g2o_torch::launch_cam_sums<T>(hcc_e, bp_e, w_e, cam_ptr, cam_edge,  \
-                                         n_cam, ld, DP, DL, hcc, bp, w_cam,    \
-                                         static_cast<cudaStream_t>(stream));   \
+  int g2o_ba_cam_sums_##SUFFIX(                                                \
+      const T* rec, const int* chunk_ptr, const int* chunk_row,                \
+      const int* row_chunk, int* arrivals, int n_chunks, int n_cam,            \
+      long long n_obs, int DP, int DL, T* part, T* hcc, T* bp, T* w_cam,       \
+      void* stream) {                                                          \
+    return g2o_torch::launch_cam_sums<T>(                                      \
+        rec, chunk_ptr, chunk_row, row_chunk, arrivals, n_chunks, n_cam,       \
+        n_obs, DP, DL, part, hcc, bp, w_cam,                                   \
+        static_cast<cudaStream_t>(stream));                                    \
   }
 
 G2O_BA_EDGE_ENTRY(f32, float)

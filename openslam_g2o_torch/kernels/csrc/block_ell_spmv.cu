@@ -22,11 +22,13 @@
 
 namespace g2o_torch {
 
+// Declared for 256 threads and 3 blocks an SM, so that ptxas keeps enough
+// registers at D = 6 for a slot's loads to stay in flight (as spmv_dot and
+// spmv_dot_p of cg_step.cu are).
 template <typename T, int D>
-__global__ void block_ell_spmv_kernel(const int* __restrict__ nb,
-                                      const T* __restrict__ vals,
-                                      const T* __restrict__ x,
-                                      T* __restrict__ y, int n, int k_width) {
+__global__ void __launch_bounds__(kThreads, 3) block_ell_spmv_kernel(
+    const int* __restrict__ nb, const T* __restrict__ vals,
+    const T* __restrict__ x, T* __restrict__ y, int n, int k_width) {
   const long long row = blockIdx.x * static_cast<long long>(blockDim.x)
                         + threadIdx.x;
   if (row >= n) return;

@@ -1,5 +1,6 @@
-// K6: the conjugate-gradient step of the LM-PCG trial solve, three launches
-// per iteration with every CG scalar on the device.
+// K6: the conjugate-gradient step of the LM-PCG trial solve, two launches
+// per iteration without a preconditioner and three with one, with every CG
+// scalar on the device.
 //
 // Replaces the loop of `pcg_solve`
 // (openslam_g2o_tpu/core/solvers.py:213-297), which XLA fused into one TPU
@@ -21,24 +22,42 @@
 // a solve up, `cg_finish` computes ok = finite(x) && (pd || r2 <= thresh)
 // and zeroes x when not ok.
 //
-// Reductions take two passes and no atomics: a kernel writes one partial
-// per block, and every block of the next kernel re-reduces all partials in
-// the same fixed order (sum_partials), so all blocks use the same alpha and
-// beta bit for bit and a run repeats exactly.
+// Without a preconditioner the step is two launches. cg_update_xr, given
+// an arrival counter, stores cg_update_p's scalars itself: its last block
+// to arrive (the counter after __threadfence, the partials read past L1
+// with __ldcg) re-reduces the r . r partials and stores rz, r2, pd, beta
+// and the continue flag, so the host's flag read sees what it saw after
+// cg_update_p. The p update then rides on the product that reads p next:
+// spmv_dot_p writes p_new = beta p + r into the other of two p buffers
+// (neighbours still gather p) and gathers beta p[j] + r[j] at every
+// neighbour column j, the same expression (next_direction) with the same
+// FMA contraction, so H p_new and p_new . H p_new have the bits of the
+// three-launch step. The first iteration has no beta (cg_residual set
+// p = r) and runs spmv_dot.
+//
+// Reductions take two passes and no atomics on values: a kernel writes one
+// partial per block, and every block of the next kernel re-reduces all
+// partials in the same fixed order (sum_partials), so all blocks use the
+// same alpha and beta bit for bit and a run repeats exactly.
 //
 // The scalars sit in one buffer of kSlots values (the slot names are
 // mirrored in kernels/cg_step.py). A kernel never writes a slot that
-// another block of the same launch reads: cg_update_xr reads RZ and PD and
-// writes RZ_OLD and PD_NEXT, cg_update_p reads those and writes RZ and PD.
+// another block of the same launch reads, with one exception:
+// cg_update_xr reads RZ and PD and writes RZ_OLD and PD_NEXT (block 0);
+// cg_update_p reads those and writes RZ and PD; cg_update_xr's finishing
+// block writes RZ and PD after every other block has arrived, that is,
+// after each has read them.
 //
 // The vector kernels are flat over the n = D N values of a CG vector and
-// serve every block width; spmv_dot is instantiated for D = 3 and D = 6.
+// serve every block width; spmv_dot and spmv_dot_p are instantiated for
+// D = 3 and D = 6.
 //
 // Bound: memory. At 3 N = 300,000 float32 values a CG vector is 1.2 MB:
 // cg_update_xr moves six vectors, cg_update_p three, spmv_dot what kernel A
 // moves. At D = 3 all of it fits the 50 MB L2, so in the loop launch
-// latency, not bandwidth, is what remains; at D = 6 and N = 100,000 the
-// values alone are 58 MB and the product streams them from HBM.
+// latency, not bandwidth, is what remains, and one launch fewer per
+// iteration is the lever; at D = 6 and N = 100,000 the values alone are
+// 58 MB and the product streams them from HBM.
 #include "block_ell.cuh"
 
 namespace g2o_torch {
@@ -48,12 +67,13 @@ enum Slot {
   RZ_OLD = 6, PD_NEXT = 7, ALPHA = 8, BETA = 9, kSlots = 10
 };
 
+// Declared, as spmv_dot_p and kernel A are, for 256 threads and 3 blocks an
+// SM (see spmv_dot_p_kernel).
 template <typename T, int D>
-__global__ void spmv_dot_kernel(const int* __restrict__ nb,
-                                const T* __restrict__ vals,
-                                const T* __restrict__ p, T* __restrict__ hp,
-                                T* __restrict__ partials, int n,
-                                int k_width) {
+__global__ void __launch_bounds__(kThreads, 3) spmv_dot_kernel(
+    const int* __restrict__ nb, const T* __restrict__ vals,
+    const T* __restrict__ p, T* __restrict__ hp, T* __restrict__ partials,
+    int n, int k_width) {
   __shared__ T smem[32];
   const long long row = blockIdx.x * static_cast<long long>(blockDim.x)
                         + threadIdx.x;
@@ -65,6 +85,64 @@ __global__ void spmv_dot_kernel(const int* __restrict__ nb,
 #pragma unroll
     for (int s = 0; s < D; ++s) hp[s * N + row] = y[s];
     local = block_row_dot<T, D>(p, row, N, y);
+  }
+  const T total = block_sum(local, smem);
+  if (threadIdx.x == 0) partials[blockIdx.x] = total;
+}
+
+// One value of the next search direction, p = beta p + z: the one
+// expression of cg_update_p and spmv_dot_p, so that both contract it to the
+// same FMA and the gathered copies equal the stored ones bit for bit.
+template <typename T>
+__device__ __forceinline__ T next_direction(T beta, T p, T z) {
+  return beta * p + z;
+}
+
+// The column gather of spmv_dot_p: beta p_old[:, col] + r[:, col].
+template <typename T, int D>
+struct NextColumn {
+  const T* __restrict__ p;
+  const T* __restrict__ r;
+  T beta;
+  long long N;
+  __device__ __forceinline__ void operator()(long long col,
+                                             T (&xg)[D]) const {
+#pragma unroll
+    for (int t = 0; t < D; ++t)
+      xg[t] = next_direction(beta, p[t * N + col], r[t * N + col]);
+  }
+};
+
+// spmv_dot with the p update of the step before folded in (z = r):
+// p_new = beta p + r (beta from the scalar buffer, stored by the last
+// cg_update_xr), hp = H p_new and the per-block partials of p_new . hp.
+// Declared for 256 threads and 3 blocks an SM, ptxas gives the float32
+// D = 6 instantiation 79 registers, enough to keep a slot's loads in
+// flight: on an H100 it ran 57.1 us without the bound and 31.6 us with it
+// (spmv_dot: 33.6).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads, 3) spmv_dot_p_kernel(
+    const int* __restrict__ nb, const T* __restrict__ vals,
+    const T* __restrict__ scal, const T* __restrict__ p,
+    const T* __restrict__ r, T* __restrict__ p_new, T* __restrict__ hp,
+    T* __restrict__ partials, int n, int k_width) {
+  __shared__ T smem[32];
+  const long long row = blockIdx.x * static_cast<long long>(blockDim.x)
+                        + threadIdx.x;
+  const long long N = n;
+  const T beta = scal[BETA];
+  T local = T(0);
+  if (row < n) {
+    const NextColumn<T, D> next{p, r, beta, N};
+    T pn[D];
+    next(row, pn);
+#pragma unroll
+    for (int s = 0; s < D; ++s) p_new[s * N + row] = pn[s];
+    T y[D];
+    block_ell_row_of<T, D>(nb, vals, next, row, N, k_width, y);
+#pragma unroll
+    for (int s = 0; s < D; ++s) hp[s * N + row] = y[s];
+    local = row_dot<T, D>(pn, y);
   }
   const T total = block_sum(local, smem);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
@@ -143,14 +221,31 @@ __global__ void cg_start_kernel(T* __restrict__ scal,
   }
 }
 
+// sum_partials for partials that other blocks of the same launch wrote:
+// read from L2 (__ldcg), past this SM's L1, in sum_partials' order.
+template <typename T>
+__device__ __forceinline__ T sum_partials_cg(const T* partials, int count,
+                                             T* smem) {
+  T v = T(0);
+  for (int i = threadIdx.x; i < count; i += blockDim.x)
+    v += __ldcg(partials + i);
+  return block_sum(v, smem);
+}
+
+// With `arrivals` (one int32, zero) the launch also finishes the step for
+// z = r: its last block stores what cg_update_p stores (rz_new = r2 = the
+// sum of this launch's r . r partials, beta, pd, the continue flag) and
+// sets the counter back to 0.
 template <typename T>
 __global__ void cg_update_xr_kernel(T* __restrict__ scal,
                                     const T* __restrict__ part_pap, int n_pap,
                                     T* __restrict__ x, T* __restrict__ r,
                                     const T* __restrict__ p,
                                     const T* __restrict__ hp,
-                                    T* __restrict__ part_rr, long long n) {
+                                    T* __restrict__ part_rr, long long n,
+                                    int* __restrict__ arrivals) {
   __shared__ T smem[32];
+  __shared__ int last;
   const T denom = sum_partials(part_pap, n_pap, smem);
   const T rz = scal[RZ];
   // a NaN denom fails denom > 0, so it turns pd off as well
@@ -177,6 +272,22 @@ __global__ void cg_update_xr_kernel(T* __restrict__ scal,
       scal[PD_NEXT] = pd ? T(1) : T(0);
       scal[ALPHA] = alpha;
     }
+    if (arrivals != nullptr) {
+      __threadfence();               // the partial, before the arrival
+      last = atomicAdd(arrivals, 1) == static_cast<int>(gridDim.x) - 1;
+    }
+  }
+  if (arrivals == nullptr) return;
+  __syncthreads();
+  if (!last) return;
+  const T rz_new = sum_partials_cg(part_rr, gridDim.x, smem);
+  if (threadIdx.x == 0) {
+    scal[RZ] = rz_new;
+    scal[R2] = rz_new;
+    scal[PD] = pd ? T(1) : T(0);
+    scal[BETA] = rz_new / (rz == T(0) ? T(1) : rz);
+    scal[CONT] = (pd && rz_new > scal[THRESH]) ? T(1) : T(0);
+    *arrivals = 0;
   }
 }
 
@@ -194,7 +305,7 @@ __global__ void cg_update_p_kernel(T* __restrict__ scal,
                          + threadIdx.x;
   for (int v = 0; v < kVec; ++v) {
     const long long i = base + v * kThreads;
-    if (i < n) p[i] = beta * p[i] + z[i];
+    if (i < n) p[i] = next_direction(beta, p[i], z[i]);
   }
   if (blockIdx.x == 0) {
     // block-uniform branch: sum_partials synchronizes the block
@@ -270,6 +381,32 @@ int launch_spmv_dot(const int* nb, const T* vals, const T* p, T* hp,
   }
 }
 
+template <typename T, int D>
+int run_spmv_dot_p(const int* nb, const T* vals, const T* scal, const T* p,
+                   const T* r, T* p_new, T* hp, T* partials, int n,
+                   int k_width, cudaStream_t stream) {
+  spmv_dot_p_kernel<T, D><<<grid_for(n), kThreads, 0, stream>>>(
+      nb, vals, scal, p, r, p_new, hp, partials, n, k_width);
+  return launch_status();
+}
+
+template <typename T>
+int launch_spmv_dot_p(const int* nb, const T* vals, const T* scal,
+                      const T* p, const T* r, T* p_new, T* hp, T* partials,
+                      int n, int k_width, int d, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  switch (d) {
+    case 3:
+      return run_spmv_dot_p<T, 3>(nb, vals, scal, p, r, p_new, hp, partials,
+                                  n, k_width, stream);
+    case 6:
+      return run_spmv_dot_p<T, 6>(nb, vals, scal, p, r, p_new, hp, partials,
+                                  n, k_width, stream);
+    default:
+      return bad_block_width();
+  }
+}
+
 template <typename T>
 int launch_dot_partials(const T* a, const T* b, T* partials, long long n,
                         cudaStream_t stream) {
@@ -299,9 +436,9 @@ int launch_cg_start(T* scal, const T* part_rz, int n_rz, const T* part_rr,
 template <typename T>
 int launch_cg_update_xr(T* scal, const T* part_pap, int n_pap, T* x, T* r,
                         const T* p, const T* hp, T* part_rr, long long n,
-                        cudaStream_t stream) {
+                        int* arrivals, cudaStream_t stream) {
   cg_update_xr_kernel<T><<<chunks_for(n), kThreads, 0, stream>>>(
-      scal, part_pap, n_pap, x, r, p, hp, part_rr, n);
+      scal, part_pap, n_pap, x, r, p, hp, part_rr, n, arrivals);
   return launch_status();
 }
 
@@ -350,6 +487,23 @@ int g2o_spmv_dot_f64(const int* nb, const double* vals, const double* p,
                                             k_width, d, G2O_STREAM);
 }
 
+int g2o_spmv_dot_p_f32(const int* nb, const float* vals, const float* scal,
+                       const float* p, const float* r, float* p_new,
+                       float* hp, float* partials, int n, int k_width, int d,
+                       void* stream) {
+  return g2o_torch::launch_spmv_dot_p<float>(nb, vals, scal, p, r, p_new, hp,
+                                             partials, n, k_width, d,
+                                             G2O_STREAM);
+}
+int g2o_spmv_dot_p_f64(const int* nb, const double* vals, const double* scal,
+                       const double* p, const double* r, double* p_new,
+                       double* hp, double* partials, int n, int k_width,
+                       int d, void* stream) {
+  return g2o_torch::launch_spmv_dot_p<double>(nb, vals, scal, p, r, p_new,
+                                              hp, partials, n, k_width, d,
+                                              G2O_STREAM);
+}
+
 int g2o_dot_partials_f32(const float* a, const float* b, float* partials,
                          int n, void* stream) {
   return g2o_torch::launch_dot_partials<float>(a, b, partials, n, G2O_STREAM);
@@ -389,16 +543,18 @@ int g2o_cg_start_f64(double* scal, const double* part_rz, int n_rz,
 
 int g2o_cg_update_xr_f32(float* scal, const float* part_pap, int n_pap,
                          float* x, float* r, const float* p, const float* hp,
-                         float* part_rr, int n, void* stream) {
+                         float* part_rr, int n, int* arrivals,
+                         void* stream) {
   return g2o_torch::launch_cg_update_xr<float>(scal, part_pap, n_pap, x, r, p,
-                                               hp, part_rr, n, G2O_STREAM);
+                                               hp, part_rr, n, arrivals,
+                                               G2O_STREAM);
 }
 int g2o_cg_update_xr_f64(double* scal, const double* part_pap, int n_pap,
                          double* x, double* r, const double* p,
                          const double* hp, double* part_rr, int n,
-                         void* stream) {
+                         int* arrivals, void* stream) {
   return g2o_torch::launch_cg_update_xr<double>(scal, part_pap, n_pap, x, r,
-                                                p, hp, part_rr, n,
+                                                p, hp, part_rr, n, arrivals,
                                                 G2O_STREAM);
 }
 

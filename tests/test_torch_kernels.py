@@ -11,6 +11,7 @@ difference moves the residual by an ulp of the coordinate; the closed-form
 Cholesky of K3 to the same 1e-11 and 1e-4, since it subtracts squares and
 divides by the result. The lane gather copies values and must be exact.
 """
+
 import numpy as np
 import pytest
 import torch
@@ -353,9 +354,102 @@ def test_pcg_solve_on_gpu_matches_cpu(cuda, cheby):
     xc, okc, cpu_counts = solve("cpu")
     assert okg and okc
     assert set(cpu_counts.values()) == {0}
-    assert cg_counts["cg_update_xr"] == cg_counts["cg_update_p"] > 2
-    assert cg_counts["spmv_dot"] == cg_counts["cg_update_xr"]
+    if cheby:       # the three-launch step
+        assert cg_counts["cg_update_xr"] == cg_counts["cg_update_p"] > 2
+        assert cg_counts["spmv_dot"] == cg_counts["cg_update_xr"]
+        assert cg_counts["spmv_dot_p"] == 0
+    else:           # two launches: the first iteration on spmv_dot
+        assert cg_counts["cg_update_xr"] > 2 and cg_counts["cg_update_p"] == 0
+        assert cg_counts["spmv_dot"] == 1
+        assert cg_counts["spmv_dot_p"] == cg_counts["cg_update_xr"] - 1
     assert _rel(xg, xc) < 1e-9
+
+
+@pytest.mark.parametrize("D", [3, 6])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_spmv_dot_p_equals_three_launch_step_on_gpu(cuda, dtype, D):
+    """The fused spmv_dot_p from the scalars of cg_update_xr with an
+    arrival counter, against cg_update_xr + cg_update_p (z = r) + spmv_dot
+    from the same state: the same scalars, p and H p and the same partials
+    bit for bit, close to the plain version, the same bits twice, and the
+    counter back at zero."""
+    if D == 3:
+        prob, pattern, values, b, lam = _scaled(cuda, dtype)
+        free = prob.free["se2"]
+    else:
+        prob, pattern = _sphere(dtype, cuda)
+        values, bT = sparse.assemble_ell(prob, pattern)
+        b, lam, free = bT["se3"], torch.tensor(
+            0.7, dtype=dtype, device=cuda), prob.free["se3"]
+    linv, _, bhat, extra = damp_chol.damp_chol(values, free, b, lam)
+    S = jacobi_scale.jacobi_scale(pattern.nb, values, linv, extra)
+    r0, p0, rr0, bb0 = cg_step.cg_residual(bhat, torch.zeros_like(bhat))
+    scal0 = cg_step.new_scalars(r0)
+    cg_step.cg_start(scal0, rr0, rr0, bb0, 1e-6, True)
+    hp0, pap0 = cg_step.spmv_dot(pattern.nb, S, p0)
+    arrivals = torch.zeros(1, dtype=torch.int32, device=cuda)
+    st = {}
+    for route in ("fused", "three"):
+        x, r, p, sc = (torch.zeros_like(bhat), r0.clone(), p0.clone(),
+                       scal0.clone())
+        rr = cg_step.cg_update_xr(sc, pap0, x, r, p, hp0,
+                                  arrivals if route == "fused" else None)
+        if route == "three":
+            cg_step.cg_update_p(sc, rr, rr, r, p, True)
+        st[route] = (x, r, p, sc)
+    assert not arrivals.any()
+    x, r, p, sc = st["fused"]
+    assert torch.equal(sc, st["three"][3]) and torch.equal(x, st["three"][0])
+    p_new = torch.full_like(p, float("nan"))
+    hp, part = cg_step.spmv_dot_p(pattern.nb, S, sc, p, r, p_new)
+    hp_t, part_t = cg_step.spmv_dot(pattern.nb, S, st["three"][2])
+    assert torch.equal(p_new, st["three"][2])
+    assert torch.equal(hp, hp_t) and torch.equal(part, part_t)
+    again = torch.empty_like(p)
+    assert all(torch.equal(a, b_) for a, b_ in zip(
+        cg_step.spmv_dot_p(pattern.nb, S, sc, p, r, again), (hp, part)))
+    assert torch.equal(again, p_new)
+    want = cg_step.spmv_dot_p_plain(pattern.nb, S, sc, p, r,
+                                    torch.empty_like(p))
+    assert _rel(hp, want[0]) < TOL[dtype]
+    assert _rel(part.sum(), want[1]) < TOL[dtype]
+
+
+def test_lm_pcg_two_launches_per_cg_iteration_on_gpu(cuda, monkeypatch):
+    """LM-PCG without a preconditioner: 2 launches per CG iteration
+    (spmv_dot_p or, in each solve's first iteration, spmv_dot; and
+    cg_update_xr) and no cg_update_p, against the three-launch step (the
+    operator's fused form taken away): one launch fewer per CG iteration,
+    the same CG iterations and the same chi2 bit for bit, SE2 and SE3."""
+    runs = {}
+    for graph in ("se2", "se3"):
+        prob = (_small_system(torch.float32, cuda, n=3000)[0]
+                if graph == "se2" else _sphere(torch.float32, cuda)[0])
+        for route in ("two", "three"):
+            with monkeypatch.context() as m:
+                if route == "three":
+                    m.delattr(sparse.EllOperator, "matvec_dot_p")
+                kernels.reset_launch_counts()
+                _, stats = algorithms.optimize(
+                    prob, algorithms.LevenbergMarquardtPCG(pcg_iters=50,
+                                                           pcg_tol=1e-3),
+                    iterations=4)
+                torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            cg_iters = counts["cg_update_xr"]
+            per_cg = (counts["spmv_dot"] + counts["spmv_dot_p"]
+                      + counts["cg_update_xr"] + counts["cg_update_p"]
+                      + counts["dot_partials"]) / cg_iters
+            runs[graph, route] = ([s_["chi2"] for s_ in stats], cg_iters,
+                                  per_cg, counts)
+        two, three = runs[graph, "two"], runs[graph, "three"]
+        assert two[0] == three[0] and two[1] == three[1] > 10
+        assert three[3]["spmv_dot_p"] == 0 and three[2] == 3.0
+        assert two[3]["cg_update_p"] == 0
+        solves = two[3]["cg_finish"]
+        assert two[3]["spmv_dot"] == solves
+        assert two[3]["spmv_dot_p"] == cg_iters - solves
+        assert two[2] == 2.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -809,8 +903,8 @@ def test_ba_edge_kernels_match_plain_on_gpu(cuda, dtype):
             ea.indices[0], ea.indices[1], ea.measurement, ea.information,
             ea.delta, ea.pdata[0], prob.free["sba_point_xyz"],
             prob.free["se3_expmap"], 1)
-    got = ba_edge.EdgeStreams.empty(E, 6, 3, dtype, cuda)
-    want = ba_edge.EdgeStreams.empty(E, 6, 3, dtype, cuda)
+    got = ba_edge.EdgeStreams.empty(E, 6, 3, dtype, cuda, pattern.cam_pos)
+    want = ba_edge.EdgeStreams.empty(E, 6, 3, dtype, cuda, pattern.cam_pos)
     ba_edge.ba_xyz2uv_blocks(*args, got, 0)
     ba_edge.ba_xyz2uv_blocks_plain(*args, want, 0)
     for a, b in zip(got.tensors(), want.tensors()):
@@ -818,10 +912,10 @@ def test_ba_edge_kernels_match_plain_on_gpu(cuda, dtype):
     sums = ba_edge.ba_lm_sums(got, pattern.lm_edge)
     for a, b in zip(sums, ba_edge.ba_lm_sums_plain(got, pattern.lm_edge)):
         assert _rel(a, b) < TOL[dtype]
-    csum = ba_edge.ba_cam_sums(got, pattern.cam_ptr, pattern.cam_edge)
-    again = ba_edge.ba_cam_sums(got, pattern.cam_ptr, pattern.cam_edge)
+    csum = ba_edge.ba_cam_sums(got, pattern.cam_rows)
+    again = ba_edge.ba_cam_sums(got, pattern.cam_rows)
     for a, b, c in zip(csum, ba_edge.ba_cam_sums_plain(
-            got, pattern.cam_ptr, pattern.cam_edge), again):
+            got, pattern.cam_rows), again):
         assert _rel(a, b) < TOL[dtype] and torch.equal(a, c)
     gen = torch.Generator(device=cuda).manual_seed(5)
     for dp, dl in ba_edge.BLOCK_DIMS:
@@ -830,12 +924,18 @@ def test_ba_edge_kernels_match_plain_on_gpu(cuda, dtype):
                                          device=cuda)
             gargs = (rnd(300, R), rnd(300, R, dl), rnd(300, R, dp),
                      rnd(300).abs(), rnd(300, R, R))
-            g2 = ba_edge.EdgeStreams.empty(310, dp, dl, dtype, cuda)
-            w2 = ba_edge.EdgeStreams.empty(310, dp, dl, dtype, cuda)
+            pos = torch.randperm(310, generator=gen, device=cuda).int()
+            g2 = ba_edge.EdgeStreams.empty(310, dp, dl, dtype, cuda, pos)
+            w2 = ba_edge.EdgeStreams.empty(310, dp, dl, dtype, cuda, pos)
             ba_edge.ba_edge_blocks(*gargs, g2, 10)
             ba_edge.ba_edge_blocks_plain(*gargs, w2, 10)
-            for a, b in zip(g2.tensors(), w2.tensors()):
+            for a, b in zip(g2.lane_major(), w2.lane_major()):
                 assert _rel(a[:, 10:], b[:, 10:]) < TOL[dtype]
+            # W lane-major is the records' W
+            assert torch.equal(g2.w[:, 10:], g2.lane_major()[2][:, 10:])
+            # the padding of every written record is zero
+            pad = g2.rec[pos[10:].long(), dp * dp + dp + dp * dl:]
+            assert not pad.any()
     counts = kernels.launch_counts()
     assert counts["ba_xyz2uv_blocks"] == 1 and counts["ba_edge_blocks"] == 6
     assert counts["ba_lm_sums"] == 1 and counts["ba_cam_sums"] == 2
@@ -1136,8 +1236,9 @@ def test_ba_lm_sums_on_traps_on_gpu(cuda, dtype, trap):
     L = 1000 + 7                   # a ragged last tile
     lm_edge, E = _lm_slot_table(trap, L, rng, cuda)
     gen = torch.Generator(device=cuda).manual_seed(3)
+    pos = torch.randperm(E, generator=gen, device=cuda).int()
     for dp, dl in ba_edge.BLOCK_DIMS:
-        st = ba_edge.EdgeStreams.empty(E, dp, dl, dtype, cuda)
+        st = ba_edge.EdgeStreams.empty(E, dp, dl, dtype, cuda, pos)
         for t in st.tensors():
             t.copy_(torch.randn(t.shape, generator=gen, dtype=dtype,
                                 device=cuda))
@@ -1218,6 +1319,60 @@ def test_ba_wv_one_launch_on_chunk_traps_on_gpu(cuda, dtype, dims):
             assert _rel(a, b) < TOL_BA[dtype] and torch.equal(a, c)
         assert _device_launches(lambda: ba_coupling.ba_wv(w, rows, v, **kw),
                                 "ba_wv") == 1
+    assert not rows.arrivals.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dims", [(6, 3), (3, 2)])
+def test_ba_cam_sums_on_degree_traps_on_gpu(cuda, dtype, dims):
+    """K10's chunked camera sums at camera degrees 0, 1, 255, 256, 257
+    (the chunk edges), 1768 (the 400k shape's hub, 7 chunks) and 5000, on
+    random records: Hcc and b_p close to the plain version (zeros for a
+    camera without observations) and, for a camera of one chunk, equal
+    to the bit to one 128-thread block per camera (a strided loop and a
+    shuffle tree), W_cam a copy of the records' W (exact),
+    the same bits over two successive calls on one PoseRows (the arrival
+    counters back at zero after each), and one kernel launch per call."""
+    from openslam_g2o_torch.kernels import ba_coupling, ba_edge
+    dp, dl = dims
+    counts = [0, 1, 255, 256, 257, 3, 1768, 0, 40, 5000]
+    E = sum(counts)
+    rng = np.random.default_rng(dp)
+    rows = ba_coupling.build_pose_rows(counts, rng.integers(0, 50, E), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(dp)
+    pos = torch.randperm(E, generator=gen, device=cuda).int()
+    st = ba_edge.EdgeStreams.empty(E, dp, dl, dtype, cuda, pos)
+    for t in st.tensors():
+        t.copy_(torch.randn(t.shape, generator=gen, dtype=dtype,
+                            device=cuda))
+    before = ba_edge.ba_cam_sums.launches
+    got = ba_edge.ba_cam_sums(st, rows)
+    assert not rows.arrivals.any()
+    again = ba_edge.ba_cam_sums(st, rows)
+    assert not rows.arrivals.any()
+    assert ba_edge.ba_cam_sums.launches == before + 2
+    want = ba_edge.ba_cam_sums_plain(st, rows)
+    for a, b, c in zip(got[:2], want[:2], again[:2]):
+        assert _rel(a, b) < TOL[dtype] and torch.equal(a, c)
+        assert not a[:, [0, 7]].any()
+    assert torch.equal(got[2], want[2]) and torch.equal(got[2], again[2])
+    # a camera of one chunk: the bits of a 128-thread block per camera
+    # with a strided loop and a shuffle tree (the kernel before the chunks)
+    sums = torch.cat(got[:2]).T
+    start = 0
+    for cam, d in enumerate(counts):
+        if d <= 256:
+            x = torch.zeros((256, dp * dp + dp), dtype=dtype, device=cuda)
+            x[:d] = st.rec[start:start + d, :dp * dp + dp]
+            y = (torch.zeros_like(x[:128]) + x[:128]) + x[128:]
+            y = y.view(4, 32, -1).clone()
+            for o in (16, 8, 4, 2, 1):
+                y[:, :o] = y[:, :o] + y[:, o:2 * o]
+            ref = ((y[0, 0] + y[1, 0]) + y[2, 0]) + y[3, 0]
+            assert torch.equal(sums[cam], ref), cam
+        start += d
+    assert _device_launches(lambda: ba_edge.ba_cam_sums(st, rows),
+                            "ba_cam_sums") == 1
     assert not rows.arrivals.any()
 
 

@@ -56,8 +56,11 @@ def test_landmark_sums_match_jax_owner_sums(dims, with_w, trap):
     table = table.numpy()
     rows = {"hll": dl * dl, "bl": dl, "w": dp * dl, "hcc": dp * dp, "bp": dp}
     data = {k: rng.normal(size=(r, E)) for k, r in rows.items()}
-    streams = ba_edge.EdgeStreams(**{k: torch.as_tensor(v)
-                                     for k, v in data.items()})
+    # the camera records in a shuffled order (W is read through cam_pos)
+    cam_pos = torch.as_tensor(rng.permutation(E).astype(np.int32))
+    streams = ba_edge.EdgeStreams.from_lane_major(
+        *(torch.as_tensor(data[k]) for k in ("hll", "bl", "w", "hcc", "bp")),
+        cam_pos)
     if not with_w:
         streams = ba_edge.LandmarkStreams(streams.hll, streams.bl)
     hll, bl, w_lm = ba_edge.ba_lm_sums(streams, torch.as_tensor(table),
