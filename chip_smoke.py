@@ -35,21 +35,27 @@ Phases (any failure raises and the script exits non-zero):
     also where they must be 0 (negative and NaN curvature, sticky pd,
     r2 <= thresh). The two-launch step (cg_update_xr with its finish,
     spmv_dot_p) equals the three-launch step bit for bit at D = 3 and 6,
-    timed on the device beside spmv_dot, spmv_dot + cg_update_p and
-    spmv_dot + torch.addcmul. The Schur BA kernels K10-K13 on the BAL problems of
+    each repeats its bits, and twenty two-launch iterations give the bits
+    of twenty three-launch iterations (cg_update_xr a programmatic
+    dependent launch in both); timed on the device beside spmv_dot,
+    spmv_dot + cg_update_p and spmv_dot + torch.addcmul; a whole CG
+    iteration each way;
+    dot_partials beside torch.dot. The Schur BA kernels K10-K13 on the BAL problems of
     phases 4g and 4h and on the landmark worlds of 4i (rows @400k, @2d,
     @3d: every instantiation a path runs), in the order the solver runs
     them, with index_add_, torch.linalg.inv, a CSR product and the JAX
     route's torch.matmul(B2, M2) as the library yardsticks; the camera and
-    landmark sums, W v and S twice for the same bits. ba_lm_sums and ba_wv
-    (here and on the general path's scenes) also by device time: CUDA
+    landmark sums, W^T x, W v and S twice for the same bits; W^T x over
+    the general path's pose groups in one launch. ba_lm_sums, ba_wv and
+    ba_wtx (here and on the general path's scenes; ba_wtx beside its
+    chained form there) also by device time: CUDA
     events around 200 calls queued behind a spin kernel, beside the same
     time of index_add_ (Hll and b_l only), of index_add_ with the masked W
-    gather (ba_lm_sums's whole function) and of the CSR product (W v only);
+    gather (ba_lm_sums's whole function) and of the CSR products (W v,
+    W^T x);
     the fused XYZ2UV entry and the chunked camera sums over the records
     likewise (beside index_add_ on the records, with W's copy, and from
-    observation order with index_select), and the three K10 kernels with W
-    in the records only and with W lane-major as well;
+    observation order with index_select);
  4. the main path: the 100,000-pose serpentine (noise 0.03 / 0.002, float32)
     through LevenbergMarquardtPCG's lambda init and lm_pcg_optimize_fused
     windows (pcg 100, tol 0.15) until chi2 <= 1.05 x the noise floor, then
@@ -108,8 +114,9 @@ Phases (any failure raises and the script exits non-zero):
  4j-4n. the general Schur path (LevenbergMarquardtSchur) on the ba_80k
     geometry as XYZ2UV, PSI2UV and P2MC_INTRINSICS, _SchurAuto's routes and
     the anchored demo scene, and ba_400k: the gates and the JAX package's
-    trajectories, and in one profiled trial solve the device time per CG
-    iteration and the kernels per ba_wv call (one);
+    trajectories, one ba_wtx launch per S x and per back-substitution
+    (two pose groups at P2MC_INTRINSICS), and in one profiled trial solve
+    the device time per CG iteration and the kernels per ba_wv call (one);
  5. a small .g2o string through loads_g2o -> compile() (the default
     device) -> optimize(LevenbergMarquardtPCG()), chi2 decreasing and equal
     to the CPU run of the same graph; one with VERTEX_XY, EDGE_SE2_XY
@@ -857,8 +864,32 @@ def main() -> int:
                 (st["three"][0], st["three"][1], st["three"][3]))):
             raise AssertionError("cg_update_xr with the finish differs from "
                                  "cg_update_xr + cg_update_p")
+        # the same bits again, both forms
+        for route in ("two", "three"):
+            xx, rr_, sc = x0.clone(), r0.clone(), scal0.clone()
+            part = cg_step.cg_update_xr(sc, part_pap, xx, rr_, p0, hp0,
+                                        arrivals if route == "two" else None)
+            if route == "three":
+                cg_step.cg_update_p(sc, part, part, rr_, p0.clone(), True)
+            if not (torch.equal(xx, st[route][0])
+                    and torch.equal(rr_, st[route][1])
+                    and torch.equal(sc, st[route][3])):
+                raise AssertionError(f"cg_update_xr ({route}-launch step) "
+                                     "does not repeat its bits")
         xs = {r_: (x0.clone(), r0.clone(), scal0.clone())
               for r_ in ("k", "p")}
+        if sfx:                  # the three-launch form at this width
+            xs3 = {r_: (x0.clone(), r0.clone(), scal0.clone())
+                   for r_ in ("k", "p")}
+            case("cg_update_xr", tag, f"n={n}, three-launch form",
+                 lambda: (xs3["k"][0], xs3["k"][1], cg_step.cg_update_xr(
+                     xs3["k"][2], part_pap, xs3["k"][0], xs3["k"][1], p0,
+                     hp0), xs3["k"][2]),
+                 lambda: (xs3["p"][0], xs3["p"][1], cg_step.cg_update_xr_plain(
+                     xs3["p"][2], part_pap, xs3["p"][0], xs3["p"][1], p0,
+                     hp0), xs3["p"][2]),
+                 nbytes=6 * s * n, flops=6 * n, post=sums(2, scal=True),
+                 label="cg_update_xr" + sfx)
 
         def run_fin(fn, st_, route):
             out = fn(st_[2], part_pap, st_[0], st_[1], p0, hp0,
@@ -938,11 +969,31 @@ def main() -> int:
             two[2], two[3] = q_, p_
 
         t3, t2 = _device_ms(torch, step_three), _device_ms(torch, step_two)
+        t2b = _device_ms(torch, step_two)
+        # twenty CG iterations each way from the state after the first
+        # step: the same bits (a read of p or hp that the product had not
+        # yet written, under the programmatic dependent launch, would show)
+        x_, r_, p_, s_ = (t_.clone() for t_ in st["two"])
+        q_ = torch.empty_like(p_)
+        for _ in range(20):
+            hp_, pap_ = cg_step.spmv_dot_p(pattern.nb, svals, s_, p_, r_, q_)
+            cg_step.cg_update_xr(s_, pap_, x_, r_, q_, hp_, arrivals)
+            p_, q_ = q_, p_
+        runs = [(x_, r_, s_)]
+        x_, r_, p_, s_ = (t_.clone() for t_ in st["three"])
+        for _ in range(20):
+            hp_, pap_ = cg_step.spmv_dot(pattern.nb, svals, p_)
+            rr_ = cg_step.cg_update_xr(s_, pap_, x_, r_, p_, hp_)
+            cg_step.cg_update_p(s_, rr_, rr_, r_, p_, False)
+        runs.append((x_, r_, s_))
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(*runs)):
+            raise AssertionError(f"20 two-launch CG iterations{sfx} {tag} "
+                                 "differ from 20 three-launch iterations")
         print(f"phase 3 device CG iteration{sfx} {tag}: three launches "
               f"(spmv_dot + cg_update_xr + cg_update_p) {1e3 * t3[0]:.2f} us"
               f" ({t3[1]} iterations); two launches (spmv_dot_p + "
-              f"cg_update_xr with its finish) {1e3 * t2[0]:.2f} us "
-              f"({t2[1]} iterations); the fold saves "
+              f"cg_update_xr with its finish) {1e3 * t2[0]:.2f}, "
+              f"{1e3 * t2b[0]:.2f} us ({t2[1]} iterations); the fold saves "
               f"{1e3 * (t3[0] - t2[0]):.2f} us (CUDA events, median of 5) "
               f"[{card}]")
 
@@ -1179,6 +1230,9 @@ def main() -> int:
              lambda: cg_step.dot_partials_plain(a_vec, b_vec),
              nbytes=2 * s * n, flops=2 * n, post=torch.sum,
              library=lambda: torch.dot(a_vec.view(-1), b_vec.view(-1)))
+        device_rows("dot_partials", tag, {
+            "kernel": lambda: cg_step.dot_partials(a_vec, b_vec),
+            "torch.dot": lambda: torch.dot(a_vec.view(-1), b_vec.view(-1))})
         hx = spmv.block_ell_spmv(pattern.nb, svals, x)
         case("cg_residual", tag, f"n={n}",
              lambda: cg_step.cg_residual(bhat, hx),
@@ -1985,6 +2039,14 @@ def main() -> int:
              label="ba_wtx" + sfx, library=lambda: WT_csr @ x_col,
              slow_plain=True)
         v = ba_coupling.ba_wtx(W_lm, bpat.lm_cam, x, hinv=Hinv)
+        if not torch.equal(v, ba_coupling.ba_wtx(W_lm, bpat.lm_cam, x,
+                                                 hinv=Hinv)):
+            raise AssertionError(f"ba_wtx{sfx} does not repeat its bits")
+        if sfx in ("", "@400k"):
+            device_rows("ba_wtx" + sfx, tag, {
+                "kernel": lambda: ba_coupling.ba_wtx(W_lm, bpat.lm_cam, x,
+                                                     hinv=Hinv),
+                "CSR product W^T x (W^T alone)": lambda: WT_csr @ x_col})
         v_col = v.reshape(-1, 1).contiguous()
         rows_c = bpat.cam_rows
         case("ba_wv", tag, f"C={C} E={E} chunks={rows_c.n_chunks}, S x with "
@@ -2200,17 +2262,35 @@ def main() -> int:
         n_slots = sum(pg.lm_pose.numel() for pg in pat.pose_groups)
 
         def wtx(fn):
+            """W^T x over the pose groups in one call, Hinv applied."""
+            gs = pat.pose_groups
+            return fn([sys_["W_lm"][pg.name] for pg in gs],
+                      [pg.lm_pose for pg in gs], [xs[pg.name] for pg in gs],
+                      hinv=hinv)
+
+        def wtx_chained():
+            """The form it replaces: one launch per pose group, each later
+            group starting from the earlier groups' u."""
             u = None
             for i, pg in enumerate(pat.pose_groups):
                 kw = (dict(hinv=hinv) if i == len(pat.pose_groups) - 1
                       else {})
-                u = fn(sys_["W_lm"][pg.name], pg.lm_pose, xs[pg.name],
-                       acc=u, **kw)
+                u = ba_coupling.ba_wtx(sys_["W_lm"][pg.name], pg.lm_pose,
+                                       xs[pg.name], acc=u, **kw)
             return u
 
+        before = ba_coupling.ba_wtx.launches
+        v = wtx(ba_coupling.ba_wtx)
+        if ba_coupling.ba_wtx.launches - before != 1:
+            raise AssertionError(f"ba_wtx{sfx}: "
+                                 f"{ba_coupling.ba_wtx.launches - before} "
+                                 f"launches for {len(pat.pose_groups)} pose "
+                                 "groups, not one")
+        if not torch.equal(v, wtx(ba_coupling.ba_wtx)):
+            raise AssertionError(f"ba_wtx{sfx} does not repeat its bits")
         case("ba_wtx", tag, f"L={L}, pose groups "
              f"{[(pg.dim, pg.lm_pose.shape[0]) for pg in pat.pose_groups]} "
-             "(Dp, K), chained, Hinv applied",
+             "(Dp, K), one launch, Hinv applied",
              lambda: wtx(ba_coupling.ba_wtx),
              lambda: wtx(ba_coupling.ba_wtx_plain),
              nbytes=s * (sum(pg.dim * dl * pg.lm_pose.numel()
@@ -2218,7 +2298,11 @@ def main() -> int:
                          + dl * dl * L + dl * L) + 4 * n_slots,
              flops=2 * n_w + 2 * dl * dl * L, label=name("ba_wtx"),
              library=lambda: WT_csr @ x_col, slow_plain=True)
-        v = wtx(ba_coupling.ba_wtx)
+        rows_wtx = {"kernel": lambda: wtx(ba_coupling.ba_wtx),
+                    "CSR product W^T x (W^T alone)": lambda: WT_csr @ x_col}
+        if len(pat.pose_groups) > 1:
+            rows_wtx["chained, a launch per pose group"] = wtx_chained
+        device_rows(name("ba_wtx"), tag, rows_wtx)
         v_col = v.reshape(-1, 1).contiguous()
         hx = hpp_d @ x_col[:, 0]
 
@@ -3215,6 +3299,17 @@ def main() -> int:
             counts[f"{w_.__name__}@d4"] = w_.launches_by_width[4]
         n_groups = len(pat.pose_groups)
         cg_iters = counts["cg_update_xr"] // n_groups
+        # one ba_wtx launch per S x (a solve's first product and one per CG
+        # iteration) and per back-substitution, however many pose groups
+        solves = counts["cg_finish"]
+        if counts["ba_wtx"] != cg_iters + 2 * solves:
+            raise AssertionError(
+                f"phase {phase}: {counts['ba_wtx']} ba_wtx launches for "
+                f"{cg_iters + solves} S x and {solves} back-substitutions "
+                f"over {n_groups} pose groups")
+        print(f"phase {phase} ba_wtx: {counts['ba_wtx']} launches, one per "
+              f"S x ({cg_iters + solves}) and per back-substitution "
+              f"({solves}), {n_groups} pose group(s)")
         steps = np.diff(np.array([chi0] + traj))
         if not (np.all(np.isfinite(traj)) and np.all(steps <= 0)):
             raise AssertionError(f"phase {phase}: chi2 not finite or "

@@ -20,7 +20,11 @@ window three ways:
 * torch.profiler (CPU + CUDA) over a repeat of the same window from the
   same state: device time by kernel, its sum (device busy) and the idle
   share 1 - busy / wall, against the profiled window's wall time and
-  against the unprofiled one's (the profiler slows the host).
+  against the unprofiled one's (the profiler slows the host). A kernel
+  launched as a programmatic dependent launch (cg_update_xr after
+  spmv_dot_p) may start before the kernel ahead of it ends and wait on
+  the card: its time counts only past the end of every kernel that
+  started before it, so device busy is the union of the kernels' spans.
 
 Per-phase times of one trial (LM-PCG: linearize + assemble, trial solve,
 retract + chi2 + outcome; BA: linearize + build, Schur solve, candidate +
@@ -151,13 +155,22 @@ def main(argv=None) -> int:
         t0 = time.monotonic()
         window(st)
         prof_wall_ms = (time.monotonic() - t0) * 1e3
-    # the device-typed rows (kernels and copies); the CPU-typed rows repeat
-    # their children's device time
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+    # the device-typed events (kernels and copies); the CPU-typed ones
+    # repeat their children's device time. Each counts past the end of the
+    # spans that started before it (overlap: programmatic dependent launch)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    by_key, covered, overlap_us = {}, float("-inf"), 0.0
+    for start, end, key in spans:
+        own = max(end - max(start, covered), 0.0)
+        overlap_us += end - start - own
+        covered = max(covered, end)
+        ms_, n_ = by_key.get(key, (0.0, 0))
+        by_key[key] = (ms_ + own / 1e3, n_ + 1)
+    rows = sorted(((k, ms_, n_) for k, (ms_, n_) in by_key.items()),
+                  key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
     if busy_ms <= 0:
         print("torch.profiler reported no device time", file=sys.stderr)
@@ -168,7 +181,8 @@ def main(argv=None) -> int:
           f"{100 * (1 - busy_ms / wall_ms):.1f}% of the unprofiled window's "
           f"{wall_ms:.2f} ms; device time per CG "
           f"iteration {busy_ms / max(cg_iters, 1) * 1e3:.1f} us, wall per "
-          f"CG iteration {wall_ms / max(cg_iters, 1) * 1e3:.1f} us")
+          f"CG iteration {wall_ms / max(cg_iters, 1) * 1e3:.1f} us; "
+          f"{overlap_us / 1e3:.3f} ms of kernels overlapping earlier ones")
     for key, ms, count in rows[:40]:
         print(f"  device {ms:8.3f} ms {count:6d} calls "
               f"{ms / count * 1e3:7.2f} us/call  {key[:90]}")

@@ -19,7 +19,7 @@ poses: per linearization
 
 and per LM trial the reduced system S = Hpp_d - W Hll_d^-1 W^T is solved by
 block-Jacobi PCG matrix-free (`pcg_solve`, 250 iterations at tol 1e-8 by
-default, as in JAX): one S x is K13's `ba_wtx` once per pose group, the
+default, as in JAX): one S x is K13's `ba_wtx` over all pose groups, the
 dense Hpp_d x (torch.matmul, which the JAX package leaves to XLA too) and
 K13's `ba_wv` per pose group; the preconditioner blocks are K13's
 `ba_sandwich` on the diagonal blocks of Hpp_d, inverted by K11 and applied
@@ -203,6 +203,11 @@ def build_schur_pattern(problem: Problem) -> SchurPattern:
     if dl not in (2, 3):
         raise NotImplementedError(f"landmark tangent width {dl} is not "
                                   "served (2 or 3)")
+    try:        # one ba_wtx launch takes the W^T x of every pose group
+        ba_coupling.check_wtx_groups(sum(1 for g in pose_groups
+                                         if per_group[g.name]))
+    except ValueError as err:
+        raise NotImplementedError(str(err)) from None
     i32 = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
                                     device=dev)
     li_all = np.concatenate(lis) if lis else np.zeros(0, dtype=np.int64)
@@ -333,26 +338,26 @@ def _lane(pattern: SchurPattern, flat):
 class SchurOperator:
     """The reduced pose system S x = Hpp_d x - W Hinv W^T x on dicts
     {pose group: [D, N]} (openslam_g2o_tpu/core/ba.py:229-241), with the
-    fused `matvec_dot` that core/solvers.py `pcg_solve` calls: `ba_wtx`
-    once per pose group that has W entries (each later group starting from
-    the earlier groups' sum, the last applying Hinv), Hpp_d x by
-    torch.matmul on the lane-order concatenation, and `ba_wv` per pose
-    group with the partial dots."""
+    fused `matvec_dot` that core/solvers.py `pcg_solve` calls: one
+    `ba_wtx` over the pose groups that have W entries (Hinv applied to
+    their sum), Hpp_d x by torch.matmul on the lane-order concatenation,
+    and `ba_wv` per pose group with the partial dots."""
 
     def __init__(self, pattern: SchurPattern, sys: dict, hinv, hpp_d):
         self.pattern, self.sys = pattern, sys
         self.hinv, self.hpp_d = hinv, hpp_d
         self.wtx_groups = [pg for pg in pattern.pose_groups if pg.n_entries]
 
-    def landmark_side(self, x: dict, **last):
-        """acc-chained W^T x over the pose groups, the keyword arguments of
-        the last call (hinv, b, free) applied once at the end."""
-        u = None
-        for i, pg in enumerate(self.wtx_groups):
-            kw = last if i == len(self.wtx_groups) - 1 else {}
-            u = ba_coupling.ba_wtx(self.sys["W_lm"][pg.name], pg.lm_pose,
-                                   x[pg.name], acc=u, **kw)
-        return u
+    def landmark_side(self, x: dict, **epilogue):
+        """W^T x summed over the pose groups in one `ba_wtx` launch,
+        with its keyword arguments (hinv, b, free) applied to the sum; None
+        without W entries."""
+        gs = self.wtx_groups
+        if not gs:
+            return None
+        return ba_coupling.ba_wtx([self.sys["W_lm"][pg.name] for pg in gs],
+                                  [pg.lm_pose for pg in gs],
+                                  [x[pg.name] for pg in gs], **epilogue)
 
     def _apply(self, p: dict, want_dot: bool):
         pat = self.pattern

@@ -151,6 +151,8 @@ def pcg_solve(matvec, b: dict, precond=None, max_iter: int = 100,
     the next direction p = beta p + r as it multiplies, into the other of
     two p buffers; the first iteration (p = r) multiplies with
     `matvec_dot`. The arithmetic is the three-launch step's, bit for bit.
+    There the card may place `cg_update_xr`'s blocks while the product
+    still runs (a programmatic dependent launch).
     On CPU tensors the same calls run the plain versions. `matvec` and
     `precond` map a dict of groups to a dict of groups; x0 and b are not
     modified. Returns (x, ok) with ok a 0-dim bool tensor.

@@ -46,8 +46,9 @@ blocks (SE3 poses); the shapes of the arguments pick the instantiation.
     schur_general.schur_edge_blocks  general Schur edge blocks (ROADMAP K14)
 
 The general Schur path (core/ba.py) also runs K10's `ba_lm_sums` without
-its W layout, K13's three products once per pose group (`ba_wtx`
-accumulating, all three at (Dp, dl) = (4, 3) too), K11 and K4's
+its W layout, K13's products (`ba_wtx` in one launch over all its pose
+groups, `ba_wv` and `ba_sandwich` per pose group, all three at (Dp, dl) =
+(4, 3) too), K11 and K4's
 `lane_block_mv` at D = 4, and K15 on the pose slots of its edges.
 """
 from __future__ import annotations

@@ -33,6 +33,10 @@ from openslam_g2o_torch.kernels.ba_edge import BLOCK_DIMS
 # the (Dp, dl) instantiations: the BA widths and the intrinsics group of
 # the general Schur path
 DIMS = BLOCK_DIMS + ((4, 3),)
+# pose groups of one `ba_wtx` launch (kMaxWtxGroups of csrc/ba_coupling.cu):
+# the pose types that observe the SBA point (SE3 expmap and SBACam cameras,
+# the shared intrinsics)
+MAX_WTX_GROUPS = 3
 CHUNK = 256                        # W entries per block of the first pass
 
 
@@ -105,16 +109,38 @@ def _lane_mv(A, x):
     return (A.view(D, D, -1) * x[None]).sum(dim=1)
 
 
+def _groups(w_lm, lm_cam, x):
+    """The pose groups of a W^T x call: one (w_lm, lm_cam, x) or equal-length
+    sequences of them."""
+    if isinstance(w_lm, torch.Tensor):
+        return [(w_lm, lm_cam, x)]
+    groups = list(zip(w_lm, lm_cam, x, strict=True))
+    if not groups:
+        raise ValueError("ba_wtx: no pose group")
+    return groups
+
+
+def check_wtx_groups(n_groups):
+    """Raise ValueError unless one `ba_wtx` launch takes this many pose
+    groups."""
+    if n_groups > MAX_WTX_GROUPS:
+        raise ValueError(f"ba_wtx: {n_groups} pose groups; one launch takes "
+                         f"at most {MAX_WTX_GROUPS}")
+
+
 def ba_wtx_plain(w_lm, lm_cam, x, hinv=None, b=None, free=None, acc=None):
-    dp = x.shape[0]
-    dl = w_lm.shape[0] // dp
-    K, L = lm_cam.shape
-    valid = lm_cam >= 0
-    xg = x[:, lm_cam.clamp_min(0).long()]                       # [Dp, K, L]
-    xg = torch.where(valid, xg, torch.zeros((), dtype=x.dtype,
-                                            device=x.device))
-    W4 = w_lm.view(dp, dl, K, L)
-    u = (W4 * xg[:, None]).sum(dim=(0, 2))                      # [dl, L]
+    u = None
+    for w_g, cam_g, x_g in _groups(w_lm, lm_cam, x):
+        dp = x_g.shape[0]
+        dl = w_g.shape[0] // dp
+        K, L = cam_g.shape
+        valid = cam_g >= 0
+        xg = x_g[:, cam_g.clamp_min(0).long()]                   # [Dp, K, L]
+        xg = torch.where(valid, xg, torch.zeros((), dtype=x_g.dtype,
+                                                device=x_g.device))
+        W4 = w_g.view(dp, dl, K, L)
+        ug = (W4 * xg[:, None]).sum(dim=(0, 2))                  # [dl, L]
+        u = ug if u is None else u + ug
     if acc is not None:
         u = acc + u
     r = u if b is None else b - u
@@ -124,37 +150,57 @@ def ba_wtx_plain(w_lm, lm_cam, x, hinv=None, b=None, free=None, acc=None):
 
 def ba_wtx(w_lm, lm_cam, x, hinv=None, b=None, free=None, acc=None):
     """out [dl, L] = ((b - u) or u, then Hinv applied if given) times free
-    if given, u = acc + W^T x (acc optional): (W^T x)[t, l] = sum_k sum_s
-    W[s, t, k, l] x[s, cam(k, l)]. x [Dp, C]; hinv [dl*dl, L]; b, acc
-    [dl, L]; free [L]. (Dp, dl) in DIMS. K13 on CUDA tensors, the plain
-    version on CPU tensors."""
+    if given, u = acc + sum over the pose groups of W^T x (acc optional):
+    (W^T x)[t, l] = sum_k sum_s W[s, t, k, l] x[s, cam(k, l)]. w_lm
+    [Dp*dl, K, L], lm_cam [K, L] and x [Dp, C] of one pose group, or
+    sequences of them, one per group (each with its own Dp, K and C; one
+    dl and L; at most MAX_WTX_GROUPS, summed in their order); hinv [dl*dl,
+    L]; b, acc [dl, L]; free [L]. (Dp, dl) in DIMS. K13 on CUDA tensors,
+    one launch; the plain version on CPU tensors."""
     # S x runs this once per CG iteration: the messages are only built on
     # failure
-    if not (x.dim() == 2 and w_lm.dim() == 3 and lm_cam.dim() == 2
-            and w_lm.shape[1:] == lm_cam.shape):
-        raise ValueError("ba_wtx: w_lm must be [Dp*dl, K, L], lm_cam [K, L], "
-                         "x [Dp, C]")
-    dp, dl = _dims(w_lm, x.shape[0], "ba_wtx")
-    K, L = lm_cam.shape
-    floats = {"w_lm": w_lm, "x": x}
+    groups = _groups(w_lm, lm_cam, x)
+    dims = []
+    for w_g, cam_g, x_g in groups:
+        if not (x_g.dim() == 2 and w_g.dim() == 3 and cam_g.dim() == 2
+                and w_g.shape[1:] == cam_g.shape
+                and cam_g.shape[1] == groups[0][1].shape[1]):
+            raise ValueError("ba_wtx: w_lm must be [Dp*dl, K, L], lm_cam "
+                             "[K, L], x [Dp, C], one L for every group")
+        dp, dl = _dims(w_g, x_g.shape[0], "ba_wtx")
+        if x_g.shape[0] != dp:
+            raise ValueError(f"ba_wtx: x must have {dp} rows")
+        dims.append((dp, dl))
+    dl = dims[0][1]
+    if any(d[1] != dl for d in dims):
+        raise ValueError("ba_wtx: the pose groups differ in landmark width")
+    check_wtx_groups(len(groups))
+    L = groups[0][1].shape[1]
+    x0 = groups[0][2]
+    floats = {}
+    for i, (w_g, _, x_g) in enumerate(groups):
+        floats[f"w_lm[{i}]"], floats[f"x[{i}]"] = w_g, x_g
     for name, t, shape in (("hinv", hinv, (dl * dl, L)), ("b", b, (dl, L)),
                            ("free", free, (L,)), ("acc", acc, (dl, L))):
         if t is not None:
             if t.shape != shape:
                 raise ValueError(f"ba_wtx: {name} must be {shape}")
             floats[name] = t
-    if x.shape[0] != dp:
-        raise ValueError(f"ba_wtx: x must have {dp} rows")
-    check_tensors("ba_wtx", x.device, x.dtype, floats, {"lm_cam": lm_cam})
-    if not launch_device("ba_wtx", x.device):
-        return ba_wtx_plain(w_lm, lm_cam, x, hinv, b, free, acc)
-    out = torch.empty((dl, L), dtype=x.dtype, device=x.device)
+    check_tensors("ba_wtx", x0.device, x0.dtype, floats,
+                  {f"lm_cam[{i}]": g[1] for i, g in enumerate(groups)})
+    if not launch_device("ba_wtx", x0.device):
+        return ba_wtx_plain(*zip(*groups), hinv, b, free, acc)
+    out = torch.empty((dl, L), dtype=x0.dtype, device=x0.device)
     if L == 0:
         return out
+    args = []
+    for w_g, cam_g, x_g in groups:
+        args += (w_g.data_ptr(), cam_g.data_ptr(), x_g.data_ptr(),
+                 cam_g.shape[0], x_g.shape[1], x_g.shape[0])
+    args += (None, None, None, 0, 0, 0) * (MAX_WTX_GROUPS - len(groups))
     ptr = lambda t: None if t is None else t.data_ptr()
-    build.launch("g2o_ba_wtx", x, w_lm.data_ptr(), lm_cam.data_ptr(),
-                 x.data_ptr(), L, K, x.shape[1], ptr(hinv), ptr(b), ptr(free),
-                 ptr(acc), dp, dl, out.data_ptr())
+    build.launch("g2o_ba_wtx", x0, *args, L, ptr(hinv), ptr(b), ptr(free),
+                 ptr(acc), dl, out.data_ptr())
     ba_wtx.launches += 1
     return out
 

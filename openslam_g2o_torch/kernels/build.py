@@ -77,7 +77,8 @@ _SIGNATURES = {
     "g2o_ba_cam_sums": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _I, _P, _P, _P,
                         _P, _P),
     "g2o_ba_inv": (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
-    "g2o_ba_wtx": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _I, _P, _P),
+    "g2o_ba_wtx": (_P, _P, _P, _I, _I, _I) * 3 + (_I, _P, _P, _P, _P, _I, _P,
+                                                _P),
     "g2o_ba_wv": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P,
                   _P, _P, _I, _I, _P, _P, _P, _P),
     "g2o_ba_sandwich": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _I, _I, _P,

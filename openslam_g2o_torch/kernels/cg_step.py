@@ -30,6 +30,10 @@ N_SCALARS = 10
 # elements per block of the vector kernels (kChunk of csrc/common.cuh)
 CHUNK = 1024
 ROW_BLOCK = 256
+# values per block of cg_update_xr (kXrShare of csrc/cg_step.cu): a
+# constant, so that its r . r partials and their sums are the same on
+# every card
+XR_SHARE = 2048
 
 
 def new_scalars(like):
@@ -39,6 +43,12 @@ def new_scalars(like):
 
 def _chunks(n):
     return max((n + CHUNK - 1) // CHUNK, 1)
+
+
+def xr_blocks(n):
+    """The blocks, and so the r . r partials, of `cg_update_xr` on the card
+    for n values: one per XR_SHARE values (xr_blocks of csrc/cg_step.cu)."""
+    return max((n + XR_SHARE - 1) // XR_SHARE, 1)
 
 
 def _partials(like, count):
@@ -259,7 +269,9 @@ def cg_update_xr(scal, part_pap, x, r, p, hp, arrivals=None):
     sums of r . r. With `arrivals` (one int32 counter at zero, left at
     zero) it also closes the step for z = r: it stores what `cg_update_p`
     stores, rz = r2 = r . r, beta, pd and the continue flag, and leaves p
-    to `spmv_dot_p`."""
+    to `spmv_dot_p`. On the card it is a programmatic dependent launch:
+    it may start while the kernel before it on the stream still runs, and
+    its blocks wait for that kernel before they read anything."""
     check_vectors("cg_update_xr", x, x=x, r=r, p=p, hp=hp)
     _check_scal("cg_update_xr", scal, x, part_pap=part_pap)
     if arrivals is not None:
@@ -270,7 +282,7 @@ def cg_update_xr(scal, part_pap, x, r, p, hp, arrivals=None):
     if not launch_device("cg_update_xr", x.device):
         return cg_update_xr_plain(scal, part_pap, x, r, p, hp, arrivals)
     n = x.numel()
-    part_rr = _partials(x, _chunks(n))
+    part_rr = _partials(x, xr_blocks(n))
     build.launch("g2o_cg_update_xr", x, scal.data_ptr(), part_pap.data_ptr(),
                  part_pap.numel(), x.data_ptr(), r.data_ptr(), p.data_ptr(),
                  hp.data_ptr(), part_rr.data_ptr(), n,

@@ -165,19 +165,4 @@ __device__ __forceinline__ void warp_reduce_values(T (&acc)[NV]) {
       acc[v] += __shfl_down_sync(0xffffffffu, acc[v], o);
 }
 
-// y = A x for a row-major D x D block read from a lane-major [D*D, N] table
-// at column n.
-template <typename T, int D>
-__device__ __forceinline__ void lane_mv(const T* __restrict__ A, long long n,
-                                        long long N, const T (&x)[D],
-                                        T (&y)[D]) {
-#pragma unroll
-  for (int a = 0; a < D; ++a) {
-    T acc = T(0);
-#pragma unroll
-    for (int b = 0; b < D; ++b) acc += A[(a * D + b) * N + n] * x[b];
-    y[a] = acc;
-  }
-}
-
 }  // namespace g2o_torch

@@ -3,17 +3,19 @@
 //
 // Replaces `_apply_w_lane` (openslam_g2o_tpu/core/ba_ell.py:482-510),
 // `_sandwich_lane` (:513-534) and the block applications around them in
-// `_solve` (:720, :769-824):
+// `_solve` (:720, :769-824), and the W products of the general path's
+// `schur_solve` (openslam_g2o_tpu/core/ba.py:199-287; its landmark half
+// W^T x, Hinv of `s_matvec` :229-241 and of the back-substitution):
 //
-//   ba_wtx       one thread per landmark, over its slots in order:
-//                u = acc + sum_k W_k^T x[cam(k)] (acc optional), then
-//                out = Hinv (b - u) (or Hinv u, or u) times free: W^T x
-//                with the landmark solve fused (the implicit S x's first
-//                half; dx_l of the back-substitution). The general Schur
-//                path (core/ba.py) calls it once per pose group, the later
-//                groups starting from the earlier groups' u, so the sum
-//                runs in a fixed order; (Dp, dl) = (4, 3) is its intrinsics
-//                group.
+//   ba_wtx       u = acc + sum over up to three pose groups of
+//                sum_k W_k^T x[cam(k)] (acc optional), then out = Hinv
+//                (b - u) (or Hinv u, or u) times free: W^T x with the
+//                landmark solve fused (the implicit S x's first half; dx_l
+//                of the back-substitution). A lane per landmark and a warp
+//                per slot, the warps' sums added in a fixed order. The
+//                general Schur path (core/ba.py) makes one launch over
+//                all its pose groups (the intrinsics group (4, 3) beside
+//                the cameras' (6, 3) ones).
 //   ba_wv        W v per pose vertex over its CSR list,
 //                y = (base + Hcc_d x + extra - sum_j W_j v[lm(j)]) free,
 //                optionally with the partial dot x . y per vertex (the
@@ -41,58 +43,131 @@
 // CSR lists.
 //
 // Bound: memory. One implicit S x reads W twice (Dp dl E values each) and
-// the small vectors.
+// the small vectors. ba_wtx's bound is its W slots (Dp dl K L values),
+// the slot table and the landmark vectors: 1.96 us at 80k and 9.8 us at
+// 400k in float32 at 3.35 TB/s. With one thread per landmark the kernel
+// ran 40 blocks at 80k (10,000 landmarks on 132 SMs), each thread
+// walking its 8 slots as 8 dependent chains (slot table, x gather, W),
+// and the general path chained one launch per pose group through u in
+// memory. Now a warp per slot and a lane per landmark put every slot's
+// loads in flight at once, coalesced (313 blocks at 80k), and the pose
+// groups share one launch.
 #include "ba_blocks.cuh"
 
 namespace g2o_torch {
 
 constexpr int kCoupleThreads = 128;
 
+// ba_wtx: a block takes 32 landmarks, one a lane, and kWtxStripes = 8
+// warps; warp j takes slots j, j + kWtxStripes, ... of each pose group in
+// turn (one slot a warp at K = 8, both BAL shapes), so a warp's loads of a
+// slot's pose index and of each of its Dp dl W entries are 32 consecutive
+// values, and the 8 warps have every slot's loads in flight at once
+// (80,000 threads at 80k, against one thread walking 8 dependent slots in
+// series). The warps' sums meet in shared memory and are added in warp
+// order; warp t < dl then applies acc, b, row t of Hinv and free to its 32
+// landmarks and stores row t.
+constexpr int kWtxStripes = kThreads / 32;
+constexpr int kWtxLandmarks = 32;
+
+// One pose group of W^T x: W_lm [Dp*dl, K, L] lane-major, its slot table
+// [K, L] of pose indices (-1 on padding) and x [Dp, C]; dp = 0: no group.
+template <typename T>
+struct WtxGroup {
+  const T* w;
+  const int* cam;
+  const T* x;
+  int k;
+  int n_cam;
+  int dp;
+};
+
+// The pose groups of one launch, in summation order: every pose type of
+// the port's models that observes one landmark type (the SBA point's
+// SE3 expmap and SBACam cameras and the shared intrinsics), so that the
+// general path's S x is always one launch. Each group's Dp is read at run
+// time and picks a body built for it (6 or 4 at dl = 3, 3 at dl = 2).
+constexpr int kMaxWtxGroups = 3;
+
+template <typename T>
+struct WtxGroups {
+  WtxGroup<T> g[kMaxWtxGroups];
+};
+
+// u += the W_k^T x[cam(k)] of slots k = stripe, stripe + kWtxStripes, ...
+// of group g for landmark l
 template <typename T, int DP, int DL>
-__global__ void ba_wtx_kernel(const T* __restrict__ w_lm,
-                              const int* __restrict__ lm_cam,
-                              const T* __restrict__ x, int n_lm, int k_width,
-                              int n_cam, const T* __restrict__ hinv,
-                              const T* __restrict__ b,
-                              const T* __restrict__ free,
-                              const T* __restrict__ acc,
-                              T* __restrict__ out) {
-  const long long l = blockIdx.x * static_cast<long long>(blockDim.x)
-                      + threadIdx.x;
-  if (l >= n_lm) return;
-  const long long L = n_lm, KL = static_cast<long long>(k_width) * L,
-                  C = n_cam;
-  T u[DL];
-#pragma unroll
-  for (int t = 0; t < DL; ++t) u[t] = acc != nullptr ? acc[t * L + l] : T(0);
-  for (int k = 0; k < k_width; ++k) {
-    const long long c = lm_cam[k * L + l];
-    if (c < 0) continue;
+__device__ __forceinline__ void wtx_slots(const WtxGroup<T>& g, long long l,
+                                          long long L, int stripe,
+                                          T (&u)[DL]) {
+  const long long KL = static_cast<long long>(g.k) * L, C = g.n_cam;
+  for (int k = stripe; k < g.k; k += kWtxStripes) {
     const long long pos = k * L + l;
+    const int c = g.cam[pos];
+    T w[DP * DL];
+#pragma unroll
+    for (int q = 0; q < DP * DL; ++q) w[q] = g.w[q * KL + pos];
+    if (c < 0) continue;                       // padding contributes nothing
     T xc[DP];
 #pragma unroll
-    for (int s = 0; s < DP; ++s) xc[s] = x[s * C + c];
+    for (int s = 0; s < DP; ++s) xc[s] = g.x[s * C + c];
 #pragma unroll
     for (int s = 0; s < DP; ++s)
 #pragma unroll
-      for (int t = 0; t < DL; ++t)
-        u[t] += w_lm[(s * DL + t) * KL + pos] * xc[s];
+      for (int t = 0; t < DL; ++t) u[t] += w[s * DL + t] * xc[s];
   }
-  T r[DL];
+}
+
+// u = acc + sum over the groups (in order) of W^T x, then out = ((b - u)
+// or u, Hinv applied if given) times free.
+template <typename T, int DL>
+__global__ void __launch_bounds__(kThreads) ba_wtx_kernel(
+    const WtxGroups<T> gs, int n_lm, const T* __restrict__ hinv,
+    const T* __restrict__ b, const T* __restrict__ free,
+    const T* __restrict__ acc, T* __restrict__ out) {
+  __shared__ T part[kWtxStripes][DL][kWtxLandmarks];
+  const int lane = threadIdx.x & 31, stripe = threadIdx.x >> 5;
+  const long long l = blockIdx.x * static_cast<long long>(kWtxLandmarks)
+                      + lane;
+  const long long L = n_lm;
+  T u[DL];
 #pragma unroll
-  for (int t = 0; t < DL; ++t)
-    r[t] = b != nullptr ? b[t * L + l] - u[t] : u[t];
-  T y[DL];
+  for (int t = 0; t < DL; ++t) u[t] = T(0);
+  if (l < L) {
+#pragma unroll
+    for (int i = 0; i < kMaxWtxGroups; ++i) {
+      const WtxGroup<T>& g = gs.g[i];
+      if constexpr (DL == 3) {
+        if (g.dp == 6)
+          wtx_slots<T, 6, 3>(g, l, L, stripe, u);
+        else if (g.dp == 4)
+          wtx_slots<T, 4, 3>(g, l, L, stripe, u);
+      } else if (g.dp == 3) {
+        wtx_slots<T, 3, 2>(g, l, L, stripe, u);
+      }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < DL; ++t) part[stripe][t][lane] = u[t];
+  __syncthreads();
+  if (l >= L || stripe >= DL) return;
+  const int t = stripe;
+  T rv[DL];
+#pragma unroll
+  for (int s = 0; s < DL; ++s) {
+    T v = part[0][s][lane];
+#pragma unroll
+    for (int j = 1; j < kWtxStripes; ++j) v += part[j][s][lane];
+    if (acc != nullptr) v = acc[s * L + l] + v;
+    rv[s] = b != nullptr ? b[s * L + l] - v : v;
+  }
+  T y = rv[t];
   if (hinv != nullptr) {
-    lane_mv<T, DL>(hinv, l, L, r, y);
-  } else {
+    y = T(0);
 #pragma unroll
-    for (int t = 0; t < DL; ++t) y[t] = r[t];
+    for (int s = 0; s < DL; ++s) y += hinv[(t * DL + s) * L + l] * rv[s];
   }
-  const T f = free != nullptr ? free[l] : T(1);
-#pragma unroll
-  for (int t = 0; t < DL; ++t)
-    out[t * L + l] = free != nullptr ? y[t] * f : y[t];
+  out[t * L + l] = free != nullptr ? y * free[l] : y;
 }
 
 // ba_wv, one launch: a block per chunk computes the chunk's share
@@ -256,31 +331,28 @@ __global__ void ba_sandwich_finish_kernel(const T* __restrict__ part,
 
 // -- launchers ---------------------------------------------------------------
 
-template <typename T, int DP, int DL>
-void wtx_dims(const T* w_lm, const int* lm_cam, const T* x, int n_lm,
-              int k_width, int n_cam, const T* hinv, const T* b,
-              const T* free, const T* acc, T* out, cudaStream_t stream) {
-  ba_wtx_kernel<T, DP, DL><<<grid_for(n_lm), kThreads, 0, stream>>>(
-      w_lm, lm_cam, x, n_lm, k_width, n_cam, hinv, b, free, acc, out);
-}
-
+// The groups fill gs.g from the front, each of a width DL serves (Dp 6 or 4
+// at DL = 3, 3 at DL = 2); anything else is refused.
 template <typename T>
-int launch_wtx(const T* w_lm, const int* lm_cam, const T* x, int n_lm,
-               int k_width, int n_cam, const T* hinv, const T* b,
-               const T* free, const T* acc, int DP, int DL, T* out,
+int launch_wtx(const WtxGroups<T>& gs, int n_lm, const T* hinv, const T* b,
+               const T* free, const T* acc, int DL, T* out,
                cudaStream_t stream) {
   if (n_lm <= 0) return 0;
-  if (DP == 6 && DL == 3)
-    wtx_dims<T, 6, 3>(w_lm, lm_cam, x, n_lm, k_width, n_cam, hinv, b, free,
-                      acc, out, stream);
-  else if (DP == 4 && DL == 3)
-    wtx_dims<T, 4, 3>(w_lm, lm_cam, x, n_lm, k_width, n_cam, hinv, b, free,
-                      acc, out, stream);
-  else if (DP == 3 && DL == 2)
-    wtx_dims<T, 3, 2>(w_lm, lm_cam, x, n_lm, k_width, n_cam, hinv, b, free,
-                      acc, out, stream);
+  bool ok = gs.g[0].dp != 0 && (DL == 2 || DL == 3);
+  for (int i = 0; i < kMaxWtxGroups; ++i) {
+    const int dp = gs.g[i].dp;
+    if (dp != 0)
+      ok = ok && (i == 0 || gs.g[i - 1].dp != 0)
+           && (DL == 3 ? (dp == 6 || dp == 4) : dp == 3);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = (n_lm + kWtxLandmarks - 1) / kWtxLandmarks;
+  if (DL == 3)
+    ba_wtx_kernel<T, 3><<<blocks, kThreads, 0, stream>>>(
+        gs, n_lm, hinv, b, free, acc, out);
   else
-    return static_cast<int>(cudaErrorInvalidValue);
+    ba_wtx_kernel<T, 2><<<blocks, kThreads, 0, stream>>>(
+        gs, n_lm, hinv, b, free, acc, out);
   return launch_status();
 }
 
@@ -364,12 +436,16 @@ int launch_sandwich(const T* w_cam, const int* pose_lm, const int* chunk_ptr,
 extern "C" {
 
 #define G2O_BA_COUPLING_ENTRY(SUFFIX, T)                                       \
-  int g2o_ba_wtx_##SUFFIX(const T* w_lm, const int* lm_cam, const T* x,        \
-                          int n_lm, int k_width, int n_cam, const T* hinv,     \
-                          const T* b, const T* free, const T* acc, int DP,     \
-                          int DL, T* out, void* stream) {                      \
-    return g2o_torch::launch_wtx<T>(w_lm, lm_cam, x, n_lm, k_width, n_cam,     \
-                                    hinv, b, free, acc, DP, DL, out,           \
+  int g2o_ba_wtx_##SUFFIX(                                                     \
+      const T* w0, const int* cam0, const T* x0, int k0, int c0, int dp0,      \
+      const T* w1, const int* cam1, const T* x1, int k1, int c1, int dp1,      \
+      const T* w2, const int* cam2, const T* x2, int k2, int c2, int dp2,      \
+      int n_lm, const T* hinv, const T* b, const T* free, const T* acc,        \
+      int DL, T* out, void* stream) {                                          \
+    const g2o_torch::WtxGroups<T> gs = {{{w0, cam0, x0, k0, c0, dp0},          \
+                                         {w1, cam1, x1, k1, c1, dp1},          \
+                                         {w2, cam2, x2, k2, c2, dp2}}};        \
+    return g2o_torch::launch_wtx<T>(gs, n_lm, hinv, b, free, acc, DL, out,     \
                                     static_cast<cudaStream_t>(stream));        \
   }                                                                            \
   int g2o_ba_wv_##SUFFIX(                                                      \

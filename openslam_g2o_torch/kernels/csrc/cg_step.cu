@@ -37,8 +37,9 @@
 //
 // Reductions take two passes and no atomics on values: a kernel writes one
 // partial per block, and every block of the next kernel re-reduces all
-// partials in the same fixed order (sum_partials), so all blocks use the
-// same alpha and beta bit for bit and a run repeats exactly.
+// partials in the same fixed order (sum_partials; in cg_update_xr and
+// cg_update_p one warp, warp_sum_partials), so all blocks use the same
+// alpha and beta bit for bit and a run repeats exactly.
 //
 // The scalars sit in one buffer of kSlots values (the slot names are
 // mirrored in kernels/cg_step.py). A kernel never writes a slot that
@@ -53,11 +54,17 @@
 // D = 3 and D = 6.
 //
 // Bound: memory. At 3 N = 300,000 float32 values a CG vector is 1.2 MB:
-// cg_update_xr moves six vectors, cg_update_p three, spmv_dot what kernel A
-// moves. At D = 3 all of it fits the 50 MB L2, so in the loop launch
-// latency, not bandwidth, is what remains, and one launch fewer per
-// iteration is the lever; at D = 6 and N = 100,000 the values alone are
-// 58 MB and the product streams them from HBM.
+// cg_update_xr moves six vectors (7.2 MB, 2.15 us at 3.35 TB/s; 4.30 us at
+// D = 6), cg_update_p three, spmv_dot what kernel A moves. At D = 3 all of
+// it fits the 50 MB L2, so in the loop launch latency, not bandwidth, is
+// what remains, and one launch fewer per iteration is the lever; at D = 6
+// and N = 100,000 the values alone are 58 MB and the product streams them
+// from HBM. What stood between cg_update_xr and its bound was latency in
+// series: every block re-reduced the 391 partials of p . hp with a block
+// sum (two barriers), and the finishing block re-reduced one r . r partial
+// per 1024 values the same way after the last arrival. Now one warp reduces
+// each with all its loads in flight at once, and a block takes 2048 values
+// (kXrShare), which halves the partials the finish re-reduces.
 #include "block_ell.cuh"
 
 namespace g2o_torch {
@@ -144,6 +151,10 @@ __global__ void __launch_bounds__(kThreads, 3) spmv_dot_p_kernel(
     for (int s = 0; s < D; ++s) hp[s * N + row] = y[s];
     local = row_dot<T, D>(pn, y);
   }
+  // cg_update_xr, launched after it with programmatic stream
+  // serialization, may be placed once every block is here: its blocks wait
+  // for this grid to finish, and its launch hides behind these last sums
+  asm volatile("griddepcontrol.launch_dependents;");
   const T total = block_sum(local, smem);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
@@ -221,55 +232,132 @@ __global__ void cg_start_kernel(T* __restrict__ scal,
   }
 }
 
-// sum_partials for partials that other blocks of the same launch wrote:
-// read from L2 (__ldcg), past this SM's L1, in sum_partials' order.
+// A re-reduction of partials in one warp: lane i sums partials i, i + 32,
+// ... in order, then a butterfly (__shfl_xor_sync) adds the lanes' sums.
+// Addition is commutative, so at every step two partner lanes add the same
+// two values and end with the same bits: every lane holds the sum. A lane
+// issues up to 16 loads before it adds them (zeros past the end, which
+// leave the sum's bits as they are), so 391 partials cost one round trip
+// to L2, not one a partial. The loads go to L2 (__ldcg), past this SM's
+// L1: cg_update_xr's finishing block reads partials that other blocks of
+// its launch wrote, and under a programmatic dependent launch it reads the
+// product's. cg_update_p sums the r . r partials in this same order, so the
+// two-launch step's beta and r2 equal the three-launch step's bit for bit.
+// Called by all 32 lanes of a warp.
 template <typename T>
-__device__ __forceinline__ T sum_partials_cg(const T* partials, int count,
-                                             T* smem) {
+__device__ __forceinline__ T warp_sum_partials(const T* partials, int count) {
+  constexpr int kBatch = 16;
+  const int lane = threadIdx.x & 31;
   T v = T(0);
-  for (int i = threadIdx.x; i < count; i += blockDim.x)
-    v += __ldcg(partials + i);
-  return block_sum(v, smem);
+  for (int base = lane; base < count; base += 32 * kBatch) {
+    T buf[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int i = base + 32 * j;
+      buf[j] = i < count ? __ldcg(partials + i) : T(0);
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) v += buf[j];
+  }
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
 }
 
+// cg_update_xr's share: kXrVals values a thread, element i = base + v *
+// kThreads + threadIdx.x (coalesced), kXrShare = 2048 values a block, so one
+// r . r partial per 2048 values (mirrored in kernels/cg_step.py XR_SHARE).
+constexpr int kXrVals = 8;
+constexpr int kXrShare = kThreads * kXrVals;
+
+inline int xr_blocks(long long n) {
+  return static_cast<int>(n <= 0 ? 1 : (n + kXrShare - 1) / kXrShare);
+}
+
+// denom = sum part_pap; pd &= denom > 0; alpha = pd ? rz / safe(denom) : 0;
+// x += alpha p; r -= alpha hp; a partial sum of r . r per block.
+//
+// Warp 0 re-reduces the p . hp partials (warp_sum_partials: one round trip)
+// while the other warps wait; then every thread issues its 4 kXrVals loads
+// at once and updates its values. Every block reduces the same partials in
+// the same order, so all use one alpha bit for bit. A share of 2048 values
+// halves the partials (147 at 3 x 100,000, 293 at 6 x 100,000) against a
+// share of 1024. Issuing the vector loads before the partials' round trip, or
+// 16-byte loads over a fixed grid of 132 blocks, measured slower on the
+// H100: the partials' loads queue behind the block's vector loads.
+//
 // With `arrivals` (one int32, zero) the launch also finishes the step for
-// z = r: its last block stores what cg_update_p stores (rz_new = r2 = the
-// sum of this launch's r . r partials, beta, pd, the continue flag) and
-// sets the counter back to 0.
+// z = r: each block's thread 0 writes its partial, fences it and counts its
+// arrival; the last block's warp 0 re-reduces the partials
+// (warp_sum_partials, the order of cg_update_p) and stores what
+// cg_update_p stores (rz_new = r2 = r . r, beta, pd, the continue flag),
+// then sets the counter back to 0.
+//
+// It is always launched with programmatic stream serialization, so the
+// grid may start while the kernel before it still runs: griddepcontrol.wait
+// holds every thread until that kernel has finished and its writes (the
+// partials, p and hp) are visible. That holds after any kernel; spmv_dot_p
+// alone triggers early. p and hp are read from L2 (__ldcg).
 template <typename T>
-__global__ void cg_update_xr_kernel(T* __restrict__ scal,
-                                    const T* __restrict__ part_pap, int n_pap,
-                                    T* __restrict__ x, T* __restrict__ r,
-                                    const T* __restrict__ p,
-                                    const T* __restrict__ hp,
-                                    T* __restrict__ part_rr, long long n,
-                                    int* __restrict__ arrivals) {
-  __shared__ T smem[32];
-  __shared__ int last;
-  const T denom = sum_partials(part_pap, n_pap, smem);
-  const T rz = scal[RZ];
-  // a NaN denom fails denom > 0, so it turns pd off as well
-  const bool pd = (scal[PD] != T(0)) && (denom > T(0));
-  const T safe = denom == T(0) ? T(1) : denom;
-  const T alpha = pd ? rz / safe : T(0);
-  const long long base = blockIdx.x * static_cast<long long>(kChunk)
+__global__ void __launch_bounds__(kThreads) cg_update_xr_kernel(
+    T* __restrict__ scal, const T* __restrict__ part_pap, int n_pap,
+    T* __restrict__ x, T* __restrict__ r, const T* __restrict__ p,
+    const T* __restrict__ hp, T* __restrict__ part_rr, long long n,
+    int* __restrict__ arrivals) {
+  constexpr int kWarps = kThreads / 32;
+  __shared__ T warp_rr[kWarps];
+  __shared__ T s_alpha, s_rz;
+  __shared__ int s_pd;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (warp == 0) {
+    const T denom = warp_sum_partials(part_pap, n_pap);
+    if (lane == 0) {
+      const T rz = __ldcg(scal + RZ);
+      // a NaN denom fails denom > 0, so it turns pd off as well
+      const bool pd = (__ldcg(scal + PD) != T(0)) && (denom > T(0));
+      const T safe = denom == T(0) ? T(1) : denom;
+      s_alpha = pd ? rz / safe : T(0);
+      s_rz = rz;
+      s_pd = pd;
+    }
+  }
+  __syncthreads();
+  const T alpha = s_alpha;
+  const long long base = blockIdx.x * static_cast<long long>(kXrShare)
                          + threadIdx.x;
+  T xv[kXrVals], rv[kXrVals], pv[kXrVals], hv[kXrVals];
+#pragma unroll
+  for (int v = 0; v < kXrVals; ++v) {
+    const long long i = base + v * kThreads;
+    const bool in = i < n;
+    xv[v] = in ? x[i] : T(0);
+    rv[v] = in ? r[i] : T(0);
+    pv[v] = in ? __ldcg(p + i) : T(0);
+    hv[v] = in ? __ldcg(hp + i) : T(0);
+  }
   T rr = T(0);
-  for (int v = 0; v < kVec; ++v) {
+#pragma unroll
+  for (int v = 0; v < kXrVals; ++v) {
     const long long i = base + v * kThreads;
     if (i < n) {
-      x[i] = alpha * p[i] + x[i];
-      const T ri = -alpha * hp[i] + r[i];
+      x[i] = alpha * pv[v] + xv[v];
+      const T ri = -alpha * hv[v] + rv[v];
       r[i] = ri;
       rr += ri * ri;
     }
   }
-  const T total = block_sum(rr, smem);
+  for (int o = 16; o > 0; o >>= 1) rr += __shfl_down_sync(0xffffffffu, rr, o);
+  if (lane == 0) warp_rr[warp] = rr;
+  __syncthreads();
+  int last = 0;
   if (threadIdx.x == 0) {
+    T total = warp_rr[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) total += warp_rr[w];
     part_rr[blockIdx.x] = total;
     if (blockIdx.x == 0) {
-      scal[RZ_OLD] = rz;
-      scal[PD_NEXT] = pd ? T(1) : T(0);
+      scal[RZ_OLD] = s_rz;
+      scal[PD_NEXT] = s_pd ? T(1) : T(0);
       scal[ALPHA] = alpha;
     }
     if (arrivals != nullptr) {
@@ -277,28 +365,35 @@ __global__ void cg_update_xr_kernel(T* __restrict__ scal,
       last = atomicAdd(arrivals, 1) == static_cast<int>(gridDim.x) - 1;
     }
   }
-  if (arrivals == nullptr) return;
-  __syncthreads();
-  if (!last) return;
-  const T rz_new = sum_partials_cg(part_rr, gridDim.x, smem);
-  if (threadIdx.x == 0) {
+  if (warp != 0 || arrivals == nullptr) return;
+  if (!__shfl_sync(0xffffffffu, last, 0)) return;
+  const T rz_new = warp_sum_partials(part_rr, gridDim.x);
+  if (lane == 0) {
+    const T rz = s_rz;
     scal[RZ] = rz_new;
     scal[R2] = rz_new;
-    scal[PD] = pd ? T(1) : T(0);
+    scal[PD] = s_pd ? T(1) : T(0);
     scal[BETA] = rz_new / (rz == T(0) ? T(1) : rz);
-    scal[CONT] = (pd && rz_new > scal[THRESH]) ? T(1) : T(0);
+    scal[CONT] = (s_pd && rz_new > scal[THRESH]) ? T(1) : T(0);
     *arrivals = 0;
   }
 }
 
+// rz_new and r2 re-reduce their partials with warp_sum_partials (warp 0,
+// then shared memory), the order of cg_update_xr's finishing block.
 template <typename T>
 __global__ void cg_update_p_kernel(T* __restrict__ scal,
                                    const T* __restrict__ part_rz, int n_rz,
                                    const T* __restrict__ part_rr, int n_rr,
                                    const T* __restrict__ z, T* __restrict__ p,
                                    long long n, int precond_norm) {
-  __shared__ T smem[32];
-  const T rz_new = sum_partials(part_rz, n_rz, smem);
+  __shared__ T s_rz_new;
+  if (threadIdx.x < 32) {
+    const T v = warp_sum_partials(part_rz, n_rz);
+    if (threadIdx.x == 0) s_rz_new = v;
+  }
+  __syncthreads();
+  const T rz_new = s_rz_new;
   const T rz_old = scal[RZ_OLD];
   const T beta = rz_new / (rz_old == T(0) ? T(1) : rz_old);
   const long long base = blockIdx.x * static_cast<long long>(kChunk)
@@ -307,10 +402,10 @@ __global__ void cg_update_p_kernel(T* __restrict__ scal,
     const long long i = base + v * kThreads;
     if (i < n) p[i] = next_direction(beta, p[i], z[i]);
   }
-  if (blockIdx.x == 0) {
-    // block-uniform branch: sum_partials synchronizes the block
+  if (blockIdx.x == 0 && threadIdx.x < 32) {
+    // warp-uniform branch: warp_sum_partials needs the whole warp
     const T r2 = (precond_norm || part_rr == part_rz)
-                     ? rz_new : sum_partials(part_rr, n_rr, smem);
+                     ? rz_new : warp_sum_partials(part_rr, n_rr);
     if (threadIdx.x == 0) {
       const T pd = scal[PD_NEXT];
       scal[RZ] = rz_new;
@@ -437,8 +532,20 @@ template <typename T>
 int launch_cg_update_xr(T* scal, const T* part_pap, int n_pap, T* x, T* r,
                         const T* p, const T* hp, T* part_rr, long long n,
                         int* arrivals, cudaStream_t stream) {
-  cg_update_xr_kernel<T><<<chunks_for(n), kThreads, 0, stream>>>(
-      scal, part_pap, n_pap, x, r, p, hp, part_rr, n, arrivals);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(xr_blocks(n));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, cg_update_xr_kernel<T>, scal, part_pap, n_pap, x, r, p, hp,
+      part_rr, n, arrivals);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return launch_status();
 }
 

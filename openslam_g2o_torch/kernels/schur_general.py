@@ -11,7 +11,8 @@ The entries of one pose group live twice, as K13's products read them
 
 * landmark-major W_lm [Dp*dl, K, L]: the entries of landmark l in slots
   k = 0.. in entry order, with the pose of each slot in lm_pose [K, L]
-  (-1 on padding): read by `ba_wtx` (W^T x), once per pose group;
+  (-1 on padding): read by `ba_wtx` (W^T x), one launch over the pose
+  groups;
 * pose-major W_pose [Dp*dl, M] in the CSR order of `ba_coupling.PoseRows`:
   read by `ba_wv` (W v) and `ba_sandwich` (the preconditioner blocks).
 

@@ -6,7 +6,8 @@ versions, float64 on the CPU.
 * One step against the three-call sequence `cg_update_xr`, `cg_update_p`
   (z = r), `spmv_dot` from the same state, at block widths 3 and 6 in both
   dtypes: the scalar buffer, x, r, the next direction, H p and the partial
-  sums bit for bit (the same operations on the same values).
+  sums bit for bit (the same operations on the same values); and where
+  p . hp < 0 or NaN turns pd off, in both dtypes.
 * `pcg_solve` on an `EllOperator` (the Jacobi-scaled damped system of a
   200-pose serpentine, 3x3 blocks) against JAX `pcg_solve`
   (openslam_g2o_tpu/core/solvers.py:213) on the same matrix, at the
@@ -16,8 +17,10 @@ versions, float64 on the CPU.
   and 2 under both stop norms, a warm start, an indefinite system (pd goes
   off and stays off: ok False, x zero), a zero right-hand side (no
   iteration) and a spare p buffer filled with NaN (the first iteration
-  must not read it). The port's solve must take the two-launch form: one
-  `matvec_dot` (the first iteration) and `matvec_dot_p` for the others.
+  must not read it); the warm start and the indefinite system also at
+  unroll 1 under the true norm. The port's solve must take the two-launch
+  form: one `matvec_dot` (the first iteration) and `matvec_dot_p` for the
+  others.
 * The SE2 and SE3 LM-PCG chi2 trajectories (`lm_pcg_optimize_fused`, 5
   iterations) against JAX at rtol 1e-8 (as tests/test_torch_lm_pcg.py),
   and equal bit for bit to the port's own three-launch run (the operator's
@@ -102,6 +105,37 @@ def test_fused_plain_step_equals_three_call_sequence(D, dtype):
         cg_step.spmv_dot_p(pattern.nb, S, out["two"][0], p0, r0, p0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("curvature", ["negative", "nan"])
+def test_fused_plain_step_turns_pd_off_as_the_three_call_sequence(
+        curvature, dtype):
+    """p . hp < 0 or NaN in the step: both forms keep x and r, store pd 0,
+    alpha 0 and the continue flag 0, the same scalar buffer bit for bit,
+    and the counter ends at zero."""
+    pattern, S, bhat = _scaled(_serpentine(dtype))
+    r0, p0, rr0, bb0 = cg_step.cg_residual(bhat, torch.zeros_like(bhat))
+    scal0 = cg_step.new_scalars(r0)
+    cg_step.cg_start(scal0, rr0, rr0, bb0, 1e-6, True)
+    hp0, pap0 = cg_step.spmv_dot(pattern.nb, S, p0)
+    pap0 = -pap0 if curvature == "negative" else pap0 * float("nan")
+    arrivals = torch.zeros(1, dtype=torch.int32)
+    out = {}
+    for route in ("two", "three"):
+        x, r, p, sc = (torch.zeros_like(bhat), r0.clone(), p0.clone(),
+                       scal0.clone())
+        rr = cg_step.cg_update_xr(sc, pap0, x, r, p, hp0,
+                                  arrivals if route == "two" else None)
+        if route == "three":
+            cg_step.cg_update_p(sc, rr, rr, r, p, True)
+        out[route] = (sc, x, r)
+    for a, b in zip(out["two"], out["three"]):
+        assert torch.equal(a, b)
+    sc, x, r = out["two"]
+    assert not x.any() and torch.equal(r, r0) and not arrivals.any()
+    for slot in (cg_step.PD, cg_step.PD_NEXT, cg_step.ALPHA, cg_step.CONT):
+        assert float(sc[slot]) == 0.0
+
+
 class _CountingOperator(tsparse.EllOperator):
     """EllOperator that counts its calls by form."""
 
@@ -137,6 +171,8 @@ CASES = {
     "indefinite": dict(unroll=2, norm="precond"),
     "zero-rhs": dict(unroll=2, norm="precond"),
     "nan-spare": dict(unroll=2, norm="precond"),
+    "warm-unroll1": dict(unroll=1, norm="true"),
+    "indefinite-unroll1": dict(unroll=1, norm="true"),
 }
 
 
@@ -145,7 +181,7 @@ def test_pcg_solve_on_ell_operator_matches_jax(system, case, monkeypatch):
     pattern, S, bhat, dense = system
     kw = dict(CASES[case], max_iter=60, tol=1e-9)
     S, b = S.clone(), bhat.clone()
-    if case == "indefinite":
+    if case.startswith("indefinite"):
         diag = S[0].view(3, 3, -1)
         for a in range(3):
             diag[a, a] -= 1.5                # negative curvature
@@ -157,7 +193,7 @@ def test_pcg_solve_on_ell_operator_matches_jax(system, case, monkeypatch):
                             lambda v: torch.full_like(v, float("nan")))
     N = b.shape[1]
     x0 = None
-    if case == "warm":
+    if case.startswith("warm"):
         x0 = np.linalg.solve(dense, b.T.reshape(-1).numpy()).reshape(N, 3).T
         x0 = x0 + 1e-6 * np.random.default_rng(4).normal(size=x0.shape)
     counts = [0]
@@ -188,13 +224,13 @@ def test_pcg_solve_on_ell_operator_matches_jax(system, case, monkeypatch):
     np.testing.assert_allclose(tx["se2"].numpy(), jx, rtol=RTOL,
                                atol=RTOL * max(np.abs(jx).max(), 1e-300))
     assert torch.isfinite(tx["se2"]).all()
-    if case == "indefinite":
+    if case.startswith("indefinite"):
         assert not bool(tok) and not tx["se2"].any() and iters < 40
     elif case == "zero-rhs":
         assert bool(tok) and not tx["se2"].any() and iters == 0
     else:
         assert bool(tok) and iters > 2
-        if case == "warm":
+        if case.startswith("warm"):
             assert iters < 40
 
 

@@ -187,3 +187,35 @@ def test_scalar_buffer_after_one_step():
     assert bool(ok) and x.any()
     x[3] = float("inf")
     assert not bool(cg_step.cg_finish(scal, [x])) and not x.any()
+
+
+@pytest.mark.parametrize("n,blocks", [
+    (300_000, 147), (600_000, 293), (0, 1), (1, 1), (2048, 1), (2049, 2),
+    (4096, 2), (100_000, 49), (5_400, 3), (600_001, 293)])
+def test_update_xr_share_is_fixed(n, blocks):
+    """cg_update_xr's r . r partials on the card number one per block of
+    XR_SHARE (2048) values, whatever the card: the serpentine's 3 x 100,000
+    values give 147 partials (293 before, one per 1024 values), which its
+    finishing block and cg_update_p re-reduce."""
+    assert cg_step.XR_SHARE == 2048
+    assert cg_step.xr_blocks(n) == blocks
+
+
+def test_update_xr_checks_its_counter():
+    S, b = _spd(3, n=30)
+    bt = torch.as_tensor(b)
+    r, p, part_rr, part_bb = cg_step.cg_residual(bt, torch.zeros_like(bt))
+    hp = torch.as_tensor(S) @ p
+    pap = cg_step.dot_partials(p, hp)
+    scal = cg_step.new_scalars(r)
+    cg_step.cg_start(scal, part_rr, part_rr, part_bb, 1e-3, True)
+    x, r_ = torch.zeros_like(bt), r.clone()
+    arrivals = torch.zeros(1, dtype=torch.int32)
+    cg_step.cg_update_xr(scal, pap, x, r_, p, hp, arrivals)
+    assert not arrivals.any()
+    with pytest.raises(ValueError, match="one counter"):
+        cg_step.cg_update_xr(scal, pap, x, r_, p, hp,
+                             torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError, match="int32"):
+        cg_step.cg_update_xr(scal, pap, x, r_, p, hp,
+                             torch.zeros(1, dtype=torch.int64))

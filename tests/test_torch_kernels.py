@@ -1397,3 +1397,138 @@ def test_general_schur_lm_on_gpu_matches_cpu(cuda, kind):
             "cg_update_xr", "lm_outcome")
     assert all(counts[k] > 0 for k in used), counts
     assert not any(runs["cpu"][1].values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 5, 4099, 300_000, 600_001])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_cg_update_xr_share_and_tails_on_gpu(cuda, dtype, n, offset):
+    """cg_update_xr (2048 values a block, the partial sums in one warp)
+    against its plain version on vectors with a ragged tail and on views at
+    an odd offset, with and without the finish; its partials number
+    xr_blocks(n); the two-launch step equals the three-launch step bit for
+    bit and repeats its bits; the counter ends at zero."""
+    gen = torch.Generator(device=cuda).manual_seed(n + offset)
+    vec = lambda: torch.randn(n + offset, generator=gen, dtype=dtype,
+                              device=cuda)[offset:]
+    x0, r0, p0, hp0 = vec(), vec(), vec(), vec()
+    pap = torch.rand(391, generator=gen, dtype=dtype, device=cuda)
+    scal0 = torch.zeros(cg_step.N_SCALARS, dtype=dtype, device=cuda)
+    scal0[cg_step.RZ], scal0[cg_step.PD] = 2.5, 1.0
+    scal0[cg_step.THRESH] = 1e-3
+    arrivals = torch.zeros(1, dtype=torch.int32, device=cuda)
+    tol = TOL[dtype]
+    out = {}
+    for route, kw in (("two", dict(arrivals=arrivals)), ("three", {}),
+                      ("again", dict(arrivals=arrivals))):
+        x, r, sc = x0.clone(), r0.clone(), scal0.clone()
+        if offset:                       # keep the odd alignment
+            x = torch.empty(n + 1, dtype=dtype, device=cuda)[1:].copy_(x0)
+            r = torch.empty(n + 1, dtype=dtype, device=cuda)[1:].copy_(r0)
+        part = cg_step.cg_update_xr(sc, pap, x, r, p0, hp0, **kw)
+        assert part.numel() == cg_step.xr_blocks(n)
+        if route == "three":
+            cg_step.cg_update_p(sc, part, part, r, p0.clone(), True)
+        out[route] = (x, r, sc)
+    assert not arrivals.any()
+    for route in ("three", "again"):
+        assert all(torch.equal(a, b) for a, b in zip(out[route],
+                                                     out["two"])), route
+    xp, rp, sp = x0.clone(), r0.clone(), scal0.clone()
+    cg_step.cg_update_xr_plain(sp, pap, xp, rp, p0, hp0,
+                               torch.zeros(1, dtype=torch.int32))
+    x, r, sc = out["two"]
+    assert _rel(x, xp) < tol and _rel(r, rp) < tol and _scal_rel(sc, sp) < tol
+
+
+def _wtx_group(gen, dp, dl, K, L, C, dtype, device):
+    """W_lm, slot table and x of one pose group: a third of the slots
+    padding (W there NaN, which the kernel must not read into the sum)."""
+    cam = torch.randint(0, C, (K, L), generator=gen, dtype=torch.int32,
+                        device=device)
+    cam[torch.rand((K, L), generator=gen, device=device) < 0.3] = -1
+    w = torch.randn((dp * dl, K, L), generator=gen, dtype=dtype,
+                    device=device)
+    w[:, cam < 0] = float("nan")
+    x = torch.randn((dp, C), generator=gen, dtype=dtype, device=device)
+    return w, cam, x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("K", [1, 3, 8, 13])
+@pytest.mark.parametrize("dims", [((6, 3),), ((4, 3),), ((3, 2),),
+                                  ((4, 3), (6, 3)), ((6, 3), (4, 3)),
+                                  ((6, 3), (6, 3)), ((3, 2), (3, 2)),
+                                  ((4, 3), (6, 3), (6, 3))])
+def test_ba_wtx_groups_match_plain_on_gpu(cuda, dtype, K, dims):
+    """ba_wtx over one to three pose groups (a lane per landmark, a warp
+    per slot, the warps' sums in a fixed order): K slots from 1 to 13 (more
+    than the eight warps), padding slots, L not a multiple of a block's 32
+    landmarks, and acc, b, free and Hinv each present and absent, against
+    the plain version; one launch, the bits twice the same."""
+    from openslam_g2o_torch.kernels import ba_coupling
+    gen = torch.Generator(device=cuda).manual_seed(K)
+    L, dl = 1037, dims[0][1]
+    gs = [_wtx_group(gen, dp, dl, K + i, L, 7 + i, dtype, cuda)
+          for i, (dp, _) in enumerate(dims)]
+    W, cams, xs = (list(t) for t in zip(*gs))
+    W0 = [torch.nan_to_num(w, nan=0.0) for w in W]
+    extra = dict(hinv=torch.randn((dl * dl, L), generator=gen, dtype=dtype,
+                                  device=cuda),
+                 b=torch.randn((dl, L), generator=gen, dtype=dtype,
+                               device=cuda),
+                 free=(torch.rand(L, generator=gen, device=cuda) < 0.7)
+                 .to(dtype),
+                 acc=torch.randn((dl, L), generator=gen, dtype=dtype,
+                                 device=cuda))
+    for mask in range(16):
+        kw = {k: v for i, (k, v) in enumerate(extra.items())
+              if mask >> i & 1}
+        before = ba_coupling.ba_wtx.launches
+        got = ba_coupling.ba_wtx(W, cams, xs, **kw)
+        assert ba_coupling.ba_wtx.launches - before == 1
+        want = ba_coupling.ba_wtx_plain(W0, cams, xs, **kw)
+        assert torch.isfinite(got).all()
+        assert _rel(got, want) < TOL_BA[dtype]
+        assert torch.equal(got, ba_coupling.ba_wtx(W, cams, xs, **kw))
+
+
+@pytest.mark.parametrize("D", [3, 6])
+def test_two_launch_steps_equal_three_launch_steps_on_gpu(cuda, D):
+    """Thirty CG iterations of two launches (spmv_dot_p, then cg_update_xr
+    with its finish), as pcg_solve runs them, against thirty of three
+    (spmv_dot, cg_update_xr, cg_update_p): the same x, r and scalars bit
+    for bit. cg_update_xr is a programmatic dependent launch in both, so a
+    read of p or hp before the product wrote it would show here."""
+    if D == 3:
+        prob, pattern, values, b, lam = _scaled(cuda, torch.float32)
+        free = prob.free["se2"]
+    else:
+        prob, pattern = _sphere(torch.float32, cuda)
+        values, bT = sparse.assemble_ell(prob, pattern)
+        b, lam, free = bT["se3"], torch.tensor(
+            0.7, dtype=torch.float32, device=cuda), prob.free["se3"]
+    linv, _, bhat, extra = damp_chol.damp_chol(values, free, b, lam)
+    S = jacobi_scale.jacobi_scale(pattern.nb, values, linv, extra)
+    r0, p0, rr0, bb0 = cg_step.cg_residual(bhat, torch.zeros_like(bhat))
+    scal0 = cg_step.new_scalars(r0)
+    cg_step.cg_start(scal0, rr0, rr0, bb0, 1e-9, True)
+    arrivals = torch.zeros(1, dtype=torch.int32, device=cuda)
+    x, r, p, sc = torch.zeros_like(bhat), r0.clone(), p0.clone(), \
+        scal0.clone()
+    hp, pap = cg_step.spmv_dot(pattern.nb, S, p)
+    cg_step.cg_update_xr(sc, pap, x, r, p, hp, arrivals)
+    q = torch.empty_like(p)
+    for _ in range(30):
+        hp, pap = cg_step.spmv_dot_p(pattern.nb, S, sc, p, r, q)
+        cg_step.cg_update_xr(sc, pap, x, r, q, hp, arrivals)
+        p, q = q, p
+    two = (x, r, sc)
+    x, r, p, sc = torch.zeros_like(bhat), r0.clone(), p0.clone(), \
+        scal0.clone()
+    for _ in range(31):
+        hp, pap = cg_step.spmv_dot(pattern.nb, S, p)
+        rr = cg_step.cg_update_xr(sc, pap, x, r, p, hp)
+        cg_step.cg_update_p(sc, rr, rr, r, p, False)
+    assert all(torch.equal(a, b_) for a, b_ in zip(two, (x, r, sc)))
+    assert not arrivals.any() and torch.isfinite(x).all()
