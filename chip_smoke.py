@@ -24,7 +24,8 @@ Phases (any failure raises and the script exits non-zero):
     the 2D world once more with its width-3 instantiation switched off (a
     second build of dense_assemble.cu), for what that instantiation saves.
     On the sphere of phase 4e: K16 (edge_se3_blocks, without and with a robust
-    kernel), K7 for SE3 (retract_se3, se3_edge_chi2, a NaN dx) and the 6x6
+    kernel, on streams of the main path's width; twice for the same bits and
+    by device time), K7 for SE3 (retract_se3, se3_edge_chi2, a NaN dx) and the 6x6
     instantiations of kernels A and C, damp_chol (a non-SPD 6x6 block),
     jacobi_scale (a NaN factor), lane_block_mv, spmv_dot and
     gershgorin_bound, with torch.linalg.cholesky + solve_triangular (also
@@ -46,9 +47,12 @@ Phases (any failure raises and the script exits non-zero):
     them, with index_add_, torch.linalg.inv, a CSR product and the JAX
     route's torch.matmul(B2, M2) as the library yardsticks; the camera and
     landmark sums, W^T x, W v and S twice for the same bits; W^T x over
-    the general path's pose groups in one launch. ba_lm_sums, ba_wv and
-    ba_wtx (here and on the general path's scenes; ba_wtx beside its
-    chained form there) also by device time: CUDA
+    the general path's pose groups in one launch; ba_sandwich twice for the
+    same bits. ba_lm_sums, ba_wv,
+    ba_wtx and ba_sandwich (here and on the general path's scenes; ba_wtx
+    beside its chained form there, ba_sandwich per pose group) also by
+    device time, as are C, damp_chol, cg_update_p, lane_gather, the generic
+    K10 entry, K11, K12 and K4 at D = 4 beside their library calls: CUDA
     events around 200 calls queued behind a spin kernel, beside the same
     time of index_add_ (Hll and b_l only), of index_add_ with the masked W
     gather (ba_lm_sums's whole function) and of the CSR products (W v,
@@ -1026,10 +1030,12 @@ def main() -> int:
         randn = lambda *shape: torch.randn(shape, generator=gen, device=dev,
                                            dtype=dt)
 
-        # B and C
-        hk = torch.empty((9, 4 * E), dtype=dt, device=dev)
-        bk = torch.empty((3, 2 * E), dtype=dt, device=dev)
-        hp_, bp_ = torch.empty_like(hk), torch.empty_like(bk)
+        # B and C, on streams of the main path's width (pattern.e_cols:
+        # E rounded up to whole lines; the padding columns stay zero)
+        W = pattern.e_cols
+        hk = torch.zeros((9, 4 * W), dtype=dt, device=dev)
+        bk = torch.zeros((3, 2 * W), dtype=dt, device=dev)
+        hp_, bp_ = torch.zeros_like(hk), torch.zeros_like(bk)
         args = (prob.params["se2"], prob.free["se2"], ea.indices[0],
                 ea.indices[1], ea.measurement, ea.information, ea.delta, 0)
 
@@ -1044,8 +1050,8 @@ def main() -> int:
         case("edge_se2_blocks", tag, f"E={E}", run_b, plain_b,
              nbytes=s * (4 * N + 13 * E + 42 * E) + 8 * E, flops=400 * E)
         cargs = (hk, bk, pattern.hidx, pattern.bidx, K, N)
-        hdest = torch.empty(4 * E, dtype=torch.long, device=dev)
-        bdest = torch.empty(2 * E, dtype=torch.long, device=dev)
+        hdest = torch.zeros(4 * W, dtype=torch.long, device=dev)
+        bdest = torch.zeros(2 * W, dtype=torch.long, device=dev)
         for tbl, dest in ((pattern.hidx, hdest), (pattern.bidx, bdest)):
             cols = torch.arange(tbl.shape[1], device=dev).expand_as(tbl)
             dest[tbl[tbl >= 0].long()] = cols[tbl >= 0]
@@ -1063,6 +1069,9 @@ def main() -> int:
              nbytes=s * (42 * E + 9 * K * N + 3 * N)
              + 4 * (pattern.hidx.numel() + pattern.bidx.numel()),
              flops=36 * E, library=lib_c)
+        device_rows("assemble_gather", tag, {
+            "kernel": lambda: assemble.assemble_gather(*cargs),
+            "two index_add_": lib_c})
         values, b = assemble.assemble_gather(*cargs)
         del hk, bk, hp_, bp_, lib_v, lib_b
 
@@ -1126,12 +1135,13 @@ def main() -> int:
                                torch.tensor(1e-5, dtype=dt, device=dev))
         eye3 = torch.eye(3, dtype=dt, device=dev)
 
-        def lib_chol3():
+        def lib_chol3(ex=False):
             """The library yardstick, as for D = 6: torch.linalg.cholesky
             and solve_triangular on the damped [N, 3, 3] blocks."""
             blocks = (values[0].view(3, 3, N).permute(2, 0, 1)
                       + (lam * free + (1 - free))[:, None, None] * eye3)
-            L = torch.linalg.cholesky(blocks)
+            L = (torch.linalg.cholesky_ex(blocks)[0] if ex
+                 else torch.linalg.cholesky(blocks))
             return torch.linalg.solve_triangular(L, eye3.expand(N, 3, 3),
                                                  upper=False)
 
@@ -1140,6 +1150,11 @@ def main() -> int:
              lambda: damp_chol.damp_chol_plain(values, free, b, lam),
              nbytes=s * (9 + 1 + 3 + 9 + 9 + 3 + 1) * N, flops=60 * N,
              library=lib_chol3)
+        device_rows("damp_chol", tag, {
+            "kernel": lambda: damp_chol.damp_chol(values, free, b, lam),
+            "torch.linalg.cholesky + solve_triangular": lib_chol3,
+            "the same with cholesky_ex (no error check, no host read)":
+                lambda: lib_chol3(ex=True)})
         bad_values = values.clone()
         bad_values[0, 0, 7] = -1.0e6          # block 7 is not SPD
         case("damp_chol", tag, f"N={N}, block 7 not SPD",
@@ -1295,6 +1310,10 @@ def main() -> int:
              nbytes=3 * s * n, flops=2 * n, post=sums(scal=True),
              library=lambda: torch.addcmul(z0, state["k"]["p"], beta_t),
              library_what="p = z + beta p only")
+        device_rows("cg_update_p", tag, {
+            "kernel": lambda: run_p(cg_step.cg_update_p, state["k"]),
+            "torch.addcmul (p = z + beta p only)":
+                lambda: torch.addcmul(z0, state["k"]["p"], beta_t)})
         check_flags("cg_update_p", state["k"]["scal"], state["p"]["scal"],
                     PD=1.0, PD_NEXT=1.0, CONT=1.0)
         # a direction of negative curvature (p . hp < 0) and one with a
@@ -1397,6 +1416,10 @@ def main() -> int:
              lambda: gather.lane_gather_plain(gx, gidx),
              nbytes=s * 8 * (3500 + 35000) + 4 * 8 * 35000, flops=0,
              library=lambda: torch.gather(gx, 1, gidx_long))
+        device_rows("lane_gather", tag, {
+            "kernel": lambda: gather.lane_gather(gx, gidx),
+            "torch.gather (int64 indices made beforehand)":
+                lambda: torch.gather(gx, 1, gidx_long)})
 
         # K7 on the same graph: a step of the size LM takes here, the
         # gradient b, lambda0
@@ -1480,9 +1503,10 @@ def main() -> int:
             o.sum() if i in which else o for i, o in enumerate(out)))
 
         # K16, for the plain (None) and one robust kernel (Huber)
-        hk = torch.empty((36, 4 * E), dtype=dt, device=dev)
-        bk = torch.empty((6, 2 * E), dtype=dt, device=dev)
-        hp_, bp_ = torch.empty_like(hk), torch.empty_like(bk)
+        W = pattern.e_cols                   # as B and C above
+        hk = torch.zeros((36, 4 * W), dtype=dt, device=dev)
+        bk = torch.zeros((6, 2 * W), dtype=dt, device=dev)
+        hp_, bp_ = torch.zeros_like(hk), torch.zeros_like(bk)
         for kid, klabel in ((1, "edge_se3_blocks@huber"), (0, None)):
             args = (x7, free, ea.indices[0], ea.indices[1], ea.measurement,
                     ea.information, ea.delta, kid)
@@ -1496,9 +1520,15 @@ def main() -> int:
                 return hp_, bp_
 
             case("edge_se3_blocks", tag, f"E={E}", run_16, plain_16,
-                 nbytes=s * (14 * E + 2 * E + 44 * E + 156 * E) + 8 * E,
-                 flops=6000 * E, label=klabel, timed=kid == 0,
-                 slow_plain=True)
+                 nbytes=s * (8 * N + 44 * E + 156 * E) + 8 * E,
+                 flops=6000 * E, label=klabel, slow_plain=True)
+            first = tuple(t_.clone() for t_ in run_16())
+            if not all(torch.equal(a_, b_)
+                       for a_, b_ in zip(first, run_16())):
+                raise AssertionError(f"{klabel or 'edge_se3_blocks'} does "
+                                     "not repeat its bits")
+            del first
+            device_rows(klabel or "edge_se3_blocks", tag, {"kernel": run_16})
             if kid == 1 and dt == torch.float32:
                 # whose error the float32 Huber row shows: the kernel and the
                 # float32 plain version, each against the plain version in
@@ -1515,8 +1545,8 @@ def main() -> int:
                       f"{rel_p64:.3e}")
                 del args64, h64, b64
         cargs = (hk, bk, pattern.hidx, pattern.bidx, K, N)
-        hdest = torch.empty(4 * E, dtype=torch.long, device=dev)
-        bdest = torch.empty(2 * E, dtype=torch.long, device=dev)
+        hdest = torch.zeros(4 * W, dtype=torch.long, device=dev)
+        bdest = torch.zeros(2 * W, dtype=torch.long, device=dev)
         for tbl, dest in ((pattern.hidx, hdest), (pattern.bidx, bdest)):
             cols = torch.arange(tbl.shape[1], device=dev).expand_as(tbl)
             dest[tbl[tbl >= 0].long()] = cols[tbl >= 0]
@@ -1534,6 +1564,9 @@ def main() -> int:
              nbytes=s * (156 * E + 36 * K * N + 6 * N)
              + 4 * (pattern.hidx.numel() + pattern.bidx.numel()),
              flops=144 * E, library=lib_c6, label="assemble_gather@d6")
+        device_rows("assemble_gather@d6", tag, {
+            "kernel": lambda: assemble.assemble_gather(*cargs),
+            "two index_add_": lib_c6})
         values, b = assemble.assemble_gather(*cargs)
         del hk, bk, hp_, bp_, lib_v, lib_b, hdest, bdest
 
@@ -1567,10 +1600,11 @@ def main() -> int:
                                torch.tensor(1e-5, dtype=dt, device=dev))
         eye6 = torch.eye(6, dtype=dt, device=dev)
 
-        def lib_chol():
+        def lib_chol(ex=False):
             blocks = (values[0].view(6, 6, N).permute(2, 0, 1)
                       + (lam * free + (1 - free))[:, None, None] * eye6)
-            L = torch.linalg.cholesky(blocks)
+            L = (torch.linalg.cholesky_ex(blocks)[0] if ex
+                 else torch.linalg.cholesky(blocks))
             return torch.linalg.solve_triangular(L, eye6.expand(N, 6, 6),
                                                  upper=False)
 
@@ -1579,6 +1613,11 @@ def main() -> int:
              lambda: damp_chol.damp_chol_plain(values, free, b, lam),
              nbytes=s * (36 + 1 + 6 + 36 + 36 + 6 + 1) * N, flops=400 * N,
              library=lib_chol, label="damp_chol@d6", slow_plain=True)
+        device_rows("damp_chol@d6", tag, {
+            "kernel": lambda: damp_chol.damp_chol(values, free, b, lam),
+            "torch.linalg.cholesky + solve_triangular": lib_chol,
+            "the same with cholesky_ex (no error check, no host read)":
+                lambda: lib_chol(ex=True)})
         bad_values = values.clone()
         bad_values[0, 14, 7] = -1.0e9         # entry (2, 2) of block 7
         case("damp_chol", tag, f"D=6 N={N}, block 7 not SPD",
@@ -1881,6 +1920,9 @@ def main() -> int:
                      + 4 * Eg,
                      flops=2 * R * (dl + dp) * (R + dl + dp + 1) * Eg,
                      label="ba_edge_blocks" + sfx, slow_plain=True)
+                device_rows("ba_edge_blocks" + sfx, tag, {
+                    "kernel": lambda a=gargs, o=pg.offset:
+                        ba_edge.ba_edge_blocks(*a, got, o)})
                 edge_runs.append((
                     "ba_edge_blocks" + sfx,
                     lambda a=gargs, o=pg.offset: ba_edge.ba_edge_blocks(
@@ -2008,6 +2050,12 @@ def main() -> int:
              flops=(60 if dl == 3 else 12) * L, label="ba_block_inv" + sfx,
              library=lambda: torch.linalg.inv(Hll_d), slow_plain=True,
              tol=block_inv_tol(tag, cond))
+        device_rows("ba_block_inv" + sfx, tag, {
+            "kernel": lambda: ba_inv.ba_block_inv(*iargs),
+            "torch.linalg.inv (the inverse alone)":
+                lambda: torch.linalg.inv(Hll_d),
+            "torch.linalg.inv_ex (no error check, no host read)":
+                lambda: torch.linalg.inv_ex(Hll_d)[0]})
         _, Hinv, hib = ba_inv.ba_block_inv(*iargs)
         Hcc_d = ba_inv.ba_block_inv(Hcc, ba_inv.CAMERA, fc, lam,
                                     want_inv=False)[0]
@@ -2081,6 +2129,12 @@ def main() -> int:
              + 4 * (E + rows_c.n_chunks + C + 1),
              flops=2 * (dp * dl * dl + dp * dp * dl) * E,
              label="ba_sandwich" + sfx, slow_plain=True)
+        sand_call = lambda: ba_coupling.ba_sandwich(W_cam, rows_c, Hinv,
+                                                    Hcc_d)
+        if not torch.equal(sand_call(), sand_call()):
+            raise AssertionError(f"ba_sandwich{sfx} does not repeat its "
+                                 "bits")
+        device_rows("ba_sandwich" + sfx, tag, {"kernel": sand_call})
         s_blocks = ba_coupling.ba_sandwich(W_cam, rows_c, Hinv, Hcc_d)
         cond = float(torch.linalg.cond(
             s_blocks.view(dp, dp, C).permute(2, 0, 1).double()).max())
@@ -2112,6 +2166,10 @@ def main() -> int:
                  flops=2 * (dp * dl * dl + dp * dp * dl) * M,
                  label="ba_schur_dense" + sfx, library=lambda: B2 @ M2,
                  slow_plain=True)
+            device_rows("ba_schur_dense" + sfx, tag, {
+                "kernel": lambda: ba_schur.ba_schur_dense(pairs, W_lm, Hinv,
+                                                          Hcc_d),
+                "torch.matmul(B2, M2) of the JAX route": lambda: B2 @ M2})
             S1 = ba_schur.ba_schur_dense(pairs, W_lm, Hinv, Hcc_d)
             if not torch.equal(S1, ba_schur.ba_schur_dense(pairs, W_lm, Hinv,
                                                            Hcc_d)):
@@ -2376,6 +2434,14 @@ def main() -> int:
         if not all(torch.equal(a_, b_) for a_, b_ in
                    zip(s1, sandwich(ba_coupling.ba_sandwich))):
             raise AssertionError("ba_sandwich does not repeat its bits")
+        device_rows(name("ba_sandwich"), tag, {
+            "kernel, every pose group": lambda: sandwich(
+                ba_coupling.ba_sandwich),
+            **{f"group {pg.name} (Dp = {pg.dim}, {pg.count} vertices, "
+               f"{pg.rows.n_chunks} chunks)": (
+                   lambda pg=pg: ba_coupling.ba_sandwich(
+                       sys_["W_pose"][pg.name], pg.rows, hinv, hcc[pg.name]))
+               for pg in pat.pose_groups}})
         for pg, blk in zip(pat.pose_groups, s1):
             if pg.dim != 4:
                 continue
@@ -2389,6 +2455,11 @@ def main() -> int:
                  nbytes=s * 2 * D * D * N, flops=150 * N,
                  label="ba_block_inv@d4", library=lambda m_=mats:
                  torch.linalg.inv(m_), tol=block_inv_tol(tag, cond))
+            device_rows("ba_block_inv@d4", tag, {
+                "kernel": lambda b_=blk: ba_inv.ba_block_inv(b_),
+                "torch.linalg.inv": lambda m_=mats: torch.linalg.inv(m_),
+                "torch.linalg.inv_ex (no error check, no host read)":
+                    lambda m_=mats: torch.linalg.inv_ex(m_)[0]})
             binv = ba_inv.ba_block_inv(blk)[1]
             xd = xs[pg.name]
             case("lane_block_mv", tag, f"D=4 N={N}",
@@ -2397,6 +2468,10 @@ def main() -> int:
                  nbytes=s * (D * D + 2 * D) * N, flops=2 * D * D * N,
                  label="lane_block_mv@d4", library=lambda: torch.einsum(
                      "abn,bn->an", binv.view(D, D, N), xd))
+            device_rows("lane_block_mv@d4", tag, {
+                "kernel": lambda: jacobi_scale.lane_block_mv(binv, xd),
+                "torch.einsum": lambda: torch.einsum(
+                    "abn,bn->an", binv.view(D, D, N), xd)})
         if sfx == "@psi2uv":
             # K15 on the pose slots of the ternary edges: both cameras'
             # blocks and their coupling, block + transpose where the two
@@ -3345,11 +3420,13 @@ def main() -> int:
         n_cg = max((kernels.launch_counts()["cg_update_xr"] - before)
                    // n_groups, 1)
         wv_calls = ba_coupling.ba_wv.launches
+        sandwich_calls = ba_coupling.ba_sandwich.launches
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof_g:
             ba_general._solve(work, sys_, lam_t, 250, 1e-8)
             torch.cuda.synchronize()
         wv_calls = ba_coupling.ba_wv.launches - wv_calls
+        sandwich_calls = ba_coupling.ba_sandwich.launches - sandwich_calls
         rows_g = sorted(((e.self_device_time_total, e.count, e.key)
                          for e in prof_g.key_averages()
                          if e.device_type == torch.autograd.DeviceType.CUDA
@@ -3364,6 +3441,16 @@ def main() -> int:
         if wv_calls <= 0 or per_call != 1:
             raise AssertionError(f"phase {phase}: ba_wv launched "
                                  f"{wv_kernels} kernels in {wv_calls} calls")
+        # and ba_sandwich, one kernel a call since its vertex pass went
+        sandwich_kernels = sum(n_ for _, n_, k_ in rows_g
+                               if "ba_sandwich" in k_)
+        print(f"phase {phase} ba_sandwich in that solve: {sandwich_kernels} "
+              f"kernels in {sandwich_calls} calls")
+        if (sandwich_calls <= 0
+                or round(sandwich_kernels / sandwich_calls) != 1):
+            raise AssertionError(f"phase {phase}: ba_sandwich launched "
+                                 f"{sandwich_kernels} kernels in "
+                                 f"{sandwich_calls} calls")
         busy = sum(r[0] for r in rows_g)
         if busy <= 0:
             raise AssertionError(f"phase {phase}: the profiler saw no "

@@ -45,11 +45,18 @@ class EllPattern:
     group: the vertex group (the only one: pose graphs).
     d: the group's tangent width, the block width D (3 or 6).
     nb: [K, N] int32 neighbour table (layout in the module docstring).
+    e_total: the number of edges E.
+    e_cols: the stream's columns per block, E rounded up to a multiple of
+        STREAM_ALIGN (so that on the card every row of every block starts
+        a 128-byte line and a warp's 32 consecutive stores fill whole
+        lines; at an odd E each would straddle two).
     hidx: [mh, K*N] int32 destination-major contributor table: column ids
-        into the linearizer's block stream hblk [D*D, 4E] of the
+        into the linearizer's block stream hblk [D*D, 4 e_cols] of the
         contributions to slot (k, n) at column k*N + n, packed from row 0
-        in stream order, -1 after the last (the -1 is the mask).
-    bidx: [mb, N] int32, the same for b into bblk [D, 2E].
+        in stream order, -1 after the last (the -1 is the mask). Block q of
+        edge e is column q*e_cols + e; the padding columns are never
+        written or read.
+    bidx: [mb, N] int32, the same for b into bblk [D, 2 e_cols].
     col0: edge group key -> first edge column of that group in the streams.
     """
     group: str
@@ -61,10 +68,20 @@ class EllPattern:
     hidx: torch.Tensor
     bidx: torch.Tensor
     col0: dict
+    e_cols: int
 
 
 # pose vertex group -> the edge type its linearizer kernel serves
 _POSE_EDGE = {"se2": "edge_se2", "se3": "edge_se3"}
+# stream columns a block's width is rounded up to (32 values: one 128-byte
+# line in float32, two in float64)
+STREAM_ALIGN = 32
+
+
+def stream_columns(e_total: int) -> int:
+    """Columns per block of the linearizer's streams for e_total edges:
+    e_total rounded up to a multiple of STREAM_ALIGN."""
+    return -(-e_total // STREAM_ALIGN) * STREAM_ALIGN
 
 
 def _linearizer(group: str):
@@ -122,7 +139,8 @@ def build_ell_pattern(problem) -> EllPattern:
     jj = np.concatenate(jj_parts) if jj_parts else np.zeros(0, np.int64)
 
     # contributions in stream column order: block q = 2s+t of edge e sits
-    # in column q*E + e and lands at (row of slot s, column of slot t)
+    # in column q*W + e (W = e_cols) and lands at (row of slot s, column of
+    # slot t)
     ends = (ii, jj)
     rows = np.concatenate([ends[q // 2] for q in range(4)])
     cols = np.concatenate([ends[q % 2] for q in range(4)])
@@ -141,22 +159,24 @@ def build_ell_pattern(problem) -> EllPattern:
     nb[slot, u_rows] = u_cols
     inv_c = inverse[N:]
     dest = slot[inv_c] * N + u_rows[inv_c]
-    hidx = _contrib_table(dest, K * N, np.arange(4 * E, dtype=np.int64))
-    bidx = _contrib_table(np.concatenate([ii, jj]), N,
-                          np.arange(2 * E, dtype=np.int64))
     dev = problem.device
+    W = stream_columns(E)
+    column = lambda blocks: (np.arange(blocks, dtype=np.int64)[:, None] * W
+                             + np.arange(E, dtype=np.int64)).reshape(-1)
+    hidx = _contrib_table(dest, K * N, column(4))
+    bidx = _contrib_table(np.concatenate([ii, jj]), N, column(2))
     return EllPattern(g.name, g.tangent_dim, N, K, E,
                       torch.as_tensor(nb, device=dev),
                       torch.as_tensor(hidx, device=dev),
-                      torch.as_tensor(bidx, device=dev), col0)
+                      torch.as_tensor(bidx, device=dev), col0, W)
 
 
 def edge_blocks(problem, pattern: EllPattern):
     """The edge type's linearizer kernel over every edge group: the
-    contribution streams (hblk [D*D, 4E], bblk [D, 2E]) at the problem's
-    current params."""
+    contribution streams (hblk [D*D, 4W], bblk [D, 2W], W =
+    pattern.e_cols) at the problem's current params."""
     dt, dev = problem.dtype, problem.device
-    E, D = pattern.e_total, pattern.d
+    E, D = pattern.e_cols, pattern.d
     hblk = torch.empty((D * D, 4 * E), dtype=dt, device=dev)
     bblk = torch.empty((D, 2 * E), dtype=dt, device=dev)
     params = problem.params[pattern.group]

@@ -9,8 +9,8 @@ of the arguments decides. Every wrapper counts the calls in which it
 launched its kernel in a plain integer attribute, `wrapper.launches`
 (`cg_finish` and `gershgorin_bound` are two-pass reductions: one counted
 call launches two kernels per vector, respectively two; `ba_schur_dense`
-launches the zero fill of S and its pair kernel; `ba_sandwich` launches
-its chunk pass and its vertex pass; `ba_wv` is one launch).
+launches the zero fill of S and its pair kernel; `ba_wv` and
+`ba_sandwich` are one launch each).
 `ba_block_inv` and `lane_block_mv`, which serve several block widths on
 one path, also count their launches per width D in
 `wrapper.launches_by_width` (a Counter).

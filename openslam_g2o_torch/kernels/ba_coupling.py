@@ -48,10 +48,13 @@ class PoseRows:
     consecutive entries of one vertex, at least one per vertex (an empty
     one where the vertex has no entry): chunk c is positions
     chunk_ptr[c]:chunk_ptr[c+1] of vertex chunk_row[c], and vertex n owns
-    chunks row_chunk[n]:row_chunk[n+1]. `arrivals` [N] is `ba_wv`'s
-    counter of the chunks that have reached each vertex in a launch; the
-    kernel leaves it at zero, so one PoseRows serves one launch at a time.
-    All int32 on the device."""
+    chunks row_chunk[n]:row_chunk[n+1]. `arrivals` [N] counts the chunks
+    that have reached each vertex in one launch of `ba_wv`, `ba_sandwich`
+    or kernels/ba_edge.py `ba_cam_sums`, the three kernels that finish a
+    vertex in its last chunk's block. Each leaves every counter at zero
+    when it ends, and they are launched on one stream, in order, so the
+    three share it; one PoseRows serves one launch at a time. All int32 on
+    the device."""
     ptr: torch.Tensor
     lm: torch.Tensor
     chunk_ptr: torch.Tensor
@@ -306,7 +309,9 @@ def ba_sandwich_plain(w_cam, rows, hinv, hcc_d):
 def ba_sandwich(w_cam, rows: PoseRows, hinv, hcc_d):
     """The block-Jacobi blocks of S: Hcc_d - sum_j W_j Hinv_lm(j) W_j^T per
     pose vertex, [Dp*Dp, N] (hinv [dl*dl, L], hcc_d [Dp*Dp, N]). K13 on CUDA
-    tensors (two passes), the plain version on CPU tensors."""
+    tensors (one launch: a block per chunk, the last block of each vertex
+    adds its chunks' sums in chunk order; `rows.arrivals` orders them), the
+    plain version on CPU tensors."""
     require(hinv.dim() == 2 and w_cam.dim() == 2
             and rows.lm.shape == (w_cam.shape[1],),
             "ba_sandwich: w_cam must be [Dp*dl, M] with one landmark per "
@@ -328,7 +333,8 @@ def ba_sandwich(w_cam, rows: PoseRows, hinv, hcc_d):
                        device=hinv.device)
     build.launch("g2o_ba_sandwich", hinv, w_cam.data_ptr(),
                  rows.lm.data_ptr(), rows.chunk_ptr.data_ptr(),
-                 rows.row_chunk.data_ptr(), hinv.data_ptr(), hinv.shape[1],
+                 rows.chunk_row.data_ptr(), rows.row_chunk.data_ptr(),
+                 rows.arrivals.data_ptr(), hinv.data_ptr(), hinv.shape[1],
                  w_cam.shape[1], rows.n_chunks, N, hcc_d.data_ptr(), dp, dl,
                  part.data_ptr(), out.data_ptr())
     ba_sandwich.launches += 1

@@ -81,8 +81,8 @@ _SIGNATURES = {
                                                 _P),
     "g2o_ba_wv": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _P, _P,
                   _P, _P, _I, _I, _P, _P, _P, _P),
-    "g2o_ba_sandwich": (_P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _I, _I, _P,
-                        _P, _P),
+    "g2o_ba_sandwich": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _I,
+                        _I, _P, _P, _P),
     "g2o_ba_schur": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I,
                      _I, _I, _P, _P),
     "g2o_schur_edge": (_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _P, _P,

@@ -27,10 +27,10 @@
 // Both walk the CSR lists by chunks: a block per chunk of at most 256
 // consecutive entries of one vertex (a strided loop, then
 // block_reduce_values; every vertex owns at least one chunk, an empty one
-// where it has no entry). ba_wv finishes each vertex in the same launch:
-// the last of its chunks' blocks to arrive sums their partials with all its
-// threads (an arrival counter per vertex orders the blocks). ba_sandwich
-// runs a second pass, a thread per vertex summing its chunks in order. A
+// where it has no entry). Both finish each vertex in the same launch: the
+// last of its chunks' blocks to arrive sums their partials (ba_wv with all
+// its threads, ba_sandwich in chunk order; an arrival counter per vertex
+// orders the blocks). A
 // camera with 1768 observations and one with 55 cost what they hold, and
 // the one intrinsics vertex that every observation of the general path's
 // shared-intrinsics scene sees (degree 80,000) is 313 blocks, not one.
@@ -257,19 +257,46 @@ __global__ void __launch_bounds__(kCoupleThreads) ba_wv_kernel(
   }
 }
 
-// pass 1 of ba_sandwich: part[(a, b), c] = sum over chunk c's entries j of
-// (W_j Hinv_lm(j) W_j^T)[a, b]
+// ba_sandwich, one launch, in the order of summation of the two-pass form
+// it replaces (a chunk pass, then a pass of one thread per vertex), so
+// that it gives the same bits: a block of kCoupleThreads per chunk sums
+// (W_j Hinv_lm(j) W_j^T)[a, b] over the chunk's entries, thread tid its
+// entries j0 + tid, j0 + tid + 128, ..., then block_reduce_values. A vertex
+// of one chunk is finished by that block. Of several, as in ba_wv: each
+// block writes its partial, fences it and counts its arrival on the
+// vertex's counter, and the last to arrive adds the vertex's partials in
+// chunk order, as the one-thread vertex pass did, and resets the counter.
+// Thread q < DP^2 adds its value of each chunk in turn, the loads in
+// flight at once: up to 16 chunks it loads them itself, beyond that all
+// threads stage them in shared memory, kStageBytes at a time. The vertex
+// pass read them one dependent load after another (86 us on the 313-chunk
+// intrinsics vertex).
+// No value is summed atomically, so a run repeats bit for bit.
+//
+// A first pass of 64 threads summing the upper triangle from Hinv's upper
+// triangle (fewer of the Hinv gathers that bound the pass at 400k) was
+// faster there but summed in another order, and the general path's
+// P2MC_INTRINSICS scene then ended one unit off in the sixth digit of its
+// chi2 ratio.
+constexpr int kStageBytes = 16384;
+
 template <typename T, int DP, int DL>
-__global__ void ba_sandwich_part_kernel(const T* __restrict__ w_cam,
-                                        const int* __restrict__ pose_lm,
-                                        const int* __restrict__ chunk_ptr,
-                                        const T* __restrict__ hinv, int n_lm,
-                                        long long ld, int n_chunks,
-                                        T* __restrict__ part) {
+__global__ void __launch_bounds__(kCoupleThreads) ba_sandwich_kernel(
+    const T* __restrict__ w_cam, const int* __restrict__ pose_lm,
+    const int* __restrict__ chunk_ptr, const int* __restrict__ chunk_row,
+    const int* __restrict__ row_chunk, int* __restrict__ arrivals,
+    const T* __restrict__ hinv, int n_lm, long long ld, int n_chunks,
+    int n_rows, const T* __restrict__ hcc_d, T* __restrict__ part,
+    T* __restrict__ out) {
   constexpr int DD = DP * DP;
+  constexpr int kStage = kStageBytes / sizeof(T);      // staged values
+  constexpr int kRound = kStage / (DD + 1);            // chunks a round
+  constexpr int kPer = (kRound + kCoupleThreads - 1) / kCoupleThreads;
   __shared__ T smem[kMaxWarps][DD];
+  __shared__ T staged[kStage];
+  __shared__ int last;
   const int c = blockIdx.x;
-  const long long L = n_lm;
+  const long long L = n_lm, NC = n_chunks;
   const int j0 = chunk_ptr[c], j1 = chunk_ptr[c + 1];
   T acc[DD];
 #pragma unroll
@@ -304,27 +331,71 @@ __global__ void ba_sandwich_part_kernel(const T* __restrict__ w_cam,
       }
     }
   }
-  const T total = block_reduce_values<T, DD>(acc, smem);
-  if (threadIdx.x < DD)
-    part[threadIdx.x * static_cast<long long>(n_chunks) + c] = total;
-}
-
-// pass 2 of ba_sandwich: one thread per pose vertex n
-template <typename T, int DP>
-__global__ void ba_sandwich_finish_kernel(const T* __restrict__ part,
-                                          const int* __restrict__ row_chunk,
-                                          int n_rows, int n_chunks,
-                                          const T* __restrict__ hcc_d,
-                                          T* __restrict__ out) {
-  const long long n = blockIdx.x * static_cast<long long>(blockDim.x)
-                      + threadIdx.x;
-  if (n >= n_rows) return;
-  const long long N = n_rows, NC = n_chunks;
+  const T total = block_reduce_values<T, DD>(acc, smem);  // in thread q < DD
+  const long long n = chunk_row[c];
   const int c0 = row_chunk[n], c1 = row_chunk[n + 1];
+  T corr = T(0);
+  if (c1 - c0 == 1) {
+    corr = corr + total;
+  } else {
+    if (threadIdx.x < DD) part[threadIdx.x * NC + c] = total;
+    __threadfence();                 // the partial, before the arrival
+    __syncthreads();
+    if (threadIdx.x == 0) last = atomicAdd(arrivals + n, 1) == c1 - c0 - 1;
+    __syncthreads();
+    if (!last) return;
+    // every other chunk of the vertex has written and fenced its partial;
+    // read them from L2 (__ldcg), past this SM's L1: up to kDirect chunks
+    // by the summing threads themselves, more a round of chunks at a time
+    // through shared memory
+    constexpr int kDirect = 16;
+    if (c1 - c0 <= kDirect) {
+      if (threadIdx.x < DD) {
+        T v[kDirect];
 #pragma unroll
-  for (int q = 0; q < DP * DP; ++q) {
-    T corr = T(0);
-    for (int c = c0; c < c1; ++c) corr += part[q * NC + c];
+        for (int k = 0; k < kDirect; ++k)
+          if (k < c1 - c0) v[k] = __ldcg(part + threadIdx.x * NC + c0 + k);
+#pragma unroll
+        for (int k = 0; k < kDirect; ++k)
+          if (k < c1 - c0) corr += v[k];
+      }
+    }
+    for (int r0 = c0; c1 - c0 > kDirect && r0 < c1; r0 += kRound) {
+      // thread tid loads chunks r0 + tid, r0 + tid + 128, ... of the round
+      // (every value of one chunk: each warp load is 32 consecutive
+      // partials of one row of part), all in flight, then stores them as
+      // rows of DD + 1 values (no bank conflicts either way)
+      const int m = c1 - r0 < kRound ? c1 - r0 : kRound;
+      T v[kPer][DD];
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int cl = threadIdx.x + k * kCoupleThreads;
+        if (cl < m) {
+#pragma unroll
+          for (int q = 0; q < DD; ++q)
+            v[k][q] = __ldcg(part + q * NC + r0 + cl);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int cl = threadIdx.x + k * kCoupleThreads;
+        if (cl < m) {
+#pragma unroll
+          for (int q = 0; q < DD; ++q) staged[cl * (DD + 1) + q] = v[k][q];
+        }
+      }
+      __syncthreads();
+      if (threadIdx.x < DD) {
+#pragma unroll 8
+        for (int k = 0; k < m; ++k)
+          corr += staged[k * (DD + 1) + threadIdx.x];
+      }
+      __syncthreads();
+    }
+    if (threadIdx.x == 0) arrivals[n] = 0;
+  }
+  if (threadIdx.x < DD) {
+    const long long N = n_rows, q = threadIdx.x;
     out[q * N + n] = hcc_d[q * N + n] - corr;
   }
 }
@@ -398,34 +469,37 @@ int launch_wv(const T* w_cam, const int* pose_lm, const int* chunk_ptr,
 
 template <typename T, int DP, int DL>
 void sandwich_dims(const T* w_cam, const int* pose_lm, const int* chunk_ptr,
-                   const int* row_chunk, const T* hinv, int n_lm,
-                   long long ld, int n_chunks, int n_rows, const T* hcc_d,
-                   T* part, T* out, cudaStream_t stream) {
-  if (n_chunks > 0)
-    ba_sandwich_part_kernel<T, DP, DL>
-        <<<n_chunks, kCoupleThreads, 0, stream>>>(w_cam, pose_lm, chunk_ptr,
-                                                  hinv, n_lm, ld, n_chunks,
-                                                  part);
-  ba_sandwich_finish_kernel<T, DP>
-      <<<grid_for(n_rows), kThreads, 0, stream>>>(part, row_chunk, n_rows,
-                                                  n_chunks, hcc_d, out);
+                   const int* chunk_row, const int* row_chunk, int* arrivals,
+                   const T* hinv, int n_lm, long long ld, int n_chunks,
+                   int n_rows, const T* hcc_d, T* part, T* out,
+                   cudaStream_t stream) {
+  ba_sandwich_kernel<T, DP, DL><<<n_chunks, kCoupleThreads, 0, stream>>>(
+      w_cam, pose_lm, chunk_ptr, chunk_row, row_chunk, arrivals, hinv, n_lm,
+      ld, n_chunks, n_rows, hcc_d, part, out);
 }
 
 template <typename T>
 int launch_sandwich(const T* w_cam, const int* pose_lm, const int* chunk_ptr,
-                    const int* row_chunk, const T* hinv, int n_lm,
-                    long long ld, int n_chunks, int n_rows, const T* hcc_d,
-                    int DP, int DL, T* part, T* out, cudaStream_t stream) {
+                    const int* chunk_row, const int* row_chunk, int* arrivals,
+                    const T* hinv, int n_lm, long long ld, int n_chunks,
+                    int n_rows, const T* hcc_d, int DP, int DL, T* part,
+                    T* out, cudaStream_t stream) {
+  // every vertex owns at least one chunk (kernels/ba_coupling.py
+  // build_pose_rows), so every row has a finishing block
   if (n_rows <= 0) return 0;
+  if (n_chunks < n_rows) return static_cast<int>(cudaErrorInvalidValue);
   if (DP == 6 && DL == 3)
-    sandwich_dims<T, 6, 3>(w_cam, pose_lm, chunk_ptr, row_chunk, hinv, n_lm,
-                           ld, n_chunks, n_rows, hcc_d, part, out, stream);
+    sandwich_dims<T, 6, 3>(w_cam, pose_lm, chunk_ptr, chunk_row, row_chunk,
+                           arrivals, hinv, n_lm, ld, n_chunks, n_rows, hcc_d,
+                           part, out, stream);
   else if (DP == 4 && DL == 3)
-    sandwich_dims<T, 4, 3>(w_cam, pose_lm, chunk_ptr, row_chunk, hinv, n_lm,
-                           ld, n_chunks, n_rows, hcc_d, part, out, stream);
+    sandwich_dims<T, 4, 3>(w_cam, pose_lm, chunk_ptr, chunk_row, row_chunk,
+                           arrivals, hinv, n_lm, ld, n_chunks, n_rows, hcc_d,
+                           part, out, stream);
   else if (DP == 3 && DL == 2)
-    sandwich_dims<T, 3, 2>(w_cam, pose_lm, chunk_ptr, row_chunk, hinv, n_lm,
-                           ld, n_chunks, n_rows, hcc_d, part, out, stream);
+    sandwich_dims<T, 3, 2>(w_cam, pose_lm, chunk_ptr, chunk_row, row_chunk,
+                           arrivals, hinv, n_lm, ld, n_chunks, n_rows, hcc_d,
+                           part, out, stream);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_status();
@@ -461,12 +535,12 @@ extern "C" {
   }                                                                            \
   int g2o_ba_sandwich_##SUFFIX(                                                \
       const T* w_cam, const int* pose_lm, const int* chunk_ptr,                \
-      const int* row_chunk, const T* hinv, int n_lm, long long ld,             \
-      int n_chunks, int n_rows, const T* hcc_d, int DP, int DL, T* part,       \
-      T* out, void* stream) {                                                  \
+      const int* chunk_row, const int* row_chunk, int* arrivals,               \
+      const T* hinv, int n_lm, long long ld, int n_chunks, int n_rows,         \
+      const T* hcc_d, int DP, int DL, T* part, T* out, void* stream) {         \
     return g2o_torch::launch_sandwich<T>(                                      \
-        w_cam, pose_lm, chunk_ptr, row_chunk, hinv, n_lm, ld, n_chunks,        \
-        n_rows, hcc_d, DP, DL, part, out,                                      \
+        w_cam, pose_lm, chunk_ptr, chunk_row, row_chunk, arrivals, hinv,       \
+        n_lm, ld, n_chunks, n_rows, hcc_d, DP, DL, part, out,                  \
         static_cast<cudaStream_t>(stream));                                    \
   }
 

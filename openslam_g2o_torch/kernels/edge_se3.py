@@ -10,7 +10,8 @@ kernel C gathers:
     hblk [36, 4 * e_total]  block q = 2s+t of edge e in column q*e_total + col0 + e
     bblk [6, 2 * e_total]   b_s of edge e in column s*e_total + col0 + e
 The Jacobians are taken in forward mode on both routes: inside the kernel
-with a value-and-derivative scalar over the kernel's own error code, in the
+with a value-and-derivatives scalar over the kernel's own error code (a
+thread takes several tangent directions of one vertex in one pass), in the
 plain version with torch.func.jvp over the model's error
 (core/problem.py `forward_jacobians`).
 """

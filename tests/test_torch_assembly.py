@@ -137,7 +137,7 @@ def test_edge_blocks_match_jax(problems):
     blocks, bvecs = jsparse._edge_blocks(jprob, jproblem.linearize(jprob))
     pattern = tsparse.build_ell_pattern(tprob)
     hblk, bblk = tsparse.edge_blocks(tprob, pattern)
-    E = pattern.e_total
+    E = pattern.e_cols                  # columns per block of the streams
     for eg in tprob.static.egroups:
         c0, n = pattern.col0[eg.key], eg.count
         for s in range(2):

@@ -80,8 +80,9 @@ def test_wrappers_reject_bad_arguments():
             ea.indices[1], ea.measurement, ea.information, ea.delta)
     with pytest.raises(ValueError, match="robust kernel"):
         edge_se2_blocks(*args, 99, hblk, bblk, 0)
-    with pytest.raises(ValueError, match="fit"):
-        edge_se2_blocks(*args, 0, hblk, bblk, 5)
+    with pytest.raises(ValueError, match="fit"):     # past the padding
+        edge_se2_blocks(*args, 0, hblk, bblk,
+                        pattern.e_cols - pattern.e_total + 1)
     with pytest.raises(ValueError, match="hidx"):
         assemble_gather(hblk, bblk, pattern.hidx[:, :-1], pattern.bidx,
                         pattern.k, pattern.n)
@@ -119,7 +120,12 @@ def test_kernels_match_plain_on_gpu(cuda, dtype):
     edge_se2_blocks_plain(prob.params["se2"], prob.free["se2"], ea.indices[0],
                           ea.indices[1], ea.measurement, ea.information,
                           ea.delta, 0, ph, pb, 0)
-    assert _rel(hblk, ph) < TOL_B[dtype] and _rel(bblk, pb) < TOL_B[dtype]
+    # the written columns: on the card each block of the streams is
+    # pattern.e_cols wide, its padding never written nor read
+    E, W = pattern.e_total, pattern.e_cols
+    cols = lambda t, m: t.view(t.shape[0], m, W)[:, :, :E]
+    assert _rel(cols(hblk, 4), cols(ph, 4)) < TOL_B[dtype]
+    assert _rel(cols(bblk, 2), cols(pb, 2)) < TOL_B[dtype]
     values, b = assemble_gather(hblk, bblk, pattern.hidx, pattern.bidx,
                                 pattern.k, pattern.n)
     pv, pbv = assemble_gather_plain(hblk, bblk, pattern.hidx, pattern.bidx,
@@ -1069,7 +1075,7 @@ def test_schur_general_kernels_match_plain_on_gpu(cuda, dtype, kind):
     reduced right-hand side and the preconditioner blocks over the pose
     CSR lists, the 6x6 and 4x4 block inverses on raw blocks that overflow
     float32 and on well-scaled ones, lane_block_mv at D = 4), each against
-    its plain version on the same inputs; the two-pass products twice for
+    its plain version on the same inputs; the chunked products twice for
     the same bits."""
     from openslam_g2o_torch.core import ba
     from openslam_g2o_torch.kernels import (
@@ -1320,6 +1326,91 @@ def test_ba_wv_one_launch_on_chunk_traps_on_gpu(cuda, dtype, dims):
         assert _device_launches(lambda: ba_coupling.ba_wv(w, rows, v, **kw),
                                 "ba_wv") == 1
     assert not rows.arrivals.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dims", [(6, 3), (4, 3), (3, 2)])
+def test_ba_sandwich_one_launch_on_chunk_traps_on_gpu(cuda, dtype, dims):
+    """K13's preconditioner blocks in one launch at vertex degrees 0 (an
+    empty vertex), 1, 255, 256, 257 (one and two chunks) and 80,000 (a hub
+    of 313 chunks), landmark ids in a random order: against the plain
+    version; the same bits over two
+    back-to-back calls and over calls between `ba_wv` calls on the same
+    PoseRows (the arrival counters they share are back at zero after each);
+    one kernel launch per call."""
+    from openslam_g2o_torch.kernels import ba_coupling
+    dp, dl = dims
+    rng = np.random.default_rng(10 + dp)
+    counts = [0, 1, 255, 256, 257, 3, 80000, 0, 40]
+    L, M, N = 20000, sum(counts), len(counts)
+    rows = ba_coupling.build_pose_rows(counts, rng.integers(0, L, M), cuda)
+    assert int(rows.row_chunk[7] - rows.row_chunk[6]) == 313
+    gen = torch.Generator(device=cuda).manual_seed(dp)
+    rnd = lambda *s: torch.randn(s, generator=gen, dtype=dtype, device=cuda)
+    w, v, hcc = rnd(dp * dl, M), rnd(dl, L), rnd(dp * dp, N)
+    B = rnd(L, dl, dl)
+    hinv = (B @ B.transpose(1, 2)).permute(1, 2, 0).reshape(dl * dl, L) \
+        .contiguous()
+    want = ba_coupling.ba_sandwich_plain(w, rows, hinv, hcc)
+    call = lambda: ba_coupling.ba_sandwich(w, rows, hinv, hcc)
+    got = call()
+    assert not rows.arrivals.any()
+    assert _rel(got, want) < TOL_BA[dtype]
+    assert torch.equal(got, call()) and not rows.arrivals.any()
+    y = ba_coupling.ba_wv(w, rows, v)
+    assert torch.equal(got, call()) and not rows.arrivals.any()
+    assert torch.equal(y, ba_coupling.ba_wv(w, rows, v))
+    assert not rows.arrivals.any()
+    assert _device_launches(call, "ba_sandwich") == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_edges", [1, 31, 33, 95, 700])
+def test_edge_se3_blocks_ragged_groups_on_gpu(cuda, dtype, n_edges):
+    """K16 on edge groups whose sizes are not multiples of its 32-edge
+    block: the sphere's edges in a seeded random order cut into two groups
+    sharing one stream (n_edges edges, then the rest with Huber at col0 =
+    n_edges), a fixed vertex and the stored-quaternion traps of _sphere,
+    against the plain version. Each group's blocks are held at that group's
+    own limit (2e-4 without a robust kernel, 2e-3 with Huber, in float32)
+    relative to the group's own columns; the gradients relative to the
+    whole stream's largest entry, as in the whole-sphere test (the odometry
+    edges' residuals are zero up to rounding, so a group of them alone
+    holds only float32 noise); the same bits on a repeat."""
+    from openslam_g2o_torch.kernels import edge_se3
+    prob, _ = _sphere(dtype, cuda)
+    ea = prob.edges[prob.static.egroups[0].key]
+    E = ea.indices[0].shape[0]
+    order = torch.as_tensor(np.random.default_rng(7).permutation(E),
+                            device=cuda)
+    take = lambda t, a, b: t[order[a:b]].contiguous()
+    groups = [(0, n_edges, 0), (n_edges, E, 1)]
+    assert n_edges % 32 and (E - n_edges) % 32
+    free = prob.free["se3"]
+    assert not bool(free.all())                 # vertex 40 is fixed
+    args = lambda a, b, kid: (
+        prob.params["se3"], free, take(ea.indices[0], a, b),
+        take(ea.indices[1], a, b), take(ea.measurement, a, b),
+        take(ea.information, a, b), take(ea.delta, a, b), kid)
+    plain = (torch.zeros((36, 4 * E), dtype=dtype, device=cuda),
+             torch.zeros((6, 2 * E), dtype=dtype, device=cuda))
+    for a, b, kid in groups:
+        edge_se3.edge_se3_blocks_plain(*args(a, b, kid), *plain, a)
+    outs = []
+    for _ in range(2):
+        out = (torch.full_like(plain[0], float("nan")),
+               torch.full_like(plain[1], float("nan")))
+        for a, b, kid in groups:
+            edge_se3.edge_se3_blocks(*args(a, b, kid), *out, a)
+        outs.append(out)
+    cols = lambda t, a, b: t.view(36, 4, E)[:, :, a:b]
+    for a, b, kid in groups:
+        tol = {torch.float64: 1e-10,
+               torch.float32: 2e-4 if kid == 0 else 2e-3}[dtype]
+        assert _rel(cols(outs[0][0], a, b), cols(plain[0], a, b)) < tol, kid
+    assert _rel(outs[0][1], plain[1]) < {torch.float64: 1e-10,
+                                         torch.float32: 2e-3}[dtype]
+    assert all(torch.equal(x, y) for x, y in zip(*outs))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

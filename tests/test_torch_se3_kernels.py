@@ -140,9 +140,9 @@ def test_edge_se3_blocks_match_jax(kernel):
     pattern = tsparse.build_ell_pattern(tprob)
     assert pattern.d == 6
     hblk, bblk = tsparse.edge_blocks(tprob, pattern)
-    assert hblk.shape == (36, 4 * pattern.e_total)
-    assert bblk.shape == (6, 2 * pattern.e_total)
-    E = pattern.e_total
+    assert hblk.shape == (36, 4 * pattern.e_cols)
+    assert bblk.shape == (6, 2 * pattern.e_cols)
+    E = pattern.e_cols
     assert len(tprob.static.egroups) == (1 if kernel == "None" else 2)
     for eg in tprob.static.egroups:
         assert eg.kernel_id == trobust.kernel_id(
