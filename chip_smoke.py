@@ -20,9 +20,12 @@ Phases (any failure raises and the script exits non-zero):
     K7 (retract_chi2, lm_outcome) on the same graph, with its NaN cases (a
     NaN dx and ok False both give chi2 inf, rho -1, no accept, lambda * nu,
     retry; flags compared exactly), and K15 (dense_assemble) on the
-    landmark worlds of phases 4d and 4f, twice for the same bits, and on
-    the 2D world once more with its width-3 instantiation switched off (a
-    second build of dense_assemble.cu), for what that instantiation saves.
+    landmark worlds of phases 4d and 4f and on the pose slots of the
+    general Schur path's scenes (4j, 4k @psi2uv, 4l @intrinsics, 4n), by
+    device time, twice for the same bits, beside one index_put_ per slot
+    pair, and on the 2D world once more with its width-3 instantiation
+    switched off (a second build of dense_assemble.cu), for what that
+    instantiation saves.
     On the sphere of phase 4e: K16 (edge_se3_blocks, without and with a robust
     kernel, on streams of the main path's width; twice for the same bits and
     by device time), K7 for SE3 (retract_se3, se3_edge_chi2, a NaN dx) and the 6x6
@@ -45,7 +48,9 @@ Phases (any failure raises and the script exits non-zero):
     phases 4g and 4h and on the landmark worlds of 4i (rows @400k, @2d,
     @3d: every instantiation a path runs), in the order the solver runs
     them, with index_add_, torch.linalg.inv, a CSR product and the JAX
-    route's torch.matmul(B2, M2) as the library yardsticks; the camera and
+    route's torch.matmul(B2, M2) as the library yardsticks (K12 with its
+    record copies at 80k and at (3, 2) on the 2D world, also with W's
+    records made beforehand); the camera and
     landmark sums, W^T x, W v and S twice for the same bits; W^T x over
     the general path's pose groups in one launch; ba_sandwich twice for the
     same bits. ba_lm_sums, ba_wv,
@@ -108,6 +113,7 @@ Phases (any failure raises and the script exits non-zero):
     start through ba_ell_step: chi2 never increases, ends at most 1.02 x
     (2E - 6(C - 1) - 3P), the first 3 equal the plain route to rtol 2e-4,
     ms per LM iteration for both entry points; the route is asserted;
+    K12's kernels in one profiled linearization + trial solve;
  4h. the same on the implicit route at synthetic_bal_problem(900, 50000,
     8) (400,000 observations), with CG iterations per trial;
  4i. the landmark worlds of 4d and 4f through LevenbergMarquardtSchurELL
@@ -295,6 +301,8 @@ KERNELS = {
                     "openslam_g2o_tpu/core/ba_ell.py:597"),
     "ba_block_inv": ("ba_inv.cu", "openslam_g2o_tpu/core/ba_ell.py:376"),
     "ba_schur_dense": ("ba_schur.cu", "openslam_g2o_tpu/core/ba_ell.py:745"),
+    "ba_schur_records": ("ba_schur.cu",
+                         "openslam_g2o_tpu/core/ba_ell.py:647"),
     "ba_wtx": ("ba_coupling.cu", "openslam_g2o_tpu/core/ba_ell.py:482"),
     "ba_wv": ("ba_coupling.cu", "openslam_g2o_tpu/core/ba_ell.py:774"),
     "ba_sandwich": ("ba_coupling.cu", "openslam_g2o_tpu/core/ba_ell.py:513"),
@@ -303,7 +311,8 @@ KERNELS = {
 }
 # the general Schur path's rows at the instantiations it adds: suffix -> its
 # phase, and what each kernel replaces there (openslam_g2o_tpu/core/ba.py)
-GENERAL_SUFFIXES = {"@psi2uv": "4k", "@intrinsics": "4l", "@d4": "4l"}
+GENERAL_SUFFIXES = {"@psi2uv": "4k", "@intrinsics": "4l", "@d4": "4l",
+                    "@4j": "4j", "@4n": "4n"}
 GENERAL_REPLACES = {
     "ba_lm_sums": "openslam_g2o_tpu/core/ba.py:148",
     "ba_wtx": "openslam_g2o_tpu/core/ba.py:233",
@@ -561,6 +570,76 @@ def anchored_demo_graph(Graph):
             g.add_edge("edge_project_psi2uv", (vid, i, anchor), z,
                        np.eye(2), param_ids=[0])
     return g
+
+
+def pose_slot_dargs(torch, dense_assemble, gprob, pat, lin):
+    """dense_assemble's arguments as schur_build (core/ba.py) passes them
+    on the general Schur path: the pose slots' EdgeBlocks of every edge
+    group with a pose slot (from the linearization `lin`), Tp, zeros [Tp],
+    the pattern's Tp-wide table (on the card), no fixed diagonal."""
+    hp = pat.hpp_pattern or dense_assemble.build_dense_pattern(
+        gprob, egroups=[next(e for e in gprob.static.egroups if e.key == k)
+                        for k, _ in pat.hpp_keys],
+        total_dim=pat.pose_dim, slots=[ps for _, ps in pat.hpp_keys])
+    groups = []
+    for i, (key, ps) in enumerate(pat.hpp_keys):
+        resid, jacs, rho1 = lin[key]
+        groups.append(dense_assemble.EdgeBlocks(
+            resid.contiguous(), tuple(jacs[s].contiguous() for s in ps),
+            rho1.contiguous(), gprob.edges[key].information, hp.offsets[i]))
+    return (groups, pat.pose_dim, torch.zeros(
+        pat.pose_dim, dtype=gprob.dtype, device=gprob.device), hp, False)
+
+
+def dense_world_dargs(dense_assemble, problem_mod, dprob):
+    """dense_assemble's arguments as the dense routes pass them: every
+    edge group's EdgeBlocks from one linearization of `dprob`, T, the
+    fixed-slot mask, the problem's DensePattern, the fixed diagonal."""
+    pattern = dense_assemble.build_dense_pattern(dprob)
+    lin = problem_mod.linearize(dprob)
+    groups = [dense_assemble.EdgeBlocks(
+        lin[eg.key][0].contiguous(),
+        tuple(j.contiguous() for j in lin[eg.key][1]), lin[eg.key][2],
+        dprob.edges[eg.key].information, pattern.offsets[i])
+        for i, eg in enumerate(dprob.static.egroups)]
+    return (groups, dprob.static.total_dim,
+            problem_mod.tangent_masks(dprob)[1], pattern, True)
+
+
+def k12_operands(ba_ell, ba_inv, bprob):
+    """K12's operands as the dense-Schur route's _solve takes them, from
+    one _build of `bprob` and the block inverses at lambda = 1e-4
+    max|Hll|: (pairs, W_lm, Hinv, Hcc_d)."""
+    bpat = ba_ell.build_ba_ell_pattern(bprob)
+    sys_ = ba_ell._build(bprob, bpat)
+    lam = 1e-4 * sys_["Hll"][0].abs().max()
+    _, hinv, _ = ba_inv.ba_block_inv(
+        sys_["Hll"], ba_inv.LANDMARK, bprob.free[bpat.lm_name], lam,
+        b=sys_["b_l"])
+    hcc_d = ba_inv.ba_block_inv(sys_["Hcc"], ba_inv.CAMERA,
+                                bprob.free[bpat.cam_name], lam,
+                                want_inv=False)[0]
+    return bpat.schur_pairs(), sys_["W_lm"], hinv, hcc_d
+
+
+def k15_bytes_flops(groups, pattern):
+    """What one dense_assemble call must move and compute beyond H, b,
+    raw_diag and fixed_t: each group's residuals, Jacobians, rho' and Omega
+    and the tables once (bytes), and the products J_s^T (rho' Omega) J_t
+    of every slot pair (operations)."""
+    nbytes = flops = 0
+    for gi, g in enumerate(groups):
+        E, D = g.resid.shape
+        s = g.resid.element_size()
+        widths = [j.shape[2] for j in g.jacs]
+        nbytes += s * E * (D + D * sum(widths) + 1 + D * D)
+        nbytes += 4 * sum(tb.chunk_ptr.numel() + tb.dest_chunk.numel()
+                          + 2 * tb.n_dest + 2 * tb.edge.numel()
+                          for tb in pattern.pairs[gi])
+        flops += sum(2 * E * widths[a] * D * (D + widths[b])
+                     for a in range(len(widths))
+                     for b in range(a, len(widths)))
+    return nbytes, flops
 
 
 def _median_ms(torch, fn, repeats=15, inner=20, warmup=3):
@@ -1737,6 +1816,61 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # K15 on the landmark worlds of phases 4d and 4f
+    def k15_row(label, tag, dargs, slow_plain=True):
+        """K15 (dense_assemble(*dargs)) against its plain version, by
+        device time beside its library yardstick, twice for the same bits.
+        Bytes: H, b, raw_diag and fixed_t once, the groups' residuals,
+        Jacobians, rho' and Omega, the tables; operations: the products.
+        The yardstick: one index_put_(accumulate=True) per slot pair and
+        mirror on the precomputed blocks (H only; the products are not
+        timed)."""
+        groups_, T_, _, pattern_, _ = dargs
+        s_ = groups_[0].resid.element_size()
+        lib_H = torch.zeros((T_, T_), dtype=groups_[0].resid.dtype,
+                            device=dev)
+        nbytes, flops = k15_bytes_flops(groups_, pattern_)
+        nbytes += s_ * (T_ * T_ + 3 * T_)
+        lib_ops = []
+        for gblk in groups_:
+            w_om = gblk.rho1[:, None, None] * gblk.info
+            widths = [j.shape[2] for j in gblk.jacs]
+            idx = [o.long()[:, None] + torch.arange(w_, device=dev)[None, :]
+                   for o, w_ in zip(gblk.offsets, widths)]
+            for s1 in range(len(widths)):
+                jw = edge_se2.bmm_small(gblk.jacs[s1].transpose(1, 2), w_om)
+                for t1 in range(s1, len(widths)):
+                    blk = edge_se2.bmm_small(jw, gblk.jacs[t1])
+                    lib_ops.append((idx[s1][:, :, None], idx[t1][:, None, :],
+                                    blk))
+                    if t1 != s1:
+                        lib_ops.append((idx[t1][:, :, None],
+                                        idx[s1][:, None, :],
+                                        blk.transpose(1, 2).contiguous()))
+
+        def lib_dense():                         # accumulates; timed only
+            for rows_i, cols_i, blk in lib_ops:
+                lib_H.index_put_((rows_i, cols_i), blk, accumulate=True)
+
+        tables = [tb for tbs in pattern_.pairs for tb in tbs]
+        run = lambda: dense_assemble.dense_assemble(*dargs)
+        case("dense_assemble", tag,
+             f"T={T_} E=" + "+".join(str(g_.resid.shape[0]) for g_ in groups_)
+             + f", {len(tables)} slot pairs, "
+             f"{sum(tb.n_dest for tb in tables)} destinations, "
+             f"{sum(tb.edge.numel() for tb in tables)} contributions, "
+             f"{sum(tb.n_chunks for tb in tables)} chunks "
+             f"({nbytes / 1e6:.1f} MB)", run,
+             lambda: dense_assemble.dense_assemble_plain(*dargs),
+             nbytes=nbytes, flops=flops, library=lib_dense, label=label,
+             slow_plain=slow_plain)
+        device_rows(label, tag, {"kernel": run})
+        once = run()
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(once, run())):
+            raise AssertionError(f"{label} does not repeat its bits")
+        if any(bool(tb.arrivals.any()) for tb in tables):
+            raise AssertionError(f"{label} left an arrival counter set")
+        del lib_H, lib_ops, once
+
     t_sim = time.monotonic()
     world, _ = Simulator2D(**DENSE_WORLD).simulate(n_poses=DENSE_POSES)
     t_sim = time.monotonic() - t_sim
@@ -1761,63 +1895,11 @@ def main() -> int:
             tag = str(dt).split(".")[-1]
             s = torch.empty((), dtype=dt).element_size()
             dprob = world_g.compile(dtype=dt)
-            T = dprob.static.total_dim
-            dpattern = dense_assemble.build_dense_pattern(dprob)
-            lin = problem_mod.linearize(dprob)
-            dgroups = [dense_assemble.EdgeBlocks(
-                lin[eg.key][0].contiguous(),
-                tuple(j.contiguous() for j in lin[eg.key][1]), lin[eg.key][2],
-                dprob.edges[eg.key].information, dpattern.offsets[i])
-                for i, eg in enumerate(dprob.static.egroups)]
-            fixed_t = problem_mod.tangent_masks(dprob)[1]
-            # the library yardstick: one index_put_ per slot pair on the
-            # precomputed blocks (H only; the products are not timed)
-            lib_H = torch.zeros((T, T), dtype=dt, device=dev)
-            lib_ops = []
-            nbytes, flops = s * (T * T + 3 * T), 0
-            for gi, gblk in enumerate(dgroups):
-                w_om = gblk.rho1[:, None, None] * gblk.info
-                E_g, D_g = gblk.resid.shape
-                widths = [j.shape[2] for j in gblk.jacs]
-                nbytes += s * E_g * (D_g + D_g * sum(widths) + 1 + D_g * D_g)
-                nbytes += 4 * sum(tb.chunk_ptr.numel()
-                                  + tb.dest_chunk.numel() + 2 * tb.n_dest
-                                  + 2 * tb.edge.numel()
-                                  for tb in dpattern.pairs[gi])
-                idx = [o.long()[:, None]
-                       + torch.arange(w_, device=dev)[None, :]
-                       for o, w_ in zip(gblk.offsets, widths)]
-                for s_ in range(len(widths)):
-                    jw = edge_se2.bmm_small(gblk.jacs[s_].transpose(1, 2),
-                                            w_om)
-                    for t_ in range(s_, len(widths)):
-                        blk = edge_se2.bmm_small(jw, gblk.jacs[t_])
-                        flops += (2 * E_g * widths[s_] * D_g
-                                  * (D_g + widths[t_]))
-                        lib_ops.append((idx[s_][:, :, None],
-                                        idx[t_][:, None, :], blk))
-                        if t_ != s_:
-                            lib_ops.append((idx[t_][:, :, None],
-                                            idx[s_][:, None, :],
-                                            blk.transpose(1, 2).contiguous()))
-
-            def lib_dense():                     # accumulates; timed only
-                for rows_i, cols_i, blk in lib_ops:
-                    lib_H.index_put_((rows_i, cols_i), blk, accumulate=True)
-
-            dargs = (dgroups, T, fixed_t, dpattern, True)
-            case("dense_assemble", tag,
-                 f"T={T} E="
-                 + "+".join(str(g_.resid.shape[0]) for g_ in dgroups)
-                 + f" ({nbytes / 1e6:.1f} MB)",
-                 lambda: dense_assemble.dense_assemble(*dargs),
-                 lambda: dense_assemble.dense_assemble_plain(*dargs),
-                 nbytes=nbytes, flops=flops, library=lib_dense,
-                 label=k15_label, slow_plain=k15_label is not None)
+            dargs = dense_world_dargs(dense_assemble, problem_mod, dprob)
+            T = dargs[1]
+            k15_row(k15_label or "dense_assemble", tag, dargs,
+                    slow_plain=k15_label is not None)
             once = dense_assemble.dense_assemble(*dargs)
-            if not all(torch.equal(a_, b_) for a_, b_ in
-                       zip(once, dense_assemble.dense_assemble(*dargs))):
-                raise AssertionError("dense_assemble does not repeat its bits")
             if k15_width == 3:
                 # what the width-3 instantiation saves the 2D types: the
                 # same call with every pair launch on dense_pair<T, 6>
@@ -1849,7 +1931,7 @@ def main() -> int:
                     or bool(skew.triu(k15_width).any()):
                 raise AssertionError("dense_assemble: H is not symmetric")
             del skew
-            del lib_H, lib_ops, lin, dgroups, once, dprob, dpattern
+            del dargs, once, dprob
 
     # K10-K13 on the BAL problems of phases 4g and 4h and on the landmark
     # worlds of 4i (the generic entry and the (3, 2) instantiations)
@@ -2148,34 +2230,59 @@ def main() -> int:
                  s_blocks.view(dp, dp, C).permute(2, 0, 1)), slow_plain=True,
              tol=block_inv_tol(tag, cond))
         if with_schur:
-            pairs = bpat.schur_pairs()
-            M = pairs.n_contrib
             # the JAX route's operands: B2 [Tp, dl L], M2 = [HB2^T | hib]
             B2 = W_csr.to_dense()
             HB2 = torch.einsum("utl,ctl->cul", Hinv.view(dl, dl, L),
                                B2.view(Tp, dl, L)).reshape(Tp, dl * L)
             M2 = torch.cat([HB2.T, hib.reshape(-1, 1)], dim=1).contiguous()
             del HB2
+            # K12's own operands, as kernel_times.py makes them
+            pairs, w_k, hinv_k, hcc_k = k12_operands(ba_ell, ba_inv, bprob)
+            M = pairs.n_contrib
+            # W's records, made once per linearization on this route
+            w_flat = w_k.view(dp * dl, -1)
+            rec_w = ba_schur.record_width(dp * dl, dt)
+            case("ba_schur_records", tag,
+                 f"W [{dp * dl}, {K * L}] -> [{K * L}, {rec_w}]",
+                 lambda: ba_schur.ba_schur_records(w_flat),
+                 lambda: ba_schur.ba_schur_records_plain(w_flat),
+                 nbytes=s * (dp * dl + rec_w) * K * L, flops=0,
+                 label="ba_schur_records" + sfx,
+                 library=lambda: torch.nn.functional.pad(
+                     w_flat.T, (0, rec_w - dp * dl)),
+                 tol={"float32": 0.0, "float64": 0.0}[tag])
+            device_rows("ba_schur_records" + sfx, tag, {
+                "kernel": lambda: ba_schur.ba_schur_records(w_flat),
+                "torch.nn.functional.pad of the transpose":
+                    lambda: torch.nn.functional.pad(
+                        w_flat.T, (0, rec_w - dp * dl))})
+            W_rec = ba_schur.ba_schur_records(w_flat)
+            schur_call = lambda: ba_schur.ba_schur_dense(
+                pairs, w_k, hinv_k, hcc_k, w_rec=W_rec)
+            both_copies = lambda: ba_schur.ba_schur_dense(
+                pairs, w_k, hinv_k, hcc_k,
+                w_rec=ba_schur.ba_schur_records(w_flat))
             case("ba_schur_dense", tag,
-                 f"Tp={Tp} {pairs.n_dest} destinations {M} contributions",
-                 lambda: ba_schur.ba_schur_dense(pairs, W_lm, Hinv, Hcc_d),
-                 lambda: ba_schur.ba_schur_dense_plain(pairs, W_lm, Hinv,
-                                                       Hcc_d),
+                 f"Tp={Tp} {pairs.n_dest} destinations {M} contributions, "
+                 "both record copies in each call",
+                 both_copies,
+                 lambda: ba_schur.ba_schur_dense_plain(pairs, w_k, hinv_k,
+                                                       hcc_k),
                  nbytes=s * (dp * dl * K * L + dl * dl * L + dp * dp * C
                              + Tp * Tp) + 4 * (3 * M + 3 * pairs.n_dest),
                  flops=2 * (dp * dl * dl + dp * dp * dl) * M,
                  label="ba_schur_dense" + sfx, library=lambda: B2 @ M2,
                  slow_plain=True)
             device_rows("ba_schur_dense" + sfx, tag, {
-                "kernel": lambda: ba_schur.ba_schur_dense(pairs, W_lm, Hinv,
-                                                          Hcc_d),
-                "torch.matmul(B2, M2) of the JAX route": lambda: B2 @ M2})
-            S1 = ba_schur.ba_schur_dense(pairs, W_lm, Hinv, Hcc_d)
-            if not torch.equal(S1, ba_schur.ba_schur_dense(pairs, W_lm, Hinv,
-                                                           Hcc_d)):
+                "kernel, both record copies": both_copies,
+                "kernel, W's records made once per linearization (as "
+                "_solve calls it)": schur_call,
+                **({} if sfx else {"torch.matmul(B2, M2) of the JAX route":
+                                  lambda: B2 @ M2})})
+            if not torch.equal(schur_call(), schur_call()):
                 raise AssertionError("ba_schur_dense does not repeat its "
                                      "bits")
-            del B2, M2, S1
+            del B2, M2, W_rec, w_k, hinv_k, hcc_k
         del got, want, W_csr, WT_csr
 
     for dt in (torch.float32, torch.float64):
@@ -2185,8 +2292,9 @@ def main() -> int:
                                             (BA_400K, "@400k", False)):
             ba_rows(synthetic_bal_problem(nc, npts, BA_OBS, dtype=dt)[0],
                     sfx, tag, s, with_schur)
+        # K12 at (3, 2) on the 2D world (4i's dense-Schur run)
         for world_g, sfx in ((world, "@2d"), (world3, "@3d")):
-            ba_rows(world_g.compile(dtype=dt), sfx, tag, s, False)
+            ba_rows(world_g.compile(dtype=dt), sfx, tag, s, sfx == "@2d")
         # the generic entry's own row is its 3-wide (6, 3) instantiation on
         # the 3D world (the BAL problems run the fused entry only)
         results[("ba_edge_blocks", tag)] = results.pop(
@@ -2472,38 +2580,12 @@ def main() -> int:
                 "kernel": lambda: jacobi_scale.lane_block_mv(binv, xd),
                 "torch.einsum": lambda: torch.einsum(
                     "abn,bn->an", binv.view(D, D, N), xd)})
-        if sfx == "@psi2uv":
-            # K15 on the pose slots of the ternary edges: both cameras'
-            # blocks and their coupling, block + transpose where the two
-            # slots name one camera
-            hp = pat.hpp_pattern or dense_assemble.build_dense_pattern(
-                gprob, egroups=[next(e for e in gprob.static.egroups
-                                     if e.key == k_) for k_, _ in pat.hpp_keys],
-                total_dim=Tp, slots=[ps for _, ps in pat.hpp_keys])
-            groups = []
-            for i, (key, ps) in enumerate(pat.hpp_keys):
-                resid, jacs, rho1 = lin[key]
-                groups.append(dense_assemble.EdgeBlocks(
-                    resid.contiguous(),
-                    tuple(jacs[s_].contiguous() for s_ in ps),
-                    rho1.contiguous(), gprob.edges[key].information,
-                    hp.offsets[i]))
-            zeros = torch.zeros(Tp, dtype=dt, device=dev)
-            n_pairs = sum(tb.n_dest for tb_list in hp.pairs for tb in tb_list)
-            n_contrib = sum(tb.edge.numel() for tb_list in hp.pairs
-                            for tb in tb_list)
-            Dp = pat.pose_groups[0].dim
-            case("dense_assemble", tag, f"Tp={Tp}, E={E} ternary edges, "
-                 f"pose slot pairs (1,1) (1,2) (2,2): {n_pairs} "
-                 f"destinations, {n_contrib} contributions",
-                 lambda: dense_assemble.dense_assemble(
-                     groups, Tp, zeros, hp, add_fixed_diag=False)[:2],
-                 lambda: dense_assemble.dense_assemble_plain(
-                     groups, Tp, zeros, hp, add_fixed_diag=False)[:2],
-                 nbytes=s * (Tp * Tp + Tp + E * (R + 2 * R * Dp + 1 + R * R))
-                 + 4 * (2 * E + 4 * n_pairs + 2 * n_contrib),
-                 flops=3 * E * (2 * Dp * R * R + 2 * Dp * Dp * R),
-                 label="dense_assemble@psi2uv", slow_plain=True)
+        # K15 on the pose slots: at @psi2uv both cameras' blocks and their
+        # coupling (block + transpose where the two slots name one
+        # camera), at @intrinsics the cameras, the intrinsics hub and
+        # their coupling
+        k15_row("dense_assemble" + sfx, tag,
+                pose_slot_dargs(torch, dense_assemble, gprob, pat, lin))
         del W_csr, WT_csr, sys_, lin, hpp_d, got_w, want_w
 
     for dt in (torch.float32, torch.float64):
@@ -2511,6 +2593,15 @@ def main() -> int:
         s = torch.empty((), dtype=dt).element_size()
         for sfx, g_ in general_graphs.items():
             general_rows(g_.compile(dtype=dt), sfx, tag, s)
+        # K15 on the camera slots of phases 4j and 4n (binary XYZ2UV at
+        # both BAL shapes through the general path)
+        for shape, sfx in ((BA_80K, "@4j"), (BA_400K, "@4n")):
+            gprob = synthetic_bal_problem(*shape, BA_OBS, dtype=dt)[0]
+            k15_row("dense_assemble" + sfx, tag, pose_slot_dargs(
+                torch, dense_assemble, gprob,
+                ba_general.build_schur_pattern(gprob),
+                problem_mod.linearize(gprob)))
+            del gprob
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for (label, tag), row in sorted(results.items()):
@@ -2555,6 +2646,7 @@ def main() -> int:
              (ba_edge, "ba_xyz2uv_blocks"), (ba_edge, "ba_edge_blocks"),
              (ba_edge, "ba_lm_sums"), (ba_edge, "ba_cam_sums"),
              (ba_inv, "ba_block_inv"), (ba_schur, "ba_schur_dense"),
+             (ba_schur, "ba_schur_records"),
              (ba_coupling, "ba_wtx"), (ba_coupling, "ba_wv"),
              (ba_coupling, "ba_sandwich"),
              (schur_general, "schur_edge_blocks")]
@@ -2569,6 +2661,10 @@ def main() -> int:
                           for mod, attr in swaps]
             for mod, attr in swaps:
                 setattr(mod, attr, getattr(mod, attr + "_plain"))
+            # the plain K12 reads w_lm; its caller also hands W's records
+            plain_schur = ba_schur.ba_schur_dense_plain
+            ba_schur.ba_schur_dense = \
+                lambda *a, w_rec, **k: plain_schur(*a, **k)
 
         def __exit__(self, *exc):
             for mod, attr, fn in self.saved:
@@ -3246,6 +3342,44 @@ def main() -> int:
               f"{step_traj[-1]:.1f}) expected 2E - 6(C - 1) - 3P = "
               f"{expected:.1f} ratio {traj[-1] / expected:.5f} (gate "
               f"{BA_GATE}); never increases")
+        if dense:
+            # K12 in the loop: one linearization and one trial's solve at
+            # the end state, profiled: the pair kernel, the zero fill of S
+            # and the record copies (W's in _build, Hinv's in the solve)
+            work = bprob.with_params(st[0])
+            solve_k = lambda sys_k: ba_ell._solve(
+                work, pattern, sys_k, st[1], BA_PCG["pcg_iters"],
+                BA_PCG["pcg_tol"])
+            solve_k(ba_ell._build(work, pattern))
+            torch.cuda.synchronize()
+            # a profile can miss its records: up to 3 tries, each of which
+            # must launch K12 once by its count
+            for attempt in range(1, 4):
+                k12_before = ba_schur.ba_schur_dense.launches
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof_k:
+                    solve_k(ba_ell._build(work, pattern))
+                    torch.cuda.synchronize()
+                if ba_schur.ba_schur_dense.launches - k12_before != 1:
+                    raise AssertionError(f"phase {phase}: the profiled "
+                                         "solve did not launch K12 once")
+                rows_k = [(e.self_device_time_total, e.count, e.key)
+                          for e in prof_k.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA
+                          and e.self_device_time_total > 0
+                          and any(w_ in e.key for w_ in (
+                              "ba_schur", "records", "zero_fill"))]
+                if any("ba_schur_kernel" in k_ for _, _, k_ in rows_k):
+                    break
+            else:
+                raise AssertionError(f"phase {phase}: the profiler saw no "
+                                     "K12 launch in 3 tries")
+            print(f"phase {phase} K12 in one linearization + trial solve "
+                  f"(profiler, try {attempt}): " + "; ".join(
+                      f"{k_[:48]} {us / n_:.2f} us x {n_}"
+                      for us, n_, k_ in sorted(rows_k, reverse=True))
+                  + f" [{card}]")
+            del work
         used = ("ba_schur_dense",) if dense else ("ba_sandwich",
                                                   "lane_block_mv")
         unused = "ba_sandwich" if dense else "ba_schur_dense"
@@ -3467,7 +3601,8 @@ def main() -> int:
         for what_p, rows_p in (
                 ("the solve", rows_g[:8] + [r for r in rows_g[8:]
                                             if "sandwich" in r[2]]),
-                ("schur_build", rows_b[:6])):
+                ("schur_build", rows_b[:6] + [r for r in rows_b[6:]
+                                              if "dense_pair" in r[2]])):
             print(f"phase {phase} device time by kernel in {what_p}: "
                   + "; ".join(f"{k_[:48]} {us / n_:.1f} us x {n_}"
                               for us, n_, k_ in rows_p))
@@ -3821,8 +3956,9 @@ def main() -> int:
              + [k for k in ("dense_assemble", "lm_outcome")
                 if counts_dense[k] <= 0]
              + [k for k in ("ba_xyz2uv_blocks", "ba_lm_sums", "ba_cam_sums",
-                            "ba_block_inv", "ba_schur_dense", "ba_wtx",
-                            "ba_wv", "lm_outcome") if counts_ba80[k] <= 0]
+                            "ba_block_inv", "ba_schur_dense",
+                            "ba_schur_records", "ba_wtx", "ba_wv",
+                            "lm_outcome") if counts_ba80[k] <= 0]
              + [k for k in ("ba_xyz2uv_blocks", "ba_lm_sums", "ba_cam_sums",
                             "ba_block_inv", "ba_sandwich", "ba_wtx", "ba_wv",
                             "lane_block_mv", "cg_update_xr", "cg_update_p",

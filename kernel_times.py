@@ -1,32 +1,58 @@
 #!/usr/bin/env python3
-"""Device time by CUDA events of K16 `edge_se3_blocks` and K13
-`ba_sandwich` for any tree of the port, so that two trees can be timed in
-one session on one card.
+"""Device time by CUDA events of the redesigned kernels for any tree of
+the port, so that two trees can be timed in one run on one card.
 
-    python3 kernel_times.py [--tree PATH]
+    python3 kernel_times.py [--tree PATH] [--only k15,k12,k16,sandwich]
+                            [--save FILE] [--against FILE]
 
 It times the `openslam_g2o_torch` of PATH (default: this script's own
 tree) with this tree's chip_smoke.py: its shapes, its `_device_ms` (CUDA
 events around up to 200 calls queued behind a spin kernel, median of 5)
 and its tolerances against the plain version. chip_smoke.py's phase 3
-times both kernels itself; this script times a tree whose chip_smoke.py
-does not, at the same shapes: K16 on the sphere of phase 4e (100,000
-poses, 149,963 edges) without and with Huber, on streams of the main
-path's width, and `ba_sandwich` on the pose rows of ba_80k and ba_400k and
-of each pose group of the PSI2UV and P2MC_INTRINSICS scenes (random
-seeded W, Hinv, Hcc_d; the scenes' own rows and chunks). Float32 and
-float64. Each line gives the microseconds per call, the bound (bytes over
-3.35 TB/s), the error against the plain version relative to its largest
-entry, and whether a second call gave the same bits. Needs an NVIDIA GPU.
+times these kernels itself; this script times a tree whose chip_smoke.py
+does not, at the same shapes:
+
+* k15: K15 `dense_assemble` on the landmark worlds of phases 4d (2D) and
+  4f (3D, the 6-wide instantiation), and on the pose slots of the general
+  Schur path's scenes, as schur_build passes them: 4j (ba_80k, binary
+  XYZ2UV), 4k (PSI2UV), 4l (P2MC_INTRINSICS, the intrinsics hub) and 4n
+  (ba_400k); a whole call (zero fills, the pair launches, the finalize);
+* k12: K12 `ba_schur_dense` on ba_80k and on the 4d world at (Dp, dl) =
+  (3, 2), on chip_smoke's `k12_operands`, a call making every operand it
+  reads (a tree that takes W's records also with them made beforehand,
+  as its `_solve` calls it);
+* k16: K16 on the sphere of phase 4e (100,000 poses, 149,963 edges)
+  without and with Huber, on streams of the main path's width;
+* sandwich: `ba_sandwich` on the pose rows of ba_80k and ba_400k and of
+  each pose group of the PSI2UV and P2MC_INTRINSICS scenes (random seeded
+  W, Hinv, Hcc_d; the scenes' own rows and chunks).
+
+Float32 and float64. Each line gives the microseconds per call, the bound
+(bytes over 3.35 TB/s), the error against the plain version relative to
+its largest entry, and whether a second call gave the same bits. --save
+writes a SHA-256 digest of every timed call's outputs to FILE (JSON);
+--against reads such a file, written by another tree on the same inputs,
+and prints whether each output has the same digest (the same bits).
+Needs an NVIDIA GPU.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
+import inspect
+import json
 import os
 import subprocess
 import sys
 
 import chip_smoke
+
+SECTIONS = ("k15", "k12", "k16", "sandwich")
+
+
+def _digest(t):
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()
+                          ).hexdigest()[:16]
 
 
 def _rel(got, want):
@@ -38,18 +64,27 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--tree", default=os.path.dirname(
         os.path.abspath(__file__)), help="root of the tree to time")
+    ap.add_argument("--only", default=",".join(SECTIONS),
+                    help="comma-separated sections of " + ", ".join(SECTIONS))
+    ap.add_argument("--save", help="write the outputs to this file")
+    ap.add_argument("--against", help="compare the outputs with this file")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(SECTIONS):
+        ap.error(f"--only takes {SECTIONS}")
     sys.path.insert(0, os.path.abspath(args.tree))
     import torch
     if not torch.cuda.is_available():
         print("kernel_times: needs an NVIDIA GPU", file=sys.stderr)
         return 1
     from openslam_g2o_torch.apps.simulator import (
-        create_sphere, synthetic_bal_problem)
+        Simulator2D, Simulator3D, create_sphere, synthetic_bal_problem)
     from openslam_g2o_torch.core import ba as ba_general
     from openslam_g2o_torch.core import ba_ell, sparse
+    from openslam_g2o_torch.core import problem as problem_mod
     from openslam_g2o_torch.core.graph import Graph
-    from openslam_g2o_torch.kernels import ba_coupling, edge_se3
+    from openslam_g2o_torch.kernels import (
+        ba_coupling, ba_inv, ba_schur, dense_assemble, edge_se3)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -58,57 +93,169 @@ def main(argv=None) -> int:
     print(f"kernel_times: {card}; openslam_g2o_torch from "
           f"{edge_se3.__file__.rsplit('/openslam_g2o_torch/', 1)[0]}")
     dev = torch.device("cuda")
-    failed = []
+    failed, saved = [], {}
+    against = None
+    if args.against:
+        with open(args.against) as f:
+            against = json.load(f)
 
-    def report(name, tol_key, shape, tag, run, plain, nbytes):
+    def report(name, tol_key, shape, tag, run, plain, nbytes, extra=()):
+        """Check `run` against `plain`, time it and the `extra` variants
+        ((description, call) pairs) of the same function, print a line."""
         got = [t.clone() for t in run()]
         rel = max(_rel(g, w) for g, w in zip(got, plain()))
         same = all(torch.equal(g, a) for g, a in zip(got, run()))
-        ok = rel < chip_smoke.TOL[tol_key][tag] and same
+        ok = rel < chip_smoke.TOL.get(tol_key, chip_smoke.TOL_DEFAULT)[tag] \
+            and same
+        key = f"{name} {tag}"
+        digests = [_digest(g) for g in got] if args.save or against else []
+        saved[key] = digests
+        bits = ""
+        if against is not None and key in against:
+            bits = f"; the bits of --against: {digests == against[key]}"
         if not ok:
-            failed.append(f"{name} {tag}")
-        ms, calls, held = chip_smoke._device_ms(torch, run)
-        print(f"kernel_times {name} {tag} {shape}: {1e3 * ms:.2f} us"
-              + ("" if held else " (host-bound)")
-              + ("" if calls == 200 else f" ({calls} calls)")
+            failed.append(key)
+        del got
+        times = [("", run)] + list(extra)
+        line = []
+        for what, fn in times:
+            ms, calls, held = chip_smoke._device_ms(torch, fn)
+            line.append(f"{what}{1e3 * ms:.2f} us"
+                        + ("" if held else " (host-bound)")
+                        + ("" if calls == 200 else f" ({calls} calls)"))
+        print(f"kernel_times {name} {tag} {shape}: " + "; ".join(line)
               + f"; bound {1e6 * nbytes / chip_smoke.HBM_BYTES_PER_S:.2f} us"
-              f"; max_rel_err {rel:.3e}; same bits {same}"
+              f"; max_rel_err {rel:.3e}; same bits {same}{bits}"
               + ("" if ok else " FAILED"), flush=True)
 
-    # -- K16 on the sphere --------------------------------------------------
-    sphere, _ = create_sphere(**chip_smoke.SPHERE)
-    for dt in (torch.float32, torch.float64):
-        tag = str(dt).split(".")[-1]
-        s = torch.empty((), dtype=dt).element_size()
-        prob = sphere.compile(dtype=dt)
-        ea = prob.edges["edge_se3"]
-        pattern = sparse.build_ell_pattern(prob)
-        N, E = pattern.n, pattern.e_total
-        # the main path's stream width (a tree that does not pad has E)
-        W = getattr(pattern, "e_cols", E)
-        hk = torch.zeros((36, 4 * W), dtype=dt, device=dev)
-        bk = torch.zeros((6, 2 * W), dtype=dt, device=dev)
-        hp, bp = torch.zeros_like(hk), torch.zeros_like(bk)
-        for kid, name in ((0, "edge_se3_blocks"),
-                          (1, "edge_se3_blocks@huber")):
-            a = (prob.params["se3"], prob.free["se3"], ea.indices[0],
-                 ea.indices[1], ea.measurement, ea.information, ea.delta,
-                 kid)
+    dtypes = (torch.float32, torch.float64)
+    tag_of = lambda dt: str(dt).split(".")[-1]
+    geo80 = chip_smoke.bal_geometry(*chip_smoke.BA_80K)
+    general = {"@psi2uv": chip_smoke.psi2uv_graph(Graph, geo80),
+               "@intrinsics": chip_smoke.p2mc_intrinsics_graph(Graph, geo80)}
+    worlds = {}
+    if only & {"k15", "k12"}:
+        worlds["2d"] = Simulator2D(**chip_smoke.DENSE_WORLD).simulate(
+            n_poses=chip_smoke.DENSE_POSES)[0]
+    if "k15" in only:
+        worlds["3d"] = Simulator3D(**chip_smoke.DENSE3_WORLD).simulate(
+            n_poses=chip_smoke.DENSE3_POSES)[0]
 
-            def run(a=a):
-                edge_se3.edge_se3_blocks(*a, hk, bk, 0)
-                return hk, bk
+    # -- K15 -----------------------------------------------------------------
+    def k15(label, tag, dargs):
+        groups, T, _, pattern, _ = dargs
+        nbytes = chip_smoke.k15_bytes_flops(groups, pattern)[0] \
+            + groups[0].resid.element_size() * (T * T + 3 * T)
+        tables = [tb for tbs in pattern.pairs for tb in tbs]
+        report(f"dense_assemble{label}", "dense_assemble",
+               f"T={T}, {len(tables)} slot pairs, "
+               f"{sum(tb.n_dest for tb in tables)} destinations, "
+               f"{sum(tb.edge.numel() for tb in tables)} contributions", tag,
+               lambda: dense_assemble.dense_assemble(*dargs),
+               lambda: dense_assemble.dense_assemble_plain(*dargs), nbytes)
 
-            def plain(a=a):
-                edge_se3.edge_se3_blocks_plain(*a, hp, bp, 0)
-                return hp, bp
+    if "k15" in only:
+        for dt in dtypes:
+            tag = tag_of(dt)
+            for key, label in (("2d", ""), ("3d", "@d6")):
+                k15(label, tag, chip_smoke.dense_world_dargs(
+                    dense_assemble, problem_mod,
+                    worlds[key].compile(dtype=dt)))
+            scenes = (("@4j", lambda: synthetic_bal_problem(
+                          *chip_smoke.BA_80K, chip_smoke.BA_OBS, dtype=dt)[0]),
+                      ("@psi2uv", lambda: general["@psi2uv"].compile(
+                          dtype=dt)),
+                      ("@intrinsics", lambda: general["@intrinsics"].compile(
+                          dtype=dt)),
+                      ("@4n", lambda: synthetic_bal_problem(
+                          *chip_smoke.BA_400K, chip_smoke.BA_OBS,
+                          dtype=dt)[0]))
+            for label, make in scenes:
+                gprob = make()
+                k15(label, tag, chip_smoke.pose_slot_dargs(
+                    torch, dense_assemble, gprob,
+                    ba_general.build_schur_pattern(gprob),
+                    problem_mod.linearize(gprob)))
+                del gprob
+            torch.cuda.empty_cache()
 
-            report(name, name, f"N={N} E={E}, streams {W} columns wide", tag,
-                   run, plain, s * (8 * N + 44 * E + 156 * E) + 8 * E)
-        del prob, hk, bk, hp, bp
-    del sphere
+    # -- K12 -----------------------------------------------------------------
+    takes_records = "w_rec" in inspect.signature(
+        ba_schur.ba_schur_dense).parameters
+    if "k12" in only:
+        for dt in dtypes:
+            tag = tag_of(dt)
+            s = torch.empty((), dtype=dt).element_size()
+            for label, make in (
+                    ("", lambda: synthetic_bal_problem(
+                        *chip_smoke.BA_80K, chip_smoke.BA_OBS,
+                        dtype=dt)[0]),
+                    ("@2d", lambda: worlds["2d"].compile(dtype=dt))):
+                pairs, w_lm, hinv, hcc_d = chip_smoke.k12_operands(
+                    ba_ell, ba_inv, make())
+                dl = int(round(hinv.shape[0] ** 0.5))
+                dp, K, L, C = (w_lm.shape[0] // dl, w_lm.shape[1],
+                               pairs.n_lm, pairs.n_cam)
+                M, Tp = pairs.n_contrib, C * dp
+                call = lambda: (ba_schur.ba_schur_dense(
+                    pairs, w_lm, hinv, hcc_d),)
+                extra = ()
+                if takes_records:
+                    w_flat = w_lm.view(dp * dl, -1)
+                    w_rec = ba_schur.ba_schur_records(w_flat)
+                    call = lambda: (ba_schur.ba_schur_dense(
+                        pairs, w_lm, hinv, hcc_d,
+                        w_rec=ba_schur.ba_schur_records(w_flat)),)
+                    extra = (("W's records made beforehand ", lambda:
+                              ba_schur.ba_schur_dense(pairs, w_lm, hinv,
+                                                      hcc_d, w_rec=w_rec)),)
+                report(f"ba_schur_dense{label}", "ba_schur_dense",
+                       f"(Dp, dl) = ({dp}, {dl}) Tp={Tp} {pairs.n_dest} "
+                       f"destinations {M} contributions", tag, call,
+                       lambda: (ba_schur.ba_schur_dense_plain(
+                           pairs, w_lm, hinv, hcc_d),),
+                       s * (dp * dl * K * L + dl * dl * L + dp * dp * C
+                            + Tp * Tp) + 4 * (3 * M + 3 * pairs.n_dest),
+                       extra)
+                del hinv, hcc_d, pairs, w_lm, call, extra
+                torch.cuda.empty_cache()
 
-    # -- ba_sandwich on the scenes' pose rows -------------------------------
+    # -- K16 on the sphere ---------------------------------------------------
+    if "k16" in only:
+        sphere, _ = create_sphere(**chip_smoke.SPHERE)
+        for dt in dtypes:
+            tag = tag_of(dt)
+            s = torch.empty((), dtype=dt).element_size()
+            prob = sphere.compile(dtype=dt)
+            ea = prob.edges["edge_se3"]
+            pattern = sparse.build_ell_pattern(prob)
+            N, E = pattern.n, pattern.e_total
+            # the main path's stream width (a tree that does not pad has E)
+            W = getattr(pattern, "e_cols", E)
+            hk = torch.zeros((36, 4 * W), dtype=dt, device=dev)
+            bk = torch.zeros((6, 2 * W), dtype=dt, device=dev)
+            hp, bp = torch.zeros_like(hk), torch.zeros_like(bk)
+            for kid, name in ((0, "edge_se3_blocks"),
+                              (1, "edge_se3_blocks@huber")):
+                a = (prob.params["se3"], prob.free["se3"], ea.indices[0],
+                     ea.indices[1], ea.measurement, ea.information, ea.delta,
+                     kid)
+
+                def run(a=a):
+                    edge_se3.edge_se3_blocks(*a, hk, bk, 0)
+                    return hk, bk
+
+                def plain(a=a):
+                    edge_se3.edge_se3_blocks_plain(*a, hp, bp, 0)
+                    return hp, bp
+
+                report(name, name, f"N={N} E={E}, streams {W} columns wide",
+                       tag, run, plain,
+                       s * (8 * N + 44 * E + 156 * E) + 8 * E)
+            del prob, hk, bk, hp, bp
+        del sphere
+
+    # -- ba_sandwich on the scenes' pose rows ---------------------------------
     def sandwich_rows(tag, dt, label, rows, dp, dl, L):
         s = torch.empty((), dtype=dt).element_size()
         gen = torch.Generator(device=dev).manual_seed(dp + L)
@@ -125,24 +272,25 @@ def main(argv=None) -> int:
                s * (dp * dl * M + dl * dl * L + 2 * dp * dp * C)
                + 4 * (M + rows.n_chunks + C + 1))
 
-    geo80 = chip_smoke.bal_geometry(*chip_smoke.BA_80K)
-    general = {"@psi2uv": chip_smoke.psi2uv_graph(Graph, geo80),
-               "@intrinsics": chip_smoke.p2mc_intrinsics_graph(Graph, geo80)}
-    for dt in (torch.float32, torch.float64):
-        tag = str(dt).split(".")[-1]
-        for (nc, npts), sfx in ((chip_smoke.BA_80K, ""),
-                                (chip_smoke.BA_400K, "@400k")):
-            bprob = synthetic_bal_problem(nc, npts, chip_smoke.BA_OBS,
-                                          dtype=dt)[0]
-            bpat = ba_ell.build_ba_ell_pattern(bprob)
-            sandwich_rows(tag, dt, sfx, bpat.cam_rows, bpat.dp, bpat.dl,
-                          bpat.n_lm)
-            del bprob, bpat
-        for sfx, graph in general.items():
-            pat = ba_general.build_schur_pattern(graph.compile(dtype=dt))
-            for pg in pat.pose_groups:
-                sandwich_rows(tag, dt, f"{sfx}#{pg.name}", pg.rows, pg.dim,
-                              pat.dl, pat.n_lm)
+    if "sandwich" in only:
+        for dt in dtypes:
+            tag = tag_of(dt)
+            for (nc, npts), sfx in ((chip_smoke.BA_80K, ""),
+                                    (chip_smoke.BA_400K, "@400k")):
+                bprob = synthetic_bal_problem(nc, npts, chip_smoke.BA_OBS,
+                                              dtype=dt)[0]
+                bpat = ba_ell.build_ba_ell_pattern(bprob)
+                sandwich_rows(tag, dt, sfx, bpat.cam_rows, bpat.dp, bpat.dl,
+                              bpat.n_lm)
+                del bprob, bpat
+            for sfx, graph in general.items():
+                pat = ba_general.build_schur_pattern(graph.compile(dtype=dt))
+                for pg in pat.pose_groups:
+                    sandwich_rows(tag, dt, f"{sfx}#{pg.name}", pg.rows,
+                                  pg.dim, pat.dl, pat.n_lm)
+    if args.save:
+        with open(args.save, "w") as f:
+            json.dump(saved, f, indent=0)
     if failed:
         print("kernel_times: FAILED " + ", ".join(failed))
         return 1

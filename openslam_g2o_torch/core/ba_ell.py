@@ -255,9 +255,10 @@ def _lane_diag(A):
 def _build(problem: Problem, pattern: BAEllPattern):
     """The per-linearization quantities (ba_ell.py:537-672): Hll [dl*dl, L],
     b_l [dl, L], Hcc [Dp*Dp, C], b_p [Dp, C], W landmark-major
-    [Dp*dl, K, L] and camera-major [Dp*dl, E], and the dense pose-pose
-    extra Hpp_extra [Tp, Tp], b_extra [Tp] (None without pose-pose
-    edges)."""
+    [Dp*dl, K, L] and camera-major [Dp*dl, E], on the dense-Schur route
+    W's records for K12 [K*L, Dp*dl padded] (else None), and the dense
+    pose-pose extra Hpp_extra [Tp, Tp], b_extra [Tp] (None without
+    pose-pose edges)."""
     params, free = problem.params, problem.free
     lm, cam = pattern.lm_name, pattern.cam_name
     streams = ba_edge.EdgeStreams.empty(pattern.n_obs, pattern.dp,
@@ -281,6 +282,8 @@ def _build(problem: Problem, pattern: BAEllPattern):
     Hll, b_l, W_lm = ba_edge.ba_lm_sums(streams, pattern.lm_edge)
     Hcc, b_p, W_cam = ba_edge.ba_cam_sums(streams, pattern.cam_rows)
     del streams
+    W_rec = (ba_schur.ba_schur_records(W_lm.view(W_lm.shape[0], -1))
+             if dense_schur_ok(problem, pattern) else None)
     Hpp_extra = b_extra = None
     if pattern.pose_only_keys:
         groups = []
@@ -298,7 +301,8 @@ def _build(problem: Problem, pattern: BAEllPattern):
             groups, pattern.pose_dim, zeros, pattern.extra_pattern,
             add_fixed_diag=False)
     return {"Hll": Hll, "b_l": b_l, "Hcc": Hcc, "b_p": b_p, "W_lm": W_lm,
-            "W_cam": W_cam, "Hpp_extra": Hpp_extra, "b_extra": b_extra}
+            "W_cam": W_cam, "W_rec": W_rec, "Hpp_extra": Hpp_extra,
+            "b_extra": b_extra}
 
 
 def _solve(problem: Problem, pattern: BAEllPattern, sys, lam,
@@ -321,7 +325,8 @@ def _solve(problem: Problem, pattern: BAEllPattern, sys, lam,
                               free=free_c)
     if dense_schur_ok(problem, pattern):
         S = ba_schur.ba_schur_dense(pattern.schur_pairs(), sys["W_lm"], Hinv,
-                                    Hcc_d, base=sys["Hpp_extra"])
+                                    Hcc_d, base=sys["Hpp_extra"],
+                                    w_rec=sys["W_rec"])
         dx_flat, ok = solve_dense_cholesky(S, b_red.T.reshape(-1))
         del S
         dx_p = (dx_flat.view(C, dp).T * free_c[None]).contiguous()

@@ -9,7 +9,8 @@ of the arguments decides. Every wrapper counts the calls in which it
 launched its kernel in a plain integer attribute, `wrapper.launches`
 (`cg_finish` and `gershgorin_bound` are two-pass reductions: one counted
 call launches two kernels per vector, respectively two; `ba_schur_dense`
-launches the zero fill of S and its pair kernel; `ba_wv` and
+launches the zero fill of S, the copy of Hinv into records (counted by
+`ba_schur_records`, as is W's copy) and its pair kernel; `ba_wv` and
 `ba_sandwich` are one launch each).
 `ba_block_inv` and `lane_block_mv`, which serve several block widths on
 one path, also count their launches per width D in
@@ -40,6 +41,7 @@ blocks (SE3 poses); the shapes of the arguments pick the instantiation.
     ba_edge.ba_cam_sums          camera sums, W by camera   (ROADMAP K10)
     ba_inv.ba_block_inv          damped block inverses     (ROADMAP K11)
     ba_schur.ba_schur_dense      dense reduced system S    (ROADMAP K12)
+    ba_schur.ba_schur_records    K12's W and Hinv records  (ROADMAP K12)
     ba_coupling.ba_wtx           W^T x, landmark solve     (ROADMAP K13)
     ba_coupling.ba_wv            W v, S x, reduced rhs     (ROADMAP K13)
     ba_coupling.ba_sandwich      preconditioner blocks     (ROADMAP K13)
@@ -74,7 +76,8 @@ WRAPPERS = (
     retract_chi2.se3_edge_chi2, retract_chi2.lm_outcome,
     dense_assemble.dense_assemble, ba_edge.ba_xyz2uv_blocks,
     ba_edge.ba_edge_blocks, ba_edge.ba_lm_sums, ba_edge.ba_cam_sums,
-    ba_inv.ba_block_inv, ba_schur.ba_schur_dense, ba_coupling.ba_wtx,
+    ba_inv.ba_block_inv, ba_schur.ba_schur_dense, ba_schur.ba_schur_records,
+    ba_coupling.ba_wtx,
     ba_coupling.ba_wv, ba_coupling.ba_sandwich,
     schur_general.schur_edge_blocks)
 

@@ -53,8 +53,9 @@ class PoseRows:
     or kernels/ba_edge.py `ba_cam_sums`, the three kernels that finish a
     vertex in its last chunk's block. Each leaves every counter at zero
     when it ends, and they are launched on one stream, in order, so the
-    three share it; one PoseRows serves one launch at a time. All int32 on
-    the device."""
+    three share it; one PoseRows serves one launch at a time. A launch
+    that fails leaves the counters unknown, and the rows must then be
+    built anew. All int32 on the device."""
     ptr: torch.Tensor
     lm: torch.Tensor
     chunk_ptr: torch.Tensor

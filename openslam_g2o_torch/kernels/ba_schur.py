@@ -12,6 +12,12 @@ of an observation by c1, slot k2 of one by c2) sorted by (c1, c2, l, k1,
 k2). S is [Tp, Tp] on the flat [C, Dp] ordering of the camera tangent.
 `torch.matmul(B2, M2)` of the JAX route is what chip_smoke.py times beside
 the kernel; the port never calls it.
+
+The kernel reads W and Hinv as records (`ba_schur_records`): W per
+observation slot [K L, Dp dl] and Hinv per landmark [L, dl^2], each row
+padded with zeros to a multiple of 16 bytes, so that a contribution reads
+a few whole sectors. core/ba_ell.py makes W's once per linearization on
+the dense-Schur route; the wrapper makes Hinv's on every call.
 """
 from __future__ import annotations
 
@@ -81,7 +87,52 @@ def build_schur_pairs(lm_cam: np.ndarray, n_cam: int, device) -> SchurPairs:
                       i32(k2 * L + lm))
 
 
+# the tables K12 reads as records: W at (Dp, dl) = (6, 3) and (3, 2), Hinv
+# at dl = 3 and 2
+RECORD_ROWS = (18, 9, 6, 4)
+
+
+def record_width(rows: int, dtype) -> int:
+    """Values per record of a `rows`-value block: rows rounded up to a
+    multiple of 16 bytes."""
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    return -(-rows // per) * per
+
+
+def ba_schur_records_plain(x):
+    """[rows, n] lane-major -> [n, record_width(rows)] records: row i holds
+    column i of x, then zeros."""
+    rows, n = x.shape
+    out = torch.zeros((n, record_width(rows, x.dtype)), dtype=x.dtype,
+                      device=x.device)
+    out[:, :rows] = x.T
+    return out
+
+
+def ba_schur_records(x):
+    """The records of a lane-major table x [rows, n] (W [Dp*dl, K*L] or
+    Hinv [dl*dl, L], rows in RECORD_ROWS): [n, record_width(rows)], column
+    i of x as row i, zero padded. A copy kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    require(x.dim() == 2 and x.shape[0] in RECORD_ROWS,
+            f"ba_schur_records: x must be [rows, n], rows in {RECORD_ROWS}")
+    check_tensors("ba_schur_records", x.device, x.dtype, {"x": x}, {})
+    if not launch_device("ba_schur_records", x.device):
+        return ba_schur_records_plain(x)
+    rows, n = x.shape
+    width = record_width(rows, x.dtype)
+    out = torch.empty((n, width), dtype=x.dtype, device=x.device)
+    build.launch("g2o_ba_records", x, x.data_ptr(), n, rows, width,
+                 out.data_ptr())
+    ba_schur_records.launches += 1
+    return out
+
+
+ba_schur_records.launches = 0
+
+
 def ba_schur_dense_plain(pairs, w_lm, hinv, hcc_d, base=None):
+    """Plain PyTorch version of K12 from the lane-major w_lm and hinv."""
     dl = int(round(hinv.shape[0] ** 0.5))
     dp = w_lm.shape[0] // dl
     C = pairs.n_cam
@@ -115,14 +166,18 @@ def ba_schur_dense_plain(pairs, w_lm, hinv, hcc_d, base=None):
     return S
 
 
-def ba_schur_dense(pairs: SchurPairs, w_lm, hinv, hcc_d, base=None):
+def ba_schur_dense(pairs: SchurPairs, w_lm, hinv, hcc_d, base=None, *,
+                   w_rec):
     """S [Tp, Tp] = base (or 0) + [-0.5 (S_corr + S_corr^T)
     + blockdiag(Hcc_d)] on every pair block of `pairs`, where S_corr =
     sum_l W_l Hinv_l W_l^T; blocks of camera pairs that share no landmark
     are base's (or 0). w_lm [Dp*dl, K, L], hinv [dl*dl, L], hcc_d
-    [Dp*Dp, C], base [Tp, Tp] (Hpp_extra) or None. K12 on CUDA tensors,
-    the plain version on CPU tensors; one counted call launches the zero
-    fill of S (without base) and the pair kernel."""
+    [Dp*Dp, C], base [Tp, Tp] (Hpp_extra) or None; w_rec: W's records,
+    `ba_schur_records(w_lm.view(Dp*dl, -1))`, made once per
+    linearization. K12 on CUDA tensors (which reads w_rec), the plain
+    version on CPU tensors (which reads w_lm); one counted call launches
+    the zero fill of S (without base), Hinv's record copy and the pair
+    kernel."""
     require(w_lm.dim() == 3 and w_lm.shape[1:] == (pairs.k_width,
                                                    pairs.n_lm),
             "ba_schur_dense: w_lm must be [Dp*dl, K, L] of the pair table")
@@ -137,21 +192,25 @@ def ba_schur_dense(pairs: SchurPairs, w_lm, hinv, hcc_d, base=None):
         require(base.shape == (Tp, Tp), f"ba_schur_dense: base must be "
                 f"{(Tp, Tp)}")
         floats["base"] = base
+    require(w_rec.shape == (pairs.k_width * pairs.n_lm,
+                            record_width(dp * dl, hinv.dtype)),
+            "ba_schur_dense: w_rec must be ba_schur_records of w_lm")
+    floats["w_rec"] = w_rec
     check_tensors("ba_schur_dense", hinv.device, hinv.dtype, floats,
                   {"ptr": pairs.ptr, "lm": pairs.lm})
     if not launch_device("ba_schur_dense", hinv.device):
         return ba_schur_dense_plain(pairs, w_lm, hinv, hcc_d, base)
+    h_rec = ba_schur_records(hinv)
     if base is None:
         S = torch.empty((Tp, Tp), dtype=hinv.dtype, device=hinv.device)
         build.launch("g2o_dense_zero", S, S.data_ptr(), S.numel())
     else:
         S = base.clone()
-    build.launch("g2o_ba_schur", S, w_lm.data_ptr(), hinv.data_ptr(),
+    build.launch("g2o_ba_schur", S, w_rec.data_ptr(), h_rec.data_ptr(),
                  hcc_d.data_ptr(), pairs.ptr.data_ptr(), pairs.c1.data_ptr(),
                  pairs.c2.data_ptr(), pairs.lm.data_ptr(),
                  pairs.pos1.data_ptr(), pairs.pos2.data_ptr(), pairs.n_dest,
-                 pairs.n_cam, pairs.n_lm, pairs.k_width * pairs.n_lm,
-                 int(base is not None), dp, dl, S.data_ptr())
+                 pairs.n_cam, int(base is not None), dp, dl, S.data_ptr())
     ba_schur_dense.launches += 1
     return S
 

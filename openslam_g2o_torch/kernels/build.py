@@ -61,8 +61,7 @@ _SIGNATURES = {
     "g2o_chebyshev_update": (_P, _I, _P, _P, _P, _P, _I, _P),
     "g2o_lane_gather": (_P, _P, _P, _I, _I, _I, _P),
     "g2o_dense_zero": (_P, _L, _P),
-    "g2o_dense_pair": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "g2o_dense_pair": (_P,) * 16 + (_I,) * 6 + (_P,),
     "g2o_dense_finalize": (_P, _P, _P, _I, _I, _P),
     "g2o_retract_se2": (_P, _P, _P, _P, _P, _P, _P, _I, _P),
     "g2o_se2_edge_chi2": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _P),
@@ -83,8 +82,8 @@ _SIGNATURES = {
                   _P, _P, _I, _I, _P, _P, _P, _P),
     "g2o_ba_sandwich": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P, _I,
                         _I, _P, _P, _P),
-    "g2o_ba_schur": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _I,
-                     _I, _I, _P, _P),
+    "g2o_ba_records": (_P, _L, _I, _I, _P, _P),
+    "g2o_ba_schur": (_P,) * 9 + (_I,) * 5 + (_P, _P),
     "g2o_schur_edge": (_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _P, _P,
                        _P, _L, _P, _P, _L, _P, _P),
 }

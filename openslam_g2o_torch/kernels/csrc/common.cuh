@@ -20,6 +20,52 @@ inline int grid_for(long long n) {
 // What a launcher returns right after its launches: 0 or the CUDA error.
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 
+// Asynchronous copies from global to shared memory (cp.async, sm_80 on):
+// the copy is issued and the thread goes on; cp_async_commit closes a
+// group of them and cp_async_wait<N> waits until at most N of the issuing
+// thread's groups are still in flight. Other threads see the data after a
+// barrier that follows the wait; the issuing thread itself reads them
+// after the wait. Every one is a compiler barrier ("memory"), so no read
+// of a buffer moves past a copy into it, or a wait. `cp_async16` needs both
+// addresses 16-byte aligned and reads through L2 only (.cg);
+// `cp_async_value` copies one 4- or 8-byte value.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+template <typename V>
+__device__ __forceinline__ void cp_async_value(V* smem, const V* gmem) {
+  static_assert(sizeof(V) == 4 || sizeof(V) == 8, "4 or 8 bytes");
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if constexpr (sizeof(V) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 16 bytes seen as float4 or as the values of type T they hold
+template <typename T>
+union Piece16 {
+  float4 v;
+  T t[16 / sizeof(T)];
+};
+
 // Explicit float/double overloads, so the float instantiation never
 // promotes to double math.
 __device__ __forceinline__ float dsin(float v) { return sinf(v); }

@@ -6,10 +6,12 @@ per edge group and slot pair (s, t >= s) the products J_s^T (rho' Omega) J_t
 and -J_s^T (rho' Omega) e, summed into the dense H [T, T] (the block and, off
 the diagonal, its transpose) and b [T], then raw_diag = diag(H) and the unit
 diagonal of fixed slots. The kernel sums through a destination-major table
-built here on the host once per topology (`build_dense_pattern`): a thread
-per chunk of at most DENSE_CHUNK contributions, then a thread per
-destination block summing its chunks in order, so a run repeats bit for
-bit and a hub (one vertex seen by every edge) is spread over the card.
+built here on the host once per topology (`build_dense_pattern`), one
+launch per slot pair: a group of threads per chunk of at most DENSE_CHUNK
+contributions, a lane per entry of the destination block, and the last
+chunk of a destination to arrive adds the chunks' sums in chunk order, so
+a run repeats bit for bit and a hub (one vertex seen by every edge) is
+spread over the card.
 """
 from __future__ import annotations
 
@@ -24,7 +26,10 @@ from openslam_g2o_torch.kernels._checks import (
 from openslam_g2o_torch.kernels.edge_se2 import bmm_small, bmv_small
 
 MAX_DIM = 6          # the widest instantiation of csrc/dense_assemble.cu
-DENSE_CHUNK = 64     # contributions per thread of the first pass
+DENSE_CHUNK = 64     # contributions per chunk (a group of threads)
+# values per chunk row of the kernel's scratch: the widest destination's
+# 6 x 6 block and 6 of b, rounded up to 16 bytes (float32)
+PART_STRIDE = 44
 
 
 @dataclass
@@ -46,8 +51,15 @@ class PairTable:
     t's width); its contributors are edge[ptr[d]:ptr[d+1]] in edge order,
     each with a flag: 0 add the block, 1 add its transpose, 2 add both.
     The lists are cut into chunks of at most DENSE_CHUNK contributions:
-    chunk c is contributions chunk_ptr[c]:chunk_ptr[c+1], destination d
-    owns chunks dest_chunk[d]:dest_chunk[d+1]."""
+    chunk c is contributions chunk_ptr[c]:chunk_ptr[c+1] of destination
+    chunk_dest[c], destination d owns chunks dest_chunk[d]:dest_chunk[d+1].
+    arrivals [n_dest] int32: the chunks that have reached each destination
+    in one launch; the last to arrive finishes the destination and resets
+    its counter, so a launch that runs to its end leaves every counter at
+    zero, and the next launch relies on that. The tables (and so every
+    DensePattern that holds them) serve one launch at a time, on one
+    stream; a launch that fails leaves the counters unknown, and the
+    pattern must then be built anew."""
     s: int
     t: int
     n_dest: int
@@ -57,7 +69,9 @@ class PairTable:
     edge: torch.Tensor
     flag: torch.Tensor
     chunk_ptr: torch.Tensor
+    chunk_dest: torch.Tensor
     dest_chunk: torch.Tensor
+    arrivals: torch.Tensor
 
     @property
     def n_chunks(self):
@@ -68,7 +82,9 @@ class PairTable:
 class DensePattern:
     """Static-topology tables of the dense assembly: per edge group (in
     the order of static.egroups) the slot offsets and one PairTable per
-    slot pair (s, t >= s), in the order the reference scatters them."""
+    slot pair (s, t >= s), in the order the reference scatters them.
+    Its tables' arrival counters make it serve one dense_assemble call at
+    a time, on one stream (PairTable)."""
     total_dim: int
     offsets: list
     pairs: list
@@ -108,7 +124,7 @@ def _pair_table(a, b, diag, total_dim):
     chunk_ptr = np.concatenate([
         ptr[dest_of] + (np.arange(len(dest_of)) - dest_chunk[dest_of])
         * DENSE_CHUNK, [ptr[-1]]])
-    return p, q, ptr, order, flag[order], chunk_ptr, dest_chunk
+    return p, q, ptr, order, flag[order], chunk_ptr, dest_of, dest_chunk
 
 
 def build_dense_pattern(problem, egroups=None, total_dim=None,
@@ -125,8 +141,6 @@ def build_dense_pattern(problem, egroups=None, total_dim=None,
     order."""
     static, dev = problem.static, problem.device
     total_dim = static.total_dim if total_dim is None else total_dim
-    i32 = lambda x: torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32),
-                                    device=dev)
     offsets, pairs = [], []
     egs = static.egroups if egroups is None else egroups
     for i, eg in enumerate(egs):
@@ -134,17 +148,26 @@ def build_dense_pattern(problem, egroups=None, total_dim=None,
         if slots is not None:
             offs = tuple(offs[s] for s in slots[i])
         offsets.append(offs)
-        host = [o.cpu().numpy().astype(np.int64) for o in offs]
-        tables = []
-        for s in range(len(host)):
-            for t in range(s, len(host)):
-                p, q, ptr, edge, flag, chunk_ptr, dest_chunk = _pair_table(
-                    host[s], host[t], s == t, total_dim)
-                tables.append(PairTable(s, t, len(p), i32(ptr), i32(p),
-                                        i32(q), i32(edge), i32(flag),
-                                        i32(chunk_ptr), i32(dest_chunk)))
-        pairs.append(tables)
+        pairs.append(pair_tables(offs, total_dim, dev))
     return DensePattern(total_dim, offsets, pairs)
+
+
+def pair_tables(offsets, total_dim, device) -> list:
+    """The PairTables of one edge group, slot pairs (s, t >= s) in order,
+    from its slots' offsets (one int tensor [E] per slot)."""
+    i32 = lambda x: torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32),
+                                    device=device)
+    host = [o.cpu().numpy().astype(np.int64) for o in offsets]
+    tables = []
+    for s in range(len(host)):
+        for t in range(s, len(host)):
+            (p, q, ptr, edge, flag, chunk_ptr, chunk_dest,
+             dest_chunk) = _pair_table(host[s], host[t], s == t, total_dim)
+            tables.append(PairTable(
+                s, t, len(p), i32(ptr), i32(p), i32(q), i32(edge), i32(flag),
+                i32(chunk_ptr), i32(chunk_dest), i32(dest_chunk),
+                torch.zeros(len(p), dtype=torch.int32, device=device)))
+    return tables
 
 
 def dense_assemble_plain(groups, total_dim, fixed_t, pattern=None,
@@ -208,9 +231,8 @@ def dense_assemble(groups, total_dim, fixed_t, pattern=None,
     (a list of EdgeBlocks in the order of static.egroups); K15 on CUDA
     tensors, where `pattern` (build_dense_pattern) is required, the plain
     version on CPU tensors. One counted call launches the zero fill of H
-    and of b, two kernels per edge group and slot pair (chunks, then
-    destinations; the slot pairs run in order and share one scratch
-    table), and the finalize kernel."""
+    and of b, one kernel per edge group and slot pair (the slot pairs run
+    in order and share one scratch table), and the finalize kernel."""
     require(fixed_t.shape == (total_dim,),
             "dense_assemble: fixed_t must be [total_dim]")
     dev, dt = fixed_t.device, fixed_t.dtype
@@ -231,7 +253,7 @@ def dense_assemble(groups, total_dim, fixed_t, pattern=None,
         return H, b, raw_diag
     build.launch("g2o_dense_zero", H, H.data_ptr(), H.numel())
     build.launch("g2o_dense_zero", b, b.data_ptr(), b.numel())
-    n_part = (MAX_DIM * MAX_DIM + MAX_DIM) * max(
+    n_part = PART_STRIDE * max(
         [tb.n_chunks for tables in pattern.pairs for tb in tables] + [1])
     part = torch.empty(n_part, dtype=dt, device=dev)
     for g, tables in zip(groups, pattern.pairs):
@@ -244,10 +266,11 @@ def dense_assemble(groups, total_dim, fixed_t, pattern=None,
                 "g2o_dense_pair", H, jacs[tb.s].data_ptr(),
                 jacs[tb.t].data_ptr(), g.rho1.data_ptr(), g.info.data_ptr(),
                 g.resid.data_ptr(), tb.chunk_ptr.data_ptr(),
-                tb.dest_chunk.data_ptr(), tb.dest_p.data_ptr(),
-                tb.dest_q.data_ptr(), tb.edge.data_ptr(), tb.flag.data_ptr(),
-                part.data_ptr(), H.data_ptr(), b.data_ptr(), total_dim,
-                tb.n_dest, tb.n_chunks, D, jacs[tb.s].shape[2],
+                tb.chunk_dest.data_ptr(), tb.dest_chunk.data_ptr(),
+                tb.dest_p.data_ptr(), tb.dest_q.data_ptr(),
+                tb.edge.data_ptr(), tb.flag.data_ptr(),
+                tb.arrivals.data_ptr(), part.data_ptr(), H.data_ptr(),
+                b.data_ptr(), total_dim, tb.n_chunks, D, jacs[tb.s].shape[2],
                 jacs[tb.t].shape[2], int(tb.s == tb.t))
     build.launch("g2o_dense_finalize", H, H.data_ptr(), fixed_t.data_ptr(),
                  raw_diag.data_ptr(), total_dim, int(add_fixed_diag))

@@ -820,6 +820,94 @@ def test_dense_assemble_6_wide_matches_plain_on_gpu(cuda, dtype):
                                    [s["chi2"] for s in cpu_stats], rtol=1e-9)
 
 
+# K15 on lists at the chunk edges: a destination of 1, 63, 64 (one whole
+# chunk), 65, 128, 129 and 80,000 contributions (1,250 chunks, the general
+# path's shared-intrinsics hub)
+K15_LISTS = (1, 63, 64, 65, 128, 129, 80000)
+
+
+def _k15_group(D, DS, DT, dtype, device, seed=0):
+    """One edge group of two slots whose vertex pair (2i, 2i + 1) has
+    K15_LISTS[i] edges, in a shuffled edge order. Where the slots are one
+    width they name one vertex set: every fifth edge of a pair runs the
+    other way round (flag 1) and vertex 2i has K15_LISTS[i] // 4 edges to
+    itself (flag 2). Random Jacobians, residuals, rho' in [0.5, 1] and SPD
+    information, from numpy. Returns (EdgeBlocks, total_dim)."""
+    rng = np.random.default_rng(seed)
+    same = DS == DT
+    a_parts, b_parts = [], []
+    for i, n in enumerate(K15_LISTS):
+        a, b = np.full(n, 2 * i), np.full(n, 2 * i + 1)
+        if same:
+            flip = np.arange(n) % 5 == 4
+            a[flip], b[flip] = 2 * i + 1, 2 * i
+            a = np.concatenate([a, np.full(n // 4, 2 * i)])
+            b = np.concatenate([b, np.full(n // 4, 2 * i)])
+        a_parts.append(a)
+        b_parts.append(b)
+    perm = rng.permutation(sum(len(a) for a in a_parts))
+    a, b = np.concatenate(a_parts)[perm], np.concatenate(b_parts)[perm]
+    nv = 2 * len(K15_LISTS)
+    if same:
+        off_a, off_b, total = a * DS, b * DS, nv * DS
+    else:
+        off_a, off_b, total = a * DS, nv * DS + b * DT, nv * (DS + DT)
+    E = len(a)
+    L = rng.normal(size=(E, D, D))
+    t = lambda x: torch.as_tensor(x, dtype=dtype, device=device)
+    i32 = lambda x: torch.as_tensor(x, dtype=torch.int32, device=device)
+    group = dense_assemble.EdgeBlocks(
+        t(rng.normal(size=(E, D))),
+        (t(rng.normal(size=(E, D, DS))), t(rng.normal(size=(E, D, DT)))),
+        t(rng.uniform(0.5, 1.0, E)), t(L @ L.transpose(0, 2, 1)
+                                       + D * np.eye(D)),
+        (i32(off_a), i32(off_b)))
+    return group, total
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("widths", [(2, 3, 3), (3, 3, 3), (6, 6, 6),
+                                    (2, 6, 4), (2, 4, 4)])
+def test_dense_pair_on_chunk_edges_on_gpu(cuda, dtype, widths):
+    """K15's pair kernel (D, Ds, Dt) = widths on the K15_LISTS
+    destinations, flags 0, 1 and 2 where the slots are one width, against
+    the plain version of the same values in float64, every destination
+    block and b segment relative to its own largest entry (TOL: the
+    80,000-contribution hub would hide the short lists' errors behind a
+    global scale); twice for the same bits, and the arrival counters back
+    at zero."""
+    D, DS, DT = widths
+    group, T = _k15_group(D, DS, DT, dtype, cuda)
+    tables = dense_assemble.pair_tables(group.offsets, T, cuda)
+    pattern = dense_assemble.DensePattern(T, [group.offsets], [tables])
+    flags = torch.cat([tb.flag for tb in tables]).unique().tolist()
+    assert flags == ([0, 1, 2] if DS == DT else [0])
+    fixed_t = torch.zeros(T, dtype=dtype, device=cuda)
+    H, b, raw = dense_assemble.dense_assemble([group], T, fixed_t, pattern,
+                                              False)
+    g64 = dense_assemble.EdgeBlocks(
+        group.resid.double(), tuple(j.double() for j in group.jacs),
+        group.rho1.double(), group.info.double(), group.offsets)
+    pH, pb, _ = dense_assemble.dense_assemble_plain([g64], T,
+                                                    fixed_t.double(), None,
+                                                    False)
+    for tb in tables:
+        ws, wt = group.jacs[tb.s].shape[2], group.jacs[tb.t].shape[2]
+        for p, q in zip(tb.dest_p.tolist(), tb.dest_q.tolist()):
+            assert _rel(H[p:p + ws, q:q + wt], pH[p:p + ws, q:q + wt]) \
+                < TOL[dtype], (tb.s, tb.t, p, q)
+            assert torch.equal(H[q:q + wt, p:p + ws],
+                               H[p:p + ws, q:q + wt].T) or p == q
+            if tb.s == tb.t:
+                assert _rel(b[p:p + ws], pb[p:p + ws]) < TOL[dtype]
+    assert _rel(raw, pH.diagonal()) < TOL[dtype]
+    H2, b2, raw2 = dense_assemble.dense_assemble([group], T, fixed_t,
+                                                 pattern, False)
+    assert torch.equal(H, H2) and torch.equal(b, b2)
+    assert torch.equal(raw, raw2)
+    assert not any(bool(tb.arrivals.any()) for tb in tables)
+
+
 # -- the Schur BA kernels (K10-K13) -------------------------------------------
 #
 # Tolerances relative to the largest |plain| entry: the edge blocks and the
@@ -1012,19 +1100,68 @@ def test_ba_coupling_and_schur_kernels_match_plain_on_gpu(cuda, dtype):
     pairs = pattern.schur_pairs()
     base = torch.randn((6 * pattern.n_cam,) * 2, generator=gen, dtype=dtype,
                        device=cuda)
+    w_rec = ba_schur.ba_schur_records(sys["W_lm"].view(18, -1))
     for b_ in (None, base):
-        S = ba_schur.ba_schur_dense(pairs, sys["W_lm"], hinv, hcc_d, b_)
+        S = ba_schur.ba_schur_dense(pairs, sys["W_lm"], hinv, hcc_d, b_,
+                                    w_rec=w_rec)
         Sp = ba_schur.ba_schur_dense_plain(pairs, sys["W_lm"], hinv, hcc_d,
                                            b_)
         assert _rel(S, Sp) < TOL_BA[dtype]
-        S2 = ba_schur.ba_schur_dense(pairs, sys["W_lm"], hinv, hcc_d, b_)
+        S2 = ba_schur.ba_schur_dense(pairs, sys["W_lm"], hinv, hcc_d, b_,
+                                     w_rec=w_rec)
         assert torch.equal(S, S2)
     # the mirrored writes make S symmetric to the bit outside the diagonal
     # blocks (Hcc_d, summed per edge, is symmetric only to rounding)
-    S = ba_schur.ba_schur_dense(pairs, sys["W_lm"], hinv, hcc_d)
+    S = ba_schur.ba_schur_dense(pairs, sys["W_lm"], hinv, hcc_d, w_rec=w_rec)
     cam = torch.arange(S.shape[0], device=cuda) // 6
     off = cam[:, None] != cam[None, :]
     assert torch.equal(S[off], S.T[off])
+
+
+# K12 on camera pairs that share 1, 31, 32 (a warp's lanes), 33 and 300
+# landmarks, each landmark seen by exactly its pair; one camera sees none
+K12_SHARED = (1, 31, 32, 33, 300)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dims", [(6, 3), (3, 2)])
+def test_ba_schur_on_lane_edges_on_gpu(cuda, dtype, dims):
+    """K12 at (Dp, dl) = dims on destinations of 0, 1, 31, 32, 33 and 300
+    contributions (the pairs and their cameras' diagonal blocks; slot
+    order shuffled per landmark), random W, SPD Hinv and Hcc_d, without
+    and with a base, against the plain version (TOL_BA); twice for the
+    same bits; the record copy against its plain version, exactly."""
+    from openslam_g2o_torch.kernels import ba_schur
+    dp, dl = dims
+    rng = np.random.default_rng(dp)
+    cams = [(2 * i, 2 * i + 1) for i, n in enumerate(K12_SHARED)
+            for _ in range(n)]
+    lm_cam = np.array(cams).T.copy()                      # [2, L]
+    L, C = lm_cam.shape[1], 2 * len(K12_SHARED) + 1
+    swap = rng.random(L) < 0.5
+    lm_cam[:, swap] = lm_cam[::-1, swap]
+    pairs = ba_schur.build_schur_pairs(lm_cam, C, cuda)
+    counts = sorted(set(np.diff(pairs.ptr.cpu().numpy()).tolist()))
+    assert counts == [0] + list(K12_SHARED)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                                  device=cuda)
+    B = rng.normal(size=(L, dl, dl))
+    hinv = t((B @ B.transpose(0, 2, 1) + np.eye(dl)).transpose(1, 2, 0)
+             .reshape(dl * dl, L))
+    w_lm = t(rng.normal(size=(dp * dl, 2, L)))
+    hcc_d = t(rng.normal(size=(dp * dp, C)))
+    base = t(rng.normal(size=(dp * C, dp * C)))
+    w_rec = ba_schur.ba_schur_records(w_lm.view(dp * dl, -1))
+    for x in (w_lm.view(dp * dl, -1), hinv):
+        assert torch.equal(ba_schur.ba_schur_records(x),
+                           ba_schur.ba_schur_records_plain(x))
+    for b_ in (None, base):
+        S = ba_schur.ba_schur_dense(pairs, w_lm, hinv, hcc_d, b_,
+                                    w_rec=w_rec)
+        Sp = ba_schur.ba_schur_dense_plain(pairs, w_lm, hinv, hcc_d, b_)
+        assert _rel(S, Sp) < TOL_BA[dtype]
+        assert torch.equal(S, ba_schur.ba_schur_dense(
+            pairs, w_lm, hinv, hcc_d, b_, w_rec=w_rec))
 
 
 @pytest.mark.parametrize("dense", [True, False])
