@@ -25,7 +25,10 @@ Phases (any failure raises and the script exits non-zero):
     device time, twice for the same bits, beside one index_put_ per slot
     pair, and on the 2D world once more with its width-3 instantiation
     switched off (a second build of dense_assemble.cu), for what that
-    instantiation saves.
+    instantiation saves. K17 (edge_lin_se3, edge_lin_se3_xyz,
+    edge_lin_p2mc_intrinsics, edge_lin_psi2uv: the forward-mode
+    linearizers) on the edge groups of phase 4f's world and of the 4k and
+    4l scenes, twice for the same bits and by device time.
     On the sphere of phase 4e: K16 (edge_se3_blocks, without and with a robust
     kernel, on streams of the main path's width; twice for the same bits and
     by device time), K7 for SE3 (retract_se3, se3_edge_chi2, a NaN dx) and the 6x6
@@ -105,7 +108,8 @@ Phases (any failure raises and the script exits non-zero):
  4f. the dense route on 3D: a Simulator3D world (1500 poses, XYZ landmarks
     seen through an offset parameter, T >= 8000, float64) through
     optimize(prob) for 10 iterations and GaussNewton() for 5, with the
-    checks of 4d (K15 at block width 6) and its profile of 3 iterations;
+    checks of 4d (K15 at block width 6; the plain route replaces K17's
+    linearizers too) and its profile of 3 iterations; K17 launched;
  4g. Schur bundle adjustment on the dense-Schur route:
     synthetic_bal_problem(100, 10000, 8) (80,000 observations, float32)
     through LevenbergMarquardtSchurELL's lambda init, 10 iterations of
@@ -127,6 +131,8 @@ Phases (any failure raises and the script exits non-zero):
     trajectories, one ba_wtx launch per S x and per back-substitution
     (two pose groups at P2MC_INTRINSICS), and in one profiled trial solve
     the device time per CG iteration and the kernels per ba_wv call (one);
+    one build split into linearize and the rest of schur_build; K17
+    launched in 4k and 4l;
  5. a small .g2o string through loads_g2o -> compile() (the default
     device) -> optimize(LevenbergMarquardtPCG()), chi2 decreasing and equal
     to the CPU run of the same graph; one with VERTEX_XY, EDGE_SE2_XY
@@ -145,6 +151,8 @@ Phases (any failure raises and the script exits non-zero):
     rows count phases 4g-4i, their @-rows the phase of their shape.
     spmv_dot_p runs on the unpreconditioned paths only, cg_update_p on the
     preconditioned ones (4b, 4e's Chebyshev window, 4h, 4i, 4j-4n).
+    K17's rows count every phase (4f, 4i 3D, 4j-4n), and 4f, 4k and 4l
+    must launch the types of their scenes.
 The last two lines are the per-kernel JSON and {"ok": true, "device": ...}.
 Exits non-zero without printing a result when no GPU is visible.
 """
@@ -179,6 +187,13 @@ TOL = {"edge_se2_blocks": {"float32": 1e-4, "float64": 1e-11},
        # residual's cancellation error into every block
        "edge_se3_blocks@huber": {"float32": 2e-3, "float64": 1e-10},
        "se3_edge_chi2": {"float32": 1e-4, "float64": 1e-11},
+       # K17: forward mode through the same error in another operation
+       # order (FMA contraction); the SE3 and pixel residuals cancel
+       # coordinates as K16's and K10's do
+       "edge_lin_se3": {"float32": 2e-4, "float64": 1e-10},
+       "edge_lin_se3_xyz": {"float32": 2e-4, "float64": 1e-10},
+       "edge_lin_p2mc_intrinsics": {"float32": 2e-4, "float64": 1e-10},
+       "edge_lin_psi2uv": {"float32": 2e-4, "float64": 1e-10},
        # the pixel residual cancels a projection of a few hundred pixels
        "ba_xyz2uv_blocks": {"float32": 1e-4, "float64": 1e-11},
        # downstream of a block inverse or of the Schur difference
@@ -308,7 +323,24 @@ KERNELS = {
     "ba_sandwich": ("ba_coupling.cu", "openslam_g2o_tpu/core/ba_ell.py:513"),
     "schur_edge_blocks": ("schur_general.cu",
                           "openslam_g2o_tpu/core/ba.py:147"),
+    "edge_lin_se3": ("edge_lin.cu", "openslam_g2o_tpu/core/problem.py:378"),
+    "edge_lin_se3_xyz": ("edge_lin.cu",
+                         "openslam_g2o_tpu/core/problem.py:378"),
+    "edge_lin_p2mc_intrinsics": ("edge_lin.cu",
+                                 "openslam_g2o_tpu/core/problem.py:378"),
+    "edge_lin_psi2uv": ("edge_lin.cu",
+                        "openslam_g2o_tpu/core/problem.py:378"),
 }
+# K17's rows: wrapper -> the phase whose scene its phase-3 row is taken
+# on, which must launch it; its launches are those of every phase
+LIN_ROWS = {"edge_lin_se3": "4f", "edge_lin_se3_xyz": "4f",
+            "edge_lin_psi2uv": "4k", "edge_lin_p2mc_intrinsics": "4l"}
+# K17's operations per edge: scalar operations of one evaluation of the
+# error through the retractions (counted from csrc/edge_lin.cu), plus two
+# per Jacobian entry (a lower bound on the forward mode's work)
+LIN_VALUE_OPS = {"edge_se3": 390, "edge_se3_xyz": 225,
+                 "edge_project_p2mc_intrinsics": 95,
+                 "edge_project_psi2uv": 500}
 # the general Schur path's rows at the instantiations it adds: suffix -> its
 # phase, and what each kernel replaces there (openslam_g2o_tpu/core/ba.py)
 GENERAL_SUFFIXES = {"@psi2uv": "4k", "@intrinsics": "4l", "@d4": "4l",
@@ -606,6 +638,53 @@ def dense_world_dargs(dense_assemble, problem_mod, dprob):
             problem_mod.tangent_masks(dprob)[1], pattern, True)
 
 
+def k14_operands(torch, ba_edge, gprob, pat, lin):
+    """K14's calls as schur_build makes them on the general Schur path:
+    (new_out() -> zeroed outputs (landmark streams, W landmark-major and
+    pose-major per pose group), run(fn, out) -> every
+    schur_edge_blocks-shaped call of the linearization `lin` into out, the
+    bytes (each input read once, each output written once: residual, the
+    Jacobians, rho', Omega, two positions per W entry; Hll_e, b_l,e and
+    each W block in both layouts), the operations, a shape string)."""
+    dt, dev, dl = gprob.dtype, gprob.device, pat.dl
+    new_out = lambda: (
+        ba_edge.LandmarkStreams(
+            torch.zeros((dl * dl, pat.n_lm_edges), dtype=dt, device=dev),
+            torch.zeros((dl, pat.n_lm_edges), dtype=dt, device=dev)),
+        {pg.name: torch.zeros((pg.dim * dl,) + tuple(pg.lm_pose.shape),
+                              dtype=dt, device=dev)
+         for pg in pat.pose_groups},
+        {pg.name: torch.zeros((pg.dim * dl, pg.n_entries), dtype=dt,
+                              device=dev) for pg in pat.pose_groups})
+
+    def run(fn, out):
+        st, wl, wp = out
+        for le in pat.lm_edges:
+            resid, jacs, rho1 = lin[le.egkey]
+            first = True
+            for ce in (c for c in pat.cross if c.egkey == le.egkey):
+                fn(resid.contiguous(), jacs[le.lm_slot].contiguous(),
+                   jacs[ce.slot].contiguous(), rho1.contiguous(),
+                   gprob.edges[le.egkey].information,
+                   st.hll if first else None, st.bl if first else None,
+                   le.offset, wl[ce.group], ce.lm_pos, wp[ce.group],
+                   ce.pose_pos)
+                first = False
+        return (st.hll, st.bl, *wl.values(), *wp.values())
+
+    E, s = pat.n_lm_edges, torch.empty((), dtype=dt).element_size()
+    R = gprob.edges[pat.lm_edges[0].egkey].measurement.shape[1]
+    slot_dims = [next(pg.dim for pg in pat.pose_groups
+                      if pg.name == ce.group) for ce in pat.cross]
+    nbytes = (s * E * (R + R * dl + 1 + R * R + dl * dl + dl
+                       + sum(R * d + 2 * d * dl for d in slot_dims))
+              + 8 * E * len(slot_dims))
+    flops = E * (2 * dl * R * R + 2 * dl * dl * R + 2 * dl * R
+                 + sum(2 * d * R * R + 2 * d * dl * R for d in slot_dims))
+    return (new_out, run, nbytes, flops,
+            f"E={E} R={R} pose slots of widths {slot_dims}, dl={dl}")
+
+
 def k12_operands(ba_ell, ba_inv, bprob):
     """K12's operands as the dense-Schur route's _solve takes them, from
     one _build of `bprob` and the block inverses at lambda = 1e-4
@@ -640,6 +719,25 @@ def k15_bytes_flops(groups, pattern):
                      for a in range(len(widths))
                      for b in range(a, len(widths)))
     return nbytes, flops
+
+
+def lin_bytes_flops(prob, eg):
+    """What one K17 call on edge group `eg` of `prob` must move and do:
+    each slot's vertex table and free flags once (a table two slots share
+    once), the indices, measurements, Omega, delta and parameter data, the
+    residual, Jacobians and rho' written once (bytes); LIN_VALUE_OPS per
+    edge and two per Jacobian entry (operations)."""
+    ea = prob.edges[eg.key]
+    s = ea.measurement.element_size()
+    E, D = eg.count, ea.information.shape[1]
+    widths = [prob.params[g].shape[1] + 1 for g in dict.fromkeys(eg.slots)]
+    counts = [prob.params[g].shape[0] for g in dict.fromkeys(eg.slots)]
+    dims = [prob.static.vgroup(g).tangent_dim for g in eg.slots]
+    pdata = sum(p.shape[1] for p in ea.pdata)
+    nbytes = s * (sum(w * n for w, n in zip(widths, counts))
+                  + E * (ea.measurement.shape[1] + D * D + 1 + pdata)
+                  + E * (D + D * sum(dims) + 1)) + 4 * E * len(eg.slots)
+    return nbytes, E * (LIN_VALUE_OPS[eg.etype.name] + 2 * D * sum(dims))
 
 
 def _median_ms(torch, fn, repeats=15, inner=20, warmup=3):
@@ -821,8 +919,8 @@ def main() -> int:
     from openslam_g2o_torch.core.solvers import solve_dense_cholesky
     from openslam_g2o_torch.kernels import (
         assemble, ba_coupling, ba_edge, ba_inv, ba_schur, build, cg_step,
-        chebyshev, damp_chol, dense_assemble, edge_se2, edge_se3, gather,
-        jacobi_scale, retract_chi2, schur_general, spmv)
+        chebyshev, damp_chol, dense_assemble, edge_lin, edge_se2, edge_se3,
+        gather, jacobi_scale, retract_chi2, schur_general, spmv)
     from openslam_g2o_torch.utils import np_lie
 
     # -- 1. device --------------------------------------------------------
@@ -2320,49 +2418,14 @@ def main() -> int:
         dl, L, Tp = pat.dl, pat.n_lm, pat.pose_dim
         name = lambda k: k if (sfx == "@psi2uv" and k.startswith("schur_")) \
             else k + sfx
-        new_w = lambda: (
-            ba_edge.LandmarkStreams(
-                torch.zeros((dl * dl, pat.n_lm_edges), dtype=dt, device=dev),
-                torch.zeros((dl, pat.n_lm_edges), dtype=dt, device=dev)),
-            {pg.name: torch.zeros((pg.dim * dl,) + tuple(pg.lm_pose.shape),
-                                  dtype=dt, device=dev)
-             for pg in pat.pose_groups},
-            {pg.name: torch.zeros((pg.dim * dl, pg.n_entries), dtype=dt,
-                                  device=dev) for pg in pat.pose_groups})
+        new_w, edge_run, k14_bytes, k14_flops, k14_shape = k14_operands(
+            torch, ba_edge, gprob, pat, lin)
         got_w, want_w = new_w(), new_w()
-
-        def edge_run(fn, out):
-            st, wl, wp = out
-            for le in pat.lm_edges:
-                resid, jacs, rho1 = lin[le.egkey]
-                first = True
-                for ce in (c for c in pat.cross if c.egkey == le.egkey):
-                    fn(resid.contiguous(), jacs[le.lm_slot].contiguous(),
-                       jacs[ce.slot].contiguous(), rho1.contiguous(),
-                       gprob.edges[le.egkey].information,
-                       st.hll if first else None, st.bl if first else None,
-                       le.offset, wl[ce.group], ce.lm_pos, wp[ce.group],
-                       ce.pose_pos)
-                    first = False
-            return (st.hll, st.bl, *wl.values(), *wp.values())
-
         E = pat.n_lm_edges
-        R = gprob.edges[pat.lm_edges[0].egkey].measurement.shape[1]
-        slot_dims = [next(pg.dim for pg in pat.pose_groups
-                          if pg.name == ce.group) for ce in pat.cross]
-        # each input read once, each output written once: residual, the
-        # Jacobians, rho', Omega, two positions per W entry; Hll_e, b_l,e
-        # and each W block in both layouts
-        case("schur_edge_blocks", tag,
-             f"E={E} R={R} pose slots of widths {slot_dims}, dl={dl}",
+        case("schur_edge_blocks", tag, k14_shape,
              lambda: edge_run(schur_general.schur_edge_blocks, got_w),
              lambda: edge_run(schur_general.schur_edge_blocks_plain, want_w),
-             nbytes=s * E * (R + R * dl + 1 + R * R + dl * dl + dl
-                             + sum(R * d + 2 * d * dl for d in slot_dims))
-             + 8 * E * len(slot_dims),
-             flops=E * (2 * dl * R * R + 2 * dl * dl * R + 2 * dl * R
-                        + sum(2 * d * R * R + 2 * d * dl * R
-                              for d in slot_dims)),
+             nbytes=k14_bytes, flops=k14_flops,
              label=name("schur_edge_blocks"), slow_plain=True)
         st = got_w[0]
         K = pat.lm_edge.shape[0]
@@ -2603,6 +2666,40 @@ def main() -> int:
                 problem_mod.linearize(gprob)))
             del gprob
         torch.cuda.empty_cache()
+
+    # K17 on the edge groups of phase 4f's world and of the 4k and 4l
+    # scenes: each wrapper against its plain version (the error and
+    # torch.func.jvp), twice for the same bits, by device time
+    for dt in (torch.float32, torch.float64):
+        tag = str(dt).split(".")[-1]
+        for lprob in (world3.compile(dtype=dt),
+                      general_graphs["@psi2uv"].compile(dtype=dt),
+                      general_graphs["@intrinsics"].compile(dtype=dt)):
+            for eg in lprob.static.egroups:
+                wname = edge_lin.LINEARIZERS[eg.etype.name]
+                ea = lprob.edges[eg.key]
+                largs = (tuple(lprob.params[g] for g in eg.slots),
+                         tuple(lprob.free[g] for g in eg.slots), ea.indices,
+                         ea.measurement, ea.information, ea.delta, ea.pdata,
+                         eg.kernel_id)
+                flat = lambda o: (o[0], *o[1], o[2])
+                run_l = lambda w_=wname, a_=largs: flat(
+                    getattr(edge_lin, w_)(*a_))
+                plain_l = lambda w_=wname, a_=largs: flat(
+                    getattr(edge_lin, w_ + "_plain")(*a_))
+                nbytes, flops = lin_bytes_flops(lprob, eg)
+                dims = [lprob.static.vgroup(g).tangent_dim for g in eg.slots]
+                case(wname, tag, f"E={eg.count} slots {list(eg.slots)} of "
+                     f"widths {dims}, phase {LIN_ROWS[wname]}", run_l,
+                     plain_l, nbytes=nbytes, flops=flops, slow_plain=True)
+                first = tuple(t_.clone() for t_ in run_l())
+                if not all(torch.equal(a_, b_)
+                           for a_, b_ in zip(first, run_l())):
+                    raise AssertionError(f"{wname} does not repeat its bits")
+                del first
+                device_rows(wname, tag, {"kernel": run_l})
+            del lprob
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for (label, tag), row in sorted(results.items()):
         tol = row.get("tol", TOL.get(label, TOL.get(row["kname"],
@@ -2649,7 +2746,8 @@ def main() -> int:
              (ba_schur, "ba_schur_records"),
              (ba_coupling, "ba_wtx"), (ba_coupling, "ba_wv"),
              (ba_coupling, "ba_sandwich"),
-             (schur_general, "schur_edge_blocks")]
+             (schur_general, "schur_edge_blocks"),
+             *((edge_lin, w_) for w_ in edge_lin.LINEARIZERS.values())]
 
     class plain_versions:
         """Every wrapper swapped for its plain version (CUDA tensors, plain
@@ -3248,10 +3346,13 @@ def main() -> int:
     split3 = {label: _median_ms(torch, fn, repeats=5, inner=1, warmup=1)
               for label, fn in (("linearize", t_linearize3),
                                 ("assemble", t_assemble3))}
+    lin3 = {k: counts_dense3[k] for k in ("edge_lin_se3", "edge_lin_se3_xyz")}
+    if min(lin3.values()) <= 0:
+        raise AssertionError(f"phase 4f: K17 did not launch: {lin3}")
     print(f"phase 4f checks: LM chi2 never increases, every gaining step "
           f"accepted; |LM - GN| / GN = {gap3:.3e} (<= 1e-6); plain route "
           f"equal to rtol {DENSE_ROUTE_RTOL:g}; second run bit-identical; "
-          "split (CUDA events, median of 5): "
+          f"K17 launches {lin3}; split (CUDA events, median of 5): "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in split3.items())
           + f" [{card}] OK")
     del lm_out3, lm_again3, holder3, dpat3, plain_stats3
@@ -3544,6 +3645,15 @@ def main() -> int:
         work = gprob.with_params(state["params"])
         sys_ = ba_general.schur_build(work, pattern=pat)
         lam_t = lams[2]
+        # one build split: linearize against the rest of schur_build
+        lin_w = problem_mod.linearize(work)
+        split_g = {
+            "linearize": _median_ms(
+                torch, lambda: problem_mod.linearize(work), 5, 1, 1),
+            "schur_build without linearize": _median_ms(
+                torch, lambda: ba_general.schur_build(work, lin=lin_w,
+                                                      pattern=pat), 5, 1, 1)}
+        del lin_w
         ba_general._solve(work, sys_, lam_t, 250, 1e-8)
         torch.cuda.synchronize()
         before = kernels.launch_counts()["cg_update_xr"]
@@ -3613,6 +3723,11 @@ def main() -> int:
               f"{busy / 1e3:.3f} ms: {wall / n_cg:.1f} us of wall and "
               f"{busy / n_cg:.1f} us of device time per CG iteration, idle "
               f"share {100 * (1 - busy / wall):.1f}% [{card}]")
+        print(f"phase {phase} split of one build (CUDA events around one "
+              f"call, median of 5): "
+              + "; ".join(f"{k} {v:.3f} ms" for k, v in split_g.items())
+              + f"; one trial's solve (wall above) {wall / 1e3:.3f} ms "
+              f"[{card}]")
         del sys_, work
         with plain_versions():
             alg_p = ba_general.LevenbergMarquardtSchur()
@@ -3655,8 +3770,10 @@ def main() -> int:
         lprob, expected_l, "p2mc_intrinsics")
     for ph, want in (("4k", ("schur_edge_blocks", "ba_wv",
                              "ba_sandwich", "ba_wtx", "ba_lm_sums",
-                             "dense_assemble", "lane_block_mv")),
-                     ("4l", ("ba_block_inv@d4", "lane_block_mv@d4"))):
+                             "dense_assemble", "lane_block_mv",
+                             "edge_lin_psi2uv")),
+                     ("4l", ("ba_block_inv@d4", "lane_block_mv@d4",
+                             "edge_lin_p2mc_intrinsics"))):
         if min(counts_gen[ph].get(k, 0) for k in want) <= 0:
             raise AssertionError(f"phase {ph}: a kernel did not launch: "
                                  f"{counts_gen[ph]}")
@@ -3911,9 +4028,9 @@ def main() -> int:
     launches = {k: counts_main[k] + counts_cheb[k] + counts_probe[k]
                 + counts_dense[k] + (0 if k in two_rows else launches_d6[k])
                 + (sum(c[k] for c in by_phase.values())
-                   if k.startswith("ba_") else 0)
+                   if k.startswith(("ba_", "edge_lin_")) else 0)
                 + (sum(c[k] for c in counts_gen.values())
-                   if k.startswith(("ba_", "schur_")) else 0)
+                   if k.startswith(("ba_", "schur_", "edge_lin_")) else 0)
                 for k in counts_main}
     for label, counts in (("4 main path", counts_main),
                           ("4b Chebyshev path", counts_cheb),
@@ -3981,6 +4098,8 @@ def main() -> int:
                  ("4i 3D", counts_4i["3D"]),
                  *((ph_, c2) for ph_, c2 in counts_gen.items()))
                 if c_.get("spmv_dot_p", 0) > 0]
+             + [f"{k} ({ph})" for k, ph in LIN_ROWS.items()
+                if (counts_dense3 if ph == "4f" else counts_gen[ph])[k] <= 0]
              + [k for k in KERNELS if launches[k] <= 0])
     if never or set(KERNELS) != set(launches):
         raise AssertionError(f"a kernel of a path never launched (or the "

@@ -2,7 +2,8 @@
 """Device time by CUDA events of the redesigned kernels for any tree of
 the port, so that two trees can be timed in one run on one card.
 
-    python3 kernel_times.py [--tree PATH] [--only k15,k12,k16,sandwich]
+    python3 kernel_times.py [--tree PATH]
+                            [--only k15,k12,k16,sandwich,k14,lin]
                             [--save FILE] [--against FILE]
 
 It times the `openslam_g2o_torch` of PATH (default: this script's own
@@ -25,7 +26,19 @@ does not, at the same shapes:
   without and with Huber, on streams of the main path's width;
 * sandwich: `ba_sandwich` on the pose rows of ba_80k and ba_400k and of
   each pose group of the PSI2UV and P2MC_INTRINSICS scenes (random seeded
-  W, Hinv, Hcc_d; the scenes' own rows and chunks).
+  W, Hinv, Hcc_d; the scenes' own rows and chunks);
+* k14: K14 `schur_edge_blocks` on the general Schur path's four scenes, as
+  schur_build calls it (chip_smoke.k14_operands): 4j (ba_80k, binary
+  XYZ2UV), 4k (PSI2UV), 4l (P2MC_INTRINSICS) and 4n (ba_400k);
+* lin: `problem.linearize` on phase 4f's world (float64) and on the 4k
+  (PSI2UV) and 4l (P2MC_INTRINSICS) scenes (float32), as the paths call
+  it: a tree without K17 runs torch.func.jvp there. The time per call
+  (CUDA events around one call, median of 5), and in a tree with K17 each
+  edge group's wrapper by device time beside its bound. --save also
+  writes the residuals, Jacobians and rho' to FILE.lin.pt, and --against
+  holds this tree's against that file's, relative to the largest entry of
+  each output, to chip_smoke.py's K17 tolerance (1e-10 float64, 2e-4
+  float32).
 
 Float32 and float64. Each line gives the microseconds per call, the bound
 (bytes over 3.35 TB/s), the error against the plain version relative to
@@ -47,7 +60,7 @@ import sys
 
 import chip_smoke
 
-SECTIONS = ("k15", "k12", "k16", "sandwich")
+SECTIONS = ("k15", "k12", "k16", "sandwich", "k14", "lin")
 
 
 def _digest(t):
@@ -84,7 +97,8 @@ def main(argv=None) -> int:
     from openslam_g2o_torch.core import problem as problem_mod
     from openslam_g2o_torch.core.graph import Graph
     from openslam_g2o_torch.kernels import (
-        ba_coupling, ba_inv, ba_schur, dense_assemble, edge_se3)
+        ba_coupling, ba_edge, ba_inv, ba_schur, dense_assemble, edge_se3,
+        schur_general)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -137,7 +151,7 @@ def main(argv=None) -> int:
     if only & {"k15", "k12"}:
         worlds["2d"] = Simulator2D(**chip_smoke.DENSE_WORLD).simulate(
             n_poses=chip_smoke.DENSE_POSES)[0]
-    if "k15" in only:
+    if only & {"k15", "lin"}:
         worlds["3d"] = Simulator3D(**chip_smoke.DENSE3_WORLD).simulate(
             n_poses=chip_smoke.DENSE3_POSES)[0]
 
@@ -288,6 +302,88 @@ def main(argv=None) -> int:
                 for pg in pat.pose_groups:
                     sandwich_rows(tag, dt, f"{sfx}#{pg.name}", pg.rows,
                                   pg.dim, pat.dl, pat.n_lm)
+    # -- K14 on the general path's scenes -------------------------------------
+    if "k14" in only:
+        for dt in dtypes:
+            tag = tag_of(dt)
+            for label, make in (
+                    ("@4j", lambda: synthetic_bal_problem(
+                        *chip_smoke.BA_80K, chip_smoke.BA_OBS, dtype=dt)[0]),
+                    ("@psi2uv", lambda: general["@psi2uv"].compile(dtype=dt)),
+                    ("@intrinsics",
+                     lambda: general["@intrinsics"].compile(dtype=dt)),
+                    ("@4n", lambda: synthetic_bal_problem(
+                        *chip_smoke.BA_400K, chip_smoke.BA_OBS,
+                        dtype=dt)[0])):
+                gprob = make()
+                new_out, run, nbytes, _, shape = chip_smoke.k14_operands(
+                    torch, ba_edge, gprob,
+                    ba_general.build_schur_pattern(gprob),
+                    problem_mod.linearize(gprob))
+                out_k, out_p = new_out(), new_out()
+                report(f"schur_edge_blocks{label}", "schur_edge_blocks",
+                       shape, tag,
+                       lambda: run(schur_general.schur_edge_blocks, out_k),
+                       lambda: run(schur_general.schur_edge_blocks_plain,
+                                   out_p), nbytes)
+                del gprob, out_k, out_p, run
+                torch.cuda.empty_cache()
+
+    # -- the linearizers ------------------------------------------------------
+    if "lin" in only:
+        try:
+            from openslam_g2o_torch.kernels import edge_lin
+        except ImportError:                      # a tree without K17
+            edge_lin = None
+        lin_out, ref = {}, None
+        if against is not None:
+            ref = torch.load(args.against + ".lin.pt")
+        for phase, dt, graph in (
+                ("4f", torch.float64, worlds.get("3d")),
+                ("4k", torch.float32, general["@psi2uv"]),
+                ("4l", torch.float32, general["@intrinsics"])):
+            tag = tag_of(dt)
+            prob = graph.compile(dtype=dt)
+            lin = problem_mod.linearize(prob)
+            outs = {f"{phase} {key} {i}": t.contiguous()
+                    for key, (r, jacs, w) in lin.items()
+                    for i, t in enumerate((r, *jacs, w))}
+            lin_out.update({k: v.cpu() for k, v in outs.items()})
+            ms = chip_smoke._median_ms(
+                torch, lambda: problem_mod.linearize(prob), 5, 1, 1)
+            agree = ""
+            if ref is not None:
+                tol = chip_smoke.TOL["edge_lin_se3"][tag]
+                rel = max(_rel(v, ref[k].to(dev)) for k, v in outs.items())
+                agree = (f"; against --against: max_rel_err {rel:.3e} (tol "
+                         f"{tol:g})")
+                if not rel < tol:
+                    failed.append(f"linearize {phase}")
+                    agree += " FAILED"
+            groups = " ".join(f"{eg.key}={eg.count}"
+                              for eg in prob.static.egroups)
+            print(f"kernel_times linearize {phase} {tag} ({groups}): "
+                  f"{ms:.3f} ms per call (CUDA events around one call, "
+                  f"median of 5){agree}", flush=True)
+            for eg in prob.static.egroups if edge_lin is not None else ():
+                ea = prob.edges[eg.key]
+                largs = (tuple(prob.params[g] for g in eg.slots),
+                         tuple(prob.free[g] for g in eg.slots), ea.indices,
+                         ea.measurement, ea.information, ea.delta, ea.pdata,
+                         eg.kernel_id)
+                fn = edge_lin.linearizer(eg.etype.name)
+                us, calls, held = chip_smoke._device_ms(
+                    torch, lambda fn=fn, a=largs: fn(*a))
+                nbytes, _ = chip_smoke.lin_bytes_flops(prob, eg)
+                bound = 1e6 * nbytes / chip_smoke.HBM_BYTES_PER_S
+                print(f"kernel_times {fn.__name__} {tag} E={eg.count}: "
+                      f"{1e3 * us:.2f} us" + ("" if held else " (host-bound)")
+                      + ("" if calls == 200 else f" ({calls} calls)")
+                      + f"; bound {bound:.2f} us", flush=True)
+            del prob, lin, outs
+            torch.cuda.empty_cache()
+        if args.save:
+            torch.save(lin_out, args.save + ".lin.pt")
     if args.save:
         with open(args.save, "w") as f:
             json.dump(saved, f, indent=0)

@@ -10,7 +10,9 @@ tensors on one device in one dtype.
 
 Every type of models/slam2d.py, models/slam3d.py and models/sba.py is
 supported. An edge type without an analytic Jacobian
-is differentiated in forward mode (`linearize`).
+is differentiated in forward mode (`linearize`): by the CUDA kernel K17 of
+kernels/edge_lin.py on the card for the four types it serves, by
+torch.func.jvp otherwise.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ __all__ = [
     "build_problem", "compute_errors", "edge_chi2", "chi2", "robust_chi2",
     "linearize", "build_dense_system", "apply_update", "apply_update_parts",
     "tangent_masks", "write_back", "resolve_device", "check_supported",
-    "linearize_group",
+    "linearize_group", "linearize_edges",
 ]
 
 SUPPORTED_VERTEX_TYPES = ("se2", "point_xy", "se3", "point_xyz",
@@ -324,32 +326,64 @@ def linearize(problem: Problem, params: Optional[dict] = None) -> dict:
     """Per edge group: residual [E, D], per-slot Jacobians [E, D, Ds] with
     respect to the tangent increment, the columns of fixed vertices
     zeroed, and robust weights rho' [E]
-    (openslam_g2o_tpu/core/problem.py:350-392). The type's analytic
-    Jacobian where it has one, else `forward_jacobians`. The LM-PCG path
-    runs the fused CUDA kernel B instead on the card (kernels/edge_se2.py),
-    whose plain version calls this math."""
+    (openslam_g2o_tpu/core/problem.py:350-392), by `linearize_group`. The
+    LM-PCG path runs the fused CUDA kernels B and K16 instead on the card
+    (kernels/edge_se2.py, kernels/edge_se3.py), whose plain versions call
+    this math."""
     params = problem.params if params is None else params
     return {eg.key: linearize_group(problem, eg, params)
             for eg in problem.static.egroups}
 
 
+def linearize_edges(etype, kernel_id: int, params, free, indices, meas,
+                    info, delta, pdata):
+    """The generic linearization of one edge group: the error at the
+    gathered slot parameters, the type's analytic Jacobian where it has
+    one, else `forward_jacobians`, rho' of `robustify`, each slot's
+    Jacobian times its vertex's free flag. `params`, `free`, `indices` are
+    per slot: the slot's vertex table [N, P], its free flags [N] and the
+    edges' vertex indices [E]."""
+    vp = tuple(p[i] for p, i in zip(params, indices))
+    resid = etype.error(vp, meas, pdata)
+    if etype.jacobian is not None:
+        jacs = etype.jacobian(vp, meas, pdata)
+    else:
+        jacs = forward_jacobians(EGroup(etype.name, etype, kernel_id,
+                                        meas.shape[0]), vp, meas, pdata)
+    _, rho1, _ = robust.robustify(kernel_id, _mahalanobis(resid, info),
+                                  delta)
+    masked = tuple(j * f[i][:, None, None]
+                   for j, f, i in zip(jacs, free, indices))
+    return resid, masked, rho1
+
+
 def linearize_group(problem: Problem, eg: EGroup,
                     params: Optional[dict] = None):
-    """`linearize` of one edge group: (residual, masked Jacobians, rho')."""
+    """`linearize` of one edge group: (residual, masked Jacobians, rho').
+
+    The types of kernels/edge_lin.py `LINEARIZERS` (EDGE_SE3:QUAT,
+    EDGE_SE3_TRACKXYZ, EDGE_PROJECT_P2MC_INTRINSICS,
+    EDGE_PROJECT_PSI2UV:EXPMAP) go to their wrapper: K17 on CUDA tensors,
+    which launches or raises, and its plain version (`linearize_edges`)
+    on CPU tensors. Every other type runs `linearize_edges` on either
+    device: the analytic Jacobians (EDGE_SE2, the XYZ2UV / XYZ2UVU
+    projections) and, in forward mode by torch.func.jvp, the rest of
+    models/slam2d.py (EDGE_SE2_XY, EDGE_BEARING_SE2_XY, the priors, the
+    calibration and offset edges), of models/slam3d.py (the depth,
+    disparity, prior and offset edges) and of models/sba.py
+    (EDGE_SE3:EXPMAP, P2MC, P2SC, EDGE_CAM, EDGE_SCALE)."""
+    from openslam_g2o_torch.kernels import edge_lin
     params = problem.params if params is None else params
     ea = problem.edges[eg.key]
-    vp = _gather_vertex_params(eg, ea, params)
-    resid = eg.etype.error(vp, ea.measurement, ea.pdata)
-    if eg.etype.jacobian is not None:
-        jacs = eg.etype.jacobian(vp, ea.measurement, ea.pdata)
-    else:
-        jacs = forward_jacobians(eg, vp, ea.measurement, ea.pdata)
-    _, rho1, _ = robust.robustify(
-        eg.kernel_id, _mahalanobis(resid, ea.information), ea.delta)
-    masked = tuple(
-        jacs[s] * problem.free[g][ea.indices[s]][:, None, None]
-        for s, g in enumerate(eg.slots))
-    return resid, masked, rho1
+    slot_params = tuple(params[g].contiguous() for g in eg.slots)
+    slot_free = tuple(problem.free[g] for g in eg.slots)
+    fn = edge_lin.linearizer(eg.etype.name)
+    if fn is None:
+        return linearize_edges(eg.etype, eg.kernel_id, slot_params,
+                               slot_free, ea.indices, ea.measurement,
+                               ea.information, ea.delta, ea.pdata)
+    return fn(slot_params, slot_free, ea.indices, ea.measurement,
+              ea.information, ea.delta, ea.pdata, eg.kernel_id)
 
 
 def tangent_masks(problem: Problem):

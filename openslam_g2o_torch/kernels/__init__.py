@@ -46,6 +46,12 @@ blocks (SE3 poses); the shapes of the arguments pick the instantiation.
     ba_coupling.ba_wv            W v, S x, reduced rhs     (ROADMAP K13)
     ba_coupling.ba_sandwich      preconditioner blocks     (ROADMAP K13)
     schur_general.schur_edge_blocks  general Schur edge blocks (ROADMAP K14)
+    edge_lin.edge_lin_*          forward-mode linearizers  (ROADMAP K17)
+
+The four `edge_lin` wrappers (EDGE_SE3:QUAT, EDGE_SE3_TRACKXYZ,
+EDGE_PROJECT_P2MC_INTRINSICS, EDGE_PROJECT_PSI2UV:EXPMAP) serve
+core/problem.py `linearize_group` on the dense routes, the general Schur
+path and K10's generic entry.
 
 The general Schur path (core/ba.py) also runs K10's `ba_lm_sums` without
 its W layout, K13's products (`ba_wtx` in one launch over all its pose
@@ -57,8 +63,8 @@ from __future__ import annotations
 
 from openslam_g2o_torch.kernels import (
     assemble, ba_coupling, ba_edge, ba_inv, ba_schur, cg_step, chebyshev,
-    damp_chol, dense_assemble, edge_se2, edge_se3, gather, jacobi_scale,
-    retract_chi2, schur_general, spmv)
+    damp_chol, dense_assemble, edge_lin, edge_se2, edge_se3, gather,
+    jacobi_scale, retract_chi2, schur_general, spmv)
 
 # the wrapper functions, which own the launch counts (several share their
 # module's name, so the modules are what this package exports)
@@ -79,7 +85,9 @@ WRAPPERS = (
     ba_inv.ba_block_inv, ba_schur.ba_schur_dense, ba_schur.ba_schur_records,
     ba_coupling.ba_wtx,
     ba_coupling.ba_wv, ba_coupling.ba_sandwich,
-    schur_general.schur_edge_blocks)
+    schur_general.schur_edge_blocks, edge_lin.edge_lin_se3,
+    edge_lin.edge_lin_se3_xyz, edge_lin.edge_lin_p2mc_intrinsics,
+    edge_lin.edge_lin_psi2uv)
 
 
 def launch_counts() -> dict:

@@ -87,6 +87,11 @@ _SIGNATURES = {
     "g2o_schur_edge": (_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _P, _P,
                        _P, _L, _P, _P, _L, _P, _P),
 }
+# K17: one signature for the four edge types (three slots, unused ones null)
+for _name in ("se3", "se3_xyz", "p2mc_intrinsics", "psi2uv"):
+    _SIGNATURES["g2o_edge_lin_" + _name] = (_P,) * 13 + (_I,) + (_P,) * 5 + (
+        _I, _P)
+del _name
 
 _lib = None
 _last_build = {}

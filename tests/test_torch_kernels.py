@@ -1760,3 +1760,75 @@ def test_two_launch_steps_equal_three_launch_steps_on_gpu(cuda, D):
         cg_step.cg_update_p(sc, rr, rr, r, p, False)
     assert all(torch.equal(a, b_) for a, b_ in zip(two, (x, r, sc)))
     assert not arrivals.any() and torch.isfinite(x).all()
+
+
+def _lin_scene(cuda, dtype, kind):
+    """A scene for K17: a small Simulator3D world (EDGE_SE3:QUAT and
+    EDGE_SE3_TRACKXYZ, pose 0 fixed; some quaternions stored with q_w < 0,
+    some 5e-4 off unit), or _general_scene's anchored PSI2UV or
+    shared-intrinsics scene (camera 0 fixed)."""
+    if kind != "3d":
+        return _general_scene(cuda, dtype, kind)
+    from openslam_g2o_torch.apps.simulator import Simulator3D
+    g, _ = Simulator3D(world_size=12.0, n_landmarks=60, seed=1).simulate(80)
+    prob = g.compile(dtype=dtype, device=cuda)
+    p = prob.params["se3"].clone()
+    p[5::7, 3:] *= -1.0
+    p[9::11, 3:] *= 1.0005
+    return prob.with_params({**prob.params, "se3": p})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["3d", "psi2uv", "intrinsics"])
+def test_edge_lin_kernels_match_plain_on_gpu(cuda, dtype, kind):
+    """K17 against its plain version (the model's error and torch.func.jvp
+    through the retractions) on every edge group of the scene, without a
+    robust kernel and with Huber and Cauchy (delta 0.5), fixed vertices
+    included: residual, Jacobians and rho' relative to the largest plain
+    entry to 1e-10 (float64) and 2e-4 (float32; 2e-3 with a robust kernel,
+    whose rho' carries the float32 residual's cancellation error), as K16;
+    one launch per call, and a second call gives the same bits."""
+    from openslam_g2o_torch.kernels import edge_lin
+    prob = _lin_scene(cuda, dtype, kind)
+    for kid in (0, 1, 3):
+        for eg in prob.static.egroups:
+            fn = edge_lin.linearizer(eg.etype.name)
+            assert fn is not None, eg.key
+            ea = prob.edges[eg.key]
+            args = (tuple(prob.params[g] for g in eg.slots),
+                    tuple(prob.free[g] for g in eg.slots), ea.indices,
+                    ea.measurement, ea.information,
+                    torch.full_like(ea.delta, 0.5), ea.pdata, kid)
+            before = fn.launches
+            got = fn(*args)
+            assert fn.launches == before + 1
+            want = edge_lin.linearize_plain(eg.etype.name, *args)
+            flat = lambda o: (o[0], *o[1], o[2])
+            tol = {torch.float64: 1e-10,
+                   torch.float32: 2e-4 if kid == 0 else 2e-3}[dtype]
+            for g_, w_ in zip(flat(got), flat(want), strict=True):
+                assert g_.shape == w_.shape
+                assert _rel(g_, w_) < tol, (eg.key, kid)
+            for s, gname in enumerate(eg.slots):
+                fixed = prob.free[gname][ea.indices[s].long()] == 0
+                assert (got[1][s][fixed] == 0).all()
+            assert all(torch.equal(a, b_)
+                       for a, b_ in zip(flat(fn(*args)), flat(got)))
+
+
+def test_edge_lin_serves_linearize_group_on_gpu(cuda):
+    """On CUDA tensors `linearize_group` launches K17 for its four types and
+    no kernel for the others; an edge group of a type without a kernel
+    (EDGE_SE2_XY) keeps the jvp route on the card."""
+    from openslam_g2o_torch.kernels import edge_lin
+    kernels.reset_launch_counts()
+    for kind in ("3d", "psi2uv", "intrinsics"):
+        problem_mod.linearize(_lin_scene(cuda, torch.float32, kind))
+    counts = kernels.launch_counts()
+    assert {k for k, v in counts.items() if v} == set(
+        edge_lin.LINEARIZERS.values())
+    g, _ = Simulator2D(n_landmarks=10, seed=0).simulate(20)
+    kernels.reset_launch_counts()
+    lin = problem_mod.linearize(g.compile(dtype=torch.float32, device=cuda))
+    assert not any(kernels.launch_counts().values())
+    assert all(torch.isfinite(lin[k][0]).all() for k in lin)
