@@ -25,10 +25,13 @@ Phases (any failure raises and the script exits non-zero):
     device time, twice for the same bits, beside one index_put_ per slot
     pair, and on the 2D world once more with its width-3 instantiation
     switched off (a second build of dense_assemble.cu), for what that
-    instantiation saves. K17 (edge_lin_se3, edge_lin_se3_xyz,
-    edge_lin_p2mc_intrinsics, edge_lin_psi2uv: the forward-mode
-    linearizers) on the edge groups of phase 4f's world and of the 4k and
-    4l scenes, twice for the same bits and by device time.
+    instantiation saves. K17 (edge_lin_*, the linearizers of all 23
+    edge types: twenty in forward mode, EDGE_SE2 and the XYZ2UV / XYZ2UVU
+    projections in closed form) on the edge groups of their phase's scene
+    (LIN_ROWS: the worlds of 4d and 4f, the 4j BAL problem, the 4k and 4l
+    scenes, 4m's two-pose-group and stereo scenes) and, for the types of
+    phase 4o, on a seeded group of 50,000 edges each (lin_group), twice
+    for the same bits and by device time.
     On the sphere of phase 4e: K16 (edge_se3_blocks, without and with a robust
     kernel, on streams of the main path's width; twice for the same bits and
     by device time), K7 for SE3 (retract_se3, se3_edge_chi2, a NaN dx) and the 6x6
@@ -90,9 +93,10 @@ Phases (any failure raises and the script exits non-zero):
     that still gains is accepted, GN and LM end within 1e-6 of each other,
     the trajectory equals the same run with the dense-path kernels
     replaced by their plain versions to rtol 1e-9, and a second run gives
-    the same bits; ms per iteration split into linearize / assemble /
-    factor + solve / retract + chi2, and the device's busy time by kernel
-    over 3 iterations (torch.profiler);
+    the same bits; K17 launched for EDGE_SE2 and EDGE_SE2_XY; ms per
+    iteration split into linearize / assemble / factor + solve / retract +
+    chi2, and the device's busy time by kernel over 3 iterations
+    (torch.profiler);
  4e. the SE3 main path at full width: create_sphere at 200 laps of 500 =
     100,000 poses (noise 0.03 / 0.002, float32, 6x6 blocks) through lambda
     init and lm_pcg_optimize_fused on the sphere benchmark's schedule (6
@@ -132,7 +136,18 @@ Phases (any failure raises and the script exits non-zero):
     (two pose groups at P2MC_INTRINSICS), and in one profiled trial solve
     the device time per CG iteration and the kernels per ba_wv call (one);
     one build split into linearize and the rest of schur_build; K17
-    launched in 4k and 4l;
+    launched in 4j-4n (XYZ2UV in 4j, 4m and 4n, P2MC and P2SC in 4m's
+    routes, with their linearize split);
+ 4o. the dense LM over every type without a scene of another phase: three
+    worlds built with Graph from a seed (world2d_all_graph: the SE2 types,
+    priors, calibration and offset edges; world3d_all_graph: depth,
+    disparity, SE3 prior and offset edges; sba_all_graph: VERTEX_CAM with
+    P2MC, P2SC, EDGE_CAM, EDGE_SCALE, expmap cameras with XYZ2UV, XYZ2UVU,
+    EDGE_SE3:EXPMAP) at T of 9,000-9,203 in float64, 10 iterations of
+    optimize(prob): chi2 never increases, every gaining step accepted, the
+    plain route equal to rtol 1e-9 with the same trials, a second run
+    bit-identical, K17 launched for each type, a linearize / assemble
+    split;
  5. a small .g2o string through loads_g2o -> compile() (the default
     device) -> optimize(LevenbergMarquardtPCG()), chi2 decreasing and equal
     to the CPU run of the same graph; one with VERTEX_XY, EDGE_SE2_XY
@@ -151,8 +166,11 @@ Phases (any failure raises and the script exits non-zero):
     rows count phases 4g-4i, their @-rows the phase of their shape.
     spmv_dot_p runs on the unpreconditioned paths only, cg_update_p on the
     preconditioned ones (4b, 4e's Chebyshev window, 4h, 4i, 4j-4n).
-    K17's rows count every phase (4f, 4i 3D, 4j-4n), and 4f, 4k and 4l
-    must launch the types of their scenes.
+    K17's rows count every phase (4d, 4f, 4i, 4j-4n, 4o), and each row's
+    phase (LIN_ROWS) must launch it. From phase 4 on no built-in edge type
+    reaches the generic linearization (linearize_edges, forward_jacobians)
+    on the card outside the plain-route runs: each such call is counted
+    and there must be none.
 The last two lines are the per-kernel JSON and {"ok": true, "device": ...}.
 Exits non-zero without printing a result when no GPU is visible.
 """
@@ -194,6 +212,11 @@ TOL = {"edge_se2_blocks": {"float32": 1e-4, "float64": 1e-11},
        "edge_lin_se3_xyz": {"float32": 2e-4, "float64": 1e-10},
        "edge_lin_p2mc_intrinsics": {"float32": 2e-4, "float64": 1e-10},
        "edge_lin_psi2uv": {"float32": 2e-4, "float64": 1e-10},
+       **{"edge_lin_" + n_: {"float32": 2e-4, "float64": 1e-10} for n_ in (
+           "se2", "se2_xy", "se2_bearing", "se2_prior", "se2_prior_xy",
+           "se2_xy_calib", "se2_offset", "se2_xy_offset", "se3_depth",
+           "se3_disparity", "se3_prior", "se3_offset", "se3_expmap",
+           "xyz2uv", "xyz2uvu", "p2mc", "p2sc", "sba_cam", "sba_scale")},
        # the pixel residual cancels a projection of a few hundred pixels
        "ba_xyz2uv_blocks": {"float32": 1e-4, "float64": 1e-11},
        # downstream of a block inverse or of the Schur difference
@@ -330,17 +353,51 @@ KERNELS = {
                                  "openslam_g2o_tpu/core/problem.py:378"),
     "edge_lin_psi2uv": ("edge_lin.cu",
                         "openslam_g2o_tpu/core/problem.py:378"),
+    # the slice's nineteen: sixteen in forward mode (:378), EDGE_SE2 and
+    # the two XYZ2UV projections in closed form (the analytic branch, :367)
+    **{"edge_lin_" + n_: ("edge_lin.cu",
+                          "openslam_g2o_tpu/core/problem.py:"
+                          + ("367" if n_ in ("se2", "xyz2uv", "xyz2uvu")
+                             else "378"))
+       for n_ in ("se2", "se2_xy", "se2_bearing", "se2_prior",
+                  "se2_prior_xy", "se2_xy_calib", "se2_offset",
+                  "se2_xy_offset", "se3_depth", "se3_disparity",
+                  "se3_prior", "se3_offset", "se3_expmap", "xyz2uv",
+                  "xyz2uvu", "p2mc", "p2sc", "sba_cam", "sba_scale")},
 }
 # K17's rows: wrapper -> the phase whose scene its phase-3 row is taken
-# on, which must launch it; its launches are those of every phase
+# on, which must launch it; its launches are those of every phase. The
+# types of phase 4o, whose groups there are small, are taken on a seeded
+# group of LIN_GROUP_EDGES edges each (lin_group) instead.
 LIN_ROWS = {"edge_lin_se3": "4f", "edge_lin_se3_xyz": "4f",
-            "edge_lin_psi2uv": "4k", "edge_lin_p2mc_intrinsics": "4l"}
+            "edge_lin_psi2uv": "4k", "edge_lin_p2mc_intrinsics": "4l",
+            "edge_lin_se2": "4d", "edge_lin_se2_xy": "4d",
+            "edge_lin_xyz2uv": "4j", "edge_lin_p2mc": "4m",
+            "edge_lin_p2sc": "4m",
+            **{"edge_lin_" + n_: "4o" for n_ in (
+                "se2_bearing", "se2_prior", "se2_prior_xy", "se2_xy_calib",
+                "se2_offset", "se2_xy_offset", "se3_depth", "se3_disparity",
+                "se3_prior", "se3_offset", "se3_expmap", "xyz2uvu",
+                "sba_cam", "sba_scale")}}
+LIN_GROUP_EDGES = 50000
 # K17's operations per edge: scalar operations of one evaluation of the
-# error through the retractions (counted from csrc/edge_lin.cu), plus two
-# per Jacobian entry (a lower bound on the forward mode's work)
+# error (through the retractions, in forward mode; with the closed form,
+# for the analytic three), counted from csrc/edge_lin.cu and the headers
+# it includes (sin, cos, sqrt, atan2 and tan as one each), plus two per
+# Jacobian entry (a lower bound on the forward mode's work)
 LIN_VALUE_OPS = {"edge_se3": 390, "edge_se3_xyz": 225,
                  "edge_project_p2mc_intrinsics": 95,
-                 "edge_project_psi2uv": 500}
+                 "edge_project_psi2uv": 500,
+                 "edge_se2": 110, "edge_se2_xy": 40,
+                 "edge_se2_xy_bearing": 45, "edge_se2_prior": 45,
+                 "edge_se2_prior_xy": 8, "edge_se2_xy_calib": 60,
+                 "edge_se2_offset": 95, "edge_se2_xy_offset": 60,
+                 "edge_se3_depth": 240, "edge_se3_disparity": 240,
+                 "edge_se3_prior": 230, "edge_se3_offset": 420,
+                 "edge_se3_expmap": 470, "edge_project_xyz2uv": 150,
+                 "edge_project_xyz2uvu": 190, "edge_project_p2mc": 90,
+                 "edge_project_p2sc": 105, "edge_sba_cam": 330,
+                 "edge_sba_scale": 16}
 # the general Schur path's rows at the instantiations it adds: suffix -> its
 # phase, and what each kernel replaces there (openslam_g2o_tpu/core/ba.py)
 GENERAL_SUFFIXES = {"@psi2uv": "4k", "@intrinsics": "4l", "@d4": "4l",
@@ -604,6 +661,253 @@ def anchored_demo_graph(Graph):
     return g
 
 
+# -- phase 4o's worlds ----------------------------------------------------
+# Three graphs that hold every edge type without a scene of another phase,
+# built with the Graph API from a seed around a ground truth with small
+# noise (so that the dense LM converges), at T = 9003, 9000 and 9000 in
+# phase 4o; the tests build them small in both packages.
+ALL2D = (2000, 1600)        # poses, landmarks: T = 6000 + 3200 + 3
+ALL3D = (1000, 1000)        # poses, landmarks: T = 6000 + 3000
+ALLSBA = (600, 1800)        # cameras (half VERTEX_CAM), points: T = 3600
+#                             + 5400
+
+
+def _noisy_quat(rng, scale):
+    import numpy as np
+    v = rng.normal(0, scale, 3)
+    return np.array([*v, np.sqrt(1.0 - v @ v)])
+
+
+def fix_one_per_slot(g):
+    """Fix, in every slot of every edge type of graph `g` that names more
+    than one vertex and none fixed yet, the vertex of its middle edge (the
+    tests' fixed vertices)."""
+    slots = {}
+    for e in g.edges:
+        for s, vid in enumerate(e.vertex_ids):
+            slots.setdefault((e.etype.name, s), []).append(vid)
+    for vids in slots.values():
+        if len(set(vids)) > 1 and not any(g.vertices[v].fixed for v in vids):
+            g.set_fixed(vids[len(vids) // 2])
+    return g
+
+
+def world2d_all_graph(Graph, n_poses, n_landmarks, seed=0, prior_every=50):
+    """A Simulator2D-style world with every SE2 edge type: a random walk of
+    SE2 poses, odometry alternating EDGE_SE2 and EDGE_SE2_OFFSET (offset
+    parameters 1 and 2), EDGE_PRIOR_SE2_XY on every `prior_every`-th pose
+    and EDGE_PRIOR_SE2 on every fourth of those; XY landmarks each seen from four
+    consecutive poses by EDGE_SE2_XY, EDGE_SE2_XY_CALIB (one calibration
+    vertex, id 10**6), EDGE_SE2_POINTXY_OFFSET (offset parameter 3) and
+    EDGE_BEARING_SE2_XY. Measurement noise 0.01 m / 0.002 rad, initial
+    values 0.05 m / 0.01 rad off; no vertex fixed (the priors hold the
+    gauge). Vertex ids: poses 0.., landmarks 100000..."""
+    import numpy as np
+    from openslam_g2o_torch.utils import np_lie
+    rng = np.random.default_rng(seed)
+    sig_t, sig_r = 0.01, 0.002
+    offs = {1: np.array([0.2, 0.0, 0.1]), 2: np.array([-0.1, 0.1, 0.0]),
+            3: np.array([0.05, -0.15, -0.2])}
+    calib = np.array([0.1, -0.05, 0.02])
+    g = Graph()
+    for pid, off in offs.items():
+        g.add_parameter(pid, "se2_offset", off)
+    gt = [np.zeros(3)]
+    for _ in range(n_poses - 1):
+        gt.append(np_lie.se2_compose(gt[-1], np.array(
+            [1.0, 0.0, rng.normal(0, 0.2)])))
+    for i, p in enumerate(gt):
+        g.add_vertex(i, "se2", p + rng.normal(0, [0.05, 0.05, 0.01]))
+    g.add_vertex(10 ** 6, "se2", calib + rng.normal(0, [0.01, 0.01, 0.005]))
+    odo = np.diag([1 / sig_t ** 2, 1 / sig_t ** 2, 1 / sig_r ** 2])
+    pos = np.eye(2) / sig_t ** 2
+    for i in range(n_poses - 1):
+        if i % 2 == 0:
+            z = np_lie.se2_compose(np_lie.se2_inverse(gt[i]), gt[i + 1])
+            g.add_edge("edge_se2", (i, i + 1), z + rng.normal(
+                0, [sig_t, sig_t, sig_r]), odo)
+        else:
+            z = np_lie.se2_compose(
+                np_lie.se2_inverse(np_lie.se2_compose(gt[i], offs[1])),
+                np_lie.se2_compose(gt[i + 1], offs[2]))
+            g.add_edge("edge_se2_offset", (i, i + 1), z + rng.normal(
+                0, [sig_t, sig_t, sig_r]), odo, param_ids=[1, 2])
+    for i in range(0, n_poses, prior_every):
+        if i % (4 * prior_every) == 0:
+            g.add_edge("edge_se2_prior", (i,), gt[i] + rng.normal(
+                0, [sig_t, sig_t, sig_r]), odo)
+        g.add_edge("edge_se2_prior_xy", (i,), gt[i][:2] + rng.normal(
+            0, sig_t, 2), pos)
+    for k in range(n_landmarks):
+        i0 = int(k * (n_poses - 4) / n_landmarks)
+        lm = np_lie.se2_apply(gt[i0], np.array(
+            [rng.uniform(1.0, 4.0), rng.uniform(-2.0, 2.0)]))
+        lid = 100000 + k
+        g.add_vertex(lid, "point_xy", lm + rng.normal(0, 0.05, 2))
+        x = gt[i0]
+        g.add_edge("edge_se2_xy", (i0, lid), np_lie.se2_apply(
+            np_lie.se2_inverse(x), lm) + rng.normal(0, sig_t, 2), pos)
+        x = np_lie.se2_compose(gt[i0 + 1], calib)
+        g.add_edge("edge_se2_xy_calib", (i0 + 1, lid, 10 ** 6),
+                   np_lie.se2_apply(np_lie.se2_inverse(x), lm)
+                   + rng.normal(0, sig_t, 2), pos)
+        x = np_lie.se2_compose(gt[i0 + 2], offs[3])
+        g.add_edge("edge_se2_xy_offset", (i0 + 2, lid),
+                   np_lie.se2_apply(np_lie.se2_inverse(x), lm)
+                   + rng.normal(0, sig_t, 2), pos, param_ids=[3])
+        d = np_lie.se2_apply(np_lie.se2_inverse(gt[i0 + 3]), lm)
+        g.add_edge("edge_se2_xy_bearing", (i0 + 3, lid),
+                   [np.arctan2(d[1], d[0]) + rng.normal(0, sig_r)],
+                   np.eye(1) / sig_r ** 2)
+    return g
+
+
+def world3d_all_graph(Graph, n_poses, n_landmarks, seed=0):
+    """A Simulator3D-style world with the 3D types that no other phase
+    runs: a random walk of SE3 poses, odometry EDGE_SE3_OFFSET (offset
+    parameters 1 and 2), EDGE_SE3_PRIOR (offset 1) on every 100th pose, and
+    XYZ landmarks each seen through the camera_calib parameter 0 (looking
+    along the robot's x axis, fx = fy = 500, c = (320, 240)) from four
+    consecutive poses, alternately by EDGE_PROJECT_DEPTH and
+    EDGE_PROJECT_DISPARITY. Noise 0.5 px, 0.01 m of depth, 1e-4 of
+    disparity, 0.01 m / 0.002 rad of odometry; initial values 0.05 m /
+    0.01 rad off; no vertex fixed. Vertex ids: poses 0.., landmarks
+    100000..."""
+    import numpy as np
+    from openslam_g2o_torch.utils import np_lie
+    rng = np.random.default_rng(seed)
+    h = np.sqrt(0.5)
+    cam = np.array([0.1, 0.0, 0.2, 0.0, h, 0.0, h, 500.0, 500.0, 320.0,
+                    240.0])
+    offs = {1: np.concatenate([[0.2, 0.0, 0.05], _noisy_quat(rng, 0.05)]),
+            2: np.concatenate([[-0.1, 0.1, 0.0], _noisy_quat(rng, 0.05)])}
+    g = Graph()
+    g.add_parameter(0, "camera_calib", cam)
+    for pid, off in offs.items():
+        g.add_parameter(pid, "se3_offset", off)
+    gt = [np.array([0, 0, 0, 0, 0, 0, 1.0])]
+    for _ in range(n_poses - 1):
+        q = _noisy_quat(rng, 0.01)
+        q[2] += rng.normal(0, 0.03)
+        q /= np.linalg.norm(q)
+        gt.append(np_lie.se3_compose(gt[-1], np.concatenate(
+            [[0.5, 0.0, 0.0], q])))
+
+    def noisy_pose(p, st, sr):
+        return np_lie.se3_compose(p, np.concatenate(
+            [rng.normal(0, st, 3), _noisy_quat(rng, sr)]))
+
+    for i, p in enumerate(gt):
+        g.add_vertex(i, "se3", noisy_pose(p, 0.05, 0.005))
+    info6 = np.diag([1e4, 1e4, 1e4, 2.5e5, 2.5e5, 2.5e5])
+    for i in range(n_poses - 1):
+        z = np_lie.se3_compose(
+            np_lie.se3_inverse(np_lie.se3_compose(gt[i], offs[1])),
+            np_lie.se3_compose(gt[i + 1], offs[2]))
+        g.add_edge("edge_se3_offset", (i, i + 1), noisy_pose(z, 0.01, 0.002),
+                   info6, param_ids=[1, 2])
+    for i in range(0, n_poses, 100):
+        g.add_edge("edge_se3_prior", (i,), noisy_pose(
+            np_lie.se3_compose(gt[i], offs[1]), 0.01, 0.002), info6,
+            param_ids=[1])
+    for k in range(n_landmarks):
+        i0 = int(k * (n_poses - 4) / n_landmarks)
+        c2w = np_lie.se3_compose(gt[i0], cam[:7])
+        lm = np_lie.se3_apply(c2w, np.array(
+            [rng.uniform(-1, 1), rng.uniform(-1, 1), rng.uniform(4, 7)]))
+        lid = 100000 + k
+        g.add_vertex(lid, "point_xyz", lm + rng.normal(0, 0.05, 3))
+        for j in range(4):
+            pc = np_lie.se3_apply(np_lie.se3_inverse(
+                np_lie.se3_compose(gt[i0 + j], cam[:7])), lm)
+            uv = cam[7:9] * pc[:2] / pc[2] + cam[9:11]
+            if j % 2 == 0:
+                z = np.array([*uv, pc[2]]) + rng.normal(0, [0.5, 0.5, 0.01])
+                g.add_edge("edge_se3_depth", (i0 + j, lid), z,
+                           np.diag([4.0, 4.0, 1e4]), param_ids=[0])
+            else:
+                z = np.array([*uv, 1 / pc[2]]) + rng.normal(
+                    0, [0.5, 0.5, 1e-4])
+                g.add_edge("edge_se3_disparity", (i0 + j, lid), z,
+                           np.diag([4.0, 4.0, 1e8]), param_ids=[0])
+    return g
+
+
+def sba_all_graph(Graph, n_cams, n_points, seed=0):
+    """An SBA world with every SBA type but PSI2UV: cameras on a line
+    along x looking down +z, the even ones VERTEX_CAM (camera-to-world,
+    intrinsics (500, 500, 320, 240, 0.1)) joined by EDGE_CAM and EDGE_SCALE
+    to the next even one, the odd ones VERTEX_SE3:EXPMAP (world-to-camera)
+    joined by EDGE_SE3:EXPMAP to the next odd one; points 4-7 m in front,
+    each seen by six consecutive cameras: through P2MC or P2SC (by the
+    point's parity) from the VERTEX_CAMs, through XYZ2UV or XYZ2UVU
+    (camera parameters 0: 500, 320, 240, 0.1) from the expmap cameras.
+    Cameras 0-3 fixed; noise 0.5 px and 0.005 m / 0.001 rad between
+    cameras, initial values 0.02 m / 0.002 rad (cameras) and 0.05 m
+    (points) off. Vertex ids: cameras 0.., points 100000..."""
+    import numpy as np
+    from openslam_g2o_torch.utils import np_lie
+    rng = np.random.default_rng(seed)
+    f, cx, cy, b = 500.0, 320.0, 240.0, 0.1
+    g = Graph()
+    g.add_parameter(0, "camera_parameters", [f, cx, cy, b])
+    c2w = [np.concatenate([[0.1 * i, rng.normal(0, 0.02), 0.0],
+                           _noisy_quat(rng, 0.02)]) for i in range(n_cams)]
+
+    def perturb(p, st, sr):
+        return np_lie.se3_compose(p, np.concatenate(
+            [rng.normal(0, st, 3), _noisy_quat(rng, sr)]))
+
+    for i in range(n_cams):
+        fixed = i < 4
+        start = c2w[i] if fixed else perturb(c2w[i], 0.02, 0.002)
+        if i % 2 == 0:
+            g.add_vertex(i, "cam", np.concatenate([start, [f, f, cx, cy, b]]),
+                         fixed=fixed)
+        else:
+            g.add_vertex(i, "se3_expmap", np_lie.se3_inverse(start),
+                         fixed=fixed)
+    info6 = np.diag([4e4, 4e4, 4e4, 1e6, 1e6, 1e6])
+    for i in range(n_cams - 2):
+        if i % 2 == 0:
+            z = np_lie.se3_compose(np_lie.se3_inverse(c2w[i]), c2w[i + 2])
+            g.add_edge("edge_sba_cam", (i, i + 2), perturb(z, 0.005, 0.001),
+                       info6)
+            g.add_edge("edge_sba_scale", (i, i + 2),
+                       [np.linalg.norm(c2w[i][:3] - c2w[i + 2][:3])
+                        + rng.normal(0, 0.005)], np.eye(1) * 4e4)
+        else:
+            w2c1, w2c2 = (np_lie.se3_inverse(c2w[i]),
+                          np_lie.se3_inverse(c2w[i + 2]))
+            z = np_lie.se3_compose(w2c2, np_lie.se3_inverse(w2c1))
+            g.add_edge("edge_se3_expmap", (i, i + 2),
+                       perturb(z, 0.005, 0.001), info6)
+    for j in range(n_points):
+        k0 = int(j * (n_cams - 6) / n_points)
+        x0 = 0.1 * (k0 + 2.5)
+        pt = np.array([x0 + rng.uniform(-1.0, 1.0), rng.uniform(-1.5, 1.5),
+                       rng.uniform(4.0, 7.0)])
+        pid = 100000 + j
+        g.add_vertex(pid, "sba_point_xyz", pt + rng.normal(0, 0.05, 3),
+                     marginalized=True)
+        for i in range(k0, k0 + 6):
+            pc = np_lie.se3_apply(np_lie.se3_inverse(c2w[i]), pt)
+            uv = f * pc[:2] / pc[2] + np.array([cx, cy])
+            ur = f * (pc[0] - b) / pc[2] + cx
+            stereo = j % 2 == 1
+            z = (np.array([*uv, ur]) if stereo else uv) + rng.normal(
+                0, 0.5, 3 if stereo else 2)
+            info = np.eye(len(z)) * 4.0
+            if i % 2 == 0:
+                g.add_edge("edge_project_p2sc" if stereo
+                           else "edge_project_p2mc", (pid, i), z, info)
+            else:
+                g.add_edge("edge_project_xyz2uvu" if stereo
+                           else "edge_project_xyz2uv", (pid, i), z, info,
+                           param_ids=[0])
+    return g
+
+
 def pose_slot_dargs(torch, dense_assemble, gprob, pat, lin):
     """dense_assemble's arguments as schur_build (core/ba.py) passes them
     on the general Schur path: the pose slots' EdgeBlocks of every edge
@@ -721,23 +1025,131 @@ def k15_bytes_flops(groups, pattern):
     return nbytes, flops
 
 
-def lin_bytes_flops(prob, eg):
-    """What one K17 call on edge group `eg` of `prob` must move and do:
+def lin_args(prob, eg):
+    """K17's arguments for edge group `eg` of `prob`, as core/problem.py
+    `linearize_group` passes them."""
+    ea = prob.edges[eg.key]
+    return (tuple(prob.params[g] for g in eg.slots),
+            tuple(prob.free[g] for g in eg.slots), ea.indices,
+            ea.measurement, ea.information, ea.delta, ea.pdata, eg.kernel_id)
+
+
+def lin_bytes_flops(type_name, args):
+    """What one K17 call with the wrapper arguments `args` must move and do:
     each slot's vertex table and free flags once (a table two slots share
     once), the indices, measurements, Omega, delta and parameter data, the
     residual, Jacobians and rho' written once (bytes); LIN_VALUE_OPS per
     edge and two per Jacobian entry (operations)."""
-    ea = prob.edges[eg.key]
-    s = ea.measurement.element_size()
-    E, D = eg.count, ea.information.shape[1]
-    widths = [prob.params[g].shape[1] + 1 for g in dict.fromkeys(eg.slots)]
-    counts = [prob.params[g].shape[0] for g in dict.fromkeys(eg.slots)]
-    dims = [prob.static.vgroup(g).tangent_dim for g in eg.slots]
-    pdata = sum(p.shape[1] for p in ea.pdata)
-    nbytes = s * (sum(w * n for w, n in zip(widths, counts))
-                  + E * (ea.measurement.shape[1] + D * D + 1 + pdata)
-                  + E * (D + D * sum(dims) + 1)) + 4 * E * len(eg.slots)
-    return nbytes, E * (LIN_VALUE_OPS[eg.etype.name] + 2 * D * sum(dims))
+    from openslam_g2o_torch.core import registry
+    params, free, indices, meas, info, delta, pdata, _ = args
+    s = meas.element_size()
+    E, D = meas.shape[0], info.shape[1]
+    tables = {p.data_ptr(): p for p in params}.values()
+    dims = [registry.vertex_type(n).tangent_dim
+            for n in registry.edge_type(type_name).vertex_types]
+    nbytes = (s * (sum(p.shape[0] * (p.shape[1] + 1) for p in tables)
+                   + E * (meas.shape[1] + D * D + 1
+                          + sum(p.shape[1] for p in pdata))
+                   + E * (D + D * sum(dims) + 1)) + 4 * E * len(params))
+    return nbytes, E * (LIN_VALUE_OPS[type_name] + 2 * D * sum(dims))
+
+
+def lin_group(torch, type_name, n_edges, dtype, device, kernel_id=0,
+              seed=0):
+    """K17's arguments for one edge group of `type_name` with `n_edges`
+    edges, built straight from seeded tensors: n_edges / 4 vertices per
+    vertex group (every 7th fixed), random incidences (two slots of one
+    vertex type never name one vertex), measurements, Omega = A A^T + I,
+    delta in [0.5, 2] and parameter data. Poses sit near the identity (a
+    translation within 0.5, a rotation within 0.3 rad) and points 4-8 in
+    front of them, so every projection has positive depth; SE2 poses and
+    XY points spread over 40 m, angles over [-pi, pi)."""
+    import math
+    from openslam_g2o_torch.core import registry
+    et = registry.edge_type(type_name)
+    gen = torch.Generator().manual_seed(seed)
+    f64 = torch.float64
+
+    def U(*shape, lo=-1.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen, dtype=f64)
+
+    def quat(n, scale):
+        v = U(n, 3, lo=-scale, hi=scale)
+        return torch.cat([v, torch.sqrt(1 - (v * v).sum(1, keepdim=True))],
+                         1)
+
+    def pose(n):
+        return torch.cat([U(n, 3, lo=-0.5, hi=0.5), quat(n, 0.15)], 1)
+
+    def point(n):
+        return torch.cat([U(n, 2, lo=-2, hi=2), U(n, 1, lo=4, hi=8)], 1)
+
+    def intr(n, w):
+        return torch.cat([U(n, 2, lo=480, hi=520), U(n, 1, lo=300, hi=340),
+                          U(n, 1, lo=220, hi=260), U(n, 1, lo=0.05,
+                                                        hi=0.15)], 1)[:, :w]
+
+    n = max(n_edges // 4, 16)
+    if type_name == "edge_project_psi2uv":   # inverse depth in the anchor
+        point = lambda n_: torch.cat([U(n_, 2, lo=-0.4, hi=0.4),
+                                      U(n_, 1, lo=0.125, hi=0.25)], 1)
+    vertex = {
+        "se2": lambda: torch.cat([U(n, 2, lo=-20, hi=20),
+                                  U(n, 1, lo=-math.pi, hi=math.pi)], 1),
+        "point_xy": lambda: U(n, 2, lo=-20, hi=20),
+        "se3": lambda: pose(n), "se3_expmap": lambda: pose(n),
+        "point_xyz": lambda: point(n), "sba_point_xyz": lambda: point(n),
+        "cam": lambda: torch.cat([pose(n), intr(n, 5)], 1),
+        "intrinsics": lambda: intr(4, 5)}
+    tables = {vt: vertex[vt]() for vt in dict.fromkeys(et.vertex_types)}
+    E = n_edges
+    indices, first = [], {}
+    for vt in et.vertex_types:
+        N = tables[vt].shape[0]
+        if vt in first:                       # another vertex of the group
+            idx = (first[vt] + 1 + torch.randint(N - 1, (E,), generator=gen)
+                   ) % N
+        else:
+            idx = first[vt] = torch.randint(N, (E,), generator=gen)
+        indices.append(idx)
+    M, D = et.measurement_dim, et.error_dim
+    if type_name in ("edge_se3", "edge_se3_prior", "edge_se3_offset",
+                     "edge_se3_expmap", "edge_sba_cam"):
+        meas = pose(E)
+    elif type_name in ("edge_se3_depth", "edge_se3_disparity"):
+        z = U(E, 1, lo=4, hi=8)
+        meas = torch.cat([U(E, 2, lo=200, hi=400),
+                          z if type_name == "edge_se3_depth" else 1 / z], 1)
+    elif type_name.startswith("edge_project") and type_name not in (
+            "edge_project_psi2uv",):
+        meas = U(E, M, lo=200, hi=400)
+    elif type_name in ("edge_se2", "edge_se2_prior", "edge_se2_offset"):
+        meas = torch.cat([U(E, 2, lo=-2, hi=2),
+                          U(E, 1, lo=-math.pi, hi=math.pi)], 1)
+    elif type_name == "edge_se2_xy_bearing":
+        meas = U(E, 1, lo=-math.pi, hi=math.pi)
+    elif type_name == "edge_sba_scale":
+        meas = U(E, 1, lo=0.5, hi=1.5)
+    else:                                      # positions, pixels of PSI2UV
+        meas = U(E, M, lo=-5, hi=5)
+    A = U(E, D, D, lo=-0.5, hi=0.5)
+    info = A @ A.transpose(1, 2) + torch.eye(D, dtype=f64)
+    pmake = {"se2_offset": lambda: torch.cat([U(E, 2, lo=-0.3, hi=0.3),
+                                              U(E, 1, lo=-0.5, hi=0.5)], 1),
+             "se3_offset": lambda: pose(E),
+             "camera_calib": lambda: torch.cat([pose(E), intr(E, 4)], 1),
+             "camera_parameters": lambda: torch.cat(
+                 [U(E, 1, lo=480, hi=520), U(E, 1, lo=300, hi=340),
+                  U(E, 1, lo=220, hi=260), U(E, 1, lo=0.05, hi=0.15)], 1)}
+    pdata = tuple(pmake[pt]() for pt in et.param_types)
+    to = lambda t: t.to(device=device, dtype=dtype).contiguous()
+    free = {vt: (torch.arange(t.shape[0]) % 7 != 3).to(f64)
+            for vt, t in tables.items()}
+    return (tuple(to(tables[vt]) for vt in et.vertex_types),
+            tuple(to(free[vt]) for vt in et.vertex_types),
+            tuple(i.to(device=device, dtype=torch.int32) for i in indices),
+            to(meas), to(info), to(U(E, lo=0.5, hi=2.0)),
+            tuple(to(p) for p in pdata), kernel_id)
 
 
 def _median_ms(torch, fn, repeats=15, inner=20, warmup=3):
@@ -2667,38 +3079,64 @@ def main() -> int:
             del gprob
         torch.cuda.empty_cache()
 
-    # K17 on the edge groups of phase 4f's world and of the 4k and 4l
-    # scenes: each wrapper against its plain version (the error and
-    # torch.func.jvp), twice for the same bits, by device time
+    # K17: each wrapper against its plain version (the error and
+    # torch.func.jvp, or the closed form in torch), twice for the same
+    # bits, by device time: on the edge groups of its phase's scene
+    # (LIN_ROWS: the worlds of 4d and 4f, the 4j BAL problem, the 4k and 4l
+    # scenes, 4m's two-pose-group and stereo scenes), and the types of
+    # phase 4o on a seeded group of LIN_GROUP_EDGES edges each (lin_group)
+    geo_two = bal_geometry(12, 400)
     for dt in (torch.float32, torch.float64):
         tag = str(dt).split(".")[-1]
-        for lprob in (world3.compile(dtype=dt),
-                      general_graphs["@psi2uv"].compile(dtype=dt),
-                      general_graphs["@intrinsics"].compile(dtype=dt)):
+        groups = {}
+        for label, make in (
+                ("4d", lambda: world.compile(dtype=dt)),
+                ("4f", lambda: world3.compile(dtype=dt)),
+                ("4j", lambda: synthetic_bal_problem(*BA_80K, BA_OBS,
+                                                     dtype=dt)[0]),
+                ("4k", lambda: general_graphs["@psi2uv"].compile(dtype=dt)),
+                ("4l",
+                 lambda: general_graphs["@intrinsics"].compile(dtype=dt)),
+                ("4m", lambda: two_pose_group_graph(
+                    Graph, geo_two).compile(dtype=dt)),
+                ("4m", lambda: stereo_sba_graph(Graph).compile(dtype=dt))):
+            lprob = make()
             for eg in lprob.static.egroups:
                 wname = edge_lin.LINEARIZERS[eg.etype.name]
-                ea = lprob.edges[eg.key]
-                largs = (tuple(lprob.params[g] for g in eg.slots),
-                         tuple(lprob.free[g] for g in eg.slots), ea.indices,
-                         ea.measurement, ea.information, ea.delta, ea.pdata,
-                         eg.kernel_id)
-                flat = lambda o: (o[0], *o[1], o[2])
-                run_l = lambda w_=wname, a_=largs: flat(
-                    getattr(edge_lin, w_)(*a_))
-                plain_l = lambda w_=wname, a_=largs: flat(
-                    getattr(edge_lin, w_ + "_plain")(*a_))
-                nbytes, flops = lin_bytes_flops(lprob, eg)
-                dims = [lprob.static.vgroup(g).tangent_dim for g in eg.slots]
-                case(wname, tag, f"E={eg.count} slots {list(eg.slots)} of "
-                     f"widths {dims}, phase {LIN_ROWS[wname]}", run_l,
-                     plain_l, nbytes=nbytes, flops=flops, slow_plain=True)
-                first = tuple(t_.clone() for t_ in run_l())
-                if not all(torch.equal(a_, b_)
-                           for a_, b_ in zip(first, run_l())):
-                    raise AssertionError(f"{wname} does not repeat its bits")
-                del first
-                device_rows(wname, tag, {"kernel": run_l})
+                if LIN_ROWS[wname] == label and wname not in groups:
+                    groups[wname] = (
+                        eg.etype.name, lin_args(lprob, eg),
+                        f"E={eg.count} slots {list(eg.slots)}, phase "
+                        f"{label}")
             del lprob
+        for tname, wname in edge_lin.LINEARIZERS.items():
+            if LIN_ROWS[wname] == "4o":
+                groups[wname] = (
+                    tname, lin_group(torch, tname, LIN_GROUP_EDGES, dt, dev,
+                                     seed=7),
+                    f"E={LIN_GROUP_EDGES} seeded group (lin_group), phase "
+                    "4o")
+        if set(groups) != set(LIN_ROWS):
+            raise AssertionError(f"K17 rows missing: "
+                                 f"{set(LIN_ROWS) - set(groups)}")
+        flat = lambda o: (o[0], *o[1], o[2])
+        for wname, (tname, largs, shape) in groups.items():
+            dims = [t_.shape[2] for t_ in
+                    edge_lin.linearize_plain(tname, *largs)[1]]
+            run_l = lambda w_=wname, a_=largs: flat(
+                getattr(edge_lin, w_)(*a_))
+            plain_l = lambda w_=wname, a_=largs: flat(
+                getattr(edge_lin, w_ + "_plain")(*a_))
+            nbytes, flops = lin_bytes_flops(tname, largs)
+            case(wname, tag, f"{shape}, widths {dims}", run_l, plain_l,
+                 nbytes=nbytes, flops=flops, slow_plain=True)
+            first = tuple(t_.clone() for t_ in run_l())
+            if not all(torch.equal(a_, b_)
+                       for a_, b_ in zip(first, run_l())):
+                raise AssertionError(f"{wname} does not repeat its bits")
+            del first
+            device_rows(wname, tag, {"kernel": run_l})
+        del groups
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for (label, tag), row in sorted(results.items()):
@@ -2749,11 +3187,33 @@ def main() -> int:
              (schur_general, "schur_edge_blocks"),
              *((edge_lin, w_) for w_ in edge_lin.LINEARIZERS.values())]
 
+    # From here on no built-in edge type may reach the generic
+    # linearization (the model's torch error with torch.func.jvp or its
+    # torch closed form) on CUDA tensors outside a plain-route run: K17
+    # serves every type of openslam_g2o_torch.models. Each such call is
+    # recorded (phase 6 asserts there is none).
+    generic_calls, plain_depth = [], [0]
+
+    def count_generic(fn, name):
+        def counted(*a, **k):
+            et, meas = ((a[0], a[5]) if name == "linearize_edges"
+                        else (a[0].etype, a[2]))
+            if (plain_depth[0] == 0 and meas.device.type == "cuda"
+                    and et.name in edge_lin.LINEARIZERS):
+                generic_calls.append((name, et.name))
+            return fn(*a, **k)
+        return counted
+
+    for fn_name in ("linearize_edges", "forward_jacobians"):
+        setattr(problem_mod, fn_name,
+                count_generic(getattr(problem_mod, fn_name), fn_name))
+
     class plain_versions:
         """Every wrapper swapped for its plain version (CUDA tensors, plain
         PyTorch ops) inside the block; fails if a kernel launched in it."""
 
         def __enter__(self):
+            plain_depth[0] += 1
             self.before = kernels.launch_counts()
             self.saved = [(mod, attr, getattr(mod, attr))
                           for mod, attr in swaps]
@@ -2765,6 +3225,7 @@ def main() -> int:
                 lambda *a, w_rec, **k: plain_schur(*a, **k)
 
         def __exit__(self, *exc):
+            plain_depth[0] -= 1
             for mod, attr, fn in self.saved:
                 setattr(mod, attr, fn)
             if exc[0] is None and kernels.launch_counts() != self.before:
@@ -3037,10 +3498,13 @@ def main() -> int:
             torch.equal(lm_again.params[k], lm_out.params[k])
             for k in lm_out.params):
         raise AssertionError("dense path: a second run gave other bits")
+    lin_d = {k: counts_dense[k] for k in ("edge_lin_se2", "edge_lin_se2_xy")}
+    if min(lin_d.values()) <= 0:
+        raise AssertionError(f"phase 4d: K17 did not launch: {lin_d}")
     print(f"phase 4d checks: LM chi2 never increases, every gaining step "
           f"accepted; |LM - GN| / GN = {gap:.3e} (<= 1e-6); plain route "
           f"equal to rtol {DENSE_ROUTE_RTOL:g} with the same trials while "
-          f"gaining; second run bit-identical OK")
+          f"gaining; second run bit-identical; K17 launches {lin_d} OK")
     del lm_again, plain_stats
 
     # the split of one LM iteration at the start (CUDA events, median of 5)
@@ -3773,7 +4237,8 @@ def main() -> int:
                              "dense_assemble", "lane_block_mv",
                              "edge_lin_psi2uv")),
                      ("4l", ("ba_block_inv@d4", "lane_block_mv@d4",
-                             "edge_lin_p2mc_intrinsics"))):
+                             "edge_lin_p2mc_intrinsics")),
+                     ("4j", ("edge_lin_xyz2uv",))):
         if min(counts_gen[ph].get(k, 0) for k in want) <= 0:
             raise AssertionError(f"phase {ph}: a kernel did not launch: "
                                  f"{counts_gen[ph]}")
@@ -3783,6 +4248,8 @@ def main() -> int:
     two = two_pose_group_graph(Graph, bal_geometry(12, 400)).compile()
     stereo = stereo_sba_graph(Graph).compile()
     routes = []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
     for label, p_, want in (
             ("BAL 80k", bal80, "LevenbergMarquardtSchurELL"),
             ("P2SC stereo, examples/sba_demo.py", stereo,
@@ -3797,14 +4264,37 @@ def main() -> int:
         if got != want:
             raise AssertionError(f"phase 4m: _SchurAuto routes {label} to "
                                  f"{got}, not {want}")
+    counts_route = kernels.launch_counts()
     print("phase 4m _SchurAuto: " + "; ".join(routes) + " (the JAX package "
           "routes the two-pose-group graph to its dual-ELL solver)")
+    # the routes' inits linearized P2MC and XYZ2UV (two pose groups) and
+    # P2SC (the stereo scene's dual-ELL build, K10's generic entry) by K17
+    lin_m = {k: counts_route[k] for k in ("edge_lin_p2mc", "edge_lin_p2sc",
+                                          "edge_lin_xyz2uv")}
+    if min(lin_m.values()) <= 0:
+        raise AssertionError(f"phase 4m: K17 did not launch: {lin_m}")
+    pat_two = ba_general.build_schur_pattern(two)
+    lin_two = problem_mod.linearize(two)
+    split_m = {
+        "linearize (two pose groups)": _median_ms(
+            torch, lambda: problem_mod.linearize(two), 5, 1, 1),
+        "schur_build without linearize (two pose groups)": _median_ms(
+            torch, lambda: ba_general.schur_build(two, lin=lin_two,
+                                                  pattern=pat_two), 5, 1, 1),
+        "linearize (stereo)": _median_ms(
+            torch, lambda: problem_mod.linearize(stereo), 5, 1, 1)}
+    del pat_two, lin_two
+    print(f"phase 4m K17 launches in the routes' inits {lin_m}; split "
+          f"(CUDA events around one call, median of 5, float64): "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in split_m.items())
+          + f" [{card}]")
     demo = anchored_demo_graph(Graph).compile()          # card, float64
     kernels.reset_launch_counts()
     t_demo = time.monotonic()
     _, demo_stats = optimize(demo, LevenbergMarquardtSchur(), iterations=30)
     t_demo = time.monotonic() - t_demo
-    counts_gen["4m"] = kernels.launch_counts()
+    counts_gen["4m"] = {k: v + counts_route[k]
+                        for k, v in kernels.launch_counts().items()}
     demo_end = demo_stats[-1]["chi2"]
     print(f"phase 4m examples/ba_anchored_inverse_depth_demo.py scene "
           f"({demo.static.egroups[0].count} observations, float64): 30 "
@@ -3834,11 +4324,104 @@ def main() -> int:
     traj_n, counts_gen["4n"] = general_path(
         "4n", f"synthetic_bal_problem{BA_400K + (BA_OBS,)}, binary "
         "EDGE_PROJECT_XYZ2UV", bal400, expected400)
+    if counts_gen["4n"]["edge_lin_xyz2uv"] <= 0:
+        raise AssertionError("phase 4n: K17 did not launch for XYZ2UV")
     ell400, ell400_expected = ell_traj["4h"]
     print("phase 4n beside phase 4h's dual-ELL route (pcg 30, tol 0.05): "
           + " ".join(f"{c / ell400_expected:.5f}" for c in ell400))
     del bal400
     torch.cuda.empty_cache()
+
+    # 4o. the dense LM over the types without a scene of their own: phase
+    # 4o's three worlds at T of 9,000-9,203 (float64, the card) through
+    # optimize(prob), the default dense LevenbergMarquardt, 10 iterations,
+    # with 4d's checks: chi2 never increases, every gaining step accepted,
+    # the plain route equal to rtol DENSE_ROUTE_RTOL with the same trials
+    # while gaining, a second run bit-identical; K17 launched for every
+    # type of the world; the split of one LM iteration's build
+    counts_4o = {}
+    for label, make, size in (("2D", world2d_all_graph, ALL2D),
+                              ("3D", world3d_all_graph, ALL3D),
+                              ("SBA", sba_all_graph, ALLSBA)):
+        t_b = time.monotonic()
+        oprob = make(Graph, *size).compile()    # default device, float64
+        t_b = time.monotonic() - t_b
+        T_o = oprob.static.total_dim
+        if oprob.device.type != "cuda" or oprob.dtype != torch.float64 \
+                or not 8000 <= T_o <= 12000:
+            raise AssertionError(f"phase 4o {label}: {oprob.device} "
+                                 f"{oprob.dtype} T={T_o}")
+        by_type_o = " ".join(f"{eg.key}={eg.count}"
+                             for eg in oprob.static.egroups)
+        chi0_o = float(robust_chi2(oprob))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t_o = time.monotonic()
+        out_o, stats_o = optimize(oprob)          # LevenbergMarquardt, 10
+        t_o = time.monotonic() - t_o
+        c_o = kernels.launch_counts()
+        for k, v in c_o.items():
+            counts_4o[k] = counts_4o.get(k, 0) + v
+        chi_o = [st_["chi2"] for st_ in stats_o]
+        steps_o = np.diff(np.array([chi0_o] + chi_o))
+        gaining_o = -steps_o > 1e-10 * np.array(chi_o)
+        bad_o = [i for i, st_ in enumerate(stats_o)
+                 if not st_["ok"] and (i == 0 or gaining_o[i - 1])]
+        print(f"phase 4o {label} world: {make.__name__}(Graph, {size}) in "
+              f"{t_b:.2f} s on the host; T={T_o} {by_type_o} float64; "
+              f"chi2_0 {chi0_o:.1f}; LM 10 iterations {t_o * 100:.2f} ms/"
+              f"iteration ({sum(st_['levenberg_iters'] for st_ in stats_o)}"
+              f" trials) [{card}]")
+        print(f"phase 4o {label} LM chi2: "
+              + " ".join(f"{c:.4f}" for c in chi_o))
+        if not (np.all(np.isfinite(chi_o)) and np.all(steps_o <= 0)) \
+                or bad_o:
+            raise AssertionError(f"phase 4o {label}: chi2 increased or a "
+                                 f"gaining step failed: {stats_o}")
+        with plain_versions():
+            _, plain_o = optimize(oprob)
+        np.testing.assert_allclose(chi_o, [st_["chi2"] for st_ in plain_o],
+                                   rtol=DENSE_ROUTE_RTOL)
+        live_o = (int(np.argmin(gaining_o)) if not gaining_o.all()
+                  else len(gaining_o))
+        if ([st_["levenberg_iters"] for st_ in plain_o[:live_o]]
+                != [st_["levenberg_iters"] for st_ in stats_o[:live_o]]):
+            raise AssertionError(f"phase 4o {label}: the plain route took "
+                                 "other trials")
+        again_o, again_stats_o = optimize(oprob)
+        if [st_["chi2"] for st_ in again_stats_o] != chi_o or not all(
+                torch.equal(again_o.params[k], out_o.params[k])
+                for k in out_o.params):
+            raise AssertionError(f"phase 4o {label}: a second run gave "
+                                 "other bits")
+        lin_o = {edge_lin.LINEARIZERS[eg.etype.name]:
+                 c_o[edge_lin.LINEARIZERS[eg.etype.name]]
+                 for eg in oprob.static.egroups}
+        if min(lin_o.values()) <= 0:
+            raise AssertionError(f"phase 4o {label}: K17 did not launch: "
+                                 f"{lin_o}")
+        holder_o = {}
+        dpat_o = dense_assemble.build_dense_pattern(oprob)
+
+        def t_lin_o():
+            holder_o["lin"] = problem_mod.linearize(oprob)
+
+        def t_asm_o():
+            problem_mod.build_dense_system(oprob, lin=holder_o["lin"],
+                                           pattern=dpat_o)
+
+        split_o = {k: _median_ms(torch, fn, repeats=5, inner=1, warmup=1)
+                   for k, fn in (("linearize", t_lin_o),
+                                 ("assemble", t_asm_o))}
+        print(f"phase 4o {label} checks: LM chi2 never increases, every "
+              f"gaining step accepted; plain route equal to rtol "
+              f"{DENSE_ROUTE_RTOL:g} with the same trials while gaining; "
+              f"second run bit-identical; K17 launches {lin_o}; split "
+              f"(CUDA events, median of 5): "
+              + "; ".join(f"{k} {v:.3f} ms" for k, v in split_o.items())
+              + f" [{card}] OK")
+        del oprob, out_o, again_o, plain_o, holder_o, dpat_o
+        torch.cuda.empty_cache()
 
     # -- 5. a .g2o string through the public API ---------------------------
     rng = np.random.default_rng(5)
@@ -4031,6 +4614,7 @@ def main() -> int:
                    if k.startswith(("ba_", "edge_lin_")) else 0)
                 + (sum(c[k] for c in counts_gen.values())
                    if k.startswith(("ba_", "schur_", "edge_lin_")) else 0)
+                + (counts_4o[k] if k.startswith("edge_lin_") else 0)
                 for k in counts_main}
     for label, counts in (("4 main path", counts_main),
                           ("4b Chebyshev path", counts_cheb),
@@ -4045,7 +4629,8 @@ def main() -> int:
                           ("4i 2D world Schur runs", counts_4i["2D"]),
                           ("4i 3D world Schur runs", counts_4i["3D"]),
                           *((f"{ph} general Schur path", c_)
-                            for ph, c_ in counts_gen.items())):
+                            for ph, c_ in counts_gen.items()),
+                          ("4o dense LM worlds", counts_4o)):
         print(f"phase 6 launches in the phase-{label}: "
               + " ".join(f"{k}={v}" for k, v in counts.items() if v))
     # the unpreconditioned solves run the two-launch step (spmv_dot_p),
@@ -4099,12 +4684,19 @@ def main() -> int:
                  *((ph_, c2) for ph_, c2 in counts_gen.items()))
                 if c_.get("spmv_dot_p", 0) > 0]
              + [f"{k} ({ph})" for k, ph in LIN_ROWS.items()
-                if (counts_dense3 if ph == "4f" else counts_gen[ph])[k] <= 0]
+                if {"4d": counts_dense, "4f": counts_dense3,
+                    "4o": counts_4o, **counts_gen}[ph][k] <= 0]
              + [k for k in KERNELS if launches[k] <= 0])
     if never or set(KERNELS) != set(launches):
         raise AssertionError(f"a kernel of a path never launched (or the "
                              f"two-launch step on a preconditioned path): "
                              f"{never}")
+    print(f"phase 6 generic linearizations (linearize_edges, "
+          f"forward_jacobians) of a built-in edge type on the card outside "
+          f"the plain-route runs, phases 4-5: {len(generic_calls)}")
+    if generic_calls:
+        raise AssertionError(f"the generic route ran on the card: "
+                             f"{sorted(set(generic_calls))}")
 
     print(smi)
     report = {"kernels": [

@@ -30,11 +30,14 @@ does not, at the same shapes:
 * k14: K14 `schur_edge_blocks` on the general Schur path's four scenes, as
   schur_build calls it (chip_smoke.k14_operands): 4j (ba_80k, binary
   XYZ2UV), 4k (PSI2UV), 4l (P2MC_INTRINSICS) and 4n (ba_400k);
-* lin: `problem.linearize` on phase 4f's world (float64) and on the 4k
-  (PSI2UV) and 4l (P2MC_INTRINSICS) scenes (float32), as the paths call
-  it: a tree without K17 runs torch.func.jvp there. The time per call
-  (CUDA events around one call, median of 5), and in a tree with K17 each
-  edge group's wrapper by device time beside its bound. --save also
+* lin: `problem.linearize` on the worlds of phases 4d (EDGE_SE2,
+  EDGE_SE2_XY) and 4f (float64), and on the 4j (ba_80k, XYZ2UV), 4k
+  (PSI2UV), 4l (P2MC_INTRINSICS) and 4n (ba_400k, XYZ2UV) scenes
+  (float32), as the paths call it: a tree without K17 for a type runs
+  the type's torch form there (torch.func.jvp, or the analytic Jacobian
+  in torch). The time per call (CUDA events around one call, median of
+  5), and each edge group with a K17 wrapper in the tree by device time
+  beside its bound. --save also
   writes the residuals, Jacobians and rho' to FILE.lin.pt, and --against
   holds this tree's against that file's, relative to the largest entry of
   each output, to chip_smoke.py's K17 tolerance (1e-10 float64, 2e-4
@@ -148,7 +151,7 @@ def main(argv=None) -> int:
     general = {"@psi2uv": chip_smoke.psi2uv_graph(Graph, geo80),
                "@intrinsics": chip_smoke.p2mc_intrinsics_graph(Graph, geo80)}
     worlds = {}
-    if only & {"k15", "k12"}:
+    if only & {"k15", "k12", "lin"}:
         worlds["2d"] = Simulator2D(**chip_smoke.DENSE_WORLD).simulate(
             n_poses=chip_smoke.DENSE_POSES)[0]
     if only & {"k15", "lin"}:
@@ -338,12 +341,23 @@ def main(argv=None) -> int:
         lin_out, ref = {}, None
         if against is not None:
             ref = torch.load(args.against + ".lin.pt")
-        for phase, dt, graph in (
-                ("4f", torch.float64, worlds.get("3d")),
-                ("4k", torch.float32, general["@psi2uv"]),
-                ("4l", torch.float32, general["@intrinsics"])):
+        for phase, dt, make in (
+                ("4d", torch.float64, lambda: worlds["2d"].compile(
+                    dtype=torch.float64)),
+                ("4f", torch.float64, lambda: worlds["3d"].compile(
+                    dtype=torch.float64)),
+                ("4j", torch.float32, lambda: synthetic_bal_problem(
+                    *chip_smoke.BA_80K, chip_smoke.BA_OBS,
+                    dtype=torch.float32)[0]),
+                ("4k", torch.float32, lambda: general["@psi2uv"].compile(
+                    dtype=torch.float32)),
+                ("4l", torch.float32, lambda: general["@intrinsics"].compile(
+                    dtype=torch.float32)),
+                ("4n", torch.float32, lambda: synthetic_bal_problem(
+                    *chip_smoke.BA_400K, chip_smoke.BA_OBS,
+                    dtype=torch.float32)[0])):
             tag = tag_of(dt)
-            prob = graph.compile(dtype=dt)
+            prob = make()
             lin = problem_mod.linearize(prob)
             outs = {f"{phase} {key} {i}": t.contiguous()
                     for key, (r, jacs, w) in lin.items()
@@ -366,15 +380,13 @@ def main(argv=None) -> int:
                   f"{ms:.3f} ms per call (CUDA events around one call, "
                   f"median of 5){agree}", flush=True)
             for eg in prob.static.egroups if edge_lin is not None else ():
-                ea = prob.edges[eg.key]
-                largs = (tuple(prob.params[g] for g in eg.slots),
-                         tuple(prob.free[g] for g in eg.slots), ea.indices,
-                         ea.measurement, ea.information, ea.delta, ea.pdata,
-                         eg.kernel_id)
+                largs = chip_smoke.lin_args(prob, eg)
                 fn = edge_lin.linearizer(eg.etype.name)
+                if fn is None:                   # a type without K17 there
+                    continue
                 us, calls, held = chip_smoke._device_ms(
                     torch, lambda fn=fn, a=largs: fn(*a))
-                nbytes, _ = chip_smoke.lin_bytes_flops(prob, eg)
+                nbytes, _ = chip_smoke.lin_bytes_flops(eg.etype.name, largs)
                 bound = 1e6 * nbytes / chip_smoke.HBM_BYTES_PER_S
                 print(f"kernel_times {fn.__name__} {tag} E={eg.count}: "
                       f"{1e3 * us:.2f} us" + ("" if held else " (host-bound)")

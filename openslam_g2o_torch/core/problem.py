@@ -361,17 +361,15 @@ def linearize_group(problem: Problem, eg: EGroup,
                     params: Optional[dict] = None):
     """`linearize` of one edge group: (residual, masked Jacobians, rho').
 
-    The types of kernels/edge_lin.py `LINEARIZERS` (EDGE_SE3:QUAT,
-    EDGE_SE3_TRACKXYZ, EDGE_PROJECT_P2MC_INTRINSICS,
-    EDGE_PROJECT_PSI2UV:EXPMAP) go to their wrapper: K17 on CUDA tensors,
-    which launches or raises, and its plain version (`linearize_edges`)
-    on CPU tensors. Every other type runs `linearize_edges` on either
-    device: the analytic Jacobians (EDGE_SE2, the XYZ2UV / XYZ2UVU
-    projections) and, in forward mode by torch.func.jvp, the rest of
-    models/slam2d.py (EDGE_SE2_XY, EDGE_BEARING_SE2_XY, the priors, the
-    calibration and offset edges), of models/slam3d.py (the depth,
-    disparity, prior and offset edges) and of models/sba.py
-    (EDGE_SE3:EXPMAP, P2MC, P2SC, EDGE_CAM, EDGE_SCALE)."""
+    Every edge type that openslam_g2o_torch.models registers has a wrapper
+    in kernels/edge_lin.py `LINEARIZERS` (K17): on CUDA tensors it
+    launches its kernel or raises, on CPU tensors it runs its plain
+    version, `linearize_edges`. So no built-in type is linearized by
+    plain PyTorch on the card. An edge type that a caller registers at
+    run time, with an error function in Python, has no kernel and runs
+    `linearize_edges` on either device: the type's analytic Jacobian if it
+    has one, else torch.func.jvp (`forward_jacobians`), as the JAX package
+    runs jacfwd on any registered type."""
     from openslam_g2o_torch.kernels import edge_lin
     params = problem.params if params is None else params
     ea = problem.edges[eg.key]

@@ -46,12 +46,13 @@ blocks (SE3 poses); the shapes of the arguments pick the instantiation.
     ba_coupling.ba_wv            W v, S x, reduced rhs     (ROADMAP K13)
     ba_coupling.ba_sandwich      preconditioner blocks     (ROADMAP K13)
     schur_general.schur_edge_blocks  general Schur edge blocks (ROADMAP K14)
-    edge_lin.edge_lin_*          forward-mode linearizers  (ROADMAP K17)
+    edge_lin.edge_lin_*          edge linearizers          (ROADMAP K17)
 
-The four `edge_lin` wrappers (EDGE_SE3:QUAT, EDGE_SE3_TRACKXYZ,
-EDGE_PROJECT_P2MC_INTRINSICS, EDGE_PROJECT_PSI2UV:EXPMAP) serve
-core/problem.py `linearize_group` on the dense routes, the general Schur
-path and K10's generic entry.
+The `edge_lin` wrappers, one per edge type of openslam_g2o_torch.models
+(`edge_lin.LINEARIZERS`: twenty in forward mode, EDGE_SE2 and the two
+XYZ2UV projections in closed form), serve core/problem.py
+`linearize_group` on the dense routes, the general Schur path and K10's
+generic entry; a type registered at run time keeps the generic route.
 
 The general Schur path (core/ba.py) also runs K10's `ba_lm_sums` without
 its W layout, K13's products (`ba_wtx` in one launch over all its pose
@@ -85,9 +86,7 @@ WRAPPERS = (
     ba_inv.ba_block_inv, ba_schur.ba_schur_dense, ba_schur.ba_schur_records,
     ba_coupling.ba_wtx,
     ba_coupling.ba_wv, ba_coupling.ba_sandwich,
-    schur_general.schur_edge_blocks, edge_lin.edge_lin_se3,
-    edge_lin.edge_lin_se3_xyz, edge_lin.edge_lin_p2mc_intrinsics,
-    edge_lin.edge_lin_psi2uv)
+    schur_general.schur_edge_blocks, *edge_lin.WRAPPERS)
 
 
 def launch_counts() -> dict:

@@ -87,9 +87,15 @@ _SIGNATURES = {
     "g2o_schur_edge": (_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _P, _P,
                        _P, _L, _P, _P, _L, _P, _P),
 }
-# K17: one signature for the four edge types (three slots, unused ones null)
-for _name in ("se3", "se3_xyz", "p2mc_intrinsics", "psi2uv"):
-    _SIGNATURES["g2o_edge_lin_" + _name] = (_P,) * 13 + (_I,) + (_P,) * 5 + (
+# K17: one signature for every edge type's entry (three slots and two
+# parameter slots, unused ones null); the names are kernels/edge_lin.py's
+# LINEARIZERS
+for _name in ("se2", "se2_xy", "se2_bearing", "se2_prior", "se2_prior_xy",
+              "se2_xy_calib", "se2_offset", "se2_xy_offset", "se3",
+              "se3_xyz", "se3_depth", "se3_disparity", "se3_prior",
+              "se3_offset", "se3_expmap", "xyz2uv", "xyz2uvu", "psi2uv",
+              "p2mc", "p2mc_intrinsics", "p2sc", "sba_cam", "sba_scale"):
+    _SIGNATURES["g2o_edge_lin_" + _name] = (_P,) * 14 + (_I,) + (_P,) * 5 + (
         _I, _P)
 del _name
 

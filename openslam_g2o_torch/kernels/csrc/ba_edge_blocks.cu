@@ -52,6 +52,7 @@
 // sums read the landmark half and W, the camera sums the records, and they
 // write W once each.
 #include "ba_blocks.cuh"
+#include "xyz2uv.cuh"
 
 namespace g2o_torch {
 
@@ -72,19 +73,10 @@ __device__ __forceinline__ void xyz2uv_edge(
     int kernel_id, int e, long long off, long long ld, T* hll, T* bl,
     T* mine, T* w_lane) {
   const long long l = li[e], c = ci[e];
-  const T p0 = pts[3 * l], p1 = pts[3 * l + 1], p2 = pts[3 * l + 2];
-  const T* cam = cams + 7 * c;
-  const T t0 = cam[0], t1 = cam[1], t2 = cam[2];
-  const T qx = cam[3], qy = cam[4], qz = cam[5], qw = cam[6];
-  // pc = t + rotate(q, p): v + 2 (w (u x v) + u x (u x v)), u = q.xyz
-  T uv0 = qy * p2 - qz * p1, uv1 = qz * p0 - qx * p2, uv2 = qx * p1 - qy * p0;
-  const T x = t0 + (p0 + T(2) * (qw * uv0 + (qy * uv2 - qz * uv1)));
-  const T y = t1 + (p1 + T(2) * (qw * uv1 + (qz * uv0 - qx * uv2)));
-  const T z = t2 + (p2 + T(2) * (qw * uv2 + (qx * uv1 - qy * uv0)));
-  const T f = camp[4 * e], cx = camp[4 * e + 1], cy = camp[4 * e + 2];
-  T r[2];
-  r[0] = meas[2 * e] - (x / z * f + cx);
-  r[1] = meas[2 * e + 1] - (y / z * f + cy);
+  T r[2], jl[2][3], jc[2][6];
+  xyz2uv_linearize<T, 2>(pts[3 * l], pts[3 * l + 1], pts[3 * l + 2],
+                         cams + 7 * c, camp + 4 * e, meas + 2 * e, free_l[l],
+                         free_c[c], r, jl, jc);
   const T* om = info + 4 * e;
   T e2 = T(0);
 #pragma unroll
@@ -92,40 +84,6 @@ __device__ __forceinline__ void xyz2uv_edge(
 #pragma unroll
     for (int b = 0; b < 2; ++b) e2 += r[a] * om[2 * a + b] * r[b];
   const T w = robust_rho1<T>(kernel_id, e2, delta[e]);
-  // de/dpc = -f [[1/z, 0, -x/z^2], [0, 1/z, -y/z^2]]
-  const T iz = T(1) / z;
-  const T fiz = f * iz;
-  T de[2][3] = {{-fiz, T(0), -(-fiz * x * iz)},
-                {T(0), -fiz, -(-fiz * y * iz)}};
-  // R(q): column k = rotate(q, e_k)
-  T Rm[3][3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const T v0 = k == 0 ? T(1) : T(0), v1 = k == 1 ? T(1) : T(0),
-            v2 = k == 2 ? T(1) : T(0);
-    const T a0 = qy * v2 - qz * v1, a1 = qz * v0 - qx * v2,
-            a2 = qx * v1 - qy * v0;
-    Rm[0][k] = v0 + T(2) * (qw * a0 + (qy * a2 - qz * a1));
-    Rm[1][k] = v1 + T(2) * (qw * a1 + (qz * a0 - qx * a2));
-    Rm[2][k] = v2 + T(2) * (qw * a2 + (qx * a1 - qy * a0));
-  }
-  const T gk[3][3] = {{T(0), -z, y}, {z, T(0), -x}, {-y, x, T(0)}};
-  const T fl = free_l[l], fc = free_c[c];
-  T jl[2][3], jc[2][6];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      T sp = T(0), so = T(0);
-#pragma unroll
-      for (int m = 0; m < 3; ++m) {
-        sp += de[a][m] * Rm[m][k];
-        so += de[a][m] * gk[m][k];
-      }
-      jl[a][k] = sp * fl;
-      jc[a][k] = -so * fc;
-      jc[a][3 + k] = de[a][k] * fc;
-    }
   ba_edge_products<T, 2, 6, 3>(r, jl, jc, w, om, off + e, ld, hll, bl, mine,
                                w_lane);
 }

@@ -1,14 +1,12 @@
-// K17: forward-mode edge linearizers of EDGE_SE3:QUAT (on the dense and
-// Schur routes), EDGE_SE3_TRACKXYZ, EDGE_PROJECT_P2MC_INTRINSICS and
-// EDGE_PROJECT_PSI2UV:EXPMAP.
+// K17: the edge linearizers of every edge type openslam_g2o_torch.models
+// registers, for core/problem.py `linearize_group` on the card.
 //
-// Replaces, for one edge group of one of those types, the JAX hot loop
-// `linearize` (openslam_g2o_tpu/core/problem.py:350-392: vmap(jax.jacfwd)
-// at :378 over `_tangent_residual_fn`:336, the residual at :365, rho' at
-// :382-383 and the fixed-vertex mask at :386-390) over the error functions
-// `_edge_se3_error` (models/slam3d.py:70), `_edge_se3_xyz_error`
-// (slam3d.py:95), `_edge_p2mc_intrinsics_error` (models/sba.py:320) and
-// `_edge_psi2uv_error` (sba.py:262). It writes what
+// Replaces, for one edge group, the JAX hot loop `linearize`
+// (openslam_g2o_tpu/core/problem.py:350-392): its forward branch
+// (vmap(jax.jacfwd) at :378 over `_tangent_residual_fn`:336) and its
+// analytic branch (:367-370), with the residual at :365, rho' at :382-383
+// and the fixed-vertex mask at :386-390, over the error functions of
+// openslam_g2o_tpu/models/slam2d.py, slam3d.py and sba.py. It writes what
 // openslam_g2o_torch/core/problem.py `linearize_group` returns:
 //   resid [E, D]       the error at the stored parameters
 //   jac_s [E, D, Ds]   d e(retract(x_0, d_0), ...) / d d_s at d = 0, per
@@ -16,16 +14,24 @@
 //   rho1  [E]          rho'(e^T Omega e) of the group's robust kernel
 // so K15, K14 and K10's generic entry read them as before.
 //
-// Design, correct first: a thread per (edge, pass). Pass 0 (blockIdx.y = 0)
-// evaluates the error at the stored parameters, e^T Omega e and rho'. Every
-// other pass takes up to kW tangent directions of one slot: it retracts
-// that slot's vertex by a Jet<T, W> whose derivative k is the one-hot
-// direction c0 + k, retracts every other slot by a plain zero (jacfwd
-// retracts them too, which renormalizes stored quaternions) and evaluates
-// the error through the same templated code, so that the derivative
-// follows what the error computes: renormalizations, the qw >= 0 flip, the
-// compact quaternion's clamp and the expmap's small-angle branch, as jvp
-// follows them. kW = 6 in float32 and 3 in float64, to bound registers.
+// Two kernels, correct first:
+//  * edge_lin_kernel (forward mode; every type but the three below): a
+//    thread per (edge, pass). Pass 0 (blockIdx.y = 0) evaluates the error
+//    at the stored parameters, e^T Omega e and rho'. Every other pass takes
+//    up to kW tangent directions of one slot: it retracts that slot's
+//    vertex by a Jet<T, W> whose derivative k is the one-hot direction
+//    c0 + k, retracts every other slot by a plain zero (jacfwd retracts
+//    them too, which renormalizes stored quaternions and wraps angles) and
+//    evaluates the error through the same templated code, so that the
+//    derivative follows what the error computes: renormalizations, the
+//    qw >= 0 flip, the compact quaternion's clamp, the expmap's and the
+//    logarithm's small-angle branches and the angle wrap, as jvp follows
+//    them. kW = 6 in float32 and 3 in float64, to bound registers.
+//  * edge_lin_analytic_kernel (EDGE_SE2, EDGE_PROJECT_XYZ2UV:EXPMAP,
+//    EDGE_PROJECT_XYZ2UVU:EXPMAP, whose JAX types carry a closed-form
+//    Jacobian): a thread per edge writes the residual, the closed form
+//    (se2_edge.cuh, the code of kernel B; xyz2uv.cuh, the code of K10's
+//    fused entry) and rho'.
 // Every input is read from global memory by the thread that needs it (no
 // shared-memory staging) and every output written once.
 //
@@ -36,13 +42,16 @@
 // TB/s. The Jet arithmetic of the expmap retraction and the repeated
 // gathers of the passes (each pass reads the edge's vertices again) are
 // what a faster design would trim.
-#include "sba_edge.cuh"
+#include "se2_edge.cuh"
+#include "se2_jet.cuh"
+#include "xyz2uv.cuh"
 
 namespace g2o_torch {
 
 constexpr int kLinThreads = 128;
 constexpr int kMaxSlots = 3;
-constexpr int kMaxUsed = 7;          // parameters a slot reads, at most
+constexpr int kMaxUsed = 12;         // parameters a slot reads, at most
+constexpr int kMaxPdata = 14;        // parameter data an edge reads, at most
 
 template <typename T>
 struct LinArgs {
@@ -52,7 +61,7 @@ struct LinArgs {
   const T* meas;                     // [E, kMeas]
   const T* info;                     // [E, D, D]
   const T* delta;                    // [E]
-  const T* pdata;                    // [E, kPdata] or null
+  const T* pdata[2];                 // [E, kPdata], [E, kPdata2] or null
   int kernel_id;
   T* resid;                          // [E, D]
   T* jac[kMaxSlots];                 // [E, D, Ds]
@@ -69,12 +78,28 @@ struct LinChunk<double> { static constexpr int kW = 3; };
 
 // ---------------------------------------------------------------------------
 // The edge functors: slot widths, parameter strides, retractions per slot
-// and the error, each templated on the slots' scalar types.
+// and the error, each templated on the slots' scalar types. kPdata and
+// kPdata2 are the widths of the edge's first and second parameter slot;
+// the kernel hands the error both, one after the other, in `pd`.
 // ---------------------------------------------------------------------------
+
+struct LinForward {
+  static constexpr bool kAnalytic = false;
+  static constexpr int kPdata = 0, kPdata2 = 0;
+};
+
+// The SBACam retraction of the whole VERTEX_CAM record: cam_retract on the
+// pose, the intrinsics (fx, fy, cx, cy, baseline) carried as constants
+template <typename X, typename D>
+__device__ __forceinline__ void cam_retract_all(const X* x, const D* d,
+                                                mix_t<X, D>* o) {
+  cam_retract(x, d, o);
+  for (int k = 7; k < 12; ++k) o[k] = x[k];
+}
 
 // EDGE_SE3:QUAT (models/slam3d.py _edge_se3_error):
 // toVectorMQT(Z^-1 Xi^-1 Xj); slots se3, se3.
-struct LinSE3 {
+struct LinSE3 : LinForward {
   static constexpr int kSlots = 2, kD = 6, kMeas = 7, kPdata = 0;
   __host__ __device__ static constexpr int dim(int) { return 6; }
   __host__ __device__ static constexpr int stride(int) { return 7; }
@@ -94,7 +119,7 @@ struct LinSE3 {
 
 // EDGE_SE3_TRACKXYZ (slam3d.py _edge_se3_xyz_error): (X offset)^-1 p - z;
 // slots se3, point_xyz; the offset (t, q) per edge in pdata.
-struct LinSE3XYZ {
+struct LinSE3XYZ : LinForward {
   static constexpr int kSlots = 2, kD = 3, kMeas = 3, kPdata = 7;
   __host__ __device__ static constexpr int dim(int s) { return s ? 3 : 6; }
   __host__ __device__ static constexpr int stride(int s) {
@@ -124,7 +149,7 @@ struct LinSE3XYZ {
 // VERTEX_CAM, (fx pc.x + cx pc.z, fy pc.y + cy pc.z) / pc.z - obs through
 // the shared VERTEX_INTRINSICS; slots sba_point_xyz, cam (12 parameters,
 // the pose's 7 read), intrinsics (5, the first 4 read).
-struct LinP2MCIntrinsics {
+struct LinP2MCIntrinsics : LinForward {
   static constexpr int kSlots = 3, kD = 2, kMeas = 2, kPdata = 0;
   __host__ __device__ static constexpr int dim(int s) {
     return s == 0 ? 3 : (s == 1 ? 6 : 4);
@@ -160,7 +185,7 @@ struct LinP2MCIntrinsics {
 // obs - cam_map(T_c T_a^-1 invert_depth(psi)); slots sba_point_xyz (psi),
 // se3_expmap (observing camera), se3_expmap (anchor); the camera
 // parameters (focal, cx, cy, baseline) per edge in pdata.
-struct LinPSI2UV {
+struct LinPSI2UV : LinForward {
   static constexpr int kSlots = 3, kD = 2, kMeas = 2, kPdata = 4;
   __host__ __device__ static constexpr int dim(int s) { return s ? 6 : 3; }
   __host__ __device__ static constexpr int stride(int s) {
@@ -192,8 +217,393 @@ struct LinPSI2UV {
   }
 };
 
+// --- models/slam2d.py ------------------------------------------------------
+
+// EDGE_SE2_XY (slam2d.py _edge_se2_xy_error): X^-1 l - z; slots se2,
+// point_xy.
+struct LinSE2XY : LinForward {
+  static constexpr int kSlots = 2, kD = 2, kMeas = 2;
+  __host__ __device__ static constexpr int dim(int s) { return s ? 2 : 3; }
+  __host__ __device__ static constexpr int stride(int s) { return dim(s); }
+  __host__ __device__ static constexpr int used(int s) { return dim(s); }
+  template <int S, typename X, typename D>
+  __device__ static void retract(const X* x, const D* d, mix_t<X, D>* o) {
+    if constexpr (S == 0)
+      se2_retract(x, d, o);
+    else
+      rn_retract<2>(x, d, o);
+  }
+  template <typename T, typename A, typename B>
+  __device__ static void error(const A* x, const B* l, const T* meas,
+                               const T*, mix_t<A, B>* err) {
+    se2_point_in(x, l, err);
+    for (int k = 0; k < 2; ++k) err[k] = err[k] - meas[k];
+  }
+};
+
+// EDGE_BEARING_SE2_XY (slam2d.py _edge_se2_bearing_error):
+// normalize_angle(atan2(d.y, d.x) - z), d = X^-1 l; slots se2, point_xy.
+struct LinSE2Bearing : LinSE2XY {
+  static constexpr int kD = 1, kMeas = 1;
+  template <typename T, typename A, typename B>
+  __device__ static void error(const A* x, const B* l, const T* meas,
+                               const T*, mix_t<A, B>* err) {
+    mix_t<A, B> d[2];
+    se2_point_in(x, l, d);
+    err[0] = wrap_angle(datan2(d[1], d[0]) - meas[0]);
+  }
+};
+
+// EDGE_PRIOR_SE2 (slam2d.py _edge_se2_prior_error): Z^-1 X; slot se2.
+struct LinSE2Prior : LinForward {
+  static constexpr int kSlots = 1, kD = 3, kMeas = 3;
+  __host__ __device__ static constexpr int dim(int) { return 3; }
+  __host__ __device__ static constexpr int stride(int) { return 3; }
+  __host__ __device__ static constexpr int used(int) { return 3; }
+  template <int S, typename X, typename D>
+  __device__ static void retract(const X* x, const D* d, mix_t<X, D>* o) {
+    se2_retract(x, d, o);
+  }
+  template <typename T, typename A>
+  __device__ static void error(const A* x, const T* meas, const T*, A* err) {
+    T zinv[3];
+    se2_inverse(meas, zinv);
+    se2_compose(zinv, x, err);
+  }
+};
+
+// EDGE_PRIOR_SE2_XY (slam2d.py _edge_prior_se2_xy_error): X.t - z; slot
+// se2.
+struct LinSE2PriorXY : LinSE2Prior {
+  static constexpr int kD = 2, kMeas = 2;
+  template <typename T, typename A>
+  __device__ static void error(const A* x, const T* meas, const T*, A* err) {
+    for (int k = 0; k < 2; ++k) err[k] = x[k] - meas[k];
+  }
+};
+
+// EDGE_SE2_XY_CALIB (slam2d.py _edge_se2_xy_calib_error): (X C)^-1 l - z
+// with the calibration pose C a vertex; slots se2, point_xy, se2.
+struct LinSE2XYCalib : LinForward {
+  static constexpr int kSlots = 3, kD = 2, kMeas = 2;
+  __host__ __device__ static constexpr int dim(int s) {
+    return s == 1 ? 2 : 3;
+  }
+  __host__ __device__ static constexpr int stride(int s) { return dim(s); }
+  __host__ __device__ static constexpr int used(int s) { return dim(s); }
+  template <int S, typename X, typename D>
+  __device__ static void retract(const X* x, const D* d, mix_t<X, D>* o) {
+    if constexpr (S == 1)
+      rn_retract<2>(x, d, o);
+    else
+      se2_retract(x, d, o);
+  }
+  template <typename T, typename A, typename B, typename C>
+  __device__ static void error(const A* x, const B* l, const C* calib,
+                               const T* meas, const T*,
+                               mix3_t<A, B, C>* err) {
+    mix_t<A, C> sensor[3];
+    se2_compose(x, calib, sensor);
+    se2_point_in(sensor, l, err);
+    for (int k = 0; k < 2; ++k) err[k] = err[k] - meas[k];
+  }
+};
+
+// EDGE_SE2_OFFSET (slam2d.py _edge_se2_offset_error): Z^-1 ((Xi Oi)^-1
+// (Xj Oj)); slots se2, se2; the two se2_offset parameters per edge in pd
+// (Oi at pd[0..3), Oj at pd[3..6)).
+struct LinSE2Offset : LinForward {
+  static constexpr int kSlots = 2, kD = 3, kMeas = 3, kPdata = 3,
+                       kPdata2 = 3;
+  __host__ __device__ static constexpr int dim(int) { return 3; }
+  __host__ __device__ static constexpr int stride(int) { return 3; }
+  __host__ __device__ static constexpr int used(int) { return 3; }
+  template <int S, typename X, typename D>
+  __device__ static void retract(const X* x, const D* d, mix_t<X, D>* o) {
+    se2_retract(x, d, o);
+  }
+  template <typename T, typename A, typename B>
+  __device__ static void error(const A* xi, const B* xj, const T* meas,
+                               const T* pd, mix_t<A, B>* err) {
+    A si[3], si_inv[3];
+    B sj[3];
+    T zinv[3];
+    mix_t<A, B> rel[3];
+    se2_compose(xi, pd, si);
+    se2_compose(xj, pd + 3, sj);
+    se2_inverse(meas, zinv);
+    se2_inverse(si, si_inv);
+    se2_compose(si_inv, sj, rel);
+    se2_compose(zinv, rel, err);
+  }
+};
+
+// EDGE_SE2_POINTXY_OFFSET (slam2d.py _edge_se2_pointxy_offset_error):
+// (X O)^-1 l - z; slots se2, point_xy; the se2_offset O per edge in pd.
+struct LinSE2XYOffset : LinSE2XY {
+  static constexpr int kPdata = 3;
+  template <typename T, typename A, typename B>
+  __device__ static void error(const A* x, const B* l, const T* meas,
+                               const T* off, mix_t<A, B>* err) {
+    A sensor[3];
+    se2_compose(x, off, sensor);
+    se2_point_in(sensor, l, err);
+    for (int k = 0; k < 2; ++k) err[k] = err[k] - meas[k];
+  }
+};
+
+// --- models/slam3d.py ------------------------------------------------------
+
+// EDGE_PROJECT_DEPTH (slam3d.py _edge_se3_depth_error, _project_w2i):
+// p = K (X O)^-1 pt, (p.x / p.z, p.y / p.z, p.z) - z; slots se3,
+// point_xyz; the camera_calib (O = (t, q), fx, fy, cx, cy) per edge in pd.
+struct LinSE3Depth : LinSE3XYZ {
+  static constexpr int kPdata = 11;
+  template <typename T, typename A, typename B>
+  __device__ static void project(const A* x, const B* pt, const T* cam,
+                                 mix_t<A, B>* p) {
+    A n2w[7], w2n[7];
+    mix_t<A, B> pc[3];
+    se3_compose(x, cam, n2w);
+    se3_inverse(n2w, w2n);
+    se3_apply(w2n, pt, pc);
+    p[0] = cam[7] * pc[0] + cam[9] * pc[2];
+    p[1] = cam[8] * pc[1] + cam[10] * pc[2];
+    p[2] = pc[2];
+  }
+  template <typename T, typename A, typename B>
+  __device__ static void error(const A* x, const B* pt, const T* meas,
+                               const T* cam, mix_t<A, B>* err) {
+    mix_t<A, B> p[3];
+    project(x, pt, cam, p);
+    err[0] = p[0] / p[2] - meas[0];
+    err[1] = p[1] / p[2] - meas[1];
+    err[2] = p[2] - meas[2];
+  }
+};
+
+// EDGE_PROJECT_DISPARITY (slam3d.py _edge_se3_disparity_error): (p.x / p.z,
+// p.y / p.z, 1 / p.z) - z with p as EDGE_PROJECT_DEPTH's.
+struct LinSE3Disparity : LinSE3Depth {
+  template <typename T, typename A, typename B>
+  __device__ static void error(const A* x, const B* pt, const T* meas,
+                               const T* cam, mix_t<A, B>* err) {
+    mix_t<A, B> p[3];
+    project(x, pt, cam, p);
+    err[0] = p[0] / p[2] - meas[0];
+    err[1] = p[1] / p[2] - meas[1];
+    err[2] = T(1) / p[2] - meas[2];
+  }
+};
+
+// EDGE_SE3_PRIOR (slam3d.py _edge_se3_prior_error): toVectorMQT(Z^-1 (X
+// O)); slot se3; the se3_offset O per edge in pd.
+struct LinSE3Prior : LinForward {
+  static constexpr int kSlots = 1, kD = 6, kMeas = 7, kPdata = 7;
+  __host__ __device__ static constexpr int dim(int) { return 6; }
+  __host__ __device__ static constexpr int stride(int) { return 7; }
+  __host__ __device__ static constexpr int used(int) { return 7; }
+  template <int S, typename X, typename D>
+  __device__ static void retract(const X* x, const D* d, mix_t<X, D>* o) {
+    se3_retract_mqt(x, d, o);
+  }
+  template <typename T, typename A>
+  __device__ static void error(const A* x, const T* meas, const T* off,
+                               A* err) {
+    A n2w[7], d[7];
+    T zinv[7];
+    se3_compose(x, off, n2w);
+    se3_inverse(meas, zinv);
+    se3_compose(zinv, n2w, d);
+    se3_to_mqt(d, err);
+  }
+};
+
+// EDGE_SE3_OFFSET (slam3d.py _edge_se3_offset_error): toVectorMQT(Z^-1
+// (Xi Oi)^-1 (Xj Oj)); slots se3, se3; Oi at pd[0..7), Oj at pd[7..14).
+struct LinSE3Offset : LinSE3 {
+  static constexpr int kPdata = 7, kPdata2 = 7;
+  template <typename T, typename A, typename B>
+  __device__ static void error(const A* xi, const B* xj, const T* meas,
+                               const T* pd, mix_t<A, B>* err) {
+    A si[7];
+    B sj[7];
+    T zinv[7];
+    se3_compose(xi, pd, si);
+    se3_compose(xj, pd + 7, sj);
+    se3_inverse(meas, zinv);
+    se3_error_mqt(zinv, si, sj, err);
+  }
+};
+
+// --- models/sba.py ---------------------------------------------------------
+
+// EDGE_SE3:EXPMAP (sba.py _edge_se3_expmap_error): log(T2^-1 Z T1), T
+// world-to-camera; slots se3_expmap, se3_expmap.
+struct LinSE3Expmap : LinForward {
+  static constexpr int kSlots = 2, kD = 6, kMeas = 7;
+  __host__ __device__ static constexpr int dim(int) { return 6; }
+  __host__ __device__ static constexpr int stride(int) { return 7; }
+  __host__ __device__ static constexpr int used(int) { return 7; }
+  template <int S, typename X, typename D>
+  __device__ static void retract(const X* x, const D* d, mix_t<X, D>* o) {
+    se3_retract_expmap_left(x, d, o);
+  }
+  template <typename T, typename A, typename B>
+  __device__ static void error(const A* t1, const B* t2, const T* meas,
+                               const T*, mix_t<A, B>* err) {
+    A zt1[7];
+    B t2_inv[7];
+    mix_t<A, B> p[7];
+    se3_compose(meas, t1, zt1);
+    se3_inverse(t2, t2_inv);
+    se3_compose(t2_inv, zt1, p);
+    se3_log(p, err);
+  }
+};
+
+// EDGE_PROJECT_P2MC (sba.py _edge_p2mc_error, _cam_w2i_project): pc =
+// R^T (p - t) of the camera-to-world VERTEX_CAM, ((fx pc.x + cx pc.z) /
+// pc.z, (fy pc.y + cy pc.z) / pc.z) - z with the camera's own intrinsics;
+// slots sba_point_xyz, cam (all 12 parameters: the pose retracted, the
+// intrinsics carried).
+struct LinP2MC : LinForward {
+  static constexpr int kSlots = 2, kD = 2, kMeas = 2;
+  __host__ __device__ static constexpr int dim(int s) { return s ? 6 : 3; }
+  __host__ __device__ static constexpr int stride(int s) {
+    return s ? 12 : 3;
+  }
+  __host__ __device__ static constexpr int used(int s) { return stride(s); }
+  template <int S, typename X, typename D>
+  __device__ static void retract(const X* x, const D* d, mix_t<X, D>* o) {
+    if constexpr (S == 1)
+      cam_retract_all(x, d, o);
+    else
+      rn_retract<3>(x, d, o);
+  }
+  template <typename P, typename C>
+  __device__ static void camera_point(const P* point, const C* cam,
+                                      mix_t<P, C>* pc) {
+    C qc[4] = {-cam[3], -cam[4], -cam[5], cam[6]};
+    mix_t<P, C> d[3];
+    for (int k = 0; k < 3; ++k) d[k] = point[k] - cam[k];
+    quat_rotate(qc, d, pc);
+  }
+  template <typename T, typename P, typename C>
+  __device__ static void error(const P* point, const C* cam, const T* meas,
+                               const T*, mix_t<P, C>* err) {
+    mix_t<P, C> pc[3];
+    camera_point(point, cam, pc);
+    err[0] = (cam[7] * pc[0] + cam[9] * pc[2]) / pc[2] - meas[0];
+    err[1] = (cam[8] * pc[1] + cam[10] * pc[2]) / pc[2] - meas[1];
+  }
+};
+
+// EDGE_PROJECT_P2SC (sba.py _edge_p2sc_error): P2MC's (u, v) and the right
+// image's u, (fx (pc.x - baseline) + cx pc.z) / pc.z, minus z.
+struct LinP2SC : LinP2MC {
+  static constexpr int kD = 3, kMeas = 3;
+  template <typename T, typename P, typename C>
+  __device__ static void error(const P* point, const C* cam, const T* meas,
+                               const T*, mix_t<P, C>* err) {
+    mix_t<P, C> pc[3];
+    camera_point(point, cam, pc);
+    err[0] = (cam[7] * pc[0] + cam[9] * pc[2]) / pc[2] - meas[0];
+    err[1] = (cam[8] * pc[1] + cam[10] * pc[2]) / pc[2] - meas[1];
+    err[2] = (cam[7] * (pc[0] - cam[11]) + cam[9] * pc[2]) / pc[2]
+             - meas[2];
+  }
+};
+
+// EDGE_CAM (sba.py _edge_sba_cam_error): toVectorMQT(Z^-1 C1^-1 C2) of the
+// two cameras' (t, q); slots cam, cam.
+struct LinSBACam : LinForward {
+  static constexpr int kSlots = 2, kD = 6, kMeas = 7;
+  __host__ __device__ static constexpr int dim(int) { return 6; }
+  __host__ __device__ static constexpr int stride(int) { return 12; }
+  __host__ __device__ static constexpr int used(int) { return 7; }
+  template <int S, typename X, typename D>
+  __device__ static void retract(const X* x, const D* d, mix_t<X, D>* o) {
+    cam_retract(x, d, o);
+  }
+  template <typename T, typename A, typename B>
+  __device__ static void error(const A* c1, const B* c2, const T* meas,
+                               const T*, mix_t<A, B>* err) {
+    T zinv[7];
+    se3_inverse(meas, zinv);
+    se3_error_mqt(zinv, c1, c2, err);
+  }
+};
+
+// EDGE_SCALE (sba.py _edge_sba_scale_error): |c1 - c2| - z of the camera
+// centers; slots cam, cam. Two equal centers give 0/0 in the derivative,
+// as they do in the plain version.
+struct LinSBAScale : LinSBACam {
+  static constexpr int kD = 1, kMeas = 1;
+  template <typename T, typename A, typename B>
+  __device__ static void error(const A* c1, const B* c2, const T* meas,
+                               const T*, mix_t<A, B>* err) {
+    mix_t<A, B> d[3];
+    for (int k = 0; k < 3; ++k) d[k] = c1[k] - c2[k];
+    err[0] = dsqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]) - meas[0];
+  }
+};
+
+// --- the analytic forms ----------------------------------------------------
+
+struct LinAnalytic {
+  static constexpr bool kAnalytic = true;
+  static constexpr int kSlots = 2, kPdata2 = 0;
+};
+
+// EDGE_SE2 (slam2d.py _edge_se2_error, _edge_se2_jacobian): the error and
+// closed-form Jacobians of kernel B (se2_edge.cuh); slots se2, se2.
+struct LinSE2 : LinAnalytic {
+  static constexpr int kD = 3, kMeas = 3, kPdata = 0;
+  __host__ __device__ static constexpr int dim(int) { return 3; }
+  __host__ __device__ static constexpr int stride(int) { return 3; }
+  __host__ __device__ static constexpr int used(int) { return 3; }
+  template <typename T>
+  __device__ static void lin(const T* xi, const T* xj, const T* z, const T*,
+                             T fi, T fj, T (&err)[3], T (&ji)[3][3],
+                             T (&jj)[3][3]) {
+    T cz, sz, ci, si, J[2][3][3];
+    se2_edge_error(xi[0], xi[1], xi[2], xj[0], xj[1], xj[2], z[0], z[1],
+                   z[2], err, cz, sz, ci, si);
+    se2_edge_jacobians(xi[0], xi[1], xj[0], xj[1], cz, sz, ci, si, J);
+    for (int a = 0; a < 3; ++a)
+      for (int b = 0; b < 3; ++b) {
+        ji[a][b] = J[0][a][b] * fi;
+        jj[a][b] = J[1][a][b] * fj;
+      }
+  }
+};
+
+// EDGE_PROJECT_XYZ2UV:EXPMAP (R = 2) and EDGE_PROJECT_XYZ2UVU:EXPMAP
+// (R = 3) (sba.py _edge_xyz2uv_jacobian, _edge_xyz2uvu_jacobian): the
+// closed form of K10's fused entry (xyz2uv.cuh); slots sba_point_xyz,
+// se3_expmap; the camera parameters per edge in pd.
+template <int R>
+struct LinProject : LinAnalytic {
+  static constexpr int kD = R, kMeas = R, kPdata = 4;
+  __host__ __device__ static constexpr int dim(int s) { return s ? 6 : 3; }
+  __host__ __device__ static constexpr int stride(int s) {
+    return s ? 7 : 3;
+  }
+  __host__ __device__ static constexpr int used(int s) { return stride(s); }
+  template <typename T>
+  __device__ static void lin(const T* p, const T* cam, const T* obs,
+                             const T* camp, T fl, T fc, T (&err)[R],
+                             T (&jl)[R][3], T (&jc)[R][6]) {
+    xyz2uv_linearize<T, R>(p[0], p[1], p[2], cam, camp, obs, fl, fc, err,
+                           jl, jc);
+  }
+};
+using LinXYZ2UV = LinProject<2>;
+using LinXYZ2UVU = LinProject<3>;
+
 // ---------------------------------------------------------------------------
-// The kernel
+// The kernels
 // ---------------------------------------------------------------------------
 
 // The error of F on the slots' parameters x0, x1, x2 of whatever types
@@ -201,7 +611,9 @@ template <class F, typename T, typename A, typename B, typename C, typename O>
 __device__ __forceinline__ void call_error(const A* x0, const B* x1,
                                            const C* x2, const T* meas,
                                            const T* pd, O* err) {
-  if constexpr (F::kSlots == 2)
+  if constexpr (F::kSlots == 1)
+    F::error(x0, meas, pd, err);
+  else if constexpr (F::kSlots == 2)
     F::error(x0, x1, meas, pd, err);
   else
     F::error(x0, x1, x2, meas, pd, err);
@@ -280,13 +692,11 @@ constexpr int jac_passes() {
   return n;
 }
 
+// The slots' parameters, the measurement and the parameter data of edge e
 template <class F, typename T>
-__global__ void __launch_bounds__(kLinThreads)
-edge_lin_kernel(const LinArgs<T> a) {
-  const long long e =
-      blockIdx.x * static_cast<long long>(kLinThreads) + threadIdx.x;
-  if (e >= a.n_edges) return;
-  T x[kMaxSlots][kMaxUsed];
+__device__ __forceinline__ void load_edge(const LinArgs<T>& a, long long e,
+                                          T (&x)[kMaxSlots][kMaxUsed],
+                                          T* meas, T* pd) {
 #pragma unroll
   for (int s = 0; s < F::kSlots; ++s) {
     const long long v = a.idx[s][e];
@@ -294,18 +704,19 @@ edge_lin_kernel(const LinArgs<T> a) {
     for (int k = 0; k < F::used(s); ++k)
       x[s][k] = a.params[s][v * F::stride(s) + k];
   }
-  T meas[F::kMeas], pd[F::kPdata > 0 ? F::kPdata : 1];
 #pragma unroll
   for (int k = 0; k < F::kMeas; ++k) meas[k] = a.meas[e * F::kMeas + k];
 #pragma unroll
-  for (int k = 0; k < F::kPdata; ++k) pd[k] = a.pdata[e * F::kPdata + k];
-  if (blockIdx.y > 0) {
-    jac_dispatch<F, T, 0, 0>(blockIdx.y - 1, a, e, x, meas, pd);
-    return;
-  }
-  // pass 0: the residual at the stored parameters, e^T Omega e, rho'
-  T err[F::kD];
-  call_error<F>(x[0], x[1], x[2], meas, pd, err);
+  for (int k = 0; k < F::kPdata; ++k) pd[k] = a.pdata[0][e * F::kPdata + k];
+#pragma unroll
+  for (int k = 0; k < F::kPdata2; ++k)
+    pd[F::kPdata + k] = a.pdata[1][e * F::kPdata2 + k];
+}
+
+// The residual, e^T Omega e and rho' of edge e
+template <class F, typename T>
+__device__ __forceinline__ void store_residual(const LinArgs<T>& a,
+                                               long long e, const T* err) {
   const T* om = a.info + e * (F::kD * F::kD);
   T e2 = T(0);
 #pragma unroll
@@ -317,20 +728,73 @@ edge_lin_kernel(const LinArgs<T> a) {
   a.rho1[e] = robust_rho1<T>(a.kernel_id, e2, a.delta[e]);
 }
 
+template <class F>
+__host__ __device__ constexpr int pd_size() {
+  return F::kPdata + F::kPdata2 > 0 ? F::kPdata + F::kPdata2 : 1;
+}
+
+template <class F, typename T>
+__global__ void __launch_bounds__(kLinThreads)
+edge_lin_kernel(const LinArgs<T> a) {
+  static_assert(pd_size<F>() <= kMaxPdata, "parameter data too wide");
+  const long long e =
+      blockIdx.x * static_cast<long long>(kLinThreads) + threadIdx.x;
+  if (e >= a.n_edges) return;
+  T x[kMaxSlots][kMaxUsed], meas[F::kMeas], pd[pd_size<F>()];
+  load_edge<F>(a, e, x, meas, pd);
+  if (blockIdx.y > 0) {
+    jac_dispatch<F, T, 0, 0>(blockIdx.y - 1, a, e, x, meas, pd);
+    return;
+  }
+  // pass 0: the residual at the stored parameters, e^T Omega e, rho'
+  T err[F::kD];
+  call_error<F>(x[0], x[1], x[2], meas, pd, err);
+  store_residual<F>(a, e, err);
+}
+
+// The closed forms: a thread per edge, two slots
+template <class F, typename T>
+__global__ void __launch_bounds__(kLinThreads)
+edge_lin_analytic_kernel(const LinArgs<T> a) {
+  constexpr int D0 = F::dim(0), D1 = F::dim(1);
+  const long long e =
+      blockIdx.x * static_cast<long long>(kLinThreads) + threadIdx.x;
+  if (e >= a.n_edges) return;
+  T x[kMaxSlots][kMaxUsed], meas[F::kMeas], pd[pd_size<F>()];
+  load_edge<F>(a, e, x, meas, pd);
+  T err[F::kD], j0[F::kD][D0], j1[F::kD][D1];
+  F::lin(x[0], x[1], meas, pd, a.free_mask[0][a.idx[0][e]],
+         a.free_mask[1][a.idx[1][e]], err, j0, j1);
+  store_residual<F>(a, e, err);
+  T* out0 = a.jac[0] + e * (F::kD * D0);
+  T* out1 = a.jac[1] + e * (F::kD * D1);
+#pragma unroll
+  for (int r = 0; r < F::kD; ++r) {
+#pragma unroll
+    for (int c = 0; c < D0; ++c) out0[r * D0 + c] = j0[r][c];
+#pragma unroll
+    for (int c = 0; c < D1; ++c) out1[r * D1 + c] = j1[r][c];
+  }
+}
+
 template <class F, typename T>
 int launch_edge_lin(const T* p0, const T* f0, const int* i0, const T* p1,
                     const T* f1, const int* i1, const T* p2, const T* f2,
                     const int* i2, const T* meas, const T* info,
-                    const T* delta, const T* pdata, int kernel_id, T* resid,
-                    T* j0, T* j1, T* j2, T* rho1, int n_edges,
-                    cudaStream_t stream) {
+                    const T* delta, const T* pdata, const T* pdata2,
+                    int kernel_id, T* resid, T* j0, T* j1, T* j2, T* rho1,
+                    int n_edges, cudaStream_t stream) {
   if (n_edges <= 0) return 0;
   const LinArgs<T> a{{p0, p1, p2}, {f0, f1, f2}, {i0, i1, i2}, meas, info,
-                     delta, pdata, kernel_id, resid, {j0, j1, j2}, rho1,
-                     n_edges};
-  const dim3 grid((n_edges + kLinThreads - 1) / kLinThreads,
-                  1 + jac_passes<F, T>());
-  edge_lin_kernel<F, T><<<grid, kLinThreads, 0, stream>>>(a);
+                     delta, {pdata, pdata2}, kernel_id, resid, {j0, j1, j2},
+                     rho1, n_edges};
+  const unsigned blocks = (n_edges + kLinThreads - 1) / kLinThreads;
+  if constexpr (F::kAnalytic) {
+    edge_lin_analytic_kernel<F, T><<<blocks, kLinThreads, 0, stream>>>(a);
+  } else {
+    const dim3 grid(blocks, 1 + jac_passes<F, T>());
+    edge_lin_kernel<F, T><<<grid, kLinThreads, 0, stream>>>(a);
+  }
   return launch_status();
 }
 
@@ -340,25 +804,44 @@ int launch_edge_lin(const T* p0, const T* f0, const int* i0, const T* p1,
   int NAME##SUFFIX(const T* p0, const T* f0, const int* i0, const T* p1,     \
                    const T* f1, const int* i1, const T* p2, const T* f2,     \
                    const int* i2, const T* meas, const T* info,              \
-                   const T* delta, const T* pdata, int kernel_id, T* resid,  \
-                   T* j0, T* j1, T* j2, T* rho1, int n_edges, void* stream) { \
+                   const T* delta, const T* pdata, const T* pdata2,          \
+                   int kernel_id, T* resid, T* j0, T* j1, T* j2, T* rho1,    \
+                   int n_edges, void* stream) {                              \
     return g2o_torch::launch_edge_lin<g2o_torch::FUNCTOR, T>(                \
         p0, f0, i0, p1, f1, i1, p2, f2, i2, meas, info, delta, pdata,        \
-        kernel_id, resid, j0, j1, j2, rho1, n_edges,                         \
+        pdata2, kernel_id, resid, j0, j1, j2, rho1, n_edges,                 \
         static_cast<cudaStream_t>(stream));                                  \
   }
+#define G2O_EDGE_LIN_ENTRIES(NAME, FUNCTOR)                                  \
+  G2O_EDGE_LIN_ENTRY(NAME, FUNCTOR, float, _f32)                             \
+  G2O_EDGE_LIN_ENTRY(NAME, FUNCTOR, double, _f64)
 
+// One entry pair per edge type; the names are kernels/edge_lin.py's
+// LINEARIZERS with the prefix g2o_.
 extern "C" {
 
-G2O_EDGE_LIN_ENTRY(g2o_edge_lin_se3, LinSE3, float, _f32)
-G2O_EDGE_LIN_ENTRY(g2o_edge_lin_se3, LinSE3, double, _f64)
-G2O_EDGE_LIN_ENTRY(g2o_edge_lin_se3_xyz, LinSE3XYZ, float, _f32)
-G2O_EDGE_LIN_ENTRY(g2o_edge_lin_se3_xyz, LinSE3XYZ, double, _f64)
-G2O_EDGE_LIN_ENTRY(g2o_edge_lin_p2mc_intrinsics, LinP2MCIntrinsics, float,
-                   _f32)
-G2O_EDGE_LIN_ENTRY(g2o_edge_lin_p2mc_intrinsics, LinP2MCIntrinsics, double,
-                   _f64)
-G2O_EDGE_LIN_ENTRY(g2o_edge_lin_psi2uv, LinPSI2UV, float, _f32)
-G2O_EDGE_LIN_ENTRY(g2o_edge_lin_psi2uv, LinPSI2UV, double, _f64)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_se3, LinSE3)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_se3_xyz, LinSE3XYZ)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_p2mc_intrinsics, LinP2MCIntrinsics)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_psi2uv, LinPSI2UV)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_se2, LinSE2)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_se2_xy, LinSE2XY)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_se2_bearing, LinSE2Bearing)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_se2_prior, LinSE2Prior)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_se2_prior_xy, LinSE2PriorXY)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_se2_xy_calib, LinSE2XYCalib)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_se2_offset, LinSE2Offset)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_se2_xy_offset, LinSE2XYOffset)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_se3_depth, LinSE3Depth)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_se3_disparity, LinSE3Disparity)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_se3_prior, LinSE3Prior)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_se3_offset, LinSE3Offset)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_se3_expmap, LinSE3Expmap)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_xyz2uv, LinXYZ2UV)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_xyz2uvu, LinXYZ2UVU)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_p2mc, LinP2MC)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_p2sc, LinP2SC)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_sba_cam, LinSBACam)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_sba_scale, LinSBAScale)
 
 }  // extern "C"

@@ -53,23 +53,12 @@ __global__ void edge_se2_blocks_kernel(
                  si);
 
   // analytic Jacobians (slam2d.py:76-112), fixed columns zeroed
-  const T dx = xj0 - xi0, dy = xj1 - xi1;
-  const T rx = ci * dx + si * dy;
-  const T ry = -si * dx + ci * dy;
-  const T rr00 = cz * ci - sz * si;
-  const T rr01 = cz * si + sz * ci;
-  const T rr10 = -(sz * ci + cz * si);
-  const T rr11 = -sz * si + cz * ci;
-  const T g0 = cz * ry - sz * rx;
-  const T g1 = -(sz * ry + cz * rx);
-  const T fi = free_mask[vi], fj = free_mask[vj];
-  T J[2][3][3] = {
-      {{-rr00 * fi, -rr01 * fi, g0 * fi},
-       {-rr10 * fi, -rr11 * fi, g1 * fi},
-       {T(0) * fi, T(0) * fi, -fi}},
-      {{rr00 * fj, rr01 * fj, T(0) * fj},
-       {rr10 * fj, rr11 * fj, T(0) * fj},
-       {T(0) * fj, T(0) * fj, fj}}};
+  const T fm[2] = {free_mask[vi], free_mask[vj]};
+  T J[2][3][3];
+  se2_edge_jacobians(xi0, xi1, xj0, xj1, cz, sz, ci, si, J);
+  for (int s = 0; s < 2; ++s)
+    for (int a = 0; a < 3; ++a)
+      for (int b = 0; b < 3; ++b) J[s][a][b] = J[s][a][b] * fm[s];
 
   T om[3][3];
   for (int a = 0; a < 3; ++a)

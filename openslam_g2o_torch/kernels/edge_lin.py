@@ -1,23 +1,30 @@
-"""K17: forward-mode edge linearizers (csrc/edge_lin.cu).
+"""K17: the edge linearizers (csrc/edge_lin.cu) of every edge type that
+openslam_g2o_torch.models registers.
 
-Replaces, for EDGE_SE3:QUAT, EDGE_SE3_TRACKXYZ,
-EDGE_PROJECT_P2MC_INTRINSICS and EDGE_PROJECT_PSI2UV:EXPMAP, the JAX hot
-loop `linearize` (openslam_g2o_tpu/core/problem.py:350-392, vmap(jacfwd) at
-:378) over their error functions (models/slam3d.py:70, :95;
-models/sba.py:320, :262). For one edge group each wrapper returns what
-core/problem.py `linearize_group` returns: the residual [E, D], the
-per-slot Jacobians [E, D, Ds] with respect to the tangent increment, each
-slot's columns times its vertex's free flag, and rho' [E]. The kernel
-differentiates the error through the retractions with a
-value-and-derivatives scalar (a thread per edge and pass of up to 6
-directions in float32, 3 in float64); the plain version is the generic
-route of `linearize_group` (the error, `forward_jacobians`' torch.func.jvp,
-`robustify`, the mask).
+Replaces the JAX hot loop `linearize` (openslam_g2o_tpu/core/problem.py:
+350-392) over the error functions of models/slam2d.py, slam3d.py and
+sba.py: its forward branch (vmap(jacfwd) at :378) for twenty types, and its
+analytic branch (:367-370) for EDGE_SE2, EDGE_PROJECT_XYZ2UV:EXPMAP and
+EDGE_PROJECT_XYZ2UVU:EXPMAP, whose closed forms the kernel computes. For
+one edge group each wrapper returns what core/problem.py `linearize_group`
+returns: the residual [E, D], the per-slot Jacobians [E, D, Ds] with
+respect to the tangent increment, each slot's columns times its vertex's
+free flag, and rho' [E]. The forward-mode kernel differentiates the error
+through the retractions with a value-and-derivatives scalar (a thread per
+edge and pass of up to 6 directions in float32, 3 in float64); the
+analytic one is a thread per edge. The plain version is the generic route
+of `linearize_group` (the error, the type's analytic Jacobian or
+`forward_jacobians`' torch.func.jvp, `robustify`, the mask).
+
+An edge type that a caller registers at run time, with an error function
+in Python, has no entry here and keeps the generic route on either device:
+no hand-written kernel can exist for it, and the JAX package linearizes it
+by jacfwd as it does every type.
 
 Every wrapper takes the group's slots as tuples: `params` (each slot's
 vertex table [N_s, P_s]), `free` ([N_s]) and `indices` ([E] int32), then
 meas [E, M], info [E, D, D], delta [E], pdata (a tuple of [E, dim] per
-parameter slot) and the robust kernel id.
+parameter slot, at most two) and the robust kernel id.
 """
 from __future__ import annotations
 
@@ -35,15 +42,38 @@ from openslam_g2o_torch.kernels._checks import (
 # version (chip_smoke.py's plain route) swaps it for core/problem.py
 # `linearize_group` too.
 LINEARIZERS = {
+    # models/slam2d.py
+    "edge_se2": "edge_lin_se2",
+    "edge_se2_xy": "edge_lin_se2_xy",
+    "edge_se2_xy_bearing": "edge_lin_se2_bearing",
+    "edge_se2_prior": "edge_lin_se2_prior",
+    "edge_se2_prior_xy": "edge_lin_se2_prior_xy",
+    "edge_se2_xy_calib": "edge_lin_se2_xy_calib",
+    "edge_se2_offset": "edge_lin_se2_offset",
+    "edge_se2_xy_offset": "edge_lin_se2_xy_offset",
+    # models/slam3d.py
     "edge_se3": "edge_lin_se3",
     "edge_se3_xyz": "edge_lin_se3_xyz",
-    "edge_project_p2mc_intrinsics": "edge_lin_p2mc_intrinsics",
+    "edge_se3_depth": "edge_lin_se3_depth",
+    "edge_se3_disparity": "edge_lin_se3_disparity",
+    "edge_se3_prior": "edge_lin_se3_prior",
+    "edge_se3_offset": "edge_lin_se3_offset",
+    # models/sba.py
+    "edge_se3_expmap": "edge_lin_se3_expmap",
+    "edge_project_xyz2uv": "edge_lin_xyz2uv",
+    "edge_project_xyz2uvu": "edge_lin_xyz2uvu",
     "edge_project_psi2uv": "edge_lin_psi2uv",
+    "edge_project_p2mc": "edge_lin_p2mc",
+    "edge_project_p2mc_intrinsics": "edge_lin_p2mc_intrinsics",
+    "edge_project_p2sc": "edge_lin_p2sc",
+    "edge_sba_cam": "edge_lin_sba_cam",
+    "edge_sba_scale": "edge_lin_sba_scale",
 }
 
 
 def linearizer(type_name: str):
-    """The wrapper that linearizes edge type `type_name`, or None."""
+    """The wrapper that linearizes edge type `type_name`, or None (a type
+    registered at run time)."""
     name = LINEARIZERS.get(type_name)
     return None if name is None else globals()[name]
 
@@ -101,81 +131,51 @@ def _linearize(type_name, params, free, indices, meas, info, delta, pdata,
     jacs = tuple(new(E, D, vt.tangent_dim) for vt in vts)
     if E == 0:
         return (resid, jacs, rho1), False
-    pad = lambda seq: [t.data_ptr() for t in seq] + [None] * (3 - S)
-    slots = [p for s in zip(pad(params), pad(free), pad(indices)) for p in s]
+    pad = lambda seq, n: [t.data_ptr() for t in seq] + [None] * (n - len(seq))
+    slots = [p for s in zip(pad(params, 3), pad(free, 3), pad(indices, 3))
+             for p in s]
     build.launch("g2o_" + LINEARIZERS[type_name], meas, *slots,
                  meas.data_ptr(), info.data_ptr(), delta.data_ptr(),
-                 pdata[0].data_ptr() if pdata else None, int(kernel_id),
-                 resid.data_ptr(), *pad(jacs), rho1.data_ptr(), E)
+                 *pad(pdata, 2), int(kernel_id), resid.data_ptr(),
+                 *pad(jacs, 3), rho1.data_ptr(), E)
     return (resid, jacs, rho1), True
 
 
-def edge_lin_se3(params, free, indices, meas, info, delta, pdata, kernel_id):
-    """EDGE_SE3:QUAT (slots se3, se3): K17 on CUDA tensors, the plain
-    version on CPU tensors."""
-    out, launched = _linearize("edge_se3", params, free, indices, meas, info,
+def _wrappers(type_name: str, wname: str):
+    """The wrapper of one edge type, which owns its launch count, and its
+    plain version."""
+    et = registry.edge_type(type_name)
+    # the kernel computes the type's closed form where the model has one
+    # (edge_lin_analytic_kernel), else it runs in forward mode
+    form = ("the closed-form Jacobian" if et.jacobian is not None
+            else "forward mode")
+
+    def wrapper(params, free, indices, meas, info, delta, pdata, kernel_id):
+        out, launched = _linearize(type_name, params, free, indices, meas,
+                                   info, delta, pdata, kernel_id)
+        wrapper.launches += launched
+        return out
+
+    def plain(params, free, indices, meas, info, delta, pdata, kernel_id):
+        return linearize_plain(type_name, params, free, indices, meas, info,
                                delta, pdata, kernel_id)
-    edge_lin_se3.launches += launched
-    return out
+
+    wrapper.__name__ = wrapper.__qualname__ = wname
+    wrapper.__doc__ = (
+        f"{et.tag} (slots {', '.join(et.vertex_types)}"
+        + (f"; pdata {', '.join(et.param_types)}" if et.param_types else "")
+        + f"): K17 ({form}) on CUDA tensors, the plain version on CPU "
+        "tensors.")
+    plain.__name__ = plain.__qualname__ = wname + "_plain"
+    wrapper.launches = 0
+    return wrapper, plain
 
 
-def edge_lin_se3_plain(params, free, indices, meas, info, delta, pdata,
-                       kernel_id):
-    return linearize_plain("edge_se3", params, free, indices, meas, info,
-                           delta, pdata, kernel_id)
+# importing the models registers the types the table names
+from openslam_g2o_torch.models import sba, slam2d, slam3d  # noqa: E402,F401
 
-
-def edge_lin_se3_xyz(params, free, indices, meas, info, delta, pdata,
-                     kernel_id):
-    """EDGE_SE3_TRACKXYZ (slots se3, point_xyz; pdata the sensor offset
-    [E, 7]): K17 on CUDA tensors, the plain version on CPU tensors."""
-    out, launched = _linearize("edge_se3_xyz", params, free, indices, meas,
-                               info, delta, pdata, kernel_id)
-    edge_lin_se3_xyz.launches += launched
-    return out
-
-
-def edge_lin_se3_xyz_plain(params, free, indices, meas, info, delta, pdata,
-                           kernel_id):
-    return linearize_plain("edge_se3_xyz", params, free, indices, meas, info,
-                           delta, pdata, kernel_id)
-
-
-def edge_lin_p2mc_intrinsics(params, free, indices, meas, info, delta, pdata,
-                             kernel_id):
-    """EDGE_PROJECT_P2MC_INTRINSICS (slots sba_point_xyz, cam,
-    intrinsics): K17 on CUDA tensors, the plain version on CPU tensors."""
-    out, launched = _linearize("edge_project_p2mc_intrinsics", params, free,
-                               indices, meas, info, delta, pdata, kernel_id)
-    edge_lin_p2mc_intrinsics.launches += launched
-    return out
-
-
-def edge_lin_p2mc_intrinsics_plain(params, free, indices, meas, info, delta,
-                                   pdata, kernel_id):
-    return linearize_plain("edge_project_p2mc_intrinsics", params, free,
-                           indices, meas, info, delta, pdata, kernel_id)
-
-
-def edge_lin_psi2uv(params, free, indices, meas, info, delta, pdata,
-                    kernel_id):
-    """EDGE_PROJECT_PSI2UV:EXPMAP (slots sba_point_xyz (psi), se3_expmap,
-    se3_expmap (anchor); pdata the camera parameters [E, 4]): K17 on CUDA
-    tensors, the plain version on CPU tensors. The observing camera and
-    the anchor may be one vertex; each slot still gets its own columns."""
-    out, launched = _linearize("edge_project_psi2uv", params, free, indices,
-                               meas, info, delta, pdata, kernel_id)
-    edge_lin_psi2uv.launches += launched
-    return out
-
-
-def edge_lin_psi2uv_plain(params, free, indices, meas, info, delta, pdata,
-                          kernel_id):
-    return linearize_plain("edge_project_psi2uv", params, free, indices,
-                           meas, info, delta, pdata, kernel_id)
-
-
-for _w in (edge_lin_se3, edge_lin_se3_xyz, edge_lin_p2mc_intrinsics,
-           edge_lin_psi2uv):
-    _w.launches = 0
-del _w
+for _t, _w in LINEARIZERS.items():
+    globals()[_w], globals()[_w + "_plain"] = _wrappers(_t, _w)
+# the wrappers, in LINEARIZERS' order (kernels.WRAPPERS lists them)
+WRAPPERS = tuple(globals()[_w] for _w in LINEARIZERS.values())
+del _t, _w

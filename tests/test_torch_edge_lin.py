@@ -1,31 +1,38 @@
-"""The forward-mode linearizers of kernels/edge_lin.py (K17: EDGE_SE3:QUAT,
-EDGE_SE3_TRACKXYZ, EDGE_PROJECT_P2MC_INTRINSICS, EDGE_PROJECT_PSI2UV:EXPMAP)
-against the JAX package, float64 on the CPU, where every wrapper runs its
-plain version. The kernels themselves run on the card only
-(tests/test_torch_kernels.py holds them against these plain versions).
+"""The edge linearizers of kernels/edge_lin.py (K17: every edge type of
+openslam_g2o_torch.models, twenty in forward mode, EDGE_SE2 and the XYZ2UV /
+XYZ2UVU projections in closed form) against the JAX package, float64 on the
+CPU, where every wrapper runs its plain version. The kernels themselves run
+on the card only (tests/test_torch_kernels.py holds them against these
+plain versions).
 
 * per edge type and robust kernel (Huber, Cauchy), a small numpy-seeded
-  graph built through either package's Graph API, with one fixed vertex in
+  graph built through either package's Graph API, with a fixed vertex in
   every vertex group (and SE3 quaternions stored with q_w < 0 or 5e-4 off
   unit, so the renormalizations and the sign flip are differentiated):
   the wrapper's residual, per-slot Jacobians and rho' against JAX's
-  jacfwd `linearize` to rtol 1e-12 with an absolute floor of 1e-12 of the
-  largest entry (the floor of tests/test_torch_sba_cam_types.py: the same
-  float64 formulas, differentiated by jvp against jacfwd);
+  `linearize` (jacfwd, or the analytic branch for the three closed forms)
+  to rtol 1e-12 with an absolute floor of 1e-12 of the largest entry (the
+  floor of tests/test_torch_sba_cam_types.py: the same float64 formulas,
+  differentiated by jvp against jacfwd); the types without a scene of
+  their own are taken on phase 4o's three worlds of chip_smoke.py, small;
 * a PSI2UV group whose anchor is the observing camera: each of the two
   camera slots gets its own columns, equal to JAX's; where that camera is
   free the two are opposite (the edge projects exp(d1) T T^-1 exp(-d2)
   psi, so its error does not depend on the camera);
 * on CPU tensors `linearize_group` takes the plain route (no launch is
-  counted), and `LINEARIZERS` names exactly the four types;
+  counted), `LINEARIZERS` names every edge type the models register, a
+  type registered at run time has no wrapper and keeps the generic route,
+  and the C entries and their ctypes signatures are the table's;
 * the slice as a whole, under robust kernels (which the other trajectory
   tests leave out): a small Simulator3D world with every edge under Cauchy
   through `optimize()` (the dense LM) against JAX's chi2 trajectory to
   rtol 1e-7 (the dense route's float64 precedent: factorizations and sums
-  in another order), and chip_smoke.py's anchored PSI2UV scene with every
-  edge under Huber through LevenbergMarquardtSchur to rtol 1e-8 while an
-  iteration gains more than 1e-10 of chi2 (the general Schur path's
-  precedent, tests/test_torch_schur_general.py).
+  in another order), and chip_smoke.py's anchored PSI2UV scene with every edge under Huber
+  through LevenbergMarquardtSchur to rtol 1e-8 while an iteration gains
+  more than 1e-10 of chi2 (the general Schur path's precedent,
+  tests/test_torch_schur_general.py).
+
+tests/test_torch_edge_lin_4o.py holds phase 4o's worlds and two branches.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -43,6 +50,7 @@ from openslam_g2o_tpu.utils import np_lie
 from openslam_g2o_torch import kernels
 from openslam_g2o_torch.core import algorithms as talg
 from openslam_g2o_torch.core import ba as tba
+from openslam_g2o_torch.core import registry
 from openslam_g2o_torch.core import problem as tproblem
 from openslam_g2o_torch.core.graph import Graph as TGraph
 from openslam_g2o_torch.interop import problem_arrays, problem_from_numpy
@@ -55,7 +63,13 @@ RTOL_DENSE = 1e-7
 RTOL_SCHUR = 1e-8
 GAIN_FLOOR = 1e-10
 TYPES = ("edge_se3", "edge_se3_xyz", "edge_project_p2mc_intrinsics",
-         "edge_project_psi2uv")
+         "edge_project_psi2uv", "edge_se2", "edge_se2_xy",
+         "edge_se2_xy_bearing", "edge_se2_prior", "edge_se2_prior_xy",
+         "edge_se2_xy_calib", "edge_se2_offset", "edge_se2_xy_offset",
+         "edge_se3_depth", "edge_se3_disparity", "edge_se3_prior",
+         "edge_se3_offset", "edge_se3_expmap", "edge_project_xyz2uv",
+         "edge_project_xyz2uvu", "edge_project_p2mc", "edge_project_p2sc",
+         "edge_sba_cam", "edge_sba_scale")
 KERNELS = (("Huber", 1.5), ("Cauchy", 0.8))
 K = np.array([505.0, 490.0, 318.0, 242.0, 0.1])      # fx, fy, cx, cy, b
 CAMP = np.array([480.0, 310.0, 245.0, 0.1])           # focal, cx, cy, b
@@ -173,9 +187,40 @@ def _psi2uv_graph(Graph, kernel, seed=9, n_cams=4, n_points=10):
     return g
 
 
+def _robust(graph, kernel, width):
+    for e in graph.edges:
+        e.kernel, e.kernel_delta = kernel, width
+    return graph
+
+
+def _world2d(Graph, kernel):
+    """Phase 4o's 2D world, small: every SE2 edge type."""
+    g = scenes.world2d_all_graph(Graph, 40, 30, seed=2, prior_every=4)
+    return _robust(scenes.fix_one_per_slot(g), *kernel)
+
+
+def _world3d(Graph, kernel):
+    """Phase 4o's 3D world, small: depth, disparity, prior, offset."""
+    g = scenes.world3d_all_graph(Graph, 30, 24, seed=2)
+    return _robust(scenes.fix_one_per_slot(g), *kernel)
+
+
+def _sba(Graph, kernel):
+    """Phase 4o's SBA world, small: the SBACam and expmap types."""
+    g = scenes.sba_all_graph(Graph, 20, 40, seed=2)
+    return _robust(scenes.fix_one_per_slot(g), *kernel)
+
+
 BUILDERS = {"edge_se3": _pose_graph, "edge_se3_xyz": _pose_graph,
             "edge_project_p2mc_intrinsics": _intrinsics_graph,
-            "edge_project_psi2uv": _psi2uv_graph}
+            "edge_project_psi2uv": _psi2uv_graph,
+            **{t: _world2d for t in TYPES if t.startswith("edge_se2")},
+            **{t: _world3d for t in ("edge_se3_depth", "edge_se3_disparity",
+                                     "edge_se3_prior", "edge_se3_offset")},
+            **{t: _sba for t in ("edge_se3_expmap", "edge_project_xyz2uv",
+                                 "edge_project_xyz2uvu", "edge_project_p2mc",
+                                 "edge_project_p2sc", "edge_sba_cam",
+                                 "edge_sba_scale")}}
 
 _cache = {}
 
@@ -221,7 +266,9 @@ def test_plain_version_matches_jax_linearize(tname, kernel):
         assert tuple(tj.shape) == jj.shape
         _close(tj, jj)
         fixed = tprob.free[eg.slots[s]][ea.indices[s].long()] == 0
-        assert fixed.any() or eg.slots[s] == "intrinsics"
+        # every slot sees a fixed vertex, but one that names a single
+        # shared vertex (the intrinsics, the 2D calibration)
+        assert fixed.any() or ea.indices[s].unique().numel() == 1
         assert (tj[fixed] == 0).all()
     # the plain version is the wrapper's on CPU tensors, value for value
     for got, want in zip((resid, *jacs, rho1),
@@ -250,18 +297,77 @@ def test_psi2uv_anchor_on_the_observing_camera():
     assert float(jobs[both].abs().max()) > 1.0
 
 
+def _model_types():
+    """The edge types registered by openslam_g2o_torch.models."""
+    return {name for name, et in registry._EDGE_TYPES.items()
+            if et.error.__module__.startswith("openslam_g2o_torch.models.")}
+
+
 def test_cpu_linearize_takes_the_plain_route_and_the_table_is_exact():
-    assert set(edge_lin.LINEARIZERS) == set(TYPES)
+    assert set(edge_lin.LINEARIZERS) == _model_types() == set(TYPES)
     assert all(edge_lin.linearizer(t) is not None for t in TYPES)
-    assert edge_lin.linearizer("edge_se2_xy") is None
+    assert {t for t in TYPES if registry.edge_type(t).jacobian
+            is not None} == {"edge_se2", "edge_project_xyz2uv",
+                             "edge_project_xyz2uvu"}
     assert {w.__name__ for w in kernels.WRAPPERS} >= set(
         edge_lin.LINEARIZERS.values())
     kernels.reset_launch_counts()
     for tname in ("edge_se3", "edge_project_p2mc_intrinsics",
-                  "edge_project_psi2uv"):
+                  "edge_project_psi2uv", "edge_se2", "edge_se3_depth",
+                  "edge_se3_expmap"):
         _, tprob, _, _ = _pair(tname, KERNELS[1])
         tproblem.linearize(tprob)
     assert not any(kernels.launch_counts().values())
+
+
+def test_a_type_registered_at_run_time_keeps_the_generic_route():
+    """A caller's edge type has no wrapper: `linearize_group` runs the
+    error and torch.func.jvp for it (here on the CPU; on the card too)."""
+    name = "test_runtime_range_xy"
+    if name not in registry._EDGE_TYPES:
+        registry.register_edge_type(registry.EdgeType(
+            name=name, tag="TEST_RUNTIME_RANGE_XY",
+            vertex_types=("se2", "point_xy"), error_dim=1,
+            measurement_dim=1,
+            error=lambda vp, meas, pdata: torch.sqrt(
+                ((vp[1] - vp[0][..., :2]) ** 2).sum(-1, keepdim=True))
+            - meas))
+    assert edge_lin.linearizer(name) is None
+    g = TGraph()
+    g.add_vertex(0, "se2", [0.0, 0.0, 0.3], fixed=True)
+    g.add_vertex(1, "se2", [1.0, 0.5, -0.2])
+    g.add_vertex(2, "point_xy", [3.0, 4.0])
+    for i in (0, 1):
+        g.add_edge(name, (i, 2), [4.0], np.eye(1))
+    g.add_edge("edge_se2", (0, 1), [1.0, 0.5, -0.5], np.eye(3))
+    prob = g.compile(dtype=torch.float64, device="cpu")
+    eg = next(e for e in prob.static.egroups if e.etype.name == name)
+    resid, (jx, jl), rho1 = tproblem.linearize_group(prob, eg)
+    d = np.array([[3.0, 4.0], [2.0, 3.5]])
+    r = np.linalg.norm(d, axis=1)
+    np.testing.assert_allclose(resid.numpy()[:, 0], r - 4.0, rtol=1e-12)
+    np.testing.assert_allclose(jl.numpy()[:, 0], d / r[:, None],
+                               rtol=1e-12)
+    np.testing.assert_allclose(jx.numpy()[1, 0, :2], -d[1] / r[1],
+                               rtol=1e-12)
+    assert (jx[0] == 0).all() and float(jx[1, 0, 2]) == 0.0
+    assert torch.equal(rho1, torch.ones(2, dtype=torch.float64))
+
+
+def test_the_c_entries_and_signatures_are_the_tables():
+    """edge_lin.cu exports one entry pair per LINEARIZERS wrapper, and
+    build.py declares each one's ctypes signature."""
+    from pathlib import Path
+    import re
+    from openslam_g2o_torch.kernels import build
+    src = (Path(build.CSRC) / "edge_lin.cu").read_text()
+    entries = set(re.findall(r"G2O_EDGE_LIN_ENTRIES\((g2o_edge_lin_\w+),",
+                             src))
+    want = {"g2o_" + w for w in edge_lin.LINEARIZERS.values()}
+    assert entries == want
+    assert {k for k in build._SIGNATURES if k.startswith("g2o_edge_lin_")} \
+        == want
+    assert len({build._SIGNATURES[k] for k in want}) == 1
 
 
 def test_wrapper_rejects_bad_arguments():
@@ -284,12 +390,6 @@ def test_wrapper_rejects_bad_arguments():
     with pytest.raises(ValueError, match="dtype"):
         edge_lin.edge_lin_se3_xyz(params, free, ea.indices,
                                   ea.measurement.float(), *args[4:])
-
-
-def _robust(graph, kernel, width):
-    for e in graph.edges:
-        e.kernel, e.kernel_delta = kernel, width
-    return graph
 
 
 def test_dense_lm_on_a_simulator3d_world_matches_jax():

@@ -1765,10 +1765,26 @@ def test_two_launch_steps_equal_three_launch_steps_on_gpu(cuda, D):
 def _lin_scene(cuda, dtype, kind):
     """A scene for K17: a small Simulator3D world (EDGE_SE3:QUAT and
     EDGE_SE3_TRACKXYZ, pose 0 fixed; some quaternions stored with q_w < 0,
-    some 5e-4 off unit), or _general_scene's anchored PSI2UV or
-    shared-intrinsics scene (camera 0 fixed)."""
-    if kind != "3d":
+    some 5e-4 off unit), a small Simulator2D world (EDGE_SE2, EDGE_SE2_XY),
+    _general_scene's anchored PSI2UV or shared-intrinsics scene (camera 0
+    fixed), or one of chip_smoke.py's phase-4o worlds, small, with a fixed
+    vertex in every slot (chip_smoke.fix_one_per_slot)."""
+    import chip_smoke
+    from openslam_g2o_torch.core.graph import Graph
+    if kind in ("psi2uv", "intrinsics"):
         return _general_scene(cuda, dtype, kind)
+    if kind == "2d":
+        g, _ = Simulator2D(n_landmarks=40, seed=2).simulate(120)
+        return g.compile(dtype=dtype, device=cuda)
+    if kind in ("world2d", "world3d", "sba"):
+        g = {"world2d": lambda: chip_smoke.world2d_all_graph(
+                 Graph, 120, 90, seed=3, prior_every=8),
+             "world3d": lambda: chip_smoke.world3d_all_graph(
+                 Graph, 80, 60, seed=3),
+             "sba": lambda: chip_smoke.sba_all_graph(Graph, 40, 90,
+                                                     seed=3)}[kind]()
+        return chip_smoke.fix_one_per_slot(g).compile(dtype=dtype,
+                                                      device=cuda)
     from openslam_g2o_torch.apps.simulator import Simulator3D
     g, _ = Simulator3D(world_size=12.0, n_landmarks=60, seed=1).simulate(80)
     prob = g.compile(dtype=dtype, device=cuda)
@@ -1778,16 +1794,39 @@ def _lin_scene(cuda, dtype, kind):
     return prob.with_params({**prob.params, "se3": p})
 
 
+def _lin_matches_plain(fn, tname, args, dtype, what):
+    """One K17 wrapper call against its plain version: one launch,
+    residual, Jacobians and rho' relative to the largest plain entry to
+    1e-10 (float64) and 2e-4 (float32; 2e-3 with a robust kernel, whose
+    rho' carries the float32 residual's cancellation error), fixed
+    columns exactly zero, and a second call gives the same bits."""
+    from openslam_g2o_torch.kernels import edge_lin
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1
+    want = edge_lin.linearize_plain(tname, *args)
+    flat = lambda o: (o[0], *o[1], o[2])
+    tol = {torch.float64: 1e-10,
+           torch.float32: 2e-4 if args[-1] == 0 else 2e-3}[dtype]
+    for g_, w_ in zip(flat(got), flat(want), strict=True):
+        assert g_.shape == w_.shape
+        assert _rel(g_, w_) < tol, what
+    params, free, indices = args[:3]
+    for s in range(len(params)):
+        fixed = free[s][indices[s].long()] == 0
+        assert (got[1][s][fixed] == 0).all(), what
+    assert all(torch.equal(a, b_) for a, b_ in zip(flat(fn(*args)),
+                                                   flat(got))), what
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kind", ["3d", "psi2uv", "intrinsics"])
+@pytest.mark.parametrize("kind", ["3d", "psi2uv", "intrinsics", "2d",
+                                  "world2d", "world3d", "sba"])
 def test_edge_lin_kernels_match_plain_on_gpu(cuda, dtype, kind):
     """K17 against its plain version (the model's error and torch.func.jvp
-    through the retractions) on every edge group of the scene, without a
-    robust kernel and with Huber and Cauchy (delta 0.5), fixed vertices
-    included: residual, Jacobians and rho' relative to the largest plain
-    entry to 1e-10 (float64) and 2e-4 (float32; 2e-3 with a robust kernel,
-    whose rho' carries the float32 residual's cancellation error), as K16;
-    one launch per call, and a second call gives the same bits."""
+    through the retractions, or the closed form) on every edge group of the
+    scene, without a robust kernel and with Huber and Cauchy (delta 0.5),
+    fixed vertices included (_lin_matches_plain), as K16."""
     from openslam_g2o_torch.kernels import edge_lin
     prob = _lin_scene(cuda, dtype, kind)
     for kid in (0, 1, 3):
@@ -1799,36 +1838,59 @@ def test_edge_lin_kernels_match_plain_on_gpu(cuda, dtype, kind):
                     tuple(prob.free[g] for g in eg.slots), ea.indices,
                     ea.measurement, ea.information,
                     torch.full_like(ea.delta, 0.5), ea.pdata, kid)
-            before = fn.launches
-            got = fn(*args)
-            assert fn.launches == before + 1
-            want = edge_lin.linearize_plain(eg.etype.name, *args)
-            flat = lambda o: (o[0], *o[1], o[2])
-            tol = {torch.float64: 1e-10,
-                   torch.float32: 2e-4 if kid == 0 else 2e-3}[dtype]
-            for g_, w_ in zip(flat(got), flat(want), strict=True):
-                assert g_.shape == w_.shape
-                assert _rel(g_, w_) < tol, (eg.key, kid)
-            for s, gname in enumerate(eg.slots):
-                fixed = prob.free[gname][ea.indices[s].long()] == 0
-                assert (got[1][s][fixed] == 0).all()
-            assert all(torch.equal(a, b_)
-                       for a, b_ in zip(flat(fn(*args)), flat(got)))
+            _lin_matches_plain(fn, eg.etype.name, args, dtype, (eg.key, kid))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_edge_lin_every_type_on_seeded_groups_on_gpu(cuda, dtype):
+    """Every LINEARIZERS type on chip_smoke.py's seeded group (`lin_group`:
+    3,000 edges, every 7th vertex fixed, angles over [-pi, pi), so bearings
+    cross the cut), with no robust kernel, Huber and Cauchy
+    (_lin_matches_plain)."""
+    import chip_smoke
+    from openslam_g2o_torch.kernels import edge_lin
+    for tname in edge_lin.LINEARIZERS:
+        for kid in (0, 1, 3):
+            args = chip_smoke.lin_group(torch, tname, 3000, dtype, cuda,
+                                        kernel_id=kid, seed=5)
+            _lin_matches_plain(edge_lin.linearizer(tname), tname, args,
+                               dtype, (tname, kid))
 
 
 def test_edge_lin_serves_linearize_group_on_gpu(cuda):
-    """On CUDA tensors `linearize_group` launches K17 for its four types and
-    no kernel for the others; an edge group of a type without a kernel
-    (EDGE_SE2_XY) keeps the jvp route on the card."""
+    """On CUDA tensors `linearize_group` launches K17 for every type of the
+    scenes (all 23 built-in types between them) and no other kernel; an
+    edge group of a type registered at run time keeps the jvp route on the
+    card."""
+    from openslam_g2o_torch.core import registry
+    from openslam_g2o_torch.core.graph import Graph
     from openslam_g2o_torch.kernels import edge_lin
     kernels.reset_launch_counts()
-    for kind in ("3d", "psi2uv", "intrinsics"):
-        problem_mod.linearize(_lin_scene(cuda, torch.float32, kind))
+    seen = set()
+    for kind in ("3d", "psi2uv", "intrinsics", "2d", "world2d", "world3d",
+                 "sba"):
+        prob = _lin_scene(cuda, torch.float32, kind)
+        seen |= {eg.etype.name for eg in prob.static.egroups}
+        problem_mod.linearize(prob)
     counts = kernels.launch_counts()
+    assert seen == set(edge_lin.LINEARIZERS)
     assert {k for k, v in counts.items() if v} == set(
         edge_lin.LINEARIZERS.values())
-    g, _ = Simulator2D(n_landmarks=10, seed=0).simulate(20)
+    name = "test_runtime_range_xy_gpu"
+    if name not in registry._EDGE_TYPES:
+        registry.register_edge_type(registry.EdgeType(
+            name=name, tag="TEST_RUNTIME_RANGE_XY_GPU",
+            vertex_types=("se2", "point_xy"), error_dim=1,
+            measurement_dim=1,
+            error=lambda vp, meas, pdata: torch.sqrt(
+                ((vp[1] - vp[0][..., :2]) ** 2).sum(-1, keepdim=True))
+            - meas))
+    g = Graph()
+    g.add_vertex(0, "se2", [0.0, 0.0, 0.3], fixed=True)
+    g.add_vertex(1, "point_xy", [3.0, 4.0])
+    g.add_edge(name, (0, 1), [4.0], np.eye(1))
+    prob = g.compile(dtype=torch.float32, device=cuda)
     kernels.reset_launch_counts()
-    lin = problem_mod.linearize(g.compile(dtype=torch.float32, device=cuda))
+    lin = problem_mod.linearize(prob)
     assert not any(kernels.launch_counts().values())
     assert all(torch.isfinite(lin[k][0]).all() for k in lin)
