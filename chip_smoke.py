@@ -31,7 +31,12 @@ Phases (any failure raises and the script exits non-zero):
     (LIN_ROWS: the worlds of 4d and 4f, the 4j BAL problem, the 4k and 4l
     scenes, 4m's two-pose-group and stereo scenes) and, for the types of
     phase 4o, on a seeded group of 50,000 edges each (lin_group), twice
-    for the same bits and by device time.
+    for the same bits and by device time. K7 on the dense and Schur
+    routes (trial_retract_* of every vertex type on a seeded group of
+    50,000 vertices, trial_chi2_* of every edge type on a seeded group of
+    50,000 edges under Huber, chi2_sum on a 400,000-edge group's
+    partials), float32 and float64, twice for the same bits and by device
+    time.
     On the sphere of phase 4e: K16 (edge_se3_blocks, without and with a robust
     kernel, on streams of the main path's width; twice for the same bits and
     by device time), K7 for SE3 (retract_se3, se3_edge_chi2, a NaN dx) and the 6x6
@@ -138,6 +143,10 @@ Phases (any failure raises and the script exits non-zero):
     one build split into linearize and the rest of schur_build; K17
     launched in 4j-4n (XYZ2UV in 4j, 4m and 4n, P2MC and P2SC in 4m's
     routes, with their linearize split);
+ 4d-4o: the K7 split of one trial at each phase's start (4i aside): the
+    candidate and its chi2 (apply_update_parts + robust_chi2) and the
+    whole outcome (lm_trial_outcome), by CUDA events, with the outcome's
+    launches (one per vertex group, one per edge group, lm_outcome);
  4o. the dense LM over every type without a scene of another phase: three
     worlds built with Graph from a seed (world2d_all_graph: the SE2 types,
     priors, calibration and offset edges; world3d_all_graph: depth,
@@ -170,7 +179,10 @@ Phases (any failure raises and the script exits non-zero):
     phase (LIN_ROWS) must launch it. From phase 4 on no built-in edge type
     reaches the generic linearization (linearize_edges, forward_jacobians)
     on the card outside the plain-route runs: each such call is counted
-    and there must be none.
+    and there must be none; nor does a built-in vertex or edge type reach
+    the plain trial (kernels/trial.py retract_plain, chi2_plain). K7's
+    rows (TRIAL_ROWS) count every phase, each row's phase must launch it,
+    and its launches are printed per phase.
 The last two lines are the per-kernel JSON and {"ok": true, "device": ...}.
 Exits non-zero without printing a result when no GPU is visible.
 """
@@ -217,6 +229,19 @@ TOL = {"edge_se2_blocks": {"float32": 1e-4, "float64": 1e-11},
            "se2_xy_calib", "se2_offset", "se2_xy_offset", "se3_depth",
            "se3_disparity", "se3_prior", "se3_offset", "se3_expmap",
            "xyz2uv", "xyz2uvu", "p2mc", "p2sc", "sba_cam", "sba_scale")},
+       # K7 on the dense and Schur routes: the candidate relative to its
+       # largest entry, the summed chi2 and dot
+       **{w_: {"float32": 1e-5, "float64": 1e-12} for w_ in (
+           "chi2_sum", *("trial_retract_" + v_ for v_ in (
+               "se2", "point_xy", "se3", "point_xyz", "se3_expmap",
+               "sba_point_xyz", "cam", "intrinsics")),
+           *("trial_chi2_" + n_ for n_ in (
+               "se2", "se2_xy", "se2_bearing", "se2_prior", "se2_prior_xy",
+               "se2_xy_calib", "se2_offset", "se2_xy_offset", "se3",
+               "se3_xyz", "se3_depth", "se3_disparity", "se3_prior",
+               "se3_offset", "se3_expmap", "xyz2uv", "xyz2uvu", "psi2uv",
+               "p2mc", "p2mc_intrinsics", "p2sc", "sba_cam",
+               "sba_scale")))},
        # the pixel residual cancels a projection of a few hundred pixels
        "ba_xyz2uv_blocks": {"float32": 1e-4, "float64": 1e-11},
        # downstream of a block inverse or of the Schur difference
@@ -364,6 +389,22 @@ KERNELS = {
                   "se2_xy_offset", "se3_depth", "se3_disparity",
                   "se3_prior", "se3_offset", "se3_expmap", "xyz2uv",
                   "xyz2uvu", "p2mc", "p2sc", "sba_cam", "sba_scale")},
+    # K7 on the dense, dual-ELL and general Schur routes: the candidate of
+    # each vertex type (apply_update_parts), each edge type's robust chi2
+    # (robust_chi2 over edge_chi2) and the sum of its partials
+    **{"trial_retract_" + v_: ("trial.cu",
+                               "openslam_g2o_tpu/core/problem.py:557")
+       for v_ in ("se2", "point_xy", "se3", "point_xyz", "se3_expmap",
+                  "sba_point_xyz", "cam", "intrinsics")},
+    **{"trial_chi2_" + n_: ("trial.cu",
+                            "openslam_g2o_tpu/core/problem.py:321")
+       for n_ in ("se2", "se2_xy", "se2_bearing", "se2_prior",
+                  "se2_prior_xy", "se2_xy_calib", "se2_offset",
+                  "se2_xy_offset", "se3", "se3_xyz", "se3_depth",
+                  "se3_disparity", "se3_prior", "se3_offset", "se3_expmap",
+                  "xyz2uv", "xyz2uvu", "psi2uv", "p2mc", "p2mc_intrinsics",
+                  "p2sc", "sba_cam", "sba_scale")},
+    "chi2_sum": ("trial.cu", "openslam_g2o_tpu/core/problem.py:327"),
 }
 # K17's rows: wrapper -> the phase whose scene its phase-3 row is taken
 # on, which must launch it; its launches are those of every phase. The
@@ -398,6 +439,27 @@ LIN_VALUE_OPS = {"edge_se3": 390, "edge_se3_xyz": 225,
                  "edge_project_xyz2uvu": 190, "edge_project_p2mc": 90,
                  "edge_project_p2sc": 105, "edge_sba_cam": 330,
                  "edge_sba_scale": 16}
+# K7's rows on the dense and Schur routes: wrapper -> a phase that must
+# launch it (its launches are those of every phase). Its phase-3 row is
+# taken on a seeded group of TRIAL_GROUP vertices (trial_vertex_group) or
+# edges (lin_group) each.
+TRIAL_ROWS = {"trial_retract_se2": "4d", "trial_retract_point_xy": "4d",
+              "trial_retract_se3": "4f", "trial_retract_point_xyz": "4f",
+              "trial_retract_se3_expmap": "4g",
+              "trial_retract_sba_point_xyz": "4g",
+              "trial_retract_cam": "4o", "trial_retract_intrinsics": "4l",
+              **{"trial_chi2_" + w_[len("edge_lin_"):]: ph_
+                 for w_, ph_ in LIN_ROWS.items()},
+              "chi2_sum": "4d"}
+TRIAL_GROUP = 50000
+# K7's operations per vertex of a retraction (csrc/trial.cu and the
+# headers it includes: sqrt, sin, cos as one each) beside three per tangent
+# value of the dot product; a chi2 row's are the edge's LIN_VALUE_OPS (the
+# error through zero-step retractions: an upper estimate of the error
+# alone) and 2 D^2 of e^T Omega e
+RETRACT_OPS = {"se2": 6, "point_xy": 2, "se3": 75, "point_xyz": 3,
+               "se3_expmap": 140, "sba_point_xyz": 3, "cam": 45,
+               "intrinsics": 4}
 # the general Schur path's rows at the instantiations it adds: suffix -> its
 # phase, and what each kernel replaces there (openslam_g2o_tpu/core/ba.py)
 GENERAL_SUFFIXES = {"@psi2uv": "4k", "@intrinsics": "4l", "@d4": "4l",
@@ -1152,6 +1214,83 @@ def lin_group(torch, type_name, n_edges, dtype, device, kernel_id=0,
             tuple(to(p) for p in pdata), kernel_id)
 
 
+def trial_vertex_group(torch, vname, n, dtype, device, seed=0):
+    """K7's retraction arguments for one seeded group of `n` vertices of
+    `vname`: (x [n, P], dx [n, D] and b [n, D] as transposed views of
+    lane-major [D, n] tables, as the Schur routes pass them, free [n]
+    (every 7th fixed), lam). Poses near the identity (a translation within
+    0.5, a rotation within 0.3 rad) with every third quaternion stored 3%
+    off unit norm, SE2 poses over 40 m and [-pi, pi) with every fourth
+    angle within 0.01 of +-pi stepped across it, points and intrinsics as
+    lin_group's; steps of 0.05, b of the step's sign (no cancellation in
+    the dot)."""
+    import math
+    from openslam_g2o_torch.core import registry
+    vt = registry.vertex_type(vname)
+    gen = torch.Generator().manual_seed(seed)
+    f64 = torch.float64
+
+    def U(*shape, lo=-1.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen, dtype=f64)
+
+    def pose():
+        v = U(n, 3, lo=-0.15, hi=0.15)
+        q = torch.cat([v, torch.sqrt(1 - (v * v).sum(1, keepdim=True))], 1)
+        q[1::3] *= 1.03
+        return torch.cat([U(n, 3, lo=-0.5, hi=0.5), q], 1)
+
+    intr = lambda: torch.cat([U(n, 2, lo=480, hi=520),
+                              U(n, 1, lo=300, hi=340),
+                              U(n, 1, lo=220, hi=260),
+                              U(n, 1, lo=0.05, hi=0.15)], 1)
+    make = {"se2": lambda: torch.cat([U(n, 2, lo=-20, hi=20),
+                                      U(n, 1, lo=-math.pi, hi=math.pi)], 1),
+            "point_xy": lambda: U(n, 2, lo=-20, hi=20),
+            "se3": pose, "se3_expmap": pose,
+            "point_xyz": lambda: U(n, 3, lo=-2, hi=8),
+            "sba_point_xyz": lambda: U(n, 3, lo=-2, hi=8),
+            "cam": lambda: torch.cat([pose(), intr()], 1),
+            "intrinsics": intr}
+    x = make[vname]()
+    D = vt.tangent_dim
+    dxT = 0.05 * (2 * torch.rand(D, n, generator=gen, dtype=f64) - 1)
+    if vname == "se2":
+        x[1::4, 2], dxT[2, 1::4] = math.pi - 0.01, 0.05
+        x[2::4, 2], dxT[2, 2::4] = -math.pi + 0.01, -0.05
+    bT = dxT.sign() * torch.rand(D, n, generator=gen, dtype=f64)
+    free = (torch.arange(n) % 7 != 3).to(f64)
+    to = lambda t: t.to(device=device, dtype=dtype).contiguous()
+    return (to(x), to(dxT).T, to(bT).T, to(free),
+            torch.tensor(0.7, dtype=dtype, device=device))
+
+
+def trial_bytes_flops(vname, x, dx):
+    """What one K7 retraction must move and do: x, dx, b and free read once,
+    the candidate written once, a partial per block (bytes);
+    RETRACT_OPS per vertex and three per tangent value (operations)."""
+    s = x.element_size()
+    N, P = x.shape
+    D = dx.shape[1]
+    return (s * (N * (2 * P + 2 * D + 1) + (N + 255) // 256),
+            N * (RETRACT_OPS[vname] + 3 * D))
+
+
+def chi2_bytes_flops(type_name, args):
+    """What one K7 chi2 call with lin_group's arguments `args` must move and
+    do: each slot's vertex table once (a table two slots share once), the
+    indices, measurements, Omega, delta and parameter data, a partial per
+    block (bytes); LIN_VALUE_OPS and 2 D^2 per edge (operations)."""
+    params, _, indices, meas, info, delta, pdata, _ = args
+    s = meas.element_size()
+    E, D = meas.shape[0], info.shape[1]
+    tables = {p.data_ptr(): p for p in params}.values()
+    nbytes = (s * (sum(p.numel() for p in tables)
+                   + E * (meas.shape[1] + D * D + 1
+                          + sum(p.shape[1] for p in pdata))
+                   + (E + 255) // 256) + 4 * E * len(params))
+    return nbytes, E * (LIN_VALUE_OPS[type_name] + 2 * D * D)
+
+
 def _median_ms(torch, fn, repeats=15, inner=20, warmup=3):
     """Median over `repeats` of the time per call in a run of `inner`
     back-to-back calls between two CUDA events: what a call costs in a
@@ -1332,7 +1471,8 @@ def main() -> int:
     from openslam_g2o_torch.kernels import (
         assemble, ba_coupling, ba_edge, ba_inv, ba_schur, build, cg_step,
         chebyshev, damp_chol, dense_assemble, edge_lin, edge_se2, edge_se3,
-        gather, jacobi_scale, retract_chi2, schur_general, spmv)
+        gather, jacobi_scale, retract_chi2, schur_general, spmv, trial)
+    from openslam_g2o_torch.core import registry as registry_mod
     from openslam_g2o_torch.utils import np_lie
 
     # -- 1. device --------------------------------------------------------
@@ -3138,6 +3278,65 @@ def main() -> int:
             device_rows(wname, tag, {"kernel": run_l})
         del groups
         torch.cuda.empty_cache()
+
+    # K7 on the dense and Schur routes: each retraction on a seeded group of
+    # TRIAL_GROUP vertices (trial_vertex_group), each edge type's chi2 on a
+    # seeded group of TRIAL_GROUP edges (lin_group, every vertex table at
+    # the candidate), chi2_sum on the partials of a 400,000-edge group;
+    # each against its plain version (the candidate relative to its
+    # largest entry, the partials summed), twice for the same bits, by
+    # device time
+    for dt in (torch.float32, torch.float64):
+        tag = str(dt).split(".")[-1]
+        for vname, wname in trial.RETRACTIONS.items():
+            x_t, dx_t, b_t, free_t, lam_t = trial_vertex_group(
+                torch, vname, TRIAL_GROUP, dt, dev, seed=9)
+            run_t = lambda w_=wname, a_=(x_t, dx_t, free_t, b_t, lam_t): \
+                getattr(trial, w_)(*a_)
+            plain_t = lambda w_=wname, a_=(x_t, dx_t, free_t, b_t, lam_t): \
+                getattr(trial, w_ + "_plain")(*a_)
+            nbytes, flops = trial_bytes_flops(vname, x_t, dx_t)
+            case(wname, tag, f"N={TRIAL_GROUP} {vname} vertices (every 7th "
+                 "fixed), dx and b lane-major [D, N] seen transposed",
+                 run_t, plain_t, nbytes=nbytes, flops=flops,
+                 post=lambda o: (o[0], o[1].sum()))
+            first = [t_.clone() for t_ in run_t()]
+            if not all(torch.equal(a_, b_) for a_, b_ in zip(first, run_t())):
+                raise AssertionError(f"{wname} does not repeat its bits")
+            device_rows(wname, tag, {"kernel": run_t})
+            del x_t, dx_t, b_t, free_t, first
+        for tname, wname in trial.CHI2.items():
+            params_c, _, idx_c, meas_c, info_c, delta_c, pdata_c, _ = \
+                cargs = lin_group(torch, tname, TRIAL_GROUP, dt, dev,
+                                  kernel_id=1, seed=9)
+            a_c = (params_c, idx_c, meas_c, info_c, delta_c, pdata_c, 1)
+            run_c = lambda w_=wname, a_=a_c: getattr(trial, w_)(*a_)
+            plain_c = lambda w_=wname, a_=a_c: getattr(trial,
+                                                       w_ + "_plain")(*a_)
+            nbytes, flops = chi2_bytes_flops(tname, cargs)
+            slots_c = list(registry_mod.edge_type(tname).vertex_types)
+            case(wname, tag, f"E={TRIAL_GROUP} seeded group (lin_group), "
+                 f"Huber, slots {slots_c}", run_c, plain_c, nbytes=nbytes,
+                 flops=flops, post=lambda o: o.sum(), slow_plain=True)
+            first = run_c().clone()
+            if not torch.equal(first, run_c()):
+                raise AssertionError(f"{wname} does not repeat its bits")
+            device_rows(wname, tag, {"kernel": run_c})
+            del cargs, a_c, params_c, idx_c, meas_c, info_c, delta_c, pdata_c
+        part_s = torch.rand(trial.partial_count(400000, dev),
+                            dtype=dt, device=dev)
+        case("chi2_sum", tag, f"{part_s.numel()} partials (a 400,000-edge "
+             "group's)", lambda: trial.chi2_sum(part_s),
+             lambda: trial.chi2_sum_plain(part_s),
+             nbytes=part_s.element_size() * (part_s.numel() + 1),
+             flops=part_s.numel(), library=lambda: part_s.sum(),
+             library_what="torch.sum")
+        if not torch.equal(trial.chi2_sum(part_s), trial.chi2_sum(part_s)):
+            raise AssertionError("chi2_sum does not repeat its bits")
+        device_rows("chi2_sum", tag, {"kernel": lambda: trial.chi2_sum(
+            part_s), "torch.sum": lambda: part_s.sum()})
+        del part_s
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for (label, tag), row in sorted(results.items()):
         tol = row.get("tol", TOL.get(label, TOL.get(row["kname"],
@@ -3185,7 +3384,9 @@ def main() -> int:
              (ba_coupling, "ba_wtx"), (ba_coupling, "ba_wv"),
              (ba_coupling, "ba_sandwich"),
              (schur_general, "schur_edge_blocks"),
-             *((edge_lin, w_) for w_ in edge_lin.LINEARIZERS.values())]
+             *((edge_lin, w_) for w_ in edge_lin.LINEARIZERS.values()),
+             *((trial, w_) for w_ in (*trial.RETRACTIONS.values(),
+                                      *trial.CHI2.values(), "chi2_sum"))]
 
     # From here on no built-in edge type may reach the generic
     # linearization (the model's torch error with torch.func.jvp or its
@@ -3207,6 +3408,90 @@ def main() -> int:
     for fn_name in ("linearize_edges", "forward_jacobians"):
         setattr(problem_mod, fn_name,
                 count_generic(getattr(problem_mod, fn_name), fn_name))
+
+    # Nor may a built-in vertex or edge type reach the plain trial (the
+    # model's retraction, its error and robustify in torch) on CUDA tensors
+    # outside a plain-route run: K7 serves every type on the dense and
+    # Schur routes. Each such call is recorded (phase 6 asserts none).
+    plain_trial_calls = []
+
+    def count_plain_trial(fn, name):
+        def counted(*a, **k):
+            t_, table, x_ = ((a[0], trial.RETRACTIONS, a[1])
+                             if name == "retract_plain"
+                             else (a[0], trial.CHI2, a[4]))
+            if (plain_depth[0] == 0 and x_.device.type == "cuda"
+                    and t_.name in table):
+                plain_trial_calls.append((name, t_.name))
+            return fn(*a, **k)
+        return counted
+
+    for fn_name in ("retract_plain", "chi2_plain"):
+        setattr(trial, fn_name,
+                count_plain_trial(getattr(trial, fn_name), fn_name))
+
+    def trial_split(phase, prob_, dx_parts, b_parts, lam_, ok_):
+        """One trial's K7 at prob_'s params: ms of the candidate and its
+        chi2 (apply_update_parts + robust_chi2, the split 4d has printed
+        since PR 3) and of the whole outcome (lm_trial_outcome: candidate,
+        dot and chi2 partials, lm_outcome), CUDA events around one call,
+        median of 5; the outcome's launches, which must be one per vertex
+        group, one per edge group and lm_outcome's. Prints a line and
+        returns the ms."""
+        ni_ = torch.tensor(2.0, dtype=prob_.dtype, device=dev)
+        chi_ = robust_chi2(prob_)
+        st_ = prob_.static
+
+        def retract_chi2_():
+            robust_chi2(prob_, problem_mod.apply_update_parts(prob_,
+                                                               dx_parts))
+
+        def outcome_():
+            problem_mod.lm_trial_outcome(prob_, dx_parts, b_parts, ok_, lam_,
+                                         ni_, chi_)
+
+        before_ = kernels.launch_counts()
+        outcome_()
+        k7_ = {k: v - before_[k] for k, v in kernels.launch_counts().items()
+               if v != before_[k]}
+        want_ = {"lm_outcome": 1}
+        for g_ in st_.vgroups:
+            w_ = trial.RETRACTIONS[g_.vtype.name]
+            want_[w_] = want_.get(w_, 0) + 1
+        for eg_ in st_.egroups:
+            w_ = trial.CHI2[eg_.etype.name]
+            want_[w_] = want_.get(w_, 0) + 1
+        if k7_ != want_:
+            raise AssertionError(f"phase {phase}: one trial's outcome "
+                                 f"launched {k7_}, not {want_}")
+        ms_ = {"retract+chi2": _median_ms(torch, retract_chi2_, repeats=5,
+                                          inner=1, warmup=1),
+               "trial outcome": _median_ms(torch, outcome_, repeats=5,
+                                           inner=1, warmup=1)}
+        print(f"phase {phase} K7 split of one trial (CUDA events around one "
+              f"call, median of 5): " + "; ".join(
+                  f"{k} {v:.3f} ms" for k, v in ms_.items())
+              + f"; {sum(k7_.values())} launches per trial outcome "
+              f"({len(st_.vgroups)} vertex groups, {len(st_.egroups)} edge "
+              f"groups, lm_outcome) [{card}]")
+        return ms_
+
+    def dense_trial_split(phase, dprob_, dpat_):
+        """trial_split on the dense route: the step of LM's first trial
+        (lambda init, damped solve) at dprob_'s params."""
+        H_, b_, _ = problem_mod.build_dense_system(dprob_, pattern=dpat_)
+        lam_ = LevenbergMarquardt().init(dprob_)["lam"]
+        H_.diagonal().add_(lam_ * problem_mod.tangent_masks(dprob_)[0])
+        dx_, ok_ = solve_dense_cholesky(H_, b_)
+        del H_
+        return trial_split(phase, dprob_, problem_mod.tangent_parts(
+            dprob_, dx_), problem_mod.tangent_parts(dprob_, b_), lam_, ok_)
+
+    def schur_trial_split(phase, prob_, solved, lam_):
+        """trial_split on a Schur route from its _solve's (dxT, ok, bT)."""
+        dxT_, ok_, bT_ = solved
+        return trial_split(phase, prob_, {k: v.T for k, v in dxT_.items()},
+                           {k: v.T for k, v in bT_.items()}, lam_, ok_)
 
     class plain_versions:
         """Every wrapper swapped for its plain version (CUDA tensors, plain
@@ -3539,6 +3824,7 @@ def main() -> int:
     print("phase 4d split of one LM iteration (CUDA events, median of 5): "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in split_ms.items())
           + f" [{card}]")
+    dense_trial_split("4d", dprob, dpat)
     del holder, lm_out, dpat
 
     def dense_profile(dprob_, phase, also=()):
@@ -3819,6 +4105,7 @@ def main() -> int:
           f"K17 launches {lin3}; split (CUDA events, median of 5): "
           + "; ".join(f"{k} {v:.3f} ms" for k, v in split3.items())
           + f" [{card}] OK")
+    dense_trial_split("4f", dprob3, dpat3)
     del lm_out3, lm_again3, holder3, dpat3, plain_stats3
     dense_profile(dprob3, "4f", also=("dense_pair",))
     del dprob3
@@ -3907,6 +4194,11 @@ def main() -> int:
               f"{step_traj[-1]:.1f}) expected 2E - 6(C - 1) - 3P = "
               f"{expected:.1f} ratio {traj[-1] / expected:.5f} (gate "
               f"{BA_GATE}); never increases")
+        work_t = bprob.with_params(st0[0])
+        schur_trial_split(phase, work_t, ba_ell._solve(
+            work_t, pattern, ba_ell._build(work_t, pattern), st0[1],
+            BA_PCG["pcg_iters"], BA_PCG["pcg_tol"]), st0[1])
+        del work_t
         if dense:
             # K12 in the loop: one linearization and one trial's solve at
             # the end state, profiled: the pair kernel, the zero fill of S
@@ -4118,6 +4410,8 @@ def main() -> int:
                 torch, lambda: ba_general.schur_build(work, lin=lin_w,
                                                       pattern=pat), 5, 1, 1)}
         del lin_w
+        schur_trial_split(phase, work, ba_general._solve(
+            work, sys_, lam_t, 250, 1e-8), lam_t)
         ba_general._solve(work, sys_, lam_t, 250, 1e-8)
         torch.cuda.synchronize()
         before = kernels.launch_counts()["cg_update_xr"]
@@ -4312,7 +4606,12 @@ def main() -> int:
     print("phase 4m plain route on the demo scene: first 3 chi2 "
           + " ".join(f"{s_['chi2']:.4f}" for s_ in demo_plain)
           + f" (rtol {PLAIN_ROUTE_RTOL:g}) OK")
-    del two, stereo, demo, kprob, lprob, bal80
+    alg_m = LevenbergMarquardtSchur()
+    lam_m = alg_m.init(demo)["lam"]
+    schur_trial_split("4m", demo, ba_general._solve(
+        demo, ba_general.schur_build(demo, pattern=alg_m.pattern(demo)),
+        lam_m, 250, 1e-8), lam_m)
+    del two, stereo, demo, kprob, lprob, bal80, alg_m
     torch.cuda.empty_cache()
 
     # 4n. the 400k BAL shape through the general path: the dense [Tp, Tp]
@@ -4420,6 +4719,7 @@ def main() -> int:
               f"(CUDA events, median of 5): "
               + "; ".join(f"{k} {v:.3f} ms" for k, v in split_o.items())
               + f" [{card}] OK")
+        dense_trial_split(f"4o {label}", oprob, dpat_o)
         del oprob, out_o, again_o, plain_o, holder_o, dpat_o
         torch.cuda.empty_cache()
 
@@ -4611,10 +4911,13 @@ def main() -> int:
     launches = {k: counts_main[k] + counts_cheb[k] + counts_probe[k]
                 + counts_dense[k] + (0 if k in two_rows else launches_d6[k])
                 + (sum(c[k] for c in by_phase.values())
-                   if k.startswith(("ba_", "edge_lin_")) else 0)
+                   if k.startswith(("ba_", "edge_lin_", "trial_",
+                                    "chi2_sum")) else 0)
                 + (sum(c[k] for c in counts_gen.values())
-                   if k.startswith(("ba_", "schur_", "edge_lin_")) else 0)
-                + (counts_4o[k] if k.startswith("edge_lin_") else 0)
+                   if k.startswith(("ba_", "schur_", "edge_lin_", "trial_",
+                                    "chi2_sum")) else 0)
+                + (counts_4o[k] if k.startswith(("edge_lin_", "trial_",
+                                                 "chi2_sum")) else 0)
                 for k in counts_main}
     for label, counts in (("4 main path", counts_main),
                           ("4b Chebyshev path", counts_cheb),
@@ -4686,6 +4989,10 @@ def main() -> int:
              + [f"{k} ({ph})" for k, ph in LIN_ROWS.items()
                 if {"4d": counts_dense, "4f": counts_dense3,
                     "4o": counts_4o, **counts_gen}[ph][k] <= 0]
+             + [f"{k} ({ph})" for k, ph in TRIAL_ROWS.items()
+                if {"4d": counts_dense, "4f": counts_dense3,
+                    "4g": counts_ba80, "4o": counts_4o,
+                    **counts_gen}[ph][k] <= 0]
              + [k for k in KERNELS if launches[k] <= 0])
     if never or set(KERNELS) != set(launches):
         raise AssertionError(f"a kernel of a path never launched (or the "
@@ -4697,6 +5004,25 @@ def main() -> int:
     if generic_calls:
         raise AssertionError(f"the generic route ran on the card: "
                              f"{sorted(set(generic_calls))}")
+    # K7 on the dense and Schur routes: its launches per phase, and no
+    # built-in type on the plain trial
+    k7_names = ("lm_outcome", "chi2_sum", *trial.RETRACTIONS.values(),
+                *trial.CHI2.values())
+    for label, counts in (("4d", counts_dense), ("4f", counts_dense3),
+                          ("4g", counts_ba80), ("4h", counts_ba400),
+                          ("4i 2D", counts_4i["2D"]),
+                          ("4i 3D", counts_4i["3D"]),
+                          *counts_gen.items(), ("4o", counts_4o)):
+        k7_c = {k: counts[k] for k in k7_names if counts[k]}
+        print(f"phase 6 K7 launches in phase {label}: "
+              f"{sum(k7_c.values())} (" + " ".join(
+                  f"{k}={v}" for k, v in k7_c.items()) + ")")
+    print(f"phase 6 plain trial retractions and chi2 (trial.retract_plain, "
+          f"trial.chi2_plain) of a built-in type on the card outside the "
+          f"plain-route runs, phases 4-5: {len(plain_trial_calls)}")
+    if plain_trial_calls:
+        raise AssertionError(f"the plain trial ran on the card: "
+                             f"{sorted(set(plain_trial_calls))}")
 
     print(smi)
     report = {"kernels": [

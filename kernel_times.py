@@ -3,7 +3,7 @@
 the port, so that two trees can be timed in one run on one card.
 
     python3 kernel_times.py [--tree PATH]
-                            [--only k15,k12,k16,sandwich,k14,lin]
+                            [--only k15,k12,k16,sandwich,k14,lin,trial]
                             [--save FILE] [--against FILE]
 
 It times the `openslam_g2o_torch` of PATH (default: this script's own
@@ -42,6 +42,22 @@ does not, at the same shapes:
   holds this tree's against that file's, relative to the largest entry of
   each output, to chip_smoke.py's K17 tolerance (1e-10 float64, 2e-4
   float32).
+* trial: one trial's outcome (candidate, dot product, robust chi2 and
+  lm_outcome) on the dense route's worlds of phases 4d, 4f and 4o
+  (float64, the step of LM's first trial), the dual-ELL routes of 4g and
+  4h (ba_80k, ba_400k) and the general Schur path's scenes of 4j-4n
+  (float32; 4m: the anchored demo scene, float64), the first trial's
+  step, as the tree's trial body runs it: a tree with
+  core/problem.py `lm_trial_outcome` runs K7's kernels, a tree without
+  it the parent's body (apply_update / apply_update_parts and
+  robust_chi2 in torch, torch.dot, lm_outcome). The time per call (CUDA
+  events around one call, median of 5) and on the device (200 calls
+  queued behind a spin kernel), the device kernels of one call (the
+  profiler), and "retract+chi2" (apply_update_parts + robust_chi2, as
+  chip_smoke.py's phase 4d split times it). --save also writes chi2_new
+  and lambda_new to FILE.trial.pt, and --against holds this tree's to
+  that file's, relative, to chip_smoke.py's chi2_sum tolerance (1e-12
+  float64, 1e-5 float32).
 
 Float32 and float64. Each line gives the microseconds per call, the bound
 (bytes over 3.35 TB/s), the error against the plain version relative to
@@ -63,7 +79,7 @@ import sys
 
 import chip_smoke
 
-SECTIONS = ("k15", "k12", "k16", "sandwich", "k14", "lin")
+SECTIONS = ("k15", "k12", "k16", "sandwich", "k14", "lin", "trial")
 
 
 def _digest(t):
@@ -151,10 +167,10 @@ def main(argv=None) -> int:
     general = {"@psi2uv": chip_smoke.psi2uv_graph(Graph, geo80),
                "@intrinsics": chip_smoke.p2mc_intrinsics_graph(Graph, geo80)}
     worlds = {}
-    if only & {"k15", "k12", "lin"}:
+    if only & {"k15", "k12", "lin", "trial"}:
         worlds["2d"] = Simulator2D(**chip_smoke.DENSE_WORLD).simulate(
             n_poses=chip_smoke.DENSE_POSES)[0]
-    if only & {"k15", "lin"}:
+    if only & {"k15", "lin", "trial"}:
         worlds["3d"] = Simulator3D(**chip_smoke.DENSE3_WORLD).simulate(
             n_poses=chip_smoke.DENSE3_POSES)[0]
 
@@ -396,6 +412,131 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
         if args.save:
             torch.save(lin_out, args.save + ".lin.pt")
+    # -- K7: one trial's outcome --------------------------------------------
+    def trial_section():
+        from torch.profiler import ProfilerActivity, profile
+        from openslam_g2o_torch.core import algorithms as alg_mod
+        from openslam_g2o_torch.core.solvers import solve_dense_cholesky
+        from openslam_g2o_torch.kernels import retract_chi2
+        has_k7 = hasattr(problem_mod, "lm_trial_outcome")
+        out, ref = {}, None
+        if against is not None:
+            ref = torch.load(args.against + ".trial.pt")
+        bal = lambda shape: synthetic_bal_problem(
+            *shape, chip_smoke.BA_OBS, dtype=torch.float32)[0]
+        f32 = lambda g: lambda: g.compile(dtype=torch.float32)
+        f64 = lambda make, *a: lambda: make(Graph, *a).compile(
+            dtype=torch.float64)
+        cases = (
+            ("4d", lambda: worlds["2d"].compile(dtype=torch.float64),
+             "dense"),
+            ("4f", lambda: worlds["3d"].compile(dtype=torch.float64),
+             "dense"),
+            ("4g", lambda: bal(chip_smoke.BA_80K), "ell"),
+            ("4h", lambda: bal(chip_smoke.BA_400K), "ell"),
+            ("4j", lambda: bal(chip_smoke.BA_80K), "general"),
+            ("4k", f32(general["@psi2uv"]), "general"),
+            ("4l", f32(general["@intrinsics"]), "general"),
+            ("4m", f64(chip_smoke.anchored_demo_graph), "general"),
+            ("4n", lambda: bal(chip_smoke.BA_400K), "general"),
+            ("4o 2D", f64(chip_smoke.world2d_all_graph, *chip_smoke.ALL2D),
+             "dense"),
+            ("4o 3D", f64(chip_smoke.world3d_all_graph, *chip_smoke.ALL3D),
+             "dense"),
+            ("4o SBA", f64(chip_smoke.sba_all_graph, *chip_smoke.ALLSBA),
+             "dense"))
+        for phase, make, route in cases:
+            prob = make()
+            tag = tag_of(prob.dtype)
+            if route == "dense":
+                lam = alg_mod.LevenbergMarquardt().init(prob)["lam"]
+                H, b, _ = problem_mod.build_dense_system(
+                    prob, pattern=dense_assemble.build_dense_pattern(prob))
+                H.diagonal().add_(lam * problem_mod.tangent_masks(prob)[0])
+                dx, ok = solve_dense_cholesky(H, b)
+                del H
+                views = lambda v: {
+                    g.name: v[g.offset:g.offset + g.tangent_size].view(
+                        g.count, g.tangent_dim) for g in prob.static.vgroups}
+                dxp, bp = views(dx), views(b)
+                parent_dot = lambda: torch.dot(dx, lam * dx + b)
+            else:
+                if route == "ell":
+                    alg = ba_ell.LevenbergMarquardtSchurELL(
+                        **chip_smoke.BA_PCG)
+                    lam = alg.init(prob)["lam"]
+                    pat = alg.pattern(prob)
+                    dxT, ok, bT = ba_ell._solve(
+                        prob, pat, ba_ell._build(prob, pat), lam,
+                        chip_smoke.BA_PCG["pcg_iters"],
+                        chip_smoke.BA_PCG["pcg_tol"])
+                else:
+                    alg = ba_general.LevenbergMarquardtSchur()
+                    lam = alg.init(prob)["lam"]
+                    dxT, ok, bT = ba_general._solve(
+                        prob, ba_general.schur_build(
+                            prob, pattern=alg.pattern(prob)), lam, 250, 1e-8)
+                dxp = {k: v.T for k, v in dxT.items()}
+                bp = {k: v.T for k, v in bT.items()}
+                parent_dot = lambda: sum(
+                    torch.dot(d.reshape(-1), (lam * d + bT[k]).reshape(-1))
+                    for k, d in dxT.items())
+            ni = torch.tensor(2.0, dtype=prob.dtype, device=dev)
+            chi = problem_mod.robust_chi2(prob)
+            if has_k7:
+                outcome = lambda: problem_mod.lm_trial_outcome(
+                    prob, dxp, bp, ok, lam, ni, chi)
+            else:                          # the parent's trial body
+                def outcome():
+                    cand = problem_mod.apply_update_parts(prob, dxp)
+                    chi_new, _, accept, lam_n, ni_n, retry = \
+                        retract_chi2.lm_outcome(
+                            problem_mod.robust_chi2(prob, cand).reshape(1),
+                            parent_dot().reshape(1), ok, lam, ni, chi)
+                    return cand, chi_new, accept, lam_n, ni_n, retry
+            res = outcome()
+            got = torch.stack([res[1], res[3]]).double().cpu()
+            out[f"{phase} {tag}"] = got
+            ms = chip_smoke._median_ms(torch, outcome, 5, 1, 1)
+            rc_ms = chip_smoke._median_ms(
+                torch, lambda: problem_mod.robust_chi2(
+                    prob, problem_mod.apply_update_parts(prob, dxp)), 5, 1, 1)
+            dev_ms, calls, held = chip_smoke._device_ms(torch, outcome)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                outcome()
+                torch.cuda.synchronize()
+            n_kernels = sum(
+                e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+            agree = ""
+            if ref is not None and f"{phase} {tag}" in ref:
+                tol = chip_smoke.TOL["chi2_sum"][tag]
+                rel = _rel(got, ref[f"{phase} {tag}"])
+                agree = (f"; chi2_new, lambda_new against --against: "
+                         f"max_rel_err {rel:.3e} (tol {tol:g})")
+                if not rel <= tol:
+                    failed.append(f"trial {phase}")
+                    agree += " FAILED"
+            groups = (f"{len(prob.static.vgroups)} vertex groups, "
+                      + " ".join(f"{eg.key}={eg.count}"
+                                 for eg in prob.static.egroups))
+            print(f"kernel_times trial {phase} {tag} ({route} route; "
+                  f"{groups}): {'K7' if has_k7 else 'the plain trial'}: "
+                  f"outcome {ms:.3f} ms per call (CUDA events around one "
+                  f"call, median of 5), {1e3 * dev_ms:.1f} us on the device"
+                  + ("" if held else " (host-bound)")
+                  + ("" if calls == 200 else f" ({calls} calls)")
+                  + f", {n_kernels} device kernels per call (profiler); "
+                  f"retract+chi2 {rc_ms:.3f} ms; chi2_new "
+                  f"{float(got[0]):.10g}{agree}", flush=True)
+            del prob, dxp, bp, ok, res
+            torch.cuda.empty_cache()
+        if args.save:
+            torch.save(out, args.save + ".trial.pt")
+
+    if "trial" in only:
+        trial_section()
     if args.save:
         with open(args.save, "w") as f:
             json.dump(saved, f, indent=0)

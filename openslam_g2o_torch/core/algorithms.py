@@ -26,8 +26,8 @@ import torch
 
 from openslam_g2o_torch import kernels
 from openslam_g2o_torch.core.problem import (
-    Problem, apply_update, build_dense_system, linearize, robust_chi2,
-    tangent_masks)
+    Problem, apply_update, build_dense_system, linearize, lm_trial_outcome,
+    robust_chi2, tangent_masks, tangent_parts)
 from openslam_g2o_torch.core.solvers import (
     make_chebyshev_precond, pcg_solve, solve_dense_cholesky)
 from openslam_g2o_torch.core.sparse import (
@@ -117,10 +117,9 @@ def _lm_step(prob: Problem, params: dict, lam, ni, chi_cur,
         damped.diagonal().add_(lam * free_t)
         dx, ok = solve_dense_cholesky(damped, b)
         del damped
-        cand = apply_update(work, dx)
-        chi_new, _, accept, lam, ni, retry = kernels.retract_chi2.lm_outcome(
-            robust_chi2(work, cand).reshape(1),
-            torch.dot(dx, lam * dx + b).reshape(1), ok, lam, ni, chi_cur)
+        cand, chi_new, accept, lam, ni, retry = lm_trial_outcome(
+            work, tangent_parts(work, dx), tangent_parts(work, b), ok, lam,
+            ni, chi_cur)
         best_params = _select(accept, cand, best_params)
         best_chi = torch.where(accept, chi_new, best_chi)
         trials += 1

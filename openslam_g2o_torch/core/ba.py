@@ -36,9 +36,9 @@ a fixed order, without atomics.
 Vectors are lane-major per pose group ([D, N], as K13 reads them); Hpp_d is
 formed per trial in the matching lane order (row offset + a N + n of a
 group for entry a of vertex n), so that the dense product needs no
-transposes. The candidate and its chi2 are the generic
-`apply_update_parts` + `robust_chi2`, then K7's `lm_outcome`, as on the
-dual-ELL route (core/ba_ell.py).
+transposes. The candidate, its chi2 and the LM bookkeeping are K7's, by
+core/problem.py `lm_trial_outcome`, as on the dual-ELL route
+(core/ba_ell.py) and the dense LM.
 """
 from __future__ import annotations
 
@@ -50,10 +50,10 @@ import torch
 
 from openslam_g2o_torch.core.algorithms import _select
 from openslam_g2o_torch.core.problem import (
-    Problem, apply_update_parts, linearize, robust_chi2)
+    Problem, linearize, lm_trial_outcome, robust_chi2)
 from openslam_g2o_torch.core.solvers import pcg_solve
 from openslam_g2o_torch.kernels import (
-    ba_coupling, ba_edge, ba_inv, dense_assemble, jacobi_scale, retract_chi2,
+    ba_coupling, ba_edge, ba_inv, dense_assemble, jacobi_scale,
     schur_general)
 
 __all__ = ["SchurPattern", "build_schur_pattern", "schur_build",
@@ -474,16 +474,13 @@ def schur_solve(problem: Problem, sys: dict, lam, pcg_iters: int = 250,
 
 def _trial(work: Problem, sys: dict, lam, ni, chi_cur, pcg_iters):
     """One LM trial (the trial body of openslam_g2o_tpu/core/ba.py:
-    309-322): the solve, the candidate, its chi2 and `lm_outcome`, on the
-    device. Returns (cand, chi_new, accept, lam_new, ni_new, retry)."""
+    309-322): the solve, then the candidate, its chi2 and `lm_outcome` by
+    core/problem.py `lm_trial_outcome` (K7), on the device. Returns (cand,
+    chi_new, accept, lam_new, ni_new, retry)."""
     dxT, ok, bT = _solve(work, sys, lam, pcg_iters)
-    cand = apply_update_parts(work, {k: v.T for k, v in dxT.items()})
-    chi_new = robust_chi2(work, cand)
-    dot = sum(torch.dot(d.reshape(-1), (lam * d + bT[k]).reshape(-1))
-              for k, d in dxT.items())
-    chi_new, _, accept, lam, ni, retry = retract_chi2.lm_outcome(
-        chi_new.reshape(1), dot.reshape(1), ok, lam, ni, chi_cur)
-    return cand, chi_new, accept, lam, ni, retry
+    return lm_trial_outcome(work, {k: v.T for k, v in dxT.items()},
+                            {k: v.T for k, v in bT.items()}, ok, lam, ni,
+                            chi_cur)
 
 
 def lm_schur_step(prob: Problem, pattern: SchurPattern, params: dict, lam,

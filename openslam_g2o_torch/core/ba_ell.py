@@ -44,11 +44,10 @@ import torch
 
 from openslam_g2o_torch.core.algorithms import _select
 from openslam_g2o_torch.core.problem import (
-    Problem, apply_update_parts, linearize_group, robust_chi2)
+    Problem, linearize_group, lm_trial_outcome, robust_chi2)
 from openslam_g2o_torch.core.solvers import pcg_solve, solve_dense_cholesky
 from openslam_g2o_torch.kernels import (
-    ba_coupling, ba_edge, ba_inv, ba_schur, dense_assemble, jacobi_scale,
-    retract_chi2)
+    ba_coupling, ba_edge, ba_inv, ba_schur, dense_assemble, jacobi_scale)
 
 __all__ = ["BAEllPattern", "build_ba_ell_pattern", "dense_schur_ok",
            "dense_schur_ok_sizes", "ba_ell_step", "ba_ell_optimize_fused",
@@ -354,18 +353,14 @@ def _solve(problem: Problem, pattern: BAEllPattern, sys, lam,
 
 def _trial(work: Problem, pattern: BAEllPattern, sys, lam, ni, chi_cur,
            pcg_iters, pcg_tol):
-    """One LM trial (the trial body of ba_ell.py:853-876): the solve, the
-    candidate, its chi2 and the bookkeeping of kernels/retract_chi2.py
-    `lm_outcome`, all on the device. Returns (cand, chi_new, accept,
-    lam_new, ni_new, retry)."""
+    """One LM trial (the trial body of ba_ell.py:853-876): the solve, then
+    the candidate, its chi2 and the bookkeeping by core/problem.py
+    `lm_trial_outcome` (K7), all on the device. Returns (cand, chi_new,
+    accept, lam_new, ni_new, retry)."""
     dxT, ok, bT = _solve(work, pattern, sys, lam, pcg_iters, pcg_tol)
-    cand = apply_update_parts(work, {k: v.T for k, v in dxT.items()})
-    chi_new = robust_chi2(work, cand)
-    dot = sum(torch.dot(d.reshape(-1), (lam * d + bT[k]).reshape(-1))
-              for k, d in dxT.items())
-    chi_new, _, accept, lam, ni, retry = retract_chi2.lm_outcome(
-        chi_new.reshape(1), dot.reshape(1), ok, lam, ni, chi_cur)
-    return cand, chi_new, accept, lam, ni, retry
+    return lm_trial_outcome(work, {k: v.T for k, v in dxT.items()},
+                            {k: v.T for k, v in bT.items()}, ok, lam, ni,
+                            chi_cur)
 
 
 def ba_ell_step(prob: Problem, pattern: BAEllPattern, params: dict, lam, ni,

@@ -47,12 +47,20 @@ blocks (SE3 poses); the shapes of the arguments pick the instantiation.
     ba_coupling.ba_sandwich      preconditioner blocks     (ROADMAP K13)
     schur_general.schur_edge_blocks  general Schur edge blocks (ROADMAP K14)
     edge_lin.edge_lin_*          edge linearizers          (ROADMAP K17)
+    trial.trial_retract_*        trial candidate per vertex type (ROADMAP K7)
+    trial.trial_chi2_*           trial chi2 per edge type  (ROADMAP K7)
+    trial.chi2_sum               the chi2 partials' sum    (ROADMAP K7)
 
 The `edge_lin` wrappers, one per edge type of openslam_g2o_torch.models
 (`edge_lin.LINEARIZERS`: twenty in forward mode, EDGE_SE2 and the two
 XYZ2UV projections in closed form), serve core/problem.py
 `linearize_group` on the dense routes, the general Schur path and K10's
 generic entry; a type registered at run time keeps the generic route.
+The `trial` wrappers, one per vertex type (`trial.RETRACTIONS`) and one
+per edge type (`trial.CHI2`, from K17's functors), serve every trial of
+the dense GN / LM, the dual-ELL Schur and the general Schur routes and the
+chi2 at their inits (core/problem.py `trial_candidate`,
+`robust_chi2_parts`, `robust_chi2`, `lm_trial_outcome`).
 
 The general Schur path (core/ba.py) also runs K10's `ba_lm_sums` without
 its W layout, K13's products (`ba_wtx` in one launch over all its pose
@@ -65,7 +73,7 @@ from __future__ import annotations
 from openslam_g2o_torch.kernels import (
     assemble, ba_coupling, ba_edge, ba_inv, ba_schur, cg_step, chebyshev,
     damp_chol, dense_assemble, edge_lin, edge_se2, edge_se3, gather,
-    jacobi_scale, retract_chi2, schur_general, spmv)
+    jacobi_scale, retract_chi2, schur_general, spmv, trial)
 
 # the wrapper functions, which own the launch counts (several share their
 # module's name, so the modules are what this package exports)
@@ -86,7 +94,7 @@ WRAPPERS = (
     ba_inv.ba_block_inv, ba_schur.ba_schur_dense, ba_schur.ba_schur_records,
     ba_coupling.ba_wtx,
     ba_coupling.ba_wv, ba_coupling.ba_sandwich,
-    schur_general.schur_edge_blocks, *edge_lin.WRAPPERS)
+    schur_general.schur_edge_blocks, *edge_lin.WRAPPERS, *trial.WRAPPERS)
 
 
 def launch_counts() -> dict:

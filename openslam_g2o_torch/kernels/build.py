@@ -97,6 +97,15 @@ for _name in ("se2", "se2_xy", "se2_bearing", "se2_prior", "se2_prior_xy",
               "p2mc", "p2mc_intrinsics", "p2sc", "sba_cam", "sba_scale"):
     _SIGNATURES["g2o_edge_lin_" + _name] = (_P,) * 14 + (_I,) + (_P,) * 5 + (
         _I, _P)
+    # K7's trial chi2 of the same type (trial.cu; kernels/trial.py CHI2)
+    _SIGNATURES["g2o_trial_chi2_" + _name] = (_P,) * 11 + (_I, _P, _I, _P)
+# K7's trial retraction, one per vertex type (trial.cu; kernels/trial.py
+# RETRACTIONS)
+for _name in ("se2", "point_xy", "se3", "point_xyz", "se3_expmap",
+              "sba_point_xyz", "cam", "intrinsics"):
+    _SIGNATURES["g2o_trial_retract_" + _name] = (
+        _P, _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _I, _P)
+_SIGNATURES["g2o_chi2_sum"] = (_P, _I, _P, _P)
 del _name
 
 _lib = None

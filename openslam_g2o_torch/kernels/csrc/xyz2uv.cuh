@@ -1,7 +1,8 @@
 // The projection edges of the expmap family with analytic Jacobians:
 // EDGE_PROJECT_XYZ2UV:EXPMAP (R = 2) and the stereo EDGE_PROJECT_XYZ2UVU
-// (R = 3), shared by K10's fused entry (ba_edge_blocks.cu) and K17's
-// analytic entries (edge_lin.cu).
+// (R = 3), shared by K10's fused entry (ba_edge_blocks.cu), K17's
+// analytic entries (edge_lin.cu) and, the residual alone, K7's trial chi2
+// (trial.cu).
 //
 // Follows openslam_g2o_torch/models/sba.py `_edge_xyz2uv_error`,
 // `_edge_xyz2uvu_error` and their Jacobians (openslam_g2o_tpu/models/
@@ -19,11 +20,12 @@ namespace g2o_torch {
 // One edge: the point (p0, p1, p2), the camera (t, q) at cam[0..7), the
 // camera parameters (focal, cx, cy, baseline) at camp[0..4), the
 // observation at obs[0..R); fl, fc the free flags of point and camera.
+// The residual of one edge, r = obs - (f pc.xy / pc.z + c [, f (pc.x - b)
+// / pc.z + cx]), and the point in the camera, pc = t + rotate(q, p)
 template <typename T, int R>
-__device__ __forceinline__ void xyz2uv_linearize(
+__device__ __forceinline__ void xyz2uv_residual(
     T p0, T p1, T p2, const T* __restrict__ cam, const T* __restrict__ camp,
-    const T* __restrict__ obs, T fl, T fc, T r[R], T jl[R][3],
-    T jc[R][6]) {
+    const T* __restrict__ obs, T r[R], T pc[3]) {
   const T t0 = cam[0], t1 = cam[1], t2 = cam[2];
   const T qx = cam[3], qy = cam[4], qz = cam[5], qw = cam[6];
   // pc = t + rotate(q, p): v + 2 (w (u x v) + u x (u x v)), u = q.xyz
@@ -34,6 +36,22 @@ __device__ __forceinline__ void xyz2uv_linearize(
   const T f = camp[0], cx = camp[1], cy = camp[2];
   r[0] = obs[0] - (x / z * f + cx);
   r[1] = obs[1] - (y / z * f + cy);
+  if constexpr (R == 3) r[2] = obs[2] - ((x - camp[3]) / z * f + cx);
+  pc[0] = x;
+  pc[1] = y;
+  pc[2] = z;
+}
+
+template <typename T, int R>
+__device__ __forceinline__ void xyz2uv_linearize(
+    T p0, T p1, T p2, const T* __restrict__ cam, const T* __restrict__ camp,
+    const T* __restrict__ obs, T fl, T fc, T r[R], T jl[R][3],
+    T jc[R][6]) {
+  T pc[3];
+  xyz2uv_residual<T, R>(p0, p1, p2, cam, camp, obs, r, pc);
+  const T x = pc[0], y = pc[1], z = pc[2];
+  const T qx = cam[3], qy = cam[4], qz = cam[5], qw = cam[6];
+  const T f = camp[0];
   // de/dpc = -f [[1/z, 0, -x/z^2], [0, 1/z, -y/z^2] (, [1/z, 0,
   // -(x - b)/z^2])]
   const T iz = T(1) / z;
@@ -47,7 +65,6 @@ __device__ __forceinline__ void xyz2uv_linearize(
   de[1][2] = -(-fiz * y * iz);
   if constexpr (R == 3) {
     const T b = camp[3];
-    r[2] = obs[2] - ((x - b) / z * f + cx);
     de[2][0] = -fiz;
     de[2][1] = T(0);
     de[2][2] = -(-fiz * (x - b) * iz);

@@ -1894,3 +1894,197 @@ def test_edge_lin_serves_linearize_group_on_gpu(cuda):
     lin = problem_mod.linearize(prob)
     assert not any(kernels.launch_counts().values())
     assert all(torch.isfinite(lin[k][0]).all() for k in lin)
+
+
+# ---------------------------------------------------------------------------
+# K7 on the dense and Schur routes: kernels/trial.py (csrc/trial.cu)
+# ---------------------------------------------------------------------------
+
+# a vertex type -> an edge type whose seeded group (chip_smoke.lin_group)
+# holds a table of it
+_TRIAL_VERTEX_OF = {"se2": "edge_se2", "point_xy": "edge_se2_xy",
+                    "se3": "edge_se3", "point_xyz": "edge_se3_xyz",
+                    "se3_expmap": "edge_se3_expmap",
+                    "sba_point_xyz": "edge_project_xyz2uv",
+                    "cam": "edge_sba_cam",
+                    "intrinsics": "edge_project_p2mc_intrinsics"}
+# relative tolerance of the summed chi2 and dot, and of the candidate
+# (relative to its largest entry)
+TOL_K7 = {torch.float64: 1e-12, torch.float32: 1e-5}
+
+
+def _trial_vertex_group(vname, dtype, device, seed=5):
+    """A seeded vertex group of `vname` (every 7th fixed), quaternions of
+    every third stored 3% off unit norm, SE2 angles stepped across +-pi;
+    the step and gradient as lane-major [D, N] tables seen transposed, b
+    of dx's sign (so that the dot has no cancellation)."""
+    import chip_smoke
+    from openslam_g2o_torch.core import registry
+    tname = _TRIAL_VERTEX_OF[vname]
+    args = chip_smoke.lin_group(torch, tname, 4000, torch.float64, "cpu",
+                                seed=seed)
+    s = registry.edge_type(tname).vertex_types.index(vname)
+    x, free = args[0][s].clone(), args[1][s].clone()
+    N, D = x.shape[0], registry.vertex_type(vname).tangent_dim
+    gen = torch.Generator().manual_seed(seed)
+    dx = 0.05 * torch.randn(D, N, generator=gen, dtype=torch.float64)
+    b = dx.sign() * torch.rand(D, N, generator=gen, dtype=torch.float64)
+    if vname in ("se3", "se3_expmap", "cam"):
+        x[1::3, 3:7] *= 1.03
+    if vname == "se2":
+        x[1::4, 2], dx[2, 1::4] = np.pi - 0.01, 0.05
+        x[2::4, 2], dx[2, 2::4] = -np.pi + 0.01, -0.05
+    to = lambda t: t.to(device=device, dtype=dtype).contiguous()
+    return to(x), to(free), to(dx), to(b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("vname", list(_TRIAL_VERTEX_OF))
+def test_trial_retract_matches_plain_on_gpu(cuda, dtype, vname):
+    """K7's retraction of each vertex type against its plain version: the
+    candidate (relative to its largest entry) and the summed dot partials,
+    one launch, the same bits twice, and without b the same candidate."""
+    from openslam_g2o_torch.kernels import trial
+    x, free, dxT, bT = _trial_vertex_group(vname, dtype, cuda)
+    lam = torch.tensor(0.7, dtype=dtype, device=cuda)
+    fn = trial.retraction(vname)
+    before = fn.launches
+    cand, part = fn(x, dxT.T, free, bT.T, lam)
+    assert fn.launches == before + 1
+    assert part.shape == (trial.partial_count(x.shape[0], x.device),)
+    want_c, want_p = getattr(trial, fn.__name__ + "_plain")(
+        x, dxT.T, free, bT.T, lam)
+    assert _rel(cand, want_c) < TOL_K7[dtype], vname
+    assert _rel(part.sum(), want_p.sum()) < TOL_K7[dtype], vname
+    cand2, part2 = fn(x, dxT.T, free, bT.T, lam)
+    assert torch.equal(cand2, cand) and torch.equal(part2, part)
+    cand3, none = fn(x, dxT.T.contiguous(), free)
+    assert none is None and torch.equal(cand3, cand)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_trial_chi2_every_type_matches_plain_on_gpu(cuda, dtype):
+    """K7's chi2 of every edge type on chip_smoke.py's seeded group
+    (`lin_group`: 3,000 edges, every 7th vertex fixed), without a robust
+    kernel, with Huber and with Cauchy: the summed partials against the
+    plain version, one launch, the same bits twice; chi2_sum of them
+    against torch's sum."""
+    import chip_smoke
+    from openslam_g2o_torch.kernels import trial
+    for tname in trial.CHI2:
+        for kid in (0, 1, 3):
+            params, _, indices, meas, info, delta, pdata, _ = \
+                chip_smoke.lin_group(torch, tname, 3000, dtype, cuda,
+                                     kernel_id=kid, seed=5)
+            args = (params, indices, meas, info, delta, pdata, kid)
+            fn = trial.chi2_of(tname)
+            before = fn.launches
+            part = fn(*args)
+            assert fn.launches == before + 1
+            assert part.shape == (trial.partial_count(3000, meas.device),)
+            want = getattr(trial, fn.__name__ + "_plain")(*args)
+            assert _rel(part.sum(), want.sum()) < TOL_K7[dtype], (tname, kid)
+            assert torch.equal(fn(*args), part), (tname, kid)
+            total = trial.chi2_sum(part)
+            assert total.dim() == 0
+            assert _rel(total, part.sum()) < TOL_K7[dtype]
+
+
+def test_trial_chi2_sum_is_lm_outcomes_sum_on_gpu(cuda):
+    """chi2_sum gives the bits of the chi2 that lm_outcome forms from the
+    same partials, so a route's init chi2 and a trial's compare alike."""
+    from openslam_g2o_torch.kernels import trial
+    gen = torch.Generator().manual_seed(3)
+    part = torch.rand(1237, generator=gen, dtype=torch.float64).to(cuda)
+    dot = torch.ones(3, dtype=torch.float64, device=cuda)
+    one = lambda v: torch.tensor(v, dtype=torch.float64, device=cuda)
+    chi_new = retract_chi2.lm_outcome(
+        part, dot, torch.tensor(True, device=cuda), one(1.0), one(2.0),
+        one(1e9))[0]
+    assert torch.equal(trial.chi2_sum(part), chi_new)
+
+
+@pytest.mark.parametrize("route", ["lm", "gn", "ell", "general"])
+def test_trial_routes_on_gpu_never_reach_the_plain_trial(cuda, route,
+                                                         monkeypatch):
+    """The dense LM and GN on a small 2D world, LevenbergMarquardtSchurELL
+    on a small BAL problem and LevenbergMarquardtSchur on the PSI2UV scene,
+    float64 on the card: no built-in type reaches the plain retraction or
+    chi2 (both raise here), K7 launches for every vertex and edge group,
+    and the chi2 trajectory equals the CPU run's to rtol 1e-9."""
+    from openslam_g2o_torch.core import ba, ba_ell
+    from openslam_g2o_torch.kernels import trial
+    if route in ("lm", "gn"):
+        g, _ = Simulator2D(n_landmarks=40, seed=4, world_size=12.0) \
+            .simulate(120)
+        make = lambda dev: g.compile(device=dev)
+        alg = {"lm": algorithms.LevenbergMarquardt,
+               "gn": algorithms.GaussNewton}[route]
+    elif route == "ell":
+        make = lambda dev: _ba_problem(dev, torch.float64, n_cams=24,
+                                       n_points=600)
+        alg = lambda: ba_ell.LevenbergMarquardtSchurELL(pcg_iters=40,
+                                                        pcg_tol=1e-6)
+    else:
+        make = lambda dev: _general_scene(dev, torch.float64, "psi2uv")
+        alg = lambda: ba.LevenbergMarquardtSchur(pcg_iters=60)
+    runs = {}
+    for device in ("cpu", cuda):
+        prob = make(device)
+        if device != "cpu":
+            def refuse(*a, **k):
+                raise AssertionError("the plain trial ran on the card")
+            monkeypatch.setattr(trial, "retract_plain", refuse)
+            monkeypatch.setattr(trial, "chi2_plain", refuse)
+        kernels.reset_launch_counts()
+        _, stats = algorithms.optimize(prob, alg(), iterations=4)
+        runs[str(device)] = ([s["chi2"] for s in stats],
+                             kernels.launch_counts(), prob)
+    chi_g, counts, prob = runs["cuda"]
+    np.testing.assert_allclose(chi_g, runs["cpu"][0], rtol=1e-9)
+    assert set(runs["cpu"][1].values()) == {0}
+    for g_ in prob.static.vgroups:
+        assert counts[trial.RETRACTIONS[g_.vtype.name]] >= 4, g_.name
+    for eg in prob.static.egroups:
+        assert counts[trial.CHI2[eg.etype.name]] >= 4, eg.key
+    assert counts["chi2_sum"] >= 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_trial_kernels_give_the_lm_pcg_k7_bits_on_gpu(cuda, dtype):
+    """K7's trial kernels of VERTEX_SE2 / EDGE_SE2 and VERTEX_SE3:QUAT /
+    EDGE_SE3:QUAT give the bits of the LM-PCG path's own K7 kernels
+    (retract_chi2, retract_se3 + se3_edge_chi2) on the same inputs: the
+    candidate, the dot partials and the chi2 partials."""
+    from openslam_g2o_torch.apps.simulator import create_sphere
+    from openslam_g2o_torch.kernels import trial
+    gen = torch.Generator().manual_seed(1)
+    lam = torch.tensor(0.3, dtype=dtype, device=cuda)
+    prob, _ = synthetic_pose_graph_2d(n_poses=5000, grid=50, dtype=dtype,
+                                      device=cuda)
+    sphere, _ = create_sphere(n_laps=20, n_per_lap=50, radius=20.0, seed=1)
+    for prob_, g in ((prob, "se2"), (sphere.compile(dtype=dtype,
+                                                    device=cuda), "se3")):
+        x, free = prob_.params[g], prob_.free[g]
+        D, N = (3 if g == "se2" else 6), x.shape[0]
+        dxT = (0.01 * torch.randn(D, N, generator=gen,
+                                  dtype=torch.float64)).to(cuda, dtype)
+        bT = torch.randn(D, N, generator=gen, dtype=torch.float64).to(
+            cuda, dtype)
+        ea = prob_.edges["edge_" + g]
+        if g == "se2":
+            want = retract_chi2.retract_chi2(
+                x, dxT, free, bT, lam, [(ea.indices[0], ea.indices[1],
+                                         ea.measurement, ea.information,
+                                         ea.delta, 0)])
+        else:
+            cand, part = retract_chi2.retract_se3(x, dxT, free, bT, lam)
+            want = (cand, part, retract_chi2.se3_edge_chi2(
+                cand, ea.indices[0], ea.indices[1], ea.measurement,
+                ea.information, ea.delta, 0))
+        cand, part = trial.retraction(g)(x, dxT.T, free, bT.T, lam)
+        chi = trial.chi2_of("edge_" + g)(
+            (cand, cand), ea.indices, ea.measurement, ea.information,
+            ea.delta, (), 0)
+        for got, w in zip((cand, part, chi), want, strict=True):
+            assert torch.equal(got, w), g
