@@ -37,11 +37,14 @@ does not, at the same shapes:
   the type's torch form there (torch.func.jvp, or the analytic Jacobian
   in torch). The time per call (CUDA events around one call, median of
   5), and each edge group with a K17 wrapper in the tree by device time
-  beside its bound. --save also
-  writes the residuals, Jacobians and rho' to FILE.lin.pt, and --against
-  holds this tree's against that file's, relative to the largest entry of
-  each output, to chip_smoke.py's K17 tolerance (1e-10 float64, 2e-4
-  float32).
+  beside its bound; then every K17 type on chip_smoke.py's seeded group
+  of 50,000 edges (`lin_group`, phase 3's rows), in float32 and float64.
+  --save also writes the residuals, Jacobians and rho' of the scenes to
+  FILE.lin.pt, and --against holds this tree's against that file's,
+  relative to the largest entry of each output, to chip_smoke.py's K17
+  tolerance (1e-10 float64, 2e-4 float32); the digests of every group's
+  outputs (the scenes' and the seeded ones) go into FILE with the other
+  sections' and are compared the same way.
 * trial: one trial's outcome (candidate, dot product, robust chi2 and
   lm_outcome) on the dense route's worlds of phases 4d, 4f and 4o
   (float64, the step of LM's first trial), the dual-ELL routes of 4g and
@@ -349,6 +352,27 @@ def main(argv=None) -> int:
                 torch.cuda.empty_cache()
 
     # -- the linearizers ------------------------------------------------------
+    def lin_group_line(fn, tname, largs, tag, key, shape, out):
+        """One K17 wrapper call on one edge group: its device time beside
+        the bound, and the SHA-256 digests of its residual, Jacobians and
+        rho' (`out`, the linearization of that group) for --save /
+        --against."""
+        resid, jacs, rho1 = out
+        digests = [_digest(t) for t in (resid, *jacs, rho1)]
+        key = f"{fn.__name__} {key} {tag}"
+        saved[key] = digests
+        bits = ""
+        if against is not None and key in against:
+            bits = f"; the bits of --against: {digests == against[key]}"
+        us, calls, held = chip_smoke._device_ms(
+            torch, lambda fn=fn, a=largs: fn(*a))
+        nbytes, _ = chip_smoke.lin_bytes_flops(tname, largs)
+        bound = 1e6 * nbytes / chip_smoke.HBM_BYTES_PER_S
+        print(f"kernel_times {fn.__name__} {tag} {shape}: "
+              f"{1e3 * us:.2f} us" + ("" if held else " (host-bound)")
+              + ("" if calls == 200 else f" ({calls} calls)")
+              + f"; bound {bound:.2f} us{bits}", flush=True)
+
     if "lin" in only:
         try:
             from openslam_g2o_torch.kernels import edge_lin
@@ -400,16 +424,24 @@ def main(argv=None) -> int:
                 fn = edge_lin.linearizer(eg.etype.name)
                 if fn is None:                   # a type without K17 there
                     continue
-                us, calls, held = chip_smoke._device_ms(
-                    torch, lambda fn=fn, a=largs: fn(*a))
-                nbytes, _ = chip_smoke.lin_bytes_flops(eg.etype.name, largs)
-                bound = 1e6 * nbytes / chip_smoke.HBM_BYTES_PER_S
-                print(f"kernel_times {fn.__name__} {tag} E={eg.count}: "
-                      f"{1e3 * us:.2f} us" + ("" if held else " (host-bound)")
-                      + ("" if calls == 200 else f" ({calls} calls)")
-                      + f"; bound {bound:.2f} us", flush=True)
+                lin_group_line(fn, eg.etype.name, largs, tag,
+                               f"{phase} {eg.key}", f"E={eg.count}",
+                               lin[eg.key])
             del prob, lin, outs
             torch.cuda.empty_cache()
+        # every type on chip_smoke.py's seeded group (phase 3's K17 rows)
+        for dt in dtypes if edge_lin is not None else ():
+            tag = tag_of(dt)
+            for tname in chip_smoke.LIN_VALUE_OPS:
+                fn = edge_lin.linearizer(tname)
+                if fn is None:
+                    continue
+                largs = chip_smoke.lin_group(
+                    torch, tname, chip_smoke.LIN_GROUP_EDGES, dt, dev)
+                lin_group_line(fn, tname, largs, tag, f"seeded {tname}",
+                               f"E={chip_smoke.LIN_GROUP_EDGES} seeded group",
+                               fn(*largs))
+                del largs
         if args.save:
             torch.save(lin_out, args.save + ".lin.pt")
     # -- K7: one trial's outcome --------------------------------------------

@@ -83,12 +83,16 @@ class LandmarkEdges:
 class CrossEntry:
     """The W entries of one (edge group, pose slot): entry e sits at flat
     slot lm_pos[e] of its pose group's landmark-major table and at
-    position pose_pos[e] of its CSR order (int32 [E] on the device)."""
+    position pose_pos[e] of its CSR order; lm_order and pose_order are the
+    orders K14 writes the two layouts in (`schur_general.edge_orders`).
+    int32 [E] on the device."""
     egkey: str
     slot: int
     group: str
     lm_pos: torch.Tensor
     pose_pos: torch.Tensor
+    lm_order: torch.Tensor
+    pose_order: torch.Tensor
 
 
 @dataclass
@@ -239,7 +243,9 @@ def build_schur_pattern(problem: Problem) -> SchurPattern:
         tables.append(PoseGroupTables(g.name, g.tangent_dim, g.count,
                                       g.offset, i32(lm_pose), rows))
     cross = tuple(CrossEntry(key, t, gname, i32(positions[i][0]),
-                             i32(positions[i][1]))
+                             i32(positions[i][1]),
+                             *map(i32, schur_general.edge_orders(
+                                 *positions[i])))
                   for i, (key, t, gname) in enumerate(cross_meta))
     hpp_pattern = None
     if hpp and dev.type == "cuda":
@@ -317,7 +323,7 @@ def schur_build(problem: Problem, params: Optional[dict] = None,
                 resid, jl, jacs[ce.slot].contiguous(), rho1, ea.information,
                 streams.hll if first else None, streams.bl if first else None,
                 le.offset, W_lm[ce.group], ce.lm_pos, W_pose[ce.group],
-                ce.pose_pos)
+                ce.pose_pos, ce.lm_order, ce.pose_order)
             first = False
         if first:                        # a landmark edge without a pose
             schur_general.schur_edge_blocks(

@@ -85,7 +85,7 @@ _SIGNATURES = {
     "g2o_ba_records": (_P, _L, _I, _I, _P, _P),
     "g2o_ba_schur": (_P,) * 9 + (_I,) * 5 + (_P, _P),
     "g2o_schur_edge": (_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _P, _P,
-                       _P, _L, _P, _P, _L, _P, _P),
+                       _P, _P, _L, _P, _P, _P, _L, _P, _I, _P),
 }
 # K17: one signature for every edge type's entry (three slots and two
 # parameter slots, unused ones null); the names are kernels/edge_lin.py's

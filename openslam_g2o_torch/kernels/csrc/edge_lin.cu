@@ -15,35 +15,44 @@
 // so K15, K14 and K10's generic entry read them as before.
 //
 // The edge functors (each type's retractions and error) are in
-// edge_functors.cuh, which K7's trial chi2 (trial.cu) shares. Two kernels,
-// correct first:
+// edge_functors.cuh, which K7's trial chi2 (trial.cu) shares. Two kernels:
 //  * edge_lin_kernel (forward mode; every type but the three below): a
-//    thread per (edge, pass). Pass 0 (blockIdx.y = 0) evaluates the error
-//    at the stored parameters, e^T Omega e and rho'. Every other pass takes
-//    up to kW tangent directions of one slot: it retracts that slot's
-//    vertex by a Jet<T, W> whose derivative k is the one-hot direction
-//    c0 + k, retracts every other slot by a plain zero (jacfwd retracts
-//    them too, which renormalizes stored quaternions and wraps angles) and
-//    evaluates the error through the same templated code, so that the
-//    derivative follows what the error computes: renormalizations, the
-//    qw >= 0 flip, the compact quaternion's clamp, the expmap's and the
-//    logarithm's small-angle branches and the angle wrap, as jvp follows
-//    them. kW = 6 in float32 and 3 in float64, to bound registers.
+//    block per tile of 32 consecutive edges. The block stages the tile in
+//    shared memory once, a thread per slot and edge: the vertex index and
+//    free flag, the gathered vertex parameters, and the vertex retracted
+//    by a plain zero (jacfwd retracts every slot, which renormalizes
+//    stored quaternions and wraps angles); the measurement and parameter
+//    data come as contiguous runs. Its warps then run the tile's jobs from
+//    that copy, a lane an edge; LinPlan spreads the jobs over the warps,
+//    costliest first onto the least loaded, so that their loads come out
+//    even. The residual job evaluates the error at the stored parameters,
+//    e^T Omega e and rho'. Every other job is a pass over up to 6 tangent
+//    directions of one slot: it retracts that slot's vertex by a
+//    Jet<T, 6> whose derivative k is the one-hot direction c0 + k, takes
+//    every other slot at its staged retraction by zero, and evaluates the
+//    error through the same templated code, so that the derivative follows
+//    what the error computes: renormalizations, the qw >= 0 flip, the
+//    compact quaternion's clamp, the expmap's and the logarithm's
+//    small-angle branches and the angle wrap, as jvp follows them. The
+//    residual and each slot's Jacobian [32, D, Ds] collect in shared
+//    memory in global memory's layout and leave as contiguous runs: whole
+//    128-byte lines.
 //  * edge_lin_analytic_kernel (EDGE_SE2, EDGE_PROJECT_XYZ2UV:EXPMAP,
 //    EDGE_PROJECT_XYZ2UVU:EXPMAP, whose JAX types carry a closed-form
 //    Jacobian): a thread per edge writes the residual, the closed form
 //    (se2_edge.cuh, the code of kernel B; xyz2uv.cuh, the code of K10's
-//    fused entry) and rho'.
-// Every input is read from global memory by the thread that needs it (no
-// shared-memory staging) and every output written once.
+//    fused entry) and rho', reading its inputs from global memory.
 //
-// Bound: memory. A pass reads the edge's vertex parameters, measurement
-// and parameter data; pass 0 also Omega, delta and writes D + 1 values;
-// the passes write the D x sum(Ds) Jacobian entries once. At the PSI2UV
-// scene's 80,000 edges in float32 that is about 19 MB, 5.6 us at 3.35
-// TB/s. The Jet arithmetic of the expmap retraction and the repeated
-// gathers of the passes (each pass reads the edge's vertices again) are
-// what a faster design would trim.
+// Bound: memory. An edge's vertex parameters, measurement, parameter data,
+// Omega and delta are read, and D + 1 values and the D x sum(Ds) Jacobian
+// entries written, once. At the PSI2UV scene's 80,000 edges in float32
+// that is about 19 MB, 5.6 us at 3.35 TB/s. The forward mode's Jet
+// arithmetic (the expmap retraction and logarithm on 6 directions) is
+// what keeps the kernel above it. Measured and dropped (PERF.md §6):
+// a warp a job whatever its cost (idle light warps hold registers), two
+// tiles a block, passes of 1-3 directions (more value work; 1 and 2 also
+// other bits), the retractions by zero recomputed in every pass, and
+// small groups writing their Jacobians straight from the jobs.
 #include "edge_functors.cuh"
 
 namespace g2o_torch {
@@ -66,40 +75,173 @@ struct LinArgs {
   int n_edges;
 };
 
-// Directions per pass: a Jet of 6 floats, or of 3 doubles (a 6-wide Jet of
-// doubles through the expmap retraction holds too many registers).
-template <typename T>
-struct LinChunk { static constexpr int kW = 6; };
-template <>
-struct LinChunk<double> { static constexpr int kW = 3; };
+// The forward kernel's shape: a tile of kLinTile consecutive edges a
+// block, one a lane of each warp; kLinW tangent directions a Jacobian pass
+// (a Jet of 6: in float64 too, whose 6-wide passes measured faster than
+// 3-wide ones and gave the same bits); at most kLinMaxWarps warps a block.
+constexpr int kLinTile = 32;
+constexpr int kLinW = 6;
+constexpr int kLinMaxWarps = 8;
 
-// ---------------------------------------------------------------------------
-// The kernels
-// ---------------------------------------------------------------------------
+template <class F>
+__host__ __device__ constexpr int slot_offset(int s) {   // of slot s's values
+  int n = 0;
+  for (int k = 0; k < s; ++k) n += F::used(k);
+  return n;
+}
 
-// x[s] <- the slot's vertex retracted by zero, for every slot but MOVED
-template <class F, int S, int MOVED, typename T>
-__device__ __forceinline__ void rest_slot(const T (&x)[kMaxSlots][kMaxUsed],
-                                          T (&rest)[kMaxSlots][kMaxUsed]) {
-  if constexpr (S < F::kSlots && S != MOVED) {
-    T zero[6];
+template <class F>
+__host__ __device__ constexpr int jac_offset(int s) {    // per edge
+  int n = 0;
+  for (int k = 0; k < s; ++k) n += F::kD * F::dim(k);
+  return n;
+}
+
+template <class F>
+__host__ __device__ constexpr int jac_passes() {
+  int n = 0;
+  for (int s = 0; s < F::kSlots; ++s) n += (F::dim(s) + kLinW - 1) / kLinW;
+  return n;
+}
+
+// Pass j of an edge (0: the residual; j > 0: Jacobian pass j - 1, counted
+// slot by slot, kLinW directions at a time): its slot, first direction and
+// width (the residual's slot is -1)
+struct PassOf {
+  int slot, c0, w;
+};
+
+template <class F>
+__host__ __device__ constexpr PassOf pass_of(int j) {
+  if (j == 0) return PassOf{-1, 0, 0};
+  int k = 1;
+  for (int s = 0; s < F::kSlots; ++s)
+    for (int c0 = 0; c0 < F::dim(s); c0 += kLinW, ++k)
+      if (k == j)
+        return PassOf{s, c0, F::dim(s) - c0 < kLinW ? F::dim(s) - c0 : kLinW};
+  return PassOf{-1, 0, 0};
+}
+
+// The tile's jobs, 1 + passes of them (job q: the residual for q = 0, else
+// Jacobian pass q - 1), spread over the block's warps by longest job first
+// onto the least loaded warp. A pass of w directions costs about 1 + w
+// evaluations of the error, the residual one: the warps' loads come out
+// even, so that no warp holds its registers idle while the others run the
+// heavy passes.
+template <class F>
+struct LinPlan {
+  static constexpr int kJobs = 1 + jac_passes<F>();
+
+  __host__ __device__ static constexpr int cost(int q) {
+    return 1 + pass_of<F>(q).w;
+  }
+  __host__ __device__ static constexpr int warps() {
+    int total = 0, most = 0;
+    for (int q = 0; q < kJobs; ++q) {
+      total += cost(q);
+      most = cost(q) > most ? cost(q) : most;
+    }
+    const int nw = (total + most - 1) / most;
+    return nw < kLinMaxWarps ? nw : kLinMaxWarps;
+  }
+  // the warp of job q
+  __host__ __device__ static constexpr int warp_of(int q) {
+    int load[kLinMaxWarps] = {}, owner = 0;
+    bool done[kJobs] = {};
+    for (int n = 0; n < kJobs; ++n) {
+      int best = -1;                       // the costliest job left
+      for (int r = 0; r < kJobs; ++r)
+        if (!done[r] && (best < 0 || cost(r) > cost(best))) best = r;
+      int w = 0;                           // the least loaded warp
+      for (int v = 1; v < warps(); ++v)
+        if (load[v] < load[w]) w = v;
+      done[best] = true;
+      load[w] += cost(best);
+      if (best == q) owner = w;
+    }
+    return owner;
+  }
+};
+
+// One tile in shared memory, edge on the fastest axis of every staged
+// value (a lane reads its edge's values without bank conflicts): the
+// slots' gathered parameters x, their retractions by zero (rest), the
+// measurement, the parameter data, the free flags, and the outputs
+// (residual [E, D], each slot's Jacobian [E, D, Ds]) in the layout of
+// global memory, so that each is one contiguous run there.
+template <class F, typename T>
+struct LinTile {
+  static constexpr int kUsed = slot_offset<F>(F::kSlots);
+  T x[kUsed][kLinTile];
+  T rest[kUsed][kLinTile];
+  T meas[F::kMeas][kLinTile];
+  T pd[pd_size<F>()][kLinTile];
+  T fm[kMaxSlots][kLinTile];
+  T resid[kLinTile * F::kD];
+  T jac[kLinTile * jac_offset<F>(F::kSlots)];
+};
+
+// slot S's values of edge i, from a staged table
+template <class F, int S, typename T>
+__device__ __forceinline__ void tile_slot(const T (*src)[kLinTile], int i,
+                                          T (&dst)[kMaxUsed]) {
 #pragma unroll
-    for (int k = 0; k < 6; ++k) zero[k] = T(0);
-    F::template retract<S>(x[S], zero, rest[S]);
+  for (int k = 0; k < F::used(S); ++k)
+    dst[k] = src[slot_offset<F>(S) + k][i];
+}
+
+// x[S] -> rest: the slot's vertex retracted by zero
+template <class F, int S, typename T>
+__device__ __forceinline__ void retract_zero(const T (&x)[kMaxUsed],
+                                             T (&rest)[kMaxUsed]) {
+  T zero[6];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) zero[k] = T(0);
+  F::template retract<S>(x, zero, rest);
+}
+
+// Slot S of edge i (edge e0 + i): its vertex index and free flag, its
+// parameters and its retraction by zero
+template <class F, int S, typename T>
+__device__ __forceinline__ void stage_slot(const LinArgs<T>& a,
+                                           LinTile<F, T>& t, long long e0,
+                                           int i) {
+  if constexpr (S < F::kSlots) {
+    const long long v = a.idx[S][e0 + i];
+    t.fm[S][i] = a.free_mask[S][v];
+    T x[kMaxUsed], r[kMaxUsed];
+#pragma unroll
+    for (int k = 0; k < F::used(S); ++k) {
+      x[k] = a.params[S][v * F::stride(S) + k];
+      t.x[slot_offset<F>(S) + k][i] = x[k];
+    }
+    retract_zero<F, S>(x, r);
+#pragma unroll
+    for (int k = 0; k < F::used(S); ++k)
+      t.rest[slot_offset<F>(S) + k][i] = r[k];
   }
 }
 
-// Columns C0 .. C0+W-1 of slot S's Jacobian of one edge
+// rest[O] of a pass on slot S: slot O at its retraction by zero
+template <class F, int S, int O, typename T>
+__device__ __forceinline__ void other_slot(const LinTile<F, T>& t, int i,
+                                           T (&rest)[kMaxUsed]) {
+  if constexpr (O < F::kSlots && O != S) tile_slot<F, O>(t.rest, i, rest);
+}
+
+// Columns C0 .. C0+W-1 of slot S's Jacobian of edge i, into the tile: the
+// slot's vertex retracted by a Jet of the one-hot directions C0 + m, every
+// other slot at its retraction by zero
 template <class F, typename T, int S, int C0, int W>
-__device__ __forceinline__ void jac_pass(const LinArgs<T>& a, long long e,
-                                         const T (&x)[kMaxSlots][kMaxUsed],
+__device__ __forceinline__ void jac_pass(LinTile<F, T>& t, int i,
                                          const T* meas, const T* pd) {
   typedef Jet<T, W> J;
   constexpr int Ds = F::dim(S);
-  T rest[kMaxSlots][kMaxUsed];
-  rest_slot<F, 0, S>(x, rest);
-  rest_slot<F, 1, S>(x, rest);
-  rest_slot<F, 2, S>(x, rest);
+  T x[kMaxUsed], rest[kMaxSlots][kMaxUsed];
+  tile_slot<F, S>(t.x, i, x);
+  other_slot<F, S, 0>(t, i, rest[0]);
+  other_slot<F, S, 1>(t, i, rest[1]);
+  other_slot<F, S, 2>(t, i, rest[2]);
   J step[Ds], moved[kMaxUsed];
 #pragma unroll
   for (int k = 0; k < Ds; ++k) {
@@ -107,7 +249,7 @@ __device__ __forceinline__ void jac_pass(const LinArgs<T>& a, long long e,
 #pragma unroll
     for (int m = 0; m < W; ++m) step[k].d[m] = k == C0 + m ? T(1) : T(0);
   }
-  F::template retract<S>(x[S], step, moved);
+  F::template retract<S>(x, step, moved);
   J err[F::kD];
   if constexpr (S == 0)
     call_error<F>(moved, rest[1], rest[2], meas, pd, err);
@@ -115,45 +257,19 @@ __device__ __forceinline__ void jac_pass(const LinArgs<T>& a, long long e,
     call_error<F>(rest[0], moved, rest[2], meas, pd, err);
   else
     call_error<F>(rest[0], rest[1], moved, meas, pd, err);
-  const T fm = a.free_mask[S][a.idx[S][e]];
-  T* out = a.jac[S] + e * (F::kD * Ds);
+  const T fm = t.fm[S][i];
+  T* out = t.jac + kLinTile * jac_offset<F>(S) + i * (F::kD * Ds);
 #pragma unroll
   for (int r = 0; r < F::kD; ++r)
 #pragma unroll
     for (int m = 0; m < W; ++m) out[r * Ds + C0 + m] = err[r].d[m] * fm;
 }
 
-// Pass `pass` of the Jacobian passes, counted from (S, C0)
-template <class F, typename T, int S, int C0>
-__device__ __forceinline__ void jac_dispatch(
-    int pass, const LinArgs<T>& a, long long e,
-    const T (&x)[kMaxSlots][kMaxUsed], const T* meas, const T* pd) {
-  if constexpr (S < F::kSlots) {
-    constexpr int Ds = F::dim(S), kW = LinChunk<T>::kW;
-    constexpr int W = Ds - C0 < kW ? Ds - C0 : kW;
-    if (pass == 0) {
-      jac_pass<F, T, S, C0, W>(a, e, x, meas, pd);
-      return;
-    }
-    if constexpr (C0 + W < Ds)
-      jac_dispatch<F, T, S, C0 + W>(pass - 1, a, e, x, meas, pd);
-    else
-      jac_dispatch<F, T, S + 1, 0>(pass - 1, a, e, x, meas, pd);
-  }
-}
-
-template <class F, typename T>
-constexpr int jac_passes() {
-  int n = 0;
-  for (int s = 0; s < F::kSlots; ++s)
-    n += (F::dim(s) + LinChunk<T>::kW - 1) / LinChunk<T>::kW;
-  return n;
-}
-
-// The residual, e^T Omega e and rho' of edge e
+// The residual, e^T Omega e and rho' of edge e: the residual into `out`
 template <class F, typename T>
 __device__ __forceinline__ void store_residual(const LinArgs<T>& a,
-                                               long long e, const T* err) {
+                                               long long e, const T* err,
+                                               T* out) {
   const T* om = a.info + e * (F::kD * F::kD);
   T e2 = T(0);
 #pragma unroll
@@ -161,27 +277,147 @@ __device__ __forceinline__ void store_residual(const LinArgs<T>& a,
 #pragma unroll
     for (int c = 0; c < F::kD; ++c) e2 += err[r] * om[r * F::kD + c] * err[c];
 #pragma unroll
-  for (int r = 0; r < F::kD; ++r) a.resid[e * F::kD + r] = err[r];
+  for (int r = 0; r < F::kD; ++r) out[r] = err[r];
   a.rho1[e] = robust_rho1<T>(a.kernel_id, e2, a.delta[e]);
 }
 
+// Job Q of the tile, on lane i (the caller's warp owns it)
+template <class F, typename T, int Q>
+__device__ __forceinline__ void run_job(const LinArgs<T>& a,
+                                        LinTile<F, T>& t, long long e0,
+                                        int i) {
+  constexpr PassOf pass = pass_of<F>(Q);
+  T meas[F::kMeas], pd[pd_size<F>()];
+#pragma unroll
+  for (int k = 0; k < F::kMeas; ++k) meas[k] = t.meas[k][i];
+#pragma unroll
+  for (int k = 0; k < F::kPdata + F::kPdata2; ++k) pd[k] = t.pd[k][i];
+  if constexpr (pass.slot < 0) {
+    // the residual at the stored parameters, e^T Omega e, rho'
+    T x[kMaxSlots][kMaxUsed], err[F::kD];
+    tile_slot<F, 0>(t.x, i, x[0]);
+    if constexpr (F::kSlots > 1) tile_slot<F, 1>(t.x, i, x[1]);
+    if constexpr (F::kSlots > 2) tile_slot<F, 2>(t.x, i, x[2]);
+    call_error<F>(x[0], x[1], x[2], meas, pd, err);
+    store_residual<F>(a, e0 + i, err, t.resid + i * F::kD);
+  } else {
+    jac_pass<F, T, pass.slot, pass.c0, pass.w>(t, i, meas, pd);
+  }
+}
+
+template <class F, typename T, int Q>
+__device__ __forceinline__ void run_jobs(const LinArgs<T>& a,
+                                         LinTile<F, T>& t, long long e0,
+                                         int i, int warp) {
+  if constexpr (Q < LinPlan<F>::kJobs) {
+    constexpr int w = LinPlan<F>::warp_of(Q);
+    if (warp == w) run_job<F, T, Q>(a, t, e0, i);
+    run_jobs<F, T, Q + 1>(a, t, e0, i, warp);
+  }
+}
+
+// The tile's run src[0..count) of W values an edge (count <= kLinTile W)
+// into its staged table, dst[k % W][k / W] = src[k]: consecutive threads
+// on consecutive values, every load of a thread issued before its stores
+template <int W, int NT, typename T>
+__device__ __forceinline__ void stage_run(T (*dst)[kLinTile],
+                                          const T* __restrict__ src,
+                                          int count) {
+  constexpr int kPer = (kLinTile * W + NT - 1) / NT;
+  T v[kPer];
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int k = threadIdx.x + r * NT;
+    if (k < count) v[r] = src[k];
+  }
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int k = threadIdx.x + r * NT;
+    if (k < count) dst[k % W][k / W] = v[r];
+  }
+}
+
+// The tile's output src[0..count) (count <= kLinTile W) -> dst, the same
+// way round: consecutive threads on consecutive values, the shared-memory
+// loads of a thread before its stores
+template <int W, int NT, typename T>
+__device__ __forceinline__ void store_run(T* __restrict__ dst, const T* src,
+                                          int count) {
+  constexpr int kPer = (kLinTile * W + NT - 1) / NT;
+  T v[kPer];
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int k = threadIdx.x + r * NT;
+    if (k < count) v[r] = src[k];
+  }
+#pragma unroll
+  for (int r = 0; r < kPer; ++r) {
+    const int k = threadIdx.x + r * NT;
+    if (k < count) dst[k] = v[r];
+  }
+}
+
+// slot S's Jacobian tile -> global memory
+template <class F, int S, int NT, typename T>
+__device__ __forceinline__ void store_jac(const LinArgs<T>& a,
+                                          const LinTile<F, T>& t,
+                                          long long e0, int n) {
+  if constexpr (S < F::kSlots) {
+    constexpr int W = F::kD * F::dim(S);
+    store_run<W, NT>(a.jac[S] + e0 * W, t.jac + kLinTile * jac_offset<F>(S),
+                     n * W);
+  }
+}
+
+// Forward mode: a block per tile of kLinTile consecutive edges. Its
+// threads stage the tile (a thread per slot and edge: the vertex index and
+// free flag, the gathered parameters and the retraction by zero; the
+// measurement and parameter data as contiguous runs); its warps then run
+// the tile's jobs from that copy, a lane an edge, as LinPlan spreads them:
+// the residual at the stored parameters with e^T Omega e and rho', and
+// every Jacobian pass of up to kLinW directions of one slot into the
+// tile's Jacobians; last, every output leaves as contiguous runs.
 template <class F, typename T>
-__global__ void __launch_bounds__(kLinThreads)
+__global__ void __launch_bounds__(32 * LinPlan<F>::warps())
 edge_lin_kernel(const LinArgs<T> a) {
   static_assert(pd_size<F>() <= kMaxPdata, "parameter data too wide");
-  const long long e =
-      blockIdx.x * static_cast<long long>(kLinThreads) + threadIdx.x;
-  if (e >= a.n_edges) return;
-  T x[kMaxSlots][kMaxUsed], meas[F::kMeas], pd[pd_size<F>()];
-  load_edge<F>(a, e, x, meas, pd);
-  if (blockIdx.y > 0) {
-    jac_dispatch<F, T, 0, 0>(blockIdx.y - 1, a, e, x, meas, pd);
-    return;
+  constexpr int NT = 32 * LinPlan<F>::warps();
+  __shared__ LinTile<F, T> t;
+  const long long e0 = static_cast<long long>(blockIdx.x) * kLinTile;
+  const int n = static_cast<int>(
+      a.n_edges - e0 < kLinTile ? a.n_edges - e0 : kLinTile);
+  for (int k = threadIdx.x; k < F::kSlots * kLinTile; k += NT) {
+    const int s = k / kLinTile, i = k - s * kLinTile;
+    if (i >= n) continue;
+    if (s == 0)
+      stage_slot<F, 0>(a, t, e0, i);
+    else if (s == 1)
+      stage_slot<F, 1>(a, t, e0, i);
+    else
+      stage_slot<F, 2>(a, t, e0, i);
   }
-  // pass 0: the residual at the stored parameters, e^T Omega e, rho'
-  T err[F::kD];
-  call_error<F>(x[0], x[1], x[2], meas, pd, err);
-  store_residual<F>(a, e, err);
+  stage_run<F::kMeas, NT>(t.meas, a.meas + e0 * F::kMeas, n * F::kMeas);
+  if constexpr (F::kPdata > 0)
+    stage_run<F::kPdata, NT>(t.pd, a.pdata[0] + e0 * F::kPdata,
+                             n * F::kPdata);
+  if constexpr (F::kPdata2 > 0)
+    stage_run<F::kPdata2, NT>(t.pd + F::kPdata,
+                              a.pdata[1] + e0 * F::kPdata2, n * F::kPdata2);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  if (lane < n) run_jobs<F, T, 0>(a, t, e0, lane, threadIdx.x >> 5);
+  __syncthreads();
+  store_run<F::kD, NT>(a.resid + e0 * F::kD, t.resid, n * F::kD);
+  store_jac<F, 0, NT>(a, t, e0, n);
+  store_jac<F, 1, NT>(a, t, e0, n);
+  store_jac<F, 2, NT>(a, t, e0, n);
+}
+
+template <class F, typename T>
+int launch_forward(const LinArgs<T>& a, cudaStream_t stream) {
+  edge_lin_kernel<F, T><<<(a.n_edges + kLinTile - 1) / kLinTile,
+                          32 * LinPlan<F>::warps(), 0, stream>>>(a);
+  return launch_status();
 }
 
 // The closed forms: a thread per edge, two slots
@@ -197,7 +433,7 @@ edge_lin_analytic_kernel(const LinArgs<T> a) {
   T err[F::kD], j0[F::kD][D0], j1[F::kD][D1];
   F::lin(x[0], x[1], meas, pd, a.free_mask[0][a.idx[0][e]],
          a.free_mask[1][a.idx[1][e]], err, j0, j1);
-  store_residual<F>(a, e, err);
+  store_residual<F>(a, e, err, a.resid + e * F::kD);
   T* out0 = a.jac[0] + e * (F::kD * D0);
   T* out1 = a.jac[1] + e * (F::kD * D1);
 #pragma unroll
@@ -223,11 +459,10 @@ int launch_edge_lin(const T* p0, const T* f0, const int* i0, const T* p1,
   const unsigned blocks = (n_edges + kLinThreads - 1) / kLinThreads;
   if constexpr (F::kAnalytic) {
     edge_lin_analytic_kernel<F, T><<<blocks, kLinThreads, 0, stream>>>(a);
+    return launch_status();
   } else {
-    const dim3 grid(blocks, 1 + jac_passes<F, T>());
-    edge_lin_kernel<F, T><<<grid, kLinThreads, 0, stream>>>(a);
+    return launch_forward<F, T>(a, stream);
   }
-  return launch_status();
 }
 
 }  // namespace g2o_torch

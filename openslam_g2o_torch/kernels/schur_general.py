@@ -18,9 +18,14 @@ The entries of one pose group live twice, as K13's products read them
 
 `schur_edge_blocks` writes W into both at host-built positions, and the
 landmark blocks Hll_e, b_l,e into lane-major streams that K10's
-`ba_lm_sums` sums per landmark.
+`ba_lm_sums` sums per landmark. On the card each layout is written in its
+own order, by host-built tables (`edge_orders`): the landmark-major one a
+tile of EDGE_TILE edges at a time, in the order of the tile's slots; the
+pose-major one a position at a time, in CSR order.
 """
 from __future__ import annotations
+
+import numpy as np
 
 from openslam_g2o_torch.kernels import build
 from openslam_g2o_torch.kernels._checks import (
@@ -28,11 +33,27 @@ from openslam_g2o_torch.kernels._checks import (
 from openslam_g2o_torch.kernels.ba_coupling import DIMS
 
 MAX_RESIDUAL = 3
+# the edges a block of csrc/schur_general.cu's tile kernel stages (its
+# kEdgeTile; the launch checks the two agree)
+EDGE_TILE = 128
+
+
+def edge_orders(lm_pos, pose_pos):
+    """The two tables the kernel writes W by, for one (edge group, pose
+    slot) with positions lm_pos, pose_pos [E] (numpy, distinct within
+    each): lm_order, each tile of EDGE_TILE consecutive edges sorted by
+    lm_pos, and pose_order, every edge sorted by pose_pos. Both are
+    permutations of range(E)."""
+    tile = np.arange(len(lm_pos)) // EDGE_TILE
+    return (np.lexsort((lm_pos, tile)),
+            np.argsort(pose_pos, kind="stable"))
 
 
 def schur_edge_blocks_plain(resid, jl, jp, rho1, info, hll, bl, offset,
                             w_lm=None, lm_pos=None, w_pose=None,
-                            pose_pos=None):
+                            pose_pos=None, lm_order=None, pose_order=None):
+    """The wrapper's function in torch; it takes the wrapper's arguments
+    (a caller may swap one for the other) and needs no write orders."""
     E = resid.shape[0]
     w_omega = rho1[:, None, None] * info                      # [E, R, R]
     if hll is not None:
@@ -48,7 +69,8 @@ def schur_edge_blocks_plain(resid, jl, jp, rho1, info, hll, bl, offset,
 
 
 def schur_edge_blocks(resid, jl, jp, rho1, info, hll, bl, offset: int,
-                      w_lm=None, lm_pos=None, w_pose=None, pose_pos=None):
+                      w_lm=None, lm_pos=None, w_pose=None, pose_pos=None,
+                      lm_order=None, pose_order=None):
     """One edge group's landmark blocks for one of its pose slots: from the
     residual [E, R], the masked landmark Jacobian jl [E, R, dl], the pose
     slot's jp [E, R, Dp] (None for an edge without a pose slot), rho' [E]
@@ -56,8 +78,10 @@ def schur_edge_blocks(resid, jl, jp, rho1, info, hll, bl, offset: int,
     offset + E of the streams hll [dl*dl, E_all] and bl [dl, E_all] (both
     None for every pose slot but the first), and W_e into w_lm
     [Dp*dl, K, L] at flat slot lm_pos[e] (= k L + l) and into w_pose
-    [Dp*dl, M] at position pose_pos[e]. K14 on CUDA tensors, the plain
-    version on CPU tensors."""
+    [Dp*dl, M] at position pose_pos[e]. lm_order and pose_order [E], given
+    with W, are `edge_orders(lm_pos, pose_pos)` (core/ba.py builds them
+    with the pattern). K14 on CUDA tensors, the plain version on CPU
+    tensors, which does not read the tables."""
     E, R = resid.shape
     dl = jl.shape[2]
     require(1 <= R <= MAX_RESIDUAL, f"schur_edge_blocks: residual width {R} "
@@ -89,11 +113,15 @@ def schur_edge_blocks(resid, jl, jp, rho1, info, hll, bl, offset: int,
                 and w_lm.shape[0] == dp * dl and w_pose is not None
                 and w_pose.dim() == 2 and w_pose.shape[0] == dp * dl
                 and lm_pos is not None and lm_pos.shape == (E,)
-                and pose_pos is not None and pose_pos.shape == (E,),
+                and pose_pos is not None and pose_pos.shape == (E,)
+                and lm_order is not None and lm_order.shape == (E,)
+                and pose_order is not None and pose_order.shape == (E,),
                 "schur_edge_blocks: W needs w_lm [Dp*dl, K, L], w_pose "
-                "[Dp*dl, M] and the positions lm_pos, pose_pos [E]")
+                "[Dp*dl, M], the positions lm_pos, pose_pos [E] and the "
+                "write orders lm_order, pose_order [E]")
         floats.update(jp=jp, w_lm=w_lm, w_pose=w_pose)
-        ints.update(lm_pos=lm_pos, pose_pos=pose_pos)
+        ints.update(lm_pos=lm_pos, pose_pos=pose_pos, lm_order=lm_order,
+                    pose_order=pose_order)
     else:
         dp = 6 if dl == 3 else 3          # the instantiation; W untouched
     require((dp, dl) in DIMS, f"schur_edge_blocks: dl = {dl} not served")
@@ -107,10 +135,11 @@ def schur_edge_blocks(resid, jl, jp, rho1, info, hll, bl, offset: int,
     build.launch("g2o_schur_edge", resid, resid.data_ptr(), jl.data_ptr(),
                  ptr(jp), rho1.data_ptr(), info.data_ptr(), E, offset,
                  0 if hll is None else hll.shape[1], R, dp, dl, ptr(hll),
-                 ptr(bl), ptr(lm_pos),
+                 ptr(bl), ptr(lm_pos), ptr(lm_order),
                  0 if w_lm is None else w_lm.shape[1] * w_lm.shape[2],
-                 ptr(w_lm), ptr(pose_pos),
-                 0 if w_pose is None else w_pose.shape[1], ptr(w_pose))
+                 ptr(w_lm), ptr(pose_pos), ptr(pose_order),
+                 0 if w_pose is None else w_pose.shape[1], ptr(w_pose),
+                 EDGE_TILE)
     schur_edge_blocks.launches += 1
     return None
 

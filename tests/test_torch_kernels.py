@@ -1241,7 +1241,8 @@ def test_schur_general_kernels_match_plain_on_gpu(cuda, dtype, kind):
                    jacs[ce.slot].contiguous(), rho1.contiguous(),
                    ea.information, st.hll if first else None,
                    st.bl if first else None, le.offset, wl[ce.group],
-                   ce.lm_pos, wp[ce.group], ce.pose_pos)
+                   ce.lm_pos, wp[ce.group], ce.pose_pos, ce.lm_order,
+                   ce.pose_order)
                 first = False
         out.update(st=st, wl=wl, wp=wp)
     for a, b in zip((W_k["st"].hll, W_k["st"].bl, *W_k["wl"].values(),
@@ -2088,3 +2089,147 @@ def test_trial_kernels_give_the_lm_pcg_k7_bits_on_gpu(cuda, dtype):
             ea.delta, (), 0)
         for got, w in zip((cand, part, chi), want, strict=True):
             assert torch.equal(got, w), g
+
+
+def _k14_case(device, dtype, R, dp, dl, E, seed, runs=False):
+    """Seeded inputs of one K14 call: a group of E edges with residual width
+    R at (Dp, dl), its landmark-major positions spread over K x L slots
+    and its pose-major positions over M > E columns (both distinct):
+    scattered over 4 E + 100 columns, or (runs) in runs of 8 consecutive
+    columns, 8 edges in a row, as an anchor slot's are."""
+    rng = np.random.default_rng(seed)
+    t = lambda *s: torch.as_tensor(rng.standard_normal(s), dtype=dtype,
+                                   device=device)
+    A = t(E, R, R)
+    L = max(E // 3, 1)
+    K = -(-E // L) + 1
+    M = 8 * (E // 8 + 2) if runs else 4 * E + 100
+    e = np.arange(E)
+    pose_pos = (8 * rng.permutation(M // 8)[e // 8] + e % 8 if runs
+                else rng.permutation(M)[:E])
+    i32 = lambda a: torch.as_tensor(a, dtype=torch.int32, device=device)
+    return dict(resid=t(E, R), jl=t(E, R, dl), jp=t(E, R, dp),
+                rho1=t(E).abs(), info=A @ A.transpose(1, 2),
+                lm_pos=i32(rng.permutation(K * L)[:E]),
+                pose_pos=i32(pose_pos), K=K, L=L, M=M)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("R", [1, 2, 3])
+@pytest.mark.parametrize("dims", [(6, 3), (4, 3), (3, 2)])
+@pytest.mark.parametrize("runs", [False, True])
+def test_schur_edge_blocks_tile_edges_on_gpu(cuda, dtype, R, dims, runs):
+    """K14 (the staged tile kernel and the pose-order pass) against its
+    plain version at every residual width and (Dp, dl), pose positions
+    scattered or in runs, for group sizes around its tile of 128 edges
+    and the 400,000 edges of ba_400k: each output written
+    (Hll_e and b_l,e beside W, W alone, Hll_e and b_l,e alone), nothing
+    past it touched, and the same bits three times."""
+    from openslam_g2o_torch.kernels import schur_general
+    dp, dl = dims
+    for E in (1, 31, 33, 129, 400000):
+        c = _k14_case(cuda, dtype, R, dp, dl, E, seed=E + R, runs=runs)
+        off = 7
+        orders = tuple(
+            torch.as_tensor(o, dtype=torch.int32, device=cuda)
+            for o in schur_general.edge_orders(c["lm_pos"].cpu().numpy(),
+                                               c["pose_pos"].cpu().numpy()))
+
+        def outs():
+            nan = float("nan")
+            return (torch.full((dl * dl, E + 10), nan, dtype=dtype,
+                               device=cuda),
+                    torch.full((dl, E + 10), nan, dtype=dtype, device=cuda),
+                    torch.full((dp * dl, c["K"], c["L"]), nan, dtype=dtype,
+                               device=cuda),
+                    torch.full((dp * dl, c["M"]), nan, dtype=dtype,
+                               device=cuda))
+        args = (c["resid"], c["jl"], c["jp"], c["rho1"], c["info"])
+        want = outs()
+        schur_general.schur_edge_blocks_plain(
+            *args, want[0], want[1], off, want[2], c["lm_pos"], want[3],
+            c["pose_pos"])
+        seen = []
+        for _ in range(3):
+            got = outs()
+            before = schur_general.schur_edge_blocks.launches
+            schur_general.schur_edge_blocks(
+                *args, got[0], got[1], off, got[2], c["lm_pos"], got[3],
+                c["pose_pos"], *orders)
+            assert schur_general.schur_edge_blocks.launches == before + 1
+            for g_, w_ in zip(got, want):
+                # NaN where nothing is written, in both
+                assert torch.equal(torch.isnan(g_), torch.isnan(w_))
+                assert _rel(g_.nan_to_num(), w_.nan_to_num()) < TOL_BA[dtype]
+            seen.append(got)
+        for again in seen[1:]:
+            for a, b in zip(seen[0], again):
+                assert torch.equal(a.nan_to_num(), b.nan_to_num())
+        # W alone (a second pose slot), then Hll_e and b_l,e alone (a
+        # landmark edge without a pose slot): the same values
+        w_only = outs()
+        schur_general.schur_edge_blocks(
+            *args, None, None, off, w_only[2], c["lm_pos"], w_only[3],
+            c["pose_pos"], *orders)
+        assert torch.isnan(w_only[0]).all() and torch.isnan(w_only[1]).all()
+        for k in (2, 3):
+            assert torch.equal(w_only[k].nan_to_num(), seen[0][k].nan_to_num())
+        h_only = outs()
+        schur_general.schur_edge_blocks(
+            c["resid"], c["jl"], None, c["rho1"], c["info"], h_only[0],
+            h_only[1], off)
+        assert torch.isnan(h_only[2]).all() and torch.isnan(h_only[3]).all()
+        for k in (0, 1):
+            assert torch.equal(h_only[k].nan_to_num(), seen[0][k].nan_to_num())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["psi2uv", "intrinsics"])
+def test_schur_edge_blocks_two_entries_and_hub_on_gpu(cuda, dtype, kind):
+    """K14 as schur_build calls it on chip_smoke.py's ternary scenes at the
+    ba_80k geometry: PSI2UV (two W entries an edge, in one pose group,
+    both written into one landmark-major and one pose-major table) and
+    P2MC_INTRINSICS (two pose groups, the intrinsics vertex's CSR list of
+    80,000 entries), against the plain version and twice for the same
+    bits."""
+    import chip_smoke
+    from openslam_g2o_torch.core import ba
+    from openslam_g2o_torch.core.graph import Graph
+    from openslam_g2o_torch.kernels import ba_edge, schur_general
+    geo = chip_smoke.bal_geometry(*chip_smoke.BA_80K)
+    build_ = {"psi2uv": chip_smoke.psi2uv_graph,
+              "intrinsics": chip_smoke.p2mc_intrinsics_graph}[kind]
+    prob = build_(Graph, geo).compile(dtype=dtype, device=cuda)
+    pat = ba.build_schur_pattern(prob)
+    new_out, run, *_ = chip_smoke.k14_operands(
+        torch, ba_edge, prob, pat, problem_mod.linearize(prob))
+    got = run(schur_general.schur_edge_blocks, new_out())
+    again = run(schur_general.schur_edge_blocks, new_out())
+    want = run(schur_general.schur_edge_blocks_plain, new_out())
+    for g_, a_, w_ in zip(got, again, want, strict=True):
+        assert _rel(g_, w_) < TOL_BA[dtype]
+        assert torch.equal(g_, a_)
+    if kind == "intrinsics":
+        hub = next(pg for pg in pat.pose_groups if pg.count == 1)
+        assert hub.n_entries == pat.n_lm_edges
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_edge_lin_forward_types_at_tile_edges_on_gpu(cuda, dtype):
+    """Every forward-mode K17 type on seeded groups of 1, 31, 33, 63 and 65
+    edges (a tile of 32 edges and two tiles, less one and one more), with
+    and without a robust kernel, against its plain version
+    (_lin_matches_plain)."""
+    import chip_smoke
+    from openslam_g2o_torch.core import registry
+    from openslam_g2o_torch.kernels import edge_lin
+    forward = [t for t in edge_lin.LINEARIZERS
+               if registry.edge_type(t).jacobian is None]
+    assert len(forward) == 20
+    for tname in forward:
+        for E in (1, 31, 33, 63, 65):
+            for kid in (0, 1):
+                args = chip_smoke.lin_group(torch, tname, E, dtype, cuda,
+                                            kernel_id=kid, seed=E)
+                _lin_matches_plain(edge_lin.linearizer(tname), tname, args,
+                                   dtype, (tname, E, kid))
