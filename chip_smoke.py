@@ -36,7 +36,12 @@ Phases (any failure raises and the script exits non-zero):
     50,000 vertices, trial_chi2_* of every edge type on a seeded group of
     50,000 edges under Huber, chi2_sum on a 400,000-edge group's
     partials), float32 and float64, twice for the same bits and by device
-    time.
+    time. K17's closed forms and K7's chi2 also on their phases' own
+    groups (PHASE_ROWS: XYZ2UV at 4n's 400,000 edges, XYZ2UVU at 4o's
+    2,700, and each edge type's chi2 at a phase that runs it), float32
+    and float64, twice for the same bits and by device time, their JSON
+    rows with that phase's launches; a float32 chi2 row also against the
+    plain version in float64 on the same values (chi2_witness).
     On the sphere of phase 4e: K16 (edge_se3_blocks, without and with a robust
     kernel, on streams of the main path's width; twice for the same bits and
     by device time), K7 for SE3 (retract_se3, se3_edge_chi2, a NaN dx) and the 6x6
@@ -452,6 +457,32 @@ TRIAL_ROWS = {"trial_retract_se2": "4d", "trial_retract_point_xy": "4d",
                  for w_, ph_ in LIN_ROWS.items()},
               "chi2_sum": "4d"}
 TRIAL_GROUP = 50000
+# K17's closed forms and K7's chi2 at their phases' own group sizes: row
+# label (wrapper@phase) -> the phase whose scene the row's group is taken
+# from and whose launches it reports (4n: the ba_400k scene, 400,000
+# XYZ2UV edges; 4o: the three worlds of phase 4o). Every edge type has a
+# K7 row at a phase that runs it.
+PHASE_ROWS = {"edge_lin_xyz2uv@4n": "4n", "edge_lin_xyz2uvu@4o": "4o",
+              "trial_chi2_se2@4d": "4d", "trial_chi2_se2_xy@4d": "4d",
+              "trial_chi2_se3@4f": "4f", "trial_chi2_se3_xyz@4f": "4f",
+              "trial_chi2_xyz2uv@4j": "4j", "trial_chi2_xyz2uv@4n": "4n",
+              "trial_chi2_psi2uv@4k": "4k",
+              "trial_chi2_p2mc_intrinsics@4l": "4l",
+              **{f"trial_chi2_{n_}@4o": "4o" for n_ in (
+                  "se2_bearing", "se2_prior", "se2_prior_xy",
+                  "se2_xy_calib", "se2_offset", "se2_xy_offset",
+                  "se3_depth", "se3_disparity", "se3_prior", "se3_offset",
+                  "se3_expmap", "xyz2uvu", "p2mc", "p2sc", "sba_cam",
+                  "sba_scale")}}
+# A float32 chi2 row's distance from the plain version in float64 on the
+# same values (chi2_witness), where its kernel and float32 plain version
+# disagree beyond K7's float32 tolerance: the float32 tolerance of the
+# LM-PCG trial chi2 (TOL["retract_chi2"]), whose residuals cancel
+# coordinates in the same way
+CHI2_WITNESS_TOL = 1e-4
+# The phases whose paths run float64: their PHASE_ROWS JSON rows take the
+# float64 figures, the others the float32 ones
+FLOAT64_PHASES = ("4d", "4f", "4o")
 # K7's operations per vertex of a retraction (csrc/trial.cu and the
 # headers it includes: sqrt, sin, cos as one each) beside three per tangent
 # value of the dot product; a chi2 row's are the edge's LIN_VALUE_OPS (the
@@ -1556,6 +1587,35 @@ def main() -> int:
                                    else _median_ms(torch, library)))
             row["bound_ms"], row["bound_by"] = _bound(nbytes, flops)
         results[(label or kname, tag)] = row
+
+    def chi2_witness(label, wname, args, part, plain32):
+        """A float32 chi2 row's witness: the plain version in float64 on
+        the same values (the float32 inputs widened, so it computes the
+        answer both float32 versions round), and the distance of the
+        kernel's partials and of the float32 plain version's sum from it,
+        relative to it. On the worlds of 4d, 4f and 4o (pose chains of
+        hundreds of metres, started noisy) a float32 chi2 cancels
+        coordinates against centimetre residuals, as the LM-PCG trial's
+        does, so both float32 versions may land further from the float64
+        answer than K7's float32 tolerance between them: the check then
+        lets a float32 row whose kernel and plain version disagree beyond
+        that tolerance pass only where the kernel is within
+        CHI2_WITNESS_TOL of the float64 answer (ROADMAP.md §3 lists the
+        rows that need it)."""
+        wide = lambda t: tuple(x.double() for x in t)
+        params, idx, meas, info, delta, pdata, kid = args
+        ref = float(getattr(trial, wname + "_plain")(
+            wide(params), idx, meas.double(), info.double(),
+            delta.double(), wide(pdata), kid).sum())
+        scale = max(abs(ref), 1e-300)
+        row = results[(label, "float32")]
+        row["witness"] = (abs(float(part.double().sum()) - ref) / scale,
+                          abs(float(plain32.double().sum()) - ref) / scale)
+        print(f"phase 3 witness {label} float32: float64 plain version on "
+              f"the same values {ref!r}; kernel {row['witness'][0]:.3e}, "
+              f"float32 plain version {row['witness'][1]:.3e} from it "
+              f"(relative); kernel against the float32 plain version "
+              f"{row['rel']:.3e}")
 
     def device_rows(label, tag, fns):
         """Device time per call (_device_ms: CUDA events over 200 calls) of
@@ -3282,6 +3342,76 @@ def main() -> int:
         del groups
         torch.cuda.empty_cache()
 
+    # K17's closed forms and K7's chi2 on their phases' own groups
+    # (PHASE_ROWS: the scenes of 4d, 4f, 4j, 4k, 4l, 4n and the three
+    # worlds of 4o), against their plain versions, twice for the same bits,
+    # by device time; K7's under the group's own robust kernel
+    phase_scenes = (
+        ("4d", lambda dt: world.compile(dtype=dt)),
+        ("4f", lambda dt: world3.compile(dtype=dt)),
+        ("4j", lambda dt: synthetic_bal_problem(*BA_80K, BA_OBS,
+                                                dtype=dt)[0]),
+        ("4k", lambda dt: general_graphs["@psi2uv"].compile(dtype=dt)),
+        ("4l", lambda dt: general_graphs["@intrinsics"].compile(dtype=dt)),
+        ("4n", lambda dt: synthetic_bal_problem(*BA_400K, BA_OBS,
+                                                dtype=dt)[0]),
+        *(("4o", lambda dt, g_=make_o(Graph, *size_o): g_.compile(dtype=dt))
+          for make_o, size_o in ((world2d_all_graph, ALL2D),
+                                 (world3d_all_graph, ALL3D),
+                                 (sba_all_graph, ALLSBA))))
+    for dt in (torch.float32, torch.float64):
+        tag = str(dt).split(".")[-1]
+        rows_p = {}
+        for label, make in phase_scenes:
+            pprob = make(dt)
+            for eg in pprob.static.egroups:
+                short = edge_lin.LINEARIZERS[eg.etype.name][len("edge_lin_"):]
+                for w_ in ("edge_lin_" + short, "trial_chi2_" + short):
+                    key = f"{w_}@{label}"
+                    if PHASE_ROWS.get(key) == label and key not in rows_p:
+                        rows_p[key] = (eg.etype.name, lin_args(pprob, eg),
+                                       f"E={eg.count} slots "
+                                       f"{list(eg.slots)}, phase {label}")
+            del pprob
+        if set(rows_p) != set(PHASE_ROWS):
+            raise AssertionError(f"phase rows missing: "
+                                 f"{set(PHASE_ROWS) - set(rows_p)}")
+        for key, (tname, largs, shape) in rows_p.items():
+            wname = key.split("@")[0]
+            if wname.startswith("edge_lin_"):
+                run_p = lambda w_=wname, a_=largs: (
+                    lambda o: (o[0], *o[1], o[2]))(
+                        getattr(edge_lin, w_)(*a_))
+                plain_p = lambda w_=wname, a_=largs: (
+                    lambda o: (o[0], *o[1], o[2]))(
+                        getattr(edge_lin, w_ + "_plain")(*a_))
+                nbytes, flops = lin_bytes_flops(tname, largs)
+                case(wname, tag, shape, run_p, plain_p, nbytes=nbytes,
+                     flops=flops, slow_plain=True, label=key)
+            else:
+                params_p, _, idx_p, meas_p, info_p, delta_p, pdata_p, kid_p \
+                    = largs
+                a_p = (params_p, idx_p, meas_p, info_p, delta_p, pdata_p,
+                       kid_p)
+                run_p = lambda w_=wname, a_=a_p: (getattr(trial, w_)(*a_),)
+                plain_p = lambda w_=wname, a_=a_p: (
+                    getattr(trial, w_ + "_plain")(*a_),)
+                nbytes, flops = chi2_bytes_flops(tname, largs)
+                case(wname, tag, shape, run_p, plain_p, nbytes=nbytes,
+                     flops=flops, post=lambda o: (o[0].sum(),),
+                     slow_plain=True, label=key)
+                if dt == torch.float32:
+                    chi2_witness(key, wname, a_p, run_p()[0],
+                                 plain_p()[0])
+            first = tuple(t_.clone() for t_ in run_p())
+            if not all(torch.equal(a_, b_) for a_, b_ in zip(first,
+                                                             run_p())):
+                raise AssertionError(f"{key} does not repeat its bits")
+            del first
+            device_rows(key, tag, {"kernel": run_p})
+        del rows_p
+        torch.cuda.empty_cache()
+
     # K7 on the dense and Schur routes: each retraction on a seeded group of
     # TRIAL_GROUP vertices (trial_vertex_group), each edge type's chi2 on a
     # seeded group of TRIAL_GROUP edges (lin_group, every vertex table at
@@ -3345,6 +3475,12 @@ def main() -> int:
         tol = row.get("tol", TOL.get(label, TOL.get(row["kname"],
                                                     TOL_DEFAULT))[tag])
         ok = row["rel"] <= tol
+        witness = ""
+        if "witness" in row:
+            w_k, w_p = row["witness"]
+            ok = ok or w_k <= CHI2_WITNESS_TOL
+            witness = (f" (float64 witness: kernel {w_k:.3e}, plain "
+                       f"{w_p:.3e})")
         timing = ""
         if "ms" in row:
             lib = ("none" if row["library_ms"] is None
@@ -3357,7 +3493,7 @@ def main() -> int:
                       f"library {lib}")
         print(f"phase 3 kernel {label} {tag} {row['shape']}: max_abs_err "
               f"{row['abs']:.3e} max_rel_err {row['rel']:.3e} (tol {tol:g})"
-              f"{timing} [{card}] {'OK' if ok else 'FAIL'}")
+              f"{witness}{timing} [{card}] {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"kernel {label} {tag} disagrees with its "
                                  f"plain version: {row['rel']:.3e} > {tol:g}")
@@ -5013,6 +5149,10 @@ def main() -> int:
                 if {"4d": counts_dense, "4f": counts_dense3,
                     "4g": counts_ba80, "4o": counts_4o,
                     **counts_gen}[ph][k] <= 0]
+             + [k for k, ph in PHASE_ROWS.items()
+                if {"4d": counts_dense, "4f": counts_dense3,
+                    "4o": counts_4o, **counts_gen}[ph][k.split("@")[0]]
+                <= 0]
              + [k for k in KERNELS if launches[k] <= 0])
     if never or set(KERNELS) != set(launches):
         raise AssertionError(f"a kernel of a path never launched (or the "
@@ -5069,7 +5209,8 @@ def main() -> int:
          "library_ms": results[(label, "float32")]["library_ms"]}
         for label, (wname, src, replaces) in KERNELS_D6.items()]
     # the BA kernels' rows at the other shapes and instantiations
-    general = lambda lbl: lbl.endswith(tuple(GENERAL_SUFFIXES))
+    general = lambda lbl: (lbl.endswith(tuple(GENERAL_SUFFIXES))
+                           and lbl not in PHASE_ROWS)
     for label in sorted(lbl for (lbl, tg), row in results.items()
                         if tg == "float32" and "@" in lbl
                         and row["kname"].startswith("ba_")
@@ -5100,6 +5241,22 @@ def main() -> int:
              "source": f"openslam_g2o_torch/kernels/csrc/{src}",
              "replaces": GENERAL_REPLACES[row["kname"]],
              "launches": counts_gen[phase][key],
+             "max_abs_err": row["abs"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # K17's closed forms and K7's chi2 at their phases' own group sizes,
+    # with the launches of that phase and the figures of the dtype it runs
+    phase_counts = {"4d": counts_dense, "4f": counts_dense3,
+                    "4o": counts_4o, **counts_gen}
+    for label, phase in PHASE_ROWS.items():
+        row = results[(label, "float64" if phase in FLOAT64_PHASES
+                       else "float32")]
+        src, replaces = KERNELS[row["kname"]]
+        report["kernels"].append(
+            {"name": label, "route": "cuda",
+             "source": f"openslam_g2o_torch/kernels/csrc/{src}",
+             "replaces": replaces,
+             "launches": phase_counts[phase][row["kname"]],
              "max_abs_err": row["abs"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

@@ -31,9 +31,11 @@ does not, at the same shapes:
   schur_build calls it (chip_smoke.k14_operands): 4j (ba_80k, binary
   XYZ2UV), 4k (PSI2UV), 4l (P2MC_INTRINSICS) and 4n (ba_400k);
 * lin: `problem.linearize` on the worlds of phases 4d (EDGE_SE2,
-  EDGE_SE2_XY) and 4f (float64), and on the 4j (ba_80k, XYZ2UV), 4k
+  EDGE_SE2_XY) and 4f (float64), on the 4j (ba_80k, XYZ2UV), 4k
   (PSI2UV), 4l (P2MC_INTRINSICS) and 4n (ba_400k, XYZ2UV) scenes
-  (float32), as the paths call it: a tree without K17 for a type runs
+  (float32), on 4j and 4n once more in float64 and on 4o's 2D and SBA
+  worlds (float64: the closed forms' EDGE_SE2, XYZ2UV and XYZ2UVU groups
+  at 4o's sizes), as the paths call it: a tree without K17 for a type runs
   the type's torch form there (torch.func.jvp, or the analytic Jacobian
   in torch). The time per call (CUDA events around one call, median of
   5), and each edge group with a K17 wrapper in the tree by device time
@@ -60,7 +62,12 @@ does not, at the same shapes:
   chip_smoke.py's phase 4d split times it). --save also writes chi2_new
   and lambda_new to FILE.trial.pt, and --against holds this tree's to
   that file's, relative, to chip_smoke.py's chi2_sum tolerance (1e-12
-  float64, 1e-5 float32).
+  float64, 1e-5 float32). Then K7's chi2 wrapper alone on every edge
+  group of those scenes at its stored parameters (the groups of 80,000
+  and 400,000 edges of 4j-4n also in float64) and on chip_smoke.py's
+  seeded group of 50,000 edges of every type under Huber (phase 3's
+  rows), float32 and float64, by device time beside its bound, with the
+  digest of its partials.
 
 Float32 and float64. Each line gives the microseconds per call, the bound
 (bytes over 3.35 TB/s), the error against the plain version relative to
@@ -352,27 +359,45 @@ def main(argv=None) -> int:
                 torch.cuda.empty_cache()
 
     # -- the linearizers ------------------------------------------------------
-    def lin_group_line(fn, tname, largs, tag, key, shape, out):
-        """One K17 wrapper call on one edge group: its device time beside
-        the bound, and the SHA-256 digests of its residual, Jacobians and
-        rho' (`out`, the linearization of that group) for --save /
-        --against."""
-        resid, jacs, rho1 = out
-        digests = [_digest(t) for t in (resid, *jacs, rho1)]
+    def group_line(fn, fargs, nbytes, tag, key, shape, outs):
+        """One wrapper call fn(*fargs) on one edge group: its device time
+        beside the bound (`nbytes` over 3.35 TB/s), and the SHA-256
+        digests of its outputs `outs` for --save / --against."""
+        digests = [_digest(t) for t in outs]
         key = f"{fn.__name__} {key} {tag}"
         saved[key] = digests
         bits = ""
         if against is not None and key in against:
             bits = f"; the bits of --against: {digests == against[key]}"
         us, calls, held = chip_smoke._device_ms(
-            torch, lambda fn=fn, a=largs: fn(*a))
-        nbytes, _ = chip_smoke.lin_bytes_flops(tname, largs)
+            torch, lambda fn=fn, a=fargs: fn(*a))
         bound = 1e6 * nbytes / chip_smoke.HBM_BYTES_PER_S
         print(f"kernel_times {fn.__name__} {tag} {shape}: "
               f"{1e3 * us:.2f} us" + ("" if held else " (host-bound)")
               + ("" if calls == 200 else f" ({calls} calls)")
               + f"; bound {bound:.2f} us{bits}", flush=True)
 
+    def lin_group_line(fn, tname, largs, tag, key, shape, out):
+        """group_line of a K17 wrapper: its residual, Jacobians and rho'
+        (`out`, the linearization of that group)."""
+        resid, jacs, rho1 = out
+        group_line(fn, largs, chip_smoke.lin_bytes_flops(tname, largs)[0],
+                   tag, key, shape, (resid, *jacs, rho1))
+
+    def chi2_group_line(tname, largs, tag, key, shape):
+        """group_line of K7's chi2 wrapper of `tname` on K17's arguments
+        `largs` (the group at its stored parameters, as a trial at the
+        candidate reads it): its partials."""
+        from openslam_g2o_torch.kernels import trial
+        fn = trial.chi2_of(tname)
+        params, _, indices, meas, info, delta, pdata, kid = largs
+        cargs = (params, indices, meas, info, delta, pdata, kid)
+        group_line(fn, cargs, chip_smoke.chi2_bytes_flops(tname, largs)[0],
+                   tag, key, shape, (fn(*cargs),))
+
+    if only & {"lin", "trial"}:
+        all2d = chip_smoke.world2d_all_graph(Graph, *chip_smoke.ALL2D)
+        allsba = chip_smoke.sba_all_graph(Graph, *chip_smoke.ALLSBA)
     if "lin" in only:
         try:
             from openslam_g2o_torch.kernels import edge_lin
@@ -395,11 +420,22 @@ def main(argv=None) -> int:
                     dtype=torch.float32)),
                 ("4n", torch.float32, lambda: synthetic_bal_problem(
                     *chip_smoke.BA_400K, chip_smoke.BA_OBS,
-                    dtype=torch.float32)[0])):
+                    dtype=torch.float32)[0]),
+                # the closed forms' groups in the other dtype and at 4o
+                ("4j", torch.float64, lambda: synthetic_bal_problem(
+                    *chip_smoke.BA_80K, chip_smoke.BA_OBS,
+                    dtype=torch.float64)[0]),
+                ("4n", torch.float64, lambda: synthetic_bal_problem(
+                    *chip_smoke.BA_400K, chip_smoke.BA_OBS,
+                    dtype=torch.float64)[0]),
+                ("4o 2D", torch.float64, lambda: all2d.compile(
+                    dtype=torch.float64)),
+                ("4o SBA", torch.float64, lambda: allsba.compile(
+                    dtype=torch.float64))):
             tag = tag_of(dt)
             prob = make()
             lin = problem_mod.linearize(prob)
-            outs = {f"{phase} {key} {i}": t.contiguous()
+            outs = {f"{phase} {tag} {key} {i}": t.contiguous()
                     for key, (r, jacs, w) in lin.items()
                     for i, t in enumerate((r, *jacs, w))}
             lin_out.update({k: v.cpu() for k, v in outs.items()})
@@ -480,6 +516,9 @@ def main(argv=None) -> int:
         for phase, make, route in cases:
             prob = make()
             tag = tag_of(prob.dtype)
+            for eg in prob.static.egroups if has_k7 else ():
+                chi2_group_line(eg.etype.name, chip_smoke.lin_args(prob, eg),
+                                tag, f"{phase} {eg.key}", f"E={eg.count}")
             if route == "dense":
                 lam = alg_mod.LevenbergMarquardt().init(prob)["lam"]
                 H, b, _ = problem_mod.build_dense_system(
@@ -564,6 +603,36 @@ def main(argv=None) -> int:
                   f"{float(got[0]):.10g}{agree}", flush=True)
             del prob, dxp, bp, ok, res
             torch.cuda.empty_cache()
+        # K7's chi2 of the groups of 80,000 and 400,000 edges in float64
+        # too, and every type on chip_smoke.py's seeded group (phase 3's
+        # rows, Huber) in both dtypes
+        for phase, make in (
+                ("4j", lambda: synthetic_bal_problem(
+                    *chip_smoke.BA_80K, chip_smoke.BA_OBS,
+                    dtype=torch.float64)[0]),
+                ("4k", lambda: general["@psi2uv"].compile(
+                    dtype=torch.float64)),
+                ("4l", lambda: general["@intrinsics"].compile(
+                    dtype=torch.float64)),
+                ("4n", lambda: synthetic_bal_problem(
+                    *chip_smoke.BA_400K, chip_smoke.BA_OBS,
+                    dtype=torch.float64)[0])) if has_k7 else ():
+            prob = make()
+            for eg in prob.static.egroups:
+                chi2_group_line(eg.etype.name, chip_smoke.lin_args(prob, eg),
+                                "float64", f"{phase} {eg.key}",
+                                f"E={eg.count}")
+            del prob
+            torch.cuda.empty_cache()
+        for dt in dtypes if has_k7 else ():
+            for tname in chip_smoke.LIN_VALUE_OPS:
+                largs = chip_smoke.lin_group(
+                    torch, tname, chip_smoke.TRIAL_GROUP, dt, dev,
+                    kernel_id=1, seed=9)
+                chi2_group_line(tname, largs, tag_of(dt), f"seeded {tname}",
+                                f"E={chip_smoke.TRIAL_GROUP} seeded group, "
+                                "Huber")
+                del largs
         if args.save:
             torch.save(out, args.save + ".trial.pt")
 

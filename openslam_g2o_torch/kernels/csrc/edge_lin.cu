@@ -39,9 +39,15 @@
 //    128-byte lines.
 //  * edge_lin_analytic_kernel (EDGE_SE2, EDGE_PROJECT_XYZ2UV:EXPMAP,
 //    EDGE_PROJECT_XYZ2UVU:EXPMAP, whose JAX types carry a closed-form
-//    Jacobian): a thread per edge writes the residual, the closed form
-//    (se2_edge.cuh, the code of kernel B; xyz2uv.cuh, the code of K10's
-//    fused entry) and rho', reading its inputs from global memory.
+//    Jacobian): a block per tile of consecutive edges, a thread an edge,
+//    over the tile loader of edge_tile.cuh (K7's trial chi2 shares it):
+//    the contiguous inputs arrive in shared memory by cp.async while the
+//    threads gather their vertices; each thread computes the residual, the
+//    closed form (se2_edge.cuh, the code of kernel B; xyz2uv.cuh, the code
+//    of K10's fused entry) and rho' into the tile, and the outputs leave
+//    as contiguous runs of whole lines. EDGE_SE2 runs
+//    edge_lin_analytic_direct_kernel instead, a thread per edge that reads
+//    and writes global memory itself (launch_analytic says why).
 //
 // Bound: memory. An edge's vertex parameters, measurement, parameter data,
 // Omega and delta are read, and D + 1 values and the D x sum(Ds) Jacobian
@@ -53,11 +59,11 @@
 // tiles a block, passes of 1-3 directions (more value work; 1 and 2 also
 // other bits), the retractions by zero recomputed in every pass, and
 // small groups writing their Jacobians straight from the jobs.
-#include "edge_functors.cuh"
+#include <type_traits>
+
+#include "edge_tile.cuh"
 
 namespace g2o_torch {
-
-constexpr int kLinThreads = 128;
 
 template <typename T>
 struct LinArgs {
@@ -420,29 +426,125 @@ int launch_forward(const LinArgs<T>& a, cudaStream_t stream) {
   return launch_status();
 }
 
-// The closed forms: a thread per edge, two slots
+// The closed forms (two slots), staged: a block per tile of kAnalyticTile
+// consecutive edges, a thread an edge. The tile loader (edge_tile.cuh)
+// stages the measurement, Omega, delta and the camera parameters while each
+// thread gathers its slots' parameters and free flags; after the wait each
+// thread runs F::lin, e^T Omega e and rho', and puts its residual,
+// Jacobians and rho' into the tile's outputs in global memory's layout;
+// after a barrier every output leaves as one contiguous run of whole
+// 128-byte lines (16-byte stores), where a thread per edge stores 12-, 24-
+// or 36-value strides. The tile is 128 edges: XYZ2UVU in float64 then
+// stages 48 KB (17 input and 31 output values an edge), four blocks an SM.
+constexpr int kAnalyticTile = 128;
+
+// One tile's staged inputs, then its outputs: the residual [kTile, D],
+// each slot's Jacobian [kTile, D, Ds] and rho' [kTile], each run 16-byte
+// aligned
 template <class F, typename T>
-__global__ void __launch_bounds__(kLinThreads)
+struct AnalyticTile {
+  using In = EdgeTile<F, T, kAnalyticTile, 48 * 1024>;
+  static constexpr int kR = F::kD, kW0 = kR * F::dim(0), kW1 = kR * F::dim(1);
+  static constexpr int kResidAt = In::kValues;
+  static constexpr int kJ0At = kResidAt + pad16<T>(kAnalyticTile * kR);
+  static constexpr int kJ1At = kJ0At + pad16<T>(kAnalyticTile * kW0);
+  static constexpr int kRhoAt = kJ1At + pad16<T>(kAnalyticTile * kW1);
+  static constexpr int kBytes =
+      (kRhoAt + pad16<T>(kAnalyticTile)) * static_cast<int>(sizeof(T));
+};
+
+template <class F, typename T>
+__global__ void __launch_bounds__(kAnalyticTile)
 edge_lin_analytic_kernel(const LinArgs<T> a) {
-  constexpr int D0 = F::dim(0), D1 = F::dim(1);
+  using Tile = AnalyticTile<F, T>;
+  using In = typename Tile::In;
+  constexpr int R = Tile::kR, D0 = F::dim(0), D1 = F::dim(1);
+  T* t = reinterpret_cast<T*>(g2o_tile_smem);
+  const long long e0 = blockIdx.x * static_cast<long long>(kAnalyticTile);
+  const int n = static_cast<int>(a.n_edges - e0 < kAnalyticTile
+                                     ? a.n_edges - e0 : kAnalyticTile);
+  const int i = threadIdx.x;
+  long long v[kMaxSlots];
+  T x[kMaxSlots][kMaxUsed], f0 = T(0), f1 = T(0);
+  if (i < n) load_indices<F>(a, e0 + i, v);
+  In::stage(a, t, e0, n);
+  if (i < n) {
+    gather_slots<F>(a, v, x);
+    f0 = a.free_mask[0][v[0]];
+    f1 = a.free_mask[1][v[1]];
+  }
+  In::wait();
+  if (i < n) {
+    T meas[F::kMeas], pd[pd_size<F>()], err[R], j0[R][D0], j1[R][D1];
+    In::inputs(a, t, e0 + i, i, meas, pd);
+    F::lin(x[0], x[1], meas, pd, f0, f1, err, j0, j1);
+    const T rho1 =
+        robust_rho1<T>(a.kernel_id, In::chi2(t, i, err), In::delta(t, i));
+    tile_put<R>(t + Tile::kResidAt + i * R, err);
+    tile_put<Tile::kW0>(t + Tile::kJ0At + i * Tile::kW0, &j0[0][0]);
+    tile_put<Tile::kW1>(t + Tile::kJ1At + i * Tile::kW1, &j1[0][0]);
+    t[Tile::kRhoAt + i] = rho1;
+  }
+  __syncthreads();
+  store_tile_run<kAnalyticTile>(a.resid + e0 * R, t + Tile::kResidAt, n * R);
+  store_tile_run<kAnalyticTile>(a.jac[0] + e0 * Tile::kW0, t + Tile::kJ0At,
+                                n * Tile::kW0);
+  store_tile_run<kAnalyticTile>(a.jac[1] + e0 * Tile::kW1, t + Tile::kJ1At,
+                                n * Tile::kW1);
+  store_tile_run<kAnalyticTile>(a.rho1 + e0, t + Tile::kRhoAt, n);
+}
+
+// The closed forms, direct: a thread per edge that reads its inputs and
+// writes its outputs itself, the staged kernel's arithmetic (its bits)
+// without shared memory or barriers
+template <class F, typename T>
+__global__ void __launch_bounds__(kAnalyticTile)
+edge_lin_analytic_direct_kernel(const LinArgs<T> a) {
+  constexpr int R = F::kD, D0 = F::dim(0), D1 = F::dim(1);
   const long long e =
-      blockIdx.x * static_cast<long long>(kLinThreads) + threadIdx.x;
+      blockIdx.x * static_cast<long long>(kAnalyticTile) + threadIdx.x;
   if (e >= a.n_edges) return;
   T x[kMaxSlots][kMaxUsed], meas[F::kMeas], pd[pd_size<F>()];
   load_edge<F>(a, e, x, meas, pd);
-  T err[F::kD], j0[F::kD][D0], j1[F::kD][D1];
+  T err[R], j0[R][D0], j1[R][D1];
   F::lin(x[0], x[1], meas, pd, a.free_mask[0][a.idx[0][e]],
          a.free_mask[1][a.idx[1][e]], err, j0, j1);
-  store_residual<F>(a, e, err, a.resid + e * F::kD);
-  T* out0 = a.jac[0] + e * (F::kD * D0);
-  T* out1 = a.jac[1] + e * (F::kD * D1);
+  store_residual<F>(a, e, err, a.resid + e * R);
+  T* out0 = a.jac[0] + e * (R * D0);
+  T* out1 = a.jac[1] + e * (R * D1);
 #pragma unroll
-  for (int r = 0; r < F::kD; ++r) {
+  for (int r = 0; r < R; ++r) {
 #pragma unroll
     for (int c = 0; c < D0; ++c) out0[r * D0 + c] = j0[r][c];
 #pragma unroll
     for (int c = 0; c < D1; ++c) out1[r * D1 + c] = j1[r][c];
   }
+}
+
+// The form a type takes: EDGE_SE2 direct, the projections staged. Every
+// EDGE_SE2 group the paths run holds at most 3,961 edges (phases 4d, 4i
+// and 4o), under one block an SM, where the staging pass and its two
+// barriers are latency the direct form does not pay: staged, phase 4d's
+// group measured slower (float64 5.80-5.89 -> 6.02-6.04 us on an NVIDIA
+// H100 80GB HBM3, 700.00 W; kernel_times.py --only lin). The
+// projections' staged form measured faster at every size the paths run
+// (PERF.md §6).
+template <class F, typename T>
+int launch_analytic(const LinArgs<T>& a, cudaStream_t stream) {
+  const unsigned blocks = (a.n_edges + kAnalyticTile - 1) / kAnalyticTile;
+  if constexpr (std::is_same<F, LinSE2>::value) {
+    edge_lin_analytic_direct_kernel<F, T>
+        <<<blocks, kAnalyticTile, 0, stream>>>(a);
+  } else {
+    constexpr int bytes = AnalyticTile<F, T>::kBytes;
+    static unsigned long long allowed = 0;
+    const int err = allow_tile_smem(edge_lin_analytic_kernel<F, T>, bytes,
+                                    allowed);
+    if (err) return err;
+    edge_lin_analytic_kernel<F, T>
+        <<<blocks, kAnalyticTile, bytes, stream>>>(a);
+  }
+  return launch_status();
 }
 
 template <class F, typename T>
@@ -456,10 +558,8 @@ int launch_edge_lin(const T* p0, const T* f0, const int* i0, const T* p1,
   const LinArgs<T> a{{p0, p1, p2}, {f0, f1, f2}, {i0, i1, i2}, meas, info,
                      delta, {pdata, pdata2}, kernel_id, resid, {j0, j1, j2},
                      rho1, n_edges};
-  const unsigned blocks = (n_edges + kLinThreads - 1) / kLinThreads;
   if constexpr (F::kAnalytic) {
-    edge_lin_analytic_kernel<F, T><<<blocks, kLinThreads, 0, stream>>>(a);
-    return launch_status();
+    return launch_analytic<F, T>(a, stream);
   } else {
     return launch_forward<F, T>(a, stream);
   }

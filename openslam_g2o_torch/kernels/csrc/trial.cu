@@ -16,8 +16,11 @@
 //                          vmap(retract) over the masked step does); with
 //                          b given, per-block partial sums of
 //                          dx . (lambda dx + b) over the group's values
-//   trial_edge_chi2<F, T>  a thread per edge of one group: the error at
-//                          the candidate through K17's own functors
+//   trial_edge_chi2<F, T>  a block of 256 edges of one group, a thread an
+//                          edge (the float64 D = 6 types' inputs staged by
+//                          the tile loader, edge_tile.cuh, while each thread
+//                          gathers its edge's slots): the error at the
+//                          candidate through K17's own functors
 //                          (edge_functors.cuh), e^T Omega e and rho of the
 //                          group's robust kernel; per-block partial sums
 //   lm_outcome             (retract_chi2.cu) sums both in a fixed order
@@ -32,8 +35,8 @@
 // Bound: memory. trial_retract moves P + 2D + 1 values in and P out per
 // vertex; trial_edge_chi2 reads the edge's measurement, Omega, delta,
 // parameter data, indices and gathered vertices. At the 400,000-edge BA
-// scene in float32 that is about 15 MB per trial, 4.5 us at 3.35 TB/s.
-#include "edge_functors.cuh"
+// scene in float32 that is about 21 MB per trial, 6.4 us at 3.35 TB/s.
+#include "edge_tile.cuh"
 
 namespace g2o_torch {
 
@@ -163,9 +166,80 @@ struct ChiArgs {
   int n_edges;
 };
 
+// A block of kThreads (256) threads takes 256 consecutive edges, a thread
+// an edge, and writes one partial (trial.partial_count; lm_outcome and
+// chi2_sum sum them in a fixed order). Two forms, by edge type and
+// dtype, with the same arithmetic and so the same bits:
+//  * staged (float64, the types whose Omega has 36 values, D = 6:
+//    EDGE_SE3:QUAT, SE3_PRIOR, SE3_OFFSET, SE3:EXPMAP, EDGE_CAM): the tile
+//    loader (edge_tile.cuh) stages the block's measurement, Omega, delta
+//    and parameter data while each thread gathers its slots' candidates. A
+//    thread that read its 36 Omega values itself issued them after the
+//    error (they do not fit in its registers beside it), a second memory
+//    latency after the gathers; staged, they arrive with the gathers.
+//  * direct (the other 18 types, and the D = 6 types in float32): each
+//    thread reads its edge's inputs itself. Staging measured slower for
+//    the 18 at every shape the paths run, the 400,000-edge XYZ2UV group
+//    included (kernel_times.py --only trial with every type staged,
+//    PERF.md §6): their few Omega values are loaded with the gathers
+//    anyway, and the staging pass and its barrier only add latency. The
+//    D = 6 types in float32, whose Omega is half the bytes, measured
+//    slower staged on 50,000-edge groups (EDGE_SE3:QUAT 8.27 -> 8.57 us,
+//    EDGE_CAM 8.20 -> 8.56, SE3:EXPMAP 7.82 -> 9.28 on an NVIDIA H100
+//    80GB HBM3, 700.00 W), and no path runs them in float32.
+// Then the error through K17's functor, e^T Omega e in K17's order, rho of
+// the group's robust kernel, and the block's partial by block_sum. The
+// launcher picks the kernel of the form (trial_edge_chi2_kernel or
+// trial_edge_chi2_direct_kernel) from the type and the dtype.
+//
+// The staged inputs may take up to kChiTileBytes of shared memory: two
+// blocks then fit an SM, so a group of 50,000 edges (196 blocks) is
+// resident at once on the 132 SMs. Only EDGE_SE3_OFFSET in float64 exceeds
+// it with both offsets staged (116 KB): its second offset is read from
+// global memory after the wait.
+template <class F, typename T>
+__host__ __device__ constexpr bool chi2_staged() {
+  return F::kD == 6 && sizeof(T) == 8;
+}
+
+constexpr int kChiTileBytes = 112 * 1024;
+
+template <class F, typename T>
+using ChiTile = EdgeTile<F, T, kThreads, kChiTileBytes>;
+
 template <class F, typename T>
 __global__ void __launch_bounds__(kThreads)
 trial_edge_chi2_kernel(const ChiArgs<T> a) {
+  static_assert(pd_size<F>() <= kMaxPdata, "parameter data too wide");
+  using Tile = ChiTile<F, T>;
+  __shared__ T smem[32];
+  T* t = reinterpret_cast<T*>(g2o_tile_smem);
+  const long long e0 = blockIdx.x * static_cast<long long>(kThreads);
+  const int n = static_cast<int>(
+      a.n_edges - e0 < kThreads ? a.n_edges - e0 : kThreads);
+  const int i = threadIdx.x;
+  long long v[kMaxSlots];
+  T x[kMaxSlots][kMaxUsed];
+  if (i < n) load_indices<F>(a, e0 + i, v);
+  Tile::stage(a, t, e0, n);
+  if (i < n) gather_slots<F>(a, v, x);
+  Tile::wait();
+  T local = T(0);
+  if (i < n) {
+    T meas[F::kMeas], pd[pd_size<F>()], err[F::kD];
+    Tile::inputs(a, t, e0 + i, i, meas, pd);
+    call_error<F>(x[0], x[1], x[2], meas, pd, err);
+    local = robust_rho0<T>(a.kernel_id, Tile::chi2(t, i, err),
+                           Tile::delta(t, i));
+  }
+  const T total = block_sum(local, smem);
+  if (threadIdx.x == 0) a.partials[blockIdx.x] = total;
+}
+
+// The direct form: each thread reads its edge's inputs itself
+template <class F, typename T>
+__global__ void __launch_bounds__(kThreads)
+trial_edge_chi2_direct_kernel(const ChiArgs<T> a) {
   static_assert(pd_size<F>() <= kMaxPdata, "parameter data too wide");
   __shared__ T smem[32];
   const long long e = blockIdx.x * static_cast<long long>(kThreads)
@@ -175,15 +249,9 @@ trial_edge_chi2_kernel(const ChiArgs<T> a) {
     T x[kMaxSlots][kMaxUsed], meas[F::kMeas], pd[pd_size<F>()], err[F::kD];
     load_edge<F>(a, e, x, meas, pd);
     call_error<F>(x[0], x[1], x[2], meas, pd, err);
-    // e^T Omega e in K17's order (edge_lin.cu store_residual)
-    const T* om = a.info + e * (F::kD * F::kD);
-    T e2 = T(0);
-#pragma unroll
-    for (int r = 0; r < F::kD; ++r)
-#pragma unroll
-      for (int c = 0; c < F::kD; ++c)
-        e2 += err[r] * om[r * F::kD + c] * err[c];
-    local = robust_rho0<T>(a.kernel_id, e2, a.delta[e]);
+    local = robust_rho0<T>(
+        a.kernel_id, quad_form<F::kD>(err, a.info + e * (F::kD * F::kD)),
+        a.delta[e]);
   }
   const T total = block_sum(local, smem);
   if (threadIdx.x == 0) a.partials[blockIdx.x] = total;
@@ -221,8 +289,19 @@ int launch_trial_chi2(const T* p0, const int* i0, const T* p1, const int* i1,
                       int n_edges, cudaStream_t stream) {
   const ChiArgs<T> a{{p0, p1, p2}, {i0, i1, i2}, meas, info, delta,
                      {pdata, pdata2}, kernel_id, partials, n_edges};
-  trial_edge_chi2_kernel<F, T>
-      <<<trial_blocks(n_edges), kThreads, 0, stream>>>(a);
+  if constexpr (chi2_staged<F, T>()) {
+    constexpr int bytes =
+        ChiTile<F, T>::kValues * static_cast<int>(sizeof(T));
+    static unsigned long long allowed = 0;
+    const int err = allow_tile_smem(trial_edge_chi2_kernel<F, T>, bytes,
+                                    allowed);
+    if (err) return err;
+    trial_edge_chi2_kernel<F, T>
+        <<<trial_blocks(n_edges), kThreads, bytes, stream>>>(a);
+  } else {
+    trial_edge_chi2_direct_kernel<F, T>
+        <<<trial_blocks(n_edges), kThreads, 0, stream>>>(a);
+  }
   return launch_status();
 }
 

@@ -10,9 +10,11 @@ one edge group each wrapper returns what core/problem.py `linearize_group`
 returns: the residual [E, D], the per-slot Jacobians [E, D, Ds] with
 respect to the tangent increment, each slot's columns times its vertex's
 free flag, and rho' [E]. The forward-mode kernel differentiates the error
-through the retractions with a value-and-derivatives scalar (a thread per
-edge and pass of up to 6 directions in float32, 3 in float64); the
-analytic one is a thread per edge. The plain version is the generic route
+through the retractions with a value-and-derivatives scalar (a block per
+tile of 32 edges, passes of 6 directions); the closed forms run a block
+per tile of 128 edges over the tile loader of csrc/edge_tile.cuh,
+EDGE_SE2 a thread per edge that reads and writes global memory itself.
+The plain version is the generic route
 of `linearize_group` (the error, the type's analytic Jacobian or
 `forward_jacobians`' torch.func.jvp, `robustify`, the mask).
 

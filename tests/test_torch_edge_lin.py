@@ -15,6 +15,10 @@ plain versions).
   floor of tests/test_torch_sba_cam_types.py: the same float64 formulas,
   differentiated by jvp against jacfwd); the types without a scene of
   their own are taken on phase 4o's three worlds of chip_smoke.py, small;
+* the three closed forms at group sizes around the kernels' tiles (1,
+  127-129 and 255-257 edges: the graph's own edges of the type taken in
+  turn): `linearize_group` against JAX's `linearize` as above, and
+  `robust_chi2_parts` summed against JAX's `robust_chi2` to rtol 1e-12;
 * a PSI2UV group whose anchor is the observing camera: each of the two
   camera slots gets its own columns, equal to JAX's; where that camera is
   free the two are opposite (the edge projects exp(d1) T T^-1 exp(-d2)
@@ -276,6 +280,63 @@ def test_plain_version_matches_jax_linearize(tname, kernel):
                              getattr(edge_lin, edge_lin.LINEARIZERS[tname]
                                      + "_plain")(*args))):
         assert torch.equal(got, want)
+
+
+# group sizes around the tiles of the closed forms' kernel (128 edges) and
+# of the trial chi2's (256)
+TILE_SIZES = (1, 127, 128, 129, 255, 256, 257)
+CLOSED_FORMS = ("edge_se2", "edge_project_xyz2uv", "edge_project_xyz2uvu")
+_sized_cache = {}
+
+
+def _sized_pair(tname, E):
+    """(JAX problem, port problem on the CPU) of BUILDERS[tname]'s graph
+    under Huber with only its `tname` edges, taken in turn until there are
+    E of them."""
+    if (tname, E) not in _sized_cache:
+        g = BUILDERS[tname](JGraph, KERNELS[0])
+        own = [e for e in g.edges if e.etype.name == tname]
+        g.edges = [own[k % len(own)] for k in range(E)]
+        jprob = g.compile(dtype=jnp.float64)
+        _sized_cache[(tname, E)] = (jprob, problem_from_numpy(
+            **problem_arrays(jprob), device="cpu"))
+    return _sized_cache[(tname, E)]
+
+
+@pytest.mark.parametrize("E", TILE_SIZES)
+@pytest.mark.parametrize("tname", CLOSED_FORMS)
+def test_closed_form_linearize_group_at_tile_sizes_matches_jax(tname, E):
+    """linearize_group of a closed-form group of E edges against JAX's
+    `linearize` (its analytic branch); on CPU tensors no kernel runs."""
+    jprob, tprob = _sized_pair(tname, E)
+    (eg,) = tprob.static.egroups
+    assert eg.etype.name == tname and eg.count == E
+    kernels.reset_launch_counts()
+    resid, jacs, rho1 = tproblem.linearize_group(tprob, eg)
+    assert not any(kernels.launch_counts().values())
+    jr, jjacs, jw = jproblem.linearize(jprob)[eg.key]
+    _close(resid, jr)
+    _close(rho1, jw)
+    assert len(jacs) == len(jjacs) == 2
+    for tj, jj in zip(jacs, jjacs):
+        assert tuple(tj.shape) == jj.shape == (E, *jj.shape[1:])
+        _close(tj, jj)
+
+
+@pytest.mark.parametrize("E", TILE_SIZES)
+@pytest.mark.parametrize("tname", CLOSED_FORMS)
+def test_trial_chi2_parts_at_tile_sizes_sum_to_jax_robust_chi2(tname, E):
+    """robust_chi2_parts of the same groups, summed, against JAX's
+    robust_chi2 to rtol 1e-12 (one sum of E float64 terms in another
+    order); on the CPU one partial a group."""
+    jprob, tprob = _sized_pair(tname, E)
+    kernels.reset_launch_counts()
+    parts = tproblem.robust_chi2_parts(tprob)
+    assert not any(kernels.launch_counts().values())
+    assert parts.shape == (1,)
+    want = float(jproblem.robust_chi2(jprob))
+    np.testing.assert_allclose(float(parts.sum()), want, rtol=RTOL)
+    assert float(tproblem.robust_chi2(tprob)) == float(parts.sum())
 
 
 def test_psi2uv_anchor_on_the_observing_camera():

@@ -2233,3 +2233,122 @@ def test_edge_lin_forward_types_at_tile_edges_on_gpu(cuda, dtype):
                                             kernel_id=kid, seed=E)
                 _lin_matches_plain(edge_lin.linearizer(tname), tname, args,
                                    dtype, (tname, E, kid))
+
+
+def _ptrs(seq, n):
+    """The data pointers of `seq`, padded with None to n (a C entry's
+    unused slots)."""
+    return [t.data_ptr() for t in seq] + [None] * (n - len(seq))
+
+
+def _lin_padded(tname, args, pad=37):
+    """One launch of K17's C entry for `tname` on the wrapper arguments
+    `args`, as the wrapper makes it, into outputs `pad` rows longer than
+    the group and prefilled with NaN: (resid, jacs, rho1) of E + pad
+    rows."""
+    from openslam_g2o_torch.core import registry
+    from openslam_g2o_torch.kernels import build, edge_lin
+    params, free, indices, meas, info, delta, pdata, kid = args
+    E, D = meas.shape[0], info.shape[1]
+    nan = lambda *shape: torch.full(shape, float("nan"), dtype=meas.dtype,
+                                    device=meas.device)
+    resid, rho1 = nan(E + pad, D), nan(E + pad)
+    jacs = tuple(nan(E + pad, D, registry.vertex_type(n).tangent_dim)
+                 for n in registry.edge_type(tname).vertex_types)
+    slots = [p for s in zip(_ptrs(params, 3), _ptrs(free, 3),
+                            _ptrs(indices, 3)) for p in s]
+    build.launch("g2o_" + edge_lin.LINEARIZERS[tname], meas, *slots,
+                 meas.data_ptr(), info.data_ptr(), delta.data_ptr(),
+                 *_ptrs(pdata, 2), int(kid), resid.data_ptr(),
+                 *_ptrs(jacs, 3), rho1.data_ptr(), E)
+    return resid, jacs, rho1
+
+
+# group sizes around the tiles of the thread-per-edge kernels over K17's
+# functors (a one-warp tile of 32 edges and one of 128 for the closed
+# forms, 256 for the trial chi2) and the paths' 80,000 and 400,000 edges
+TILE_EDGE_SIZES = (1, 31, 32, 33, 127, 128, 129, 255, 256, 257, 80000,
+                   400000)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_edge_lin_closed_forms_at_tile_edges_on_gpu(cuda, dtype):
+    """K17's closed forms (EDGE_SE2, XYZ2UV, XYZ2UVU) on seeded groups of
+    TILE_EDGE_SIZES edges under Huber: against the plain version
+    (_lin_matches_plain); launched into outputs prefilled with NaN past E,
+    nothing is written past E, and three runs give the wrapper's bits."""
+    import chip_smoke
+    from openslam_g2o_torch.core import registry
+    from openslam_g2o_torch.kernels import edge_lin
+    closed = [t for t in edge_lin.LINEARIZERS
+              if registry.edge_type(t).jacobian is not None]
+    assert closed == ["edge_se2", "edge_project_xyz2uv",
+                      "edge_project_xyz2uvu"]
+    flat = lambda o: (o[0], *o[1], o[2])
+    for tname in closed:
+        for E in TILE_EDGE_SIZES:
+            args = chip_smoke.lin_group(torch, tname, E, dtype, cuda,
+                                        kernel_id=1, seed=E)
+            fn = edge_lin.linearizer(tname)
+            _lin_matches_plain(fn, tname, args, dtype, (tname, E))
+            want = flat(fn(*args))
+            for _ in range(3):
+                got = flat(_lin_padded(tname, args))
+                for g_, w_ in zip(got, want, strict=True):
+                    assert torch.equal(g_[:E], w_), (tname, E)
+                    assert torch.isnan(g_[E:]).all(), (tname, E)
+            del args, want, got
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_trial_chi2_at_tile_edges_on_gpu(cuda, dtype):
+    """K7's chi2 of every edge type on seeded groups of TILE_EDGE_SIZES
+    edges under Huber: trial.partial_count(E) = ceil(E / 256) partials,
+    one a tile of 256 edges, each with the bits of a launch on its tile's
+    edges alone (the first, a middle and the last tile); a launch into a
+    buffer prefilled with NaN writes nothing past them; their sum against
+    the plain version (TOL_K7); chi2_sum gives the sum lm_outcome takes of
+    them; three runs give the same bits."""
+    import chip_smoke
+    from openslam_g2o_torch.kernels import build, trial
+    one = lambda v: torch.tensor(v, dtype=dtype, device=cuda)
+    for tname in trial.CHI2:
+        fn = trial.chi2_of(tname)
+        plain = getattr(trial, fn.__name__ + "_plain")
+        for E in TILE_EDGE_SIZES:
+            params, _, indices, meas, info, delta, pdata, _ = \
+                chip_smoke.lin_group(torch, tname, E, dtype, cuda,
+                                     kernel_id=1, seed=E)
+            args = (params, indices, meas, info, delta, pdata, 1)
+            n = trial.partial_count(E, meas.device)
+            assert n == (E + 255) // 256
+            part = fn(*args)
+            assert part.shape == (n,)
+            for _ in range(2):
+                assert torch.equal(fn(*args), part), (tname, E)
+            padded = torch.full((n + 5,), float("nan"), dtype=dtype,
+                                device=cuda)
+            slots = [p for s in zip(_ptrs(params, 3), _ptrs(indices, 3))
+                     for p in s]
+            build.launch("g2o_" + trial.CHI2[tname], meas, *slots,
+                         meas.data_ptr(), info.data_ptr(), delta.data_ptr(),
+                         *_ptrs(pdata, 2), 1, padded.data_ptr(), E)
+            assert torch.equal(padded[:n], part), (tname, E)
+            assert torch.isnan(padded[n:]).all(), (tname, E)
+            for b in sorted({0, n // 2, n - 1}):
+                sl = slice(256 * b, min(256 * (b + 1), E))
+                alone = fn(params, tuple(i[sl] for i in indices), meas[sl],
+                           info[sl], delta[sl], tuple(p[sl] for p in pdata),
+                           1)
+                assert alone.shape == (1,)
+                assert torch.equal(alone[0], part[b]), (tname, E, b)
+            assert _rel(part.sum(), plain(*args).sum()) < TOL_K7[dtype], \
+                (tname, E)
+            chi_new = retract_chi2.lm_outcome(
+                part, torch.ones(1, dtype=dtype, device=cuda),
+                torch.tensor(True, device=cuda), one(1.0), one(2.0),
+                one(1e30))[0]
+            assert torch.equal(trial.chi2_sum(part), chi_new), (tname, E)
+            del params, indices, meas, info, delta, pdata, args, part
+        torch.cuda.empty_cache()
