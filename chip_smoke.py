@@ -25,11 +25,12 @@ Phases (any failure raises and the script exits non-zero):
     device time, twice for the same bits, beside one index_put_ per slot
     pair, and on the 2D world once more with its width-3 instantiation
     switched off (a second build of dense_assemble.cu), for what that
-    instantiation saves. K17 (edge_lin_*, the linearizers of all 23
-    edge types: twenty in forward mode, EDGE_SE2 and the XYZ2UV / XYZ2UVU
-    projections in closed form) on the edge groups of their phase's scene
-    (LIN_ROWS: the worlds of 4d and 4f, the 4j BAL problem, the 4k and 4l
-    scenes, 4m's two-pose-group and stereo scenes) and, for the types of
+    instantiation saves. K17 (edge_lin_*, the linearizers of all 24
+    edge types: twenty-one in forward mode, EDGE_SE2 and the XYZ2UV /
+    XYZ2UVU projections in closed form) on the edge groups of their
+    phase's scene (LIN_ROWS: the worlds of 4d and 4f, the 4j BAL problem,
+    the 4k and 4l scenes, 4m's two-pose-group and stereo scenes, 4p's 80k
+    BAL camera scene) and, for the types of
     phase 4o, on a seeded group of 50,000 edges each (lin_group), twice
     for the same bits and by device time. K7 on the dense and Schur
     routes (trial_retract_* of every vertex type on a seeded group of
@@ -162,6 +163,29 @@ Phases (any failure raises and the script exits non-zero):
     plain route equal to rtol 1e-9 with the same trials, a second run
     bit-identical, K17 launched for each type, a linearize / assemble
     split;
+ 4p. BAL bundle adjustment with the 9-wide Snavely camera (models/bal.py):
+    the ba_80k and ba_400k geometries of synthetic_bal_problem turned into
+    BAL scenes (bal_camera_scene: BAL's negative-z convention, f = 800,
+    nonzero k1 and k2, pixel noise 1.0, the generator's perturbed poses
+    and points as the start, every camera but camera 0 started at f = 808
+    and k1 = k2 = 0), written as BAL text files in phase 3 and read by
+    load_bal_problem: lambda init + 10 iterations through
+    optimize(LevenbergMarquardtSchurELL(pcg 30, tol 0.05)) and, from the
+    same init, 10 through ba_ell_optimize_fused with one trial per
+    iteration and with ba_ell_step's trials; float32 at 80k (the
+    dense-Schur route) and 400k (the implicit route, with CG iterations
+    and device us per CG iteration of one trial's solve), float64 at 80k,
+    whose trajectory must equal the JAX package's float64 CPU trajectory
+    to the printed 5 digits (JAX_BAL_TRAJ); chi2 never increases and ends
+    at most 1.02 x (2E - 9(C - 1) - 3P); _SchurAuto's route on the 80k
+    graph (the dual-ELL solver); the float32 80k result written by
+    save_bal_problem and read back with the final chi2. Phase 3 holds
+    the instantiations this path adds at its shapes (rows @bal, @bal400k,
+    lane_block_mv@d9, edge_lin_bal and trial_chi2_bal@4p on the 80k
+    scene): K17 and K7 for EDGE_PROJECT_BAL and VERTEX_CAMERA_BAL, K10's
+    generic entry and owner sums at (9, 3), K11 and K4 at D = 9 (beside
+    torch.linalg.inv_ex and torch.bmm), K12 (beside the JAX route's
+    torch.matmul(B2, M2)) and K13;
  5. a small .g2o string through loads_g2o -> compile() (the default
     device) -> optimize(LevenbergMarquardtPCG()), chi2 decreasing and equal
     to the CPU run of the same graph; one with VERTEX_XY, EDGE_SE2_XY
@@ -172,7 +196,7 @@ Phases (any failure raises and the script exits non-zero):
     the dense LM; and a BA scene (PARAMS_CAMERAPARAMETERS, VERTEX_SE3:EXPMAP
     with camera-to-world in the file, VERTEX_XYZ, EDGE_PROJECT_XYZ2UV:EXPMAP,
     EDGE_SE3:EXPMAP) through LevenbergMarquardtSchurELL;
- 6. every kernel's launch count in the paths of phases 4-4i, each > 0. A
+ 6. every kernel's launch count in the paths of phases 4-4p, each > 0. A
     count is one per wrapper call that launched; cg_finish launches two
     kernels per vector and gershgorin_bound two per call. The 6x6
     instantiations are listed apart, with the launches of the SE3 and
@@ -193,11 +217,15 @@ Exits non-zero without printing a result when no GPU is visible.
 """
 from __future__ import annotations
 
+import atexit
 import ctypes
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # Relative tolerances against the plain version (largest |difference| over
@@ -233,20 +261,21 @@ TOL = {"edge_se2_blocks": {"float32": 1e-4, "float64": 1e-11},
            "se2", "se2_xy", "se2_bearing", "se2_prior", "se2_prior_xy",
            "se2_xy_calib", "se2_offset", "se2_xy_offset", "se3_depth",
            "se3_disparity", "se3_prior", "se3_offset", "se3_expmap",
-           "xyz2uv", "xyz2uvu", "p2mc", "p2sc", "sba_cam", "sba_scale")},
+           "xyz2uv", "xyz2uvu", "p2mc", "p2sc", "sba_cam", "sba_scale",
+           "bal")},
        # K7 on the dense and Schur routes: the candidate relative to its
        # largest entry, the summed chi2 and dot
        **{w_: {"float32": 1e-5, "float64": 1e-12} for w_ in (
            "chi2_sum", *("trial_retract_" + v_ for v_ in (
                "se2", "point_xy", "se3", "point_xyz", "se3_expmap",
-               "sba_point_xyz", "cam", "intrinsics")),
+               "sba_point_xyz", "cam", "intrinsics", "bal_camera")),
            *("trial_chi2_" + n_ for n_ in (
                "se2", "se2_xy", "se2_bearing", "se2_prior", "se2_prior_xy",
                "se2_xy_calib", "se2_offset", "se2_xy_offset", "se3",
                "se3_xyz", "se3_depth", "se3_disparity", "se3_prior",
                "se3_offset", "se3_expmap", "xyz2uv", "xyz2uvu", "psi2uv",
                "p2mc", "p2mc_intrinsics", "p2sc", "sba_cam",
-               "sba_scale")))},
+               "sba_scale", "bal")))},
        # the pixel residual cancels a projection of a few hundred pixels
        "ba_xyz2uv_blocks": {"float32": 1e-4, "float64": 1e-11},
        # downstream of a block inverse or of the Schur difference
@@ -394,13 +423,15 @@ KERNELS = {
                   "se2_xy_offset", "se3_depth", "se3_disparity",
                   "se3_prior", "se3_offset", "se3_expmap", "xyz2uv",
                   "xyz2uvu", "p2mc", "p2sc", "sba_cam", "sba_scale")},
+    # the BAL camera's projection (models/bal.py), in forward mode
+    "edge_lin_bal": ("edge_lin.cu", "openslam_g2o_tpu/core/problem.py:378"),
     # K7 on the dense, dual-ELL and general Schur routes: the candidate of
     # each vertex type (apply_update_parts), each edge type's robust chi2
     # (robust_chi2 over edge_chi2) and the sum of its partials
     **{"trial_retract_" + v_: ("trial.cu",
                                "openslam_g2o_tpu/core/problem.py:557")
        for v_ in ("se2", "point_xy", "se3", "point_xyz", "se3_expmap",
-                  "sba_point_xyz", "cam", "intrinsics")},
+                  "sba_point_xyz", "cam", "intrinsics", "bal_camera")},
     **{"trial_chi2_" + n_: ("trial.cu",
                             "openslam_g2o_tpu/core/problem.py:321")
        for n_ in ("se2", "se2_xy", "se2_bearing", "se2_prior",
@@ -408,7 +439,7 @@ KERNELS = {
                   "se2_xy_offset", "se3", "se3_xyz", "se3_depth",
                   "se3_disparity", "se3_prior", "se3_offset", "se3_expmap",
                   "xyz2uv", "xyz2uvu", "psi2uv", "p2mc", "p2mc_intrinsics",
-                  "p2sc", "sba_cam", "sba_scale")},
+                  "p2sc", "sba_cam", "sba_scale", "bal")},
     "chi2_sum": ("trial.cu", "openslam_g2o_tpu/core/problem.py:327"),
 }
 # K17's rows: wrapper -> the phase whose scene its phase-3 row is taken
@@ -419,7 +450,7 @@ LIN_ROWS = {"edge_lin_se3": "4f", "edge_lin_se3_xyz": "4f",
             "edge_lin_psi2uv": "4k", "edge_lin_p2mc_intrinsics": "4l",
             "edge_lin_se2": "4d", "edge_lin_se2_xy": "4d",
             "edge_lin_xyz2uv": "4j", "edge_lin_p2mc": "4m",
-            "edge_lin_p2sc": "4m",
+            "edge_lin_p2sc": "4m", "edge_lin_bal": "4p",
             **{"edge_lin_" + n_: "4o" for n_ in (
                 "se2_bearing", "se2_prior", "se2_prior_xy", "se2_xy_calib",
                 "se2_offset", "se2_xy_offset", "se3_depth", "se3_disparity",
@@ -443,7 +474,7 @@ LIN_VALUE_OPS = {"edge_se3": 390, "edge_se3_xyz": 225,
                  "edge_se3_expmap": 470, "edge_project_xyz2uv": 150,
                  "edge_project_xyz2uvu": 190, "edge_project_p2mc": 90,
                  "edge_project_p2sc": 105, "edge_sba_cam": 330,
-                 "edge_sba_scale": 16}
+                 "edge_sba_scale": 16, "edge_project_bal": 75}
 # K7's rows on the dense and Schur routes: wrapper -> a phase that must
 # launch it (its launches are those of every phase). Its phase-3 row is
 # taken on a seeded group of TRIAL_GROUP vertices (trial_vertex_group) or
@@ -453,6 +484,7 @@ TRIAL_ROWS = {"trial_retract_se2": "4d", "trial_retract_point_xy": "4d",
               "trial_retract_se3_expmap": "4g",
               "trial_retract_sba_point_xyz": "4g",
               "trial_retract_cam": "4o", "trial_retract_intrinsics": "4l",
+              "trial_retract_bal_camera": "4p",
               **{"trial_chi2_" + w_[len("edge_lin_"):]: ph_
                  for w_, ph_ in LIN_ROWS.items()},
               "chi2_sum": "4d"}
@@ -468,6 +500,7 @@ PHASE_ROWS = {"edge_lin_xyz2uv@4n": "4n", "edge_lin_xyz2uvu@4o": "4o",
               "trial_chi2_xyz2uv@4j": "4j", "trial_chi2_xyz2uv@4n": "4n",
               "trial_chi2_psi2uv@4k": "4k",
               "trial_chi2_p2mc_intrinsics@4l": "4l",
+              "trial_chi2_bal@4p": "4p",
               **{f"trial_chi2_{n_}@4o": "4o" for n_ in (
                   "se2_bearing", "se2_prior", "se2_prior_xy",
                   "se2_xy_calib", "se2_offset", "se2_xy_offset",
@@ -490,7 +523,7 @@ FLOAT64_PHASES = ("4d", "4f", "4o")
 # alone) and 2 D^2 of e^T Omega e
 RETRACT_OPS = {"se2": 6, "point_xy": 2, "se3": 75, "point_xyz": 3,
                "se3_expmap": 140, "sba_point_xyz": 3, "cam": 45,
-               "intrinsics": 4}
+               "intrinsics": 4, "bal_camera": 9}
 # the general Schur path's rows at the instantiations it adds: suffix -> its
 # phase, and what each kernel replaces there (openslam_g2o_tpu/core/ba.py)
 GENERAL_SUFFIXES = {"@psi2uv": "4k", "@intrinsics": "4l", "@d4": "4l",
@@ -507,8 +540,10 @@ GENERAL_REPLACES = {
 # the BA kernels' rows at the other shapes and instantiations of their
 # paths: suffix -> the phase whose launches the row reports (@400k: the
 # implicit route's shape; @2d: the 4d world, (Dp, dl) = (3, 2); @3d: the 4f
-# world, 3-wide residuals)
-BA_SUFFIXES = {"@400k": "4h", "@2d": "4i 2D", "@3d": "4i 3D"}
+# world, 3-wide residuals; @bal and @bal400k: phase 4p's BAL camera scenes,
+# (9, 3), on the dense-Schur and the implicit route)
+BA_SUFFIXES = {"@400k": "4h", "@2d": "4i 2D", "@3d": "4i 3D",
+               "@bal": "4p 80k", "@bal400k": "4p 400k"}
 # the 6x6 instantiations: report name -> (wrapper, source, replaces); their
 # launches are the wrapper's counts in the SE3 paths (phases 4e and 4f)
 KERNELS_D6 = {
@@ -549,6 +584,12 @@ JAX_SCHUR_TRAJ = {
     "p2mc_intrinsics": (17.08854, 3.70802, 1.54350, 1.11637, 1.01977,
                         1.00753, 1.00572, 1.00517, 1.00492, 1.00471),
 }
+# the JAX package's float64 CPU trajectory of optimize(prob,
+# LevenbergMarquardtSchurELL(pcg_iters=30, pcg_tol=0.05), iterations=10) on
+# phase 4p's 80k BAL camera scene (bal_camera_scene(path, 100, 10000)):
+# chi2 / expected per iteration after lambda init
+JAX_BAL_TRAJ = (1.99362, 1.03167, 1.00315, 1.00231, 1.00224, 1.00211,
+                1.00189, 1.00164, 1.00146, 1.00131)
 # LevenbergMarquardtSchur(), 30 iterations, on the scene of
 # examples/ba_anchored_inverse_depth_demo.py: the JAX package's final chi2,
 # float64 on the CPU (its make_scene, pixel noise 1.0, rng 11)
@@ -751,6 +792,122 @@ def anchored_demo_graph(Graph):
         for i, z in obs:
             g.add_edge("edge_project_psi2uv", (vid, i, anchor), z,
                        np.eye(2), param_ids=[0])
+    return g
+
+
+# -- phase 4p's BAL scenes ------------------------------------------------
+# The geometry of synthetic_bal_problem(C, P, 8) (ba_80k and ba_400k) seen
+# through the 9-wide Snavely camera of models/bal.py: its ground-truth
+# poses turned into BAL's convention (the points at negative z), focal
+# BAL_FOCAL and distortion BAL_DISTORTION, its observation lists projected
+# anew with pixel noise 1.0, and its perturbed initial poses and points as
+# the start, every camera but camera 0 (the gauge, exact) with intrinsics
+# BAL_START. Written as a BAL text file that both packages read.
+BAL_FOCAL = 800.0
+BAL_DISTORTION = (-0.05, 0.01)       # k1, k2 of every camera's truth
+BAL_START = (808.0, 0.0, 0.0)        # f (1% off), k1, k2 of the start
+BAL_PIXEL_NOISE = 1.0
+
+
+def _bal_cameras(w2c, intrinsics):
+    """World-to-camera (t, q) rows -> BAL cameras [C, 9]: the rotation and
+    translation turned by diag(1, -1, -1), the rotation as its Rodrigues
+    vector, then the intrinsics rows [C, 3]."""
+    import numpy as np
+    from openslam_g2o_torch.utils import np_lie
+    out = np.zeros((len(w2c), 9))
+    flip = np.array([1.0, 0.0, 0.0, 0.0])      # pi about x: diag(1, -1, -1)
+    for i, p in enumerate(w2c):
+        q = np_lie.quat_mul(flip, p[3:7])
+        q = -q if q[3] < 0 else q
+        n = np.linalg.norm(q[:3])
+        out[i, :3] = (2.0 * np.arctan2(n, q[3]) / n * q[:3] if n > 0
+                      else 2.0 * q[:3])
+        out[i, 3:6] = p[:3] * np.array([1.0, -1.0, -1.0])
+    out[:, 6:9] = intrinsics
+    return out
+
+
+def bal_camera_scene(path, n_cams, n_points, seed=0):
+    """Write the BAL scene of synthetic_bal_problem(n_cams, n_points, 8)
+    to `path` (observations point-major, as the generator lists them).
+    Returns {"n_obs": E, "expected": 2E - 9(C - 1) - 3P}, the gate's
+    expectation (bench.py:386-395 with the 9-wide camera)."""
+    import numpy as np
+    import torch
+    from openslam_g2o_torch.apps.simulator import synthetic_bal_problem
+    from openslam_g2o_torch.models.bal import snavely_project
+    prob, meta = synthetic_bal_problem(n_cams, n_points, BA_OBS, seed=seed,
+                                       dtype=torch.float64, device="cpu")
+    ea = prob.edges["edge_project_xyz2uv"]
+    pt = ea.indices[0].numpy().astype(np.int64)
+    cam = ea.indices[1].numpy().astype(np.int64)
+    truth = np.array([BAL_FOCAL, *BAL_DISTORTION])
+    cams_gt = _bal_cameras(meta["cams_w2c"], truth)
+    with torch.no_grad():
+        uv = snavely_project(torch.as_tensor(cams_gt[cam]),
+                             torch.as_tensor(meta["points"][pt])).numpy()
+    rng = np.random.default_rng(seed + 1)
+    uv = uv + rng.normal(0, BAL_PIXEL_NOISE, uv.shape)
+    start = np.tile(np.array(BAL_START), (n_cams, 1))
+    start[0] = truth
+    cams0 = _bal_cameras(prob.params["se3_expmap"].numpy(), start)
+    points0 = prob.params["sba_point_xyz"].numpy()
+    E = len(pt)
+    lines = [f"{n_cams} {n_points} {E}"]
+    lines += [f"{c} {p} {u!r} {v!r}" for c, p, (u, v) in
+              zip(cam.tolist(), pt.tolist(), uv.tolist())]
+    lines += [repr(v) for v in cams0.reshape(-1).tolist()]
+    lines += [repr(v) for v in points0.reshape(-1).tolist()]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return {"n_obs": E, "expected": 2 * E - 9 * (n_cams - 1) - 3 * n_points}
+
+
+def bal_camera_graph(Graph, n_cams=6, n_points=40, seed=4):
+    """A small BAL graph built with either package's Graph (the tests'
+    scene of the 9-wide camera): cameras in BAL's convention on a line at
+    z = 8 over a point cloud (tests/test_bal.py make_bal_file's layout),
+    every third at omega = 0 exactly, camera 1 at theta^2 = 1.13e-12 (just
+    above so3_exp's Taylor branch), the others turned by up to 0.3 rad;
+    focal 800 and seeded distortion; every camera sees every point with
+    pixel noise 0.5; the start perturbed (0.02 on the pose, 1% on f, the
+    distortion zeroed; points by 0.2), camera 0 (the gauge) fixed.
+    Vertex ids: cameras 0..C-1, points C + j."""
+    import numpy as np
+    import torch
+    from openslam_g2o_torch.models.bal import snavely_project
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-2, 2, (n_points, 3))
+    cams = np.zeros((n_cams, 9))
+    for i in range(n_cams):
+        if i == 1:
+            cams[i, :3] = (8e-7, 7e-7, 0.0)
+        elif i % 3:
+            cams[i, :3] = rng.uniform(-0.3, 0.3, 3)
+        cams[i, 3:6] = (i * 0.4 - n_cams * 0.2, 0.0, 8.0)
+        cams[i, 6:9] = (800.0, rng.uniform(-0.1, 0.1),
+                        rng.uniform(-0.02, 0.02))
+    with torch.no_grad():
+        uv = snavely_project(torch.as_tensor(cams)[:, None],
+                             torch.as_tensor(pts)[None]).numpy()
+    uv = uv + rng.normal(0, 0.5, uv.shape)
+    g = Graph()
+    for i in range(n_cams):
+        c0 = cams[i].copy()
+        if i:
+            c0[:6] += rng.normal(0, 0.02, 6)
+            c0[6:9] = (c0[6] * 1.01, 0.0, 0.0)
+        if i % 3 == 0:
+            c0[:3] = 0.0
+        g.add_vertex(i, "bal_camera", c0, fixed=(i == 0))
+    for j in range(n_points):
+        g.add_vertex(n_cams + j, "sba_point_xyz",
+                     pts[j] + rng.normal(0, 0.2, 3), marginalized=True)
+    for j in range(n_points):
+        for i in range(n_cams):
+            g.add_edge("edge_project_bal", (n_cams + j, i), uv[i, j],
+                       np.eye(2))
     return g
 
 
@@ -1185,6 +1342,15 @@ def lin_group(torch, type_name, n_edges, dtype, device, kernel_id=0,
                           U(n, 1, lo=220, hi=260), U(n, 1, lo=0.05,
                                                         hi=0.15)], 1)[:, :w]
 
+    def bal(n):
+        """BAL cameras (omega, t, f, k1, k2), every fifth at omega = 0 (the
+        Taylor branch of so3_exp)"""
+        om = U(n, 3, lo=-0.3, hi=0.3)
+        om[::5] = 0.0
+        return torch.cat([om, U(n, 3, lo=-0.5, hi=0.5),
+                          U(n, 1, lo=480, hi=520), U(n, 1, lo=-0.1, hi=0.1),
+                          U(n, 1, lo=-0.02, hi=0.02)], 1)
+
     n = max(n_edges // 4, 16)
     if type_name == "edge_project_psi2uv":   # inverse depth in the anchor
         point = lambda n_: torch.cat([U(n_, 2, lo=-0.4, hi=0.4),
@@ -1196,7 +1362,7 @@ def lin_group(torch, type_name, n_edges, dtype, device, kernel_id=0,
         "se3": lambda: pose(n), "se3_expmap": lambda: pose(n),
         "point_xyz": lambda: point(n), "sba_point_xyz": lambda: point(n),
         "cam": lambda: torch.cat([pose(n), intr(n, 5)], 1),
-        "intrinsics": lambda: intr(4, 5)}
+        "intrinsics": lambda: intr(4, 5), "bal_camera": lambda: bal(n)}
     tables = {vt: vertex[vt]() for vt in dict.fromkeys(et.vertex_types)}
     E = n_edges
     indices, first = [], {}
@@ -1284,7 +1450,10 @@ def trial_vertex_group(torch, vname, n, dtype, device, seed=0):
             "point_xyz": lambda: U(n, 3, lo=-2, hi=8),
             "sba_point_xyz": lambda: U(n, 3, lo=-2, hi=8),
             "cam": lambda: torch.cat([pose(), intr()], 1),
-            "intrinsics": intr}
+            "intrinsics": intr,
+            "bal_camera": lambda: torch.cat([
+                U(n, 3, lo=-0.3, hi=0.3), U(n, 3, lo=-0.5, hi=0.5),
+                U(n, 1, lo=480, hi=520), U(n, 2, lo=-0.05, hi=0.05)], 1)}
     x = make[vname]()
     D = vt.tangent_dim
     dxT = 0.05 * (2 * torch.rand(D, n, generator=gen, dtype=f64) - 1)
@@ -1507,6 +1676,8 @@ def main() -> int:
         chebyshev, damp_chol, dense_assemble, edge_lin, edge_se2, edge_se3,
         gather, jacobi_scale, retract_chi2, schur_general, spmv, trial)
     from openslam_g2o_torch.core import registry as registry_mod
+    from openslam_g2o_torch.models.bal import (
+        load_bal_problem, save_bal_problem)
     from openslam_g2o_torch.utils import np_lie
 
     # -- 1. device --------------------------------------------------------
@@ -2646,8 +2817,24 @@ def main() -> int:
             del skew
             del dargs, once, dprob
 
-    # K10-K13 on the BAL problems of phases 4g and 4h and on the landmark
-    # worlds of 4i (the generic entry and the (3, 2) instantiations)
+    # phase 4p's BAL camera scenes, written once as BAL text files (removed
+    # when the script exits)
+    bal_dir = tempfile.mkdtemp(prefix="chip_smoke_bal_")
+    atexit.register(shutil.rmtree, bal_dir, True)
+    bal_scenes = {}
+    for key_b, (nc_b, np_b) in (("80k", BA_80K), ("400k", BA_400K)):
+        path_b = os.path.join(bal_dir, f"bal_{key_b}.txt")
+        t_b = time.monotonic()
+        bal_scenes[key_b] = dict(bal_camera_scene(path_b, nc_b, np_b),
+                                 path=path_b, shape=(nc_b, np_b))
+        print(f"phase 3 BAL scene {key_b}: bal_camera_scene({nc_b}, {np_b})"
+              f" -> {bal_scenes[key_b]['n_obs']} observations in "
+              f"{time.monotonic() - t_b:.2f} s on the host")
+    bal80_path = bal_scenes["80k"]["path"]
+
+    # K10-K13 on the BAL problems of phases 4g and 4h, on the landmark
+    # worlds of 4i (the generic entry and the (3, 2) instantiations) and on
+    # phase 4p's BAL camera scenes ((9, 3))
     def ba_rows(bprob, sfx, tag, s, with_schur):
         """Every Schur BA kernel against its plain version on one problem,
         in the order _build and _solve run them; rows labelled kernel +
@@ -2715,6 +2902,14 @@ def main() -> int:
                      + 4 * Eg,
                      flops=2 * R * (dl + dp) * (R + dl + dp + 1) * Eg,
                      label="ba_edge_blocks" + sfx, slow_plain=True)
+                if dp == 9:
+                    first = [t_.clone() for t_ in got.tensors()]
+                    ba_edge.ba_edge_blocks(*gargs, got, pg.offset)
+                    if not all(torch.equal(a_, b_) for a_, b_ in
+                               zip(first, got.tensors())):
+                        raise AssertionError(f"ba_edge_blocks{sfx} does not "
+                                             "repeat its bits")
+                    del first
                 device_rows("ba_edge_blocks" + sfx, tag, {
                     "kernel": lambda a=gargs, o=pg.offset:
                         ba_edge.ba_edge_blocks(*a, got, o)})
@@ -2885,7 +3080,7 @@ def main() -> int:
         if not torch.equal(v, ba_coupling.ba_wtx(W_lm, bpat.lm_cam, x,
                                                  hinv=Hinv)):
             raise AssertionError(f"ba_wtx{sfx} does not repeat its bits")
-        if sfx in ("", "@400k"):
+        if sfx in ("", "@400k", "@bal", "@bal400k"):
             device_rows("ba_wtx" + sfx, tag, {
                 "kernel": lambda: ba_coupling.ba_wtx(W_lm, bpat.lm_cam, x,
                                                      hinv=Hinv),
@@ -2916,32 +3111,69 @@ def main() -> int:
         device_rows("ba_wv" + sfx, tag, {
             "kernel": wv_call,
             "CSR product, W·v only": lambda: W_csr @ v_col})
-        case("ba_sandwich", tag, f"C={C} E={E} chunks={rows_c.n_chunks}",
-             lambda: ba_coupling.ba_sandwich(W_cam, rows_c, Hinv, Hcc_d),
-             lambda: ba_coupling.ba_sandwich_plain(W_cam, rows_c, Hinv,
-                                                   Hcc_d),
-             nbytes=s * (dp * dl * E + dl * dl * L + 2 * dp * dp * C)
-             + 4 * (E + rows_c.n_chunks + C + 1),
-             flops=2 * (dp * dl * dl + dp * dp * dl) * E,
-             label="ba_sandwich" + sfx, slow_plain=True)
-        sand_call = lambda: ba_coupling.ba_sandwich(W_cam, rows_c, Hinv,
-                                                    Hcc_d)
-        if not torch.equal(sand_call(), sand_call()):
-            raise AssertionError(f"ba_sandwich{sfx} does not repeat its "
-                                 "bits")
-        device_rows("ba_sandwich" + sfx, tag, {"kernel": sand_call})
-        s_blocks = ba_coupling.ba_sandwich(W_cam, rows_c, Hinv, Hcc_d)
-        cond = float(torch.linalg.cond(
-            s_blocks.view(dp, dp, C).permute(2, 0, 1).double()).max())
-        case("ba_block_inv", tag, f"D={dp} N={C}, the preconditioner blocks, "
-             f"condition number up to {cond:.2e}",
-             lambda: ba_inv.ba_block_inv(s_blocks)[1],
-             lambda: ba_inv.ba_block_inv_plain(s_blocks)[1],
-             nbytes=s * 2 * dp * dp * C, flops=(500 if dp == 6 else 60) * C,
-             label="ba_block_inv@cam" + sfx,
-             library=lambda: torch.linalg.inv(
-                 s_blocks.view(dp, dp, C).permute(2, 0, 1)), slow_plain=True,
-             tol=block_inv_tol(tag, cond))
+        # the preconditioner blocks, their 9-wide inverse and K4: not on the
+        # BAL camera's dense-Schur route, which forms none (phase 3 holds
+        # them at 400k, where the implicit route runs them)
+        if not (dp == 9 and with_schur):
+            case("ba_sandwich", tag, f"C={C} E={E} chunks={rows_c.n_chunks}",
+                 lambda: ba_coupling.ba_sandwich(W_cam, rows_c, Hinv, Hcc_d),
+                 lambda: ba_coupling.ba_sandwich_plain(W_cam, rows_c, Hinv,
+                                                       Hcc_d),
+                 nbytes=s * (dp * dl * E + dl * dl * L + 2 * dp * dp * C)
+                 + 4 * (E + rows_c.n_chunks + C + 1),
+                 flops=2 * (dp * dl * dl + dp * dp * dl) * E,
+                 label="ba_sandwich" + sfx, slow_plain=True)
+            sand_call = lambda: ba_coupling.ba_sandwich(W_cam, rows_c, Hinv,
+                                                        Hcc_d)
+            if not torch.equal(sand_call(), sand_call()):
+                raise AssertionError(f"ba_sandwich{sfx} does not repeat its "
+                                     "bits")
+            device_rows("ba_sandwich" + sfx, tag, {"kernel": sand_call})
+            s_blocks = ba_coupling.ba_sandwich(W_cam, rows_c, Hinv, Hcc_d)
+            cond = float(torch.linalg.cond(
+                s_blocks.view(dp, dp, C).permute(2, 0, 1).double()).max())
+            case("ba_block_inv", tag, f"D={dp} N={C}, the preconditioner "
+                 f"blocks, condition number up to {cond:.2e}",
+                 lambda: ba_inv.ba_block_inv(s_blocks)[1],
+                 lambda: ba_inv.ba_block_inv_plain(s_blocks)[1],
+                 nbytes=s * 2 * dp * dp * C,
+                 flops={3: 60, 6: 500, 9: 1500}[dp] * C,
+                 label="ba_block_inv@cam" + sfx,
+                 library=lambda: torch.linalg.inv(
+                     s_blocks.view(dp, dp, C).permute(2, 0, 1)),
+                 slow_plain=True, tol=block_inv_tol(tag, cond))
+            if dp == 9:
+                # K11 and K4 at D = 9: the implicit route's preconditioner
+                # on the BAL camera, beside torch.linalg.inv_ex and
+                # torch.bmm
+                batch = lambda t: t.view(dp, dp, C).permute(2, 0, 1) \
+                    .contiguous()
+                s_batch = batch(s_blocks)
+                device_rows("ba_block_inv@cam" + sfx, tag, {
+                    "kernel": lambda: ba_inv.ba_block_inv(s_blocks),
+                    "torch.linalg.inv_ex on [N, 9, 9]":
+                        lambda: torch.linalg.inv_ex(s_batch)[0]})
+                s_binv = ba_inv.ba_block_inv(s_blocks)[1]
+                if not torch.equal(s_binv, ba_inv.ba_block_inv(s_blocks)[1]):
+                    raise AssertionError(f"ba_block_inv@cam{sfx} does not "
+                                         "repeat its bits")
+                binv_batch = batch(s_binv)
+                x_b = x.T.contiguous()[:, :, None]
+                mv = lambda: jacobi_scale.lane_block_mv(s_binv, x)
+                case("lane_block_mv", tag, f"D={dp} N={C}, the "
+                     "preconditioner applied", mv,
+                     lambda: jacobi_scale.lane_block_mv_plain(s_binv, x),
+                     nbytes=s * (dp * dp + 2 * dp) * C,
+                     flops=2 * dp * dp * C, label="lane_block_mv@d9",
+                     library=lambda: torch.bmm(binv_batch, x_b))
+                if not torch.equal(mv(), mv()):
+                    raise AssertionError("lane_block_mv@d9 does not repeat "
+                                         "its bits")
+                device_rows("lane_block_mv@d9", tag, {
+                    "kernel": mv,
+                    "torch.bmm on [N, 9, 9] x [N, 9, 1]":
+                        lambda: torch.bmm(binv_batch, x_b)})
+                del s_batch, s_binv, binv_batch, x_b
         if with_schur:
             # the JAX route's operands: B2 [Tp, dl L], M2 = [HB2^T | hib]
             B2 = W_csr.to_dense()
@@ -2990,8 +3222,9 @@ def main() -> int:
                 "kernel, both record copies": both_copies,
                 "kernel, W's records made once per linearization (as "
                 "_solve calls it)": schur_call,
-                **({} if sfx else {"torch.matmul(B2, M2) of the JAX route":
-                                  lambda: B2 @ M2})})
+                **({} if sfx not in ("", "@bal") else {
+                    "torch.matmul(B2, M2) of the JAX route":
+                        lambda: B2 @ M2})})
             if not torch.equal(schur_call(), schur_call()):
                 raise AssertionError("ba_schur_dense does not repeat its "
                                      "bits")
@@ -3005,6 +3238,12 @@ def main() -> int:
                                             (BA_400K, "@400k", False)):
             ba_rows(synthetic_bal_problem(nc, npts, BA_OBS, dtype=dt)[0],
                     sfx, tag, s, with_schur)
+        # (9, 3): the BAL camera scenes of phase 4p, the generic entry over
+        # K17's linearization of EDGE_PROJECT_BAL
+        for key_b, sfx, with_schur in (("80k", "@bal", True),
+                                       ("400k", "@bal400k", False)):
+            ba_rows(load_bal_problem(bal_scenes[key_b]["path"],
+                                     dtype=dt)[0], sfx, tag, s, with_schur)
         # K12 at (3, 2) on the 2D world (4i's dense-Schur run)
         for world_g, sfx in ((world, "@2d"), (world3, "@3d")):
             ba_rows(world_g.compile(dtype=dt), sfx, tag, s, sfx == "@2d")
@@ -3302,7 +3541,8 @@ def main() -> int:
                  lambda: general_graphs["@intrinsics"].compile(dtype=dt)),
                 ("4m", lambda: two_pose_group_graph(
                     Graph, geo_two).compile(dtype=dt)),
-                ("4m", lambda: stereo_sba_graph(Graph).compile(dtype=dt))):
+                ("4m", lambda: stereo_sba_graph(Graph).compile(dtype=dt)),
+                ("4p", lambda: load_bal_problem(bal80_path, dtype=dt)[0])):
             lprob = make()
             for eg in lprob.static.egroups:
                 wname = edge_lin.LINEARIZERS[eg.etype.name]
@@ -3355,6 +3595,7 @@ def main() -> int:
         ("4l", lambda dt: general_graphs["@intrinsics"].compile(dtype=dt)),
         ("4n", lambda dt: synthetic_bal_problem(*BA_400K, BA_OBS,
                                                 dtype=dt)[0]),
+        ("4p", lambda dt: load_bal_problem(bal80_path, dtype=dt)[0]),
         *(("4o", lambda dt, g_=make_o(Graph, *size_o): g_.compile(dtype=dt))
           for make_o, size_o in ((world2d_all_graph, ALL2D),
                                  (world3d_all_graph, ALL3D),
@@ -4879,6 +5120,171 @@ def main() -> int:
         del oprob, out_o, again_o, plain_o, holder_o, dpat_o
         torch.cuda.empty_cache()
 
+    # 4p. BAL bundle adjustment (models/bal.py, the 9-wide Snavely camera)
+    # on the dual-ELL Schur solver, on phase 3's scenes (bal_camera_scene at
+    # ba_80k and ba_400k) as load_bal_problem reads them: lambda init + 10
+    # iterations through optimize(LevenbergMarquardtSchurELL(pcg 30, tol
+    # 0.05)) and, from the same init, 10 through ba_ell_optimize_fused with
+    # one trial per iteration and with ba_ell_step's trials; float32 at
+    # both shapes (80k: the dense-Schur route, 400k: the implicit one) and
+    # float64 at 80k, held to the JAX package's float64 CPU trajectory;
+    # _SchurAuto's route on the 80k graph; the float32 80k result written
+    # by save_bal_problem and read back
+    counts_bal = {}
+
+    def bal_path(key, dt):
+        sc = bal_scenes[key]
+        n_cams, n_points = sc["shape"]
+        expected = float(sc["expected"])
+        tag_b = str(dt).split(".")[-1]
+        phase = f"4p {key} {tag_b}"
+        dense = key == "80k"
+        t_l = time.monotonic()
+        bprob, meta = load_bal_problem(sc["path"], dtype=dt)
+        t_l = time.monotonic() - t_l
+        if bprob.device.type != "cuda" or meta["n_obs"] != sc["n_obs"]:
+            raise AssertionError(f"phase {phase}: {bprob.device}, "
+                                 f"{meta['n_obs']} observations")
+        chi0 = float(robust_chi2(bprob))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out, stats = optimize(bprob, ba_ell.LevenbergMarquardtSchurELL(
+            **BA_PCG), iterations=10)
+        traj = [st_["chi2"] for st_ in stats]
+        opt_ms = 1e3 * stats[-1]["cum_time"] / len(stats)
+        alg = ba_ell.LevenbergMarquardtSchurELL(**BA_PCG)
+        state = alg.init(bprob)
+        pattern = alg.pattern(bprob)
+        if ba_ell.dense_schur_ok(bprob, pattern) != dense:
+            raise AssertionError(f"phase {phase}: the route is not the "
+                                 f"{'dense' if dense else 'implicit'} one")
+        st0 = (state["params"], state["lam"], state["ni"], state["chi2"])
+        fused = {}
+        for per_iter in (True, False):
+            torch.cuda.synchronize()
+            cg0 = kernels.launch_counts()["cg_update_xr"]
+            t1 = time.monotonic()
+            res = ba_ell.ba_ell_optimize_fused(
+                bprob, pattern, *st0, n_iters=10, trial_per_iter=per_iter,
+                **BA_PCG)
+            torch.cuda.synchronize()
+            fused[per_iter] = (res[4].tolist(),
+                               (time.monotonic() - t1) * 100,
+                               kernels.launch_counts()["cg_update_xr"] - cg0)
+        counts = kernels.launch_counts()
+        for w_ in (ba_inv.ba_block_inv, jacobi_scale.lane_block_mv):
+            counts[f"{w_.__name__}@d9"] = w_.launches_by_width[9]
+        counts_bal[(key, tag_b)] = counts
+        print(f"phase {phase} BAL {'dense-Schur' if dense else 'implicit'} "
+              f"route: bal_camera_scene{sc['shape']} read by "
+              f"load_bal_problem in {t_l:.2f} s; E={sc['n_obs']} "
+              f"K_l={pattern.lm_edge.shape[0]} Tp={pattern.pose_dim} "
+              f"{tag_b}, pcg {BA_PCG['pcg_iters']} tol {BA_PCG['pcg_tol']}; "
+              f"chi2_0 {chi0:.1f}; optimize(LevenbergMarquardtSchurELL) "
+              f"{opt_ms:.3f} ms/LM iteration "
+              f"({sum(st_['levenberg_iters'] for st_ in stats)} trials); "
+              f"ba_ell_optimize_fused {fused[True][1]:.3f} ms/LM iteration "
+              f"(one trial each, {fused[True][2]} CG iterations), with "
+              f"ba_ell_step's trials {fused[False][1]:.3f} ms/LM iteration "
+              f"({fused[False][2]} CG iterations) [{card}]")
+        for what, tr in (("optimize", traj), ("fused", fused[True][0]),
+                         ("step", fused[False][0])):
+            print(f"phase {phase} chi2 / expected ({expected:.1f}) {what}: "
+                  + " ".join(f"{c / expected:.5f}" for c in tr))
+            steps = np.diff(np.array([chi0] + tr))
+            if not (np.all(np.isfinite(tr)) and np.all(steps <= 0)):
+                raise AssertionError(f"phase {phase} {what}: chi2 not finite "
+                                     f"or increasing: {tr}")
+            if tr[-1] > BA_GATE * expected:
+                raise AssertionError(f"phase {phase} {what}: chi2 {tr[-1]} "
+                                     f"above {BA_GATE} x {expected}")
+        print(f"phase {phase} final chi2 {traj[-1]:.1f} expected 2E - 9(C - "
+              f"1) - 3P = {expected:.1f} ratio {traj[-1] / expected:.5f} "
+              f"(gate {BA_GATE}); never increases")
+        used = ("ba_schur_dense",) if dense else ("ba_sandwich",
+                                                  "lane_block_mv@d9")
+        unused = "ba_sandwich" if dense else "ba_schur_dense"
+        if min(counts[k] for k in used) <= 0 or counts[unused]:
+            raise AssertionError(f"phase {phase}: the launches show another "
+                                 f"route: {counts}")
+        if not dense:
+            # one trial's solve at the end state, lambda of the fused run's
+            # end: wall, then device time by the profiler
+            work = bprob.with_params(res[0])
+            sys_ = ba_ell._build(work, pattern)
+            lam_t = res[1]
+            solve = lambda: ba_ell._solve(work, pattern, sys_, lam_t,
+                                          BA_PCG["pcg_iters"],
+                                          BA_PCG["pcg_tol"])
+            solve()
+            torch.cuda.synchronize()
+            before = kernels.launch_counts()["cg_update_xr"]
+            t2 = time.monotonic()
+            solve()
+            torch.cuda.synchronize()
+            wall = (time.monotonic() - t2) * 1e6
+            n_cg = max(kernels.launch_counts()["cg_update_xr"] - before, 1)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof_p:
+                solve()
+                torch.cuda.synchronize()
+            rows_p = sorted(((e.self_device_time_total, e.count, e.key)
+                             for e in prof_p.key_averages()
+                             if e.device_type
+                             == torch.autograd.DeviceType.CUDA
+                             and e.self_device_time_total > 0),
+                            reverse=True)
+            busy = sum(r[0] for r in rows_p)
+            if busy <= 0:
+                raise AssertionError(f"phase {phase}: the profiler saw no "
+                                     "device time")
+            print(f"phase {phase} one trial's solve at the end ({n_cg} CG "
+                  f"iterations, lambda {float(lam_t):.4g}): wall "
+                  f"{wall / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms: "
+                  f"{wall / n_cg:.1f} us of wall and {busy / n_cg:.1f} us of "
+                  f"device time per CG iteration, idle share "
+                  f"{100 * (1 - busy / wall):.1f}%; by kernel: "
+                  + "; ".join(f"{k_[:40]} {us / n_:.1f} us x {n_}"
+                              for us, n_, k_ in rows_p[:8]) + f" [{card}]")
+            del work, sys_
+        if key == "80k" and dt == torch.float64:
+            got_traj = tuple(float(f"{c / expected:.5f}") for c in traj)
+            print(f"phase {phase} the JAX package, float64 on the CPU: "
+                  + " ".join(f"{c:.5f}" for c in JAX_BAL_TRAJ))
+            if got_traj != JAX_BAL_TRAJ:
+                raise AssertionError(f"phase {phase}: {got_traj} is not the "
+                                     f"JAX package's {JAX_BAL_TRAJ}")
+        if key == "80k" and dt == torch.float32:
+            auto = factory._SchurAuto(**BA_PCG)
+            auto.init(bprob)
+            print(f"phase {phase} _SchurAuto on this graph: "
+                  f"{type(auto.impl).__name__}")
+            if not isinstance(auto.impl, ba_ell.LevenbergMarquardtSchurELL):
+                raise AssertionError(f"phase {phase}: _SchurAuto chose "
+                                     f"{type(auto.impl).__name__}")
+            del auto
+            saved = os.path.join(bal_dir, "bal_80k_result.txt")
+            save_bal_problem(out, saved)
+            back, _ = load_bal_problem(saved, dtype=dt)
+            chi_back = float(robust_chi2(back))
+            print(f"phase {phase} save_bal_problem of the result, read back: "
+                  f"chi2 {chi_back!r} against the final {traj[-1]!r}")
+            if chi_back != traj[-1]:
+                raise AssertionError(f"phase {phase}: the saved result's "
+                                     f"chi2 {chi_back} is not {traj[-1]}")
+            del back
+        del bprob, out, state, res
+        torch.cuda.empty_cache()
+
+    for key_b, dt_b in (("80k", torch.float32), ("400k", torch.float32),
+                        ("80k", torch.float64)):
+        bal_path(key_b, dt_b)
+    counts_4p = {}
+    for c_ in counts_bal.values():
+        for k, v in c_.items():
+            counts_4p[k] = counts_4p.get(k, 0) + v
+    shutil.rmtree(bal_dir, ignore_errors=True)
+
     # -- 5. a .g2o string through the public API ---------------------------
     rng = np.random.default_rng(5)
     g = Graph()
@@ -5062,7 +5468,10 @@ def main() -> int:
     # the BA wrappers' own rows count every BA path (4g, 4h, 4i); their
     # rows at other shapes and instantiations count their own phase
     by_phase = {"4g": counts_ba80, "4h": counts_ba400,
-                "4i 2D": counts_4i["2D"], "4i 3D": counts_4i["3D"]}
+                "4i 2D": counts_4i["2D"], "4i 3D": counts_4i["3D"],
+                "4p 80k": counts_bal[("80k", "float32")],
+                "4p 400k": counts_bal[("400k", "float32")],
+                "4p 80k float64": counts_bal[("80k", "float64")]}
     # ... and, with K14's wrapper, every general Schur phase (4j-4n)
     launches = {k: counts_main[k] + counts_cheb[k] + counts_probe[k]
                 + counts_dense[k] + (0 if k in two_rows else launches_d6[k])
@@ -5089,7 +5498,9 @@ def main() -> int:
                           ("4i 3D world Schur runs", counts_4i["3D"]),
                           *((f"{ph} general Schur path", c_)
                             for ph, c_ in counts_gen.items()),
-                          ("4o dense LM worlds", counts_4o)):
+                          ("4o dense LM worlds", counts_4o),
+                          *((f"4p BAL {k_} {t_} runs", c_)
+                            for (k_, t_), c_ in counts_bal.items())):
         print(f"phase 6 launches in the phase-{label}: "
               + " ".join(f"{k}={v}" for k, v in counts.items() if v))
     # the unpreconditioned solves run the two-launch step (spmv_dot_p),
@@ -5125,6 +5536,19 @@ def main() -> int:
                             "lane_block_mv", "cg_update_xr", "cg_update_p",
                             "lm_outcome")
                 if counts_ba400[k] <= 0]
+             + [f"{k} (4p {key_} {tag_})"
+                for (key_, tag_), c_ in counts_bal.items()
+                for k in (("edge_lin_bal", "trial_chi2_bal",
+                           "trial_retract_bal_camera",
+                           "trial_retract_sba_point_xyz", "ba_edge_blocks",
+                           "ba_lm_sums", "ba_cam_sums", "ba_block_inv",
+                           "ba_wtx", "ba_wv", "lm_outcome")
+                          + (("ba_schur_dense", "ba_schur_records")
+                             if key_ == "80k" else
+                             ("ba_sandwich", "ba_block_inv@d9",
+                              "lane_block_mv@d9", "cg_update_xr",
+                              "cg_update_p")))
+                if c_[k] <= 0]
              + [f"{k} ({w_})" for w_ in ("2D", "3D")
                 for k in ("ba_edge_blocks", "ba_lm_sums", "ba_cam_sums",
                           "ba_block_inv", "ba_sandwich", "ba_wtx", "ba_wv",
@@ -5144,14 +5568,16 @@ def main() -> int:
                 if c_.get("spmv_dot_p", 0) > 0]
              + [f"{k} ({ph})" for k, ph in LIN_ROWS.items()
                 if {"4d": counts_dense, "4f": counts_dense3,
-                    "4o": counts_4o, **counts_gen}[ph][k] <= 0]
+                    "4o": counts_4o, "4p": counts_4p,
+                    **counts_gen}[ph][k] <= 0]
              + [f"{k} ({ph})" for k, ph in TRIAL_ROWS.items()
                 if {"4d": counts_dense, "4f": counts_dense3,
-                    "4g": counts_ba80, "4o": counts_4o,
+                    "4g": counts_ba80, "4o": counts_4o, "4p": counts_4p,
                     **counts_gen}[ph][k] <= 0]
              + [k for k, ph in PHASE_ROWS.items()
                 if {"4d": counts_dense, "4f": counts_dense3,
-                    "4o": counts_4o, **counts_gen}[ph][k.split("@")[0]]
+                    "4o": counts_4o, "4p": counts_4p,
+                    **counts_gen}[ph][k.split("@")[0]]
                 <= 0]
              + [k for k in KERNELS if launches[k] <= 0])
     if never or set(KERNELS) != set(launches):
@@ -5172,7 +5598,8 @@ def main() -> int:
                           ("4g", counts_ba80), ("4h", counts_ba400),
                           ("4i 2D", counts_4i["2D"]),
                           ("4i 3D", counts_4i["3D"]),
-                          *counts_gen.items(), ("4o", counts_4o)):
+                          *counts_gen.items(), ("4o", counts_4o),
+                          ("4p", counts_4p)):
         k7_c = {k: counts[k] for k in k7_names if counts[k]}
         print(f"phase 6 K7 launches in phase {label}: "
               f"{sum(k7_c.values())} (" + " ".join(
@@ -5219,11 +5646,14 @@ def main() -> int:
         phase = next((ph for sfx, ph in BA_SUFFIXES.items()
                       if label.endswith(sfx)), "4g")
         src, replaces = KERNELS[row["kname"]]
+        # K11's 9-wide inverse rows: its launches at D = 9
+        key = row["kname"] + ("@d9" if label.startswith(
+            "ba_block_inv@cam@bal") else "")
         report["kernels"].append(
             {"name": label, "route": "cuda",
              "source": f"openslam_g2o_torch/kernels/csrc/{src}",
              "replaces": replaces,
-             "launches": by_phase[phase][row["kname"]],
+             "launches": by_phase[phase][key],
              "max_abs_err": row["abs"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -5247,7 +5677,7 @@ def main() -> int:
     # K17's closed forms and K7's chi2 at their phases' own group sizes,
     # with the launches of that phase and the figures of the dtype it runs
     phase_counts = {"4d": counts_dense, "4f": counts_dense3,
-                    "4o": counts_4o, **counts_gen}
+                    "4o": counts_4o, "4p": counts_4p, **counts_gen}
     for label, phase in PHASE_ROWS.items():
         row = results[(label, "float64" if phase in FLOAT64_PHASES
                        else "float32")]
@@ -5260,6 +5690,17 @@ def main() -> int:
              "max_abs_err": row["abs"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # K4 at D = 9, the implicit route's preconditioner on the BAL camera,
+    # with its launches at that width in phase 4p
+    row = results[("lane_block_mv@d9", "float32")]
+    report["kernels"].append(
+        {"name": "lane_block_mv@d9", "route": "cuda",
+         "source": "openslam_g2o_torch/kernels/csrc/jacobi_scale.cu",
+         "replaces": "openslam_g2o_tpu/core/ba_ell.py:808",
+         "launches": counts_4p["lane_block_mv@d9"],
+         "max_abs_err": row["abs"], "ms": row["ms"],
+         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+         "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

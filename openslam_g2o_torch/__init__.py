@@ -5,7 +5,8 @@ SE3 pose-graph Levenberg-Marquardt with block-Jacobi-scaled PCG on the
 block-sparse Hessian (3x3 and 6x6 blocks), the dense Gauss-Newton /
 Levenberg-Marquardt route over every type of models/slam2d.py and
 models/slam3d.py, and Schur-complement bundle adjustment (core/ba_ell.py,
-the expmap types of models/sba.py), from a .g2o file or a generator
+the expmap types of models/sba.py and the BAL camera of models/bal.py,
+read from a BAL file by `load_bal_problem`), from a .g2o file or a generator
 (apps/simulator.py) to a converged chi2; the hot loops run as hand-written CUDA kernels on an NVIDIA
 GPU (openslam_g2o_torch/kernels) and as their plain PyTorch versions on the
 CPU.
@@ -22,6 +23,7 @@ device="cpu" to run the plain versions on the CPU.
 from openslam_g2o_torch.models import slam2d as _slam2d  # registers 2D types
 from openslam_g2o_torch.models import slam3d as _slam3d  # registers 3D types
 from openslam_g2o_torch.models import sba as _sba  # registers the BA types
+from openslam_g2o_torch.models import bal as _bal  # the BAL camera and edge
 from openslam_g2o_torch.core.graph import Graph
 from openslam_g2o_torch.io.g2o_format import load_g2o, loads_g2o, save_g2o
 

@@ -196,11 +196,11 @@ def build_schur_pattern(problem: Problem) -> SchurPattern:
         offset += len(li)
         for t in pose_slots:
             g = static.vgroup(eg.slots[t])
-            if (g.tangent_dim, dl) not in ba_coupling.DIMS:
+            if (g.tangent_dim, dl) not in schur_general.DIMS:
                 raise NotImplementedError(
                     f"(pose, landmark) tangent widths {(g.tangent_dim, dl)} "
                     f"of edge group {eg.key} are not among the kernels' "
-                    f"instantiations {ba_coupling.DIMS}")
+                    f"instantiations {schur_general.DIMS}")
             per_group[g.name].append((len(cross_meta), li,
                                       host(ea.indices[t])))
             cross_meta.append((eg.key, t, g.name))

@@ -9,9 +9,10 @@ Routing: the dual-ELL solver (core/ba_ell.py) where its pattern builds,
 else the general Schur path (core/ba.py). The JAX class falls back on
 ValueError only (a non-binary landmark edge). The port's dual-ELL pattern
 also raises NotImplementedError, for a second pose group and for block
-widths outside its kernels' instantiations, where the JAX dual-ELL solver
-runs; `_SchurAuto` falls back on both, so such binary graphs take the
-general path here (ROADMAP.md queue 3, "route difference").
+widths outside its kernels' instantiations ((6, 3), (3, 2) and the BAL
+camera's (9, 3)), where the JAX dual-ELL solver runs; `_SchurAuto` falls
+back on both, so such binary graphs take the general path here (ROADMAP.md
+queue 3, "route difference"), which refuses (9, 3) in its turn.
 """
 from __future__ import annotations
 

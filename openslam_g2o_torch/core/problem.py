@@ -8,11 +8,11 @@ slots and are masked (their Jacobian columns are zeroed, the diagonal gets
 a 1). The JAX pytree becomes plain dicts keyed by group name, holding torch
 tensors on one device in one dtype.
 
-Every type of models/slam2d.py, models/slam3d.py and models/sba.py is
-supported. An edge type without an analytic Jacobian
+Every type of models/slam2d.py, models/slam3d.py, models/sba.py and
+models/bal.py is supported. An edge type without an analytic Jacobian
 is differentiated in forward mode (`linearize`): by the CUDA kernel K17 of
-kernels/edge_lin.py on the card for the four types it serves, by
-torch.func.jvp otherwise.
+kernels/edge_lin.py on the card for every built-in type, by
+torch.func.jvp on the CPU and for a type registered at run time.
 """
 from __future__ import annotations
 
@@ -35,7 +35,8 @@ __all__ = [
 ]
 
 SUPPORTED_VERTEX_TYPES = ("se2", "point_xy", "se3", "point_xyz",
-                          "se3_expmap", "sba_point_xyz", "cam", "intrinsics")
+                          "se3_expmap", "sba_point_xyz", "cam", "intrinsics",
+                          "bal_camera")
 SUPPORTED_EDGE_TYPES = (
     "edge_se2", "edge_se2_xy", "edge_se2_xy_bearing", "edge_se2_prior",
     "edge_se2_prior_xy", "edge_se2_xy_calib", "edge_se2_offset",
@@ -45,7 +46,7 @@ SUPPORTED_EDGE_TYPES = (
     "edge_se3_expmap", "edge_project_xyz2uv", "edge_project_xyz2uvu",
     "edge_project_psi2uv", "edge_project_p2mc",
     "edge_project_p2mc_intrinsics", "edge_project_p2sc", "edge_sba_cam",
-    "edge_sba_scale")
+    "edge_sba_scale", "edge_project_bal")
 
 
 @dataclass(frozen=True)
@@ -149,9 +150,9 @@ def resolve_device(device=None) -> torch.device:
 
 def check_supported(vtype_names, etype_names):
     """Raise NotImplementedError for types that are not ported: all but the
-    vertex and edge types of models/slam2d.py, models/slam3d.py and
-    models/sba.py, and any other registered edge type between those
-    vertices (the forward-mode linearizer serves it)."""
+    vertex and edge types of models/slam2d.py, models/slam3d.py,
+    models/sba.py and models/bal.py, and any other registered edge type
+    between those vertices (the forward-mode linearizer serves it)."""
     bad = sorted(set(vtype_names) - set(SUPPORTED_VERTEX_TYPES))
     bad += sorted(
         n for n in set(etype_names) - set(SUPPORTED_EDGE_TYPES)

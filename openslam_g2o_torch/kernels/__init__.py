@@ -52,7 +52,7 @@ blocks (SE3 poses); the shapes of the arguments pick the instantiation.
     trial.chi2_sum               the chi2 partials' sum    (ROADMAP K7)
 
 The `edge_lin` wrappers, one per edge type of openslam_g2o_torch.models
-(`edge_lin.LINEARIZERS`: twenty in forward mode, EDGE_SE2 and the two
+(`edge_lin.LINEARIZERS`: twenty-one in forward mode, EDGE_SE2 and the two
 XYZ2UV projections in closed form), serve core/problem.py
 `linearize_group` on the dense routes, the general Schur path and K10's
 generic entry; a type registered at run time keeps the generic route.
@@ -61,6 +61,10 @@ per edge type (`trial.CHI2`, from K17's functors), serve every trial of
 the dense GN / LM, the dual-ELL Schur and the general Schur routes and the
 chi2 at their inits (core/problem.py `trial_candidate`,
 `robust_chi2_parts`, `robust_chi2`, `lm_trial_outcome`).
+
+The dual-ELL solver takes (Dp, dl) = (6, 3), (3, 2) and (9, 3), the last
+the BAL camera of models/bal.py: K10's generic entry and owner sums, K12
+and K13 at (9, 3), K11 and K4's `lane_block_mv` at D = 9.
 
 The general Schur path (core/ba.py) also runs K10's `ba_lm_sums` without
 its W layout, K13's products (`ba_wtx` in one launch over all its pose

@@ -30,8 +30,8 @@ from openslam_g2o_torch.kernels._checks import (
 from openslam_g2o_torch.kernels.ba_edge import BLOCK_DIMS
 
 
-# the (Dp, dl) instantiations: the BA widths and the intrinsics group of
-# the general Schur path
+# the (Dp, dl) instantiations: the BA widths (the BAL camera's (9, 3)
+# among them) and the intrinsics group of the general Schur path
 DIMS = BLOCK_DIMS + ((4, 3),)
 # pose groups of one `ba_wtx` launch (kMaxWtxGroups of csrc/ba_coupling.cu):
 # the pose types that observe the SBA point (SE3 expmap and SBACam cameras,

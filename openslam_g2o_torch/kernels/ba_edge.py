@@ -20,7 +20,7 @@ records lie in order. `ba_lm_sums` sums Hll and b_l per landmark over the slot
 table [K, L] and lays W out landmark-major [Dp*dl, K, L]; `ba_cam_sums`
 sums Hcc and b_p per camera over the records, chunk by chunk (K13's
 `PoseRows`), and lays W out camera-major [Dp*dl, E] in CSR order.
-(Dp, dl) is (6, 3) or (3, 2), the residual width 1 to 3.
+(Dp, dl) is (6, 3), (3, 2) or (9, 3), the residual width 1 to 3.
 """
 from __future__ import annotations
 
@@ -33,7 +33,8 @@ from openslam_g2o_torch.kernels import build
 from openslam_g2o_torch.kernels._checks import (
     check_tensors, launch_device, require)
 
-BLOCK_DIMS = ((6, 3), (3, 2))      # the (Dp, dl) instantiations
+# the (Dp, dl) instantiations; (9, 3): the BAL camera of models/bal.py
+BLOCK_DIMS = ((6, 3), (3, 2), (9, 3))
 MAX_RESIDUAL = 3
 
 

@@ -3,11 +3,13 @@
 
 Replaces `_inv_lane` (openslam_g2o_tpu/core/ba_ell.py:376-417) with the
 damping of `_solve` folded in (:686-688, :694-702). Blocks are lane-major
-[D*D, N] tables (entry D a + b of block n), D in {2, 3, 4, 6}. The inverse
-is the JAX formula: the closed-form adjugate for D <= 3, the 2x2-block
-Schur inversion with 3x3 quadrants for D = 6 and with 2x2 quadrants for
-D = 4 (the intrinsics blocks of the general Schur path, core/ba.py, where
-the JAX package calls jnp.linalg.inv: equal to rounding). No Cholesky, so
+[D*D, N] tables (entry D a + b of block n), D in {2, 3, 4, 6, 9}. The
+inverse is the JAX formula: the closed-form adjugate for D <= 3, the
+2x2-block Schur inversion with 3x3 quadrants for D = 6, with 2x2 quadrants
+for D = 4 (the intrinsics blocks of the general Schur path, core/ba.py,
+where the JAX package calls jnp.linalg.inv: equal to rounding) and with
+quadrants of 4 and 5 for D = 9 (the BAL camera, models/bal.py), split
+again 2 + 2 and 2 + 3 as `_inv_lane` recurses. No Cholesky, so
 an indefinite block gives the same values on both packages and the dense
 factorization of S or PCG decides whether the solve is usable, as in the
 JAX code. A block whose products overflow gives NaN where the plain
@@ -25,7 +27,7 @@ from openslam_g2o_torch.kernels import build
 from openslam_g2o_torch.kernels._checks import (
     check_tensors, launch_device, require)
 
-WIDTHS = (2, 3, 4, 6)
+WIDTHS = (2, 3, 4, 6, 9)
 PLAIN, LANDMARK, CAMERA = 0, 1, 2          # the damping modes
 
 

@@ -87,9 +87,9 @@ def build_schur_pairs(lm_cam: np.ndarray, n_cam: int, device) -> SchurPairs:
                       i32(k2 * L + lm))
 
 
-# the tables K12 reads as records: W at (Dp, dl) = (6, 3) and (3, 2), Hinv
-# at dl = 3 and 2
-RECORD_ROWS = (18, 9, 6, 4)
+# the tables K12 reads as records: W at (Dp, dl) = (6, 3), (3, 2) and
+# (9, 3), Hinv at dl = 3 and 2
+RECORD_ROWS = (18, 9, 6, 4, 27)
 
 
 def record_width(rows: int, dtype) -> int:

@@ -94,7 +94,8 @@ for _name in ("se2", "se2_xy", "se2_bearing", "se2_prior", "se2_prior_xy",
               "se2_xy_calib", "se2_offset", "se2_xy_offset", "se3",
               "se3_xyz", "se3_depth", "se3_disparity", "se3_prior",
               "se3_offset", "se3_expmap", "xyz2uv", "xyz2uvu", "psi2uv",
-              "p2mc", "p2mc_intrinsics", "p2sc", "sba_cam", "sba_scale"):
+              "p2mc", "p2mc_intrinsics", "p2sc", "sba_cam", "sba_scale",
+              "bal"):
     _SIGNATURES["g2o_edge_lin_" + _name] = (_P,) * 14 + (_I,) + (_P,) * 5 + (
         _I, _P)
     # K7's trial chi2 of the same type (trial.cu; kernels/trial.py CHI2)
@@ -102,7 +103,7 @@ for _name in ("se2", "se2_xy", "se2_bearing", "se2_prior", "se2_prior_xy",
 # K7's trial retraction, one per vertex type (trial.cu; kernels/trial.py
 # RETRACTIONS)
 for _name in ("se2", "point_xy", "se3", "point_xyz", "se3_expmap",
-              "sba_point_xyz", "cam", "intrinsics"):
+              "sba_point_xyz", "cam", "intrinsics", "bal_camera"):
     _SIGNATURES["g2o_trial_retract_" + _name] = (
         _P, _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _I, _P)
 _SIGNATURES["g2o_chi2_sum"] = (_P, _I, _P, _P)

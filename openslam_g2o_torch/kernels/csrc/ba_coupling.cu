@@ -35,7 +35,9 @@
 // the one intrinsics vertex that every observation of the general path's
 // shared-intrinsics scene sees (degree 80,000) is 313 blocks, not one.
 // Every sum runs in a fixed order, without atomics on values: a run repeats
-// bit for bit. (Dp, dl) in {(6, 3), (4, 3), (3, 2)}.
+// bit for bit. (Dp, dl) in {(6, 3), (4, 3), (3, 2), (9, 3)} ((9, 3): the
+// BAL camera of models/bal.py; ba_sandwich's 81 sums a thread spill in
+// float64 there, on 900 cameras at the implicit route's shape).
 //
 // The TPU code gathered from degree-bucketed, K-chunked tables
 // (`_bucketize`, `_place`, `_bucket_scan`); here the landmark side walks the
@@ -86,7 +88,8 @@ struct WtxGroup {
 // the port's models that observes one landmark type (the SBA point's
 // SE3 expmap and SBACam cameras and the shared intrinsics), so that the
 // general path's S x is always one launch. Each group's Dp is read at run
-// time and picks a body built for it (6 or 4 at dl = 3, 3 at dl = 2).
+// time and picks a body built for it (6, 9 or 4 at dl = 3, 3 at dl = 2;
+// 9: the BAL camera of models/bal.py).
 constexpr int kMaxWtxGroups = 3;
 
 template <typename T>
@@ -140,6 +143,8 @@ __global__ void __launch_bounds__(kThreads) ba_wtx_kernel(
       if constexpr (DL == 3) {
         if (g.dp == 6)
           wtx_slots<T, 6, 3>(g, l, L, stripe, u);
+        else if (g.dp == 9)
+          wtx_slots<T, 9, 3>(g, l, L, stripe, u);
         else if (g.dp == 4)
           wtx_slots<T, 4, 3>(g, l, L, stripe, u);
       } else if (g.dp == 3) {
@@ -402,8 +407,8 @@ __global__ void __launch_bounds__(kCoupleThreads) ba_sandwich_kernel(
 
 // -- launchers ---------------------------------------------------------------
 
-// The groups fill gs.g from the front, each of a width DL serves (Dp 6 or 4
-// at DL = 3, 3 at DL = 2); anything else is refused.
+// The groups fill gs.g from the front, each of a width DL serves (Dp 6, 9
+// or 4 at DL = 3, 3 at DL = 2); anything else is refused.
 template <typename T>
 int launch_wtx(const WtxGroups<T>& gs, int n_lm, const T* hinv, const T* b,
                const T* free, const T* acc, int DL, T* out,
@@ -414,7 +419,7 @@ int launch_wtx(const WtxGroups<T>& gs, int n_lm, const T* hinv, const T* b,
     const int dp = gs.g[i].dp;
     if (dp != 0)
       ok = ok && (i == 0 || gs.g[i - 1].dp != 0)
-           && (DL == 3 ? (dp == 6 || dp == 4) : dp == 3);
+           && (DL == 3 ? (dp == 6 || dp == 9 || dp == 4) : dp == 3);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const int blocks = (n_lm + kWtxLandmarks - 1) / kWtxLandmarks;
@@ -458,6 +463,10 @@ int launch_wv(const T* w_cam, const int* pose_lm, const int* chunk_ptr,
     wv_dims<T, 4, 3>(w_cam, pose_lm, chunk_ptr, chunk_row, row_chunk,
                      arrivals, v, n_lm, ld, n_chunks, n_rows, base, hcc_d, x,
                      extra, free, part, y, partials, stream);
+  else if (DP == 9 && DL == 3)
+    wv_dims<T, 9, 3>(w_cam, pose_lm, chunk_ptr, chunk_row, row_chunk,
+                     arrivals, v, n_lm, ld, n_chunks, n_rows, base, hcc_d, x,
+                     extra, free, part, y, partials, stream);
   else if (DP == 3 && DL == 2)
     wv_dims<T, 3, 2>(w_cam, pose_lm, chunk_ptr, chunk_row, row_chunk,
                      arrivals, v, n_lm, ld, n_chunks, n_rows, base, hcc_d, x,
@@ -494,6 +503,10 @@ int launch_sandwich(const T* w_cam, const int* pose_lm, const int* chunk_ptr,
                            part, out, stream);
   else if (DP == 4 && DL == 3)
     sandwich_dims<T, 4, 3>(w_cam, pose_lm, chunk_ptr, chunk_row, row_chunk,
+                           arrivals, hinv, n_lm, ld, n_chunks, n_rows, hcc_d,
+                           part, out, stream);
+  else if (DP == 9 && DL == 3)
+    sandwich_dims<T, 9, 3>(w_cam, pose_lm, chunk_ptr, chunk_row, row_chunk,
                            arrivals, hinv, n_lm, ld, n_chunks, n_rows, hcc_d,
                            part, out, stream);
   else if (DP == 3 && DL == 2)

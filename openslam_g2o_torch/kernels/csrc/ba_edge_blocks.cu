@@ -16,7 +16,9 @@
 //                (cam_pos).
 //   ba_generic   the same products from the residual and masked Jacobians
 //                `linearize` computed, for any other binary (landmark, pose)
-//                edge type: R in {1, 2, 3}, (Dp, dl) in {(6, 3), (3, 2)}.
+//                edge type: R in {1, 2, 3}, (Dp, dl) in {(6, 3), (3, 2),
+//                (9, 3)} ((9, 3): the BAL camera of models/bal.py, whose
+//                120-value records halve the warps a block).
 //   ba_lm_sums   a block per tile of 16 landmarks (4 where K > 8): the
 //                tile's slots are staged in shared memory, then one thread
 //                per (landmark, row) sums Hll and b_l over the slots in
@@ -56,10 +58,12 @@
 
 namespace g2o_torch {
 
-// Warps per block of the edge kernels: each stages 32 records of
-// RS + 1 values (33 KB a block at (6, 3) in either type).
-template <typename T>
-constexpr int kEdgeWarps = sizeof(T) == 4 ? 4 : 2;
+// Warps per block of the edge kernels: each stages 32 records of RS + 1
+// values in static shared memory, at most 48 KB a block: 4 warps in float32
+// and 2 in float64 up to RS = 64 (33 KB at (6, 3)), half that at (9, 3)
+// (RS = 120: 31 KB), where the full count would stage 62 KB.
+template <typename T, int RS>
+constexpr int kEdgeWarps = (sizeof(T) == 4 ? 4 : 2) / (RS > 64 ? 2 : 1);
 
 // The fused XYZ2UV products of edge e into the lane-major streams and the
 // record `mine`.
@@ -88,8 +92,8 @@ __device__ __forceinline__ void xyz2uv_edge(
                                w_lane);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(32 * kEdgeWarps<T>) ba_xyz2uv_kernel(
+template <typename T, int RS = CamRecord<6, 3>::kSize>
+__global__ void __launch_bounds__(32 * kEdgeWarps<T, RS>) ba_xyz2uv_kernel(
     const T* __restrict__ pts, const T* __restrict__ cams,
     const int* __restrict__ li, const int* __restrict__ ci,
     const T* __restrict__ meas, const T* __restrict__ info,
@@ -97,8 +101,7 @@ __global__ void __launch_bounds__(32 * kEdgeWarps<T>) ba_xyz2uv_kernel(
     const T* __restrict__ free_l, const T* __restrict__ free_c,
     const int* __restrict__ cam_pos, int kernel_id, int n_edges,
     long long off, long long ld, T* hll, T* bl, T* rec, T* w_lane) {
-  constexpr int RS = CamRecord<6, 3>::kSize;
-  __shared__ T stage[kEdgeWarps<T>][32 * (RS + 1)];
+  __shared__ T stage[kEdgeWarps<T, RS>][32 * (RS + 1)];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long e0 = blockIdx.x * static_cast<long long>(blockDim.x)
                        + 32 * warp;
@@ -113,15 +116,15 @@ __global__ void __launch_bounds__(32 * kEdgeWarps<T>) ba_xyz2uv_kernel(
                             cam_pos, rec);
 }
 
-template <typename T, int R, int DP, int DL>
-__global__ void __launch_bounds__(32 * kEdgeWarps<T>) ba_generic_kernel(
+template <typename T, int R, int DP, int DL,
+          int RS = CamRecord<DP, DL>::kSize>
+__global__ void __launch_bounds__(32 * kEdgeWarps<T, RS>) ba_generic_kernel(
     const T* __restrict__ resid, const T* __restrict__ jl_in,
     const T* __restrict__ jc_in, const T* __restrict__ rho1,
     const T* __restrict__ info, const int* __restrict__ cam_pos,
     int n_edges, long long off, long long ld, T* hll, T* bl, T* rec,
     T* w_lane) {
-  constexpr int RS = CamRecord<DP, DL>::kSize;
-  __shared__ T stage[kEdgeWarps<T>][32 * (RS + 1)];
+  __shared__ T stage[kEdgeWarps<T, RS>][32 * (RS + 1)];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long long e0 = blockIdx.x * static_cast<long long>(blockDim.x)
                        + 32 * warp;
@@ -260,7 +263,12 @@ ba_lm_sums_kernel(
 // past this SM's L1) and sets the counter back to 0.
 constexpr int kCamThreads = 256;
 constexpr int kCamSumThreads = 128;  // one half: t = 0 .. 127
-constexpr int kCamSpan = 64;         // records staged at a time
+// records staged at a time: 64 where their stage fits in 40 KB (every
+// instantiation but (9, 3) in float64, RS = 120), else 32; either divides
+// kCamSumThreads, so a span never splits a summing round's records
+// between two stagings of one thread
+template <typename T, int RS>
+constexpr int kCamSpan = 64 * (RS + 1) * sizeof(T) <= 40 * 1024 ? 64 : 32;
 
 template <typename T, int DP, int DL>
 __global__ void __launch_bounds__(kCamThreads) ba_cam_sums_kernel(
@@ -273,8 +281,12 @@ __global__ void __launch_bounds__(kCamThreads) ba_cam_sums_kernel(
   constexpr int RS = Rec::kSize, NV = Rec::kSum, DW = DP * DL;
   constexpr int PITCH = RS + 1, H = (NV + 1) / 2;
   constexpr int VEC = 16 / sizeof(T);              // values per 16 bytes
+  constexpr int SPAN = kCamSpan<T, RS>;
   static_assert(RS % VEC == 0, "a 16-byte load stays in one record");
-  __shared__ T stage[kCamSpan * PITCH];
+  static_assert(kCamSumThreads % SPAN == 0, "a span within one round");
+  static_assert(NV <= kCamThreads && H <= kCamSumThreads,
+                "a thread per summed value");
+  __shared__ T stage[SPAN * PITCH];
   __shared__ T warp_sum[kCamThreads / 32][H];
   __shared__ int last;
   const int c = blockIdx.x;
@@ -284,8 +296,8 @@ __global__ void __launch_bounds__(kCamThreads) ba_cam_sums_kernel(
   T acc[H];
 #pragma unroll
   for (int q = 0; q < H; ++q) acc[q] = T(0);
-  for (int s0 = j0; s0 < j1; s0 += kCamSpan) {
-    const int m = j1 - s0 < kCamSpan ? j1 - s0 : kCamSpan;
+  for (int s0 = j0; s0 < j1; s0 += SPAN) {
+    const int m = j1 - s0 < SPAN ? j1 - s0 : SPAN;
     const uint4* src = reinterpret_cast<const uint4*>(
         rec + static_cast<long long>(s0) * RS);
     for (int i = threadIdx.x; i < m * RS / VEC; i += kCamThreads) {
@@ -305,8 +317,8 @@ __global__ void __launch_bounds__(kCamThreads) ba_cam_sums_kernel(
       for (int q = 0; q < H; ++q)
         if (q0 + q < NV) acc[q] += mine[q];
     }
-    for (int i = threadIdx.x; i < DW * kCamSpan; i += kCamThreads) {
-      const int q = i / kCamSpan, kk = i % kCamSpan;
+    for (int i = threadIdx.x; i < DW * SPAN; i += kCamThreads) {
+      const int q = i / SPAN, kk = i % SPAN;
       if (kk < m)
         w_cam[q * n_obs + s0 + kk] = stage[kk * PITCH + Rec::kW + q];
     }
@@ -353,9 +365,9 @@ __global__ void __launch_bounds__(kCamThreads) ba_cam_sums_kernel(
 
 // -- launchers ---------------------------------------------------------------
 
-template <typename T>
+template <typename T, int RS>
 int edge_grid(long long n_edges) {
-  const int threads = 32 * kEdgeWarps<T>;
+  const int threads = 32 * kEdgeWarps<T, RS>;
   return static_cast<int>((n_edges + threads - 1) / threads);
 }
 
@@ -366,8 +378,9 @@ int launch_xyz2uv(const T* pts, const T* cams, const int* li, const int* ci,
                   int kernel_id, int n_edges, long long off, long long ld,
                   T* hll, T* bl, T* rec, T* w_lane, cudaStream_t stream) {
   if (n_edges <= 0) return 0;
-  ba_xyz2uv_kernel<T><<<edge_grid<T>(n_edges), 32 * kEdgeWarps<T>, 0,
-                        stream>>>(
+  constexpr int RS = CamRecord<6, 3>::kSize;
+  ba_xyz2uv_kernel<T><<<edge_grid<T, RS>(n_edges), 32 * kEdgeWarps<T, RS>,
+                        0, stream>>>(
       pts, cams, li, ci, meas, info, delta, camp, free_l, free_c, cam_pos,
       kernel_id, n_edges, off, ld, hll, bl, rec, w_lane);
   return launch_status();
@@ -378,7 +391,9 @@ int launch_generic_dims(int R, const T* resid, const T* jl, const T* jc,
                         const T* rho1, const T* info, const int* cam_pos,
                         int n_edges, long long off, long long ld, T* hll,
                         T* bl, T* rec, T* w_lane, cudaStream_t stream) {
-  const int grid = edge_grid<T>(n_edges), threads = 32 * kEdgeWarps<T>;
+  constexpr int RS = CamRecord<DP, DL>::kSize;
+  const int grid = edge_grid<T, RS>(n_edges);
+  const int threads = 32 * kEdgeWarps<T, RS>;
   switch (R) {
     case 1:
       ba_generic_kernel<T, 1, DP, DL><<<grid, threads, 0, stream>>>(
@@ -413,6 +428,10 @@ int launch_generic(const T* resid, const T* jl, const T* jc, const T* rho1,
                                         rec, w_lane, stream);
   if (DP == 3 && DL == 2)
     return launch_generic_dims<T, 3, 2>(R, resid, jl, jc, rho1, info,
+                                        cam_pos, n_edges, off, ld, hll, bl,
+                                        rec, w_lane, stream);
+  if (DP == 9 && DL == 3)
+    return launch_generic_dims<T, 9, 3>(R, resid, jl, jc, rho1, info,
                                         cam_pos, n_edges, off, ld, hll, bl,
                                         rec, w_lane, stream);
   return static_cast<int>(cudaErrorInvalidValue);
@@ -458,6 +477,9 @@ int launch_lm_sums(const T* hll_e, const T* bl_e, const T* w_e,
   else if (DP == 3 && DL == 2)
     lm_sums_dims<T, 3, 2>(hll_e, bl_e, w_e, lm_edge, n_lm, k_width, ld, hll,
                           bl, w_lm, stream);
+  else if (DP == 9 && DL == 3)
+    lm_sums_dims<T, 9, 3>(hll_e, bl_e, w_e, lm_edge, n_lm, k_width, ld, hll,
+                          bl, w_lm, stream);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_status();
@@ -485,6 +507,10 @@ int launch_cam_sums(const T* rec, const int* chunk_ptr, const int* chunk_row,
                            stream);
   else if (DP == 3 && DL == 2)
     cam_sums_dims<T, 3, 2>(rec, chunk_ptr, chunk_row, row_chunk, arrivals,
+                           n_chunks, n_cam, n_obs, part, hcc, bp, w_cam,
+                           stream);
+  else if (DP == 9 && DL == 3)
+    cam_sums_dims<T, 9, 3>(rec, chunk_ptr, chunk_row, row_chunk, arrivals,
                            n_chunks, n_cam, n_obs, part, hcc, bp, w_cam,
                            stream);
   else

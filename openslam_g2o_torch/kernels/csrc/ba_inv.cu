@@ -2,8 +2,9 @@
 //
 // Replaces `_inv_lane` (openslam_g2o_tpu/core/ba_ell.py:376-417) with the
 // damping of `_solve` folded in (:686-688, :694-702). One thread per block
-// of a lane-major [D*D, N] table, D in {2, 3, 4, 6} (4: the intrinsics
-// blocks of the general Schur path's preconditioner, core/ba.py):
+// of a lane-major [D*D, N] table, D in {2, 3, 4, 6, 9} (4: the intrinsics
+// blocks of the general Schur path's preconditioner, core/ba.py; 9: the
+// BAL camera, models/bal.py):
 //
 //   mode 0  inv = A^-1                         (the preconditioner blocks)
 //   mode 1  A + I (lam free + (1 - free)), inverted (landmarks: a fixed
@@ -14,7 +15,14 @@
 //
 // The inverse keeps the JAX formula, operation by operation: the
 // closed-form adjugate for D <= 3 and, for D = 6 and 4, the 2x2-block Schur
-// inversion with 3x3 or 2x2 quadrants. (The general Schur path of the JAX
+// inversion with 3x3 or 2x2 quadrants; for D = 9 the same inversion with
+// quadrants of 4 and 5, the 4 split 2 + 2 and the 5 split 2 + 3, as
+// `_inv_lane` recurses. At D = 9 a thread holds 162 values of A and X
+// beside the recursion's quadrants: in float64 they spill to local memory.
+// Only the implicit route's preconditioner inverts 9-wide blocks, one per
+// camera (900 at the 400,000-observation shape), so the spill costs little
+// beside that route's CG; its camera damping (mode 2, no inverse) reads
+// and writes each block once. (The general Schur path of the JAX
 // package, core/ba.py:262, inverts its D > 3 preconditioner blocks with
 // jnp.linalg.inv, an LU: the values agree to rounding.) No Cholesky: an
 // indefinite block gives the same finite (or non-finite) values as the JAX
@@ -160,6 +168,86 @@ __device__ __forceinline__ void block_inverse(const T (&A)[6][6],
     }
 }
 
+// The product of an M x K and a K x N block, C = A B, each entry summed
+// over b in order (the quadrant products of the splits below)
+template <typename T, int M, int K, int N>
+__device__ __forceinline__ void mm(const T (&A)[M][K], const T (&B)[K][N],
+                                   T (&C)[M][N]) {
+#pragma unroll
+  for (int a = 0; a < M; ++a)
+#pragma unroll
+    for (int c = 0; c < N; ++c) {
+      T acc = T(0);
+#pragma unroll
+      for (int b = 0; b < K; ++b) acc += A[a][b] * B[b][c];
+      C[a][c] = acc;
+    }
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void split_inverse(const T (&A)[D][D],
+                                              T (&X)[D][D]);
+
+template <typename T>
+__device__ __forceinline__ void block_inverse(const T (&A)[5][5],
+                                              T (&X)[5][5]) {
+  split_inverse<T, 5>(A, X);
+}
+
+template <typename T>
+__device__ __forceinline__ void block_inverse(const T (&A)[9][9],
+                                              T (&X)[9][9]) {
+  split_inverse<T, 9>(A, X);
+}
+
+// The formula above for any D with quadrants of K = D / 2 and D - K (not
+// square where D is odd): D = 5 as 2 + 3, D = 9 (the BAL camera blocks of
+// models/bal.py) as 4 + 5, each quadrant inverted by its own overload,
+// in the order of ba_inv.py `inv_lane_plain`
+template <typename T, int D>
+__device__ __forceinline__ void split_inverse(const T (&A)[D][D],
+                                              T (&X)[D][D]) {
+  constexpr int K = D / 2, J = D - K;
+  T P[K][K], Q[K][J], R[J][K], S[J][J];
+#pragma unroll
+  for (int a = 0; a < D; ++a)
+#pragma unroll
+    for (int b = 0; b < D; ++b) {
+      if (a < K && b < K) P[a][b] = A[a][b];
+      else if (a < K) Q[a][b - K] = A[a][b];
+      else if (b < K) R[a - K][b] = A[a][b];
+      else S[a - K][b - K] = A[a][b];
+    }
+  T Pi[K][K], PiQ[K][J], RPiQ[J][J];
+  block_inverse(P, Pi);
+  mm(Pi, Q, PiQ);
+  mm(R, PiQ, RPiQ);
+#pragma unroll
+  for (int a = 0; a < J; ++a)
+#pragma unroll
+    for (int b = 0; b < J; ++b) S[a][b] = S[a][b] - RPiQ[a][b];
+  T Ti[J][J], RPi[J][K], TiRPi[J][K], PTR[K][K], PQT[K][J];
+  block_inverse(S, Ti);
+  mm(R, Pi, RPi);
+  mm(Ti, RPi, TiRPi);
+  mm(PiQ, TiRPi, PTR);
+  mm(PiQ, Ti, PQT);
+#pragma unroll
+  for (int a = 0; a < K; ++a) {
+#pragma unroll
+    for (int b = 0; b < K; ++b) X[a][b] = Pi[a][b] + PTR[a][b];
+#pragma unroll
+    for (int b = 0; b < J; ++b) X[a][K + b] = -PQT[a][b];
+  }
+#pragma unroll
+  for (int a = 0; a < J; ++a) {
+#pragma unroll
+    for (int b = 0; b < K; ++b) X[K + a][b] = -TiRPi[a][b];
+#pragma unroll
+    for (int b = 0; b < J; ++b) X[K + a][K + b] = Ti[a][b];
+  }
+}
+
 template <typename T, int D>
 __global__ void ba_inv_kernel(const T* __restrict__ A_in,
                               const T* __restrict__ free,
@@ -236,6 +324,10 @@ int launch_ba_inv(const T* A, const T* free, const T* lam, const T* b, int n,
       break;
     case 6:
       ba_inv_kernel<T, 6><<<grid, kThreads, 0, stream>>>(
+          A, free, lam, b, n, mode, damped, inv, hib);
+      break;
+    case 9:
+      ba_inv_kernel<T, 9><<<grid, kThreads, 0, stream>>>(
           A, free, lam, b, n, mode, damped, inv, hib);
       break;
     default:

@@ -33,7 +33,10 @@
 // tables cost one 32-byte sector for every one of its 45 values; a
 // diagonal block's contribution of one slot with itself reads its W record
 // once. The operations and their order are those of the lane-major form
-// this replaced, which keeps its bits. Measured and dropped (float32 at
+// this replaced, which keeps its bits. At (9, 3) (the BAL camera,
+// models/bal.py) a lane holds 81 sums and a contribution reads 17 pieces
+// in float32 (33 in float64); float64 spills part of them to local memory.
+// Measured and dropped (float32 at
 // 80,000 observations): the next contribution's records in flight during
 // the current one's products, in a second register buffer or in shared
 // memory by cp.async (2-4 stages, 1-4 warps a block); a warp copying its
@@ -174,7 +177,7 @@ __global__ void __launch_bounds__(32 * kSchurWarps) ba_schur_kernel(
     }
 }
 
-// rows: W at (6, 3) and (3, 2), Hinv at dl = 3 and 2
+// rows: W at (6, 3), (3, 2) and (9, 3), Hinv at dl = 3 and 2
 template <typename T>
 int launch_records(const T* in, long long n, int rows, int width, T* out,
                    cudaStream_t stream) {
@@ -185,6 +188,9 @@ int launch_records(const T* in, long long n, int rows, int width, T* out,
     return static_cast<int>(cudaErrorInvalidValue);
   const int grid = grid_for(n);
   switch (rows) {
+    case 27:
+      records_kernel<T, 27><<<grid, kThreads, 0, stream>>>(in, n, out);
+      break;
     case 18:
       records_kernel<T, 18><<<grid, kThreads, 0, stream>>>(in, n, out);
       break;
@@ -220,6 +226,10 @@ int launch_schur(const T* w_rec, const T* hinv_rec, const T* hcc_d,
         n_dest, n_cam, with_base, S);
   else if (DP == 3 && DL == 2)
     ba_schur_kernel<T, 3, 2><<<grid, 32 * kSchurWarps, 0, stream>>>(
+        w_rec, hinv_rec, hcc_d, ptr, dest_c1, dest_c2, lm, pos1, pos2,
+        n_dest, n_cam, with_base, S);
+  else if (DP == 9 && DL == 3)
+    ba_schur_kernel<T, 9, 3><<<grid, 32 * kSchurWarps, 0, stream>>>(
         w_rec, hinv_rec, hcc_d, ptr, dest_c1, dest_c2, lm, pos1, pos2,
         n_dest, n_cam, with_base, S);
   else

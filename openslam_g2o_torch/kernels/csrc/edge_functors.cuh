@@ -458,6 +458,40 @@ struct LinP2SC : LinP2MC {
   }
 };
 
+// --- models/bal.py ---------------------------------------------------------
+
+// EDGE_PROJECT_BAL (bal.py _edge_bal_error, snavely_project): p = R(omega)
+// x + t with R by so3_exp (its Taylor branch below theta^2 = 1e-12, where
+// the derivative is jvp's), proj = -p.xy / p.z, f (1 + k1 r^2 + k2 r^4)
+// proj - z; slots sba_point_xyz, bal_camera (omega, t, f, k1, k2: nine
+// values, retracted additively).
+struct LinBAL : LinForward {
+  static constexpr int kSlots = 2, kD = 2, kMeas = 2;
+  __host__ __device__ static constexpr int dim(int s) { return s ? 9 : 3; }
+  __host__ __device__ static constexpr int stride(int s) { return dim(s); }
+  __host__ __device__ static constexpr int used(int s) { return dim(s); }
+  template <int S, typename X, typename D>
+  __device__ static void retract(const X* x, const D* d, mix_t<X, D>* o) {
+    rn_retract<dim(S)>(x, d, o);
+  }
+  template <typename T, typename P, typename C>
+  __device__ static void error(const P* point, const C* cam, const T* meas,
+                               const T*, mix_t<P, C>* err) {
+    typedef mix_t<P, C> R;
+    C q[4];
+    R p[3];
+    so3_exp(cam, q);
+    quat_rotate(q, point, p);
+    for (int k = 0; k < 3; ++k) p[k] = p[k] + cam[3 + k];
+    const R px = -p[0] / p[2], py = -p[1] / p[2];
+    const R r2 = px * px + py * py;
+    const R distortion = T(1) + cam[7] * r2 + cam[8] * r2 * r2;
+    const R scale = cam[6] * distortion;
+    err[0] = scale * px - meas[0];
+    err[1] = scale * py - meas[1];
+  }
+};
+
 // EDGE_CAM (sba.py _edge_sba_cam_error): toVectorMQT(Z^-1 C1^-1 C2) of the
 // two cameras' (t, q); slots cam, cam.
 struct LinSBACam : LinForward {

@@ -6,8 +6,9 @@
 // (vmap(jax.jacfwd) at :378 over `_tangent_residual_fn`:336) and its
 // analytic branch (:367-370), with the residual at :365, rho' at :382-383
 // and the fixed-vertex mask at :386-390, over the error functions of
-// openslam_g2o_tpu/models/slam2d.py, slam3d.py and sba.py. It writes what
-// openslam_g2o_torch/core/problem.py `linearize_group` returns:
+// openslam_g2o_tpu/models/slam2d.py, slam3d.py, sba.py and bal.py. It
+// writes what openslam_g2o_torch/core/problem.py `linearize_group`
+// returns:
 //   resid [E, D]       the error at the stored parameters
 //   jac_s [E, D, Ds]   d e(retract(x_0, d_0), ...) / d d_s at d = 0, per
 //                      slot s, times the slot vertex's free flag
@@ -200,9 +201,9 @@ __device__ __forceinline__ void tile_slot(const T (*src)[kLinTile], int i,
 template <class F, int S, typename T>
 __device__ __forceinline__ void retract_zero(const T (&x)[kMaxUsed],
                                              T (&rest)[kMaxUsed]) {
-  T zero[6];
+  T zero[F::dim(S)];
 #pragma unroll
-  for (int k = 0; k < 6; ++k) zero[k] = T(0);
+  for (int k = 0; k < F::dim(S); ++k) zero[k] = T(0);
   F::template retract<S>(x, zero, rest);
 }
 
@@ -610,5 +611,6 @@ G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_p2mc, LinP2MC)
 G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_p2sc, LinP2SC)
 G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_sba_cam, LinSBACam)
 G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_sba_scale, LinSBAScale)
+G2O_EDGE_LIN_ENTRIES(g2o_edge_lin_bal, LinBAL)
 
 }  // extern "C"

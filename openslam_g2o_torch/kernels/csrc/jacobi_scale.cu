@@ -22,7 +22,8 @@
 // `lane_block_mv` replaces `lane_block_mv` (core/sparse.py:871-880) for
 // the unscale dx = M^T xhat and the warm start xhat0 = L^T dx0, and applies
 // the block-Jacobi preconditioners of both Schur paths; it is also built at
-// D = 4, the intrinsics group of the general Schur path (core/ba.py).
+// D = 4, the intrinsics group of the general Schur path (core/ba.py), and at
+// D = 9, the BAL camera (models/bal.py) on the implicit dual-ELL route.
 //
 // Registers: the thread holds M_i for all its slots and, per slot, B and
 // M_j; the product is staged row by row (one row of C = M_i B, then that
@@ -160,6 +161,7 @@ int launch_lane_block_mv(const T* mats, const T* x, T* y, int n,
     case 3: return run_lane_block_mv<T, 3>(mats, x, y, n, transpose, stream);
     case 4: return run_lane_block_mv<T, 4>(mats, x, y, n, transpose, stream);
     case 6: return run_lane_block_mv<T, 6>(mats, x, y, n, transpose, stream);
+    case 9: return run_lane_block_mv<T, 9>(mats, x, y, n, transpose, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -95,7 +95,8 @@ struct VtxIntrinsics {
 };
 
 // VERTEX_XY, VERTEX_TRACKXYZ, VERTEX_XYZ (the SBA point, also PSI2UV's
-// inverse-depth point): additive
+// inverse-depth point), VERTEX_CAMERA_BAL (models/bal.py: the nine camera
+// values): additive
 template <int W>
 struct VtxRn {
   static constexpr int kP = W, kD = W;
@@ -351,6 +352,7 @@ G2O_TRIAL_RETRACT_ENTRIES(g2o_trial_retract_se3_expmap, VtxSE3Expmap)
 G2O_TRIAL_RETRACT_ENTRIES(g2o_trial_retract_sba_point_xyz, VtxRn<3>)
 G2O_TRIAL_RETRACT_ENTRIES(g2o_trial_retract_cam, VtxCam)
 G2O_TRIAL_RETRACT_ENTRIES(g2o_trial_retract_intrinsics, VtxIntrinsics)
+G2O_TRIAL_RETRACT_ENTRIES(g2o_trial_retract_bal_camera, VtxRn<9>)
 
 G2O_TRIAL_CHI2_ENTRIES(g2o_trial_chi2_se2, LinSE2)
 G2O_TRIAL_CHI2_ENTRIES(g2o_trial_chi2_se2_xy, LinSE2XY)
@@ -375,6 +377,7 @@ G2O_TRIAL_CHI2_ENTRIES(g2o_trial_chi2_p2mc_intrinsics, LinP2MCIntrinsics)
 G2O_TRIAL_CHI2_ENTRIES(g2o_trial_chi2_p2sc, LinP2SC)
 G2O_TRIAL_CHI2_ENTRIES(g2o_trial_chi2_sba_cam, LinSBACam)
 G2O_TRIAL_CHI2_ENTRIES(g2o_trial_chi2_sba_scale, LinSBAScale)
+G2O_TRIAL_CHI2_ENTRIES(g2o_trial_chi2_bal, LinBAL)
 
 int g2o_chi2_sum_f32(const float* partials, int n, float* out, void* stream) {
   return g2o_torch::launch_chi2_sum<float>(partials, n, out,

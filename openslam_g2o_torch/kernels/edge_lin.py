@@ -2,10 +2,11 @@
 openslam_g2o_torch.models registers.
 
 Replaces the JAX hot loop `linearize` (openslam_g2o_tpu/core/problem.py:
-350-392) over the error functions of models/slam2d.py, slam3d.py and
-sba.py: its forward branch (vmap(jacfwd) at :378) for twenty types, and its
-analytic branch (:367-370) for EDGE_SE2, EDGE_PROJECT_XYZ2UV:EXPMAP and
-EDGE_PROJECT_XYZ2UVU:EXPMAP, whose closed forms the kernel computes. For
+350-392) over the error functions of models/slam2d.py, slam3d.py, sba.py
+and bal.py: its forward branch (vmap(jacfwd) at :378) for twenty-one
+types, and its analytic branch (:367-370) for EDGE_SE2,
+EDGE_PROJECT_XYZ2UV:EXPMAP and EDGE_PROJECT_XYZ2UVU:EXPMAP, whose closed
+forms the kernel computes. For
 one edge group each wrapper returns what core/problem.py `linearize_group`
 returns: the residual [E, D], the per-slot Jacobians [E, D, Ds] with
 respect to the tangent increment, each slot's columns times its vertex's
@@ -70,6 +71,8 @@ LINEARIZERS = {
     "edge_project_p2sc": "edge_lin_p2sc",
     "edge_sba_cam": "edge_lin_sba_cam",
     "edge_sba_scale": "edge_lin_sba_scale",
+    # models/bal.py
+    "edge_project_bal": "edge_lin_bal",
 }
 
 
@@ -174,7 +177,8 @@ def _wrappers(type_name: str, wname: str):
 
 
 # importing the models registers the types the table names
-from openslam_g2o_torch.models import sba, slam2d, slam3d  # noqa: E402,F401
+from openslam_g2o_torch.models import (  # noqa: E402,F401
+    bal, sba, slam2d, slam3d)
 
 for _t, _w in LINEARIZERS.items():
     globals()[_w], globals()[_w + "_plain"] = _wrappers(_t, _w)

@@ -30,7 +30,11 @@ import numpy as np
 from openslam_g2o_torch.kernels import build
 from openslam_g2o_torch.kernels._checks import (
     check_tensors, launch_device, require)
-from openslam_g2o_torch.kernels.ba_coupling import DIMS
+
+# the (Dp, dl) instantiations of K14 (csrc/schur_general.cu): the general
+# path's pose widths. The BAL camera's (9, 3), which K10-K13 serve on the
+# dual-ELL route, is not one: core/ba.py refuses it.
+DIMS = ((6, 3), (4, 3), (3, 2))
 
 MAX_RESIDUAL = 3
 # the edges a block of csrc/schur_general.cu's tile kernel stages (its

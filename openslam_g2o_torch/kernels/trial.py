@@ -51,6 +51,7 @@ RETRACTIONS = {
     "sba_point_xyz": "trial_retract_sba_point_xyz",
     "cam": "trial_retract_cam",
     "intrinsics": "trial_retract_intrinsics",
+    "bal_camera": "trial_retract_bal_camera",    # models/bal.py
 }
 # edge type name -> its chi2 wrapper, one per K17 functor
 CHI2 = {t: "trial_chi2_" + w[len("edge_lin_"):]

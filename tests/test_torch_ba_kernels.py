@@ -3,9 +3,10 @@ the JAX package's internals, float64 on the CPU.
 
 Problems: the all-types BA scene of test_torch_ba_types.py (three
 projection groups: XYZ2UV, XYZ2UV with Huber, the stereo XYZ2UVU; pose-pose
-EDGE_SE3:EXPMAP edges; camera 0 and one point fixed) and a small
-`synthetic_bal_problem`, each built by the JAX package and carried across
-with interop.problem_from_numpy.
+EDGE_SE3:EXPMAP edges; camera 0 and one point fixed), a small
+`synthetic_bal_problem` and a small BAL file of the 9-wide camera
+(`bal_camera_jax_problem`), each built by the JAX package and carried
+across with interop.problem_from_numpy.
 
 * the pattern tables against the JAX dual-ELL tables;
 * `dense_schur_ok` against the JAX predicate on both sides of each of its
@@ -13,9 +14,10 @@ with interop.problem_from_numpy.
   densified W), the JAX module constants lowered to reach them;
 * `_build`: Hll, b_l, Hcc, b_p and W per observation (every product and
   sum is the same float64 arithmetic in another order) to rtol 1e-12 of the
-  largest entry, Hpp_extra and b_extra likewise;
-* `_inv_lane` and the damping for D = 2, 3, 6, an indefinite block among
-  them: 1e-12 (the same formula);
+  largest entry, Hpp_extra and b_extra likewise, on the all-types scene and
+  on a BAL camera scene ((Dp, dl) = (9, 3), tests/test_torch_bal.py);
+* `_inv_lane` and the damping for D = 2, 3, 6, 9, an indefinite block
+  among them: 1e-12 (the same formula);
 * `_solve`'s dx at a fixed lambda: the dense route to rtol 1e-9 of the
   largest entry (another Cholesky orders the factorization differently, and
   S is formed from its nonzero terms instead of the densified product); the
@@ -37,6 +39,7 @@ from openslam_g2o_torch.core import ba_ell as tba
 from openslam_g2o_torch.interop import problem_arrays, problem_from_numpy
 from openslam_g2o_torch.kernels import ba_inv
 from tests.test_torch_ba_types import build_ba_graph
+from tests.test_torch_bal import bal_camera_jax_problem
 
 torch.set_num_threads(1)
 
@@ -57,6 +60,8 @@ def _close(t, j, rtol):
 def _pair(kind):
     if kind == "scene":
         jprob = build_ba_graph(JGraph).compile(dtype=jnp.float64)
+    elif kind == "bal_camera":
+        jprob = bal_camera_jax_problem()
     else:
         jprob, _ = j_bal(n_cams=24, n_points=400, dtype=jnp.float64)
     return jprob, problem_from_numpy(**problem_arrays(jprob), device="cpu")
@@ -158,16 +163,21 @@ def _jax_build(jprob):
         p, pat, jproblem.linearize(p)))(jprob, jpat)
 
 
-def test_build_matches_jax(scene):
-    jprob, tprob = scene
+@pytest.mark.parametrize("kind", ["scene", "bal_camera"])
+def test_build_matches_jax(kind):
+    """The all-types scene ((Dp, dl) = (6, 3), pose-pose edges, a fixed
+    point) and a BAL camera scene ((9, 3), the generic entry over
+    EDGE_PROJECT_BAL)."""
+    jprob, tprob = _pair(kind)
     jpat, jsys = _jax_build(jprob)
     tpat = tba.build_ba_ell_pattern(tprob)
     tsys = tba._build(tprob, tpat)
-    dl, L, dp, C = 3, tpat.n_lm, 6, tpat.n_cam
+    dl, L, dp, C = 3, tpat.n_lm, tpat.dp, tpat.n_cam
+    assert dp == (9 if kind == "bal_camera" else 6)
     _close(tsys["Hll"], np.asarray(jsys["Hll"]).reshape(dl * dl, L),
            RTOL_BUILD)
     _close(tsys["b_l"], jsys["b_l"], RTOL_BUILD)
-    g = jsys["groups"]["se3_expmap"]
+    g = jsys["groups"][tpat.cam_name]
     _close(tsys["Hcc"], np.asarray(g["Hcc"]).reshape(dp * dp, C), RTOL_BUILD)
     _close(tsys["b_p"], g["bT"], RTOL_BUILD)
     w_obs = _per_obs_w(jpat.proj, [pd["W_lm"][0] for pd in jsys["proj"]],
@@ -179,13 +189,17 @@ def test_build_matches_jax(scene):
     _close(t_obs, w_obs, RTOL_BUILD)
     assert (tsys["W_lm"].numpy()[:, lm_edge < 0] == 0).all()
     _close(tsys["W_cam"], w_obs[:, tpat.cam_edge.numpy()], RTOL_BUILD)
+    if kind == "bal_camera":              # no pose-pose edges
+        assert tsys["Hpp_extra"] is None
+        assert not np.asarray(jsys["Hpp_extra"]).any()
+        return
     _close(tsys["Hpp_extra"], jsys["Hpp_extra"], RTOL_BUILD)
     _close(tsys["b_extra"], jsys["b_extra"], RTOL_BUILD)
     # the fixed point's block is zero (its columns are masked)
     assert (tsys["Hll"][:, 4] == 0).all()
 
 
-@pytest.mark.parametrize("D", [2, 3, 6])
+@pytest.mark.parametrize("D", [2, 3, 6, 9])
 def test_block_inverse_and_damping_match_jax(D):
     rng = np.random.default_rng(D)
     N = 300
@@ -238,7 +252,7 @@ def _solve_both(jprob, tprob, lam, pcg_iters, pcg_tol):
     return jdx, tdx, jb, tb
 
 
-@pytest.mark.parametrize("kind", ["scene", "bal"])
+@pytest.mark.parametrize("kind", ["scene", "bal", "bal_camera"])
 @pytest.mark.parametrize("route", ["dense", "implicit"])
 def test_solve_matches_jax(kind, route, monkeypatch):
     jprob, tprob = _pair(kind)

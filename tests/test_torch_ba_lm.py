@@ -8,8 +8,9 @@ CPU (the kernels' plain versions).
   optimize(..., LevenbergMarquardtSchurELL()) (ba_ell_step per iteration)
   and the chi2 trajectory of ba_ell_optimize_fused with trial_per_iter True
   and False, on the dense and the implicit route (_DENSE_SCHUR_MAX_TP = -1
-  in both packages), on the synthetic BAL problem and on the all-types
-  scene (pose-pose edges, Huber, a fixed point, the stereo edge): rtol 1e-8
+  in both packages), on the synthetic BAL problem, on the all-types
+  scene (pose-pose edges, Huber, a fixed point, the stereo edge) and (the
+  lambda init and optimize) on a BAL file of the 9-wide camera: rtol 1e-8
   for every iteration that still gains more than 1e-10 of chi2 (below that
   the sign of the gain ratio is rounding noise in either package; the
   iterative solves and two Cholesky implementations order sums
@@ -48,6 +49,7 @@ from openslam_g2o_torch.core.algorithms import optimize as t_optimize
 from openslam_g2o_torch.core.graph import Graph as TGraph
 from openslam_g2o_torch.interop import problem_arrays, problem_from_numpy
 from tests.test_torch_ba_types import build_ba_graph
+from tests.test_torch_bal import bal_camera_jax_problem
 
 torch.set_num_threads(1)
 
@@ -73,6 +75,8 @@ def _fresh_jax(monkeypatch, implicit):
 def _pair(kind):
     if kind == "bal":
         jprob, _ = j_bal(n_cams=24, n_points=400, dtype=jnp.float64)
+    elif kind == "bal_camera":
+        jprob = bal_camera_jax_problem()
     else:
         jprob = build_ba_graph(JGraph).compile(dtype=jnp.float64)
     return jprob, problem_from_numpy(**problem_arrays(jprob), device="cpu")
@@ -97,7 +101,7 @@ def _compare_stats(jstats, tstats, chi0):
             == [s["levenberg_iters"] for s, k in zip(jstats, keep) if k])
 
 
-@pytest.mark.parametrize("kind", ["bal", "scene"])
+@pytest.mark.parametrize("kind", ["bal", "scene", "bal_camera"])
 def test_lambda_init_matches_jax(kind):
     jprob, tprob = _pair(kind)
     jst = jba.LevenbergMarquardtSchurELL().init(jprob)
@@ -109,7 +113,7 @@ def test_lambda_init_matches_jax(kind):
     assert float(tst["ni"]) == 2.0
 
 
-@pytest.mark.parametrize("kind", ["bal", "scene"])
+@pytest.mark.parametrize("kind", ["bal", "scene", "bal_camera"])
 @pytest.mark.parametrize("route", ["dense", "implicit"])
 def test_optimize_matches_jax(kind, route, monkeypatch):
     _fresh_jax(monkeypatch, route == "implicit")

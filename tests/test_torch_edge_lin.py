@@ -1,8 +1,8 @@
 """The edge linearizers of kernels/edge_lin.py (K17: every edge type of
-openslam_g2o_torch.models, twenty in forward mode, EDGE_SE2 and the XYZ2UV /
-XYZ2UVU projections in closed form) against the JAX package, float64 on the
-CPU, where every wrapper runs its plain version. The kernels themselves run
-on the card only (tests/test_torch_kernels.py holds them against these
+openslam_g2o_torch.models, twenty-one in forward mode, EDGE_SE2 and the
+XYZ2UV / XYZ2UVU projections in closed form) against the JAX package,
+float64 on the CPU, where every wrapper runs its plain version. The
+kernels themselves run on the card only (tests/test_torch_kernels.py holds them against these
 plain versions).
 
 * per edge type and robust kernel (Huber, Cauchy), a small numpy-seeded
@@ -73,7 +73,7 @@ TYPES = ("edge_se3", "edge_se3_xyz", "edge_project_p2mc_intrinsics",
          "edge_se3_depth", "edge_se3_disparity", "edge_se3_prior",
          "edge_se3_offset", "edge_se3_expmap", "edge_project_xyz2uv",
          "edge_project_xyz2uvu", "edge_project_p2mc", "edge_project_p2sc",
-         "edge_sba_cam", "edge_sba_scale")
+         "edge_sba_cam", "edge_sba_scale", "edge_project_bal")
 KERNELS = (("Huber", 1.5), ("Cauchy", 0.8))
 K = np.array([505.0, 490.0, 318.0, 242.0, 0.1])      # fx, fy, cx, cy, b
 CAMP = np.array([480.0, 310.0, 245.0, 0.1])           # focal, cx, cy, b
@@ -215,6 +215,14 @@ def _sba(Graph, kernel):
     return _robust(scenes.fix_one_per_slot(g), *kernel)
 
 
+def _bal(Graph, kernel):
+    """chip_smoke.py's small BAL graph: the 9-wide camera at omega = 0,
+    at theta^2 just above so3_exp's Taylor branch and turned, with
+    distortion; camera 0 and one point fixed."""
+    g = scenes.bal_camera_graph(Graph, 6, 40, seed=4)
+    return _robust(scenes.fix_one_per_slot(g), *kernel)
+
+
 BUILDERS = {"edge_se3": _pose_graph, "edge_se3_xyz": _pose_graph,
             "edge_project_p2mc_intrinsics": _intrinsics_graph,
             "edge_project_psi2uv": _psi2uv_graph,
@@ -224,7 +232,8 @@ BUILDERS = {"edge_se3": _pose_graph, "edge_se3_xyz": _pose_graph,
             **{t: _sba for t in ("edge_se3_expmap", "edge_project_xyz2uv",
                                  "edge_project_xyz2uvu", "edge_project_p2mc",
                                  "edge_project_p2sc", "edge_sba_cam",
-                                 "edge_sba_scale")}}
+                                 "edge_sba_scale")},
+            "edge_project_bal": _bal}
 
 _cache = {}
 

@@ -942,16 +942,24 @@ def _assert_same_nonfinite(got, want, tol):
         assert err <= tol * max(float(want[fin].abs().max()), 1e-300)
 
 
-@pytest.mark.parametrize("D", [2, 3, 4, 6])
+@pytest.mark.parametrize("D", [2, 3, 4, 6, 9])
 def test_block_inverse_of_overflowing_blocks_on_gpu(cuda, D):
     """K11 in float32 on blocks whose products overflow (entries 1e20
     beside unit blocks): inf and NaN in the places where the plain version
     has them (an FMA would turn inf - inf into a finite value), the finite
-    entries to TOL_BA or cond x eps."""
+    entries to TOL_BA or cond x eps. The blocks are Gaussian; at D = 9
+    they are B B^T + I, the symmetric positive definite blocks K11
+    inverts there (the camera blocks of the BAL solve): the formula has no
+    pivoting, so on a general 9x9 block its rounding grows past the
+    first-order bound cond x eps in both versions."""
     from openslam_g2o_torch.kernels import ba_inv
     gen = torch.Generator(device=cuda).manual_seed(D)
     N = 4096
     A = torch.randn((D * D, N), generator=gen, device=cuda)
+    if D == 9:
+        B = A.T.reshape(N, D, D)
+        A = (B @ B.transpose(1, 2) + torch.eye(D, device=cuda)).reshape(
+            N, D * D).T
     scale = torch.where(torch.arange(N, device=cuda) % 2 == 0, 1e20, 1.0)
     A = (A * scale[None]).contiguous()
     got = ba_inv.ba_block_inv(A)[1]
@@ -1031,12 +1039,13 @@ def test_ba_edge_kernels_match_plain_on_gpu(cuda, dtype):
             pad = g2.rec[pos[10:].long(), dp * dp + dp + dp * dl:]
             assert not pad.any()
     counts = kernels.launch_counts()
-    assert counts["ba_xyz2uv_blocks"] == 1 and counts["ba_edge_blocks"] == 6
+    assert counts["ba_xyz2uv_blocks"] == 1
+    assert counts["ba_edge_blocks"] == 3 * len(ba_edge.BLOCK_DIMS)
     assert counts["ba_lm_sums"] == 1 and counts["ba_cam_sums"] == 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("D", [2, 3, 4, 6])
+@pytest.mark.parametrize("D", [2, 3, 4, 6, 9])
 def test_ba_block_inv_matches_plain_on_gpu(cuda, dtype, D):
     """K11 in its three modes, with an indefinite block (finite values in
     the same places) and a fixed block."""
@@ -1124,7 +1133,7 @@ K12_SHARED = (1, 31, 32, 33, 300)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("dims", [(6, 3), (3, 2)])
+@pytest.mark.parametrize("dims", [(6, 3), (3, 2), (9, 3)])
 def test_ba_schur_on_lane_edges_on_gpu(cuda, dtype, dims):
     """K12 at (Dp, dl) = dims on destinations of 0, 1, 31, 32, 33 and 300
     contributions (the pairs and their cameras' diagonal blocks; slot
@@ -1431,7 +1440,7 @@ def _device_launches(fn, name, calls=10):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("dims", [(6, 3), (4, 3), (3, 2)])
+@pytest.mark.parametrize("dims", [(6, 3), (4, 3), (3, 2), (9, 3)])
 def test_ba_wv_one_launch_on_chunk_traps_on_gpu(cuda, dtype, dims):
     """K13's W v in one launch at vertex degrees 0, 1, 255, 256, 257 and
     80,000 (the chunk edges and the hub vertex), landmark ids in a random
@@ -1467,7 +1476,7 @@ def test_ba_wv_one_launch_on_chunk_traps_on_gpu(cuda, dtype, dims):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("dims", [(6, 3), (4, 3), (3, 2)])
+@pytest.mark.parametrize("dims", [(6, 3), (4, 3), (3, 2), (9, 3)])
 def test_ba_sandwich_one_launch_on_chunk_traps_on_gpu(cuda, dtype, dims):
     """K13's preconditioner blocks in one launch at vertex degrees 0 (an
     empty vertex), 1, 255, 256, 257 (one and two chunks) and 80,000 (a hub
@@ -1552,7 +1561,7 @@ def test_edge_se3_blocks_ragged_groups_on_gpu(cuda, dtype, n_edges):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("dims", [(6, 3), (3, 2)])
+@pytest.mark.parametrize("dims", [(6, 3), (3, 2), (9, 3)])
 def test_ba_cam_sums_on_degree_traps_on_gpu(cuda, dtype, dims):
     """K10's chunked camera sums at camera degrees 0, 1, 255, 256, 257
     (the chunk edges), 1768 (the 400k shape's hub, 7 chunks) and 5000, on
@@ -1686,6 +1695,7 @@ def _wtx_group(gen, dp, dl, K, L, C, dtype, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("K", [1, 3, 8, 13])
 @pytest.mark.parametrize("dims", [((6, 3),), ((4, 3),), ((3, 2),),
+                                  ((9, 3),), ((9, 3), (4, 3)),
                                   ((4, 3), (6, 3)), ((6, 3), (4, 3)),
                                   ((6, 3), (6, 3)), ((3, 2), (3, 2)),
                                   ((4, 3), (6, 3), (6, 3))])
@@ -1768,12 +1778,17 @@ def _lin_scene(cuda, dtype, kind):
     EDGE_SE3_TRACKXYZ, pose 0 fixed; some quaternions stored with q_w < 0,
     some 5e-4 off unit), a small Simulator2D world (EDGE_SE2, EDGE_SE2_XY),
     _general_scene's anchored PSI2UV or shared-intrinsics scene (camera 0
-    fixed), or one of chip_smoke.py's phase-4o worlds, small, with a fixed
-    vertex in every slot (chip_smoke.fix_one_per_slot)."""
+    fixed), or one of chip_smoke.py's phase-4o worlds or its BAL camera
+    graph, small, with a fixed vertex in every slot
+    (chip_smoke.fix_one_per_slot)."""
     import chip_smoke
     from openslam_g2o_torch.core.graph import Graph
     if kind in ("psi2uv", "intrinsics"):
         return _general_scene(cuda, dtype, kind)
+    if kind == "bal":
+        g = chip_smoke.bal_camera_graph(Graph, 12, 200, seed=3)
+        return chip_smoke.fix_one_per_slot(g).compile(dtype=dtype,
+                                                      device=cuda)
     if kind == "2d":
         g, _ = Simulator2D(n_landmarks=40, seed=2).simulate(120)
         return g.compile(dtype=dtype, device=cuda)
@@ -1822,7 +1837,7 @@ def _lin_matches_plain(fn, tname, args, dtype, what):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind", ["3d", "psi2uv", "intrinsics", "2d",
-                                  "world2d", "world3d", "sba"])
+                                  "world2d", "world3d", "sba", "bal"])
 def test_edge_lin_kernels_match_plain_on_gpu(cuda, dtype, kind):
     """K17 against its plain version (the model's error and torch.func.jvp
     through the retractions, or the closed form) on every edge group of the
@@ -1860,7 +1875,7 @@ def test_edge_lin_every_type_on_seeded_groups_on_gpu(cuda, dtype):
 
 def test_edge_lin_serves_linearize_group_on_gpu(cuda):
     """On CUDA tensors `linearize_group` launches K17 for every type of the
-    scenes (all 23 built-in types between them) and no other kernel; an
+    scenes (all 24 built-in types between them) and no other kernel; an
     edge group of a type registered at run time keeps the jvp route on the
     card."""
     from openslam_g2o_torch.core import registry
@@ -1869,7 +1884,7 @@ def test_edge_lin_serves_linearize_group_on_gpu(cuda):
     kernels.reset_launch_counts()
     seen = set()
     for kind in ("3d", "psi2uv", "intrinsics", "2d", "world2d", "world3d",
-                 "sba"):
+                 "sba", "bal"):
         prob = _lin_scene(cuda, torch.float32, kind)
         seen |= {eg.etype.name for eg in prob.static.egroups}
         problem_mod.linearize(prob)
@@ -1908,7 +1923,8 @@ _TRIAL_VERTEX_OF = {"se2": "edge_se2", "point_xy": "edge_se2_xy",
                     "se3_expmap": "edge_se3_expmap",
                     "sba_point_xyz": "edge_project_xyz2uv",
                     "cam": "edge_sba_cam",
-                    "intrinsics": "edge_project_p2mc_intrinsics"}
+                    "intrinsics": "edge_project_p2mc_intrinsics",
+                    "bal_camera": "edge_project_bal"}
 # relative tolerance of the summed chi2 and dot, and of the candidate
 # (relative to its largest entry)
 TOL_K7 = {torch.float64: 1e-12, torch.float32: 1e-5}
@@ -2352,3 +2368,183 @@ def test_trial_chi2_at_tile_edges_on_gpu(cuda, dtype):
             assert torch.equal(trial.chi2_sum(part), chi_new), (tname, E)
             del params, indices, meas, info, delta, pdata, args, part
         torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The BAL camera (models/bal.py): every kernel of its path at (Dp, dl) =
+# (9, 3) and D = 9
+# ---------------------------------------------------------------------------
+
+def _bal_scene(device, dtype, n_cams=40, n_points=1500):
+    """chip_smoke.py's phase-4p scene (bal_camera_scene) at a small size,
+    read by load_bal_problem."""
+    import os
+    import tempfile
+    import chip_smoke
+    from openslam_g2o_torch.models.bal import load_bal_problem
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "scene.bal")
+        chip_smoke.bal_camera_scene(path, n_cams, n_points)
+        return load_bal_problem(path, dtype=dtype, device=device)[0]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_bal_kernels_match_plain_on_gpu(cuda, dtype):
+    """Each kernel of the BAL path against its plain version on the card:
+    K17's EDGE_PROJECT_BAL (2e-4 / 1e-10, _lin_matches_plain), K7's chi2
+    (TOL_K7, or within chip_smoke.CHI2_WITNESS_TOL of the plain version in
+    float64 on the same values) and VERTEX_CAMERA_BAL retraction, K10's
+    generic entry and owner sums at (9, 3), K11 at D = 9 (camera damping,
+    the preconditioner blocks' inverse), K13's W^T x, W v and sandwich, K12
+    and K4 at D = 9 (TOL_BA; the inverse to cond x eps); the owner sums,
+    W^T x, W v and S twice for the same bits."""
+    import chip_smoke
+    from openslam_g2o_torch.core import ba_ell
+    from openslam_g2o_torch.kernels import (
+        ba_coupling, ba_edge, ba_inv, ba_schur, edge_lin, trial)
+    prob = _bal_scene(cuda, dtype)
+    eg = prob.static.egroups[0]
+    ea = prob.edges[eg.key]
+    kernels.reset_launch_counts()
+    for kid in (0, 1):
+        largs = (tuple(prob.params[g] for g in eg.slots),
+                 tuple(prob.free[g] for g in eg.slots), ea.indices,
+                 ea.measurement, ea.information, ea.delta, ea.pdata, kid)
+        _lin_matches_plain(edge_lin.edge_lin_bal, eg.etype.name, largs,
+                           dtype, kid)
+        cargs = (largs[0], ea.indices, ea.measurement, ea.information,
+                 ea.delta, ea.pdata, kid)
+        part = trial.trial_chi2_bal(*cargs)
+        want = trial.trial_chi2_bal_plain(*cargs).sum()
+        err = _rel(part.sum(), want)
+        if err >= TOL_K7[dtype]:
+            wide = tuple(p.double() for p in largs[0])
+            ref = trial.trial_chi2_bal_plain(
+                wide, ea.indices, ea.measurement.double(),
+                ea.information.double(), ea.delta.double(), (), kid).sum()
+            assert _rel(part.sum(), ref) < chip_smoke.CHI2_WITNESS_TOL
+        assert torch.equal(trial.trial_chi2_bal(*cargs), part)
+    x, free, dx, b = _trial_vertex_group("bal_camera", dtype, cuda)
+    lam = torch.tensor(0.7, dtype=dtype, device=cuda)
+    cand, dot = trial.trial_retract_bal_camera(x, dx.T, free, b.T, lam)
+    cand_p, dot_p = trial.trial_retract_bal_camera_plain(x, dx.T, free,
+                                                         b.T, lam)
+    assert _rel(cand, cand_p) < TOL_K7[dtype]
+    assert _rel(dot.sum(), dot_p.sum()) < TOL_K7[dtype]
+    # K10 at (9, 3) on the scene's own linearization
+    pattern = ba_ell.build_ba_ell_pattern(prob)
+    assert (pattern.dp, pattern.dl) == (9, 3)
+    resid, jacs, rho1 = problem_mod.linearize_group(prob, eg)
+    gargs = (resid.contiguous(), jacs[0].contiguous(), jacs[1].contiguous(),
+             rho1.contiguous(), ea.information)
+    E = resid.shape[0]
+    got = ba_edge.EdgeStreams.empty(E, 9, 3, dtype, cuda, pattern.cam_pos)
+    want = ba_edge.EdgeStreams.empty(E, 9, 3, dtype, cuda, pattern.cam_pos)
+    ba_edge.ba_edge_blocks(*gargs, got, 0)
+    ba_edge.ba_edge_blocks_plain(*gargs, want, 0)
+    for a, b_ in zip(got.lane_major(), want.lane_major()):
+        assert _rel(a, b_) < TOL[dtype]
+    assert not got.rec[:, 81 + 9 + 27:].any()
+    sums = ba_edge.ba_lm_sums(got, pattern.lm_edge)
+    for a, b_, c in zip(sums, ba_edge.ba_lm_sums_plain(got, pattern.lm_edge),
+                        ba_edge.ba_lm_sums(got, pattern.lm_edge)):
+        assert _rel(a, b_) < TOL[dtype] and torch.equal(a, c)
+    csum = ba_edge.ba_cam_sums(got, pattern.cam_rows)
+    for a, b_, c in zip(csum, ba_edge.ba_cam_sums_plain(got,
+                                                        pattern.cam_rows),
+                        ba_edge.ba_cam_sums(got, pattern.cam_rows)):
+        assert _rel(a, b_) < TOL[dtype] and torch.equal(a, c)
+    Hll, b_l, W_lm = sums
+    Hcc, b_p, W_cam = csum
+    # K11: the landmarks at D = 3, the cameras' damping at D = 9
+    lam = 1e-3 * Hll[0].abs().max()
+    fl, fc = prob.free["sba_point_xyz"], prob.free["bal_camera"]
+    _, hinv, hib = ba_inv.ba_block_inv(Hll, ba_inv.LANDMARK, fl, lam, b=b_l)
+    hcc_d = ba_inv.ba_block_inv(Hcc, ba_inv.CAMERA, fc, lam,
+                                want_inv=False)[0]
+    assert torch.equal(hcc_d, ba_inv.ba_block_inv_plain(
+        Hcc, ba_inv.CAMERA, fc, lam, want_inv=False)[0])
+    C = pattern.n_cam
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    xc = torch.randn((9, C), generator=gen, dtype=dtype, device=cuda)
+    for kw in ({}, dict(hinv=hinv), dict(hinv=hinv, b=b_l, free=fl)):
+        y = ba_coupling.ba_wtx(W_lm, pattern.lm_cam, xc, **kw)
+        assert _rel(y, ba_coupling.ba_wtx_plain(W_lm, pattern.lm_cam, xc,
+                                                **kw)) < TOL_BA[dtype]
+        assert torch.equal(y, ba_coupling.ba_wtx(W_lm, pattern.lm_cam, xc,
+                                                 **kw))
+    v = ba_coupling.ba_wtx(W_lm, pattern.lm_cam, xc, hinv=hinv)
+    for kw in (dict(base=b_p, free=fc),
+               dict(hcc_d=hcc_d, x=xc, want_dot=True)):
+        y = ba_coupling.ba_wv(W_cam, pattern.cam_rows, hib if "base" in kw
+                              else v, **kw)
+        yp = ba_coupling.ba_wv_plain(W_cam, pattern.cam_rows, hib
+                                     if "base" in kw else v, **kw)
+        if kw.get("want_dot"):
+            assert _rel(y[1].sum(), yp[1].sum()) < TOL_BA[dtype]
+            y, yp = y[0], yp[0]
+        assert _rel(y, yp) < TOL_BA[dtype]
+    sw = ba_coupling.ba_sandwich(W_cam, pattern.cam_rows, hinv, hcc_d)
+    assert _rel(sw, ba_coupling.ba_sandwich_plain(
+        W_cam, pattern.cam_rows, hinv, hcc_d)) < TOL_BA[dtype]
+    # K11 at D = 9 on the preconditioner blocks, K4 at D = 9 applying them
+    sinv = ba_inv.ba_block_inv(sw)[1]
+    assert _rel(sinv, ba_inv.ba_block_inv_plain(sw)[1]) < _inv_tol(sw,
+                                                                   dtype)
+    y = jacobi_scale.lane_block_mv(sinv, xc)
+    assert _rel(y, jacobi_scale.lane_block_mv_plain(sinv, xc)) < TOL[dtype]
+    # K12 at (9, 3), its records of 27 values
+    pairs = pattern.schur_pairs()
+    w_rec = ba_schur.ba_schur_records(W_lm.view(27, -1))
+    assert torch.equal(w_rec, ba_schur.ba_schur_records_plain(
+        W_lm.view(27, -1)))
+    S = ba_schur.ba_schur_dense(pairs, W_lm, hinv, hcc_d, w_rec=w_rec)
+    assert _rel(S, ba_schur.ba_schur_dense_plain(pairs, W_lm, hinv,
+                                                 hcc_d)) < TOL_BA[dtype]
+    assert torch.equal(S, ba_schur.ba_schur_dense(pairs, W_lm, hinv, hcc_d,
+                                                  w_rec=w_rec))
+    counts = kernels.launch_counts()
+    for k in ("edge_lin_bal", "trial_chi2_bal", "trial_retract_bal_camera",
+              "ba_edge_blocks", "ba_lm_sums", "ba_cam_sums", "ba_block_inv",
+              "ba_wtx", "ba_wv", "ba_sandwich", "lane_block_mv",
+              "ba_schur_dense", "ba_schur_records"):
+        assert counts[k] > 0, k
+    assert ba_inv.ba_block_inv.launches_by_width[9] >= 2
+    assert jacobi_scale.lane_block_mv.launches_by_width[9] == 1
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_bal_lm_on_gpu_matches_cpu(cuda, dense, monkeypatch):
+    """LevenbergMarquardtSchurELL on a BAL file on the card against the same
+    run on the CPU (plain versions), float64, on both routes: chi2 to 1e-9;
+    K17 and K7 serve the BAL types (the generic linearization and the
+    plain trial are not reached on the card)."""
+    from openslam_g2o_torch.core import ba_ell
+    from openslam_g2o_torch.kernels import trial
+    if not dense:
+        monkeypatch.setattr(ba_ell, "_DENSE_SCHUR_MAX_TP", -1)
+    runs = {}
+    for device in ("cpu", cuda):
+        prob = _bal_scene(device, torch.float64, n_cams=24, n_points=600)
+        if device != "cpu":
+            def refuse(*a, **k):
+                raise AssertionError("a plain route ran on the card")
+            monkeypatch.setattr(trial, "retract_plain", refuse)
+            monkeypatch.setattr(trial, "chi2_plain", refuse)
+            monkeypatch.setattr(problem_mod, "linearize_edges", refuse)
+        kernels.reset_launch_counts()
+        _, stats = algorithms.optimize(
+            prob, ba_ell.LevenbergMarquardtSchurELL(pcg_iters=40,
+                                                    pcg_tol=1e-6),
+            iterations=5)
+        runs[str(device)] = ([s["chi2"] for s in stats],
+                             kernels.launch_counts())
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-9)
+    counts = runs["cuda"][1]
+    used = ("edge_lin_bal", "trial_chi2_bal", "trial_retract_bal_camera",
+            "ba_edge_blocks", "ba_lm_sums", "ba_cam_sums", "ba_block_inv",
+            "ba_wtx", "ba_wv") + (("ba_schur_dense",) if dense
+                                  else ("ba_sandwich", "lane_block_mv"))
+    assert all(counts[k] > 0 for k in used), counts
+    assert (counts["ba_schur_dense"] > 0) == dense
+    assert not any(runs["cpu"][1].values())

@@ -34,7 +34,7 @@ for name in ("kernels.damp_chol", "kernels.jacobi_scale", "kernels.cg_step",
              "kernels.dense_assemble", "kernels.retract_chi2",
              "kernels.edge_se3", "models.slam3d", "ops.lie", "utils.np_lie",
              "kernels.ba_edge", "kernels.ba_inv", "kernels.ba_schur",
-             "kernels.ba_coupling", "core.ba_ell", "models.sba",
+             "kernels.ba_coupling", "core.ba_ell", "models.sba", "models.bal",
              "core.ba", "core.factory", "kernels.schur_general",
              "apps.profile_window", "apps.simulator",
              "interop"):

@@ -2,11 +2,11 @@
 (kernels/trial.py, csrc/trial.cu): the plain versions, which the CPU route
 runs, against the JAX package, float64 on the CPU.
 
-* each of the eight vertex types: the plain retraction and its dot
+* each of the nine vertex types: the plain retraction and its dot
   partials against JAX's `apply_update_parts` and jnp.dot of
   dx . (lambda dx + b), rtol 1e-12, with fixed vertices, stored
   quaternions off unit norm and SE2 angles whose step crosses +-pi;
-* each of the 23 edge types, without and with Huber: the plain chi2
+* each of the 24 edge types, without and with Huber: the plain chi2
   partials summed against the group's term of JAX's `robust_chi2` at a
   candidate, rtol 1e-12; and each scene's total (`robust_chi2`: the
   partials of every group summed by `chi2_sum`) against JAX's;
@@ -20,7 +20,7 @@ runs, against the JAX package, float64 on the CPU.
   the plain version.
 
 The scenes are chip_smoke.py's (phase 4o's worlds, the general path's
-scenes) and a Simulator3D world for EDGE_SE3:QUAT and EDGE_SE3_TRACKXYZ,
+scenes, the small BAL graph of the 9-wide camera) and a Simulator3D world for EDGE_SE3:QUAT and EDGE_SE3_TRACKXYZ,
 built small in the JAX package and carried across with
 `problem_from_numpy`.
 """
@@ -119,6 +119,7 @@ def _sba(n_cams=12, n_points=24):
 # scene -> builder of its JAX graph (small); every vertex and edge type of
 # the models is in one of them
 SCENES = {
+    "bal": lambda: scenes.bal_camera_graph(JGraph, 6, 24, seed=1),
     "world2d": lambda: scenes.world2d_all_graph(JGraph, 24, 16, seed=1),
     "world3d": _world3d,
     "sba": _sba,
