@@ -186,6 +186,29 @@ Phases (any failure raises and the script exits non-zero):
     generic entry and owner sums at (9, 3), K11 and K4 at D = 9 (beside
     torch.linalg.inv_ex and torch.bmm), K12 (beside the JAX route's
     torch.matmul(B2, M2)) and K13;
+ 4q. the same BAL files through the general Schur path
+    (LevenbergMarquardtSchur(), pcg 250, tol 1e-8, as 4j): lambda init +
+    10 iterations, float32 at 80k and 400k and float64 at 80k, with 4j's
+    checks and reports (one ba_wtx launch per S x, ms per LM iteration,
+    wall and device us per CG iteration of one profiled trial solve, K14
+    and K15 per schur_build); chi2 never increases and ends at most 1.02
+    x (2E - 9(C - 1) - 3P); the float64 80k end within 1e-4 of 4p's
+    dual-ELL float64 end (the gap printed). Phase 3 holds K14 at (9, 3)
+    and K15 on the 9-wide camera slots at both shapes (rows @bal,
+    @bal400k);
+ 4r. the dense GN / LM route at block width 9 on a BAL file of the dense
+    worlds' size (bal_camera_scene(100, 3000): T = 9900, 24,000
+    observations, float64): optimize(prob) (the default dense
+    LevenbergMarquardt) for 10 iterations, chi2 never increasing and at
+    most 1.02 x (2E - 9(C - 1) - 3P); GaussNewton() for 3 iterations from
+    its end, and LM going on from its 10th iteration until it is within
+    1e-6 of GN's end (at most 30 more, chi2 never increasing: its lambda
+    falls slowly on this scene); LevenbergMarquardtSchurELL() on the same
+    scene (the dense-Schur route) within 1% of the dense LM's end; ms per
+    iteration, the split of one LM iteration (cuSOLVER's share) and K15
+    per build (profiler). Phase 3 holds K15 on this scene (row
+    dense_assemble@d9: the 3 x 3, 3 x 9 and 9 x 9 pairs, the zero fill,
+    the unit diagonal of camera 0);
  5. a small .g2o string through loads_g2o -> compile() (the default
     device) -> optimize(LevenbergMarquardtPCG()), chi2 decreasing and equal
     to the CPU run of the same graph; one with VERTEX_XY, EDGE_SE2_XY
@@ -196,12 +219,13 @@ Phases (any failure raises and the script exits non-zero):
     the dense LM; and a BA scene (PARAMS_CAMERAPARAMETERS, VERTEX_SE3:EXPMAP
     with camera-to-world in the file, VERTEX_XYZ, EDGE_PROJECT_XYZ2UV:EXPMAP,
     EDGE_SE3:EXPMAP) through LevenbergMarquardtSchurELL;
- 6. every kernel's launch count in the paths of phases 4-4p, each > 0. A
+ 6. every kernel's launch count in the paths of phases 4-4r, each > 0. A
     count is one per wrapper call that launched; cg_finish launches two
     kernels per vector and gershgorin_bound two per call. The 6x6
     instantiations are listed apart, with the launches of the SE3 and
     dense 3D paths, which their 3x3 rows then leave out. The BA kernels'
-    rows count phases 4g-4i, their @-rows the phase of their shape.
+    rows count phases 4g-4i, their @-rows the phase of their shape; K14's
+    and K15's 9-wide rows (WIDE_ROWS) count phases 4q and 4r.
     spmv_dot_p runs on the unpreconditioned paths only, cg_update_p on the
     preconditioned ones (4b, 4e's Chebyshev window, 4h, 4i, 4j-4n).
     K17's rows count every phase (4d, 4f, 4i, 4j-4n, 4o), and each row's
@@ -537,6 +561,14 @@ GENERAL_REPLACES = {
     "schur_edge_blocks": "openslam_g2o_tpu/core/ba.py:147",
     "ba_wv": "openslam_g2o_tpu/core/ba.py:229",
     "ba_sandwich": "openslam_g2o_tpu/core/ba.py:246"}
+# K14 at (9, 3) and K15 at block width 9 on the BAL camera: row -> the
+# phases whose launches it reports (4q: the general Schur path on 4p's
+# files, float32 and float64 at 80k; 4r: the dense route)
+WIDE_ROWS = {"schur_edge_blocks@bal": ("4q 80k float32", "4q 80k float64"),
+             "schur_edge_blocks@bal400k": ("4q 400k float32",),
+             "dense_assemble@bal": ("4q 80k float32", "4q 80k float64"),
+             "dense_assemble@bal400k": ("4q 400k float32",),
+             "dense_assemble@d9": ("4r",)}
 # the BA kernels' rows at the other shapes and instantiations of their
 # paths: suffix -> the phase whose launches the row reports (@400k: the
 # implicit route's shape; @2d: the 4d world, (Dp, dl) = (3, 2); @3d: the 4f
@@ -807,6 +839,13 @@ BAL_FOCAL = 800.0
 BAL_DISTORTION = (-0.05, 0.01)       # k1, k2 of every camera's truth
 BAL_START = (808.0, 0.0, 0.0)        # f (1% off), k1, k2 of the start
 BAL_PIXEL_NOISE = 1.0
+# phase 4q: the general Schur path's float64 end at 80k against phase 4p's
+# dual-ELL float64 end on the same file (relative)
+BAL_GENERAL_GAP = 1e-4
+# phase 4r's scene: the dense GN / LM route on a BAL file of the size of the
+# other dense worlds (T = 9 x 100 + 3 x 3000 = 9900, 24,000 observations;
+# at 4p's 80k shape the dense H alone would be 11.6 GB in float64)
+BAL_DENSE = (100, 3000)
 
 
 def _bal_cameras(w2c, intrinsics):
@@ -1650,6 +1689,7 @@ def wrong_row_reading(y, mag, rows):
 
 
 def main() -> int:
+    t_main = time.monotonic()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -2822,7 +2862,8 @@ def main() -> int:
     bal_dir = tempfile.mkdtemp(prefix="chip_smoke_bal_")
     atexit.register(shutil.rmtree, bal_dir, True)
     bal_scenes = {}
-    for key_b, (nc_b, np_b) in (("80k", BA_80K), ("400k", BA_400K)):
+    for key_b, (nc_b, np_b) in (("80k", BA_80K), ("400k", BA_400K),
+                                ("dense", BAL_DENSE)):
         path_b = os.path.join(bal_dir, f"bal_{key_b}.txt")
         t_b = time.monotonic()
         bal_scenes[key_b] = dict(bal_camera_scene(path_b, nc_b, np_b),
@@ -3521,6 +3562,55 @@ def main() -> int:
             del gprob
         torch.cuda.empty_cache()
 
+    # K14 at (9, 3) and K15 at block width 9: phase 4q's BAL camera scenes
+    # through the general Schur path (K14, then K15 on the camera slots:
+    # rows @bal, @bal400k) and phase 4r's dense scene (K15's 3 x 3, 3 x 9
+    # and 9 x 9 pairs, the zero fill of H and the unit diagonal of camera
+    # 0: row dense_assemble@d9)
+    for dt in (torch.float32, torch.float64):
+        tag = str(dt).split(".")[-1]
+        for key_b, sfx in (("80k", "@bal"), ("400k", "@bal400k")):
+            gprob = load_bal_problem(bal_scenes[key_b]["path"], dtype=dt)[0]
+            pat = ba_general.build_schur_pattern(gprob)
+            lin = problem_mod.linearize(gprob)
+            new_w, edge_run, k14_bytes, k14_flops, k14_shape = k14_operands(
+                torch, ba_edge, gprob, pat, lin)
+            got_w, want_w = new_w(), new_w()
+            label_k14 = "schur_edge_blocks" + sfx
+            case("schur_edge_blocks", tag, k14_shape,
+                 lambda: edge_run(schur_general.schur_edge_blocks, got_w),
+                 lambda: edge_run(schur_general.schur_edge_blocks_plain,
+                                  want_w),
+                 nbytes=k14_bytes, flops=k14_flops, label=label_k14,
+                 slow_plain=True)
+            again_w = edge_run(schur_general.schur_edge_blocks, new_w())
+            if not all(torch.equal(a_, b_) for a_, b_ in zip(
+                    edge_run(schur_general.schur_edge_blocks, new_w()),
+                    again_w)):
+                raise AssertionError(f"{label_k14} does not repeat its bits")
+            device_rows(label_k14, tag, {"kernel": lambda: edge_run(
+                schur_general.schur_edge_blocks, got_w)})
+            k15_row("dense_assemble" + sfx, tag, pose_slot_dargs(
+                torch, dense_assemble, gprob, pat, lin))
+            del gprob, pat, lin, got_w, want_w, again_w
+        dprob_b = load_bal_problem(bal_scenes["dense"]["path"], dtype=dt)[0]
+        dargs = dense_world_dargs(dense_assemble, problem_mod, dprob_b)
+        k15_row("dense_assemble@d9", tag, dargs)
+        once = dense_assemble.dense_assemble(*dargs)
+        # the mirrored writes make H symmetric to the bit outside the
+        # diagonal blocks, which are at most 9 wide
+        skew = (once[0] - once[0].T).abs_()
+        if float(skew.max()) > TOL_DEFAULT[tag] * float(once[0].abs().max()) \
+                or bool(skew.triu(9).any()):
+            raise AssertionError("dense_assemble@d9: H is not symmetric")
+        fixed_b = dargs[2].bool()
+        if int(fixed_b.sum()) != 9 or not bool(
+                (once[0].diagonal()[fixed_b] == 1.0).all()):
+            raise AssertionError("dense_assemble@d9: the fixed camera's "
+                                 "diagonal is not 1")
+        del dprob_b, dargs, once, skew
+        torch.cuda.empty_cache()
+
     # K17: each wrapper against its plain version (the error and
     # torch.func.jvp, or the closed form in torch), twice for the same
     # bits, by device time: on the edge groups of its phase's scene
@@ -4172,40 +4262,53 @@ def main() -> int:
           f"gaining; second run bit-identical; K17 launches {lin_d} OK")
     del lm_again, plain_stats
 
-    # the split of one LM iteration at the start (CUDA events, median of 5)
+    def dense_split(phase, dprob_, dpat_):
+        """The split of one dense LM iteration at the start (CUDA events,
+        median of 5): linearize, assemble (K15), factor + solve (cuSOLVER,
+        with the clone of H it starts from), retract + chi2; printed and
+        returned in ms."""
+        lam_d = LevenbergMarquardt().init(dprob_)["lam"]
+        free_d = problem_mod.tangent_masks(dprob_)[0]
+        holder = {}
+
+        def t_linearize():
+            holder["lin"] = problem_mod.linearize(dprob_)
+
+        def t_assemble():
+            holder["H"], holder["b"], _ = problem_mod.build_dense_system(
+                dprob_, lin=holder["lin"], pattern=dpat_)
+
+        def t_solve():
+            damped = holder["H"].clone()
+            damped.diagonal().add_(lam_d * free_d)
+            holder["dx"], _ = solve_dense_cholesky(damped, holder["b"])
+
+        def t_clone():
+            holder["H"].clone()
+
+        def t_retract():
+            robust_chi2(dprob_, problem_mod.apply_update(dprob_,
+                                                         holder["dx"]))
+
+        split_ms = {}
+        for label, fn in (("linearize", t_linearize),
+                          ("assemble", t_assemble),
+                          ("factor+solve", t_solve),
+                          ("of which clone", t_clone),
+                          ("retract+chi2", t_retract)):
+            split_ms[label] = _median_ms(torch, fn, repeats=5, inner=1,
+                                         warmup=1)
+        print(f"phase {phase} split of one LM iteration (CUDA events, "
+              f"median of 5): "
+              + "; ".join(f"{k} {v:.3f} ms" for k, v in split_ms.items())
+              + f" [{card}]")
+        return split_ms
+
+    # the split of one LM iteration at the start
     dpat = dense_assemble.build_dense_pattern(dprob)
-    lam_d = LevenbergMarquardt().init(dprob)["lam"]
-    free_d = problem_mod.tangent_masks(dprob)[0]
-    holder = {}
-
-    def t_linearize():
-        holder["lin"] = problem_mod.linearize(dprob)
-
-    def t_assemble():
-        holder["H"], holder["b"], _ = problem_mod.build_dense_system(
-            dprob, lin=holder["lin"], pattern=dpat)
-
-    def t_solve():
-        damped = holder["H"].clone()
-        damped.diagonal().add_(lam_d * free_d)
-        holder["dx"], _ = solve_dense_cholesky(damped, holder["b"])
-
-    def t_clone():
-        holder["H"].clone()
-
-    def t_retract():
-        robust_chi2(dprob, problem_mod.apply_update(dprob, holder["dx"]))
-
-    split_ms = {}
-    for label, fn in (("linearize", t_linearize), ("assemble", t_assemble),
-                      ("factor+solve", t_solve), ("of which clone", t_clone),
-                      ("retract+chi2", t_retract)):
-        split_ms[label] = _median_ms(torch, fn, repeats=5, inner=1, warmup=1)
-    print("phase 4d split of one LM iteration (CUDA events, median of 5): "
-          + "; ".join(f"{k} {v:.3f} ms" for k, v in split_ms.items())
-          + f" [{card}]")
+    dense_split("4d", dprob, dpat)
     dense_trial_split("4d", dprob, dpat)
-    del holder, lm_out, dpat
+    del lm_out, dpat
 
     def dense_profile(dprob_, phase, also=()):
         """Where the device's time goes in 3 LM iterations of the dense
@@ -4713,14 +4816,16 @@ def main() -> int:
     # P2MC_INTRINSICS with two pose groups (l), float32, lambda init + 10
     # iterations each; the routing of _SchurAuto and the anchored demo scene
     # against the JAX package's float64 end (m); the 400k BAL shape (n)
-    def general_path(phase, what, gprob, expected, jax_key=None):
+    def general_path(phase, what, gprob, expected, jax_key=None,
+                     plain_route=True):
         """Lambda init + 10 iterations of LevenbergMarquardtSchur() on
         gprob: chi2 finite, never increasing, at most BA_GATE x expected;
         ms per LM iteration, CG iterations; one trial's solve timed on the
-        host clock and profiled for its device time per CG iteration; the
-        first 3 chi2 against the plain route. Returns (trajectory,
-        launches of the run, with K11's and lane_block_mv's at D = 4 also
-        under "<wrapper>@d4")."""
+        host clock and profiled for its device time per CG iteration; K14's
+        and K15's device time in one profiled schur_build; the first 3 chi2
+        against the plain route (unless plain_route is False). Returns
+        (trajectory, launches of the run, with K11's and lane_block_mv's
+        at D = 4 also under "<wrapper>@d4")."""
         alg = ba_general.LevenbergMarquardtSchur()
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
@@ -4740,9 +4845,11 @@ def main() -> int:
         torch.cuda.synchronize()
         ms = (time.monotonic() - t1) * 100
         counts = kernels.launch_counts()
-        # the D = 4 launches (the intrinsics group's blocks) apart
+        # the D = 4 launches (the intrinsics group's blocks) and the D = 9
+        # ones (the BAL camera's) apart
         for w_ in (ba_inv.ba_block_inv, jacobi_scale.lane_block_mv):
-            counts[f"{w_.__name__}@d4"] = w_.launches_by_width[4]
+            for d_ in (4, 9):
+                counts[f"{w_.__name__}@d{d_}"] = w_.launches_by_width[d_]
         n_groups = len(pat.pose_groups)
         cg_iters = counts["cg_update_xr"] // n_groups
         # one ba_wtx launch per S x (a solve's first product and one per CG
@@ -4854,15 +4961,24 @@ def main() -> int:
         if busy <= 0:
             raise AssertionError(f"phase {phase}: the profiler saw no "
                                  "device time")
-        # and one linearization + build (schur_build), for its kernels
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof_b:
-            ba_general.schur_build(work, pattern=pat)
-            torch.cuda.synchronize()
-        rows_b = sorted(((e.self_device_time_total, e.count, e.key)
-                         for e in prof_b.key_averages()
-                         if e.device_type == torch.autograd.DeviceType.CUDA
-                         and e.self_device_time_total > 0), reverse=True)
+        # and one linearization + build (schur_build), for its kernels;
+        # taken once more where the profile lost K14's records
+        for attempt in range(2):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof_b:
+                ba_general.schur_build(work, pattern=pat)
+                torch.cuda.synchronize()
+            rows_b = sorted(((e.self_device_time_total, e.count, e.key)
+                             for e in prof_b.key_averages()
+                             if e.device_type
+                             == torch.autograd.DeviceType.CUDA
+                             and e.self_device_time_total > 0),
+                            reverse=True)
+            if any("schur_tile" in k_ for _, _, k_ in rows_b):
+                break
+            print(f"phase {phase} the profiler saw no K14 kernel in one "
+                  f"schur_build (records lost); profile "
+                  f"{'taken again' if attempt == 0 else 'kept'}")
         for what_p, rows_p in (
                 ("the solve", rows_g[:8] + [r for r in rows_g[8:]
                                             if "sandwich" in r[2]]),
@@ -4871,6 +4987,15 @@ def main() -> int:
             print(f"phase {phase} device time by kernel in {what_p}: "
                   + "; ".join(f"{k_[:48]} {us / n_:.1f} us x {n_}"
                               for us, n_, k_ in rows_p))
+        k14_us = sum(us for us, _, k_ in rows_b
+                     if "schur_tile" in k_ or "schur_dest" in k_)
+        k15_us = sum(us for us, _, k_ in rows_b
+                     if any(w_ in k_ for w_ in ("zero_fill", "dense_pair",
+                                                "dense_finalize")))
+        print(f"phase {phase} per schur_build (profiler): K14 "
+              f"schur_edge_blocks {k14_us:.1f} us, K15 dense_assemble "
+              f"{k15_us:.1f} us of {sum(r[0] for r in rows_b):.1f} us of "
+              f"device time [{card}]")
         print(f"phase {phase} one trial's solve at the end, lambda of "
               f"iteration 3 ({n_cg} CG "
               f"iterations, lambda {float(lam_t):.4g}): wall "
@@ -4884,6 +5009,9 @@ def main() -> int:
               + f"; one trial's solve (wall above) {wall / 1e3:.3f} ms "
               f"[{card}]")
         del sys_, work
+        if not plain_route:
+            del state
+            return traj, counts
         with plain_versions():
             alg_p = ba_general.LevenbergMarquardtSchur()
             st_p = alg_p.init(gprob)
@@ -5131,6 +5259,7 @@ def main() -> int:
     # _SchurAuto's route on the 80k graph; the float32 80k result written
     # by save_bal_problem and read back
     counts_bal = {}
+    bal_ends = {}                       # (key, dtype) -> final chi2
 
     def bal_path(key, dt):
         sc = bal_scenes[key]
@@ -5175,6 +5304,7 @@ def main() -> int:
         for w_ in (ba_inv.ba_block_inv, jacobi_scale.lane_block_mv):
             counts[f"{w_.__name__}@d9"] = w_.launches_by_width[9]
         counts_bal[(key, tag_b)] = counts
+        bal_ends[(key, tag_b)] = traj[-1]
         print(f"phase {phase} BAL {'dense-Schur' if dense else 'implicit'} "
               f"route: bal_camera_scene{sc['shape']} read by "
               f"load_bal_problem in {t_l:.2f} s; E={sc['n_obs']} "
@@ -5283,6 +5413,152 @@ def main() -> int:
     for c_ in counts_bal.values():
         for k, v in c_.items():
             counts_4p[k] = counts_4p.get(k, 0) + v
+
+    # 4q. the same BAL files through the general Schur path
+    # (LevenbergMarquardtSchur(), pcg 250, tol 1e-8, as 4j): K14 at (9, 3),
+    # K15 on the 9-wide camera slots, K13, K11 and K4 at (9, 3) / D = 9;
+    # lambda init + 10 iterations, float32 at 80k and 400k, float64 at 80k,
+    # whose end must lie within BAL_GENERAL_GAP of 4p's dual-ELL float64 end
+    ends_4q = {}
+    for key_b, dt_b in (("80k", torch.float32), ("80k", torch.float64),
+                        ("400k", torch.float32)):
+        tag_b = str(dt_b).split(".")[-1]
+        sc = bal_scenes[key_b]
+        qprob = load_bal_problem(sc["path"], dtype=dt_b)[0]
+        phase_q = f"4q {key_b} {tag_b}"
+        traj_q, counts_gen[phase_q] = general_path(
+            phase_q, f"bal_camera_scene{sc['shape']} read by "
+            "load_bal_problem, EDGE_PROJECT_BAL on the 9-wide camera",
+            qprob, float(sc["expected"]), plain_route=False)
+        ends_4q[(key_b, tag_b)] = traj_q[-1]
+        print(f"phase {phase_q} beside phase 4p's dual-ELL route (pcg 30, "
+              f"tol 0.05), chi2 / expected at the end: general "
+              f"{traj_q[-1] / sc['expected']:.5f}, dual-ELL "
+              f"{bal_ends[(key_b, tag_b)] / sc['expected']:.5f}")
+        del qprob
+        torch.cuda.empty_cache()
+    gap_q = (abs(ends_4q[("80k", "float64")] - bal_ends[("80k", "float64")])
+             / bal_ends[("80k", "float64")])
+    print(f"phase 4q float64 80k: general path ends at "
+          f"{ends_4q[('80k', 'float64')]!r}, the dual-ELL route (4p) at "
+          f"{bal_ends[('80k', 'float64')]!r}: gap {gap_q:.3e} (limit "
+          f"{BAL_GENERAL_GAP:g})")
+    if not gap_q <= BAL_GENERAL_GAP:
+        raise AssertionError(f"phase 4q: the general path's float64 end is "
+                             f"{gap_q:.3e} from the dual-ELL route's")
+    for ph, c_ in counts_gen.items():
+        if ph.startswith("4q") and min(c_[k] for k in (
+                "schur_edge_blocks", "dense_assemble", "ba_wtx", "ba_wv",
+                "ba_sandwich", "ba_lm_sums", "ba_block_inv@d9",
+                "lane_block_mv@d9", "edge_lin_bal", "trial_chi2_bal",
+                "trial_retract_bal_camera")) <= 0:
+            raise AssertionError(f"phase {ph}: a kernel did not launch: {c_}")
+
+    # 4r. the dense GN / LM route at block width 9: optimize(prob) (the
+    # default dense LevenbergMarquardt) for 10 iterations on a BAL file of
+    # the dense worlds' size, GaussNewton() for 3 from its end, and the
+    # dual-ELL solver's dense-Schur route on the same scene
+    sc_r = bal_scenes["dense"]
+    rprob = load_bal_problem(sc_r["path"], dtype=torch.float64)[0]
+    T_r = rprob.static.total_dim
+    expected_r = float(sc_r["expected"])
+    chi0_r = float(robust_chi2(rprob))
+    optimize(rprob, iterations=1)             # cuSOLVER's first call
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    lm_last = {}
+    t_lm = time.monotonic()
+    out_r, lm_stats_r = optimize(
+        rprob, post_iteration=lambda it, st: lm_last.update(state=st))
+    torch.cuda.synchronize()
+    t_lm = time.monotonic() - t_lm
+    t_gn = time.monotonic()
+    _, gn_stats_r = optimize(out_r, GaussNewton(), iterations=3)
+    torch.cuda.synchronize()
+    t_gn = time.monotonic() - t_gn
+    lm_r = [st_["chi2"] for st_ in lm_stats_r]
+    gn_r = [st_["chi2"] for st_ in gn_stats_r]
+    # LM after its 10 iterations is still on its way down (its lambda,
+    # set from tau max |diag H|, which the focal length's column
+    # dominates, falls by at most 3x an iteration): it goes on from its
+    # state until it comes within 1e-6 of GN's end, at most 30 more
+    lm_more = LevenbergMarquardt()
+    state_r, more_r = lm_last["state"], []
+    while len(more_r) < 30 and not (
+            more_r and abs(more_r[-1] - gn_r[-1]) <= 1e-6 * gn_r[-1]):
+        state_r, info_r = lm_more.step(rprob, state_r)
+        more_r.append(info_r["chi2"])
+    torch.cuda.synchronize()
+    counts_4r = kernels.launch_counts()
+    del state_r, lm_last
+    print(f"phase 4r dense route at block width 9: bal_camera_scene"
+          f"{sc_r['shape']} read by load_bal_problem, T={T_r}, "
+          f"E={sc_r['n_obs']}, float64; chi2_0 {chi0_r:.1f}; LM 10 "
+          f"iterations {t_lm * 100:.2f} ms/iteration "
+          f"({sum(st_['levenberg_iters'] for st_ in lm_stats_r)} trials), "
+          f"GN 3 iterations from its end {t_gn * 1e3 / 3:.2f} ms/iteration "
+          f"[{card}]")
+    print(f"phase 4r LM chi2 / expected ({expected_r:.1f}): "
+          + " ".join(f"{c / expected_r:.5f}" for c in lm_r))
+    print("phase 4r GN chi2 from LM's end: " + " ".join(f"{c!r}"
+                                                        for c in gn_r))
+    print(f"phase 4r LM on from its 10th iteration: {len(more_r)} more "
+          f"iterations to {more_r[-1]!r}, against GN's end {gn_r[-1]!r}; "
+          f"LM's 10th iteration was {(lm_r[-1] - gn_r[-1]) / gn_r[-1]:.3e} "
+          f"above it")
+    if not (np.all(np.isfinite(lm_r))
+            and np.all(np.diff([chi0_r] + lm_r) <= 0)):
+        raise AssertionError(f"phase 4r: LM chi2 not finite or increasing: "
+                             f"{lm_r}")
+    if lm_r[-1] > BA_GATE * expected_r:
+        raise AssertionError(f"phase 4r: LM chi2 {lm_r[-1]} above {BA_GATE} "
+                             f"x {expected_r}")
+    gap_gn = abs(gn_r[-1] - more_r[-1]) / gn_r[-1]
+    if not (gap_gn <= 1e-6 and np.all(np.diff(lm_r + more_r) <= 0)):
+        raise AssertionError(f"phase 4r: GN ends {gap_gn:.3e} from LM "
+                             f"({more_r})")
+    if min(counts_4r[k] for k in ("dense_assemble", "edge_lin_bal",
+                                  "trial_chi2_bal",
+                                  "trial_retract_bal_camera",
+                                  "lm_outcome")) <= 0:
+        raise AssertionError(f"phase 4r: a kernel did not launch: "
+                             f"{counts_4r}")
+    dpat_r = dense_assemble.build_dense_pattern(rprob)
+    split_r = dense_split("4r", rprob, dpat_r)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_r:
+        problem_mod.build_dense_system(rprob, pattern=dpat_r)
+        torch.cuda.synchronize()
+    k15_r = sorted(((e.self_device_time_total, e.count, e.key)
+                    for e in prof_r.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and any(w_ in e.key for w_ in (
+                        "zero_fill", "dense_pair", "dense_finalize"))),
+                   reverse=True)
+    print(f"phase 4r K15 per build (profiler): "
+          f"{sum(r[0] for r in k15_r):.1f} us ("
+          + "; ".join(f"{k_[:40]} {us / n_:.1f} us x {n_}"
+                      for us, n_, k_ in k15_r)
+          + f"); cuSOLVER's factor + solve {split_r['factor+solve']:.3f} ms "
+          f"of the {t_lm * 100:.2f} ms LM iteration "
+          f"({100 * split_r['factor+solve'] / (t_lm * 100):.1f}%) [{card}]")
+    del dpat_r
+    alg_r = ba_ell.LevenbergMarquardtSchurELL()
+    _, ell_stats_r = optimize(rprob, alg_r, iterations=10)
+    if not ba_ell.dense_schur_ok(rprob, alg_r.pattern(rprob)):
+        raise AssertionError("phase 4r: the dual-ELL solver did not take "
+                             "the dense-Schur route")
+    ell_r = ell_stats_r[-1]["chi2"]
+    gap_ell = (ell_r - lm_r[-1]) / lm_r[-1]
+    print(f"phase 4r LevenbergMarquardtSchurELL() on the same scene "
+          f"(dense-Schur route), 10 iterations: chi2 {ell_r!r} against the "
+          f"dense LM's 10th {lm_r[-1]!r}: {100 * gap_ell:+.4f}% (limit "
+          f"{100 * BA_WORLD_GATE:g}%)")
+    if not abs(gap_ell) <= BA_WORLD_GATE:
+        raise AssertionError(f"phase 4r: the dense-Schur end is "
+                             f"{gap_ell:.3e} from the dense LM's")
+    del rprob, out_r
+    torch.cuda.empty_cache()
     shutil.rmtree(bal_dir, ignore_errors=True)
 
     # -- 5. a .g2o string through the public API ---------------------------
@@ -5481,8 +5757,9 @@ def main() -> int:
                 + (sum(c[k] for c in counts_gen.values())
                    if k.startswith(("ba_", "schur_", "edge_lin_", "trial_",
                                     "chi2_sum")) else 0)
-                + (counts_4o[k] if k.startswith(("edge_lin_", "trial_",
-                                                 "chi2_sum")) else 0)
+                + (counts_4o[k] + counts_4r[k]
+                   if k.startswith(("edge_lin_", "trial_", "chi2_sum"))
+                   else 0)
                 for k in counts_main}
     for label, counts in (("4 main path", counts_main),
                           ("4b Chebyshev path", counts_cheb),
@@ -5499,6 +5776,7 @@ def main() -> int:
                           *((f"{ph} general Schur path", c_)
                             for ph, c_ in counts_gen.items()),
                           ("4o dense LM worlds", counts_4o),
+                          ("4r dense route at block width 9", counts_4r),
                           *((f"4p BAL {k_} {t_} runs", c_)
                             for (k_, t_), c_ in counts_bal.items())):
         print(f"phase 6 launches in the phase-{label}: "
@@ -5579,7 +5857,10 @@ def main() -> int:
                     "4o": counts_4o, "4p": counts_4p,
                     **counts_gen}[ph][k.split("@")[0]]
                 <= 0]
-             + [k for k in KERNELS if launches[k] <= 0])
+             + [k for k in KERNELS if launches[k] <= 0]
+             + [k for k, phs in WIDE_ROWS.items()
+                if min({**counts_gen, "4r": counts_4r}[ph][
+                    k.split("@")[0]] for ph in phs) <= 0])
     if never or set(KERNELS) != set(launches):
         raise AssertionError(f"a kernel of a path never launched (or the "
                              f"two-launch step on a preconditioned path): "
@@ -5599,7 +5880,7 @@ def main() -> int:
                           ("4i 2D", counts_4i["2D"]),
                           ("4i 3D", counts_4i["3D"]),
                           *counts_gen.items(), ("4o", counts_4o),
-                          ("4p", counts_4p)):
+                          ("4p", counts_4p), ("4r", counts_4r)):
         k7_c = {k: counts[k] for k in k7_names if counts[k]}
         print(f"phase 6 K7 launches in phase {label}: "
               f"{sum(k7_c.values())} (" + " ".join(
@@ -5611,6 +5892,8 @@ def main() -> int:
         raise AssertionError(f"the plain trial ran on the card: "
                              f"{sorted(set(plain_trial_calls))}")
 
+    print(f"chip_smoke: every phase in {time.monotonic() - t_main:.1f} s, "
+          f"the build included")
     print(smi)
     report = {"kernels": [
         {"name": wname, "route": "cuda",
@@ -5671,6 +5954,22 @@ def main() -> int:
              "source": f"openslam_g2o_torch/kernels/csrc/{src}",
              "replaces": GENERAL_REPLACES[row["kname"]],
              "launches": counts_gen[phase][key],
+             "max_abs_err": row["abs"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # K14 at (9, 3) and K15 at block width 9, with the launches of the
+    # phases that run them there
+    for label, phs in WIDE_ROWS.items():
+        row = results[(label, "float32")]
+        src, replaces = KERNELS[row["kname"]]
+        if not label.endswith("@d9"):
+            replaces = GENERAL_REPLACES[row["kname"]]
+        report["kernels"].append(
+            {"name": label, "route": "cuda",
+             "source": f"openslam_g2o_torch/kernels/csrc/{src}",
+             "replaces": replaces,
+             "launches": sum({**counts_gen, "4r": counts_4r}[ph][
+                 row["kname"]] for ph in phs),
              "max_abs_err": row["abs"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["bound_by"], "library_ms": row["library_ms"]})

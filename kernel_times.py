@@ -17,7 +17,9 @@ does not, at the same shapes:
   4f (3D, the 6-wide instantiation), and on the pose slots of the general
   Schur path's scenes, as schur_build passes them: 4j (ba_80k, binary
   XYZ2UV), 4k (PSI2UV), 4l (P2MC_INTRINSICS, the intrinsics hub) and 4n
-  (ba_400k); a whole call (zero fills, the pair launches, the finalize);
+  (ba_400k); at block width 9 on the 9-wide camera slots of phase 4q's
+  BAL files (@bal, @bal400k) and on phase 4r's dense BAL scene (@d9); a
+  whole call (zero fills, the pair launches, the finalize);
 * k12: K12 `ba_schur_dense` on ba_80k and on the 4d world at (Dp, dl) =
   (3, 2), on chip_smoke's `k12_operands`, a call making every operand it
   reads (a tree that takes W's records also with them made beforehand,
@@ -29,7 +31,10 @@ does not, at the same shapes:
   W, Hinv, Hcc_d; the scenes' own rows and chunks);
 * k14: K14 `schur_edge_blocks` on the general Schur path's four scenes, as
   schur_build calls it (chip_smoke.k14_operands): 4j (ba_80k, binary
-  XYZ2UV), 4k (PSI2UV), 4l (P2MC_INTRINSICS) and 4n (ba_400k);
+  XYZ2UV), 4k (PSI2UV), 4l (P2MC_INTRINSICS) and 4n (ba_400k), and at
+  (Dp, dl) = (9, 3) on phase 4q's BAL files (@bal, @bal400k);
+  (the 9-wide rows of k15 and k14 are skipped for a tree whose kernels
+  do not take that width: its rows say so)
 * lin: `problem.linearize` on the worlds of phases 4d (EDGE_SE2,
   EDGE_SE2_XY) and 4f (float64), on the 4j (ba_80k, XYZ2UV), 4k
   (PSI2UV), 4l (P2MC_INTRINSICS) and 4n (ba_400k, XYZ2UV) scenes
@@ -84,8 +89,10 @@ import hashlib
 import inspect
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 import chip_smoke
 
@@ -176,6 +183,23 @@ def main(argv=None) -> int:
     geo80 = chip_smoke.bal_geometry(*chip_smoke.BA_80K)
     general = {"@psi2uv": chip_smoke.psi2uv_graph(Graph, geo80),
                "@intrinsics": chip_smoke.p2mc_intrinsics_graph(Graph, geo80)}
+    # the BAL camera's files (chip_smoke.py's phases 4q and 4r), where the
+    # tree's K14 and K15 take the 9-wide camera
+    bal_files = {}
+    wide_k14 = (9, 3) in getattr(schur_general, "DIMS", ())
+    wide_k15 = getattr(dense_assemble, "MAX_DIM", 6) >= 9
+    if (("k15" in only and wide_k15) or ("k14" in only and wide_k14)):
+        from openslam_g2o_torch.models.bal import load_bal_problem
+        bal_dir = tempfile.mkdtemp(prefix="kernel_times_bal_")
+        for key, shape in (("@bal", chip_smoke.BA_80K),
+                           ("@bal400k", chip_smoke.BA_400K),
+                           ("@d9", chip_smoke.BAL_DENSE)):
+            bal_files[key] = os.path.join(bal_dir, key[1:] + ".bal")
+            chip_smoke.bal_camera_scene(bal_files[key], *shape)
+    for what, ok in (("k15", wide_k15), ("k14", wide_k14)):
+        if what in only and not ok:
+            print(f"kernel_times {what}: the 9-wide BAL camera's rows are "
+                  "skipped: this tree's kernel does not take that width")
     worlds = {}
     if only & {"k15", "k12", "lin", "trial"}:
         worlds["2d"] = Simulator2D(**chip_smoke.DENSE_WORLD).simulate(
@@ -220,6 +244,18 @@ def main(argv=None) -> int:
                     ba_general.build_schur_pattern(gprob),
                     problem_mod.linearize(gprob)))
                 del gprob
+            for label, path in bal_files.items() if wide_k15 else ():
+                bprob = load_bal_problem(path, dtype=dt)[0]
+                if label == "@d9":
+                    dargs = chip_smoke.dense_world_dargs(
+                        dense_assemble, problem_mod, bprob)
+                else:
+                    dargs = chip_smoke.pose_slot_dargs(
+                        torch, dense_assemble, bprob,
+                        ba_general.build_schur_pattern(bprob),
+                        problem_mod.linearize(bprob))
+                k15(label, tag, dargs)
+                del bprob, dargs
             torch.cuda.empty_cache()
 
     # -- K12 -----------------------------------------------------------------
@@ -343,7 +379,10 @@ def main(argv=None) -> int:
                      lambda: general["@intrinsics"].compile(dtype=dt)),
                     ("@4n", lambda: synthetic_bal_problem(
                         *chip_smoke.BA_400K, chip_smoke.BA_OBS,
-                        dtype=dt)[0])):
+                        dtype=dt)[0]),
+                    *((key, lambda key=key: load_bal_problem(
+                        bal_files[key], dtype=dt)[0])
+                      for key in ("@bal", "@bal400k") if wide_k14)):
                 gprob = make()
                 new_out, run, nbytes, _, shape = chip_smoke.k14_operands(
                     torch, ba_edge, gprob,
@@ -641,6 +680,9 @@ def main(argv=None) -> int:
     if args.save:
         with open(args.save, "w") as f:
             json.dump(saved, f, indent=0)
+    if bal_files:
+        shutil.rmtree(os.path.dirname(next(iter(bal_files.values()))),
+                      ignore_errors=True)
     if failed:
         print("kernel_times: FAILED " + ", ".join(failed))
         return 1

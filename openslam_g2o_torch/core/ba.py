@@ -185,22 +185,18 @@ def build_schur_pattern(problem: Problem) -> SchurPattern:
         if not lm_slots:
             continue
         sl = lm_slots[0]
-        if not 1 <= eg.etype.error_dim <= schur_general.MAX_RESIDUAL:
-            raise NotImplementedError(
-                f"edge group {eg.key}: residual width {eg.etype.error_dim} "
-                f"on a landmark edge; the kernels take 1.."
-                f"{schur_general.MAX_RESIDUAL}")
+        R = eg.etype.error_dim
+        # K14's instantiations: every pose slot's (Dp, dl) at residual
+        # width R (a landmark edge without a pose slot: the default one)
+        for dp in [static.vgroup(eg.slots[t]).tangent_dim
+                   for t in pose_slots] or [6 if dl == 3 else 3]:
+            schur_general.check_served(R, dp, dl, f"edge group {eg.key}")
         li = host(ea.indices[sl])
         lm_edges.append(LandmarkEdges(eg.key, sl, offset, len(li)))
         lis.append(li)
         offset += len(li)
         for t in pose_slots:
             g = static.vgroup(eg.slots[t])
-            if (g.tangent_dim, dl) not in schur_general.DIMS:
-                raise NotImplementedError(
-                    f"(pose, landmark) tangent widths {(g.tangent_dim, dl)} "
-                    f"of edge group {eg.key} are not among the kernels' "
-                    f"instantiations {schur_general.DIMS}")
             per_group[g.name].append((len(cross_meta), li,
                                       host(ea.indices[t])))
             cross_meta.append((eg.key, t, g.name))

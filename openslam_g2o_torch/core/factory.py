@@ -12,7 +12,9 @@ also raises NotImplementedError, for a second pose group and for block
 widths outside its kernels' instantiations ((6, 3), (3, 2) and the BAL
 camera's (9, 3)), where the JAX dual-ELL solver runs; `_SchurAuto` falls
 back on both, so such binary graphs take the general path here (ROADMAP.md
-queue 3, "route difference"), which refuses (9, 3) in its turn.
+queue 3, "route difference"). A BAL graph goes to the dual-ELL solver, as
+in JAX; the general path takes it too ((9, 3) is one of K14's
+instantiations) when a caller asks for LevenbergMarquardtSchur.
 """
 from __future__ import annotations
 

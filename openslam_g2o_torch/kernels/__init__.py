@@ -66,11 +66,14 @@ The dual-ELL solver takes (Dp, dl) = (6, 3), (3, 2) and (9, 3), the last
 the BAL camera of models/bal.py: K10's generic entry and owner sums, K12
 and K13 at (9, 3), K11 and K4's `lane_block_mv` at D = 9.
 
-The general Schur path (core/ba.py) also runs K10's `ba_lm_sums` without
-its W layout, K13's products (`ba_wtx` in one launch over all its pose
-groups, `ba_wv` and `ba_sandwich` per pose group, all three at (Dp, dl) =
-(4, 3) too), K11 and K4's
-`lane_block_mv` at D = 4, and K15 on the pose slots of its edges.
+The general Schur path (core/ba.py) runs K14 `schur_edge_blocks` at (Dp,
+dl) = (6, 3), (4, 3), (3, 2) and (9, 3) (the BAL camera: residual widths 1
+and 2 only), K10's `ba_lm_sums` without its W layout, K13's products
+(`ba_wtx` in one launch over all its pose groups, `ba_wv` and
+`ba_sandwich` per pose group, all three at (Dp, dl) = (4, 3) too), K11
+and K4's `lane_block_mv` at D = 4 and 9, and K15 on the pose slots of its
+edges. K15 takes block widths up to 9 (the BAL camera on the dense GN / LM
+route and on the general path's pose slots).
 """
 from __future__ import annotations
 

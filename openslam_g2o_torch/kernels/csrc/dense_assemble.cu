@@ -17,7 +17,8 @@
 //                   (kernels/dense_assemble.py), cut into chunks of at most
 //                   DENSE_CHUNK = 64 consecutive contributions. A group of
 //                   threads per chunk (16 lanes for kMaxD = 3, 64 for
-//                   kMaxD = 6) has a lane per entry of the destination:
+//                   kMaxD = 6, 96 for kMaxD = 9) has a lane per entry of
+//                   the destination:
 //                   Ds Dt entries of the block, plus Ds of b_s in the
 //                   (s, s) launch, which owns b_s (the contributors of the
 //                   diagonal block of a vertex are the contributors of its
@@ -54,13 +55,20 @@
 // The residual width D is a template parameter (1 to kMaxD), the slot
 // widths Ds, Dt are runtime arguments. The launcher picks kMaxD = 3 when
 // D, Ds and Dt are all at most G2O_DENSE_NARROW_WIDTH = 3 (every 2D type:
-// groups of 16 lanes, eight a block) and kMaxD = 6 otherwise (the 6-wide
-// SE3 blocks: a block of 64 threads a chunk). The two-pass form unrolled
+// groups of 16 lanes, eight a block), kMaxD = 6 when they are at most 6
+// (the 6-wide SE3 blocks: a block of 64 threads a chunk) and kMaxD = 9
+// only above that (the 9-wide BAL camera of models/bal.py: a block of 96
+// threads a chunk, for its 81 + 9 entries; a round of its stage holds
+// some 40-50 float64 contributions, so a 64-contribution chunk takes two
+// rounds), so every narrower launch keeps its kernel and its bits. A
+// slot pair of two widths (the BAL point's 3 against the camera's 9) is a
+// rectangular block, always of flag 0: its slots name vertices of two
+// groups. The two-pass form unrolled
 // its loops to kMaxD over zero-padded operands; the padded terms that can
 // change a bit are kept (see dense_pair_kernel). Compiled with
-// -DG2O_DENSE_NARROW_WIDTH=0 every launch takes a kMaxD = 6 kernel, which
-// is how chip_smoke.py measures what the narrow instantiation saves the 2D
-// types.
+// -DG2O_DENSE_NARROW_WIDTH=0 every launch up to width 6 takes a kMaxD = 6
+// kernel, which is how chip_smoke.py measures what the narrow
+// instantiation saves the 2D types.
 //
 // Bound: memory, by the zero fill on the dense routes (T = 12,000 in
 // float64 is 1.15 GB of zeros against some 10 MB of Jacobians and
@@ -99,7 +107,7 @@ constexpr int kDenseStageBytes = 16384;
 
 template <int kMaxD>
 struct DenseGroup {
-  static constexpr int kGroup = kMaxD <= 3 ? 16 : 64;
+  static constexpr int kGroup = kMaxD <= 3 ? 16 : kMaxD <= 6 ? 64 : 96;
   static constexpr int kPerBlock = kMaxD <= 3 ? 8 : 1;
   static constexpr int kBlock = kGroup * kPerBlock;
   static constexpr int kBytes = kDenseStageBytes / kPerBlock;
@@ -442,7 +450,7 @@ int launch_dense_pair(const T* jac_s, const T* jac_t, const T* rho1,
                       int with_b, cudaStream_t stream) {
   if (n_chunks <= 0) return 0;
   const int widest = D > DS ? (D > DT ? D : DT) : (DS > DT ? DS : DT);
-  if (D < 1 || DS < 1 || DT < 1 || widest > 6 || (with_b && DS != DT))
+  if (D < 1 || DS < 1 || DT < 1 || widest > 9 || (with_b && DS != DT))
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec = vec_bit(jac_s, D * DS, 0) | vec_bit(jac_t, D * DT, 1)
                   | vec_bit(info, D * D, 2) | vec_bit(resid, D, 3);
@@ -452,8 +460,14 @@ int launch_dense_pair(const T* jac_s, const T* jac_t, const T* rho1,
                                dest_q, edge, flag, arrivals, part, H, b,
                                total_dim, n_chunks, D, DS, DT, with_b, vec,
                                stream);
-  else
+  else if (widest <= 6)
     dense_pair_launch<T, 6, 1>(jac_s, jac_t, rho1, info, resid,
+                               chunk_ptr, chunk_dest, dest_chunk, dest_p,
+                               dest_q, edge, flag, arrivals, part, H, b,
+                               total_dim, n_chunks, D, DS, DT, with_b, vec,
+                               stream);
+  else
+    dense_pair_launch<T, 9, 1>(jac_s, jac_t, rho1, info, resid,
                                chunk_ptr, chunk_dest, dest_chunk, dest_p,
                                dest_q, edge, flag, arrivals, part, H, b,
                                total_dim, n_chunks, D, DS, DT, with_b, vec,

@@ -20,6 +20,10 @@
 // table per landmark, the CSR list and its chunks per pose vertex), and the
 // sums run in a fixed order: a run repeats bit for bit.
 //
+// Instantiated at (Dp, dl) = (6, 3), (4, 3), (3, 2) and, for the 9-wide
+// BAL camera of models/bal.py, (9, 3) with residual widths 1 and 2 only
+// (edge_dims).
+//
 // Bound: memory. It reads (R + R dl + R Dp + 1 + R^2) values and two
 // positions per edge and writes dl^2 + dl + 2 Dp dl. Two kernels, so that
 // every output value is written by a coalesced store:
@@ -157,9 +161,12 @@ template <typename T, int R, int DP, int DL>
 __global__ void __launch_bounds__(kEdgeTile)
 schur_tile_kernel(const SchurEdgeArgs<T> a) {
   constexpr int kIn = R + R * DL + R * DP + 1 + R * R;   // values an edge
-  constexpr int kWs = DP * DL + 1;     // W_e's row in the stage (odd: no
+  constexpr int kWs = (DP * DL) | 1;   // W_e's row in the stage (odd: no
                                        // bank conflicts in float32)
   constexpr int kStage = kIn > kWs ? kIn : kWs;
+  static_assert(kEdgeTile * kStage * sizeof(T) + kEdgeTile * sizeof(int)
+                    <= 48 * 1024,
+                "the tile's stage must fit a static shared array");
   __shared__ T stage[kEdgeTile * kStage];
   __shared__ int s_pos[kEdgeTile];
   const long long e0 = static_cast<long long>(blockIdx.x) * kEdgeTile;
@@ -248,12 +255,18 @@ int launch_edge(const SchurEdgeArgs<T>& a, cudaStream_t stream) {
   return launch_status();
 }
 
-template <typename T, int DP, int DL>
+// residual widths 1 .. kMaxR; at (9, 3) kMaxR = 2 (kernels/schur_general.py
+// MAX_RESIDUAL_AT): a float64 tile of R = 3 edges stages 49 values an edge,
+// 50,176 bytes, over the 48 KB of a static array, and no built-in type has
+// a 3-wide residual on the BAL camera
+template <typename T, int DP, int DL, int kMaxR = 3>
 int edge_dims(int R, const SchurEdgeArgs<T>& a, cudaStream_t stream) {
   switch (R) {
     case 1: return launch_edge<T, 1, DP, DL>(a, stream);
     case 2: return launch_edge<T, 2, DP, DL>(a, stream);
-    case 3: return launch_edge<T, 3, DP, DL>(a, stream);
+    case 3:
+      if constexpr (kMaxR >= 3) return launch_edge<T, 3, DP, DL>(a, stream);
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -266,6 +279,7 @@ int launch_schur_edge(const SchurEdgeArgs<T>& a, int R, int DP, int DL,
   if (DP == 6 && DL == 3) return edge_dims<T, 6, 3>(R, a, stream);
   if (DP == 4 && DL == 3) return edge_dims<T, 4, 3>(R, a, stream);
   if (DP == 3 && DL == 2) return edge_dims<T, 3, 2>(R, a, stream);
+  if (DP == 9 && DL == 3) return edge_dims<T, 9, 3, 2>(R, a, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -25,11 +25,11 @@ from openslam_g2o_torch.kernels._checks import (
     check_tensors, launch_device, require)
 from openslam_g2o_torch.kernels.edge_se2 import bmm_small, bmv_small
 
-MAX_DIM = 6          # the widest instantiation of csrc/dense_assemble.cu
+MAX_DIM = 9          # the widest instantiation of csrc/dense_assemble.cu
 DENSE_CHUNK = 64     # contributions per chunk (a group of threads)
 # values per chunk row of the kernel's scratch: the widest destination's
-# 6 x 6 block and 6 of b, rounded up to 16 bytes (float32)
-PART_STRIDE = 44
+# 9 x 9 block and 9 of b, rounded up to 16 bytes (float32)
+PART_STRIDE = 92
 
 
 @dataclass
@@ -104,7 +104,11 @@ def slot_offsets(static, eg, ea):
 def _pair_table(a, b, diag, total_dim):
     """CSR destination table of one slot pair from the slots' offsets a, b
     (numpy int64 [E]). A destination is an unordered pair of vertices; it
-    takes the orientation (p, q) = (a, b) of its first contributor."""
+    takes the orientation (p, q) = (a, b) of its first contributor. A
+    contribution is flagged 1 or 2 only where both slots reach one vertex
+    group (a vertex seen in both, or a pair seen both ways round), so the
+    two slots are of one width; slots of two widths (a rectangular block)
+    are all flag 0."""
     if diag:
         key = a
     else:

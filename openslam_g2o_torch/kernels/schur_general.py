@@ -32,11 +32,31 @@ from openslam_g2o_torch.kernels._checks import (
     check_tensors, launch_device, require)
 
 # the (Dp, dl) instantiations of K14 (csrc/schur_general.cu): the general
-# path's pose widths. The BAL camera's (9, 3), which K10-K13 serve on the
-# dual-ELL route, is not one: core/ba.py refuses it.
-DIMS = ((6, 3), (4, 3), (3, 2))
+# path's pose widths, (9, 3) the BAL camera of models/bal.py
+DIMS = ((6, 3), (4, 3), (3, 2), (9, 3))
 
 MAX_RESIDUAL = 3
+# narrower residual limits of some instantiations: at (9, 3) a float64 tile
+# of 3-wide residuals would stage 50,176 bytes, over the 48 KB of the tile
+# kernel's static shared array; no built-in type has one on the BAL camera
+MAX_RESIDUAL_AT = {(9, 3): 2}
+
+
+def check_served(R, dp, dl, who="schur_edge_blocks"):
+    """Raise NotImplementedError, naming `who`, unless K14 is instantiated
+    for residual width R at (Dp, dl) (on either device, so that the CPU
+    refuses what the card would)."""
+    if (dp, dl) not in DIMS:
+        raise NotImplementedError(
+            f"{who}: (pose, landmark) tangent widths {(dp, dl)} are not "
+            f"among the kernels' instantiations {DIMS}")
+    limit = MAX_RESIDUAL_AT.get((dp, dl), MAX_RESIDUAL)
+    if not 1 <= R <= limit:
+        raise NotImplementedError(
+            f"{who}: residual width {R} at (Dp, dl) = {(dp, dl)}; the "
+            f"kernels take 1..{limit}")
+
+
 # the edges a block of csrc/schur_general.cu's tile kernel stages (its
 # kEdgeTile; the launch checks the two agree)
 EDGE_TILE = 128
@@ -88,8 +108,6 @@ def schur_edge_blocks(resid, jl, jp, rho1, info, hll, bl, offset: int,
     tensors, which does not read the tables."""
     E, R = resid.shape
     dl = jl.shape[2]
-    require(1 <= R <= MAX_RESIDUAL, f"schur_edge_blocks: residual width {R} "
-            f"not in 1..{MAX_RESIDUAL}")
     require(jl.shape == (E, R, dl) and rho1.shape == (E,)
             and info.shape == (E, R, R),
             f"schur_edge_blocks: jl {tuple(jl.shape)}, rho1 "
@@ -110,9 +128,9 @@ def schur_edge_blocks(resid, jl, jp, rho1, info, hll, bl, offset: int,
         floats.update(hll=hll, bl=bl)
     if jp is not None:
         dp = jp.shape[2]
-        require(jp.shape == (E, R, dp) and (dp, dl) in DIMS,
-                f"schur_edge_blocks: jp {tuple(jp.shape)}: (Dp, dl) not in "
-                f"{DIMS}")
+        require(jp.shape == (E, R, dp),
+                f"schur_edge_blocks: jp {tuple(jp.shape)} does not fit E={E}, "
+                f"R={R}")
         require(w_lm is not None and w_lm.dim() == 3
                 and w_lm.shape[0] == dp * dl and w_pose is not None
                 and w_pose.dim() == 2 and w_pose.shape[0] == dp * dl
@@ -128,7 +146,7 @@ def schur_edge_blocks(resid, jl, jp, rho1, info, hll, bl, offset: int,
                     pose_order=pose_order)
     else:
         dp = 6 if dl == 3 else 3          # the instantiation; W untouched
-    require((dp, dl) in DIMS, f"schur_edge_blocks: dl = {dl} not served")
+    check_served(R, dp, dl)
     check_tensors("schur_edge_blocks", resid.device, resid.dtype, floats, ints)
     if not launch_device("schur_edge_blocks", resid.device):
         return schur_edge_blocks_plain(resid, jl, jp, rho1, info, hll, bl,

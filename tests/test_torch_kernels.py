@@ -867,10 +867,13 @@ def _k15_group(D, DS, DT, dtype, device, seed=0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("widths", [(2, 3, 3), (3, 3, 3), (6, 6, 6),
-                                    (2, 6, 4), (2, 4, 4)])
+                                    (2, 6, 4), (2, 4, 4), (2, 3, 9),
+                                    (2, 9, 9), (9, 9, 9)])
 def test_dense_pair_on_chunk_edges_on_gpu(cuda, dtype, widths):
     """K15's pair kernel (D, Ds, Dt) = widths on the K15_LISTS
-    destinations, flags 0, 1 and 2 where the slots are one width, against
+    destinations (the 9-wide ones on the kMaxD = 9 tier: the BAL camera's
+    9 x 9 and its 3 x 9 point pair), flags 0, 1 and 2 where the slots are
+    one width, against
     the plain version of the same values in float64, every destination
     block and b segment relative to its own largest entry (TOL: the
     80,000-contribution hub would hide the short lists' errors behind a
@@ -2132,7 +2135,7 @@ def _k14_case(device, dtype, R, dp, dl, E, seed, runs=False):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("R", [1, 2, 3])
-@pytest.mark.parametrize("dims", [(6, 3), (4, 3), (3, 2)])
+@pytest.mark.parametrize("dims", [(6, 3), (4, 3), (3, 2), (9, 3)])
 @pytest.mark.parametrize("runs", [False, True])
 def test_schur_edge_blocks_tile_edges_on_gpu(cuda, dtype, R, dims, runs):
     """K14 (the staged tile kernel and the pose-order pass) against its
@@ -2140,9 +2143,26 @@ def test_schur_edge_blocks_tile_edges_on_gpu(cuda, dtype, R, dims, runs):
     scattered or in runs, for group sizes around its tile of 128 edges
     and the 400,000 edges of ba_400k: each output written
     (Hll_e and b_l,e beside W, W alone, Hll_e and b_l,e alone), nothing
-    past it touched, and the same bits three times."""
+    past it touched, and the same bits three times. At (9, 3), the BAL
+    camera, a 3-wide residual is refused (schur_general.MAX_RESIDUAL_AT)
+    and launches nothing."""
     from openslam_g2o_torch.kernels import schur_general
     dp, dl = dims
+    if R > schur_general.MAX_RESIDUAL_AT.get(dims, schur_general.MAX_RESIDUAL):
+        c = _k14_case(cuda, dtype, R, dp, dl, 33, seed=R)
+        idx = torch.arange(33, dtype=torch.int32, device=cuda)
+        before = schur_general.schur_edge_blocks.launches
+        with pytest.raises(NotImplementedError, match="residual width"):
+            schur_general.schur_edge_blocks(
+                c["resid"], c["jl"], c["jp"], c["rho1"], c["info"],
+                torch.zeros((dl * dl, 33), dtype=dtype, device=cuda),
+                torch.zeros((dl, 33), dtype=dtype, device=cuda), 0,
+                torch.zeros((dp * dl, c["K"], c["L"]), dtype=dtype,
+                            device=cuda), c["lm_pos"],
+                torch.zeros((dp * dl, c["M"]), dtype=dtype, device=cuda),
+                c["pose_pos"], idx, idx)
+        assert schur_general.schur_edge_blocks.launches == before
+        return
     for E in (1, 31, 33, 129, 400000):
         c = _k14_case(cuda, dtype, R, dp, dl, E, seed=E + R, runs=runs)
         off = 7
@@ -2231,6 +2251,82 @@ def test_schur_edge_blocks_two_entries_and_hub_on_gpu(cuda, dtype, kind):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k14_and_k15_on_the_bal_camera_on_gpu(cuda, dtype, tmp_path):
+    """K14 at (Dp, dl) = (9, 3) and K15 at block width 9 on a BAL file of
+    chip_smoke.py's phase-4p kind (30 cameras, 3000 points, 24,000
+    observations), as schur_build calls them (the landmark blocks and W;
+    Hpp on the 9-wide camera slots) and as the dense route calls K15 (the
+    3 x 3, 3 x 9 and 9 x 9 pairs and the unit diagonal of camera 0),
+    against their plain versions (TOL_BA, TOL) and twice for the same
+    bits."""
+    import chip_smoke
+    from openslam_g2o_torch.core import ba
+    from openslam_g2o_torch.kernels import ba_edge, schur_general
+    from openslam_g2o_torch.models.bal import load_bal_problem
+    path = str(tmp_path / "scene.bal")
+    chip_smoke.bal_camera_scene(path, 30, 3000)
+    prob, _ = load_bal_problem(path, dtype=dtype, device=cuda)
+    pat = ba.build_schur_pattern(prob)
+    assert [(pg.dim, pg.count) for pg in pat.pose_groups] == [(9, 30)]
+    lin = problem_mod.linearize(prob)
+    new_out, run, *_ = chip_smoke.k14_operands(torch, ba_edge, prob, pat,
+                                               lin)
+    kernels.reset_launch_counts()
+    got = run(schur_general.schur_edge_blocks, new_out())
+    again = run(schur_general.schur_edge_blocks, new_out())
+    assert kernels.launch_counts()["schur_edge_blocks"] == 2
+    want = run(schur_general.schur_edge_blocks_plain, new_out())
+    for g_, a_, w_ in zip(got, again, want, strict=True):
+        assert _rel(g_, w_) < TOL_BA[dtype]
+        assert torch.equal(g_, a_)
+    for dargs in (chip_smoke.pose_slot_dargs(torch, dense_assemble, prob,
+                                             pat, lin),
+                  chip_smoke.dense_world_dargs(dense_assemble, problem_mod,
+                                               prob)):
+        H, b, raw = dense_assemble.dense_assemble(*dargs)
+        pH, pb, praw = dense_assemble.dense_assemble_plain(*dargs)
+        assert _rel(H, pH) < TOL[dtype] and _rel(b, pb) < TOL[dtype]
+        assert _rel(raw, praw) < TOL[dtype]
+        H2, b2, raw2 = dense_assemble.dense_assemble(*dargs)
+        assert torch.equal(H, H2) and torch.equal(b, b2)
+        assert torch.equal(raw, raw2)
+        assert not any(bool(tb.arrivals.any())
+                       for tbs in dargs[3].pairs for tb in tbs)
+    fixed = dargs[2].bool()
+    assert int(fixed.sum()) == 9 and (H.diagonal()[fixed] == 1.0).all()
+
+
+@pytest.mark.parametrize("route", ["general", "lm", "gn"])
+def test_bal_camera_routes_on_gpu_match_cpu(cuda, route):
+    """The general Schur path (LevenbergMarquardtSchur) and the dense LM
+    and GN on a BAL graph (chip_smoke.bal_camera_graph, 8 cameras, 60
+    points, cameras 0 and 2 fixed) on the card against the same run on the
+    CPU (plain versions), float64: chi2 to 1e-9, K14 and K15 launched."""
+    import chip_smoke
+    from openslam_g2o_torch.core import ba
+    from openslam_g2o_torch.core.graph import Graph
+    g = chip_smoke.bal_camera_graph(Graph, 8, 60)
+    g.vertices[2].fixed = True
+    make = {"general": lambda: ba.LevenbergMarquardtSchur(pcg_iters=60),
+            "lm": algorithms.LevenbergMarquardt,
+            "gn": algorithms.GaussNewton}[route]
+    runs = {}
+    for device in (cuda, "cpu"):
+        kernels.reset_launch_counts()
+        _, stats = algorithms.optimize(
+            g.compile(dtype=torch.float64, device=device), make(),
+            iterations=4)
+        runs[str(device)] = ([s["chi2"] for s in stats],
+                             kernels.launch_counts())
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-9)
+    counts = runs["cuda"][1]
+    assert counts["dense_assemble"] >= 4
+    if route == "general":
+        assert counts["schur_edge_blocks"] >= 4 and counts["ba_wv"] > 0
+    assert not any(runs["cpu"][1].values())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_edge_lin_forward_types_at_tile_edges_on_gpu(cuda, dtype):
     """Every forward-mode K17 type on seeded groups of 1, 31, 33, 63 and 65
     edges (a tile of 32 edges and two tiles, less one and one more), with
@@ -2241,7 +2337,7 @@ def test_edge_lin_forward_types_at_tile_edges_on_gpu(cuda, dtype):
     from openslam_g2o_torch.kernels import edge_lin
     forward = [t for t in edge_lin.LINEARIZERS
                if registry.edge_type(t).jacobian is None]
-    assert len(forward) == 20
+    assert len(forward) == 21            # with EDGE_PROJECT_BAL
     for tname in forward:
         for E in (1, 31, 33, 63, 65):
             for kid in (0, 1):

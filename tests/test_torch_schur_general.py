@@ -16,7 +16,11 @@ through either package's Graph API, or carried across with interop):
 * "all_types": tests/test_torch_sba_cam_types.py's graph: three pose groups,
   P2MC, P2MC_INTRINSICS, P2SC and PSI2UV on one landmark group with a fixed
   point, and the pose-pose EDGE_CAM and EDGE_SCALE;
-* "bal": the binary synthetic BAL problem through the general path.
+* "bal": the binary synthetic BAL problem through the general path;
+* "bal_camera": the 9-wide Snavely camera of models/bal.py, (Dp, dl) =
+  (9, 3) (tests/test_torch_bal.py `bal_camera_jax_problem`: 10 cameras,
+  120 points, T = 450, read from a BAL file by the JAX loader); its
+  schur_solve case also runs the dense route at block width 9.
 
 Tolerances, each relative to the largest entry of the JAX value:
 * schur_build's Hpp, b_p, Hll, b_l and every W block: rtol 1e-12;
@@ -120,6 +124,9 @@ def _pair(name):
     if name == "bal":
         from openslam_g2o_tpu.apps.simulator import synthetic_bal_problem
         jprob, _ = synthetic_bal_problem(*GEOMETRY, 8, dtype=jnp.float64)
+    elif name == "bal_camera":
+        from tests.test_torch_bal import bal_camera_jax_problem
+        jprob = bal_camera_jax_problem()
     else:
         jprob = SCENES[name](JGraph).compile(dtype=jnp.float64)
     return jprob, problem_from_numpy(**problem_arrays(jprob), device="cpu")
@@ -156,7 +163,7 @@ def test_psi2uv_scene_has_edges_on_one_camera_twice():
 
 
 @pytest.mark.parametrize("name", ["test_ba", "psi2uv", "p2mc_intrinsics",
-                                  "round2_free", "all_types"])
+                                  "round2_free", "all_types", "bal_camera"])
 def test_schur_build_matches_jax(name):
     jprob, tprob = pair(name)
     js = jba.schur_build(jprob)
@@ -185,7 +192,7 @@ def _dense_step(tprob, lam):
 
 
 @pytest.mark.parametrize("name", ["test_ba", "psi2uv", "p2mc_intrinsics",
-                                  "round2_free", "all_types"])
+                                  "round2_free", "all_types", "bal_camera"])
 def test_schur_solve_matches_jax_and_the_dense_solve(name):
     jprob, tprob = pair(name)
     lam = 1e-3
@@ -217,7 +224,7 @@ def _lm_pair(name, iters):
 
 
 @pytest.mark.parametrize("name", ["psi2uv", "p2mc_intrinsics", "round2_free",
-                                  "all_types", "bal"])
+                                  "all_types", "bal", "bal_camera"])
 def test_lm_schur_trajectory_matches_jax(name):
     jchi, tchi, tst = _lm_pair(name, 6)
     chi0 = float(tproblem.robust_chi2(pair(name)[1]))
