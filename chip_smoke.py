@@ -209,6 +209,32 @@ Phases (any failure raises and the script exits non-zero):
     per build (profiler). Phase 3 holds K15 on this scene (row
     dense_assemble@d9: the 3 x 3, 3 x 9 and 9 x 9 pairs, the zero fill,
     the unit diagonal of camera 0);
+ 4s. LM-PCG over several vertex groups (core/sparse.py PairPattern: one
+    block-ELL table per (row group, column group) pair): lambda init + 10
+    iterations of lm_pcg_optimize_fused (PAIR_PCG: pcg 2000, tol 1e-10),
+    float32 and float64, on a 9000-pose Simulator2D landmark world
+    (PAIR_WORLD: T = 34,108, the full-width run), on phase 4d's world and on
+    phase 4f's; one more float32 run each on the 9000-pose world and on
+    4f's world with pcg_cheby 4. Through K17, K2' pair_assemble, K3 per vertex group (D = 2
+    for the landmarks), K4' pair_scale, K5' pair_spmv(_dot) in the
+    three-launch CG step, K4's lane_block_mv, K7 (core/problem.py
+    lm_trial_outcome) and, with pcg_cheby 4, K8' pair_gershgorin. Chi2
+    never increases; the first 3 float32 iterations equal the plain route's
+    (every wrapper swapped for its plain version) to PLAIN_ROUTE_RTOL; the
+    float64 trajectory on 4d's world equals the JAX package's float64 CPU
+    trajectory at the same settings (JAX_PAIR_TRAJ) to rtol 1e-6 while an
+    iteration gains; the ends on 4d's and 4f's worlds over the dense LM's
+    end of phases 4d and 4f; ms per LM iteration, CG iterations per trial,
+    the launches per run, and wall and device us per CG iteration of one
+    profiled trial solve at 9000 poses; no plain call of a built-in type
+    on the card. Phase 3 holds the pair kernels at the 9000-pose world's
+    shapes and at 4f's (rows @3d: the (6, 6), (6, 3), (3, 6), (3, 3) pairs)
+    (float32, float64; twice for the same bits, by device time):
+    pair_assemble beside index_add_ of the blocks formed beforehand,
+    pair_spmv and pair_spmv_dot beside a torch.sparse CSR product of the
+    same H, pair_scale with a NaN factor and its padding slots,
+    pair_gershgorin, and K3 / lane_block_mv at D = 2 (damp_chol@d2,
+    lane_block_mv@d2) beside cholesky_ex + solve_triangular and einsum;
  5. a small .g2o string through loads_g2o -> compile() (the default
     device) -> optimize(LevenbergMarquardtPCG()), chi2 decreasing and equal
     to the CPU run of the same graph; one with VERTEX_XY, EDGE_SE2_XY
@@ -219,16 +245,18 @@ Phases (any failure raises and the script exits non-zero):
     the dense LM; and a BA scene (PARAMS_CAMERAPARAMETERS, VERTEX_SE3:EXPMAP
     with camera-to-world in the file, VERTEX_XYZ, EDGE_PROJECT_XYZ2UV:EXPMAP,
     EDGE_SE3:EXPMAP) through LevenbergMarquardtSchurELL;
- 6. every kernel's launch count in the paths of phases 4-4r, each > 0. A
+ 6. every kernel's launch count in the paths of phases 4-4s, each > 0. A
     count is one per wrapper call that launched; cg_finish launches two
     kernels per vector and gershgorin_bound two per call. The 6x6
     instantiations are listed apart, with the launches of the SE3 and
     dense 3D paths, which their 3x3 rows then leave out. The BA kernels'
     rows count phases 4g-4i, their @-rows the phase of their shape; K14's
-    and K15's 9-wide rows (WIDE_ROWS) count phases 4q and 4r.
+    and K15's 9-wide rows (WIDE_ROWS) count phases 4q and 4r; the pair
+    kernels count phase 4s (pair_gershgorin its pcg_cheby 4 run), and
+    damp_chol@d2 / lane_block_mv@d2 their launches at D = 2 there.
     spmv_dot_p runs on the unpreconditioned paths only, cg_update_p on the
     preconditioned ones (4b, 4e's Chebyshev window, 4h, 4i, 4j-4n).
-    K17's rows count every phase (4d, 4f, 4i, 4j-4n, 4o), and each row's
+    K17's rows count every phase (4d, 4f, 4i, 4j-4n, 4o, 4s), and each row's
     phase (LIN_ROWS) must launch it. From phase 4 on no built-in edge type
     reaches the generic linearization (linearize_edges, forward_jacobians)
     on the card outside the plain-route runs: each such call is counted
@@ -367,6 +395,24 @@ BA_GATE = 1.02
 # raised, as the tests lower them), whose exact solve must follow the dense
 # LM.
 BA_WORLD_GATE = 0.01
+# phase 4s: LM-PCG over several vertex groups at full width, on a
+# 9000-pose Simulator2D landmark world (9000 SE2 poses, 3554 XY landmarks,
+# 10,751 EDGE_SE2, 96,100 EDGE_SE2_XY: T = 34,108; a dense float64 H would
+# take 9.3 GB), and on the worlds of phases 4d and 4f
+PAIR_WORLD = dict(world_size=100, n_landmarks=4000,
+                  trans_noise=(0.02, 0.01), rot_noise=0.002, seed=0)
+PAIR_POSES = 9000
+# its CG budget: run to a tight tolerance, so that the float64 trajectory
+# on 4d's world follows the JAX package's to rtol 1e-6 (truncated CG would
+# amplify the packages' rounding differences: tests/test_torch_ba_lm.py)
+PAIR_PCG = dict(pcg_iters=2000, pcg_tol=1e-10)
+# the JAX package's float64 CPU trajectory of lambda init + 10 iterations
+# of lm_pcg_optimize_fused at PAIR_PCG on phase 4d's world
+# (Simulator2D(**DENSE_WORLD).simulate(DENSE_POSES)), computed once
+JAX_PAIR_TRAJ = (451646.1768174232, 75601.51449942714, 68540.00784878874,
+                 66148.74846235478, 65158.258014290994, 64965.38423999106,
+                 64943.054974905666, 64931.1283784606, 64928.29952445466,
+                 64928.16276410687)
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_FLOPS = 67e12               # float32 outside the tensor cores
 
@@ -465,6 +511,15 @@ KERNELS = {
                   "xyz2uv", "xyz2uvu", "psi2uv", "p2mc", "p2mc_intrinsics",
                   "p2sc", "sba_cam", "sba_scale", "bal")},
     "chi2_sum": ("trial.cu", "openslam_g2o_tpu/core/problem.py:327"),
+    # LM-PCG over several vertex groups (phase 4s): K2', K4', K5' (without
+    # and with the dot: the rectangular form of the probe's spmv_kernel),
+    # K8'
+    "pair_assemble": ("pair_ell.cu", "openslam_g2o_tpu/core/sparse.py:620"),
+    "pair_scale": ("pair_ell.cu", "openslam_g2o_tpu/core/sparse.py:754"),
+    "pair_spmv": ("pair_ell.cu", "openslam_g2o_tpu/core/sparse.py:883"),
+    "pair_spmv_dot": ("pair_ell.cu", "scripts/probe_pallas_gather.py:90"),
+    "pair_gershgorin": ("pair_ell.cu",
+                        "openslam_g2o_tpu/core/sparse.py:787"),
 }
 # K17's rows: wrapper -> the phase whose scene its phase-3 row is taken
 # on, which must launch it; its launches are those of every phase. The
@@ -1533,6 +1588,82 @@ def chi2_bytes_flops(type_name, args):
     return nbytes, E * (LIN_VALUE_OPS[type_name] + 2 * D * D)
 
 
+def _pair_blocks(torch, so, dc):
+    """The per-edge blocks J_s^T (rho' Omega) J_t [E, Dr*Dc] (dc > 0) or
+    b parts -J_s^T (rho' Omega) e [E, Dr] of one K2' source, formed as the
+    plain version forms them: what the index_add_ yardstick sums."""
+    from openslam_g2o_torch.kernels.edge_se2 import bmm_small, bmv_small
+    jw = bmm_small(so.js.transpose(1, 2), so.rho1[:, None, None] * so.info)
+    blk = bmm_small(jw, so.jt) if dc else -bmv_small(jw, so.resid)
+    return blk.reshape(blk.shape[0], -1)
+
+
+def pair_work(pattern, srcs, bsrcs, s):
+    """{kernel: (bytes, operations)} that each pair kernel's call over a
+    whole PairPattern must move and do, for `bound_ms`; the assembly's
+    sources `srcs` / `bsrcs` as core/sparse.py `pair_sources` gives them,
+    s the float size. Each input once: K17's residuals, Jacobians, rho' and
+    Omega once per edge group (the six tables share them), an int32
+    destination per contribution, each group's factors and vector once.
+    Only the used slots (sum of cnt) of values and nb are read; every slot
+    of a written table is written, the padding's zeros too, since the
+    layout holds them.
+
+    pair_assemble   the inputs above; every table and b written once;
+                    J_s^T (rho' Omega) formed once per edge and slot, then
+                    one product per contribution
+    pair_scale      used values, nb, cnt, each group's L^-1 and damping;
+                    every slot written; two block products a used slot
+    pair_spmv       used values, nb, cnt, each group's x; y written
+    pair_spmv_dot   the same (p is the x of its own row group) and its
+                    partials written
+    pair_gershgorin used values and cnt; the bound written"""
+    from openslam_g2o_torch.kernels import pair_ell
+    inputs, n_dest, flops_asm, formed = {}, 0, 0, set()
+    for src in [*srcs, *(bsrcs[g] for g in pattern.groups)]:
+        for so in src:
+            for t in (so.resid, so.js, so.jt, so.rho1, so.info):
+                if t is not None:
+                    inputs[t.data_ptr()] = t.numel()
+            E, D = so.resid.shape
+            n_dest += E
+            # rho' Omega once per edge group, J_s^T (rho' Omega) once per
+            # slot, then the contribution's own product
+            for key, ops in ((so.info.data_ptr(), D * D),
+                             (so.js.data_ptr(), 2 * D * D * so.js.shape[2])):
+                if key not in formed:
+                    formed.add(key)
+                    flops_asm += E * ops
+            flops_asm += 2 * E * D * so.js.shape[2] * (
+                1 if so.jt is None else so.jt.shape[2])
+    tab_out = sum(pt.k * pt.dr * pt.dc * pt.n for pt in pattern.pairs)
+    used = [int(pt.cnt.sum()) for pt in pattern.pairs]
+    n_rows = sum(pt.n for pt in pattern.pairs)
+    vals_used = sum(u * pt.dr * pt.dc for u, pt in zip(used, pattern.pairs))
+    mv_flops = 2 * vals_used
+    fac = sum(pattern.widths[g] ** 2 * pattern.counts[g]
+              for g in pattern.groups)
+    vec = sum(pattern.widths[g] * pattern.counts[g] for g in pattern.groups)
+    dev = pattern.pairs[0].nb.device
+    partials = sum(pair_ell.partial_count(
+        pattern.counts[g], max(pattern.pairs[i].k for i in pattern.rows[g]),
+        dev) for g in pattern.groups)
+    damping = sum(pattern.counts[g] for g in pattern.square)
+    return {
+        "pair_assemble": (s * (sum(inputs.values()) + tab_out + vec)
+                          + 4 * n_dest, flops_asm),
+        "pair_scale": (s * (vals_used + fac + damping + tab_out)
+                       + 4 * (sum(used) + n_rows),
+                       sum(2 * u * pt.dr * pt.dc * (pt.dr + pt.dc)
+                           for u, pt in zip(used, pattern.pairs))),
+        "pair_spmv": (s * (vals_used + 2 * vec) + 4 * (sum(used) + n_rows),
+                      mv_flops),
+        "pair_spmv_dot": (s * (vals_used + 2 * vec + partials)
+                          + 4 * (sum(used) + n_rows), mv_flops + 2 * vec),
+        "pair_gershgorin": (s * (vals_used + 1) + 4 * n_rows, vals_used),
+    }
+
+
 def _median_ms(torch, fn, repeats=15, inner=20, warmup=3):
     """Median over `repeats` of the time per call in a run of `inner`
     back-to-back calls between two CUDA events: what a call costs in a
@@ -1714,7 +1845,8 @@ def main() -> int:
     from openslam_g2o_torch.kernels import (
         assemble, ba_coupling, ba_edge, ba_inv, ba_schur, build, cg_step,
         chebyshev, damp_chol, dense_assemble, edge_lin, edge_se2, edge_se3,
-        gather, jacobi_scale, retract_chi2, schur_general, spmv, trial)
+        gather, jacobi_scale, pair_ell, retract_chi2, schur_general, spmv,
+        trial)
     from openslam_g2o_torch.core import registry as registry_mod
     from openslam_g2o_torch.models.bal import (
         load_bal_problem, save_bal_problem)
@@ -3801,6 +3933,240 @@ def main() -> int:
             part_s), "torch.sum": lambda: part_s.sum()})
         del part_s
         torch.cuda.empty_cache()
+    # K2', K4', K5', K8' and K3 / K4's lane_block_mv at D = 2: LM-PCG over
+    # several vertex groups, at phase 4s's full width (the 9000-pose
+    # landmark world, PAIR_WORLD: T = 34,108), float32 and float64; every
+    # kernel twice for the same bits and by device time
+    t_sim_s = time.monotonic()
+    world_s, _ = Simulator2D(**PAIR_WORLD).simulate(n_poses=PAIR_POSES)
+    t_sim_s = time.monotonic() - t_sim_s
+    # rows "@3d": the pair kernels at phase 4f's world, whose pairs 4s runs
+    # at (6, 6), (6, 3), (3, 6) and (3, 3)
+    for sfx, world_p, dt in ((sfx_, w_, d_) for sfx_, w_ in (
+            ("", world_s), ("@3d", world3))
+            for d_ in (torch.float32, torch.float64)):
+        tag = str(dt).split(".")[-1]
+        s = torch.empty((), dtype=dt).element_size()
+        sprob = world_p.compile(dtype=dt)
+        spat = sparse.build_ell_pattern(sprob)
+        if not isinstance(spat, sparse.PairPattern):
+            raise AssertionError("the 4s world did not get pair tables")
+        srcs, bsrcs = sparse.pair_sources(sprob, spat)
+        tables = ([(pt.table, src) for pt, src in zip(spat.pairs, srcs)]
+                  + [(spat.b_tables[g], bsrcs[g]) for g in spat.groups])
+
+        def assemble_all(fn):
+            return [fn(src, tb) for tb, src in tables]
+
+        bound_in = {k_: dict(nbytes=b_, flops=f_) for k_, (b_, f_)
+                in pair_work(spat, srcs, bsrcs, s).items()}
+        n_contrib = sum(d.numel() for tb, _ in tables for d in tb.dest)
+        # the yardstick: one index_add_ per pair table and per group of the
+        # blocks, formed beforehand
+        lib_ops = [(torch.cat(list(tb.dest)),
+                    torch.cat([_pair_blocks(torch, so, tb.dc) for so in src]),
+                    (tb.n_dest, tb.entries)) for tb, src in tables]
+
+        def lib_assemble():
+            return [torch.zeros(shape, dtype=dt, device=dev).index_add_(
+                0, d_, b_) for d_, b_, shape in lib_ops]
+
+        case("pair_assemble", tag,
+             f"{len(spat.pairs)} pair tables + {len(spat.groups)} b, "
+             f"{n_contrib} contributions", label="pair_assemble" + sfx,
+             run=lambda: assemble_all(pair_ell.pair_assemble),
+             plain=lambda: assemble_all(pair_ell.pair_assemble_plain),
+             **bound_in["pair_assemble"], library=lib_assemble,
+             library_what="index_add_ per pair table and per group, the "
+             "blocks formed beforehand", slow_plain=True)
+        once = assemble_all(pair_ell.pair_assemble)
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(
+                once, assemble_all(pair_ell.pair_assemble))):
+            raise AssertionError("pair_assemble does not repeat its bits")
+        if any(bool(tb.arrivals.any()) for tb, _ in tables):
+            raise AssertionError("pair_assemble left an arrival counter set")
+        device_rows("pair_assemble" + sfx, tag, {
+            "kernel": lambda: assemble_all(pair_ell.pair_assemble),
+            "index_add_ per table (blocks formed beforehand)":
+                lib_assemble})
+        del lib_ops
+        values_s = once[:len(spat.pairs)]
+        bT_s = dict(zip(spat.groups, once[len(spat.pairs):]))
+        lam_s = torch.tensor(0.5, dtype=dt, device=dev)
+        linv_s, lchol_s, extra_s = {}, {}, {}
+        for g_, i_ in spat.square.items():
+            linv_s[g_], lchol_s[g_], _, extra_s[g_] = damp_chol.damp_chol(
+                values_s[i_], sprob.free[g_], bT_s[g_], lam_s)
+        if sfx == "":
+            # K3 and K4's lane_block_mv at D = 2: the landmarks of 4s
+            i2 = spat.square["point_xy"]
+            N2 = spat.counts["point_xy"]
+            free2 = sprob.free["point_xy"]
+            eye2 = torch.eye(2, dtype=dt, device=dev)
+
+            def lib_chol2():
+                blocks = (values_s[i2][0].view(2, 2, N2).permute(2, 0, 1)
+                          + (lam_s * free2 + (1 - free2))[:, None, None]
+                          * eye2)
+                L = torch.linalg.cholesky_ex(blocks)[0]
+                return torch.linalg.solve_triangular(
+                    L, eye2.expand(N2, 2, 2), upper=False)
+
+            case("damp_chol", tag, f"D=2 N={N2} (the landmarks of 4s)",
+                 lambda: damp_chol.damp_chol(values_s[i2], free2,
+                                             bT_s["point_xy"], lam_s),
+                 lambda: damp_chol.damp_chol_plain(values_s[i2], free2,
+                                                   bT_s["point_xy"], lam_s),
+                 nbytes=s * (4 + 1 + 2 + 4 + 4 + 2 + 1) * N2, flops=30 * N2,
+                 library=lib_chol2, label="damp_chol@d2",
+                 library_what="torch.linalg.cholesky_ex + solve_triangular")
+            device_rows("damp_chol@d2", tag, {
+                "kernel": lambda: damp_chol.damp_chol(
+                    values_s[i2], free2, bT_s["point_xy"], lam_s),
+                "cholesky_ex + solve_triangular": lib_chol2})
+            x2 = torch.randn((2, N2), dtype=dt, device=dev)
+            l2 = linv_s["point_xy"].view(2, 2, N2)
+            case("lane_block_mv", tag, f"D=2 N={N2} (and its transpose)",
+                 lambda: (jacobi_scale.lane_block_mv(linv_s["point_xy"], x2,
+                                                     True),
+                          jacobi_scale.lane_block_mv(linv_s["point_xy"], x2,
+                                                     False)),
+                 lambda: (jacobi_scale.lane_block_mv_plain(
+                     linv_s["point_xy"], x2, True),
+                          jacobi_scale.lane_block_mv_plain(
+                              linv_s["point_xy"], x2, False)),
+                 nbytes=2 * s * 8 * N2, flops=2 * 8 * N2,
+                 library=lambda: (torch.einsum("ban,bn->an", l2, x2),
+                                  torch.einsum("abn,bn->an", l2, x2)),
+                 label="lane_block_mv@d2", library_what="torch.einsum")
+            device_rows("lane_block_mv@d2", tag, {
+                "kernel": lambda: jacobi_scale.lane_block_mv(
+                    linv_s["point_xy"], x2, True),
+                "torch.einsum": lambda: torch.einsum("ban,bn->an", l2, x2)})
+
+        def scale_all(fn, fac=linv_s):
+            return [fn(pt.nb, pt.cnt, v, fac[pt.rg], fac[pt.cg],
+                       extra_s[pt.rg] if pt.square else None)
+                    for pt, v in zip(spat.pairs, values_s)]
+
+        case("pair_scale", tag, "every pair table (K = "
+             + ", ".join(str(pt.k) for pt in spat.pairs) + ")",
+             lambda: scale_all(pair_ell.pair_scale),
+             lambda: scale_all(pair_ell.pair_scale_plain),
+             **bound_in["pair_scale"], label="pair_scale" + sfx)
+        g0 = spat.groups[0]                      # the poses
+        bad_s = {**linv_s, g0: linv_s[g0].clone()}
+        bad_s[g0][:, 0] = float("nan")           # pose 0's factor
+        case("pair_scale", tag, "NaN factor of pose 0",
+             lambda: scale_all(pair_ell.pair_scale, bad_s),
+             lambda: scale_all(pair_ell.pair_scale_plain, bad_s), 0, 0,
+             same_nan=True, label="pair_scale@nan" + sfx, timed=False)
+        for pt, sv in zip(spat.pairs, scale_all(pair_ell.pair_scale, bad_s)):
+            pad = (values_s[spat.pairs.index(pt)] == 0).all(
+                dim=1, keepdim=True).expand_as(sv).clone()
+            if pt.square:
+                pad[0] = False
+            if (sv[pad] != 0).any():
+                raise AssertionError("pair_scale: a padding slot is not "
+                                     "exactly zero")
+        del bad_s
+        svals_s = scale_all(pair_ell.pair_scale)
+        if not all(torch.equal(a_, b_) for a_, b_ in zip(
+                svals_s, scale_all(pair_ell.pair_scale))):
+            raise AssertionError("pair_scale does not repeat its bits")
+        device_rows("pair_scale" + sfx, tag, {
+            "kernel": lambda: scale_all(pair_ell.pair_scale)})
+        op_s = sparse.PairOperator(spat, svals_s)
+        xT_s = {g_: torch.randn((spat.widths[g_], spat.counts[g_]),
+                                dtype=dt, device=dev) for g_ in spat.groups}
+        # the same H as one CSR matrix over the stacked vertex-major vector
+        offs, tot = {}, 0
+        for g_ in spat.groups:
+            offs[g_] = tot
+            tot += spat.widths[g_] * spat.counts[g_]
+        rows_c, cols_c, vals_c = [], [], []
+        for pt, sv in zip(spat.pairs, svals_s):
+            kk, aa, cc, nn = torch.meshgrid(
+                torch.arange(pt.k, device=dev),
+                torch.arange(pt.dr, device=dev),
+                torch.arange(pt.dc, device=dev),
+                torch.arange(pt.n, device=dev), indexing="ij")
+            col = pt.nb.long()[kk, nn]
+            rows_c.append((offs[pt.rg] + nn * pt.dr + aa).reshape(-1))
+            cols_c.append((offs[pt.cg] + col * pt.dc + cc).reshape(-1))
+            vals_c.append(sv.view(pt.k, pt.dr, pt.dc, pt.n).reshape(-1))
+        keep = torch.cat(vals_c) != 0
+        H_csr = torch.sparse_coo_tensor(
+            torch.stack([torch.cat(rows_c)[keep], torch.cat(cols_c)[keep]]),
+            torch.cat(vals_c)[keep], (tot, tot)).coalesce().to_sparse_csr()
+        x_flat = torch.cat([xT_s[g_].T.reshape(-1) for g_ in spat.groups])
+        del rows_c, cols_c, vals_c, keep
+        y_csr = (H_csr @ x_flat[:, None])[:, 0]
+        y_k = sparse.ell_matvec_lane(spat, svals_s, xT_s)
+        y_k_flat = torch.cat([y_k[g_].T.reshape(-1) for g_ in spat.groups])
+        err_csr = float((y_k_flat - y_csr).abs().max()
+                        / y_csr.abs().max())
+        if not err_csr <= 10 * TOL_DEFAULT[tag]:
+            raise AssertionError(f"pair_spmv differs from the CSR product "
+                                 f"of the same H: {err_csr:.3e}")
+        case("pair_spmv", tag, f"T={tot}, one launch per row group",
+             lambda: list(sparse.ell_matvec_lane(spat, svals_s,
+                                                 xT_s).values()),
+             lambda: [pair_ell.pair_spmv_plain(*spat.row_operands(
+                 g_, svals_s, xT_s), spat.widths[g_]) for g_ in spat.groups],
+             **bound_in["pair_spmv"],
+             library=lambda: H_csr @ x_flat[:, None], label="pair_spmv" + sfx,
+             library_what="torch.sparse CSR product of the same H")
+        def spmv_dot_plain_all():
+            ys, dot = [], 0.0
+            for g_ in spat.groups:
+                y_, p_ = pair_ell.pair_spmv_dot_plain(
+                    *spat.row_operands(g_, svals_s, xT_s), xT_s[g_],
+                    torch.empty(1, dtype=dt, device=dev))
+                ys.append(y_)
+                dot = dot + p_.sum()
+            return ys + [dot]
+
+        case("pair_spmv_dot", tag, f"T={tot}, with p . H p",
+             lambda: (lambda o: [o[0][g_] for g_ in spat.groups]
+                      + [o[1].sum()])(op_s.matvec_dot(xT_s)),
+             spmv_dot_plain_all,
+             **bound_in["pair_spmv_dot"],
+             library=lambda: H_csr @ x_flat[:, None],
+             label="pair_spmv_dot" + sfx,
+             library_what="torch.sparse CSR product of the same H, no dot")
+        hp1, part1 = op_s.matvec_dot(xT_s)
+        hp1, part1 = {k_: v_.clone() for k_, v_ in hp1.items()}, part1.clone()
+        hp2, part2 = op_s.matvec_dot(xT_s)
+        if not (torch.equal(part1, part2) and all(
+                torch.equal(hp1[k_], hp2[k_]) for k_ in hp1)):
+            raise AssertionError("pair_spmv_dot does not repeat its bits")
+        device_rows("pair_spmv_dot" + sfx, tag, {
+            "kernel": lambda: op_s.matvec_dot(xT_s),
+            "pair_spmv (no dot)": lambda: sparse.ell_matvec_lane(
+                spat, svals_s, xT_s),
+            "torch.sparse CSR product of the same H":
+                lambda: H_csr @ x_flat[:, None]})
+        rows_g = spat.bound_rows(svals_s)
+        case("pair_gershgorin", tag, f"T={tot}, {len(spat.groups)} row "
+             "groups", lambda: pair_ell.pair_gershgorin(rows_g),
+             lambda: pair_ell.pair_gershgorin_plain(rows_g),
+             **bound_in["pair_gershgorin"], label="pair_gershgorin" + sfx)
+        if not torch.equal(pair_ell.pair_gershgorin(rows_g),
+                           pair_ell.pair_gershgorin(rows_g)):
+            raise AssertionError("pair_gershgorin does not repeat its bits")
+        device_rows("pair_gershgorin" + sfx, tag, {
+            "kernel": lambda: pair_ell.pair_gershgorin(rows_g)})
+        print(f"phase 3 pairs{sfx} {tag}: "
+              + (f"Simulator2D({PAIR_WORLD}).simulate({PAIR_POSES}) in "
+                 f"{t_sim_s:.2f} s on the host" if sfx == ""
+                 else "phase 4f's world") + f"; T={tot}; "
+              "pairs " + ", ".join(f"({pt.rg}, {pt.cg}) {pt.dr}x{pt.dc} "
+                                   f"K={pt.k}" for pt in spat.pairs)
+              + f"; the CSR product agrees to {err_csr:.3e} [{card}]")
+        del sprob, spat, srcs, bsrcs, tables, once, values_s, bT_s, svals_s
+        del op_s, H_csr, x_flat, linv_s, lchol_s, extra_s, rows_g
+        torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for (label, tag), row in sorted(results.items()):
         tol = row.get("tol", TOL.get(label, TOL.get(row["kname"],
@@ -3854,6 +4220,9 @@ def main() -> int:
              (ba_coupling, "ba_wtx"), (ba_coupling, "ba_wv"),
              (ba_coupling, "ba_sandwich"),
              (schur_general, "schur_edge_blocks"),
+             (pair_ell, "pair_assemble"), (pair_ell, "pair_scale"),
+             (pair_ell, "pair_spmv"), (pair_ell, "pair_spmv_dot"),
+             (pair_ell, "pair_gershgorin"),
              *((edge_lin, w_) for w_ in edge_lin.LINEARIZERS.values()),
              *((trial, w_) for w_ in (*trial.RETRACTIONS.values(),
                                       *trial.CHI2.values(), "chi2_sum"))]
@@ -5561,6 +5930,215 @@ def main() -> int:
     torch.cuda.empty_cache()
     shutil.rmtree(bal_dir, ignore_errors=True)
 
+    # 4s. LM-PCG over several vertex groups (core/sparse.py PairPattern:
+    # K17, K2', K3 per group, K4' per pair table, K5' per row group in the
+    # three-launch CG step, K7; K8' with pcg_cheby 4): lambda init + 10
+    # iterations of lm_pcg_optimize_fused in float32 and float64 on the
+    # 9000-pose landmark world of phase 3's pair rows (T = 34,108), on phase
+    # 4d's world and on phase 4f's world, CG budget PAIR_PCG
+    pair_names = ("pair_assemble", "pair_scale", "pair_spmv",
+                  "pair_spmv_dot")
+    counts_4s = {}
+    launches_d2 = {"damp_chol@d2": 0, "lane_block_mv@d2": 0}
+    generic_before = (len(generic_calls), len(plain_trial_calls))
+
+    def pair_run(label, graph_, dt, cheby=0):
+        """One 4s run: (trajectory, launch counts, widths' launches of K3
+        and lane_block_mv, ms per LM iteration, init s, the problem, its
+        pattern and the run's final state)."""
+        prob_ = graph_.compile(dtype=dt)
+        if prob_.device.type != "cuda":
+            raise AssertionError(f"phase 4s {label}: {prob_.device}")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0_ = time.monotonic()
+        alg_ = LevenbergMarquardtPCG(pcg_cheby=cheby, **PAIR_PCG)
+        pat_ = alg_.pattern(prob_)
+        if not isinstance(pat_, sparse.PairPattern):
+            raise AssertionError(f"phase 4s {label}: not on pair tables")
+        lam_ = _lambda_init_pcg(prob_, pat_, prob_.params,
+                                torch.tensor(alg_.tau, dtype=dt, device=dev))
+        chi_ = robust_chi2(prob_)
+        ni_ = torch.tensor(2.0, dtype=dt, device=dev)
+        torch.cuda.synchronize()
+        t1_ = time.monotonic()
+        out_ = lm_pcg_optimize_fused(prob_, pat_, prob_.params, lam_, ni_,
+                                     chi_, n_iters=10, pcg_cheby=cheby,
+                                     **PAIR_PCG)
+        torch.cuda.synchronize()
+        t2_ = time.monotonic()
+        counts_ = kernels.launch_counts()
+        widths_ = (dict(damp_chol.damp_chol.launches_by_width),
+                   dict(jacobi_scale.lane_block_mv.launches_by_width))
+        launches_d2["damp_chol@d2"] += widths_[0].get(2, 0)
+        launches_d2["lane_block_mv@d2"] += widths_[1].get(2, 0)
+        traj_ = [float(chi_)] + out_[4].tolist()
+        if not (np.all(np.isfinite(traj_)) and np.all(np.diff(traj_) <= 0)):
+            raise AssertionError(f"phase 4s {label}: chi2 not finite or "
+                                 f"increasing: {traj_}")
+        return dict(traj=traj_, counts=counts_, widths=widths_,
+                    ms=(t2_ - t1_) * 100.0, init_s=t1_ - t0_, prob=prob_,
+                    pat=pat_, lam0=float(lam_), final=out_[:4], alg=alg_)
+
+    runs_4s = {}
+    for label, graph_ in (("9000-pose world", world_s), ("4d world", world),
+                          ("4f world", world3)):
+        for dt in (torch.float32, torch.float64):
+            tag = str(dt).split(".")[-1]
+            r_ = pair_run(label, graph_, dt)
+            runs_4s[(label, tag)] = r_
+            counts_4s[(label, tag)] = r_["counts"]
+            st_ = r_["prob"].static
+            c_ = r_["counts"]
+            n_g = len(st_.vgroups)
+            trials_ = c_["lm_outcome"]
+            cg_ = c_["cg_update_xr"] // n_g
+            never_ = [k for k in pair_names + (
+                "damp_chol", "lane_block_mv", "cg_update_xr", "cg_update_p",
+                "cg_residual", "cg_finish", "lm_outcome") if c_[k] <= 0]
+            if never_ or c_["spmv_dot"] or c_["spmv_dot_p"] \
+                    or c_["block_ell_spmv"] or c_["assemble_gather"]:
+                raise AssertionError(f"phase 4s {label} {tag}: a kernel of "
+                                     f"the pair path did not launch, or the "
+                                     f"one-group path's did: {never_} {c_}")
+            if label == "9000-pose world" and r_["widths"][0].get(2, 0) <= 0:
+                raise AssertionError("phase 4s: K3 did not launch at D = 2")
+            print(f"phase 4s {label} {tag}: T={st_.total_dim} ("
+                  + ", ".join(f"{g_.count} {g_.name}" for g_ in st_.vgroups)
+                  + "; " + ", ".join(f"{eg_.count} {eg_.key}"
+                                     for eg_ in st_.egroups)
+                  + f"), pairs " + ", ".join(
+                      f"{pt.dr}x{pt.dc} K={pt.k}" for pt in r_["pat"].pairs)
+                  + f"; {PAIR_PCG}; init + lambda0 {r_['init_s']:.3f} s "
+                  f"lambda0 {r_['lam0']:.6g}; {r_['ms']:.2f} ms per LM "
+                  f"iteration (10 of lm_pcg_optimize_fused), {trials_} "
+                  f"trials, {cg_} CG iterations ({cg_ / max(trials_, 1):.1f}"
+                  f" per trial) [{card}]")
+            print(f"phase 4s {label} {tag} chi2: "
+                  + " ".join(f"{c!r}" for c in r_["traj"]))
+            print(f"phase 4s {label} {tag} launches: " + " ".join(
+                f"{k}={c_[k]}" for k in pair_names + (
+                    "damp_chol", "lane_block_mv", "cg_update_xr",
+                    "cg_update_p", "lm_outcome") if c_[k])
+                  + f"; K3 by width {r_['widths'][0]}, lane_block_mv by "
+                  f"width {r_['widths'][1]}")
+            if dt == torch.float32:
+                lam_p, plain_s = plain_route(r_["alg"], r_["pat"],
+                                             torch.tensor(2.0, dtype=dt,
+                                                          device=dev),
+                                             prob=r_["prob"], **PAIR_PCG)
+                np.testing.assert_allclose(r_["traj"][1:4], plain_s,
+                                           rtol=PLAIN_ROUTE_RTOL)
+                np.testing.assert_allclose(lam_p, r_["lam0"],
+                                           rtol=PLAIN_ROUTE_RTOL)
+                print(f"phase 4s {label} plain route: first 3 chi2 "
+                      + " ".join(f"{c:.6f}" for c in plain_s)
+                      + f" (rtol {PLAIN_ROUTE_RTOL:g}) OK")
+            if label == "4d world" and dt == torch.float64:
+                prev_ = r_["traj"][0]
+                n_held = 0
+                for i_, (t_, j_) in enumerate(zip(r_["traj"][1:],
+                                                  JAX_PAIR_TRAJ)):
+                    if prev_ - j_ <= 1e-10 * prev_:
+                        break
+                    if not abs(t_ - j_) <= 1e-6 * abs(j_):
+                        raise AssertionError(
+                            f"phase 4s: the float64 4d trajectory leaves "
+                            f"the JAX package's at iteration {i_}: {t_!r} "
+                            f"against {j_!r}")
+                    prev_, n_held = j_, n_held + 1
+                print(f"phase 4s 4d world float64: the JAX package's float64 "
+                      f"CPU trajectory at the same settings (JAX_PAIR_TRAJ) "
+                      f"held to rtol 1e-6 over {n_held} gaining iterations "
+                      "OK")
+            if r_["ms"] and label != "9000-pose world":
+                dense_end = lm_chi[-1] if label == "4d world" else lm_chi3[-1]
+                print(f"phase 4s {label} {tag}: end / the dense LM's end "
+                      f"(phase {label[:2]}) = "
+                      f"{r_['traj'][-1] / dense_end!r}")
+            if not (label == "9000-pose world" and dt == torch.float32):
+                del r_["prob"], r_["pat"], r_["final"]
+                runs_4s[(label, tag)] = {k_: v_ for k_, v_ in r_.items()
+                                         if k_ not in ("alg",)}
+
+    # pcg_cheby 4 on the 9000-pose world: K8' brackets the Chebyshev window
+    r_c = pair_run("9000-pose world, pcg_cheby 4", world_s, torch.float32,
+                   cheby=4)
+    counts_4s[("cheby", "float32")] = r_c["counts"]
+    if min(r_c["counts"][k] for k in ("pair_gershgorin", "chebyshev_update",
+                                      "chebyshev_coeffs")) <= 0:
+        raise AssertionError(f"phase 4s: K8' did not launch: "
+                             f"{r_c['counts']}")
+    print(f"phase 4s 9000-pose world float32 pcg_cheby 4: chi2 "
+          + " ".join(f"{c!r}" for c in r_c["traj"])
+          + f"; {r_c['ms']:.2f} ms per LM iteration; pair_gershgorin="
+          f"{r_c['counts']['pair_gershgorin']} [{card}]")
+    _, plain_c4 = plain_route(r_c["alg"], r_c["pat"],
+                              torch.tensor(2.0, dtype=torch.float32,
+                                           device=dev),
+                              prob=r_c["prob"], pcg_cheby=4, **PAIR_PCG)
+    np.testing.assert_allclose(r_c["traj"][1:4], plain_c4,
+                               rtol=PLAIN_ROUTE_RTOL)
+    print("phase 4s pcg_cheby 4 plain route: first 3 chi2 "
+          + " ".join(f"{c:.6f}" for c in plain_c4)
+          + f" (rtol {PLAIN_ROUTE_RTOL:g}) OK")
+    del r_c
+    # and on 4f's world: K8' at the (6, 6), (6, 3), (3, 6), (3, 3) pairs
+    r_c = pair_run("4f world, pcg_cheby 4", world3, torch.float32, cheby=4)
+    counts_4s[("cheby 4f", "float32")] = r_c["counts"]
+    if r_c["counts"]["pair_gershgorin"] <= 0:
+        raise AssertionError(f"phase 4s: K8' did not launch on 4f's world: "
+                             f"{r_c['counts']}")
+    print(f"phase 4s 4f world float32 pcg_cheby 4: chi2 "
+          + " ".join(f"{c!r}" for c in r_c["traj"])
+          + f"; {r_c['ms']:.2f} ms per LM iteration; pair_gershgorin="
+          f"{r_c['counts']['pair_gershgorin']}; end / the dense LM's end "
+          f"(phase 4f) = {r_c['traj'][-1] / lm_chi3[-1]!r} [{card}]")
+    del r_c
+    # one trial's solve on the 9000-pose world in float32, at the run's
+    # end: wall, device busy and their share per CG iteration
+    r_s = runs_4s[("9000-pose world", "float32")]
+    sprob_, spat_ = r_s["prob"], r_s["pat"]
+    work_s = sprob_.with_params(r_s["final"][0])
+    pre_s = _pcg_precomp(work_s, spat_)
+    _pcg_trial(work_s, spat_, pre_s, r_s["final"][1], None, **{
+        "pcg_iters": PAIR_PCG["pcg_iters"], "pcg_tol": PAIR_PCG["pcg_tol"],
+        "pcg_cheby": 0})
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t_w = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof_s:
+        _pcg_trial(work_s, spat_, pre_s, r_s["final"][1], None,
+                   PAIR_PCG["pcg_iters"], PAIR_PCG["pcg_tol"], 0)
+        torch.cuda.synchronize()
+    wall_s = (time.monotonic() - t_w) * 1e6
+    n_cg_s = kernels.launch_counts()["cg_update_xr"] // len(spat_.groups)
+    rows_s = sorted(((e.self_device_time_total, e.count, e.key)
+                     for e in prof_s.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.self_device_time_total > 0), reverse=True)
+    busy_s = sum(r[0] for r in rows_s)
+    if busy_s <= 0 or n_cg_s <= 0:
+        raise AssertionError("phase 4s: the profiler saw no device time")
+    print(f"phase 4s 9000-pose world float32, one trial's solve at the "
+          f"end ({n_cg_s} CG iterations): wall {wall_s / 1e3:.3f} ms "
+          f"(profiled), device busy {busy_s / 1e3:.3f} ms: "
+          f"{wall_s / n_cg_s:.1f} us of wall and {busy_s / n_cg_s:.1f} us "
+          f"of device time per CG iteration, idle share "
+          f"{100 * (1 - busy_s / wall_s):.1f}% [{card}]")
+    print("phase 4s device time by kernel in that solve: "
+          + "; ".join(f"{k_[:40]} {us / n_:.1f} us x {n_}"
+                      for us, n_, k_ in rows_s[:8]))
+    del work_s, pre_s, sprob_, spat_, r_s, runs_4s, prof_s
+    plain_4s = (len(generic_calls) - generic_before[0],
+                len(plain_trial_calls) - generic_before[1])
+    print(f"phase 4s plain calls of built-in types on the card (generic "
+          f"linearizations, plain trials): {plain_4s[0]}, {plain_4s[1]}")
+    if any(plain_4s):
+        raise AssertionError("phase 4s: a built-in type took a plain route")
+    torch.cuda.empty_cache()
+
     # -- 5. a .g2o string through the public API ---------------------------
     rng = np.random.default_rng(5)
     g = Graph()
@@ -5748,7 +6326,8 @@ def main() -> int:
                 "4p 80k": counts_bal[("80k", "float32")],
                 "4p 400k": counts_bal[("400k", "float32")],
                 "4p 80k float64": counts_bal[("80k", "float64")]}
-    # ... and, with K14's wrapper, every general Schur phase (4j-4n)
+    # ... and, with K14's wrapper, every general Schur phase (4j-4n); the
+    # pair kernels' rows count 4s's 2D worlds, their "@3d" rows 4f's world
     launches = {k: counts_main[k] + counts_cheb[k] + counts_probe[k]
                 + counts_dense[k] + (0 if k in two_rows else launches_d6[k])
                 + (sum(c[k] for c in by_phase.values())
@@ -5760,6 +6339,10 @@ def main() -> int:
                 + (counts_4o[k] + counts_4r[k]
                    if k.startswith(("edge_lin_", "trial_", "chi2_sum"))
                    else 0)
+                + (sum(c[k] for (w_, _), c in counts_4s.items()
+                       if not (k.startswith("pair_") and "4f" in w_))
+                   if k.startswith(("pair_", "edge_lin_", "trial_",
+                                    "chi2_sum")) else 0)
                 for k in counts_main}
     for label, counts in (("4 main path", counts_main),
                           ("4b Chebyshev path", counts_cheb),
@@ -5776,6 +6359,8 @@ def main() -> int:
                           *((f"{ph} general Schur path", c_)
                             for ph, c_ in counts_gen.items()),
                           ("4o dense LM worlds", counts_4o),
+                          *((f"4s {w_} {t_} run", c_)
+                            for (w_, t_), c_ in counts_4s.items()),
                           ("4r dense route at block width 9", counts_4r),
                           *((f"4p BAL {k_} {t_} runs", c_)
                             for (k_, t_), c_ in counts_bal.items())):
@@ -5857,6 +6442,12 @@ def main() -> int:
                     "4o": counts_4o, "4p": counts_4p,
                     **counts_gen}[ph][k.split("@")[0]]
                 <= 0]
+             + [f"{k} (4s {w_} {t_})" for (w_, t_), c_ in counts_4s.items()
+                for k in ("pair_assemble", "pair_scale", "pair_spmv",
+                          "pair_spmv_dot") if c_[k] <= 0]
+             + [f"pair_gershgorin ({w_})" for w_ in ("cheby", "cheby 4f")
+                if counts_4s[(w_, "float32")]["pair_gershgorin"] <= 0]
+             + [k for k, v in launches_d2.items() if v <= 0]
              + [k for k in KERNELS if launches[k] <= 0]
              + [k for k, phs in WIDE_ROWS.items()
                 if min({**counts_gen, "4r": counts_4r}[ph][
@@ -5876,6 +6467,8 @@ def main() -> int:
     k7_names = ("lm_outcome", "chi2_sum", *trial.RETRACTIONS.values(),
                 *trial.CHI2.values())
     for label, counts in (("4d", counts_dense), ("4f", counts_dense3),
+                          *((f"4s {w_} {t_}", c_)
+                            for (w_, t_), c_ in counts_4s.items()),
                           ("4g", counts_ba80), ("4h", counts_ba400),
                           ("4i 2D", counts_4i["2D"]),
                           ("4i 3D", counts_4i["3D"]),
@@ -6000,6 +6593,38 @@ def main() -> int:
          "max_abs_err": row["abs"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # K3 and K4's lane_block_mv at D = 2, the landmarks of phase 4s, with
+    # their launches at that width there
+    for label, src, replaces in (
+            ("damp_chol@d2", "damp_chol.cu",
+             "openslam_g2o_tpu/core/solvers.py:63"),
+            ("lane_block_mv@d2", "jacobi_scale.cu",
+             "openslam_g2o_tpu/core/sparse.py:871")):
+        row = results[(label, "float32")]
+        report["kernels"].append(
+            {"name": label, "route": "cuda",
+             "source": f"openslam_g2o_torch/kernels/csrc/{src}",
+             "replaces": replaces, "launches": launches_d2[label],
+             "max_abs_err": row["abs"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # the pair kernels at phase 4f's world ((6, 6), (6, 3), (3, 6), (3, 3)),
+    # with the launches of 4s's runs on that world (K8': its pcg_cheby 4
+    # run)
+    for wname in ("pair_assemble", "pair_scale", "pair_spmv",
+                  "pair_spmv_dot", "pair_gershgorin"):
+        label = wname + "@3d"
+        row = results[(label, "float32")]
+        src, replaces = KERNELS[wname]
+        report["kernels"].append(
+            {"name": label, "route": "cuda",
+             "source": f"openslam_g2o_torch/kernels/csrc/{src}",
+             "replaces": replaces,
+             "launches": sum(c_[wname] for (w_, _), c_ in counts_4s.items()
+                             if "4f" in w_),
+             "max_abs_err": row["abs"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -3,7 +3,8 @@
 the port, so that two trees can be timed in one run on one card.
 
     python3 kernel_times.py [--tree PATH]
-                            [--only k15,k12,k16,sandwich,k14,lin,trial]
+                            [--only k15,k12,k16,sandwich,k14,lin,trial,pairs,
+                                    pose]
                             [--save FILE] [--against FILE]
 
 It times the `openslam_g2o_torch` of PATH (default: this script's own
@@ -73,6 +74,20 @@ does not, at the same shapes:
   seeded group of 50,000 edges of every type under Huber (phase 3's
   rows), float32 and float64, by device time beside its bound, with the
   digest of its partials.
+* pairs: the kernels of LM-PCG over several vertex groups on phase 4s's
+  9000-pose landmark world (chip_smoke.PAIR_WORLD, T = 34,108): K2'
+  `pair_assemble` over every pair table and group b (the K17 outputs
+  made beforehand), K4' `pair_scale` over every pair table at lambda 0.5,
+  K5' as the CG step calls it (`PairOperator.matvec_dot`, one launch per
+  row group) and K8' `pair_gershgorin`; skipped for a tree without
+  kernels/pair_ell.py.
+* pose: the one-group LM-PCG path of phases 4 and 4e (the 100,000-pose
+  SE2 graph and the 100,000-pose SE3 sphere): `assemble_ell` (kernel B or
+  K16, then C), K3, K4, `spmv_dot` and `lane_block_mv` at lambda 0.5 by
+  device time, and three iterations of `lm_pcg_optimize_fused` (pcg 50,
+  tol 1e-6) from lambda init, whose trajectory and parameters are
+  digested too: with --against they show that a tree keeps this path's
+  bits.
 
 Float32 and float64. Each line gives the microseconds per call, the bound
 (bytes over 3.35 TB/s), the error against the plain version relative to
@@ -96,7 +111,8 @@ import tempfile
 
 import chip_smoke
 
-SECTIONS = ("k15", "k12", "k16", "sandwich", "k14", "lin", "trial")
+SECTIONS = ("k15", "k12", "k16", "sandwich", "k14", "lin", "trial", "pairs",
+            "pose")
 
 
 def _digest(t):
@@ -677,6 +693,159 @@ def main(argv=None) -> int:
 
     if "trial" in only:
         trial_section()
+    # -- K2', K4', K5', K8' ------------------------------------------------
+    def pairs_section():
+        try:
+            from openslam_g2o_torch.kernels import damp_chol, pair_ell
+        except ImportError:
+            print("kernel_times pairs: skipped: this tree has no pair "
+                  "kernels")
+            return
+        world_s = Simulator2D(**chip_smoke.PAIR_WORLD).simulate(
+            n_poses=chip_smoke.PAIR_POSES)[0]
+        for dt in dtypes:
+            tag = tag_of(dt)
+            s_ = torch.empty((), dtype=dt).element_size()
+            prob = world_s.compile(dtype=dt)
+            pat = sparse.build_ell_pattern(prob)
+            srcs, bsrcs = sparse.pair_sources(prob, pat)
+            tables = ([(pt.table, src) for pt, src in zip(pat.pairs, srcs)]
+                      + [(pat.b_tables[g], bsrcs[g]) for g in pat.groups])
+            n_contrib = sum(d.numel() for tb, _ in tables for d in tb.dest)
+            # the bytes of chip_smoke.py's bound_ms for the same calls
+            work = chip_smoke.pair_work(pat, srcs, bsrcs, s_)
+            report("pair_assemble", "pair_assemble",
+                   f"{len(tables)} tables, {n_contrib} contributions", tag,
+                   lambda: [pair_ell.pair_assemble(src, tb)
+                            for tb, src in tables],
+                   lambda: [pair_ell.pair_assemble_plain(src, tb)
+                            for tb, src in tables],
+                   work["pair_assemble"][0])
+            once = [pair_ell.pair_assemble(src, tb) for tb, src in tables]
+            values, bT = once[:len(pat.pairs)], once[len(pat.pairs):]
+            lam = torch.tensor(0.5, dtype=dt, device=dev)
+            linv, extra = {}, {}
+            for g, i in pat.square.items():
+                linv[g], _, _, extra[g] = damp_chol.damp_chol(
+                    values[i], prob.free[g], bT[pat.groups.index(g)], lam)
+
+            def scale(fn):
+                return [fn(pt.nb, pt.cnt, v, linv[pt.rg], linv[pt.cg],
+                           extra[pt.rg] if pt.square else None)
+                        for pt, v in zip(pat.pairs, values)]
+
+            report("pair_scale", "pair_scale", f"{len(pat.pairs)} pairs",
+                   tag, lambda: scale(pair_ell.pair_scale),
+                   lambda: scale(pair_ell.pair_scale_plain),
+                   work["pair_scale"][0])
+            svals = scale(pair_ell.pair_scale)
+            op = sparse.PairOperator(pat, svals)
+            gen = torch.Generator(device=dev).manual_seed(3)
+            xT = {g: torch.randn((pat.widths[g], pat.counts[g]),
+                                 generator=gen, dtype=dt, device=dev)
+                  for g in pat.groups}
+
+            def plain_dot():
+                out = []
+                for g in pat.groups:
+                    y, p = pair_ell.pair_spmv_dot_plain(
+                        *pat.row_operands(g, svals, xT), xT[g],
+                        torch.empty(1, dtype=dt, device=dev))
+                    out += [y, p.clone()]
+                return out
+
+            report("pair_spmv_dot", "pair_spmv_dot",
+                   f"T={prob.static.total_dim}, {len(pat.groups)} row groups",
+                   tag, lambda: [t for g, t in op.matvec_dot(xT)[0].items()],
+                   lambda: plain_dot()[0::2],
+                   work["pair_spmv_dot"][0])
+            rows = pat.bound_rows(svals)
+            report("pair_gershgorin", "pair_gershgorin", "", tag,
+                   lambda: [pair_ell.pair_gershgorin(rows)],
+                   lambda: [pair_ell.pair_gershgorin_plain(rows)],
+                   work["pair_gershgorin"][0])
+            del prob, pat, srcs, bsrcs, tables, once, values, bT, svals, op
+            torch.cuda.empty_cache()
+
+    if "pairs" in only:
+        pairs_section()
+
+    # -- the one-group LM-PCG path (kernels B / K16, C, A, K3, K4, K6, K7) --
+    def pose_section():
+        from openslam_g2o_torch.apps.simulator import synthetic_pose_graph_2d
+        from openslam_g2o_torch.core import algorithms
+        from openslam_g2o_torch.kernels import (
+            cg_step, damp_chol, jacobi_scale)
+        sphere = create_sphere(**chip_smoke.SPHERE)[0]
+        for label, make in (
+                ("se2", lambda dt: synthetic_pose_graph_2d(
+                    chip_smoke.N_POSES, grid=chip_smoke.GRID,
+                    trans_noise=0.03, rot_noise=0.002, dtype=dt)[0]),
+                ("se3", lambda dt: sphere.compile(dtype=dt))):
+            for dt in dtypes:
+                tag = tag_of(dt)
+                prob = make(dt)
+                pat = sparse.build_ell_pattern(prob)
+                values, bT = sparse.assemble_ell(prob, pat)
+                g = pat.group
+                lam = torch.tensor(0.5, dtype=dt, device=dev)
+                free, b = prob.free[g], bT[g]
+                # (against itself: its kernels' rows are chip_smoke.py's)
+                asm = lambda: (lambda o: [o[0], o[1][g]])(
+                    sparse.assemble_ell(prob, pat))
+                report(f"pose assemble_ell {label}", "assemble_gather",
+                       f"N={pat.n} K={pat.k}", tag, asm, asm,
+                       values.element_size() * values.numel())
+                report(f"pose damp_chol {label}", "damp_chol", f"N={pat.n}",
+                       tag, lambda: list(damp_chol.damp_chol(
+                           values, free, b, lam)),
+                       lambda: list(damp_chol.damp_chol_plain(
+                           values, free, b, lam)),
+                       values.element_size() * 3 * b.numel() * b.shape[0])
+                linv, lchol, bhat, extra = damp_chol.damp_chol(
+                    values, free, b, lam)
+                report(f"pose jacobi_scale {label}", "jacobi_scale",
+                       f"N={pat.n} K={pat.k}", tag,
+                       lambda: [jacobi_scale.jacobi_scale(
+                           pat.nb, values, linv, extra)],
+                       lambda: [jacobi_scale.jacobi_scale_plain(
+                           pat.nb, values, linv, extra)],
+                       2 * values.element_size() * values.numel())
+                sv = jacobi_scale.jacobi_scale(pat.nb, values, linv, extra)
+                report(f"pose spmv_dot {label}", "spmv_dot",
+                       f"N={pat.n} K={pat.k}", tag,
+                       lambda: [t.sum() if t.dim() == 1 else t for t in
+                                cg_step.spmv_dot(pat.nb, sv, bhat)],
+                       lambda: list(cg_step.spmv_dot_plain(pat.nb, sv, bhat)),
+                       sv.element_size() * sv.numel())
+                report(f"pose lane_block_mv {label}", "lane_block_mv",
+                       f"N={pat.n}", tag,
+                       lambda: [jacobi_scale.lane_block_mv(linv, bhat, True)],
+                       lambda: [jacobi_scale.lane_block_mv_plain(
+                           linv, bhat, True)], 3 * bhat.element_size()
+                       * bhat.numel())
+                # three LM iterations of the whole path, digested
+                alg = algorithms.LevenbergMarquardtPCG(pcg_iters=50,
+                                                       pcg_tol=1e-6)
+                state = alg.init(prob)
+                out = algorithms.lm_pcg_optimize_fused(
+                    prob, alg.pattern(prob), state["params"], state["lam"],
+                    state["ni"], state["chi2"], n_iters=3, pcg_iters=50,
+                    pcg_tol=1e-6)
+                key = f"pose lm_pcg_optimize_fused {label} {tag}"
+                digests = [_digest(out[4]), _digest(out[0][g])]
+                saved[key] = digests
+                bits = ""
+                if against is not None and key in against:
+                    bits = f"; the bits of --against: {digests == against[key]}"
+                print(f"kernel_times {key}: chi2 "
+                      + " ".join(f"{c!r}" for c in out[4].tolist()) + bits,
+                      flush=True)
+                del prob, pat, values, bT, sv, out
+                torch.cuda.empty_cache()
+
+    if "pose" in only:
+        pose_section()
     if args.save:
         with open(args.save, "w") as f:
             json.dump(saved, f, indent=0)

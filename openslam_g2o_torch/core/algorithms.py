@@ -31,8 +31,7 @@ from openslam_g2o_torch.core.problem import (
 from openslam_g2o_torch.core.solvers import (
     make_chebyshev_precond, pcg_solve, solve_dense_cholesky)
 from openslam_g2o_torch.core.sparse import (
-    EllOperator, EllPattern, assemble_ell, build_ell_pattern, diag_blocks,
-    lane_block_mv)
+    assemble_ell, build_ell_pattern, diag_blocks, lane_block_mv)
 
 __all__ = ["GaussNewton", "LevenbergMarquardt", "LevenbergMarquardtPCG",
            "lm_pcg_optimize_fused", "optimize", "TerminateCriterion"]
@@ -172,76 +171,59 @@ class LevenbergMarquardt(_DensePatternCache):
 # Levenberg-Marquardt with matrix-free PCG
 # ---------------------------------------------------------------------------
 
-def _pcg_precomp(work: Problem, pattern: EllPattern):
+def _pcg_precomp(work: Problem, pattern):
     """Per-linearization quantities of the LM-PCG trial: assembled values
     and the lane-major rhs (algorithms.py:184-204)."""
     values, bT = assemble_ell(work, pattern)
     return {"values": values, "bT": bT}
 
 
-def _pcg_trial(work: Problem, pattern: EllPattern, pre, lam, dx0T,
-               pcg_iters, pcg_tol, pcg_cheby):
+def _pcg_trial(work: Problem, pattern, pre, lam, dx0T, pcg_iters, pcg_tol,
+               pcg_cheby):
     """One damped, Jacobi-scaled CG solve on the precomputed system
-    (algorithms.py:207-253). Returns (dxT lane-major, ok)."""
-    g = pattern.group
+    (algorithms.py:207-253), the same on either pattern: K3 per vertex
+    group, the pattern's scaling (K4, or K4' per pair table), CG on its
+    operator (kernel A, or K5' per row group). Returns (dxT lane-major,
+    ok)."""
     # damping lam*free + (1 - free), L and L^-1 of the damped diagonal
     # blocks and Linv b; a non-SPD block gives NaN factors -> ok False ->
     # retry
-    linv, lchol, bhat, extra = kernels.damp_chol.damp_chol(
-        pre["values"], work.free[g], pre["bT"][g], lam)
-    svals = kernels.jacobi_scale.jacobi_scale(pattern.nb, pre["values"],
-                                              linv, extra)
-    op = EllOperator(pattern, svals)
+    linv, lchol, bhat, extra = {}, {}, {}, {}
+    for g, v in pattern.diag_values(pre["values"]).items():
+        linv[g], lchol[g], bhat[g], extra[g] = kernels.damp_chol.damp_chol(
+            v, work.free[g], pre["bT"][g], lam)
+    svals = pattern.scale(pre["values"], linv, extra)
+    op = pattern.operator(svals)
     x0hat = None
     if dx0T is not None:
-        x0hat = lane_block_mv({g: lchol}, dx0T, transpose=True)  # L^T dx0
+        x0hat = lane_block_mv(lchol, dx0T, transpose=True)      # L^T dx0
     # the system is already Jacobi-scaled, hence the preconditioned-norm
     # stop test
     if pcg_cheby > 1:
         # the Gershgorin row bound never underestimates lambda_max, so the
         # polynomial bracketed by it stays positive on the spectrum
-        hi = kernels.chebyshev.gershgorin_bound(svals)
+        hi = pattern.row_bound(svals)
         pre_c = make_chebyshev_precond(op, hi * _CHEBY_LO_FRAC, hi, pcg_cheby)
-        xhat, ok = pcg_solve(op, {g: bhat}, precond=pre_c,
+        xhat, ok = pcg_solve(op, bhat, precond=pre_c,
                              max_iter=max(pcg_iters // pcg_cheby, 1),
                              tol=pcg_tol, unroll=1, norm="precond", x0=x0hat)
     else:
         # no preconditioner; the stop test is read every 2 iterations
-        xhat, ok = pcg_solve(op, {g: bhat}, max_iter=pcg_iters, tol=pcg_tol,
+        xhat, ok = pcg_solve(op, bhat, max_iter=pcg_iters, tol=pcg_tol,
                              unroll=2, norm="precond", x0=x0hat)
-    return lane_block_mv({g: linv}, xhat, transpose=True), ok
+    return lane_block_mv(linv, xhat, transpose=True), ok
 
 
-def _trial_outcome(work: Problem, pattern: EllPattern, bT: dict, dxT: dict,
+def _trial_outcome(work: Problem, pattern, bT: dict, dxT: dict,
                    ok, lam, ni, chi_cur):
     """Candidate and LM bookkeeping of one trial (the body shared by
-    algorithms.py:306-332 and :472-497) on kernels/retract_chi2.py: (cand,
-    chi_new, accept, lam_new, ni_new, retry), all on the device. The
-    pattern vouches for the shape K7 serves (build_ell_pattern refuses any
-    other): one vertex group of SE2 poses with EDGE_SE2 groups, or of SE3
-    poses with EDGE_SE3 groups; the group's type picks the kernels."""
-    g = pattern.group
-    groups = []
-    for eg in work.static.egroups:
-        ea = work.edges[eg.key]
-        groups.append((ea.indices[0], ea.indices[1], ea.measurement,
-                       ea.information, ea.delta, eg.kernel_id))
-    if g == "se3":
-        cand, part_dot = kernels.retract_chi2.retract_se3(
-            work.params[g], dxT[g], work.free[g], bT[g], lam)
-        parts = [kernels.retract_chi2.se3_edge_chi2(cand, *grp)
-                 for grp in groups] or [cand.new_zeros(1)]
-        part_chi = parts[0] if len(parts) == 1 else torch.cat(parts)
-    else:
-        cand, part_dot, part_chi = kernels.retract_chi2.retract_chi2(
-            work.params[g], dxT[g], work.free[g], bT[g], lam, groups)
-    chi_new, _, accept, lam_new, ni_new, retry = (
-        kernels.retract_chi2.lm_outcome(part_chi, part_dot, ok, lam, ni,
-                                        chi_cur))
-    return {g: cand}, chi_new, accept, lam_new, ni_new, retry
+    algorithms.py:306-332 and :472-497) on K7, as the pattern runs it
+    (`trial_outcome`): (cand, chi_new, accept, lam_new, ni_new, retry),
+    all on the device."""
+    return pattern.trial_outcome(work, bT, dxT, ok, lam, ni, chi_cur)
 
 
-def _lm_pcg_step(prob: Problem, pattern: EllPattern, params: dict, lam, ni,
+def _lm_pcg_step(prob: Problem, pattern, params: dict, lam, ni,
                  chi_cur, dx0T=None, max_trials: int = 10,
                  pcg_iters: int = 150, pcg_tol: float = 1e-8,
                  pcg_cheby: int = 0):
@@ -270,14 +252,19 @@ def _lm_pcg_step(prob: Problem, pattern: EllPattern, params: dict, lam, ni,
     return best_params, lam, ni, best_chi, trials, accept, best_dxT
 
 
-def _lambda_init_pcg(prob: Problem, pattern: EllPattern, params: dict, tau):
-    """lambda0 = tau * max |diag(H)| over free vertices
+def _lambda_init_pcg(prob: Problem, pattern, params: dict, tau):
+    """lambda0 = tau * max |diag(H)| over the free vertices of every group
     (optimization_algorithm_levenberg.cpp:149-163; algorithms.py:347-358)."""
     values, _ = assemble_ell(prob.with_params(params), pattern)
-    d = torch.diagonal(diag_blocks(pattern, values)[pattern.group],
-                       dim1=1, dim2=2).abs()
-    m = torch.clamp_min((d * prob.free[pattern.group][:, None]).max(), 0.0)
-    return tau * m
+    m = None
+    for g, blocks in diag_blocks(pattern, values).items():
+        d = torch.diagonal(blocks, dim1=1, dim2=2).abs()
+        if d.numel():
+            mg = (d * prob.free[g][:, None]).max()
+            m = mg if m is None else torch.maximum(m, mg)
+    if m is None:
+        return tau * 0.0
+    return tau * torch.clamp_min(m, 0.0)
 
 
 class LevenbergMarquardtPCG:
@@ -305,7 +292,7 @@ class LevenbergMarquardtPCG:
         self._pattern = None
         self._pattern_for = None
 
-    def pattern(self, prob: Problem) -> EllPattern:
+    def pattern(self, prob: Problem):
         if self._pattern_for is not prob.static:
             self._pattern = build_ell_pattern(prob)
             self._pattern_for = prob.static
@@ -334,7 +321,7 @@ class LevenbergMarquardtPCG:
         return new_state, info
 
 
-def lm_pcg_optimize_fused(prob: Problem, pattern: EllPattern, params: dict,
+def lm_pcg_optimize_fused(prob: Problem, pattern, params: dict,
                           lam, ni, chi, n_iters: int = 10,
                           max_trials: int = 10, pcg_iters: int = 75,
                           pcg_tol: float = 1e-8, warm: bool = False,

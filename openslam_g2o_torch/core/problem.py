@@ -361,9 +361,10 @@ def linearize(problem: Problem, params: Optional[dict] = None) -> dict:
     respect to the tangent increment, the columns of fixed vertices
     zeroed, and robust weights rho' [E]
     (openslam_g2o_tpu/core/problem.py:350-392), by `linearize_group`. The
-    LM-PCG path runs the fused CUDA kernels B and K16 instead on the card
-    (kernels/edge_se2.py, kernels/edge_se3.py), whose plain versions call
-    this math."""
+    one-group LM-PCG path runs the fused CUDA kernels B and K16 instead on
+    the card (kernels/edge_se2.py, kernels/edge_se3.py), whose plain
+    versions call this math; LM-PCG over several vertex groups runs
+    `linearize_group` per edge group (core/sparse.py `pair_sources`)."""
     params = problem.params if params is None else params
     return {eg.key: linearize_group(problem, eg, params)
             for eg in problem.static.egroups}

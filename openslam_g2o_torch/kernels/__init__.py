@@ -8,12 +8,14 @@ or raises. There is no fallback between the two and no switch: the device
 of the arguments decides. Every wrapper counts the calls in which it
 launched its kernel in a plain integer attribute, `wrapper.launches`
 (`cg_finish` and `gershgorin_bound` are two-pass reductions: one counted
-call launches two kernels per vector, respectively two; `ba_schur_dense`
+call launches two kernels per vector, respectively two; `pair_gershgorin`
+one per row group and the final maximum; `pair_assemble` on a pair table
+the zero fill of its padding slots and its assembly; `ba_schur_dense`
 launches the zero fill of S, the copy of Hinv into records (counted by
 `ba_schur_records`, as is W's copy) and its pair kernel; `ba_wv` and
 `ba_sandwich` are one launch each).
-`ba_block_inv` and `lane_block_mv`, which serve several block widths on
-one path, also count their launches per width D in
+`ba_block_inv`, `damp_chol` and `lane_block_mv`, which serve several
+block widths on one path, also count their launches per width D in
 `wrapper.launches_by_width` (a Counter).
 
 The block-ELL kernels (A, C, K3, K4, `spmv_dot`, `spmv_dot_p`,
@@ -50,6 +52,10 @@ blocks (SE3 poses); the shapes of the arguments pick the instantiation.
     trial.trial_retract_*        trial candidate per vertex type (ROADMAP K7)
     trial.trial_chi2_*           trial chi2 per edge type  (ROADMAP K7)
     trial.chi2_sum               the chi2 partials' sum    (ROADMAP K7)
+    pair_ell.pair_assemble       pair tables' values and b (ROADMAP K2')
+    pair_ell.pair_scale          pair block-Jacobi scaling (ROADMAP K4')
+    pair_ell.pair_spmv(_dot)     pair SpMV, with the dot   (ROADMAP K5')
+    pair_ell.pair_gershgorin     pair Gershgorin bound     (ROADMAP K8')
 
 The `edge_lin` wrappers, one per edge type of openslam_g2o_torch.models
 (`edge_lin.LINEARIZERS`: twenty-one in forward mode, EDGE_SE2 and the two
@@ -74,13 +80,19 @@ and 2 only), K10's `ba_lm_sums` without its W layout, K13's products
 and K4's `lane_block_mv` at D = 4 and 9, and K15 on the pose slots of its
 edges. K15 takes block widths up to 9 (the BAL camera on the dense GN / LM
 route and on the general path's pose slots).
+
+LM-PCG over several vertex groups (core/sparse.py `PairPattern`: every
+graph but one group of SE2 or SE3 poses with only EDGE_SE2 / EDGE_SE3
+edges) runs the pair kernels at block widths (Dr, Dc) in {2, 3, 6}^2,
+K3 `damp_chol` and K4's `lane_block_mv` per vertex group (D = 2 too), and
+K6's vector kernels on each group's part.
 """
 from __future__ import annotations
 
 from openslam_g2o_torch.kernels import (
     assemble, ba_coupling, ba_edge, ba_inv, ba_schur, cg_step, chebyshev,
     damp_chol, dense_assemble, edge_lin, edge_se2, edge_se3, gather,
-    jacobi_scale, retract_chi2, schur_general, spmv, trial)
+    jacobi_scale, pair_ell, retract_chi2, schur_general, spmv, trial)
 
 # the wrapper functions, which own the launch counts (several share their
 # module's name, so the modules are what this package exports)
@@ -101,7 +113,9 @@ WRAPPERS = (
     ba_inv.ba_block_inv, ba_schur.ba_schur_dense, ba_schur.ba_schur_records,
     ba_coupling.ba_wtx,
     ba_coupling.ba_wv, ba_coupling.ba_sandwich,
-    schur_general.schur_edge_blocks, *edge_lin.WRAPPERS, *trial.WRAPPERS)
+    schur_general.schur_edge_blocks, pair_ell.pair_assemble,
+    pair_ell.pair_scale, pair_ell.pair_spmv, pair_ell.pair_spmv_dot,
+    pair_ell.pair_gershgorin, *edge_lin.WRAPPERS, *trial.WRAPPERS)
 
 
 def launch_counts() -> dict:

@@ -65,3 +65,18 @@ def block_width(name: str, rows: int) -> int:
     raise ValueError(f"{name}: shape not served: a table of {rows} rows fits "
                      f"no block width in {BLOCK_WIDTHS} ([D, N] or "
                      "[D*D, N])")
+
+
+# the block widths of the pair kernels (kernels/pair_ell.py) and of K3 and
+# K4's `lane_block_mv` on LM-PCG over several vertex groups: point_xy (2),
+# se2 / point_xyz (3), se3 / se3_expmap (6)
+PAIR_WIDTHS = (2, 3, 6)
+
+
+def pair_width(name: str, d: int) -> int:
+    """d itself if the pair kernels are instantiated for block width d,
+    else ValueError."""
+    if d not in PAIR_WIDTHS:
+        raise ValueError(f"{name}: block width {d} not served: the pair "
+                         f"kernels are instantiated for {PAIR_WIDTHS}")
+    return d

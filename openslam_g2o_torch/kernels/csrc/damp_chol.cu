@@ -1,6 +1,7 @@
 // K3: LM damping, the Cholesky factor of every damped diagonal block and
 // its inverse, and the scaled right-hand side, in one pass over the diagonal
-// blocks. The block width D (3: SE2 poses, 6: SE3 poses) is a template
+// blocks. The block width D (3: SE2 poses, 6: SE3 poses, and 2: the
+// point_xy group of LM-PCG over several vertex groups) is a template
 // parameter.
 //
 // Replaces the JAX chain of one LM-PCG trial: `hot_diag_blocks` and the
@@ -127,6 +128,9 @@ int launch_damp_chol(const T* diag, const T* free_mask, const T* b,
                      int n, int d, cudaStream_t stream) {
   if (n <= 0) return 0;
   switch (d) {
+    case 2:
+      return run_damp_chol<T, 2>(diag, free_mask, b, lam, linv, lchol, bhat,
+                                 extra, n, stream);
     case 3:
       return run_damp_chol<T, 3>(diag, free_mask, b, lam, linv, lchol, bhat,
                                  extra, n, stream);

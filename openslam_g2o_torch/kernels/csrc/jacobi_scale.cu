@@ -22,8 +22,9 @@
 // `lane_block_mv` replaces `lane_block_mv` (core/sparse.py:871-880) for
 // the unscale dx = M^T xhat and the warm start xhat0 = L^T dx0, and applies
 // the block-Jacobi preconditioners of both Schur paths; it is also built at
-// D = 4, the intrinsics group of the general Schur path (core/ba.py), and at
-// D = 9, the BAL camera (models/bal.py) on the implicit dual-ELL route.
+// D = 4, the intrinsics group of the general Schur path (core/ba.py), at
+// D = 9, the BAL camera (models/bal.py) on the implicit dual-ELL route, and
+// at D = 2, the point_xy group of LM-PCG over several vertex groups.
 //
 // Registers: the thread holds M_i for all its slots and, per slot, B and
 // M_j; the product is staged row by row (one row of C = M_i B, then that
@@ -158,6 +159,7 @@ int launch_lane_block_mv(const T* mats, const T* x, T* y, int n,
                          int transpose, int d, cudaStream_t stream) {
   if (n <= 0) return 0;
   switch (d) {
+    case 2: return run_lane_block_mv<T, 2>(mats, x, y, n, transpose, stream);
     case 3: return run_lane_block_mv<T, 3>(mats, x, y, n, transpose, stream);
     case 4: return run_lane_block_mv<T, 4>(mats, x, y, n, transpose, stream);
     case 6: return run_lane_block_mv<T, 6>(mats, x, y, n, transpose, stream);

@@ -1,5 +1,5 @@
-"""K3: LM damping, the Cholesky factor of every DxD diagonal block (D = 3
-or 6) and its inverse, and the scaled right-hand side of one LM-PCG trial
+"""K3: LM damping, the Cholesky factor of every DxD diagonal block (D = 2,
+3 or 6) and its inverse, and the scaled right-hand side of one LM-PCG trial
 (csrc/damp_chol.cu).
 
 Replaces `hot_diag_blocks` and the `extra` / `dblocks` lines of
@@ -11,11 +11,13 @@ arithmetic and are what core/solvers.py exports.
 """
 from __future__ import annotations
 
+import collections
+
 import torch
 
 from openslam_g2o_torch.kernels import build
 from openslam_g2o_torch.kernels._checks import (
-    block_width, check_tensors, launch_device, require)
+    check_tensors, launch_device, pair_width, require)
 
 
 def _chol_entries(A):
@@ -99,7 +101,7 @@ def damp_chol_plain(values, free, b, lam):
 
 def damp_chol(values, free, b, lam):
     """Damped diagonal blocks D_n + extra_n I of the block-ELL `values`
-    [K, D*D, N] (slot 0; D = 3 or 6, read from b), with extra = lam free +
+    [K, D*D, N] (slot 0; D = 2, 3 or 6, read from b), with extra = lam free +
     (1 - free); their Cholesky factors A = L L^T and M = L^-1; and bhat =
     M b.
 
@@ -110,7 +112,7 @@ def damp_chol(values, free, b, lam):
     N = free.shape[0]
     require(b.dim() == 2 and b.shape[1] == N,
             f"damp_chol: b shape {tuple(b.shape)} != [D, {N}]")
-    D = block_width("damp_chol", b.shape[0])
+    D = pair_width("damp_chol", b.shape[0])
     require(values.dim() == 3 and values.shape[1:] == (D * D, N)
             and values.shape[0] >= 1,
             f"damp_chol: values shape {tuple(values.shape)} != "
@@ -130,7 +132,9 @@ def damp_chol(values, free, b, lam):
                  b.data_ptr(), lam.data_ptr(), linv.data_ptr(),
                  lchol.data_ptr(), bhat.data_ptr(), extra.data_ptr(), N, D)
     damp_chol.launches += 1
+    damp_chol.launches_by_width[D] += 1
     return linv, lchol, bhat, extra
 
 
 damp_chol.launches = 0
+damp_chol.launches_by_width = collections.Counter()

@@ -94,13 +94,14 @@ def lane_block_mv_plain(mats, x, transpose=False):
 
 def lane_block_mv(mats, x, transpose=False):
     """Apply every row's DxD block to its D-vector: mats [D*D, N], x [D, N]
-    -> [D, N], D = 3, 4 (the intrinsics group of the general Schur path's
+    -> [D, N], D = 2 (the point_xy group of LM-PCG over several vertex
+    groups), 3, 4 (the intrinsics group of the general Schur path's
     preconditioner), 6 or 9 (the BAL camera's blocks on the implicit Schur
     route). The kernel on CUDA tensors, the plain version on CPU
     tensors."""
     require(x.dim() == 2, "lane_block_mv: x must be [D, N]")
     D, N = x.shape
-    require((D in (4, 9) or D == block_width("lane_block_mv", D))
+    require((D in (2, 4, 9) or D == block_width("lane_block_mv", D))
             and mats.shape == (D * D, N),
             f"lane_block_mv: mats must be [D*D, N] and x [D, N], got "
             f"{tuple(mats.shape)} and {tuple(x.shape)}")

@@ -2644,3 +2644,149 @@ def test_bal_lm_on_gpu_matches_cpu(cuda, dense, monkeypatch):
     assert all(counts[k] > 0 for k in used), counts
     assert (counts["ba_schur_dense"] > 0) == dense
     assert not any(runs["cpu"][1].values())
+
+
+# -- LM-PCG over several vertex groups: the pair kernels ---------------------
+
+def _pair_world(kind, dtype, device):
+    """A landmark world small enough for the CPU plain versions, with hubs:
+    2D landmarks seen by up to ~100 poses (several PAIR_CHUNK chunks), or
+    the 3D world's (6, 6), (6, 3), (3, 6), (3, 3) pairs."""
+    from openslam_g2o_torch.apps.simulator import Simulator3D
+    if kind == "2d":
+        g, _ = Simulator2D(world_size=12.0, n_landmarks=40, seed=3).simulate(
+            300)
+    else:
+        g, _ = Simulator3D(n_landmarks=60, seed=3).simulate(80)
+    prob = g.compile(dtype=dtype, device=device)
+    return prob, sparse.build_ell_pattern(prob)
+
+
+@pytest.mark.parametrize("kind", ["2d", "3d"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pair_kernels_match_plain_on_gpu(cuda, kind, dtype):
+    """K2' (values of every pair and b of every group), K4' (a NaN factor
+    and padded slots), K5' with and without the dot, and K8' against their
+    plain versions at every (Dr, Dc) of the world, each run twice for the
+    same bits; K3 and K4's lane_block_mv at every group width."""
+    from openslam_g2o_torch.kernels import pair_ell
+    prob, pat = _pair_world(kind, dtype, cuda)
+    assert isinstance(pat, sparse.PairPattern)
+    widths = {(p.dr, p.dc) for p in pat.pairs}
+    assert widths == ({(3, 3), (3, 2), (2, 3), (2, 2)} if kind == "2d"
+                      else {(6, 6), (6, 3), (3, 6), (3, 3)})
+    if kind == "2d":                    # a landmark of several chunks
+        hub = pat.pairs[pat.square["point_xy"]].table
+        assert int(torch.diff(hub.dest_chunk).max()) > 1
+    tol = TOL[dtype] * 10
+    kernels.reset_launch_counts()
+    srcs, bsrcs = sparse.pair_sources(prob, pat)
+    values = []
+    for pt, src in zip(pat.pairs, srcs):
+        v = pair_ell.pair_assemble(src, pt.table)
+        assert torch.equal(v, pair_ell.pair_assemble(src, pt.table))
+        assert _rel(v, pair_ell.pair_assemble_plain(src, pt.table)) < tol
+        values.append(v)
+    bT = {}
+    for g in pat.groups:
+        bT[g] = pair_ell.pair_assemble(bsrcs[g], pat.b_tables[g])
+        assert _rel(bT[g], pair_ell.pair_assemble_plain(
+            bsrcs[g], pat.b_tables[g])) < tol
+        assert int(pat.b_tables[g].arrivals.abs().sum()) == 0
+    lam = torch.tensor(0.1, dtype=dtype, device=cuda)
+    linv, extra = {}, {}
+    for g, i in pat.square.items():
+        out = damp_chol.damp_chol(values[i], prob.free[g], bT[g], lam)
+        ref = damp_chol.damp_chol_plain(values[i], prob.free[g], bT[g], lam)
+        for a, b in zip(out, ref):
+            assert _rel(a, b) < TOL_B[dtype]
+        linv[g], extra[g] = out[0], out[3]
+        x = torch.randn((pat.widths[g], pat.counts[g]), dtype=dtype,
+                        device=cuda)
+        for tr in (False, True):
+            assert _rel(jacobi_scale.lane_block_mv(linv[g], x, tr),
+                        jacobi_scale.lane_block_mv_plain(linv[g], x, tr)) \
+                < TOL_B[dtype]
+    # a NaN factor on row 1 of the first group spreads only where it is read
+    g0 = pat.groups[0]
+    bad = {**linv, g0: linv[g0].clone()}
+    bad[g0][:, 1] = float("nan")
+    svals = []
+    for pt, v in zip(pat.pairs, values):
+        ext = extra[pt.rg] if pt.square else None
+        for fac in (linv, bad):
+            s = pair_ell.pair_scale(pt.nb, pt.cnt, v, fac[pt.rg], fac[pt.cg],
+                                    ext)
+            p = pair_ell.pair_scale_plain(pt.nb, pt.cnt, v, fac[pt.rg],
+                                          fac[pt.cg], ext)
+            assert torch.equal(torch.isnan(s), torch.isnan(p))
+            again = pair_ell.pair_scale(pt.nb, pt.cnt, v, fac[pt.rg],
+                                        fac[pt.cg], ext)
+            assert torch.equal(s.view(torch.uint8), again.view(torch.uint8))
+            fin = torch.isfinite(p)
+            assert _rel(s[fin], p[fin]) < TOL_B[dtype]
+            # padding slots (all-zero, no damping) stay exact zeros
+            pad = (v == 0).all(dim=1, keepdim=True).expand_as(v).clone()
+            if pt.square:
+                pad[0] = False
+            assert (s[pad] == 0).all()
+        svals.append(pair_ell.pair_scale(pt.nb, pt.cnt, v, linv[pt.rg],
+                                         linv[pt.cg], ext))
+    xT = {g: torch.randn((pat.widths[g], pat.counts[g]), dtype=dtype,
+                         device=cuda) for g in pat.groups}
+    for g in pat.groups:
+        ops = pat.row_operands(g, svals, xT)
+        y = pair_ell.pair_spmv(*ops, pat.widths[g])
+        assert torch.equal(y, pair_ell.pair_spmv(*ops, pat.widths[g]))
+        assert _rel(y, pair_ell.pair_spmv_plain(*ops, pat.widths[g])) < tol
+        part = torch.empty(pair_ell.partial_count(
+            pat.counts[g], max(nb.shape[0] for nb in ops[0]), cuda),
+            dtype=dtype, device=cuda)
+        yd, part = pair_ell.pair_spmv_dot(*ops, xT[g], part)
+        assert torch.equal(yd, y)
+        assert _rel(part.sum(), (xT[g] * y).sum()) < tol
+    rows = pat.bound_rows(svals)
+    hi = pair_ell.pair_gershgorin(rows)
+    assert torch.equal(hi, pair_ell.pair_gershgorin(rows))
+    assert _rel(hi, pair_ell.pair_gershgorin_plain(rows)) < tol
+    counts = kernels.launch_counts()
+    for k in ("pair_assemble", "pair_scale", "pair_spmv", "pair_spmv_dot",
+              "pair_gershgorin", "damp_chol", "lane_block_mv"):
+        assert counts[k] > 0, k
+    if kind == "2d":
+        assert damp_chol.damp_chol.launches_by_width[2] >= 1
+        assert jacobi_scale.lane_block_mv.launches_by_width[2] >= 2
+
+
+@pytest.mark.parametrize("cheby", [0, 4])
+def test_pair_lm_pcg_on_gpu_matches_cpu(cuda, cheby, monkeypatch):
+    """LM-PCG over several vertex groups on the card against the same run
+    on the CPU (plain versions), float64: chi2 to 1e-9; the pair kernels,
+    K3 / K4 at D = 2, K17 and K7 launch, no plain route is reached."""
+    from openslam_g2o_torch.kernels import trial
+    runs = {}
+    for device in ("cpu", cuda):
+        g, _ = Simulator2D(world_size=12.0, n_landmarks=40, seed=3).simulate(
+            300)
+        prob = g.compile(dtype=torch.float64, device=device)
+        if device != "cpu":
+            def refuse(*a, **k):
+                raise AssertionError("a plain route ran on the card")
+            monkeypatch.setattr(trial, "retract_plain", refuse)
+            monkeypatch.setattr(trial, "chi2_plain", refuse)
+            monkeypatch.setattr(problem_mod, "linearize_edges", refuse)
+        kernels.reset_launch_counts()
+        _, stats = algorithms.optimize(prob, algorithms.LevenbergMarquardtPCG(
+            pcg_iters=200, pcg_tol=1e-10, pcg_cheby=cheby), iterations=5)
+        runs[str(device)] = ([s["chi2"] for s in stats],
+                             kernels.launch_counts())
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-9)
+    counts = runs["cuda"][1]
+    used = ("pair_assemble", "pair_scale", "pair_spmv_dot", "damp_chol",
+            "lane_block_mv", "cg_update_xr", "cg_update_p", "edge_lin_se2",
+            "edge_lin_se2_xy", "trial_retract_se2", "trial_retract_point_xy",
+            "trial_chi2_se2", "trial_chi2_se2_xy", "lm_outcome") + (
+        ("pair_gershgorin", "chebyshev_update") if cheby else ())
+    assert all(counts[k] > 0 for k in used), counts
+    assert counts["spmv_dot"] == counts["spmv_dot_p"] == 0
+    assert not any(runs["cpu"][1].values())

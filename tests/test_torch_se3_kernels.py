@@ -471,8 +471,10 @@ def test_nan_step_survives_the_sums(system):
 
 
 def test_trial_outcome_dispatches_on_the_vertex_group(system):
-    """`_trial_outcome` serves SE3 through retract_se3 + se3_edge_chi2 and
-    the pattern refuses what the LM-PCG path does not cover."""
+    """`_trial_outcome` serves SE3 through retract_se3 + se3_edge_chi2, and
+    the graphs the one-group pattern does not cover (landmarks, an
+    EDGE_SE3_PRIOR) get the pair tables of LM-PCG over several vertex
+    groups."""
     _, tprob, pattern, _, bT = system
     dxT = {"se3": torch.zeros((6, pattern.n), dtype=torch.float64)}
     chi0 = tproblem.robust_chi2(tprob)
@@ -485,12 +487,24 @@ def test_trial_outcome_dispatches_on_the_vertex_group(system):
     np.testing.assert_allclose(float(chi_new), float(chi0), rtol=1e-3)
     from openslam_g2o_torch.apps.simulator import Simulator3D
     world = Simulator3D(n_landmarks=10, seed=0).simulate(12)[0]
-    with pytest.raises(NotImplementedError, match="several vertex groups"):
-        tsparse.build_ell_pattern(world.compile(device="cpu"))
+    wpat = tsparse.build_ell_pattern(world.compile(device="cpu"))
+    assert isinstance(wpat, tsparse.PairPattern)
+    assert [(p.rg, p.cg, p.dr, p.dc) for p in wpat.pairs] == [
+        ("se3", "se3", 6, 6), ("se3", "point_xyz", 6, 3),
+        ("point_xyz", "se3", 3, 6), ("point_xyz", "point_xyz", 3, 3)]
     g = TGraph()
     g.add_parameter(0, "se3_offset", [0, 0, 0, 0, 0, 0, 1])
     g.add_vertex(0, "se3", [0, 0, 0, 0, 0, 0, 1], fixed=True)
     g.add_edge("edge_se3_prior", (0,), [0, 0, 0, 0, 0, 0, 1], np.eye(6),
                param_ids=[0])
-    with pytest.raises(NotImplementedError, match="edge_se3_prior"):
-        tsparse.build_ell_pattern(g.compile(device="cpu"))
+    gprob = g.compile(device="cpu")
+    gpat = tsparse.build_ell_pattern(gprob)
+    assert isinstance(gpat, tsparse.PairPattern)
+    assert [(p.rg, p.cg, p.k) for p in gpat.pairs] == [("se3", "se3", 1)]
+    cand, chi_new, *_ = talg._trial_outcome(
+        gprob, gpat, {"se3": torch.zeros((6, 1), dtype=torch.float64)},
+        {"se3": torch.zeros((6, 1), dtype=torch.float64)},
+        torch.tensor(True), torch.tensor(1.0, dtype=torch.float64),
+        torch.tensor(2.0, dtype=torch.float64),
+        tproblem.robust_chi2(gprob))
+    assert cand["se3"].shape == (1, 7) and float(chi_new) == 0.0
