@@ -215,9 +215,12 @@ Phases (any failure raises and the script exits non-zero):
     float32 and float64, on a 9000-pose Simulator2D landmark world
     (PAIR_WORLD: T = 34,108, the full-width run), on phase 4d's world and on
     phase 4f's; one more float32 run each on the 9000-pose world and on
-    4f's world with pcg_cheby 4. Through K17, K2' pair_assemble, K3 per vertex group (D = 2
-    for the landmarks), K4' pair_scale, K5' pair_spmv(_dot) in the
-    three-launch CG step, K4's lane_block_mv, K7 (core/problem.py
+    4f's world with pcg_cheby 4. Through K17, K2' (pair_stream, then
+    pair_assemble), K3 per vertex group (D = 2 for the landmarks), K4'
+    pair_scale, K5' over every row group in one launch (pair_spmv for the
+    first residual, pair_spmv_dot, then pair_spmv_dot_p: the two-launch CG
+    step, asserted in the profiled solve; the three-launch step with
+    pcg_cheby 4), K4's lane_block_mv, K7 (core/problem.py
     lm_trial_outcome) and, with pcg_cheby 4, K8' pair_gershgorin. Chi2
     never increases; the first 3 float32 iterations equal the plain route's
     (every wrapper swapped for its plain version) to PLAIN_ROUTE_RTOL; the
@@ -230,10 +233,12 @@ Phases (any failure raises and the script exits non-zero):
     on the card. Phase 3 holds the pair kernels at the 9000-pose world's
     shapes and at 4f's (rows @3d: the (6, 6), (6, 3), (3, 6), (3, 3) pairs)
     (float32, float64; twice for the same bits, by device time):
-    pair_assemble beside index_add_ of the blocks formed beforehand,
-    pair_spmv and pair_spmv_dot beside a torch.sparse CSR product of the
-    same H, pair_scale with a NaN factor and its padding slots,
-    pair_gershgorin, and K3 / lane_block_mv at D = 2 (damp_chol@d2,
+    pair_stream (pass 1 alone), pair_assemble (both passes) beside
+    torch.bmm + index_add_ (the same function) and index_add_ of the
+    blocks formed beforehand, pair_spmv, pair_spmv_dot and pair_spmv_dot_p
+    beside a torch.sparse CSR product of the same H, pair_scale with a NaN
+    factor and its all-zero slots, pair_gershgorin, and K3 /
+    lane_block_mv at D = 2 (damp_chol@d2,
     lane_block_mv@d2) beside cholesky_ex + solve_triangular and einsum;
  5. a small .g2o string through loads_g2o -> compile() (the default
     device) -> optimize(LevenbergMarquardtPCG()), chi2 decreasing and equal
@@ -252,7 +257,8 @@ Phases (any failure raises and the script exits non-zero):
     dense 3D paths, which their 3x3 rows then leave out. The BA kernels'
     rows count phases 4g-4i, their @-rows the phase of their shape; K14's
     and K15's 9-wide rows (WIDE_ROWS) count phases 4q and 4r; the pair
-    kernels count phase 4s (pair_gershgorin its pcg_cheby 4 run), and
+    kernels count phase 4s (pair_gershgorin and cg_update_p its
+    pcg_cheby 4 runs, pair_spmv_dot_p the others), and
     damp_chol@d2 / lane_block_mv@d2 their launches at D = 2 there.
     spmv_dot_p runs on the unpreconditioned paths only, cg_update_p on the
     preconditioned ones (4b, 4e's Chebyshev window, 4h, 4i, 4j-4n).
@@ -511,13 +517,17 @@ KERNELS = {
                   "xyz2uv", "xyz2uvu", "psi2uv", "p2mc", "p2mc_intrinsics",
                   "p2sc", "sba_cam", "sba_scale", "bal")},
     "chi2_sum": ("trial.cu", "openslam_g2o_tpu/core/problem.py:327"),
-    # LM-PCG over several vertex groups (phase 4s): K2', K4', K5' (without
-    # and with the dot: the rectangular form of the probe's spmv_kernel),
-    # K8'
-    "pair_assemble": ("pair_ell.cu", "openslam_g2o_tpu/core/sparse.py:620"),
+    # LM-PCG over several vertex groups (phase 4s): K2' (its first pass;
+    # "pair_assemble" both passes), K4', K5' (without and with the dot: the
+    # rectangular form of the probe's spmv_kernel; with the next direction
+    # folded in), K8'
+    "pair_stream": ("pair_ell.cu", "openslam_g2o_tpu/core/sparse.py:620"),
+    "pair_assemble": ("pair_ell.cu", "openslam_g2o_tpu/core/sparse.py:646"),
     "pair_scale": ("pair_ell.cu", "openslam_g2o_tpu/core/sparse.py:754"),
     "pair_spmv": ("pair_ell.cu", "openslam_g2o_tpu/core/sparse.py:883"),
     "pair_spmv_dot": ("pair_ell.cu", "scripts/probe_pallas_gather.py:90"),
+    "pair_spmv_dot_p": ("pair_ell.cu",
+                        "openslam_g2o_tpu/core/solvers.py:275"),
     "pair_gershgorin": ("pair_ell.cu",
                         "openslam_g2o_tpu/core/sparse.py:787"),
 }
@@ -1598,27 +1608,33 @@ def _pair_blocks(torch, so, dc):
     return blk.reshape(blk.shape[0], -1)
 
 
-def pair_work(pattern, srcs, bsrcs, s):
+def pair_work(pattern, srcs, bsrcs, s, blocks):
     """{kernel: (bytes, operations)} that each pair kernel's call over a
     whole PairPattern must move and do, for `bound_ms`; the assembly's
     sources `srcs` / `bsrcs` as core/sparse.py `pair_sources` gives them,
-    s the float size. Each input once: K17's residuals, Jacobians, rho' and
-    Omega once per edge group (the six tables share them), an int32
-    destination per contribution, each group's factors and vector once.
-    Only the used slots (sum of cnt) of values and nb are read; every slot
-    of a written table is written, the padding's zeros too, since the
-    layout holds them.
+    s the float size, `blocks` the blocks of K5''s launch (its partials).
+    Each input once: K17's residuals, Jacobians, rho' and Omega once per
+    edge group (the six tables share them), each group's factors and
+    vector once. Only the used slots of the assembled tables are read, and
+    K4''s scaled tables hold only those; every slot of an assembled table
+    is written, the padding's zeros too, since the layout holds them.
 
-    pair_assemble   the inputs above; every table and b written once;
+    pair_stream     the inputs above and an int32 place per contribution;
+                    the stream (a record per contribution) written;
                     J_s^T (rho' Omega) formed once per edge and slot, then
                     one product per contribution
-    pair_scale      used values, nb, cnt, each group's L^-1 and damping;
-                    every slot written; two block products a used slot
-    pair_spmv       used values, nb, cnt, each group's x; y written
-    pair_spmv_dot   the same (p is the x of its own row group) and its
-                    partials written
-    pair_gershgorin used values and cnt; the bound written"""
-    from openslam_g2o_torch.kernels import pair_ell
+    pair_assemble   both passes, the whole function: the inputs above, an
+                    int32 place per contribution and a run bound per
+                    destination; every table and b written once (the
+                    stream between the passes stays in L2 and is not
+                    counted); pair_stream's operations
+    pair_scale      used values, nb and rowptr, each group's L^-1 and
+                    damping; the used values written; two block products
+                    a used slot
+    pair_spmv       used values, cols, rowptr, x; y written
+    pair_spmv_dot   the same and its partials written
+    pair_spmv_dot_p the same, p and r read, p_new and y written
+    pair_gershgorin used values and rowptr; the bound written"""
     inputs, n_dest, flops_asm, formed = {}, 0, 0, set()
     for src in [*srcs, *(bsrcs[g] for g in pattern.groups)]:
         for so in src:
@@ -1637,30 +1653,36 @@ def pair_work(pattern, srcs, bsrcs, s):
             flops_asm += 2 * E * D * so.js.shape[2] * (
                 1 if so.jt is None else so.jt.shape[2])
     tab_out = sum(pt.k * pt.dr * pt.dc * pt.n for pt in pattern.pairs)
+    runs = (sum(pt.k * pt.n + 1 for pt in pattern.pairs)
+            + sum(pattern.counts[g] + 1 for g in pattern.groups))
+    stream_len = (sum(so.resid.shape[0] * pt.dr * pt.dc
+                      for pt, src in zip(pattern.pairs, srcs) for so in src)
+                  + sum(so.resid.shape[0] * pattern.widths[g]
+                        for g in pattern.groups for so in bsrcs[g]))
     used = [int(pt.cnt.sum()) for pt in pattern.pairs]
-    n_rows = sum(pt.n for pt in pattern.pairs)
+    ptrs = sum(pt.n + 1 for pt in pattern.pairs)
     vals_used = sum(u * pt.dr * pt.dc for u, pt in zip(used, pattern.pairs))
     mv_flops = 2 * vals_used
     fac = sum(pattern.widths[g] ** 2 * pattern.counts[g]
               for g in pattern.groups)
     vec = sum(pattern.widths[g] * pattern.counts[g] for g in pattern.groups)
-    dev = pattern.pairs[0].nb.device
-    partials = sum(pair_ell.partial_count(
-        pattern.counts[g], max(pattern.pairs[i].k for i in pattern.rows[g]),
-        dev) for g in pattern.groups)
     damping = sum(pattern.counts[g] for g in pattern.square)
     return {
+        "pair_stream": (s * (sum(inputs.values()) + stream_len)
+                        + 4 * n_dest, flops_asm),
         "pair_assemble": (s * (sum(inputs.values()) + tab_out + vec)
-                          + 4 * n_dest, flops_asm),
-        "pair_scale": (s * (vals_used + fac + damping + tab_out)
-                       + 4 * (sum(used) + n_rows),
+                          + 4 * (n_dest + runs), flops_asm),
+        "pair_scale": (s * (2 * vals_used + fac + damping)
+                       + 4 * (sum(used) + ptrs),
                        sum(2 * u * pt.dr * pt.dc * (pt.dr + pt.dc)
                            for u, pt in zip(used, pattern.pairs))),
-        "pair_spmv": (s * (vals_used + 2 * vec) + 4 * (sum(used) + n_rows),
+        "pair_spmv": (s * (vals_used + 2 * vec) + 4 * (sum(used) + ptrs),
                       mv_flops),
-        "pair_spmv_dot": (s * (vals_used + 2 * vec + partials)
-                          + 4 * (sum(used) + n_rows), mv_flops + 2 * vec),
-        "pair_gershgorin": (s * (vals_used + 1) + 4 * n_rows, vals_used),
+        "pair_spmv_dot": (s * (vals_used + 2 * vec + blocks)
+                          + 4 * (sum(used) + ptrs), mv_flops + 2 * vec),
+        "pair_spmv_dot_p": (s * (vals_used + 4 * vec + blocks)
+                            + 4 * (sum(used) + ptrs), mv_flops + 4 * vec),
+        "pair_gershgorin": (s * (vals_used + 1) + 4 * ptrs, vals_used),
     }
 
 
@@ -3933,10 +3955,11 @@ def main() -> int:
             part_s), "torch.sum": lambda: part_s.sum()})
         del part_s
         torch.cuda.empty_cache()
-    # K2', K4', K5', K8' and K3 / K4's lane_block_mv at D = 2: LM-PCG over
-    # several vertex groups, at phase 4s's full width (the 9000-pose
-    # landmark world, PAIR_WORLD: T = 34,108), float32 and float64; every
-    # kernel twice for the same bits and by device time
+    # K2' (both passes), K4', K5' (its three forms), K8' and K3 / K4's
+    # lane_block_mv at D = 2: LM-PCG over several vertex groups, at phase
+    # 4s's full width (the 9000-pose landmark world, PAIR_WORLD: T =
+    # 34,108), float32 and float64; every kernel twice for the same bits
+    # and by device time
     t_sim_s = time.monotonic()
     world_s, _ = Simulator2D(**PAIR_WORLD).simulate(n_poses=PAIR_POSES)
     t_sim_s = time.monotonic() - t_sim_s
@@ -3951,45 +3974,88 @@ def main() -> int:
         spat = sparse.build_ell_pattern(sprob)
         if not isinstance(spat, sparse.PairPattern):
             raise AssertionError("the 4s world did not get pair tables")
-        srcs, bsrcs = sparse.pair_sources(sprob, spat)
+        plan_s = spat.plan
+        lin_s = sparse.pair_linearize(sprob)
+        srcs, bsrcs = sparse.pair_sources(sprob, spat, lin_s)
         tables = ([(pt.table, src) for pt, src in zip(spat.pairs, srcs)]
                   + [(spat.b_tables[g], bsrcs[g]) for g in spat.groups])
 
-        def assemble_all(fn):
-            return [fn(src, tb) for tb, src in tables]
+        def assemble_all():
+            return pair_ell.pair_assemble(
+                plan_s, pair_ell.pair_stream(plan_s, lin_s))
 
-        bound_in = {k_: dict(nbytes=b_, flops=f_) for k_, (b_, f_)
-                in pair_work(spat, srcs, bsrcs, s).items()}
+        def assemble_all_plain():
+            return pair_ell.pair_assemble_plain(
+                plan_s, pair_ell.pair_stream_plain(plan_s, lin_s))
+
         n_contrib = sum(d.numel() for tb, _ in tables for d in tb.dest)
-        # the yardstick: one index_add_ per pair table and per group of the
-        # blocks, formed beforehand
+        # the yardsticks: one index_add_ per pair table and per group of the
+        # blocks formed beforehand, and the whole function: each source's
+        # blocks by torch.bmm, then the index_add_
         lib_ops = [(torch.cat(list(tb.dest)),
                     torch.cat([_pair_blocks(torch, so, tb.dc) for so in src]),
+                    (tb.n_dest, tb.entries)) for tb, src in tables]
+        lib_src = [(torch.cat(list(tb.dest)), src, tb.dc,
                     (tb.n_dest, tb.entries)) for tb, src in tables]
 
         def lib_assemble():
             return [torch.zeros(shape, dtype=dt, device=dev).index_add_(
                 0, d_, b_) for d_, b_, shape in lib_ops]
 
+        def lib_bmm_assemble():
+            out_ = []
+            for d_, src_, dc_, shape in lib_src:
+                blocks = []
+                for so in src_:
+                    jw = torch.bmm(so.js.transpose(1, 2),
+                                   so.rho1[:, None, None] * so.info)
+                    blocks.append((torch.bmm(jw, so.jt) if dc_ else
+                                   -torch.bmm(jw, so.resid[:, :, None]))
+                                  .reshape(so.resid.shape[0], -1))
+                out_.append(torch.zeros(shape, dtype=dt, device=dev)
+                            .index_add_(0, d_, torch.cat(blocks)))
+            return out_
+
+        lay_probe = spat.flat_layout([torch.zeros(
+            (pt.dr * pt.dc, pt.used), dtype=dt, device=dev)
+            for pt in spat.pairs])
+        bound_in = {k_: dict(nbytes=b_, flops=f_) for k_, (b_, f_)
+                    in pair_work(spat, srcs, bsrcs, s,
+                                 lay_probe.blocks).items()}
+        del lay_probe
+        case("pair_stream", tag,
+             f"{len(plan_s.units)} edge group slots, {n_contrib} "
+             "contributions", label="pair_stream" + sfx,
+             run=lambda: [pair_ell.pair_stream(plan_s, lin_s)[
+                 :plan_s.stream_len]],
+             plain=lambda: [pair_ell.pair_stream_plain(plan_s, lin_s)],
+             **bound_in["pair_stream"], slow_plain=True)
+        if not torch.equal(pair_ell.pair_stream(plan_s, lin_s),
+                           pair_ell.pair_stream(plan_s, lin_s)):
+            raise AssertionError("pair_stream does not repeat its bits")
+        device_rows("pair_stream" + sfx, tag, {
+            "kernel": lambda: pair_ell.pair_stream(plan_s, lin_s)})
         case("pair_assemble", tag,
              f"{len(spat.pairs)} pair tables + {len(spat.groups)} b, "
-             f"{n_contrib} contributions", label="pair_assemble" + sfx,
-             run=lambda: assemble_all(pair_ell.pair_assemble),
-             plain=lambda: assemble_all(pair_ell.pair_assemble_plain),
-             **bound_in["pair_assemble"], library=lib_assemble,
-             library_what="index_add_ per pair table and per group, the "
-             "blocks formed beforehand", slow_plain=True)
-        once = assemble_all(pair_ell.pair_assemble)
+             f"{n_contrib} contributions, both passes",
+             label="pair_assemble" + sfx, run=assemble_all,
+             plain=assemble_all_plain, **bound_in["pair_assemble"],
+             library=lib_bmm_assemble,
+             library_what="torch.bmm of each source's blocks, then "
+             "index_add_ per pair table and per group", slow_plain=True)
+        once = assemble_all()
         if not all(torch.equal(a_, b_) for a_, b_ in zip(
-                once, assemble_all(pair_ell.pair_assemble))):
+                once, assemble_all())):
             raise AssertionError("pair_assemble does not repeat its bits")
-        if any(bool(tb.arrivals.any()) for tb, _ in tables):
-            raise AssertionError("pair_assemble left an arrival counter set")
+        stream_s = pair_ell.pair_stream(plan_s, lin_s)
         device_rows("pair_assemble" + sfx, tag, {
-            "kernel": lambda: assemble_all(pair_ell.pair_assemble),
+            "kernel (both passes)": assemble_all,
+            "pass 2 alone (pair_sum)": lambda: pair_ell.pair_assemble(
+                plan_s, stream_s),
             "index_add_ per table (blocks formed beforehand)":
-                lib_assemble})
-        del lib_ops
+                lib_assemble,
+            "torch.bmm + index_add_ (the same function)": lib_bmm_assemble})
+        del lib_ops, lib_src, stream_s
         values_s = once[:len(spat.pairs)]
         bT_s = dict(zip(spat.groups, once[len(spat.pairs):]))
         lam_s = torch.tensor(0.5, dtype=dt, device=dev)
@@ -4045,12 +4111,13 @@ def main() -> int:
                 "torch.einsum": lambda: torch.einsum("ban,bn->an", l2, x2)})
 
         def scale_all(fn, fac=linv_s):
-            return [fn(pt.nb, pt.cnt, v, fac[pt.rg], fac[pt.cg],
-                       extra_s[pt.rg] if pt.square else None)
+            return [fn(pt.nb, pt.rowptr, v, fac[pt.rg], fac[pt.cg],
+                       extra_s[pt.rg] if pt.square else None, pt.used)
                     for pt, v in zip(spat.pairs, values_s)]
 
         case("pair_scale", tag, "every pair table (K = "
-             + ", ".join(str(pt.k) for pt in spat.pairs) + ")",
+             + ", ".join(str(pt.k) for pt in spat.pairs) + ", U = "
+             + ", ".join(str(pt.used) for pt in spat.pairs) + ")",
              lambda: scale_all(pair_ell.pair_scale),
              lambda: scale_all(pair_ell.pair_scale_plain),
              **bound_in["pair_scale"], label="pair_scale" + sfx)
@@ -4061,14 +4128,15 @@ def main() -> int:
              lambda: scale_all(pair_ell.pair_scale, bad_s),
              lambda: scale_all(pair_ell.pair_scale_plain, bad_s), 0, 0,
              same_nan=True, label="pair_scale@nan" + sfx, timed=False)
-        for pt, sv in zip(spat.pairs, scale_all(pair_ell.pair_scale, bad_s)):
-            pad = (values_s[spat.pairs.index(pt)] == 0).all(
-                dim=1, keepdim=True).expand_as(sv).clone()
+        for pt, v, sv in zip(spat.pairs, values_s,
+                             scale_all(pair_ell.pair_scale, bad_s)):
+            rows_u, slots_u = pair_ell.used_slots(pt.rowptr)
+            zero = (v == 0).all(dim=1)[slots_u, rows_u]
             if pt.square:
-                pad[0] = False
-            if (sv[pad] != 0).any():
-                raise AssertionError("pair_scale: a padding slot is not "
-                                     "exactly zero")
+                zero &= slots_u != 0
+            if (sv[:, zero] != 0).any():
+                raise AssertionError("pair_scale: an all-zero slot without "
+                                     "damping is not exactly zero")
         del bad_s
         svals_s = scale_all(pair_ell.pair_scale)
         if not all(torch.equal(a_, b_) for a_, b_ in zip(
@@ -4077,8 +4145,16 @@ def main() -> int:
         device_rows("pair_scale" + sfx, tag, {
             "kernel": lambda: scale_all(pair_ell.pair_scale)})
         op_s = sparse.PairOperator(spat, svals_s)
+        lay_s = op_s.layout
+        lay_plain = pair_ell.FlatLayout.__new__(pair_ell.FlatLayout)
+        lay_plain.__dict__.update(lay_s.__dict__)
+        lay_plain.on_card = False            # the plain versions on it
         xT_s = {g_: torch.randn((spat.widths[g_], spat.counts[g_]),
                                 dtype=dt, device=dev) for g_ in spat.groups}
+        # the flat vectors of K5' (each group vertex-major): x_vec is also
+        # the CSR product's stacked vector
+        x_vec = spat.flatten(xT_s)
+        r_vec = torch.randn_like(x_vec)
         # the same H as one CSR matrix over the stacked vertex-major vector
         offs, tot = {}, 0
         for g_ in spat.groups:
@@ -4086,86 +4162,104 @@ def main() -> int:
             tot += spat.widths[g_] * spat.counts[g_]
         rows_c, cols_c, vals_c = [], [], []
         for pt, sv in zip(spat.pairs, svals_s):
-            kk, aa, cc, nn = torch.meshgrid(
-                torch.arange(pt.k, device=dev),
+            row_u, _ = pair_ell.used_slots(pt.rowptr)
+            aa, cc, uu = torch.meshgrid(
                 torch.arange(pt.dr, device=dev),
                 torch.arange(pt.dc, device=dev),
-                torch.arange(pt.n, device=dev), indexing="ij")
-            col = pt.nb.long()[kk, nn]
-            rows_c.append((offs[pt.rg] + nn * pt.dr + aa).reshape(-1))
-            cols_c.append((offs[pt.cg] + col * pt.dc + cc).reshape(-1))
-            vals_c.append(sv.view(pt.k, pt.dr, pt.dc, pt.n).reshape(-1))
+                torch.arange(pt.used, device=dev), indexing="ij")
+            rows_c.append((offs[pt.rg] + row_u[uu] * pt.dr + aa).reshape(-1))
+            cols_c.append((offs[pt.cg] + pt.cols.long()[uu] * pt.dc
+                           + cc).reshape(-1))
+            vals_c.append(sv.view(pt.dr, pt.dc, pt.used).reshape(-1))
         keep = torch.cat(vals_c) != 0
         H_csr = torch.sparse_coo_tensor(
             torch.stack([torch.cat(rows_c)[keep], torch.cat(cols_c)[keep]]),
             torch.cat(vals_c)[keep], (tot, tot)).coalesce().to_sparse_csr()
-        x_flat = torch.cat([xT_s[g_].T.reshape(-1) for g_ in spat.groups])
+        x_flat = x_vec
         del rows_c, cols_c, vals_c, keep
         y_csr = (H_csr @ x_flat[:, None])[:, 0]
-        y_k = sparse.ell_matvec_lane(spat, svals_s, xT_s)
-        y_k_flat = torch.cat([y_k[g_].T.reshape(-1) for g_ in spat.groups])
+        y_k_flat = spat.flatten(sparse.ell_matvec_lane(spat, svals_s, xT_s))
         err_csr = float((y_k_flat - y_csr).abs().max()
                         / y_csr.abs().max())
         if not err_csr <= 10 * TOL_DEFAULT[tag]:
             raise AssertionError(f"pair_spmv differs from the CSR product "
                                  f"of the same H: {err_csr:.3e}")
-        case("pair_spmv", tag, f"T={tot}, one launch per row group",
-             lambda: list(sparse.ell_matvec_lane(spat, svals_s,
-                                                 xT_s).values()),
-             lambda: [pair_ell.pair_spmv_plain(*spat.row_operands(
-                 g_, svals_s, xT_s), spat.widths[g_]) for g_ in spat.groups],
+        case("pair_spmv", tag, f"T={tot}, one launch over every row group",
+             lambda: [pair_ell.pair_spmv(lay_s, x_vec)],
+             lambda: [pair_ell.pair_spmv_plain(lay_plain, x_vec)],
              **bound_in["pair_spmv"],
              library=lambda: H_csr @ x_flat[:, None], label="pair_spmv" + sfx,
              library_what="torch.sparse CSR product of the same H")
-        def spmv_dot_plain_all():
-            ys, dot = [], 0.0
-            for g_ in spat.groups:
-                y_, p_ = pair_ell.pair_spmv_dot_plain(
-                    *spat.row_operands(g_, svals_s, xT_s), xT_s[g_],
-                    torch.empty(1, dtype=dt, device=dev))
-                ys.append(y_)
-                dot = dot + p_.sum()
-            return ys + [dot]
-
         case("pair_spmv_dot", tag, f"T={tot}, with p . H p",
-             lambda: (lambda o: [o[0][g_] for g_ in spat.groups]
-                      + [o[1].sum()])(op_s.matvec_dot(xT_s)),
-             spmv_dot_plain_all,
+             lambda: (lambda o: [o[0], o[1].sum()])(
+                 pair_ell.pair_spmv_dot(lay_s, x_vec)),
+             lambda: (lambda o: [o[0], o[1].sum()])(
+                 pair_ell.pair_spmv_dot_plain(lay_plain, x_vec)),
              **bound_in["pair_spmv_dot"],
              library=lambda: H_csr @ x_flat[:, None],
              label="pair_spmv_dot" + sfx,
              library_what="torch.sparse CSR product of the same H, no dot")
-        hp1, part1 = op_s.matvec_dot(xT_s)
-        hp1, part1 = {k_: v_.clone() for k_, v_ in hp1.items()}, part1.clone()
-        hp2, part2 = op_s.matvec_dot(xT_s)
-        if not (torch.equal(part1, part2) and all(
-                torch.equal(hp1[k_], hp2[k_]) for k_ in hp1)):
+        hp1, part1 = op_s.matvec_dot(x_vec)
+        hp1, part1 = hp1.clone(), part1.clone()
+        hp2, part2 = op_s.matvec_dot(x_vec)
+        if not (torch.equal(part1, part2) and torch.equal(hp1, hp2)):
             raise AssertionError("pair_spmv_dot does not repeat its bits")
+        scal_s = torch.zeros(cg_step.N_SCALARS, dtype=dt, device=dev)
+        scal_s[cg_step.BETA] = 0.37
+        pn_k, pn_p = torch.empty_like(x_vec), torch.empty_like(x_vec)
+        case("pair_spmv_dot_p", tag,
+             f"T={tot}, p_new = beta p + r folded in, with p_new . H p_new",
+             lambda: (lambda o: [pn_k, o[0], o[1].sum()])(
+                 pair_ell.pair_spmv_dot_p(lay_s, scal_s, x_vec, r_vec,
+                                          pn_k)),
+             lambda: (lambda o: [pn_p, o[0], o[1].sum()])(
+                 pair_ell.pair_spmv_dot_p_plain(lay_plain, scal_s, x_vec,
+                                                r_vec, pn_p)),
+             **bound_in["pair_spmv_dot_p"],
+             library=lambda: H_csr @ x_flat[:, None],
+             label="pair_spmv_dot_p" + sfx,
+             library_what="torch.sparse CSR product of the same H, no dot, "
+             "no p update")
+        y1, q1 = pair_ell.pair_spmv_dot_p(lay_s, scal_s, x_vec, r_vec,
+                                          pn_k)
+        y1, q1, pn1 = y1.clone(), q1.clone(), pn_k.clone()
+        y2, q2 = pair_ell.pair_spmv_dot_p(lay_s, scal_s, x_vec, r_vec,
+                                          pn_k)
+        if not (torch.equal(y1, y2) and torch.equal(q1, q2)
+                and torch.equal(pn1, pn_k)):
+            raise AssertionError("pair_spmv_dot_p does not repeat its bits")
         device_rows("pair_spmv_dot" + sfx, tag, {
-            "kernel": lambda: op_s.matvec_dot(xT_s),
-            "pair_spmv (no dot)": lambda: sparse.ell_matvec_lane(
-                spat, svals_s, xT_s),
+            "kernel": lambda: pair_ell.pair_spmv_dot(lay_s, x_vec),
+            "pair_spmv (no dot)": lambda: pair_ell.pair_spmv(lay_s, x_vec),
+            "pair_spmv_dot_p (p folded in)": lambda: pair_ell.pair_spmv_dot_p(
+                lay_s, scal_s, x_vec, r_vec, pn_k),
             "torch.sparse CSR product of the same H":
                 lambda: H_csr @ x_flat[:, None]})
-        rows_g = spat.bound_rows(svals_s)
+        device_rows("pair_spmv_dot_p" + sfx, tag, {
+            "kernel": lambda: pair_ell.pair_spmv_dot_p(
+                lay_s, scal_s, x_vec, r_vec, pn_k)})
         case("pair_gershgorin", tag, f"T={tot}, {len(spat.groups)} row "
-             "groups", lambda: pair_ell.pair_gershgorin(rows_g),
-             lambda: pair_ell.pair_gershgorin_plain(rows_g),
+             "groups, one pass", lambda: pair_ell.pair_gershgorin(lay_s),
+             lambda: pair_ell.pair_gershgorin_plain(lay_plain),
              **bound_in["pair_gershgorin"], label="pair_gershgorin" + sfx)
-        if not torch.equal(pair_ell.pair_gershgorin(rows_g),
-                           pair_ell.pair_gershgorin(rows_g)):
+        if not torch.equal(pair_ell.pair_gershgorin(lay_s),
+                           pair_ell.pair_gershgorin(lay_s)):
             raise AssertionError("pair_gershgorin does not repeat its bits")
         device_rows("pair_gershgorin" + sfx, tag, {
-            "kernel": lambda: pair_ell.pair_gershgorin(rows_g)})
+            "kernel": lambda: pair_ell.pair_gershgorin(lay_s)})
         print(f"phase 3 pairs{sfx} {tag}: "
               + (f"Simulator2D({PAIR_WORLD}).simulate({PAIR_POSES}) in "
                  f"{t_sim_s:.2f} s on the host" if sfx == ""
                  else "phase 4f's world") + f"; T={tot}; "
               "pairs " + ", ".join(f"({pt.rg}, {pt.cg}) {pt.dr}x{pt.dc} "
-                                   f"K={pt.k}" for pt in spat.pairs)
-              + f"; the CSR product agrees to {err_csr:.3e} [{card}]")
+                                   f"K={pt.k} U={pt.used}"
+                                   for pt in spat.pairs)
+              + f"; K5' lanes {lay_s.lanes} blocks {lay_s.blocks} "
+              f"launches {len(lay_s.launches)}; the CSR product agrees to "
+              f"{err_csr:.3e} [{card}]")
         del sprob, spat, srcs, bsrcs, tables, once, values_s, bT_s, svals_s
-        del op_s, H_csr, x_flat, linv_s, lchol_s, extra_s, rows_g
+        del op_s, lay_s, lay_plain, H_csr, x_flat, linv_s, lchol_s, extra_s
+        del lin_s, plan_s, x_vec, r_vec, pn_k, pn_p, scal_s
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     for (label, tag), row in sorted(results.items()):
@@ -4220,8 +4314,9 @@ def main() -> int:
              (ba_coupling, "ba_wtx"), (ba_coupling, "ba_wv"),
              (ba_coupling, "ba_sandwich"),
              (schur_general, "schur_edge_blocks"),
-             (pair_ell, "pair_assemble"), (pair_ell, "pair_scale"),
-             (pair_ell, "pair_spmv"), (pair_ell, "pair_spmv_dot"),
+             (pair_ell, "pair_stream"), (pair_ell, "pair_assemble"),
+             (pair_ell, "pair_scale"), (pair_ell, "pair_spmv"),
+             (pair_ell, "pair_spmv_dot"), (pair_ell, "pair_spmv_dot_p"),
              (pair_ell, "pair_gershgorin"),
              *((edge_lin, w_) for w_ in edge_lin.LINEARIZERS.values()),
              *((trial, w_) for w_ in (*trial.RETRACTIONS.values(),
@@ -5931,13 +6026,14 @@ def main() -> int:
     shutil.rmtree(bal_dir, ignore_errors=True)
 
     # 4s. LM-PCG over several vertex groups (core/sparse.py PairPattern:
-    # K17, K2', K3 per group, K4' per pair table, K5' per row group in the
-    # three-launch CG step, K7; K8' with pcg_cheby 4): lambda init + 10
+    # K17, K2' (two passes), K3 per group, K4' per pair table, K5' over
+    # every row group in the two-launch CG step (the three-launch one with
+    # pcg_cheby 4), K7; K8' with pcg_cheby 4): lambda init + 10
     # iterations of lm_pcg_optimize_fused in float32 and float64 on the
     # 9000-pose landmark world of phase 3's pair rows (T = 34,108), on phase
     # 4d's world and on phase 4f's world, CG budget PAIR_PCG
-    pair_names = ("pair_assemble", "pair_scale", "pair_spmv",
-                  "pair_spmv_dot")
+    pair_names = ("pair_stream", "pair_assemble", "pair_scale", "pair_spmv",
+                  "pair_spmv_dot", "pair_spmv_dot_p")
     counts_4s = {}
     launches_d2 = {"damp_chol@d2": 0, "lane_block_mv@d2": 0}
     generic_before = (len(generic_calls), len(plain_trial_calls))
@@ -5980,6 +6076,27 @@ def main() -> int:
                     ms=(t2_ - t1_) * 100.0, init_s=t1_ - t0_, prob=prob_,
                     pat=pat_, lam0=float(lam_), final=out_[:4], alg=alg_)
 
+    def cheby_flat(c_, label):
+        """A pcg_cheby 4 run on the flat vectors: one K5' launch a product
+        (the CG step's, each of the preconditioner's three, and a trial's
+        first residual), and every vector kernel once a CG iteration over
+        every group's part (the preconditioner's: once an application)."""
+        outer, trials = c_["cg_update_p"], c_["lm_outcome"]
+        if not (outer > 0 and c_["cg_update_xr"] == outer
+                and c_["pair_spmv_dot"] == outer
+                and c_["pair_spmv"] == c_["chebyshev_update"] + trials
+                and c_["chebyshev_update"] == 3 * c_["chebyshev_init"]
+                and c_["chebyshev_init"] == outer + 2 * trials
+                and c_["pair_spmv_dot_p"] == 0):
+            raise AssertionError(f"phase 4s {label} pcg_cheby 4: not one "
+                                 f"launch a product and a vector step: "
+                                 f"{c_}")
+        print(f"phase 4s {label} float32 pcg_cheby 4: {outer} CG iterations"
+              f", each pair_spmv_dot, cg_update_xr and cg_update_p once "
+              f"over the flat vector; {c_['pair_spmv']} preconditioner "
+              f"products, as many chebyshev_update, "
+              f"{c_['chebyshev_init']} chebyshev_init OK")
+
     runs_4s = {}
     for label, graph_ in (("9000-pose world", world_s), ("4d world", world),
                           ("4f world", world3)):
@@ -5990,17 +6107,21 @@ def main() -> int:
             counts_4s[(label, tag)] = r_["counts"]
             st_ = r_["prob"].static
             c_ = r_["counts"]
-            n_g = len(st_.vgroups)
             trials_ = c_["lm_outcome"]
-            cg_ = c_["cg_update_xr"] // n_g
+            # the two-launch step: one cg_update_xr over every group's part
+            # a CG iteration, one product a CG iteration, no cg_update_p
+            cg_ = c_["cg_update_xr"]
             never_ = [k for k in pair_names + (
-                "damp_chol", "lane_block_mv", "cg_update_xr", "cg_update_p",
+                "damp_chol", "lane_block_mv", "cg_update_xr",
                 "cg_residual", "cg_finish", "lm_outcome") if c_[k] <= 0]
             if never_ or c_["spmv_dot"] or c_["spmv_dot_p"] \
-                    or c_["block_ell_spmv"] or c_["assemble_gather"]:
+                    or c_["block_ell_spmv"] or c_["assemble_gather"] \
+                    or c_["cg_update_p"] or c_["pair_spmv_dot"] \
+                    + c_["pair_spmv_dot_p"] != cg_:
                 raise AssertionError(f"phase 4s {label} {tag}: a kernel of "
-                                     f"the pair path did not launch, or the "
-                                     f"one-group path's did: {never_} {c_}")
+                                     f"the pair path did not launch, the "
+                                     f"one-group path's did, or the CG step "
+                                     f"is not two launches: {never_} {c_}")
             if label == "9000-pose world" and r_["widths"][0].get(2, 0) <= 0:
                 raise AssertionError("phase 4s: K3 did not launch at D = 2")
             print(f"phase 4s {label} {tag}: T={st_.total_dim} ("
@@ -6069,6 +6190,7 @@ def main() -> int:
                                       "chebyshev_coeffs")) <= 0:
         raise AssertionError(f"phase 4s: K8' did not launch: "
                              f"{r_c['counts']}")
+    cheby_flat(r_c["counts"], "9000-pose world")
     print(f"phase 4s 9000-pose world float32 pcg_cheby 4: chi2 "
           + " ".join(f"{c!r}" for c in r_c["traj"])
           + f"; {r_c['ms']:.2f} ms per LM iteration; pair_gershgorin="
@@ -6089,6 +6211,7 @@ def main() -> int:
     if r_c["counts"]["pair_gershgorin"] <= 0:
         raise AssertionError(f"phase 4s: K8' did not launch on 4f's world: "
                              f"{r_c['counts']}")
+    cheby_flat(r_c["counts"], "4f world")
     print(f"phase 4s 4f world float32 pcg_cheby 4: chi2 "
           + " ".join(f"{c!r}" for c in r_c["traj"])
           + f"; {r_c['ms']:.2f} ms per LM iteration; pair_gershgorin="
@@ -6113,7 +6236,8 @@ def main() -> int:
                    PAIR_PCG["pcg_iters"], PAIR_PCG["pcg_tol"], 0)
         torch.cuda.synchronize()
     wall_s = (time.monotonic() - t_w) * 1e6
-    n_cg_s = kernels.launch_counts()["cg_update_xr"] // len(spat_.groups)
+    c_s = kernels.launch_counts()
+    n_cg_s = c_s["cg_update_xr"]
     rows_s = sorted(((e.self_device_time_total, e.count, e.key)
                      for e in prof_s.key_averages()
                      if e.device_type == torch.autograd.DeviceType.CUDA
@@ -6121,6 +6245,24 @@ def main() -> int:
     busy_s = sum(r[0] for r in rows_s)
     if busy_s <= 0 or n_cg_s <= 0:
         raise AssertionError("phase 4s: the profiler saw no device time")
+    # two launches a CG iteration: the product (pair_spmv_dot once, then
+    # pair_spmv_dot_p) and cg_update_xr; the solve's set-up and finish are
+    # a few kernels more, and no copy or cat runs per iteration
+    kern_s = sum(n_ for _, n_, k_ in rows_s
+                 if not k_.startswith(("Memcpy", "Memset")))
+    steps_s = (c_s["pair_spmv_dot"] + c_s["pair_spmv_dot_p"]
+               + c_s["cg_update_xr"] + c_s["cg_update_p"])
+    print(f"phase 4s 9000-pose world float32, that solve: {steps_s} launches "
+          f"of the CG step's kernels in {n_cg_s} CG iterations "
+          f"({steps_s / n_cg_s:.3f} a CG iteration; pair_spmv_dot "
+          f"{c_s['pair_spmv_dot']}, pair_spmv_dot_p "
+          f"{c_s['pair_spmv_dot_p']}, cg_update_xr {c_s['cg_update_xr']}, "
+          f"cg_update_p {c_s['cg_update_p']}); {kern_s} device kernels "
+          f"in the profile ({kern_s / n_cg_s:.3f} a CG iteration)")
+    if steps_s != 2 * n_cg_s or c_s["cg_update_p"] \
+            or kern_s > 2 * n_cg_s + 40:
+        raise AssertionError("phase 4s: the unpreconditioned CG iteration "
+                             "is not two launches")
     print(f"phase 4s 9000-pose world float32, one trial's solve at the "
           f"end ({n_cg_s} CG iterations): wall {wall_s / 1e3:.3f} ms "
           f"(profiled), device busy {busy_s / 1e3:.3f} ms: "
@@ -6443,8 +6585,10 @@ def main() -> int:
                     **counts_gen}[ph][k.split("@")[0]]
                 <= 0]
              + [f"{k} (4s {w_} {t_})" for (w_, t_), c_ in counts_4s.items()
-                for k in ("pair_assemble", "pair_scale", "pair_spmv",
-                          "pair_spmv_dot") if c_[k] <= 0]
+                for k in ("pair_stream", "pair_assemble", "pair_scale",
+                          "pair_spmv", "pair_spmv_dot")
+                + (("cg_update_p",) if "cheby" in w_
+                   else ("pair_spmv_dot_p",)) if c_[k] <= 0]
              + [f"pair_gershgorin ({w_})" for w_ in ("cheby", "cheby 4f")
                 if counts_4s[(w_, "float32")]["pair_gershgorin"] <= 0]
              + [k for k, v in launches_d2.items() if v <= 0]
@@ -6611,8 +6755,8 @@ def main() -> int:
     # the pair kernels at phase 4f's world ((6, 6), (6, 3), (3, 6), (3, 3)),
     # with the launches of 4s's runs on that world (K8': its pcg_cheby 4
     # run)
-    for wname in ("pair_assemble", "pair_scale", "pair_spmv",
-                  "pair_spmv_dot", "pair_gershgorin"):
+    for wname in ("pair_stream", "pair_assemble", "pair_scale", "pair_spmv",
+                  "pair_spmv_dot", "pair_spmv_dot_p", "pair_gershgorin"):
         label = wname + "@3d"
         row = results[(label, "float32")]
         src, replaces = KERNELS[wname]

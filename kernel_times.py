@@ -75,12 +75,23 @@ does not, at the same shapes:
   rows), float32 and float64, by device time beside its bound, with the
   digest of its partials.
 * pairs: the kernels of LM-PCG over several vertex groups on phase 4s's
-  9000-pose landmark world (chip_smoke.PAIR_WORLD, T = 34,108): K2'
-  `pair_assemble` over every pair table and group b (the K17 outputs
-  made beforehand), K4' `pair_scale` over every pair table at lambda 0.5,
-  K5' as the CG step calls it (`PairOperator.matvec_dot`, one launch per
-  row group) and K8' `pair_gershgorin`; skipped for a tree without
-  kernels/pair_ell.py.
+  9000-pose landmark world (chip_smoke.PAIR_WORLD, T = 34,108) and on
+  phase 4f's world (rows "@3d"): K2' over every pair table and group b
+  (the K17 outputs made beforehand; every launch, and for a tree with
+  `pair_stream` each pass alone), K4' over every pair table at lambda 0.5
+  (`PairPattern.scale`; the digests of the used slots, gathered from a
+  tree that writes padded tables; timed alone), K5' as the CG step calls
+  it (`PairOperator.matvec_dot`, and `matvec_dot_p` where the tree has
+  it) and K8' (`row_bound`); for a tree with the used-slot layout, K5''s
+  folded product with other lanes a row; then in float32 one
+  unpreconditioned trial solve of 200 CG iterations (`pcg_solve`, tol 0)
+  on the 9000-pose world and one with pcg_cheby 4 of 50 outer iterations
+  on both worlds: wall per CG iteration unprofiled and profiled, device
+  time and device kernels per CG iteration (the profiler); and the
+  unpreconditioned solve on the
+  one-group pose graphs of phases 4 and 4e (the 100,000-pose SE2 graph,
+  the SE3 sphere) on their EllPattern and on `build_pair_pattern`'s
+  tables. Skipped for a tree without kernels/pair_ell.py.
 * pose: the one-group LM-PCG path of phases 4 and 4e (the 100,000-pose
   SE2 graph and the 100,000-pose SE3 sphere): `assemble_ell` (kernel B or
   K16, then C), K3, K4, `spmv_dot` and `lane_block_mv` at lambda 0.5 by
@@ -108,6 +119,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 import chip_smoke
 
@@ -701,71 +713,261 @@ def main(argv=None) -> int:
             print("kernel_times pairs: skipped: this tree has no pair "
                   "kernels")
             return
+        two_pass = hasattr(pair_ell, "pair_stream")
         world_s = Simulator2D(**chip_smoke.PAIR_WORLD).simulate(
             n_poses=chip_smoke.PAIR_POSES)[0]
-        for dt in dtypes:
+
+        def used_order(pt, sv):
+            """A scaled table in the used-slot layout [Dr*Dc, U] (a tree
+            whose K4' writes [K, Dr*Dc, N]: its used slots gathered), so
+            that both trees' digests compare."""
+            if sv.dim() == 2:
+                return sv
+            cnt = pt.cnt.long()
+            rows = torch.repeat_interleave(
+                torch.arange(cnt.shape[0], device=dev), cnt)
+            start = torch.cumsum(cnt, 0) - cnt
+            slots = torch.arange(rows.shape[0], device=dev) - start[rows]
+            return sv[slots, :, rows].T.contiguous()
+
+        def scaled(prob, pat, dt):
+            values, bT = sparse.assemble_ell(prob, pat)
+            lam = torch.tensor(0.5, dtype=dt, device=dev)
+            linv, extra, bhat = {}, {}, {}
+            for g, v in pat.diag_values(values).items():
+                linv[g], _, bhat[g], extra[g] = damp_chol.damp_chol(
+                    v, prob.free[g], bT[g], lam)
+            return values, bT, linv, extra, bhat, pat.scale(values, linv,
+                                                            extra)
+
+        world3 = Simulator3D(**chip_smoke.DENSE3_WORLD).simulate(
+            n_poses=chip_smoke.DENSE3_POSES)[0]
+        for sfx, world_p, dt in ((sfx_, w_, d_) for sfx_, w_ in (
+                ("", world_s), ("@3d", world3)) for d_ in dtypes):
             tag = tag_of(dt)
             s_ = torch.empty((), dtype=dt).element_size()
-            prob = world_s.compile(dtype=dt)
+            prob = world_p.compile(dtype=dt)
             pat = sparse.build_ell_pattern(prob)
-            srcs, bsrcs = sparse.pair_sources(prob, pat)
-            tables = ([(pt.table, src) for pt, src in zip(pat.pairs, srcs)]
-                      + [(pat.b_tables[g], bsrcs[g]) for g in pat.groups])
-            n_contrib = sum(d.numel() for tb, _ in tables for d in tb.dest)
+            if two_pass:
+                lin = sparse.pair_linearize(prob)
+                srcs, bsrcs = sparse.pair_sources(prob, pat, lin)
+                stream = pair_ell.pair_stream(pat.plan, lin)
+
+                def asm():
+                    return pair_ell.pair_assemble(
+                        pat.plan, pair_ell.pair_stream(pat.plan, lin))
+
+                def asm_plain():
+                    return pair_ell.pair_assemble_plain(
+                        pat.plan, pair_ell.pair_stream_plain(pat.plan, lin))
+
+                asm_extra = [
+                    ("pass 1 (pair_stream) ",
+                     lambda: pair_ell.pair_stream(pat.plan, lin)),
+                    ("pass 2 (pair_sum) ",
+                     lambda: pair_ell.pair_assemble(pat.plan, stream))]
+            else:
+                srcs, bsrcs = sparse.pair_sources(prob, pat)
+                tables = ([(pt.table, src)
+                           for pt, src in zip(pat.pairs, srcs)]
+                          + [(pat.b_tables[g], bsrcs[g])
+                             for g in pat.groups])
+
+                def asm():
+                    return [pair_ell.pair_assemble(src, tb)
+                            for tb, src in tables]
+
+                def asm_plain():
+                    return [pair_ell.pair_assemble_plain(src, tb)
+                            for tb, src in tables]
+
+                asm_extra = []
+            n_contrib = sum(so.resid.shape[0]
+                            for src in [*srcs, *bsrcs.values()]
+                            for so in src)
             # the bytes of chip_smoke.py's bound_ms for the same calls
-            work = chip_smoke.pair_work(pat, srcs, bsrcs, s_)
-            report("pair_assemble", "pair_assemble",
-                   f"{len(tables)} tables, {n_contrib} contributions", tag,
-                   lambda: [pair_ell.pair_assemble(src, tb)
-                            for tb, src in tables],
-                   lambda: [pair_ell.pair_assemble_plain(src, tb)
-                            for tb, src in tables],
-                   work["pair_assemble"][0])
-            once = [pair_ell.pair_assemble(src, tb) for tb, src in tables]
-            values, bT = once[:len(pat.pairs)], once[len(pat.pairs):]
-            lam = torch.tensor(0.5, dtype=dt, device=dev)
-            linv, extra = {}, {}
-            for g, i in pat.square.items():
-                linv[g], _, _, extra[g] = damp_chol.damp_chol(
-                    values[i], prob.free[g], bT[pat.groups.index(g)], lam)
-
-            def scale(fn):
-                return [fn(pt.nb, pt.cnt, v, linv[pt.rg], linv[pt.cg],
-                           extra[pt.rg] if pt.square else None)
-                        for pt, v in zip(pat.pairs, values)]
-
-            report("pair_scale", "pair_scale", f"{len(pat.pairs)} pairs",
-                   tag, lambda: scale(pair_ell.pair_scale),
-                   lambda: scale(pair_ell.pair_scale_plain),
-                   work["pair_scale"][0])
-            svals = scale(pair_ell.pair_scale)
-            op = sparse.PairOperator(pat, svals)
+            # (K5''s partials: one a block of 256 threads, ~T / 64)
+            work = chip_smoke.pair_work(pat, srcs, bsrcs, s_,
+                                        prob.static.total_dim // 64)
+            report(f"pair_assemble{sfx}", "pair_assemble",
+                   f"{len(pat.pairs)} tables + {len(pat.groups)} b, "
+                   f"{n_contrib} contributions, every launch", tag, asm,
+                   asm_plain, work["pair_assemble"][0], extra=asm_extra)
+            values, bT, linv, extra, bhat, svals = scaled(prob, pat, dt)
+            report(f"pair_scale{sfx}", "pair_scale",
+                   f"{len(pat.pairs)} pairs (the used slots' bits; "
+                   "timed: K4' alone)", tag,
+                   lambda: [used_order(pt, sv) for pt, sv in zip(
+                       pat.pairs, pat.scale(values, linv, extra))],
+                   lambda: [used_order(pt, pair_ell.pair_scale_plain(
+                       pt.nb, pt.rowptr if two_pass else pt.cnt, v,
+                       linv[pt.rg], linv[pt.cg],
+                       extra[pt.rg] if pt.square else None))
+                       for pt, v in zip(pat.pairs, values)],
+                   work["pair_scale"][0],
+                   extra=[("K4' alone ",
+                           lambda: pat.scale(values, linv, extra))])
+            op = pat.operator(svals)
             gen = torch.Generator(device=dev).manual_seed(3)
             xT = {g: torch.randn((pat.widths[g], pat.counts[g]),
                                  generator=gen, dtype=dt, device=dev)
                   for g in pat.groups}
-
-            def plain_dot():
-                out = []
-                for g in pat.groups:
-                    y, p = pair_ell.pair_spmv_dot_plain(
-                        *pat.row_operands(g, svals, xT), xT[g],
-                        torch.empty(1, dtype=dt, device=dev))
-                    out += [y, p.clone()]
-                return out
-
-            report("pair_spmv_dot", "pair_spmv_dot",
-                   f"T={prob.static.total_dim}, {len(pat.groups)} row groups",
-                   tag, lambda: [t for g, t in op.matvec_dot(xT)[0].items()],
-                   lambda: plain_dot()[0::2],
-                   work["pair_spmv_dot"][0])
-            rows = pat.bound_rows(svals)
-            report("pair_gershgorin", "pair_gershgorin", "", tag,
-                   lambda: [pair_ell.pair_gershgorin(rows)],
-                   lambda: [pair_ell.pair_gershgorin_plain(rows)],
+            if two_pass:
+                x = pat.flatten(xT)
+                r = torch.randn_like(x)
+                lay_plain = pair_ell.FlatLayout.__new__(pair_ell.FlatLayout)
+                lay_plain.__dict__.update(op.layout.__dict__)
+                lay_plain.on_card = False
+                plain_y = lambda: [pair_ell.pair_spmv_plain(lay_plain, x)]
+                plain_hi = lambda: [pair_ell.pair_gershgorin_plain(
+                    lay_plain)]
+                dot = lambda: [op.matvec_dot(x)[0]]
+                scal = torch.zeros(10, dtype=dt, device=dev)
+                scal[9] = 0.37
+                p_new = torch.empty_like(x)
+                extra_t = [("K5' alone ", lambda: op.matvec_dot(x)),
+                           ("pair_spmv_dot_p ", lambda: op.matvec_dot_p(
+                               scal, x, r, p_new))]
+            else:
+                # this tree's vectors are lane-major: compare in the
+                # change's vertex-major order
+                dot = lambda: [torch.cat([op.matvec_dot(xT)[0][g].T.reshape(
+                    -1) for g in pat.groups])]
+                extra_t = [("K5' alone ", lambda: op.matvec_dot(xT))]
+                plain_y = lambda: [torch.cat([pair_ell.pair_spmv_plain(
+                    *pat.row_operands(g, svals, xT), pat.widths[g])
+                    .T.reshape(-1) for g in pat.groups])]
+                plain_hi = lambda: [pair_ell.pair_gershgorin_plain(
+                    pat.bound_rows(svals))]
+            report(f"pair_spmv_dot{sfx}", "pair_spmv_dot",
+                   f"T={prob.static.total_dim}, {len(pat.groups)} row groups "
+                   "as the CG step calls it", tag,
+                   lambda: [torch.cat([t.reshape(-1) for t in dot()])],
+                   plain_y, work["pair_spmv_dot"][0], extra=extra_t)
+            report(f"pair_gershgorin{sfx}", "pair_gershgorin", "", tag,
+                   lambda: [pat.row_bound(svals)], plain_hi,
                    work["pair_gershgorin"][0])
-            del prob, pat, srcs, bsrcs, tables, once, values, bT, svals, op
+            # the sweep sets the lanes alone, as this tree's flat_shape
+            # gives them (not the (lanes, split) of an earlier form)
+            if two_pass and isinstance(
+                    pair_ell.flat_shape(op.layout.groups)[0], int):
+                shape_sweep(f"{sfx} {tag}", pat, svals, x, r, scal)
+            if dt == torch.float32:
+                for cheby in ((0, 4) if sfx == "" else (4,)):
+                    cg_loop(f"pairs{sfx} {tag}"
+                            + (f" pcg_cheby {cheby}" if cheby else ""),
+                            prob, pat, op, bhat,
+                            iters=50 if cheby else 200, cheby=cheby)
+            del prob, pat, srcs, bsrcs, values, bT, svals, op
             torch.cuda.empty_cache()
+        # the pair path on a one-group pose graph against EllPattern's
+        from openslam_g2o_torch.apps.simulator import synthetic_pose_graph_2d
+        sphere = create_sphere(**chip_smoke.SPHERE)[0]
+        for label, prob in (
+                ("se2 100k", synthetic_pose_graph_2d(
+                    chip_smoke.N_POSES, grid=chip_smoke.GRID,
+                    trans_noise=0.03, rot_noise=0.002,
+                    dtype=torch.float32)[0]),
+                ("se3 sphere", sphere.compile(dtype=torch.float32))):
+            for kind, pat in (("EllPattern", sparse.build_ell_pattern(prob)),
+                              ("PairPattern",
+                               sparse.build_pair_pattern(prob))):
+                _, _, _, _, bhat, svals = scaled(prob, pat, torch.float32)
+                cg_loop(f"one-group {label} {kind}", prob, pat,
+                        pat.operator(svals), bhat)
+                del pat, svals, bhat
+            del prob
+            torch.cuda.empty_cache()
+
+    def shape_sweep(what, pat, svals, x, r, scal):
+        """K5''s folded product (pair_spmv_dot_p) with other lanes a row
+        (kernels/pair_ell.py flat_shape): device us beside the path's
+        shape, and the largest difference from its product relative to its
+        largest entry."""
+        from openslam_g2o_torch.kernels import pair_ell
+        p_new = torch.empty_like(x)
+        ref = pat.operator(svals)
+        y0 = ref.matvec_dot_p(scal, x, r, p_new)[0].clone()
+        saved = pair_ell.flat_shape
+        variants = [("path", None)]
+        for lanes in (1, 4, 8, 16, 32):
+            variants.append((f"lanes {lanes}", [lanes]))
+        for lanes in (4, 8, 16):
+            variants.append((f"lanes {lanes}, 32", [lanes, 32]))
+        line = []
+        for label, lanes in variants:
+            try:
+                if lanes is not None:
+                    pair_ell.flat_shape = lambda groups: (
+                        lanes + [lanes[-1]] * len(groups))[:len(groups)]
+                lay = pat.flat_layout(svals)
+            finally:
+                pair_ell.flat_shape = saved
+            fn = lambda: pair_ell.pair_spmv_dot_p(lay, scal, x, r, p_new)
+            y = fn()[0]
+            rel = _rel(y, y0)
+            ms, _, held = chip_smoke._device_ms(torch, fn)
+            line.append(f"{label} (lanes {lay.lanes}) {1e3 * ms:.2f} us"
+                        + ("" if held else " (host-bound)")
+                        + f" ({rel:.1e})")
+            del lay
+        print(f"kernel_times pair_spmv_dot_p shapes{what}: "
+              + "; ".join(line), flush=True)
+
+    def cg_loop(what, prob, pat, op, bhat, iters=200, cheby=0):
+        """One trial solve of `iters` CG iterations (tol 0, so it never
+        stops early), as _pcg_trial runs it: unpreconditioned, or with
+        pcg_cheby's degree-`cheby` polynomial bracketed by K8''s bound
+        (then `iters` counts outer iterations): wall per CG iteration
+        unprofiled (median of 3) and profiled, device time and device
+        kernels per CG iteration (the profiler), and its x's digest."""
+        from openslam_g2o_torch.core import solvers
+        from torch.profiler import ProfilerActivity, profile
+        if cheby:
+            hi = pat.row_bound(op.values)
+            pre = solvers.make_chebyshev_precond(op, hi * 0.02, hi, cheby)
+            solve = lambda: solvers.pcg_solve(op, bhat, precond=pre,
+                                              max_iter=iters, tol=0.0,
+                                              unroll=1, norm="precond")
+        else:
+            solve = lambda: solvers.pcg_solve(op, bhat, max_iter=iters,
+                                              tol=0.0, unroll=2,
+                                              norm="precond")
+        solve()
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            x, _ = solve()
+            torch.cuda.synchronize()
+            walls.append((time.monotonic() - t0) * 1e6 / iters)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            solve()
+            torch.cuda.synchronize()
+        wall_p = (time.monotonic() - t0) * 1e6 / iters
+        rows = [(e.self_device_time_total, e.count, e.key)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        busy = sum(r[0] for r in rows) / iters
+        kern = sum(r[1] for r in rows
+                   if not r[2].startswith(("Memcpy", "Memset"))) / iters
+        key = f"cg {what}"
+        digests = [_digest(torch.cat([x[g].reshape(-1) for g in x]))]
+        saved[key] = digests
+        bits = ""
+        if against is not None and key in against:
+            bits = f"; the bits of --against: {digests == against[key]}"
+        print(f"kernel_times {key}: {iters} CG iterations: wall "
+              + "/".join(f"{w:.1f}" for w in sorted(walls))
+              + f" us a CG iteration (unprofiled), {wall_p:.1f} profiled; "
+              f"device {busy:.2f} us and {kern:.3f} kernels a CG iteration; "
+              + "; ".join(f"{k_[:32]} {us / n_:.2f} us x {n_}"
+                          for us, n_, k_ in sorted(rows, reverse=True)[:5])
+              + bits, flush=True)
 
     if "pairs" in only:
         pairs_section()

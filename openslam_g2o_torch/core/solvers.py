@@ -6,7 +6,8 @@ left to torch.linalg as the JAX package leaves it to XLA). The closed-form
 small-block Cholesky factors (kernels/damp_chol.py) feed the split-form
 block-Jacobi scaling of the LM-PCG trial, `pcg_solve` is the CG loop of that
 trial and `make_chebyshev_precond` its optional polynomial preconditioner.
-Operands of `pcg_solve` are dicts of per-group parts, as the JAX pytrees are.
+Operands of `pcg_solve` are dicts of per-group parts, as the JAX pytrees are;
+a flat operator's loop runs on one vector holding every group's part.
 """
 from __future__ import annotations
 
@@ -79,9 +80,13 @@ def make_chebyshev_precond(matvec, lo, hi, degree: int):
 
     lo and hi may be 0-dim device tensors: the recurrence coefficients are
     computed on the device once (kernels/chebyshev.py), at the first
-    application, and no host read is made. Returns apply(r: dict) -> dict.
+    application, and no host read is made. Returns apply(r: dict) -> dict;
+    over a flat operator (one with `flatten`, core/sparse.py) r is the
+    one-part dict {FLAT: vector} that `pcg_solve` hands it.
     """
     coef = []
+    if hasattr(matvec, "flatten"):
+        matvec = _FlatParts(matvec)
 
     def coefficients(like):
         if not coef:
@@ -102,6 +107,25 @@ def make_chebyshev_precond(matvec, lo, hi, degree: int):
         return z
 
     return apply
+
+
+FLAT = "flat"
+
+
+class _FlatParts:
+    """A flat operator (one with `flatten` and `split`, whose calls take
+    one flat vector: core/sparse.py EllOperator, PairOperator) as a map
+    of the one-part dict {FLAT: vector}, the form `pcg_solve` runs it in."""
+
+    def __init__(self, op):
+        self.op = op
+
+    def __call__(self, x: dict) -> dict:
+        return {FLAT: self.op(x[FLAT])}
+
+    def matvec_dot(self, p: dict):
+        hp, partials = self.op.matvec_dot(p[FLAT])
+        return {FLAT: hp}, partials
 
 
 def _cat(parts):
@@ -142,25 +166,31 @@ def pcg_solve(matvec, b: dict, precond=None, max_iter: int = 100,
 
     The loop is written on the wrappers of kernels/cg_step.py: on the card
     one iteration is three launches (`matvec.matvec_dot` where the operator
-    has it, `cg_update_xr`, `cg_update_p`; a preconditioner adds its own
-    and one dot), every CG scalar stays in a device buffer, and the only
-    host read is the continue flag, once per `unroll` iterations. Without
-    a preconditioner, on a one-group operator that offers
-    `matvec_dot_p`, it is two: `cg_update_xr` stores the step's scalars
-    (its last block, through an arrival counter) and `matvec_dot_p` forms
-    the next direction p = beta p + r as it multiplies, into the other of
-    two p buffers; the first iteration (p = r) multiplies with
-    `matvec_dot`. The arithmetic is the three-launch step's, bit for bit.
-    There the card may place `cg_update_xr`'s blocks while the product
-    still runs (a programmatic dependent launch).
-    On CPU tensors the same calls run the plain versions. `matvec` and
-    `precond` map a dict of groups to a dict of groups; x0 and b are not
+    has it, `cg_update_xr`, `cg_update_p` per part; a preconditioner adds
+    its own and one dot), every CG scalar stays in a device buffer, and the
+    only host read is the continue flag, once per `unroll` iterations.
+    A flat operator (one with `flatten` and `split`: core/sparse.py
+    EllOperator, PairOperator) runs on one flat vector, every group's part
+    in it (`_pcg_flat`): each vector kernel is one launch over all groups,
+    the preconditioner's too. Without a preconditioner, where it offers
+    `matvec_dot_p`, an iteration is two launches (`_pcg_two_launch`):
+    `cg_update_xr` stores the step's scalars (its last block, through an
+    arrival counter) and `matvec_dot_p` forms the next direction p = beta
+    p + r as it multiplies, into the other of two p buffers; the first
+    iteration (p = r) multiplies with `matvec_dot`. On one group the
+    arithmetic is the three-launch step's on the group's part, bit for
+    bit. There the card may place `cg_update_xr`'s blocks while the
+    product still runs (a programmatic dependent launch).
+    On CPU tensors the same calls run the plain versions. `b`, `x0` and
+    the result are dicts of groups; `matvec` and `precond` map a dict of
+    parts to a dict of parts (a flat operator: vector to vector, and
+    `precond` the one-part dict {FLAT: vector}); x0 and b are not
     modified. Returns (x, ok) with ok a 0-dim bool tensor.
     """
+    if hasattr(matvec, "flatten"):
+        return _pcg_flat(matvec, b, precond, max_iter, tol, x0, unroll, norm)
     keys = list(b)
     precond_norm = norm == "precond"
-    fold_p = (precond is None and len(keys) == 1
-              and hasattr(matvec, "matvec_dot_p"))
     if x0 is None:
         x = {k: torch.zeros_like(b[k]) for k in keys}
     else:
@@ -186,37 +216,67 @@ def pcg_solve(matvec, b: dict, precond=None, max_iter: int = 100,
                             for k in keys])
     scal = cg.new_scalars(part_rz)
     cg.cg_start(scal, part_rz, part_rr, part_b2, tol, precond_norm)
-    if fold_p:
-        (k,) = keys
-        arrivals = torch.zeros(1, dtype=torch.int32, device=scal.device)
-        spare = {k: _spare(p[k])}
     i = 0
     while i < max_iter and bool(scal[cg.CONT].item()):
         for _ in range(unroll):
-            if fold_p:
-                if i == 0:
-                    hp, part_pap = _matvec_dot(matvec, p)
-                else:
-                    hp, part_pap = matvec.matvec_dot_p(scal, p, r, spare)
-                    p, spare = spare, p
-                cg.cg_update_xr(scal, part_pap, x[k], r[k], p[k], hp[k],
-                                arrivals)
+            hp, part_pap = _matvec_dot(matvec, p)
+            part_rr = _cat([cg.cg_update_xr(scal, part_pap, x[k], r[k],
+                                            p[k], hp[k]) for k in keys])
+            if precond is None:
+                part_rz = part_rr
             else:
-                hp, part_pap = _matvec_dot(matvec, p)
-                part_rr = _cat([cg.cg_update_xr(scal, part_pap, x[k], r[k],
-                                                p[k], hp[k]) for k in keys])
-                if precond is None:
-                    part_rz = part_rr
-                else:
-                    z = _contiguous(precond(r))
-                    part_rz = _cat([cg.dot_partials(r[k], z[k])
-                                    for k in keys])
-                for k in keys:
-                    cg.cg_update_p(scal, part_rz, part_rr, z[k], p[k],
-                                   precond_norm)
+                z = _contiguous(precond(r))
+                part_rz = _cat([cg.dot_partials(r[k], z[k])
+                                for k in keys])
+            for k in keys:
+                cg.cg_update_p(scal, part_rz, part_rr, z[k], p[k],
+                               precond_norm)
             i += 1
     ok = cg.cg_finish(scal, [x[k] for k in keys])
     return x, ok
+
+
+def _pcg_flat(op, b, precond, max_iter, tol, x0, unroll, norm):
+    """`pcg_solve` on a flat operator: b and x0 flattened once (`flatten`:
+    an EllOperator's one group as it lies, a PairOperator's groups each
+    vertex-major, one after another), the loop on the one flat vector,
+    the result taken apart by `split`."""
+    bf = op.flatten({k: v.contiguous() for k, v in b.items()})
+    x0f = None if x0 is None else op.flatten(x0)
+    if precond is None and hasattr(op, "matvec_dot_p"):
+        x, ok = _pcg_two_launch(op, bf, max_iter, tol, x0f, unroll,
+                                norm == "precond")
+    else:
+        x, ok = pcg_solve(_FlatParts(op), {FLAT: bf}, precond, max_iter,
+                          tol, None if x0f is None else {FLAT: x0f}, unroll,
+                          norm)
+        x = x[FLAT]
+    return op.split(x), ok
+
+
+def _pcg_two_launch(op, b, max_iter, tol, x0, unroll, precond_norm):
+    """`pcg_solve` without a preconditioner on a flat operator with
+    `matvec_dot_p`: two launches per CG iteration on the flat b and x0."""
+    if x0 is None:
+        x = torch.zeros_like(b)
+    else:
+        x = x0.clone(memory_format=torch.contiguous_format)
+    r, p, part_rr, part_b2 = cg.cg_residual(b, op(x).contiguous())
+    scal = cg.new_scalars(part_rr)
+    cg.cg_start(scal, part_rr, part_rr, part_b2, tol, precond_norm)
+    arrivals = torch.zeros(1, dtype=torch.int32, device=scal.device)
+    spare = _spare(p)
+    i = 0
+    while i < max_iter and bool(scal[cg.CONT].item()):
+        for _ in range(unroll):
+            if i == 0:
+                hp, part_pap = op.matvec_dot(p)
+            else:
+                hp, part_pap = op.matvec_dot_p(scal, p, r, spare)
+                p, spare = spare, p
+            cg.cg_update_xr(scal, part_pap, x, r, p, hp, arrivals)
+            i += 1
+    return x, cg.cg_finish(scal, [x])
 
 
 def _spare(like):

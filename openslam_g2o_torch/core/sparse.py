@@ -38,7 +38,7 @@ from openslam_g2o_torch import kernels
 
 __all__ = ["EllPattern", "PairPattern", "PairTable", "build_ell_pattern",
            "build_pair_pattern", "edge_blocks", "assemble_ell",
-           "pair_sources", "assemble_pairs", "diag_blocks", "lane_block_mv",
+           "pair_linearize", "pair_sources", "assemble_pairs", "diag_blocks", "lane_block_mv",
            "ell_matvec_lane", "EllOperator", "PairOperator"]
 
 
@@ -282,43 +282,51 @@ def lane_block_mv(mats_lane: dict, xT: dict, transpose: bool = False):
 
 def ell_matvec_lane(pattern, values, xT: dict):
     """y = H x on lane-major dicts (sparse.py:883-908): kernel A on an
-    EllPattern, K5' on a PairPattern (one launch per row group over its
-    pairs)."""
-    return pattern.operator(values)({k: v.contiguous()
-                                     for k, v in xT.items()})
+    EllPattern, K5' on a PairPattern (one launch over every row group, on
+    K4''s scaled tables), through the pattern's flat operator."""
+    op = pattern.operator(values)
+    return op.split(op(op.flatten(xT)))
 
 
 class EllOperator:
-    """The block-ELL matrix `values` on `pattern` as the operator of
-    `pcg_solve`: calling it is the matvec, `matvec_dot` is the fused form
-    the CG step uses (kernels/cg_step.py `spmv_dot`), and `matvec_dot_p`
-    the form with the next direction folded in (`spmv_dot_p`), which the
-    CG step takes when it has no preconditioner. `PairOperator` is its
-    counterpart on a PairPattern."""
+    """The block-ELL matrix `values` on `pattern` as the flat operator of
+    `pcg_solve`: its vectors are flat (`flatten`: the group's [D, N] part
+    as D N values; `split` takes one apart), calling it is the matvec,
+    `matvec_dot` is the fused form the CG step uses (kernels/cg_step.py
+    `spmv_dot`), and `matvec_dot_p` the form with the next direction
+    folded in (`spmv_dot_p`), which the CG step takes when it has no
+    preconditioner. `PairOperator` is its counterpart on a PairPattern."""
 
     def __init__(self, pattern: EllPattern, values):
         self.pattern = pattern
         self.values = values
 
-    def __call__(self, xT: dict) -> dict:
-        g = self.pattern.group
-        return {g: kernels.spmv.block_ell_spmv(self.pattern.nb, self.values,
-                                               xT[g].contiguous())}
+    def flatten(self, parts: dict):
+        return parts[self.pattern.group].contiguous().reshape(-1)
 
-    def matvec_dot(self, pT: dict):
-        """({group: H p}, partial sums of p . H p)."""
-        g = self.pattern.group
-        hp, partials = kernels.cg_step.spmv_dot(
-            self.pattern.nb, self.values, pT[g].contiguous())
-        return {g: hp}, partials
+    def split(self, flat) -> dict:
+        return {self.pattern.group: flat.view(self.pattern.d, -1)}
 
-    def matvec_dot_p(self, scal, pT: dict, rT: dict, p_newT: dict):
-        """({group: H p_new}, partial sums of p_new . H p_new) with p_new =
-        beta p + r written into p_newT (beta in `scal`)."""
-        g = self.pattern.group
+    def __call__(self, x):
+        pe = self.pattern
+        return kernels.spmv.block_ell_spmv(pe.nb, self.values,
+                                           x.view(pe.d, -1)).reshape(-1)
+
+    def matvec_dot(self, p):
+        """(H p, partial sums of p . H p)."""
+        pe = self.pattern
+        hp, partials = kernels.cg_step.spmv_dot(pe.nb, self.values,
+                                                p.view(pe.d, -1))
+        return hp.reshape(-1), partials
+
+    def matvec_dot_p(self, scal, p, r, p_new):
+        """(H p_new, partial sums of p_new . H p_new) with p_new = beta p + r
+        written into p_new (beta in `scal`)."""
+        d = self.pattern.d
         hp, partials = kernels.cg_step.spmv_dot_p(
-            self.pattern.nb, self.values, scal, pT[g], rT[g], p_newT[g])
-        return {g: hp}, partials
+            self.pattern.nb, self.values, scal, p.view(d, -1),
+            r.view(d, -1), p_new.view(d, -1))
+        return hp.reshape(-1), partials
 
 
 # ---------------------------------------------------------------------------
@@ -334,9 +342,12 @@ class PairTable:
     row's own diagonal block, also for a vertex without edges, and its other
     slots in ascending column order; a rectangular pair's slots are in
     ascending column order. cnt [N] int32: the used slots of each row (the
-    slots from cnt[n] on are padding). sources: the (edge group index, s,
-    t) whose contributions it sums, in the JAX package's order; table:
-    K2''s destination-major table over them."""
+    slots from cnt[n] on are padding). The used-slot layout of K4''s scaled
+    values: rowptr [N + 1] int32 (row n's used slots are rowptr[n] ..
+    rowptr[n + 1] - 1), cols [U] int32 their columns, U = `used`.
+    sources: the (edge group index, s, t) whose contributions it sums, in
+    the JAX package's order; table: K2''s destination-major table over
+    them."""
     rg: str
     cg: str
     dr: int
@@ -345,6 +356,8 @@ class PairTable:
     k: int
     nb: torch.Tensor
     cnt: torch.Tensor
+    rowptr: torch.Tensor
+    cols: torch.Tensor
     sources: tuple
     table: object
 
@@ -352,41 +365,62 @@ class PairTable:
     def square(self):
         return self.rg == self.cg
 
+    @property
+    def used(self):
+        return self.cols.shape[0]
+
 
 @dataclass
 class PairPattern:
     """The block-ELL pattern of any graph as pair tables.
 
     groups: the vertex groups' names in the problem's order; widths /
-    counts: their tangent widths and sizes. pairs: the PairTables in the
-    JAX package's first-seen order over edge groups and slot pairs, then a
-    square table for every group no edge reaches. square: group -> the
-    index of its square pair. rows: group -> the indices of the pairs of
-    that row group, in pattern order. b_sources / b_tables: per group, the
-    (edge group index, slot) whose -J_s^T W e it sums and K2''s table over
-    them."""
+    counts: their tangent widths and sizes; offsets: each group's place in
+    the flat CG vectors of K5' (its part at offsets[g], vertex-major
+    [N, D], the groups one after another: `flatten`, `split`). pairs:
+    the PairTables in the JAX package's first-seen order over edge groups
+    and slot pairs, then a square table for every group no edge reaches. square: group -> the index of its square pair.
+    rows: group -> the indices of the pairs of that row group, in pattern
+    order. b_sources / b_tables: per group, the (edge group index, slot)
+    whose -J_s^T W e it sums and K2''s table over them. plan: K2''s
+    AssemblyPlan over the pair tables and the b tables."""
     groups: tuple
     widths: dict
     counts: dict
+    offsets: dict
     pairs: tuple
     square: dict
     rows: dict
     b_sources: dict
     b_tables: dict
+    plan: object
 
-    def row_operands(self, g, values, xT):
-        """(nbs, cnts, values, xs) of row group g's pairs for K5'."""
-        idx = self.rows[g]
-        return ([self.pairs[i].nb for i in idx],
-                [self.pairs[i].cnt for i in idx], [values[i] for i in idx],
-                [xT[self.pairs[i].cg] for i in idx])
+    def flatten(self, parts: dict):
+        """The flat vector of {group: [D, N] lane-major}: each group's part
+        vertex-major, the groups one after another (a copy)."""
+        return torch.cat([parts[g].T.reshape(-1) for g in self.groups])
 
-    def bound_rows(self, values):
-        """K8''s rows: per row group (width, its pairs' values, their
-        cnt)."""
-        return [(self.widths[g], [values[i] for i in self.rows[g]],
-                 [self.pairs[i].cnt for i in self.rows[g]])
-                for g in self.groups]
+    def split(self, flat) -> dict:
+        """{group: its part of a flat vector, lane-major [D, N]} (contiguous
+        copies)."""
+        return {g: flat[self.offsets[g]:self.offsets[g] + self.widths[g]
+                        * self.counts[g]].view(self.counts[g],
+                                               self.widths[g]).T.contiguous()
+                for g in self.groups}
+
+    def flat_layout(self, svals):
+        """K5''s and K8''s FlatLayout of the scaled tables `svals` (K4''s
+        used-slot layout, one per pair table)."""
+        pa = kernels.pair_ell
+        return pa.FlatLayout([
+            pa.FlatGroup(self.widths[g], self.counts[g], self.offsets[g],
+                         tuple(pa.FlatTable(
+                             self.pairs[i].rowptr, self.pairs[i].cols,
+                             svals[i], self.pairs[i].dc,
+                             self.offsets[self.pairs[i].cg],
+                             self.counts[self.pairs[i].cg])
+                               for i in self.rows[g]))
+            for g in self.groups])
 
     # the LM-PCG trial's operations, as EllPattern's
 
@@ -408,11 +442,12 @@ class PairPattern:
     def scale(self, values, linv: dict, extra: dict):
         """K4' per pair table: the row factors from its row group, the
         column factors from its column group, the damping on square pairs
-        only."""
+        only; the scaled tables in the used-slot layout."""
         return tuple(
-            kernels.pair_ell.pair_scale(pt.nb, pt.cnt, v, linv[pt.rg],
+            kernels.pair_ell.pair_scale(pt.nb, pt.rowptr, v, linv[pt.rg],
                                         linv[pt.cg],
-                                        extra[pt.rg] if pt.square else None)
+                                        extra[pt.rg] if pt.square else None,
+                                        pt.used)
             for pt, v in zip(self.pairs, values))
 
     def operator(self, values):
@@ -420,7 +455,7 @@ class PairPattern:
 
     def row_bound(self, svals):
         """The Gershgorin bound of the scaled system (K8')."""
-        return kernels.pair_ell.pair_gershgorin(self.bound_rows(svals))
+        return kernels.pair_ell.pair_gershgorin(self.flat_layout(svals))
 
     def trial_outcome(self, work, bT: dict, dxT: dict, ok, lam, ni,
                       chi_cur):
@@ -436,9 +471,11 @@ class PairPattern:
 
 def build_pair_pattern(problem) -> PairPattern:
     """The pair tables of any graph whose vertex groups have widths in
-    kernels/_checks.py PAIR_WIDTHS and whose edge residuals are at most
-    pair_ell.MAX_RESIDUAL wide; NotImplementedError otherwise, on either
-    device (ROADMAP.md §3)."""
+    kernels/_checks.py PAIR_WIDTHS, whose edges join at most
+    pair_ell.MAX_SLOTS vertices with residuals at most pair_ell.MAX_RESIDUAL
+    wide, and whose row groups have at most pair_ell.MAX_PAIRS pair tables
+    each; NotImplementedError otherwise, on either device (ROADMAP.md
+    §3)."""
     from openslam_g2o_torch.kernels import _checks, pair_ell
     st, dev = problem.static, problem.device
     for g in st.vgroups:
@@ -452,6 +489,10 @@ def build_pair_pattern(problem) -> PairPattern:
             raise NotImplementedError(
                 f"LM-PCG over edge type {eg.etype.name!r}: residual width "
                 f"{eg.etype.error_dim} > {pair_ell.MAX_RESIDUAL}")
+        if eg.etype.num_vertices > pair_ell.MAX_SLOTS:
+            raise NotImplementedError(
+                f"LM-PCG over edge type {eg.etype.name!r}: "
+                f"{eg.etype.num_vertices} vertices > {pair_ell.MAX_SLOTS}")
     idx = [[problem.edges[eg.key].indices[s].cpu().numpy().astype(np.int64)
             for s in range(eg.etype.num_vertices)] for eg in st.egroups]
     order, srcs = [], {}
@@ -466,15 +507,13 @@ def build_pair_pattern(problem) -> PairPattern:
         if (g.name, g.name) not in srcs:
             order.append((g.name, g.name))
             srcs[(g.name, g.name)] = []
+    i32 = lambda x: torch.as_tensor(np.ascontiguousarray(x, dtype=np.int32),
+                                    device=dev)
     pairs, square, rows = [], {}, {g.name: [] for g in st.vgroups}
     for rg, cg in order:
         R, C = st.vgroup(rg), st.vgroup(cg)
         N, Nc = R.count, C.count
         src = srcs[(rg, cg)]
-        if len(src) > pair_ell.MAX_SOURCES:
-            raise NotImplementedError(
-                f"LM-PCG: pair ({rg}, {cg}) sums {len(src)} edge group slot "
-                f"pairs, more than the {pair_ell.MAX_SOURCES} of one launch")
         r_all = [idx[gi][s] for gi, s, _ in src]
         c_all = [idx[gi][t] for gi, _, t in src]
         r = np.concatenate(r_all) if r_all else np.zeros(0, np.int64)
@@ -486,13 +525,15 @@ def build_pair_pattern(problem) -> PairPattern:
                                   r * (Nc + 1) + np.where(c == r, 0, c + 1)])
         else:
             key = r * (Nc + 1) + c + 1
+        # the used slots, row by row in slot order: u = rowptr[row] + slot
         uniq, inverse = np.unique(key, return_inverse=True)
         u_rows = uniq // (Nc + 1)
         u_ck = uniq % (Nc + 1)
         u_cols = np.where(u_ck == 0, u_rows, u_ck - 1)
-        slot = (np.arange(len(uniq))
-                - np.searchsorted(u_rows, np.arange(N))[u_rows])
         used = np.bincount(u_rows, minlength=N)
+        rowptr = np.zeros(N + 1, dtype=np.int64)
+        np.cumsum(used, out=rowptr[1:])
+        slot = np.arange(len(uniq)) - rowptr[u_rows]
         K = max(int(used.max()) if N else 1, 1)
         nb = np.zeros((K, N), dtype=np.int32)
         nb[slot, u_rows] = u_cols
@@ -501,48 +542,74 @@ def build_pair_pattern(problem) -> PairPattern:
         cuts = np.cumsum([0] + [len(x) for x in r_all])
         table = pair_ell.assembly_table(
             [dest[cuts[i]:cuts[i + 1]] for i in range(len(src))], N, K * N,
-            R.tangent_dim, C.tangent_dim, dev, cnt=used)
+            R.tangent_dim, C.tangent_dim, dev)
         if rg == cg:
             square[rg] = len(pairs)
         rows[rg].append(len(pairs))
         pairs.append(PairTable(
             rg, cg, R.tangent_dim, C.tangent_dim, N, K,
-            torch.as_tensor(nb, device=dev), table.cnt, tuple(src), table))
+            torch.as_tensor(nb, device=dev), i32(used), i32(rowptr),
+            i32(u_cols), tuple(src), table))
     for g, idx_rows in rows.items():
         if len(idx_rows) > pair_ell.MAX_PAIRS:
             raise NotImplementedError(
                 f"LM-PCG: row group {g!r} has {len(idx_rows)} pair tables, "
-                f"more than the {pair_ell.MAX_PAIRS} of one launch")
+                f"more than the {pair_ell.MAX_PAIRS} of one K5' row group")
     b_sources, b_tables = {}, {}
     for g in st.vgroups:
         bs = tuple((gi, s) for gi, eg in enumerate(st.egroups)
                    for s, gs in enumerate(eg.slots) if gs == g.name)
-        if len(bs) > pair_ell.MAX_SOURCES:
-            raise NotImplementedError(
-                f"LM-PCG: b of group {g.name!r} sums {len(bs)} edge group "
-                f"slots, more than the {pair_ell.MAX_SOURCES} of one launch")
         b_sources[g.name] = bs
         b_tables[g.name] = pair_ell.assembly_table(
             [idx[gi][s] for gi, s in bs], g.count, g.count, g.tangent_dim,
             0, dev)
+    # pass 1's units: slot s of each edge group, its block (s, t) to the
+    # pair table of (slots[s], slots[t]), its b part to slots[s]'s b
+    index = {(pt.rg, pt.cg): i for i, pt in enumerate(pairs)}
+    groups = [g.name for g in st.vgroups]
+    units = []
+    for gi, eg in enumerate(st.egroups):
+        for s, gs in enumerate(eg.slots):
+            targets = []
+            for t, gt in enumerate(eg.slots):
+                pi = index[(gs, gt)]
+                targets.append((pi, pairs[pi].sources.index((gi, s, t))))
+            units.append(pair_ell.Unit(
+                gi, s, tuple(targets),
+                (len(pairs) + groups.index(gs),
+                 b_sources[gs].index((gi, s)))))
+    plan = pair_ell.assembly_plan(
+        [pt.table for pt in pairs] + [b_tables[g] for g in groups], units)
+    offsets, off = {}, 0
+    for g in st.vgroups:
+        offsets[g.name] = off
+        off += g.tangent_dim * g.count
     return PairPattern(
-        tuple(g.name for g in st.vgroups),
-        {g.name: g.tangent_dim for g in st.vgroups},
-        {g.name: g.count for g in st.vgroups}, tuple(pairs), square,
-        {k: tuple(v) for k, v in rows.items()}, b_sources, b_tables)
+        tuple(groups), {g.name: g.tangent_dim for g in st.vgroups},
+        {g.name: g.count for g in st.vgroups}, offsets, tuple(pairs), square,
+        {k: tuple(v) for k, v in rows.items()}, b_sources, b_tables, plan)
 
 
-def pair_sources(problem, pattern: PairPattern):
+def pair_linearize(problem):
     """Every edge group linearized by K17 (core/problem.py
-    `linearize_group`), as K2''s inputs: (per pair table the Sources of
-    its slot pairs, per vertex group those of its b), in table order."""
+    `linearize_group`), as K2''s pass 1 reads it: per edge group (resid
+    [E, D], [J_s [E, D, D_s] per slot], rho' [E], Omega [E, D, D])."""
     from openslam_g2o_torch.core.problem import linearize_group
-    Source = kernels.pair_ell.Source
     lin = []
     for eg in problem.static.egroups:
         resid, jacs, rho1 = linearize_group(problem, eg)
         lin.append((resid.contiguous(), [j.contiguous() for j in jacs],
                     rho1.contiguous(), problem.edges[eg.key].information))
+    return lin
+
+
+def pair_sources(problem, pattern: PairPattern, lin=None):
+    """The linearization (`pair_linearize`, or `lin`) as per-table inputs:
+    (per pair table the Sources of its slot pairs, per vertex group those
+    of its b), in table order (what the plain yardsticks read)."""
+    Source = kernels.pair_ell.Source
+    if lin is None:
+        lin = pair_linearize(problem)
     pairs = [[Source(lin[gi][0], lin[gi][1][s], lin[gi][1][t], lin[gi][2],
                      lin[gi][3]) for gi, s, t in pt.sources]
              for pt in pattern.pairs]
@@ -551,69 +618,62 @@ def pair_sources(problem, pattern: PairPattern):
     return pairs, b
 
 
-def assemble_pairs(problem, pattern: PairPattern):
+def assemble_pairs(problem, pattern: PairPattern, lin=None):
     """(values: a tuple of [K, Dr*Dc, N] per pair table, bT {group: [D,
-    N]}): `pair_sources`, then K2' once per pair table and once per vertex
-    group (sparse.py:620-728). A group no edge reaches has zero blocks and
+    N]}): `pair_linearize` (or `lin`), then K2''s two passes over every
+    table (sparse.py:620-728). A group no edge reaches has zero blocks and
     a zero b."""
-    zeros = lambda *shape: torch.zeros(shape, dtype=problem.dtype,
-                                       device=problem.device)
-    pairs, b = pair_sources(problem, pattern)
-    values = tuple(
-        kernels.pair_ell.pair_assemble(src, pt.table) if src
-        else zeros(pt.k, pt.dr * pt.dc, pt.n)
-        for pt, src in zip(pattern.pairs, pairs))
-    bT = {g: kernels.pair_ell.pair_assemble(b[g], pattern.b_tables[g])
-          if b[g] else zeros(pattern.widths[g], pattern.counts[g])
-          for g in pattern.groups}
-    return values, bT
+    pa = kernels.pair_ell
+    if lin is None:
+        lin = pair_linearize(problem)
+    plan = pattern.plan
+    if plan.units:
+        stream = pa.pair_stream(plan, lin)
+    else:
+        stream = torch.zeros(1, dtype=problem.dtype, device=problem.device)
+    outs = pa.pair_assemble(plan, stream)
+    n = len(pattern.pairs)
+    return tuple(outs[:n]), dict(zip(pattern.groups, outs[n:]))
 
 
 class PairOperator:
-    """The pair tables `values` on a PairPattern as the operator of
-    `pcg_solve`: the matvec is K5' per row group, `matvec_dot` its fused
-    form, whose p . H p partials every row group writes into one table.
-    The partials table and each row group's K5' arguments (`RowArgs`) are
-    made at the first call and reused by every later one. It offers no
-    `matvec_dot_p`, so the CG loop takes its three-launch step."""
+    """The scaled pair tables `values` (K4''s used-slot layout) on a
+    PairPattern as the flat operator of `pcg_solve`: K5' over every row
+    group on flat vectors (`flatten`: the groups' parts vertex-major, one
+    after another; `split` takes one apart). Its FlatLayout (every table
+    checked and laid out once) and its partials table are made at the
+    first call and reused by every later one."""
 
     def __init__(self, pattern: PairPattern, values):
         self.pattern = pattern
         self.values = values
-        self._args = {}
+        self._layout = None
         self._partials = None
 
-    def _operands(self, g, xT):
-        nbs, cnts, vals, xs = self.pattern.row_operands(g, self.values, xT)
-        args = self._args.get(g)
-        if args is None:
-            args = self._args[g] = kernels.pair_ell.row_args(
-                nbs, cnts, vals, xs, self.pattern.widths[g])
-        return (nbs, cnts, vals, xs), args
+    def flatten(self, parts: dict):
+        return self.pattern.flatten(parts)
 
-    def __call__(self, xT: dict) -> dict:
-        out = {}
-        for g in self.pattern.groups:
-            ops, args = self._operands(g, xT)
-            out[g] = kernels.pair_ell.pair_spmv(*ops, self.pattern.widths[g],
-                                                args=args)
-        return out
+    def split(self, flat) -> dict:
+        return self.pattern.split(flat)
 
-    def matvec_dot(self, pT: dict):
-        """({group: H p}, partial sums of p . H p over every group)."""
-        pe, pa = self.pattern, kernels.pair_ell
-        if self._partials is None:
-            like = self.values[0]
-            counts = [pa.partial_count(
-                pe.counts[g], max(pe.pairs[i].k for i in pe.rows[g]),
-                like.device) for g in pe.groups]
-            self._partials = (torch.empty(sum(counts), dtype=like.dtype,
-                                          device=like.device), counts)
-        part, counts = self._partials
-        hp, off = {}, 0
-        for g, c in zip(pe.groups, counts):
-            ops, args = self._operands(g, pT)
-            hp[g], _ = pa.pair_spmv_dot(*ops, pT[g], part[off:off + c],
-                                        args=args)
-            off += c
-        return hp, part
+    @property
+    def layout(self):
+        if self._layout is None:
+            self._layout = self.pattern.flat_layout(self.values)
+            self._partials = torch.empty(
+                self._layout.blocks, dtype=self._layout.dtype,
+                device=self._layout.device)
+        return self._layout
+
+    def __call__(self, x):
+        return kernels.pair_ell.pair_spmv(self.layout, x)
+
+    def matvec_dot(self, p):
+        """(H p, partial sums of p . H p over every group)."""
+        return kernels.pair_ell.pair_spmv_dot(self.layout, p, self._partials)
+
+    def matvec_dot_p(self, scal, p, r, p_new):
+        """(H p_new, partial sums of p_new . H p_new) with p_new = beta p + r
+        written into p_new (beta in `scal`)."""
+        return kernels.pair_ell.pair_spmv_dot_p(self.layout, scal, p, r,
+                                                p_new, self._partials)

@@ -9,11 +9,12 @@ of the arguments decides. Every wrapper counts the calls in which it
 launched its kernel in a plain integer attribute, `wrapper.launches`
 (`cg_finish` and `gershgorin_bound` are two-pass reductions: one counted
 call launches two kernels per vector, respectively two; `pair_gershgorin`
-one per row group and the final maximum; `pair_assemble` on a pair table
-the zero fill of its padding slots and its assembly; `ba_schur_dense`
-launches the zero fill of S, the copy of Hinv into records (counted by
-`ba_schur_records`, as is W's copy) and its pair kernel; `ba_wv` and
-`ba_sandwich` are one launch each).
+the row-sum pass over every row group (a launch per range of
+MAX_GROUPS of them) and the final maximum, and the K5' wrappers count
+the launch per range each; `ba_schur_dense` launches the zero fill of S,
+the copy of Hinv into records (counted by `ba_schur_records`, as is W's
+copy) and its pair kernel; `ba_wv` and `ba_sandwich` are one launch
+each).
 `ba_block_inv`, `damp_chol` and `lane_block_mv`, which serve several
 block widths on one path, also count their launches per width D in
 `wrapper.launches_by_width` (a Counter).
@@ -52,9 +53,11 @@ blocks (SE3 poses); the shapes of the arguments pick the instantiation.
     trial.trial_retract_*        trial candidate per vertex type (ROADMAP K7)
     trial.trial_chi2_*           trial chi2 per edge type  (ROADMAP K7)
     trial.chi2_sum               the chi2 partials' sum    (ROADMAP K7)
+    pair_ell.pair_stream         pair blocks, edge-major   (ROADMAP K2')
     pair_ell.pair_assemble       pair tables' values and b (ROADMAP K2')
     pair_ell.pair_scale          pair block-Jacobi scaling (ROADMAP K4')
-    pair_ell.pair_spmv(_dot)     pair SpMV, with the dot   (ROADMAP K5')
+    pair_ell.pair_spmv(_dot)(_p) pair SpMV, with the dot, with the p
+                                 update folded in          (ROADMAP K5')
     pair_ell.pair_gershgorin     pair Gershgorin bound     (ROADMAP K8')
 
 The `edge_lin` wrappers, one per edge type of openslam_g2o_torch.models
@@ -85,7 +88,8 @@ LM-PCG over several vertex groups (core/sparse.py `PairPattern`: every
 graph but one group of SE2 or SE3 poses with only EDGE_SE2 / EDGE_SE3
 edges) runs the pair kernels at block widths (Dr, Dc) in {2, 3, 6}^2,
 K3 `damp_chol` and K4's `lane_block_mv` per vertex group (D = 2 too), and
-K6's vector kernels on each group's part.
+K6's vector kernels once over the flat vector of all groups (the
+two-launch CG step) or on each group's part (a preconditioned solve).
 """
 from __future__ import annotations
 
@@ -113,8 +117,9 @@ WRAPPERS = (
     ba_inv.ba_block_inv, ba_schur.ba_schur_dense, ba_schur.ba_schur_records,
     ba_coupling.ba_wtx,
     ba_coupling.ba_wv, ba_coupling.ba_sandwich,
-    schur_general.schur_edge_blocks, pair_ell.pair_assemble,
-    pair_ell.pair_scale, pair_ell.pair_spmv, pair_ell.pair_spmv_dot,
+    schur_general.schur_edge_blocks, pair_ell.pair_stream,
+    pair_ell.pair_assemble, pair_ell.pair_scale, pair_ell.pair_spmv,
+    pair_ell.pair_spmv_dot, pair_ell.pair_spmv_dot_p,
     pair_ell.pair_gershgorin, *edge_lin.WRAPPERS, *trial.WRAPPERS)
 
 

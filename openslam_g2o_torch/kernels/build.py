@@ -84,11 +84,11 @@ _SIGNATURES = {
                         _I, _P, _P, _P),
     "g2o_ba_records": (_P, _L, _I, _I, _P, _P),
     "g2o_ba_schur": (_P,) * 9 + (_I,) * 5 + (_P, _P),
-    "g2o_pair_assemble": (_P, _P, _I) + (_P,) * 9 + (_I,) * 5 + (_P,),
-    "g2o_pair_spmv": (_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P),
-    "g2o_pair_scale": (_P,) * 7 + (_I, _L, _I, _I, _I, _P),
-    "g2o_pair_gershgorin": (_P, _P, _P, _I, _P, _I, _I, _I, _P),
-    "g2o_pair_gershgorin_final": (_P, _I, _P, _P),
+    "g2o_pair_stream": (_P, _I, _I, _P),
+    "g2o_pair_sum": (_P, _I, _I, _P),
+    "g2o_pair_scale": (_P,) * 7 + (_I, _L, _I, _L, _I, _I, _P),
+    "g2o_pair_flat": (_P, _I, _I, _I) + (_P,) * 7,
+    "g2o_pair_bound": (_P, _I, _I, _P, _P, _I, _P, _P),
     "g2o_schur_edge": (_P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _P, _P,
                        _P, _P, _L, _P, _P, _P, _L, _P, _I, _P),
 }

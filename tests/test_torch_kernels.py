@@ -2665,10 +2665,12 @@ def _pair_world(kind, dtype, device):
 @pytest.mark.parametrize("kind", ["2d", "3d"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_pair_kernels_match_plain_on_gpu(cuda, kind, dtype):
-    """K2' (values of every pair and b of every group), K4' (a NaN factor
-    and padded slots), K5' with and without the dot, and K8' against their
-    plain versions at every (Dr, Dc) of the world, each run twice for the
-    same bits; K3 and K4's lane_block_mv at every group width."""
+    """K2' (both passes: the stream, then the values of every pair and b of
+    every group), K4' (a NaN factor; the used-slot layout), K5' in its
+    three forms (one launch over every row group; the folded direction)
+    and K8' against their plain versions at every (Dr, Dc) of the world,
+    each run twice for the same bits; K3 and K4's lane_block_mv at every
+    group width."""
     from openslam_g2o_torch.kernels import pair_ell
     prob, pat = _pair_world(kind, dtype, cuda)
     assert isinstance(pat, sparse.PairPattern)
@@ -2677,22 +2679,23 @@ def test_pair_kernels_match_plain_on_gpu(cuda, kind, dtype):
                       else {(6, 6), (6, 3), (3, 6), (3, 3)})
     if kind == "2d":                    # a landmark of several chunks
         hub = pat.pairs[pat.square["point_xy"]].table
-        assert int(torch.diff(hub.dest_chunk).max()) > 1
+        assert int(torch.diff(hub.ptr).max()) > pair_ell.PAIR_CHUNK
     tol = TOL[dtype] * 10
     kernels.reset_launch_counts()
-    srcs, bsrcs = sparse.pair_sources(prob, pat)
-    values = []
-    for pt, src in zip(pat.pairs, srcs):
-        v = pair_ell.pair_assemble(src, pt.table)
-        assert torch.equal(v, pair_ell.pair_assemble(src, pt.table))
-        assert _rel(v, pair_ell.pair_assemble_plain(src, pt.table)) < tol
-        values.append(v)
-    bT = {}
-    for g in pat.groups:
-        bT[g] = pair_ell.pair_assemble(bsrcs[g], pat.b_tables[g])
-        assert _rel(bT[g], pair_ell.pair_assemble_plain(
-            bsrcs[g], pat.b_tables[g])) < tol
-        assert int(pat.b_tables[g].arrivals.abs().sum()) == 0
+    plan = pat.plan
+    lin = sparse.pair_linearize(prob)
+    stream = pair_ell.pair_stream(plan, lin)
+    assert torch.equal(stream, pair_ell.pair_stream(plan, lin))
+    assert _rel(stream[:plan.stream_len],
+                pair_ell.pair_stream_plain(plan, lin)) < tol
+    outs = pair_ell.pair_assemble(plan, stream)
+    again = pair_ell.pair_assemble(plan, stream)
+    plain = pair_ell.pair_assemble_plain(plan, stream[:plan.stream_len])
+    for o, a, p in zip(outs, again, plain):
+        assert torch.equal(o, a)
+        assert _rel(o, p) < tol
+    n = len(pat.pairs)
+    values, bT = outs[:n], dict(zip(pat.groups, outs[n:]))
     lam = torch.tensor(0.1, dtype=dtype, device=cuda)
     linv, extra = {}, {}
     for g, i in pat.square.items():
@@ -2711,51 +2714,101 @@ def test_pair_kernels_match_plain_on_gpu(cuda, kind, dtype):
     g0 = pat.groups[0]
     bad = {**linv, g0: linv[g0].clone()}
     bad[g0][:, 1] = float("nan")
-    svals = []
     for pt, v in zip(pat.pairs, values):
         ext = extra[pt.rg] if pt.square else None
         for fac in (linv, bad):
-            s = pair_ell.pair_scale(pt.nb, pt.cnt, v, fac[pt.rg], fac[pt.cg],
-                                    ext)
-            p = pair_ell.pair_scale_plain(pt.nb, pt.cnt, v, fac[pt.rg],
+            s = pair_ell.pair_scale(pt.nb, pt.rowptr, v, fac[pt.rg],
+                                    fac[pt.cg], ext, pt.used)
+            p = pair_ell.pair_scale_plain(pt.nb, pt.rowptr, v, fac[pt.rg],
                                           fac[pt.cg], ext)
+            assert s.shape == (pt.dr * pt.dc, pt.used)
             assert torch.equal(torch.isnan(s), torch.isnan(p))
-            again = pair_ell.pair_scale(pt.nb, pt.cnt, v, fac[pt.rg],
-                                        fac[pt.cg], ext)
+            again = pair_ell.pair_scale(pt.nb, pt.rowptr, v, fac[pt.rg],
+                                        fac[pt.cg], ext, pt.used)
             assert torch.equal(s.view(torch.uint8), again.view(torch.uint8))
             fin = torch.isfinite(p)
             assert _rel(s[fin], p[fin]) < TOL_B[dtype]
-            # padding slots (all-zero, no damping) stay exact zeros
-            pad = (v == 0).all(dim=1, keepdim=True).expand_as(v).clone()
+            # an all-zero slot without damping stays an exact zero
+            rows, slots = pair_ell.used_slots(pt.rowptr)
+            zero = (v == 0).all(dim=1)[slots, rows]
             if pt.square:
-                pad[0] = False
-            assert (s[pad] == 0).all()
-        svals.append(pair_ell.pair_scale(pt.nb, pt.cnt, v, linv[pt.rg],
-                                         linv[pt.cg], ext))
-    xT = {g: torch.randn((pat.widths[g], pat.counts[g]), dtype=dtype,
-                         device=cuda) for g in pat.groups}
-    for g in pat.groups:
-        ops = pat.row_operands(g, svals, xT)
-        y = pair_ell.pair_spmv(*ops, pat.widths[g])
-        assert torch.equal(y, pair_ell.pair_spmv(*ops, pat.widths[g]))
-        assert _rel(y, pair_ell.pair_spmv_plain(*ops, pat.widths[g])) < tol
-        part = torch.empty(pair_ell.partial_count(
-            pat.counts[g], max(nb.shape[0] for nb in ops[0]), cuda),
-            dtype=dtype, device=cuda)
-        yd, part = pair_ell.pair_spmv_dot(*ops, xT[g], part)
-        assert torch.equal(yd, y)
-        assert _rel(part.sum(), (xT[g] * y).sum()) < tol
-    rows = pat.bound_rows(svals)
-    hi = pair_ell.pair_gershgorin(rows)
-    assert torch.equal(hi, pair_ell.pair_gershgorin(rows))
-    assert _rel(hi, pair_ell.pair_gershgorin_plain(rows)) < tol
+                zero &= slots != 0
+            assert (s[:, zero] == 0).all()
+    svals = pat.scale(values, linv, extra)
+    lay = pat.flat_layout(svals)
+    flat = pair_ell.FlatLayout.__new__(pair_ell.FlatLayout)
+    flat.__dict__.update(lay.__dict__)
+    flat.on_card = False                       # the plain versions on it
+    x = torch.randn(lay.n, dtype=dtype, device=cuda)
+    r = torch.randn(lay.n, dtype=dtype, device=cuda)
+    y = pair_ell.pair_spmv(lay, x)
+    assert torch.equal(y, pair_ell.pair_spmv(lay, x))
+    assert _rel(y, pair_ell.pair_spmv_plain(flat, x)) < tol
+    yd, part = pair_ell.pair_spmv_dot(lay, x)
+    assert torch.equal(yd, y) and part.shape == (lay.blocks,)
+    assert _rel(part.sum(), torch.dot(x, y)) < tol
+    scal = torch.zeros(cg_step.N_SCALARS, dtype=dtype, device=cuda)
+    scal[cg_step.BETA] = 0.37
+    p_new = torch.empty_like(x)
+    yp, part = pair_ell.pair_spmv_dot_p(lay, scal, x, r, p_new)
+    assert _rel(p_new, scal[cg_step.BETA] * x + r) < tol
+    assert _rel(yp, pair_ell.pair_spmv_plain(flat, p_new)) < tol
+    assert _rel(part.sum(), torch.dot(p_new, yp)) < tol
+    yp2, part2 = pair_ell.pair_spmv_dot_p(lay, scal, x, r,
+                                          torch.empty_like(x))
+    assert torch.equal(yp2, yp) and torch.equal(part2, part)
+    hi = pair_ell.pair_gershgorin(lay)
+    assert torch.equal(hi, pair_ell.pair_gershgorin(lay))
+    assert _rel(hi, pair_ell.pair_gershgorin_plain(flat)) < tol
     counts = kernels.launch_counts()
-    for k in ("pair_assemble", "pair_scale", "pair_spmv", "pair_spmv_dot",
-              "pair_gershgorin", "damp_chol", "lane_block_mv"):
+    for k in ("pair_stream", "pair_assemble", "pair_scale", "pair_spmv",
+              "pair_spmv_dot", "pair_spmv_dot_p", "pair_gershgorin",
+              "damp_chol", "lane_block_mv"):
         assert counts[k] > 0, k
     if kind == "2d":
         assert damp_chol.damp_chol.launches_by_width[2] >= 1
         assert jacobi_scale.lane_block_mv.launches_by_width[2] >= 2
+
+
+@pytest.mark.parametrize("kind", ["2d", "3d"])
+def test_pair_flat_shapes_on_gpu(cuda, kind, monkeypatch):
+    """K5' and K8' give the same products with every team shape (1, 4 and
+    32 lanes a row), and the same bits over one launch a row group."""
+    from openslam_g2o_torch.kernels import pair_ell
+    prob, pat = _pair_world(kind, torch.float64, cuda)
+    values, bT = sparse.assemble_pairs(prob, pat)
+    lam = torch.tensor(0.1, dtype=torch.float64, device=cuda)
+    linv, extra = {}, {}
+    for g, i in pat.square.items():
+        linv[g], _, _, extra[g] = damp_chol.damp_chol(
+            values[i], prob.free[g], bT[g], lam)
+    svals = pat.scale(values, linv, extra)
+    ref = pat.flat_layout(svals)
+    assert len(ref.launches) == 1
+    x = torch.randn(ref.n, dtype=torch.float64, device=cuda)
+    y0, hi0 = pair_ell.pair_spmv(ref, x), pair_ell.pair_gershgorin(ref)
+    for lanes in (1, 4, 32):
+        monkeypatch.setattr(pair_ell, "flat_shape",
+                            lambda groups: [lanes] * len(groups))
+        lay = pat.flat_layout(svals)
+        assert _rel(pair_ell.pair_spmv(lay, x), y0) < 1e-13
+        assert _rel(pair_ell.pair_gershgorin(lay), hi0) < 1e-13
+    monkeypatch.undo()
+    monkeypatch.setattr(pair_ell, "MAX_GROUPS", 1)
+    lay = pat.flat_layout(svals)
+    assert len(lay.launches) == len(pat.groups) and lay.blocks == ref.blocks
+    r = torch.randn_like(x)
+    scal = torch.zeros(10, dtype=torch.float64, device=cuda)
+    scal[9] = 0.37
+    p1, p2 = torch.empty_like(x), torch.empty_like(x)
+    kernels.reset_launch_counts()
+    y1, part1 = pair_ell.pair_spmv_dot_p(ref, scal, x, r, p1)
+    y2, part2 = pair_ell.pair_spmv_dot_p(lay, scal, x, r, p2)
+    assert pair_ell.pair_spmv_dot_p.launches == 1 + len(pat.groups)
+    assert torch.equal(y1, y2) and torch.equal(p1, p2)
+    assert torch.equal(part1, part2)
+    assert torch.equal(pair_ell.pair_spmv(lay, x), y0)
+    assert torch.equal(pair_ell.pair_gershgorin(lay), hi0)
 
 
 @pytest.mark.parametrize("cheby", [0, 4])
@@ -2782,11 +2835,17 @@ def test_pair_lm_pcg_on_gpu_matches_cpu(cuda, cheby, monkeypatch):
                              kernels.launch_counts())
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-9)
     counts = runs["cuda"][1]
-    used = ("pair_assemble", "pair_scale", "pair_spmv_dot", "damp_chol",
-            "lane_block_mv", "cg_update_xr", "cg_update_p", "edge_lin_se2",
-            "edge_lin_se2_xy", "trial_retract_se2", "trial_retract_point_xy",
-            "trial_chi2_se2", "trial_chi2_se2_xy", "lm_outcome") + (
-        ("pair_gershgorin", "chebyshev_update") if cheby else ())
+    used = ("pair_stream", "pair_assemble", "pair_scale", "pair_spmv",
+            "pair_spmv_dot", "damp_chol", "lane_block_mv", "cg_update_xr",
+            "edge_lin_se2", "edge_lin_se2_xy", "trial_retract_se2",
+            "trial_retract_point_xy", "trial_chi2_se2", "trial_chi2_se2_xy",
+            "lm_outcome") + (
+        ("pair_gershgorin", "chebyshev_update", "cg_update_p") if cheby
+        else ("pair_spmv_dot_p",))
     assert all(counts[k] > 0 for k in used), counts
     assert counts["spmv_dot"] == counts["spmv_dot_p"] == 0
+    if not cheby:        # the two-launch step: one cg_update_xr a product
+        assert counts["cg_update_p"] == 0
+        assert counts["cg_update_xr"] == (counts["pair_spmv_dot"]
+                                          + counts["pair_spmv_dot_p"])
     assert not any(runs["cpu"][1].values())

@@ -241,40 +241,72 @@ def test_widths_without_an_instantiation_are_refused():
         tsparse.build_ell_pattern(tprob)
 
 
+@pytest.mark.parametrize("limit, match", [
+    ("MAX_PAIRS", "pair tables"), ("MAX_SLOTS", "vertices"),
+    ("MAX_RESIDUAL", "residual width")])
+def test_pattern_limits_are_refused(limit, match, monkeypatch):
+    """A graph past one of the pair kernels' limits (pair tables a row
+    group, vertices an edge, residual width; ROADMAP.md §3) is refused on
+    either device; the row groups and pair tables in all are not limited
+    (K5' and K8' launch again)."""
+    _, tprob = world("psi2uv")
+    tsparse.build_pair_pattern(tprob)
+    monkeypatch.setattr(pair_ell, "MAX_GROUPS", 1)
+    monkeypatch.setattr(pair_ell, "MAX_TABLES", 1)
+    tsparse.build_pair_pattern(tprob)
+    monkeypatch.setattr(pair_ell, limit, 1)
+    with pytest.raises(NotImplementedError, match=match):
+        tsparse.build_pair_pattern(tprob)
+
+
 def test_assembly_tables_cut_hubs_into_chunks():
-    """A landmark seen by more than PAIR_CHUNK poses owns several chunks;
-    walking the tables in their order (the kernel's sums, in numpy) gives
-    the plain version's values."""
+    """A landmark seen by more than PAIR_CHUNK poses has a run of several
+    chunks in its table's stream; walking the tables in their order (the
+    two passes' sums, in numpy: each destination's run in PAIR_CHUNK
+    chunks, the chunk sums added in order) gives the plain version's
+    values."""
     g, _ = TSim2D(world_size=6.0, n_landmarks=3, seed=1).simulate(80)
     prob = g.compile(device="cpu")
     pat = tsparse.build_ell_pattern(prob)
     values, bT = tsparse.assemble_ell(prob, pat)
-    tb = pat.pairs[pat.square["point_xy"]].table
-    per_dest = np.diff(tb.dest_chunk.numpy())
-    assert per_dest.max() > 1
-    # the used slots own a chunk at least, the padding slots none
-    for pt in pat.pairs:
-        owned = np.diff(pt.table.dest_chunk.numpy()).reshape(pt.k, pt.n)
-        used = np.arange(pt.k)[:, None] < pt.cnt.numpy()[None]
-        assert (owned[used] >= 1).all() and (owned[~used] == 0).all()
-    # the kernel's walk: chunk sums in table order, then chunks in order
+    pt = pat.pairs[pat.square["point_xy"]]
+    tb = pt.table
+    runs = np.diff(tb.ptr.numpy())
+    assert runs.max() > pair_ell.PAIR_CHUNK
+    # the padding slots own no contribution
+    for p in pat.pairs:
+        used = np.arange(p.k)[:, None] < p.cnt.numpy()[None]
+        assert not np.diff(p.table.ptr.numpy()).reshape(p.k, p.n)[~used].any()
+    # the two passes' walk: place m holds edge e of source s where
+    # pos[s][e] == m
     from openslam_g2o_torch.core.problem import linearize_group
     lin = [linearize_group(prob, eg) for eg in prob.static.egroups]
-    pt = pat.pairs[pat.square["point_xy"]]
     info = [prob.edges[eg.key].information for eg in prob.static.egroups]
-    cp, cd = tb.chunk_ptr.numpy(), tb.chunk_dest.numpy()
-    cs, ce = tb.csrc.numpy(), tb.cedge.numpy()
+    at = {}
+    for si, pos in enumerate(tb.pos):
+        for e, m in enumerate(pos.tolist()):
+            at[m] = (si, e)
+    assert sorted(at) == list(range(tb.n_contrib))
+    ptr = tb.ptr.numpy()
     out = np.zeros((tb.n_dest, tb.entries))
-    for ch in range(tb.n_chunks):
-        acc = np.zeros(tb.entries)
-        for m in range(cp[ch], cp[ch + 1]):
-            gi, s, t = pt.sources[cs[m]]
+    for d in range(tb.n_dest):
+        p0, p1 = ptr[d], ptr[d + 1]
+        tot, acc = 0.0, np.zeros(tb.entries)
+        chunks = []
+        for m in range(p0, p1):
+            if m != p0 and (m - p0) % pair_ell.PAIR_CHUNK == 0:
+                chunks.append(acc)
+                acc = np.zeros(tb.entries)
+            gi, s, t = pt.sources[at[m][0]]
             r, jacs, w = lin[gi]
-            e = ce[m]
+            e = at[m][1]
             js, jt = jacs[s][e].numpy(), jacs[t][e].numpy()
             om = w[e].item() * info[gi][e].numpy()
-            acc += (js.T @ om @ jt).reshape(-1)
-        out[cd[ch]] += acc
+            acc = acc + (js.T @ om @ jt).reshape(-1)
+        chunks.append(acc)
+        for c in chunks:
+            tot = tot + c
+        out[d] = tot
     got = out.reshape(pt.k, pt.n, -1).transpose(0, 2, 1)
     _close(torch.as_tensor(got), values[pat.square["point_xy"]].numpy())
     assert bT["point_xy"].shape == (2, pt.n)
@@ -324,7 +356,8 @@ def test_scaled_system_matvec_and_bound_match_jax(name, lam):
         linv[g], _, _, extra[g] = damp_chol(v, tprob.free[g], tbT[g], lam_t)
     tS = tpat.scale(tvals, linv, extra)
     jdense = _dense_jax(jprob, jpat, jS)
-    tdense = _dense_torch(tpat, tS)
+    tdense = _dense_torch(tpat, [pair_ell.padded(v, pt.rowptr, pt.k)
+                                 for pt, v in zip(tpat.pairs, tS)])
     for key, jm in jdense.items():
         _close(tdense[key], jm)
     ty = tsparse.ell_matvec_lane(tpat, tS, {k: torch.as_tensor(v)
@@ -332,7 +365,9 @@ def test_scaled_system_matvec_and_bound_match_jax(name, lam):
     for g in tpat.groups:
         _close(ty[g], jy[g])
     op = tpat.operator(tS)
-    hp, part = op.matvec_dot({k: torch.as_tensor(v) for k, v in xT.items()})
+    hp, part = op.matvec_dot(op.flatten({k: torch.as_tensor(v)
+                                         for k, v in xT.items()}))
+    hp = op.split(hp)
     dot = sum(float((torch.as_tensor(xT[g]) * hp[g]).sum())
               for g in tpat.groups)
     np.testing.assert_allclose(float(part.sum()), dot, rtol=1e-12)
@@ -456,27 +491,29 @@ def _wrapper_args():
 
 def test_pair_assemble_checks_its_arguments():
     tprob, pat, _, _ = _wrapper_args()
-    pt = pat.pairs[0]
-    from openslam_g2o_torch.core.problem import linearize_group
-    eg = tprob.static.egroups[pt.sources[0][0]]
-    r, jacs, w = linearize_group(tprob, eg)
-    info = tprob.edges[eg.key].information
-    src = pair_ell.Source(r, jacs[0], jacs[0], w, info)
-    with pytest.raises(ValueError, match="sources for a table"):
-        pair_ell.pair_assemble([src], pt.table)
-    with pytest.raises(ValueError, match="shapes do not fit"):
-        pair_ell.pair_assemble(
-            [pair_ell.Source(r, jacs[0], jacs[0][:, :, :2], w, info)]
-            * len(pt.sources), pt.table)
+    plan = pat.plan
+    lin = tsparse.pair_linearize(tprob)
+    r, jacs, w, info = lin[0]
+    with pytest.raises(ValueError, match="Jacobians of slots"):
+        pair_ell.pair_stream(plan, [(r, [jacs[0], jacs[0][:, :, :2]], w,
+                                     info)] + lin[1:])
     with pytest.raises(ValueError, match="residual width"):
         bad = torch.zeros((r.shape[0], 7), dtype=r.dtype)
-        pair_ell.pair_assemble([pair_ell.Source(bad, jacs[0], jacs[0], w,
-                                                info)] * len(pt.sources),
-                               pt.table)
+        pair_ell.pair_stream(plan, [(bad, jacs, w, info)] + lin[1:])
+    with pytest.raises(ValueError, match="2 slots"):
+        pair_ell.pair_stream(plan, [(r, jacs[:1], w, info)] + lin[1:])
     with pytest.raises(ValueError, match="dtype"):
-        pair_ell.pair_assemble(
-            [pair_ell.Source(r, jacs[0].float(), jacs[0], w, info)]
-            * len(pt.sources), pt.table)
+        pair_ell.pair_stream(plan, [(r, [j.float() for j in jacs], w,
+                                     info)] + lin[1:])
+    with pytest.raises(ValueError, match="Omega"):
+        pair_ell.pair_stream(plan, [(r, jacs, w[:-1], info)] + lin[1:])
+    stream = pair_ell.pair_stream(plan, lin)
+    with pytest.raises(ValueError, match="must hold"):
+        pair_ell.pair_assemble(plan, stream[:-1])
+    with pytest.raises(ValueError, match="dtype"):
+        pair_ell.pair_assemble(plan, stream.long())
+    with pytest.raises(ValueError, match="vertices"):
+        pair_ell.assembly_plan(plan.tables, [pair_ell.Unit(0, 0, (), (0, 0))])
 
 
 def test_pair_scale_checks_its_arguments():
@@ -488,46 +525,72 @@ def test_pair_scale_checks_its_arguments():
             for g, i in pat.square.items()}
     pr = pat.pairs[rect]
     with pytest.raises(ValueError, match="square pair"):
-        pair_ell.pair_scale(pr.nb, pr.cnt, values[rect], linv[pr.rg],
+        pair_ell.pair_scale(pr.nb, pr.rowptr, values[rect], linv[pr.rg],
                             linv[pr.cg], torch.ones(pr.n, dtype=torch.float64))
     with pytest.raises(ValueError, match="values shape"):
-        pair_ell.pair_scale(pr.nb, pr.cnt, values[sq], linv[pr.rg],
+        pair_ell.pair_scale(pr.nb, pr.rowptr, values[sq], linv[pr.rg],
                             linv[pr.cg])
     with pytest.raises(ValueError, match="fit no block widths"):
-        pair_ell.pair_scale(pr.nb, pr.cnt, values[rect], linv[pr.rg][:5],
+        pair_ell.pair_scale(pr.nb, pr.rowptr, values[rect], linv[pr.rg][:5],
                             linv[pr.cg])
     with pytest.raises(ValueError, match="int32"):
-        pair_ell.pair_scale(pr.nb.long(), pr.cnt, values[rect], linv[pr.rg],
-                            linv[pr.cg])
-    with pytest.raises(ValueError, match="cnt must be"):
-        pair_ell.pair_scale(pr.nb, pr.cnt[:-1].contiguous(), values[rect],
+        pair_ell.pair_scale(pr.nb.long(), pr.rowptr, values[rect],
                             linv[pr.rg], linv[pr.cg])
+    with pytest.raises(ValueError, match="rowptr must be"):
+        pair_ell.pair_scale(pr.nb, pr.rowptr[:-1].contiguous(), values[rect],
+                            linv[pr.rg], linv[pr.cg])
+    # the used-slot layout: every used slot once, in row and slot order
+    s = pair_ell.pair_scale(pr.nb, pr.rowptr, values[rect], linv[pr.rg],
+                            linv[pr.cg], used=pr.used)
+    assert s.shape == (pr.dr * pr.dc, pr.used)
+    assert torch.equal(pr.rowptr[1:] - pr.rowptr[:-1], pr.cnt)
+    rows, slots = pair_ell.used_slots(pr.rowptr)
+    assert torch.equal(pr.cols, pr.nb[slots, rows])
 
 
 def test_pair_spmv_and_bound_check_their_arguments():
-    tprob, pat, values, _ = _wrapper_args()
-    nbs, cnts, vals, xs = pat.row_operands(
-        "se2", values, {g: torch.zeros((pat.widths[g], pat.counts[g]),
-                                       dtype=torch.float64)
-                        for g in pat.groups})
-    with pytest.raises(ValueError, match="do not fit"):
-        pair_ell.pair_spmv(nbs, cnts, vals, [xs[0][:2].contiguous()] + xs[1:],
-                           3)
-    with pytest.raises(ValueError, match="block width"):
-        pair_ell.pair_spmv(nbs, cnts, vals, xs, 4)
-    with pytest.raises(ValueError, match="pairs"):
-        pair_ell.pair_spmv(nbs * 5, cnts * 5, vals * 5, xs * 5, 3)
-    with pytest.raises(ValueError, match="cnt must be"):
-        pair_ell.pair_spmv(nbs, [c[:-1] for c in cnts], vals, xs, 3)
-    p = torch.zeros((3, pat.counts["se2"]), dtype=torch.float64)
+    tprob, pat, values, bT = _wrapper_args()
+    lam = torch.tensor(1.0, dtype=torch.float64)
+    linv, extra = {}, {}
+    for g, i in pat.square.items():
+        linv[g], _, _, extra[g] = damp_chol(values[i], tprob.free[g], bT[g],
+                                            lam)
+    svals = pat.scale(values, linv, extra)
+    lay = pat.flat_layout(svals)
+    assert lay.n == sum(pat.widths[g] * pat.counts[g] for g in pat.groups)
+    x = torch.zeros(lay.n, dtype=torch.float64)
+    with pytest.raises(ValueError, match="flat"):
+        pair_ell.pair_spmv(lay, x[:-1])
+    with pytest.raises(ValueError, match="dtype"):
+        pair_ell.pair_spmv(lay, x.float())
     with pytest.raises(ValueError, match="partials"):
-        pair_ell.pair_spmv_dot(nbs, cnts, vals, xs, p,
-                               torch.zeros(3, dtype=torch.float64))
-    with pytest.raises(ValueError, match="not"):
-        pair_ell.pair_gershgorin([(3, [vals[0][:, :4].contiguous()],
-                                   cnts[:1])])
-    with pytest.raises(ValueError, match="no row groups"):
-        pair_ell.pair_gershgorin([])
+        pair_ell.pair_spmv_dot(lay, x, torch.zeros(3, dtype=torch.float64))
+    with pytest.raises(ValueError, match="dtype"):
+        pair_ell.pair_spmv_dot(lay, x, torch.zeros(lay.blocks))
+    scal = torch.zeros(10, dtype=torch.float64)
+    y = torch.empty_like(x)
+    with pytest.raises(ValueError, match="another buffer"):
+        pair_ell.pair_spmv_dot_p(lay, scal, x, x, x)
+    with pytest.raises(ValueError, match="scal"):
+        pair_ell.pair_spmv_dot_p(lay, scal[:9], x, x, y)
+    with pytest.raises(ValueError, match="dtype"):
+        pair_ell.pair_spmv_dot_p(lay, scal.float(), x, x, y)
+    with pytest.raises(ValueError, match="dtype"):
+        pair_ell.pair_spmv_dot_p(lay, scal, x, x, y,
+                                 torch.zeros(lay.blocks))
+    grp = lay.groups[0]
+    with pytest.raises(ValueError, match="block width"):
+        pair_ell.FlatLayout([pair_ell.FlatGroup(4, grp.n, 0, grp.tables)])
+    with pytest.raises(ValueError, match="no row group"):
+        pair_ell.FlatLayout([])
+    with pytest.raises(ValueError, match="pair tables a row group"):
+        pair_ell.FlatLayout([pair_ell.FlatGroup(
+            grp.dr, grp.n, grp.off, grp.tables * 5)])
+    t0 = grp.tables[0]
+    with pytest.raises(ValueError, match="does not fit"):
+        pair_ell.FlatLayout([pair_ell.FlatGroup(grp.dr, grp.n, grp.off, (
+            pair_ell.FlatTable(t0.rowptr[:-1], t0.cols, t0.values, t0.dc,
+                               t0.col_off, t0.ncol),))])
     assert PAIR_WIDTHS == (2, 3, 6)
 
 

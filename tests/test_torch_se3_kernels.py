@@ -223,7 +223,7 @@ def test_spmv_and_spmv_dot_match_dense(system):
     assert torch.equal(hp, y)
     _close(partials.sum(), float((x * y).sum()))
     op = tsparse.EllOperator(pattern, values)
-    assert torch.equal(op({"se3": x})["se3"], y)
+    assert torch.equal(op.split(op(op.flatten({"se3": x})))["se3"], y)
     with pytest.raises(ValueError, match="block width|D"):
         block_ell_spmv(pattern.nb, values, x[:4].contiguous())
 
