@@ -33,7 +33,7 @@ Phases (any failure raises and the script exits non-zero):
     BAL camera scene) and, for the types of
     phase 4o, on a seeded group of 50,000 edges each (lin_group), twice
     for the same bits and by device time. K7 on the dense and Schur
-    routes (trial_retract_* of every vertex type on a seeded group of
+    routes (trial_retract_groups on each vertex type's seeded group of
     50,000 vertices, trial_chi2_* of every edge type on a seeded group of
     50,000 edges under Huber, chi2_sum on a 400,000-edge group's
     partials), float32 and float64, twice for the same bits and by device
@@ -181,7 +181,7 @@ Phases (any failure raises and the script exits non-zero):
     graph (the dual-ELL solver); the float32 80k result written by
     save_bal_problem and read back with the final chi2. Phase 3 holds
     the instantiations this path adds at its shapes (rows @bal, @bal400k,
-    lane_block_mv@d9, edge_lin_bal and trial_chi2_bal@4p on the 80k
+    lane_block_mv_dot@d9, edge_lin_bal and trial_chi2_bal@4p on the 80k
     scene): K17 and K7 for EDGE_PROJECT_BAL and VERTEX_CAMERA_BAL, K10's
     generic entry and owner sums at (9, 3), K11 and K4 at D = 9 (beside
     torch.linalg.inv_ex and torch.bmm), K12 (beside the JAX route's
@@ -263,19 +263,42 @@ Phases (any failure raises and the script exits non-zero):
     spmv_dot_p runs on the unpreconditioned paths only, cg_update_p on the
     preconditioned ones (4b, 4e's Chebyshev window, 4h, 4i, 4j-4n).
     K17's rows count every phase (4d, 4f, 4i, 4j-4n, 4o, 4s), and each row's
-    phase (LIN_ROWS) must launch it. From phase 4 on no built-in edge type
+    phase (LIN_ROWS) must launch it. K4's lane_block_mv_dot counts the
+    preconditioned Schur phases (4h, 4i, 4j-4n, 4p, 4q) by width: there it
+    takes the place of lane_block_mv + dot_partials, so dot_partials must
+    not launch there, and lane_block_mv_dot launches once per pose group per
+    CG iteration and per solve's start (two under the preconditioned norm).
+    K7's trial_retract_groups launches once per trial on every route of
+    lm_trial_outcome (4d-4s but 4e; trial_split asserts it), and its rows
+    trial_retract_groups@<vertex type> count the launches that served a
+    group of that type, read with each phase's counts (read_counts) and
+    summed over the phases as the other rows are. From phase 4 on no built-in edge type
     reaches the generic linearization (linearize_edges, forward_jacobians)
-    on the card outside the plain-route runs: each such call is counted
-    and there must be none; nor does a built-in vertex or edge type reach
-    the plain trial (kernels/trial.py retract_plain, chi2_plain). K7's
-    rows (TRIAL_ROWS) count every phase, each row's phase must launch it,
-    and its launches are printed per phase.
+    on the card outside the plain-route runs: each such call is counted and
+    there must be none; nor does a built-in vertex or edge type reach the
+    plain trial (kernels/trial.py retract_plain, chi2_plain). K7's rows
+    (TRIAL_ROWS) count every phase, each row's phase must launch it, and its
+    launches are printed per phase.
+    Phase 3 also holds K4's lane_block_mv_dot at the shapes of the
+    preconditioned Schur routes (D = 6, N = 900: 4h's cameras; @d9: 4p's 900
+    BAL cameras; @d4: 4l's intrinsics hub; @4l its cameras, printed),
+    against its plain version, its partials bit for bit against
+    dot_partials of its z (and at D = 6, where lane_block_mv is built,
+    against lane_block_mv + dot_partials, the parent's form, and by device
+    time beside that pair and lane_block_mv alone), by device time beside
+    torch.bmm; K7's trial_retract_groups on two or three seeded groups at
+    4g's, 4p @400k's and 4l's sizes, bit for bit against one launch per
+    group (as the parent's trial launched) and by device time beside them,
+    and on each vertex type's seeded group of 50,000 (rows @<vertex
+    type>); kernel_times.py --only precond and --only trial time the
+    parent's forms (--tree).
 The last two lines are the per-kernel JSON and {"ok": true, "device": ...}.
 Exits non-zero without printing a result when no GPU is visible.
 """
 from __future__ import annotations
 
 import atexit
+import collections
 import ctypes
 import json
 import os
@@ -324,9 +347,7 @@ TOL = {"edge_se2_blocks": {"float32": 1e-4, "float64": 1e-11},
        # K7 on the dense and Schur routes: the candidate relative to its
        # largest entry, the summed chi2 and dot
        **{w_: {"float32": 1e-5, "float64": 1e-12} for w_ in (
-           "chi2_sum", *("trial_retract_" + v_ for v_ in (
-               "se2", "point_xy", "se3", "point_xyz", "se3_expmap",
-               "sba_point_xyz", "cam", "intrinsics", "bal_camera")),
+           "chi2_sum", "trial_retract_groups",
            *("trial_chi2_" + n_ for n_ in (
                "se2", "se2_xy", "se2_bearing", "se2_prior", "se2_prior_xy",
                "se2_xy_calib", "se2_offset", "se2_xy_offset", "se3",
@@ -436,6 +457,10 @@ KERNELS = {
                      "openslam_g2o_tpu/core/sparse.py:1204"),
     "lane_block_mv": ("jacobi_scale.cu",
                       "openslam_g2o_tpu/core/sparse.py:871"),
+    # the preconditioner step z = M r and r . z of the Schur routes' PCG
+    # (its row: D = 6, N = 900, the ba_400k cameras of phase 4h)
+    "lane_block_mv_dot": ("jacobi_scale.cu",
+                          "openslam_g2o_tpu/core/solvers.py:246"),
     "spmv_dot": ("cg_step.cu", "openslam_g2o_tpu/core/solvers.py:263"),
     "spmv_dot_p": ("cg_step.cu", "openslam_g2o_tpu/core/solvers.py:275"),
     "dot_partials": ("cg_step.cu", "openslam_g2o_tpu/core/solvers.py:157"),
@@ -502,12 +527,11 @@ KERNELS = {
     # the BAL camera's projection (models/bal.py), in forward mode
     "edge_lin_bal": ("edge_lin.cu", "openslam_g2o_tpu/core/problem.py:378"),
     # K7 on the dense, dual-ELL and general Schur routes: the candidate of
-    # each vertex type (apply_update_parts), each edge type's robust chi2
-    # (robust_chi2 over edge_chi2) and the sum of its partials
-    **{"trial_retract_" + v_: ("trial.cu",
-                               "openslam_g2o_tpu/core/problem.py:557")
-       for v_ in ("se2", "point_xy", "se3", "point_xyz", "se3_expmap",
-                  "sba_point_xyz", "cam", "intrinsics", "bal_camera")},
+    # every vertex group (apply_update_parts) in one launch (its row: 4g's
+    # two groups), each edge type's robust chi2 (robust_chi2
+    # over edge_chi2) and the sum of its partials
+    "trial_retract_groups": ("trial.cu",
+                             "openslam_g2o_tpu/core/problem.py:557"),
     **{"trial_chi2_" + n_: ("trial.cu",
                             "openslam_g2o_tpu/core/problem.py:321")
        for n_ in ("se2", "se2_xy", "se2_bearing", "se2_prior",
@@ -568,16 +592,21 @@ LIN_VALUE_OPS = {"edge_se3": 390, "edge_se3_xyz": 225,
 # launch it (its launches are those of every phase). Its phase-3 row is
 # taken on a seeded group of TRIAL_GROUP vertices (trial_vertex_group) or
 # edges (lin_group) each.
-TRIAL_ROWS = {"trial_retract_se2": "4d", "trial_retract_point_xy": "4d",
-              "trial_retract_se3": "4f", "trial_retract_point_xyz": "4f",
-              "trial_retract_se3_expmap": "4g",
-              "trial_retract_sba_point_xyz": "4g",
-              "trial_retract_cam": "4o", "trial_retract_intrinsics": "4l",
-              "trial_retract_bal_camera": "4p",
-              **{"trial_chi2_" + w_[len("edge_lin_"):]: ph_
+TRIAL_ROWS = {**{"trial_chi2_" + w_[len("edge_lin_"):]: ph_
                  for w_, ph_ in LIN_ROWS.items()},
               "chi2_sum": "4d"}
 TRIAL_GROUP = 50000
+# K7's trial_retract_groups on the groups of a phase's trial: row label ->
+# (the phase whose launches it reports, its groups as (vertex type, count)
+# in the scene's order), each group seeded (trial_vertex_group)
+GROUP_ROWS = {
+    "trial_retract_groups": ("4g", (("se3_expmap", BA_80K[0]),
+                                    ("sba_point_xyz", BA_80K[1]))),
+    "trial_retract_groups@bal400k": ("4p 400k", (
+        ("bal_camera", BA_400K[0]), ("sba_point_xyz", BA_400K[1]))),
+    "trial_retract_groups@4l": ("4l", (("intrinsics", 1),
+                                       ("cam", BA_80K[0]),
+                                       ("sba_point_xyz", BA_80K[1])))}
 # K17's closed forms and K7's chi2 at their phases' own group sizes: row
 # label (wrapper@phase) -> the phase whose scene the row's group is taken
 # from and whose launches it reports (4n: the ba_400k scene, 400,000
@@ -622,6 +651,7 @@ GENERAL_REPLACES = {
     "ba_wtx": "openslam_g2o_tpu/core/ba.py:233",
     "ba_block_inv": "openslam_g2o_tpu/core/ba.py:262",
     "lane_block_mv": "openslam_g2o_tpu/core/ba.py:264",
+    "lane_block_mv_dot": "openslam_g2o_tpu/core/ba.py:264",
     "dense_assemble": "openslam_g2o_tpu/core/ba.py:118",
     "schur_edge_blocks": "openslam_g2o_tpu/core/ba.py:147",
     "ba_wv": "openslam_g2o_tpu/core/ba.py:229",
@@ -1999,6 +2029,48 @@ def main() -> int:
               f"it (CUDA events around 200 calls back to back, median of 5) "
               f"[{card}]")
 
+    def precond_rows(label, tag, mats, r, what):
+        """K4's lane_block_mv_dot on one preconditioner table mats [D*D, N]
+        and vector r [D, N]: against its plain version, its partials bit
+        for bit against dot_partials of its z, twice for the same bits, and
+        by device time beside torch.bmm (z alone, the yardstick); at a width
+        lane_block_mv is built at (MV_WIDTHS), also bit for bit against the
+        two launches it replaces (lane_block_mv, then dot_partials) and by
+        device time beside that pair (the parent's form) and lane_block_mv
+        alone."""
+        D, N = r.shape
+        run = lambda: jacobi_scale.lane_block_mv_dot(mats, r)
+        m_b = mats.view(D, D, N).permute(2, 0, 1).contiguous()
+        r_b = r.T.contiguous()[:, :, None]
+        bmm = lambda: torch.bmm(m_b, r_b)
+        chunks = -(-D * N // cg_step.CHUNK)
+        case("lane_block_mv_dot", tag, f"D={D} N={N}, {what}", run,
+             lambda: jacobi_scale.lane_block_mv_dot_plain(mats, r),
+             nbytes=r.element_size() * ((D * D + 2 * D) * N + chunks),
+             flops=2 * D * D * N + 2 * D * N, label=label, library=bmm,
+             post=lambda o: (o[0], o[1].sum()),
+             library_what="z = M r alone, without the r . z partials")
+        z, part = run()
+        pair = D in jacobi_scale.MV_WIDTHS
+        z_row = jacobi_scale.lane_block_mv(mats, r) if pair else z
+        if not (torch.equal(z, z_row) and torch.equal(
+                part, cg_step.dot_partials(r, z_row))):
+            raise AssertionError(f"{label} {tag}: not the bits of "
+                                 + ("lane_block_mv + " if pair else "")
+                                 + "dot_partials")
+        z2, part2 = run()
+        if not (torch.equal(z2, z) and torch.equal(part2, part)):
+            raise AssertionError(f"{label} {tag} does not repeat its bits")
+        rows = {"kernel": run}
+        if pair:
+            rows["the parent's pair, lane_block_mv + dot_partials"] = \
+                lambda: cg_step.dot_partials(
+                    r, jacobi_scale.lane_block_mv(mats, r))
+            rows["lane_block_mv alone"] = \
+                lambda: jacobi_scale.lane_block_mv(mats, r)
+        rows[f"torch.bmm on [N, {D}, {D}] x [N, {D}, 1]"] = bmm
+        device_rows(label, tag, rows)
+
     def two_launch_rows(pattern, svals, p0, r0, scal0, hp0, part_pap, x0,
                         tag, s, sfx, spmv_bytes, spmv_flops):
         """The two-launch CG step from the state after cg_start and one
@@ -3337,6 +3409,10 @@ def main() -> int:
                  library=lambda: torch.linalg.inv(
                      s_blocks.view(dp, dp, C).permute(2, 0, 1)),
                  slow_plain=True, tol=block_inv_tol(tag, cond))
+            if dp == 6 and sfx == "@400k":
+                precond_rows("lane_block_mv_dot", tag,
+                             ba_inv.ba_block_inv(s_blocks)[1], x,
+                             "the ba_400k cameras' preconditioner (4h)")
             if dp == 9:
                 # K11 and K4 at D = 9: the implicit route's preconditioner
                 # on the BAL camera, beside torch.linalg.inv_ex and
@@ -3352,23 +3428,9 @@ def main() -> int:
                 if not torch.equal(s_binv, ba_inv.ba_block_inv(s_blocks)[1]):
                     raise AssertionError(f"ba_block_inv@cam{sfx} does not "
                                          "repeat its bits")
-                binv_batch = batch(s_binv)
-                x_b = x.T.contiguous()[:, :, None]
-                mv = lambda: jacobi_scale.lane_block_mv(s_binv, x)
-                case("lane_block_mv", tag, f"D={dp} N={C}, the "
-                     "preconditioner applied", mv,
-                     lambda: jacobi_scale.lane_block_mv_plain(s_binv, x),
-                     nbytes=s * (dp * dp + 2 * dp) * C,
-                     flops=2 * dp * dp * C, label="lane_block_mv@d9",
-                     library=lambda: torch.bmm(binv_batch, x_b))
-                if not torch.equal(mv(), mv()):
-                    raise AssertionError("lane_block_mv@d9 does not repeat "
-                                         "its bits")
-                device_rows("lane_block_mv@d9", tag, {
-                    "kernel": mv,
-                    "torch.bmm on [N, 9, 9] x [N, 9, 1]":
-                        lambda: torch.bmm(binv_batch, x_b)})
-                del s_batch, s_binv, binv_batch, x_b
+                precond_rows("lane_block_mv_dot@d9", tag, s_binv, x,
+                             "the BAL cameras' preconditioner (4p @400k)")
+                del s_batch, s_binv
         if with_schur:
             # the JAX route's operands: B2 [Tp, dl L], M2 = [HB2^T | hib]
             B2 = W_csr.to_dense()
@@ -3663,6 +3725,11 @@ def main() -> int:
                        sys_["W_pose"][pg.name], pg.rows, hinv, hcc[pg.name]))
                for pg in pat.pose_groups}})
         for pg, blk in zip(pat.pose_groups, s1):
+            if pg.dim == 6 and sfx == "@intrinsics":
+                # 4l's cameras: printed beside the D = 4 row
+                precond_rows("lane_block_mv_dot@4l", tag,
+                             ba_inv.ba_block_inv(blk)[1], xs[pg.name],
+                             "4l's cameras' preconditioner")
             if pg.dim != 4:
                 continue
             D, N = pg.dim, pg.count
@@ -3682,15 +3749,12 @@ def main() -> int:
                     lambda m_=mats: torch.linalg.inv_ex(m_)[0]})
             binv = ba_inv.ba_block_inv(blk)[1]
             xd = xs[pg.name]
-            case("lane_block_mv", tag, f"D=4 N={N}",
-                 lambda: jacobi_scale.lane_block_mv(binv, xd),
-                 lambda: jacobi_scale.lane_block_mv_plain(binv, xd),
-                 nbytes=s * (D * D + 2 * D) * N, flops=2 * D * D * N,
-                 label="lane_block_mv@d4", library=lambda: torch.einsum(
-                     "abn,bn->an", binv.view(D, D, N), xd))
-            device_rows("lane_block_mv@d4", tag, {
-                "kernel": lambda: jacobi_scale.lane_block_mv(binv, xd),
-                "torch.einsum": lambda: torch.einsum(
+            # the preconditioner step is lane_block_mv_dot (its JSON row
+            # @d4)
+            precond_rows("lane_block_mv_dot@d4", tag, binv, xd,
+                         "4l's intrinsics hub's preconditioner")
+            device_rows("lane_block_mv_dot@d4", tag, {
+                "torch.einsum (z alone)": lambda: torch.einsum(
                     "abn,bn->an", binv.view(D, D, N), xd)})
         # K15 on the pose slots: at @psi2uv both cameras' blocks and their
         # coupling (block + transpose where the two slots name one
@@ -3906,23 +3970,34 @@ def main() -> int:
     # device time
     for dt in (torch.float32, torch.float64):
         tag = str(dt).split(".")[-1]
-        for vname, wname in trial.RETRACTIONS.items():
+        for vname in trial.RETRACT_IDS:
             x_t, dx_t, b_t, free_t, lam_t = trial_vertex_group(
                 torch, vname, TRIAL_GROUP, dt, dev, seed=9)
-            run_t = lambda w_=wname, a_=(x_t, dx_t, free_t, b_t, lam_t): \
-                getattr(trial, w_)(*a_)
-            plain_t = lambda w_=wname, a_=(x_t, dx_t, free_t, b_t, lam_t): \
-                getattr(trial, w_ + "_plain")(*a_)
             nbytes, flops = trial_bytes_flops(vname, x_t, dx_t)
-            case(wname, tag, f"N={TRIAL_GROUP} {vname} vertices (every 7th "
-                 "fixed), dx and b lane-major [D, N] seen transposed",
-                 run_t, plain_t, nbytes=nbytes, flops=flops,
-                 post=lambda o: (o[0], o[1].sum()))
-            first = [t_.clone() for t_ in run_t()]
-            if not all(torch.equal(a_, b_) for a_, b_ in zip(first, run_t())):
-                raise AssertionError(f"{wname} does not repeat its bits")
-            device_rows(wname, tag, {"kernel": run_t})
-            del x_t, dx_t, b_t, free_t, first
+            # trial_retract_groups over this one group
+            label_t = f"trial_retract_groups@{vname}"
+            grp_t = [trial.RetractGroup(vname, x_t, dx_t, free_t, b_t, 0)]
+            out_t = torch.empty(trial.partial_count(TRIAL_GROUP, dev),
+                                dtype=dt, device=dev)
+            run_g = lambda g_=grp_t, o_=out_t, l_=lam_t: (
+                trial.trial_retract_groups(g_, l_, o_)[0], o_)
+
+            def plain_g(g_=grp_t, o_=out_t, l_=lam_t):
+                o_ = torch.zeros_like(o_)
+                return trial.trial_retract_groups_plain(g_, l_, o_)[0], o_
+
+            case("trial_retract_groups", tag, f"N={TRIAL_GROUP} {vname} "
+                 "vertices (every 7th fixed), one group, dx and b "
+                 "lane-major [D, N] seen transposed", run_g, plain_g,
+                 nbytes=nbytes, flops=flops,
+                 post=lambda o: (o[0], o[1].sum()), label=label_t)
+            first = [t_.clone() for t_ in run_g()]
+            if not all(torch.equal(a_, b_) for a_, b_ in zip(first,
+                                                             run_g())):
+                raise AssertionError(f"{label_t} {tag} does not repeat its "
+                                     "bits")
+            device_rows(label_t, tag, {"kernel": run_g})
+            del x_t, dx_t, b_t, free_t, first, grp_t, out_t
         for tname, wname in trial.CHI2.items():
             params_c, _, idx_c, meas_c, info_c, delta_c, pdata_c, _ = \
                 cargs = lin_group(torch, tname, TRIAL_GROUP, dt, dev,
@@ -3941,6 +4016,50 @@ def main() -> int:
                 raise AssertionError(f"{wname} does not repeat its bits")
             device_rows(wname, tag, {"kernel": run_c})
             del cargs, a_c, params_c, idx_c, meas_c, info_c, delta_c, pdata_c
+        # trial_retract_groups on seeded groups of the sizes of 4g's, 4p
+        # @400k's and 4l's trials, beside one launch per group into the
+        # same partial vector (the launches of the parent's trial): the
+        # same bits
+        for label_g, (_, spec_g) in GROUP_ROWS.items():
+            groups_g, off_g, nb_g, fl_g = [], 0, 0, 0
+            for i_, (vname, n_) in enumerate(spec_g):
+                x_t, dx_t, b_t, free_t, lam_g = trial_vertex_group(
+                    torch, vname, n_, dt, dev, seed=11 + i_)
+                groups_g.append(trial.RetractGroup(vname, x_t, dx_t, free_t,
+                                                   b_t, off_g))
+                off_g += trial.partial_count(n_, dev)
+                nb_, fl_ = trial_bytes_flops(vname, x_t, dx_t)
+                nb_g, fl_g = nb_g + nb_, fl_g + fl_
+            out_g = torch.empty(off_g, dtype=dt, device=dev)
+            run_g = lambda g_=groups_g, o_=out_g, l_=lam_g: (
+                *trial.trial_retract_groups(g_, l_, o_), o_)
+
+            def plain_g(g_=groups_g, o_=out_g, l_=lam_g):
+                o_ = torch.zeros_like(o_)
+                return (*trial.trial_retract_groups_plain(g_, l_, o_), o_)
+
+            def parent_g(g_=groups_g, o_=out_g, l_=lam_g):
+                return (*(trial.trial_retract_groups([gr_], l_, o_)[0]
+                          for gr_ in g_), o_)
+
+            case("trial_retract_groups", tag, " + ".join(
+                 f"{n_} {v_}" for v_, n_ in spec_g) + " vertices (seeded), "
+                 "dx and b lane-major [D, N] seen transposed", run_g,
+                 plain_g, nbytes=nb_g, flops=fl_g, label=label_g,
+                 post=lambda o: (*o[:-1], o[-1].sum()))
+            first = [t_.clone() for t_ in run_g()]
+            if not all(torch.equal(a_, b_) for a_, b_ in zip(first,
+                                                             parent_g())):
+                raise AssertionError(f"{label_g} {tag}: not the bits of "
+                                     "one launch per group")
+            if not all(torch.equal(a_, b_) for a_, b_ in zip(first,
+                                                             run_g())):
+                raise AssertionError(f"{label_g} {tag} does not repeat "
+                                     "its bits")
+            device_rows(label_g, tag, {
+                "kernel": run_g,
+                f"one launch per group ({len(spec_g)})": parent_g})
+            del groups_g, out_g, first
         part_s = torch.rand(trial.partial_count(400000, dev),
                             dtype=dt, device=dev)
         case("chi2_sum", tag, f"{part_s.numel()} partials (a 400,000-edge "
@@ -4298,8 +4417,8 @@ def main() -> int:
              (retract_chi2, "se3_edge_chi2"),
              (assemble, "assemble_gather"), (damp_chol, "damp_chol"),
              (jacobi_scale, "jacobi_scale"), (jacobi_scale, "lane_block_mv"),
-             (cg_step, "spmv_dot"), (cg_step, "spmv_dot_p"),
-             (cg_step, "dot_partials"),
+             (jacobi_scale, "lane_block_mv_dot"), (cg_step, "spmv_dot"),
+             (cg_step, "spmv_dot_p"), (cg_step, "dot_partials"),
              (cg_step, "cg_residual"), (cg_step, "cg_start"),
              (cg_step, "cg_update_xr"), (cg_step, "cg_update_p"),
              (cg_step, "cg_finish"), (chebyshev, "gershgorin_bound"),
@@ -4319,8 +4438,19 @@ def main() -> int:
              (pair_ell, "pair_spmv_dot"), (pair_ell, "pair_spmv_dot_p"),
              (pair_ell, "pair_gershgorin"),
              *((edge_lin, w_) for w_ in edge_lin.LINEARIZERS.values()),
-             *((trial, w_) for w_ in (*trial.RETRACTIONS.values(),
-                                      *trial.CHI2.values(), "chi2_sum"))]
+             *((trial, w_) for w_ in (*trial.CHI2.values(), "chi2_sum",
+                                      "trial_retract_groups"))]
+
+    def read_counts():
+        """kernels.launch_counts() and, as trial_retract_groups@<vertex
+        type>, the launches of trial_retract_groups that served a group of
+        each type (launches_by_type): a phase's counts, read once its run
+        ends, so that no later timing loop adds to them."""
+        counts_ = kernels.launch_counts()
+        by_type_ = trial.trial_retract_groups.launches_by_type
+        counts_.update((f"trial_retract_groups@{v_}", by_type_[v_])
+                       for v_ in trial.RETRACT_IDS)
+        return counts_
 
     # From here on no built-in edge type may reach the generic
     # linearization (the model's torch error with torch.func.jvp or its
@@ -4351,7 +4481,7 @@ def main() -> int:
 
     def count_plain_trial(fn, name):
         def counted(*a, **k):
-            t_, table, x_ = ((a[0], trial.RETRACTIONS, a[1])
+            t_, table, x_ = ((a[0], trial.RETRACT_IDS, a[1])
                              if name == "retract_plain"
                              else (a[0], trial.CHI2, a[4]))
             if (plain_depth[0] == 0 and x_.device.type == "cuda"
@@ -4370,8 +4500,9 @@ def main() -> int:
         since PR 3) and of the whole outcome (lm_trial_outcome: candidate,
         dot and chi2 partials, lm_outcome), CUDA events around one call,
         median of 5; the outcome's launches, which must be one per vertex
-        group, one per edge group and lm_outcome's. Prints a line and
-        returns the ms."""
+        group range of trial_retract_groups (one launch for up to
+        MAX_RETRACT_GROUPS vertex groups), one per edge group and
+        lm_outcome's. Prints a line and returns the ms."""
         ni_ = torch.tensor(2.0, dtype=prob_.dtype, device=dev)
         chi_ = robust_chi2(prob_)
         st_ = prob_.static
@@ -4388,10 +4519,8 @@ def main() -> int:
         outcome_()
         k7_ = {k: v - before_[k] for k, v in kernels.launch_counts().items()
                if v != before_[k]}
-        want_ = {"lm_outcome": 1}
-        for g_ in st_.vgroups:
-            w_ = trial.RETRACTIONS[g_.vtype.name]
-            want_[w_] = want_.get(w_, 0) + 1
+        want_ = {"lm_outcome": 1, "trial_retract_groups": -(
+            -len(st_.vgroups) // trial.MAX_RETRACT_GROUPS)}
         for eg_ in st_.egroups:
             w_ = trial.CHI2[eg_.etype.name]
             want_[w_] = want_.get(w_, 0) + 1
@@ -4402,12 +4531,28 @@ def main() -> int:
                                           inner=1, warmup=1),
                "trial outcome": _median_ms(torch, outcome_, repeats=5,
                                            inner=1, warmup=1)}
+
+        def candidate_():
+            problem_mod.trial_candidate(prob_, dx_parts, b_parts, lam_)
+
+        # the retraction alone: device time (CUDA events behind a spin)
+        # and the host's time per call (enqueue, no synchronize)
+        dev_ms_, n_dev_, held_ = _device_ms(torch, candidate_)
+        t_host_ = time.perf_counter()
+        for _ in range(20):
+            candidate_()
+        host_us_ = (time.perf_counter() - t_host_) / 20 * 1e6
+        torch.cuda.synchronize()
         print(f"phase {phase} K7 split of one trial (CUDA events around one "
               f"call, median of 5): " + "; ".join(
                   f"{k} {v:.3f} ms" for k, v in ms_.items())
               + f"; {sum(k7_.values())} launches per trial outcome "
               f"({len(st_.vgroups)} vertex groups, {len(st_.egroups)} edge "
-              f"groups, lm_outcome) [{card}]")
+              f"groups, lm_outcome); the retraction (trial_candidate, "
+              f"{k7_['trial_retract_groups']} launch): device "
+              f"{1e3 * dev_ms_:.2f} us ({n_dev_} calls"
+              f"{'' if held_ else ', host-bound'}), host {host_us_:.1f} us "
+              f"a call [{card}]")
         return ms_
 
     def dense_trial_split(phase, dprob_, dpat_):
@@ -4509,7 +4654,7 @@ def main() -> int:
         st, t_, dt_w = window(pattern, st, 10, **pcg)
         traj += t_
         windows.append((10, dt_w))
-    window_counts = kernels.launch_counts()
+    window_counts = read_counts()
     n_polish = 0
     for _ in range(10):
         if float(st[3]) <= 1.02 * floor:
@@ -4519,7 +4664,7 @@ def main() -> int:
         traj += t_
         n_polish += 1
     main_s = time.monotonic() - t_start
-    counts_main = kernels.launch_counts()       # the main path's launches
+    counts_main = read_counts()    # the main path's launches
     final = float(st[3])
     steady = [dt / n for n, dt in windows[1:]] or [windows[0][1] / 10]
     ms_first = dt_first / 10 * 1e3
@@ -4556,12 +4701,12 @@ def main() -> int:
     work = prob.with_params(st[0])
     pre = _pcg_precomp(work, pattern)
     dxT_t, ok_t = _pcg_trial(work, pattern, pre, st[1], None, 100, 0.15, 0)
-    before = kernels.launch_counts()
+    before = read_counts()
     k7_ms = _median_ms(torch, lambda: _trial_outcome(
         work, pattern, pre["bT"], dxT_t, ok_t, st[1], st[2], st[3]),
         repeats=9, inner=1)
     k7_calls = {k: (v - before[k]) // 12 for k, v in
-                kernels.launch_counts().items() if v != before[k]}
+                read_counts().items() if v != before[k]}
     n_groups = len(prob.static.egroups)
     print(f"phase 4 K7: retract + chi2 + outcome {k7_ms:.4f} ms per trial "
           f"(CUDA events, one call per event pair, median of 9); wrapper "
@@ -4582,7 +4727,7 @@ def main() -> int:
         st, t_, dt_w = window(pattern_c, st, 10, **cheb_pcg)
         traj_c += t_
         win_c.append(dt_w / 10 * 1e3)
-    counts_cheb = kernels.launch_counts()
+    counts_cheb = read_counts()
     print(f"phase 4b Chebyshev path (pcg_cheby 4, pcg 100, tol 0.15): "
           f"3 windows of 10: {' '.join(f'{w:.2f}' for w in win_c)} ms/LM "
           f"iteration; {counts_cheb['cg_update_xr']} outer CG iterations, "
@@ -4623,7 +4768,7 @@ def main() -> int:
     y_fused = spmv.block_ell_spmv(
         torch.as_tensor(nb_np.T.copy(), device=dev),
         V.permute(2, 0, 1).contiguous(), xT[:3].contiguous())
-    counts_probe = kernels.launch_counts()
+    counts_probe = read_counts()
     abs_e, rel_e = _errors(torch, y_gather, y_fused)
     print(f"phase 4c probe path: lane_gather + multiply-sum vs kernel A at "
           f"N={Np} K={Kp} float32: max_abs_err {abs_e:.3e} max_rel_err "
@@ -4675,7 +4820,7 @@ def main() -> int:
     t_gn = time.monotonic()
     _, gn_stats = optimize(dprob, GaussNewton(), iterations=5)
     t_gn = time.monotonic() - t_gn
-    counts_dense = kernels.launch_counts()    # the dense path's launches
+    counts_dense = read_counts()    # the dense path's launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     lm_chi = [st_["chi2"] for st_ in lm_stats]
     gn_chi = [st_["chi2"] for st_ in gn_stats]
@@ -4826,16 +4971,16 @@ def main() -> int:
         schedule = [(10, pcg_s)] * 6 + [
             (5, dict(pcg_iters=600, pcg_tol=1e-6, warm=True))] * n_polish
         for n_it, kw in schedule:
-            seen = kernels.launch_counts()
+            seen = read_counts()
             st_s, t_, dt_w = window(pattern_s, st_s, n_it, prob_s, **kw)
-            now = kernels.launch_counts()
+            now = read_counts()
             traj_s += t_
             win_ms.append(dt_w / n_it * 1e3)
             per_window.append((now["cg_update_xr"] - seen["cg_update_xr"],
                                now["damp_chol"] - seen["damp_chol"],
                                kw["pcg_iters"]))
         seconds = time.monotonic() - t0_s
-        counts_s = kernels.launch_counts()
+        counts_s = read_counts()
         chi0_s = float(state_s["chi2"])
         steps_s = np.diff(np.array([chi0_s] + traj_s))
         if not (np.all(np.isfinite(traj_s)) and np.all(steps_s <= 0)
@@ -4901,12 +5046,12 @@ def main() -> int:
                         repeats=9, inner=1)
     pre3 = _pcg_precomp(work3, pattern3)
     dx3, ok3 = _pcg_trial(work3, pattern3, pre3, st3[1], None, 200, 0.05, 0)
-    before = kernels.launch_counts()
+    before = read_counts()
     k7_ms3 = _median_ms(torch, lambda: _trial_outcome(
         work3, pattern3, pre3["bT"], dx3, ok3, st3[1], st3[2], st3[3]),
         repeats=9, inner=1)
     k7_calls3 = {k: (v - before[k]) // 12 for k, v in
-                 kernels.launch_counts().items() if v != before[k]}
+                 read_counts().items() if v != before[k]}
     print(f"phase 4e K16 + C: linearize + assemble {k16_ms:.4f} ms per "
           f"linearization; K7: retract + chi2 + outcome {k7_ms3:.4f} ms per "
           f"trial, wrapper calls per trial {k7_calls3} (CUDA events, median "
@@ -4920,7 +5065,7 @@ def main() -> int:
     st_c3 = (state_c3["params"], state_c3["lam"], state_c3["ni"],
              state_c3["chi2"])
     st_c3, traj_c3, dt_c3 = window(pattern_c3, st_c3, 10, prob3, **cheb3)
-    counts_sphere_cheb = kernels.launch_counts()
+    counts_sphere_cheb = read_counts()
     steps_c3 = np.diff(np.array([float(state_c3["chi2"])] + traj_c3))
     if not (np.all(np.isfinite(traj_c3)) and np.all(steps_c3 <= 0)):
         raise AssertionError(f"sphere Chebyshev path: chi2 not finite or "
@@ -4994,7 +5139,7 @@ def main() -> int:
     t_gn3 = time.monotonic()
     _, gn_stats3 = optimize(dprob3, GaussNewton(), iterations=5)
     t_gn3 = time.monotonic() - t_gn3
-    counts_dense3 = kernels.launch_counts()
+    counts_dense3 = read_counts()
     peak3 = torch.cuda.max_memory_allocated() / 1e9
     lm_chi3 = [st_["chi2"] for st_ in lm_stats3]
     gn_chi3 = [st_["chi2"] for st_ in gn_stats3]
@@ -5091,13 +5236,13 @@ def main() -> int:
         ba_ell.ba_ell_optimize_fused(bprob, pattern, *st0, n_iters=1,
                                      **BA_PCG)
         torch.cuda.synchronize()
-        cg_w = kernels.launch_counts()["cg_update_xr"]
+        cg_w = read_counts()["cg_update_xr"]
         t1 = time.monotonic()
         out = ba_ell.ba_ell_optimize_fused(bprob, pattern, *st0, n_iters=10,
                                            **BA_PCG)
         torch.cuda.synchronize()
         fused_ms = (time.monotonic() - t1) * 100
-        counts_f = kernels.launch_counts()
+        counts_f = read_counts()
         traj = out[4].tolist()
         ell_traj[phase] = (traj, expected)
         st, step_traj, n_trials = st0, [], 0
@@ -5110,7 +5255,7 @@ def main() -> int:
             n_trials += tr_
         torch.cuda.synchronize()
         step_ms = (time.monotonic() - t2) * 100
-        counts_b = kernels.launch_counts()
+        counts_b = read_counts()
         step_traj = [float(c) for c in step_traj]
         cg_f = counts_f["cg_update_xr"] - cg_w
         cg_b = counts_b["cg_update_xr"] - counts_f["cg_update_xr"]
@@ -5185,7 +5330,7 @@ def main() -> int:
                   + f" [{card}]")
             del work
         used = ("ba_schur_dense",) if dense else ("ba_sandwich",
-                                                  "lane_block_mv")
+                                                  "lane_block_mv_dot")
         unused = "ba_sandwich" if dense else "ba_schur_dense"
         if min(counts_b[k] for k in used) <= 0 or counts_b[unused]:
             raise AssertionError(f"phase {phase}: the launches show another "
@@ -5248,7 +5393,7 @@ def main() -> int:
                 (ba_ell._DENSE_SCHUR_MAX_TP,
                  ba_ell._DENSE_SCHUR_MAX_OPERAND_BYTES) = routing
             del alg_w
-        counts_4i[label] = kernels.launch_counts()
+        counts_4i[label] = read_counts()
         pat_w = ba_ell.build_ba_ell_pattern(wprob)
         for name_w, (chis_w, ms_w, tr_w) in runs_w.items():
             steps_w = np.diff(np.array([chi0_w] + chis_w))
@@ -5308,11 +5453,12 @@ def main() -> int:
             n_trials += info["levenberg_iters"]
         torch.cuda.synchronize()
         ms = (time.monotonic() - t1) * 100
-        counts = kernels.launch_counts()
+        counts = read_counts()
         # the D = 4 launches (the intrinsics group's blocks) and the D = 9
         # ones (the BAL camera's) apart
-        for w_ in (ba_inv.ba_block_inv, jacobi_scale.lane_block_mv):
-            for d_ in (4, 9):
+        for w_ in (ba_inv.ba_block_inv, jacobi_scale.lane_block_mv,
+                   jacobi_scale.lane_block_mv_dot):
+            for d_ in (4, 6, 9):
                 counts[f"{w_.__name__}@d{d_}"] = w_.launches_by_width[d_]
         n_groups = len(pat.pose_groups)
         cg_iters = counts["cg_update_xr"] // n_groups
@@ -5365,12 +5511,12 @@ def main() -> int:
             work, sys_, lam_t, 250, 1e-8), lam_t)
         ba_general._solve(work, sys_, lam_t, 250, 1e-8)
         torch.cuda.synchronize()
-        before = kernels.launch_counts()["cg_update_xr"]
+        before = read_counts()["cg_update_xr"]
         t2 = time.monotonic()
         ba_general._solve(work, sys_, lam_t, 250, 1e-8)
         torch.cuda.synchronize()
         wall = (time.monotonic() - t2) * 1e6
-        n_cg = max((kernels.launch_counts()["cg_update_xr"] - before)
+        n_cg = max((read_counts()["cg_update_xr"] - before)
                    // n_groups, 1)
         # a profile opened after another can lose records: one that saw
         # fewer ba_wv or ba_sandwich kernels than the wrappers launched is
@@ -5517,9 +5663,9 @@ def main() -> int:
         lprob, expected_l, "p2mc_intrinsics")
     for ph, want in (("4k", ("schur_edge_blocks", "ba_wv",
                              "ba_sandwich", "ba_wtx", "ba_lm_sums",
-                             "dense_assemble", "lane_block_mv",
+                             "dense_assemble", "lane_block_mv_dot",
                              "edge_lin_psi2uv")),
-                     ("4l", ("ba_block_inv@d4", "lane_block_mv@d4",
+                     ("4l", ("ba_block_inv@d4", "lane_block_mv_dot@d4",
                              "edge_lin_p2mc_intrinsics")),
                      ("4j", ("edge_lin_xyz2uv",))):
         if min(counts_gen[ph].get(k, 0) for k in want) <= 0:
@@ -5547,7 +5693,7 @@ def main() -> int:
         if got != want:
             raise AssertionError(f"phase 4m: _SchurAuto routes {label} to "
                                  f"{got}, not {want}")
-    counts_route = kernels.launch_counts()
+    counts_route = read_counts()
     print("phase 4m _SchurAuto: " + "; ".join(routes) + " (the JAX package "
           "routes the two-pose-group graph to its dual-ELL solver)")
     # the routes' inits linearized P2MC and XYZ2UV (two pose groups) and
@@ -5577,7 +5723,7 @@ def main() -> int:
     _, demo_stats = optimize(demo, LevenbergMarquardtSchur(), iterations=30)
     t_demo = time.monotonic() - t_demo
     counts_gen["4m"] = {k: v + counts_route[k]
-                        for k, v in kernels.launch_counts().items()}
+                        for k, v in read_counts().items()}
     demo_end = demo_stats[-1]["chi2"]
     print(f"phase 4m examples/ba_anchored_inverse_depth_demo.py scene "
           f"({demo.static.egroups[0].count} observations, float64): 30 "
@@ -5647,7 +5793,7 @@ def main() -> int:
         t_o = time.monotonic()
         out_o, stats_o = optimize(oprob)          # LevenbergMarquardt, 10
         t_o = time.monotonic() - t_o
-        c_o = kernels.launch_counts()
+        c_o = read_counts()
         for k, v in c_o.items():
             counts_4o[k] = counts_4o.get(k, 0) + v
         chi_o = [st_["chi2"] for st_ in stats_o]
@@ -5755,7 +5901,7 @@ def main() -> int:
         fused = {}
         for per_iter in (True, False):
             torch.cuda.synchronize()
-            cg0 = kernels.launch_counts()["cg_update_xr"]
+            cg0 = read_counts()["cg_update_xr"]
             t1 = time.monotonic()
             res = ba_ell.ba_ell_optimize_fused(
                 bprob, pattern, *st0, n_iters=10, trial_per_iter=per_iter,
@@ -5763,9 +5909,10 @@ def main() -> int:
             torch.cuda.synchronize()
             fused[per_iter] = (res[4].tolist(),
                                (time.monotonic() - t1) * 100,
-                               kernels.launch_counts()["cg_update_xr"] - cg0)
-        counts = kernels.launch_counts()
-        for w_ in (ba_inv.ba_block_inv, jacobi_scale.lane_block_mv):
+                               read_counts()["cg_update_xr"] - cg0)
+        counts = read_counts()
+        for w_ in (ba_inv.ba_block_inv, jacobi_scale.lane_block_mv,
+                   jacobi_scale.lane_block_mv_dot):
             counts[f"{w_.__name__}@d9"] = w_.launches_by_width[9]
         counts_bal[(key, tag_b)] = counts
         bal_ends[(key, tag_b)] = traj[-1]
@@ -5796,7 +5943,7 @@ def main() -> int:
               f"1) - 3P = {expected:.1f} ratio {traj[-1] / expected:.5f} "
               f"(gate {BA_GATE}); never increases")
         used = ("ba_schur_dense",) if dense else ("ba_sandwich",
-                                                  "lane_block_mv@d9")
+                                                  "lane_block_mv_dot@d9")
         unused = "ba_sandwich" if dense else "ba_schur_dense"
         if min(counts[k] for k in used) <= 0 or counts[unused]:
             raise AssertionError(f"phase {phase}: the launches show another "
@@ -5812,12 +5959,12 @@ def main() -> int:
                                           BA_PCG["pcg_tol"])
             solve()
             torch.cuda.synchronize()
-            before = kernels.launch_counts()["cg_update_xr"]
+            before = read_counts()["cg_update_xr"]
             t2 = time.monotonic()
             solve()
             torch.cuda.synchronize()
             wall = (time.monotonic() - t2) * 1e6
-            n_cg = max(kernels.launch_counts()["cg_update_xr"] - before, 1)
+            n_cg = max(read_counts()["cg_update_xr"] - before, 1)
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof_p:
                 solve()
@@ -5914,8 +6061,8 @@ def main() -> int:
         if ph.startswith("4q") and min(c_[k] for k in (
                 "schur_edge_blocks", "dense_assemble", "ba_wtx", "ba_wv",
                 "ba_sandwich", "ba_lm_sums", "ba_block_inv@d9",
-                "lane_block_mv@d9", "edge_lin_bal", "trial_chi2_bal",
-                "trial_retract_bal_camera")) <= 0:
+                "lane_block_mv_dot@d9", "edge_lin_bal", "trial_chi2_bal",
+                "trial_retract_groups")) <= 0:
             raise AssertionError(f"phase {ph}: a kernel did not launch: {c_}")
 
     # 4r. the dense GN / LM route at block width 9: optimize(prob) (the
@@ -5953,7 +6100,7 @@ def main() -> int:
         state_r, info_r = lm_more.step(rprob, state_r)
         more_r.append(info_r["chi2"])
     torch.cuda.synchronize()
-    counts_4r = kernels.launch_counts()
+    counts_4r = read_counts()
     del state_r, lm_last
     print(f"phase 4r dense route at block width 9: bal_camera_scene"
           f"{sc_r['shape']} read by load_bal_problem, T={T_r}, "
@@ -5983,7 +6130,7 @@ def main() -> int:
                              f"({more_r})")
     if min(counts_4r[k] for k in ("dense_assemble", "edge_lin_bal",
                                   "trial_chi2_bal",
-                                  "trial_retract_bal_camera",
+                                  "trial_retract_groups",
                                   "lm_outcome")) <= 0:
         raise AssertionError(f"phase 4r: a kernel did not launch: "
                              f"{counts_4r}")
@@ -6063,7 +6210,7 @@ def main() -> int:
                                      **PAIR_PCG)
         torch.cuda.synchronize()
         t2_ = time.monotonic()
-        counts_ = kernels.launch_counts()
+        counts_ = read_counts()
         widths_ = (dict(damp_chol.damp_chol.launches_by_width),
                    dict(jacobi_scale.lane_block_mv.launches_by_width))
         launches_d2["damp_chol@d2"] += widths_[0].get(2, 0)
@@ -6236,7 +6383,7 @@ def main() -> int:
                    PAIR_PCG["pcg_iters"], PAIR_PCG["pcg_tol"], 0)
         torch.cuda.synchronize()
     wall_s = (time.monotonic() - t_w) * 1e6
-    c_s = kernels.launch_counts()
+    c_s = read_counts()
     n_cg_s = c_s["cg_update_xr"]
     rows_s = sorted(((e.self_device_time_total, e.count, e.key)
                      for e in prof_s.key_averages()
@@ -6346,7 +6493,7 @@ def main() -> int:
             kernels.reset_launch_counts()
         _, stats = optimize(sprob, iterations=6)
         if device is None:
-            counts_g2o = kernels.launch_counts()
+            counts_g2o = read_counts()
         runs2[sprob.device.type] = (c0, [st_["chi2"] for st_ in stats])
     c0, chis = runs2["cuda"]
     if not (chis[-1] < 0.1 * c0 and all(np.isfinite(chis))):
@@ -6384,7 +6531,7 @@ def main() -> int:
                 kernels.reset_launch_counts()
             _, stats = optimize(sprob, algo(), iterations=6)
             if device is None:
-                counts_g2o3 = kernels.launch_counts()
+                counts_g2o3 = read_counts()
             runs3[sprob.device.type] = (c0, [st_["chi2"] for st_ in stats])
         c0, chis = runs3["cuda"]
         if not (chis[-1] < 0.5 * c0 and all(np.isfinite(chis))):
@@ -6437,7 +6584,7 @@ def main() -> int:
         _, stats = optimize(sprob, ba_ell.LevenbergMarquardtSchurELL(),
                             iterations=6)
         if device is None:
-            counts_g2o5 = kernels.launch_counts()
+            counts_g2o5 = read_counts()
         runs5[sprob.device.type] = (c0, [st_["chi2"] for st_ in stats])
     c0, chis = runs5["cuda"]
     if not (chis[-1] < 0.1 * c0 and all(np.isfinite(chis))):
@@ -6455,6 +6602,28 @@ def main() -> int:
           + " (equal to the CPU run, rtol 1e-6) OK")
 
     # -- 6. launch counts of the driven paths --------------------------------
+    # K4's lane_block_mv_dot on the preconditioned Schur phases: one launch
+    # per pose group per CG iteration (cg_update_xr counts one per group)
+    # and per solve's start, where the parent launched lane_block_mv and
+    # dot_partials; dot_partials launches no more there
+    for label, c_ in (("4h", counts_ba400), ("4i 2D", counts_4i["2D"]),
+                      ("4i 3D", counts_4i["3D"]),
+                      *((f"4p {k_} {t_}", c_)
+                        for (k_, t_), c_ in counts_bal.items()
+                        if k_ == "400k"),
+                      *((ph, c_) for ph, c_ in counts_gen.items())):
+        widths_ = {d_: c_[f"lane_block_mv_dot@d{d_}"] for d_ in (4, 6, 9)
+                   if c_.get(f"lane_block_mv_dot@d{d_}")}
+        print(f"phase 6 preconditioner in phase {label}: lane_block_mv_dot="
+              f"{c_['lane_block_mv_dot']} (by width {widths_ or 'not split'}"
+              f"), dot_partials={c_['dot_partials']}, lane_block_mv="
+              f"{c_['lane_block_mv']}, cg_update_xr={c_['cg_update_xr']} "
+              f"(one per pose group per CG iteration), solves (cg_finish)="
+              f"{c_['cg_finish']}")
+        if c_["dot_partials"] or c_["lane_block_mv_dot"] < (
+                c_["cg_update_xr"] + c_["cg_finish"]):
+            raise AssertionError(f"phase {label}: the preconditioned CG "
+                                 f"did not run on lane_block_mv_dot: {c_}")
     # a wrapper with a 6x6 row of its own counts the SE2, probe and dense 2D
     # paths in its 3x3 row and the SE3 and dense 3D paths in its 6x6 row;
     # every other wrapper counts all of them
@@ -6474,10 +6643,12 @@ def main() -> int:
                 + counts_dense[k] + (0 if k in two_rows else launches_d6[k])
                 + (sum(c[k] for c in by_phase.values())
                    if k.startswith(("ba_", "edge_lin_", "trial_",
-                                    "chi2_sum")) else 0)
+                                    "chi2_sum", "lane_block_mv_dot"))
+                   else 0)
                 + (sum(c[k] for c in counts_gen.values())
                    if k.startswith(("ba_", "schur_", "edge_lin_", "trial_",
-                                    "chi2_sum")) else 0)
+                                    "chi2_sum", "lane_block_mv_dot"))
+                   else 0)
                 + (counts_4o[k] + counts_4r[k]
                    if k.startswith(("edge_lin_", "trial_", "chi2_sum"))
                    else 0)
@@ -6486,6 +6657,10 @@ def main() -> int:
                    if k.startswith(("pair_", "edge_lin_", "trial_",
                                     "chi2_sum")) else 0)
                 for k in counts_main}
+    print("phase 6 trial_retract_groups launches per vertex type served, "
+          "summed over the phases as its rows count them: " + " ".join(
+              f"{v_}={launches[f'trial_retract_groups@{v_}']}"
+              for v_ in trial.RETRACT_IDS))
     for label, counts in (("4 main path", counts_main),
                           ("4b Chebyshev path", counts_cheb),
                           ("4c probe path", counts_probe),
@@ -6538,20 +6713,19 @@ def main() -> int:
                             "lm_outcome") if counts_ba80[k] <= 0]
              + [k for k in ("ba_xyz2uv_blocks", "ba_lm_sums", "ba_cam_sums",
                             "ba_block_inv", "ba_sandwich", "ba_wtx", "ba_wv",
-                            "lane_block_mv", "cg_update_xr", "cg_update_p",
-                            "lm_outcome")
+                            "lane_block_mv_dot", "cg_update_xr",
+                            "cg_update_p", "lm_outcome")
                 if counts_ba400[k] <= 0]
              + [f"{k} (4p {key_} {tag_})"
                 for (key_, tag_), c_ in counts_bal.items()
                 for k in (("edge_lin_bal", "trial_chi2_bal",
-                           "trial_retract_bal_camera",
-                           "trial_retract_sba_point_xyz", "ba_edge_blocks",
+                           "trial_retract_groups", "ba_edge_blocks",
                            "ba_lm_sums", "ba_cam_sums", "ba_block_inv",
                            "ba_wtx", "ba_wv", "lm_outcome")
                           + (("ba_schur_dense", "ba_schur_records")
                              if key_ == "80k" else
                              ("ba_sandwich", "ba_block_inv@d9",
-                              "lane_block_mv@d9", "cg_update_xr",
+                              "lane_block_mv_dot@d9", "cg_update_xr",
                               "cg_update_p")))
                 if c_[k] <= 0]
              + [f"{k} ({w_})" for w_ in ("2D", "3D")
@@ -6562,8 +6736,8 @@ def main() -> int:
              + [f"{k} ({ph})" for ph in ("4j", "4k", "4l", "4n")
                 for k in ("schur_edge_blocks", "ba_wv", "ba_sandwich",
                           "ba_lm_sums", "ba_wtx", "ba_block_inv",
-                          "lane_block_mv", "dense_assemble", "cg_update_xr",
-                          "cg_update_p", "lm_outcome")
+                          "lane_block_mv_dot", "dense_assemble",
+                          "cg_update_xr", "cg_update_p", "lm_outcome")
                 if counts_gen[ph][k] <= 0]
              + [f"spmv_dot_p ({ph})" for ph, c_ in (
                  ("4b", counts_cheb), ("4e Chebyshev", counts_sphere_cheb),
@@ -6592,11 +6766,16 @@ def main() -> int:
              + [f"pair_gershgorin ({w_})" for w_ in ("cheby", "cheby 4f")
                 if counts_4s[(w_, "float32")]["pair_gershgorin"] <= 0]
              + [k for k, v in launches_d2.items() if v <= 0]
+             + [f"trial_retract_groups@{v_}" for v_ in trial.RETRACT_IDS
+                if launches[f"trial_retract_groups@{v_}"] <= 0]
              + [k for k in KERNELS if launches[k] <= 0]
              + [k for k, phs in WIDE_ROWS.items()
                 if min({**counts_gen, "4r": counts_4r}[ph][
                     k.split("@")[0]] for ph in phs) <= 0])
-    if never or set(KERNELS) != set(launches):
+    # every wrapper is a row of the path (read_counts' per-type counts of
+    # trial_retract_groups are rows of their own)
+    if never or set(KERNELS) != {k for k in launches if not k.startswith(
+            "trial_retract_groups@")}:
         raise AssertionError(f"a kernel of a path never launched (or the "
                              f"two-launch step on a preconditioned path): "
                              f"{never}")
@@ -6608,7 +6787,7 @@ def main() -> int:
                              f"{sorted(set(generic_calls))}")
     # K7 on the dense and Schur routes: its launches per phase, and no
     # built-in type on the plain trial
-    k7_names = ("lm_outcome", "chi2_sum", *trial.RETRACTIONS.values(),
+    k7_names = ("lm_outcome", "chi2_sum", "trial_retract_groups",
                 *trial.CHI2.values())
     for label, counts in (("4d", counts_dense), ("4f", counts_dense3),
                           *((f"4s {w_} {t_}", c_)
@@ -6657,7 +6836,8 @@ def main() -> int:
         for label, (wname, src, replaces) in KERNELS_D6.items()]
     # the BA kernels' rows at the other shapes and instantiations
     general = lambda lbl: (lbl.endswith(tuple(GENERAL_SUFFIXES))
-                           and lbl not in PHASE_ROWS)
+                           and lbl not in PHASE_ROWS
+                           and not lbl.startswith("trial_retract_groups"))
     for label in sorted(lbl for (lbl, tg), row in results.items()
                         if tg == "float32" and "@" in lbl
                         and row["kname"].startswith("ba_")
@@ -6726,17 +6906,45 @@ def main() -> int:
              "max_abs_err": row["abs"], "ms": row["ms"],
              "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
-    # K4 at D = 9, the implicit route's preconditioner on the BAL camera,
-    # with its launches at that width in phase 4p
-    row = results[("lane_block_mv@d9", "float32")]
+    # K4 at D = 9, the implicit route's preconditioner step on the BAL
+    # camera (lane_block_mv_dot), with its launches at that
+    # width in phase 4p
+    row = results[("lane_block_mv_dot@d9", "float32")]
     report["kernels"].append(
-        {"name": "lane_block_mv@d9", "route": "cuda",
+        {"name": "lane_block_mv_dot@d9", "route": "cuda",
          "source": "openslam_g2o_torch/kernels/csrc/jacobi_scale.cu",
          "replaces": "openslam_g2o_tpu/core/ba_ell.py:808",
-         "launches": counts_4p["lane_block_mv@d9"],
+         "launches": counts_4p["lane_block_mv_dot@d9"],
          "max_abs_err": row["abs"], "ms": row["ms"],
          "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
          "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    # K7's trial_retract_groups at 4p @400k's and 4l's groups, with the
+    # launches of that phase, and on each vertex type's seeded group, with
+    # the launches that served a group of that type (phases 4-5)
+    group_counts = {"4p 400k": by_phase["4p 400k"], **counts_gen}
+    for label, (phase, _) in GROUP_ROWS.items():
+        if label == "trial_retract_groups":
+            continue                        # the KERNELS row
+        row = results[(label, "float32")]
+        report["kernels"].append(
+            {"name": label, "route": "cuda",
+             "source": "openslam_g2o_torch/kernels/csrc/trial.cu",
+             "replaces": KERNELS["trial_retract_groups"][1],
+             "launches": group_counts[phase]["trial_retract_groups"],
+             "max_abs_err": row["abs"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+    for vname in trial.RETRACT_IDS:
+        label = f"trial_retract_groups@{vname}"
+        row = results[(label, "float32")]
+        report["kernels"].append(
+            {"name": label, "route": "cuda",
+             "source": "openslam_g2o_torch/kernels/csrc/trial.cu",
+             "replaces": KERNELS["trial_retract_groups"][1],
+             "launches": launches[label],
+             "max_abs_err": row["abs"], "ms": row["ms"],
+             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
     # K3 and K4's lane_block_mv at D = 2, the landmarks of phase 4s, with
     # their launches at that width there
     for label, src, replaces in (

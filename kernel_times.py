@@ -4,7 +4,7 @@ the port, so that two trees can be timed in one run on one card.
 
     python3 kernel_times.py [--tree PATH]
                             [--only k15,k12,k16,sandwich,k14,lin,trial,pairs,
-                                    pose]
+                                    pose,precond]
                             [--save FILE] [--against FILE]
 
 It times the `openslam_g2o_torch` of PATH (default: this script's own
@@ -73,7 +73,15 @@ does not, at the same shapes:
   and 400,000 edges of 4j-4n also in float64) and on chip_smoke.py's
   seeded group of 50,000 edges of every type under Huber (phase 3's
   rows), float32 and float64, by device time beside its bound, with the
-  digest of its partials.
+  digest of its partials. Then the retraction alone: on each
+  scene, core/problem.py `trial_candidate` at the first trial's step, by
+  device time, its device kernels (the profiler) and the digests of the
+  candidate and the partials; and on chip_smoke.py's seeded groups
+  (`trial_vertex_group`: every vertex type's group of 50,000, and
+  GROUP_ROWS: 4g's, 4p @400k's and 4l's groups), the tree's retraction
+  of those groups (`trial_retract_groups` where the tree has it, else one
+  per-type wrapper launch per group into the same partials), with
+  digests: the same digests show a tree keeps the parent's bits.
 * pairs: the kernels of LM-PCG over several vertex groups on phase 4s's
   9000-pose landmark world (chip_smoke.PAIR_WORLD, T = 34,108) and on
   phase 4f's world (rows "@3d"): K2' over every pair table and group b
@@ -99,6 +107,17 @@ does not, at the same shapes:
   tol 1e-6) from lambda init, whose trajectory and parameters are
   digested too: with --against they show that a tree keeps this path's
   bits.
+* precond: the block-Jacobi step of the Schur routes' PCG, z = M r
+  and the partials of r . z, as the tree's pcg_solve runs it (K4's
+  `lane_block_mv_dot` where the tree has it, else `lane_block_mv` and
+  `dot_partials`), with torch.bmm (z alone) beside it, on the
+  preconditioner blocks of the shapes the paths run: ba_400k's 900
+  cameras (D = 6, phase 4h), the BAL camera at 400k (D = 9, 4p), 4l's
+  intrinsics hub (D = 4) and cameras (D = 6); then one trial solve each of
+  phases 4h, 4p @400k (30 CG iterations, tol 0) and 4n (pcg 250, tol
+  1e-8; float32, at lambda init): CG iterations, wrapper calls and device
+  kernels per CG iteration, wall (host clock around the solve) and device
+  (the profiler) us per CG iteration, and the step's digest.
 
 Float32 and float64. Each line gives the microseconds per call, the bound
 (bytes over 3.35 TB/s), the error against the plain version relative to
@@ -124,7 +143,7 @@ import time
 import chip_smoke
 
 SECTIONS = ("k15", "k12", "k16", "sandwich", "k14", "lin", "trial", "pairs",
-            "pose")
+            "pose", "precond")
 
 
 def _digest(t):
@@ -668,6 +687,40 @@ def main(argv=None) -> int:
                   + f", {n_kernels} device kernels per call (profiler); "
                   f"retract+chi2 {rc_ms:.3f} ms; chi2_new "
                   f"{float(got[0]):.10g}{agree}", flush=True)
+            if has_k7:
+                cand_call = lambda: problem_mod.trial_candidate(
+                    prob, dxp, bp, lam)
+                cand, part = cand_call()
+                digests = [_digest(cand[g.name])
+                           for g in prob.static.vgroups] + [_digest(part)]
+                key = f"trial candidate {phase} {tag}"
+                saved[key] = digests
+                bits = ""
+                if against is not None and key in against:
+                    bits = (f"; the bits of --against: "
+                            f"{digests == against[key]}")
+                c_us, c_calls, c_held = chip_smoke._device_ms(torch,
+                                                              cand_call)
+                torch.cuda.synchronize()
+                t_h = time.perf_counter()
+                for _ in range(20):
+                    cand_call()
+                host_us = (time.perf_counter() - t_h) / 20 * 1e6
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    cand_call()
+                    torch.cuda.synchronize()
+                c_kernels = sum(
+                    e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+                print(f"kernel_times trial candidate {phase} {tag}: "
+                      f"trial_candidate {1e3 * c_us:.2f} us on the device"
+                      + ("" if c_held else " (host-bound)")
+                      + ("" if c_calls == 200 else f" ({c_calls} calls)")
+                      + f", host {host_us:.1f} us a call, {c_kernels} "
+                      f"device kernels a call; partials {part.numel()}"
+                      f"{bits}", flush=True)
+                del cand, part
             del prob, dxp, bp, ok, res
             torch.cuda.empty_cache()
         # K7's chi2 of the groups of 80,000 and 400,000 edges in float64
@@ -700,6 +753,61 @@ def main(argv=None) -> int:
                                 f"E={chip_smoke.TRIAL_GROUP} seeded group, "
                                 "Huber")
                 del largs
+        # the retraction alone on seeded groups: every vertex type's group
+        # of TRIAL_GROUP and the groups of GROUP_ROWS
+        from openslam_g2o_torch.kernels import trial
+        grouped = hasattr(trial, "trial_retract_groups")
+        for dt in dtypes if has_k7 else ():
+            tag = tag_of(dt)
+            # the vertex types: RETRACT_IDS, or a parent tree's per-type
+            # table
+            specs = [(f"@{v}", ((v, chip_smoke.TRIAL_GROUP),))
+                     for v in (trial.RETRACT_IDS if grouped
+                               else trial.RETRACTIONS)]
+            specs += [(k.replace("trial_retract_groups", ""), spec)
+                      for k, (_, spec) in chip_smoke.GROUP_ROWS.items()]
+            for label, spec in specs:
+                gr = []
+                off = 0
+                for i, (v, n) in enumerate(spec):
+                    x, dx, b, free, lam_g = chip_smoke.trial_vertex_group(
+                        torch, v, n, dt, dev,
+                        seed=9 if len(spec) == 1 else 11 + i)
+                    gr.append((v, x, dx, free, b, off))
+                    off += trial.partial_count(n, dev)
+                part = torch.empty(off, dtype=dt, device=dev)
+                if grouped:
+                    groups = [trial.RetractGroup(*g) for g in gr]
+                    run = lambda g_=groups, p_=part, l_=lam_g: (
+                        *trial.trial_retract_groups(g_, l_, p_), p_)
+                else:
+                    def run(g_=gr, p_=part, l_=lam_g):
+                        return (*(trial.retraction(v)(
+                            x, dx, free, b, l_, p_[o:o + trial.partial_count(
+                                x.shape[0], dev)])[0]
+                            for v, x, dx, free, b, o in g_), p_)
+                outs = run()
+                digests = [_digest(t) for t in outs]
+                key = f"retract seeded{label} {tag}"
+                saved[key] = digests
+                bits = ""
+                if against is not None and key in against:
+                    bits = (f"; the bits of --against: "
+                            f"{digests == against[key]}")
+                nbytes = sum(chip_smoke.trial_bytes_flops(v, x, dx)[0]
+                             for v, x, dx, _, _, _ in gr)
+                us, calls, held = chip_smoke._device_ms(torch, run)
+                print(f"kernel_times retract seeded{label} {tag} (" + " + "
+                      .join(f"{n} {v}" for v, n in spec) + "): "
+                      + ("trial_retract_groups" if grouped else
+                         f"{len(spec)} per-type launches")
+                      + f" {1e3 * us:.2f} us"
+                      + ("" if held else " (host-bound)")
+                      + ("" if calls == 200 else f" ({calls} calls)")
+                      + f"; bound {1e6 * nbytes / chip_smoke.HBM_BYTES_PER_S:.2f}"
+                      f" us{bits}", flush=True)
+                del gr, part, outs
+            torch.cuda.empty_cache()
         if args.save:
             torch.save(out, args.save + ".trial.pt")
 
@@ -972,6 +1080,183 @@ def main(argv=None) -> int:
     if "pairs" in only:
         pairs_section()
 
+    # -- the preconditioner step of the Schur routes' PCG (K4) ---------------
+    def precond_section():
+        from torch.profiler import ProfilerActivity, profile
+        from openslam_g2o_torch import kernels as kernels_mod
+        from openslam_g2o_torch.kernels import cg_step, jacobi_scale
+        from openslam_g2o_torch.models.bal import load_bal_problem
+        fused = hasattr(jacobi_scale, "lane_block_mv_dot")
+        bal_dir = tempfile.mkdtemp(prefix="kernel_times_precond_")
+        bal400 = os.path.join(bal_dir, "bal400k.bal")
+        chip_smoke.bal_camera_scene(bal400, *chip_smoke.BA_400K)
+
+        def step_line(label, tag, mats, r):
+            D, N = r.shape
+            if fused:
+                run = lambda: jacobi_scale.lane_block_mv_dot(mats, r)
+            else:
+                def run():
+                    z = jacobi_scale.lane_block_mv(mats, r)
+                    return z, cg_step.dot_partials(r, z)
+            m_b = mats.view(D, D, N).permute(2, 0, 1).contiguous()
+            r_b = r.T.contiguous()[:, :, None]
+            z, part = run()
+            zp = jacobi_scale.lane_block_mv_plain(mats, r)
+            rel = max(_rel(z, zp),
+                      _rel(part.sum(), cg_step.dot_partials_plain(r, zp)))
+            tol = chip_smoke.TOL_DEFAULT[tag]
+            z2, part2 = run()
+            same = torch.equal(z, z2) and torch.equal(part, part2)
+            key = f"precond step {label} {tag}"
+            digests = [_digest(z), _digest(part)]
+            saved[key] = digests
+            bits = ""
+            if against is not None and key in against:
+                bits = f"; the bits of --against: {digests == against[key]}"
+            if not (rel <= tol and same):
+                failed.append(key)
+            times = {("lane_block_mv_dot" if fused else
+                      "lane_block_mv + dot_partials"): run,
+                     "torch.bmm (z alone)": lambda: torch.bmm(m_b, r_b)}
+            line = []
+            for what, fn in times.items():
+                ms, calls, held = chip_smoke._device_ms(torch, fn)
+                line.append(f"{what} {1e3 * ms:.2f} us"
+                            + ("" if held else " (host-bound)")
+                            + ("" if calls == 200 else f" ({calls} calls)"))
+            nbytes = r.element_size() * ((D * D + 2 * D) * N
+                                         + -(-D * N // 1024))
+            print(f"kernel_times precond step {label} {tag} D={D} N={N}: "
+                  + "; ".join(line) + f"; bound "
+                  f"{1e6 * nbytes / chip_smoke.HBM_BYTES_PER_S:.2f} us; "
+                  f"max_rel_err {rel:.3e}; same bits {same}{bits}"
+                  + ("" if rel <= tol and same else " FAILED"), flush=True)
+
+        def solve_line(label, prob, solve, n_groups):
+            solve()
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                solve()
+                torch.cuda.synchronize()
+                walls.append(time.monotonic() - t0)
+            before = kernels_mod.launch_counts()
+            dx = solve()[0]
+            after = kernels_mod.launch_counts()
+            calls = {k: v - before[k] for k, v in after.items()
+                     if v != before[k]}
+            iters = calls.get("cg_update_xr", 0) // n_groups
+            # a profile can lose its device records (PERF.md §7): up to
+            # three tries
+            for _ in range(3):
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    solve()
+                    torch.cuda.synchronize()
+                rows = [(e.self_device_time_total, e.count, e.key)
+                        for e in prof.key_averages()
+                        if e.device_type == torch.autograd.DeviceType.CUDA
+                        and e.self_device_time_total > 0]
+                if rows:
+                    break
+            busy = sum(r_[0] for r_ in rows)
+            kern = sum(r_[1] for r_ in rows
+                       if not r_[2].startswith(("Memcpy", "Memset")))
+            key = f"precond solve {label}"
+            digests = [_digest(torch.cat([v.reshape(-1)
+                                          for v in dx.values()]))]
+            saved[key] = digests
+            bits = ""
+            if against is not None and key in against:
+                bits = f"; the bits of --against: {digests == against[key]}"
+            it = max(iters, 1)
+            print(f"kernel_times precond solve {label}: {iters} CG "
+                  f"iterations, {n_groups} pose group(s); a CG iteration: "
+                  f"{sum(calls.values()) / it:.2f} wrapper calls ("
+                  + " ".join(f"{k}={v}" for k, v in sorted(calls.items()))
+                  + f" in the solve), {kern / it:.2f} device kernels, "
+                  f"device {busy / it:.2f} us, wall "
+                  + "/".join(f"{1e6 * w / it:.1f}" for w in sorted(walls))
+                  + " us (host clock around the solve, synchronized)"
+                  + bits, flush=True)
+
+        for dt in dtypes:
+            tag = tag_of(dt)
+            # the implicit dual-ELL route's preconditioner blocks
+            for label, make in (
+                    ("@400k", lambda: synthetic_bal_problem(
+                        *chip_smoke.BA_400K, chip_smoke.BA_OBS,
+                        dtype=dt)[0]),
+                    ("@bal400k", lambda: load_bal_problem(bal400,
+                                                          dtype=dt)[0])):
+                prob = make()
+                pat = ba_ell.build_ba_ell_pattern(prob)
+                sys_ = ba_ell._build(prob, pat)
+                lam = torch.tensor(1e-3, dtype=dt, device=dev)
+                _, hinv, _ = ba_inv.ba_block_inv(
+                    sys_["Hll"], ba_inv.LANDMARK,
+                    prob.free[pat.lm_name], lam, b=sys_["b_l"])
+                hcc_d = ba_inv.ba_block_inv(
+                    sys_["Hcc"], ba_inv.CAMERA, prob.free[pat.cam_name], lam,
+                    want_inv=False)[0]
+                binv = ba_inv.ba_block_inv(ba_coupling.ba_sandwich(
+                    sys_["W_cam"], pat.cam_rows, hinv, hcc_d))[1]
+                gen = torch.Generator(device=dev).manual_seed(3)
+                r = torch.randn((pat.dp, pat.n_cam), generator=gen,
+                                dtype=dt, device=dev)
+                step_line(label, tag, binv, r)
+                if dt == torch.float32:
+                    # at lambda init; BA_PCG's tolerance ends CG after two
+                    # iterations there, so the loop runs its 30 to tol 0
+                    alg = ba_ell.LevenbergMarquardtSchurELL(
+                        **chip_smoke.BA_PCG)
+                    lam0 = alg.init(prob)["lam"]
+                    solve_line(
+                        {"@400k": "4h", "@bal400k": "4p @400k"}[label],
+                        prob, lambda: ba_ell._solve(
+                            prob, pat, sys_, lam0,
+                            chip_smoke.BA_PCG["pcg_iters"], 0.0), 1)
+                del prob, pat, sys_, hinv, hcc_d, binv
+                torch.cuda.empty_cache()
+            # the general path: 4l's pose groups, and 4n's solve
+            lprob = general["@intrinsics"].compile(dtype=dt)
+            lsys = ba_general.schur_build(lprob)
+            lpat = lsys["pattern"]
+            hinv = ba_inv.ba_block_inv(lsys["Hll"], ba_inv.LANDMARK,
+                                       lprob.free[lpat.lm_name],
+                                       torch.tensor(1e-3, dtype=dt,
+                                                    device=dev),
+                                       b=lsys["b_l"])[1]
+            hpp = lsys["Hpp"][lpat.perm[:, None], lpat.perm[None, :]]
+            hpp.diagonal().add_(1e-3)
+            for pg in lpat.pose_groups:
+                blk = ba_coupling.ba_sandwich(
+                    lsys["W_pose"][pg.name], pg.rows, hinv,
+                    ba_general.diag_blocks(hpp, pg))
+                binv = ba_inv.ba_block_inv(blk)[1]
+                gen = torch.Generator(device=dev).manual_seed(4)
+                r = torch.randn((pg.dim, pg.count), generator=gen,
+                                dtype=dt, device=dev)
+                step_line(f"@4l {pg.name}", tag, binv, r)
+            del lprob, lsys, lpat, hinv, hpp
+            if dt == torch.float32:
+                nprob = synthetic_bal_problem(
+                    *chip_smoke.BA_400K, chip_smoke.BA_OBS, dtype=dt)[0]
+                alg = ba_general.LevenbergMarquardtSchur()
+                lam0 = alg.init(nprob)["lam"]
+                nsys = ba_general.schur_build(nprob,
+                                              pattern=alg.pattern(nprob))
+                solve_line("4n", nprob, lambda: ba_general._solve(
+                    nprob, nsys, lam0, 250, 1e-8), 1)
+                del nprob, nsys
+            torch.cuda.empty_cache()
+        shutil.rmtree(bal_dir, ignore_errors=True)
+
+    if "precond" in only:
+        precond_section()
     # -- the one-group LM-PCG path (kernels B / K16, C, A, K3, K4, K6, K7) --
     def pose_section():
         from openslam_g2o_torch.apps.simulator import synthetic_pose_graph_2d

@@ -132,7 +132,7 @@ def main(argv=None) -> int:
         "spmv_dot", "spmv_dot_p", "block_ell_spmv", "cg_update_xr",
         "cg_update_p",
         "dot_partials", "chebyshev_init", "chebyshev_update", "ba_wtx",
-        "ba_wv", "lane_block_mv"))
+        "ba_wv", "lane_block_mv", "lane_block_mv_dot"))
     print(f"card: {card}")
     print(f"window: 10 LM iterations, "
           + ("Schur solver" if ba else f"pcg_cheby {args.cheby}")

@@ -23,7 +23,7 @@ default, as in JAX): one S x is K13's `ba_wtx` over all pose groups, the
 dense Hpp_d x (torch.matmul, which the JAX package leaves to XLA too) and
 K13's `ba_wv` per pose group; the preconditioner blocks are K13's
 `ba_sandwich` on the diagonal blocks of Hpp_d, inverted by K11 and applied
-by K4's `lane_block_mv`. The landmarks follow by
+with r . z by K4's `lane_block_mv_dot` (`BlockJacobi`). The landmarks follow by
 back-substitution dx_l = Hinv (b_l - W^T dx_p) (`ba_wtx`).
 
 The JAX module sorts every (edge group, landmark slot, pose slot) by
@@ -51,10 +51,9 @@ import torch
 from openslam_g2o_torch.core.algorithms import _select
 from openslam_g2o_torch.core.problem import (
     Problem, linearize, lm_trial_outcome, robust_chi2)
-from openslam_g2o_torch.core.solvers import pcg_solve
+from openslam_g2o_torch.core.solvers import BlockJacobi, pcg_solve
 from openslam_g2o_torch.kernels import (
-    ba_coupling, ba_edge, ba_inv, dense_assemble, jacobi_scale,
-    schur_general)
+    ba_coupling, ba_edge, ba_inv, dense_assemble, schur_general)
 
 __all__ = ["SchurPattern", "build_schur_pattern", "schur_build",
            "schur_solve", "lm_schur_step", "LevenbergMarquardtSchur"]
@@ -432,13 +431,8 @@ def _solve(problem: Problem, sys: dict, lam, pcg_iters: int,
                 sys["W_pose"][pg.name], pg.rows, Hinv,
                 diag_blocks(Hpp_d, pg)))[1]
             for pg in pat.pose_groups}
-
-    def precond(r):
-        return {k: jacobi_scale.lane_block_mv(binv[k], v)
-                for k, v in r.items()}
-
-    x, ok = pcg_solve(op, b_red, precond=precond, max_iter=pcg_iters,
-                      tol=pcg_tol)
+    x, ok = pcg_solve(op, b_red, precond=BlockJacobi(binv),
+                      max_iter=pcg_iters, tol=pcg_tol)
     dx = {pg.name: x[pg.name] * problem.free[pg.name][None]
           for pg in pat.pose_groups}
     # back-substitution dx_l = Hinv (b_l - W^T dx_p), free

@@ -45,9 +45,10 @@ import torch
 from openslam_g2o_torch.core.algorithms import _select
 from openslam_g2o_torch.core.problem import (
     Problem, linearize_group, lm_trial_outcome, robust_chi2)
-from openslam_g2o_torch.core.solvers import pcg_solve, solve_dense_cholesky
+from openslam_g2o_torch.core.solvers import (
+    BlockJacobi, pcg_solve, solve_dense_cholesky)
 from openslam_g2o_torch.kernels import (
-    ba_coupling, ba_edge, ba_inv, ba_schur, dense_assemble, jacobi_scale)
+    ba_coupling, ba_edge, ba_inv, ba_schur, dense_assemble)
 
 __all__ = ["BAEllPattern", "build_ba_ell_pattern", "dense_schur_ok",
            "dense_schur_ok_sizes", "ba_ell_step", "ba_ell_optimize_fused",
@@ -336,12 +337,8 @@ def _solve(problem: Problem, pattern: BAEllPattern, sys, lam,
         s_blocks = ba_coupling.ba_sandwich(
             sys["W_cam"], pattern.cam_rows, Hinv, Hcc_d)
         _, s_binv, _ = ba_inv.ba_block_inv(s_blocks)
-
-        def precond(r):
-            return {k: jacobi_scale.lane_block_mv(s_binv, v)
-                    for k, v in r.items()}
-
-        x, ok = pcg_solve(op, {cam: b_red}, precond=precond,
+        x, ok = pcg_solve(op, {cam: b_red},
+                          precond=BlockJacobi({cam: s_binv}),
                           max_iter=pcg_iters, tol=pcg_tol, norm="precond",
                           unroll=2)
         dx_p = x[cam] * free_c[None]

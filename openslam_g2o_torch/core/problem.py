@@ -476,10 +476,12 @@ def trial_candidate(problem: Problem, dx_parts: dict,
     dx . (lam dx + b) over every group in one vector (None without them).
     dx_parts and b_parts hold one [N, D] tensor of any strides per group.
 
-    Every vertex type that openslam_g2o_torch.models registers has a
-    wrapper in kernels/trial.py `RETRACTIONS` (K7): its kernel on CUDA
-    tensors, its plain version (vtype.retract and torch.dot) on CPU
-    tensors."""
+    Every group of a vertex type that openslam_g2o_torch.models registers
+    goes to kernels/trial.py `trial_retract_groups` (K7): one launch over
+    all of them on CUDA tensors, each group's partials at its offset (a
+    group's partial_count after the groups before it), the plain version
+    (vtype.retract and torch.dot) on CPU tensors. A type registered at run
+    time keeps `trial.retract_plain`."""
     from openslam_g2o_torch.kernels import trial
     params = problem.params if params is None else params
     vgroups = problem.static.vgroups
@@ -488,19 +490,24 @@ def trial_candidate(problem: Problem, dx_parts: dict,
     if b_parts is not None:
         part = torch.empty(sum(counts), dtype=problem.dtype,
                            device=problem.device)
-    cand, offset = {}, 0
+    cand, served, offset = {}, [], 0
     for g, c in zip(vgroups, counts):
-        args = (params[g.name].contiguous(), dx_parts[g.name],
-                problem.free[g.name])
-        if b_parts is not None:
-            args += (b_parts[g.name], lam, part[offset:offset + c])
-        fn = trial.retraction(g.vtype.name)
-        if fn is None:
-            cand[g.name] = trial.retract_plain(g.vtype, *args)[0]
+        x, free = params[g.name].contiguous(), problem.free[g.name]
+        b = None if b_parts is None else b_parts[g.name]
+        if g.vtype.name in trial.RETRACT_IDS:
+            served.append((g.name, trial.RetractGroup(
+                g.vtype.name, x, dx_parts[g.name], free, b, offset)))
         else:
-            cand[g.name] = fn(*args)[0]
+            args = (x, dx_parts[g.name], free)
+            if b is not None:
+                args += (b, lam, part[offset:offset + c])
+            cand[g.name] = trial.retract_plain(g.vtype, *args)[0]
         offset += c
-    return cand, part
+    if served:
+        cands = trial.trial_retract_groups(
+            [grp for _, grp in served], None if part is None else lam, part)
+        cand.update((name, c) for (name, _), c in zip(served, cands))
+    return {g.name: cand[g.name] for g in vgroups}, part
 
 
 def tangent_parts(problem: Problem, vec) -> dict:

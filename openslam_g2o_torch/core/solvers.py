@@ -15,11 +15,13 @@ import torch
 
 from openslam_g2o_torch.kernels import cg_step as cg
 from openslam_g2o_torch.kernels import chebyshev as cheb
+from openslam_g2o_torch.kernels import jacobi_scale
 from openslam_g2o_torch.kernels.damp_chol import (
     batched_chol_inv_lower, batched_chol_lower)
 
 __all__ = ["solve_dense_cholesky", "batched_small_inv", "batched_chol_lower",
-           "batched_chol_inv_lower", "make_chebyshev_precond", "pcg_solve"]
+           "batched_chol_inv_lower", "make_chebyshev_precond", "BlockJacobi",
+           "pcg_solve"]
 
 
 def solve_dense_cholesky(H, b):
@@ -128,6 +130,26 @@ class _FlatParts:
         return {FLAT: hp}, partials
 
 
+class BlockJacobi:
+    """The block-Jacobi preconditioner of the Schur routes' CG: z = M r per
+    vertex group, M the group's factor table [D*D, N] (`tables`, keyed as
+    the CG vectors; K11's inverse blocks). `pcg_solve` calls `apply_dot`,
+    which also returns the partial sums of r . z, one K4
+    `lane_block_mv_dot` launch per group where `lane_block_mv` and
+    `dot_partials` were two."""
+
+    def __init__(self, tables: dict):
+        self.tables = tables
+
+    def apply_dot(self, r: dict):
+        """(z, partials of r . z over the groups in r's order)."""
+        z, parts = {}, []
+        for k, v in r.items():
+            z[k], part = jacobi_scale.lane_block_mv_dot(self.tables[k], v)
+            parts.append(part)
+        return z, _cat(parts)
+
+
 def _cat(parts):
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
@@ -144,6 +166,17 @@ def _matvec_dot(matvec, p: dict):
         return fused(p)
     hp = _contiguous(matvec(p))
     return hp, _cat([cg.dot_partials(p[k], hp[k]) for k in p])
+
+
+def _precond_dot(precond, r: dict):
+    """(z = M r, partial sums of r . z): the preconditioner's fused form
+    where it has one (`BlockJacobi.apply_dot`: one launch per group), else
+    the preconditioner and a dot kernel per group."""
+    fused = getattr(precond, "apply_dot", None)
+    if fused is not None:
+        return fused(r)
+    z = _contiguous(precond(r))
+    return z, _cat([cg.dot_partials(r[k], z[k]) for k in r])
 
 
 def pcg_solve(matvec, b: dict, precond=None, max_iter: int = 100,
@@ -167,7 +200,8 @@ def pcg_solve(matvec, b: dict, precond=None, max_iter: int = 100,
     The loop is written on the wrappers of kernels/cg_step.py: on the card
     one iteration is three launches (`matvec.matvec_dot` where the operator
     has it, `cg_update_xr`, `cg_update_p` per part; a preconditioner adds
-    its own and one dot), every CG scalar stays in a device buffer, and the
+    its own and one dot, or one launch per part where it has `apply_dot`,
+    as `BlockJacobi` has), every CG scalar stays in a device buffer, and the
     only host read is the continue flag, once per `unroll` iterations.
     A flat operator (one with `flatten` and `split`: core/sparse.py
     EllOperator, PairOperator) runs on one flat vector, every group's part
@@ -207,13 +241,11 @@ def pcg_solve(matvec, b: dict, precond=None, max_iter: int = 100,
     if precond is None:
         z, part_rz = r, part_rr
     else:
-        z = _contiguous(precond(r))
+        z, part_rz = _precond_dot(precond, r)
         p = {k: z[k].clone() for k in keys}     # p is updated in place
-        part_rz = _cat([cg.dot_partials(r[k], z[k]) for k in keys])
         if precond_norm:
-            zb = _contiguous(precond(b))
-            part_b2 = _cat([cg.dot_partials(b[k].contiguous(), zb[k])
-                            for k in keys])
+            _, part_b2 = _precond_dot(
+                precond, {k: b[k].contiguous() for k in keys})
     scal = cg.new_scalars(part_rz)
     cg.cg_start(scal, part_rz, part_rr, part_b2, tol, precond_norm)
     i = 0
@@ -225,9 +257,7 @@ def pcg_solve(matvec, b: dict, precond=None, max_iter: int = 100,
             if precond is None:
                 part_rz = part_rr
             else:
-                z = _contiguous(precond(r))
-                part_rz = _cat([cg.dot_partials(r[k], z[k])
-                                for k in keys])
+                z, part_rz = _precond_dot(precond, r)
             for k in keys:
                 cg.cg_update_p(scal, part_rz, part_rr, z[k], p[k],
                                precond_norm)

@@ -460,8 +460,8 @@ class PairPattern:
     def trial_outcome(self, work, bT: dict, dxT: dict, ok, lam, ni,
                       chi_cur):
         """Candidate and LM bookkeeping of one trial: core/problem.py
-        `lm_trial_outcome`, i.e. K7's `trial_retract_*` per vertex group
-        and `trial_chi2_*` per edge group on the lane-major step and b,
+        `lm_trial_outcome`, i.e. K7's `trial_retract_groups` over the
+        vertex groups and `trial_chi2_*` per edge group on the lane-major step and b,
         read by strides."""
         from openslam_g2o_torch.core.problem import lm_trial_outcome
         return lm_trial_outcome(work, {g: v.T for g, v in dxT.items()},

@@ -15,9 +15,11 @@ the launch per range each; `ba_schur_dense` launches the zero fill of S,
 the copy of Hinv into records (counted by `ba_schur_records`, as is W's
 copy) and its pair kernel; `ba_wv` and `ba_sandwich` are one launch
 each).
-`ba_block_inv`, `damp_chol` and `lane_block_mv`, which serve several
-block widths on one path, also count their launches per width D in
-`wrapper.launches_by_width` (a Counter).
+`ba_block_inv`, `damp_chol`, `lane_block_mv` and `lane_block_mv_dot`,
+which serve several block widths on one path, also count their launches
+per width D in `wrapper.launches_by_width` (a Counter);
+`trial_retract_groups` counts, per vertex type, the launches that served
+a group of that type in `launches_by_type`.
 
 The block-ELL kernels (A, C, K3, K4, `spmv_dot`, `spmv_dot_p`,
 `gershgorin_bound`) are instantiated for 3x3 blocks (SE2 poses) and 6x6
@@ -30,6 +32,7 @@ blocks (SE3 poses); the shapes of the arguments pick the instantiation.
     damp_chol.damp_chol          damping, block Cholesky, b (ROADMAP K3)
     jacobi_scale.jacobi_scale    block-Jacobi scaling      (ROADMAP K4)
     jacobi_scale.lane_block_mv   per-row block apply       (ROADMAP K4)
+    jacobi_scale.lane_block_mv_dot  z = M r and r . z partials (ROADMAP K4)
     cg_step.*                    the CG step               (ROADMAP K6)
     chebyshev.*                  Gershgorin + Chebyshev    (ROADMAP K8)
     retract_chi2.retract_chi2    SE2 trial candidate, chi2 (ROADMAP K7)
@@ -50,7 +53,7 @@ blocks (SE3 poses); the shapes of the arguments pick the instantiation.
     ba_coupling.ba_sandwich      preconditioner blocks     (ROADMAP K13)
     schur_general.schur_edge_blocks  general Schur edge blocks (ROADMAP K14)
     edge_lin.edge_lin_*          edge linearizers          (ROADMAP K17)
-    trial.trial_retract_*        trial candidate per vertex type (ROADMAP K7)
+    trial.trial_retract_groups   a trial's candidate, all groups (ROADMAP K7)
     trial.trial_chi2_*           trial chi2 per edge type  (ROADMAP K7)
     trial.chi2_sum               the chi2 partials' sum    (ROADMAP K7)
     pair_ell.pair_stream         pair blocks, edge-major   (ROADMAP K2')
@@ -65,22 +68,23 @@ The `edge_lin` wrappers, one per edge type of openslam_g2o_torch.models
 XYZ2UV projections in closed form), serve core/problem.py
 `linearize_group` on the dense routes, the general Schur path and K10's
 generic entry; a type registered at run time keeps the generic route.
-The `trial` wrappers, one per vertex type (`trial.RETRACTIONS`) and one
-per edge type (`trial.CHI2`, from K17's functors), serve every trial of
+The `trial` wrappers, `trial_retract_groups` over every vertex group
+(`trial.RETRACT_IDS`) and one per edge type (`trial.CHI2`, from K17's
+functors), serve every trial of
 the dense GN / LM, the dual-ELL Schur and the general Schur routes and the
 chi2 at their inits (core/problem.py `trial_candidate`,
 `robust_chi2_parts`, `robust_chi2`, `lm_trial_outcome`).
 
 The dual-ELL solver takes (Dp, dl) = (6, 3), (3, 2) and (9, 3), the last
 the BAL camera of models/bal.py: K10's generic entry and owner sums, K12
-and K13 at (9, 3), K11 and K4's `lane_block_mv` at D = 9.
+and K13 at (9, 3), K11 and K4's `lane_block_mv_dot` at D = 9.
 
 The general Schur path (core/ba.py) runs K14 `schur_edge_blocks` at (Dp,
 dl) = (6, 3), (4, 3), (3, 2) and (9, 3) (the BAL camera: residual widths 1
 and 2 only), K10's `ba_lm_sums` without its W layout, K13's products
 (`ba_wtx` in one launch over all its pose groups, `ba_wv` and
 `ba_sandwich` per pose group, all three at (Dp, dl) = (4, 3) too), K11
-and K4's `lane_block_mv` at D = 4 and 9, and K15 on the pose slots of its
+and K4's `lane_block_mv_dot` at D = 4 and 9, and K15 on the pose slots of its
 edges. K15 takes block widths up to 9 (the BAL camera on the dense GN / LM
 route and on the general path's pose slots).
 
@@ -104,8 +108,8 @@ WRAPPERS = (
     spmv.block_ell_spmv, edge_se2.edge_se2_blocks, edge_se3.edge_se3_blocks,
     assemble.assemble_gather,
     damp_chol.damp_chol, jacobi_scale.jacobi_scale,
-    jacobi_scale.lane_block_mv, cg_step.spmv_dot, cg_step.spmv_dot_p,
-    cg_step.dot_partials,
+    jacobi_scale.lane_block_mv, jacobi_scale.lane_block_mv_dot,
+    cg_step.spmv_dot, cg_step.spmv_dot_p, cg_step.dot_partials,
     cg_step.cg_residual, cg_step.cg_start, cg_step.cg_update_xr,
     cg_step.cg_update_p, cg_step.cg_finish, chebyshev.gershgorin_bound,
     chebyshev.chebyshev_coeffs, chebyshev.chebyshev_init,
@@ -131,5 +135,6 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     for w in WRAPPERS:
         w.launches = 0
-        if hasattr(w, "launches_by_width"):
-            w.launches_by_width.clear()
+        for by in ("launches_by_width", "launches_by_type"):
+            if hasattr(w, by):
+                getattr(w, by).clear()

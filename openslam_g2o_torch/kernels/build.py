@@ -46,6 +46,7 @@ _SIGNATURES = {
     "g2o_damp_chol": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     "g2o_jacobi_scale": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "g2o_lane_block_mv": (_P, _P, _P, _I, _I, _I, _P),
+    "g2o_lane_block_mv_dot": (_P, _P, _P, _P, _I, _I, _P),
     "g2o_spmv_dot": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "g2o_spmv_dot_p": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "g2o_dot_partials": (_P, _P, _P, _I, _P),
@@ -105,12 +106,9 @@ for _name in ("se2", "se2_xy", "se2_bearing", "se2_prior", "se2_prior_xy",
         _I, _P)
     # K7's trial chi2 of the same type (trial.cu; kernels/trial.py CHI2)
     _SIGNATURES["g2o_trial_chi2_" + _name] = (_P,) * 11 + (_I, _P, _I, _P)
-# K7's trial retraction, one per vertex type (trial.cu; kernels/trial.py
-# RETRACTIONS)
-for _name in ("se2", "point_xy", "se3", "point_xyz", "se3_expmap",
-              "sba_point_xyz", "cam", "intrinsics", "bal_camera"):
-    _SIGNATURES["g2o_trial_retract_" + _name] = (
-        _P, _P, _L, _L, _P, _L, _L, _P, _P, _P, _P, _I, _P)
+# K7's trial retraction over every vertex group (trial.cu; kernels/trial.py
+# RETRACT_IDS)
+_SIGNATURES["g2o_trial_retract_groups"] = (_P, _I, _I, _P, _P, _P)
 _SIGNATURES["g2o_chi2_sum"] = (_P, _I, _P, _P)
 del _name
 

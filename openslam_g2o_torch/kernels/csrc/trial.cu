@@ -7,15 +7,26 @@
 // (:302) and `compute_errors` (:288), which XLA fused into the trial
 // program and which, run op by op, are one torch launch per step of each
 // vertex type's retraction and each edge type's error. Here a trial's
-// outcome is 1 + (vertex groups) + (edge groups) launches:
+// outcome is 1 + ceil(vertex groups / 8) + (edge groups) launches:
 //
-//   trial_retract<V, T>    a thread per vertex of one group: cand =
-//                          retract(x, dx * free) (a fixed vertex too, by a
-//                          zero step, which renormalizes a stored
+//   trial_retract_groups<T>  the retraction of every vertex group
+//                          of a trial, a table of up to kRetractMaxGroups
+//                          groups in the launch parameters (type id,
+//                          tables and strides, n, first block, first
+//                          partial): a block finds its group from the
+//                          prefix of the groups' blocks and switches on
+//                          the type id (uniform in the block) to its
+//                          V::retract; a thread per vertex: cand =
+//                          retract(x, dx * free) (a fixed vertex too, by
+//                          a zero step, which renormalizes a stored
 //                          quaternion and wraps an angle, as JAX's
 //                          vmap(retract) over the masked step does); with
 //                          b given, per-block partial sums of
-//                          dx . (lambda dx + b) over the group's values
+//                          dx . (lambda dx + b), each at the place the
+//                          group's own launch would put it. The types of
+//                          more than 3 stored values stage x and the
+//                          candidate through shared memory with coalesced
+//                          loads and stores.
 //   trial_edge_chi2<F, T>  a block of 256 edges of one group, a thread an
 //                          edge (the float64 D = 6 types' inputs staged by
 //                          the tile loader, edge_tile.cuh, while each thread
@@ -32,10 +43,13 @@
 // at the group's offset and the Schur routes' lane-major [D, N] parts
 // without a transposed copy. No atomics: a run repeats bit for bit.
 //
-// Bound: memory. trial_retract moves P + 2D + 1 values in and P out per
-// vertex; trial_edge_chi2 reads the edge's measurement, Omega, delta,
-// parameter data, indices and gathered vertices. At the 400,000-edge BA
-// scene in float32 that is about 21 MB per trial, 6.4 us at 3.35 TB/s.
+// Bound: memory. The retraction moves P + 2D + 1 values in and P out per
+// vertex: under 3 us at 50,000 vertices against a few us of launch
+// latency, so the launches a trial saves are what counts (one a group
+// beyond the first); trial_edge_chi2 reads the edge's measurement, Omega,
+// delta, parameter data, indices and gathered vertices. At the
+// 400,000-edge BA scene in float32 that is about 21 MB per trial, 6.4 us at
+// 3.35 TB/s.
 #include "edge_tile.cuh"
 
 namespace g2o_torch {
@@ -110,47 +124,149 @@ struct VtxRn {
 // The kernels
 // ---------------------------------------------------------------------------
 
+// One vertex group of trial_retract_groups: its type id (kRetract* below,
+// kernels/trial.py RETRACT_IDS), tables, the group's first block in the
+// launch and its first partial in part_dot.
 template <typename T>
-struct RetractArgs {
+struct RetractGroup {
   const T* x;                        // [N, kP]
   const T* dx;                       // (v, k) at dx[v * dx_v + k * dx_k]
   long long dx_v, dx_k;
   const T* b;                        // likewise; null: no dot product
   long long b_v, b_k;
   const T* free_mask;                // [N]
-  const T* lam;                      // 0-dim
   T* cand;                           // [N, kP]
-  T* part_dot;                       // [blocks] or null
-  int n;
+  int type, n, block0, part0;
 };
 
+constexpr int kRetractMaxGroups = 8;       // trial.MAX_RETRACT_GROUPS
+constexpr int kRetractMaxP = 12;           // the widest stored vertex (cam)
+
+template <typename T>
+struct RetractGroups {
+  RetractGroup<T> g[kRetractMaxGroups];
+  const T* lam;                      // 0-dim
+  T* part_dot;                       // null: no dot product
+  int n_groups;
+};
+
+enum RetractType {
+  kRetractSE2 = 0, kRetractPointXY = 1, kRetractSE3 = 2,
+  kRetractPointXYZ = 3, kRetractSE3Expmap = 4, kRetractSBAPoint = 5,
+  kRetractCam = 6, kRetractIntrinsics = 7, kRetractBALCamera = 8,
+  kRetractTypes = 9
+};
+
+// Types of more than kRetractDirectP stored values stage x and the
+// candidate through shared memory; the narrower ones (se2, point_xy,
+// point_xyz, the SBA point) read and write them directly. On an H100
+// (chip_smoke.py phase 3, 50,000 vertices) staging took a narrow type
+// longer (point_xyz, float64: 4.12 against 3.38 us) and a wide one 2.1-2.3x
+// less time (cam; PERF.md section 6).
+constexpr int kRetractDirectP = 3;
+
+// Block `blk` of group G: a thread per vertex, cand = retract(x, dx *
+// free) and the block's partial of dx . (lambda dx + b).
 template <class V, typename T>
-__global__ void __launch_bounds__(kThreads)
-trial_retract_kernel(const RetractArgs<T> a) {
-  __shared__ T smem[32];
-  const long long v = blockIdx.x * static_cast<long long>(kThreads)
-                      + threadIdx.x;
-  const bool dot = a.part_dot != nullptr;
-  T local = T(0);
-  if (v < a.n) {
-    const T f = a.free_mask[v];
-    const T l = dot ? *a.lam : T(0);
-    T x[V::kP], step[V::kD], moved[V::kP];
-#pragma unroll
-    for (int k = 0; k < V::kP; ++k) x[k] = a.x[v * V::kP + k];
+__device__ __forceinline__ void retract_group_block(
+    const RetractGroup<T>& G, const T* __restrict__ lam,
+    T* __restrict__ part_dot, int blk, T* sx, T* smem) {
+  constexpr bool kStaged = V::kP > kRetractDirectP;
+  const long long v0 = blk * static_cast<long long>(kThreads);
+  const int cnt = static_cast<int>(G.n - v0 < kThreads ? G.n - v0
+                                                       : kThreads);
+  const bool dot = part_dot != nullptr;
+  const int i = threadIdx.x;
+  const long long v = v0 + i;
+  // the step, gradient and mask first, so that their loads are in flight
+  // with the staging of x
+  T f = T(0), d[V::kD], bv[V::kD];
+  if (i < cnt) {
+    f = G.free_mask[v];
 #pragma unroll
     for (int k = 0; k < V::kD; ++k) {
-      const T d = a.dx[v * a.dx_v + k * a.dx_k];
-      if (dot) local += d * (l * d + a.b[v * a.b_v + k * a.b_k]);
-      step[k] = d * f;
+      d[k] = G.dx[v * G.dx_v + k * G.dx_k];
+      bv[k] = dot ? G.b[v * G.b_v + k * G.b_k] : T(0);
+    }
+  }
+  const int vals = cnt * V::kP;
+  if constexpr (kStaged) {
+    const T* __restrict__ xs = G.x + v0 * V::kP;
+    for (int j = threadIdx.x; j < vals; j += kThreads) sx[j] = xs[j];
+    __syncthreads();
+  }
+  T local = T(0);
+  if (i < cnt) {
+    const T l = dot ? *lam : T(0);
+    T x[V::kP], step[V::kD], moved[V::kP];
+#pragma unroll
+    for (int k = 0; k < V::kP; ++k)
+      x[k] = kStaged ? sx[i * V::kP + k] : G.x[v * V::kP + k];
+#pragma unroll
+    for (int k = 0; k < V::kD; ++k) {
+      if (dot) local += d[k] * (l * d[k] + bv[k]);
+      step[k] = d[k] * f;
     }
     V::retract(x, step, moved);
+    // a thread rewrites only the values it read itself
 #pragma unroll
-    for (int k = 0; k < V::kP; ++k) a.cand[v * V::kP + k] = moved[k];
+    for (int k = 0; k < V::kP; ++k) {
+      if constexpr (kStaged)
+        sx[i * V::kP + k] = moved[k];
+      else
+        G.cand[v * V::kP + k] = moved[k];
+    }
+  }
+  if constexpr (kStaged) {
+    __syncthreads();
+    T* __restrict__ cs = G.cand + v0 * V::kP;
+    for (int j = threadIdx.x; j < vals; j += kThreads) cs[j] = sx[j];
   }
   if (dot) {                         // uniform over the grid
     const T total = block_sum(local, smem);
-    if (threadIdx.x == 0) a.part_dot[blockIdx.x] = total;
+    if (threadIdx.x == 0) part_dot[G.part0 + blk] = total;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+trial_retract_groups_kernel(const RetractGroups<T> a) {
+  __shared__ T smem[32];
+  __shared__ T sx[kThreads * kRetractMaxP];
+  int gi = 0;
+  while (gi + 1 < a.n_groups
+         && static_cast<int>(blockIdx.x) >= a.g[gi + 1].block0)
+    ++gi;
+  const RetractGroup<T>& G = a.g[gi];
+  const int blk = static_cast<int>(blockIdx.x) - G.block0;
+  switch (G.type) {
+    case kRetractSE2:
+      retract_group_block<VtxSE2, T>(G, a.lam, a.part_dot, blk, sx, smem);
+      break;
+    case kRetractPointXY:
+      retract_group_block<VtxRn<2>, T>(G, a.lam, a.part_dot, blk, sx, smem);
+      break;
+    case kRetractSE3:
+      retract_group_block<VtxSE3, T>(G, a.lam, a.part_dot, blk, sx, smem);
+      break;
+    case kRetractPointXYZ:
+    case kRetractSBAPoint:
+      retract_group_block<VtxRn<3>, T>(G, a.lam, a.part_dot, blk, sx, smem);
+      break;
+    case kRetractSE3Expmap:
+      retract_group_block<VtxSE3Expmap, T>(G, a.lam, a.part_dot, blk, sx,
+                                           smem);
+      break;
+    case kRetractCam:
+      retract_group_block<VtxCam, T>(G, a.lam, a.part_dot, blk, sx, smem);
+      break;
+    case kRetractIntrinsics:
+      retract_group_block<VtxIntrinsics, T>(G, a.lam, a.part_dot, blk, sx,
+                                            smem);
+      break;
+    default:                         // kRetractBALCamera
+      retract_group_block<VtxRn<9>, T>(G, a.lam, a.part_dot, blk, sx, smem);
+      break;
   }
 }
 
@@ -271,14 +387,47 @@ inline unsigned trial_blocks(int n) {
   return n > 0 ? static_cast<unsigned>(grid_for(n)) : 1u;
 }
 
-template <class V, typename T>
-int launch_trial_retract(const T* x, const T* dx, long long dx_v,
-                         long long dx_k, const T* b, long long b_v,
-                         long long b_k, const T* free_mask, const T* lam,
-                         T* cand, T* part_dot, int n, cudaStream_t stream) {
-  const RetractArgs<T> a{x,         dx,  dx_v, dx_k, b,        b_v, b_k,
-                         free_mask, lam, cand, part_dot, n};
-  trial_retract_kernel<V, T><<<trial_blocks(n), kThreads, 0, stream>>>(a);
+// desc: kRetractGroupWords words per group (type, x, dx, dx_v, dx_k, b,
+// b_v, b_k, free, cand, n, block0, part0: RetractGroup), block0 the
+// prefix of trial_blocks(n) over the launch's groups, starting at 0.
+constexpr int kRetractGroupWords = 13;
+
+template <typename T>
+int launch_trial_retract_groups(const long long* desc, int n_groups,
+                                int n_blocks, const T* lam, T* part_dot,
+                                cudaStream_t stream) {
+  if (n_groups < 1 || n_groups > kRetractMaxGroups || n_blocks < 1
+      || (part_dot != nullptr && lam == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  RetractGroups<T> a = {};
+  a.n_groups = n_groups;
+  a.lam = lam;
+  a.part_dot = part_dot;
+  int blocks = 0;
+  for (int i = 0; i < n_groups; ++i) {
+    const long long* w = desc + i * kRetractGroupWords;
+    RetractGroup<T>& G = a.g[i];
+    G.type = static_cast<int>(w[0]);
+    G.x = reinterpret_cast<const T*>(w[1]);
+    G.dx = reinterpret_cast<const T*>(w[2]);
+    G.dx_v = w[3];
+    G.dx_k = w[4];
+    G.b = reinterpret_cast<const T*>(w[5]);
+    G.b_v = w[6];
+    G.b_k = w[7];
+    G.free_mask = reinterpret_cast<const T*>(w[8]);
+    G.cand = reinterpret_cast<T*>(w[9]);
+    G.n = static_cast<int>(w[10]);
+    G.block0 = static_cast<int>(w[11]);
+    G.part0 = static_cast<int>(w[12]);
+    if (G.type < 0 || G.type >= kRetractTypes || G.n < 0
+        || G.block0 != blocks || G.part0 < 0
+        || (part_dot != nullptr && G.b == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    blocks += static_cast<int>(trial_blocks(G.n));
+  }
+  if (blocks != n_blocks) return static_cast<int>(cudaErrorInvalidValue);
+  trial_retract_groups_kernel<T><<<n_blocks, kThreads, 0, stream>>>(a);
   return launch_status();
 }
 
@@ -314,19 +463,6 @@ int launch_chi2_sum(const T* partials, int n, T* out, cudaStream_t stream) {
 
 }  // namespace g2o_torch
 
-#define G2O_TRIAL_RETRACT_ENTRY(NAME, V, T, SUFFIX)                          \
-  int NAME##SUFFIX(const T* x, const T* dx, long long dx_v, long long dx_k,  \
-                   const T* b, long long b_v, long long b_k,                 \
-                   const T* free_mask, const T* lam, T* cand, T* part_dot,   \
-                   int n, void* stream) {                                    \
-    return g2o_torch::launch_trial_retract<g2o_torch::V, T>(                 \
-        x, dx, dx_v, dx_k, b, b_v, b_k, free_mask, lam, cand, part_dot, n,   \
-        static_cast<cudaStream_t>(stream));                                  \
-  }
-#define G2O_TRIAL_RETRACT_ENTRIES(NAME, V)                                   \
-  G2O_TRIAL_RETRACT_ENTRY(NAME, V, float, _f32)                              \
-  G2O_TRIAL_RETRACT_ENTRY(NAME, V, double, _f64)
-
 #define G2O_TRIAL_CHI2_ENTRY(NAME, FUNCTOR, T, SUFFIX)                       \
   int NAME##SUFFIX(const T* p0, const int* i0, const T* p1, const int* i1,   \
                    const T* p2, const int* i2, const T* meas, const T* info, \
@@ -340,19 +476,9 @@ int launch_chi2_sum(const T* partials, int n, T* out, cudaStream_t stream) {
   G2O_TRIAL_CHI2_ENTRY(NAME, FUNCTOR, float, _f32)                           \
   G2O_TRIAL_CHI2_ENTRY(NAME, FUNCTOR, double, _f64)
 
-// One entry pair per vertex type (kernels/trial.py RETRACTIONS) and per edge
-// type (kernels/trial.py CHI2, K17's functor list), with the prefix g2o_.
+// One entry pair per edge type (kernels/trial.py CHI2, K17's functor list),
+// with the prefix g2o_; the retraction over every vertex group; chi2_sum.
 extern "C" {
-
-G2O_TRIAL_RETRACT_ENTRIES(g2o_trial_retract_se2, VtxSE2)
-G2O_TRIAL_RETRACT_ENTRIES(g2o_trial_retract_point_xy, VtxRn<2>)
-G2O_TRIAL_RETRACT_ENTRIES(g2o_trial_retract_se3, VtxSE3)
-G2O_TRIAL_RETRACT_ENTRIES(g2o_trial_retract_point_xyz, VtxRn<3>)
-G2O_TRIAL_RETRACT_ENTRIES(g2o_trial_retract_se3_expmap, VtxSE3Expmap)
-G2O_TRIAL_RETRACT_ENTRIES(g2o_trial_retract_sba_point_xyz, VtxRn<3>)
-G2O_TRIAL_RETRACT_ENTRIES(g2o_trial_retract_cam, VtxCam)
-G2O_TRIAL_RETRACT_ENTRIES(g2o_trial_retract_intrinsics, VtxIntrinsics)
-G2O_TRIAL_RETRACT_ENTRIES(g2o_trial_retract_bal_camera, VtxRn<9>)
 
 G2O_TRIAL_CHI2_ENTRIES(g2o_trial_chi2_se2, LinSE2)
 G2O_TRIAL_CHI2_ENTRIES(g2o_trial_chi2_se2_xy, LinSE2XY)
@@ -378,6 +504,21 @@ G2O_TRIAL_CHI2_ENTRIES(g2o_trial_chi2_p2sc, LinP2SC)
 G2O_TRIAL_CHI2_ENTRIES(g2o_trial_chi2_sba_cam, LinSBACam)
 G2O_TRIAL_CHI2_ENTRIES(g2o_trial_chi2_sba_scale, LinSBAScale)
 G2O_TRIAL_CHI2_ENTRIES(g2o_trial_chi2_bal, LinBAL)
+
+int g2o_trial_retract_groups_f32(const long long* desc, int n_groups,
+                                 int n_blocks, const float* lam,
+                                 float* part_dot, void* stream) {
+  return g2o_torch::launch_trial_retract_groups<float>(
+      desc, n_groups, n_blocks, lam, part_dot,
+      static_cast<cudaStream_t>(stream));
+}
+int g2o_trial_retract_groups_f64(const long long* desc, int n_groups,
+                                 int n_blocks, const double* lam,
+                                 double* part_dot, void* stream) {
+  return g2o_torch::launch_trial_retract_groups<double>(
+      desc, n_groups, n_blocks, lam, part_dot,
+      static_cast<cudaStream_t>(stream));
+}
 
 int g2o_chi2_sum_f32(const float* partials, int n, float* out, void* stream) {
   return g2o_torch::launch_chi2_sum<float>(partials, n, out,

@@ -9,6 +9,13 @@ blocks, so the scaled system has unit diagonal blocks. `lane_block_mv`
 replaces `lane_block_mv` (core/sparse.py:871-880). Factor tables are
 lane-major [D*D, N] (entry D a + b of row n), as K3 writes them.
 
+`lane_block_mv_dot` is the preconditioner step of the Schur
+routes' preconditioned CG: z = M r per row and the partial sums of r . z
+in one launch, where `lane_block_mv` and cg_step's `dot_partials` were two
+(the preconditioner step of openslam_g2o_tpu/core/solvers.py:246-251). Its
+partials lie in dot_partials' layout, one per CHUNK values of the flat
+[D, N] vector, and carry the bits of dot_partials(r, lane_block_mv(M, r)).
+
 An off-diagonal slot whose D*D entries are all zero (every padding slot)
 is exactly zero in the output whatever the factors hold. The JAX code
 multiplies it out, so a NaN factor of row 0 turns the padding of every row
@@ -24,6 +31,12 @@ import torch
 from openslam_g2o_torch.kernels import build
 from openslam_g2o_torch.kernels._checks import (
     block_width, check_tensors, launch_device, require)
+from openslam_g2o_torch.kernels.cg_step import CHUNK, dot_partials_plain
+
+# the widths lane_block_mv serves (LM-PCG's groups), and those of
+# lane_block_mv_dot (the Schur routes' preconditioners)
+MV_WIDTHS = (2, 3, 6)
+MV_DOT_WIDTHS = (2, 3, 4, 6, 9)
 
 
 def add_diag_plain(values, extra):
@@ -92,21 +105,30 @@ def lane_block_mv_plain(mats, x, transpose=False):
     return (M * x[None]).sum(dim=1)
 
 
+def _check_mv(name, mats, x, widths):
+    """(D, N) of a table and vector the kernels take, D in `widths`; called
+    once per CG iteration, so the messages are built only when a check
+    fails."""
+    if x.dim() != 2:
+        raise ValueError(f"{name}: x must be [D, N]")
+    D, N = x.shape
+    if D not in widths or mats.shape != (D * D, N):
+        raise ValueError(f"{name}: mats must be [D*D, N] and x [D, N] with "
+                         f"D in {widths}, got {tuple(mats.shape)} and "
+                         f"{tuple(x.shape)}")
+    if D * D * N >= 2 ** 31:
+        raise ValueError(f"{name}: D*D*N must be below 2^31")
+    check_tensors(name, x.device, x.dtype, {"mats": mats, "x": x}, {})
+    return D, N
+
+
 def lane_block_mv(mats, x, transpose=False):
     """Apply every row's DxD block to its D-vector: mats [D*D, N], x [D, N]
-    -> [D, N], D = 2 (the point_xy group of LM-PCG over several vertex
-    groups), 3, 4 (the intrinsics group of the general Schur path's
-    preconditioner), 6 or 9 (the BAL camera's blocks on the implicit Schur
-    route). The kernel on CUDA tensors, the plain version on CPU
-    tensors."""
-    require(x.dim() == 2, "lane_block_mv: x must be [D, N]")
-    D, N = x.shape
-    require((D in (2, 4, 9) or D == block_width("lane_block_mv", D))
-            and mats.shape == (D * D, N),
-            f"lane_block_mv: mats must be [D*D, N] and x [D, N], got "
-            f"{tuple(mats.shape)} and {tuple(x.shape)}")
-    check_tensors("lane_block_mv", x.device, x.dtype,
-                  {"mats": mats, "x": x}, {})
+    -> [D, N], D in MV_WIDTHS: 2 (the point_xy group of LM-PCG over several
+    vertex groups), 3 and 6 (the unscale and warm start of LM-PCG); the
+    Schur routes' preconditioner runs `lane_block_mv_dot`. The kernel on
+    CUDA tensors, the plain version on CPU tensors."""
+    D, N = _check_mv("lane_block_mv", mats, x, MV_WIDTHS)
     if not launch_device("lane_block_mv", x.device):
         return lane_block_mv_plain(mats, x, transpose)
     y = torch.empty_like(x)
@@ -121,3 +143,36 @@ def lane_block_mv(mats, x, transpose=False):
 
 lane_block_mv.launches = 0
 lane_block_mv.launches_by_width = collections.Counter()
+
+
+def lane_block_mv_dot_plain(mats, r):
+    """Plain version of `lane_block_mv_dot`: lane_block_mv_plain, then
+    cg_step's dot_partials_plain (one partial)."""
+    z = lane_block_mv_plain(mats, r)
+    return z, dot_partials_plain(r, z)
+
+
+def lane_block_mv_dot(mats, r):
+    """(z, partials): z = M r per row (mats [D*D, N], r [D, N], D in
+    MV_DOT_WIDTHS) and the partial sums of r . z, one per cg_step.CHUNK
+    values of the flat vector on the card (their sum, in order, is the dot
+    product): the bits of cg_step.dot_partials(r, z), z summed as
+    lane_block_mv sums a row, in one launch. The kernel on CUDA tensors,
+    the plain version on CPU tensors."""
+    D, N = _check_mv("lane_block_mv_dot", mats, r, MV_DOT_WIDTHS)
+    if not launch_device("lane_block_mv_dot", r.device):
+        return lane_block_mv_dot_plain(mats, r)
+    z = torch.empty_like(r)
+    partials = torch.empty(max((D * N + CHUNK - 1) // CHUNK, 1),
+                           dtype=r.dtype, device=r.device)
+    if N == 0:
+        return z, partials.zero_()
+    build.launch("g2o_lane_block_mv_dot", r, mats.data_ptr(), r.data_ptr(),
+                 z.data_ptr(), partials.data_ptr(), N, D)
+    lane_block_mv_dot.launches += 1
+    lane_block_mv_dot.launches_by_width[D] += 1
+    return z, partials
+
+
+lane_block_mv_dot.launches = 0
+lane_block_mv_dot.launches_by_width = collections.Counter()

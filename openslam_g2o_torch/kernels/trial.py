@@ -8,16 +8,19 @@ Replaces `apply_update_parts` / `apply_update`
 trial outside the LM-PCG path (whose SE2 / SE3 trial has its own kernels,
 kernels/retract_chi2.py):
 
-    trial_retract_<vertex type>  one vertex group: cand = retract(x,
-        dx * free) and, with b and lambda given, partial sums of
-        dx . (lambda dx + b) over the group's values
+    trial_retract_groups         the retraction of every vertex
+        group of a trial in one launch (up to MAX_RETRACT_GROUPS groups a
+        launch): each group's cand = retract(x, dx * free) and, with b and
+        lambda given, partial sums of dx . (lambda dx + b) over the
+        group's values, at the group's offset in one partial vector
     trial_chi2_<edge type>       one edge group: partial sums of
         rho(e^T Omega e) at the candidate, the error by K17's functors
     chi2_sum                     the sum of chi2 partials in lm_outcome's
         order (the chi2 at a route's init, GN's chi2)
 
-core/problem.py `trial_candidate` and `robust_chi2_parts` look each group's
-type up in RETRACTIONS / CHI2 (wrapper names, resolved at call time, so a
+core/problem.py `trial_candidate` hands every group of a type in
+RETRACT_IDS to `trial_retract_groups`, and `robust_chi2_parts` looks each
+edge group's type up in CHI2 (wrapper names, resolved at call time, so a
 caller that swaps a wrapper for its plain version swaps it there too) and
 hand the partials to kernels/retract_chi2.py `lm_outcome`. A type a caller
 registers at run time has no entry and keeps the plain version on either
@@ -31,6 +34,10 @@ lane-major [D, N] parts.
 """
 from __future__ import annotations
 
+import collections
+import ctypes
+from typing import NamedTuple, Optional
+
 import torch
 
 from openslam_g2o_torch.core import registry, robust
@@ -40,34 +47,28 @@ from openslam_g2o_torch.kernels._checks import (
 
 BLOCK = 256          # kThreads of csrc/common.cuh
 
-# vertex type name -> the name of its retraction wrapper in this module,
-# whose kernel is the C entry "g2o_" + that name
-RETRACTIONS = {
-    "se2": "trial_retract_se2",                  # models/slam2d.py
-    "point_xy": "trial_retract_point_xy",
-    "se3": "trial_retract_se3",                  # models/slam3d.py
-    "point_xyz": "trial_retract_point_xyz",
-    "se3_expmap": "trial_retract_se3_expmap",    # models/sba.py
-    "sba_point_xyz": "trial_retract_sba_point_xyz",
-    "cam": "trial_retract_cam",
-    "intrinsics": "trial_retract_intrinsics",
-    "bal_camera": "trial_retract_bal_camera",    # models/bal.py
-}
+# vertex type name -> its id in trial_retract_groups (RetractType of
+# csrc/trial.cu)
+RETRACT_IDS = {"se2": 0, "point_xy": 1, "se3": 2, "point_xyz": 3,
+               "se3_expmap": 4, "sba_point_xyz": 5, "cam": 6,
+               "intrinsics": 7, "bal_camera": 8}
+# vertex groups of one trial_retract_groups launch (kRetractMaxGroups)
+MAX_RETRACT_GROUPS = 8
 # edge type name -> its chi2 wrapper, one per K17 functor
 CHI2 = {t: "trial_chi2_" + w[len("edge_lin_"):]
         for t, w in edge_lin.LINEARIZERS.items()}
 
 
+def _card_blocks(n: int) -> int:
+    """The blocks of a launch over n vertices or edges (trial_blocks of
+    csrc/trial.cu)."""
+    return max((n + BLOCK - 1) // BLOCK, 1)
+
+
 def partial_count(n: int, device) -> int:
     """The partial sums one wrapper writes for n vertices or edges: a
     block's on the card, one on the CPU."""
-    return max((n + BLOCK - 1) // BLOCK, 1) if device.type == "cuda" else 1
-
-
-def retraction(vtype_name: str):
-    """The retraction wrapper of vertex type `vtype_name`, or None."""
-    name = RETRACTIONS.get(vtype_name)
-    return None if name is None else globals()[name]
+    return _card_blocks(n) if device.type == "cuda" else 1
 
 
 def chi2_of(etype_name: str):
@@ -90,7 +91,7 @@ def _into(out, total):
 # -- the retraction -----------------------------------------------------------
 
 def retract_plain(vtype, x, dx, free, b=None, lam=None, out=None):
-    """The plain version of every retraction wrapper: (vtype.retract(x,
+    """The plain version of one group's retraction: (vtype.retract(x,
     dx * free), the dot product dx . (lam dx + b) as one partial, or None
     without b)."""
     cand = vtype.retract(x, dx * free[:, None])
@@ -100,49 +101,142 @@ def retract_plain(vtype, x, dx, free, b=None, lam=None, out=None):
     return cand, _into(out, dot)
 
 
+# The checks below run on every trial, once per vertex group: their
+# messages are built only when a check fails.
+
 def _strided(what, name, t, shape, like):
-    require(t.shape == shape, f"{what}: {name} must be {list(shape)}")
-    require(t.device == like.device and t.dtype == like.dtype,
-            f"{what}: {name} must be {like.dtype} on {like.device}")
-    require(all(s >= 0 for s in t.stride()),
-            f"{what}: {name} needs non-negative strides")
+    if t.shape != shape:
+        raise ValueError(f"{what}: {name} must be {list(shape)}")
+    if t.device != like.device or t.dtype != like.dtype:
+        raise ValueError(f"{what}: {name} must be {like.dtype} on "
+                         f"{like.device}")
+    if min(t.stride()) < 0:
+        raise ValueError(f"{what}: {name} needs non-negative strides")
 
 
-def _retract(vname, x, dx, free, b, lam, out):
-    """Check the arguments; the plain version on CPU tensors, one launch on
-    CUDA tensors. Returns ((cand, part_dot or None), launched)."""
-    vt = registry.vertex_type(vname)
-    what = f"trial_retract ({vname})"
+def _check_retract(what, vt, x, dx, free, b, lam):
+    """The checks of one group's retraction arguments."""
     N, P, D = x.shape[0], vt.ambient_dim, vt.tangent_dim
-    require(x.shape == (N, P) and free.shape == (N,),
-            f"{what}: x must be [N, {P}] and free [N]")
+    if x.dim() != 2 or x.shape[1] != P or free.shape != (N,):
+        raise ValueError(f"{what}: x must be [N, {P}] and free [N]")
     check_tensors(what, x.device, x.dtype, {"x": x, "free": free}, {})
     _strided(what, "dx", dx, (N, D), x)
-    dot = b is not None
-    if dot:
+    if b is not None:
         _strided(what, "b", b, (N, D), x)
-        require(lam is not None and lam.dim() == 0,
-                f"{what}: lam must be a 0-dim tensor")
+        if lam is None or lam.dim() != 0:
+            raise ValueError(f"{what}: lam must be a 0-dim tensor")
         check_tensors(what, x.device, x.dtype, {"lam": lam}, {})
-        if out is not None:
-            require(out.shape == (partial_count(N, x.device),),
-                    f"{what}: out must hold {partial_count(N, x.device)} "
-                    "partials")
-            check_tensors(what, x.device, x.dtype, {"out": out}, {})
-    if not launch_device(what, x.device):
-        return retract_plain(vt, x, dx, free, b, lam, out), False
-    cand = torch.empty_like(x)
-    part = None
+
+
+# -- the retraction over every vertex group ----------------------------------
+
+class RetractGroup(NamedTuple):
+    """One vertex group of `trial_retract_groups`: its type's name (a key of
+    RETRACT_IDS), x [N, P] contiguous, dx and b [N, D] of any strides (b
+    None: no dot product), free [N], and `offset`, its first partial in the
+    partial vector."""
+    vname: str
+    x: torch.Tensor
+    dx: torch.Tensor
+    free: torch.Tensor
+    b: Optional[torch.Tensor] = None
+    offset: int = 0
+
+
+def retract_launches(counts):
+    """The launches of `trial_retract_groups` on the card over groups of
+    counts[i] vertices: (first, stop, block0, n_blocks) per range of
+    MAX_RETRACT_GROUPS groups, block0 each group's first block in its
+    launch (the prefix of its groups' partial_count), n_blocks the
+    launch's grid."""
+    out = []
+    for first in range(0, len(counts), MAX_RETRACT_GROUPS):
+        stop = min(first + MAX_RETRACT_GROUPS, len(counts))
+        block0, blocks = [], 0
+        for n in counts[first:stop]:
+            block0.append(blocks)
+            blocks += _card_blocks(n)
+        out.append((first, stop, tuple(block0), blocks))
+    return out
+
+
+def trial_retract_groups_plain(groups, lam=None, out=None):
+    """The plain version: `retract_plain` group by group, each group's dot
+    product written into out[offset:offset + partial_count(N)]."""
+    cands = []
+    for g in groups:
+        vt = registry.vertex_type(g.vname)
+        if g.b is None:
+            cands.append(retract_plain(vt, g.x, g.dx, g.free)[0])
+            continue
+        c = partial_count(g.x.shape[0], out.device)
+        cands.append(retract_plain(vt, g.x, g.dx, g.free, g.b, lam,
+                                   out[g.offset:g.offset + c])[0])
+    return cands
+
+
+def trial_retract_groups(groups, lam=None, out=None):
+    """Every group's candidate retract(x, dx * free) (a list in the order of
+    `groups`, RetractGroup each) and, with every group's b given, its
+    partial sums of dx . (lam dx + b) written into `out` (a vector) at the
+    group's offset: partial_count(N) of them, the same bits as the group
+    launched alone (a block's sum depends on its group only). One launch
+    per MAX_RETRACT_GROUPS groups on CUDA tensors, the plain version on
+    CPU tensors. Without b, `lam` and `out` are None."""
+    groups = list(groups)
+    require(len(groups) > 0, "trial_retract_groups: no group")
+    like = groups[0].x
+    dot = groups[0].b is not None
     if dot:
-        part = out if out is not None else torch.empty(
-            partial_count(N, x.device), dtype=x.dtype, device=x.device)
-    build.launch("g2o_" + RETRACTIONS[vname], x, x.data_ptr(), dx.data_ptr(),
-                 dx.stride(0), dx.stride(1),
-                 b.data_ptr() if dot else None, b.stride(0) if dot else 0,
-                 b.stride(1) if dot else 0, free.data_ptr(),
-                 lam.data_ptr() if dot else None, cand.data_ptr(),
-                 part.data_ptr() if dot else None, N)
-    return (cand, part), True
+        if out is None or out.dim() != 1:
+            raise ValueError("trial_retract_groups: out must be a vector")
+        check_tensors("trial_retract_groups", like.device, like.dtype,
+                      {"out": out}, {})
+    elif out is not None or lam is not None:
+        raise ValueError("trial_retract_groups: lam and out go with b")
+    for g in groups:
+        if g.vname not in RETRACT_IDS:
+            raise ValueError(f"trial_retract_groups: no kernel for vertex "
+                             f"type {g.vname}")
+        if (g.b is not None) != dot:
+            raise ValueError("trial_retract_groups: b given for some groups "
+                             "only")
+        what = "trial_retract_groups (" + g.vname + ")"
+        _check_retract(what, registry.vertex_type(g.vname), g.x, g.dx,
+                       g.free, g.b, lam)
+        if g.x.device != like.device or g.x.dtype != like.dtype:
+            raise ValueError(f"{what}: every group on {like.device} in "
+                             f"{like.dtype}")
+        if dot and not (0 <= g.offset and g.offset + partial_count(
+                g.x.shape[0], like.device) <= out.numel()):
+            raise ValueError(f"trial_retract_groups: the partials of "
+                             f"{g.vname} at {g.offset} do not fit out")
+    if not launch_device("trial_retract_groups", like.device):
+        return trial_retract_groups_plain(groups, lam, out)
+    cands = [torch.empty_like(g.x) for g in groups]
+    for first, stop, block0, n_blocks in retract_launches(
+            [g.x.shape[0] for g in groups]):
+        words = []
+        for g, cand, b0 in zip(groups[first:stop], cands[first:stop],
+                               block0):
+            words += [RETRACT_IDS[g.vname], g.x.data_ptr(), g.dx.data_ptr(),
+                      g.dx.stride(0), g.dx.stride(1),
+                      g.b.data_ptr() if dot else 0,
+                      g.b.stride(0) if dot else 0,
+                      g.b.stride(1) if dot else 0, g.free.data_ptr(),
+                      cand.data_ptr(), g.x.shape[0], b0, g.offset]
+        desc = (ctypes.c_longlong * len(words))(*words)
+        build.launch("g2o_trial_retract_groups", like, desc, stop - first,
+                     n_blocks, lam.data_ptr() if dot else None,
+                     out.data_ptr() if dot else None)
+        trial_retract_groups.launches += 1
+        trial_retract_groups.launches_by_type.update(
+            g.vname for g in groups[first:stop])
+    return cands
+
+
+trial_retract_groups.launches = 0
+trial_retract_groups.launches_by_type = collections.Counter()
 
 
 # -- the chi2 -----------------------------------------------------------------
@@ -237,30 +331,6 @@ chi2_sum.launches = 0
 
 # -- the wrappers -------------------------------------------------------------
 
-def _retract_wrappers(vname: str, wname: str):
-    vt = registry.vertex_type(vname)
-
-    def wrapper(x, dx, free, b=None, lam=None, out=None):
-        res, launched = _retract(vname, x, dx, free, b, lam, out)
-        wrapper.launches += launched
-        return res
-
-    def plain(x, dx, free, b=None, lam=None, out=None):
-        return retract_plain(vt, x, dx, free, b, lam, out)
-
-    wrapper.__name__ = wrapper.__qualname__ = wname
-    wrapper.__doc__ = (
-        f"{vt.tag}: (cand = retract(x, dx * free) [N, {vt.ambient_dim}], "
-        "partial sums of dx . (lam dx + b), or None without b) for x "
-        f"[N, {vt.ambient_dim}], dx and b [N, {vt.tangent_dim}] of any "
-        "strides, free [N], lam 0-dim; `out`, if given, takes the partials "
-        "(partial_count(N) of them). K7 on CUDA tensors, the plain version "
-        "on CPU tensors.")
-    plain.__name__ = plain.__qualname__ = wname + "_plain"
-    wrapper.launches = 0
-    return wrapper, plain
-
-
 def _chi2_wrappers(tname: str, wname: str):
     et = registry.edge_type(tname)
 
@@ -289,11 +359,9 @@ def _chi2_wrappers(tname: str, wname: str):
     return wrapper, plain
 
 
-for _v, _w in RETRACTIONS.items():
-    globals()[_w], globals()[_w + "_plain"] = _retract_wrappers(_v, _w)
 for _t, _w in CHI2.items():
     globals()[_w], globals()[_w + "_plain"] = _chi2_wrappers(_t, _w)
 # the wrappers (kernels.WRAPPERS lists them)
-WRAPPERS = (tuple(globals()[_w] for _w in RETRACTIONS.values())
-            + tuple(globals()[_w] for _w in CHI2.values()) + (chi2_sum,))
-del _v, _t, _w
+WRAPPERS = (tuple(globals()[_w] for _w in CHI2.values())
+            + (chi2_sum, trial_retract_groups))
+del _t, _w

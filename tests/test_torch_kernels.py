@@ -1197,7 +1197,7 @@ def test_ba_schur_lm_on_gpu_matches_cpu(cuda, dense, monkeypatch):
     counts = runs["cuda"][1]
     used = ("ba_xyz2uv_blocks", "ba_lm_sums", "ba_cam_sums", "ba_block_inv",
             "ba_wtx", "ba_wv") + (("ba_schur_dense",) if dense
-                                  else ("ba_sandwich", "lane_block_mv"))
+                                  else ("ba_sandwich", "lane_block_mv_dot"))
     assert all(counts[k] > 0 for k in used), counts
     assert (counts["ba_schur_dense"] > 0) == dense
     assert not any(runs["cpu"][1].values())
@@ -1223,7 +1223,7 @@ def test_schur_general_kernels_match_plain_on_gpu(cuda, dtype, kind):
     over the pose groups at (6, 3) and (4, 3), W v with the dot and the
     reduced right-hand side and the preconditioner blocks over the pose
     CSR lists, the 6x6 and 4x4 block inverses on raw blocks that overflow
-    float32 and on well-scaled ones, lane_block_mv at D = 4), each against
+    float32 and on well-scaled ones, lane_block_mv_dot at D = 4), each against
     its plain version on the same inputs; the chunked products twice for
     the same bits."""
     from openslam_g2o_torch.core import ba
@@ -1321,9 +1321,10 @@ def test_schur_general_kernels_match_plain_on_gpu(cuda, dtype, kind):
         spd = spd.permute(1, 2, 0).reshape(pg.dim * pg.dim, -1).contiguous()
         binv = ba_inv.ba_block_inv(spd)[1]
         assert _rel(binv, ba_inv.ba_block_inv_plain(spd)[1]) < TOL_BA[dtype]
-        assert _rel(jacobi_scale.lane_block_mv(binv, xs[pg.name]),
-                    jacobi_scale.lane_block_mv_plain(binv, xs[pg.name])) \
-            < TOL_BA[dtype]
+        z, part = jacobi_scale.lane_block_mv_dot(binv, xs[pg.name])
+        zp, pp = jacobi_scale.lane_block_mv_dot_plain(binv, xs[pg.name])
+        assert _rel(z, zp) < TOL_BA[dtype]
+        assert _rel(part.sum(), pp.sum()) < TOL_BA[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1634,7 +1635,7 @@ def test_general_schur_lm_on_gpu_matches_cpu(cuda, kind):
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-9)
     counts = runs["cuda"][1]
     used = ("schur_edge_blocks", "ba_wv", "ba_sandwich", "ba_lm_sums",
-            "ba_block_inv", "ba_wtx", "lane_block_mv", "dense_assemble",
+            "ba_block_inv", "ba_wtx", "lane_block_mv_dot", "dense_assemble",
             "cg_update_xr", "lm_outcome")
     assert all(counts[k] > 0 for k in used), counts
     assert not any(runs["cpu"][1].values())
@@ -1958,28 +1959,151 @@ def _trial_vertex_group(vname, dtype, device, seed=5):
     return to(x), to(free), to(dx), to(b)
 
 
+def _retract_alone(vname, x, dx, free, b=None, lam=None, plain=False):
+    """One vertex group's retraction through trial_retract_groups (or its
+    plain version) on its own: (cand, its partials, or None without b)."""
+    from openslam_g2o_torch.kernels import trial
+    out = None if b is None else torch.empty(
+        trial.partial_count(x.shape[0], x.device), dtype=x.dtype,
+        device=x.device)
+    fn = (trial.trial_retract_groups_plain if plain
+          else trial.trial_retract_groups)
+    cand, = fn([trial.RetractGroup(vname, x, dx, free, b)], lam, out)
+    return cand, out
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("vname", list(_TRIAL_VERTEX_OF))
 def test_trial_retract_matches_plain_on_gpu(cuda, dtype, vname):
-    """K7's retraction of each vertex type against its plain version: the
-    candidate (relative to its largest entry) and the summed dot partials,
-    one launch, the same bits twice, and without b the same candidate."""
+    """K7's retraction of each vertex type (trial_retract_groups over that
+    group alone) against its plain version: the candidate (relative to its
+    largest entry) and the summed dot partials, one launch, the same bits
+    twice, and without b the same candidate."""
     from openslam_g2o_torch.kernels import trial
     x, free, dxT, bT = _trial_vertex_group(vname, dtype, cuda)
     lam = torch.tensor(0.7, dtype=dtype, device=cuda)
-    fn = trial.retraction(vname)
+    fn = trial.trial_retract_groups
     before = fn.launches
-    cand, part = fn(x, dxT.T, free, bT.T, lam)
+    cand, part = _retract_alone(vname, x, dxT.T, free, bT.T, lam)
     assert fn.launches == before + 1
     assert part.shape == (trial.partial_count(x.shape[0], x.device),)
-    want_c, want_p = getattr(trial, fn.__name__ + "_plain")(
-        x, dxT.T, free, bT.T, lam)
+    want_c, want_p = _retract_alone(vname, x, dxT.T, free, bT.T, lam,
+                                    plain=True)
     assert _rel(cand, want_c) < TOL_K7[dtype], vname
     assert _rel(part.sum(), want_p.sum()) < TOL_K7[dtype], vname
-    cand2, part2 = fn(x, dxT.T, free, bT.T, lam)
+    cand2, part2 = _retract_alone(vname, x, dxT.T, free, bT.T, lam)
     assert torch.equal(cand2, cand) and torch.equal(part2, part)
-    cand3, none = fn(x, dxT.T.contiguous(), free)
+    cand3, none = _retract_alone(vname, x, dxT.T.contiguous(), free)
     assert none is None and torch.equal(cand3, cand)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_trial_retract_groups_gives_the_per_group_bits_on_gpu(cuda, dtype):
+    """K7's trial_retract_groups against each group launched on its own
+    (as the per-type kernels it replaced ran): every vertex type's group
+    (seeded, 4,000 vertices and a 1-vertex and a 300-vertex group of each,
+    the step and gradient transposed lane-major views, as the Schur routes pass them, and views
+    of one flat vector, as the dense route does), the candidates and the
+    partials at each group's offset bit for bit; 28 groups in four
+    launches; without b the same candidates; and against the plain
+    version to TOL_K7."""
+    from openslam_g2o_torch.kernels import trial
+    lam = torch.tensor(0.7, dtype=dtype, device=cuda)
+    groups, want, offset = [], [], 0
+    for i, vname in enumerate(trial.RETRACT_IDS):
+        x, free, dxT, bT = _trial_vertex_group(vname, dtype, cuda, seed=i)
+        D, N = dxT.shape
+        m = min(300, N)
+        flat = torch.cat([dxT.T.reshape(-1), bT.T.reshape(-1)])
+        for n, dx, b in ((N, dxT.T, bT.T),
+                         (1, flat[:D].view(1, D), flat[D * N:D * N + D]
+                          .view(1, D)),
+                         (m, flat[:m * D].view(m, D),
+                          flat[D * N:D * N + m * D].view(m, D))):
+            g = trial.RetractGroup(vname, x[:n].contiguous(), dx,
+                                   free[:n].contiguous(), b, offset)
+            groups.append(g)
+            want.append(_retract_alone(vname, g.x, dx, g.free, b, lam))
+            offset += trial.partial_count(n, x.device)
+    groups.append(groups[0]._replace(offset=offset))
+    want.append(want[0])
+    offset += want[0][1].numel()
+    out = torch.full((offset,), float("nan"), dtype=dtype, device=cuda)
+    before = trial.trial_retract_groups.launches
+    cands = trial.trial_retract_groups(groups, lam, out)
+    assert trial.trial_retract_groups.launches == before + 4
+    for g, cand, (wc, wp) in zip(groups, cands, want):
+        assert torch.equal(cand, wc), g.vname
+        assert torch.equal(out[g.offset:g.offset + wp.numel()], wp), g.vname
+    plain_c = trial.trial_retract_groups_plain(
+        groups, lam, torch.zeros_like(out))
+    for g, cand, pc in zip(groups, cands, plain_c):
+        assert _rel(cand, pc) < TOL_K7[dtype], g.vname
+    out2 = torch.empty_like(out)
+    again = trial.trial_retract_groups(groups, lam, out2)
+    assert torch.equal(out2, out)
+    assert all(torch.equal(a, c) for a, c in zip(again, cands))
+    bare = trial.trial_retract_groups([g._replace(b=None) for g in groups])
+    assert all(torch.equal(a, c) for a, c in zip(bare, cands))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_trial_candidate_launches_once_on_gpu(cuda, dtype):
+    """core/problem.py trial_candidate on the shared-intrinsics scene (three
+    vertex groups): one trial_retract_groups launch, and the bits of each
+    group launched on its own, laid end to end."""
+    from openslam_g2o_torch.kernels import trial
+    prob = _general_scene(cuda, dtype, "intrinsics")
+    gen = torch.Generator().manual_seed(3)
+    dx, b = {}, {}
+    for g in prob.static.vgroups:
+        dx[g.name] = (0.01 * torch.randn(g.tangent_dim, g.count,
+                                         generator=gen, dtype=torch.float64)
+                      ).to(cuda, dtype).T
+        b[g.name] = torch.randn(g.tangent_dim, g.count, generator=gen,
+                                dtype=torch.float64).to(cuda, dtype).T
+    lam = torch.tensor(0.3, dtype=dtype, device=cuda)
+    kernels.reset_launch_counts()
+    cand, part = problem_mod.trial_candidate(prob, dx, b, lam)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    assert counts == {"trial_retract_groups": 1}, counts
+    want_c, want_p = {}, []
+    for g in prob.static.vgroups:
+        want_c[g.name], p = _retract_alone(
+            g.vtype.name, prob.params[g.name], dx[g.name],
+            prob.free[g.name], b[g.name], lam)
+        want_p.append(p)
+    assert torch.equal(part, torch.cat(want_p))
+    for k in want_c:
+        assert torch.equal(cand[k], want_c[k]), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("D", [2, 3, 4, 6, 9])
+def test_lane_block_mv_dot_gives_the_pair_bits_on_gpu(cuda, dtype, D):
+    """K4's lane_block_mv_dot against the two launches it replaces,
+    lane_block_mv then dot_partials: z and the partials bit for bit (at
+    D = 4 and 9, where lane_block_mv is not built, the partials against
+    dot_partials of its own z), twice; and against the plain versions to
+    TOL."""
+    gen = torch.Generator().manual_seed(D)
+    for N in (1, 900, 100_003):
+        M = torch.randn(D * D, N, generator=gen, dtype=torch.float64).to(
+            cuda, dtype)
+        r = torch.randn(D, N, generator=gen, dtype=torch.float64).to(
+            cuda, dtype)
+        before = jacobi_scale.lane_block_mv_dot.launches
+        z, part = jacobi_scale.lane_block_mv_dot(M, r)
+        assert jacobi_scale.lane_block_mv_dot.launches == before + 1
+        z_row = (jacobi_scale.lane_block_mv(M, r)
+                 if D in jacobi_scale.MV_WIDTHS else z)
+        assert torch.equal(z, z_row)
+        assert torch.equal(part, cg_step.dot_partials(r, z_row))
+        zp, pp = jacobi_scale.lane_block_mv_dot_plain(M, r)
+        assert _rel(z, zp) < TOL[dtype]
+        assert _rel(part.sum(), pp.sum()) < TOL[dtype] * D
+        z2, part2 = jacobi_scale.lane_block_mv_dot(M, r)
+        assert torch.equal(z2, z) and torch.equal(part2, part)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -2063,8 +2187,9 @@ def test_trial_routes_on_gpu_never_reach_the_plain_trial(cuda, route,
     chi_g, counts, prob = runs["cuda"]
     np.testing.assert_allclose(chi_g, runs["cpu"][0], rtol=1e-9)
     assert set(runs["cpu"][1].values()) == {0}
+    by_type = trial.trial_retract_groups.launches_by_type
     for g_ in prob.static.vgroups:
-        assert counts[trial.RETRACTIONS[g_.vtype.name]] >= 4, g_.name
+        assert by_type[g_.vtype.name] >= 4, g_.name
     for eg in prob.static.egroups:
         assert counts[trial.CHI2[eg.etype.name]] >= 4, eg.key
     assert counts["chi2_sum"] >= 1
@@ -2102,7 +2227,7 @@ def test_trial_kernels_give_the_lm_pcg_k7_bits_on_gpu(cuda, dtype):
             want = (cand, part, retract_chi2.se3_edge_chi2(
                 cand, ea.indices[0], ea.indices[1], ea.measurement,
                 ea.information, ea.delta, 0))
-        cand, part = trial.retraction(g)(x, dxT.T, free, bT.T, lam)
+        cand, part = _retract_alone(g, x, dxT.T, free, bT.T, lam)
         chi = trial.chi2_of("edge_" + g)(
             (cand, cand), ea.indices, ea.measurement, ea.information,
             ea.delta, (), 0)
@@ -2522,9 +2647,9 @@ def test_bal_kernels_match_plain_on_gpu(cuda, dtype):
         assert torch.equal(trial.trial_chi2_bal(*cargs), part)
     x, free, dx, b = _trial_vertex_group("bal_camera", dtype, cuda)
     lam = torch.tensor(0.7, dtype=dtype, device=cuda)
-    cand, dot = trial.trial_retract_bal_camera(x, dx.T, free, b.T, lam)
-    cand_p, dot_p = trial.trial_retract_bal_camera_plain(x, dx.T, free,
-                                                         b.T, lam)
+    cand, dot = _retract_alone("bal_camera", x, dx.T, free, b.T, lam)
+    cand_p, dot_p = _retract_alone("bal_camera", x, dx.T, free, b.T, lam,
+                                   plain=True)
     assert _rel(cand, cand_p) < TOL_K7[dtype]
     assert _rel(dot.sum(), dot_p.sum()) < TOL_K7[dtype]
     # K10 at (9, 3) on the scene's own linearization
@@ -2587,8 +2712,10 @@ def test_bal_kernels_match_plain_on_gpu(cuda, dtype):
     sinv = ba_inv.ba_block_inv(sw)[1]
     assert _rel(sinv, ba_inv.ba_block_inv_plain(sw)[1]) < _inv_tol(sw,
                                                                    dtype)
-    y = jacobi_scale.lane_block_mv(sinv, xc)
-    assert _rel(y, jacobi_scale.lane_block_mv_plain(sinv, xc)) < TOL[dtype]
+    y, part = jacobi_scale.lane_block_mv_dot(sinv, xc)
+    yp, pp = jacobi_scale.lane_block_mv_dot_plain(sinv, xc)
+    assert _rel(y, yp) < TOL[dtype]
+    assert _rel(part.sum(), pp.sum()) < TOL[dtype] * 9
     # K12 at (9, 3), its records of 27 values
     pairs = pattern.schur_pairs()
     w_rec = ba_schur.ba_schur_records(W_lm.view(27, -1))
@@ -2600,13 +2727,14 @@ def test_bal_kernels_match_plain_on_gpu(cuda, dtype):
     assert torch.equal(S, ba_schur.ba_schur_dense(pairs, W_lm, hinv, hcc_d,
                                                   w_rec=w_rec))
     counts = kernels.launch_counts()
-    for k in ("edge_lin_bal", "trial_chi2_bal", "trial_retract_bal_camera",
+    for k in ("edge_lin_bal", "trial_chi2_bal", "trial_retract_groups",
               "ba_edge_blocks", "ba_lm_sums", "ba_cam_sums", "ba_block_inv",
-              "ba_wtx", "ba_wv", "ba_sandwich", "lane_block_mv",
+              "ba_wtx", "ba_wv", "ba_sandwich", "lane_block_mv_dot",
               "ba_schur_dense", "ba_schur_records"):
         assert counts[k] > 0, k
     assert ba_inv.ba_block_inv.launches_by_width[9] >= 2
-    assert jacobi_scale.lane_block_mv.launches_by_width[9] == 1
+    assert jacobi_scale.lane_block_mv_dot.launches_by_width[9] == 1
+    assert trial.trial_retract_groups.launches_by_type["bal_camera"] == 1
 
 
 @pytest.mark.parametrize("dense", [True, False])
@@ -2637,11 +2765,12 @@ def test_bal_lm_on_gpu_matches_cpu(cuda, dense, monkeypatch):
                              kernels.launch_counts())
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-9)
     counts = runs["cuda"][1]
-    used = ("edge_lin_bal", "trial_chi2_bal", "trial_retract_bal_camera",
+    used = ("edge_lin_bal", "trial_chi2_bal", "trial_retract_groups",
             "ba_edge_blocks", "ba_lm_sums", "ba_cam_sums", "ba_block_inv",
             "ba_wtx", "ba_wv") + (("ba_schur_dense",) if dense
-                                  else ("ba_sandwich", "lane_block_mv"))
+                                  else ("ba_sandwich", "lane_block_mv_dot"))
     assert all(counts[k] > 0 for k in used), counts
+    assert trial.trial_retract_groups.launches_by_type["bal_camera"] > 0
     assert (counts["ba_schur_dense"] > 0) == dense
     assert not any(runs["cpu"][1].values())
 
@@ -2837,12 +2966,14 @@ def test_pair_lm_pcg_on_gpu_matches_cpu(cuda, cheby, monkeypatch):
     counts = runs["cuda"][1]
     used = ("pair_stream", "pair_assemble", "pair_scale", "pair_spmv",
             "pair_spmv_dot", "damp_chol", "lane_block_mv", "cg_update_xr",
-            "edge_lin_se2", "edge_lin_se2_xy", "trial_retract_se2",
-            "trial_retract_point_xy", "trial_chi2_se2", "trial_chi2_se2_xy",
-            "lm_outcome") + (
+            "edge_lin_se2", "edge_lin_se2_xy", "trial_retract_groups",
+            "trial_chi2_se2", "trial_chi2_se2_xy", "lm_outcome") + (
         ("pair_gershgorin", "chebyshev_update", "cg_update_p") if cheby
         else ("pair_spmv_dot_p",))
     assert all(counts[k] > 0 for k in used), counts
+    by_type = trial.trial_retract_groups.launches_by_type
+    assert by_type["se2"] == by_type["point_xy"] == counts[
+        "trial_retract_groups"] > 0
     assert counts["spmv_dot"] == counts["spmv_dot_p"] == 0
     if not cheby:        # the two-launch step: one cg_update_xr a product
         assert counts["cg_update_p"] == 0

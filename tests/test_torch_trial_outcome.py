@@ -205,7 +205,7 @@ def _state(scene):
                 terms=terms, total=total)
 
 
-VERTEX_SCENE = _scene_of(trial.RETRACTIONS)
+VERTEX_SCENE = _scene_of(trial.RETRACT_IDS)
 EDGE_SCENE = _scene_of(trial.CHI2)
 
 
@@ -222,7 +222,7 @@ def _t(a):
 
 # -- the retractions --------------------------------------------------------
 
-@pytest.mark.parametrize("vname", list(trial.RETRACTIONS))
+@pytest.mark.parametrize("vname", list(trial.RETRACT_IDS))
 def test_retraction_and_dot_match_jax(vname):
     """The plain retraction of one vertex group and its dot partial against
     JAX's apply_update_parts and jnp.dot, fixed vertices, quaternions off
@@ -235,10 +235,10 @@ def test_retraction_and_dot_match_jax(vname):
     jdot = jnp.dot(jnp.asarray(dx).ravel(), (LAM * dx + b).ravel())
     # lane-major parts seen transposed, as the Schur routes pass them
     dxT, bT = _t(dx).T.contiguous(), _t(b).T.contiguous()
-    fn = trial.retraction(vname)
     x, free = _t(st["params"][g.name]), _t(st["free"][g.name])
-    cand, part = fn(x, dxT.T, free, bT.T, _t(LAM))
-    assert part.shape == (1,)
+    part = torch.empty(1, dtype=torch.float64)
+    cand, = trial.trial_retract_groups(
+        [trial.RetractGroup(vname, x, dxT.T, free, bT.T)], _t(LAM), part)
     _close(cand, st["cand"][g.name])
     _close(part.sum(), jdot)
     if vname == "se2":
@@ -249,8 +249,9 @@ def test_retraction_and_dot_match_jax(vname):
         np.testing.assert_allclose(
             cand[:, 3:7].norm(dim=1).numpy(), 1.0, rtol=1e-15, atol=1e-15)
     # without b: the candidate alone, the same bits
-    cand2, none = fn(x, _t(dx), free)
-    assert none is None and torch.equal(cand2, cand)
+    cand2, = trial.trial_retract_groups(
+        [trial.RetractGroup(vname, x, _t(dx), free)])
+    assert torch.equal(cand2, cand)
 
 
 @pytest.mark.parametrize("scene", list(SCENES))
@@ -368,25 +369,35 @@ def test_schur_trajectories_match_jax(route):
 # -- the tables ---------------------------------------------------------------
 
 def test_tables_cover_the_models_and_the_c_entries():
-    """A retraction wrapper per vertex type and a chi2 wrapper per edge type
-    of openslam_g2o_torch.models; trial.cu exports each one's entry pair
-    and build.py declares its signature; kernels.WRAPPERS lists them."""
+    """A retraction type id per vertex type and a chi2 wrapper per edge
+    type of openslam_g2o_torch.models; trial.cu exports each chi2 wrapper's
+    entry pair, the retraction over every group and chi2_sum, and build.py
+    declares their signatures; kernels.WRAPPERS lists the wrappers."""
     model_v = {n for n, vt in registry._VERTEX_TYPES.items()
                if vt.retract.__module__.startswith(
                    ("openslam_g2o_torch.models.", "openslam_g2o_torch.ops."))}
-    assert set(trial.RETRACTIONS) == model_v == set(
+    assert set(trial.RETRACT_IDS) == model_v == set(
         tproblem.SUPPORTED_VERTEX_TYPES)
     assert set(trial.CHI2) == set(edge_lin.LINEARIZERS) == set(
         tproblem.SUPPORTED_EDGE_TYPES)
     src = (Path(build.CSRC) / "trial.cu").read_text()
     entries = set(re.findall(
-        r"^G2O_TRIAL_(?:RETRACT|CHI2)_ENTRIES\((\w+),", src, re.M))
-    want = {"g2o_" + w for w in (*trial.RETRACTIONS.values(),
-                                 *trial.CHI2.values())}
+        r"^G2O_TRIAL_CHI2_ENTRIES\((\w+),", src, re.M))
+    want = {"g2o_" + w for w in trial.CHI2.values()}
     assert entries == want
-    assert want | {"g2o_chi2_sum"} <= set(build._SIGNATURES)
+    own = {"g2o_chi2_sum", "g2o_trial_retract_groups"}
+    assert all(f"int {e}_f32(" in src and f"int {e}_f64(" in src
+               for e in own)
+    assert want | own <= set(build._SIGNATURES)
+    assert not {k for k in build._SIGNATURES
+                if k.startswith("g2o_trial_retract_")} - own
     names = {w.__name__ for w in kernels.WRAPPERS}
-    assert {w[4:] for w in want} | {"chi2_sum"} <= names
+    assert {w[4:] for w in want | own} <= names
+    enum = src[src.index("enum RetractType {"):]
+    ids = {k: int(v) for k, v in re.findall(r"kRetract(\w+) = (\d+)",
+                                            enum[:enum.index("};")])}
+    assert ids.pop("Types") == len(trial.RETRACT_IDS)
+    assert sorted(ids.values()) == sorted(trial.RETRACT_IDS.values())
 
 
 def test_a_type_registered_at_run_time_keeps_the_plain_chi2():
